@@ -1,0 +1,358 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py            # all phases, one card
+
+Phases (each prints a line; any failure exits non-zero before the result):
+  1. the card's name and power limit (nvidia-smi), and the kernel build
+     (nvcc for sm_90a, from geoldm_tpu_torch/csrc/egnn_block.cu);
+  2. the EquivariantBlock kernel against its plain PyTorch version on the
+     card at H=256, B=64, N in {16, 24, 32} with ragged masks, plus one
+     'mean'-aggregation and one sin-embedding case, with times and bounds;
+  3. a QM9 latent-diffusion model at nf=256, 9 layers, latent_nf=1, T=1000
+     with random weights from a seeded torch.Generator, written in the
+     upstream checkpoint layout (args.pickle + generative_model_ema.npy);
+  4. the port's HTTP sampling server on 127.0.0.1: /health, three /sample
+     requests (seeded, n_samples, seeded replay), one invalid request,
+     /metrics; the kernel's launch count must equal
+     ((T + 1) * 9 denoiser blocks + 9 decoder blocks) * chunks dispatched
+     (T ancestral steps plus the denoiser call of the final z0 -> x step);
+  5. one full-width denoiser evaluation through the kernel against the same
+     evaluation through the plain path on the CPU.
+
+The line before the last is one JSON object describing each kernel; the last
+line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+
+# Data-sheet peaks of the H100 SXM (nvidia-smi names it "NVIDIA H100 80GB
+# HBM3"): dense non-tensor-core float32 FLOP/s and HBM bytes/s.
+_H100_SXM = "H100 80GB HBM3"
+_FLOP_PEAK, _BW_PEAK = 67.0e12, 3.35e12
+
+# Kernel vs plain: both sum in float32 but in different orders.
+_KERNEL_RTOL = 1e-4
+# Nine blocks chained on the card vs the CPU: order differences compound.
+_DENOISER_RTOL = 2e-4
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def _check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def _card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    _check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def _time_ms(fn, inputs, warmup=3, reps=20):
+    """Mean ms per call with CUDA events, cycling through distinct inputs."""
+    import torch
+
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _block_work(cfg, n_real, n_pad, n_weights):
+    """(FLOP, bytes) one block forward needs for molecules of n_real atoms
+    padded to n_pad: the edge MLPs over real ordered pairs, the node-side
+    products over real nodes, each input read and each output written once."""
+    H, E = cfg.hidden_nf, cfg.edge_feat_nf
+    pairs = float(np.sum(n_real * (n_real - 1)))
+    nodes = float(np.sum(n_real))
+    edge_stage = pairs * (2 * E * H + 2 * H * H + 2 * H)  # first-layer edge term, W2, wa/w3
+    gcl = edge_stage + nodes * (2 * 2 * H * H + 2 * 2 * H * H + 2 * H * H)  # src/dst, node MLP
+    coord = edge_stage + nodes * (2 * 2 * H * H)
+    flops = cfg.inv_sublayers * gcl + coord
+    b = len(n_real)
+    nbytes = 4 * (b * n_pad * (2 * H + 3 * 3 + 1) + n_weights)
+    return flops, nbytes
+
+
+def phase_kernel(card_name):
+    import torch
+
+    from geoldm_tpu_torch.config import EGNNConfig
+    from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+    from geoldm_tpu_torch.ops import egnn_block
+
+    # The plain side runs in full float32, as the kernel does.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    B, H = 64, 256
+    cases = [
+        ("sum", 16, {}), ("sum", 24, {}), ("sum", 32, {}),
+        ("mean", 32, {"aggregation_method": "mean"}), ("sin", 24, {"sin_embedding": True}),
+    ]
+    rows = []
+    for case, n, extra in cases:
+        cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=H, n_layers=9,
+                         attention=True, normalization_factor=1.0, **extra)
+        gen = torch.Generator().manual_seed(n)
+        block = EquivariantBlock(cfg)
+        init_parameters(block, gen)
+        block = block.to(dev).eval()
+        n_weights = sum(p.numel() for p in block.parameters())
+        inputs = []
+        for rep in range(4):
+            rng = np.random.default_rng(1000 * n + rep)
+            n_real = rng.integers(max(1, n - 8), n + 1, size=B)
+            mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
+            h = rng.standard_normal((B, n, H)).astype(np.float32) * mask
+            x = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
+            x0 = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
+            inputs.append(tuple(torch.from_numpy(a).to(dev) for a in (h, x, x0, mask)))
+        with torch.no_grad():
+            h_k, x_k = egnn_block.block_forward_cuda(block, *inputs[0])
+            h_p, x_p = egnn_block.block_forward_plain(block, *inputs[0])
+            torch.cuda.synchronize()
+            err = max(float((h_k - h_p).abs().max()), float((x_k - x_p).abs().max()))
+            scale = max(1.0, float(h_p.abs().max()), float(x_p.abs().max()))
+            _check(bool(torch.isfinite(h_k).all() and torch.isfinite(x_k).all()),
+                   f"kernel output not finite at N={n} {extra}")
+            _check(err <= _KERNEL_RTOL * scale,
+                   f"kernel disagrees with plain at N={n} {extra}: max|d|={err:.3e} "
+                   f"> {_KERNEL_RTOL}*{scale:.3g}")
+            ms = _time_ms(lambda *a: egnn_block.block_forward_cuda(block, *a), inputs)
+            plain_ms = _time_ms(lambda *a: egnn_block.block_forward_plain(block, *a), inputs)
+        n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        flops, nbytes = _block_work(cfg, n_real0, n, n_weights)
+        t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+        row = {"case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
+               "tol": _KERNEL_RTOL * scale,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
+        rows.append(row)
+        print(f"phase 2: egnn_block {case} N={n} B={B} H={H} "
+              f"max|d|={err:.3e} (tol {row['tol']:.2e}) kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms (TF32 off) bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) {row['tflops_achieved']:.2f} TFLOP/s, "
+              f"{cfg.n_layers} launches per sampler step, on {card_name}", flush=True)
+    return rows
+
+
+def _request(base, path, body=None, timeout=1200):
+    if body is None:
+        req = urllib.request.Request(base + path)
+    else:
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _check_molecules(body, sizes, decoder):
+    _check(body["n"] == len(sizes), f"expected {len(sizes)} molecules, got {body['n']}")
+    _check([len(m) for m in body["molecules"]] == list(sizes),
+           "molecule sizes differ from the request")
+    for mol in body["molecules"]:
+        for el, *xyz in mol:
+            _check(el in decoder, f"unknown element {el!r}")
+            _check(bool(np.all(np.isfinite(xyz))), "non-finite coordinate")
+    _check(len(body["stable"]) == len(sizes), "missing stability verdicts")
+
+
+def phase_serve(card_name, tmpdir):
+    import torch
+
+    from geoldm_tpu_torch.cli import serve
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.ops import egnn_block
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.utils.convert import save_reference_checkpoint
+
+    info = get_dataset_info("qm9")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
+                                               diffusion_steps=1000)
+    t0 = time.time()
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    save_reference_checkpoint(model, tmpdir)
+    del model
+    print(f"phase 3: QM9 LDM nf=256 layers=9 latent_nf=1 T=1000, random weights "
+          f"(seed 0) written in upstream layout in {time.time() - t0:.1f} s", flush=True)
+
+    batch_max = 64
+    server, service = serve.main(["--model_path", tmpdir, "--port", "0",
+                                  "--batch_max", str(batch_max)], serve_forever=False)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    T, layers = cfg.diffusion.timesteps, cfg.dynamics.egnn.n_layers
+    dec_layers = cfg.vae.decoder_egnn.n_layers
+    decoder = info["atom_decoder"]
+    buckets = service.buckets
+    try:
+        code, health = _request(base, "/health")
+        _check(code == 200 and health["status"] == "ok", f"/health -> {code} {health}")
+        print(f"phase 4: /health ok, device {health['device']}, buckets {health['buckets']}",
+              flush=True)
+
+        # An n_samples request whose sizes span at most two buckets.
+        nodes = DistributionNodes(info.n_nodes)
+        n_seed = next(s for s in range(100) if len({
+            min(b for b in buckets if b >= k)
+            for k in nodes.sample(48, np.random.default_rng(s))}) <= 2)
+        requests = [("seeded", {"sizes": [12, 14, 16], "seed": 7}),
+                    ("n_samples", {"n_samples": 48, "seed": n_seed}),
+                    ("replay", {"sizes": [12, 14, 16], "seed": 7})]
+        egnn_block.launches = 0
+        chunks, stats, bodies = 0, [], {}
+        for name, req in requests:
+            t1 = time.time()
+            code, body = _request(base, "/sample", req)
+            dt = time.time() - t1
+            _check(code == 200, f"/sample {name} -> {code} {body}")
+            sizes = req.get("sizes") or [len(m) for m in body["molecules"]]
+            _check_molecules(body, sizes, decoder)
+            chunks += n_chunks(sizes, batch_max, DEFAULT_SAMPLE_BUCKETS)
+            bodies[name] = body
+            stats.append({"request": name, "molecules": body["n"], "seconds": dt,
+                          "mol_per_s": body["n"] / dt,
+                          "stable": sum(body["stable"])})
+            print(f"phase 4: /sample {name}: {body['n']} molecules in {dt:.2f} s "
+                  f"({body['n'] / dt:.3f} mol/s, {sum(body['stable'])} stable) "
+                  f"on {card_name}", flush=True)
+        launches = egnn_block.launches
+        _check(bodies["replay"]["molecules"] == bodies["seeded"]["molecules"],
+               "seeded replay returned different molecules")
+        expected = ((T + 1) * layers + dec_layers) * chunks
+        _check(launches == expected,
+               f"kernel launches {launches} != (({T}+1)*{layers} + {dec_layers}) * {chunks}"
+               f" chunks = {expected}")
+        print(f"phase 4: seeded replay identical; kernel launches {launches} = "
+              f"(({T}+1)*{layers} + {dec_layers}) * {chunks} chunks", flush=True)
+
+        for bad in ({"sizes": [0]}, {"sizes": [12], "n_steps": 50}):
+            code, body = _request(base, "/sample", bad)
+            _check(code == 400, f"invalid request {bad} -> {code}, expected 400")
+            print(f"phase 4: invalid request {bad} -> 400 ({body['error']})", flush=True)
+        code, metrics = _request(base, "/metrics")
+        _check(code == 200 and metrics["requests"] == 3 and metrics["errors"] == 2,
+               f"/metrics -> {code} {metrics}")
+        print(f"phase 4: /metrics {json.dumps(metrics)}", flush=True)
+        return launches, chunks, stats, service.model
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def phase_denoiser(model, card_name):
+    import torch
+
+    from geoldm_tpu_torch.ops.com import remove_mean_with_mask
+
+    rng = np.random.default_rng(5)
+    B, N = 16, 32
+    n_real = rng.integers(20, N + 1, size=B)
+    mask = (np.arange(N)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
+    z = rng.standard_normal((B, N, 4)).astype(np.float32) * mask
+    t = rng.uniform(0, 1, size=(B, 1)).astype(np.float32)
+    mask_t, z_t = torch.from_numpy(mask), torch.from_numpy(z)
+    z_t[:, :, :3] = remove_mean_with_mask(z_t[:, :, :3], mask_t)
+    with torch.no_grad():
+        out_k = model.dynamics(torch.from_numpy(t).cuda(), z_t.cuda(), mask_t.cuda())
+        torch.cuda.synchronize()
+        out_k = out_k.cpu()
+        out_p = copy.deepcopy(model.dynamics).cpu()(torch.from_numpy(t), z_t, mask_t)
+    err = float((out_k - out_p).abs().max())
+    scale = max(1.0, float(out_p.abs().max()))
+    _check(bool(torch.isfinite(out_k).all()), "denoiser output not finite")
+    _check(err <= _DENOISER_RTOL * scale,
+           f"denoiser kernel vs plain max|d|={err:.3e} > {_DENOISER_RTOL}*{scale:.3g}")
+    print(f"phase 5: denoiser nf=256 x9 blocks B={B} N={N}: kernel on {card_name} vs "
+          f"plain on CPU max|d|={err:.3e} (tol {_DENOISER_RTOL * scale:.2e})", flush=True)
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    from geoldm_tpu_torch.ops import egnn_block
+
+    t_start = time.time()
+    card = _card_line()
+    card_name = torch.cuda.get_device_name(0)
+    _check(_H100_SXM in card, f"bound_ms uses the H100 SXM's data-sheet peaks; "
+                              f"nvidia-smi names another card: {card}")
+    print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} on {card}",
+          flush=True)
+    egnn_block.library()
+    info = egnn_block.build_info
+    regs = [ln.strip() for ln in info.get("log", "").splitlines() if "registers" in ln]
+    print(f"phase 1: built {info['path']} with nvcc (sm_90a) in {info['seconds']:.1f} s"
+          f"{' (cached)' if info.get('cached') else ''}; ptxas: {' | '.join(regs)}",
+          flush=True)
+
+    rows = phase_kernel(card_name)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        launches, chunks, serve_stats, model = phase_serve(card_name, tmpdir)
+    phase_denoiser(model, card_name)
+
+    main_row = next(r for r in rows if r["case"] == "sum" and r["N"] == 32)
+    print("details: " + json.dumps({"shapes": rows, "serving": serve_stats, "chunks": chunks,
+                                    "seconds": time.time() - t_start}), flush=True)
+    report = {"kernels": [{
+        "name": "egnn_block_fwd", "route": "cuda",
+        "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
+        "replaces": "geoldm_tpu/ops/pallas_egnn.py:232",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None,
+    }]}
+    print(json.dumps(report), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,269 @@
+"""Molecule generation server on the card (port of
+``geoldm_tpu/cli/serve.py:169-580`` for unconditional checkpoints).
+
+Loads an upstream-layout checkpoint directory (``args.pickle`` +
+``generative_model[_ema].npy``) and serves JSON over stdlib http.server.
+
+Endpoints:
+  GET  /health   -> {"status": "ok", "model": ..., "buckets": [...], "device": ...}
+  GET  /metrics  -> request/molecule counters + latency quantiles (JSON)
+  POST /sample   -> {"n_samples": int} or {"sizes": [int, ...]}, optional
+                    {"seed": int, "format": "xyz"|"json"}. Returns molecules
+                    ("json": per-molecule [[element, x, y, z], ...]; "xyz":
+                    xyz text blocks) with a stability verdict each.
+
+Only the dense T-step sampler in float32 is ported. Requests that ask for
+few-step sampling (n_steps, eta, sampler), guidance, clip_z or properties
+get a 400 that says so. Device calls are serialised with a lock; request
+handling is threaded so /health and /metrics answer during generation.
+
+Usage: python -m geoldm_tpu_torch.cli.serve --model_path <checkpoint dir>
+           [--port 8000] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import threading
+import time
+
+import numpy as np
+import torch
+
+# Request fields whose non-default values select samplers or conditioning
+# that this slice does not have yet.
+_NOT_PORTED = {"n_steps": (None, 0), "eta": (1, 1.0), "sampler": ("ddim",),
+               "cfg_scale": (1, 1.0), "clip_z": (0, 0.0)}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="geoldm-tpu-torch sampling server")
+    p.add_argument("--model_path", type=str, required=True,
+                   help="upstream checkpoint dir (args.pickle + generative_model[_ema].npy)")
+    p.add_argument("--dataset", type=str, default="qm9")
+    p.add_argument("--remove_h", action="store_true")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--batch_max", type=int, default=250,
+                   help="max molecules per device dispatch; larger requests are chunked")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   help="float32 only in this version")
+    p.add_argument("--use_ema", type=eval, default=True)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    return p.parse_args(argv)
+
+
+class SamplerService:
+    """Checkpoint + sampler + metrics. Thread-safe: generation runs under a
+    device lock, bookkeeping under a metrics lock."""
+
+    def __init__(self, args):
+        from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+        from geoldm_tpu_torch.models.distributions import DistributionNodes
+        from geoldm_tpu_torch.train import sampling as sampling_mod
+        from geoldm_tpu_torch.utils.buckets import covering_buckets
+        from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+        if args.compute_dtype != "float32":
+            raise ValueError(f"--compute_dtype {args.compute_dtype!r} is not ported yet: "
+                             "this version serves in float32 only")
+        self._sampling = sampling_mod
+        self.args = args
+        self.model, self.model_cfg, _ = load_reference_checkpoint(
+            args.model_path, args.device, args.use_ema)
+        if self.model_cfg.dynamics.context_node_nf > 0:
+            raise SystemExit("conditional checkpoints are not ported yet: this server "
+                             "serves unconditional latent-diffusion models")
+        self.device = next(self.model.parameters()).device
+        self.dataset_info = get_dataset_info(args.dataset, args.remove_h)
+        self.nodes_dist = DistributionNodes(self.dataset_info.n_nodes)
+        self.buckets = covering_buckets(sampling_mod.DEFAULT_SAMPLE_BUCKETS,
+                                        self.dataset_info["max_n_nodes"])
+        self.max_request_size = self.dataset_info["max_n_nodes"]
+        self.device_lock = threading.Lock()
+        self.metrics_lock = threading.Lock()
+        self.requests = self.molecules = self.errors = self.dispatches = 0
+        self._auto_seed = 0
+        # Fresh entropy per process: unseeded requests draw new streams across
+        # restarts (48 bits keep seed + counter inside int64).
+        self._auto_seed_base = args.seed + int.from_bytes(os.urandom(6), "little")
+        self.latencies = []
+        self.started = time.time()
+
+    def _generate(self, sizes, seed):
+        with self.device_lock:
+            return self._sampling.sample_bucketed(
+                self.model, seed, self.dataset_info, np.asarray(sizes, dtype=np.int64),
+                batch_size=self.args.batch_max, buckets=self.buckets)
+
+    def sample(self, body: dict) -> dict:
+        """Handle one /sample request body; returns the response dict."""
+        from geoldm_tpu_torch.evalsuite.analyze import check_stability
+
+        t0 = time.time()
+        if "seed" in body:
+            try:
+                seed = int(body["seed"])
+            except (TypeError, ValueError):
+                raise ValueError("seed must be an integer") from None
+        else:
+            # Unseeded requests must not repeat; the response echoes the
+            # seed so any response can be replayed.
+            with self.metrics_lock:
+                self._auto_seed += 1
+                seed = self._auto_seed_base + self._auto_seed
+
+        for name, defaults in _NOT_PORTED.items():
+            if body.get(name, defaults[0]) not in defaults:
+                raise ValueError(f"{name}={body[name]!r} is not ported yet: this server runs "
+                                 "the dense T-step sampler only")
+        if "properties" in body:
+            raise ValueError("this checkpoint is unconditional — 'properties' is not accepted")
+
+        if "sizes" in body:
+            try:
+                sizes = np.asarray(body["sizes"], dtype=np.int64)
+            except (TypeError, ValueError):
+                raise ValueError("sizes must be a list of ints") from None
+            if sizes.ndim != 1 or len(sizes) == 0:
+                raise ValueError("sizes must be a non-empty list of ints")
+            max_n = self.max_request_size
+            if sizes.min() < 1 or sizes.max() > max_n:
+                raise ValueError(f"sizes must be in [1, {max_n}]")
+        else:
+            try:
+                n = int(body.get("n_samples", 1))
+            except (TypeError, ValueError):
+                raise ValueError("n_samples must be a number") from None
+            if not 1 <= n <= 100_000:
+                raise ValueError("n_samples must be in [1, 100000]")
+            sizes = self.nodes_dist.sample(n, np.random.default_rng(seed))
+
+        one_hot, _, x, node_mask = self._generate(sizes, seed)
+        with self.metrics_lock:
+            self.dispatches += 1
+
+        decoder = self.dataset_info["atom_decoder"]
+        fmt = body.get("format", "json")
+        mols, stable = [], []
+        for i in range(len(x)):
+            n_i = int(node_mask[i, :, 0].sum())
+            types = np.argmax(one_hot[i, :n_i], axis=1)
+            stable.append(bool(check_stability(x[i, :n_i], types, self.dataset_info)[0]))
+            if fmt == "xyz":
+                lines = [f"{n_i}", ""]
+                for a in range(n_i):
+                    px, py, pz = x[i, a]
+                    lines.append(f"{decoder[int(types[a])]} {px:.6f} {py:.6f} {pz:.6f}")
+                mols.append("\n".join(lines))
+            else:
+                mols.append([[decoder[int(types[a])], float(x[i, a, 0]), float(x[i, a, 1]),
+                              float(x[i, a, 2])] for a in range(n_i)])
+        elapsed = time.time() - t0
+        with self.metrics_lock:
+            self.requests += 1
+            self.molecules += len(mols)
+            self.latencies = (self.latencies + [elapsed])[-1000:]
+        return {
+            "molecules": mols,
+            "format": fmt,
+            "stable": stable,
+            "n": len(mols),
+            "sampler": {"n_steps": None, "eta": 1.0, "method": "ddim", "protocol": "dense-T"},
+            "seed": seed,
+            "seconds": round(elapsed, 4),
+        }
+
+    def health(self) -> dict:
+        device = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                  else "cpu")
+        return {
+            "status": "ok",
+            "model": self.args.model_path,
+            "kind": self.model_cfg.kind,
+            "dataset": self.dataset_info["name"],
+            "buckets": list(self.buckets),
+            "device": device,
+            "uptime_s": round(time.time() - self.started, 1),
+        }
+
+    def metrics(self) -> dict:
+        with self.metrics_lock:
+            lat = list(self.latencies)
+            out = {"requests": self.requests, "molecules": self.molecules,
+                   "errors": self.errors, "dispatches": self.dispatches}
+        if lat:
+            out["latency_s"] = {"p50": round(float(np.percentile(lat, 50)), 4),
+                                "p95": round(float(np.percentile(lat, 95)), 4),
+                                "max": round(max(lat), 4)}
+        return out
+
+
+def make_handler(service: SamplerService):
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/health":
+                self._send(200, service.health())
+            elif self.path == "/metrics":
+                self._send(200, service.metrics())
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/sample":
+                self._send(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(body, dict):
+                    raise ValueError("request body must be a JSON object")
+                self._send(200, service.sample(body))
+            except (ValueError, KeyError) as e:
+                # Validation raises readable ValueErrors; anything else is a
+                # server-side fault and gets a 500.
+                with service.metrics_lock:
+                    service.errors += 1
+                self._send(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — the client must get a reply
+                with service.metrics_lock:
+                    service.errors += 1
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def log_message(self, fmt, *log_args):  # quiet by default
+            pass
+
+    return Handler
+
+
+def main(argv=None, *, serve_forever: bool = True):
+    from http.server import ThreadingHTTPServer
+
+    args = parse_args(argv)
+    service = SamplerService(args)
+    server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
+    print(f"serving {args.model_path} on http://{args.host}:{server.server_address[1]} "
+          f"(buckets {service.buckets}, device {service.health()['device']})")
+    if serve_forever:
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            server.shutdown()
+    return server, service
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,116 @@
+"""Model factories (port of ``geoldm_tpu/models/factory.py:29-275``): build
+the frozen config tree, then the ``nn.Module`` on a device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from geoldm_tpu_torch.config import (
+    DiffusionConfig,
+    DynamicsConfig,
+    EGNNConfig,
+    ModelConfig,
+    VAEConfig,
+)
+from geoldm_tpu_torch.diffusion import schedules as S
+from geoldm_tpu_torch.diffusion.latent import EnLatentDiffusion
+from geoldm_tpu_torch.nn.egnn import init_parameters
+from geoldm_tpu_torch.utils.device import resolve_device
+
+
+def _egnn_cfg(in_node_nf: int, out_node_nf: int, nf: int, n_layers: int, *,
+              attention: bool = True, tanh: bool = True, norm_constant: float = 1.0,
+              inv_sublayers: int = 1, sin_embedding: bool = False,
+              normalization_factor: float = 1.0, aggregation_method: str = "sum",
+              remat: bool = False) -> EGNNConfig:
+    return EGNNConfig(
+        in_node_nf=in_node_nf, out_node_nf=out_node_nf, hidden_nf=nf, n_layers=n_layers,
+        inv_sublayers=inv_sublayers, attention=attention, tanh=tanh, coords_range=15.0,
+        norm_constant=norm_constant, sin_embedding=sin_embedding,
+        normalization_factor=normalization_factor, aggregation_method=aggregation_method,
+        remat=remat,
+    )
+
+
+def make_vae_config(dataset_info, *, include_charges: bool = True, context_node_nf: int = 0,
+                    context_indicator: bool = False, nf: int = 256, n_layers: int = 9,
+                    latent_nf: int = 1, kl_weight: float = 0.01, attention: bool = True,
+                    tanh: bool = True, norm_constant: float = 1.0, inv_sublayers: int = 1,
+                    sin_embedding: bool = False, normalization_factor: float = 1.0,
+                    aggregation_method: str = "sum", remat: bool = False) -> ModelConfig:
+    """First-stage VAE; the encoder always has one layer
+    (reference: qm9/models.py:69-77)."""
+    if context_indicator:
+        context_node_nf += 1
+    in_node_nf = len(dataset_info["atom_decoder"]) + int(include_charges)
+    common = dict(attention=attention, tanh=tanh, norm_constant=norm_constant,
+                  inv_sublayers=inv_sublayers, sin_embedding=sin_embedding,
+                  normalization_factor=normalization_factor,
+                  aggregation_method=aggregation_method, remat=remat)
+    vae = VAEConfig(
+        in_node_nf=in_node_nf, latent_nf=latent_nf, n_dims=3, kl_weight=kl_weight,
+        include_charges=include_charges,
+        encoder_egnn=_egnn_cfg(in_node_nf + context_node_nf, nf, nf, 1, **common),
+        decoder_egnn=_egnn_cfg(latent_nf + context_node_nf, in_node_nf, nf, n_layers, **common),
+        context_node_nf=context_node_nf,
+    )
+    return ModelConfig(kind="vae", vae=vae, context_indicator=context_indicator)
+
+
+def make_latent_diffusion_config(
+    dataset_info, *, include_charges: bool = True, condition_time: bool = True,
+    context_node_nf: int = 0, context_indicator: bool = False, nf: int = 256,
+    n_layers: int = 9, latent_nf: int = 1, kl_weight: float = 0.01,
+    trainable_ae: bool = False, attention: bool = True, tanh: bool = True,
+    norm_constant: float = 1.0, inv_sublayers: int = 1, sin_embedding: bool = False,
+    normalization_factor: float = 1.0, aggregation_method: str = "sum",
+    remat: bool = False, diffusion_steps: int = 1000, noise_schedule: str = "polynomial_2",
+    noise_precision: float = 1e-5, loss_type: str = "l2",
+    normalize_factors: Tuple[float, float, float] = (1.0, 4.0, 10.0),
+    model: str = "egnn_dynamics",
+) -> ModelConfig:
+    """VAE + diffusion in its latent space (reference: qm9/models.py:103-166)."""
+    if context_indicator:
+        context_node_nf += 1
+    vae_model = make_vae_config(
+        dataset_info, include_charges=include_charges, context_node_nf=context_node_nf,
+        nf=nf, n_layers=n_layers, latent_nf=latent_nf, kl_weight=kl_weight,
+        attention=attention, tanh=tanh, norm_constant=norm_constant,
+        inv_sublayers=inv_sublayers, sin_embedding=sin_embedding,
+        normalization_factor=normalization_factor, aggregation_method=aggregation_method,
+        remat=remat)
+    dyn_in = latent_nf + int(condition_time)
+    extra = 3 if model == "gnn_dynamics" else 0
+    egnn = _egnn_cfg(
+        dyn_in + context_node_nf + extra, dyn_in + context_node_nf + extra, nf, n_layers,
+        attention=attention, tanh=tanh, norm_constant=norm_constant,
+        inv_sublayers=inv_sublayers, sin_embedding=sin_embedding,
+        normalization_factor=normalization_factor, aggregation_method=aggregation_method,
+        remat=remat)
+    dynamics = DynamicsConfig(in_node_nf=latent_nf, context_node_nf=context_node_nf, n_dims=3,
+                              condition_time=condition_time, mode=model, egnn=egnn)
+    diffusion = DiffusionConfig(
+        in_node_nf=latent_nf, n_dims=3, timesteps=diffusion_steps,
+        noise_schedule=noise_schedule, noise_precision=noise_precision, loss_type=loss_type,
+        norm_values=tuple(normalize_factors), include_charges=include_charges)
+    return ModelConfig(kind="latent_diffusion", diffusion=diffusion, dynamics=dynamics,
+                       vae=vae_model.vae, trainable_ae=trainable_ae,
+                       context_indicator=context_indicator)
+
+
+def build_model(cfg: ModelConfig, device="cuda",
+                generator: Optional[torch.Generator] = None) -> EnLatentDiffusion:
+    """The model on ``device`` (the card unless the caller asks for the
+    CPU), in eval mode. With ``generator`` every weight is drawn from it
+    (reference init); otherwise the caller loads a state dict."""
+    dev = resolve_device(device)
+    d = cfg.diffusion
+    S.check_issues_norm_values(
+        S.gamma_table(d.noise_schedule, d.timesteps, d.noise_precision), d.norm_values)
+    model = EnLatentDiffusion(cfg)
+    if generator is not None:
+        init_parameters(model, generator)
+    return model.to(dev).eval()

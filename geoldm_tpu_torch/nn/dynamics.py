@@ -1,0 +1,100 @@
+"""Dynamics / encoder / decoder wrappers around the EGNN (port of
+``geoldm_tpu/nn/dynamics.py``), named as upstream egnn/models.py.
+
+- ``EGNNDynamics``: the denoiser. Appends the time channel to h, runs the
+  EGNN, returns [vel, h] with the velocity projected to the zero-CoM
+  subspace (reference EGNN_dynamics_QM9, egnn/models.py:8-113).
+- ``EGNNEncoder``: EGNN + ``final_mlp``; its weights load with the
+  checkpoint. Its forward belongs to the training slice.
+- ``EGNNDecoder``: latent -> (x, h) (reference egnn/models.py:287-402).
+
+The reference's NaN guards become branchless whole-tensor resets
+(``_nan_reset``), so no step synchronises the host with the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from geoldm_tpu_torch.config import DynamicsConfig, EGNNConfig
+from geoldm_tpu_torch.nn.egnn import EGNN
+from geoldm_tpu_torch.ops.com import remove_mean_with_mask
+
+
+def _nan_reset(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """Replace the whole tensor by ``fill`` if it contains any NaN."""
+    return torch.where(torch.isnan(x).any(), torch.full_like(x, fill), x)
+
+
+class EGNNDynamics(nn.Module):
+    """eps-prediction network (dynamics_apply, dynamics.py:87-143)."""
+
+    def __init__(self, cfg: DynamicsConfig):
+        super().__init__()
+        if cfg.mode != "egnn_dynamics":
+            raise NotImplementedError(f"dynamics mode {cfg.mode!r} is not ported yet")
+        self.cfg = cfg
+        self.egnn = EGNN(cfg.egnn)
+
+    def forward(self, t: torch.Tensor, xh: torch.Tensor, node_mask: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """t [B, 1] (or a scalar), xh [B, N, 3 + F] -> [B, N, 3 + F]."""
+        cfg = self.cfg
+        b, n, dims = xh.shape
+        h_dims = dims - cfg.n_dims
+        xh = xh * node_mask
+        x = xh[..., :cfg.n_dims]
+        h = xh[..., cfg.n_dims:] if h_dims else torch.ones((b, n, 1), dtype=xh.dtype,
+                                                            device=xh.device)
+        if cfg.condition_time:
+            t = torch.as_tensor(t, dtype=xh.dtype, device=xh.device)
+            h = torch.cat([h, t.reshape(-1, 1, 1).expand(b, n, 1)], dim=-1)
+        if context is not None:
+            h = torch.cat([h, context], dim=-1)
+
+        h_final, x_final = self.egnn(h, x.contiguous(), node_mask)
+        vel = (x_final - x) * node_mask
+
+        if context is not None:
+            h_final = h_final[..., :h_final.shape[-1] - cfg.context_node_nf]
+        if cfg.condition_time:
+            h_final = h_final[..., :-1]
+        vel = remove_mean_with_mask(_nan_reset(vel), node_mask)
+        return vel if h_dims == 0 else torch.cat([vel, h_final], dim=-1)
+
+
+class EGNNEncoder(nn.Module):
+    """VAE encoder weights: one-block EGNN + final MLP to 2*latent_nf + 1
+    (reference egnn/models.py:137-263)."""
+
+    def __init__(self, cfg: EGNNConfig, latent_nf: int):
+        super().__init__()
+        self.egnn = EGNN(cfg)
+        self.final_mlp = nn.Sequential(nn.Linear(cfg.hidden_nf, cfg.hidden_nf), nn.SiLU(),
+                                       nn.Linear(cfg.hidden_nf, 2 * latent_nf + 1))
+
+
+class EGNNDecoder(nn.Module):
+    """latent [B,N,3+latent_nf] -> (x [B,N,3], h [B,N,out]) (decoder_apply,
+    dynamics.py:220-247)."""
+
+    def __init__(self, cfg: EGNNConfig, n_dims: int = 3):
+        super().__init__()
+        self.n_dims = n_dims
+        self.egnn = EGNN(cfg)
+
+    def forward(self, z_xh: torch.Tensor, node_mask: torch.Tensor,
+                context: Optional[torch.Tensor] = None):
+        b, n, dims = z_xh.shape
+        z_xh = z_xh * node_mask
+        x = z_xh[..., :self.n_dims]
+        h = z_xh[..., self.n_dims:] if dims > self.n_dims else torch.ones(
+            (b, n, 1), dtype=z_xh.dtype, device=z_xh.device)
+        if context is not None:
+            h = torch.cat([h, context], dim=-1)
+        h_final, x_final = self.egnn(h, x.contiguous(), node_mask)
+        vel = remove_mean_with_mask(_nan_reset(x_final * node_mask), node_mask)
+        return vel, h_final * node_mask

@@ -1,0 +1,160 @@
+"""Dense-masked E(n)-equivariant GNN as ``nn.Module``s (port of
+``geoldm_tpu/nn/egnn.py:109-262``).
+
+Modules and parameters carry the upstream GeoLDM names
+(egnn/egnn_new.py: ``e_block_{i}.gcl_{j}.edge_mlp.{0,2}``, ``att_mlp.0``,
+``node_mlp.{0,2}``, ``gcl_equiv.coord_mlp.{0,2,4}``, ``embedding``,
+``embedding_out``), so upstream state dicts load with ``strict=True``.
+
+Node tensors stay ``[B, N, F]``; pairwise quantities are dense
+``[B, N, N, *]``. The first edge-MLP layer is split into source/target/edge
+weight slices instead of materialising the ``[h_i, h_j, e_ij]`` concat.
+``EGNN.forward`` runs each block through ``ops.egnn_block.block_forward``:
+the CUDA kernel on the card, the modules' plain forward on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from geoldm_tpu_torch.config import EGNNConfig
+from geoldm_tpu_torch.ops import egnn_block
+from geoldm_tpu_torch.ops.distance import coord2diff, sin_embedding
+
+
+def _pair_first_layer(lin: nn.Linear, h: torch.Tensor, edge_attr: Optional[torch.Tensor]):
+    """lin([h_i, h_j, e_ij]) for all pairs without building the concat."""
+    f = h.shape[-1]
+    w = lin.weight  # [out, 2f + E]
+    pre = (h @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
+    if edge_attr is not None and w.shape[1] > 2 * f:
+        pre = pre + edge_attr @ w[:, 2 * f:].T
+    return pre + lin.bias
+
+
+def _aggregate(m: torch.Tensor, edge_mask: torch.Tensor, cfg: EGNNConfig) -> torch.Tensor:
+    """Masked neighbour sum. 'sum' divides by normalization_factor; 'mean'
+    divides by the PADDED node count (every edge of the dense list counts,
+    as in the reference's unsorted_segment_mean over the full edge list)."""
+    agg = (m * edge_mask).sum(dim=2)
+    if cfg.aggregation_method == "sum":
+        return agg / cfg.normalization_factor
+    if cfg.aggregation_method == "mean":
+        return agg / m.shape[2]
+    raise ValueError(cfg.aggregation_method)
+
+
+class GCL(nn.Module):
+    """Graph convolution layer (reference egnn_new.py:5-65)."""
+
+    def __init__(self, cfg: EGNNConfig):
+        super().__init__()
+        nf, e = cfg.hidden_nf, cfg.edge_feat_nf
+        self.cfg = cfg
+        self.edge_mlp = nn.Sequential(nn.Linear(2 * nf + e, nf), nn.SiLU(),
+                                      nn.Linear(nf, nf), nn.SiLU())
+        self.node_mlp = nn.Sequential(nn.Linear(2 * nf, nf), nn.SiLU(),
+                                      nn.Linear(nf, nf))
+        if cfg.attention:
+            self.att_mlp = nn.Sequential(nn.Linear(nf, 1), nn.Sigmoid())
+
+    def forward(self, h, edge_attr, node_mask, edge_mask):
+        pre = _pair_first_layer(self.edge_mlp[0], h, edge_attr)
+        mij = F.silu(self.edge_mlp[2](F.silu(pre)))
+        if self.cfg.attention:
+            mij = mij * self.att_mlp(mij)
+        agg = _aggregate(mij, edge_mask, self.cfg)
+        out = h + self.node_mlp(torch.cat([h, agg], dim=-1))
+        return out * node_mask
+
+
+class EquivariantUpdate(nn.Module):
+    """Equivariant coordinate update (reference egnn_new.py:68-105);
+    last layer bias-free."""
+
+    def __init__(self, cfg: EGNNConfig):
+        super().__init__()
+        nf, e = cfg.hidden_nf, cfg.edge_feat_nf
+        self.cfg = cfg
+        self.coord_mlp = nn.Sequential(nn.Linear(2 * nf + e, nf), nn.SiLU(),
+                                       nn.Linear(nf, nf), nn.SiLU(),
+                                       nn.Linear(nf, 1, bias=False))
+
+    def forward(self, h, x, coord_diff, edge_attr, node_mask, edge_mask):
+        pre = _pair_first_layer(self.coord_mlp[0], h, edge_attr)
+        mid = F.silu(self.coord_mlp[2](F.silu(pre)))
+        s = self.coord_mlp[4](mid)  # [B, N, N, 1]
+        if self.cfg.tanh:
+            s = torch.tanh(s) * self.cfg.coords_range_layer
+        x = x + _aggregate(coord_diff * s, edge_mask, self.cfg)
+        return x * node_mask
+
+
+class EquivariantBlock(nn.Module):
+    """inv_sublayers GCLs then one coordinate update (reference
+    egnn_new.py:108-147). The block's own distance features are
+    concatenated with the EGNN-level ones from the input coordinates."""
+
+    def __init__(self, cfg: EGNNConfig):
+        super().__init__()
+        self.cfg = cfg
+        for j in range(cfg.inv_sublayers):
+            self.add_module(f"gcl_{j}", GCL(cfg))
+        self.gcl_equiv = EquivariantUpdate(cfg)
+
+    def forward(self, h, x, edge_attr0, node_mask, edge_mask):
+        radial, coord_diff = coord2diff(x, self.cfg.norm_constant)
+        dist = sin_embedding(radial) if self.cfg.sin_embedding else radial
+        edge_attr = torch.cat([dist, edge_attr0], dim=-1)
+        for j in range(self.cfg.inv_sublayers):
+            h = getattr(self, f"gcl_{j}")(h, edge_attr, node_mask, edge_mask)
+        x = self.gcl_equiv(h, x, coord_diff, edge_attr, node_mask, edge_mask)
+        return h * node_mask, x
+
+
+class EGNN(nn.Module):
+    """Full EGNN (reference egnn_new.py:150-197). h [B,N,in_node_nf],
+    x [B,N,3], node_mask [B,N,1] -> (h [B,N,out_node_nf], x [B,N,3]).
+    The edge mask is the node-mask outer product minus the diagonal."""
+
+    def __init__(self, cfg: EGNNConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = nn.Linear(cfg.in_node_nf, cfg.hidden_nf)
+        self.embedding_out = nn.Linear(cfg.hidden_nf, cfg.out_node_nf)
+        for i in range(cfg.n_layers):
+            self.add_module(f"e_block_{i}", EquivariantBlock(cfg))
+
+    def forward(self, h, x, node_mask):
+        x0 = x
+        h = self.embedding(h)
+        for i in range(self.cfg.n_layers):
+            h, x = egnn_block.block_forward(getattr(self, f"e_block_{i}"), h, x, x0, node_mask)
+        return self.embedding_out(h) * node_mask, x
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every weight from ``generator`` with the reference's init:
+    torch-default U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases,
+    and xavier-uniform with gain 0.001 for each coordinate MLP's last layer
+    (egnn_new.py:75-76)."""
+    with torch.no_grad():
+        for name, mod in module.named_modules():
+            if not isinstance(mod, nn.Linear):
+                continue
+            fan_out, fan_in = mod.weight.shape
+            if name.endswith("coord_mlp.4"):
+                bound = 0.001 * math.sqrt(6.0 / (fan_in + fan_out))
+            else:
+                bound = 1.0 / math.sqrt(fan_in)
+            mod.weight.copy_(torch.empty_like(mod.weight, device="cpu")
+                             .uniform_(-bound, bound, generator=generator))
+            if mod.bias is not None:
+                b = 1.0 / math.sqrt(fan_in)
+                mod.bias.copy_(torch.empty_like(mod.bias, device="cpu")
+                               .uniform_(-b, b, generator=generator))

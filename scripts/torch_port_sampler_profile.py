@@ -1,0 +1,109 @@
+"""Where a dense sampler step of the PyTorch/CUDA port spends its time.
+
+Builds the QM9 latent-diffusion model at nf=256, 9 layers, T=1000 with
+random weights (seeded torch.Generator) on one card and, for a few
+(batch, pad) shapes, times ancestral steps (sample_p_zs_given_zt) on the
+host clock around synchronised work, then traces a window of steps with
+torch.profiler and splits device time into the EquivariantBlock kernel's
+two grids (edge and node GEMM) and everything else. Prints one JSON line.
+
+    python3 scripts/torch_port_sampler_profile.py
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from geoldm_tpu_torch.data.datasets_config import get_dataset_info  # noqa: E402
+from geoldm_tpu_torch.diffusion import vdm  # noqa: E402
+from geoldm_tpu_torch.models import factory  # noqa: E402
+from geoldm_tpu_torch.ops.com import remove_mean_with_mask  # noqa: E402
+
+SHAPES = ((4, 16), (64, 16), (64, 24), (64, 32))
+STEPS, WARMUP, TRACED = 50, 10, 10
+
+
+def _steps(model, gamma_fn, gen, z, mask, s_from, n):
+    cfg = model.cfg.diffusion
+    b = z.shape[0]
+    for k in range(n):
+        s = s_from - k
+        s_arr = torch.full((b, 1), s / cfg.timesteps, device=z.device)
+        t_arr = torch.full((b, 1), (s + 1) / cfg.timesteps, device=z.device)
+        z = vdm.sample_p_zs_given_zt(model.dynamics, cfg, gamma_fn, gen, s_arr, t_arr, z, mask)
+    return z
+
+
+def _device_split(prof):
+    """Device microseconds by group over a traced window."""
+    split = {"edge_kernel": 0.0, "gemm_nt_kernel": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us:
+            continue
+        key = next((k for k in ("edge_kernel", "gemm_nt_kernel") if k in ev.key), "other")
+        split[key] += us
+    return split
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    info = get_dataset_info("qm9")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
+                                               diffusion_steps=1000)
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    gamma_fn = vdm.make_gamma_fn(cfg.diffusion, "cuda")
+    rows = []
+    for b, n in SHAPES:
+        rng = np.random.default_rng(n)
+        n_real = rng.integers(max(1, n - 7), n + 1, size=b)
+        mask = torch.from_numpy(
+            (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]).cuda()
+        z = torch.from_numpy(rng.standard_normal((b, n, 4)).astype(np.float32)).cuda() * mask
+        z[:, :, :3] = remove_mean_with_mask(z[:, :, :3], mask)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with torch.no_grad():
+            z = _steps(model, gamma_fn, gen, z, mask, 999, WARMUP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP, STEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t1 = time.perf_counter()
+                _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP - STEPS, TRACED)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t1) * 1e3 / TRACED
+        split = {k: v / 1e3 / TRACED for k, v in _device_split(prof).items()}
+        device_ms = sum(split.values())
+        row = {"B": b, "N": n, "step_ms": wall_ms, "traced_step_ms": traced_ms,
+               "device_ms_per_step": device_ms or None,
+               "split_ms_per_step": split if device_ms else None,
+               "device_busy_share": device_ms / traced_ms if device_ms else None,
+               "mol_per_s_at_T1000": b / (wall_ms * 1e-3 * 1001)}
+        rows.append(row)
+        print(f"B={b} N={n}: {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step "
+              f"{json.dumps(split)} on {card}", flush=True)
+    print(json.dumps({"card": card, "steps": STEPS, "traced_steps": TRACED, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
