@@ -4,7 +4,7 @@
 
 Phases (each prints a line; any failure exits non-zero before the result):
   1. the card's name and power limit (nvidia-smi), and the kernel build
-     (nvcc for sm_90a, from geoldm_tpu_torch/csrc/egnn_block.cu);
+     (one nvcc per source in geoldm_tpu_torch/csrc, for sm_90a, in parallel);
   2. the EquivariantBlock kernel against its plain PyTorch version on the
      card at H=256, B=64, N in {16, 24, 32} with ragged masks, plus one
      'mean'-aggregation and one sin-embedding case, with times and bounds;
@@ -17,7 +17,18 @@ Phases (each prints a line; any failure exits non-zero before the result):
      ((T + 1) * 9 denoiser blocks + 9 decoder blocks) * chunks dispatched
      (T ancestral steps plus the denoiser call of the final z0 -> x step);
   5. one full-width denoiser evaluation through the kernel against the same
-     evaluation through the plain path on the CPU.
+     evaluation through the plain path on the CPU;
+  6. the EquivariantBlock backward kernel against its plain version
+     (autograd of the recomputed block) at H=256, B=64, N in {16, 24, 29, 32}
+     with ragged masks, plus one 'mean' and one sin-embedding case: dh, dx,
+     dx0 and every weight gradient, with times and bounds;
+  7. the training entry point (cli.main_qm9) at the reference recipe (nf=256,
+     9 layers, latent_nf=1, T=1000, B=64, trainable_ae, EMA 0.9999) on
+     fabricated QM9-format splits: 5 train steps, stability sampling, valid
+     and test NLL and the checkpoints; the kernels' launch counts must equal
+     what the code implies, and the checkpoint must load back;
+  8. one full-width train-step gradient (B=8, N=29) through the kernels on the
+     card against the plain path on the CPU, same weights, batch and noise.
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -43,10 +54,15 @@ import numpy as np
 _H100_SXM = "H100 80GB HBM3"
 _FLOP_PEAK, _BW_PEAK = 67.0e12, 3.35e12
 
-# Kernel vs plain: both sum in float32 but in different orders.
+# Kernel vs plain: both sum in float32 but in different orders. Holds for
+# the backward's weight gradients too, which add up B*N*N edge terms.
 _KERNEL_RTOL = 1e-4
 # Nine blocks chained on the card vs the CPU: order differences compound.
 _DENOISER_RTOL = 2e-4
+# A whole train step's gradient, card vs CPU: the loss and, per parameter
+# tensor, max|d| <= _GRAD_RTOL * max|ref| (f32 sum orders through 19 blocks
+# forward and 18 backward; no floor of 1, so small gradients are held too).
+_LOSS_RTOL, _GRAD_RTOL = 1e-5, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -98,6 +114,39 @@ def _block_work(cfg, n_real, n_pad, n_weights):
     return flops, nbytes
 
 
+def _bwd_work(cfg, n_real, n_pad, n_weights):
+    """(FLOP, bytes) one block backward needs: the forward it recomputes, then
+    per edge stage the W2 input gradient and weight gradient (2 * 2H^2 per
+    real pair) plus the edge-feature, gate and scale terms, and per real node
+    the src/dst and node-MLP input and weight gradients; each input (h, x,
+    x0, mask, the cotangents, the weights) read once and each output (dh, dx,
+    dx0, the weight gradients) written once."""
+    H, E = cfg.hidden_nf, cfg.edge_feat_nf
+    fwd_flops, _ = _block_work(cfg, n_real, n_pad, n_weights)
+    pairs = float(np.sum(n_real * (n_real - 1)))
+    nodes = float(np.sum(n_real))
+    edge_stage = pairs * (4 * H * H + 4 * E * H + 4 * H)
+    gcl = edge_stage + nodes * (8 * H * H + 12 * H * H)  # src/dst, node MLP
+    coord = edge_stage + nodes * 8 * H * H
+    flops = fwd_flops + cfg.inv_sublayers * gcl + coord
+    b = len(n_real)
+    nbytes = 4 * (b * n_pad * (3 * H + 5 * 3 + 1) + 2 * n_weights)
+    return flops, nbytes
+
+
+def _ragged_inputs(seed, B, n, H, dev):
+    """h, x, x0, node_mask on ``dev``: B molecules of n-8..n atoms padded to n."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_real = rng.integers(max(1, n - 8), n + 1, size=B)
+    mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
+    h = rng.standard_normal((B, n, H)).astype(np.float32) * mask
+    x = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
+    x0 = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
+    return tuple(torch.from_numpy(a).to(dev) for a in (h, x, x0, mask))
+
+
 def phase_kernel(card_name):
     import torch
 
@@ -123,15 +172,7 @@ def phase_kernel(card_name):
         init_parameters(block, gen)
         block = block.to(dev).eval()
         n_weights = sum(p.numel() for p in block.parameters())
-        inputs = []
-        for rep in range(4):
-            rng = np.random.default_rng(1000 * n + rep)
-            n_real = rng.integers(max(1, n - 8), n + 1, size=B)
-            mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
-            h = rng.standard_normal((B, n, H)).astype(np.float32) * mask
-            x = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
-            x0 = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
-            inputs.append(tuple(torch.from_numpy(a).to(dev) for a in (h, x, x0, mask)))
+        inputs = [_ragged_inputs(1000 * n + rep, B, n, H, dev) for rep in range(4)]
         with torch.no_grad():
             h_k, x_k = egnn_block.block_forward_cuda(block, *inputs[0])
             h_p, x_p = egnn_block.block_forward_plain(block, *inputs[0])
@@ -160,6 +201,248 @@ def phase_kernel(card_name):
               f"({row['bound_by']}) {row['tflops_achieved']:.2f} TFLOP/s, "
               f"{cfg.n_layers} launches per sampler step, on {card_name}", flush=True)
     return rows
+
+
+def phase_backward(card_name):
+    import torch
+
+    from geoldm_tpu_torch.config import EGNNConfig
+    from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+    from geoldm_tpu_torch.ops import egnn_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    B, H = 64, 256
+    cases = [
+        ("sum", 16, {}), ("sum", 24, {}), ("sum", 29, {}), ("sum", 32, {}),
+        ("mean", 32, {"aggregation_method": "mean"}), ("sin", 24, {"sin_embedding": True}),
+    ]
+    rows = []
+    for case, n, extra in cases:
+        cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=H, n_layers=9,
+                         attention=True, normalization_factor=1.0, **extra)
+        block = EquivariantBlock(cfg)
+        init_parameters(block, torch.Generator().manual_seed(100 + n))
+        block = block.to(dev).eval()
+        n_weights = sum(p.numel() for p in block.parameters())
+        inputs = []
+        for rep in range(4):
+            rng = np.random.default_rng(2000 * n + rep)
+            cots = tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                         for shape in ((B, n, H), (B, n, 3)))
+            inputs.append(_ragged_inputs(3000 * n + rep, B, n, H, dev) + cots)
+        got = egnn_block.block_backward_cuda(block, *inputs[0])
+        want = egnn_block.block_backward_plain(block, *inputs[0])
+        torch.cuda.synchronize()
+        names = ["dh", "dx", "dx0"] + egnn_block.block_param_names(block)
+        err, worst = 0.0, ""
+        for name, g, w in zip(names, [*got[:3], *got[3]], [*want[:3], *want[3]]):
+            _check(bool(torch.isfinite(g).all()), f"backward {name} not finite at N={n} {extra}")
+            scale = max(1.0, float(w.abs().max()))
+            d = float((g - w).abs().max())
+            _check(d <= _KERNEL_RTOL * scale,
+                   f"backward kernel disagrees with plain on {name} at N={n} {extra}: "
+                   f"max|d|={d:.3e} > {_KERNEL_RTOL}*{scale:.3g}")
+            if d > err:
+                err, worst = d, name
+        ms = _time_ms(lambda *a: egnn_block.block_backward_cuda(block, *a), inputs)
+        plain_ms = _time_ms(lambda *a: egnn_block.block_backward_plain(block, *a), inputs)
+        n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        flops, nbytes = _bwd_work(cfg, n_real0, n, n_weights)
+        t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+        row = {"case": case, "N": n, "B": B, "H": H, "max_abs_err": err, "worst": worst,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
+        rows.append(row)
+        print(f"phase 6: egnn_block_bwd {case} N={n} B={B} H={H} max|d|={err:.3e} ({worst}; "
+              f"{len(names)} tensors each within {_KERNEL_RTOL}*max(1,max|ref|)) kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) {row['tflops_achieved']:.2f} TFLOP/s on {card_name}",
+              flush=True)
+    return rows
+
+
+def phase_train(card_name, tmpdir):
+    import os
+
+    import torch
+
+    from geoldm_tpu_torch.cli import main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.ops import egnn_block
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.train.train_step import make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    info = get_dataset_info("qm9")
+    B, steps, T, decay, seed = 64, 5, 1000, 0.9999, 0
+    write_qm9_splits(tmpdir, info, {"train": B * steps, "valid": B, "test": B}, seed=1)
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name", "smoke",
+            "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", "9",
+            "--latent_nf", "1", "--diffusion_steps", str(T),
+            "--diffusion_noise_schedule", "polynomial_2", "--batch_size", str(B),
+            "--ema_decay", str(decay), "--n_epochs", "1", "--test_epochs", "1",
+            "--n_stability_samples", "8", "--seed", str(seed)]
+    print(f"phase 7: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    egnn_block.launches = egnn_block.bwd_launches = 0
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    fwd, bwd = egnn_block.launches, egnn_block.bwd_launches
+
+    losses = summary["losses"][0]
+    _check(len(losses) == steps, f"{len(losses)} train steps, expected {steps}")
+    _check(bool(np.all(np.isfinite(losses))), f"non-finite train loss: {losses}")
+    _check(len(summary["nll_val"]) == 1 and np.isfinite(summary["nll_val"][0]),
+           f"valid NLL {summary['nll_val']}")
+    _check(len(summary["nll_test"]) == 1 and np.isfinite(summary["nll_test"][0]),
+           f"test NLL {summary['nll_test']}")
+    # Launches: a train step runs the encoder forward only (its latent is
+    # detached) and the 9 decoder + 9 denoiser blocks forward and backward;
+    # an eval batch runs encoder + decoder + 2 denoiser passes (t0_always);
+    # each sampled chunk runs (T+1) denoiser calls and one decode.
+    layers = 9
+    buckets = covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"])
+    chunks = n_chunks(summary["sample_sizes"][0], 8, buckets)
+    per_step, per_eval = 1 + 2 * layers, 1 + 3 * layers
+    expected_fwd = steps * per_step + 2 * per_eval + ((T + 1) * layers + layers) * chunks
+    expected_bwd = steps * 2 * layers
+    _check(fwd == expected_fwd,
+           f"forward launches {fwd} != {steps}*{per_step} + 2*{per_eval} + "
+           f"(({T}+1)*{layers}+{layers})*{chunks} = {expected_fwd}")
+    _check(bwd == expected_bwd, f"backward launches {bwd} != {steps}*{2 * layers}")
+    print(f"phase 7: {steps} steps, losses {[round(v, 4) for v in losses]}, valid NLL "
+          f"{summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}, stability "
+          f"{summary['stability'][0]}; launches fwd {fwd} = {steps}*{per_step} + 2*{per_eval} + "
+          f"(({T}+1)*{layers}+{layers})*{chunks} chunks, bwd {bwd} = {steps}*{2 * layers}; "
+          f"main() {wall:.1f} s", flush=True)
+
+    state = summary["state"]
+    init = factory.build_model(state.model.cfg, "cpu", torch.Generator().manual_seed(seed))
+    init_sd = init.state_dict()
+    trained = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    ema = {k: v.detach().cpu() for k, v in state.ema_model.state_dict().items()}
+    moved = {k: float((trained[k] - init_sd[k]).abs().max()) for k in init_sd}
+    for prefix in ("dynamics.", "vae.decoder."):
+        _check(min(v for k, v in moved.items() if k.startswith(prefix)
+                   and not k.endswith("buffer")) > 0, f"some {prefix} weights did not move")
+    _check(max(v for k, v in moved.items() if k.startswith("vae.encoder.")) == 0,
+           "the encoder moved: its latent is detached and it must get no gradient")
+    step_w = max(moved.values())
+    step_e = max(float((ema[k] - init_sd[k]).abs().max()) for k in init_sd)
+    _check(0 < step_e <= steps * (1 - decay) * step_w * 1.5,
+           f"EMA moved {step_e:.3e}, weights {step_w:.3e}: not a (1-{decay})-scale step")
+    for name in ("latest", "best"):
+        path = os.path.join(tmpdir, "out", "smoke", name)
+        for use_ema, want in ((False, trained), (True, ema)):
+            model, cfg, _ = load_reference_checkpoint(path, "cuda", use_ema)
+            got = model.state_dict()
+            _check(set(got) == set(want) and all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                   f"checkpoint {name} (ema={use_ema}) does not hold the trained tensors")
+    print(f"phase 7: weights moved up to {step_w:.3e} (encoder unchanged), EMA {step_e:.3e} "
+          f"(a (1-{decay})-scale step); latest/ and best/ load back through "
+          f"load_reference_checkpoint with equal tensors", flush=True)
+
+    # ms per train step: three more steps on a train batch, synchronised.
+    from geoldm_tpu_torch.data.qm9 import QM9Loader, load_qm9
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+
+    splits, _ = load_qm9(tmpdir)
+    raw = next(iter(QM9Loader(splits["train"], B, info["max_n_nodes"])))
+    batch = prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda")
+    step = make_train_step(state.model.cfg, decay)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    print(f"phase 7: train step B={B} N={info['max_n_nodes']} nf=256 9+9 blocks: "
+          f"{', '.join(f'{v:.1f}' for v in times)} ms (host clock around synchronised steps) "
+          f"on {card_name}", flush=True)
+    return {"fwd_launches": fwd, "bwd_launches": bwd, "chunks": chunks, "losses": losses,
+            "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0],
+            "stability": summary["stability"][0], "main_seconds": wall,
+            "epoch_seconds": summary["epoch_seconds"][0], "step_ms": times}
+
+
+class _Replay:
+    """A noise source replaying one numpy stream: the card and the CPU run
+    draw the same numbers in the same order."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, shape):
+        return self.rng.standard_normal(shape).astype(np.float32)
+
+    def randint(self, low, high, shape):
+        return self.rng.integers(low, high, shape)
+
+
+def phase_grad(card_name):
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.ops import egnn_block
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = get_dataset_info("qm9")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
+                                               diffusion_steps=1000, trainable_ae=True)
+    nll_fn = factory.model_nll_fn(cfg, training=True)
+    raw = synthetic_batch(info, 8, 29, np.random.default_rng(11))
+    nodes = DistributionNodes(info.n_nodes)
+    grads, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        model = factory.build_model(cfg, device, torch.Generator().manual_seed(5))
+        batch = prepare_batch(raw, nodes, device)
+        bwd = egnn_block.bwd_launches
+        nll = nll_fn(model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"],
+                     batch["node_mask"])
+        loss = (nll - batch["log_pN"]).mean()
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _check(egnn_block.bwd_launches == bwd + 18, "the card's backward skipped the kernel")
+        losses[device] = float(loss.detach())
+        grads[device] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                         if p.grad is not None}
+    _check(set(grads["cuda"]) == set(grads["cpu"]) and len(grads["cpu"]) > 0,
+           "card and CPU gave gradients to different parameters")
+    _check(abs(losses["cuda"] - losses["cpu"]) <= _LOSS_RTOL * abs(losses["cpu"]),
+           f"loss card {losses['cuda']} vs CPU {losses['cpu']}")
+    worst, worst_name = 0.0, ""
+    for k, ref in grads["cpu"].items():
+        g = grads["cuda"][k]
+        _check(bool(torch.isfinite(g).all()), f"gradient of {k} not finite on the card")
+        d = float((g - ref).abs().max())
+        scale = float(ref.abs().max())
+        _check(d <= _GRAD_RTOL * scale, f"gradient of {k}: card vs CPU max|d|={d:.3e} > "
+                                        f"{_GRAD_RTOL}*{scale:.3e}")
+        rel = d / scale if scale else 0.0
+        if rel >= worst:
+            worst, worst_name = rel, k
+    print(f"phase 8: train-step gradient nf=256 9+9 blocks B=8 N=29: loss card "
+          f"{losses['cuda']:.6f} CPU {losses['cpu']:.6f}; {len(grads['cpu'])} parameter "
+          f"tensors, worst max|d|/max|ref| {worst:.2e} ({worst_name}; tol {_GRAD_RTOL}) "
+          f"on {card_name} vs the plain path on the CPU", flush=True)
+    return {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"], "worst_rel": worst,
+            "worst": worst_name}
 
 
 def _request(base, path, body=None, timeout=1200):
@@ -320,27 +603,46 @@ def main(argv=None) -> int:
           flush=True)
     egnn_block.library()
     info = egnn_block.build_info
-    regs = [ln.strip() for ln in info.get("log", "").splitlines() if "registers" in ln]
-    print(f"phase 1: built {info['path']} with nvcc (sm_90a) in {info['seconds']:.1f} s"
-          f"{' (cached)' if info.get('cached') else ''}; ptxas: {' | '.join(regs)}",
-          flush=True)
+    for name, lib in info["libs"].items():
+        regs = [ln.strip() for ln in lib["log"].splitlines() if "registers" in ln or "spill" in ln]
+        print(f"phase 1: {name}: {lib['path']}; ptxas: {' | '.join(regs)}", flush=True)
+    print(f"phase 1: built {len(info['libs'])} kernel libraries with nvcc (sm_90a, in parallel) "
+          f"in {info['seconds']:.1f} s{' (cached)' if info.get('cached') else ''}", flush=True)
 
     rows = phase_kernel(card_name)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches, chunks, serve_stats, model = phase_serve(card_name, tmpdir)
     phase_denoiser(model, card_name)
+    del model
+    bwd_rows = phase_backward(card_name)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        train = phase_train(card_name, tmpdir)
+    grad = phase_grad(card_name)
 
     main_row = next(r for r in rows if r["case"] == "sum" and r["N"] == 32)
-    print("details: " + json.dumps({"shapes": rows, "serving": serve_stats, "chunks": chunks,
-                                    "seconds": time.time() - t_start}), flush=True)
+    bwd_row = next(r for r in bwd_rows if r["case"] == "sum" and r["N"] == 29)
+    print("details: " + json.dumps({
+        "shapes": rows, "serving": serve_stats, "chunks": chunks, "backward": bwd_rows,
+        "training": train, "grad": grad,
+        "fwd_launches": {"serving": launches, "training": train["fwd_launches"]},
+        "seconds": time.time() - t_start}), flush=True)
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
         "replaces": "geoldm_tpu/ops/pallas_egnn.py:232",
-        "launches": launches,
+        "launches": launches + train["fwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "egnn_block_bwd", "route": "cuda",
+        "source": "geoldm_tpu_torch/csrc/egnn_block_bwd.cu",
+        "replaces": "geoldm_tpu/ops/pallas_egnn.py:255",
+        "launches": train["bwd_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
         "library_ms": None,
     }]}
     print(json.dumps(report), flush=True)

@@ -1,0 +1,213 @@
+"""Training CLI plumbing (port of ``geoldm_tpu/cli/common.py:17-434``): the
+reference flag surface, flags -> ModelConfig, and the serial training run.
+
+The port trains unconditional models in float32 on one device. Flags that
+select anything else exit with a two-line "not ported yet" message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """The QM9 flags of the JAX CLI (reference main_qm9.py:23-133)."""
+    p.add_argument("--exp_name", type=str, default="geoldm_tpu_run")
+    p.add_argument("--model", type=str, default="egnn_dynamics",
+                   choices=["egnn_dynamics", "gnn_dynamics"])
+    p.add_argument("--probabilistic_model", type=str, default="diffusion")
+    p.add_argument("--diffusion_steps", type=int, default=1000)
+    p.add_argument("--diffusion_noise_schedule", type=str, default="polynomial_2")
+    p.add_argument("--diffusion_noise_precision", type=float, default=1e-5)
+    p.add_argument("--diffusion_loss_type", type=str, default="l2", choices=["vlb", "l2"])
+    p.add_argument("--n_epochs", type=int, default=3000)
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--break_train_epoch", type=eval, default=False)
+    p.add_argument("--dp", type=int, default=0, help="data-parallel devices (not ported yet)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported yet)")
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel devices (not ported yet)")
+    p.add_argument("--condition_time", type=eval, default=True)
+    p.add_argument("--clip_grad", type=eval, default=True)
+    p.add_argument("--n_layers", type=int, default=9)
+    p.add_argument("--inv_sublayers", type=int, default=1)
+    p.add_argument("--nf", type=int, default=256)
+    p.add_argument("--tanh", type=eval, default=True)
+    p.add_argument("--attention", type=eval, default=True)
+    p.add_argument("--norm_constant", type=float, default=1.0)
+    p.add_argument("--sin_embedding", type=eval, default=False)
+    p.add_argument("--remat", type=eval, default=None,
+                   help="JAX-side option; the port's backward always recomputes each block")
+    p.add_argument("--ode_regularization", type=float, default=1e-3)
+    p.add_argument("--trainable_ae", action="store_true")
+    p.add_argument("--latent_nf", type=int, default=1)
+    p.add_argument("--kl_weight", type=float, default=0.01)
+    p.add_argument("--ae_path", type=str, default=None)
+    p.add_argument("--train_diffusion", action="store_true",
+                   help="train the latent diffusion (else: train the VAE)")
+    p.add_argument("--dequantization", type=str, default="argmax_variational")
+    p.add_argument("--n_report_steps", type=int, default=50)
+    p.add_argument("--no_wandb", action="store_true")
+    p.add_argument("--online", type=eval, default=True)
+    p.add_argument("--wandb_usr", type=str, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--test_epochs", type=int, default=10)
+    p.add_argument("--save_model", type=eval, default=True)
+    p.add_argument("--num_workers", type=int, default=0)
+    p.add_argument("--ema_decay", type=float, default=0.9999)
+    p.add_argument("--augment_noise", type=float, default=0.0)
+    p.add_argument("--n_stability_samples", type=int, default=500)
+    p.add_argument("--eval_n_steps", type=int, default=None)
+    p.add_argument("--normalize_factors", type=eval, default=[1, 4, 10])
+    p.add_argument("--include_charges", type=eval, default=True)
+    p.add_argument("--visualize", type=eval, default=False)
+    p.add_argument("--normalization_factor", type=float, default=1.0)
+    p.add_argument("--aggregation_method", type=str, default="sum")
+    p.add_argument("--compute_dtype", type=str, default="float32")
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--start_epoch", type=int, default=0)
+    p.add_argument("--data_augmentation", type=eval, default=False)
+    p.add_argument("--conditioning", nargs="+", default=[])
+    p.add_argument("--outdir", type=str, default="outputs")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu, which runs the plain PyTorch path")
+
+
+def _not_ported(what: str) -> None:
+    raise SystemExit(f"{what} is not ported yet.\n"
+                     "geoldm_tpu_torch trains unconditional QM9 models in float32 on one device.")
+
+
+def check_ported(args) -> None:
+    """Exit with a two-line message for any flag outside the ported slice."""
+    if args.compute_dtype != "float32":
+        _not_ported(f"--compute_dtype {args.compute_dtype}")
+    for flag in ("dp", "tp", "sp"):
+        if getattr(args, flag) > 1:
+            _not_ported(f"--{flag} {getattr(args, flag)}")
+    if args.conditioning:
+        _not_ported("--conditioning")
+    if args.resume:
+        _not_ported("--resume")
+    if args.ae_path:
+        _not_ported("--ae_path")
+    if args.visualize:
+        _not_ported("--visualize")
+    if args.eval_n_steps is not None:
+        _not_ported("--eval_n_steps")
+    if args.model != "egnn_dynamics":
+        _not_ported(f"--model {args.model}")
+    if args.data_augmentation:
+        _not_ported("--data_augmentation")
+
+
+def build_model_config(args, dataset_info):
+    from geoldm_tpu_torch.models import factory
+
+    common = dict(
+        include_charges=args.include_charges, nf=args.nf, n_layers=args.n_layers,
+        attention=args.attention, tanh=args.tanh, norm_constant=args.norm_constant,
+        inv_sublayers=args.inv_sublayers, sin_embedding=args.sin_embedding,
+        normalization_factor=args.normalization_factor,
+        aggregation_method=args.aggregation_method,
+    )
+    if args.train_diffusion:
+        return factory.make_latent_diffusion_config(
+            dataset_info, latent_nf=args.latent_nf, kl_weight=args.kl_weight,
+            trainable_ae=args.trainable_ae, diffusion_steps=args.diffusion_steps,
+            noise_schedule=args.diffusion_noise_schedule,
+            noise_precision=args.diffusion_noise_precision,
+            loss_type=args.diffusion_loss_type,
+            normalize_factors=tuple(float(v) for v in args.normalize_factors),
+            model=args.model, condition_time=args.condition_time, **common)
+    return factory.make_vae_config(dataset_info, latent_nf=args.latent_nf,
+                                   kl_weight=args.kl_weight, **common)
+
+
+def _generator(device, seed: int, *stream) -> "torch.Generator":
+    """A device generator for one purpose of one epoch, seeded from
+    (seed, *stream) so that a seeded run replays."""
+    import torch
+
+    state = np.random.SeedSequence([int(seed) % 2**64, *stream]).generate_state(
+        1, dtype=np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def run_training(args, dataset_info, splits) -> dict:
+    """Train, evaluate and checkpoint (common.py:159-434, serial and single
+    device). Returns a summary: per-epoch losses and seconds, valid/test
+    NLLs, stability and the sizes sampled for it, the checkpoint
+    directories written, and the final train state."""
+    import torch
+
+    from geoldm_tpu_torch.data.qm9 import QM9Loader
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train import trainer as trainer_mod
+    from geoldm_tpu_torch.train.train_step import (
+        create_train_state,
+        make_eval_nll,
+        make_train_step,
+    )
+    from geoldm_tpu_torch.utils.checkpoint import save_checkpoint
+
+    check_ported(args)
+    model_cfg = build_model_config(args, dataset_info)
+    model = factory.build_model(model_cfg, args.device, torch.Generator().manual_seed(args.seed))
+    device = next(model.parameters()).device
+    state = create_train_state(model, model_cfg, args.lr, clip_grad=args.clip_grad,
+                               ema_decay=args.ema_decay)
+    train_step = make_train_step(model_cfg, args.ema_decay)
+    eval_nll = make_eval_nll(model_cfg)
+    include_charges = model_cfg.vae.include_charges
+    loaders = {split: QM9Loader(data, batch_size=args.batch_size,
+                                pad_nodes=dataset_info.max_n_nodes, shuffle=split == "train",
+                                include_charges=include_charges, seed=args.seed)
+               for split, data in splits.items()}
+    nodes_dist = DistributionNodes(dataset_info.n_nodes)
+    outdir = os.path.join(args.outdir, args.exp_name)
+    summary = {"losses": [], "epoch_seconds": [], "nll_val": [], "nll_test": [],
+               "stability": [], "sample_sizes": [], "checkpoints": [], "state": state}
+    best_nll_val = float("inf")
+    rng = np.random.default_rng(args.seed)
+    for epoch in range(args.start_epoch, args.n_epochs):
+        losses, seconds = trainer_mod.train_epoch(
+            state, train_step, loaders["train"], nodes_dist,
+            _generator(device, args.seed, 0, epoch), epoch, augment_noise=args.augment_noise,
+            break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps, rng=rng)
+        summary["losses"].append(losses)
+        summary["epoch_seconds"].append(seconds)
+        if epoch % args.test_epochs:
+            continue
+        eval_model = state.ema_model
+        if model_cfg.kind != "vae":
+            validity, molecules = trainer_mod.analyze_and_save(
+                eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
+                n_samples=args.n_stability_samples, rng=rng)
+            print(f"epoch {epoch} stability: {validity}", flush=True)
+            summary["stability"].append(validity)
+            summary["sample_sizes"].append(molecules["n_atoms"])
+        nll_val = trainer_mod.evaluate_nll(
+            eval_model, eval_nll, loaders["valid"], nodes_dist,
+            _generator(device, args.seed, 1, epoch), partition="valid",
+            augment_noise=args.augment_noise, rng=rng)
+        summary["nll_val"].append(nll_val)
+        if args.save_model:
+            args.current_epoch = epoch + 1
+            summary["checkpoints"].append(
+                save_checkpoint(os.path.join(outdir, "latest"), state, args, args.ema_decay))
+        if nll_val < best_nll_val and args.save_model:
+            best_nll_val = nll_val
+            summary["checkpoints"].append(
+                save_checkpoint(os.path.join(outdir, "best"), state, args, args.ema_decay))
+            nll_test = trainer_mod.evaluate_nll(
+                eval_model, eval_nll, loaders["test"], nodes_dist,
+                _generator(device, args.seed, 2, epoch), partition="test",
+                augment_noise=args.augment_noise, rng=rng)
+            summary["nll_test"].append(nll_test)
+            print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)
+    return summary

@@ -74,6 +74,9 @@ class SamplerService:
         self.args = args
         self.model, self.model_cfg, _ = load_reference_checkpoint(
             args.model_path, args.device, args.use_ema)
+        if self.model_cfg.kind != "latent_diffusion":
+            raise SystemExit(f"{args.model_path} holds a {self.model_cfg.kind!r} model: this "
+                             "server samples latent-diffusion checkpoints")
         if self.model_cfg.dynamics.context_node_nf > 0:
             raise SystemExit("conditional checkpoints are not ported yet: this server "
                              "serves unconditional latent-diffusion models")

@@ -27,332 +27,7 @@
 // One call of egnn_block_forward enqueues 2 + 5 * inv_sublayers launches on
 // the caller's stream and never synchronises.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-namespace {
-
-constexpr int kMaxEdgeFeat = 24;  // 2 * SIN_EMBEDDING_DIM
-constexpr int kNumFreq = 6;
-constexpr int kKChunk = 32;
-constexpr int kMaxHidden = 512;
-constexpr int kMaxNodes = 64;
-
-// 2*pi*4^k/15 in double, rounded once to f32 (ops/distance.py:_FREQUENCIES).
-__constant__ float kFreq[kNumFreq] = {
-    (float)(2.0 * 3.141592653589793 * 1.0 / 15.0),
-    (float)(2.0 * 3.141592653589793 * 4.0 / 15.0),
-    (float)(2.0 * 3.141592653589793 * 16.0 / 15.0),
-    (float)(2.0 * 3.141592653589793 * 64.0 / 15.0),
-    (float)(2.0 * 3.141592653589793 * 256.0 / 15.0),
-    (float)(2.0 * 3.141592653589793 * 1024.0 / 15.0),
-};
-
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
-__device__ __forceinline__ float silu_f(float v) { return v * sigmoid_f(v); }
-
-// ---------------------------------------------------------------------------
-// Node GEMM: C[m, n] = epilogue(sum_k A[m, k] * W[n, k]); W in nn.Linear
-// layout [out, in]. A may be split by columns: A[:, :k1] from a1 and
-// A[:, k1:] from a2 (the node MLP's [h, agg] input without a concat).
-// ---------------------------------------------------------------------------
-
-enum { kEpiNone = 0, kEpiSilu = 1, kEpiResidMask = 2 };
-
-struct GemmArgs {
-  const float* a1; int lda1; int k1;
-  const float* a2; int lda2;
-  const float* w; int ldw;
-  const float* bias;      // [Nout] or null
-  const float* resid; int ldr;
-  const float* row_mask;  // [M], kEpiResidMask
-  float* c; int ldc;
-  int M, Nout, K;
-  int epilogue;
-};
-
-constexpr int kTM = 64, kTN = 64, kTK = 16;
-
-__global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
-  __shared__ float As[kTK][kTM + 4];
-  __shared__ float Ws[kTK][kTN + 4];
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < g.K; k0 += kTK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int idx = t + 256 * q;
-      const int r = idx / kTK, kk = idx % kTK;
-      const int k = k0 + kk;
-      const int m = m0 + r, n = n0 + r;
-      float av = 0.f, wv = 0.f;
-      if (m < g.M && k < g.K)
-        av = k < g.k1 ? g.a1[(size_t)m * g.lda1 + k]
-                      : g.a2[(size_t)m * g.lda2 + (k - g.k1)];
-      if (n < g.Nout && k < g.K) wv = g.w[(size_t)n * g.ldw + k];
-      As[kk][r] = av;
-      Ws[kk][r] = wv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= g.Nout) continue;
-      float v = acc[i][j];
-      if (g.bias) v += g.bias[n];
-      if (g.epilogue == kEpiSilu) v = silu_f(v);
-      if (g.epilogue == kEpiResidMask)
-        v = (g.resid[(size_t)m * g.ldr + n] + v) * g.row_mask[m];
-      g.c[(size_t)m * g.ldc + n] = v;
-    }
-  }
-}
-
-int launch_gemm(const GemmArgs& g, cudaStream_t s) {
-  dim3 grid((g.Nout + kTN - 1) / kTN, (g.M + kTM - 1) / kTM);
-  gemm_nt_kernel<<<grid, 256, 0, s>>>(g);
-  return (int)cudaGetLastError();
-}
-
-// proj[:, :H] = h W1[:, :H]^T, proj[:, H:2H] = h W1[:, H:2H]^T (no bias: b1
-// is added once per edge in the edge kernel, as the TPU kernel does).
-int launch_projection(const float* h, const float* w1, int ld1, float* proj,
-                      int M, int H, cudaStream_t s) {
-  for (int half = 0; half < 2; ++half) {
-    GemmArgs g = {};
-    g.a1 = h; g.lda1 = H; g.k1 = H;
-    g.w = w1 + half * H; g.ldw = ld1;
-    g.c = proj + half * H; g.ldc = 2 * H;
-    g.M = M; g.Nout = H; g.K = H;
-    g.epilogue = kEpiNone;
-    const int rc = launch_gemm(g, s);
-    if (rc) return rc;
-  }
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Edge kernel: one CTA per (molecule b, row i), blockDim.x == H.
-// ---------------------------------------------------------------------------
-
-struct EdgeArgs {
-  const float* proj;  // [B*N, 2H]: src | dst projections of the first layer
-  const float* x;     // [B*N, 3] current coordinates
-  const float* x0;    // [B*N, 3] EGNN input coordinates
-  const float* mask;  // [B*N]
-  const float* w1; int ld1;  // [H, 2H+E]; edge-feature columns start at 2H
-  const float* b1;
-  const float* w2; const float* b2;  // [H, H], [H]
-  const float* w_out;  // GCL: att_mlp.0.weight [1, H]; coord: coord_mlp.4.weight [1, H]
-  const float* b_out;  // GCL: att_mlp.0.bias [1]
-  float* agg;          // GCL output [B*N, H]
-  float* x_out;        // coord output [B*N, 3]
-  int N, H, E;
-  int sin_emb, attention, use_tanh;
-  float coords_range, norm_constant, norm_div;
-};
-
-size_t edge_smem_bytes(int nmax, int H) {
-  const int nwarp = H / 32;
-  return sizeof(float) * ((size_t)nmax * H + (size_t)kKChunk * (H + 1) +
-                          (size_t)nmax * kMaxEdgeFeat + nmax + (size_t)nmax * 3 +
-                          (size_t)nwarp * nmax + nmax);
-}
-
-template <int NMAX, bool COORD>
-__global__ void __launch_bounds__(kMaxHidden, 1) edge_kernel(EdgeArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int H = a.H, N = a.N;
-  const int c = threadIdx.x;
-  const int lane = c & 31, warp = c >> 5, nwarp = H >> 5;
-  const int b = blockIdx.y, i = blockIdx.x;
-  const size_t row_i = (size_t)b * N + i;
-
-  float* As = smem;                          // [NMAX][H] silu(first layer)
-  float* Ws = As + NMAX * H;                 // [kKChunk][H + 1] W2 chunk, k-major
-  float* ef = Ws + kKChunk * (H + 1);        // [NMAX][kMaxEdgeFeat]
-  float* em = ef + NMAX * kMaxEdgeFeat;      // [NMAX] edge mask of row i
-  float* cd = em + NMAX;                     // [NMAX][3] coord_diff
-  float* red = cd + NMAX * 3;                // [nwarp][NMAX]
-  float* rs = red + nwarp * NMAX;            // [NMAX] row reductions
-
-  // 1. Edge features, edge mask and coord_diff of row i.
-  const float mi = a.mask[row_i];
-  for (int j = c; j < NMAX; j += H) {
-    float* f = ef + j * kMaxEdgeFeat;
-#pragma unroll
-    for (int e = 0; e < kMaxEdgeFeat; ++e) f[e] = 0.f;
-    em[j] = 0.f;
-    cd[j * 3 + 0] = cd[j * 3 + 1] = cd[j * 3 + 2] = 0.f;
-    if (j >= N) continue;
-    const size_t rj = (size_t)b * N + j;
-    float d[3], d0[3];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      d[q] = a.x[row_i * 3 + q] - a.x[rj * 3 + q];
-      d0[q] = a.x0[row_i * 3 + q] - a.x0[rj * 3 + q];
-    }
-    const float r = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    const float r0 = d0[0] * d0[0] + d0[1] * d0[1] + d0[2] * d0[2];
-    const float norm = sqrtf(r + 1e-8f);
-#pragma unroll
-    for (int q = 0; q < 3; ++q) cd[j * 3 + q] = d[q] / (norm + a.norm_constant);
-    if (a.sin_emb) {
-      const float dist0 = sqrtf(r0 + 1e-8f);
-#pragma unroll
-      for (int k = 0; k < kNumFreq; ++k) {
-        f[k] = sinf(norm * kFreq[k]);
-        f[kNumFreq + k] = cosf(norm * kFreq[k]);
-        f[2 * kNumFreq + k] = sinf(dist0 * kFreq[k]);
-        f[3 * kNumFreq + k] = cosf(dist0 * kFreq[k]);
-      }
-    } else {
-      f[0] = r;
-      f[1] = r0;
-    }
-    em[j] = j == i ? 0.f : mi * a.mask[rj];
-  }
-  __syncthreads();
-
-  // 2. Row i's first-layer activations silu(src_i + dst_j + e_ij W1e + b1).
-  {
-    const float src = a.proj[row_i * 2 * H + c];
-    const float bias1 = a.b1[c];
-    float we[kMaxEdgeFeat];
-#pragma unroll
-    for (int e = 0; e < kMaxEdgeFeat; ++e)
-      we[e] = e < a.E ? a.w1[(size_t)c * a.ld1 + 2 * H + e] : 0.f;
-    for (int j = 0; j < NMAX; ++j) {
-      float v = 0.f;
-      if (j < N) {
-        const float dst = a.proj[((size_t)b * N + j) * 2 * H + H + c];
-        float ew = 0.f;
-#pragma unroll
-        for (int e = 0; e < kMaxEdgeFeat; ++e) ew = fmaf(ef[j * kMaxEdgeFeat + e], we[e], ew);
-        v = silu_f(src + dst + ew + bias1);
-      }
-      As[j * H + c] = v;
-    }
-  }
-  __syncthreads();
-
-  // 3. acc[j] = sum_k As[j][k] * W2[c][k], W2 streamed in K chunks.
-  float acc[NMAX];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) acc[j] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += kKChunk) {
-    for (int idx = c; idx < H * kKChunk; idx += H) {
-      const int row = idx / kKChunk, kk = idx % kKChunk;
-      Ws[kk * (H + 1) + row] = a.w2[(size_t)row * H + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kKChunk; kk += 4) {
-      const float w0 = Ws[(kk + 0) * (H + 1) + c];
-      const float w1 = Ws[(kk + 1) * (H + 1) + c];
-      const float w2 = Ws[(kk + 2) * (H + 1) + c];
-      const float w3 = Ws[(kk + 3) * (H + 1) + c];
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        const float4 av = *reinterpret_cast<const float4*>(As + j * H + k0 + kk);
-        acc[j] = fmaf(av.x, w0, acc[j]);
-        acc[j] = fmaf(av.y, w1, acc[j]);
-        acc[j] = fmaf(av.z, w2, acc[j]);
-        acc[j] = fmaf(av.w, w3, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // 4. m_j = silu(acc_j + b2); rs_j = sum_c m_j[c] * w_out[c] (attention
-  //    logit or coordinate scale), reduced across the CTA.
-  const float bias2 = a.b2[c];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) acc[j] = silu_f(acc[j] + bias2);
-  const bool need_rowsum = COORD || a.attention;
-  if (need_rowsum) {
-    const float wo = a.w_out[c];
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      float p = acc[j] * wo;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (lane == 0) red[warp * NMAX + j] = p;
-    }
-    __syncthreads();
-    for (int j = c; j < NMAX; j += H) {
-      float s = 0.f;
-      for (int w = 0; w < nwarp; ++w) s += red[w * NMAX + j];
-      if (COORD) {
-        rs[j] = a.use_tanh ? tanhf(s) * a.coords_range : s;
-      } else {
-        rs[j] = sigmoid_f(s + a.b_out[0]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!COORD) {
-    float agg = 0.f;
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      const float m = a.attention ? acc[j] * rs[j] : acc[j];
-      agg += m * em[j];
-    }
-    a.agg[row_i * H + c] = agg / a.norm_div;
-  } else if (c < 3) {
-    float aggx = 0.f;
-    for (int j = 0; j < NMAX; ++j) aggx += cd[j * 3 + c] * rs[j] * em[j];
-    a.x_out[row_i * 3 + c] = (a.x[row_i * 3 + c] + aggx / a.norm_div) * mi;
-  }
-}
-
-template <int NMAX, bool COORD>
-int launch_edge_n(const EdgeArgs& a, int B, cudaStream_t s) {
-  const size_t smem = edge_smem_bytes(NMAX, a.H);
-  cudaError_t e = cudaFuncSetAttribute(edge_kernel<NMAX, COORD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  edge_kernel<NMAX, COORD><<<dim3(a.N, B), a.H, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool COORD>
-int launch_edge(const EdgeArgs& a, int B, cudaStream_t s) {
-  if (a.N <= 16) return launch_edge_n<16, COORD>(a, B, s);
-  if (a.N <= 24) return launch_edge_n<24, COORD>(a, B, s);
-  if (a.N <= 32) return launch_edge_n<32, COORD>(a, B, s);
-  return launch_edge_n<kMaxNodes, COORD>(a, B, s);
-}
-
-}  // namespace
+#include "egnn_common.cuh"
 
 extern "C" {
 

@@ -1,9 +1,17 @@
-"""E(n) latent diffusion, sampling part (port of
-``geoldm_tpu/diffusion/latent.py:133-164``): diffuse in the VAE's latent
-space, then decode with the VAE.
+"""E(n) latent diffusion (port of ``geoldm_tpu/diffusion/latent.py:45-164``):
+the NLL estimator that trains it and the sampler.
+
+- ``ldm_nll`` encodes (x, h) with the VAE, samples the latent with the
+  diffusion's sigma_0 and detaches it: the encoder never receives a
+  gradient (reference en_diffusion.py:1142-1155). With ``trainable_ae`` the
+  decoder also learns through a reconstruction term on that latent.
+- ``ldm_sample`` diffuses in latent space, then decodes with the VAE.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,13 +25,15 @@ from geoldm_tpu_torch.ops import com
 
 
 class PredefinedNoiseSchedule(nn.Module):
-    """Holds the fixed gamma table as the frozen parameter ``gamma``
-    (reference en_diffusion.py:172-207), for strict checkpoint loading."""
+    """Holds the fixed gamma table under the state-dict key ``gamma`` (a
+    frozen parameter upstream, en_diffusion.py:172-207), for strict
+    checkpoint loading. It is a buffer here, so neither the optimizer nor
+    the EMA ever touches it (the JAX package keeps no such parameter)."""
 
     def __init__(self, noise_schedule: str, timesteps: int, precision: float):
         super().__init__()
         table = S.gamma_table(noise_schedule, timesteps, precision)
-        self.gamma = nn.Parameter(torch.from_numpy(table).float(), requires_grad=False)
+        self.register_buffer("gamma", torch.from_numpy(table).float())
 
 
 class EnLatentDiffusion(nn.Module):
@@ -40,6 +50,50 @@ class EnLatentDiffusion(nn.Module):
         self.gamma = PredefinedNoiseSchedule(d.noise_schedule, d.timesteps, d.noise_precision)
         self.dynamics = EGNNDynamics(model_cfg.dynamics)
         self.vae = vae_mod.EnHierarchicalVAE(model_cfg.vae)
+
+
+def log_constants_p_h_given_z0(cfg, gamma_fn, node_mask) -> torch.Tensor:
+    """Constant part of log p(h | z0) in latent space, with n_nodes * n_dims
+    degrees of freedom exactly as the reference (latent.py:45-56)."""
+    b = node_mask.shape[0]
+    degrees_of_freedom_h = com.num_nodes(node_mask) * cfg.n_dims
+    gamma_0 = gamma_fn(torch.zeros((b, 1), dtype=torch.float32, device=node_mask.device))
+    log_sigma_x = 0.5 * gamma_0.reshape(b)
+    return degrees_of_freedom_h * (-log_sigma_x - 0.5 * math.log(2 * math.pi))
+
+
+def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_mask,
+            context: Optional[torch.Tensor] = None, training: bool = False) -> torch.Tensor:
+    """-log p(x, h) estimator [B] (latent.py:64-130). Draws from ``noise``,
+    in order: the encoder's eps (x block, then h block), then those of
+    ``vdm.compute_loss``."""
+    cfg, vae_cfg = model.cfg.diffusion, model.cfg.vae
+    gamma_fn = vdm.make_gamma_fn(cfg, x.device)
+    with torch.no_grad():  # the latent is detached: the encoder runs forward only
+        z_x_mu, _, z_h_mu, _ = vae_mod.encode(model.vae, x, h_cat, h_int, node_mask, context)
+        b = x.shape[0]
+        sigma_0 = S.sigma(gamma_fn(torch.zeros((b, 1), dtype=torch.float32, device=x.device)),
+                          x.dim())
+        eps = vae_mod.sample_combined_noise(noise, node_mask, cfg.n_dims, vae_cfg.latent_nf)
+        z_xh = torch.cat([z_x_mu, z_h_mu], dim=2) + sigma_0 * eps
+
+    if model.cfg.trainable_ae:
+        xh = torch.cat([x, h_cat, h_int], dim=2)
+        x_recon, h_recon = model.vae.decoder(z_xh, node_mask, context)
+        loss_recon = vae_mod.compute_reconstruction_error(
+            vae_cfg, torch.cat([x_recon, h_recon], dim=2), xh, training)
+    else:
+        loss_recon = torch.zeros((b,), dtype=x.dtype, device=x.device)
+
+    # The diffusion loss in latent space: z_h is the 'integer' block.
+    z_x, z_h = z_xh[:, :, :cfg.n_dims], z_xh[:, :, cfg.n_dims:]
+    loss_ld, _ = vdm.compute_loss(model.dynamics, cfg, noise, z_x, z_h[:, :, :0], z_h,
+                                  node_mask, context, t0_always=not training,
+                                  training=training, latent_space=True)
+    neg_log_constants = -log_constants_p_h_given_z0(cfg, gamma_fn, node_mask)
+    if training and cfg.loss_type == "l2":
+        neg_log_constants = torch.zeros_like(neg_log_constants)
+    return loss_ld + loss_recon + neg_log_constants
 
 
 @torch.no_grad()

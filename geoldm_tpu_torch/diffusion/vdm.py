@@ -1,18 +1,20 @@
-"""E(n) variational diffusion, sampling part (port of
-``geoldm_tpu/diffusion/vdm.py:56-813`` for fixed schedules and the dense
-ancestral sampler).
+"""E(n) variational diffusion (port of ``geoldm_tpu/diffusion/vdm.py:56-813``
+for fixed schedules): the training loss in latent space and the dense
+ancestral sampler.
 
 The reverse loop is a plain Python loop over s = T-1 ... 0, as upstream
 runs it (en_diffusion.py:776-782), and the final step stays in latent space
 (the EnLatentDiffusion variant). Noise comes from a ``noise`` source
 (``ops.com.Noise``: a ``torch.Generator`` or a callable), so tests can feed
 the same numbers to both frameworks. DDIM/DPM-Solver, guidance, ``clip_z``,
-the chain and the plain (non-latent) diffusion model wait for later slices.
+the chain and the plain (non-latent) diffusion model, whose t=0 term is
+``log_pxh_given_z0_without_constants``, wait for later slices.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -39,6 +41,104 @@ def sample_combined_position_feature_noise(noise: com.Noise, node_mask, n_dims: 
     z_x = com.sample_center_gravity_zero_gaussian_with_mask(noise, (b, n, n_dims), node_mask)
     z_h = com.sample_gaussian_with_mask(noise, (b, n, feat_nf), node_mask)
     return torch.cat([z_x, z_h], dim=2)
+
+
+def kl_prior(cfg: DiffusionConfig, gamma_fn, xh, node_mask) -> torch.Tensor:
+    """KL(q(z_T | x) || N(0, I)) per molecule (vdm.py:136-157)."""
+    b = xh.shape[0]
+    gamma_T = gamma_fn(torch.ones((b, 1), dtype=torch.float32, device=xh.device))
+    mu_T = S.alpha(gamma_T, xh.dim()) * xh
+    mu_T_x, mu_T_h = mu_T[:, :, :cfg.n_dims], mu_T[:, :, cfg.n_dims:]
+    sigma_T_x = S.sigma(gamma_T, 1).reshape(b)
+    sigma_T_h = S.sigma(gamma_T, mu_T_h.dim())
+    kl_h = com.gaussian_kl(mu_T_h, sigma_T_h * torch.ones_like(mu_T_h),
+                           torch.zeros_like(mu_T_h), torch.ones_like(mu_T_h), node_mask)
+    kl_x = com.gaussian_kl_for_dimension(
+        mu_T_x, sigma_T_x, torch.zeros_like(mu_T_x), torch.ones_like(sigma_T_x),
+        com.subspace_dimensionality(node_mask, cfg.n_dims))
+    return kl_x + kl_h
+
+
+def compute_error(cfg: DiffusionConfig, net_out, eps, training: bool) -> torch.Tensor:
+    """Squared eps error per molecule, mean-normalised under training l2
+    (vdm.py:167-175)."""
+    err = com.sum_except_batch((eps - net_out) ** 2)
+    if training and cfg.loss_type == "l2":
+        err = err / ((cfg.n_dims + cfg.in_node_nf) * net_out.shape[1])
+    return err
+
+
+def log_constants_p_x_given_z0(cfg: DiffusionConfig, gamma_fn, node_mask) -> torch.Tensor:
+    """Constant part of log p(x | z0) on the (N-1)*3 subspace (vdm.py:178-188)."""
+    b = node_mask.shape[0]
+    degrees_of_freedom_x = (com.num_nodes(node_mask) - 1.0) * cfg.n_dims
+    gamma_0 = gamma_fn(torch.zeros((b, 1), dtype=torch.float32, device=node_mask.device))
+    log_sigma_x = 0.5 * gamma_0.reshape(b)
+    return degrees_of_freedom_x * (-log_sigma_x - 0.5 * math.log(2 * math.pi))
+
+
+class VDMLossInfo(NamedTuple):
+    t_int: torch.Tensor
+    error: torch.Tensor
+
+
+def compute_loss(dynamics, cfg: DiffusionConfig, noise: com.Noise, x, h_cat, h_int, node_mask,
+                 context: Optional[torch.Tensor], t0_always: bool, training: bool,
+                 latent_space: bool = True):
+    """Estimator of -log p(x, h) up to the constants the caller adds
+    (vdm.py:260-370), on normalised inputs. ``latent_space=True`` (the
+    EnLatentDiffusion path) makes the t=0 term the plain eps error.
+
+    Draws from ``noise``, in order: t (``randint``), the eps of z_t (x block,
+    then h block) and, with ``t0_always``, the eps of z_0."""
+    if not latent_space:
+        raise NotImplementedError("the plain diffusion model's t=0 term "
+                                  "(log_pxh_given_z0_without_constants) is not ported yet")
+    gamma_fn = make_gamma_fn(cfg, x.device)
+    b = x.shape[0]
+    t_int = com.randint(noise, 1 if t0_always else 0, cfg.timesteps + 1, (b, 1), x).float()
+    t_is_zero = (t_int == 0).float()
+    s = (t_int - 1) / cfg.timesteps
+    t = t_int / cfg.timesteps
+    gamma_s, gamma_t = gamma_fn(s), gamma_fn(t)
+
+    eps = sample_combined_position_feature_noise(noise, node_mask, cfg.n_dims, cfg.in_node_nf)
+    xh = torch.cat([x, h_cat, h_int], dim=2)
+    z_t = S.alpha(gamma_t, x.dim()) * xh + S.sigma(gamma_t, x.dim()) * eps
+    net_out = dynamics(t, z_t, node_mask, context)
+    error = compute_error(cfg, net_out, eps, training)
+
+    l2_training = training and cfg.loss_type == "l2"
+    if l2_training:
+        snr_weight = torch.ones_like(error)
+    else:
+        snr_weight = (S.snr(gamma_s - gamma_t) - 1.0).reshape(b)
+    loss_t_larger_than_zero = 0.5 * snr_weight * error
+
+    neg_log_constants = -log_constants_p_x_given_z0(cfg, gamma_fn, node_mask)
+    if l2_training:
+        neg_log_constants = torch.zeros_like(neg_log_constants)
+    kl_prior_ = kl_prior(cfg, gamma_fn, xh, node_mask)
+
+    if t0_always:
+        # A dedicated second pass at t=0 (the eval estimator).
+        t_zeros = torch.zeros_like(s)
+        gamma_0 = gamma_fn(t_zeros)
+        eps_0 = sample_combined_position_feature_noise(noise, node_mask, cfg.n_dims,
+                                                       cfg.in_node_nf)
+        z_0 = S.alpha(gamma_0, x.dim()) * xh + S.sigma(gamma_0, x.dim()) * eps_0
+        net_out0 = dynamics(t_zeros, z_0, node_mask, context)
+        loss_term_0 = 0.5 * compute_error(cfg, net_out0, eps_0, training)
+        loss = kl_prior_ + cfg.timesteps * loss_t_larger_than_zero + neg_log_constants \
+            + loss_term_0
+    else:
+        # One pass; the t=0 term is selected by masking.
+        loss_term_0 = 0.5 * error
+        loss_t = (loss_term_0 * t_is_zero.reshape(b)
+                  + (1.0 - t_is_zero).reshape(b) * loss_t_larger_than_zero)
+        estimator = loss_t if l2_training else (cfg.timesteps + 1) * loss_t
+        loss = kl_prior_ + estimator + neg_log_constants
+    return loss, VDMLossInfo(t_int=t_int.reshape(b), error=error)
 
 
 def sample_normal(noise: com.Noise, mu, sigma, node_mask, n_dims: int, feat_nf: int,

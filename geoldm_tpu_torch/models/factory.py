@@ -1,5 +1,6 @@
-"""Model factories (port of ``geoldm_tpu/models/factory.py:29-275``): build
-the frozen config tree, then the ``nn.Module`` on a device.
+"""Model factories (port of ``geoldm_tpu/models/factory.py:29-320``): build
+the frozen config tree, then the ``nn.Module`` on a device, and the NLL
+function that trains it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ from geoldm_tpu_torch.config import (
     ModelConfig,
     VAEConfig,
 )
+from geoldm_tpu_torch.diffusion import latent as ldm
 from geoldm_tpu_torch.diffusion import schedules as S
+from geoldm_tpu_torch.diffusion import vae as vae_mod
 from geoldm_tpu_torch.diffusion.latent import EnLatentDiffusion
 from geoldm_tpu_torch.nn.egnn import init_parameters
 from geoldm_tpu_torch.utils.device import resolve_device
@@ -102,15 +105,33 @@ def make_latent_diffusion_config(
 
 
 def build_model(cfg: ModelConfig, device="cuda",
-                generator: Optional[torch.Generator] = None) -> EnLatentDiffusion:
+                generator: Optional[torch.Generator] = None):
     """The model on ``device`` (the card unless the caller asks for the
-    CPU), in eval mode. With ``generator`` every weight is drawn from it
+    CPU), in eval mode: an ``EnLatentDiffusion``, or an ``EnHierarchicalVAE``
+    for the 'vae' kind. With ``generator`` every weight is drawn from it
     (reference init); otherwise the caller loads a state dict."""
     dev = resolve_device(device)
-    d = cfg.diffusion
-    S.check_issues_norm_values(
-        S.gamma_table(d.noise_schedule, d.timesteps, d.noise_precision), d.norm_values)
-    model = EnLatentDiffusion(cfg)
+    if cfg.kind == "vae":
+        model = vae_mod.EnHierarchicalVAE(cfg.vae)
+    else:
+        d = cfg.diffusion
+        S.check_issues_norm_values(
+            S.gamma_table(d.noise_schedule, d.timesteps, d.noise_precision), d.norm_values)
+        model = EnLatentDiffusion(cfg)
     if generator is not None:
         init_parameters(model, generator)
     return model.to(dev).eval()
+
+
+def model_nll_fn(model_cfg: ModelConfig, training: bool):
+    """nll(model, noise, x, h_cat, h_int, node_mask, context=None) -> [B] for
+    the configured model kind (factory.py:289-320)."""
+    if model_cfg.kind == "vae":
+        def nll(model, noise, x, h_cat, h_int, node_mask, context=None):
+            return vae_mod.vae_nll(model, noise, x, h_cat, h_int, node_mask, context, training)
+        return nll
+    if model_cfg.kind == "latent_diffusion":
+        def nll(model, noise, x, h_cat, h_int, node_mask, context=None):
+            return ldm.ldm_nll(model, noise, x, h_cat, h_int, node_mask, context, training)
+        return nll
+    raise NotImplementedError(f"model kind {model_cfg.kind!r} is not ported yet")

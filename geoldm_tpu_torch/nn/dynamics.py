@@ -4,8 +4,8 @@
 - ``EGNNDynamics``: the denoiser. Appends the time channel to h, runs the
   EGNN, returns [vel, h] with the velocity projected to the zero-CoM
   subspace (reference EGNN_dynamics_QM9, egnn/models.py:8-113).
-- ``EGNNEncoder``: EGNN + ``final_mlp``; its weights load with the
-  checkpoint. Its forward belongs to the training slice.
+- ``EGNNEncoder``: x, h -> the latent posterior's means and stds
+  (reference EGNN_encoder_QM9, egnn/models.py:137-263).
 - ``EGNNDecoder``: latent -> (x, h) (reference egnn/models.py:287-402).
 
 The reference's NaN guards become branchless whole-tensor resets
@@ -67,14 +67,36 @@ class EGNNDynamics(nn.Module):
 
 
 class EGNNEncoder(nn.Module):
-    """VAE encoder weights: one-block EGNN + final MLP to 2*latent_nf + 1
-    (reference egnn/models.py:137-263)."""
+    """VAE encoder: one-block EGNN + final MLP to 2*latent_nf + 1
+    (encoder_apply, dynamics.py:166-208)."""
 
-    def __init__(self, cfg: EGNNConfig, latent_nf: int):
+    def __init__(self, cfg: EGNNConfig, latent_nf: int, n_dims: int = 3):
         super().__init__()
+        self.latent_nf = latent_nf
+        self.n_dims = n_dims
         self.egnn = EGNN(cfg)
         self.final_mlp = nn.Sequential(nn.Linear(cfg.hidden_nf, cfg.hidden_nf), nn.SiLU(),
                                        nn.Linear(cfg.hidden_nf, 2 * latent_nf + 1))
+
+    def forward(self, xh: torch.Tensor, node_mask: torch.Tensor,
+                context: Optional[torch.Tensor] = None):
+        """xh [B,N,3+F] -> (vel_mean [B,N,3], vel_std [B,1,1], h_mean [B,N,L],
+        h_std [B,N,L]). vel_std is per molecule: its logit is summed over
+        the nodes (reference egnn/models.py:240-245)."""
+        b, n, dims = xh.shape
+        xh = xh * node_mask
+        x = xh[..., :self.n_dims]
+        h = xh[..., self.n_dims:] if dims > self.n_dims else torch.ones(
+            (b, n, 1), dtype=xh.dtype, device=xh.device)
+        if context is not None:
+            h = torch.cat([h, context], dim=-1)
+        h_final, x_final = self.egnn(h, x.contiguous(), node_mask)
+        vel = remove_mean_with_mask(_nan_reset(x_final * node_mask), node_mask)
+        h_final = self.final_mlp(h_final) * node_mask
+        vel_std = torch.exp(0.5 * h_final[..., :1].sum(dim=1, keepdim=True))  # [B,1,1]
+        h_mean = h_final[..., 1:1 + self.latent_nf]
+        h_std = torch.exp(0.5 * h_final[..., 1 + self.latent_nf:])
+        return vel, _nan_reset(vel_std, 1.0), h_mean, _nan_reset(h_std, 1.0)
 
 
 class EGNNDecoder(nn.Module):

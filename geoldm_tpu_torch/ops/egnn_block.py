@@ -1,17 +1,28 @@
-"""One EGNN EquivariantBlock forward: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""One EGNN EquivariantBlock, forward and backward: the hand-written CUDA
+kernels, their plain PyTorch versions and the autograd Function that joins
+them.
 
-Port of the TPU kernel ``geoldm_tpu/ops/pallas_egnn.py:_make_kernel`` over
-``_block_math`` (pallas_call at ``:447``). The kernel is
-``csrc/egnn_block.cu``; its header says what bounds it on an H100 and how
-the design tiles the edge work by row. ``block_forward`` launches it for
-CUDA tensors and runs ``block_forward_plain`` only for tensors on the CPU.
+- Forward: port of the TPU kernel ``geoldm_tpu/ops/pallas_egnn.py:_make_kernel``
+  over ``_block_math`` (pallas_call at ``:447``), in ``csrc/egnn_block.cu``.
+- Backward: port of ``_make_bwd_kernel`` (pallas_call at ``:507``), in
+  ``csrc/egnn_block_bwd.cu``: dh, dx, the exact dx0 and every weight
+  gradient summed over the batch, from the block inputs alone.
+- ``EquivariantBlockFunction`` runs the forward kernel, saves only the block
+  inputs and the weights, and runs the backward kernel (as ``_fwd``/``_bwd``
+  of ``fused_block_apply`` do with ``bwd_mode='pallas'``).
 
-The kernel is built from the checkout's source with ``nvcc`` for
-``sm_90a`` at first use, into ``geoldm_tpu_torch/_build/`` (one library per
-source hash, so an edited source rebuilds), and loaded with ``ctypes``.
+``block_forward`` is what the EGNN calls: on the card it goes through the
+Function while grad is enabled and is the bare forward kernel under
+``no_grad``; on the CPU it runs the plain version. A wrapper given a CUDA
+tensor launches its kernel or raises; only CPU tensors take a plain version.
 
-``launches`` counts kernel calls: one per block forward on the card.
+Each source is built from the checkout with ``nvcc`` for ``sm_90a`` at first
+use, all in parallel, into ``geoldm_tpu_torch/_build/`` (one library per
+source, named by the hash of every kernel source and the flags), and loaded
+with ``ctypes``.
+
+``launches`` / ``bwd_launches`` count kernel calls: one per block forward /
+backward on the card.
 """
 
 from __future__ import annotations
@@ -27,19 +38,25 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embedding
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "egnn_block.cu"
+CSRC = _PKG / "csrc"
+SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu"}
+HEADERS = (CSRC / "egnn_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = 0
-build_info: dict = {}  # filled on first load: library path, seconds, ptxas log
+bwd_launches = 0
+# Filled on the first load: wall seconds of the (parallel) build, whether it
+# was cached, and per library its path and ptxas log.
+build_info: dict = {}
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
@@ -50,70 +67,115 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the egnn_block kernel "
-                       "is built from csrc/egnn_block.cu at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the egnn_block kernels "
+                       "are built from geoldm_tpu_torch/csrc at first use")
 
 
-def _build() -> Path:
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"egnn_block-{digest}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        build_info.update(path=str(lib_path), seconds=0.0, cached=True,
-                          log=log_path.read_text() if log_path.exists() else "")
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(list(SOURCES.values()) + list(HEADERS)):
+        h.update(path.name.encode() + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build_all() -> dict:
+    """Build every missing library, one nvcc per source, all at once."""
+    digest = _digest()
+    paths = {name: BUILD_DIR / f"{name}-{digest}.so" for name in SOURCES}
+    todo = [name for name, p in paths.items() if not p.exists()]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stderr}")
-    log_path.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees a partial file
-    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
-    return lib_path
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed building {SOURCES[name].name}:\n{err}")
+                continue
+            paths[name].with_suffix(".log").write_text(out + err)
+            os.replace(tmp, paths[name])  # atomic: a concurrent build never sees a partial file
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    build_info.update(seconds=time.perf_counter() - t0, cached=not todo, libs={
+        name: {"path": str(p), "log": p.with_suffix(".log").read_text()
+               if p.with_suffix(".log").exists() else ""} for name, p in paths.items()})
+    return paths
+
+
+def _load(name: str) -> ctypes.CDLL:
+    with _lib_lock:
+        if not _libs:
+            p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+            paths = _build_all()
+            fwd = ctypes.CDLL(str(paths["egnn_block"]))
+            fwd.egnn_block_forward.argtypes = [p] * 11 + [i] * 9 + [f] * 3 + [p]
+            fwd.egnn_block_forward.restype = i
+            fwd.egnn_block_error_string.argtypes = [i]
+            fwd.egnn_block_error_string.restype = ctypes.c_char_p
+            bwd = ctypes.CDLL(str(paths["egnn_block_bwd"]))
+            bwd.egnn_block_backward.argtypes = [p] * 14 + [i] * 9 + [f] * 3 + [p]
+            bwd.egnn_block_backward.restype = i
+            bwd.egnn_block_backward_scratch_floats.argtypes = [i] * 5
+            bwd.egnn_block_backward_scratch_floats.restype = z
+            bwd.egnn_block_bwd_error_string.argtypes = [i]
+            bwd.egnn_block_bwd_error_string.restype = ctypes.c_char_p
+            _libs.update(egnn_block=fwd, egnn_block_bwd=bwd)
+    return _libs[name]
 
 
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.egnn_block_forward.argtypes = [p] * 11 + [i] * 9 + [f] * 3 + [p]
-            lib.egnn_block_forward.restype = i
-            lib.egnn_block_error_string.argtypes = [i]
-            lib.egnn_block_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+    """Build (if needed) every kernel library and load the forward's."""
+    return _load("egnn_block")
 
 
-MAX_NODES = 64  # csrc/egnn_block.cu:kMaxNodes, the shared-memory design's bound
-MAX_HIDDEN = 512  # csrc/egnn_block.cu:kMaxHidden, one thread per hidden channel
+def library_bwd() -> ctypes.CDLL:
+    """Build (if needed) every kernel library and load the backward's."""
+    return _load("egnn_block_bwd")
 
 
-def _block_weights(block) -> tuple:
-    """(gcl weight lists, coord weight list) of an ``nn.egnn.EquivariantBlock``
-    in the kernel's pointer order."""
-    cfg = block.cfg
+MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes, the shared-memory design's bound
+MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, one thread per hidden channel
+
+
+def _block_weight_names(block) -> tuple:
+    """(per-GCL name lists, coordinate name list) of an
+    ``nn.egnn.EquivariantBlock`` in the kernels' pointer order; ``None``
+    holds the attention slots of a block without attention."""
     gcls = []
-    for j in range(cfg.inv_sublayers):
-        g = getattr(block, f"gcl_{j}")
-        att = (g.att_mlp[0].weight, g.att_mlp[0].bias) if cfg.attention else (None, None)
-        gcls.append([g.edge_mlp[0].weight, g.edge_mlp[0].bias,
-                     g.edge_mlp[2].weight, g.edge_mlp[2].bias, *att,
-                     g.node_mlp[0].weight, g.node_mlp[0].bias,
-                     g.node_mlp[2].weight, g.node_mlp[2].bias])
-    cm = block.gcl_equiv.coord_mlp
-    coord = [cm[0].weight, cm[0].bias, cm[2].weight, cm[2].bias, cm[4].weight]
+    for j in range(block.cfg.inv_sublayers):
+        g = f"gcl_{j}."
+        att = [g + "att_mlp.0.weight", g + "att_mlp.0.bias"] if block.cfg.attention else [None] * 2
+        gcls.append([g + "edge_mlp.0.weight", g + "edge_mlp.0.bias", g + "edge_mlp.2.weight",
+                     g + "edge_mlp.2.bias", *att, g + "node_mlp.0.weight", g + "node_mlp.0.bias",
+                     g + "node_mlp.2.weight", g + "node_mlp.2.bias"])
+    coord = [f"gcl_equiv.coord_mlp.{k}" for k in
+             ("0.weight", "0.bias", "2.weight", "2.bias", "4.weight")]
     return gcls, coord
+
+
+def block_param_names(block) -> list:
+    """Names of the block's weights in the order the Function takes them."""
+    gcls, coord = _block_weight_names(block)
+    return [n for ns in gcls + [coord] for n in ns if n is not None]
+
+
+def block_params(block) -> list:
+    """The block's weights, in ``block_param_names`` order."""
+    params = dict(block.named_parameters())
+    return [params[n] for n in block_param_names(block)]
+
+
+def _pointer_table(names, tensors: dict):
+    return (ctypes.c_void_p * len(names))(
+        *[tensors[n].data_ptr() if n is not None else None for n in names])
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -127,15 +189,13 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"egnn_block: {name} must be contiguous")
 
 
-def block_forward_cuda(block, h, x, x0, node_mask):
-    """The CUDA kernel. h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one card
-    -> (h_out [B,N,H], x_out [B,N,3])."""
-    global launches
+def _validate(block, h, x, x0, node_mask, **grads) -> dict:
+    """What both kernels refuse; returns the block's weights by name."""
     cfg = block.cfg
     b, n, hidden = h.shape
     dev = h.device
     if dev.type != "cuda":
-        raise ValueError(f"block_forward_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"egnn_block kernels need CUDA tensors, got {dev}")
     if n > MAX_NODES:
         raise ValueError(
             f"egnn_block kernel holds at most {MAX_NODES} nodes per molecule "
@@ -145,40 +205,49 @@ def block_forward_cuda(block, h, x, x0, node_mask):
                          f"[32, {MAX_HIDDEN}]; got {hidden}")
     if hidden != cfg.hidden_nf:
         raise ValueError(f"h has {hidden} features, block expects {cfg.hidden_nf}")
-    e = cfg.edge_feat_nf
-    _check("h", h, (b, n, hidden), dev)
-    _check("x", x, (b, n, 3), dev)
-    _check("x0", x0, (b, n, 3), dev)
-    _check("node_mask", node_mask, (b, n, 1), dev)
-    gcls, coord = _block_weights(block)
-    for ws in gcls + [coord]:
-        for w in ws:
-            if w is not None:
-                _check("weight", w, w.shape, dev)
-    if gcls[0][0].shape != (hidden, 2 * hidden + e):
-        raise ValueError(f"edge_mlp.0.weight has shape {tuple(gcls[0][0].shape)}, "
-                         f"expected {(hidden, 2 * hidden + e)}")
+    shapes = {"h": (b, n, hidden), "x": (b, n, 3), "x0": (b, n, 3), "node_mask": (b, n, 1),
+              "dh_out": (b, n, hidden), "dx_out": (b, n, 3)}
+    for name, t in dict(h=h, x=x, x0=x0, node_mask=node_mask, **grads).items():
+        _check(name, t, shapes[name], dev)
+    params = dict(block.named_parameters())
+    weights = {name: params[name] for name in block_param_names(block)}
+    for name, w in weights.items():
+        _check(name, w, w.shape, dev)
+    w1 = weights["gcl_0.edge_mlp.0.weight"]
+    if w1.shape != (hidden, 2 * hidden + cfg.edge_feat_nf):
+        raise ValueError(f"edge_mlp.0.weight has shape {tuple(w1.shape)}, "
+                         f"expected {(hidden, 2 * hidden + cfg.edge_feat_nf)}")
+    return weights
 
+
+def _cfg_args(cfg):
+    return (cfg.inv_sublayers, int(cfg.attention), int(cfg.sin_embedding), int(cfg.tanh),
+            int(cfg.aggregation_method == "mean"), float(cfg.coords_range_layer),
+            float(cfg.norm_constant), float(cfg.normalization_factor))
+
+
+def block_forward_cuda(block, h, x, x0, node_mask):
+    """The forward kernel. h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one
+    card -> (h_out [B,N,H], x_out [B,N,3])."""
+    global launches
+    weights = _validate(block, h, x, x0, node_mask)
+    b, n, hidden = h.shape
+    dev = h.device
     lib = library()
     h_out = torch.empty_like(h)
     x_out = torch.empty_like(x)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
     agg = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
     tmp = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
-    gcl_ptrs = (ctypes.c_void_p * (10 * len(gcls)))(
-        *[w.data_ptr() if w is not None else None for ws in gcls for w in ws])
-    coord_ptrs = (ctypes.c_void_p * 5)(*[w.data_ptr() for w in coord])
+    gcl_names, coord_names = _block_weight_names(block)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.egnn_block_forward(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(),
             h_out.data_ptr(), x_out.data_ptr(), proj.data_ptr(), agg.data_ptr(),
-            tmp.data_ptr(), gcl_ptrs, coord_ptrs,
-            b, n, hidden, e, cfg.inv_sublayers, int(cfg.attention),
-            int(cfg.sin_embedding), int(cfg.tanh),
-            int(cfg.aggregation_method == "mean"),
-            float(cfg.coords_range_layer), float(cfg.norm_constant),
-            float(cfg.normalization_factor), stream)
+            tmp.data_ptr(), _pointer_table(sum(gcl_names, []), weights),
+            _pointer_table(coord_names, weights), b, n, hidden, block.cfg.edge_feat_nf,
+            *_cfg_args(block.cfg), stream)
     if rc != 0:
         raise RuntimeError(f"egnn_block kernel launch failed: "
                            f"{lib.egnn_block_error_string(rc).decode()} (cudaError {rc})")
@@ -186,18 +255,100 @@ def block_forward_cuda(block, h, x, x0, node_mask):
     return h_out, x_out
 
 
-def block_forward_plain(block, h, x, x0, node_mask):
-    """Plain PyTorch version of the kernel: the module's own forward with the
-    edge mask and initial distance features derived as the kernel derives
-    them (``pallas_egnn.py:_reference_block``)."""
+def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out):
+    """The backward kernel: cotangents dh_out [B,N,H], dx_out [B,N,3] of the
+    block outputs -> (dh, dx, dx0, [weight gradients in ``block_params``
+    order]), the weight gradients summed over the batch."""
+    global bwd_launches
+    dh_out, dx_out = dh_out.contiguous(), dx_out.contiguous()
+    weights = _validate(block, h, x, x0, node_mask, dh_out=dh_out, dx_out=dx_out)
+    b, n, hidden = h.shape
+    dev = h.device
+    cfg = block.cfg
+    lib = library_bwd()
+    grads = {name: torch.empty_like(w) for name, w in weights.items()}
+    dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
+    scratch = torch.empty(
+        lib.egnn_block_backward_scratch_floats(b, n, hidden, cfg.edge_feat_nf, cfg.inv_sublayers),
+        device=dev, dtype=torch.float32)
+    gcl_names, coord_names = _block_weight_names(block)
+    flat_gcl = sum(gcl_names, [])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.egnn_block_backward(
+            h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(),
+            dh_out.data_ptr(), dx_out.data_ptr(), dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(),
+            _pointer_table(flat_gcl, weights), _pointer_table(coord_names, weights),
+            _pointer_table(flat_gcl, grads), _pointer_table(coord_names, grads),
+            scratch.data_ptr(), b, n, hidden, cfg.edge_feat_nf, *_cfg_args(cfg), stream)
+    if rc != 0:
+        raise RuntimeError(f"egnn_block backward kernel launch failed: "
+                           f"{lib.egnn_block_bwd_error_string(rc).decode()} (cudaError {rc})")
+    bwd_launches += 1
+    return dh, dx, dx0, [grads[name] for name in block_param_names(block)]
+
+
+def block_forward_plain(block, h, x, x0, node_mask, weights=None):
+    """Plain PyTorch version of the forward kernel: the module's own forward
+    with the edge mask and initial distance features derived as the kernel
+    derives them (``pallas_egnn.py:_reference_block``). ``weights`` (in
+    ``block_params`` order) replace the module's parameters when given."""
     radial0, _ = coord2diff(x0)
     e0 = sin_embedding(radial0) if block.cfg.sin_embedding else radial0
-    return block(h, x, e0, node_mask, build_edge_mask(node_mask))
+    args = (h, x, e0, node_mask, build_edge_mask(node_mask))
+    if weights is None:
+        return block(*args)
+    return torch.func.functional_call(block, dict(zip(block_param_names(block), weights)), args)
+
+
+def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=None):
+    """Plain PyTorch version of the backward kernel: ``torch.autograd.grad``
+    of the recomputed ``block_forward_plain``, as the Pallas kernel
+    ``jax.vjp``s ``_block_math``. -> (dh, dx, dx0, [weight gradients])."""
+    weights = block_params(block) if weights is None else weights
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (h, x, x0)]
+        ws = [w.detach().requires_grad_() for w in weights]
+        outs = block_forward_plain(block, *inputs, node_mask, ws)
+        grads = torch.autograd.grad(outs, inputs + ws, (dh_out, dx_out), allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs + ws, grads)]
+    return grads[0], grads[1], grads[2], grads[3:]
+
+
+class EquivariantBlockFunction(torch.autograd.Function):
+    """One block with the kernels as forward and backward:
+    ``apply(block, h, x, x0, node_mask, *block_params(block))``. Saves only
+    the block inputs and the weights; the backward recomputes the rest. On
+    CPU tensors it runs the plain versions (for tests)."""
+
+    @staticmethod
+    def forward(ctx, block, h, x, x0, node_mask, *weights):
+        if h.is_cuda:
+            h_out, x_out = block_forward_cuda(block, h, x, x0, node_mask)
+        else:
+            h_out, x_out = block_forward_plain(block, h, x, x0, node_mask, weights)
+        ctx.block = block
+        ctx.save_for_backward(h, x, x0, node_mask, *weights)
+        return h_out, x_out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_out, dx_out):
+        h, x, x0, node_mask, *weights = ctx.saved_tensors
+        if h.is_cuda:
+            dh, dx, dx0, dws = block_backward_cuda(ctx.block, h, x, x0, node_mask, dh_out, dx_out)
+        else:
+            dh, dx, dx0, dws = block_backward_plain(ctx.block, h, x, x0, node_mask, dh_out,
+                                                    dx_out, weights)
+        return (None, dh, dx, dx0, None, *dws)
 
 
 def block_forward(block, h, x, x0, node_mask):
-    """Kernel for tensors on the card; plain version for tensors on the CPU."""
+    """The kernels for tensors on the card (through the autograd Function
+    while grad is enabled), the plain version for tensors on the CPU."""
     if h.is_cuda:
+        if torch.is_grad_enabled():
+            return EquivariantBlockFunction.apply(block, h, x, x0, node_mask, *block_params(block))
         return block_forward_cuda(block, h, x, x0, node_mask)
     if h.device.type == "cpu":
         return block_forward_plain(block, h, x, x0, node_mask)

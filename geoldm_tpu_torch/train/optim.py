@@ -1,0 +1,80 @@
+"""Optimizer stack (port of ``geoldm_tpu/train/optim.py``): AMSGrad with
+PyTorch's bias-correction placement, decoupled weight decay 1e-12, adaptive
+gradient clipping, the trainable mask and the EMA.
+
+The reference trains with ``AdamW(amsgrad=True, weight_decay=1e-12)``
+(qm9/models.py:169-175), which is the chain the JAX package rebuilt in optax
+(``scale_by_amsgrad_torch`` + ``add_decayed_weights`` + ``scale(-lr)``), so
+the port uses ``torch.optim.AdamW`` itself; ``tests/test_torch_port_train.py``
+holds it to the JAX chain. The clip keeps its ring buffer on the device and
+never synchronises with the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+
+class AdaptiveGradClip:
+    """Clip the global gradient norm at 1.5 * mean + 2 * std of the last
+    ``max_len`` recorded norms, the buffer seeded with ``init_value``; each
+    step records min(norm, threshold), so one spike cannot poison the
+    threshold (reference utils.py:30-66; optim.py:28-66)."""
+
+    def __init__(self, device, max_len: int = 50, init_value: float = 3000.0):
+        self.norms = torch.zeros(max_len, dtype=torch.float32, device=device)
+        self.norms[0] = init_value
+        self.count = 1
+        self.head = 1
+
+    def __call__(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """Scale ``grads`` in place; returns their global norm before the clip."""
+        grad_norm = global_norm(grads)
+        valid = self.norms[:self.count]
+        mean = valid.sum() / self.count
+        std = torch.sqrt(torch.clamp(((valid - mean) ** 2).sum() / self.count, min=0.0))
+        max_grad_norm = 1.5 * mean + 2.0 * std
+        scale = torch.clamp(max_grad_norm / (grad_norm + 1e-12), max=1.0)
+        torch._foreach_mul_(grads, scale)
+        self.norms[self.head % self.norms.shape[0]] = torch.minimum(grad_norm, max_grad_norm)
+        self.count = min(self.count + 1, self.norms.shape[0])
+        self.head += 1
+        return grad_norm
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum((t * t).sum() for t in tensors))
+
+
+def trainable_mask(model: nn.Module, model_kind: str, trainable_ae: bool) -> Dict[str, bool]:
+    """Parameter name -> trainable. The VAE is frozen for latent diffusion
+    unless ``trainable_ae`` (and even then the encoder gets no gradient: its
+    latent is detached) (optim.py:161-170)."""
+    freeze_vae = model_kind == "latent_diffusion" and not trainable_ae
+    return {name: not (freeze_vae and name.startswith("vae."))
+            for name, _ in model.named_parameters()}
+
+
+def make_optimizer(model: nn.Module, mask: Dict[str, bool], lr: float = 1e-4,
+                   weight_decay: float = 1e-12) -> torch.optim.Optimizer:
+    """AMSGrad (torch semantics) with decoupled weight decay over the
+    trainable parameters; the frozen ones stop requiring gradients."""
+    params = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            params.append(p)
+    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay, amsgrad=True)
+
+
+@torch.no_grad()
+def ema_update(ema_model: nn.Module, model: nn.Module, decay: float) -> None:
+    """Polyak averaging e = e * decay + p * (1 - decay) of every parameter
+    (reference equivariant_diffusion/utils.py:5-18)."""
+    ema = list(ema_model.parameters())
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, list(model.parameters()), alpha=1.0 - decay)

@@ -1,0 +1,83 @@
+"""Train step and eval NLL (port of ``geoldm_tpu/train/train_step.py:38-144``).
+
+A step: loss = mean(nll - log p(N)), backward (through the block kernels on
+the card), adaptive clip, AMSGrad update, EMA. Every random draw (the
+encoder's eps, t, the diffusion eps) comes from the noise source the caller
+passes. Batches are dicts of tensors on the model's device: x [B,N,3],
+h_cat [B,N,C], h_int [B,N,0/1], node_mask [B,N,1], log_pN [B].
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from geoldm_tpu_torch.config import ModelConfig
+from geoldm_tpu_torch.models import factory
+from geoldm_tpu_torch.ops import com
+from geoldm_tpu_torch.train import optim as optim_mod
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    ema_model: nn.Module  # the model itself when ema_decay == 0
+    optimizer: torch.optim.Optimizer
+    clip: Optional[optim_mod.AdaptiveGradClip]
+    params: List[nn.Parameter]  # the trainable ones
+
+
+def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
+                       weight_decay: float = 1e-12, clip_grad: bool = True,
+                       ema_decay: float = 0.9999) -> TrainState:
+    mask = optim_mod.trainable_mask(model, model_cfg.kind, model_cfg.trainable_ae)
+    optimizer = optim_mod.make_optimizer(model, mask, lr, weight_decay)
+    ema_model = model
+    if ema_decay > 0:
+        ema_model = copy.deepcopy(model).requires_grad_(False)
+    device = next(model.parameters()).device
+    clip = optim_mod.AdaptiveGradClip(device) if clip_grad else None
+    params = [p for name, p in model.named_parameters() if mask[name]]
+    return TrainState(model, ema_model, optimizer, clip, params)
+
+
+def make_train_step(model_cfg: ModelConfig, ema_decay: float):
+    """train_step(state, batch, noise) -> {"loss", "grad_norm"} (tensors on
+    the device, not synchronised)."""
+    nll_fn = factory.model_nll_fn(model_cfg, training=True)
+
+    def train_step(state: TrainState, batch: dict, noise: com.Noise) -> dict:
+        state.optimizer.zero_grad(set_to_none=True)
+        nll = nll_fn(state.model, noise, batch["x"], batch["h_cat"], batch["h_int"],
+                     batch["node_mask"], batch.get("context"))
+        loss = (nll - batch["log_pN"]).mean()
+        loss.backward()
+        grads = [p.grad for p in state.params if p.grad is not None]
+        if state.clip is not None:
+            grad_norm = state.clip(grads)
+        else:
+            grad_norm = optim_mod.global_norm(grads)
+        state.optimizer.step()
+        if ema_decay > 0:
+            optim_mod.ema_update(state.ema_model, state.model, ema_decay)
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return train_step
+
+
+def make_eval_nll(model_cfg: ModelConfig):
+    """eval_nll(model, batch, noise) -> mean NLL minus log p(N) (the
+    t0_always two-pass estimator), under no_grad."""
+    nll_fn = factory.model_nll_fn(model_cfg, training=False)
+
+    @torch.no_grad()
+    def eval_nll(model: nn.Module, batch: dict, noise: com.Noise) -> torch.Tensor:
+        nll = nll_fn(model, noise, batch["x"], batch["h_cat"], batch["h_int"],
+                     batch["node_mask"], batch.get("context"))
+        return (nll - batch["log_pN"]).mean()
+
+    return eval_nll

@@ -82,10 +82,7 @@ def model_config_from_reference_args(args: Any, dataset_info) -> ModelConfig:
     """Pickled upstream argparse namespace -> ModelConfig, with the
     back-compat defaults of qm9/models.py:112-116."""
     g = lambda name, default: getattr(args, name, default)  # noqa: E731
-    if not g("train_diffusion", False):
-        raise NotImplementedError("only latent-diffusion checkpoints are ported yet")
-    return factory.make_latent_diffusion_config(
-        dataset_info,
+    common = dict(
         include_charges=g("include_charges", True),
         context_node_nf=g("context_node_nf", 0),
         nf=g("nf", 256), n_layers=g("n_layers", 9), latent_nf=g("latent_nf", 1),
@@ -93,7 +90,11 @@ def model_config_from_reference_args(args: Any, dataset_info) -> ModelConfig:
         tanh=g("tanh", True), norm_constant=g("norm_constant", 1.0),
         inv_sublayers=g("inv_sublayers", 1), sin_embedding=g("sin_embedding", False),
         normalization_factor=g("normalization_factor", 1),
-        aggregation_method=g("aggregation_method", "sum"),
+        aggregation_method=g("aggregation_method", "sum"))
+    if not g("train_diffusion", False):  # a first-stage VAE checkpoint
+        return factory.make_vae_config(dataset_info, **common)
+    return factory.make_latent_diffusion_config(
+        dataset_info, **common,
         condition_time=g("condition_time", True), trainable_ae=g("trainable_ae", False),
         diffusion_steps=g("diffusion_steps", 1000),
         noise_schedule=g("diffusion_noise_schedule", "polynomial_2"),

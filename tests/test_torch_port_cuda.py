@@ -1,10 +1,11 @@
-"""The EquivariantBlock CUDA kernel against its plain PyTorch version on the
-card, at small shapes and every block variant. Imports no jax, so it runs on
-a machine with a card and no JAX:
+"""The EquivariantBlock CUDA kernels (forward and backward) against their
+plain PyTorch versions on the card, at small shapes and every block variant,
+and the autograd Function that joins them. Imports no jax, so it runs on a
+machine with a card and no JAX:
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda
 
-Skips where torch.cuda is unavailable (the kernel has no CPU mode)."""
+Skips where torch.cuda is unavailable (the kernels have no CPU mode)."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,14 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 ATOL = 2e-5
+# Backward kernel vs plain autograd: both f32, sums in other orders (weight
+# gradients add up to B*N*N edge terms): max|d| <= BWD_RTOL * max(1, max|ref|).
+BWD_RTOL = 1e-4
+
+VARIANTS = [
+    {}, {"attention": False}, {"sin_embedding": True}, {"inv_sublayers": 2},
+    {"aggregation_method": "mean", "tanh": False}, {"norm_constant": 0.5},
+]
 
 
 @pytest.fixture
@@ -45,10 +54,7 @@ def _inputs(card, b, n, hidden, n_real, seed=1):
     return [torch.from_numpy(a).to(card) for a in (h, x, x0, mask)]
 
 
-@pytest.mark.parametrize("variant", [
-    {}, {"attention": False}, {"sin_embedding": True}, {"inv_sublayers": 2},
-    {"aggregation_method": "mean", "tanh": False}, {"norm_constant": 0.5},
-])
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("n,n_real", [(9, (5, 9)), (24, (24, 17)), (40, (33, 40))])
 def test_kernel_matches_plain(card, variant, n, n_real):
     block = _block(card, **variant)
@@ -83,3 +89,70 @@ def test_kernel_refuses_what_it_cannot_hold(card):
     with pytest.raises(ValueError, match="contiguous"):
         egnn_block.block_forward_cuda(block, h, torch.zeros(1, 8, 6, device=card)[..., :3],
                                       x0, mask)
+
+
+def _cotangents(card, b, n, hidden, seed=2):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card)
+            for shape in ((b, n, hidden), (b, n, 3))]
+
+
+def _assert_backward_close(block, args, cots):
+    got = egnn_block.block_backward_cuda(block, *args, *cots)
+    want = egnn_block.block_backward_plain(block, *args, *cots)
+    torch.cuda.synchronize()
+    names = ["dh", "dx", "dx0"] + egnn_block.block_param_names(block)
+    for name, g, w in zip(names, [*got[:3], *got[3]], [*want[:3], *want[3]]):
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        assert err <= BWD_RTOL * scale, f"{name}: max|d|={err:.3e} > {BWD_RTOL}*{scale:.3g}"
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n,n_real", [(9, (5, 9)), (24, (24, 17)), (29, (29, 12)),
+                                      (40, (33, 40))])
+def test_backward_kernel_matches_plain(card, variant, n, n_real):
+    block = _block(card, **variant)
+    _assert_backward_close(block, _inputs(card, 2, n, 32, n_real), _cotangents(card, 2, n, 32))
+
+
+def test_backward_wide_hidden_and_launch_count(card):
+    block = _block(card, hidden=512)
+    args = _inputs(card, 3, 16, 512, (16, 11, 2))
+    before = egnn_block.bwd_launches
+    _assert_backward_close(block, args, _cotangents(card, 3, 16, 512))
+    assert egnn_block.bwd_launches == before + 1
+
+
+def test_block_forward_on_the_card_gives_the_weights_a_gradient(card):
+    """block_forward under grad goes through the autograd Function: its
+    outputs carry a grad_fn and every weight gets the backward kernel's
+    gradient (a bare kernel call would leave them without one)."""
+    block = _block(card)
+    h, x, x0, mask = _inputs(card, 2, 9, 32, (5, 9))
+    h.requires_grad_()
+    fwd, bwd = egnn_block.launches, egnn_block.bwd_launches
+    h_out, x_out = egnn_block.block_forward(block, h, x, x0, mask)
+    assert h_out.grad_fn is not None and x_out.grad_fn is not None
+    (h_out.square().sum() + x_out.square().sum()).backward()
+    assert (egnn_block.launches, egnn_block.bwd_launches) == (fwd + 1, bwd + 1)
+    for name, p in block.named_parameters():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+    assert h.grad is not None
+    with torch.no_grad():
+        h_out, _ = egnn_block.block_forward(block, h, x, x0, mask)
+    assert h_out.grad_fn is None and egnn_block.launches == fwd + 2
+
+
+def test_backward_refuses_what_it_cannot_hold(card):
+    block = _block(card)
+    args = _inputs(card, 1, 65, 32, (65,))
+    with pytest.raises(ValueError, match="at most 64 nodes"):
+        egnn_block.block_backward_cuda(block, *args, *_cotangents(card, 1, 65, 32))
+    h, x, x0, mask = _inputs(card, 1, 8, 32, (8,))
+    dh, dx = _cotangents(card, 1, 8, 32)
+    with pytest.raises(TypeError, match="float32"):
+        egnn_block.block_backward_cuda(block, h, x, x0, mask, dh.double(), dx)
+    with pytest.raises(ValueError, match="contiguous"):
+        egnn_block.block_backward_cuda(block, h, torch.zeros(1, 8, 6, device=card)[..., :3],
+                                       x0, mask, dh, dx)

@@ -46,6 +46,31 @@ def test_com_ops_match_jax():
                                np.asarray(jcom.sum_except_batch(jnp.asarray(x))), atol=1e-5)
 
 
+def test_com_likelihoods_and_kls_match_jax():
+    _, x, _, mask = masked_inputs(2, 3, 7, 1, (3, 7, 5))
+    rng = np.random.default_rng(3)
+    q_mu, p_mu = (rng.standard_normal((3, 7, 2)).astype(np.float32) * mask for _ in range(2))
+    q_s, p_s = (rng.uniform(0.5, 2.0, (3, 7, 2)).astype(np.float32) for _ in range(2))
+    qb, pb = (rng.uniform(0.5, 2.0, 3).astype(np.float32) for _ in range(2))
+    mj, xj = jnp.asarray(mask), jnp.asarray(x)
+    d = pcom.subspace_dimensionality(t(mask), 3)
+    pairs = [
+        (d, jcom.subspace_dimensionality(mj, 3)),
+        (pcom.center_gravity_zero_gaussian_log_likelihood_with_mask(t(x), t(mask)),
+         jcom.center_gravity_zero_gaussian_log_likelihood_with_mask(xj, mj)),
+        (pcom.standard_gaussian_log_likelihood_with_mask(t(x), t(mask)),
+         jcom.standard_gaussian_log_likelihood_with_mask(xj, mj)),
+        (pcom.gaussian_kl(t(q_mu), t(q_s), t(p_mu), t(p_s), t(mask)),
+         jcom.gaussian_kl(*map(jnp.asarray, (q_mu, q_s, p_mu, p_s)), mj)),
+        (pcom.gaussian_kl_for_dimension(t(x), t(qb), torch.zeros_like(t(x)), t(pb), d),
+         jcom.gaussian_kl_for_dimension(xj, jnp.asarray(qb), jnp.zeros_like(xj),
+                                        jnp.asarray(pb), jnp.asarray(d.numpy()))),
+        (pcom.cdf_standard_gaussian(t(x)), jcom.cdf_standard_gaussian(xj)),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
 def test_masked_gaussians_respect_mask_and_com():
     _, _, _, mask = masked_inputs(0, 4, 9, 1, (2, 9, 5, 7))
     gen = torch.Generator().manual_seed(0)

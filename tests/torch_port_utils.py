@@ -1,6 +1,8 @@
-"""Shared helpers for the port's parity tests: numpy-seeded inputs and
-weight transfer from JAX param pytrees into the port's modules."""
+"""Shared helpers for the port's parity tests: numpy-seeded inputs, weight
+transfer from JAX param pytrees into the port's modules, JAX gradients by
+the port's parameter names, and noise sources that replay JAX's draws."""
 
+import jax
 import numpy as np
 import torch
 
@@ -33,3 +35,56 @@ def load_egnn_from_jax(module, jax_egnn_params, attention, prefix=""):
 
 def t(a):
     return torch.from_numpy(np.asarray(a, dtype=np.float32))
+
+
+def block_grads_by_name(block_grads, attention):
+    """One block's JAX gradient pytree -> {port parameter name: array}."""
+    sd = {}
+    dummy = {"w": np.zeros((1, 1), np.float32), "b": np.zeros(1, np.float32)}
+    egnn = {"embedding": dummy, "embedding_out": dummy,
+            "blocks": jax.tree.map(lambda a: np.asarray(a)[None], block_grads)}
+    egnn_state_dict_from_params(sd, "", egnn, attention)
+    return {k[len("e_block_0."):]: v for k, v in sd.items() if k.startswith("e_block_0.")}
+
+
+class Feed:
+    """A noise source that hands out given draws in order: ('n', normals)
+    through __call__ and ('i', integers) through randint, checking shapes."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def _next(self, kind, shape):
+        got_kind, a = self.draws.pop(0)
+        assert got_kind == kind and tuple(a.shape) == tuple(shape), (got_kind, a.shape, shape)
+        return torch.from_numpy(np.array(a))
+
+    def __call__(self, shape):
+        return self._next("n", shape)
+
+    def randint(self, low, high, shape):
+        return self._next("i", shape)
+
+
+def jax_combined_draws(key, b, n, d_x, d_h):
+    """The raw normals behind JAX's sample_combined_*_noise(key, ...)."""
+    kx, kh = jax.random.split(key)
+    return [("n", np.asarray(jax.random.normal(kx, (b, n, d_x)))),
+            ("n", np.asarray(jax.random.normal(kh, (b, n, d_h))))]
+
+
+def jax_vdm_draws(key, b, n, feat_nf, timesteps, t0_always):
+    """JAX vdm.compute_loss's draws from ``key`` (vdm.py:295-313, :346)."""
+    k_t, k_eps, k_eps0 = jax.random.split(key, 3)
+    t = jax.random.randint(k_t, (b, 1), 1 if t0_always else 0, timesteps + 1)
+    draws = [("i", np.asarray(t))] + jax_combined_draws(k_eps, b, n, 3, feat_nf)
+    if t0_always:
+        draws += jax_combined_draws(k_eps0, b, n, 3, feat_nf)
+    return draws
+
+
+def jax_ldm_draws(key, b, n, latent_nf, timesteps, t0_always):
+    """JAX latent.ldm_nll's draws from ``key`` (latent.py:84 split)."""
+    k_enc, k_loss = jax.random.split(key)
+    return (jax_combined_draws(k_enc, b, n, 3, latent_nf)
+            + jax_vdm_draws(k_loss, b, n, latent_nf, timesteps, t0_always))
