@@ -28,7 +28,22 @@ Phases (each prints a line; any failure exits non-zero before the result):
      and test NLL and the checkpoints; the kernels' launch counts must equal
      what the code implies, and the checkpoint must load back;
   8. one full-width train-step gradient (B=8, N=29) through the kernels on the
-     card against the plain path on the CPU, same weights, batch and noise.
+     card against the plain path on the CPU, same weights, batch and noise;
+  9. the row-tiled GCL (#3) and coordinate (#4) kernels against their plain
+     versions on the card at H=256, B=16, N in {96, 136, 184} with ragged
+     masks (n-16..n atoms), plus one 'mean' case at N=181 and one
+     sin-embedding case at N=96, with times and per-stage bounds; and the
+     block kernel against its plain version and the tiled path at N=48, 64;
+ 10. a GEOM-Drugs latent-diffusion model at the recipe (nf=256, 4 layers,
+     latent_nf=2, no charges, T=1000, random weights from seed 0) written
+     with dataset "geom" and served with --dataset geom --batch_max 16: a
+     seeded request with one molecule in each bucket, its replay, 24 sizes
+     drawn from the GEOM histogram and an invalid request; per chunk the
+     launch counts must be 4008 = (T+1)*4 + 4 of the block kernel (pad <= 64)
+     or of each of #3 and #4 (pad > 64);
+ 11. one GEOM denoiser evaluation (4 blocks, B=2, N=184) through the tiled
+     kernels against the plain path on the CPU, and the refusal of a block
+     past 64 nodes under grad (its backward, TPU kernel #5, is not ported).
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -57,7 +72,8 @@ _FLOP_PEAK, _BW_PEAK = 67.0e12, 3.35e12
 # Kernel vs plain: both sum in float32 but in different orders. Holds for
 # the backward's weight gradients too, which add up B*N*N edge terms.
 _KERNEL_RTOL = 1e-4
-# Nine blocks chained on the card vs the CPU: order differences compound.
+# Nine (QM9) or four (GEOM) blocks chained on the card vs the CPU: order
+# differences compound.
 _DENOISER_RTOL = 2e-4
 # A whole train step's gradient, card vs CPU: the loss and, per parameter
 # tensor, max|d| <= _GRAD_RTOL * max|ref| (f32 sum orders through 19 blocks
@@ -134,12 +150,28 @@ def _bwd_work(cfg, n_real, n_pad, n_weights):
     return flops, nbytes
 
 
-def _ragged_inputs(seed, B, n, H, dev):
-    """h, x, x0, node_mask on ``dev``: B molecules of n-8..n atoms padded to n."""
+def _stage_work(cfg, n_real, n_pad, n_weights, coord):
+    """(FLOP, bytes) one row-tiled stage needs: the edge MLP over real ordered
+    pairs and the node-side products over real nodes (the two halves of
+    ``_block_work``'s per-stage terms); h, x, x0 and the mask read once, the
+    stage's output (h, or x for the coordinate stage) and its weights once."""
+    H, E = cfg.hidden_nf, cfg.edge_feat_nf
+    pairs = float(np.sum(n_real * (n_real - 1)))
+    nodes = float(np.sum(n_real))
+    flops = pairs * (2 * E * H + 2 * H * H + 2 * H)
+    flops += nodes * (2 * 2 * H * H) if coord else nodes * (2 * 2 * H * H + 2 * 2 * H * H + 2 * H * H)
+    b = len(n_real)
+    nbytes = 4 * (b * n_pad * (H + 3 + 3 + 1 + (3 if coord else H)) + n_weights)
+    return flops, nbytes
+
+
+def _ragged_inputs(seed, B, n, H, dev, spread=8):
+    """h, x, x0, node_mask on ``dev``: B molecules of n-spread..n atoms
+    padded to n."""
     import torch
 
     rng = np.random.default_rng(seed)
-    n_real = rng.integers(max(1, n - 8), n + 1, size=B)
+    n_real = rng.integers(max(1, n - spread), n + 1, size=B)
     mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
     h = rng.standard_normal((B, n, H)).astype(np.float32) * mask
     x = rng.standard_normal((B, n, 3)).astype(np.float32) * mask
@@ -556,16 +588,16 @@ def phase_serve(card_name, tmpdir):
         server.server_close()
 
 
-def phase_denoiser(model, card_name):
+def phase_denoiser(model, card_name, B=16, N=32, n_min=20, phase=5):
     import torch
 
     from geoldm_tpu_torch.ops.com import remove_mean_with_mask
 
     rng = np.random.default_rng(5)
-    B, N = 16, 32
-    n_real = rng.integers(20, N + 1, size=B)
+    n_real = rng.integers(n_min, N + 1, size=B)
     mask = (np.arange(N)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
-    z = rng.standard_normal((B, N, 4)).astype(np.float32) * mask
+    feat = 3 + model.cfg.dynamics.in_node_nf
+    z = rng.standard_normal((B, N, feat)).astype(np.float32) * mask
     t = rng.uniform(0, 1, size=(B, 1)).astype(np.float32)
     mask_t, z_t = torch.from_numpy(mask), torch.from_numpy(z)
     z_t[:, :, :3] = remove_mean_with_mask(z_t[:, :, :3], mask_t)
@@ -579,8 +611,197 @@ def phase_denoiser(model, card_name):
     _check(bool(torch.isfinite(out_k).all()), "denoiser output not finite")
     _check(err <= _DENOISER_RTOL * scale,
            f"denoiser kernel vs plain max|d|={err:.3e} > {_DENOISER_RTOL}*{scale:.3g}")
-    print(f"phase 5: denoiser nf=256 x9 blocks B={B} N={N}: kernel on {card_name} vs "
-          f"plain on CPU max|d|={err:.3e} (tol {_DENOISER_RTOL * scale:.2e})", flush=True)
+    layers = model.cfg.dynamics.egnn.n_layers
+    print(f"phase {phase}: denoiser nf=256 x{layers} blocks B={B} N={N}: kernels on "
+          f"{card_name} vs plain on CPU max|d|={err:.3e} (tol {_DENOISER_RTOL * scale:.2e})",
+          flush=True)
+    return err
+
+
+def _geom_block(extra, seed):
+    import torch
+
+    from geoldm_tpu_torch.config import EGNNConfig
+    from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+
+    # The GEOM recipe's block: nf=256, attention, tanh, 'sum' over factor 1.
+    cfg = EGNNConfig(in_node_nf=3, out_node_nf=3, hidden_nf=256, n_layers=4, attention=True,
+                     normalization_factor=1.0, **extra)
+    block = EquivariantBlock(cfg)
+    init_parameters(block, torch.Generator().manual_seed(seed))
+    return block.to("cuda").eval()
+
+
+def phase_tiled(card_name):
+    import torch
+
+    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    B, H = 16, 256
+    cases = [("sum", 96, {}), ("sum", 136, {}), ("sum", 184, {}),
+             ("mean", 181, {"aggregation_method": "mean"}), ("sin", 96, {"sin_embedding": True})]
+    rows = []
+    for case, n, extra in cases:
+        block = _geom_block(extra, 200 + n)
+        inputs = [_ragged_inputs(4000 * n + rep, B, n, H, dev, spread=16) for rep in range(4)]
+        n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        with torch.no_grad():
+            # The coordinate stage reads the GCL's output, as in the block.
+            stage_inputs = [(egnn_tiled.gcl_rows_plain(block.gcl_0, *a), *a[1:]) for a in inputs]
+        stages = [("gcl_rows", block.gcl_0, egnn_tiled.gcl_rows_cuda, egnn_tiled.gcl_rows_plain,
+                   inputs),
+                  ("coord_rows", block.gcl_equiv, egnn_tiled.coord_rows_cuda,
+                   egnn_tiled.coord_rows_plain, stage_inputs)]
+        for stage, mod, cuda_fn, plain_fn, ins in stages:
+            with torch.no_grad():
+                got = cuda_fn(mod, *ins[0])
+                want = plain_fn(mod, *ins[0])
+                torch.cuda.synchronize()
+                _check(bool(torch.isfinite(got).all()), f"{stage} not finite at N={n} {extra}")
+                err = float((got - want).abs().max())
+                scale = max(1.0, float(want.abs().max()))
+                _check(err <= _KERNEL_RTOL * scale,
+                       f"{stage} kernel disagrees with plain at N={n} {extra}: max|d|={err:.3e} "
+                       f"> {_KERNEL_RTOL}*{scale:.3g}")
+                ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a), ins)
+                plain_ms = _time_ms(lambda *a, m=mod, f=plain_fn: f(m, *a), ins)
+            n_weights = sum(p.numel() for p in mod.parameters())
+            flops, nbytes = _stage_work(block.cfg, n_real0, n, n_weights, stage == "coord_rows")
+            t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+            row = {"stage": stage, "case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
+                   "tol": _KERNEL_RTOL * scale, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
+            rows.append(row)
+            print(f"phase 9: {stage} {case} N={n} B={B} H={H} max|d|={err:.3e} "
+                  f"(tol {row['tol']:.2e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                  f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
+
+    # GEOM's buckets 48 and 64 stay on the block kernel: it against its plain
+    # version and against the tiled path.
+    for n in (48, 64):
+        block = _geom_block({}, 300 + n)
+        args = _ragged_inputs(5000 + n, B, n, H, dev, spread=16)
+        with torch.no_grad():
+            h_k, x_k = egnn_block.block_forward_cuda(block, *args)
+            h_p, x_p = egnn_block.block_forward_plain(block, *args)
+            h_t, x_t = egnn_tiled.tiled_block_forward(block, *args)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(h_p.abs().max()), float(x_p.abs().max()))
+        for what, (h_o, x_o) in (("plain", (h_p, x_p)), ("tiled path", (h_t, x_t))):
+            err = max(float((h_k - h_o).abs().max()), float((x_k - x_o).abs().max()))
+            _check(err <= _KERNEL_RTOL * scale,
+                   f"block kernel vs {what} at N={n}: max|d|={err:.3e} > {_KERNEL_RTOL}*{scale:.3g}")
+            print(f"phase 9: egnn_block N={n} B={B} H={H} vs {what} max|d|={err:.3e} "
+                  f"(tol {_KERNEL_RTOL * scale:.2e})", flush=True)
+    return rows
+
+
+def phase_geom_serve(card_name, tmpdir):
+    import torch
+
+    from geoldm_tpu_torch.cli import serve
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+    from geoldm_tpu_torch.train.sampling import chunk_pads
+    from geoldm_tpu_torch.utils.convert import save_reference_checkpoint
+
+    info = get_dataset_info("geom")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
+                                               include_charges=False, diffusion_steps=1000,
+                                               normalization_factor=1.0)
+    t0 = time.time()
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    save_reference_checkpoint(model, tmpdir, dataset="geom")
+    del model
+    print(f"phase 10: GEOM LDM nf=256 layers=4 latent_nf=2 no charges T=1000, random weights "
+          f"(seed 0) written in upstream layout (dataset geom) in {time.time() - t0:.1f} s",
+          flush=True)
+
+    batch_max = 16
+    server, service = serve.main(["--model_path", tmpdir, "--dataset", "geom", "--port", "0",
+                                  "--batch_max", str(batch_max)], serve_forever=False)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    T, layers = cfg.diffusion.timesteps, cfg.dynamics.egnn.n_layers
+    per_chunk = (T + 1) * layers + cfg.vae.decoder_egnn.n_layers
+    inv = cfg.dynamics.egnn.inv_sublayers
+    try:
+        code, health = _request(base, "/health")
+        _check(code == 200 and health["buckets"] == [32, 48, 64, 96, 136, 184],
+               f"/health -> {code} {health}")
+        print(f"phase 10: /health ok, dataset {health['dataset']}, device {health['device']}, "
+              f"buckets {health['buckets']}", flush=True)
+        sizes = [25, 40, 60, 90, 130, 181]
+        requests = [("seeded", {"sizes": sizes, "seed": 7}),
+                    ("replay", {"sizes": sizes, "seed": 7}),
+                    ("n_samples", {"n_samples": 24, "seed": 3})]
+        egnn_block.launches = egnn_tiled.gcl_rows_launches = egnn_tiled.coord_rows_launches = 0
+        pads, stats, bodies = [], [], {}
+        for name, req in requests:
+            t1 = time.time()
+            code, body = _request(base, "/sample", req)
+            dt = time.time() - t1
+            _check(code == 200, f"/sample {name} -> {code} {body}")
+            got_sizes = req.get("sizes") or [len(m) for m in body["molecules"]]
+            _check_molecules(body, got_sizes, info["atom_decoder"])
+            req_pads = chunk_pads(got_sizes, batch_max, service.buckets)
+            pads += req_pads
+            bodies[name] = body
+            stats.append({"request": name, "molecules": body["n"], "seconds": dt,
+                          "mol_per_s": body["n"] / dt, "chunk_pads": req_pads,
+                          "stable": sum(body["stable"])})
+            print(f"phase 10: /sample {name}: {body['n']} molecules (sizes {sorted(got_sizes)}) "
+                  f"in {dt:.2f} s ({body['n'] / dt:.3f} mol/s, {sum(body['stable'])} stable; "
+                  f"chunk pads {req_pads}) on {card_name}", flush=True)
+        launches = {"egnn_block": egnn_block.launches, "gcl_rows": egnn_tiled.gcl_rows_launches,
+                    "coord_rows": egnn_tiled.coord_rows_launches}
+        _check(bodies["replay"]["molecules"] == bodies["seeded"]["molecules"]
+               and bodies["replay"]["stable"] == bodies["seeded"]["stable"],
+               "seeded replay returned different molecules")
+        small = sum(1 for p in pads if p <= egnn_block.MAX_NODES)
+        large = len(pads) - small
+        expected = {"egnn_block": per_chunk * small, "gcl_rows": per_chunk * inv * large,
+                    "coord_rows": per_chunk * large}
+        _check(launches == expected and large > 0 and small > 0,
+               f"launches {launches} != {expected} ({per_chunk} per chunk; {small} chunks "
+               f"padded to <= 64, {large} past 64)")
+        print(f"phase 10: seeded replay identical; launches {json.dumps(launches)} = {per_chunk} "
+              f"per chunk x ({small} chunks padded to <= 64 | {large} past 64)", flush=True)
+        code, body = _request(base, "/sample", {"sizes": [40, 182]})
+        _check(code == 400, f"size 182 -> {code}, expected 400")
+        print(f"phase 10: invalid request sizes [40, 182] -> 400 ({body['error']})", flush=True)
+        return launches, stats, service.model
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def phase_geom_denoiser(model, card_name):
+    import torch
+
+    err = phase_denoiser(model, card_name, B=2, N=184, n_min=150, phase=11)
+    n = 184
+    mask = torch.ones((1, n, 1), device="cuda")
+    z = torch.randn((1, n, 5), device="cuda") * mask
+    t = torch.full((1, 1), 0.5, device="cuda")
+    with torch.enable_grad():
+        try:
+            model.dynamics(t, z, mask)
+        except NotImplementedError as e:
+            print(f"phase 11: a GEOM block past 64 nodes under grad on the card raises "
+                  f"NotImplementedError ({str(e)[:80]}...)", flush=True)
+        else:
+            raise SmokeFailure("a block past 64 nodes ran under grad on the card without "
+                               "the tiled backward")
+    return err
 
 
 def main(argv=None) -> int:
@@ -592,7 +813,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
               file=sys.stderr)
         return 2
-    from geoldm_tpu_torch.ops import egnn_block
+    from geoldm_tpu_torch.ops import cuda_build
 
     t_start = time.time()
     card = _card_line()
@@ -601,8 +822,8 @@ def main(argv=None) -> int:
                               f"nvidia-smi names another card: {card}")
     print(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} on {card}",
           flush=True)
-    egnn_block.library()
-    info = egnn_block.build_info
+    cuda_build.library("egnn_block")
+    info = cuda_build.build_info
     for name, lib in info["libs"].items():
         regs = [ln.strip() for ln in lib["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"phase 1: {name}: {lib['path']}; ptxas: {' | '.join(regs)}", flush=True)
@@ -618,19 +839,37 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         train = phase_train(card_name, tmpdir)
     grad = phase_grad(card_name)
+    tiled_rows = phase_tiled(card_name)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        geom_launches, geom_stats, model = phase_geom_serve(card_name, tmpdir)
+    geom_err = phase_geom_denoiser(model, card_name)
+    del model
 
     main_row = next(r for r in rows if r["case"] == "sum" and r["N"] == 32)
     bwd_row = next(r for r in bwd_rows if r["case"] == "sum" and r["N"] == 29)
     print("details: " + json.dumps({
         "shapes": rows, "serving": serve_stats, "chunks": chunks, "backward": bwd_rows,
-        "training": train, "grad": grad,
-        "fwd_launches": {"serving": launches, "training": train["fwd_launches"]},
+        "training": train, "grad": grad, "tiled": tiled_rows, "geom_serving": geom_stats,
+        "geom_denoiser_max_abs_err": geom_err,
+        "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
+                         "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
+
+    def tiled_entry(stage, name, line):
+        main = next(r for r in tiled_rows
+                    if r["stage"] == stage and r["case"] == "sum" and r["N"] == 184)
+        return {"name": name, "route": "cuda", "source": "geoldm_tpu_torch/csrc/egnn_tiled.cu",
+                "replaces": f"geoldm_tpu/ops/pallas_egnn_tiled.py:{line}",
+                "launches": geom_launches[stage],
+                "max_abs_err": max(r["max_abs_err"] for r in tiled_rows if r["stage"] == stage),
+                "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None}
+
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
         "replaces": "geoldm_tpu/ops/pallas_egnn.py:232",
-        "launches": launches + train["fwd_launches"],
+        "launches": launches + train["fwd_launches"] + geom_launches["egnn_block"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -644,7 +883,8 @@ def main(argv=None) -> int:
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
         "library_ms": None,
-    }]}
+    }, tiled_entry("gcl_rows", "egnn_gcl_rows", 152),
+        tiled_entry("coord_rows", "egnn_coord_rows", 166)]}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

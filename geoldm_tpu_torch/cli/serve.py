@@ -3,6 +3,10 @@
 
 Loads an upstream-layout checkpoint directory (``args.pickle`` +
 ``generative_model[_ema].npy``) and serves JSON over stdlib http.server.
+``--dataset`` picks the size buckets and the largest request size: QM9
+(16, 24, 32), GEOM-Drugs (32, 48, 64, 96, 136, 184) up to 181 atoms, or
+(32, 48, 64, 96) up to 91 with ``--remove_h``. Chunks padded past 64 atoms
+run the row-tiled kernels.
 
 Endpoints:
   GET  /health   -> {"status": "ok", "model": ..., "buckets": [...], "device": ...}
@@ -18,7 +22,7 @@ get a 400 that says so. Device calls are serialised with a lock; request
 handling is threaded so /health and /metrics answer during generation.
 
 Usage: python -m geoldm_tpu_torch.cli.serve --model_path <checkpoint dir>
-           [--port 8000] [--device cuda]
+           [--dataset qm9|geom] [--port 8000] [--device cuda]
 """
 
 from __future__ import annotations
@@ -83,7 +87,7 @@ class SamplerService:
         self.device = next(self.model.parameters()).device
         self.dataset_info = get_dataset_info(args.dataset, args.remove_h)
         self.nodes_dist = DistributionNodes(self.dataset_info.n_nodes)
-        self.buckets = covering_buckets(sampling_mod.DEFAULT_SAMPLE_BUCKETS,
+        self.buckets = covering_buckets(sampling_mod.default_buckets(self.dataset_info),
                                         self.dataset_info["max_n_nodes"])
         self.max_request_size = self.dataset_info["max_n_nodes"]
         self.device_lock = threading.Lock()

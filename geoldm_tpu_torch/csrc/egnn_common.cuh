@@ -1,7 +1,8 @@
-// Device code shared by the EquivariantBlock forward (egnn_block.cu) and
-// backward (egnn_block_bwd.cu): constants, activations, the node GEMM with
-// its fused epilogues, the src/dst projection and the forward edge kernel.
-// See egnn_block.cu for the design and what bounds it on an H100.
+// Device code shared by the EquivariantBlock forward (egnn_block.cu), its
+// backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu):
+// constants, activations, the node GEMM with its fused epilogues, the
+// src/dst projection and the forward edge kernel. See egnn_block.cu and
+// egnn_tiled.cu for the designs and what bounds them on an H100.
 
 #pragma once
 
@@ -51,6 +52,9 @@ struct GemmArgs {
 
 constexpr int kTM = 64, kTN = 64, kTK = 16;
 
+// kOwner only names the grid in a profile: 1 for the whole-block kernels
+// (#1, #2), 3 and 4 for the row-tiled GCL and coordinate stages.
+template <int kOwner>
 __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
   __shared__ float As[kTK][kTM + 4];
   __shared__ float Ws[kTK][kTN + 4];
@@ -112,14 +116,16 @@ __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
   }
 }
 
+template <int kOwner = 1>
 int launch_gemm(const GemmArgs& g, cudaStream_t s) {
   dim3 grid((g.Nout + kTN - 1) / kTN, (g.M + kTM - 1) / kTM);
-  gemm_nt_kernel<<<grid, 256, 0, s>>>(g);
+  gemm_nt_kernel<kOwner><<<grid, 256, 0, s>>>(g);
   return (int)cudaGetLastError();
 }
 
 // proj[:, :H] = h W1[:, :H]^T, proj[:, H:2H] = h W1[:, H:2H]^T (no bias: b1
 // is added once per edge in the edge kernel, as the TPU kernel does).
+template <int kOwner = 1>
 int launch_projection(const float* h, const float* w1, int ld1, float* proj,
                       int M, int H, cudaStream_t s) {
   for (int half = 0; half < 2; ++half) {
@@ -129,7 +135,7 @@ int launch_projection(const float* h, const float* w1, int ld1, float* proj,
     g.c = proj + half * H; g.ldc = 2 * H;
     g.M = M; g.Nout = H; g.K = H;
     g.epilogue = kEpiNone;
-    const int rc = launch_gemm(g, s);
+    const int rc = launch_gemm<kOwner>(g, s);
     if (rc) return rc;
   }
   return 0;

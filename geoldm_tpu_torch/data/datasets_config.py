@@ -1,8 +1,8 @@
-"""Dataset metadata for QM9 (port of the QM9 entries of
-``geoldm_tpu/data/datasets_config.py``): atom vocabularies and the
-molecule-size histograms that DistributionNodes samples from. The numbers
-are dataset facts, matching the reference registry
-(configs/datasets_config.py:3-134). GEOM-Drugs comes with its slice.
+"""Dataset metadata for QM9 and GEOM-Drugs (port of
+``geoldm_tpu/data/datasets_config.py``): atom vocabularies, atomic numbers
+and the molecule-size histograms that DistributionNodes samples from. The
+numbers are dataset facts, matching the reference registry
+(configs/datasets_config.py:3-134).
 """
 
 from __future__ import annotations
@@ -137,8 +137,91 @@ QM9_SECOND_HALF = DatasetInfo(
 )
 
 
+GEOM_WITH_H = DatasetInfo(
+    name="geom",
+    atom_decoder=(
+        "H", "B", "C", "N", "O", "F", "Al", "Si", "P", "S", "Cl", "As",
+        "Br", "I", "Hg", "Bi",
+    ),
+    atomic_numbers=(1, 5, 6, 7, 8, 9, 13, 14, 15, 16, 17, 33, 35, 53, 80, 83),
+    max_n_nodes=181,
+    with_h=True,
+    n_nodes_histogram=_hist({
+        3: 1, 4: 3, 5: 9, 6: 2, 7: 8, 8: 23, 9: 23, 10: 50, 11: 109,
+        12: 168, 13: 280, 14: 402, 15: 583, 16: 597, 17: 949, 18: 1284,
+        19: 1862, 20: 2674, 21: 3599, 22: 6109, 23: 8693, 24: 13604,
+        25: 17419, 26: 25672, 27: 31647, 28: 43809, 29: 56697, 30: 70400,
+        31: 82655, 32: 104100, 33: 122776, 34: 140834, 35: 164888,
+        36: 185451, 37: 194541, 38: 218549, 39: 231232, 40: 243300,
+        41: 253349, 42: 268341, 43: 272081, 44: 276917, 45: 276839,
+        46: 274747, 47: 272126, 48: 262709, 49: 250157, 50: 244781,
+        51: 228898, 52: 215338, 53: 203728, 54: 191697, 55: 180518,
+        56: 163843, 57: 152055, 58: 136536, 59: 120393, 60: 107292,
+        61: 94635, 62: 83179, 63: 68384, 64: 61517, 65: 48867, 66: 37685,
+        67: 32859, 68: 27367, 69: 20981, 70: 18699, 71: 14791, 72: 11921,
+        73: 9933, 74: 9037, 75: 6538, 76: 6374, 77: 4036, 78: 4189,
+        79: 3842, 80: 3277, 81: 2925, 82: 1843, 83: 2060, 84: 1394,
+        85: 1514, 86: 1357, 87: 1346, 88: 999, 89: 300, 90: 390, 91: 510,
+        92: 510, 93: 240, 94: 721, 95: 360, 96: 360, 97: 390, 98: 330,
+        99: 540, 100: 258, 101: 210, 102: 60, 103: 180, 104: 206, 105: 60,
+        106: 390, 107: 180, 108: 180, 109: 150, 110: 120, 111: 360,
+        112: 120, 113: 210, 114: 60, 115: 30, 116: 210, 117: 270, 118: 450,
+        119: 240, 120: 228, 121: 120, 122: 30, 123: 420, 124: 240,
+        125: 210, 126: 158, 127: 180, 128: 60, 129: 30, 130: 120, 131: 30,
+        132: 120, 133: 60, 134: 240, 135: 169, 136: 240, 137: 30, 138: 270,
+        139: 180, 140: 270, 141: 150, 142: 60, 143: 60, 144: 240, 145: 180,
+        146: 150, 147: 150, 148: 90, 149: 90, 151: 30, 152: 60, 155: 90,
+        159: 30, 160: 60, 165: 30, 171: 30, 175: 30, 176: 60, 181: 30,
+    }),
+    atom_type_counts=(
+        143905848, 290, 129988623, 20266722, 21669359, 1481844, 1, 250,
+        36290, 3999872, 1224394, 4, 298702, 5377, 13, 34,
+    ),
+    colors=(
+        "#FFFFFF99", "C2", "C7", "C0", "C3", "C1", "C5", "C6", "C4", "C8",
+        "C9", "C10", "C11", "C12", "C13", "C14",
+    ),
+    radii=(0.3,) + (0.6,) * 15,
+)
+
+GEOM_NO_H = DatasetInfo(
+    name="geom",
+    atom_decoder=(
+        "B", "C", "N", "O", "F", "Al", "Si", "P", "S", "Cl", "As", "Br",
+        "I", "Hg", "Bi",
+    ),
+    atomic_numbers=(5, 6, 7, 8, 9, 13, 14, 15, 16, 17, 33, 35, 53, 80, 83),
+    max_n_nodes=91,
+    with_h=False,
+    n_nodes_histogram=_hist({
+        1: 3, 2: 5, 3: 8, 4: 89, 5: 166, 6: 370, 7: 613, 8: 1214, 9: 1680,
+        10: 3315, 11: 5115, 12: 9873, 13: 15422, 14: 28088, 15: 50643,
+        16: 82299, 17: 124341, 18: 178417, 19: 240446, 20: 308209,
+        21: 372900, 22: 429257, 23: 477423, 24: 508377, 25: 522385,
+        26: 522000, 27: 507882, 28: 476702, 29: 426308, 30: 375819,
+        31: 310124, 32: 255179, 33: 204441, 34: 149383, 35: 109343,
+        36: 71701, 37: 44050, 38: 31437, 39: 20242, 40: 14971, 41: 10078,
+        42: 8049, 43: 4476, 44: 3130, 45: 1736, 46: 2030, 47: 1110, 48: 840,
+        49: 750, 50: 540, 51: 810, 52: 591, 53: 453, 54: 540, 55: 720,
+        56: 300, 57: 360, 58: 714, 59: 390, 60: 519, 61: 210, 62: 449,
+        63: 210, 64: 289, 65: 589, 66: 227, 67: 180, 68: 330, 69: 330,
+        70: 150, 71: 60, 72: 210, 73: 60, 74: 180, 75: 120, 76: 30, 77: 150,
+        78: 30, 79: 60, 82: 60, 85: 60, 86: 6, 87: 60, 90: 60, 91: 30,
+    }),
+    atom_type_counts=(
+        290, 129988623, 20266722, 21669359, 1481844, 1, 250, 36290, 3999872,
+        1224394, 4, 298702, 5377, 13, 34,
+    ),
+    colors=(
+        "C0", "C1", "C2", "C3", "C4", "C5", "C6", "C7", "C8", "C9", "C10",
+        "C11", "C12", "C13", "C14",
+    ),
+    radii=(0.3,) * 15,
+)
+
+
 def get_dataset_info(dataset_name: str, remove_h: bool = False) -> DatasetInfo:
-    """reference: configs/datasets_config.py:137-154 (QM9 entries)."""
+    """reference: configs/datasets_config.py:137-154."""
     if dataset_name in ("qm9", "qm9_first_half"):
         if remove_h and dataset_name != "qm9":
             raise ValueError(f"{dataset_name} without hydrogens is not configured")
@@ -147,4 +230,6 @@ def get_dataset_info(dataset_name: str, remove_h: bool = False) -> DatasetInfo:
         if remove_h:
             raise ValueError("qm9_second_half without hydrogens is not configured")
         return QM9_SECOND_HALF
-    raise ValueError(f"unknown or not yet ported dataset {dataset_name!r}")
+    if dataset_name == "geom":
+        return GEOM_NO_H if remove_h else GEOM_WITH_H
+    raise ValueError(f"unknown dataset {dataset_name!r}")

@@ -9,8 +9,12 @@ Modules and parameters carry the upstream GeoLDM names
 Node tensors stay ``[B, N, F]``; pairwise quantities are dense
 ``[B, N, N, *]``. The first edge-MLP layer is split into source/target/edge
 weight slices instead of materialising the ``[h_i, h_j, e_ij]`` concat.
-``EGNN.forward`` runs each block through ``ops.egnn_block.block_forward``:
-the CUDA kernel on the card, the modules' plain forward on the CPU.
+``EGNN.forward`` runs each block through ``ops.egnn_block.block_forward``,
+which routes by the padded node count N: N <= 64 (QM9, GEOM's 32/48/64
+buckets) to the whole-block CUDA kernels, N > 64 (GEOM's 96/136/184) to the
+row-tiled GCL and coordinate kernels of ``ops.egnn_tiled``; on the CPU each
+route runs its plain PyTorch version. On the card the row-tiled route has no
+backward yet and raises under grad.
 """
 
 from __future__ import annotations

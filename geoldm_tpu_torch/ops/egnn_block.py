@@ -11,15 +11,25 @@ them.
   inputs and the weights, and runs the backward kernel (as ``_fwd``/``_bwd``
   of ``fused_block_apply`` do with ``bwd_mode='pallas'``).
 
-``block_forward`` is what the EGNN calls: on the card it goes through the
-Function while grad is enabled and is the bare forward kernel under
-``no_grad``; on the CPU it runs the plain version. A wrapper given a CUDA
-tensor launches its kernel or raises; only CPU tensors take a plain version.
+``block_forward`` is what the EGNN calls. It routes by the padded node
+count N, from this card's limits:
 
-Each source is built from the checkout with ``nvcc`` for ``sm_90a`` at first
-use, all in parallel, into ``geoldm_tpu_torch/_build/`` (one library per
-source, named by the hash of every kernel source and the flags), and loaded
-with ``ctypes``.
+- N <= ``MAX_NODES`` (64): the whole-row kernels above. Their edge kernel
+  keeps a row's [N, H] silu(pre) tile in shared memory and one register
+  accumulator per column (``csrc/egnn_common.cuh:kMaxNodes``), which does
+  not fit a CTA's 227 KB and 255 registers beyond 64 columns. On the card it
+  goes through the Function while grad is enabled and is the bare forward
+  kernel under ``no_grad``; on the CPU it runs the plain version.
+- N > 64: the row-tiled kernels of ``ops.egnn_tiled`` (TPU kernels #3 and
+  #4, columns streamed in tiles), on the card and on the CPU alike (their
+  plain versions there). Their backward (TPU kernel #5) is not ported yet,
+  so on the card a call under grad raises ``NotImplementedError`` instead of
+  returning outputs without a ``grad_fn``.
+
+(The TPU package's routing, ``pallas_egnn.dispatch_to_tiled``, follows VMEM
+budgets of the TPU and is not this rule.) A wrapper given a CUDA tensor
+launches its kernel or raises; only CPU tensors take a plain version. The
+kernels are built by ``ops.cuda_build``.
 
 ``launches`` / ``bwd_launches`` count kernel calls: one per block forward /
 backward on the card.
@@ -28,118 +38,15 @@ backward on the card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from geoldm_tpu_torch.ops import cuda_build
 from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embedding
-
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu"}
-HEADERS = (CSRC / "egnn_common.cuh",)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = 0
 bwd_launches = 0
-# Filled on the first load: wall seconds of the (parallel) build, whether it
-# was cached, and per library its path and ptxas log.
-build_info: dict = {}
-
-_libs: dict = {}
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    cands = [os.path.join(os.environ[v], "bin", "nvcc")
-             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the egnn_block kernels "
-                       "are built from geoldm_tpu_torch/csrc at first use")
-
-
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(list(SOURCES.values()) + list(HEADERS)):
-        h.update(path.name.encode() + path.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def _build_all() -> dict:
-    """Build every missing library, one nvcc per source, all at once."""
-    digest = _digest()
-    paths = {name: BUILD_DIR / f"{name}-{digest}.so" for name in SOURCES}
-    todo = [name for name, p in paths.items() if not p.exists()]
-    t0 = time.perf_counter()
-    if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        failed = []
-        for name, (tmp, proc) in procs.items():
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                failed.append(f"nvcc failed building {SOURCES[name].name}:\n{err}")
-                continue
-            paths[name].with_suffix(".log").write_text(out + err)
-            os.replace(tmp, paths[name])  # atomic: a concurrent build never sees a partial file
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    build_info.update(seconds=time.perf_counter() - t0, cached=not todo, libs={
-        name: {"path": str(p), "log": p.with_suffix(".log").read_text()
-               if p.with_suffix(".log").exists() else ""} for name, p in paths.items()})
-    return paths
-
-
-def _load(name: str) -> ctypes.CDLL:
-    with _lib_lock:
-        if not _libs:
-            p, i, f, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
-            paths = _build_all()
-            fwd = ctypes.CDLL(str(paths["egnn_block"]))
-            fwd.egnn_block_forward.argtypes = [p] * 11 + [i] * 9 + [f] * 3 + [p]
-            fwd.egnn_block_forward.restype = i
-            fwd.egnn_block_error_string.argtypes = [i]
-            fwd.egnn_block_error_string.restype = ctypes.c_char_p
-            bwd = ctypes.CDLL(str(paths["egnn_block_bwd"]))
-            bwd.egnn_block_backward.argtypes = [p] * 14 + [i] * 9 + [f] * 3 + [p]
-            bwd.egnn_block_backward.restype = i
-            bwd.egnn_block_backward_scratch_floats.argtypes = [i] * 5
-            bwd.egnn_block_backward_scratch_floats.restype = z
-            bwd.egnn_block_bwd_error_string.argtypes = [i]
-            bwd.egnn_block_bwd_error_string.restype = ctypes.c_char_p
-            _libs.update(egnn_block=fwd, egnn_block_bwd=bwd)
-    return _libs[name]
-
-
-def library() -> ctypes.CDLL:
-    """Build (if needed) every kernel library and load the forward's."""
-    return _load("egnn_block")
-
-
-def library_bwd() -> ctypes.CDLL:
-    """Build (if needed) every kernel library and load the backward's."""
-    return _load("egnn_block_bwd")
-
 
 MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes, the shared-memory design's bound
 MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, one thread per hidden channel
@@ -233,7 +140,7 @@ def block_forward_cuda(block, h, x, x0, node_mask):
     weights = _validate(block, h, x, x0, node_mask)
     b, n, hidden = h.shape
     dev = h.device
-    lib = library()
+    lib = cuda_build.library("egnn_block")
     h_out = torch.empty_like(h)
     x_out = torch.empty_like(x)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
@@ -265,7 +172,7 @@ def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out):
     b, n, hidden = h.shape
     dev = h.device
     cfg = block.cfg
-    lib = library_bwd()
+    lib = cuda_build.library("egnn_block_bwd")
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
     scratch = torch.empty(
@@ -345,7 +252,17 @@ class EquivariantBlockFunction(torch.autograd.Function):
 
 def block_forward(block, h, x, x0, node_mask):
     """The kernels for tensors on the card (through the autograd Function
-    while grad is enabled), the plain version for tensors on the CPU."""
+    while grad is enabled), the plain version for tensors on the CPU;
+    N > ``MAX_NODES`` goes to the row-tiled kernels (module docstring)."""
+    if h.shape[1] > MAX_NODES:
+        from geoldm_tpu_torch.ops import egnn_tiled
+
+        if h.is_cuda and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"a block of N={h.shape[1]} > {MAX_NODES} nodes runs the row-tiled kernels, "
+                "whose backward (TPU kernel #5, pallas_egnn_tiled.py:_make_rows_bwd_kernel) "
+                "is not ported yet: call it under torch.no_grad()")
+        return egnn_tiled.tiled_block_forward(block, h, x, x0, node_mask)
     if h.is_cuda:
         if torch.is_grad_enabled():
             return EquivariantBlockFunction.apply(block, h, x, x0, node_mask, *block_params(block))

@@ -17,7 +17,15 @@ from geoldm_tpu_torch.data.collate import build_masks
 from geoldm_tpu_torch.diffusion import latent as ldm_mod
 from geoldm_tpu_torch.ops import com
 
-DEFAULT_SAMPLE_BUCKETS = (16, 24, 32)  # QM9; GEOM-Drugs buckets come with its slice
+DEFAULT_SAMPLE_BUCKETS = (16, 24, 32)  # QM9
+# GEOM-Drugs (sizes up to 181 atoms, mean 46.6): buckets matched to the size
+# histogram (sampling.py:162-167).
+GEOM_SAMPLE_BUCKETS = (32, 48, 64, 96, 136, 184)
+
+
+def default_buckets(dataset_info) -> tuple:
+    """Per-dataset sampling buckets matched to the size histogram."""
+    return GEOM_SAMPLE_BUCKETS if "geom" in dataset_info["name"] else DEFAULT_SAMPLE_BUCKETS
 
 
 def chunk_generator(seed: int, chunk_index: int, device) -> torch.Generator:
@@ -107,7 +115,14 @@ def _chunks(nodesxsample, batch_size, buckets):
             yield chunk, pad, sizes
 
 
+def chunk_pads(nodesxsample, batch_size: int, buckets=DEFAULT_SAMPLE_BUCKETS) -> list:
+    """The pad of each chunk ``sample_bucketed`` dispatches for these sizes
+    with these buckets (those the caller passes it), in dispatch order."""
+    nodesxsample = np.asarray(nodesxsample)
+    return [pad for _, pad, _ in _chunks(nodesxsample, batch_size,
+                                         _aligned(buckets, nodesxsample))]
+
+
 def n_chunks(nodesxsample, batch_size: int, buckets=DEFAULT_SAMPLE_BUCKETS) -> int:
     """How many chunks ``sample_bucketed`` dispatches for these sizes."""
-    nodesxsample = np.asarray(nodesxsample)
-    return sum(1 for _ in _chunks(nodesxsample, batch_size, _aligned(buckets, nodesxsample)))
+    return len(chunk_pads(nodesxsample, batch_size, buckets))

@@ -1,11 +1,14 @@
 """Where a dense sampler step of the PyTorch/CUDA port spends its time.
 
-Builds the QM9 latent-diffusion model at nf=256, 9 layers, T=1000 with
-random weights (seeded torch.Generator) on one card and, for a few
-(batch, pad) shapes, times ancestral steps (sample_p_zs_given_zt) on the
-host clock around synchronised work, then traces a window of steps with
-torch.profiler and splits device time into the EquivariantBlock kernel's
-two grids (edge and node GEMM) and everything else. Prints one JSON line.
+Builds two latent-diffusion models at their recipes with random weights
+(seeded torch.Generator) on one card: QM9 (nf=256, 9 layers, latent_nf=1)
+and GEOM-Drugs (nf=256, 4 layers, latent_nf=2, no charges), both T=1000.
+For a few (batch, pad) shapes of each it times ancestral steps
+(sample_p_zs_given_zt) on the host clock around synchronised work, then
+traces a window of steps with torch.profiler and splits device time by grid:
+the block kernel's edge and node-GEMM grids (#1, pads <= 64), the row-tiled
+GCL kernel's (#3) and coordinate kernel's (#4) edge and node-GEMM grids
+(pads > 64), and everything else. Prints one JSON line.
 
     python3 scripts/torch_port_sampler_profile.py
 """
@@ -28,8 +31,23 @@ from geoldm_tpu_torch.diffusion import vdm  # noqa: E402
 from geoldm_tpu_torch.models import factory  # noqa: E402
 from geoldm_tpu_torch.ops.com import remove_mean_with_mask  # noqa: E402
 
-SHAPES = ((4, 16), (64, 16), (64, 24), (64, 32))
+# (dataset, recipe, (B, N) shapes, ragged spread n-spread..n atoms)
+MODELS = (
+    ("qm9", dict(nf=256, n_layers=9, latent_nf=1), ((4, 16), (64, 16), (64, 24), (64, 32)), 7),
+    ("geom", dict(nf=256, n_layers=4, latent_nf=2, include_charges=False),
+     ((16, 64), (16, 96), (16, 136), (16, 184)), 16),
+)
 STEPS, WARMUP, TRACED = 50, 10, 10
+# Device-time groups by kernel name (demangled, or mangled as a fallback);
+# the node GEMM is one template tagged by its owner (csrc/egnn_common.cuh).
+GROUPS = (
+    ("k1_edge", ("edge_kernel",)),
+    ("k1_gemm", ("gemm_nt_kernel<1>", "gemm_nt_kernelILi1E")),
+    ("k3_edge", ("gcl_rows_kernel",)),
+    ("k3_gemm", ("gemm_nt_kernel<3>", "gemm_nt_kernelILi3E")),
+    ("k4_edge", ("coord_rows_kernel",)),
+    ("k4_gemm", ("gemm_nt_kernel<4>", "gemm_nt_kernelILi4E")),
+)
 
 
 def _steps(model, gamma_fn, gen, z, mask, s_from, n):
@@ -45,14 +63,15 @@ def _steps(model, gamma_fn, gen, z, mask, s_from, n):
 
 def _device_split(prof):
     """Device microseconds by group over a traced window."""
-    split = {"edge_kernel": 0.0, "gemm_nt_kernel": 0.0, "other": 0.0}
+    split = {name: 0.0 for name, _ in GROUPS}
+    split["other"] = 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        key = next((k for k in ("edge_kernel", "gemm_nt_kernel") if k in ev.key), "other")
+        key = next((name for name, pats in GROUPS if any(p in ev.key for p in pats)), "other")
         split[key] += us
     return split
 
@@ -64,43 +83,48 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    info = get_dataset_info("qm9")
-    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
-                                               diffusion_steps=1000)
-    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
-    gamma_fn = vdm.make_gamma_fn(cfg.diffusion, "cuda")
     rows = []
-    for b, n in SHAPES:
-        rng = np.random.default_rng(n)
-        n_real = rng.integers(max(1, n - 7), n + 1, size=b)
-        mask = torch.from_numpy(
-            (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]).cuda()
-        z = torch.from_numpy(rng.standard_normal((b, n, 4)).astype(np.float32)).cuda() * mask
-        z[:, :, :3] = remove_mean_with_mask(z[:, :, :3], mask)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        with torch.no_grad():
-            z = _steps(model, gamma_fn, gen, z, mask, 999, WARMUP)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            z = _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP, STEPS)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                t1 = time.perf_counter()
-                _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP - STEPS, TRACED)
+    for dataset, recipe, shapes, spread in MODELS:
+        cfg = factory.make_latent_diffusion_config(get_dataset_info(dataset), **recipe,
+                                                   diffusion_steps=1000)
+        model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+        gamma_fn = vdm.make_gamma_fn(cfg.diffusion, "cuda")
+        feat = 3 + recipe["latent_nf"]
+        for b, n in shapes:
+            rng = np.random.default_rng(n)
+            n_real = rng.integers(max(1, n - spread), n + 1, size=b)
+            mask = torch.from_numpy(
+                (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]).cuda()
+            z = torch.from_numpy(rng.standard_normal((b, n, feat)).astype(np.float32)).cuda() * mask
+            z[:, :, :3] = remove_mean_with_mask(z[:, :, :3], mask)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            with torch.no_grad():
+                z = _steps(model, gamma_fn, gen, z, mask, 999, WARMUP)
                 torch.cuda.synchronize()
-                traced_ms = (time.perf_counter() - t1) * 1e3 / TRACED
-        split = {k: v / 1e3 / TRACED for k, v in _device_split(prof).items()}
-        device_ms = sum(split.values())
-        row = {"B": b, "N": n, "step_ms": wall_ms, "traced_step_ms": traced_ms,
-               "device_ms_per_step": device_ms or None,
-               "split_ms_per_step": split if device_ms else None,
-               "device_busy_share": device_ms / traced_ms if device_ms else None,
-               "mol_per_s_at_T1000": b / (wall_ms * 1e-3 * 1001)}
-        rows.append(row)
-        print(f"B={b} N={n}: {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step "
-              f"{json.dumps(split)} on {card}", flush=True)
+                t0 = time.perf_counter()
+                z = _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP, STEPS)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    t1 = time.perf_counter()
+                    _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP - STEPS, TRACED)
+                    torch.cuda.synchronize()
+                    traced_ms = (time.perf_counter() - t1) * 1e3 / TRACED
+            split = {k: v / 1e3 / TRACED for k, v in _device_split(prof).items()}
+            device_ms = sum(split.values())
+            row = {"dataset": dataset, "layers": recipe["n_layers"], "B": b, "N": n,
+                   "step_ms": wall_ms, "traced_step_ms": traced_ms,
+                   "device_ms_per_step": device_ms or None,
+                   "split_ms_per_step": split if device_ms else None,
+                   "device_busy_share": device_ms / traced_ms if device_ms else None,
+                   "device_share_of_untraced_step": device_ms / wall_ms if device_ms else None,
+                   "mol_per_s_at_T1000": b / (wall_ms * 1e-3 * 1001)}
+            rows.append(row)
+            print(f"{dataset} B={b} N={n}: {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step "
+                  f"{json.dumps({k: round(v, 4) for k, v in split.items()})} on {card}",
+                  flush=True)
+        del model
     print(json.dumps({"card": card, "steps": STEPS, "traced_steps": TRACED, "rows": rows}))
     return 0
 

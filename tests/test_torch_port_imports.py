@@ -43,8 +43,9 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_every_module_is_a_port_module():
     names = [m.name for m in pkgutil.walk_packages(geoldm_tpu_torch.__path__,
                                                    "geoldm_tpu_torch.")]
-    for name in ("ops.egnn_block", "cli.serve", "cli.main_qm9", "train.train_step",
-                 "train.trainer", "data.qm9", "utils.checkpoint"):
+    for name in ("ops.egnn_block", "ops.egnn_tiled", "ops.cuda_build", "cli.serve",
+                 "cli.main_qm9", "train.train_step", "train.trainer", "data.qm9",
+                 "utils.checkpoint"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 
