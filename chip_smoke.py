@@ -20,8 +20,9 @@ Phases (each prints a line; any failure exits non-zero before the result):
      evaluation through the plain path on the CPU;
   6. the EquivariantBlock backward kernel against its plain version
      (autograd of the recomputed block) at H=256, B=64, N in {16, 24, 29, 32}
-     with ragged masks, plus one 'mean' and one sin-embedding case: dh, dx,
-     dx0 and every weight gradient, with times and bounds;
+     with ragged masks, plus one 'mean' and one sin-embedding case, and at
+     GEOM's training pads B=32, N in {48, 64}: dh, dx, dx0 and every weight
+     gradient, with times and bounds;
   7. the training entry point (cli.main_qm9) at the reference recipe (nf=256,
      9 layers, latent_nf=1, T=1000, B=64, trainable_ae, EMA 0.9999) on
      fabricated QM9-format splits: 5 train steps, stability sampling, valid
@@ -42,8 +43,24 @@ Phases (each prints a line; any failure exits non-zero before the result):
      launch counts must be 4008 = (T+1)*4 + 4 of the block kernel (pad <= 64)
      or of each of #3 and #4 (pad > 64);
  11. one GEOM denoiser evaluation (4 blocks, B=2, N=184) through the tiled
-     kernels against the plain path on the CPU, and the refusal of a block
-     past 64 nodes under grad (its backward, TPU kernel #5, is not ported).
+     kernels against the plain path on the CPU, and the same denoiser under
+     grad on the card: every weight gets a gradient through kernel #5;
+ 12. the row-tiled stage backward (#5) against its plain version (autograd of
+     the plain stage) for the GCL and the coordinate stage at H=256, B=32,
+     N in {80, 104, 128, 184} (GEOM's training buckets past 64) with ragged
+     masks (n-16..n atoms), plus one 'mean' case at N=181 and one
+     sin-embedding case at N=80: dh, dx, dx0 and every weight gradient, with
+     times and per-stage bounds;
+ 13. the GEOM training entry point (cli.main_geom_drugs) at the recipe
+     (nf=256, 4 layers, latent_nf=2, no charges, T=1000, B=32, trainable_ae,
+     EMA 0.9999, lr 5e-5) on a fabricated conformer file whose train split
+     holds one full batch at pads 184, 104 and 48: one epoch, stability
+     sampling, valid and test NLL and the checkpoints; the launch counts of
+     kernels #1-#5 must equal what the code implies, and train steps are
+     timed at pads 184 and 48;
+ 14. one full-width GEOM train-step gradient (4+4 blocks, B=2, pad 184,
+     molecules of 181 and 151 atoms) through the kernels on the card against
+     the plain path on the CPU, same weights, batch and noise.
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -54,6 +71,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -165,6 +183,25 @@ def _stage_work(cfg, n_real, n_pad, n_weights, coord):
     return flops, nbytes
 
 
+def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
+    """(FLOP, bytes) one row-tiled stage backward (#5) needs: the stage's
+    forward it recomputes (``_stage_work``), then per real ordered pair the W2
+    input and weight gradients (2 * 2H^2) plus the edge-feature, gate and
+    scale terms, and per real node the src/dst (and for a GCL the node-MLP)
+    input and weight gradients (``_bwd_work``'s per-stage terms); h, x, x0,
+    the mask, the cotangent and the weights read once, dh, dx, dx0 and the
+    weight gradients written once."""
+    H, E = cfg.hidden_nf, cfg.edge_feat_nf
+    fwd_flops, _ = _stage_work(cfg, n_real, n_pad, n_weights, coord)
+    pairs = float(np.sum(n_real * (n_real - 1)))
+    nodes = float(np.sum(n_real))
+    flops = fwd_flops + pairs * (4 * H * H + 4 * E * H + 4 * H)
+    flops += nodes * (8 * H * H if coord else 20 * H * H)
+    b = len(n_real)
+    nbytes = 4 * (b * n_pad * (H + 3 + 3 + 1 + (3 if coord else H) + H + 3 + 3) + 2 * n_weights)
+    return flops, nbytes
+
+
 def _ragged_inputs(seed, B, n, H, dev, spread=8):
     """h, x, x0, node_mask on ``dev``: B molecules of n-spread..n atoms
     padded to n."""
@@ -245,13 +282,16 @@ def phase_backward(card_name):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    B, H = 64, 256
+    H = 256
+    # (case, N, B, ragged spread): QM9's pads at B=64, GEOM's 48 and 64 at B=32.
     cases = [
-        ("sum", 16, {}), ("sum", 24, {}), ("sum", 29, {}), ("sum", 32, {}),
-        ("mean", 32, {"aggregation_method": "mean"}), ("sin", 24, {"sin_embedding": True}),
+        ("sum", 16, 64, 8, {}), ("sum", 24, 64, 8, {}), ("sum", 29, 64, 8, {}),
+        ("sum", 32, 64, 8, {}), ("mean", 32, 64, 8, {"aggregation_method": "mean"}),
+        ("sin", 24, 64, 8, {"sin_embedding": True}), ("sum", 48, 32, 16, {}),
+        ("sum", 64, 32, 16, {}),
     ]
     rows = []
-    for case, n, extra in cases:
+    for case, n, B, spread, extra in cases:
         cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=H, n_layers=9,
                          attention=True, normalization_factor=1.0, **extra)
         block = EquivariantBlock(cfg)
@@ -263,7 +303,7 @@ def phase_backward(card_name):
             rng = np.random.default_rng(2000 * n + rep)
             cots = tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
                          for shape in ((B, n, H), (B, n, 3)))
-            inputs.append(_ragged_inputs(3000 * n + rep, B, n, H, dev) + cots)
+            inputs.append(_ragged_inputs(3000 * n + rep, B, n, H, dev, spread) + cots)
         got = egnn_block.block_backward_cuda(block, *inputs[0])
         want = egnn_block.block_backward_plain(block, *inputs[0])
         torch.cuda.synchronize()
@@ -296,21 +336,93 @@ def phase_backward(card_name):
     return rows
 
 
-def phase_train(card_name, tmpdir):
-    import os
+_COUNTERS = ("egnn_block", "egnn_block_bwd", "gcl_rows", "coord_rows", "gcl_rows_bwd",
+             "coord_rows_bwd")
 
+
+def _launch_counts() -> dict:
+    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+
+    return {"egnn_block": egnn_block.launches, "egnn_block_bwd": egnn_block.bwd_launches,
+            **{k: getattr(egnn_tiled, f"{k}_launches") for k in _COUNTERS[2:]}}
+
+
+def _zero_launch_counts() -> None:
+    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+
+    egnn_block.launches = egnn_block.bwd_launches = 0
+    for k in _COUNTERS[2:]:
+        setattr(egnn_tiled, f"{k}_launches", 0)
+
+
+def _check_trained(state, seed, decay, steps, outdir, phase):
+    """After a run of ``steps`` train steps from the seed's weights: the
+    denoiser and decoder weights moved, the encoder did not (its latent is
+    detached), the EMA moved by a (1-decay)-scale step, and ``latest/`` and
+    ``best/`` under ``outdir`` load back with equal tensors."""
+    import torch
+
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    init = factory.build_model(state.model.cfg, "cpu", torch.Generator().manual_seed(seed))
+    init_sd = init.state_dict()
+    trained = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    ema = {k: v.detach().cpu() for k, v in state.ema_model.state_dict().items()}
+    moved = {k: float((trained[k] - init_sd[k]).abs().max()) for k in init_sd}
+    for prefix in ("dynamics.", "vae.decoder."):
+        _check(min(v for k, v in moved.items() if k.startswith(prefix)
+                   and not k.endswith("buffer")) > 0, f"some {prefix} weights did not move")
+    _check(max(v for k, v in moved.items() if k.startswith("vae.encoder.")) == 0,
+           "the encoder moved: its latent is detached and it must get no gradient")
+    step_w = max(moved.values())
+    step_e = max(float((ema[k] - init_sd[k]).abs().max()) for k in init_sd)
+    # Each EMA step e*decay + w*(1-decay) moves e by at most (1-decay) times
+    # the weights' move, plus two f32 roundings of at most 2^-24 |e| each.
+    w_max = max(float(p.detach().abs().max()) for p in init.parameters())
+    bound = steps * ((1 - decay) * step_w + 2.0 ** -23 * w_max)
+    _check(0 < step_e <= 1.5 * bound,
+           f"EMA moved {step_e:.3e}, weights {step_w:.3e}: not a (1-{decay})-scale step "
+           f"(bound {1.5 * bound:.3e} with f32 rounding)")
+    for name in ("latest", "best"):
+        for use_ema, want in ((False, trained), (True, ema)):
+            model, _, _ = load_reference_checkpoint(os.path.join(outdir, name), "cuda", use_ema)
+            got = model.state_dict()
+            _check(set(got) == set(want) and all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                   f"checkpoint {name} (ema={use_ema}) does not hold the trained tensors")
+    print(f"phase {phase}: weights moved up to {step_w:.3e} (encoder unchanged), EMA "
+          f"{step_e:.3e} (a (1-{decay})-scale step); latest/ and best/ load back through "
+          f"load_reference_checkpoint with equal tensors", flush=True)
+
+
+def _time_steps(state, decay, batch, n=3):
+    """Host-clock ms of ``n`` more synchronised train steps on one batch."""
+    import torch
+
+    from geoldm_tpu_torch.train.train_step import make_train_step
+
+    step = make_train_step(state.model.cfg, decay)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return times
+
+
+def phase_train(card_name, tmpdir):
     import torch
 
     from geoldm_tpu_torch.cli import main_qm9
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.data.synthetic import write_qm9_splits
-    from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.ops import egnn_block
     from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
-    from geoldm_tpu_torch.train.train_step import make_train_step
     from geoldm_tpu_torch.train.trainer import prepare_batch
     from geoldm_tpu_torch.utils.buckets import covering_buckets
-    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
 
     info = get_dataset_info("qm9")
     B, steps, T, decay, seed = 64, 5, 1000, 0.9999, 0
@@ -322,7 +434,7 @@ def phase_train(card_name, tmpdir):
             "--ema_decay", str(decay), "--n_epochs", "1", "--test_epochs", "1",
             "--n_stability_samples", "8", "--seed", str(seed)]
     print(f"phase 7: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
-    egnn_block.launches = egnn_block.bwd_launches = 0
+    _zero_launch_counts()
     t0 = time.time()
     summary = main_qm9.main(argv)
     torch.cuda.synchronize()
@@ -357,30 +469,7 @@ def phase_train(card_name, tmpdir):
           f"main() {wall:.1f} s", flush=True)
 
     state = summary["state"]
-    init = factory.build_model(state.model.cfg, "cpu", torch.Generator().manual_seed(seed))
-    init_sd = init.state_dict()
-    trained = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-    ema = {k: v.detach().cpu() for k, v in state.ema_model.state_dict().items()}
-    moved = {k: float((trained[k] - init_sd[k]).abs().max()) for k in init_sd}
-    for prefix in ("dynamics.", "vae.decoder."):
-        _check(min(v for k, v in moved.items() if k.startswith(prefix)
-                   and not k.endswith("buffer")) > 0, f"some {prefix} weights did not move")
-    _check(max(v for k, v in moved.items() if k.startswith("vae.encoder.")) == 0,
-           "the encoder moved: its latent is detached and it must get no gradient")
-    step_w = max(moved.values())
-    step_e = max(float((ema[k] - init_sd[k]).abs().max()) for k in init_sd)
-    _check(0 < step_e <= steps * (1 - decay) * step_w * 1.5,
-           f"EMA moved {step_e:.3e}, weights {step_w:.3e}: not a (1-{decay})-scale step")
-    for name in ("latest", "best"):
-        path = os.path.join(tmpdir, "out", "smoke", name)
-        for use_ema, want in ((False, trained), (True, ema)):
-            model, cfg, _ = load_reference_checkpoint(path, "cuda", use_ema)
-            got = model.state_dict()
-            _check(set(got) == set(want) and all(torch.equal(got[k].cpu(), want[k]) for k in want),
-                   f"checkpoint {name} (ema={use_ema}) does not hold the trained tensors")
-    print(f"phase 7: weights moved up to {step_w:.3e} (encoder unchanged), EMA {step_e:.3e} "
-          f"(a (1-{decay})-scale step); latest/ and best/ load back through "
-          f"load_reference_checkpoint with equal tensors", flush=True)
+    _check_trained(state, seed, decay, steps, os.path.join(tmpdir, "out", "smoke"), 7)
 
     # ms per train step: three more steps on a train batch, synchronised.
     from geoldm_tpu_torch.data.qm9 import QM9Loader, load_qm9
@@ -388,16 +477,7 @@ def phase_train(card_name, tmpdir):
 
     splits, _ = load_qm9(tmpdir)
     raw = next(iter(QM9Loader(splits["train"], B, info["max_n_nodes"])))
-    batch = prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda")
-    step = make_train_step(state.model.cfg, decay)
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
+    times = _time_steps(state, decay, prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda"))
     print(f"phase 7: train step B={B} N={info['max_n_nodes']} nf=256 9+9 blocks: "
           f"{', '.join(f'{v:.1f}' for v in times)} ms (host clock around synchronised steps) "
           f"on {card_name}", flush=True)
@@ -421,36 +501,62 @@ class _Replay:
         return self.rng.integers(low, high, shape)
 
 
-def phase_grad(card_name):
+def phase_grad(card_name, geom=False):
+    """Phase 8 (QM9: 9+9 blocks, B=8, N=29, kernel #2) or phase 14 (GEOM:
+    4+4 blocks, B=2, pad 184, kernel #5): one train-step gradient on the card
+    against the plain path on the CPU, same weights, batch and noise."""
     import torch
 
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.data.synthetic import synthetic_batch
     from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.models.distributions import DistributionNodes
-    from geoldm_tpu_torch.ops import egnn_block
+    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
     from geoldm_tpu_torch.train.trainer import prepare_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    info = get_dataset_info("qm9")
-    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
-                                               diffusion_steps=1000, trainable_ae=True)
+    if geom:
+        phase, info = 14, get_dataset_info("geom")
+        cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
+                                                   include_charges=False, diffusion_steps=1000,
+                                                   trainable_ae=True)
+        # 150 atoms is not in the GEOM size histogram (log p(N) is undefined
+        # there); 151 is.
+        raw = synthetic_batch(info, 2, 184, np.random.default_rng(13), include_charges=False,
+                              n_atoms=[181, 151])
+        label = "GEOM nf=256 4+4 blocks B=2 pad 184 (181 and 151 atoms)"
+
+        def bwd_launches():
+            return egnn_tiled.gcl_rows_bwd_launches + egnn_tiled.coord_rows_bwd_launches
+        expected = 8 * (cfg.dynamics.egnn.inv_sublayers + 1)
+    else:
+        phase, info = 8, get_dataset_info("qm9")
+        cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
+                                                   diffusion_steps=1000, trainable_ae=True)
+        raw = synthetic_batch(info, 8, 29, np.random.default_rng(11))
+        label = "nf=256 9+9 blocks B=8 N=29"
+
+        def bwd_launches():
+            return egnn_block.bwd_launches
+        expected = 18
     nll_fn = factory.model_nll_fn(cfg, training=True)
-    raw = synthetic_batch(info, 8, 29, np.random.default_rng(11))
     nodes = DistributionNodes(info.n_nodes)
-    grads, losses = {}, {}
+    grads, losses, seconds = {}, {}, {}
     for device in ("cuda", "cpu"):
+        t0 = time.time()
         model = factory.build_model(cfg, device, torch.Generator().manual_seed(5))
         batch = prepare_batch(raw, nodes, device)
-        bwd = egnn_block.bwd_launches
+        bwd = bwd_launches()
         nll = nll_fn(model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"],
                      batch["node_mask"])
         loss = (nll - batch["log_pN"]).mean()
         loss.backward()
         if device == "cuda":
             torch.cuda.synchronize()
-            _check(egnn_block.bwd_launches == bwd + 18, "the card's backward skipped the kernel")
+            _check(bwd_launches() == bwd + expected,
+                   f"the card's backward launched {bwd_launches() - bwd} kernels, not {expected}")
+        seconds[device] = time.time() - t0
         losses[device] = float(loss.detach())
         grads[device] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
                          if p.grad is not None}
@@ -469,12 +575,13 @@ def phase_grad(card_name):
         rel = d / scale if scale else 0.0
         if rel >= worst:
             worst, worst_name = rel, k
-    print(f"phase 8: train-step gradient nf=256 9+9 blocks B=8 N=29: loss card "
+    print(f"phase {phase}: train-step gradient {label}: loss card "
           f"{losses['cuda']:.6f} CPU {losses['cpu']:.6f}; {len(grads['cpu'])} parameter "
           f"tensors, worst max|d|/max|ref| {worst:.2e} ({worst_name}; tol {_GRAD_RTOL}) "
-          f"on {card_name} vs the plain path on the CPU", flush=True)
+          f"on {card_name} vs the plain path on the CPU ({seconds['cuda']:.1f} s card, "
+          f"{seconds['cpu']:.1f} s CPU)", flush=True)
     return {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"], "worst_rel": worst,
-            "worst": worst_name}
+            "worst": worst_name, "cpu_seconds": seconds["cpu"]}
 
 
 def _request(base, path, body=None, timeout=1200):
@@ -547,7 +654,7 @@ def phase_serve(card_name, tmpdir):
         requests = [("seeded", {"sizes": [12, 14, 16], "seed": 7}),
                     ("n_samples", {"n_samples": 48, "seed": n_seed}),
                     ("replay", {"sizes": [12, 14, 16], "seed": 7})]
-        egnn_block.launches = 0
+        _zero_launch_counts()
         chunks, stats, bodies = 0, [], {}
         for name, req in requests:
             t1 = time.time()
@@ -743,7 +850,7 @@ def phase_geom_serve(card_name, tmpdir):
         requests = [("seeded", {"sizes": sizes, "seed": 7}),
                     ("replay", {"sizes": sizes, "seed": 7}),
                     ("n_samples", {"n_samples": 24, "seed": 3})]
-        egnn_block.launches = egnn_tiled.gcl_rows_launches = egnn_tiled.coord_rows_launches = 0
+        _zero_launch_counts()
         pads, stats, bodies = [], [], {}
         for name, req in requests:
             t1 = time.time()
@@ -787,21 +894,199 @@ def phase_geom_serve(card_name, tmpdir):
 def phase_geom_denoiser(model, card_name):
     import torch
 
+    from geoldm_tpu_torch.ops import egnn_tiled
+
     err = phase_denoiser(model, card_name, B=2, N=184, n_min=150, phase=11)
-    n = 184
+    # The same denoiser under grad: every weight gets a gradient through #5.
+    n, dyn = 184, model.dynamics
     mask = torch.ones((1, n, 1), device="cuda")
-    z = torch.randn((1, n, 5), device="cuda") * mask
+    z = torch.randn((1, n, 5), device="cuda", generator=torch.Generator("cuda").manual_seed(3))
     t = torch.full((1, 1), 0.5, device="cuda")
+    dyn.zero_grad(set_to_none=True)
+    before = egnn_tiled.gcl_rows_bwd_launches + egnn_tiled.coord_rows_bwd_launches
     with torch.enable_grad():
-        try:
-            model.dynamics(t, z, mask)
-        except NotImplementedError as e:
-            print(f"phase 11: a GEOM block past 64 nodes under grad on the card raises "
-                  f"NotImplementedError ({str(e)[:80]}...)", flush=True)
-        else:
-            raise SmokeFailure("a block past 64 nodes ran under grad on the card without "
-                               "the tiled backward")
+        dyn(t, z * mask, mask).square().sum().backward()
+    torch.cuda.synchronize()
+    launched = egnn_tiled.gcl_rows_bwd_launches + egnn_tiled.coord_rows_bwd_launches - before
+    egnn = dyn.cfg.egnn
+    expected = egnn.n_layers * (egnn.inv_sublayers + 1)
+    bad = [k for k, p in dyn.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or float(p.grad.abs().max()) == 0]
+    _check(not bad, f"the GEOM denoiser under grad left {len(bad)} weights without a "
+                    f"gradient on the card, e.g. {bad[:3]}")
+    _check(launched == expected, f"{launched} stage backwards (#5), expected {expected}")
+    print(f"phase 11: the GEOM denoiser (N=184) under grad on {card_name}: all "
+          f"{len(list(dyn.parameters()))} weight tensors get a finite, non-zero gradient "
+          f"through {launched} stage backwards (#5)", flush=True)
+    dyn.zero_grad(set_to_none=True)
     return err
+
+
+def phase_tiled_backward(card_name):
+    import torch
+
+    from geoldm_tpu_torch.ops import cuda_build, egnn_tiled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    B, H = 32, 256
+    cases = [("sum", 80, {}), ("sum", 104, {}), ("sum", 128, {}), ("sum", 184, {}),
+             ("mean", 181, {"aggregation_method": "mean"}), ("sin", 80, {"sin_embedding": True})]
+    rows = []
+    for case, n, extra in cases:
+        block = _geom_block(extra, 400 + n)
+        inputs, cots = [], []
+        for rep in range(3):
+            inputs.append(_ragged_inputs(6000 * n + rep, B, n, H, dev, spread=16))
+            rng = np.random.default_rng(7000 * n + rep)
+            cots.append([torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                         for shape in ((B, n, H), (B, n, 3))])
+        n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        for stage, mod, k in (("gcl_rows", block.gcl_0, 0), ("coord_rows", block.gcl_equiv, 1)):
+            cuda_fn = getattr(egnn_tiled, f"{stage}_backward_cuda")
+            plain_fn = getattr(egnn_tiled, f"{stage}_backward_plain")
+            args = [(*a, c[k]) for a, c in zip(inputs, cots)]
+            got = cuda_fn(mod, *args[0])
+            want = plain_fn(mod, *args[0])
+            torch.cuda.synchronize()
+            names = ["dh", "dx", "dx0"] + egnn_tiled.stage_weight_names(mod)
+            err, worst = 0.0, ""
+            for name, g, w in zip(names, [*got[:3], *got[3]], [*want[:3], *want[3]]):
+                _check(bool(torch.isfinite(g).all()), f"{stage} backward {name} not finite at "
+                                                      f"N={n} {extra}")
+                scale = max(1.0, float(w.abs().max()))
+                d = float((g - w).abs().max())
+                _check(d <= _KERNEL_RTOL * scale,
+                       f"{stage} backward kernel disagrees with plain on {name} at N={n} {extra}: "
+                       f"max|d|={d:.3e} > {_KERNEL_RTOL}*{scale:.3g}")
+                if d > err:
+                    err, worst = d, name
+            del got, want
+            ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a), args, warmup=2, reps=10)
+            plain_ms = _time_ms(lambda *a, m=mod, f=plain_fn: f(m, *a), args, warmup=1, reps=3)
+            n_weights = sum(p.numel() for p in mod.parameters())
+            flops, nbytes = _stage_bwd_work(block.cfg, n_real0, n, n_weights,
+                                            stage == "coord_rows")
+            t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+            group, scratch = egnn_tiled.bwd_scratch(cuda_build.library("egnn_tiled_bwd"), B, n,
+                                                     H, block.cfg.edge_feat_nf, dev)
+            row = {"stage": stage, "case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
+                   "worst": worst, "ms": ms, "plain_ms": plain_ms, "group": group,
+                   "scratch_bytes": 4 * scratch.numel(),
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
+            rows.append(row)
+            print(f"phase 12: {stage} backward {case} N={n} B={B} H={H} max|d|={err:.3e} "
+                  f"({worst}; {len(names)} tensors each within {_KERNEL_RTOL}*max(1,max|ref|)) "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                  f"{row['tflops_achieved']:.2f} TFLOP/s, scratch {row['scratch_bytes']} bytes in "
+                  f"groups of {group} on {card_name}", flush=True)
+            del scratch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_geom_train(card_name, tmpdir):
+    import torch
+
+    from geoldm_tpu_torch.cli import main_geom_drugs
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
+    from geoldm_tpu_torch.train.sampling import chunk_pads, default_buckets
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    info = get_dataset_info("geom")
+    B, T, decay, seed, n_stab, L, inv = 32, 1000, 0.9999, 0, 4, 4, 1
+    # The train split holds one full batch in each of the buckets 184, 104
+    # and 48 (sizes from the histogram's support); 12 + 12 histogram
+    # molecules make the validation and test splits.
+    hist = sorted(dict(info.n_nodes_histogram))
+    rng = np.random.default_rng(21)
+    sizes = [int(v) for lo, hi in ((129, 181), (81, 104), (33, 48))
+             for v in rng.choice([k for k in hist if lo <= k <= hi], size=B)]
+    path = write_geom_conformers(tmpdir, info, len(sizes) * 5 // 4, seed=1, sizes=sizes)
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name", "smoke",
+            "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", str(L),
+            "--latent_nf", "2", "--include_charges", "False", "--diffusion_steps", str(T),
+            "--batch_size", str(B), "--lr", "5e-5", "--ema_decay", str(decay),
+            "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab),
+            "--seed", str(seed)]
+    print(f"phase 13: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+          flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_geom_drugs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+
+    losses = summary["losses"][0]
+    _check(len(losses) == 3, f"{len(losses)} train steps, expected 3")
+    _check(bool(np.all(np.isfinite(losses))), f"non-finite train loss: {losses}")
+    _check(len(summary["nll_val"]) == 1 and np.isfinite(summary["nll_val"][0]),
+           f"valid NLL {summary['nll_val']}")
+    _check(len(summary["nll_test"]) == 1 and np.isfinite(summary["nll_test"][0]),
+           f"test NLL {summary['nll_test']}")
+    # What the code implies, per batch or chunk pad: a train step runs the
+    # encoder forward (no grad) and the decoder and denoiser blocks forward
+    # and backward; an eval batch the encoder, the decoder and two denoiser
+    # passes; a sampled chunk (T+1) denoiser calls and one decode. Pads up to
+    # 64 run #1 (forward) and #2 (backward); past 64 each block runs
+    # inv_sublayers x #3 and one #4 forward, and its backward re-runs the
+    # GCLs (#3) and runs #5 once per stage.
+    train, val, test = load_split_data(path)
+
+    def batch_pads(splits, shuffle):
+        return [int(b["node_mask"].shape[1]) for data in splits
+                for b in GeomLoader(data, info, B, shuffle=shuffle, include_charges=False)]
+
+    pads = {"train": batch_pads([train], True), "eval": batch_pads([val, test], False)}
+    _check(sorted(pads["train"]) == [48, 104, 184], f"train batch pads {pads['train']}")
+    buckets = covering_buckets(default_buckets(info), info["max_n_nodes"])
+    pads["chunks"] = chunk_pads(summary["sample_sizes"][0], min(100, n_stab), buckets)
+    per = {"train": 1 + 2 * L, "eval": 1 + 3 * L, "chunks": (T + 1) * L + L}
+    small = {k: sum(1 for p in v if p <= MAX_NODES) for k, v in pads.items()}
+    large = {k: len(v) - small[k] for k, v in pads.items()}
+    expected = {
+        "egnn_block": sum(per[k] * small[k] for k in per),
+        "egnn_block_bwd": 2 * L * small["train"],
+        "gcl_rows": inv * (sum(per[k] * large[k] for k in per) + 2 * L * large["train"]),
+        "coord_rows": sum(per[k] * large[k] for k in per),
+        "gcl_rows_bwd": 2 * L * inv * large["train"],
+        "coord_rows_bwd": 2 * L * large["train"],
+    }
+    _check(launches == expected,
+           f"launches {launches} != {expected} (pads {pads}; per train step / eval batch / "
+           f"sampled chunk {per})")
+    print(f"phase 13: 3 steps (pads {pads['train']}), losses {[round(v, 4) for v in losses]}, "
+          f"valid NLL {summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}, "
+          f"stability {summary['stability'][0]}; launches {json.dumps(launches)} = what the "
+          f"code implies for train pads {pads['train']}, eval pads {pads['eval']}, sampled "
+          f"chunk pads {pads['chunks']}; main() {wall:.1f} s", flush=True)
+    state = summary["state"]
+    _check_trained(state, seed, decay, 3, os.path.join(tmpdir, "out", "smoke"), 13)
+
+    nodes = DistributionNodes(info.n_nodes)
+    batches = {int(b["node_mask"].shape[1]): b
+               for b in GeomLoader(train, info, B, shuffle=False, include_charges=False)}
+    step_ms = {pad: _time_steps(state, decay, prepare_batch(batches[pad], nodes, "cuda"))
+               for pad in (184, 48)}
+    for pad, times in step_ms.items():
+        print(f"phase 13: GEOM train step B={B} pad {pad} nf=256 4+4 blocks: "
+              f"{', '.join(f'{v:.1f}' for v in times)} ms (host clock around synchronised "
+              f"steps) on {card_name}", flush=True)
+    return {"launches": launches, "pads": pads, "losses": losses,
+            "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0],
+            "stability": summary["stability"][0], "main_seconds": wall,
+            "epoch_seconds": summary["epoch_seconds"][0], "step_ms": step_ms}
 
 
 def main(argv=None) -> int:
@@ -829,39 +1114,64 @@ def main(argv=None) -> int:
         print(f"phase 1: {name}: {lib['path']}; ptxas: {' | '.join(regs)}", flush=True)
     print(f"phase 1: built {len(info['libs'])} kernel libraries with nvcc (sm_90a, in parallel) "
           f"in {info['seconds']:.1f} s{' (cached)' if info.get('cached') else ''}", flush=True)
+    phase_seconds, clock = {}, [t_start]
 
+    def lap(phases):
+        phase_seconds[phases] = round(time.time() - clock[0], 1)
+        clock[0] = time.time()
+
+    lap("1")
     rows = phase_kernel(card_name)
+    lap("2")
     with tempfile.TemporaryDirectory() as tmpdir:
         launches, chunks, serve_stats, model = phase_serve(card_name, tmpdir)
     phase_denoiser(model, card_name)
     del model
+    lap("3-5")
     bwd_rows = phase_backward(card_name)
+    lap("6")
     with tempfile.TemporaryDirectory() as tmpdir:
         train = phase_train(card_name, tmpdir)
+    lap("7")
     grad = phase_grad(card_name)
+    lap("8")
     tiled_rows = phase_tiled(card_name)
+    lap("9")
     with tempfile.TemporaryDirectory() as tmpdir:
         geom_launches, geom_stats, model = phase_geom_serve(card_name, tmpdir)
     geom_err = phase_geom_denoiser(model, card_name)
     del model
+    lap("10-11")
+    tiled_bwd_rows = phase_tiled_backward(card_name)
+    lap("12")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        geom_train = phase_geom_train(card_name, tmpdir)
+    lap("13")
+    geom_grad = phase_grad(card_name, geom=True)
+    lap("14")
+    print(f"phase seconds: {json.dumps(phase_seconds)}", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "sum" and r["N"] == 32)
     bwd_row = next(r for r in bwd_rows if r["case"] == "sum" and r["N"] == 29)
     print("details: " + json.dumps({
         "shapes": rows, "serving": serve_stats, "chunks": chunks, "backward": bwd_rows,
         "training": train, "grad": grad, "tiled": tiled_rows, "geom_serving": geom_stats,
-        "geom_denoiser_max_abs_err": geom_err,
+        "geom_denoiser_max_abs_err": geom_err, "tiled_backward": tiled_bwd_rows,
+        "geom_training": geom_train, "geom_grad": geom_grad, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
 
-    def tiled_entry(stage, name, line):
-        main = next(r for r in tiled_rows
-                    if r["stage"] == stage and r["case"] == "sum" and r["N"] == 184)
-        return {"name": name, "route": "cuda", "source": "geoldm_tpu_torch/csrc/egnn_tiled.cu",
+    # Launches on the main paths: each path's own counts, read just after it.
+    geom_train_launches = geom_train["launches"]
+
+    def tiled_entry(rows_, stage, name, source, line, launches_):
+        main = next(r for r in rows_ if r["stage"] == stage and r["case"] == "sum"
+                    and r["N"] == 184)
+        return {"name": name, "route": "cuda", "source": f"geoldm_tpu_torch/csrc/{source}",
                 "replaces": f"geoldm_tpu/ops/pallas_egnn_tiled.py:{line}",
-                "launches": geom_launches[stage],
-                "max_abs_err": max(r["max_abs_err"] for r in tiled_rows if r["stage"] == stage),
+                "launches": launches_,
+                "max_abs_err": max(r["max_abs_err"] for r in rows_ if r["stage"] == stage),
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None}
 
@@ -869,7 +1179,8 @@ def main(argv=None) -> int:
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
         "replaces": "geoldm_tpu/ops/pallas_egnn.py:232",
-        "launches": launches + train["fwd_launches"] + geom_launches["egnn_block"],
+        "launches": (launches + train["fwd_launches"] + geom_launches["egnn_block"]
+                     + geom_train_launches["egnn_block"]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -878,13 +1189,17 @@ def main(argv=None) -> int:
         "name": "egnn_block_bwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block_bwd.cu",
         "replaces": "geoldm_tpu/ops/pallas_egnn.py:255",
-        "launches": train["bwd_launches"],
+        "launches": train["bwd_launches"] + geom_train_launches["egnn_block_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
         "library_ms": None,
-    }, tiled_entry("gcl_rows", "egnn_gcl_rows", 152),
-        tiled_entry("coord_rows", "egnn_coord_rows", 166)]}
+    }] + [tiled_entry(tiled_rows, stage, f"egnn_{stage}", "egnn_tiled.cu", line,
+                      geom_launches[stage] + geom_train_launches[stage])
+           for stage, line in (("gcl_rows", 152), ("coord_rows", 166))]
+        + [tiled_entry(tiled_bwd_rows, stage, f"egnn_{stage}_bwd", "egnn_tiled_bwd.cu", 201,
+                       geom_train_launches[f"{stage}_bwd"])
+           for stage in ("gcl_rows", "coord_rows")]}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

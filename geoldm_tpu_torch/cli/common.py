@@ -1,5 +1,6 @@
 """Training CLI plumbing (port of ``geoldm_tpu/cli/common.py:17-434``): the
-reference flag surface, flags -> ModelConfig, and the serial training run.
+reference flag surface (QM9 and GEOM-Drugs defaults), flags -> ModelConfig,
+and the serial training run.
 
 The port trains unconditional models in float32 on one device. Flags that
 select anything else exit with a two-line "not ported yet" message.
@@ -13,8 +14,11 @@ import os
 import numpy as np
 
 
-def add_model_args(p: argparse.ArgumentParser) -> None:
-    """The QM9 flags of the JAX CLI (reference main_qm9.py:23-133)."""
+def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> None:
+    """The flags of the JAX CLI (reference main_qm9.py:23-133,
+    main_geom_drugs.py:25-131), with the QM9 or the GEOM-Drugs defaults."""
+    d = {"n_layers": 9, "lr": 1e-4, "batch_size": 64, "latent_nf": 1} if qm9_defaults else \
+        {"n_layers": 4, "lr": 5e-5, "batch_size": 32, "latent_nf": 2}
     p.add_argument("--exp_name", type=str, default="geoldm_tpu_run")
     p.add_argument("--model", type=str, default="egnn_dynamics",
                    choices=["egnn_dynamics", "gnn_dynamics"])
@@ -24,15 +28,15 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--diffusion_noise_precision", type=float, default=1e-5)
     p.add_argument("--diffusion_loss_type", type=str, default="l2", choices=["vlb", "l2"])
     p.add_argument("--n_epochs", type=int, default=3000)
-    p.add_argument("--batch_size", type=int, default=64)
-    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--batch_size", type=int, default=d["batch_size"])
+    p.add_argument("--lr", type=float, default=d["lr"])
     p.add_argument("--break_train_epoch", type=eval, default=False)
     p.add_argument("--dp", type=int, default=0, help="data-parallel devices (not ported yet)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported yet)")
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel devices (not ported yet)")
     p.add_argument("--condition_time", type=eval, default=True)
     p.add_argument("--clip_grad", type=eval, default=True)
-    p.add_argument("--n_layers", type=int, default=9)
+    p.add_argument("--n_layers", type=int, default=d["n_layers"])
     p.add_argument("--inv_sublayers", type=int, default=1)
     p.add_argument("--nf", type=int, default=256)
     p.add_argument("--tanh", type=eval, default=True)
@@ -43,7 +47,7 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="JAX-side option; the port's backward always recomputes each block")
     p.add_argument("--ode_regularization", type=float, default=1e-3)
     p.add_argument("--trainable_ae", action="store_true")
-    p.add_argument("--latent_nf", type=int, default=1)
+    p.add_argument("--latent_nf", type=int, default=d["latent_nf"])
     p.add_argument("--kl_weight", type=float, default=0.01)
     p.add_argument("--ae_path", type=str, default=None)
     p.add_argument("--train_diffusion", action="store_true",
@@ -62,7 +66,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--n_stability_samples", type=int, default=500)
     p.add_argument("--eval_n_steps", type=int, default=None)
     p.add_argument("--normalize_factors", type=eval, default=[1, 4, 10])
-    p.add_argument("--include_charges", type=eval, default=True)
+    # True for QM9 (main_qm9.py:125), False for GEOM (main_geom_drugs.py:121).
+    p.add_argument("--include_charges", type=eval, default=qm9_defaults)
     p.add_argument("--visualize", type=eval, default=False)
     p.add_argument("--normalization_factor", type=float, default=1.0)
     p.add_argument("--aggregation_method", type=str, default="sum")
@@ -78,7 +83,7 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
 
 def _not_ported(what: str) -> None:
     raise SystemExit(f"{what} is not ported yet.\n"
-                     "geoldm_tpu_torch trains unconditional QM9 models in float32 on one device.")
+                     "geoldm_tpu_torch trains unconditional models in float32 on one device.")
 
 
 def check_ported(args) -> None:
@@ -137,10 +142,12 @@ def _generator(device, seed: int, *stream) -> "torch.Generator":
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def run_training(args, dataset_info, splits) -> dict:
+def run_training(args, dataset_info, splits, loaders=None) -> dict:
     """Train, evaluate and checkpoint (common.py:159-434, serial and single
-    device). Returns a summary: per-epoch losses and seconds, valid/test
-    NLLs, stability and the sizes sampled for it, the checkpoint
+    device). ``loaders`` replaces the QM9Loaders built from ``splits`` (the
+    GEOM entry point passes GeomLoaders); each must agree with the model on
+    the charge channel. Returns a summary: per-epoch losses and seconds,
+    valid/test NLLs, stability and the sizes sampled for it, the checkpoint
     directories written, and the final train state."""
     import torch
 
@@ -164,10 +171,16 @@ def run_training(args, dataset_info, splits) -> dict:
     train_step = make_train_step(model_cfg, args.ema_decay)
     eval_nll = make_eval_nll(model_cfg)
     include_charges = model_cfg.vae.include_charges
-    loaders = {split: QM9Loader(data, batch_size=args.batch_size,
-                                pad_nodes=dataset_info.max_n_nodes, shuffle=split == "train",
-                                include_charges=include_charges, seed=args.seed)
-               for split, data in splits.items()}
+    if loaders is None:
+        loaders = {split: QM9Loader(data, batch_size=args.batch_size,
+                                    pad_nodes=dataset_info.max_n_nodes, shuffle=split == "train",
+                                    include_charges=include_charges, seed=args.seed)
+                   for split, data in splits.items()}
+    for split, loader in loaders.items():
+        if loader.include_charges != include_charges:
+            raise ValueError(f"{split} loader include_charges={loader.include_charges} but the "
+                             f"model expects {include_charges}; rebuild the loaders with "
+                             f"--include_charges {include_charges}")
     nodes_dist = DistributionNodes(dataset_info.n_nodes)
     outdir = os.path.join(args.outdir, args.exp_name)
     summary = {"losses": [], "epoch_seconds": [], "nll_val": [], "nll_test": [],

@@ -1,5 +1,6 @@
 // Device code shared by the EquivariantBlock forward (egnn_block.cu), its
-// backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu):
+// backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu,
+// egnn_tiled_bwd.cu):
 // constants, activations, the node GEMM with its fused epilogues, the
 // src/dst projection and the forward edge kernel. See egnn_block.cu and
 // egnn_tiled.cu for the designs and what bounds them on an H100.
@@ -53,7 +54,8 @@ struct GemmArgs {
 constexpr int kTM = 64, kTN = 64, kTK = 16;
 
 // kOwner only names the grid in a profile: 1 for the whole-block kernels
-// (#1, #2), 3 and 4 for the row-tiled GCL and coordinate stages.
+// (#1, #2), 3 and 4 for the row-tiled GCL and coordinate stages, 5 for their
+// backward.
 template <int kOwner>
 __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
   __shared__ float As[kTK][kTM + 4];

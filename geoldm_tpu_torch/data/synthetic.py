@@ -1,8 +1,9 @@
-"""Synthetic QM9-shaped molecules (port of ``geoldm_tpu/data/synthetic.py``),
-for tests and smoke runs where the real splits are not on disk. Sizes follow
-the dataset's size histogram, atom types its type marginals, coordinates are
-CoM-centred Gaussians at about bond-length scale, and charges are the atomic
-numbers (the QM9 'charges' column).
+"""Synthetic molecules (port of ``geoldm_tpu/data/synthetic.py``), for tests
+and smoke runs where the real data is not on disk: batches, QM9-format
+splits and GEOM-format conformer files. Sizes follow the dataset's size
+histogram, atom types its type marginals, coordinates are Gaussians at about
+bond-length scale, and QM9 charges are the atomic numbers (the QM9 'charges'
+column).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ def atomic_numbers(info) -> np.ndarray:
 
 def synthetic_batch(info, batch_size: int, pad_nodes: Optional[int] = None,
                     rng: Optional[np.random.Generator] = None, include_charges: bool = True,
-                    coord_scale: float = 1.7) -> Dict[str, np.ndarray]:
+                    coord_scale: float = 1.7, n_atoms=None) -> Dict[str, np.ndarray]:
+    """A collated batch; ``n_atoms`` fixes the sizes instead of drawing them."""
     rng = rng or np.random.default_rng(0)
     pad_nodes = pad_nodes or info.max_n_nodes
     sizes = np.array([n for n, _ in info.n_nodes_histogram])
@@ -38,7 +40,9 @@ def synthetic_batch(info, batch_size: int, pad_nodes: Optional[int] = None,
     type_probs = type_counts / type_counts.sum()
     z = atomic_numbers(info)
 
-    n_atoms = np.minimum(rng.choice(sizes, size=batch_size, p=counts / counts.sum()), pad_nodes)
+    if n_atoms is None:
+        n_atoms = rng.choice(sizes, size=batch_size, p=counts / counts.sum())
+    n_atoms = np.minimum(np.asarray(n_atoms), pad_nodes)
     positions, one_hots, charges = [], [], []
     for n in n_atoms:
         positions.append(rng.standard_normal((n, 3)).astype(np.float32) * coord_scale)
@@ -86,3 +90,39 @@ def write_qm9_splits(datadir: str, info, sizes: Dict[str, int], seed: int = 0) -
             positions=positions.astype(np.float32),
             alpha=rng.standard_normal(m) * 8 + 75, mu=np.abs(rng.standard_normal(m)),
             U0=rng.standard_normal(m), U0_thermo=rng.standard_normal(m))
+
+
+def write_geom_conformers(datadir: str, info, n_molecules: int, seed: int = 0,
+                          sizes=()) -> str:
+    """Write ``<datadir>/geom_drugs_30.npy`` in the format that
+    ``data.geom.load_split_data`` reads (rows of mol_id, atomic number, x, y,
+    z) -> its path. Sizes follow the dataset's size histogram and atom types
+    its type marginals; the last ``len(sizes)`` molecules take the given
+    sizes (each must be in the histogram, so that log p(N) is defined). The
+    identity is written to ``geom_permutation.npy``, so the splits follow
+    the file: 10 % validation, 10 % test, then train, which holds the given
+    sizes when they are at most 80 % of the file."""
+    rng = np.random.default_rng(seed)
+    hist = dict(info.n_nodes_histogram)
+    unknown = sorted({int(n) for n in sizes} - hist.keys())
+    if unknown:
+        raise ValueError(f"sizes {unknown} are not in the {info.name} size histogram")
+    n_free = n_molecules - len(sizes)
+    if n_free < 0:
+        raise ValueError(f"{len(sizes)} given sizes for {n_molecules} molecules")
+    known = np.array(sorted(hist))
+    counts = np.array([hist[n] for n in known], dtype=np.float64)
+    n_atoms = np.concatenate([rng.choice(known, size=n_free, p=counts / counts.sum()),
+                              np.asarray(sizes, dtype=np.int64)]).astype(np.int64)
+    type_counts = np.asarray(info.atom_type_counts, dtype=np.float64)
+    z = atomic_numbers(info)
+    rows = []
+    for mol_id, n in enumerate(n_atoms):
+        types = rng.choice(len(type_counts), size=n, p=type_counts / type_counts.sum())
+        pos = rng.standard_normal((n, 3)) * 1.7
+        rows.append(np.hstack([np.full((n, 1), mol_id, dtype=float), z[types][:, None], pos]))
+    os.makedirs(datadir, exist_ok=True)
+    path = os.path.join(datadir, "geom_drugs_30.npy")
+    np.save(path, np.vstack(rows))
+    np.save(os.path.join(datadir, "geom_permutation.npy"), np.arange(n_molecules))
+    return path

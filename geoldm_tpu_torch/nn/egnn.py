@@ -13,8 +13,8 @@ weight slices instead of materialising the ``[h_i, h_j, e_ij]`` concat.
 which routes by the padded node count N: N <= 64 (QM9, GEOM's 32/48/64
 buckets) to the whole-block CUDA kernels, N > 64 (GEOM's 96/136/184) to the
 row-tiled GCL and coordinate kernels of ``ops.egnn_tiled``; on the CPU each
-route runs its plain PyTorch version. On the card the row-tiled route has no
-backward yet and raises under grad.
+route runs its plain PyTorch version. Under grad each route goes through its
+autograd Function, whose backward is a kernel too (#2, #5).
 """
 
 from __future__ import annotations

@@ -23,8 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu",
-           "egnn_tiled": CSRC / "egnn_tiled.cu"}
-HEADERS = (CSRC / "egnn_common.cuh",)
+           "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu"}
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_rows.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,6 +46,12 @@ _SIGNATURES = {
         "egnn_gcl_rows": ([_P] * 9 + [_I] * 7 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_P], _I),
         "egnn_tiled_error_string": ([_I], _STR),
+    },
+    "egnn_tiled_bwd": {
+        "egnn_gcl_rows_backward": ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
+        "egnn_coord_rows_backward": ([_P] * 11 + [_I] * 8 + [_F] * 3 + [_P], _I),
+        "egnn_rows_backward_scratch_floats": ([_I] * 4, _Z),
+        "egnn_tiled_bwd_error_string": ([_I], _STR),
     },
 }
 

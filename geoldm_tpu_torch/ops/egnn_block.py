@@ -21,10 +21,10 @@ count N, from this card's limits:
   goes through the Function while grad is enabled and is the bare forward
   kernel under ``no_grad``; on the CPU it runs the plain version.
 - N > 64: the row-tiled kernels of ``ops.egnn_tiled`` (TPU kernels #3 and
-  #4, columns streamed in tiles), on the card and on the CPU alike (their
-  plain versions there). Their backward (TPU kernel #5) is not ported yet,
-  so on the card a call under grad raises ``NotImplementedError`` instead of
-  returning outputs without a ``grad_fn``.
+  #4 forward, #5 backward; columns streamed in tiles), on the card and on
+  the CPU alike (their plain versions there). While grad is enabled the
+  block goes through ``egnn_tiled.TiledEquivariantBlockFunction``, under
+  ``no_grad`` it is the bare forward.
 
 (The TPU package's routing, ``pallas_egnn.dispatch_to_tiled``, follows VMEM
 budgets of the TPU and is not this rule.) A wrapper given a CUDA tensor
@@ -257,11 +257,9 @@ def block_forward(block, h, x, x0, node_mask):
     if h.shape[1] > MAX_NODES:
         from geoldm_tpu_torch.ops import egnn_tiled
 
-        if h.is_cuda and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"a block of N={h.shape[1]} > {MAX_NODES} nodes runs the row-tiled kernels, "
-                "whose backward (TPU kernel #5, pallas_egnn_tiled.py:_make_rows_bwd_kernel) "
-                "is not ported yet: call it under torch.no_grad()")
+        if torch.is_grad_enabled():
+            return egnn_tiled.TiledEquivariantBlockFunction.apply(
+                block, h, x, x0, node_mask, *block_params(block))
         return egnn_tiled.tiled_block_forward(block, h, x, x0, node_mask)
     if h.is_cuda:
         if torch.is_grad_enabled():

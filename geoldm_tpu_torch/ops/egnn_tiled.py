@@ -11,33 +11,60 @@ versions and the block forward that chains them. Counterpart of
   ``_make_coord_rows_kernel`` over ``_coord_rows_math :123``).
 - ``tiled_block_forward``: ``inv_sublayers`` x #3, then #4, every GCL seeing
   the same x (``_tiled_block_fwd_impl :373``).
+- Kernel #5, ``gcl_rows_backward`` / ``coord_rows_backward``: the backward of
+  one stage, dh, dx, the exact dx0 and every weight gradient of the stage
+  summed over the batch, from the stage's inputs and the cotangent of its
+  output (TPU kernel ``_make_rows_bwd_kernel :201`` via ``_call_rows_bwd
+  :267``).
+- ``TiledEquivariantBlockFunction``: ``tiled_block_forward`` as forward,
+  saving only the block inputs and the weights; its backward re-runs the
+  GCL chain with #3 and runs #5 over the stages in reverse
+  (``_tiled_block_bwd_impl :465``).
 
-The CUDA kernels (``csrc/egnn_tiled.cu``) stream the columns in tiles of 32
-through shared memory and keep each row's sums on chip; the plain versions
-work on one [B, T, N, H] row slab at a time (T = ``PLAIN_TILE`` rows of
-every molecule), so no [B, N, N, H] edge tensor is ever held. Both take any
-N; 'mean' divides by the caller's N, the padded width the EGNN was given,
-as the dense path does. A wrapper given a CUDA tensor launches its kernel or
-raises; only CPU tensors take a plain version.
+The forward kernels (``csrc/egnn_tiled.cu``) stream the columns in tiles of
+32 through shared memory and keep each row's sums on chip; so does the edge
+grid of the backward (``csrc/egnn_tiled_bwd.cu``), which writes three
+edge-sized buffers for the passes that cross rows and runs the molecules in
+groups whose scratch stays under ``MAX_BWD_SCRATCH_BYTES``. The plain
+versions work on one [B, T, N, H] row slab at a time (T = ``PLAIN_TILE``
+rows of every molecule), so the forward never holds a [B, N, N, H] edge
+tensor; the plain backward is ``torch.autograd.grad`` of the plain stage.
+All take any N; 'mean' divides by the caller's N, the padded width the EGNN
+was given, as the dense path does. A wrapper given a CUDA tensor launches
+its kernel or raises; only CPU tensors take a plain version.
 
-``gcl_rows_launches`` / ``coord_rows_launches`` count kernel calls: one per
-GCL / coordinate stage on the card.
+``gcl_rows_launches`` / ``coord_rows_launches`` count forward kernel calls,
+one per GCL / coordinate stage on the card; ``gcl_rows_bwd_launches`` /
+``coord_rows_bwd_launches`` count kernel #5's, one per stage backward.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from geoldm_tpu_torch.ops import cuda_build
 from geoldm_tpu_torch.ops.distance import sin_embedding
-from geoldm_tpu_torch.ops.egnn_block import MAX_HIDDEN, _check, _pointer_table
+from geoldm_tpu_torch.ops.egnn_block import (
+    MAX_HIDDEN,
+    _block_weight_names,
+    _check,
+    _pointer_table,
+    block_param_names,
+)
 
-MAX_TILED_NODES = 1024  # csrc/egnn_tiled.cu:kMaxTiledNodes
+MAX_TILED_NODES = 1024  # csrc/egnn_rows.cuh:kMaxTiledNodes
 PLAIN_TILE = 16  # rows per slab of the plain versions
+# Device scratch of one stage backward (csrc/egnn_tiled_bwd.cu), almost all
+# of it three [G, N, N, H] f32 buffers for a group of G molecules: 3.3 GB
+# for the GEOM recipe's B=32, N=184, H=256 in one group.
+MAX_BWD_SCRATCH_BYTES = 4 << 30
 
 gcl_rows_launches = 0
 coord_rows_launches = 0
+gcl_rows_bwd_launches = 0
+coord_rows_bwd_launches = 0
 
 _GCL_NAMES = ("edge_mlp.0.weight", "edge_mlp.0.bias", "edge_mlp.2.weight", "edge_mlp.2.bias",
               "att_mlp.0.weight", "att_mlp.0.bias", "node_mlp.0.weight", "node_mlp.0.bias",
@@ -119,6 +146,76 @@ def coord_rows_plain(equiv, h, x, x0, node_mask, tile: int = PLAIN_TILE):
     return torch.cat(out, dim=1)
 
 
+class _Bound(torch.nn.Module):
+    """``fn(module, *args)`` as a module's forward, so that
+    ``torch.func.functional_call`` can put given tensors in place of the
+    module's weights."""
+
+    def __init__(self, module, fn):
+        super().__init__()
+        self.module = module
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(self.module, *args)
+
+
+def _call_with(module, names, weights, fn, *args):
+    """``fn(module, *args)`` with ``weights`` in place of the parameters
+    ``names`` of ``module``."""
+    params = {f"module.{n}": w for n, w in zip(names, weights)}
+    return torch.func.functional_call(_Bound(module, fn), params, args)
+
+
+def _gcl_slots(gcl) -> list:
+    """The GCL's weight names in the kernels' pointer order, ``None`` in the
+    attention slots of a GCL without attention."""
+    return [n if gcl.cfg.attention or not n.startswith("att_mlp") else None for n in _GCL_NAMES]
+
+
+def stage_weight_names(module) -> list:
+    """A GCL's or an EquivariantUpdate's weight names in the order the stage
+    backwards return their gradients."""
+    if hasattr(module, "coord_mlp"):
+        return list(_COORD_NAMES)
+    return [n for n in _gcl_slots(module) if n]
+
+
+def _stage_backward_plain(module, names, stage_fn, h, x, x0, node_mask, g_out, weights):
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (h, x, x0)]
+        ws = [w.detach().requires_grad_() for w in weights]
+        out = _call_with(module, names, ws, stage_fn, *inputs, node_mask)
+        grads = torch.autograd.grad(out, inputs + ws, g_out, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs + ws, grads)]
+    return grads[0], grads[1], grads[2], grads[3:]
+
+
+def gcl_rows_backward_plain(gcl, h, x, x0, node_mask, g_out, weights=None):
+    """Plain PyTorch version of kernel #5 on a GCL stage:
+    ``torch.autograd.grad`` of ``gcl_rows_plain`` (as the Pallas kernel
+    ``jax.vjp``s ``_gcl_rows_math``). g_out [B,N,H], the cotangent of the
+    stage's output -> (dh, dx, dx0, [weight gradients in pointer order
+    without the empty attention slots]). ``weights`` replace the module's
+    parameters when given."""
+    names = stage_weight_names(gcl)
+    if weights is None:
+        params = dict(gcl.named_parameters())
+        weights = [params[n] for n in names]
+    return _stage_backward_plain(gcl, names, gcl_rows_plain, h, x, x0, node_mask, g_out, weights)
+
+
+def coord_rows_backward_plain(equiv, h, x, x0, node_mask, g_out, weights=None):
+    """Plain PyTorch version of kernel #5 on the coordinate stage
+    (``_coord_rows_math``): g_out [B,N,3] -> (dh, dx, dx0, [weight
+    gradients of coord_mlp.{0,2,4}])."""
+    if weights is None:
+        params = dict(equiv.named_parameters())
+        weights = [params[n] for n in _COORD_NAMES]
+    return _stage_backward_plain(equiv, _COORD_NAMES, coord_rows_plain, h, x, x0, node_mask,
+                                 g_out, weights)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -155,18 +252,17 @@ def _validate(module, names, h, x, x0, node_mask) -> dict:
     return weights
 
 
-def _raise_on(rc: int, lib, what: str) -> None:
+def _raise_on(rc: int, error_string, what: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.egnn_tiled_error_string(rc).decode()} (cudaError {rc})")
+        raise RuntimeError(f"{what} kernel launch failed: {error_string(rc).decode()} "
+                           f"(cudaError {rc})")
 
 
 def gcl_rows_cuda(gcl, h, x, x0, node_mask):
     """Kernel #3 on the card: h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] ->
     the GCL's h [B,N,H]."""
     global gcl_rows_launches
-    names = [n if gcl.cfg.attention or not n.startswith("att_mlp") else None
-             for n in _GCL_NAMES]
+    names = _gcl_slots(gcl)
     weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
     cfg = gcl.cfg
     b, n, hidden = h.shape
@@ -184,7 +280,7 @@ def gcl_rows_cuda(gcl, h, x, x0, node_mask):
             b, n, hidden, cfg.edge_feat_nf, int(cfg.attention), int(cfg.sin_embedding),
             int(cfg.aggregation_method == "mean"), float(cfg.norm_constant),
             float(cfg.normalization_factor), stream)
-    _raise_on(rc, lib, "egnn_tiled gcl_rows")
+    _raise_on(rc, lib.egnn_tiled_error_string, "egnn_tiled gcl_rows")
     gcl_rows_launches += 1
     return h_out
 
@@ -207,9 +303,87 @@ def coord_rows_cuda(equiv, h, x, x0, node_mask):
             cfg.edge_feat_nf, int(cfg.sin_embedding), int(cfg.tanh),
             int(cfg.aggregation_method == "mean"), float(cfg.coords_range_layer),
             float(cfg.norm_constant), float(cfg.normalization_factor), stream)
-    _raise_on(rc, lib, "egnn_tiled coord_rows")
+    _raise_on(rc, lib.egnn_tiled_error_string, "egnn_tiled coord_rows")
     coord_rows_launches += 1
     return x_out
+
+
+def bwd_scratch(lib, b: int, n: int, hidden: int, e: int, dev):
+    """(molecules per group, scratch tensor) of a stage backward: the largest
+    group whose scratch stays under ``MAX_BWD_SCRATCH_BYTES``."""
+    cap = MAX_BWD_SCRATCH_BYTES // 4
+
+    def floats(g):
+        return lib.egnn_rows_backward_scratch_floats(g, n, hidden, e)
+
+    if floats(1) > cap:
+        raise ValueError(
+            f"egnn_tiled backward: one molecule of N={n} at hidden_nf={hidden} needs "
+            f"{4 * floats(1)} bytes of device scratch, over MAX_BWD_SCRATCH_BYTES="
+            f"{MAX_BWD_SCRATCH_BYTES}")
+    unit = max(1, floats(2) - floats(1))
+    group = min(b, 1 + (cap - floats(1)) // unit)
+    while group > 1 and floats(group) > cap:
+        group -= 1
+    return group, torch.empty(floats(group), device=dev, dtype=torch.float32)
+
+
+def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out):
+    """Kernel #5 on a GCL stage on the card: the stage's input h [B,N,H],
+    x/x0 [B,N,3], node_mask [B,N,1] and the cotangent g_out [B,N,H] of its
+    output -> (dh, dx, dx0, [weight gradients summed over the batch, in
+    ``gcl_rows_backward_plain``'s order])."""
+    global gcl_rows_bwd_launches
+    names = _gcl_slots(gcl)
+    g_out = g_out.contiguous()
+    weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
+    _check("g_out", g_out, h.shape, h.device)
+    cfg = gcl.cfg
+    b, n, hidden = h.shape
+    lib = cuda_build.library("egnn_tiled_bwd")
+    group, scratch = bwd_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
+    grads = {name: torch.empty_like(w) for name, w in weights.items()}
+    dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        rc = lib.egnn_gcl_rows_backward(
+            h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), g_out.data_ptr(),
+            dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(), _pointer_table(names, weights),
+            _pointer_table(names, grads), scratch.data_ptr(), b, group, n, hidden,
+            cfg.edge_feat_nf, int(cfg.attention), int(cfg.sin_embedding),
+            int(cfg.aggregation_method == "mean"), float(cfg.norm_constant),
+            float(cfg.normalization_factor), stream)
+    _raise_on(rc, lib.egnn_tiled_bwd_error_string, "egnn_tiled gcl_rows backward")
+    gcl_rows_bwd_launches += 1
+    return dh, dx, dx0, [grads[name] for name in names if name]
+
+
+def coord_rows_backward_cuda(equiv, h, x, x0, node_mask, g_out):
+    """Kernel #5 on the coordinate stage on the card: g_out [B,N,3], the
+    cotangent of the updated x -> (dh, dx, dx0, [weight gradients of
+    coord_mlp.{0,2,4}])."""
+    global coord_rows_bwd_launches
+    g_out = g_out.contiguous()
+    weights = _validate(equiv, _COORD_NAMES, h, x, x0, node_mask)
+    _check("g_out", g_out, x.shape, h.device)
+    cfg = equiv.cfg
+    b, n, hidden = h.shape
+    lib = cuda_build.library("egnn_tiled_bwd")
+    group, scratch = bwd_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
+    grads = {name: torch.empty_like(w) for name, w in weights.items()}
+    dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        rc = lib.egnn_coord_rows_backward(
+            h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), g_out.data_ptr(),
+            dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(), _pointer_table(_COORD_NAMES, weights),
+            _pointer_table(_COORD_NAMES, grads), scratch.data_ptr(), b, group, n, hidden,
+            cfg.edge_feat_nf, int(cfg.sin_embedding), int(cfg.tanh),
+            int(cfg.aggregation_method == "mean"), float(cfg.coords_range_layer),
+            float(cfg.norm_constant), float(cfg.normalization_factor), stream)
+    _raise_on(rc, lib.egnn_tiled_bwd_error_string, "egnn_tiled coord_rows backward")
+    coord_rows_bwd_launches += 1
+    return dh, dx, dx0, [grads[name] for name in _COORD_NAMES]
 
 
 def tiled_block_forward(block, h, x, x0, node_mask):
@@ -225,3 +399,72 @@ def tiled_block_forward(block, h, x, x0, node_mask):
     for j in range(block.cfg.inv_sublayers):
         h = gcl_rows(getattr(block, f"gcl_{j}"), h, x, x0, node_mask)
     return h, coord_rows(block.gcl_equiv, h, x, x0, node_mask)
+
+
+def _stage_weights(block, weights) -> tuple:
+    """The Function's weights (``block_params`` order) split by stage ->
+    ([one list per GCL], coordinate list)."""
+    gcls, coord = _block_weight_names(block)
+    it = iter(weights)
+    stages = [[next(it) for name in names if name is not None] for names in gcls + [coord]]
+    return stages[:-1], stages[-1]
+
+
+class TiledEquivariantBlockFunction(torch.autograd.Function):
+    """One block through the row-tiled stages, forward and backward:
+    ``apply(block, h, x, x0, node_mask, *block_params(block))``. The forward
+    is ``tiled_block_forward``; only the block inputs and the weights are
+    saved. The backward re-runs the GCL chain (#3), runs the coordinate
+    stage's backward, then each GCL stage's in reverse, summing dx and dx0
+    (#5). On CPU tensors it runs the plain versions with the given weights
+    (for tests, and to keep the CPU's memory to one stage's)."""
+
+    @staticmethod
+    def forward(ctx, block, h, x, x0, node_mask, *weights):
+        if h.is_cuda:
+            h_out, x_out = tiled_block_forward(block, h, x, x0, node_mask)
+        else:
+            h_out, x_out = _call_with(block, block_param_names(block), weights,
+                                      tiled_block_forward, h, x, x0, node_mask)
+        ctx.block = block
+        ctx.save_for_backward(h, x, x0, node_mask, *weights)
+        return h_out, x_out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_out, dx_out):
+        h, x, x0, node_mask, *weights = ctx.saved_tensors
+        block = ctx.block
+        gcls = [getattr(block, f"gcl_{j}") for j in range(block.cfg.inv_sublayers)]
+        gcl_ws, coord_ws = _stage_weights(block, weights)
+        if h.is_cuda:
+            def gcl_fwd(j, *a):
+                return gcl_rows_cuda(gcls[j], *a)
+
+            def gcl_bwd(j, *a):
+                return gcl_rows_backward_cuda(gcls[j], *a)
+
+            def coord_bwd(*a):
+                return coord_rows_backward_cuda(block.gcl_equiv, *a)
+        else:
+            def gcl_fwd(j, *a):
+                return _call_with(gcls[j], stage_weight_names(gcls[j]), gcl_ws[j],
+                                  gcl_rows_plain, *a)
+
+            def gcl_bwd(j, *a):
+                return gcl_rows_backward_plain(gcls[j], *a, weights=gcl_ws[j])
+
+            def coord_bwd(*a):
+                return coord_rows_backward_plain(block.gcl_equiv, *a, weights=coord_ws)
+
+        hs = [h]
+        for j in range(len(gcls)):
+            hs.append(gcl_fwd(j, hs[-1], x, x0, node_mask))
+        dh_c, dx, dx0, d_coord = coord_bwd(hs[-1], x, x0, node_mask, dx_out)
+        g = dh_out + dh_c
+        d_gcls = [None] * len(gcls)
+        for j in range(len(gcls) - 1, -1, -1):
+            g, dx_j, dx0_j, d_gcls[j] = gcl_bwd(j, hs[j], x, x0, node_mask, g)
+            dx = dx + dx_j
+            dx0 = dx0 + dx0_j
+        return (None, g, dx, dx0, None, *[w for ws in d_gcls + [d_coord] for w in ws])

@@ -103,7 +103,8 @@ def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNod
     (reference train_test.py:176-197). RDKit metrics are not ported."""
     rng = rng or np.random.default_rng(0)
     nodesxsample = nodes_dist.sample(n_samples, rng)
-    buckets = covering_buckets(sampling_mod.DEFAULT_SAMPLE_BUCKETS, dataset_info["max_n_nodes"])
+    buckets = covering_buckets(sampling_mod.default_buckets(dataset_info),
+                               dataset_info["max_n_nodes"])
     t0 = time.time()
     one_hot, _, x, node_mask = sampling_mod.sample_bucketed(
         model, seed, dataset_info, nodesxsample, batch_size=min(batch_size, n_samples),

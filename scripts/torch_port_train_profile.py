@@ -1,20 +1,28 @@
 """Where a train step of the PyTorch/CUDA port spends its time.
 
-Builds the QM9 latent-diffusion model at the reference recipe (nf=256,
-9 layers, latent_nf=1, T=1000, trainable_ae, EMA 0.9999) with random
-weights (seeded torch.Generator) on one card and a batch of 64 synthetic
-QM9-sized molecules padded to 29 atoms, times train steps on the host clock
-around synchronised work, then traces a window of steps with torch.profiler
-and gives device time per step by CUDA kernel name (the block kernels'
-grids by name, everything else as "other"). A second trace does the same
-for the block backward kernel alone at B=64, N=29, H=256. Prints one JSON
-line.
+QM9 (default): builds the QM9 latent-diffusion model at the reference recipe
+(nf=256, 9 layers, latent_nf=1, T=1000, trainable_ae, EMA 0.9999) with
+random weights (seeded torch.Generator) on one card and a batch of 64
+synthetic QM9-sized molecules padded to 29 atoms, times train steps on the
+host clock around synchronised work, then traces a window of steps with
+torch.profiler and gives device time per step by CUDA kernel name (the
+block kernels' grids by name, everything else as "other"). A second trace
+does the same for the block backward kernel alone at B=64, N=29, H=256.
 
-    python3 scripts/torch_port_train_profile.py
+GEOM (``--dataset geom``): the same for the GEOM recipe (nf=256, 4 layers,
+latent_nf=2, no charges, T=1000, trainable_ae, EMA 0.9999) on B=32
+synthetic molecules at the training pads 184 (129-181 atoms, the row-tiled
+kernels #3-#5) and 48 (33-48 atoms, kernels #1-#2), then the row-tiled
+stage backwards (#5) alone at B=32, N=184, H=256.
+
+Prints one JSON line.
+
+    python3 scripts/torch_port_train_profile.py [--dataset geom]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -33,14 +41,15 @@ from geoldm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from geoldm_tpu_torch.models import factory  # noqa: E402
 from geoldm_tpu_torch.models.distributions import DistributionNodes  # noqa: E402
 from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters  # noqa: E402
-from geoldm_tpu_torch.ops import egnn_block  # noqa: E402
+from geoldm_tpu_torch.ops import egnn_block, egnn_tiled  # noqa: E402
 from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step  # noqa: E402
 from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 
 # Grids of the block kernels (csrc/*.cu), by kernel-name substring.
-KERNELS = ("edge_bwd_kernel", "edge_kernel", "gemm_nt_kernel", "gemm_kernel",
-           "splitk_reduce_kernel", "reduce_rows_kernel", "column_sum_kernel",
-           "coord_grad_kernel", "rows_mask_kernel", "silu_kernel", "dsilu_mul_kernel")
+KERNELS = ("rows_bwd_kernel", "edge_bwd_kernel", "gcl_rows_kernel", "coord_rows_kernel",
+           "edge_kernel", "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel",
+           "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel",
+           "silu_kernel", "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 10, 3, 3
 
 
@@ -69,21 +78,12 @@ def _trace(fn, n):
     return wall, split
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA card", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
-    info = get_dataset_info("qm9")
-    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
-                                               diffusion_steps=1000, trainable_ae=True)
+def _time_train(cfg, raw, info, card, label):
+    """Host-clock ms per step and a traced window's device split for train
+    steps on one batch."""
     model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
     state = create_train_state(model, cfg, 1e-4, ema_decay=0.9999)
     step = make_train_step(cfg, 0.9999)
-    raw = synthetic_batch(info, 64, 29, np.random.default_rng(0))
     batch = prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(WARMUP):
@@ -96,25 +96,39 @@ def main() -> int:
     step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     traced_ms, split = _trace(lambda: step(state, batch, gen), TRACED)
     device_ms = sum(split.values())
-    train = {"B": 64, "N": 29, "step_ms": step_ms, "traced_step_ms": traced_ms,
-             "device_ms_per_step": device_ms, "split_ms_per_step": split,
-             "device_busy_share": device_ms / traced_ms}
-    print(f"train step B=64 N=29: {step_ms:.2f} ms, device {device_ms:.2f} ms/step "
+    b, n = raw["x"].shape[:2]
+    out = {"B": int(b), "N": int(n), "step_ms": step_ms, "traced_step_ms": traced_ms,
+           "device_ms_per_step": device_ms, "split_ms_per_step": split,
+           "device_busy_share": device_ms / traced_ms}
+    print(f"{label} train step B={b} N={n}: {step_ms:.2f} ms, device {device_ms:.2f} ms/step "
           f"{json.dumps(split)} on {card}", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
 
+
+def _block_inputs(rng, b, n, hidden, n_min):
+    n_real = rng.integers(n_min, n + 1, size=b)
+    mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
+    return [torch.from_numpy(a).cuda() for a in (
+        rng.standard_normal((b, n, hidden)).astype(np.float32) * mask,
+        rng.standard_normal((b, n, 3)).astype(np.float32) * mask,
+        rng.standard_normal((b, n, 3)).astype(np.float32) * mask, mask,
+        rng.standard_normal((b, n, hidden)).astype(np.float32),
+        rng.standard_normal((b, n, 3)).astype(np.float32))]
+
+
+def _qm9(card):
+    info = get_dataset_info("qm9")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
+                                               diffusion_steps=1000, trainable_ae=True)
+    train = _time_train(cfg, synthetic_batch(info, 64, 29, np.random.default_rng(0)), info, card,
+                        "QM9")
     bcfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=256, n_layers=9)
     block = EquivariantBlock(bcfg)
     init_parameters(block, torch.Generator().manual_seed(1))
     block = block.cuda()
-    rng = np.random.default_rng(2)
-    n_real = rng.integers(21, 30, size=64)
-    mask = (np.arange(29)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
-    args = [torch.from_numpy(a).cuda() for a in (
-        rng.standard_normal((64, 29, 256)).astype(np.float32) * mask,
-        rng.standard_normal((64, 29, 3)).astype(np.float32) * mask,
-        rng.standard_normal((64, 29, 3)).astype(np.float32) * mask, mask,
-        rng.standard_normal((64, 29, 256)).astype(np.float32),
-        rng.standard_normal((64, 29, 3)).astype(np.float32))]
+    args = _block_inputs(np.random.default_rng(2), 64, 29, 256, 21)
     for _ in range(3):
         egnn_block.block_backward_cuda(block, *args)
     bwd_ms, bwd_split = _trace(lambda: egnn_block.block_backward_cuda(block, *args), 10)
@@ -122,7 +136,52 @@ def main() -> int:
            "device_ms": sum(bwd_split.values())}
     print(f"block backward B=64 N=29 H=256: device {bwd['device_ms']:.3f} ms "
           f"{json.dumps(bwd_split)} on {card}", flush=True)
-    print(json.dumps({"card": card, "train": train, "block_backward": bwd}))
+    return {"card": card, "train": train, "block_backward": bwd}
+
+
+def _geom(card):
+    info = get_dataset_info("geom")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
+                                               include_charges=False, diffusion_steps=1000,
+                                               trainable_ae=True)
+    hist = sorted(dict(info.n_nodes_histogram))
+    rng = np.random.default_rng(0)
+    train = {}
+    for pad, lo in ((184, 129), (48, 33)):
+        sizes = rng.choice([k for k in hist if lo <= k <= pad], size=32)
+        raw = synthetic_batch(info, 32, pad, rng, include_charges=False, n_atoms=sizes)
+        train[str(pad)] = _time_train(cfg, raw, info, card, "GEOM")
+    block = EquivariantBlock(cfg.dynamics.egnn)
+    init_parameters(block, torch.Generator().manual_seed(1))
+    block = block.cuda()
+    h, x, x0, mask, gh, gx = _block_inputs(np.random.default_rng(2), 32, 184, 256, 168)
+    stages = {}
+    for name, fn in (("gcl_rows", lambda: egnn_tiled.gcl_rows_backward_cuda(
+                         block.gcl_0, h, x, x0, mask, gh)),
+                     ("coord_rows", lambda: egnn_tiled.coord_rows_backward_cuda(
+                         block.gcl_equiv, h, x, x0, mask, gx))):
+        for _ in range(2):
+            fn()
+        ms, split = _trace(fn, 5)
+        stages[name] = {"B": 32, "N": 184, "H": 256, "traced_ms": ms, "split_ms": split,
+                        "device_ms": sum(split.values())}
+        print(f"{name} backward (#5) B=32 N=184 H=256: device "
+              f"{stages[name]['device_ms']:.3f} ms {json.dumps(split)} on {card}", flush=True)
+    return {"card": card, "train": train, "stage_backward": stages}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dataset", choices=["qm9", "geom"], default="qm9")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(json.dumps(_qm9(card) if args.dataset == "qm9" else _geom(card)))
     return 0
 
 

@@ -44,8 +44,8 @@ def test_every_module_is_a_port_module():
     names = [m.name for m in pkgutil.walk_packages(geoldm_tpu_torch.__path__,
                                                    "geoldm_tpu_torch.")]
     for name in ("ops.egnn_block", "ops.egnn_tiled", "ops.cuda_build", "cli.serve",
-                 "cli.main_qm9", "train.train_step", "train.trainer", "data.qm9",
-                 "utils.checkpoint"):
+                 "cli.main_qm9", "cli.main_geom_drugs", "train.train_step", "train.trainer",
+                 "data.qm9", "data.geom", "utils.checkpoint"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 
@@ -64,6 +64,12 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     save_reference_checkpoint(factory.build_model(cfg, "cpu"), str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.SamplerService(serve.parse_args(["--model_path", str(tmp_path)]))
+    from geoldm_tpu_torch.cli import main_geom_drugs
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers
+
+    write_geom_conformers(str(tmp_path / "geom"), get_dataset_info("geom"), 20)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main_geom_drugs.main(["--datadir", str(tmp_path / "geom"), "--outdir", str(tmp_path)])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
