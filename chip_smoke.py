@@ -60,7 +60,24 @@ Phases (each prints a line; any failure exits non-zero before the result):
      timed at pads 184 and 48;
  14. one full-width GEOM train-step gradient (4+4 blocks, B=2, pad 184,
      molecules of 181 and 151 atoms) through the kernels on the card against
-     the plain path on the CPU, same weights, batch and noise.
+     the plain path on the CPU, same weights, batch and noise;
+ 15. the sequence-parallel (SP) slab kernels, forward (#6, B=16) and backward
+     (#7, B=32), against their plain versions on the card at H=256 with
+     attention: N=184 split over 2 ranks (slabs at rows 0 and 92), a padded
+     split (181 atoms padded to 184 over 4 ranks, 'mean' over 181), one
+     sin-embedding case, and the SP epoch's pads 48 and 64 over 2 ranks at
+     B=32 in both directions; every output within 1e-4*max(1, max|ref|),
+     weight gradients included, with times and per-slab bounds;
+ 16. the GEOM training entry point with --sp 2 at the recipe (as phase 13)
+     on a fabricated conformer file with one full batch at pads 184 and 48:
+     two ranks share the card over gloo (the placement rule is printed); one
+     epoch, valid/test NLL through SP, 4 stability samples on the single-
+     device route; each rank's launch counts of #1-#7 must equal what the
+     code implies, and the ranks' train states must be bit-identical;
+ 17. one SP-2 train step on the card (4+4 blocks, B=2, pad 184, 181 and 151
+     atoms) against the same step on one rank without SP: loss within 1e-5
+     relative, every gradient within 1e-3*max|ref|; the same ranks then time
+     SP train steps at the recipe's B=32, pads 184 and 48.
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -336,23 +353,25 @@ def phase_backward(card_name):
     return rows
 
 
-_COUNTERS = ("egnn_block", "egnn_block_bwd", "gcl_rows", "coord_rows", "gcl_rows_bwd",
-             "coord_rows_bwd")
+_SP_COUNTERS = ("sp_gcl_rows", "sp_coord_rows", "sp_gcl_rows_bwd", "sp_coord_rows_bwd")
 
 
 def _launch_counts() -> dict:
-    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+    from geoldm_tpu_torch.ops import kernel_launches
 
-    return {"egnn_block": egnn_block.launches, "egnn_block_bwd": egnn_block.bwd_launches,
-            **{k: getattr(egnn_tiled, f"{k}_launches") for k in _COUNTERS[2:]}}
+    return kernel_launches()
 
 
 def _zero_launch_counts() -> None:
-    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+    from geoldm_tpu_torch.ops import reset_kernel_launches
 
-    egnn_block.launches = egnn_block.bwd_launches = 0
-    for k in _COUNTERS[2:]:
-        setattr(egnn_tiled, f"{k}_launches", 0)
+    reset_kernel_launches()
+
+
+def _no_launches() -> dict:
+    from geoldm_tpu_torch.ops import LAUNCH_COUNTERS
+
+    return dict.fromkeys(LAUNCH_COUNTERS, 0)
 
 
 def _check_trained(state, seed, decay, steps, outdir, phase):
@@ -970,8 +989,8 @@ def phase_tiled_backward(card_name):
             flops, nbytes = _stage_bwd_work(block.cfg, n_real0, n, n_weights,
                                             stage == "coord_rows")
             t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
-            group, scratch = egnn_tiled.bwd_scratch(cuda_build.library("egnn_tiled_bwd"), B, n,
-                                                     H, block.cfg.edge_feat_nf, dev)
+            group, scratch = egnn_tiled._stage_scratch(cuda_build.library("egnn_tiled_bwd"), B,
+                                                        n, H, block.cfg.edge_feat_nf, dev)
             row = {"stage": stage, "case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
                    "worst": worst, "ms": ms, "plain_ms": plain_ms, "group": group,
                    "scratch_bytes": 4 * scratch.numel(),
@@ -1062,6 +1081,7 @@ def phase_geom_train(card_name, tmpdir):
         "coord_rows": sum(per[k] * large[k] for k in per),
         "gcl_rows_bwd": 2 * L * inv * large["train"],
         "coord_rows_bwd": 2 * L * large["train"],
+        **dict.fromkeys(_SP_COUNTERS, 0),
     }
     _check(launches == expected,
            f"launches {launches} != {expected} (pads {pads}; per train step / eval batch / "
@@ -1087,6 +1107,362 @@ def phase_geom_train(card_name, tmpdir):
             "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0],
             "stability": summary["stability"][0], "main_seconds": wall,
             "epoch_seconds": summary["epoch_seconds"][0], "step_ms": step_ms}
+
+
+def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
+    """(FLOP, bytes) one SP slab stage needs, forward (#6) or backward (#7),
+    for molecules of n_real atoms padded to n_pad and the slab of s rows at
+    row0: the edge MLP over the slab's real ordered pairs (its real rows
+    against every other real atom), the src projection (and a GCL's node MLP)
+    over the slab's real rows, the dst projection over every real atom
+    (``_stage_work``'s terms split by view; the backward adds
+    ``_stage_bwd_work``'s); the full view (h, x, x0, mask), the slab's view
+    and its output read or written once, and for the backward the cotangent,
+    both views' dh, dx, dx0 and the weight gradients."""
+    H, E = cfg.hidden_nf, cfg.edge_feat_nf
+    rows = np.clip(n_real - row0, 0, s)
+    pairs = float(np.sum(rows * (n_real - 1)))
+    slab, nodes = float(np.sum(rows)), float(np.sum(n_real))
+    flops = pairs * (2 * E * H + 2 * H * H + 2 * H) + (slab + nodes) * 2 * H * H
+    if not coord:
+        flops += slab * (2 * 2 * H * H + 2 * H * H)
+    out = 3 if coord else H
+    b = len(n_real)
+    nbytes = 4 * (b * (n_pad + s) * (H + 3 + 3 + 1) + b * s * out + n_weights)
+    if backward:
+        flops += pairs * (4 * H * H + 4 * E * H + 4 * H) + (slab + nodes) * 4 * H * H
+        if not coord:
+            flops += slab * 12 * H * H
+        nbytes += 4 * (b * s * out + b * (n_pad + s) * (H + 3 + 3) + n_weights)
+    return flops, nbytes
+
+
+def phase_sp_kernels(card_name):
+    """Phase 15: #6 and #7 against their plain versions on SP slabs."""
+    import torch
+    import torch.nn.functional as F
+
+    from geoldm_tpu_torch.ops import egnn_sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    H = 256
+    # (case, EGNN N = 'mean' divisor, ranks, slabs checked, forward B); N is
+    # padded to a multiple of the ranks as egnn_forward_sp pads it. The
+    # backward runs at B=32. Pads 48 and 64 at B=32 are the SP epoch's pad-48
+    # train and pad-48/64 eval batches, most of a GEOM epoch.
+    cases = [("sum", 184, 2, None, 16), ("mean", 181, 4, None, 16), ("sin", 184, 2, [1], 16),
+             ("sum", 48, 2, None, 32), ("sum", 64, 2, None, 32)]
+    rows = []
+    for case, n_egnn, ranks, slabs, b_fwd in cases:
+        extra = {"mean": {"aggregation_method": "mean"}, "sin": {"sin_embedding": True}}
+        block = _geom_block(extra.get(case, {}), 900 + n_egnn + ranks)
+        n = -(-n_egnn // ranks) * ranks
+        s = n // ranks
+        for direction, B in (("fwd", b_fwd), ("bwd", 32)):
+            inputs = [[F.pad(t, (0, 0, 0, n - n_egnn)) for t in
+                       _ragged_inputs(10000 * ranks + 100 * rep + B, B, n_egnn, H, dev,
+                                      spread=16)] for rep in range(3)]
+            n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+            for slab in (slabs or range(ranks)):
+                row0 = slab * s
+                for stage, mod in (("gcl_rows", block.gcl_0), ("coord_rows", block.gcl_equiv)):
+                    (fwd, bwd), (fwd_p, bwd_p) = (egnn_sp.stage_fns(mod, True),
+                                                  egnn_sp.stage_fns(mod, False))
+                    out = 3 if stage == "coord_rows" else H
+                    args = []
+                    for rep, full in enumerate(inputs):
+                        slab_view = [t[:, row0:row0 + s].contiguous() for t in full]
+                        a = [full, slab_view, row0, n_egnn]
+                        if direction == "bwd":
+                            rng = np.random.default_rng(rep + 31 * row0)
+                            a.append(torch.from_numpy(rng.standard_normal(
+                                (B, s, out)).astype(np.float32)).to(dev))
+                        args.append(a)
+                    kernel, plain = (fwd, fwd_p) if direction == "fwd" else (bwd, bwd_p)
+                    with torch.no_grad():
+                        got = kernel(mod, *args[0])
+                        want = plain(mod, *args[0])
+                    torch.cuda.synchronize()
+                    if direction == "fwd":
+                        names, got, want = ["out"], [got], [want]
+                    else:
+                        names = (["dh", "dx", "dx0", "dh_rows", "dx_rows", "dx0_rows"]
+                                 + egnn_sp.stage_weight_names(mod))
+                        got, want = [*got[:6], *got[6]], [*want[:6], *want[6]]
+                    err, worst = 0.0, ""
+                    for name, g, w in zip(names, got, want):
+                        _check(bool(torch.isfinite(g).all()),
+                               f"SP {stage} {direction} {name} not finite ({case}, row0 {row0})")
+                        scale = max(1.0, float(w.abs().max()))
+                        d = float((g - w).abs().max())
+                        _check(d <= _KERNEL_RTOL * scale,
+                               f"SP {stage} {direction} kernel disagrees with plain on {name} "
+                               f"({case}, N={n}, S={s}, row0 {row0}): max|d|={d:.3e} > "
+                               f"{_KERNEL_RTOL}*{scale:.3g}")
+                        if d >= err:
+                            err, worst = d, name
+                    del got, want
+                    with torch.no_grad():
+                        ms = _time_ms(lambda *a, m=mod, f=kernel: f(m, *a), args)
+                        plain_ms = (_time_ms(lambda *a, m=mod, f=plain: f(m, *a), args)
+                                    if case == "sum" and slab == 1 else None)
+                    n_weights = sum(p.numel() for p in mod.parameters())
+                    flops, nbytes = _sp_stage_work(block.cfg, n_real0, n, row0, s, n_weights,
+                                                   stage == "coord_rows", direction == "bwd")
+                    t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+                    row = {"stage": stage, "dir": direction, "case": case, "N": n,
+                           "N_egnn": n_egnn, "S": s, "row0": row0, "B": B, "H": H,
+                           "max_abs_err": err, "worst": worst, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": max(t_ops, t_bytes),
+                           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                           "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
+                    rows.append(row)
+                    plain_txt = f" plain {plain_ms:.4f} ms" if plain_ms is not None else ""
+                    print(f"phase 15: SP {stage} {direction} {case} N={n} S={s} row0={row0} "
+                          f"B={B} H={H} max|d|={err:.3e} ({worst}; {len(names)} tensors each "
+                          f"within {_KERNEL_RTOL}*max(1,max|ref|)) kernel {ms:.4f} ms"
+                          f"{plain_txt} bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                          f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _geom_recipe_cfg():
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+
+    return factory.make_latent_diffusion_config(get_dataset_info("geom"), nf=256, n_layers=4,
+                                                latent_nf=2, include_charges=False,
+                                                diffusion_steps=1000, trainable_ae=True)
+
+
+def phase_sp_train(card_name, tmpdir):
+    """Phase 16: ``cli.main_geom_drugs --sp 2`` at the recipe."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_geom_drugs
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers
+    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
+    from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.train.sampling import chunk_pads, default_buckets
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    info = get_dataset_info("geom")
+    B, T, decay, seed, n_stab, L, inv, ranks = 32, 1000, 0.9999, 0, 4, 4, 1, 2
+    hist = sorted(dict(info.n_nodes_histogram))
+    rng = np.random.default_rng(23)
+    sizes = [int(v) for lo, hi in ((129, 181), (33, 48))
+             for v in rng.choice([k for k in hist if lo <= k <= hi], size=B)]
+    path = write_geom_conformers(tmpdir, info, len(sizes) * 5 // 4, seed=3, sizes=sizes)
+    outdir = os.path.join(tmpdir, "out")
+    argv = ["--datadir", tmpdir, "--outdir", outdir, "--exp_name", "sp", "--sp", str(ranks),
+            "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", str(L),
+            "--latent_nf", "2", "--include_charges", "False", "--diffusion_steps", str(T),
+            "--batch_size", str(B), "--lr", "5e-5", "--ema_decay", str(decay),
+            "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab),
+            "--seed", str(seed)]
+    rule = sp.placement(ranks, "cuda")[2]
+    print(f"phase 16: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+          flush=True)
+    t0 = time.time()
+    summary = main_geom_drugs.main(argv)
+    wall = time.time() - t0
+
+    losses = summary["losses"][0]
+    _check(len(losses) == 2, f"{len(losses)} train steps, expected 2")
+    _check(bool(np.all(np.isfinite(losses))), f"non-finite train loss: {losses}")
+    _check(len(summary["nll_val"]) == 1 and np.isfinite(summary["nll_val"][0]),
+           f"valid NLL {summary['nll_val']}")
+    _check(len(summary["nll_test"]) == 1 and np.isfinite(summary["nll_test"][0]),
+           f"test NLL {summary['nll_test']}")
+    replicas = summary["replicas"]
+    _check([r["rank"] for r in replicas] == list(range(ranks)), f"replicas {replicas}")
+    _check(len({r["digest"] for r in replicas}) == 1,
+           f"the ranks' train states differ: {[r['digest'][:12] for r in replicas]}")
+    _check(all(r["stability"] == replicas[0]["stability"] and
+               r["sample_sizes"] == replicas[0]["sample_sizes"] for r in replicas),
+           "the ranks sampled different molecules for the stability check")
+    # What the code implies, per rank: every EGNN call runs over the slabs
+    # (pads 48 and 184 alike). A train step runs the encoder forward and the
+    # decoder and denoiser blocks forward and backward; the backward re-runs
+    # each block's GCLs (#6) and runs #7 once per stage. An eval batch runs the
+    # encoder, the decoder and two denoiser passes. The stability samples run
+    # on the single-device route, (T+1)*L + L blocks per chunk: #1 up to pad
+    # 64, #3/#4 past it.
+    train, val, test = load_split_data(path)
+
+    def batch_pads(splits, shuffle):
+        return [int(b["node_mask"].shape[1]) for data in splits
+                for b in GeomLoader(data, info, B, shuffle=shuffle, include_charges=False)]
+
+    pads = {"train": batch_pads([train], True), "eval": batch_pads([val, test], False)}
+    _check(sorted(pads["train"]) == [48, 184], f"train batch pads {pads['train']}")
+    buckets = covering_buckets(default_buckets(info), info["max_n_nodes"])
+    pads["chunks"] = chunk_pads(replicas[0]["sample_sizes"][0], min(100, n_stab), buckets)
+    n_train, n_eval = len(pads["train"]), len(pads["eval"])
+    per_chunk = (T + 1) * L + L
+    small = sum(1 for p in pads["chunks"] if p <= MAX_NODES)
+    large = len(pads["chunks"]) - small
+    expected = _no_launches()
+    expected.update({
+        "egnn_block": per_chunk * small, "gcl_rows": inv * per_chunk * large,
+        "coord_rows": per_chunk * large,
+        "sp_gcl_rows": inv * (n_train * (1 + 4 * L) + n_eval * (1 + 3 * L)),
+        "sp_coord_rows": n_train * (1 + 2 * L) + n_eval * (1 + 3 * L),
+        "sp_gcl_rows_bwd": inv * 2 * L * n_train, "sp_coord_rows_bwd": 2 * L * n_train})
+    for r in replicas:
+        _check(r["launches"] == expected,
+               f"rank {r['rank']} launches {r['launches']} != {expected} (pads {pads})")
+    for name in ("latest", "best"):
+        model, _, _ = load_reference_checkpoint(os.path.join(outdir, "sp", name), "cuda", True)
+        _check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+               f"checkpoint {name} not finite")
+    print(f"phase 16: {rule}; {n_train} steps (pads {pads['train']}), losses "
+          f"{[round(v, 4) for v in losses]}, valid NLL {summary['nll_val'][0]:.4f}, test NLL "
+          f"{summary['nll_test'][0]:.4f}, stability {summary['stability'][0]} on every rank; "
+          f"launches per rank {json.dumps(replicas[0]['launches'])} = what the code implies "
+          f"for train pads {pads['train']}, eval pads {pads['eval']}, sampled chunk pads "
+          f"{pads['chunks']}; train states bit-identical on {ranks} ranks (sha256 "
+          f"{replicas[0]['digest'][:16]}); checkpoints written by rank 0 load back; main() "
+          f"{wall:.1f} s, epoch {summary['epoch_seconds'][0]:.1f} s on {card_name}",
+          flush=True)
+    return {"launches": {k: sum(r["launches"][k] for r in replicas) for k in expected},
+            "launches_per_rank": [r["launches"] for r in replicas], "rule": rule,
+            "pads": pads, "losses": losses, "nll_val": summary["nll_val"][0],
+            "nll_test": summary["nll_test"][0], "stability": summary["stability"][0],
+            "digest": replicas[0]["digest"], "main_seconds": wall,
+            "epoch_seconds": summary["epoch_seconds"][0]}
+
+
+def _phase17_batches():
+    """The gradient batch (B=2, pad 184, 181 and 151 atoms; 150 is not in
+    the size histogram) and the recipe batches timed (B=32, pads 184, 48)."""
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+
+    info = get_dataset_info("geom")
+    hist = sorted(dict(info.n_nodes_histogram))
+    rng = np.random.default_rng(29)
+    timed = {pad: synthetic_batch(info, 32, pad, rng, include_charges=False, n_atoms=rng.choice(
+        [k for k in hist if lo <= k <= pad], size=32)) for pad, lo in ((184, 129), (48, 33))}
+    raw = synthetic_batch(info, 2, 184, np.random.default_rng(13), include_charges=False,
+                          n_atoms=[181, 151])
+    return raw, timed
+
+
+def _train_step_grads(device, raw, sp_group=None):
+    """One recipe train step's loss and gradients from seed-5 weights and the
+    replayed noise stream 12 (the blocks' gradients summed over the ranks);
+    returns (model, loss, {name: gradient on the host}, launches)."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _geom_recipe_cfg()
+    model = factory.build_model(cfg, device, torch.Generator().manual_seed(5), sp_group=sp_group)
+    batch = prepare_batch(raw, DistributionNodes(get_dataset_info("geom").n_nodes), device)
+    before = _launch_counts()
+    nll = factory.model_nll_fn(cfg, training=True)(
+        model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"], batch["node_mask"])
+    loss = (nll - batch["log_pN"]).mean()
+    loss.backward()
+    if sp_group is not None:
+        sp.all_reduce_grads(sp.block_parameters(model), sp_group)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None}
+    return model, float(loss.detach()), grads, launches
+
+
+def _sp_step_rank(raw, timed, grp):
+    """One rank of phase 17: the gradient step, then the timed recipe steps."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.train_step import create_train_state
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    model, loss, grads, launches = _train_step_grads(grp.device, raw, grp)
+    h = hashlib.sha256()
+    for g in grads.values():
+        h.update(g.numpy().tobytes())
+    state = create_train_state(model, model.cfg, 5e-5, ema_decay=0.9999)
+    nodes = DistributionNodes(get_dataset_info("geom").n_nodes)
+    step_ms = {pad: _time_steps(state, 0.9999, prepare_batch(b, nodes, grp.device))
+               for pad, b in timed.items()}
+    mine = {"rank": grp.rank, "grads_sha256": h.hexdigest(), "launches": launches,
+            "step_ms": step_ms}
+    ranks = [None] * grp.size
+    dist.all_gather_object(ranks, mine)
+    return {"loss": loss, "grads": {k: g.numpy() for k, g in grads.items()}, "ranks": ranks}
+
+
+def phase_sp_grad(card_name):
+    """Phase 17: an SP-2 train step against the same step on one rank."""
+    import torch
+
+    from geoldm_tpu_torch.parallel import sp
+
+    raw, timed = _phase17_batches()
+    t0 = time.time()
+    _, loss_ref, grads_ref, launches_ref = _train_step_grads("cuda", raw)
+    _check(not any(launches_ref[k] for k in _SP_COUNTERS), "the one-rank step ran SP kernels")
+    got = sp.spawn_ranks(2, _sp_step_rank, (raw, timed), device="cuda")
+    wall = time.time() - t0
+    L, inv = 4, 1
+    per_rank = _no_launches()
+    per_rank.update({"sp_gcl_rows": inv * (1 + 4 * L), "sp_coord_rows": 1 + 2 * L,
+                     "sp_gcl_rows_bwd": inv * 2 * L, "sp_coord_rows_bwd": 2 * L})
+    for r in got["ranks"]:
+        _check(r["launches"] == per_rank, f"rank {r['rank']} launches {r['launches']} != "
+                                          f"{per_rank}")
+    _check(len({r["grads_sha256"] for r in got["ranks"]}) == 1,
+           "the ranks' gradients differ after the all-reduce")
+    _check(abs(got["loss"] - loss_ref) <= _LOSS_RTOL * abs(loss_ref),
+           f"loss SP {got['loss']} vs one rank {loss_ref}")
+    _check(set(got["grads"]) == set(grads_ref) and len(grads_ref) > 0,
+           "SP and one rank gave gradients to different parameters")
+    worst, worst_name = 0.0, ""
+    for k, ref in grads_ref.items():
+        g = torch.from_numpy(got["grads"][k])
+        _check(bool(torch.isfinite(g).all()), f"SP gradient of {k} not finite")
+        d = float((g - ref).abs().max())
+        scale = float(ref.abs().max())
+        _check(d <= _GRAD_RTOL * scale, f"gradient of {k}: SP vs one rank max|d|={d:.3e} > "
+                                        f"{_GRAD_RTOL}*{scale:.3e}")
+        rel = d / scale if scale else 0.0
+        if rel >= worst:
+            worst, worst_name = rel, k
+    print(f"phase 17: SP-2 train-step gradient GEOM nf=256 4+4 blocks B=2 pad 184 (181 and "
+          f"151 atoms): loss SP {got['loss']:.6f} one rank {loss_ref:.6f}; {len(grads_ref)} "
+          f"parameter tensors, worst max|d|/max|ref| {worst:.2e} ({worst_name}; tol "
+          f"{_GRAD_RTOL}); launches per rank {json.dumps(got['ranks'][0]['launches'])}; "
+          f"both ranks' gradients bit-identical; {wall:.1f} s", flush=True)
+    for pad in timed:
+        for r in got["ranks"]:
+            print(f"phase 17: SP-2 train step B=32 pad {pad} nf=256 4+4 blocks, rank "
+                  f"{r['rank']}: {', '.join(f'{v:.1f}' for v in r['step_ms'][pad])} ms (host "
+                  f"clock around synchronised steps; 2 ranks sharing one card over gloo: "
+                  f"correctness and overhead, not scaling) on {card_name}", flush=True)
+    return {"loss_sp": got["loss"], "loss_one_rank": loss_ref, "worst_rel": worst,
+            "worst": worst_name, "launches_per_rank": [r["launches"] for r in got["ranks"]],
+            "step_ms": {pad: [r["step_ms"][pad] for r in got["ranks"]] for pad in timed},
+            "seconds": wall}
 
 
 def main(argv=None) -> int:
@@ -1149,6 +1525,13 @@ def main(argv=None) -> int:
     lap("13")
     geom_grad = phase_grad(card_name, geom=True)
     lap("14")
+    sp_rows = phase_sp_kernels(card_name)
+    lap("15")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        sp_train = phase_sp_train(card_name, tmpdir)
+    lap("16")
+    sp_grad = phase_sp_grad(card_name)
+    lap("17")
     print(f"phase seconds: {json.dumps(phase_seconds)}", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "sum" and r["N"] == 32)
@@ -1157,7 +1540,8 @@ def main(argv=None) -> int:
         "shapes": rows, "serving": serve_stats, "chunks": chunks, "backward": bwd_rows,
         "training": train, "grad": grad, "tiled": tiled_rows, "geom_serving": geom_stats,
         "geom_denoiser_max_abs_err": geom_err, "tiled_backward": tiled_bwd_rows,
-        "geom_training": geom_train, "geom_grad": geom_grad, "phase_seconds": phase_seconds,
+        "geom_training": geom_train, "geom_grad": geom_grad, "sp_kernels": sp_rows,
+        "sp_training": sp_train, "sp_grad": sp_grad, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
@@ -1174,6 +1558,23 @@ def main(argv=None) -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in rows_ if r["stage"] == stage),
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None}
+
+    def sp_entry(direction, line):
+        # One block's stages (a GCL and the coordinate update) on the second
+        # slab of N=184 over 2 ranks; launches summed over phase 16's ranks.
+        main = [r for r in sp_rows if r["dir"] == direction and r["case"] == "sum"
+                and r["N"] == 184 and r["row0"] == r["S"]]
+        suffix = "" if direction == "fwd" else "_bwd"
+        return {"name": f"egnn_sp_{direction}", "route": "cuda",
+                "source": "geoldm_tpu_torch/csrc/egnn_sp.cu",
+                "replaces": f"geoldm_tpu/ops/pallas_egnn_sp.py:{line}",
+                "launches": sum(sp_train["launches"][f"sp_{stage}{suffix}"]
+                                for stage in ("gcl_rows", "coord_rows")),
+                "max_abs_err": max(r["max_abs_err"] for r in sp_rows if r["dir"] == direction),
+                "ms": sum(r["ms"] for r in main), "plain_ms": sum(r["plain_ms"] for r in main),
+                "bound_ms": sum(r["bound_ms"] for r in main),
+                "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in main)
+                             else "bytes"), "library_ms": None}
 
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
@@ -1199,7 +1600,8 @@ def main(argv=None) -> int:
            for stage, line in (("gcl_rows", 152), ("coord_rows", 166))]
         + [tiled_entry(tiled_bwd_rows, stage, f"egnn_{stage}_bwd", "egnn_tiled_bwd.cu", 201,
                        geom_train_launches[f"{stage}_bwd"])
-           for stage in ("gcl_rows", "coord_rows")]}
+           for stage in ("gcl_rows", "coord_rows")]
+        + [sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -1,9 +1,12 @@
 """Training CLI plumbing (port of ``geoldm_tpu/cli/common.py:17-434``): the
 reference flag surface (QM9 and GEOM-Drugs defaults), flags -> ModelConfig,
-and the serial training run.
+and the training run, serial or sequence-parallel.
 
-The port trains unconditional models in float32 on one device. Flags that
-select anything else exit with a two-line "not ported yet" message.
+The port trains unconditional models in float32 on one device, or with
+``--sp S`` over S ranks that split every EGNN's atom rows (``parallel.sp``):
+one command spawns the ranks, every rank draws the same batches and noise,
+only rank 0 prints and writes checkpoints. Flags that select anything else
+exit with a two-line "not ported yet" message.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--break_train_epoch", type=eval, default=False)
     p.add_argument("--dp", type=int, default=0, help="data-parallel devices (not ported yet)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported yet)")
-    p.add_argument("--sp", type=int, default=1, help="sequence-parallel devices (not ported yet)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks: split the EGNN's O(N^2) pair grid over atom "
+                        "rows (pays off at GEOM-scale molecules)")
     p.add_argument("--condition_time", type=eval, default=True)
     p.add_argument("--clip_grad", type=eval, default=True)
     p.add_argument("--n_layers", type=int, default=d["n_layers"])
@@ -83,16 +88,32 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
 
 def _not_ported(what: str) -> None:
     raise SystemExit(f"{what} is not ported yet.\n"
-                     "geoldm_tpu_torch trains unconditional models in float32 on one device.")
+                     "geoldm_tpu_torch trains unconditional models in float32 on one device "
+                     "or sequence-parallel (--sp).")
+
+
+def resolve_dp(args) -> int:
+    """The data-parallel width the flags ask for: ``--dp``, or with ``--sp``
+    and ``--dp 0`` the cards left over per SP group, as the JAX CLI's
+    ``max(1, n_dev // sp)`` (1 on one card)."""
+    if args.sp > 1 and args.dp <= 0:
+        import torch
+
+        n_dev = torch.cuda.device_count() if args.device != "cpu" else 1
+        return max(1, n_dev // args.sp)
+    return args.dp
 
 
 def check_ported(args) -> None:
     """Exit with a two-line message for any flag outside the ported slice."""
     if args.compute_dtype != "float32":
         _not_ported(f"--compute_dtype {args.compute_dtype}")
-    for flag in ("dp", "tp", "sp"):
-        if getattr(args, flag) > 1:
-            _not_ported(f"--{flag} {getattr(args, flag)}")
+    if args.sp > 1 and args.tp > 1:
+        raise SystemExit("--sp and --tp cannot be combined")
+    if resolve_dp(args) > 1:
+        _not_ported(f"--dp {resolve_dp(args)}")
+    if args.tp > 1:
+        _not_ported(f"--tp {args.tp}")
     if args.conditioning:
         _not_ported("--conditioning")
     if args.resume:
@@ -142,18 +163,39 @@ def _generator(device, seed: int, *stream) -> "torch.Generator":
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def run_training(args, dataset_info, splits, loaders=None) -> dict:
-    """Train, evaluate and checkpoint (common.py:159-434, serial and single
-    device). ``loaders`` replaces the QM9Loaders built from ``splits`` (the
-    GEOM entry point passes GeomLoaders); each must agree with the model on
-    the charge channel. Returns a summary: per-epoch losses and seconds,
-    valid/test NLLs, stability and the sizes sampled for it, the checkpoint
-    directories written, and the final train state."""
+def launch(args, train_fn):
+    """``train_fn(args, None)``, or with ``--sp S`` ``train_fn(args, group)``
+    in S spawned ranks (``parallel.sp.spawn_ranks``), returning rank 0's
+    summary. ``train_fn`` is a module-level function (the ranks import it)."""
+    if args.sp > 1:
+        from geoldm_tpu_torch.parallel import sp
+
+        return sp.spawn_ranks(args.sp, train_fn, (args,), device=args.device)
+    return train_fn(args, None)
+
+
+def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dict:
+    """Train, evaluate and checkpoint (common.py:159-434). ``loaders``
+    replaces the QM9Loaders built from ``splits`` (the GEOM entry point
+    passes GeomLoaders); each must agree with the model on the charge
+    channel. Returns a summary: per-epoch losses and seconds, valid/test
+    NLLs, stability and the sizes sampled for it, the checkpoint directories
+    written, and the final train state.
+
+    With ``sp_group`` this is one rank of a sequence-parallel run: the model's
+    EGNNs run over the group (train steps and valid/test NLL), the stability
+    samples run on the single-device route on every rank with the same seed
+    (as the JAX CLI samples without SP), and only rank 0 writes checkpoints.
+    The summary then holds, in place of the train state, ``replicas``: per
+    rank its train-state digest, kernel launch counts, stability and sampled
+    sizes."""
     import torch
 
     from geoldm_tpu_torch.data.qm9 import QM9Loader
     from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.ops import kernel_launches
+    from geoldm_tpu_torch.parallel import sp
     from geoldm_tpu_torch.train import trainer as trainer_mod
     from geoldm_tpu_torch.train.train_step import (
         create_train_state,
@@ -164,8 +206,11 @@ def run_training(args, dataset_info, splits, loaders=None) -> dict:
 
     check_ported(args)
     model_cfg = build_model_config(args, dataset_info)
-    model = factory.build_model(model_cfg, args.device, torch.Generator().manual_seed(args.seed))
+    device = sp_group.device if sp_group is not None else args.device
+    model = factory.build_model(model_cfg, device, torch.Generator().manual_seed(args.seed),
+                                sp_group=sp_group)
     device = next(model.parameters()).device
+    is_main = sp_group is None or sp_group.rank == 0
     state = create_train_state(model, model_cfg, args.lr, clip_grad=args.clip_grad,
                                ema_decay=args.ema_decay)
     train_step = make_train_step(model_cfg, args.ema_decay)
@@ -198,9 +243,10 @@ def run_training(args, dataset_info, splits, loaders=None) -> dict:
             continue
         eval_model = state.ema_model
         if model_cfg.kind != "vae":
-            validity, molecules = trainer_mod.analyze_and_save(
-                eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
-                n_samples=args.n_stability_samples, rng=rng)
+            with sp.detached(eval_model):  # SP or not, the samples run on one device
+                validity, molecules = trainer_mod.analyze_and_save(
+                    eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
+                    n_samples=args.n_stability_samples, rng=rng)
             print(f"epoch {epoch} stability: {validity}", flush=True)
             summary["stability"].append(validity)
             summary["sample_sizes"].append(molecules["n_atoms"])
@@ -209,18 +255,29 @@ def run_training(args, dataset_info, splits, loaders=None) -> dict:
             _generator(device, args.seed, 1, epoch), partition="valid",
             augment_noise=args.augment_noise, rng=rng)
         summary["nll_val"].append(nll_val)
-        if args.save_model:
+        if args.save_model and is_main:
             args.current_epoch = epoch + 1
             summary["checkpoints"].append(
                 save_checkpoint(os.path.join(outdir, "latest"), state, args, args.ema_decay))
         if nll_val < best_nll_val and args.save_model:
             best_nll_val = nll_val
-            summary["checkpoints"].append(
-                save_checkpoint(os.path.join(outdir, "best"), state, args, args.ema_decay))
+            if is_main:
+                summary["checkpoints"].append(
+                    save_checkpoint(os.path.join(outdir, "best"), state, args, args.ema_decay))
             nll_test = trainer_mod.evaluate_nll(
                 eval_model, eval_nll, loaders["test"], nodes_dist,
                 _generator(device, args.seed, 2, epoch), partition="test",
                 augment_noise=args.augment_noise, rng=rng)
             summary["nll_test"].append(nll_test)
             print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)
+    if sp_group is not None:
+        import torch.distributed as dist
+
+        replica = {"rank": sp_group.rank, "digest": sp.state_digest(state),
+                   "launches": kernel_launches(), "stability": summary["stability"],
+                   "sample_sizes": [np.asarray(s).tolist() for s in summary["sample_sizes"]]}
+        replicas = [None] * sp_group.size
+        dist.all_gather_object(replicas, replica)
+        summary["replicas"] = replicas
+        del summary["state"]
     return summary

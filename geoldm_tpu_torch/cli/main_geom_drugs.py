@@ -11,8 +11,10 @@ latent diffusion with ``--train_diffusion``.
 mol_id, atomic number, x, y, z) and ``geom_permutation.npy`` (no extraction
 here; ``data.synthetic.write_geom_conformers`` fabricates a file). Batches
 are padded to the size buckets of ``data.geom.DEFAULT_BUCKETS``; blocks
-padded past 64 atoms run the row-tiled kernels. ``--device cpu`` runs the
-plain PyTorch path on the CPU. Checkpoints go to
+padded past 64 atoms run the row-tiled kernels. ``--sp S`` splits every
+EGNN's atom rows over S spawned ranks (kernels #6 and #7; ``parallel.sp``
+prints where the ranks run). ``--device cpu`` runs the plain PyTorch path on
+the CPU (with ``--sp``, gloo ranks on the CPU). Checkpoints go to
 ``<outdir>/<exp_name>/{latest,best}/`` in the upstream layout with
 ``dataset='geom'``, which ``cli.serve --dataset geom`` loads.
 """
@@ -40,13 +42,22 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
+    """Train; returns ``cli.common.run_training``'s summary (rank 0's with
+    ``--sp``)."""
     args = parse_args(argv)
 
-    from geoldm_tpu_torch.cli.common import check_ported, run_training
+    from geoldm_tpu_torch.cli.common import check_ported, launch
+
+    check_ported(args)
+    return launch(args, train)
+
+
+def train(args, sp_group=None) -> dict:
+    """Load the splits and train (one rank of an SP run with ``sp_group``)."""
+    from geoldm_tpu_torch.cli.common import run_training
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
 
-    check_ported(args)
     dataset_info = get_dataset_info("geom", args.remove_h)
     tag = f"{'no_h_' if args.remove_h else ''}{args.conformations}"
     train, val, test = load_split_data(os.path.join(args.datadir, f"geom_drugs_{tag}.npy"),
@@ -56,7 +67,7 @@ def main(argv=None) -> dict:
                                  shuffle=split == "train", include_charges=args.include_charges,
                                  seed=args.seed)
                for split, data in (("train", train), ("valid", val), ("test", test))}
-    return run_training(args, dataset_info, None, loaders=loaders)
+    return run_training(args, dataset_info, None, loaders=loaders, sp_group=sp_group)
 
 
 if __name__ == "__main__":

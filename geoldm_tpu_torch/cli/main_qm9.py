@@ -8,7 +8,8 @@ the first-stage VAE by default, latent diffusion with ``--train_diffusion``.
       --batch_size 64 --ema_decay 0.9999
 
 ``--datadir`` holds ``qm9/{train,valid,test}.npz`` (processed splits; no
-download). ``--device cpu`` runs the plain PyTorch path on the CPU.
+download). ``--sp S`` splits every EGNN's atom rows over S spawned ranks
+(``parallel.sp``). ``--device cpu`` runs the plain PyTorch path on the CPU.
 Checkpoints go to ``<outdir>/<exp_name>/{latest,best}/`` in the upstream
 layout, which ``geoldm_tpu_torch.cli.serve --model_path`` loads.
 """
@@ -32,19 +33,28 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
+    """Train; returns ``cli.common.run_training``'s summary (rank 0's with
+    ``--sp``)."""
     args = parse_args(argv)
 
-    from geoldm_tpu_torch.cli.common import check_ported, run_training
+    from geoldm_tpu_torch.cli.common import check_ported, launch
+
+    check_ported(args)
+    return launch(args, train)
+
+
+def train(args, sp_group=None) -> dict:
+    """Load the splits and train (one rank of an SP run with ``sp_group``)."""
+    from geoldm_tpu_torch.cli.common import run_training
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.data.qm9 import filter_atoms, load_qm9
 
-    check_ported(args)
     dataset_info = get_dataset_info("qm9" if "half" not in args.dataset else args.dataset,
                                     args.remove_h)
     splits, _ = load_qm9(args.datadir, dataset=args.dataset, remove_h=args.remove_h)
     if args.filter_n_atoms is not None:
         splits = filter_atoms(splits, args.filter_n_atoms)
-    return run_training(args, dataset_info, splits)
+    return run_training(args, dataset_info, splits, sp_group=sp_group)
 
 
 if __name__ == "__main__":

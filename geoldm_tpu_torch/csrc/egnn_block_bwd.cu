@@ -358,7 +358,7 @@ int egnn_block_backward(const float* h, const float* x, const float* x0, const f
   scratch_layout(B, N, H, E, n_gcl, scratch, &sc);
   const int M = B * N;
   const size_t Me = (size_t)M * N;
-  Dims d = {B, N, H, E, 2 * H + E, mean_agg ? (float)N : normalization_factor};
+  Dims d = {B, N, H, E, 2 * H + E, mean_agg ? (float)N : normalization_factor, N};
   const int nblk = (M * H + 255) / 256;
   int rc;
   cudaError_t ce;

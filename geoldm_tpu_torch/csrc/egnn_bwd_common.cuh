@@ -1,6 +1,6 @@
 // Device code shared by the EquivariantBlock backward (egnn_block_bwd.cu,
-// TPU kernel #2) and the row-tiled stage backward (egnn_tiled_bwd.cu, TPU
-// kernel #5): the split-K weight-gradient GEMM, the deterministic row and
+// TPU kernel #2) and the row-tiled stage backward (egnn_rows_bwd.cuh, TPU
+// kernels #5 and #7): the split-K weight-gradient GEMM, the deterministic row and
 // column reductions, the coordinate pass, the node-MLP backward, the
 // gradients of one edge stage's weights, and the per-tile products of the
 // edge-backward kernels. None of it depends on a bound on N; all of it
@@ -204,13 +204,14 @@ int reduce_rows(const float* in, int rows, int ld, int ncols, float* out, int os
   return (int)cudaGetLastError();
 }
 
-// colsum[b, j, c] = sum_i pbuf[b, i, j, c]: the dst projection's gradient.
-__global__ void column_sum_kernel(const float* pbuf, float* colsum, int N, int H) {
+// colsum[b, j, c] = sum_i pbuf[b, i, j, c] over the S rows of each
+// molecule's edge grid [S, N]: the dst projection's gradient.
+__global__ void column_sum_kernel(const float* pbuf, float* colsum, int S, int N, int H) {
   const int bj = blockIdx.x;  // b * N + j
   const int b = bj / N, j = bj % N;
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
     float s = 0.f;
-    for (int i = 0; i < N; ++i) s += pbuf[(((size_t)b * N + i) * N + j) * H + c];
+    for (int i = 0; i < S; ++i) s += pbuf[(((size_t)b * S + i) * N + j) * H + c];
     colsum[(size_t)bj * H + c] = s;
   }
 }
@@ -304,6 +305,13 @@ struct EdgeBwdArgs {
   int N, H, E;
   int sin_emb, attention, use_tanh;
   float coords_range, norm_constant, norm_div;
+  // Row-tiled backward only: the row window, as in EdgeArgs (egnn_common.cuh);
+  // dagg, gx, rowsum and part are then [B*S, *] and the edge buffers
+  // [B*S*N, *].
+  const float* xr; const float* x0r; const float* maskr;
+  const float* src; int ld_src;
+  const float* dst; int ld_dst;
+  int row0, S;
 };
 
 // Shared memory of an edge-backward CTA holding nmax columns at a time.
@@ -361,40 +369,54 @@ struct EdgeGradBufs {
   SplitBuf split;
 };
 
+// S: the rows of each molecule's edge grid (N for the whole-block and the
+// single-device row-tiled stages, the slab's rows for an SP stage).
 struct Dims {
   int B, N, H, E, ld1;
   float norm_div;
+  int S;
 };
 
 // w1 is the stage's first-layer weight, gw1 ... gbo the gradients of its
 // first and second layers and of its gate or scale (written, or added to
-// when acc); dh_acc += the gradient of the stage input through W1.
-int stage_grads(const Dims& d, const float* hin, const float* w1, float* gw1, float* gb1,
-                float* gw2, float* gb2, float* gwo, float* gbo, const EdgeGradBufs& sc,
-                float* dh_acc, int acc, cudaStream_t s) {
-  const int M = d.B * d.N, H = d.H, Me = M * d.N;
+// when acc). hr: the stage input's rows [B*S, H], whose src projection the
+// edge grid read; hc: its columns [B*N, H], the dst projection's input.
+// dhr += the gradient through the src half of W1, dhc += that through the
+// dst half (the same buffer when hr is hc).
+int stage_grads_window(const Dims& d, const float* hr, const float* hc, const float* w1,
+                       float* gw1, float* gb1, float* gw2, float* gb2, float* gwo, float* gbo,
+                       const EdgeGradBufs& sc, float* dhr, float* dhc, int acc, cudaStream_t s) {
+  const int Mr = d.B * d.S, Mc = d.B * d.N, H = d.H, Me = Mr * d.N;
   const int ps = (3 + d.E) * H;
   int rc;
   // W2 (torch [out][in]): dW2[c][k] = sum_e dmm[e][c] silu(pre)[e][k].
   if ((rc = gemm(sc.dbuf, H, 1, sc.abuf, H, 0, gw2, H, H, H, Me, acc, sc.split, s))) return rc;
-  if ((rc = reduce_rows(sc.part, M, ps, H, gb2, 1, acc, s))) return rc;
-  if (gwo && (rc = reduce_rows(sc.part + H, M, ps, H, gwo, 1, acc, s))) return rc;
-  if (gbo && (rc = reduce_rows(sc.part + 2 * H, M, ps, 1, gbo, 1, acc, s))) return rc;
+  if ((rc = reduce_rows(sc.part, Mr, ps, H, gb2, 1, acc, s))) return rc;
+  if (gwo && (rc = reduce_rows(sc.part + H, Mr, ps, H, gwo, 1, acc, s))) return rc;
+  if (gbo && (rc = reduce_rows(sc.part + 2 * H, Mr, ps, 1, gbo, 1, acc, s))) return rc;
   // W1: src columns from the row sums, dst columns from the column sums,
   // edge-feature columns from the per-CTA partials; b1 from the row sums.
-  column_sum_kernel<<<M, H, 0, s>>>(sc.pbuf, sc.colsum, d.N, H);
+  column_sum_kernel<<<Mc, H, 0, s>>>(sc.pbuf, sc.colsum, d.S, d.N, H);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = gemm(sc.rowsum, H, 1, hin, H, 0, gw1, d.ld1, H, H, M, acc, sc.split, s))) return rc;
-  if ((rc = gemm(sc.colsum, H, 1, hin, H, 0, gw1 + H, d.ld1, H, H, M, acc, sc.split, s)))
+  if ((rc = gemm(sc.rowsum, H, 1, hr, H, 0, gw1, d.ld1, H, H, Mr, acc, sc.split, s))) return rc;
+  if ((rc = gemm(sc.colsum, H, 1, hc, H, 0, gw1 + H, d.ld1, H, H, Mc, acc, sc.split, s)))
     return rc;
   for (int e = 0; e < d.E; ++e)
-    if ((rc = reduce_rows(sc.part + (3 + e) * H, M, ps, H, gw1 + 2 * H + e, d.ld1, acc, s)))
+    if ((rc = reduce_rows(sc.part + (3 + e) * H, Mr, ps, H, gw1 + 2 * H + e, d.ld1, acc, s)))
       return rc;
-  if ((rc = reduce_rows(sc.rowsum, M, H, H, gb1, 1, acc, s))) return rc;
-  // dh += rowsum W1[:, :H] + colsum W1[:, H:2H].
-  if ((rc = gemm(sc.rowsum, H, 0, w1, d.ld1, 0, dh_acc, H, M, H, H, 1, sc.split, s)))
+  if ((rc = reduce_rows(sc.rowsum, Mr, H, H, gb1, 1, acc, s))) return rc;
+  // dhr += rowsum W1[:, :H]; dhc += colsum W1[:, H:2H].
+  if ((rc = gemm(sc.rowsum, H, 0, w1, d.ld1, 0, dhr, H, Mr, H, H, 1, sc.split, s)))
     return rc;
-  return gemm(sc.colsum, H, 0, w1 + H, d.ld1, 0, dh_acc, H, M, H, H, 1, sc.split, s);
+  return gemm(sc.colsum, H, 0, w1 + H, d.ld1, 0, dhc, H, Mc, H, H, 1, sc.split, s);
+}
+
+// Every row against every column (d.S == d.N): dh_acc gets both halves.
+int stage_grads(const Dims& d, const float* hin, const float* w1, float* gw1, float* gb1,
+                float* gw2, float* gb2, float* gwo, float* gbo, const EdgeGradBufs& sc,
+                float* dh_acc, int acc, cudaStream_t s) {
+  return stage_grads_window(d, hin, hin, w1, gw1, gb1, gw2, gb2, gwo, gbo, sc, dh_acc, dh_acc,
+                            acc, s);
 }
 
 // Node MLP backward of one GCL, out = (hin + silu([hin, agg] Wn1^T + bn1)

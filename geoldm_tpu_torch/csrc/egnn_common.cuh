@@ -1,6 +1,6 @@
 // Device code shared by the EquivariantBlock forward (egnn_block.cu), its
 // backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu,
-// egnn_tiled_bwd.cu):
+// egnn_tiled_bwd.cu, and their sequence-parallel slabs in egnn_sp.cu):
 // constants, activations, the node GEMM with its fused epilogues, the
 // src/dst projection and the forward edge kernel. See egnn_block.cu and
 // egnn_tiled.cu for the designs and what bounds them on an H100.
@@ -55,7 +55,7 @@ constexpr int kTM = 64, kTN = 64, kTK = 16;
 
 // kOwner only names the grid in a profile: 1 for the whole-block kernels
 // (#1, #2), 3 and 4 for the row-tiled GCL and coordinate stages, 5 for their
-// backward.
+// backward, 6 and 7 for the sequence-parallel slab stages and their backward.
 template <int kOwner>
 __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
   __shared__ float As[kTK][kTM + 4];
@@ -125,22 +125,31 @@ int launch_gemm(const GemmArgs& g, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// proj[:, :H] = h W1[:, :H]^T, proj[:, H:2H] = h W1[:, H:2H]^T (no bias: b1
-// is added once per edge in the edge kernel, as the TPU kernel does).
+// proj[:Mr, :H] = hr W1[:, :H]^T (the src half, over the rows a stage
+// computes) and proj[:Mc, H:2H] = hc W1[:, H:2H]^T (the dst half, over the
+// columns); no bias: b1 is added once per edge in the edge kernel, as the TPU
+// kernel does. The row stride of proj is 2H.
 template <int kOwner = 1>
-int launch_projection(const float* h, const float* w1, int ld1, float* proj,
-                      int M, int H, cudaStream_t s) {
+int launch_projection_window(const float* hr, int Mr, const float* hc, int Mc,
+                             const float* w1, int ld1, float* proj, int H, cudaStream_t s) {
   for (int half = 0; half < 2; ++half) {
     GemmArgs g = {};
-    g.a1 = h; g.lda1 = H; g.k1 = H;
+    g.a1 = half ? hc : hr; g.lda1 = H; g.k1 = H;
     g.w = w1 + half * H; g.ldw = ld1;
     g.c = proj + half * H; g.ldc = 2 * H;
-    g.M = M; g.Nout = H; g.K = H;
+    g.M = half ? Mc : Mr; g.Nout = H; g.K = H;
     g.epilogue = kEpiNone;
     const int rc = launch_gemm<kOwner>(g, s);
     if (rc) return rc;
   }
   return 0;
+}
+
+// Both halves over the same M rows of h.
+template <int kOwner = 1>
+int launch_projection(const float* h, const float* w1, int ld1, float* proj,
+                      int M, int H, cudaStream_t s) {
+  return launch_projection_window<kOwner>(h, M, h, M, w1, ld1, proj, H, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -162,6 +171,16 @@ struct EdgeArgs {
   int N, H, E;
   int sin_emb, attention, use_tanh;
   float coords_range, norm_constant, norm_div;
+  // Row-tiled stages only (egnn_rows.cuh): the rows computed are the slab
+  // row0..row0+S of every molecule, read from their own [B*S, *] views (xr,
+  // x0r, maskr, and the src projection at row stride ld_src), while x, x0,
+  // mask and the dst projection (row stride ld_dst) give all N columns. A
+  // single-device stage passes the full view as its slab (row0 0, S = N);
+  // agg and x_out are then [B*S, *].
+  const float* xr; const float* x0r; const float* maskr;
+  const float* src; int ld_src;
+  const float* dst; int ld_dst;
+  int row0, S;
 };
 
 size_t edge_smem_bytes(int nmax, int H) {

@@ -1,8 +1,16 @@
 // The row-tiled EquivariantBlock stages' forward (egnn_tiled.cu, TPU kernels
 // #3 and #4): one CTA per (molecule, row), the columns streamed in masked tiles
 // of kColTile. Shared by egnn_tiled.cu, whose header comment gives the design,
-// and by the stage backward (egnn_tiled_bwd.cu, TPU kernel #5), which re-runs
-// the GCL forward for its aggregate.
+// by the stage backward (egnn_rows_bwd.cuh, TPU kernels #5 and #7), which
+// re-runs the GCL forward for its aggregate, and by the sequence-parallel slab
+// stages (egnn_sp.cu, TPU kernel #6).
+//
+// Row window: a stage computes the rows row0..row0+S of every molecule (its
+// slab) against all N columns. The slab's own tensors are [B*S, *] views,
+// apart from the [B*N, *] views of the columns; the diagonal is masked at the
+// global row row0 + s, and 'mean' divides by the caller's divisor. The
+// single-device stages (#3, #4, #5) pass the full view as the slab: row0 0,
+// S = N, the same pointers, and their arithmetic is unchanged.
 
 #pragma once
 
@@ -20,8 +28,9 @@ __device__ __forceinline__ void rows_stage(const EdgeArgs& a, float* smem) {
   const int H = a.H, N = a.N;
   const int c = threadIdx.x;
   const int lane = c & 31, warp = c >> 5, nwarp = H >> 5;
-  const int b = blockIdx.y, i = blockIdx.x;
-  const size_t row_i = (size_t)b * N + i;
+  const int b = blockIdx.y;
+  const int i = a.row0 + blockIdx.x;                     // global row: the diagonal
+  const size_t row_i = (size_t)b * a.S + blockIdx.x;     // index into the slab's views
 
   float* As = smem;                            // [kColTile][H] silu(first layer)
   float* Ws = As + kColTile * H;               // [kKChunk][H + 1] W2 chunk, k-major
@@ -31,14 +40,14 @@ __device__ __forceinline__ void rows_stage(const EdgeArgs& a, float* smem) {
   float* red = cd + kColTile * 3;              // [nwarp][kColTile]
   float* rs = red + nwarp * kColTile;          // [kColTile] per-pair reductions
 
-  const float mi = a.mask[row_i];
+  const float mi = a.maskr[row_i];
   float xi[3], x0i[3];
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
-    xi[q] = a.x[row_i * 3 + q];
-    x0i[q] = a.x0[row_i * 3 + q];
+    xi[q] = a.xr[row_i * 3 + q];
+    x0i[q] = a.x0r[row_i * 3 + q];
   }
-  const float src = a.proj[row_i * 2 * H + c];
+  const float src = a.src[row_i * a.ld_src + c];
   const float bias1 = a.b1[c];
   const float bias2 = a.b2[c];
   const bool need_rowsum = COORD || a.attention;
@@ -101,7 +110,7 @@ __device__ __forceinline__ void rows_stage(const EdgeArgs& a, float* smem) {
       const int j = j0 + jj;
       float v = 0.f;
       if (j < N) {
-        const float dst = a.proj[((size_t)b * N + j) * 2 * H + H + c];
+        const float dst = a.dst[((size_t)b * N + j) * a.ld_dst + c];
         const float* f = ef + jj * kMaxEdgeFeat;
         float ew = 0.f;
         if (a.sin_emb) {
@@ -185,7 +194,7 @@ __device__ __forceinline__ void rows_stage(const EdgeArgs& a, float* smem) {
   if (!COORD) {
     a.agg[row_i * H + c] = agg / a.norm_div;
   } else if (c < 3) {
-    a.x_out[row_i * 3 + c] = (a.x[row_i * 3 + c] + aggx / a.norm_div) * mi;
+    a.x_out[row_i * 3 + c] = (a.xr[row_i * 3 + c] + aggx / a.norm_div) * mi;
   }
 }
 
@@ -205,7 +214,7 @@ int launch_rows(bool coord, const EdgeArgs& a, int B, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(a.N, B), a.H, smem, s>>>(a);
+  kern<<<dim3(a.S, B), a.H, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -214,16 +223,84 @@ bool bad_dims(int B, int N, int H, int E, int sin_emb) {
          H % 32 || E != (sin_emb ? kMaxEdgeFeat : 2);
 }
 
-EdgeArgs stage_args(const float* x, const float* x0, const float* mask, float* proj,
-                    const float* const* w, int N, int H, int E, int sin_emb, int mean_agg,
-                    float norm_constant, float normalization_factor) {
+// A stage's rows: the slab row0..row0+S of every molecule, h, x, x0 and mask
+// at [B*S, *].
+struct Slab {
+  const float *h, *x, *x0, *mask;
+  int row0, S;
+};
+
+bool bad_slab(const Slab& r, int N) {
+  return r.row0 < 0 || r.S < 1 || r.row0 + r.S > N;
+}
+
+// Edge-kernel arguments of a stage over slab r against the columns x, x0,
+// mask [B*N, *]; proj holds the src projection of the slab's rows in its
+// first H columns and the dst projection of all columns in the next H.
+EdgeArgs stage_args(const Slab& r, const float* x, const float* x0, const float* mask,
+                    float* proj, const float* const* w, int N, int H, int E, int sin_emb,
+                    float norm_div, float norm_constant) {
   EdgeArgs ea = {};
   ea.proj = proj; ea.x = x; ea.x0 = x0; ea.mask = mask;
+  ea.xr = r.x; ea.x0r = r.x0; ea.maskr = r.mask;
+  ea.src = proj; ea.ld_src = 2 * H; ea.dst = proj + H; ea.ld_dst = 2 * H;
+  ea.row0 = r.row0; ea.S = r.S;
   ea.w1 = w[0]; ea.ld1 = 2 * H + E; ea.b1 = w[1]; ea.w2 = w[2]; ea.b2 = w[3];
   ea.N = N; ea.H = H; ea.E = E; ea.sin_emb = sin_emb;
   ea.norm_constant = norm_constant;
-  ea.norm_div = mean_agg ? (float)N : normalization_factor;
+  ea.norm_div = norm_div;
   return ea;
+}
+
+// One GCL over slab r (kernel #3 with the full view as the slab, #6 over an
+// SP slab): h_out [B*S, H] = (h_r + node_mlp([h_r, agg])) * m_r. w: the GCL's
+// 10 weight pointers (egnn_gcl_rows' order). Scratch: proj [B*N, 2H], agg and
+// hidden [B*S, H]. Enqueues 5 grids.
+template <int kOwner>
+int gcl_rows_host(const float* h, const float* x, const float* x0, const float* mask,
+                  const Slab& r, float* h_out, float* proj, float* agg, float* hidden,
+                  const float* const* w, int B, int N, int H, int E, int attention,
+                  int sin_emb, float norm_div, float norm_constant, cudaStream_t s) {
+  const int Mr = B * r.S;
+  int rc;
+  if ((rc = launch_projection_window<kOwner>(r.h, Mr, h, B * N, w[0], 2 * H + E, proj, H, s)))
+    return rc;
+  EdgeArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
+  ea.attention = attention;
+  ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = agg;
+  if ((rc = launch_rows(false, ea, B, s))) return rc;
+
+  GemmArgs n1 = {};
+  n1.a1 = r.h; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
+  n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
+  n1.c = hidden; n1.ldc = H; n1.M = Mr; n1.Nout = H; n1.K = 2 * H;
+  n1.epilogue = kEpiSilu;
+  if ((rc = launch_gemm<kOwner>(n1, s))) return rc;
+
+  GemmArgs n2 = {};
+  n2.a1 = hidden; n2.lda1 = H; n2.k1 = H;
+  n2.w = w[8]; n2.ldw = H; n2.bias = w[9];
+  n2.resid = r.h; n2.ldr = H; n2.row_mask = r.mask;
+  n2.c = h_out; n2.ldc = H; n2.M = Mr; n2.Nout = H; n2.K = H;
+  n2.epilogue = kEpiResidMask;
+  return launch_gemm<kOwner>(n2, s);
+}
+
+// The coordinate update over slab r (#4 / #6): x_out [B*S, 3]. w: 5 weight
+// pointers (egnn_coord_rows' order). Scratch: proj [B*N, 2H]. Enqueues 3 grids.
+template <int kOwner>
+int coord_rows_host(const float* h, const float* x, const float* x0, const float* mask,
+                    const Slab& r, float* x_out, float* proj, const float* const* w, int B,
+                    int N, int H, int E, int sin_emb, int use_tanh, float coords_range,
+                    float norm_div, float norm_constant, cudaStream_t s) {
+  int rc;
+  if ((rc = launch_projection_window<kOwner>(r.h, B * r.S, h, B * N, w[0], 2 * H + E, proj, H,
+                                             s)))
+    return rc;
+  EdgeArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
+  ea.use_tanh = use_tanh; ea.coords_range = coords_range;
+  ea.w_out = w[4]; ea.x_out = x_out;
+  return launch_rows(true, ea, B, s);
 }
 
 }  // namespace

@@ -48,6 +48,7 @@
 //   - the node-side products (src/dst projections, node MLP) run in the
 //     hand-written 64x64-tile GEMM of egnn_common.cuh with its fused bias /
 //     silu / residual*mask epilogues.
+// The stages take a row window (egnn_rows.cuh); here the window is every row.
 // One call of egnn_gcl_rows enqueues 5 grids, one of egnn_coord_rows 3, on
 // the caller's stream; neither synchronises.
 
@@ -71,31 +72,11 @@ int egnn_gcl_rows(const float* h, const float* x, const float* x0, const float* 
                   int sin_emb, int mean_agg, float norm_constant, float normalization_factor,
                   void* stream) {
   if (bad_dims(B, N, H, E, sin_emb)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* const* w = reinterpret_cast<const float* const*>(w_table);
-  const int M = B * N;
-  int rc;
-  if ((rc = launch_projection<3>(h, w[0], 2 * H + E, proj, M, H, s))) return rc;
-  EdgeArgs ea = stage_args(x, x0, mask, proj, w, N, H, E, sin_emb, mean_agg, norm_constant,
-                           normalization_factor);
-  ea.attention = attention;
-  ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = agg;
-  if ((rc = launch_rows(false, ea, B, s))) return rc;
-
-  GemmArgs n1 = {};
-  n1.a1 = h; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
-  n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
-  n1.c = hidden; n1.ldc = H; n1.M = M; n1.Nout = H; n1.K = 2 * H;
-  n1.epilogue = kEpiSilu;
-  if ((rc = launch_gemm<3>(n1, s))) return rc;
-
-  GemmArgs n2 = {};
-  n2.a1 = hidden; n2.lda1 = H; n2.k1 = H;
-  n2.w = w[8]; n2.ldw = H; n2.bias = w[9];
-  n2.resid = h; n2.ldr = H; n2.row_mask = mask;
-  n2.c = h_out; n2.ldc = H; n2.M = M; n2.Nout = H; n2.K = H;
-  n2.epilogue = kEpiResidMask;
-  return launch_gemm<3>(n2, s);
+  const Slab all = {h, x, x0, mask, 0, N};
+  return gcl_rows_host<3>(h, x, x0, mask, all, h_out, proj, agg, hidden,
+                          reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
+                          sin_emb, mean_agg ? (float)N : normalization_factor, norm_constant,
+                          (cudaStream_t)stream);
 }
 
 // Kernel #4: the coordinate update over all rows. w: host array of 5 device
@@ -106,15 +87,11 @@ int egnn_coord_rows(const float* h, const float* x, const float* x0, const float
                     int H, int E, int sin_emb, int use_tanh, int mean_agg, float coords_range,
                     float norm_constant, float normalization_factor, void* stream) {
   if (bad_dims(B, N, H, E, sin_emb)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* const* w = reinterpret_cast<const float* const*>(w_table);
-  int rc;
-  if ((rc = launch_projection<4>(h, w[0], 2 * H + E, proj, B * N, H, s))) return rc;
-  EdgeArgs ea = stage_args(x, x0, mask, proj, w, N, H, E, sin_emb, mean_agg, norm_constant,
-                           normalization_factor);
-  ea.use_tanh = use_tanh; ea.coords_range = coords_range;
-  ea.w_out = w[4]; ea.x_out = x_out;
-  return launch_rows(true, ea, B, s);
+  const Slab all = {h, x, x0, mask, 0, N};
+  return coord_rows_host<4>(h, x, x0, mask, all, x_out, proj,
+                            reinterpret_cast<const float* const*>(w_table), B, N, H, E, sin_emb,
+                            use_tanh, coords_range, mean_agg ? (float)N : normalization_factor,
+                            norm_constant, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -105,11 +105,14 @@ def make_latent_diffusion_config(
 
 
 def build_model(cfg: ModelConfig, device="cuda",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, sp_group=None):
     """The model on ``device`` (the card unless the caller asks for the
     CPU), in eval mode: an ``EnLatentDiffusion``, or an ``EnHierarchicalVAE``
     for the 'vae' kind. With ``generator`` every weight is drawn from it
-    (reference init); otherwise the caller loads a state dict."""
+    (reference init); otherwise the caller loads a state dict. With
+    ``sp_group`` (a ``parallel.sp.SPGroup``) every EGNN of the model runs
+    sequence-parallel over it; a deep copy of the model (the EMA model)
+    keeps the group."""
     dev = resolve_device(device)
     if cfg.kind == "vae":
         model = vae_mod.EnHierarchicalVAE(cfg.vae)
@@ -120,6 +123,10 @@ def build_model(cfg: ModelConfig, device="cuda",
         model = EnLatentDiffusion(cfg)
     if generator is not None:
         init_parameters(model, generator)
+    if sp_group is not None:
+        from geoldm_tpu_torch.parallel import sp
+
+        sp.attach(model, sp_group)
     return model.to(dev).eval()
 
 

@@ -14,7 +14,10 @@ which routes by the padded node count N: N <= 64 (QM9, GEOM's 32/48/64
 buckets) to the whole-block CUDA kernels, N > 64 (GEOM's 96/136/184) to the
 row-tiled GCL and coordinate kernels of ``ops.egnn_tiled``; on the CPU each
 route runs its plain PyTorch version. Under grad each route goes through its
-autograd Function, whose backward is a kernel too (#2, #5).
+autograd Function, whose backward is a kernel too (#2, #5). An EGNN attached
+to a sequence-parallel group (``parallel.sp.attach``) runs its blocks over
+its rank's slab of rows instead (``parallel.sp.egnn_forward_sp``: kernels #6
+and #7).
 """
 
 from __future__ import annotations
@@ -129,12 +132,17 @@ class EGNN(nn.Module):
     def __init__(self, cfg: EGNNConfig):
         super().__init__()
         self.cfg = cfg
+        self.sp = None  # a parallel.sp.SPGroup: run the blocks over slabs of rows
         self.embedding = nn.Linear(cfg.in_node_nf, cfg.hidden_nf)
         self.embedding_out = nn.Linear(cfg.hidden_nf, cfg.out_node_nf)
         for i in range(cfg.n_layers):
             self.add_module(f"e_block_{i}", EquivariantBlock(cfg))
 
     def forward(self, h, x, node_mask):
+        if self.sp is not None:
+            from geoldm_tpu_torch.parallel.sp import egnn_forward_sp
+
+            return egnn_forward_sp(self, h, x, node_mask, self.sp)
         x0 = x
         h = self.embedding(h)
         for i in range(self.cfg.n_layers):

@@ -1,0 +1,35 @@
+"""Kernel wrappers and their plain versions.
+
+Each wrapper adds one to its module's launch counter where it launches its
+kernel. ``LAUNCH_COUNTERS`` names every counter: kernel -> (module, attribute).
+"""
+
+import importlib
+
+LAUNCH_COUNTERS = {
+    "egnn_block": ("egnn_block", "launches"),
+    "egnn_block_bwd": ("egnn_block", "bwd_launches"),
+    "gcl_rows": ("egnn_tiled", "gcl_rows_launches"),
+    "coord_rows": ("egnn_tiled", "coord_rows_launches"),
+    "gcl_rows_bwd": ("egnn_tiled", "gcl_rows_bwd_launches"),
+    "coord_rows_bwd": ("egnn_tiled", "coord_rows_bwd_launches"),
+    "sp_gcl_rows": ("egnn_sp", "sp_gcl_rows_launches"),
+    "sp_coord_rows": ("egnn_sp", "sp_coord_rows_launches"),
+    "sp_gcl_rows_bwd": ("egnn_sp", "sp_gcl_rows_bwd_launches"),
+    "sp_coord_rows_bwd": ("egnn_sp", "sp_coord_rows_bwd_launches"),
+}
+
+
+def _module(name):
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count in this process."""
+    return {k: getattr(_module(mod), attr) for k, (mod, attr) in LAUNCH_COUNTERS.items()}
+
+
+def reset_kernel_launches() -> None:
+    """Set every launch counter to 0."""
+    for mod, attr in LAUNCH_COUNTERS.values():
+        setattr(_module(mod), attr, 0)

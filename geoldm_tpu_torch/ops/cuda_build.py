@@ -23,8 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu",
-           "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu"}
-HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_rows.cuh")
+           "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu",
+           "egnn_sp": CSRC / "egnn_sp.cu"}
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_rows.cuh",
+           CSRC / "egnn_rows_bwd.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +54,14 @@ _SIGNATURES = {
         "egnn_coord_rows_backward": ([_P] * 11 + [_I] * 8 + [_F] * 3 + [_P], _I),
         "egnn_rows_backward_scratch_floats": ([_I] * 4, _Z),
         "egnn_tiled_bwd_error_string": ([_I], _STR),
+    },
+    "egnn_sp": {
+        "egnn_sp_gcl_rows": ([_P] * 13 + [_I] * 10 + [_F] * 2 + [_P], _I),
+        "egnn_sp_coord_rows": ([_P] * 11 + [_I] * 10 + [_F] * 3 + [_P], _I),
+        "egnn_sp_gcl_rows_backward": ([_P] * 18 + [_I] * 11 + [_F] * 2 + [_P], _I),
+        "egnn_sp_coord_rows_backward": ([_P] * 18 + [_I] * 11 + [_F] * 3 + [_P], _I),
+        "egnn_sp_backward_scratch_floats": ([_I] * 5, _Z),
+        "egnn_sp_error_string": ([_I], _STR),
     },
 }
 

@@ -30,8 +30,11 @@ versions work on one [B, T, N, H] row slab at a time (T = ``PLAIN_TILE``
 rows of every molecule), so the forward never holds a [B, N, N, H] edge
 tensor; the plain backward is ``torch.autograd.grad`` of the plain stage.
 All take any N; 'mean' divides by the caller's N, the padded width the EGNN
-was given, as the dense path does. A wrapper given a CUDA tensor launches
-its kernel or raises; only CPU tensors take a plain version.
+was given, as the dense path does. The plain versions are cases of
+``gcl_rows_window`` / ``coord_rows_window``, which compute a slab of rows
+against all columns and also serve the sequence-parallel slabs
+(``ops.egnn_sp``). A wrapper given a CUDA tensor launches its kernel or
+raises; only CPU tensors take a plain version.
 
 ``gcl_rows_launches`` / ``coord_rows_launches`` count forward kernel calls,
 one per GCL / coordinate stage on the card; ``gcl_rows_bwd_launches`` /
@@ -86,64 +89,85 @@ def _divisor(cfg, n: int) -> float:
     raise ValueError(cfg.aggregation_method)
 
 
-def _row_slab(cfg, lin, h, x, x0, node_mask, r0: int, r1: int):
-    """Rows r0..r1 of every molecule against all N columns -> (silu(pre)
+def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int):
+    """Global rows r0..r1 of every molecule against all N columns -> (silu(pre)
     [B,T,N,H], coord_diff [B,T,N,3], edge mask [B,T,N,1]): the pair features
     (``_pair_features``), the split first layer (``_edge_pre_rows``) and the
-    edge mask with the diagonal at the global row (``_row_edge_mask``)."""
+    edge mask with the diagonal at the global row (``_row_edge_mask``).
+    ``full`` = (h, x, x0, node_mask) [B,N,*] gives the columns, ``rows`` the
+    same tensors for the slab whose first row is the global row ``row0``
+    (the full view itself on one device)."""
+    h, x, x0, node_mask = full
+    hr, xr, x0r, mr = rows
     n, f = h.shape[1], h.shape[2]
-    diff = x[:, r0:r1, None, :] - x[:, None, :, :]
+    a, b = r0 - row0, r1 - row0
+    diff = xr[:, a:b, None, :] - x[:, None, :, :]
     radial = (diff * diff).sum(dim=-1, keepdim=True)
     coord_diff = diff / (torch.sqrt(radial + 1e-8) + cfg.norm_constant)
-    diff0 = x0[:, r0:r1, None, :] - x0[:, None, :, :]
+    diff0 = x0r[:, a:b, None, :] - x0[:, None, :, :]
     radial0 = (diff0 * diff0).sum(dim=-1, keepdim=True)
     if cfg.sin_embedding:
         radial, radial0 = sin_embedding(radial), sin_embedding(radial0)
     eattr = torch.cat([radial, radial0], dim=-1)
     w = lin.weight  # [H, 2H + E]
-    pre = ((h[:, r0:r1] @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
+    pre = ((hr[:, a:b] @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
            + eattr @ w[:, 2 * f:].T + lin.bias)
     row = torch.arange(r0, r1, device=h.device)[:, None]
     off_diag = (row != torch.arange(n, device=h.device)[None, :]).to(h.dtype)
-    emask = (node_mask[:, r0:r1, None, :] * node_mask[:, None, :, :]
-             * off_diag[None, :, :, None])
+    emask = (mr[:, a:b, None, :] * node_mask[:, None, :, :] * off_diag[None, :, :, None])
     return F.silu(pre), coord_diff, emask
+
+
+def gcl_rows_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
+    """Plain PyTorch version of kernels #3 and #6: one GCL for the slab
+    ``rows`` (h, x, x0, node_mask at [B,S,*], first global row ``row0``)
+    against the columns ``full`` ([B,N,*]); aggregates divided by ``div`` ->
+    the slab's h [B,S,H]."""
+    cfg = gcl.cfg
+    hr, mr = rows[0], rows[3]
+    out = []
+    for a in range(0, hr.shape[1], tile):
+        b = min(a + tile, hr.shape[1])
+        act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, row0 + a, row0 + b)
+        m = F.silu(gcl.edge_mlp[2](act))
+        if cfg.attention:
+            m = m * gcl.att_mlp(m)
+        agg = (m * emask).sum(dim=2) / div
+        hi = hr[:, a:b]
+        out.append((hi + gcl.node_mlp(torch.cat([hi, agg], dim=-1))) * mr[:, a:b])
+    return torch.cat(out, dim=1)
+
+
+def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
+    """Plain PyTorch version of kernels #4 and #6: the coordinate update of
+    the slab ``rows`` against the columns ``full`` -> the slab's x [B,S,3]."""
+    cfg = equiv.cfg
+    xr, mr = rows[1], rows[3]
+    mlp = equiv.coord_mlp
+    out = []
+    for a in range(0, xr.shape[1], tile):
+        b = min(a + tile, xr.shape[1])
+        act, coord_diff, emask = _row_slab(cfg, mlp[0], full, rows, row0, row0 + a, row0 + b)
+        s = mlp[4](F.silu(mlp[2](act)))
+        if cfg.tanh:
+            s = torch.tanh(s) * cfg.coords_range_layer
+        aggx = (coord_diff * s * emask).sum(dim=2) / div
+        out.append((xr[:, a:b] + aggx) * mr[:, a:b])
+    return torch.cat(out, dim=1)
 
 
 def gcl_rows_plain(gcl, h, x, x0, node_mask, tile: int = PLAIN_TILE):
     """Plain PyTorch version of kernel #3 (``_gcl_rows_math``): ``gcl`` an
     ``nn.egnn.GCL``; h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] -> h [B,N,H]."""
-    cfg = gcl.cfg
-    n = h.shape[1]
-    out = []
-    for r0 in range(0, n, tile):
-        r1 = min(r0 + tile, n)
-        act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], h, x, x0, node_mask, r0, r1)
-        m = F.silu(gcl.edge_mlp[2](act))
-        if cfg.attention:
-            m = m * gcl.att_mlp(m)
-        agg = (m * emask).sum(dim=2) / _divisor(cfg, n)
-        hi = h[:, r0:r1]
-        out.append((hi + gcl.node_mlp(torch.cat([hi, agg], dim=-1))) * node_mask[:, r0:r1])
-    return torch.cat(out, dim=1)
+    full = (h, x, x0, node_mask)
+    return gcl_rows_window(gcl, full, full, 0, _divisor(gcl.cfg, h.shape[1]), tile)
 
 
 def coord_rows_plain(equiv, h, x, x0, node_mask, tile: int = PLAIN_TILE):
     """Plain PyTorch version of kernel #4 (``_coord_rows_math``): ``equiv``
     an ``nn.egnn.EquivariantUpdate`` -> x [B,N,3]."""
-    cfg = equiv.cfg
-    n = h.shape[1]
-    mlp = equiv.coord_mlp
-    out = []
-    for r0 in range(0, n, tile):
-        r1 = min(r0 + tile, n)
-        act, coord_diff, emask = _row_slab(cfg, mlp[0], h, x, x0, node_mask, r0, r1)
-        s = mlp[4](F.silu(mlp[2](act)))
-        if cfg.tanh:
-            s = torch.tanh(s) * cfg.coords_range_layer
-        aggx = (coord_diff * s * emask).sum(dim=2) / _divisor(cfg, n)
-        out.append((x[:, r0:r1] + aggx) * node_mask[:, r0:r1])
-    return torch.cat(out, dim=1)
+    full = (h, x, x0, node_mask)
+    return coord_rows_window(equiv, full, full, 0, _divisor(equiv.cfg, h.shape[1]), tile)
 
 
 class _Bound(torch.nn.Module):
@@ -308,24 +332,25 @@ def coord_rows_cuda(equiv, h, x, x0, node_mask):
     return x_out
 
 
-def bwd_scratch(lib, b: int, n: int, hidden: int, e: int, dev):
-    """(molecules per group, scratch tensor) of a stage backward: the largest
-    group whose scratch stays under ``MAX_BWD_SCRATCH_BYTES``."""
+def bwd_scratch(floats, b: int, dev, what: str):
+    """(molecules per group, scratch tensor) of a stage backward whose group
+    of g molecules needs ``floats(g)`` floats of scratch: the largest group
+    whose scratch stays under ``MAX_BWD_SCRATCH_BYTES``."""
     cap = MAX_BWD_SCRATCH_BYTES // 4
-
-    def floats(g):
-        return lib.egnn_rows_backward_scratch_floats(g, n, hidden, e)
-
     if floats(1) > cap:
         raise ValueError(
-            f"egnn_tiled backward: one molecule of N={n} at hidden_nf={hidden} needs "
-            f"{4 * floats(1)} bytes of device scratch, over MAX_BWD_SCRATCH_BYTES="
-            f"{MAX_BWD_SCRATCH_BYTES}")
+            f"{what}: one molecule needs {4 * floats(1)} bytes of device scratch, over "
+            f"MAX_BWD_SCRATCH_BYTES={MAX_BWD_SCRATCH_BYTES}")
     unit = max(1, floats(2) - floats(1))
     group = min(b, 1 + (cap - floats(1)) // unit)
     while group > 1 and floats(group) > cap:
         group -= 1
     return group, torch.empty(floats(group), device=dev, dtype=torch.float32)
+
+
+def _stage_scratch(lib, b: int, n: int, hidden: int, e: int, dev):
+    return bwd_scratch(lambda g: lib.egnn_rows_backward_scratch_floats(g, n, hidden, e), b, dev,
+                       f"egnn_tiled backward at N={n}, hidden_nf={hidden}")
 
 
 def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out):
@@ -341,7 +366,7 @@ def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out):
     cfg = gcl.cfg
     b, n, hidden = h.shape
     lib = cuda_build.library("egnn_tiled_bwd")
-    group, scratch = bwd_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
+    group, scratch = _stage_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
     with torch.cuda.device(h.device):
@@ -369,7 +394,7 @@ def coord_rows_backward_cuda(equiv, h, x, x0, node_mask, g_out):
     cfg = equiv.cfg
     b, n, hidden = h.shape
     lib = cuda_build.library("egnn_tiled_bwd")
-    group, scratch = bwd_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
+    group, scratch = _stage_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
     with torch.cuda.device(h.device):

@@ -1,7 +1,11 @@
 """Train step and eval NLL (port of ``geoldm_tpu/train/train_step.py:38-144``).
 
 A step: loss = mean(nll - log p(N)), backward (through the block kernels on
-the card), adaptive clip, AMSGrad update, EMA. Every random draw (the
+the card), adaptive clip, AMSGrad update, EMA. With a sequence-parallel model
+(``parallel.sp``) every rank runs the same step on the same batch and noise;
+after the backward the gradients of the EGNN blocks' weights, of which each
+rank holds its slab's share, are summed over the ranks, so every replica
+takes the same update. Every random draw (the
 encoder's eps, t, the diffusion eps) comes from the noise source the caller
 passes. Batches are dicts of tensors on the model's device: x [B,N,3],
 h_cat [B,N,C], h_int [B,N,0/1], node_mask [B,N,1], log_pN [B].
@@ -10,7 +14,7 @@ h_cat [B,N,C], h_int [B,N,0/1], node_mask [B,N,1], log_pN [B].
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
@@ -19,6 +23,7 @@ from torch import nn
 from geoldm_tpu_torch.config import ModelConfig
 from geoldm_tpu_torch.models import factory
 from geoldm_tpu_torch.ops import com
+from geoldm_tpu_torch.parallel import sp as sp_mod
 from geoldm_tpu_torch.train import optim as optim_mod
 
 
@@ -29,6 +34,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     clip: Optional[optim_mod.AdaptiveGradClip]
     params: List[nn.Parameter]  # the trainable ones
+    sp_group: Optional[sp_mod.SPGroup] = None
+    sp_params: List[nn.Parameter] = field(default_factory=list)  # summed over the SP ranks
 
 
 def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
@@ -42,7 +49,9 @@ def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
     device = next(model.parameters()).device
     clip = optim_mod.AdaptiveGradClip(device) if clip_grad else None
     params = [p for name, p in model.named_parameters() if mask[name]]
-    return TrainState(model, ema_model, optimizer, clip, params)
+    sp_params = [p for p in sp_mod.block_parameters(model) if p.requires_grad]
+    return TrainState(model, ema_model, optimizer, clip, params, sp_mod.model_group(model),
+                      sp_params)
 
 
 def make_train_step(model_cfg: ModelConfig, ema_decay: float):
@@ -56,6 +65,8 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float):
                      batch["node_mask"], batch.get("context"))
         loss = (nll - batch["log_pN"]).mean()
         loss.backward()
+        if state.sp_params:
+            sp_mod.all_reduce_grads(state.sp_params, state.sp_group)
         grads = [p.grad for p in state.params if p.grad is not None]
         if state.clip is not None:
             grad_norm = state.clip(grads)

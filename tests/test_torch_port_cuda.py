@@ -1,7 +1,8 @@
-"""The EquivariantBlock CUDA kernels (forward and backward) and the row-tiled
-GCL and coordinate kernels and their backward against their plain PyTorch
-versions on the card, at small shapes and every block variant, and the
-autograd Functions that join them. Imports no jax, so it runs on a machine
+"""The EquivariantBlock CUDA kernels (forward and backward), the row-tiled
+GCL and coordinate kernels and their backward, and the sequence-parallel
+slab kernels (#6, #7) against their plain PyTorch versions on the card, at
+small shapes and every block variant, the autograd Functions that join them,
+and the SP EGNN over two ranks sharing the card. Imports no jax, so it runs on a machine
 with a card and no JAX:
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda
@@ -14,7 +15,9 @@ import torch
 
 from geoldm_tpu_torch.config import EGNNConfig
 from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
-from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
+from geoldm_tpu_torch.parallel import sp
+import torch_port_sp_ranks
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -396,3 +399,129 @@ def test_seeded_train_step_replays_bit_for_bit(card, sizes, pad):
     assert len(runs[0]) > 20
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel slab kernels (#6, #7) and the SP EGNN
+# ---------------------------------------------------------------------------
+
+# (N, slab rows S, first global row): first and later slabs, ragged S, and a
+# slab of one row's width past the 64-node bound of the whole-row kernels.
+SP_SLABS = [(24, 12, 0), (24, 12, 12), (81, 27, 27), (100, 25, 75), (9, 3, 6)]
+
+
+def _sp_views(card, n, s, row0, n_real, seed=1):
+    full = _inputs(card, 2, n, 32, n_real, seed)
+    return full, [t[:, row0:row0 + s].contiguous() for t in full]
+
+
+def _assert_within(got, want, rtol, name):
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= rtol * scale, f"{name}: max|d|={err:.3e} > {rtol}*{scale:.3g}"
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n,s,row0", SP_SLABS)
+def test_sp_kernels_match_plain(card, variant, n, s, row0):
+    """#6 and #7 on the slab row0..row0+s (its diagonal at the global row)
+    against their plain versions, 'mean' over an SP-padded N (n - 2)."""
+    block = _block(card, **variant)
+    full, rows = _sp_views(card, n, s, row0, (n, n - 7))
+    mean_div = n - 2
+    rng = np.random.default_rng(row0)
+    for stage in (block.gcl_0, block.gcl_equiv):
+        (fwd, bwd), (fwd_p, bwd_p) = egnn_sp.stage_fns(stage, True), egnn_sp.stage_fns(stage, False)
+        with torch.no_grad():
+            got = fwd(stage, full, rows, row0, mean_div)
+            want = fwd_p(stage, full, rows, row0, mean_div)
+        torch.cuda.synchronize()
+        _assert_within(got, want, TILED_RTOL, f"{type(stage).__name__} forward")
+        g = torch.from_numpy(rng.standard_normal(tuple(got.shape)).astype(np.float32)).to(card)
+        got = bwd(stage, full, rows, row0, mean_div, g)
+        want = bwd_p(stage, full, rows, row0, mean_div, g)
+        torch.cuda.synchronize()
+        assert len(got[6]) == len(want[6]) == len(list(stage.parameters()))
+        names = ["dh", "dx", "dx0", "dh_rows", "dx_rows", "dx0_rows"] + \
+            [f"w{k}" for k in range(len(want[6]))]
+        for name, a, b in zip(names, [*got[:6], *got[6]], [*want[:6], *want[6]]):
+            _assert_within(a, b, BWD_RTOL, f"{type(stage).__name__} {name}")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_sp_kernels_over_every_row_are_the_tiled_kernels(card, variant):
+    """With the slab = every row (row0 0, S = N, its own copies of the
+    tensors), #6 runs #3's and #4's arithmetic: bit-identical outputs; #7's
+    weight gradients are #5's bit for bit, and its two views' dh, dx, dx0
+    add up to #5's (there summed in another order)."""
+    block = _block(card, **variant)
+    n = 80
+    full = _inputs(card, 3, n, 32, (80, 61, 72))
+    rows = [t.clone() for t in full]
+    gh, gx = _cotangents(card, 3, n, 32)
+    for stage, tiled, g in ((block.gcl_0, "gcl_rows", gh), (block.gcl_equiv, "coord_rows", gx)):
+        fwd, bwd = egnn_sp.stage_fns(stage, True)
+        with torch.no_grad():
+            assert torch.equal(fwd(stage, full, rows, 0, n),
+                               getattr(egnn_tiled, f"{tiled}_cuda")(stage, *full)), tiled
+        got = bwd(stage, full, rows, 0, n, g)
+        want = getattr(egnn_tiled, f"{tiled}_backward_cuda")(stage, *full, g)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(got[6], want[3])):
+            assert torch.equal(a, b), f"{tiled} weight {k}"
+        for k, name in enumerate(("dh", "dx", "dx0")):
+            _assert_within(got[k] + got[3 + k], want[k], BWD_RTOL, f"{tiled} {name}")
+
+
+def test_sp_kernels_count_launches_and_refuse_what_they_cannot_hold(card):
+    block = _block(card)
+    full, rows = _sp_views(card, 24, 12, 12, (24, 17))
+    counts = (egnn_sp.sp_gcl_rows_launches, egnn_sp.sp_coord_rows_launches,
+              egnn_sp.sp_gcl_rows_bwd_launches, egnn_sp.sp_coord_rows_bwd_launches)
+    h = egnn_sp.sp_gcl_rows_cuda(block.gcl_0, full, rows, 12, 24)
+    x = egnn_sp.sp_coord_rows_cuda(block.gcl_equiv, full, rows, 12, 24)
+    egnn_sp.sp_gcl_rows_backward_cuda(block.gcl_0, full, rows, 12, 24, h)
+    egnn_sp.sp_coord_rows_backward_cuda(block.gcl_equiv, full, rows, 12, 24, x)
+    assert (egnn_sp.sp_gcl_rows_launches, egnn_sp.sp_coord_rows_launches,
+            egnn_sp.sp_gcl_rows_bwd_launches, egnn_sp.sp_coord_rows_bwd_launches) == \
+        tuple(c + 1 for c in counts)
+    with pytest.raises(ValueError, match="must lie in the N=24 columns"):
+        egnn_sp.sp_gcl_rows_cuda(block.gcl_0, full, rows, 13, 24)
+    with pytest.raises(ValueError, match="mean_div"):
+        egnn_sp.sp_coord_rows_cuda(block.gcl_equiv, full, rows, 12, 0)
+    with pytest.raises(ValueError, match="x_rows has shape"):
+        egnn_sp.sp_gcl_rows_cuda(block.gcl_0, full, [rows[0], rows[1][:, :6], *rows[2:]], 12, 24)
+    with pytest.raises(ValueError, match="g_out has shape"):
+        egnn_sp.sp_gcl_rows_backward_cuda(block.gcl_0, full, rows, 12, 24, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        egnn_sp.sp_gcl_rows_cuda(block.gcl_0, [t.cpu() for t in full], rows, 12, 24)
+
+
+@pytest.mark.parametrize("n,sizes", [(80, (80, 69)), (45, (45, 40))])
+def test_sp_egnn_on_one_card_matches_one_rank(card, n, sizes):
+    """Two ranks share the card over gloo (collectives staged through host
+    memory) and run the EGNN's blocks with #6/#7: outputs and the gradients
+    of h, x and every weight match the single-device card path (#3-#5 at
+    N=80, #1/#2 at N=45), every rank alike."""
+    from geoldm_tpu_torch.nn.egnn import EGNN
+
+    d = dict(in_node_nf=6, out_node_nf=6, hidden_nf=32, n_layers=2, normalization_factor=100.0)
+    egnn = EGNN(EGNNConfig(**d))
+    init_parameters(egnn, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    mask = (np.arange(n)[None] < np.asarray(sizes)[:, None]).astype(np.float32)[..., None]
+    case = {"cfg": d, "state": {k: v.numpy() for k, v in egnn.state_dict().items()},
+            "h": rng.standard_normal((2, n, 6)).astype(np.float32) * mask,
+            "x": rng.standard_normal((2, n, 3)).astype(np.float32) * mask, "mask": mask,
+            "gh": rng.standard_normal((2, n, 6)).astype(np.float32),
+            "gx": rng.standard_normal((2, n, 3)).astype(np.float32)}
+    (want,) = torch_port_sp_ranks.egnn_cases([case], "cuda")
+    (got,) = sp.spawn_ranks(2, torch_port_sp_ranks.egnn_cases, ([case], "cuda"), device="cuda")
+    assert got["ranks_agree"]
+    assert got["launches"]["sp_gcl_rows_bwd"] == got["launches"]["sp_coord_rows_bwd"] == 2
+    for name in ("h", "x"):
+        _assert_within(torch.from_numpy(got[name]), torch.from_numpy(want[name]), BWD_RTOL, name)
+    for name, g in want["grads"].items():
+        ref = torch.from_numpy(g)
+        err = float((torch.from_numpy(got["grads"][name]) - ref).abs().max())
+        assert err <= BWD_RTOL * max(1e-6, float(ref.abs().max())), (name, err)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of geoldm_tpu_torch (and not
-chip_smoke.py) imports jax or the JAX package, and asking for the card on
-a host without one raises instead of running on the CPU."""
+"""The port stands alone: no module of geoldm_tpu_torch (ops, parallel, cli
+and the rest; and not chip_smoke.py) imports jax or the JAX package, and
+asking for the card on a host without one raises instead of running on the
+CPU, sequence-parallel ranks included."""
 
 import os
 import pkgutil
@@ -43,9 +44,10 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_every_module_is_a_port_module():
     names = [m.name for m in pkgutil.walk_packages(geoldm_tpu_torch.__path__,
                                                    "geoldm_tpu_torch.")]
-    for name in ("ops.egnn_block", "ops.egnn_tiled", "ops.cuda_build", "cli.serve",
-                 "cli.main_qm9", "cli.main_geom_drugs", "train.train_step", "train.trainer",
-                 "data.qm9", "data.geom", "utils.checkpoint"):
+    for name in ("ops.egnn_block", "ops.egnn_tiled", "ops.egnn_sp", "ops.cuda_build",
+                 "parallel.sp", "cli.serve", "cli.main_qm9", "cli.main_geom_drugs",
+                 "train.train_step", "train.trainer", "data.qm9", "data.geom",
+                 "utils.checkpoint"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 
@@ -70,6 +72,18 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     write_geom_conformers(str(tmp_path / "geom"), get_dataset_info("geom"), 20)
     with pytest.raises(RuntimeError, match="cuda"):
         main_geom_drugs.main(["--datadir", str(tmp_path / "geom"), "--outdir", str(tmp_path)])
+
+
+def test_sp_refuses_the_card_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    from geoldm_tpu_torch.cli import main_geom_drugs
+    from geoldm_tpu_torch.parallel import sp
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        sp.placement(2)  # the card is the default
+    with pytest.raises(RuntimeError, match="cuda"):
+        main_geom_drugs.main(["--sp", "2", "--datadir", "unused"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
