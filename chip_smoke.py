@@ -4,10 +4,14 @@
 
 Phases (each prints a line; any failure exits non-zero before the result):
   1. the card's name and power limit (nvidia-smi), and the kernel build
-     (one nvcc per source in geoldm_tpu_torch/csrc, for sm_90a, in parallel);
+     (one nvcc per source in geoldm_tpu_torch/csrc, for sm_90a, in parallel),
+     with ptxas' registers and spills of the whole-block kernels' own grids
+     (none may spill);
   2. the EquivariantBlock kernel against its plain PyTorch version on the
-     card at H=256, B=64, N in {16, 24, 32} with ragged masks, plus one
-     'mean'-aggregation and one sin-embedding case, with times and bounds;
+     card at H=256, B=64, N in {16, 24, 29, 32} with ragged masks, plus one
+     'mean'-aggregation and one sin-embedding case, and at GEOM's pads B=32,
+     N in {48, 64}, with times and bounds (f32, and with the matrix products
+     at the split-TF32 rate of the tensor cores);
   3. a QM9 latent-diffusion model at nf=256, 9 layers, latent_nf=1, T=1000
      with random weights from a seeded torch.Generator, written in the
      upstream checkpoint layout (args.pickle + generative_model_ema.npy);
@@ -19,15 +23,18 @@ Phases (each prints a line; any failure exits non-zero before the result):
   5. one full-width denoiser evaluation through the kernel against the same
      evaluation through the plain path on the CPU;
   6. the EquivariantBlock backward kernel against its plain version
-     (autograd of the recomputed block) at H=256, B=64, N in {16, 24, 29, 32}
-     with ragged masks, plus one 'mean' and one sin-embedding case, and at
-     GEOM's training pads B=32, N in {48, 64}: dh, dx, dx0 and every weight
-     gradient, with times and bounds;
+     (autograd of the recomputed block) at H=256, B=64, N in {16, 17, 24,
+     29, 32, 33} with ragged masks, plus one 'mean' and one sin-embedding
+     case, and at GEOM's training pads B=32, N in {48, 64}: dh, dx, dx0 and
+     every weight gradient, with times and bounds; the backward from the
+     forward's saved activations (the training route) and a second run must
+     equal it bit for bit;
   7. the training entry point (cli.main_qm9) at the reference recipe (nf=256,
      9 layers, latent_nf=1, T=1000, B=64, trainable_ae, EMA 0.9999) on
      fabricated QM9-format splits: 5 train steps, stability sampling, valid
      and test NLL and the checkpoints; the kernels' launch counts must equal
-     what the code implies, and the checkpoint must load back;
+     what the code implies, and the checkpoint must load back; peak device
+     memory is printed;
   8. one full-width train-step gradient (B=8, N=29) through the kernels on the
      card against the plain path on the CPU, same weights, batch and noise;
   9. the row-tiled GCL (#3) and coordinate (#4) kernels against their plain
@@ -57,7 +64,7 @@ Phases (each prints a line; any failure exits non-zero before the result):
      holds one full batch at pads 184, 104 and 48: one epoch, stability
      sampling, valid and test NLL and the checkpoints; the launch counts of
      kernels #1-#5 must equal what the code implies, and train steps are
-     timed at pads 184 and 48;
+     timed at pads 184 and 48; peak device memory is printed;
  14. one full-width GEOM train-step gradient (4+4 blocks, B=2, pad 184,
      molecules of 181 and 151 atoms) through the kernels on the card against
      the plain path on the CPU, same weights, batch and noise;
@@ -103,6 +110,9 @@ import numpy as np
 # HBM3"): dense non-tensor-core float32 FLOP/s and HBM bytes/s.
 _H100_SXM = "H100 80GB HBM3"
 _FLOP_PEAK, _BW_PEAK = 67.0e12, 3.35e12
+# Dense TF32 on the tensor cores, where the whole-block kernels (#1, #2) run
+# their products in split TF32: three TF32 products for each f32 product.
+_TF32_PEAK, _TF32_SPLITS = 495.0e12, 3
 
 # Kernel vs plain: both sum in float32 but in different orders. Holds for
 # the backward's weight gradients too, which add up B*N*N edge terms.
@@ -150,9 +160,12 @@ def _time_ms(fn, inputs, warmup=3, reps=20):
 
 
 def _block_work(cfg, n_real, n_pad, n_weights):
-    """(FLOP, bytes) one block forward needs for molecules of n_real atoms
-    padded to n_pad: the edge MLPs over real ordered pairs, the node-side
-    products over real nodes, each input read and each output written once."""
+    """(FLOP, bytes, matrix-product FLOP) one block forward needs for
+    molecules of n_real atoms padded to n_pad: the edge MLPs over real
+    ordered pairs, the node-side products over real nodes, each input read
+    and each output written once. The last is the share of FLOP in matrix
+    products (W2 per pair, the src/dst projections and the node MLP per
+    node), which kernel #1 runs on the tensor cores."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
@@ -160,9 +173,11 @@ def _block_work(cfg, n_real, n_pad, n_weights):
     gcl = edge_stage + nodes * (2 * 2 * H * H + 2 * 2 * H * H + 2 * H * H)  # src/dst, node MLP
     coord = edge_stage + nodes * (2 * 2 * H * H)
     flops = cfg.inv_sublayers * gcl + coord
+    tc = (cfg.inv_sublayers + 1) * pairs * 2 * H * H + nodes * (
+        cfg.inv_sublayers * 10 * H * H + 4 * H * H)
     b = len(n_real)
     nbytes = 4 * (b * n_pad * (2 * H + 3 * 3 + 1) + n_weights)
-    return flops, nbytes
+    return flops, nbytes, tc
 
 
 def _bwd_work(cfg, n_real, n_pad, n_weights):
@@ -173,16 +188,28 @@ def _bwd_work(cfg, n_real, n_pad, n_weights):
     x0, mask, the cotangents, the weights) read once and each output (dh, dx,
     dx0, the weight gradients) written once."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
-    fwd_flops, _ = _block_work(cfg, n_real, n_pad, n_weights)
+    fwd_flops, _, fwd_tc = _block_work(cfg, n_real, n_pad, n_weights)
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
     edge_stage = pairs * (4 * H * H + 4 * E * H + 4 * H)
     gcl = edge_stage + nodes * (8 * H * H + 12 * H * H)  # src/dst, node MLP
     coord = edge_stage + nodes * 8 * H * H
     flops = fwd_flops + cfg.inv_sublayers * gcl + coord
+    tc = fwd_tc + (cfg.inv_sublayers + 1) * pairs * 4 * H * H + nodes * (
+        cfg.inv_sublayers * 20 * H * H + 8 * H * H)
     b = len(n_real)
     nbytes = 4 * (b * n_pad * (3 * H + 5 * 3 + 1) + 2 * n_weights)
-    return flops, nbytes
+    return flops, nbytes, tc
+
+
+def _bounds(flops, nbytes, tc):
+    """(bound ms, what bounds it, bound ms as the whole-block kernels run
+    it): the f32 bound is the larger of all FLOP at the f32 rate and the
+    bytes at the memory rate; the second puts the matrix products on the
+    tensor cores, _TF32_SPLITS TF32 products each, and the rest at f32."""
+    t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+    t_tc = (_TF32_SPLITS * tc / _TF32_PEAK + (flops - tc) / _FLOP_PEAK) * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", max(t_tc, t_bytes)
 
 
 def _stage_work(cfg, n_real, n_pad, n_weights, coord):
@@ -219,6 +246,39 @@ def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
     return flops, nbytes
 
 
+# The grids of the whole-block kernels (csrc/egnn_block_tile.cuh,
+# egnn_block_bwd.cu), by mangled-name substring; templates <HP, COORD>.
+_TILE_KERNELS = ("edge_tile_bwd_kernel", "edge_tile_kernel", "node_gemm_tc_kernel",
+                 "wgrad_tc_kernel", "tile_column_sum_kernel")
+
+
+def _ptxas_kernels(log):
+    """Per compiled entry of an nvcc -Xptxas -v log: its name (for the
+    whole-block kernels' own grids, else None), registers and spill bytes."""
+    import re
+
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in _TILE_KERNELS if k in mangled), None)
+            t = re.search(r"ILi(\d+)ELb([01])E", mangled)
+            if name and t:
+                name += f"<HP={t.group(1)}, COORD={t.group(2)}>"
+            out.append({"name": name})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def _ragged_inputs(seed, B, n, H, dev, spread=8):
     """h, x, x0, node_mask on ``dev``: B molecules of n-spread..n atoms
     padded to n."""
@@ -244,13 +304,16 @@ def phase_kernel(card_name):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    B, H = 64, 256
+    H = 256
+    # (case, N, B, ragged spread): QM9's pads at B=64, GEOM's 48 and 64 at B=32.
     cases = [
-        ("sum", 16, {}), ("sum", 24, {}), ("sum", 32, {}),
-        ("mean", 32, {"aggregation_method": "mean"}), ("sin", 24, {"sin_embedding": True}),
+        ("sum", 16, 64, 8, {}), ("sum", 24, 64, 8, {}), ("sum", 29, 64, 8, {}),
+        ("sum", 32, 64, 8, {}), ("mean", 32, 64, 8, {"aggregation_method": "mean"}),
+        ("sin", 24, 64, 8, {"sin_embedding": True}), ("sum", 48, 32, 16, {}),
+        ("sum", 64, 32, 16, {}),
     ]
     rows = []
-    for case, n, extra in cases:
+    for case, n, B, spread, extra in cases:
         cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=H, n_layers=9,
                          attention=True, normalization_factor=1.0, **extra)
         gen = torch.Generator().manual_seed(n)
@@ -258,7 +321,7 @@ def phase_kernel(card_name):
         init_parameters(block, gen)
         block = block.to(dev).eval()
         n_weights = sum(p.numel() for p in block.parameters())
-        inputs = [_ragged_inputs(1000 * n + rep, B, n, H, dev) for rep in range(4)]
+        inputs = [_ragged_inputs(1000 * n + rep, B, n, H, dev, spread) for rep in range(4)]
         with torch.no_grad():
             h_k, x_k = egnn_block.block_forward_cuda(block, *inputs[0])
             h_p, x_p = egnn_block.block_forward_plain(block, *inputs[0])
@@ -273,18 +336,17 @@ def phase_kernel(card_name):
             ms = _time_ms(lambda *a: egnn_block.block_forward_cuda(block, *a), inputs)
             plain_ms = _time_ms(lambda *a: egnn_block.block_forward_plain(block, *a), inputs)
         n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
-        flops, nbytes = _block_work(cfg, n_real0, n, n_weights)
-        t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+        flops, nbytes, tc = _block_work(cfg, n_real0, n, n_weights)
+        bound, bound_by, bound_tc = _bounds(flops, nbytes, tc)
         row = {"case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
-               "tol": _KERNEL_RTOL * scale,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "tol": _KERNEL_RTOL * scale, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": bound_by, "bound_tc_ms": bound_tc,
                "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
         rows.append(row)
         print(f"phase 2: egnn_block {case} N={n} B={B} H={H} "
               f"max|d|={err:.3e} (tol {row['tol']:.2e}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms (TF32 off) bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) {row['tflops_achieved']:.2f} TFLOP/s, "
+              f"plain {plain_ms:.4f} ms (TF32 off) bound {bound:.4f} ms ({bound_by}, f32) "
+              f"{bound_tc:.4f} ms (split-TF32 products) {row['tflops_achieved']:.2f} TFLOP/s, "
               f"{cfg.n_layers} launches per sampler step, on {card_name}", flush=True)
     return rows
 
@@ -300,12 +362,15 @@ def phase_backward(card_name):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     H = 256
-    # (case, N, B, ragged spread): QM9's pads at B=64, GEOM's 48 and 64 at B=32.
+    # (case, N, B, ragged spread): QM9's pads at B=64 and two ragged tile
+    # edges (N=17: tiles of 3 rows, the last of 2; N=33: one row a tile, 33
+    # of 64 edge rows), GEOM's 48 and 64 at B=32.
     cases = [
-        ("sum", 16, 64, 8, {}), ("sum", 24, 64, 8, {}), ("sum", 29, 64, 8, {}),
-        ("sum", 32, 64, 8, {}), ("mean", 32, 64, 8, {"aggregation_method": "mean"}),
-        ("sin", 24, 64, 8, {"sin_embedding": True}), ("sum", 48, 32, 16, {}),
-        ("sum", 64, 32, 16, {}),
+        ("sum", 16, 64, 8, {}), ("sum", 17, 64, 8, {}), ("sum", 24, 64, 8, {}),
+        ("sum", 29, 64, 8, {}), ("sum", 32, 64, 8, {}),
+        ("mean", 32, 64, 8, {"aggregation_method": "mean"}),
+        ("sin", 24, 64, 8, {"sin_embedding": True}), ("sum", 33, 64, 8, {}),
+        ("sum", 48, 32, 16, {}), ("sum", 64, 32, 16, {}),
     ]
     rows = []
     for case, n, B, spread, extra in cases:
@@ -323,10 +388,22 @@ def phase_backward(card_name):
             inputs.append(_ragged_inputs(3000 * n + rep, B, n, H, dev, spread) + cots)
         got = egnn_block.block_backward_cuda(block, *inputs[0])
         want = egnn_block.block_backward_plain(block, *inputs[0])
+        # The training route: the forward saves its activations, the
+        # backward reads them instead of recomputing; the same bits. And a
+        # second run replays the first bit for bit (no atomics).
+        _, _, saved = egnn_block._forward_launch(block, *inputs[0][:4], save=True)
+        via_saved = egnn_block._backward_launch(block, *inputs[0], saved)
+        again = egnn_block.block_backward_cuda(block, *inputs[0])
         torch.cuda.synchronize()
         names = ["dh", "dx", "dx0"] + egnn_block.block_param_names(block)
+        flat = lambda r: [*r[:3], *r[3]]  # noqa: E731
+        for name, a, b_, c_ in zip(names, flat(got), flat(via_saved), flat(again)):
+            _check(torch.equal(a, b_), f"backward from the saved activations differs from the "
+                                       f"recompute on {name} at N={n} {extra}")
+            _check(torch.equal(a, c_), f"backward does not replay bit for bit on {name} at "
+                                       f"N={n} {extra}")
         err, worst = 0.0, ""
-        for name, g, w in zip(names, [*got[:3], *got[3]], [*want[:3], *want[3]]):
+        for name, g, w in zip(names, flat(got), flat(want)):
             _check(bool(torch.isfinite(g).all()), f"backward {name} not finite at N={n} {extra}")
             scale = max(1.0, float(w.abs().max()))
             d = float((g - w).abs().max())
@@ -336,20 +413,22 @@ def phase_backward(card_name):
             if d > err:
                 err, worst = d, name
         ms = _time_ms(lambda *a: egnn_block.block_backward_cuda(block, *a), inputs)
+        saved_ms = _time_ms(lambda *a: egnn_block._backward_launch(block, *a, saved), inputs[:1])
         plain_ms = _time_ms(lambda *a: egnn_block.block_backward_plain(block, *a), inputs)
         n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
-        flops, nbytes = _bwd_work(cfg, n_real0, n, n_weights)
-        t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+        flops, nbytes, tc = _bwd_work(cfg, n_real0, n, n_weights)
+        bound, bound_by, bound_tc = _bounds(flops, nbytes, tc)
         row = {"case": case, "N": n, "B": B, "H": H, "max_abs_err": err, "worst": worst,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "ms": ms, "saved_ms": saved_ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": bound_by, "bound_tc_ms": bound_tc,
                "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
         rows.append(row)
         print(f"phase 6: egnn_block_bwd {case} N={n} B={B} H={H} max|d|={err:.3e} ({worst}; "
-              f"{len(names)} tensors each within {_KERNEL_RTOL}*max(1,max|ref|)) kernel "
-              f"{ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) {row['tflops_achieved']:.2f} TFLOP/s on {card_name}",
-              flush=True)
+              f"{len(names)} tensors each within {_KERNEL_RTOL}*max(1,max|ref|); the saved "
+              f"route and a replay bit-identical) kernel {ms:.4f} ms (from saved activations "
+              f"{saved_ms:.4f} ms) plain {plain_ms:.4f} ms (TF32 off) bound {bound:.4f} ms "
+              f"({bound_by}, f32) {bound_tc:.4f} ms (split-TF32 products) "
+              f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
     return rows
 
 
@@ -454,10 +533,12 @@ def phase_train(card_name, tmpdir):
             "--n_stability_samples", "8", "--seed", str(seed)]
     print(f"phase 7: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
     _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     summary = main_qm9.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     fwd, bwd = egnn_block.launches, egnn_block.bwd_launches
 
     losses = summary["losses"][0]
@@ -485,7 +566,8 @@ def phase_train(card_name, tmpdir):
           f"{summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}, stability "
           f"{summary['stability'][0]}; launches fwd {fwd} = {steps}*{per_step} + 2*{per_eval} + "
           f"(({T}+1)*{layers}+{layers})*{chunks} chunks, bwd {bwd} = {steps}*{2 * layers}; "
-          f"main() {wall:.1f} s", flush=True)
+          f"main() {wall:.1f} s, peak device memory {peak_mb:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
 
     state = summary["state"]
     _check_trained(state, seed, decay, steps, os.path.join(tmpdir, "out", "smoke"), 7)
@@ -503,7 +585,7 @@ def phase_train(card_name, tmpdir):
     return {"fwd_launches": fwd, "bwd_launches": bwd, "chunks": chunks, "losses": losses,
             "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0],
             "stability": summary["stability"][0], "main_seconds": wall,
-            "epoch_seconds": summary["epoch_seconds"][0], "step_ms": times}
+            "epoch_seconds": summary["epoch_seconds"][0], "step_ms": times, "peak_mib": peak_mb}
 
 
 class _Replay:
@@ -1041,10 +1123,12 @@ def phase_geom_train(card_name, tmpdir):
     print(f"phase 13: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
           flush=True)
     _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     summary = main_geom_drugs.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     launches = _launch_counts()
 
     losses = summary["losses"][0]
@@ -1090,7 +1174,8 @@ def phase_geom_train(card_name, tmpdir):
           f"valid NLL {summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}, "
           f"stability {summary['stability'][0]}; launches {json.dumps(launches)} = what the "
           f"code implies for train pads {pads['train']}, eval pads {pads['eval']}, sampled "
-          f"chunk pads {pads['chunks']}; main() {wall:.1f} s", flush=True)
+          f"chunk pads {pads['chunks']}; main() {wall:.1f} s, peak device memory "
+          f"{peak_mb:.1f} MiB (torch.cuda.max_memory_allocated)", flush=True)
     state = summary["state"]
     _check_trained(state, seed, decay, 3, os.path.join(tmpdir, "out", "smoke"), 13)
 
@@ -1106,7 +1191,7 @@ def phase_geom_train(card_name, tmpdir):
     return {"launches": launches, "pads": pads, "losses": losses,
             "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0],
             "stability": summary["stability"][0], "main_seconds": wall,
-            "epoch_seconds": summary["epoch_seconds"][0], "step_ms": step_ms}
+            "epoch_seconds": summary["epoch_seconds"][0], "step_ms": step_ms, "peak_mib": peak_mb}
 
 
 def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
@@ -1488,6 +1573,16 @@ def main(argv=None) -> int:
     for name, lib in info["libs"].items():
         regs = [ln.strip() for ln in lib["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"phase 1: {name}: {lib['path']}; ptxas: {' | '.join(regs)}", flush=True)
+    # The whole-block kernels' own grids (#1, #2): registers and spills per
+    # instantiated tile; none may spill.
+    for name in ("egnn_block", "egnn_block_bwd"):
+        for k in _ptxas_kernels(info["libs"][name]["log"]):
+            if not k["name"]:
+                continue
+            print(f"phase 1: {name}: {k['name']}: {k.get('registers')} registers, "
+                  f"{k.get('spill_stores')} bytes spill stores, {k.get('spill_loads')} bytes "
+                  f"spill loads", flush=True)
+            _check(k.get("spill_stores") == 0, f"{name}: {k['name']} spills")
     print(f"phase 1: built {len(info['libs'])} kernel libraries with nvcc (sm_90a, in parallel) "
           f"in {info['seconds']:.1f} s{' (cached)' if info.get('cached') else ''}", flush=True)
     phase_seconds, clock = {}, [t_start]
@@ -1585,7 +1680,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None,
+        "bound_tc_ms": main_row["bound_tc_ms"], "library_ms": None,
     }, {
         "name": "egnn_block_bwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block_bwd.cu",
@@ -1594,7 +1689,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
-        "library_ms": None,
+        "bound_tc_ms": bwd_row["bound_tc_ms"], "library_ms": None,
     }] + [tiled_entry(tiled_rows, stage, f"egnn_{stage}", "egnn_tiled.cu", line,
                       geom_launches[stage] + geom_train_launches[stage])
            for stage, line in (("gcl_rows", 152), ("coord_rows", 166))]

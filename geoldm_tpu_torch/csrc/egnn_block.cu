@@ -1,8 +1,9 @@
 // One EGNN EquivariantBlock forward in f32 on Hopper (sm_90a).
 //
 // Replaces the TPU kernel geoldm_tpu/ops/pallas_egnn.py:_make_kernel over
-// _block_math (pallas_call at :447, via fused_block_apply :392). Same math:
-// edge mask = outer(node mask) minus the diagonal; distance features
+// _block_math (pallas_call at :447, via fused_block_apply :392); this is a
+// redesign for the H100 of the port's first, one-row-per-CTA version. Same
+// math: edge mask = outer(node mask) minus the diagonal; distance features
 // [radial(x), radial(x0)] (or their sin/cos embedding); coord_diff =
 // diff/(sqrt(r+1e-8)+norm_constant); then each GCL
 //   pre = h_i W1s + h_j W1d + e_ij W1e + b1 -> silu -> W2+b2 -> silu
@@ -10,24 +11,54 @@
 // and the coordinate MLP silu(silu(pre) W2 + b2) w3 -> tanh * coords_range,
 // x += sum_j coord_diff * s * mask / norm.
 //
-// What bounds it on an H100: at the QM9 shapes (H=256, N<=32) the edge
-// products [N*N, H] x [H, H] dominate, ~2*N^2*H^2 FLOP per molecule per
-// GCL/coord stage, against only O(N*H) bytes of node tensors and the
-// weights; it is bound by operations (f32 FMA, no TF32 and no wgmma in this
-// first version). The TPU kernel kept the whole [G*N*N, H] edge tensor in
-// VMEM; one molecule's edge activations at N=32 are 1 MB in f32, more than
-// the 227 KB of shared memory a block may use. So this design tiles by row:
-//   - a node GEMM (64x64 tiles, fused bias / silu / residual*mask epilogue)
-//     computes the src/dst projections and the node MLP;
-//   - an edge kernel runs one CTA per (molecule, row i) with one thread per
-//     hidden channel. It builds its row's [N, H] silu(pre) tile in shared
-//     memory, streams W2 through shared memory in 32-deep K chunks, and
-//     reduces its own row's aggregate (or coordinate update), so no atomics
-//     and no edge tensor ever reach device memory.
-// One call of egnn_block_forward enqueues 2 + 5 * inv_sublayers launches on
-// the caller's stream and never synchronises.
+// What bounds it on an H100: the edge products [B*N*N, H] x [H, H], 2*N^2*H^2
+// FLOP per molecule per GCL/coordinate stage, and the node products (src/dst
+// projection, node MLP), O(N*H^2). Run as three TF32 products (below) they
+// need 3x their FLOP against 495 TFLOP/s of dense TF32; the rest (first
+// layer, activations, reductions) against 67 TFLOP/s of f32; the bytes (node
+// tensors and weights) are far below both (chip_smoke.py phase 2 prints
+// both bounds).
+//
+// Design (egnn_block_tile.cuh):
+//   - a CTA owns a tile of R = 64/N whole rows of one molecule, R*N <= 64
+//     edge rows (N=29: 2 rows, 58 edges; N=48/64: 1 row), builds their
+//     silu(pre) in shared memory and streams W2 through two 16-deep shared
+//     stages with cp.async (XOR-swizzled, one barrier a stage), so each W2
+//     element serves R*N edges; the first version read all of W2 once per
+//     row, for N edges;
+//   - the product runs on the tensor cores, mma.sync.m16n8k8 TF32 with a
+//     2 x HP/64 warp grid, each warp a 32x64 register tile (no acc[N]
+//     arrays), at f32 accuracy by split TF32: x = hi + lo, each rounded to
+//     TF32, hi*hi + hi*lo + lo*hi accumulated in f32 (3xTF32). The dropped
+//     lo*lo term is below 2^-22 of a product, so an output stays within
+//     ~1e-6 relative of the f32 plain version, inside the
+//     1e-4*max(1, max|ref|) gates; one TF32 product keeps 2^-11, ~3e-4
+//     relative, and fails them (tests/test_torch_port_block_precision.py
+//     emulates both). An f32-FMA 2-D register tile was not built: even
+//     tripled, the products' tensor-core peak (495/3 TFLOP/s) is above the
+//     67 TFLOP/s of f32 FMA;
+//   - two CTAs share an SM (at most 128 registers, 105 KB of shared memory
+//     each at H=256), so one CTA's products overlap the other's elementwise
+//     passes; the elementwise passes take edges in batches of 8 (loads,
+//     then arithmetic, then stores) and find an edge's (i, j) in shared
+//     memory;
+//   - the epilogue keeps the tile in shared memory: one warp per edge forms
+//     the gate logit or coordinate scale in a fixed order, one thread per
+//     channel the masked sum over j, so no atomics and no edge tensor reach
+//     device memory;
+//   - the node GEMMs (projection, node MLP) run on the same 3xTF32 mma in
+//     #1/#2's own 32x64-tile GEMM (node_gemm_tc_kernel); the row-tiled
+//     kernels keep the f32 FMA GEMM of egnn_common.cuh.
+// Ragged tiles (N not a multiple of R) are masked: their empty m16 tiles
+// are skipped and their rows never written. No tile spills
+// (chip_smoke.py phase 1 prints ptxas' lines and fails on a spill).
+// With grad, the autograd Function asks this forward to save each GCL's
+// h, aggregate, z and silu(z) ([B*N, H] each) for the backward, which then
+// skips its forward recompute; under no_grad nothing extra is written.
+// One call of egnn_block_forward enqueues 2 + 5 * inv_sublayers launches
+// (two more per GCL with save) on the caller's stream and never synchronises.
 
-#include "egnn_common.cuh"
+#include "egnn_block_tile.cuh"
 
 extern "C" {
 
@@ -39,11 +70,12 @@ const char* egnn_block_error_string(int code) {
 //   edge_mlp.0.{weight,bias}, edge_mlp.2.{weight,bias}, att_mlp.0.{weight,bias}
 //   (null without attention), node_mlp.0.{weight,bias}, node_mlp.2.{weight,bias}.
 // coord_w: coord_mlp.0.{weight,bias}, coord_mlp.2.{weight,bias}, coord_mlp.4.weight.
-// Scratch: proj [B*N, 2H], agg [B*N, H], hidden [B*N, H]. Returns a
+// Scratch: proj [B*N, 2H], agg [B*N, H], hidden [B*N, H]. save: null, or
+// [4, n_gcl, B*N, H] for the backward (block_forward_chain). Returns a
 // cudaError_t value (0 on success).
 int egnn_block_forward(const float* h, const float* x, const float* x0,
                        const float* mask, float* h_out, float* x_out, float* proj,
-                       float* agg, float* hidden, const void* const* gcl_w,
+                       float* agg, float* hidden, float* save, const void* const* gcl_w,
                        const void* const* coord_w, int B, int N, int H, int E,
                        int n_gcl, int attention, int sin_emb, int use_tanh,
                        int mean_agg, float coords_range, float norm_constant,
@@ -51,50 +83,10 @@ int egnn_block_forward(const float* h, const float* x, const float* x0,
   if (B < 1 || N < 1 || N > kMaxNodes || H < 32 || H > kMaxHidden || H % 32 ||
       E < 0 || E > kMaxEdgeFeat || n_gcl < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int M = B * N;
-  const int ld1 = 2 * H + E;
-  const float norm_div = mean_agg ? (float)N : normalization_factor;
-
-  EdgeArgs ea = {};
-  ea.x = x; ea.x0 = x0; ea.mask = mask; ea.proj = proj;
-  ea.ld1 = ld1; ea.N = N; ea.H = H; ea.E = E;
-  ea.sin_emb = sin_emb; ea.attention = attention; ea.use_tanh = use_tanh;
-  ea.coords_range = coords_range; ea.norm_constant = norm_constant;
-  ea.norm_div = norm_div;
-
-  const float* hc = h;
-  int rc;
-  for (int gi = 0; gi < n_gcl; ++gi) {
-    const float* const* w = reinterpret_cast<const float* const*>(gcl_w) + 10 * gi;
-    if ((rc = launch_projection(hc, w[0], ld1, proj, M, H, s))) return rc;
-    ea.w1 = w[0]; ea.b1 = w[1]; ea.w2 = w[2]; ea.b2 = w[3];
-    ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = agg; ea.x_out = nullptr;
-    if ((rc = launch_edge<false>(ea, B, s))) return rc;
-
-    GemmArgs n1 = {};
-    n1.a1 = hc; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
-    n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
-    n1.c = hidden; n1.ldc = H; n1.M = M; n1.Nout = H; n1.K = 2 * H;
-    n1.epilogue = kEpiSilu;
-    if ((rc = launch_gemm(n1, s))) return rc;
-
-    // In place for gi > 0: each output element reads only its own residual.
-    GemmArgs n2 = {};
-    n2.a1 = hidden; n2.lda1 = H; n2.k1 = H;
-    n2.w = w[8]; n2.ldw = H; n2.bias = w[9];
-    n2.resid = hc; n2.ldr = H; n2.row_mask = mask;
-    n2.c = h_out; n2.ldc = H; n2.M = M; n2.Nout = H; n2.K = H;
-    n2.epilogue = kEpiResidMask;
-    if ((rc = launch_gemm(n2, s))) return rc;
-    hc = h_out;
-  }
-
-  const float* const* cw = reinterpret_cast<const float* const*>(coord_w);
-  if ((rc = launch_projection(hc, cw[0], ld1, proj, M, H, s))) return rc;
-  ea.w1 = cw[0]; ea.b1 = cw[1]; ea.w2 = cw[2]; ea.b2 = cw[3];
-  ea.w_out = cw[4]; ea.b_out = nullptr; ea.agg = nullptr; ea.x_out = x_out;
-  return launch_edge<true>(ea, B, s);
+  const BlockShape d = {B, N, H, E, n_gcl, attention, sin_emb, use_tanh, coords_range,
+                        norm_constant, mean_agg ? (float)N : normalization_factor};
+  return block_forward_chain(d, h, x, x0, mask, h_out, x_out, proj, agg, hidden, save, gcl_w,
+                             coord_w, true, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -277,9 +277,8 @@ __global__ void coord_grad_kernel(const float* x, const float* x0, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// Edge-stage backward, shared pieces: one CTA per (molecule b, row i),
-// blockDim.x == H (see egnn_block_bwd.cu:edge_bwd_kernel and
-// egnn_tiled_bwd.cu:rows_bwd_kernel).
+// Edge-stage backward pieces of the row-tiled kernels: one CTA per
+// (molecule b, row i), blockDim.x == H (see egnn_rows_bwd.cuh:rows_bwd_kernel).
 // ---------------------------------------------------------------------------
 
 struct EdgeBwdArgs {

@@ -2,8 +2,9 @@
 // backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu,
 // egnn_tiled_bwd.cu, and their sequence-parallel slabs in egnn_sp.cu):
 // constants, activations, the node GEMM with its fused epilogues, the
-// src/dst projection and the forward edge kernel. See egnn_block.cu and
-// egnn_tiled.cu for the designs and what bounds them on an H100.
+// src/dst projection and the row-tiled edge stages' arguments. The
+// whole-block kernels' edge tile is in egnn_block_tile.cuh. See egnn_block.cu
+// and egnn_tiled.cu for the designs and what bounds them on an H100.
 
 #pragma once
 
@@ -153,7 +154,8 @@ int launch_projection(const float* h, const float* w1, int ld1, float* proj,
 }
 
 // ---------------------------------------------------------------------------
-// Edge kernel: one CTA per (molecule b, row i), blockDim.x == H.
+// Edge-stage arguments of the row-tiled kernels (egnn_rows.cuh): one CTA per
+// (molecule b, row i), blockDim.x == H.
 // ---------------------------------------------------------------------------
 
 struct EdgeArgs {
@@ -188,173 +190,6 @@ size_t edge_smem_bytes(int nmax, int H) {
   return sizeof(float) * ((size_t)nmax * H + (size_t)kKChunk * (H + 1) +
                           (size_t)nmax * kMaxEdgeFeat + nmax + (size_t)nmax * 3 +
                           (size_t)nwarp * nmax + nmax);
-}
-
-template <int NMAX, bool COORD>
-__global__ void __launch_bounds__(kMaxHidden, 1) edge_kernel(EdgeArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int H = a.H, N = a.N;
-  const int c = threadIdx.x;
-  const int lane = c & 31, warp = c >> 5, nwarp = H >> 5;
-  const int b = blockIdx.y, i = blockIdx.x;
-  const size_t row_i = (size_t)b * N + i;
-
-  float* As = smem;                          // [NMAX][H] silu(first layer)
-  float* Ws = As + NMAX * H;                 // [kKChunk][H + 1] W2 chunk, k-major
-  float* ef = Ws + kKChunk * (H + 1);        // [NMAX][kMaxEdgeFeat]
-  float* em = ef + NMAX * kMaxEdgeFeat;      // [NMAX] edge mask of row i
-  float* cd = em + NMAX;                     // [NMAX][3] coord_diff
-  float* red = cd + NMAX * 3;                // [nwarp][NMAX]
-  float* rs = red + nwarp * NMAX;            // [NMAX] row reductions
-
-  // 1. Edge features, edge mask and coord_diff of row i.
-  const float mi = a.mask[row_i];
-  for (int j = c; j < NMAX; j += H) {
-    float* f = ef + j * kMaxEdgeFeat;
-#pragma unroll
-    for (int e = 0; e < kMaxEdgeFeat; ++e) f[e] = 0.f;
-    em[j] = 0.f;
-    cd[j * 3 + 0] = cd[j * 3 + 1] = cd[j * 3 + 2] = 0.f;
-    if (j >= N) continue;
-    const size_t rj = (size_t)b * N + j;
-    float d[3], d0[3];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      d[q] = a.x[row_i * 3 + q] - a.x[rj * 3 + q];
-      d0[q] = a.x0[row_i * 3 + q] - a.x0[rj * 3 + q];
-    }
-    const float r = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    const float r0 = d0[0] * d0[0] + d0[1] * d0[1] + d0[2] * d0[2];
-    const float norm = sqrtf(r + 1e-8f);
-#pragma unroll
-    for (int q = 0; q < 3; ++q) cd[j * 3 + q] = d[q] / (norm + a.norm_constant);
-    if (a.sin_emb) {
-      const float dist0 = sqrtf(r0 + 1e-8f);
-#pragma unroll
-      for (int k = 0; k < kNumFreq; ++k) {
-        f[k] = sinf(norm * kFreq[k]);
-        f[kNumFreq + k] = cosf(norm * kFreq[k]);
-        f[2 * kNumFreq + k] = sinf(dist0 * kFreq[k]);
-        f[3 * kNumFreq + k] = cosf(dist0 * kFreq[k]);
-      }
-    } else {
-      f[0] = r;
-      f[1] = r0;
-    }
-    em[j] = j == i ? 0.f : mi * a.mask[rj];
-  }
-  __syncthreads();
-
-  // 2. Row i's first-layer activations silu(src_i + dst_j + e_ij W1e + b1).
-  {
-    const float src = a.proj[row_i * 2 * H + c];
-    const float bias1 = a.b1[c];
-    float we[kMaxEdgeFeat];
-#pragma unroll
-    for (int e = 0; e < kMaxEdgeFeat; ++e)
-      we[e] = e < a.E ? a.w1[(size_t)c * a.ld1 + 2 * H + e] : 0.f;
-    for (int j = 0; j < NMAX; ++j) {
-      float v = 0.f;
-      if (j < N) {
-        const float dst = a.proj[((size_t)b * N + j) * 2 * H + H + c];
-        float ew = 0.f;
-#pragma unroll
-        for (int e = 0; e < kMaxEdgeFeat; ++e) ew = fmaf(ef[j * kMaxEdgeFeat + e], we[e], ew);
-        v = silu_f(src + dst + ew + bias1);
-      }
-      As[j * H + c] = v;
-    }
-  }
-  __syncthreads();
-
-  // 3. acc[j] = sum_k As[j][k] * W2[c][k], W2 streamed in K chunks.
-  float acc[NMAX];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) acc[j] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += kKChunk) {
-    for (int idx = c; idx < H * kKChunk; idx += H) {
-      const int row = idx / kKChunk, kk = idx % kKChunk;
-      Ws[kk * (H + 1) + row] = a.w2[(size_t)row * H + k0 + kk];
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int kk = 0; kk < kKChunk; kk += 4) {
-      const float w0 = Ws[(kk + 0) * (H + 1) + c];
-      const float w1 = Ws[(kk + 1) * (H + 1) + c];
-      const float w2 = Ws[(kk + 2) * (H + 1) + c];
-      const float w3 = Ws[(kk + 3) * (H + 1) + c];
-#pragma unroll
-      for (int j = 0; j < NMAX; ++j) {
-        const float4 av = *reinterpret_cast<const float4*>(As + j * H + k0 + kk);
-        acc[j] = fmaf(av.x, w0, acc[j]);
-        acc[j] = fmaf(av.y, w1, acc[j]);
-        acc[j] = fmaf(av.z, w2, acc[j]);
-        acc[j] = fmaf(av.w, w3, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // 4. m_j = silu(acc_j + b2); rs_j = sum_c m_j[c] * w_out[c] (attention
-  //    logit or coordinate scale), reduced across the CTA.
-  const float bias2 = a.b2[c];
-#pragma unroll
-  for (int j = 0; j < NMAX; ++j) acc[j] = silu_f(acc[j] + bias2);
-  const bool need_rowsum = COORD || a.attention;
-  if (need_rowsum) {
-    const float wo = a.w_out[c];
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      float p = acc[j] * wo;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (lane == 0) red[warp * NMAX + j] = p;
-    }
-    __syncthreads();
-    for (int j = c; j < NMAX; j += H) {
-      float s = 0.f;
-      for (int w = 0; w < nwarp; ++w) s += red[w * NMAX + j];
-      if (COORD) {
-        rs[j] = a.use_tanh ? tanhf(s) * a.coords_range : s;
-      } else {
-        rs[j] = sigmoid_f(s + a.b_out[0]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!COORD) {
-    float agg = 0.f;
-#pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      const float m = a.attention ? acc[j] * rs[j] : acc[j];
-      agg += m * em[j];
-    }
-    a.agg[row_i * H + c] = agg / a.norm_div;
-  } else if (c < 3) {
-    float aggx = 0.f;
-    for (int j = 0; j < NMAX; ++j) aggx += cd[j * 3 + c] * rs[j] * em[j];
-    a.x_out[row_i * 3 + c] = (a.x[row_i * 3 + c] + aggx / a.norm_div) * mi;
-  }
-}
-
-template <int NMAX, bool COORD>
-int launch_edge_n(const EdgeArgs& a, int B, cudaStream_t s) {
-  const size_t smem = edge_smem_bytes(NMAX, a.H);
-  cudaError_t e = cudaFuncSetAttribute(edge_kernel<NMAX, COORD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  edge_kernel<NMAX, COORD><<<dim3(a.N, B), a.H, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <bool COORD>
-int launch_edge(const EdgeArgs& a, int B, cudaStream_t s) {
-  if (a.N <= 16) return launch_edge_n<16, COORD>(a, B, s);
-  if (a.N <= 24) return launch_edge_n<24, COORD>(a, B, s);
-  if (a.N <= 32) return launch_edge_n<32, COORD>(a, B, s);
-  return launch_edge_n<kMaxNodes, COORD>(a, B, s);
 }
 
 }  // namespace

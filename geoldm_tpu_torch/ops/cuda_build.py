@@ -25,8 +25,8 @@ CSRC = _PKG / "csrc"
 SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu",
            "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu",
            "egnn_sp": CSRC / "egnn_sp.cu"}
-HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_rows.cuh",
-           CSRC / "egnn_rows_bwd.cuh")
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_block_tile.cuh",
+           CSRC / "egnn_rows.cuh", CSRC / "egnn_rows_bwd.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,12 +36,12 @@ _STR = ctypes.c_char_p
 # library -> {function: (argtypes, restype)}
 _SIGNATURES = {
     "egnn_block": {
-        "egnn_block_forward": ([_P] * 11 + [_I] * 9 + [_F] * 3 + [_P], _I),
+        "egnn_block_forward": ([_P] * 12 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_error_string": ([_I], _STR),
     },
     "egnn_block_bwd": {
-        "egnn_block_backward": ([_P] * 14 + [_I] * 9 + [_F] * 3 + [_P], _I),
-        "egnn_block_backward_scratch_floats": ([_I] * 5, _Z),
+        "egnn_block_backward": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
+        "egnn_block_backward_scratch_floats": ([_I] * 6, _Z),
         "egnn_block_bwd_error_string": ([_I], _STR),
     },
     "egnn_tiled": {

@@ -6,20 +6,26 @@ them.
   over ``_block_math`` (pallas_call at ``:447``), in ``csrc/egnn_block.cu``.
 - Backward: port of ``_make_bwd_kernel`` (pallas_call at ``:507``), in
   ``csrc/egnn_block_bwd.cu``: dh, dx, the exact dx0 and every weight
-  gradient summed over the batch, from the block inputs alone.
-- ``EquivariantBlockFunction`` runs the forward kernel, saves only the block
-  inputs and the weights, and runs the backward kernel (as ``_fwd``/``_bwd``
+  gradient summed over the batch.
+- Both run their edge MLPs on multi-row tiles (``csrc/egnn_block_tile.cuh``)
+  with the products on the tensor cores in split TF32 (3xTF32, f32
+  accuracy); ``split_tf32_matmul`` emulates that rounding on the CPU.
+- ``EquivariantBlockFunction`` runs the forward kernel, which on the card
+  also saves each GCL's h, aggregate, node-MLP pre-activation and its silu
+  ([B*N, H] each), and the backward kernel from those (as ``_fwd``/``_bwd``
   of ``fused_block_apply`` do with ``bwd_mode='pallas'``).
+  ``block_backward_cuda`` alone recomputes them with the forward's own code,
+  so both routes give the same bits.
 
 ``block_forward`` is what the EGNN calls. It routes by the padded node
 count N, from this card's limits:
 
-- N <= ``MAX_NODES`` (64): the whole-row kernels above. Their edge kernel
-  keeps a row's [N, H] silu(pre) tile in shared memory and one register
-  accumulator per column (``csrc/egnn_common.cuh:kMaxNodes``), which does
-  not fit a CTA's 227 KB and 255 registers beyond 64 columns. On the card it
-  goes through the Function while grad is enabled and is the bare forward
-  kernel under ``no_grad``; on the CPU it runs the plain version.
+- N <= ``MAX_NODES`` (64): the whole-molecule kernels above. A CTA owns
+  whole rows of one molecule, R = 64 // N of them, as one tile of at most 64
+  edge rows (``csrc/egnn_block_tile.cuh:kTileRows``), so a row longer than
+  64 columns does not fit. On the card it goes through the Function while
+  grad is enabled and is the bare forward kernel under ``no_grad`` (which
+  saves nothing); on the CPU it runs the plain version.
 - N > 64: the row-tiled kernels of ``ops.egnn_tiled`` (TPU kernels #3 and
   #4 forward, #5 backward; columns streamed in tiles), on the card and on
   the CPU alike (their plain versions there). While grad is enabled the
@@ -48,8 +54,8 @@ from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embed
 launches = 0
 bwd_launches = 0
 
-MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes, the shared-memory design's bound
-MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, one thread per hidden channel
+MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes: one row's edges fit one 64-row tile
+MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, the widest tile (512 threads)
 
 
 def _block_weight_names(block) -> tuple:
@@ -85,6 +91,10 @@ def _pointer_table(names, tensors: dict):
         *[tensors[n].data_ptr() if n is not None else None for n in names])
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"egnn_block: {name} is on {t.device}, expected {device}")
@@ -106,7 +116,7 @@ def _validate(block, h, x, x0, node_mask, **grads) -> dict:
     if n > MAX_NODES:
         raise ValueError(
             f"egnn_block kernel holds at most {MAX_NODES} nodes per molecule "
-            f"(one row's [N, H] edge tile in shared memory); got N={n}")
+            f"(one row's edges in one 64-row tile); got N={n}")
     if hidden % 32 or not 32 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"egnn_block kernel needs hidden_nf a multiple of 32 in "
                          f"[32, {MAX_HIDDEN}]; got {hidden}")
@@ -133,9 +143,10 @@ def _cfg_args(cfg):
             float(cfg.norm_constant), float(cfg.normalization_factor))
 
 
-def block_forward_cuda(block, h, x, x0, node_mask):
-    """The forward kernel. h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one
-    card -> (h_out [B,N,H], x_out [B,N,3])."""
+def _forward_launch(block, h, x, x0, node_mask, save: bool):
+    """The forward kernel -> (h_out, x_out, saved): saved is the
+    [4, inv_sublayers, B*N, H] stack of each GCL's output h, aggregate,
+    node-MLP pre-activation and its silu for the backward, or None."""
     global launches
     weights = _validate(block, h, x, x0, node_mask)
     b, n, hidden = h.shape
@@ -144,39 +155,53 @@ def block_forward_cuda(block, h, x, x0, node_mask):
     h_out = torch.empty_like(h)
     x_out = torch.empty_like(x)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
-    agg = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
-    tmp = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
+    if save:
+        saved = torch.empty((4, block.cfg.inv_sublayers, b * n, hidden), device=dev,
+                            dtype=torch.float32)
+        agg = tmp = None
+    else:
+        saved = None
+        agg = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
+        tmp = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
     gcl_names, coord_names = _block_weight_names(block)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.egnn_block_forward(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(),
-            h_out.data_ptr(), x_out.data_ptr(), proj.data_ptr(), agg.data_ptr(),
-            tmp.data_ptr(), _pointer_table(sum(gcl_names, []), weights),
-            _pointer_table(coord_names, weights), b, n, hidden, block.cfg.edge_feat_nf,
-            *_cfg_args(block.cfg), stream)
+            h_out.data_ptr(), x_out.data_ptr(), proj.data_ptr(), _ptr(agg), _ptr(tmp), _ptr(saved),
+            _pointer_table(sum(gcl_names, []), weights), _pointer_table(coord_names, weights),
+            b, n, hidden, block.cfg.edge_feat_nf, *_cfg_args(block.cfg), stream)
     if rc != 0:
         raise RuntimeError(f"egnn_block kernel launch failed: "
                            f"{lib.egnn_block_error_string(rc).decode()} (cudaError {rc})")
     launches += 1
+    return h_out, x_out, saved
+
+
+def block_forward_cuda(block, h, x, x0, node_mask):
+    """The forward kernel. h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one
+    card -> (h_out [B,N,H], x_out [B,N,3])."""
+    h_out, x_out, _ = _forward_launch(block, h, x, x0, node_mask, save=False)
     return h_out, x_out
 
 
-def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out):
-    """The backward kernel: cotangents dh_out [B,N,H], dx_out [B,N,3] of the
-    block outputs -> (dh, dx, dx0, [weight gradients in ``block_params``
-    order]), the weight gradients summed over the batch."""
+def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved):
+    """The backward kernel, from the forward's ``saved`` activations or,
+    with None, recomputing them."""
     global bwd_launches
     dh_out, dx_out = dh_out.contiguous(), dx_out.contiguous()
     weights = _validate(block, h, x, x0, node_mask, dh_out=dh_out, dx_out=dx_out)
     b, n, hidden = h.shape
     dev = h.device
     cfg = block.cfg
+    if saved is not None:
+        _check("saved", saved, (4, cfg.inv_sublayers, b * n, hidden), dev)
     lib = cuda_build.library("egnn_block_bwd")
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
     scratch = torch.empty(
-        lib.egnn_block_backward_scratch_floats(b, n, hidden, cfg.edge_feat_nf, cfg.inv_sublayers),
+        lib.egnn_block_backward_scratch_floats(b, n, hidden, cfg.edge_feat_nf, cfg.inv_sublayers,
+                                               int(saved is None)),
         device=dev, dtype=torch.float32)
     gcl_names, coord_names = _block_weight_names(block)
     flat_gcl = sum(gcl_names, [])
@@ -187,12 +212,38 @@ def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out):
             dh_out.data_ptr(), dx_out.data_ptr(), dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(),
             _pointer_table(flat_gcl, weights), _pointer_table(coord_names, weights),
             _pointer_table(flat_gcl, grads), _pointer_table(coord_names, grads),
-            scratch.data_ptr(), b, n, hidden, cfg.edge_feat_nf, *_cfg_args(cfg), stream)
+            _ptr(saved), scratch.data_ptr(), b, n, hidden,
+            cfg.edge_feat_nf, *_cfg_args(cfg), stream)
     if rc != 0:
         raise RuntimeError(f"egnn_block backward kernel launch failed: "
                            f"{lib.egnn_block_bwd_error_string(rc).decode()} (cudaError {rc})")
     bwd_launches += 1
     return dh, dx, dx0, [grads[name] for name in block_param_names(block)]
+
+
+def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out):
+    """The backward kernel: cotangents dh_out [B,N,H], dx_out [B,N,3] of the
+    block outputs -> (dh, dx, dx0, [weight gradients in ``block_params``
+    order]), the weight gradients summed over the batch. Recomputes the
+    forward's activations (the Function passes the saved ones instead)."""
+    return _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, None)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds on the card."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 as the kernels' tensor-core products compute it
+    (``csrc/egnn_block_tile.cuh``): each operand split into hi = tf32(v) and
+    lo = tf32(v - hi), then lo_a hi_b + hi_a lo_b + hi_a hi_b, each product
+    exact and the sums in float32. Plain emulation for the CPU tests."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
 def block_forward_plain(block, h, x, x0, node_mask, weights=None):
@@ -224,26 +275,30 @@ def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=Non
 
 class EquivariantBlockFunction(torch.autograd.Function):
     """One block with the kernels as forward and backward:
-    ``apply(block, h, x, x0, node_mask, *block_params(block))``. Saves only
-    the block inputs and the weights; the backward recomputes the rest. On
-    CPU tensors it runs the plain versions (for tests)."""
+    ``apply(block, h, x, x0, node_mask, *block_params(block))``. Saves the
+    block inputs, the weights and, on the card, the forward kernel's
+    activations (4 * inv_sublayers * B*N*H floats), so the backward kernel
+    does not recompute the forward. On CPU tensors it runs the plain
+    versions (for tests), which save no activations."""
 
     @staticmethod
     def forward(ctx, block, h, x, x0, node_mask, *weights):
         if h.is_cuda:
-            h_out, x_out = block_forward_cuda(block, h, x, x0, node_mask)
+            h_out, x_out, saved = _forward_launch(block, h, x, x0, node_mask, save=True)
         else:
             h_out, x_out = block_forward_plain(block, h, x, x0, node_mask, weights)
+            saved = None
         ctx.block = block
-        ctx.save_for_backward(h, x, x0, node_mask, *weights)
+        ctx.save_for_backward(h, x, x0, node_mask, saved, *weights)
         return h_out, x_out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh_out, dx_out):
-        h, x, x0, node_mask, *weights = ctx.saved_tensors
+        h, x, x0, node_mask, saved, *weights = ctx.saved_tensors
         if h.is_cuda:
-            dh, dx, dx0, dws = block_backward_cuda(ctx.block, h, x, x0, node_mask, dh_out, dx_out)
+            dh, dx, dx0, dws = _backward_launch(ctx.block, h, x, x0, node_mask, dh_out, dx_out,
+                                                saved)
         else:
             dh, dx, dx0, dws = block_backward_plain(ctx.block, h, x, x0, node_mask, dh_out,
                                                     dx_out, weights)

@@ -39,10 +39,12 @@ MODELS = (
 )
 STEPS, WARMUP, TRACED = 50, 10, 10
 # Device-time groups by kernel name (demangled, or mangled as a fallback);
-# the node GEMM is one template tagged by its owner (csrc/egnn_common.cuh).
+# the row-tiled kernels' node GEMM is one template tagged by its owner
+# (csrc/egnn_common.cuh); the whole-block kernel #1 has its own edge tile
+# and node GEMM (csrc/egnn_block_tile.cuh).
 GROUPS = (
-    ("k1_edge", ("edge_kernel",)),
-    ("k1_gemm", ("gemm_nt_kernel<1>", "gemm_nt_kernelILi1E")),
+    ("k1_edge", ("edge_tile_kernel",)),
+    ("k1_gemm", ("node_gemm_tc_kernel",)),
     ("k3_edge", ("gcl_rows_kernel",)),
     ("k3_gemm", ("gemm_nt_kernel<3>", "gemm_nt_kernelILi3E")),
     ("k4_edge", ("coord_rows_kernel",)),

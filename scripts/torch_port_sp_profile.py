@@ -45,7 +45,7 @@ from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 # Grids of the kernels (csrc/*.cu), by kernel-name substring, the SP
 # coordinate passes before the names they contain.
 KERNELS = ("slab_coord_rows_kernel", "slab_coord_cols_kernel", "rows_bwd_kernel",
-           "edge_bwd_kernel", "gcl_rows_kernel", "coord_rows_kernel", "edge_kernel",
+           "edge_tile_bwd_kernel", "gcl_rows_kernel", "coord_rows_kernel", "edge_tile_kernel",
            "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel", "reduce_rows_kernel",
            "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel", "silu_kernel",
            "dsilu_mul_kernel")

@@ -46,8 +46,9 @@ from geoldm_tpu_torch.train.train_step import create_train_state, make_train_ste
 from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 
 # Grids of the block kernels (csrc/*.cu), by kernel-name substring.
-KERNELS = ("rows_bwd_kernel", "edge_bwd_kernel", "gcl_rows_kernel", "coord_rows_kernel",
-           "edge_kernel", "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel",
+KERNELS = ("rows_bwd_kernel", "edge_tile_bwd_kernel", "gcl_rows_kernel", "coord_rows_kernel",
+           "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel", "tile_column_sum_kernel",
+           "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel",
            "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel",
            "silu_kernel", "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 10, 3, 3

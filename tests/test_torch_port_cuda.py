@@ -162,6 +162,93 @@ def test_backward_refuses_what_it_cannot_hold(card):
                                        x0, mask, dh, dx)
 
 
+# The multi-row edge tiles of #1/#2 (csrc/egnn_block_tile.cuh): R = 64 // N
+# rows a tile, the last tile of a molecule ragged when R does not divide N
+# (17: 3 rows, last 2; 29: 2, last 1; 33, 48, 64: one row of 33/48/64 edge
+# rows), B*N never a multiple of 64 here; hidden widths padded to 64, 128,
+# 256, 512 (32 and 96 masked).
+TILE_CASES = [
+    (17, (17, 12, 3), 32, {}), (29, (29, 21, 29), 128, {}), (33, (33, 30, 17), 32, {}),
+    (48, (48, 33, 40), 96, {"inv_sublayers": 2}), (64, (64, 49, 57), 32, {"attention": False}),
+    (29, (29, 24), 512, {}), (17, (17, 9), 128, {"sin_embedding": True}),
+]
+
+
+def _tile_case(card, n, n_real, hidden, variant):
+    block = _block(card, hidden=hidden, **variant)
+    b = len(n_real)
+    return block, _inputs(card, b, n, hidden, n_real), _cotangents(card, b, n, hidden)
+
+
+@pytest.mark.parametrize("n,n_real,hidden,variant", TILE_CASES)
+def test_block_kernels_on_ragged_tiles_match_plain(card, n, n_real, hidden, variant):
+    block, args, cots = _tile_case(card, n, n_real, hidden, variant)
+    with torch.no_grad():
+        h_k, x_k = egnn_block.block_forward_cuda(block, *args)
+        h_p, x_p = egnn_block.block_forward_plain(block, *args)
+    scale = max(1.0, float(h_p.abs().max()), float(x_p.abs().max()))
+    assert float((h_k - h_p).abs().max()) <= BWD_RTOL * scale
+    assert float((x_k - x_p).abs().max()) <= BWD_RTOL * scale
+    _assert_backward_close(block, args, cots)
+
+
+def _flat(grads):
+    return [*grads[:3], *grads[3]]
+
+
+@pytest.mark.parametrize("n,n_real,hidden,variant", TILE_CASES[:5])
+def test_block_backward_replays_and_saved_route_is_bit_identical(card, n, n_real, hidden,
+                                                                 variant):
+    """Two backward runs give the same bits (fixed reduction order, no
+    atomics), and the backward from the forward's saved activations (the
+    autograd Function's route) equals the one that recomputes them."""
+    block, args, cots = _tile_case(card, n, n_real, hidden, variant)
+    first = egnn_block.block_backward_cuda(block, *args, *cots)
+    second = egnn_block.block_backward_cuda(block, *args, *cots)
+    h_out, x_out, saved = egnn_block._forward_launch(block, *args, save=True)
+    via_saved = egnn_block._backward_launch(block, *args, *cots, saved)
+    with torch.no_grad():
+        h_k, x_k = egnn_block.block_forward_cuda(block, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(h_out, h_k) and torch.equal(x_out, x_k)
+    assert saved.shape == (4, block.cfg.inv_sublayers, len(n_real) * n, hidden)
+    for a, b, c in zip(_flat(first), _flat(second), _flat(via_saved)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_block_function_saves_activations_only_under_grad(card, monkeypatch):
+    """With grad the Function's forward saves the activations for the
+    backward; under no_grad the forward saves and keeps nothing beyond its
+    two outputs."""
+    block, args, cots = _tile_case(card, 29, (29, 21, 29), 128, {})
+    seen = []
+    launch = egnn_block._forward_launch
+
+    def spy(*a, save):
+        seen.append(save)
+        return launch(*a, save=save)
+
+    monkeypatch.setattr(egnn_block, "_forward_launch", spy)
+    h, x, x0, mask = args
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        h_out, x_out = egnn_block.block_forward(block, h, x, x0, mask)
+    torch.cuda.synchronize()
+    rounded = sum((t.numel() * 4 + 511) // 512 * 512 for t in (h_out, x_out))
+    assert torch.cuda.memory_allocated() - before == rounded
+    assert seen == [False]
+    del h_out, x_out
+    hg = h.detach().requires_grad_()
+    h_out, x_out = egnn_block.block_forward(block, hg, x, x0, mask)
+    assert seen == [False, True]
+    torch.autograd.backward((h_out, x_out), cots)
+    want = egnn_block.block_backward_cuda(block, h, x, x0, mask, *cots)
+    assert torch.equal(hg.grad, want[0])
+    for p, g in zip(egnn_block.block_params(block), want[3]):
+        assert torch.equal(p.grad, g)
+
+
 # Row-tiled kernels (#3, #4) vs their plain versions: f32 in other orders,
 # each output within TILED_RTOL * max(1, max|ref|).
 TILED_RTOL = 1e-4
