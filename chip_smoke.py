@@ -5,8 +5,9 @@
 Phases (each prints a line; any failure exits non-zero before the result):
   1. the card's name and power limit (nvidia-smi), and the kernel build
      (one nvcc per source in geoldm_tpu_torch/csrc, for sm_90a, in parallel),
-     with ptxas' registers and spills of the whole-block kernels' own grids
-     (none may spill);
+     with ptxas' registers and spills of the grids on the tensor-core tile:
+     the whole-block kernels' own and the row-tiled forward grid in each of
+     the three libraries that build it (none may spill);
   2. the EquivariantBlock kernel against its plain PyTorch version on the
      card at H=256, B=64, N in {16, 24, 29, 32} with ragged masks, plus one
      'mean'-aggregation and one sin-embedding case, and at GEOM's pads B=32,
@@ -40,8 +41,10 @@ Phases (each prints a line; any failure exits non-zero before the result):
   9. the row-tiled GCL (#3) and coordinate (#4) kernels against their plain
      versions on the card at H=256, B=16, N in {96, 136, 184} with ragged
      masks (n-16..n atoms), plus one 'mean' case at N=181 and one
-     sin-embedding case at N=96, with times and per-stage bounds; and the
-     block kernel against its plain version and the tiled path at N=48, 64;
+     sin-embedding case at N=96, with times and per-stage bounds (f32, and
+     with the edge W2 product at the split-TF32 rate of the tensor cores);
+     and the block kernel against its plain version and the tiled path at
+     N=48, 64;
  10. a GEOM-Drugs latent-diffusion model at the recipe (nf=256, 4 layers,
      latent_nf=2, no charges, T=1000, random weights from seed 0) written
      with dataset "geom" and served with --dataset geom --batch_max 16: a
@@ -74,7 +77,8 @@ Phases (each prints a line; any failure exits non-zero before the result):
      split (181 atoms padded to 184 over 4 ranks, 'mean' over 181), one
      sin-embedding case, and the SP epoch's pads 48 and 64 over 2 ranks at
      B=32 in both directions; every output within 1e-4*max(1, max|ref|),
-     weight gradients included, with times and per-slab bounds;
+     weight gradients included, with times and per-slab bounds (the
+     forward's also with its W2 product at the split-TF32 rate);
  16. the GEOM training entry point with --sp 2 at the recipe (as phase 13)
      on a fabricated conformer file with one full batch at pads 184 and 48:
      two ranks share the card over gloo (the placement rule is printed); one
@@ -110,8 +114,9 @@ import numpy as np
 # HBM3"): dense non-tensor-core float32 FLOP/s and HBM bytes/s.
 _H100_SXM = "H100 80GB HBM3"
 _FLOP_PEAK, _BW_PEAK = 67.0e12, 3.35e12
-# Dense TF32 on the tensor cores, where the whole-block kernels (#1, #2) run
-# their products in split TF32: three TF32 products for each f32 product.
+# Dense TF32 on the tensor cores, where the whole-block kernels (#1, #2) and
+# the row-tiled forward grid (#3, #4, #6) run their products in split TF32:
+# three TF32 products for each f32 product.
 _TF32_PEAK, _TF32_SPLITS = 495.0e12, 3
 
 # Kernel vs plain: both sum in float32 but in different orders. Holds for
@@ -203,20 +208,23 @@ def _bwd_work(cfg, n_real, n_pad, n_weights):
 
 
 def _bounds(flops, nbytes, tc):
-    """(bound ms, what bounds it, bound ms as the whole-block kernels run
-    it): the f32 bound is the larger of all FLOP at the f32 rate and the
-    bytes at the memory rate; the second puts the matrix products on the
-    tensor cores, _TF32_SPLITS TF32 products each, and the rest at f32."""
+    """(bound ms, what bounds it, bound ms as the tile kernels run it): the
+    f32 bound is the larger of all FLOP at the f32 rate and the bytes at the
+    memory rate; the second puts the ``tc`` FLOP of the matrix products the
+    kernel runs on the tensor cores there, _TF32_SPLITS TF32 products each,
+    and the rest at f32."""
     t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
     t_tc = (_TF32_SPLITS * tc / _TF32_PEAK + (flops - tc) / _FLOP_PEAK) * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", max(t_tc, t_bytes)
 
 
 def _stage_work(cfg, n_real, n_pad, n_weights, coord):
-    """(FLOP, bytes) one row-tiled stage needs: the edge MLP over real ordered
-    pairs and the node-side products over real nodes (the two halves of
-    ``_block_work``'s per-stage terms); h, x, x0 and the mask read once, the
-    stage's output (h, or x for the coordinate stage) and its weights once."""
+    """(FLOP, bytes, W2 FLOP) one row-tiled stage needs: the edge MLP over
+    real ordered pairs and the node-side products over real nodes (the two
+    halves of ``_block_work``'s per-stage terms); h, x, x0 and the mask read
+    once, the stage's output (h, or x for the coordinate stage) and its
+    weights once. The last is the edge W2 product's share, which #3/#4 run
+    on the tensor cores (their node products stay on f32 FMA)."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
@@ -224,7 +232,7 @@ def _stage_work(cfg, n_real, n_pad, n_weights, coord):
     flops += nodes * (2 * 2 * H * H) if coord else nodes * (2 * 2 * H * H + 2 * 2 * H * H + 2 * H * H)
     b = len(n_real)
     nbytes = 4 * (b * n_pad * (H + 3 + 3 + 1 + (3 if coord else H)) + n_weights)
-    return flops, nbytes
+    return flops, nbytes, pairs * 2 * H * H
 
 
 def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
@@ -236,7 +244,7 @@ def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
     the mask, the cotangent and the weights read once, dh, dx, dx0 and the
     weight gradients written once."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
-    fwd_flops, _ = _stage_work(cfg, n_real, n_pad, n_weights, coord)
+    fwd_flops, _, _ = _stage_work(cfg, n_real, n_pad, n_weights, coord)
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
     flops = fwd_flops + pairs * (4 * H * H + 4 * E * H + 4 * H)
@@ -246,15 +254,19 @@ def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
     return flops, nbytes
 
 
-# The grids of the whole-block kernels (csrc/egnn_block_tile.cuh,
-# egnn_block_bwd.cu), by mangled-name substring; templates <HP, COORD>.
+# The grids on egnn_tile.cuh's tensor-core tile, by mangled-name substring
+# (templates <HP, COORD>): the whole-block kernels' (csrc/egnn_block_tile.cuh,
+# egnn_block_bwd.cu) and the row-tiled forward grid (egnn_rows.cuh), which
+# the libraries of #3/#4, #5 and #6/#7 each build.
 _TILE_KERNELS = ("edge_tile_bwd_kernel", "edge_tile_kernel", "node_gemm_tc_kernel",
-                 "wgrad_tc_kernel", "tile_column_sum_kernel")
+                 "wgrad_tc_kernel", "tile_column_sum_kernel", "rows_tile_kernel")
+# Library -> the rows_tile_kernel instantiations it must hold (HP x COORD).
+_ROW_GRIDS = {"egnn_tiled": 8, "egnn_tiled_bwd": 4, "egnn_sp": 8}
 
 
 def _ptxas_kernels(log):
     """Per compiled entry of an nvcc -Xptxas -v log: its name (for the
-    whole-block kernels' own grids, else None), registers and spill bytes."""
+    grids of ``_TILE_KERNELS``, else None), registers and spill bytes."""
     import re
 
     out = []
@@ -877,17 +889,17 @@ def phase_tiled(card_name):
                 ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a), ins)
                 plain_ms = _time_ms(lambda *a, m=mod, f=plain_fn: f(m, *a), ins)
             n_weights = sum(p.numel() for p in mod.parameters())
-            flops, nbytes = _stage_work(block.cfg, n_real0, n, n_weights, stage == "coord_rows")
-            t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+            flops, nbytes, tc = _stage_work(block.cfg, n_real0, n, n_weights,
+                                            stage == "coord_rows")
+            bound, bound_by, bound_tc = _bounds(flops, nbytes, tc)
             row = {"stage": stage, "case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
                    "tol": _KERNEL_RTOL * scale, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "bound_ms": bound, "bound_by": bound_by, "bound_tc_ms": bound_tc,
                    "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
             rows.append(row)
             print(f"phase 9: {stage} {case} N={n} B={B} H={H} max|d|={err:.3e} "
                   f"(tol {row['tol']:.2e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                  f"bound {bound:.4f} ms ({bound_by}, f32) {bound_tc:.4f} ms (split-TF32 W2) "
                   f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
 
     # GEOM's buckets 48 and 64 stay on the block kernel: it against its plain
@@ -1195,15 +1207,17 @@ def phase_geom_train(card_name, tmpdir):
 
 
 def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
-    """(FLOP, bytes) one SP slab stage needs, forward (#6) or backward (#7),
-    for molecules of n_real atoms padded to n_pad and the slab of s rows at
-    row0: the edge MLP over the slab's real ordered pairs (its real rows
+    """(FLOP, bytes, forward W2 FLOP) one SP slab stage needs, forward (#6)
+    or backward (#7), for molecules of n_real atoms padded to n_pad and the
+    slab of s rows at row0: the edge MLP over the slab's real ordered pairs (its real rows
     against every other real atom), the src projection (and a GCL's node MLP)
     over the slab's real rows, the dst projection over every real atom
     (``_stage_work``'s terms split by view; the backward adds
     ``_stage_bwd_work``'s); the full view (h, x, x0, mask), the slab's view
     and its output read or written once, and for the backward the cotangent,
-    both views' dh, dx, dx0 and the weight gradients."""
+    both views' dh, dx, dx0 and the weight gradients. The last is the
+    forward edge W2 product over the slab's real pairs, which #6 runs on the
+    tensor cores."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     rows = np.clip(n_real - row0, 0, s)
     pairs = float(np.sum(rows * (n_real - 1)))
@@ -1219,7 +1233,7 @@ def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
         if not coord:
             flops += slab * 12 * H * H
         nbytes += 4 * (b * s * out + b * (n_pad + s) * (H + 3 + 3) + n_weights)
-    return flops, nbytes
+    return flops, nbytes, pairs * 2 * H * H
 
 
 def phase_sp_kernels(card_name):
@@ -1294,21 +1308,27 @@ def phase_sp_kernels(card_name):
                         plain_ms = (_time_ms(lambda *a, m=mod, f=plain: f(m, *a), args)
                                     if case == "sum" and slab == 1 else None)
                     n_weights = sum(p.numel() for p in mod.parameters())
-                    flops, nbytes = _sp_stage_work(block.cfg, n_real0, n, row0, s, n_weights,
-                                                   stage == "coord_rows", direction == "bwd")
-                    t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+                    flops, nbytes, tc = _sp_stage_work(block.cfg, n_real0, n, row0, s,
+                                                       n_weights, stage == "coord_rows",
+                                                       direction == "bwd")
+                    bound, bound_by, bound_tc = _bounds(flops, nbytes, tc)
                     row = {"stage": stage, "dir": direction, "case": case, "N": n,
                            "N_egnn": n_egnn, "S": s, "row0": row0, "B": B, "H": H,
                            "max_abs_err": err, "worst": worst, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": max(t_ops, t_bytes),
-                           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                           "bound_ms": bound, "bound_by": bound_by,
                            "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
+                    # The forward's W2 product runs on the tensor cores (#6);
+                    # the backward's edge grid (#7) stays on f32 FMA.
+                    tc_txt = ""
+                    if direction == "fwd":
+                        row["bound_tc_ms"] = bound_tc
+                        tc_txt = f" {bound_tc:.4f} ms (split-TF32 W2)"
                     rows.append(row)
                     plain_txt = f" plain {plain_ms:.4f} ms" if plain_ms is not None else ""
                     print(f"phase 15: SP {stage} {direction} {case} N={n} S={s} row0={row0} "
                           f"B={B} H={H} max|d|={err:.3e} ({worst}; {len(names)} tensors each "
                           f"within {_KERNEL_RTOL}*max(1,max|ref|)) kernel {ms:.4f} ms"
-                          f"{plain_txt} bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                          f"{plain_txt} bound {bound:.4f} ms ({bound_by}, f32){tc_txt} "
                           f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
             del inputs
             torch.cuda.empty_cache()
@@ -1573,16 +1593,23 @@ def main(argv=None) -> int:
     for name, lib in info["libs"].items():
         regs = [ln.strip() for ln in lib["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"phase 1: {name}: {lib['path']}; ptxas: {' | '.join(regs)}", flush=True)
-    # The whole-block kernels' own grids (#1, #2): registers and spills per
-    # instantiated tile; none may spill.
-    for name in ("egnn_block", "egnn_block_bwd"):
+    # The grids on the tensor-core tile (#1, #2, and #3/#4's row grid in the
+    # libraries of #3/#4, #5 and #6): registers and spills per instantiated
+    # tile; none may spill, and each row library holds its row grids.
+    for name in ("egnn_block", "egnn_block_bwd", *_ROW_GRIDS):
+        row_grids = 0
         for k in _ptxas_kernels(info["libs"][name]["log"]):
             if not k["name"]:
                 continue
+            row_grids += k["name"].startswith("rows_tile_kernel")
             print(f"phase 1: {name}: {k['name']}: {k.get('registers')} registers, "
                   f"{k.get('spill_stores')} bytes spill stores, {k.get('spill_loads')} bytes "
                   f"spill loads", flush=True)
-            _check(k.get("spill_stores") == 0, f"{name}: {k['name']} spills")
+            _check(k.get("spill_stores") == 0 and k.get("spill_loads") == 0,
+                   f"{name}: {k['name']} spills")
+        _check(row_grids == _ROW_GRIDS.get(name, 0),
+               f"{name}: {row_grids} rows_tile_kernel instantiations in ptxas' log, "
+               f"expected {_ROW_GRIDS.get(name, 0)}")
     print(f"phase 1: built {len(info['libs'])} kernel libraries with nvcc (sm_90a, in parallel) "
           f"in {info['seconds']:.1f} s{' (cached)' if info.get('cached') else ''}", flush=True)
     phase_seconds, clock = {}, [t_start]
@@ -1652,7 +1679,8 @@ def main(argv=None) -> int:
                 "launches": launches_,
                 "max_abs_err": max(r["max_abs_err"] for r in rows_ if r["stage"] == stage),
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"], "library_ms": None}
+                "bound_by": main["bound_by"], "library_ms": None,
+                **({"bound_tc_ms": main["bound_tc_ms"]} if "bound_tc_ms" in main else {})}
 
     def sp_entry(direction, line):
         # One block's stages (a GCL and the coordinate update) on the second
@@ -1669,7 +1697,9 @@ def main(argv=None) -> int:
                 "ms": sum(r["ms"] for r in main), "plain_ms": sum(r["plain_ms"] for r in main),
                 "bound_ms": sum(r["bound_ms"] for r in main),
                 "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in main)
-                             else "bytes"), "library_ms": None}
+                             else "bytes"), "library_ms": None,
+                **({"bound_tc_ms": sum(r["bound_tc_ms"] for r in main)}
+                   if direction == "fwd" else {})}
 
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",

@@ -19,7 +19,7 @@
 // tensors and weights) are far below both (chip_smoke.py phase 2 prints
 // both bounds).
 //
-// Design (egnn_block_tile.cuh):
+// Design (egnn_block_tile.cuh over egnn_tile.cuh):
 //   - a CTA owns a tile of R = 64/N whole rows of one molecule, R*N <= 64
 //     edge rows (N=29: 2 rows, 58 edges; N=48/64: 1 row), builds their
 //     silu(pre) in shared memory and streams W2 through two 16-deep shared

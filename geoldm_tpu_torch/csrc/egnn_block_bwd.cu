@@ -80,7 +80,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_bwd_ker
   auto prow = [&]() { return ((size_t)blockIdx.y * a.T + blockIdx.x) * (3 + E) * H; };
 
   // 1. Geometry and silu(pre), also written out for the W2 gradient.
-  tile_geometry<HP>(a, b, i0, mrows);
+  tile_geometry<HP>(a, b, i0, 0, N, mrows);
   __syncthreads();
   build_edge_tile<HP>(a, As, b, i0, mrows, a.abuf);
   __syncthreads();
@@ -288,21 +288,13 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_bwd_ker
   }
 }
 
-template <int HP, bool COORD>
-int launch_edge_tile_bwd_hp(const TileArgs& a, int B, cudaStream_t s) {
-  int rc = set_tile_smem<HP>((const void*)edge_tile_bwd_kernel<HP, COORD>);
-  if (rc) return rc;
-  edge_tile_bwd_kernel<HP, COORD>
-      <<<dim3(a.T, B), HP, TileCfg<HP>::kSmemFloats * sizeof(float), s>>>(a);
-  return (int)cudaGetLastError();
-}
-
 template <bool COORD>
 int launch_edge_tile_bwd(const TileArgs& a, int B, cudaStream_t s) {
-  if (a.H <= 64) return launch_edge_tile_bwd_hp<64, COORD>(a, B, s);
-  if (a.H <= 128) return launch_edge_tile_bwd_hp<128, COORD>(a, B, s);
-  if (a.H <= 256) return launch_edge_tile_bwd_hp<256, COORD>(a, B, s);
-  return launch_edge_tile_bwd_hp<512, COORD>(a, B, s);
+  const dim3 grid(a.T, B);
+  if (a.H <= 64) return launch_tile<64>(edge_tile_bwd_kernel<64, COORD>, grid, a, s);
+  if (a.H <= 128) return launch_tile<128>(edge_tile_bwd_kernel<128, COORD>, grid, a, s);
+  if (a.H <= 256) return launch_tile<256>(edge_tile_bwd_kernel<256, COORD>, grid, a, s);
+  return launch_tile<512>(edge_tile_bwd_kernel<512, COORD>, grid, a, s);
 }
 
 // ---------------------------------------------------------------------------

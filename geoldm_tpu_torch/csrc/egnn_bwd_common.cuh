@@ -304,7 +304,7 @@ struct EdgeBwdArgs {
   int N, H, E;
   int sin_emb, attention, use_tanh;
   float coords_range, norm_constant, norm_div;
-  // Row-tiled backward only: the row window, as in EdgeArgs (egnn_common.cuh);
+  // Row-tiled backward only: the row window, as in TileArgs (egnn_tile.cuh);
   // dagg, gx, rowsum and part are then [B*S, *] and the edge buffers
   // [B*S*N, *].
   const float* xr; const float* x0r; const float* maskr;

@@ -1,10 +1,10 @@
 // Device code shared by the EquivariantBlock forward (egnn_block.cu), its
 // backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu,
 // egnn_tiled_bwd.cu, and their sequence-parallel slabs in egnn_sp.cu):
-// constants, activations, the node GEMM with its fused epilogues, the
-// src/dst projection and the row-tiled edge stages' arguments. The
-// whole-block kernels' edge tile is in egnn_block_tile.cuh. See egnn_block.cu
-// and egnn_tiled.cu for the designs and what bounds them on an H100.
+// constants, activations, the node GEMM with its fused epilogues and the
+// src/dst projection. The edge tile of the forward grids is in
+// egnn_tile.cuh. See egnn_block.cu and egnn_tiled.cu for the designs and
+// what bounds them on an H100.
 
 #pragma once
 
@@ -151,45 +151,6 @@ template <int kOwner = 1>
 int launch_projection(const float* h, const float* w1, int ld1, float* proj,
                       int M, int H, cudaStream_t s) {
   return launch_projection_window<kOwner>(h, M, h, M, w1, ld1, proj, H, s);
-}
-
-// ---------------------------------------------------------------------------
-// Edge-stage arguments of the row-tiled kernels (egnn_rows.cuh): one CTA per
-// (molecule b, row i), blockDim.x == H.
-// ---------------------------------------------------------------------------
-
-struct EdgeArgs {
-  const float* proj;  // [B*N, 2H]: src | dst projections of the first layer
-  const float* x;     // [B*N, 3] current coordinates
-  const float* x0;    // [B*N, 3] EGNN input coordinates
-  const float* mask;  // [B*N]
-  const float* w1; int ld1;  // [H, 2H+E]; edge-feature columns start at 2H
-  const float* b1;
-  const float* w2; const float* b2;  // [H, H], [H]
-  const float* w_out;  // GCL: att_mlp.0.weight [1, H]; coord: coord_mlp.4.weight [1, H]
-  const float* b_out;  // GCL: att_mlp.0.bias [1]
-  float* agg;          // GCL output [B*N, H]
-  float* x_out;        // coord output [B*N, 3]
-  int N, H, E;
-  int sin_emb, attention, use_tanh;
-  float coords_range, norm_constant, norm_div;
-  // Row-tiled stages only (egnn_rows.cuh): the rows computed are the slab
-  // row0..row0+S of every molecule, read from their own [B*S, *] views (xr,
-  // x0r, maskr, and the src projection at row stride ld_src), while x, x0,
-  // mask and the dst projection (row stride ld_dst) give all N columns. A
-  // single-device stage passes the full view as its slab (row0 0, S = N);
-  // agg and x_out are then [B*S, *].
-  const float* xr; const float* x0r; const float* maskr;
-  const float* src; int ld_src;
-  const float* dst; int ld_dst;
-  int row0, S;
-};
-
-size_t edge_smem_bytes(int nmax, int H) {
-  const int nwarp = H / 32;
-  return sizeof(float) * ((size_t)nmax * H + (size_t)kKChunk * (H + 1) +
-                          (size_t)nmax * kMaxEdgeFeat + nmax + (size_t)nmax * 3 +
-                          (size_t)nwarp * nmax + nmax);
 }
 
 }  // namespace

@@ -482,11 +482,11 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
       return rc;
     if (!COORD) {
       // 1. Forward recompute of the aggregate and the node MLP, then its backward.
-      EdgeArgs ea = stage_args(rg, xg, x0g, mg, sc.proj, w, N, H, E, sin_emb, norm_div,
+      TileArgs ea = stage_args(rg, xg, x0g, mg, sc.proj, w, N, H, E, sin_emb, norm_div,
                                norm_constant);
       ea.attention = attention;
       ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = sc.agg;
-      if ((rc = launch_rows(false, ea, Bg, s))) return rc;
+      if ((rc = launch_rows<false>(ea, Bg, s))) return rc;
       GemmArgs n1 = {};
       n1.a1 = rg.h; n1.lda1 = H; n1.k1 = H; n1.a2 = sc.agg; n1.lda2 = H;
       n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];

@@ -16,8 +16,9 @@
 //
 // Design. The same kernels as the single-device row-tiled stages (#3, #4,
 // #5), run over a row window (egnn_rows.cuh, egnn_rows_bwd.cuh): one CTA per
-// (molecule, slab row), one thread per hidden channel, the columns streamed
-// in tiles of 32 through shared memory, no atomics. What differs:
+// (molecule, slab row), the columns walked in 64-column tensor-core windows
+// (forward) or in tiles of 32 with one thread per hidden channel (backward),
+// no atomics. What differs:
 //   - the slab's h, x, x0 and mask are their own [B*S, *] tensors and the
 //     CTA's global row is row0 + blockIdx.x, which the diagonal mask uses;
 //   - a GCL's first layer splits: the src half h_r W1s over the B*S slab
@@ -35,7 +36,8 @@
 // molecules: 1.66 GB at G = 32, S = 92, N = 184, H = 256.
 //
 // What bounds it on an H100: as #3-#5, the edge products over the slab's
-// S*N pairs, f32 FMA outside the tensor cores: bound by operations.
+// S*N pairs, bound by operations: the forward's W2 product in split TF32 on
+// the tensor cores, the backward's in f32 FMA.
 
 #include "egnn_rows_bwd.cuh"
 

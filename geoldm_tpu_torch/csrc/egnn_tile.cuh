@@ -1,0 +1,483 @@
+// The 64-edge-row tile of the EquivariantBlock edge stages on Hopper, shared
+// by the whole-molecule kernels (egnn_block_tile.cuh: #1, #2) and the
+// row-tiled forward grid (egnn_rows.cuh: #3, #4, #6 and #5/#7's recompute):
+// the tile's shared-memory layout, its split-TF32 tensor-core product with
+// W2 streamed through cp.async stages, the edge geometry and first layer of
+// a tile, and the per-edge gate / scale and the row sums in a fixed order.
+// A tile's edges are (row, column) pairs of one molecule: whole rows for #1
+// and #2, a window of one row's columns for the row grid. See egnn_block.cu
+// and egnn_tiled.cu for the designs and what bounds them on an H100.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "egnn_common.cuh"
+
+// The tile kernels' dynamic shared memory. Its regions sit at fixed offsets
+// from this symbol (TileCfg, TileEdges), so an address costs no register.
+extern __shared__ __align__(16) float tile_smem[];
+
+namespace {
+
+// threadIdx.x, read anew where used: a tile kernel that loops over tiles
+// (the row grid) would otherwise keep every thread-derived index live across
+// the product.
+__device__ __forceinline__ int tile_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// Edge rows (M) of one tile: #1/#2 take R = kTileRows / N whole rows i of
+// one molecule, each with its N columns j, edge row e = (i - i0) * N + j; the
+// row grid takes one row i and a window of kTileRows columns j0 + e.
+constexpr int kTileRows = 64;
+
+// The edge tiles' activations use the fast exponential and division (a few
+// ulp; the outputs stay ~1e-6 relative to the plain version).
+__device__ __forceinline__ float tile_sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+__device__ __forceinline__ float tile_silu(float v) { return v * tile_sigmoid(v); }
+__device__ __forceinline__ float tile_dsilu(float v) {
+  const float s = tile_sigmoid(v);
+  return s * (1.f + v * (1.f - s));
+}
+
+// A tile kernel runs HP threads, HP = the hidden width rounded up to 64,
+// 128, 256 or 512 (channels past H are masked). Its warps form a 2 x HP/64
+// grid over the [64, HP] product; each warp owns 32 rows x 64 columns, two
+// m16 and eight n8 mma tiles (64 f32 accumulators a thread). Up to HP=256
+// two CTAs share an SM (at most 128 registers a thread, 105 KB of shared
+// memory each), so one CTA's products overlap the other's elementwise passes.
+template <int HP>
+struct TileCfg {
+  static constexpr int kThreads = HP;
+  static constexpr int kWarps = HP / 32;
+  static constexpr int kMinBlocks = HP >= 512 ? 1 : 2;
+  static constexpr int kKC = 16;         // W2 depth of one shared stage
+  static constexpr int kLdA = HP + 4;    // [64][HP] tile, conflict-free fragments
+  static constexpr int kWStage = HP * kKC;  // XOR-swizzled (w_index), no padding
+  // As | two W2 stages | ef [64][kMaxEdgeFeat] | em [64] | cd [64][3] | rs [64] |
+  // rs2 [64] | ei, ej [64] (ints)
+  static constexpr size_t kSmemFloats = (size_t)kTileRows * kLdA + 2 * kWStage +
+                                        kTileRows * (kMaxEdgeFeat + 1 + 3 + 2 + 2);
+};
+
+// Offset of W2 element (k, n) of a K chunk in a shared stage. The forward
+// product's stage is [n][kk] (B(k, n) = W2[n][kk]), the transposed one's
+// [kk][n] (B(k, n) = W2[kk][n]); the XOR swizzle keeps the 16-byte groups
+// that cp.async writes whole and spreads an mma fragment's 32 reads over the
+// 32 banks.
+template <int HP, bool TRANS>
+__device__ __forceinline__ int w_index(int kk, int n) {
+  return TRANS ? kk * HP + (n ^ ((kk & 3) << 3)) : n * 16 + (kk ^ (((n >> 1) & 3) << 2));
+}
+
+// ---------------------------------------------------------------------------
+// Split TF32 on the tensor cores: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi); a*b ~ hi_a hi_b + hi_a lo_b + lo_a hi_b, each product
+// exact in the mma and summed in f32. The dropped lo_a lo_b is below 2^-22
+// |a b|, so a product keeps about f32's accuracy (one TF32 product alone
+// keeps 2^-11, which fails the 1e-4 gates).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b over one m16n8k8 tile (a row-major 16x8, b col-major 8x8).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The three split products of one tile, small terms first.
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(c, alo, bh0, bh1);
+  mma_tf32(c, ahi, bl0, bl1);
+  mma_tf32(c, ahi, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// One K chunk of W2 [H, H] into a shared stage, zero past H.
+template <int HP, bool TRANS>
+__device__ __forceinline__ void load_w_chunk(float* Ws, const float* w, int H, int k0) {
+  using C = TileCfg<HP>;
+  constexpr int KC = C::kKC;
+  if (!TRANS) {
+    for (int idx = tile_tid(); idx < HP * (KC / 4); idx += C::kThreads) {
+      const int n = idx / (KC / 4), q = idx % (KC / 4);
+      const bool ok = n < H;
+      cp_async16(Ws + w_index<HP, false>(4 * q, n), ok ? w + (size_t)n * H + k0 + 4 * q : w, ok);
+    }
+  } else {
+    for (int idx = tile_tid(); idx < KC * (HP / 4); idx += C::kThreads) {
+      const int kk = idx / (HP / 4), q = idx % (HP / 4);
+      const bool ok = 4 * q < H;
+      cp_async16(Ws + w_index<HP, true>(kk, 4 * q), ok ? w + (size_t)(k0 + kk) * H + 4 * q : w,
+                 ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// acc = As[0:64, 0:H] B over k < H, B = W2^T (forward) or W2 (TRANS), W2
+// streamed through two shared stages with cp.async, one barrier a chunk:
+// chunk ck+1 loads while ck is multiplied. m16 tiles at or past mrows are
+// skipped (warp-uniform). Ends with a barrier: As and the stages may be
+// overwritten right after.
+template <int HP, bool TRANS>
+__device__ __forceinline__ void tile_product(const float* As, float* Wb, const float* w, int H,
+                                             int mrows, float (&acc)[2][8][4]) {
+  using C = TileCfg<HP>;
+  constexpr int KC = C::kKC;
+  const int lane = tile_tid() & 31, warp = tile_tid() >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+  const bool live0 = wm * 32 < mrows, live1 = wm * 32 + 16 < mrows;
+  const int nchunks = H / KC;
+  load_w_chunk<HP, TRANS>(Wb, w, H, 0);
+  for (int ck = 0; ck < nchunks; ++ck) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ck landed for all; all are done with chunk ck - 1
+    if (ck + 1 < nchunks)
+      load_w_chunk<HP, TRANS>(Wb + ((ck + 1) & 1) * C::kWStage, w, H, (ck + 1) * KC);
+    const float* Ws = Wb + (ck & 1) * C::kWStage;
+    if (live0) {
+      // One k8 step per unrolled body keeps fewer fragments live (two CTAs
+      // an SM leave 128 registers a thread).
+#pragma unroll 1
+      for (int kk = 0; kk < KC; kk += 8) {
+        uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* ar = As + (wm * 32 + mi * 16 + g) * C::kLdA + ck * KC + kk + t;
+          split_tf32(ar[0], ahi[mi][0], alo[mi][0]);
+          split_tf32(ar[8 * C::kLdA], ahi[mi][1], alo[mi][1]);
+          split_tf32(ar[4], ahi[mi][2], alo[mi][2]);
+          split_tf32(ar[8 * C::kLdA + 4], ahi[mi][3], alo[mi][3]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const int n = wn * 64 + ni * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(Ws[w_index<HP, TRANS>(kk + t, n)], bh0, bl0);
+          split_tf32(Ws[w_index<HP, TRANS>(kk + t + 4, n)], bh1, bl1);
+          mma_3xtf32(acc[0][ni], ahi[0], alo[0], bh0, bh1, bl0, bl1);
+          if (live1) mma_3xtf32(acc[1][ni], ahi[1], alo[1], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// As[row][col] = acc + bias[col] (0 past H), through silu when SILU; the
+// fragment layout of mma.m16n8k8's C.
+template <int HP, bool SILU>
+__device__ __forceinline__ void store_acc(float* As, const float (&acc)[2][8][4],
+                                          const float* bias, int H) {
+  using C = TileCfg<HP>;
+  const int lane = tile_tid() & 31, warp = tile_tid() >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const int col = wn * 64 + ni * 8 + 2 * t;
+    const float b0 = bias && col < H ? __ldg(bias + col) : 0.f;
+    const float b1 = bias && col + 1 < H ? __ldg(bias + col + 1) : 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int row = wm * 32 + mi * 16 + g;
+      float v[4] = {acc[mi][ni][0] + b0, acc[mi][ni][1] + b1, acc[mi][ni][2] + b0,
+                    acc[mi][ni][3] + b1};
+      if (SILU) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = tile_silu(v[q]);
+      }
+      *reinterpret_cast<float2*>(As + row * C::kLdA + col) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(As + (row + 8) * C::kLdA + col) = make_float2(v[2], v[3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A tile's arguments and edges.
+// ---------------------------------------------------------------------------
+
+struct TileArgs {
+  // src | dst projections of the stage input, row stride 2H: the src half of
+  // the rows' view [B*S], the dst half of the columns' [B*N].
+  const float* proj;
+  const float* x;     // [B*N, 3] current coordinates of the columns
+  const float* x0;    // [B*N, 3] EGNN input coordinates
+  const float* mask;  // [B*N]
+  // The rows: the slab row0..row0+S of every molecule, its own [B*S, *]
+  // views; its diagonal sits at the global row row0 + s. The whole-molecule
+  // kernels and the single-device row-tiled stages pass the full view (the
+  // same pointers, row0 0, S = N).
+  const float* xr; const float* x0r; const float* maskr;
+  int row0, S;
+  const float* w1; int ld1;  // [H, 2H+E]; edge-feature columns start at 2H
+  const float* b1;
+  const float* w2; const float* b2;  // [H, H], [H]
+  const float* w_out;  // GCL: att_mlp.0.weight [1, H]; coord: coord_mlp.4.weight [1, H]
+  const float* b_out;  // GCL: att_mlp.0.bias [1]
+  float* agg;          // forward GCL output [B*S, H]
+  float* x_out;        // forward coordinate output [B*S, 3]
+  // Backward (egnn_block_bwd.cu); the edge index of (b, i, j) is (b*N + i)*N + j.
+  const float* dagg;   // GCL: [B*N, H] gradient of the aggregate
+  const float* gx;     // coord: [B*N, 3] gradient of x_out
+  float* abuf;         // [B*N*N, H] silu(pre)
+  float* dbuf;         // [B*N*N, H] gradient of the second layer's pre-activation
+  float* rowsum;       // [B*N, H] sum_j d(pre)
+  float* colpart;      // [B, T, N, H] sum over a tile's rows of d(pre)
+  float* part;         // [B*T, (3 + E) * H] per-tile partials: db2 | dw_out | db_out | dWe
+  float* dr;           // [B*N*N] += gradient of the squared distance (not sin)
+  float* dr0;          // [B*N*N] += gradient of the initial squared distance (not sin)
+  float* dcd;          // [B*N*N, 3] coord stage: gradient of coord_diff
+  int N, H, E, R, T;   // R, T: #1/#2's rows a tile and tiles a molecule
+  int sin_emb, attention, use_tanh;
+  float coords_range, norm_constant, norm_div;
+};
+
+// The per-edge shared arrays of a tile (TileCfg's layout after the W2
+// stages).
+template <int HP>
+struct TileEdges {
+  static constexpr int kBase = kTileRows * TileCfg<HP>::kLdA + 2 * TileCfg<HP>::kWStage;
+  __device__ static float* ef() { return tile_smem + kBase; }  // [64][kMaxEdgeFeat]
+  __device__ static float* em() { return ef() + kTileRows * kMaxEdgeFeat; }
+  __device__ static float* cd() { return em() + kTileRows; }  // [64][3]
+  __device__ static float* rs() { return cd() + kTileRows * 3; }
+  __device__ static float* rs2() { return rs() + kTileRows; }
+  // Row i (of the rows' view) and column j of tile edge e (i0 and j0 past
+  // mrows).
+  __device__ static int* ei() { return reinterpret_cast<int*>(rs2() + kTileRows); }
+  __device__ static int* ej() { return ei() + kTileRows; }
+};
+
+// Edge features, edge mask, coord_diff and (i, j) of the tile's mrows edges,
+// zero past them: edge e is (row i0 + e / W, column j0 + e % W) of molecule
+// b (#1/#2: W = N, j0 = 0).
+template <int HP>
+__device__ __forceinline__ void tile_geometry(const TileArgs& a, int b, int i0, int j0, int W,
+                                              int mrows) {
+  using T = TileEdges<HP>;
+  float *ef = T::ef(), *em = T::em(), *cd = T::cd();
+  for (int e = tile_tid(); e < kTileRows; e += blockDim.x) {
+    float* f = ef + e * kMaxEdgeFeat;
+#pragma unroll
+    for (int k = 0; k < kMaxEdgeFeat; ++k) f[k] = 0.f;
+    em[e] = T::rs()[e] = T::rs2()[e] = 0.f;
+    cd[e * 3 + 0] = cd[e * 3 + 1] = cd[e * 3 + 2] = 0.f;
+    T::ei()[e] = e < mrows ? i0 + e / W : i0;
+    T::ej()[e] = e < mrows ? j0 + e % W : j0;
+    if (e >= mrows) continue;
+    const int i = i0 + e / W, j = j0 + e % W;
+    const size_t ri = (size_t)b * a.S + i, rj = (size_t)b * a.N + j;
+    float d[3], d0[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      d[q] = a.xr[ri * 3 + q] - a.x[rj * 3 + q];
+      d0[q] = a.x0r[ri * 3 + q] - a.x0[rj * 3 + q];
+    }
+    const float r = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    const float r0 = d0[0] * d0[0] + d0[1] * d0[1] + d0[2] * d0[2];
+    const float norm = sqrtf(r + 1e-8f);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) cd[e * 3 + q] = d[q] / (norm + a.norm_constant);
+    if (a.sin_emb) {
+      const float dist0 = sqrtf(r0 + 1e-8f);
+#pragma unroll
+      for (int k = 0; k < kNumFreq; ++k) {
+        f[k] = sinf(norm * kFreq[k]);
+        f[kNumFreq + k] = cosf(norm * kFreq[k]);
+        f[2 * kNumFreq + k] = sinf(dist0 * kFreq[k]);
+        f[3 * kNumFreq + k] = cosf(dist0 * kFreq[k]);
+      }
+    } else {
+      f[0] = r;
+      f[1] = r0;
+    }
+    em[e] = j == a.row0 + i ? 0.f : a.maskr[ri] * a.mask[rj];
+  }
+}
+
+// The first layer's edge-feature weights of channel c (zero past E or H).
+__device__ __forceinline__ void edge_feat_weights(const TileArgs& a, int c, float* we) {
+#pragma unroll
+  for (int k = 0; k < kMaxEdgeFeat; ++k)
+    we[k] = (c < a.H && k < a.E) ? a.w1[(size_t)c * a.ld1 + 2 * a.H + k] : 0.f;
+}
+
+// Tile edges are taken kBatch at a time: their projections are loaded
+// first, so the loads of a batch overlap.
+constexpr int kBatch = 8;
+
+// pre[q] = src_i[c] + dst_j[c] + e_ij . We[c] + b1[c] for tile edges e0 + q
+// (0 past mrows), channel c < H. SLAB: the tile's rows are a slab's, whose
+// src projections sit at [B*S] rows of proj (the row grid); else they are
+// the molecule's own rows (#1/#2).
+template <int HP, bool SLAB = false>
+__device__ __forceinline__ void edge_pre_batch(const TileArgs& a, const float* we, float bias1,
+                                               int b, int e0, int c, float* pre) {
+  using T = TileEdges<HP>;
+  const int H = a.H;
+  const float* pb = a.proj + (size_t)b * a.N * 2 * H + c;  // molecule b's columns, channel c
+  const float* ps = SLAB ? a.proj + (size_t)b * a.S * 2 * H + c : pb;  // its rows
+  float src[kBatch], dst[kBatch];
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    const int e = e0 + q;
+    src[q] = __ldg(ps + T::ei()[e] * 2 * H);
+    dst[q] = __ldg(pb + T::ej()[e] * 2 * H + H);
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    const float* f = T::ef() + (e0 + q) * kMaxEdgeFeat;
+    float ew = fmaf(f[1], we[1], f[0] * we[0]);
+    if (a.sin_emb) {
+#pragma unroll
+      for (int k = 2; k < kMaxEdgeFeat; ++k) ew = fmaf(f[k], we[k], ew);
+    }
+    pre[q] = src[q] + dst[q] + ew + bias1;
+  }
+}
+
+// As[e][c] = silu(pre) for the tile's edges (thread c), zero elsewhere; the
+// backward also writes it to abuf. SLAB as edge_pre_batch.
+template <int HP, bool SLAB = false>
+__device__ __forceinline__ void build_edge_tile(const TileArgs& a, float* As, int b, int i0,
+                                                int mrows, float* abuf) {
+  using C = TileCfg<HP>;
+  const int c = tile_tid(), H = a.H, N = a.N;
+  float we[kMaxEdgeFeat];
+  edge_feat_weights(a, c, we);
+  const float bias1 = c < H ? a.b1[c] : 0.f;
+  float* ab = abuf ? abuf + ((size_t)b * N + i0) * N * H + c : nullptr;  // tile edge 0, channel c
+  for (int e0 = 0; e0 < kTileRows; e0 += kBatch) {
+    float pre[kBatch];
+    if (c < H) edge_pre_batch<HP, SLAB>(a, we, bias1, b, e0, c, pre);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int e = e0 + q;
+      float v = 0.f;
+      if (e < mrows && c < H) {
+        v = tile_silu(pre[q]);
+        if (ab) ab[e * H] = v;
+      }
+      As[e * C::kLdA + c] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rs_e = sum_c m_e[c] w_out[c] of the tile's mrows edges, m in As: the
+// attention gate sigmoid(. + b_out) or the coordinate scale (through tanh
+// when use_tanh), one warp per edge (two at a time) in a fixed order. Ends
+// with a barrier.
+template <int HP, bool COORD>
+__device__ __forceinline__ void edge_scalars(const TileArgs& a, const float* As, int mrows) {
+  using C = TileCfg<HP>;
+  float* rs = TileEdges<HP>::rs();
+  const int H = a.H, lane = tile_tid() & 31, warp = tile_tid() >> 5;
+  for (int e = warp; e < mrows; e += 2 * C::kWarps) {
+    const int e2 = e + C::kWarps < mrows ? e + C::kWarps : e;
+    float s = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < H; k += 32) {
+      const float w = __ldg(a.w_out + k);
+      s = fmaf(As[e * C::kLdA + k], w, s);
+      s2 = fmaf(As[e2 * C::kLdA + k], w, s2);
+    }
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      rs[e] = COORD ? (a.use_tanh ? tanhf(s) * a.coords_range : s) : sigmoid_f(s + a.b_out[0]);
+      if (e2 != e)
+        rs[e2] = COORD ? (a.use_tanh ? tanhf(s2) * a.coords_range : s2)
+                       : sigmoid_f(s2 + a.b_out[0]);
+    }
+  }
+  __syncthreads();
+}
+
+// agg + the messages of channel c over tile edges e0 .. e0+n-1, in edge
+// order: m (times the gate with attention) times the edge mask.
+template <int HP>
+__device__ __forceinline__ float fold_messages(const TileArgs& a, const float* As, int e0, int n,
+                                               int c, float agg) {
+  using T = TileEdges<HP>;
+  const float *em = T::em(), *rs = T::rs();
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const int e = e0 + j;
+    const float m = As[e * TileCfg<HP>::kLdA + c];
+    agg += (a.attention ? m * rs[e] : m) * em[e];
+  }
+  return agg;
+}
+
+// aggx + coordinate d's update over tile edges e0 .. e0+n-1, in edge order:
+// coord_diff times the scale times the edge mask.
+template <int HP>
+__device__ __forceinline__ float fold_coords(int e0, int n, int d, float aggx) {
+  using T = TileEdges<HP>;
+  const float *cd = T::cd(), *rs = T::rs(), *em = T::em();
+  for (int j = 0; j < n; ++j) {
+    const int e = e0 + j;
+    aggx += cd[e * 3 + d] * rs[e] * em[e];
+  }
+  return aggx;
+}
+
+template <int HP>
+int set_tile_smem(const void* kernel) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)(TileCfg<HP>::kSmemFloats * sizeof(float)));
+}
+
+// Launches a tile kernel of HP threads on grid with its shared memory.
+template <int HP>
+int launch_tile(void (*kernel)(TileArgs), dim3 grid, const TileArgs& a, cudaStream_t s) {
+  int rc = set_tile_smem<HP>((const void*)kernel);
+  if (rc) return rc;
+  kernel<<<grid, HP, TileCfg<HP>::kSmemFloats * sizeof(float), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

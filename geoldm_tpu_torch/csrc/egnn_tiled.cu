@@ -23,31 +23,42 @@
 //
 // What bounds it on an H100: the edge products, 2*N^2*H^2 FLOP per molecule
 // and stage for W2 alone (N=184, H=256: 4.4 GFLOP), against O(N*H) bytes of
-// node tensors and the weights; it is bound by operations (f32 FMA, no TF32
-// and no wgmma in this version). The TPU kernel holds a [T, N] row slab's
-// [T*N, H] edge activations in VMEM with all N columns resident. On Hopper
-// one row's [N, H] silu(pre) tile is 188 KB at N=184, H=256: with the W2
-// chunk and the pair features that is over the 227 KB a CTA may use, and
-// the whole-row kernel's one register accumulator per column would need 184
-// registers of a thread's 255. So this design streams the columns:
-//   - a CTA owns one row i of one molecule (grid N x B), one thread per
-//     hidden channel, and walks the columns in tiles of kColTile = 32;
-//   - per tile it builds the pair features, the edge mask, coord_diff and
-//     the [32, H] silu(pre) tile in shared memory (69 KB in all at H=256,
-//     135 KB at H=512), streams W2 through shared memory in 32-deep K chunks
-//     into 32 register accumulators, and folds the tile into the row's sums,
-//     which stay in registers: agg_i per channel (#3), or the three
-//     coordinate sums after a CTA-wide reduction of m . w3 per pair (#4).
-//     No edge tensor reaches device memory;
-//   - the last tile is masked, so every N from 1 to kMaxTiledNodes runs
-//     with no row or column left out, and a tile whose edge mask is all zero
-//     (padding columns, or every tile of a padding row) adds exactly zero
-//     and is skipped;
+// node tensors and the weights. Run as three TF32 products (below) W2 needs
+// 3x its FLOP against 495 TFLOP/s of dense TF32; the first layer, the
+// activations and the row sums run at f32's 67 TFLOP/s; the bytes are far
+// below both (chip_smoke.py phase 9 prints both bounds). The TPU kernel
+// holds a [T, N] row slab's [T*N, H] edge activations in VMEM with all N
+// columns resident; on Hopper one row's [N, H] silu(pre) is 188 KB at N=184,
+// H=256, over what two CTAs an SM may hold. So the grid (egnn_rows.cuh)
+// walks the columns in windows:
+//   - a CTA owns one row i of one molecule (grid N x B) and walks its
+//     columns in windows of 64; each window is one 64-edge-row tile of
+//     egnn_tile.cuh, the tile the whole-molecule kernels (#1/#2) use: pair
+//     features, edge mask and coord_diff of the window, its [64, H]
+//     silu(pre) in shared memory (edges 8 at a time), and the W2 product on
+//     the tensor cores, mma.sync.m16n8k8 TF32 over a 2 x HP/64 warp grid, at
+//     f32 accuracy by split TF32 (x = hi + lo, hi*hi + hi*lo + lo*hi in f32;
+//     one TF32 product keeps 2^-11 and fails the 1e-4 gates), W2 streamed
+//     through two 16-deep XOR-swizzled shared stages with cp.async, so each
+//     W2 element serves 64 edges (32 in the first, f32-FMA version);
+//   - bias and silu fuse into the accumulator store; one warp per edge forms
+//     the gate sigmoid(m . wa + ba) or the scale tanh(m . w3) * range in a
+//     fixed order; the row's sums stay in registers across windows: agg_i
+//     per channel (#3) or the three coordinate sums (#4). No edge tensor
+//     reaches device memory;
+//   - up to H=256 two CTAs share an SM (at most 128 registers a thread, 105
+//     KB of shared memory each), so one CTA's products overlap the other's
+//     elementwise passes; H=512 runs one;
+//   - the last window is masked and its m16 tiles past the live edges are
+//     skipped, so every N from 1 to kMaxTiledNodes runs with no row or
+//     column left out; a window whose edge mask is all zero (padding
+//     columns, or every window of a padding row) adds exactly zero and is
+//     skipped;
 //   - each CTA writes only its own row: no atomics, and a run replays bit
 //     for bit;
 //   - the node-side products (src/dst projections, node MLP) run in the
-//     hand-written 64x64-tile GEMM of egnn_common.cuh with its fused bias /
-//     silu / residual*mask epilogues.
+//     hand-written 64x64-tile f32 GEMM of egnn_common.cuh with its fused
+//     bias / silu / residual*mask epilogues.
 // The stages take a row window (egnn_rows.cuh); here the window is every row.
 // One call of egnn_gcl_rows enqueues 5 grids, one of egnn_coord_rows 3, on
 // the caller's stream; neither synchronises.

@@ -25,8 +25,8 @@ CSRC = _PKG / "csrc"
 SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu",
            "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu",
            "egnn_sp": CSRC / "egnn_sp.cu"}
-HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_block_tile.cuh",
-           CSRC / "egnn_rows.cuh", CSRC / "egnn_rows_bwd.cuh")
+HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_tile.cuh",
+           CSRC / "egnn_block_tile.cuh", CSRC / "egnn_rows.cuh", CSRC / "egnn_rows_bwd.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

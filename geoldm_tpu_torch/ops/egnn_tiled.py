@@ -21,11 +21,13 @@ versions and the block forward that chains them. Counterpart of
   GCL chain with #3 and runs #5 over the stages in reverse
   (``_tiled_block_bwd_impl :465``).
 
-The forward kernels (``csrc/egnn_tiled.cu``) stream the columns in tiles of
-32 through shared memory and keep each row's sums on chip; so does the edge
-grid of the backward (``csrc/egnn_tiled_bwd.cu``), which writes three
-edge-sized buffers for the passes that cross rows and runs the molecules in
-groups whose scratch stays under ``MAX_BWD_SCRATCH_BYTES``. The plain
+The forward kernels (``csrc/egnn_tiled.cu``) walk each row's columns in
+64-column windows, each a tile whose W2 product runs on the tensor cores in
+split TF32 (f32 accuracy), and keep each row's sums on chip; the edge grid
+of the backward (``csrc/egnn_tiled_bwd.cu``) streams the columns in tiles of
+32 through shared memory, writes three edge-sized buffers for the passes
+that cross rows and runs the molecules in groups whose scratch stays under
+``MAX_BWD_SCRATCH_BYTES``. The plain
 versions work on one [B, T, N, H] row slab at a time (T = ``PLAIN_TILE``
 rows of every molecule), so the forward never holds a [B, N, N, H] edge
 tensor; the plain backward is ``torch.autograd.grad`` of the plain stage.

@@ -1,20 +1,30 @@
-"""Time the whole-molecule EquivariantBlock kernels (#1 forward, #2 backward)
-of this checkout against another checkout's, on one NVIDIA card.
+"""Time the EquivariantBlock kernels of this checkout against another
+checkout's, on one NVIDIA card.
 
-    python3 scripts/torch_port_block_ab.py --other <checkout>
+    python3 scripts/torch_port_block_ab.py --other <checkout> [--suite block|rows]
 
 Each tree runs in its own interpreter, with its own package and kernel
-build, in turns: other, this, this, other. A run times, with CUDA events
-over 20 calls after 3 warm-ups on 4 cycled seeded inputs, at H=256 with
-attention (the recipes' blocks): the forward kernel and the backward kernel
-(``block_backward_cuda``, which recomputes the forward) at B=64, N=16, 24,
-29, 32 (QM9's pads), B=32, N=48, 64 (GEOM's), one 'mean' (N=32) and one
-sin-embedding (N=24) case; a block's training route (``block_forward``
-under grad, then its backward) at the same shapes; and, on the host clock
-around synchronised steps, one recipe train step at QM9 pad 29 (B=64, 9
-layers) and GEOM pad 48 (B=32, 4 layers), with the peak device memory of
-those steps. Prints one JSON line with both trees' numbers per turn, the
-card's name and its power limit.
+build, in turns: other, this, this, other. Kernels are timed with CUDA
+events over 20 calls after 3 warm-ups on 4 cycled seeded inputs at H=256
+with attention (the recipes' blocks); steps on the host clock around
+synchronised work.
+
+``--suite block`` (the default), the whole-molecule kernels #1/#2: the
+forward kernel and the backward kernel (``block_backward_cuda``, which
+recomputes the forward) at B=64, N=16, 24, 29, 32 (QM9's pads), B=32, N=48,
+64 (GEOM's), one 'mean' (N=32) and one sin-embedding (N=24) case; a block's
+training route (``block_forward`` under grad, then its backward) at the
+same shapes; one recipe train step at QM9 pad 29 (B=64, 9 layers) and GEOM
+pad 48 (B=32, 4 layers), with the peak device memory of those steps.
+
+``--suite rows``, the row-tiled forward grid: #3 (GCL) and #4 (coordinate
+update) at B=16, N=96, 136, 184 (GEOM's serving pads past 64, n-16..n
+atoms); #6 on both slabs of N=184 over 2 ranks (S=92, B=16); a GEOM
+sampler step (T=1000 recipe, B=16, N=184); and a GEOM recipe train step at
+pad 184 (B=32, 129-181 atoms), with its peak device memory.
+
+Prints one JSON line with both trees' numbers per turn, the card's name and
+its power limit.
 """
 
 from __future__ import annotations
@@ -93,17 +103,156 @@ def _train_step_ms(dataset, steps=5, warmup=3):
     return times, torch.cuda.max_memory_allocated() / 2**20
 
 
-def _dump(root: str) -> dict:
-    """Times of ``root``'s kernels and train steps."""
-    sys.path.insert(0, root)
+def _geom_step_ms(pad, steps=5, warmup=3):
+    """(host-clock ms per GEOM recipe train step on B=32 synthetic molecules
+    of 129-181 atoms padded to ``pad``, peak device MiB)."""
+    import numpy as np
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    info = get_dataset_info("geom")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
+                                               include_charges=False, diffusion_steps=1000,
+                                               trainable_ae=True)
+    rng = np.random.default_rng(41)
+    sizes = rng.choice([k for k in sorted(dict(info.n_nodes_histogram)) if 129 <= k <= pad],
+                       size=32)
+    raw = synthetic_batch(info, 32, pad, rng, include_charges=False, n_atoms=sizes)
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    state = create_train_state(model, cfg, 5e-5, ema_decay=0.9999)
+    step = make_train_step(cfg, 0.9999)
+    batch = prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warmup):
+        step(state, batch, gen)
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _sampler_step_ms(b=16, n=184, steps=20, warmup=5):
+    """Host-clock ms per ancestral step of the GEOM recipe (T=1000, random
+    weights) on B molecules of n-16..n atoms padded to n."""
+    import numpy as np
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.diffusion import vdm
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.ops.com import remove_mean_with_mask
+
+    cfg = factory.make_latent_diffusion_config(get_dataset_info("geom"), nf=256, n_layers=4,
+                                               latent_nf=2, include_charges=False,
+                                               diffusion_steps=1000)
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+    gamma_fn = vdm.make_gamma_fn(cfg.diffusion, "cuda")
+    rng = np.random.default_rng(n)
+    n_real = rng.integers(n - 16, n + 1, size=b)
+    mask = torch.from_numpy(
+        (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]).cuda()
+    z = torch.from_numpy(rng.standard_normal((b, n, 5)).astype(np.float32)).cuda() * mask
+    z[:, :, :3] = remove_mean_with_mask(z[:, :, :3], mask)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = []
+    with torch.no_grad():
+        for k in range(warmup + steps):
+            s_arr = torch.full((b, 1), (999 - k) / 1000, device="cuda")
+            t_arr = torch.full((b, 1), (1000 - k) / 1000, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = vdm.sample_p_zs_given_zt(model.dynamics, cfg.diffusion, gamma_fn, gen, s_arr,
+                                         t_arr, z, mask)
+            torch.cuda.synchronize()
+            if k >= warmup:
+                times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _dump_rows() -> dict:
+    """Times of the row-tiled forward kernels (#3, #4, #6), a GEOM sampler
+    step and a GEOM train step at pad 184."""
     import numpy as np
     import torch
 
     from geoldm_tpu_torch.config import EGNNConfig
     from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+    from geoldm_tpu_torch.ops import egnn_sp, egnn_tiled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"stages": [], "slabs": []}
+
+    def geom_block(n):
+        cfg = EGNNConfig(in_node_nf=3, out_node_nf=3, hidden_nf=256, n_layers=4, attention=True,
+                         normalization_factor=1.0)
+        block = EquivariantBlock(cfg)
+        init_parameters(block, torch.Generator().manual_seed(n))
+        return block.to(dev).eval()
+
+    def ragged(n, b, seed):
+        rng = np.random.default_rng(seed)
+        n_real = rng.integers(n - 16, n + 1, size=b)
+        mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
+        arrs = [rng.standard_normal((b, n, f)).astype(np.float32) * mask for f in (256, 3, 3)]
+        return [torch.from_numpy(a).to(dev) for a in (*arrs, mask)]
+
+    with torch.no_grad():
+        for n in (96, 136, 184):
+            block = geom_block(n)
+            inputs = [ragged(n, 16, 1000 * n + rep) for rep in range(4)]
+            row = {"N": n, "B": 16}
+            for stage, mod, fn in (("gcl_rows", block.gcl_0, egnn_tiled.gcl_rows_cuda),
+                                   ("coord_rows", block.gcl_equiv, egnn_tiled.coord_rows_cuda)):
+                row[f"{stage}_ms"] = _time_ms(lambda *a, m=mod, f=fn: f(m, *a), inputs)
+            out["stages"].append(row)
+        n, s = 184, 92
+        block = geom_block(n)
+        inputs = [ragged(n, 16, 7000 + rep) for rep in range(4)]
+        for row0 in (0, s):
+            row = {"N": n, "S": s, "row0": row0, "B": 16}
+            args = [(full, [t[:, row0:row0 + s].contiguous() for t in full], row0, n)
+                    for full in inputs]
+            for stage, mod in (("gcl_rows", block.gcl_0), ("coord_rows", block.gcl_equiv)):
+                fwd, _ = egnn_sp.stage_fns(mod, True)
+                row[f"{stage}_ms"] = _time_ms(lambda *a, m=mod, f=fwd: f(m, *a), args)
+            out["slabs"].append(row)
+        del block, inputs, args
+    torch.cuda.empty_cache()
+    out["geom_sampler_step_ms_B16_N184"] = _sampler_step_ms()
+    torch.cuda.empty_cache()
+    out["geom184_step_ms"], out["geom184_peak_mib"] = _geom_step_ms(184)
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def _dump(root: str, suite: str) -> dict:
+    """Times of ``root``'s kernels and steps of ``suite``."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
     from geoldm_tpu_torch.ops import egnn_block
 
     assert egnn_block.__file__.startswith(os.path.abspath(root)), egnn_block.__file__
+    if suite == "rows":
+        return _dump_rows()
+
+    from geoldm_tpu_torch.config import EGNNConfig
+    from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     out = {"shapes": []}
@@ -151,10 +300,12 @@ def _dump(root: str) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--other", required=True, help="root of the other checkout")
+    p.add_argument("--suite", choices=("block", "rows"), default="block",
+                   help="the whole-molecule kernels #1/#2 or the row-tiled forward grid")
     p.add_argument("--dump", help=argparse.SUPPRESS)  # internal: one tree's times
     args = p.parse_args(argv)
     if args.dump:
-        print(json.dumps(_dump(args.dump)))
+        print(json.dumps(_dump(args.dump, args.suite)))
         return 0
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     other = os.path.abspath(args.other)
@@ -163,13 +314,14 @@ def main(argv=None) -> int:
     runs = {"this": [], "other": []}
     for label, root in (("other", other), ("this", here), ("this", here), ("other", other)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--other", "-",
-                               "--dump", root], stdout=subprocess.PIPE, text=True)
+                               "--suite", args.suite, "--dump", root], stdout=subprocess.PIPE,
+                              text=True)
         if proc.returncode != 0:
             print(f"block_ab: the run of {root} failed", file=sys.stderr)
             return 1
         runs[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    print(json.dumps({"nvidia_smi": card, "this": here, "other": other, "turns":
-                      "other, this, this, other", "runs": runs}))
+    print(json.dumps({"nvidia_smi": card, "suite": args.suite, "this": here, "other": other,
+                      "turns": "other, this, this, other", "runs": runs}))
     return 0
 
 

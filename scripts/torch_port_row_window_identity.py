@@ -1,16 +1,24 @@
-"""Hold the single-device row-tiled kernels (#3, #4 and their backward #5) of
-this checkout bit for bit against another checkout's, on one NVIDIA card.
+"""Hold the whole-molecule EquivariantBlock kernels (#1 forward, #2 backward)
+of this checkout bit for bit against another checkout's, on one NVIDIA card.
 
     python3 scripts/torch_port_row_window_identity.py --other <checkout>
 
 Each tree runs in its own interpreter, with its own package and kernel
-build, on the same seeded inputs: GEOM widths (H=256, attention) at N=80
-and 184 with ragged masks, 'sum', 'mean' and sin features, forward and
-backward, the backward also in groups of one molecule. Every output's sha256
-is compared; the script prints one JSON line and exits non-zero on any
-difference. Used to show that a change to the kernels' sources (here the
-row window of the sequence-parallel slabs) leaves these kernels' arithmetic
-as it was.
+build, on the same seeded inputs: QM9's and GEOM's pads up to 64 with ragged
+masks, 'sum', 'mean' and sin features, two GCLs a block, and every padded
+hidden width of the tile (64, 128, 256, 512); the forward, the backward that
+recomputes the forward, and the training route (the forward saving its
+activations, the backward from them). Every output's sha256 is compared;
+the script prints one JSON line and exits non-zero on any difference.
+
+#1 and #2 share their tile machinery (``csrc/egnn_tile.cuh``) with the
+row-tiled forward grid of #3/#4/#6, so a change there must leave their
+arithmetic as it was. The row-tiled kernels (#3-#5) left this script when
+their forward grid moved to split-TF32 column windows: their outputs now
+differ from an older checkout's in the last bits, and they are held against
+their plain versions instead (``tests/test_torch_port_cuda.py``,
+``chip_smoke.py`` phases 9, 12 and 15); that #6 over every row equals #3 bit
+for bit is a card test.
 """
 
 from __future__ import annotations
@@ -22,21 +30,25 @@ import os
 import subprocess
 import sys
 
-CASES = [("sum", 184, {}), ("sum", 80, {}), ("mean", 181, {"aggregation_method": "mean"}),
-         ("sin", 80, {"sin_embedding": True})]
+# (case, N, B, hidden_nf, config overrides)
+CASES = [("sum", 16, 8, 256, {}), ("sum", 29, 8, 256, {}), ("sum", 32, 8, 256, {}),
+         ("mean", 32, 8, 256, {"aggregation_method": "mean"}),
+         ("sin", 24, 8, 256, {"sin_embedding": True}), ("sum", 48, 8, 256, {}),
+         ("sum", 64, 8, 256, {}), ("gcl2", 17, 4, 64, {"inv_sublayers": 2}),
+         ("no_att", 33, 4, 128, {"attention": False}), ("sum", 29, 4, 512, {})]
 
 
 def _dump(root: str) -> dict:
-    """sha256 of every output of #3, #4 and #5 with ``root``'s package."""
+    """sha256 of every output of #1 and #2 with ``root``'s package."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
 
     from geoldm_tpu_torch.config import EGNNConfig
     from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
-    from geoldm_tpu_torch.ops import egnn_tiled
+    from geoldm_tpu_torch.ops import egnn_block
 
-    assert egnn_tiled.__file__.startswith(os.path.abspath(root)), egnn_tiled.__file__
+    assert egnn_block.__file__.startswith(os.path.abspath(root)), egnn_block.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     out = {}
@@ -44,39 +56,36 @@ def _dump(root: str) -> dict:
     def digest(name, t):
         out[name] = hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
-    for case, n, extra in CASES:
-        cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=256, n_layers=1,
-                         normalization_factor=1.0, **extra)
+    for case, n, b, hidden, extra in CASES:
+        cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=hidden, n_layers=1,
+                         normalization_factor=1.0, **{"attention": True, **extra})
         block = EquivariantBlock(cfg)
-        init_parameters(block, torch.Generator().manual_seed(n))
+        init_parameters(block, torch.Generator().manual_seed(n + hidden))
         block = block.to(dev)
         rng = np.random.default_rng(n)
-        b = 4
-        n_real = rng.integers(n - 16, n + 1, size=b)
+        n_real = rng.integers(max(1, n - 16), n + 1, size=b)
         mask = (np.arange(n)[None] < n_real[:, None]).astype(np.float32)[..., None]
         h, x, x0 = (rng.standard_normal((b, n, f)).astype(np.float32) * mask
-                    for f in (256, 3, 3))
+                    for f in (hidden, 3, 3))
         args = [torch.from_numpy(a).to(dev) for a in (h, x, x0, mask)]
         gh, gx = (torch.from_numpy(rng.standard_normal((b, n, f)).astype(np.float32)).to(dev)
-                  for f in (256, 3))
+                  for f in (hidden, 3))
+        key = f"{case}{n}h{hidden}"
         with torch.no_grad():
-            digest(f"{case}{n}/gcl_rows", egnn_tiled.gcl_rows_cuda(block.gcl_0, *args))
-            digest(f"{case}{n}/coord_rows", egnn_tiled.coord_rows_cuda(block.gcl_equiv, *args))
-        full_cap = egnn_tiled.MAX_BWD_SCRATCH_BYTES
-        for groups, cap in (("", full_cap), ("/groups", None)):
-            if cap is None:  # room for one molecule: the batch runs in groups of one
-                from geoldm_tpu_torch.ops import cuda_build
-
-                cap = 4 * cuda_build.library("egnn_tiled_bwd").egnn_rows_backward_scratch_floats(
-                    1, n, 256, cfg.edge_feat_nf)
-            egnn_tiled.MAX_BWD_SCRATCH_BYTES = cap
-            for stage, mod, g in (("gcl_rows", block.gcl_0, gh), ("coord_rows", block.gcl_equiv,
-                                                                  gx)):
-                dh, dx, dx0, dws = getattr(egnn_tiled, f"{stage}_backward_cuda")(mod, *args, g)
-                for name, t in zip(["dh", "dx", "dx0"] + [f"w{k}" for k in range(len(dws))],
-                                   [dh, dx, dx0, *dws]):
-                    digest(f"{case}{n}/{stage}_bwd{groups}/{name}", t)
-        egnn_tiled.MAX_BWD_SCRATCH_BYTES = full_cap
+            h_out, x_out = egnn_block.block_forward_cuda(block, *args)
+        digest(f"{key}/fwd/h", h_out)
+        digest(f"{key}/fwd/x", x_out)
+        h_s, x_s, saved = egnn_block._forward_launch(block, *args, save=True)
+        digest(f"{key}/fwd_save/h", h_s)
+        digest(f"{key}/fwd_save/x", x_s)
+        digest(f"{key}/fwd_save/saved", saved)
+        for route, grads in (("bwd", egnn_block.block_backward_cuda(block, *args, gh, gx)),
+                             ("bwd_saved", egnn_block._backward_launch(block, *args, gh, gx,
+                                                                       saved))):
+            dh, dx, dx0, dws = grads
+            for name, t in zip(["dh", "dx", "dx0"] + [f"w{k}" for k in range(len(dws))],
+                               [dh, dx, dx0, *dws]):
+                digest(f"{key}/{route}/{name}", t)
     torch.cuda.synchronize()
     return out
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,17 +39,18 @@ MODELS = (
      ((16, 64), (16, 96), (16, 136), (16, 184)), 16),
 )
 STEPS, WARMUP, TRACED = 50, 10, 10
-# Device-time groups by kernel name (demangled, or mangled as a fallback);
-# the row-tiled kernels' node GEMM is one template tagged by its owner
-# (csrc/egnn_common.cuh); the whole-block kernel #1 has its own edge tile
-# and node GEMM (csrc/egnn_block_tile.cuh).
+# Device-time groups by kernel-name pattern (demangled, or mangled as a
+# fallback); the row-tiled kernels' node GEMM is one template tagged by its
+# owner (csrc/egnn_common.cuh), their edge grid one template by <HP, COORD>
+# (csrc/egnn_rows.cuh); the whole-block kernel #1 has its own edge tile and
+# node GEMM (csrc/egnn_block_tile.cuh).
 GROUPS = (
-    ("k1_edge", ("edge_tile_kernel",)),
-    ("k1_gemm", ("node_gemm_tc_kernel",)),
-    ("k3_edge", ("gcl_rows_kernel",)),
-    ("k3_gemm", ("gemm_nt_kernel<3>", "gemm_nt_kernelILi3E")),
-    ("k4_edge", ("coord_rows_kernel",)),
-    ("k4_gemm", ("gemm_nt_kernel<4>", "gemm_nt_kernelILi4E")),
+    ("k1_edge", r"edge_tile_kernel"),
+    ("k1_gemm", r"node_gemm_tc_kernel"),
+    ("k3_edge", r"rows_tile_kernel(<\d+, false>|ILi\d+ELb0E)"),
+    ("k3_gemm", r"gemm_nt_kernel(<3>|ILi3E)"),
+    ("k4_edge", r"rows_tile_kernel(<\d+, true>|ILi\d+ELb1E)"),
+    ("k4_gemm", r"gemm_nt_kernel(<4>|ILi4E)"),
 )
 
 
@@ -73,7 +75,7 @@ def _device_split(prof):
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        key = next((name for name, pats in GROUPS if any(p in ev.key for p in pats)), "other")
+        key = next((name for name, pat in GROUPS if re.search(pat, ev.key)), "other")
         split[key] += us
     return split
 

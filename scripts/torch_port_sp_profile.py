@@ -24,6 +24,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,11 +46,22 @@ from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 # Grids of the kernels (csrc/*.cu), by kernel-name substring, the SP
 # coordinate passes before the names they contain.
 KERNELS = ("slab_coord_rows_kernel", "slab_coord_cols_kernel", "rows_bwd_kernel",
-           "edge_tile_bwd_kernel", "gcl_rows_kernel", "coord_rows_kernel", "edge_tile_kernel",
+           "edge_tile_bwd_kernel", "gcl_rows_tile", "coord_rows_tile", "edge_tile_kernel",
            "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel", "reduce_rows_kernel",
            "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel", "silu_kernel",
            "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 5, 2, 2
+
+
+def _row_grid_name(name: str) -> str:
+    """The forward row grid of #3 (GCL) and #4 (coordinate update) is one
+    template, rows_tile_kernel<HP, COORD> (csrc/egnn_rows.cuh): name it by
+    its stage, demangled or mangled."""
+    if re.search(r"rows_tile_kernel(<\d+, false>|ILi\d+ELb0E)", name):
+        return "gcl_rows_tile"
+    if re.search(r"rows_tile_kernel(<\d+, true>|ILi\d+ELb1E)", name):
+        return "coord_rows_tile"
+    return name
 PADS = ((184, 129), (48, 33))  # (pad, smallest size drawn)
 
 
@@ -89,7 +101,7 @@ def _device_split(prof, n):
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
-        key = next((k for k in KERNELS if k in ev.name), "other")
+        key = next((k for k in KERNELS if k in _row_grid_name(ev.name)), "other")
         split[key] += ev.time_range.elapsed_us() / 1e3 / n
     return {k: v for k, v in split.items() if v}
 

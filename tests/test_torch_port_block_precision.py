@@ -11,17 +11,32 @@ product, and within 1e-4 * max|ref| without the floor of 1, for the GCL and
 the coordinate stage. One TF32 product alone keeps about 2^-11: measured
 against its own size (1e-4 * max|ref|) it fails the gate on the forward and
 the transposed products, and on the W2 gradient, a sum over every edge, its
-error is still more than 100 times the split scheme's."""
+error is still more than 100 times the split scheme's.
+
+The row-tiled forward stages (#3 GCL, #4 coordinate update, and #6 on a
+slab) run the same split-TF32 W2 product over 64-column windows of a row
+(``csrc/egnn_rows.cuh``). At a GEOM shape (H=256, attention, tanh, N=70 so
+a row crosses a window, ragged molecules, 'sum' and 'mean') the stage
+emulated in the grid's order -- the W2 product in split TF32 and each row's
+sums added window by window in column order -- stays within the gate of the
+JAX row-tiled Pallas kernel run in interpret mode, while one TF32 product
+fails the gate on the stage's W2 product there."""
 
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from geoldm_tpu.config import EGNNConfig as JaxEGNNConfig
+from geoldm_tpu.nn.egnn import egnn_init
 from geoldm_tpu_torch.config import EGNNConfig
-from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
-from geoldm_tpu_torch.ops import egnn_block
+from geoldm_tpu_torch.nn.egnn import EGNN, EquivariantBlock, init_parameters
+from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+from tests.test_torch_port_tiled import _jax_stage
+from tests.torch_port_utils import load_egnn_from_jax, masked_inputs, t
 
 GATE = 1e-4  # chip_smoke.py's _KERNEL_RTOL: kernel vs plain, per output tensor
 
@@ -128,3 +143,104 @@ def test_tf32_round_keeps_ten_mantissa_bits_ties_away_from_zero():
     lo = egnn_block.tf32_round(t - hi)
     # hi + lo recovers the float32 value to within 2^-22 of it.
     assert float(((hi.double() + lo.double()) - t.double()).abs().max()) <= 2.0 ** -22
+
+
+# ---------------------------------------------------------------------------
+# The row-tiled forward grid (#3/#4/#6) at a GEOM shape.
+# ---------------------------------------------------------------------------
+
+WINDOW = 64  # columns of one window of the row grid (csrc/egnn_rows.cuh)
+GEOM_H, GEOM_N = 256, 70
+
+
+@functools.lru_cache(maxsize=2)
+def _geom_stages(aggregation):
+    """(port EGNN, JAX config, JAX block params, numpy stage inputs) at the
+    GEOM recipe's block (H=256, attention, tanh, 'sum' over factor 1, or
+    'mean'), the same weights in both packages; B=2 molecules of 70 and 51
+    atoms padded to 70."""
+    d = dict(in_node_nf=3, out_node_nf=3, hidden_nf=GEOM_H, n_layers=1, inv_sublayers=1,
+             attention=True, tanh=True, coords_range=15.0, norm_constant=1.0,
+             sin_embedding=False, normalization_factor=1.0, aggregation_method=aggregation)
+    params = egnn_init(jax.random.key(0), JaxEGNNConfig(**d))
+    egnn = load_egnn_from_jax(EGNN(EGNNConfig(**d)), params, True)
+    _, x, x0, mask = masked_inputs(3, 2, GEOM_N, 1, (GEOM_N, 51))
+    h = np.random.default_rng(4).standard_normal((2, GEOM_N, GEOM_H)).astype(np.float32) * mask
+    return egnn, JaxEGNNConfig(**d), jax.tree.map(lambda a: a[0], params["blocks"]), (h, x, x0,
+                                                                                       mask)
+
+
+def _stage_module(egnn, stage):
+    block = egnn.e_block_0
+    return block.gcl_0 if stage == "gcl" else block.gcl_equiv
+
+
+def _w2_operands(module, stage, full):
+    """(silu(pre) of every edge [B*N*N, H], W2^T, coord_diff, edge mask) of
+    one stage."""
+    lin0, lin2 = ((module.edge_mlp[0], module.edge_mlp[2]) if stage == "gcl"
+                  else (module.coord_mlp[0], module.coord_mlp[2]))
+    n = full[0].shape[1]
+    act, coord_diff, emask = egnn_tiled._row_slab(module.cfg, lin0, full, full, 0, 0, n)
+    return act, lin2.weight.T, coord_diff, emask
+
+
+def _row_grid_stage(module, stage, full, product):
+    """One stage's output as the row grid computes it: the W2 product through
+    ``product``, each row's sums added window by window, in column order."""
+    cfg = module.cfg
+    act, w2t, coord_diff, emask = _w2_operands(module, stage, full)
+    h, x, _, mask = full
+    n, hidden = h.shape[1], act.shape[-1]
+    bias = (module.edge_mlp if stage == "gcl" else module.coord_mlp)[2].bias
+    m = F.silu(product(act.reshape(-1, hidden), w2t).reshape(act.shape) + bias)
+    if stage == "gcl":
+        terms = (m * module.att_mlp(m) if cfg.attention else m) * emask
+    else:
+        s = module.coord_mlp[4](m)
+        if cfg.tanh:
+            s = torch.tanh(s) * cfg.coords_range_layer
+        terms = coord_diff * s * emask
+    total = torch.zeros_like(terms[:, :, 0])
+    for j0 in range(0, n, WINDOW):
+        for j in range(j0, min(j0 + WINDOW, n)):
+            total = total + terms[:, :, j]
+    total = total / egnn_tiled._divisor(cfg, n)
+    if stage == "gcl":
+        return (h + module.node_mlp(torch.cat([h, total], dim=-1))) * mask
+    return (x + total) * mask
+
+
+@functools.lru_cache(maxsize=4)
+def _pallas_stage(aggregation, stage):
+    _, jcfg, block_params, arrays = _geom_stages(aggregation)
+    return _jax_stage(jcfg, block_params, stage, GEOM_N, arrays)
+
+
+@pytest.mark.parametrize("aggregation", ["sum", "mean"])
+@pytest.mark.parametrize("stage", ["gcl", "coord"])
+def test_row_grid_stage_in_split_tf32_matches_the_pallas_kernel(stage, aggregation):
+    egnn, _, _, arrays = _geom_stages(aggregation)
+    want = _pallas_stage(aggregation, stage)
+    with torch.no_grad():
+        got = _row_grid_stage(_stage_module(egnn, stage), stage, tuple(t(a) for a in arrays),
+                              egnn_block.split_tf32_matmul).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err, scale = float(np.abs(got - want).max()), max(1.0, float(np.abs(want).max()))
+    assert err <= GATE * scale, f"{stage} {aggregation}: max|d|={err:.3e} > {GATE}*{scale:.3g}"
+
+
+@pytest.mark.parametrize("stage", ["gcl", "coord"])
+def test_row_grid_w2_product_in_one_tf32_fails_the_gate(stage):
+    """The W2 product over the windows of every row (its real and padded
+    columns): split TF32 within 1e-4 * max(1, max|ref|) of the float64
+    product, one TF32 product outside it."""
+    egnn, _, _, arrays = _geom_stages("sum")
+    with torch.no_grad():
+        act, w2t, _, _ = _w2_operands(_stage_module(egnn, stage), stage,
+                                      tuple(t(a) for a in arrays))
+        a = act.reshape(-1, GEOM_H)
+        err3, ref = _err(egnn_block.split_tf32_matmul(a, w2t), a, w2t)
+        err1, _ = _err(_one_tf32(a, w2t), a, w2t)
+    assert err3 <= GATE * max(1.0, ref), f"{stage}: split TF32 max|d|={err3:.3e}"
+    assert err1 > GATE * max(1.0, ref), f"{stage}: one TF32 max|d|={err1:.3e}, max|ref|={ref:.3e}"

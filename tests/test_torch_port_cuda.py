@@ -289,6 +289,31 @@ def test_tiled_kernels_wide_hidden(card, n, n_real):
     _assert_stages_close(block, _inputs(card, 2, n, 512, n_real))
 
 
+# The forward grid's 64-column windows (csrc/egnn_rows.cuh): N at and
+# around window edges, real atoms ending inside a window, molecules of
+# padding only (every window skipped), each padded hidden width (64, 128,
+# 256, 512; 32 and 96 masked) and sin features.
+WINDOW_CASES = [
+    (65, (65, 64, 1), 64, {}), (127, (127, 70, 0), 128, {}),
+    (128, (128, 100), 256, {"sin_embedding": True}),
+    (129, (129, 0, 65), 32, {"aggregation_method": "mean", "tanh": False}),
+    (191, (191, 150, 130), 512, {}), (191, (0, 0), 96, {"attention": False}),
+]
+
+
+@pytest.mark.parametrize("n,n_real,hidden,variant", WINDOW_CASES)
+def test_tiled_kernels_on_column_windows_match_plain_and_replay(card, n, n_real, hidden,
+                                                                variant):
+    block = _block(card, hidden=hidden, **variant)
+    args = _inputs(card, len(n_real), n, hidden, n_real)
+    _assert_stages_close(block, args)
+    with torch.no_grad():
+        for fn, mod in ((egnn_tiled.gcl_rows_cuda, block.gcl_0),
+                        (egnn_tiled.coord_rows_cuda, block.gcl_equiv)):
+            first, second = fn(mod, *args), fn(mod, *args)
+            assert torch.equal(first, second), fn.__name__
+
+
 def test_tiled_kernels_at_their_bound(card):
     block = _block(card)
     _assert_stages_close(block, _inputs(card, 1, egnn_tiled.MAX_TILED_NODES, 32,
@@ -492,9 +517,11 @@ def test_seeded_train_step_replays_bit_for_bit(card, sizes, pad):
 # Sequence-parallel slab kernels (#6, #7) and the SP EGNN
 # ---------------------------------------------------------------------------
 
-# (N, slab rows S, first global row): first and later slabs, ragged S, and a
-# slab of one row's width past the 64-node bound of the whole-row kernels.
-SP_SLABS = [(24, 12, 0), (24, 12, 12), (81, 27, 27), (100, 25, 75), (9, 3, 6)]
+# (N, slab rows S, first global row): first and later slabs, ragged S, a
+# slab of one row's width past the 64-node bound of the whole-row kernels,
+# and slabs whose rows start off the forward grid's 64-column windows.
+SP_SLABS = [(24, 12, 0), (24, 12, 12), (81, 27, 27), (100, 25, 75), (9, 3, 6),
+            (130, 65, 65), (191, 70, 121)]
 
 
 def _sp_views(card, n, s, row0, n_real, seed=1):
