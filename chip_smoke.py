@@ -5,9 +5,10 @@
 Phases (each prints a line; any failure exits non-zero before the result):
   1. the card's name and power limit (nvidia-smi), and the kernel build
      (one nvcc per source in geoldm_tpu_torch/csrc, for sm_90a, in parallel),
-     with ptxas' registers and spills of the grids on the tensor-core tile:
-     the whole-block kernels' own and the row-tiled forward grid in each of
-     the three libraries that build it (none may spill);
+     with ptxas' registers and spills of the grids on the tensor-core tile
+     and of the tensor-core GEMMs: the whole-block kernels' own, the
+     row-tiled forward grid in each of the three libraries that build it and
+     the row-tiled backward grid in the two that build it (none may spill);
   2. the EquivariantBlock kernel against its plain PyTorch version on the
      card at H=256, B=64, N in {16, 24, 29, 32} with ragged masks, plus one
      'mean'-aggregation and one sin-embedding case, and at GEOM's pads B=32,
@@ -60,7 +61,10 @@ Phases (each prints a line; any failure exits non-zero before the result):
      N in {80, 104, 128, 184} (GEOM's training buckets past 64) with ragged
      masks (n-16..n atoms), plus one 'mean' case at N=181 and one
      sin-embedding case at N=80: dh, dx, dx0 and every weight gradient, with
-     times and per-stage bounds;
+     times and per-stage bounds (f32, and with the edge and node products at
+     the split-TF32 rate); the GCL stage's backward from the node chain its
+     forward kept (the training route) must equal its own recompute bit for
+     bit, and is timed too;
  13. the GEOM training entry point (cli.main_geom_drugs) at the recipe
      (nf=256, 4 layers, latent_nf=2, no charges, T=1000, B=32, trainable_ae,
      EMA 0.9999, lr 5e-5) on a fabricated conformer file whose train split
@@ -77,8 +81,10 @@ Phases (each prints a line; any failure exits non-zero before the result):
      split (181 atoms padded to 184 over 4 ranks, 'mean' over 181), one
      sin-embedding case, and the SP epoch's pads 48 and 64 over 2 ranks at
      B=32 in both directions; every output within 1e-4*max(1, max|ref|),
-     weight gradients included, with times and per-slab bounds (the
-     forward's also with its W2 product at the split-TF32 rate);
+     weight gradients included, with times and per-slab bounds (also with
+     the products the kernels run on the tensor cores at the split-TF32
+     rate); #7 from the node chain #6 kept must equal its own recompute bit
+     for bit;
  16. the GEOM training entry point with --sp 2 at the recipe (as phase 13)
      on a fabricated conformer file with one full batch at pads 184 and 48:
      two ranks share the card over gloo (the placement rule is printed); one
@@ -115,8 +121,8 @@ import numpy as np
 _H100_SXM = "H100 80GB HBM3"
 _FLOP_PEAK, _BW_PEAK = 67.0e12, 3.35e12
 # Dense TF32 on the tensor cores, where the whole-block kernels (#1, #2) and
-# the row-tiled forward grid (#3, #4, #6) run their products in split TF32:
-# three TF32 products for each f32 product.
+# the row-tiled grids (#3, #4, #6 forward, #5, #7 backward) run their
+# products in split TF32: three TF32 products for each f32 product.
 _TF32_PEAK, _TF32_SPLITS = 495.0e12, 3
 
 # Kernel vs plain: both sum in float32 but in different orders. Holds for
@@ -236,32 +242,40 @@ def _stage_work(cfg, n_real, n_pad, n_weights, coord):
 
 
 def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
-    """(FLOP, bytes) one row-tiled stage backward (#5) needs: the stage's
-    forward it recomputes (``_stage_work``), then per real ordered pair the W2
-    input and weight gradients (2 * 2H^2) plus the edge-feature, gate and
-    scale terms, and per real node the src/dst (and for a GCL the node-MLP)
-    input and weight gradients (``_bwd_work``'s per-stage terms); h, x, x0,
-    the mask, the cotangent and the weights read once, dh, dx, dx0 and the
-    weight gradients written once."""
+    """(FLOP, bytes, tensor-core FLOP) one row-tiled stage backward (#5)
+    needs: the stage's forward it recomputes (``_stage_work``), then per real
+    ordered pair the W2 input and weight gradients (2 * 2H^2) plus the
+    edge-feature, gate and scale terms, and per real node the src/dst (and
+    for a GCL the node-MLP) input and weight gradients (``_bwd_work``'s
+    per-stage terms); h, x, x0, the mask, the cotangent and the weights read
+    once, dh, dx, dx0 and the weight gradients written once. The last is the
+    share #5 runs on the tensor cores: the three edge products per real pair
+    (the second layer rebuilt, d(mm) W2, the W2 gradient: 3 * 2H^2) and the
+    backward's node products (8H^2 or 20H^2 per real node); the recomputed
+    projections and node chain stay on f32 FMA."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     fwd_flops, _, _ = _stage_work(cfg, n_real, n_pad, n_weights, coord)
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
-    flops = fwd_flops + pairs * (4 * H * H + 4 * E * H + 4 * H)
-    flops += nodes * (8 * H * H if coord else 20 * H * H)
+    node_bwd = nodes * (8 * H * H if coord else 20 * H * H)
+    flops = fwd_flops + pairs * (4 * H * H + 4 * E * H + 4 * H) + node_bwd
     b = len(n_real)
     nbytes = 4 * (b * n_pad * (H + 3 + 3 + 1 + (3 if coord else H) + H + 3 + 3) + 2 * n_weights)
-    return flops, nbytes
+    return flops, nbytes, pairs * 6 * H * H + node_bwd
 
 
-# The grids on egnn_tile.cuh's tensor-core tile, by mangled-name substring
-# (templates <HP, COORD>): the whole-block kernels' (csrc/egnn_block_tile.cuh,
-# egnn_block_bwd.cu) and the row-tiled forward grid (egnn_rows.cuh), which
-# the libraries of #3/#4, #5 and #6/#7 each build.
+# The grids on egnn_tile.cuh's tensor-core tile and the tensor-core GEMMs,
+# by mangled-name substring (templates <HP, COORD>): the whole-block kernels'
+# (csrc/egnn_block_tile.cuh, egnn_block_bwd.cu), the row-tiled forward grid
+# (egnn_rows.cuh), which the libraries of #3/#4, #5 and #6/#7 each build, the
+# row-tiled backward grid (egnn_rows_bwd.cuh) in those of #5 and #7, and the
+# GEMMs of egnn_tc_gemm.cuh.
 _TILE_KERNELS = ("edge_tile_bwd_kernel", "edge_tile_kernel", "node_gemm_tc_kernel",
-                 "wgrad_tc_kernel", "tile_column_sum_kernel", "rows_tile_kernel")
-# Library -> the rows_tile_kernel instantiations it must hold (HP x COORD).
-_ROW_GRIDS = {"egnn_tiled": 8, "egnn_tiled_bwd": 4, "egnn_sp": 8}
+                 "wgrad_tc_kernel", "column_sum_kernel", "rows_tile_kernel",
+                 "rows_bwd_tile_kernel")
+# Library -> the instantiations (HP x COORD) of the forward and the backward
+# row grid it must hold.
+_ROW_GRIDS = {"egnn_tiled": (8, 0), "egnn_tiled_bwd": (4, 8), "egnn_sp": (8, 8)}
 
 
 def _ptxas_kernels(log):
@@ -1065,8 +1079,9 @@ def phase_tiled_backward(card_name):
             want = plain_fn(mod, *args[0])
             torch.cuda.synchronize()
             names = ["dh", "dx", "dx0"] + egnn_tiled.stage_weight_names(mod)
+            got, want = [*got[:3], *got[3]], [*want[:3], *want[3]]
             err, worst = 0.0, ""
-            for name, g, w in zip(names, [*got[:3], *got[3]], [*want[:3], *want[3]]):
+            for name, g, w in zip(names, got, want):
                 _check(bool(torch.isfinite(g).all()), f"{stage} backward {name} not finite at "
                                                       f"N={n} {extra}")
                 scale = max(1.0, float(w.abs().max()))
@@ -1076,28 +1091,41 @@ def phase_tiled_backward(card_name):
                        f"max|d|={d:.3e} > {_KERNEL_RTOL}*{scale:.3g}")
                 if d > err:
                     err, worst = d, name
+            chain_ms, chain_txt = None, ""
+            if stage == "gcl_rows":
+                # The training route: the GCL's node chain kept by its
+                # forward (#3) and handed over, equal to #5's own bit for bit.
+                chains = [egnn_tiled.gcl_rows_cuda(mod, *a[:4], keep_chain=True)[1] for a in args]
+                again = cuda_fn(mod, *args[0], chain=chains[0])
+                again = [*again[:3], *again[3]]
+                _check(all(torch.equal(a, g) for a, g in zip(again, got)),
+                       f"gcl_rows backward with the forward's node chain differs from its own "
+                       f"recompute at N={n} {extra}")
+                chain_ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a[:-1], chain=a[-1]),
+                                    [(*a, c) for a, c in zip(args, chains)], warmup=2, reps=10)
+                chain_txt = f", with the node chain handed over {chain_ms:.4f} ms (bit-identical)"
+                del again, chains
             del got, want
             ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a), args, warmup=2, reps=10)
             plain_ms = _time_ms(lambda *a, m=mod, f=plain_fn: f(m, *a), args, warmup=1, reps=3)
             n_weights = sum(p.numel() for p in mod.parameters())
-            flops, nbytes = _stage_bwd_work(block.cfg, n_real0, n, n_weights,
-                                            stage == "coord_rows")
-            t_ops, t_bytes = flops / _FLOP_PEAK * 1e3, nbytes / _BW_PEAK * 1e3
+            flops, nbytes, tc = _stage_bwd_work(block.cfg, n_real0, n, n_weights,
+                                                stage == "coord_rows")
+            bound, bound_by, bound_tc = _bounds(flops, nbytes, tc)
             group, scratch = egnn_tiled._stage_scratch(cuda_build.library("egnn_tiled_bwd"), B,
                                                         n, H, block.cfg.edge_feat_nf, dev)
             row = {"stage": stage, "case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
-                   "worst": worst, "ms": ms, "plain_ms": plain_ms, "group": group,
-                   "scratch_bytes": 4 * scratch.numel(),
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "worst": worst, "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+                   "group": group, "scratch_bytes": 4 * scratch.numel(), "bound_ms": bound,
+                   "bound_by": bound_by, "bound_tc_ms": bound_tc,
                    "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
             rows.append(row)
             print(f"phase 12: {stage} backward {case} N={n} B={B} H={H} max|d|={err:.3e} "
                   f"({worst}; {len(names)} tensors each within {_KERNEL_RTOL}*max(1,max|ref|)) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) "
-                  f"{row['tflops_achieved']:.2f} TFLOP/s, scratch {row['scratch_bytes']} bytes in "
-                  f"groups of {group} on {card_name}", flush=True)
+                  f"kernel {ms:.4f} ms{chain_txt} plain {plain_ms:.4f} ms (TF32 off) bound "
+                  f"{bound:.4f} ms ({bound_by}, f32) {bound_tc:.4f} ms (split-TF32 edge and node "
+                  f"products) {row['tflops_achieved']:.2f} TFLOP/s, scratch "
+                  f"{row['scratch_bytes']} bytes in groups of {group} on {card_name}", flush=True)
             del scratch
         torch.cuda.empty_cache()
     return rows
@@ -1156,7 +1184,8 @@ def phase_geom_train(card_name, tmpdir):
     # passes; a sampled chunk (T+1) denoiser calls and one decode. Pads up to
     # 64 run #1 (forward) and #2 (backward); past 64 each block runs
     # inv_sublayers x #3 and one #4 forward, and its backward re-runs the
-    # GCLs (#3) and runs #5 once per stage.
+    # GCLs (#3, keeping each GCL's node chain) and runs #5 once per stage,
+    # which then runs no GCL edge grid of its own (uncounted either way).
     train, val, test = load_split_data(path)
 
     def batch_pads(splits, shuffle):
@@ -1215,9 +1244,10 @@ def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
     (``_stage_work``'s terms split by view; the backward adds
     ``_stage_bwd_work``'s); the full view (h, x, x0, mask), the slab's view
     and its output read or written once, and for the backward the cotangent,
-    both views' dh, dx, dx0 and the weight gradients. The last is the
-    forward edge W2 product over the slab's real pairs, which #6 runs on the
-    tensor cores."""
+    both views' dh, dx, dx0 and the weight gradients. The last is the share
+    the kernel runs on the tensor cores: the forward's edge W2 product over
+    the slab's real pairs (#6), or the backward's three edge products per
+    real pair and its node products (#7, as ``_stage_bwd_work``)."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     rows = np.clip(n_real - row0, 0, s)
     pairs = float(np.sum(rows * (n_real - 1)))
@@ -1228,12 +1258,12 @@ def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
     out = 3 if coord else H
     b = len(n_real)
     nbytes = 4 * (b * (n_pad + s) * (H + 3 + 3 + 1) + b * s * out + n_weights)
-    if backward:
-        flops += pairs * (4 * H * H + 4 * E * H + 4 * H) + (slab + nodes) * 4 * H * H
-        if not coord:
-            flops += slab * 12 * H * H
-        nbytes += 4 * (b * s * out + b * (n_pad + s) * (H + 3 + 3) + n_weights)
-    return flops, nbytes, pairs * 2 * H * H
+    if not backward:
+        return flops, nbytes, pairs * 2 * H * H
+    node_bwd = (slab + nodes) * 4 * H * H + (0 if coord else slab * 12 * H * H)
+    flops += pairs * (4 * H * H + 4 * E * H + 4 * H) + node_bwd
+    nbytes += 4 * (b * s * out + b * (n_pad + s) * (H + 3 + 3) + n_weights)
+    return flops, nbytes, pairs * 6 * H * H + node_bwd
 
 
 def phase_sp_kernels(card_name):
@@ -1302,11 +1332,22 @@ def phase_sp_kernels(card_name):
                                f"{_KERNEL_RTOL}*{scale:.3g}")
                         if d >= err:
                             err, worst = d, name
+                    if direction == "bwd" and stage == "gcl_rows":
+                        # The SP training route: the slab's node chain kept
+                        # by #6 and handed over, equal to #7's own bit for bit.
+                        with torch.no_grad():
+                            chain = fwd(mod, *args[0][:4], keep_chain=True)[1]
+                            again = kernel(mod, *args[0], chain=chain)
+                        _check(all(torch.equal(a, g) for a, g in
+                                   zip([*again[:6], *again[6]], got)),
+                               f"SP gcl_rows backward with #6's node chain differs from its own "
+                               f"recompute ({case}, N={n}, S={s}, row0 {row0})")
+                        del chain, again
                     del got, want
                     with torch.no_grad():
                         ms = _time_ms(lambda *a, m=mod, f=kernel: f(m, *a), args)
-                        plain_ms = (_time_ms(lambda *a, m=mod, f=plain: f(m, *a), args)
-                                    if case == "sum" and slab == 1 else None)
+                        plain_ms = _time_ms(lambda *a, m=mod, f=plain: f(m, *a), args,
+                                            warmup=1, reps=3)
                     n_weights = sum(p.numel() for p in mod.parameters())
                     flops, nbytes, tc = _sp_stage_work(block.cfg, n_real0, n, row0, s,
                                                        n_weights, stage == "coord_rows",
@@ -1315,20 +1356,15 @@ def phase_sp_kernels(card_name):
                     row = {"stage": stage, "dir": direction, "case": case, "N": n,
                            "N_egnn": n_egnn, "S": s, "row0": row0, "B": B, "H": H,
                            "max_abs_err": err, "worst": worst, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound, "bound_by": bound_by,
+                           "bound_ms": bound, "bound_by": bound_by, "bound_tc_ms": bound_tc,
                            "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
-                    # The forward's W2 product runs on the tensor cores (#6);
-                    # the backward's edge grid (#7) stays on f32 FMA.
-                    tc_txt = ""
-                    if direction == "fwd":
-                        row["bound_tc_ms"] = bound_tc
-                        tc_txt = f" {bound_tc:.4f} ms (split-TF32 W2)"
+                    tc_txt = (f" {bound_tc:.4f} ms (split-TF32 W2)" if direction == "fwd" else
+                              f" {bound_tc:.4f} ms (split-TF32 edge and node products)")
                     rows.append(row)
-                    plain_txt = f" plain {plain_ms:.4f} ms" if plain_ms is not None else ""
                     print(f"phase 15: SP {stage} {direction} {case} N={n} S={s} row0={row0} "
                           f"B={B} H={H} max|d|={err:.3e} ({worst}; {len(names)} tensors each "
-                          f"within {_KERNEL_RTOL}*max(1,max|ref|)) kernel {ms:.4f} ms"
-                          f"{plain_txt} bound {bound:.4f} ms ({bound_by}, f32){tc_txt} "
+                          f"within {_KERNEL_RTOL}*max(1,max|ref|)) kernel {ms:.4f} ms plain "
+                          f"{plain_ms:.4f} ms bound {bound:.4f} ms ({bound_by}, f32){tc_txt} "
                           f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
             del inputs
             torch.cuda.empty_cache()
@@ -1593,23 +1629,25 @@ def main(argv=None) -> int:
     for name, lib in info["libs"].items():
         regs = [ln.strip() for ln in lib["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"phase 1: {name}: {lib['path']}; ptxas: {' | '.join(regs)}", flush=True)
-    # The grids on the tensor-core tile (#1, #2, and #3/#4's row grid in the
-    # libraries of #3/#4, #5 and #6): registers and spills per instantiated
-    # tile; none may spill, and each row library holds its row grids.
+    # The grids on the tensor-core tile (#1, #2, #3/#4's row grid in the
+    # libraries of #3/#4, #5 and #6, #5/#7's backward row grid in those of #5
+    # and #7) and the tensor-core GEMMs: registers and spills per
+    # instantiation; none may spill, and each row library holds its row grids.
     for name in ("egnn_block", "egnn_block_bwd", *_ROW_GRIDS):
-        row_grids = 0
+        row_grids = [0, 0]
         for k in _ptxas_kernels(info["libs"][name]["log"]):
             if not k["name"]:
                 continue
-            row_grids += k["name"].startswith("rows_tile_kernel")
+            row_grids[0] += k["name"].startswith("rows_tile_kernel")
+            row_grids[1] += k["name"].startswith("rows_bwd_tile_kernel")
             print(f"phase 1: {name}: {k['name']}: {k.get('registers')} registers, "
                   f"{k.get('spill_stores')} bytes spill stores, {k.get('spill_loads')} bytes "
                   f"spill loads", flush=True)
             _check(k.get("spill_stores") == 0 and k.get("spill_loads") == 0,
                    f"{name}: {k['name']} spills")
-        _check(row_grids == _ROW_GRIDS.get(name, 0),
-               f"{name}: {row_grids} rows_tile_kernel instantiations in ptxas' log, "
-               f"expected {_ROW_GRIDS.get(name, 0)}")
+        _check(tuple(row_grids) == _ROW_GRIDS.get(name, (0, 0)),
+               f"{name}: {row_grids} rows_tile_kernel / rows_bwd_tile_kernel instantiations "
+               f"in ptxas' log, expected {_ROW_GRIDS.get(name, (0, 0))}")
     print(f"phase 1: built {len(info['libs'])} kernel libraries with nvcc (sm_90a, in parallel) "
           f"in {info['seconds']:.1f} s{' (cached)' if info.get('cached') else ''}", flush=True)
     phase_seconds, clock = {}, [t_start]
@@ -1698,8 +1736,7 @@ def main(argv=None) -> int:
                 "bound_ms": sum(r["bound_ms"] for r in main),
                 "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in main)
                              else "bytes"), "library_ms": None,
-                **({"bound_tc_ms": sum(r["bound_tc_ms"] for r in main)}
-                   if direction == "fwd" else {})}
+                "bound_tc_ms": sum(r["bound_tc_ms"] for r in main)}
 
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",

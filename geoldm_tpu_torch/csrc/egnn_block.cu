@@ -47,7 +47,8 @@
 //     channel the masked sum over j, so no atomics and no edge tensor reach
 //     device memory;
 //   - the node GEMMs (projection, node MLP) run on the same 3xTF32 mma in
-//     #1/#2's own 32x64-tile GEMM (node_gemm_tc_kernel); the row-tiled
+//     the 32x64-tile GEMM of egnn_tc_gemm.cuh (node_gemm_tc_kernel), which
+//     #2 and the row-tiled backward (#5/#7) share; the row-tiled forward
 //     kernels keep the f32 FMA GEMM of egnn_common.cuh.
 // Ragged tiles (N not a multiple of R) are masked: their empty m16 tiles
 // are skipped and their rows never written. No tile spills

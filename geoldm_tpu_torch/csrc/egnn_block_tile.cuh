@@ -1,17 +1,16 @@
 // Device code of the whole-molecule EquivariantBlock kernels (#1 forward in
 // egnn_block.cu, #2 backward in egnn_block_bwd.cu): the multi-row edge tile
-// (on egnn_tile.cuh's tile machinery), the forward edge stages, #1/#2's own
-// tensor-core node GEMM and the forward chain both libraries run (the
-// backward recomputes with it, so a recomputed activation equals the
-// forward's saved one bit for bit). See egnn_block.cu for the design and
-// what bounds it on an H100.
+// (on egnn_tile.cuh's tile machinery), the forward edge stages and the
+// forward chain both libraries run on the tensor-core node GEMM of
+// egnn_tc_gemm.cuh (the backward recomputes with it, so a recomputed
+// activation equals the forward's saved one bit for bit). See egnn_block.cu
+// for the design and what bounds it on an H100.
 
 #pragma once
 
 #include <stdint.h>
 
-#include "egnn_bwd_common.cuh"
-#include "egnn_tile.cuh"
+#include "egnn_tc_gemm.cuh"
 
 namespace {
 
@@ -32,7 +31,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(
 
   tile_geometry<HP>(a, b, i0, 0, N, mrows);
   __syncthreads();
-  build_edge_tile<HP>(a, As, b, i0, mrows, nullptr);
+  build_edge_tile<HP>(a, As, b, mrows, nullptr);
   __syncthreads();
   // m = silu(silu(pre) W2^T + b2).
   {
@@ -68,147 +67,8 @@ int launch_edge_tile(const TileArgs& a, int B, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// Node GEMM on the tensor cores (3xTF32), the whole-block kernels' own: C =
-// epilogue(A B) with A(m, k) from [M][K] (split by columns at k1 into a1 |
-// a2, the node MLP's [h, agg] input without a concat) or, with ta, from
-// [K][M]; B(k, n) from an nn.Linear weight [N][K] (tb) or from [K][N].
-// 32x64 tiles, 4 warps of 32x16, K in chunks of 32 through shared memory
-// while the next chunk's loads wait in registers (plain loads: W1's row
-// stride 2H+E is not 16-byte aligned). blockIdx.z splits K; a split writes
-// its partial tile to c + z * split_stride.
+// Node-side products of the forward chain on the tensor-core node GEMM.
 // ---------------------------------------------------------------------------
-
-struct NodeGemm {
-  const float* a1; int lda1; int k1;
-  const float* a2; int lda2;
-  int ta;
-  const float* b; int ldb; int tb;
-  const float* bias;      // [N] or null
-  const float* resid; int ldr;
-  const float* row_mask;  // [M], kEpiResidMask
-  float* c; int ldc;
-  int M, N, K;
-  int epilogue, accumulate;
-  int kchunk; size_t split_stride;
-};
-
-constexpr int kNgTM = 32, kNgTN = 64, kNgKC = 32;
-constexpr int kNgLdR = kNgKC + 4;  // [row][k] stages
-constexpr int kNgLdAT = kNgTM + 8, kNgLdBT = kNgTN + 8;  // [k][row] stages
-constexpr int kNgA = kNgTM * kNgLdR > kNgKC * kNgLdAT ? kNgTM * kNgLdR : kNgKC * kNgLdAT;
-constexpr int kNgB = kNgTN * kNgLdR > kNgKC * kNgLdBT ? kNgTN * kNgLdR : kNgKC * kNgLdBT;
-constexpr int kNgAPer = kNgTM * kNgKC / 128, kNgBPer = kNgTN * kNgKC / 128;
-
-__global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
-  __shared__ __align__(16) float As[kNgA];
-  __shared__ __align__(16) float Bs[kNgB];
-  const int tid = threadIdx.x, lane = tid & 31, wn = tid >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kNgTM, n0 = blockIdx.x * kNgTN;
-  const int kbeg = blockIdx.z * g.kchunk, kend = min(g.K, kbeg + g.kchunk);
-  float acc[2][2][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-  // One chunk is 32x32 of A and 64x32 of B, neighbouring threads on
-  // neighbouring addresses.
-  float ra[kNgAPer], rb[kNgBPer];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < kNgAPer; ++q) {
-      const int idx = tid + 128 * q;
-      const int ar = g.ta ? idx % kNgTM : idx / kNgKC, ak = g.ta ? idx / kNgTM : idx % kNgKC;
-      const int m = m0 + ar, ka = k0 + ak;
-      float v = 0.f;
-      if (m < g.M && ka < kend)
-        v = g.ta ? g.a1[(size_t)ka * g.lda1 + m]
-                 : (ka < g.k1 ? g.a1[(size_t)m * g.lda1 + ka] : g.a2[(size_t)m * g.lda2 + ka - g.k1]);
-      ra[q] = v;
-    }
-#pragma unroll
-    for (int q = 0; q < kNgBPer; ++q) {
-      const int idx = tid + 128 * q;
-      const int bn = g.tb ? idx / kNgKC : idx % kNgTN, bk = g.tb ? idx % kNgKC : idx / kNgTN;
-      const int n = n0 + bn, kb = k0 + bk;
-      rb[q] = (n < g.N && kb < kend)
-                  ? (g.tb ? g.b[(size_t)n * g.ldb + kb] : g.b[(size_t)kb * g.ldb + n])
-                  : 0.f;
-    }
-  };
-  if (kbeg < kend) fetch(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += kNgKC) {
-#pragma unroll
-    for (int q = 0; q < kNgAPer; ++q) {
-      const int idx = tid + 128 * q;
-      if (g.ta) As[(idx / kNgTM) * kNgLdAT + idx % kNgTM] = ra[q];
-      else As[(idx / kNgKC) * kNgLdR + idx % kNgKC] = ra[q];
-    }
-#pragma unroll
-    for (int q = 0; q < kNgBPer; ++q) {
-      const int idx = tid + 128 * q;
-      if (g.tb) Bs[(idx / kNgKC) * kNgLdR + idx % kNgKC] = rb[q];
-      else Bs[(idx / kNgTN) * kNgLdBT + idx % kNgTN] = rb[q];
-    }
-    __syncthreads();
-    if (k0 + kNgKC < kend) fetch(k0 + kNgKC);
-#pragma unroll
-    for (int kk = 0; kk < kNgKC; kk += 8) {
-      uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = mi * 16 + gq;
-        float v[4];
-        if (g.ta) {
-          v[0] = As[(kk + t) * kNgLdAT + r]; v[1] = As[(kk + t) * kNgLdAT + r + 8];
-          v[2] = As[(kk + t + 4) * kNgLdAT + r]; v[3] = As[(kk + t + 4) * kNgLdAT + r + 8];
-        } else {
-          v[0] = As[r * kNgLdR + kk + t]; v[1] = As[(r + 8) * kNgLdR + kk + t];
-          v[2] = As[r * kNgLdR + kk + t + 4]; v[3] = As[(r + 8) * kNgLdR + kk + t + 4];
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[mi][q], alo[mi][q]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const int n = wn * 16 + ni * 8 + gq;
-        const float b0 = g.tb ? Bs[n * kNgLdR + kk + t] : Bs[(kk + t) * kNgLdBT + n];
-        const float b1 = g.tb ? Bs[n * kNgLdR + kk + t + 4] : Bs[(kk + t + 4) * kNgLdBT + n];
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(b0, bh0, bl0);
-        split_tf32(b1, bh1, bl1);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(acc[mi][ni], ahi[mi], alo[mi], bh0, bh1, bl0, bl1);
-      }
-    }
-    __syncthreads();
-  }
-  float* c = g.c + blockIdx.z * g.split_stride;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + mi * 16 + gq + (q >= 2 ? 8 : 0);
-        const int n = n0 + wn * 16 + ni * 8 + 2 * t + (q & 1);
-        if (m >= g.M || n >= g.N) continue;
-        float v = acc[mi][ni][q];
-        if (g.bias) v += g.bias[n];
-        if (g.epilogue == kEpiSilu) v = silu_f(v);
-        if (g.epilogue == kEpiResidMask) v = (g.resid[(size_t)m * g.ldr + n] + v) * g.row_mask[m];
-        float* dst = c + (size_t)m * g.ldc + n;
-        *dst = g.accumulate ? *dst + v : v;
-      }
-}
-
-int launch_node_gemm(const NodeGemm& g, int splits, cudaStream_t s) {
-  dim3 grid((g.N + kNgTN - 1) / kNgTN, (g.M + kNgTM - 1) / kNgTM, splits);
-  node_gemm_tc_kernel<<<grid, 128, 0, s>>>(g);
-  return (int)cudaGetLastError();
-}
 
 // The node GEMM with launch_gemm's arguments (egnn_common.cuh): A [M][K]
 // split at k1, W [Nout][K], a fused epilogue.

@@ -1,7 +1,7 @@
 // Device code shared by the EquivariantBlock forward (egnn_block.cu), its
 // backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu,
 // egnn_tiled_bwd.cu, and their sequence-parallel slabs in egnn_sp.cu):
-// constants, activations, the node GEMM with its fused epilogues and the
+// constants, activations, the f32 node GEMM with its fused epilogues and the
 // src/dst projection. The edge tile of the forward grids is in
 // egnn_tile.cuh. See egnn_block.cu and egnn_tiled.cu for the designs and
 // what bounds them on an H100.
@@ -15,7 +15,6 @@ namespace {
 
 constexpr int kMaxEdgeFeat = 24;  // 2 * SIN_EMBEDDING_DIM
 constexpr int kNumFreq = 6;
-constexpr int kKChunk = 32;
 constexpr int kMaxHidden = 512;
 constexpr int kMaxNodes = 64;
 
@@ -31,6 +30,11 @@ __constant__ float kFreq[kNumFreq] = {
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
 __device__ __forceinline__ float silu_f(float v) { return v * sigmoid_f(v); }
+
+__global__ void silu_kernel(const float* in, float* out, int n) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < n) out[idx] = silu_f(in[idx]);
+}
 
 // ---------------------------------------------------------------------------
 // Node GEMM: C[m, n] = epilogue(sum_k A[m, k] * W[n, k]); W in nn.Linear
@@ -144,13 +148,6 @@ int launch_projection_window(const float* hr, int Mr, const float* hc, int Mc,
     if (rc) return rc;
   }
   return 0;
-}
-
-// Both halves over the same M rows of h.
-template <int kOwner = 1>
-int launch_projection(const float* h, const float* w1, int ld1, float* proj,
-                      int M, int H, cudaStream_t s) {
-  return launch_projection_window<kOwner>(h, M, h, M, w1, ld1, proj, H, s);
 }
 
 }  // namespace

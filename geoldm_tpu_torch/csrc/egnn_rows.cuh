@@ -3,8 +3,8 @@
 // windows, each a tile of egnn_tile.cuh (split-TF32 tensor-core product, W2
 // through cp.async stages). Shared by egnn_tiled.cu, whose header comment
 // gives the design, by the stage backward (egnn_rows_bwd.cuh, TPU kernels #5
-// and #7), which re-runs the GCL forward for its aggregate, and by the
-// sequence-parallel slab stages (egnn_sp.cu, TPU kernel #6).
+// and #7), which runs a GCL's node chain with it when the caller hands over
+// none, and by the sequence-parallel slab stages (egnn_sp.cu, TPU kernel #6).
 //
 // Row window: a stage computes the rows row0..row0+S of every molecule (its
 // slab) against all N columns. The slab's own tensors are [B*S, *] views,
@@ -19,8 +19,6 @@
 
 namespace {
 
-// The column tile of the stage backward's edge grid (egnn_rows_bwd.cuh).
-constexpr int kColTile = 32;
 // The largest N the card tests hold; beyond it a CTA's sequential walk over
 // N/64 column windows is untested, not impossible.
 constexpr int kMaxTiledNodes = 1024;
@@ -46,7 +44,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_tile_kernel(
     tile_geometry<HP>(a, b, s, j0, kTileRows, mrows);
     // The geometry's barrier (thread e wrote edge e, HP >= kTileRows).
     if (!__syncthreads_or(c < kTileRows && TileEdges<HP>::em()[c] != 0.f)) continue;
-    build_edge_tile<HP, true>(a, As, b, s, mrows, nullptr);
+    build_edge_tile<HP, true>(a, As, b, mrows, nullptr);
     __syncthreads();
     // m = silu(silu(pre) W2^T + b2).
     {
@@ -114,13 +112,42 @@ TileArgs stage_args(const Slab& r, const float* x, const float* x0, const float*
   return ea;
 }
 
+// A GCL's node chain over a slab whose h is hr, once proj holds its
+// projections: the aggregate agg [B*S, H] (the edge grid; ea from stage_args
+// with the GCL's weights), then u = silu([hr, agg] Wn1^T + bn1) [B*S, H],
+// through z, the pre-activation, when z is given (the same bits: silu of the
+// stored f32 z).
+// The forward (gcl_rows_host) and the stage backward (egnn_rows_bwd.cuh) run
+// this same code, so a chain the forward hands to the backward equals the
+// backward's own recompute bit for bit.
+template <int kOwner>
+int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B, float* agg,
+              float* z, float* u, cudaStream_t s) {
+  const int Mr = B * ea.S, H = ea.H;
+  TileArgs a = ea;
+  a.agg = agg;
+  int rc;
+  if ((rc = launch_rows<false>(a, B, s))) return rc;
+  GemmArgs n1 = {};
+  n1.a1 = hr; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
+  n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
+  n1.c = z ? z : u; n1.ldc = H; n1.M = Mr; n1.Nout = H; n1.K = 2 * H;
+  n1.epilogue = z ? kEpiNone : kEpiSilu;
+  if ((rc = launch_gemm<kOwner>(n1, s))) return rc;
+  if (!z) return 0;
+  silu_kernel<<<(Mr * H + 255) / 256, 256, 0, s>>>(z, u, Mr * H);
+  return (int)cudaGetLastError();
+}
+
 // One GCL over slab r (kernel #3 with the full view as the slab, #6 over an
 // SP slab): h_out [B*S, H] = (h_r + node_mlp([h_r, agg])) * m_r. w: the GCL's
 // 10 weight pointers (egnn_gcl_rows' order). Scratch: proj [B*N, 2H], agg and
-// hidden [B*S, H]. Enqueues 5 grids.
+// hidden [B*S, H], and z [B*S, H] or null: with z, the node chain (agg, z,
+// hidden = silu(z)) is kept for the stage backward. Enqueues 5 grids (6 with
+// z).
 template <int kOwner>
 int gcl_rows_host(const float* h, const float* x, const float* x0, const float* mask,
-                  const Slab& r, float* h_out, float* proj, float* agg, float* hidden,
+                  const Slab& r, float* h_out, float* proj, float* agg, float* hidden, float* z,
                   const float* const* w, int B, int N, int H, int E, int attention,
                   int sin_emb, float norm_div, float norm_constant, cudaStream_t s) {
   const int Mr = B * r.S;
@@ -129,15 +156,8 @@ int gcl_rows_host(const float* h, const float* x, const float* x0, const float* 
     return rc;
   TileArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
   ea.attention = attention;
-  ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = agg;
-  if ((rc = launch_rows<false>(ea, B, s))) return rc;
-
-  GemmArgs n1 = {};
-  n1.a1 = r.h; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
-  n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
-  n1.c = hidden; n1.ldc = H; n1.M = Mr; n1.Nout = H; n1.K = 2 * H;
-  n1.epilogue = kEpiSilu;
-  if ((rc = launch_gemm<kOwner>(n1, s))) return rc;
+  ea.w_out = w[4]; ea.b_out = w[5];
+  if ((rc = gcl_chain<kOwner>(ea, r.h, w, B, agg, z, hidden, s))) return rc;
 
   GemmArgs n2 = {};
   n2.a1 = hidden; n2.lda1 = H; n2.k1 = H;

@@ -1,11 +1,12 @@
 // The row-tiled stage backward, shared by the single-device stages
 // (egnn_tiled_bwd.cu, TPU kernel #5, whose header comment gives the design)
 // and the sequence-parallel slab stages (egnn_sp.cu, TPU kernel #7): the edge
-// grid rows_bwd_kernel, the scratch layout, the coordinate passes and the
-// host loop rows_backward, all over a row window (egnn_rows.cuh). A
-// single-device stage is the window of every row with the slab's views
-// aliasing the full ones, and its gradients of both views are summed; an SP
-// stage keeps the full-view gradients [B*N, *] apart from the slab's [B*S, *].
+// grid rows_bwd_tile_kernel on the tile of egnn_tile.cuh, the scratch layout,
+// the coordinate passes and the host loop rows_backward, all over a row
+// window (egnn_rows.cuh). A single-device stage is the window of every row
+// with the slab's views aliasing the full ones, and its gradients of both
+// views are summed; an SP stage keeps the full-view gradients [B*N, *] apart
+// from the slab's [B*S, *].
 
 #pragma once
 
@@ -14,294 +15,207 @@
 
 namespace {
 
-template <bool COORD>
-__global__ void __launch_bounds__(kMaxHidden, 1) rows_bwd_kernel(EdgeBwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int H = a.H, N = a.N, E = a.E;
-  const int c = threadIdx.x;
-  const int lane = c & 31, warp = c >> 5, nwarp = H >> 5;
-  const int b = blockIdx.y;
-  const int i = a.row0 + blockIdx.x;                  // global row: the diagonal
-  const size_t row_i = (size_t)b * a.S + blockIdx.x;  // index into the slab's views
-  const size_t edge0 = row_i * N;  // edge index of (b, i, j) is edge0 + j
-
-  float* As = smem;                          // [kColTile][H] silu(pre), then d(mm), then d(pre)
-  float* Ws = As + kColTile * H;             // [kKChunk][H + 1] W2 chunk
-  float* ef = Ws + kKChunk * (H + 1);        // [kColTile][kMaxEdgeFeat]
-  float* em = ef + kColTile * kMaxEdgeFeat;  // [kColTile] edge mask of row i
-  float* cd = em + kColTile;                 // [kColTile][3] coord_diff
-  float* red = cd + kColTile * 3;            // [nwarp][kColTile]
-  float* red2 = red + nwarp * kColTile;      // [nwarp][kColTile]
-  float* rs = red2 + nwarp * kColTile;       // [kColTile] per-pair scalars
-  float* rs2 = rs + kColTile;                // [kColTile]
-
-  const float mi = a.maskr[row_i];
-  float xi[3], x0i[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    xi[q] = a.xr[row_i * 3 + q];
-    x0i[q] = a.x0r[row_i * 3 + q];
+// The stage backward's edge grid: CTA (s, b) owns slab row s of molecule b
+// (global row row0 + s) and walks its N columns in windows of kTileRows, each
+// a 64-edge-row tile of egnn_tile.cuh, as the forward grid (rows_tile_kernel)
+// does. Per window: silu(pre) rebuilt (written to abuf), the second layer
+// and the transposed product d(mm) W2 on the tensor cores (split TF32), the
+// gate or coordinate scale and their gradients one warp per edge, d(mm)
+// (written to dbuf) and d(pre) (written to colpart, the CTA's column
+// partials: with one row per CTA they are the d(pre) row itself), and the
+// squared-distance gradients dr, dr0 one warp per edge (not sin). The CTA's
+// own rows of rowsum (sum_j d(pre): the src projection, b1) and part (db2,
+// the gate or scale weight and bias, the edge-feature columns of W1) start
+// at zero and gain each window's sums in window order; nothing but the loop
+// counters lives across the products. A window whose edge mask is all zero
+// adds exactly zero: it writes zeros where the passes after the grid read
+// (abuf, dbuf, colpart; dr, dr0 and dcd are cleared before the grid) and is
+// skipped. Each CTA writes only its own row's entries: no atomics.
+template <int HP, bool COORD>
+__global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_kernel(TileArgs a) {
+  using C = TileCfg<HP>;
+  using T = TileEdges<HP>;
+  constexpr int ld = C::kLdA;
+  float* As = tile_smem;  // silu(pre), then mm, then d(mm), then d(silu(pre)), then d(pre)
+  float* Wb = As + kTileRows * ld;
+  const int H = a.H, N = a.N, E = a.E, ps = (3 + E) * H;
+  // Formed where used, so that they are not held across the products: this
+  // CTA's row of the slab's views, and the edge index of its column j.
+  auto row = [&]() { return (size_t)blockIdx.y * a.S + blockIdx.x; };
+  auto edge = [&](int j) { return row() * N + j; };
+  if (tile_tid() < H) {
+    float* part = a.part + row() * ps + tile_tid();
+    for (int k = 0; k < 3 + E; ++k) part[k * H] = 0.f;
+    a.rowsum[row() * H + tile_tid()] = 0.f;
   }
-  const float src = a.src[row_i * a.ld_src + c];
-  const float bias1 = a.b1[c];
-  const float bias2 = a.b2[c];
-  const bool gated = COORD || a.attention;
-  const float wo = gated ? a.w_out[c] : 0.f;
-  const float dagg = COORD ? 0.f : a.dagg[row_i * H + c] / a.norm_div;
-  float daggx[3] = {0.f, 0.f, 0.f};
-  if (COORD) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) daggx[q] = a.gx[row_i * 3 + q] * mi / a.norm_div;
-  }
-  float we[kMaxEdgeFeat];
-#pragma unroll
-  for (int e = 0; e < kMaxEdgeFeat; ++e)
-    we[e] = e < E ? a.w1[(size_t)c * a.ld1 + 2 * H + e] : 0.f;
-
-  const int ps = (3 + E) * H;
-  float* part = a.part + row_i * ps;  // this CTA's partial row
-  for (int e = 0; e < E; ++e) part[(3 + e) * H + c] = 0.f;
-  float db2 = 0.f, dwo = 0.f, dbo = 0.f, rsum = 0.f;
-
-  for (int j0 = 0; j0 < N; j0 += kColTile) {
-    // 1. Pair features of the tile: thread c < kColTile owns column j0 + c
-    //    (H >= 32 = kColTile threads).
-    bool live = false;
-    if (c < kColTile) {
-      const int j = j0 + c;
-      float* f = ef + c * kMaxEdgeFeat;
-#pragma unroll
-      for (int e = 0; e < kMaxEdgeFeat; ++e) f[e] = 0.f;
-      float emv = 0.f;
-      cd[c * 3 + 0] = cd[c * 3 + 1] = cd[c * 3 + 2] = 0.f;
-      if (j < N) {
-        const size_t rj = (size_t)b * N + j;
-        float d[3], d0[3];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          d[q] = xi[q] - a.x[rj * 3 + q];
-          d0[q] = x0i[q] - a.x0[rj * 3 + q];
+  for (int j0 = 0; j0 < N; j0 += kTileRows) {
+    const int mrows = min(kTileRows, N - j0);
+    tile_geometry<HP>(a, blockIdx.y, blockIdx.x, j0, kTileRows, mrows);
+    // The geometry's barrier (thread e wrote edge e, HP >= kTileRows).
+    if (!__syncthreads_or(tile_tid() < kTileRows && T::em()[tile_tid()] != 0.f)) {
+      const int c = tile_tid();
+      if (c < H) {
+        for (int e = 0; e < mrows; ++e) {
+          const size_t k = edge(j0 + e) * H + c;
+          a.abuf[k] = 0.f;
+          a.dbuf[k] = 0.f;
+          a.colpart[k] = 0.f;
         }
-        const float r = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-        const float r0 = d0[0] * d0[0] + d0[1] * d0[1] + d0[2] * d0[2];
-        const float norm = sqrtf(r + 1e-8f);
-#pragma unroll
-        for (int q = 0; q < 3; ++q) cd[c * 3 + q] = d[q] / (norm + a.norm_constant);
-        if (a.sin_emb) {
-          const float dist0 = sqrtf(r0 + 1e-8f);
-#pragma unroll
-          for (int k = 0; k < kNumFreq; ++k) {
-            f[k] = sinf(norm * kFreq[k]);
-            f[kNumFreq + k] = cosf(norm * kFreq[k]);
-            f[2 * kNumFreq + k] = sinf(dist0 * kFreq[k]);
-            f[3 * kNumFreq + k] = cosf(dist0 * kFreq[k]);
-          }
-        } else {
-          f[0] = r;
-          f[1] = r0;
-        }
-        emv = j == i ? 0.f : mi * a.mask[rj];
-      }
-      em[c] = emv;
-      live = emv != 0.f;
-    }
-    // Barrier for step 1. A tile with no live pair adds exactly zero: its
-    // rows of the edge buffers are zeroed for the passes that read them all.
-    if (!__syncthreads_or(live)) {
-      for (int jj = 0; jj < kColTile && j0 + jj < N; ++jj) {
-        const size_t e = (edge0 + j0 + jj) * H + c;
-        a.abuf[e] = 0.f;
-        a.dbuf[e] = 0.f;
-        a.pbuf[e] = 0.f;
       }
       continue;
     }
 
-    // 2. The tile's silu(pre), also written out for the W2 gradient.
-    for (int jj = 0; jj < kColTile; ++jj) {
-      const int j = j0 + jj;
-      float v = 0.f;
-      if (j < N) {
-        const float dst = a.dst[((size_t)b * N + j) * a.ld_dst + c];
-        float ew = 0.f;
-#pragma unroll
-        for (int e = 0; e < kMaxEdgeFeat; ++e) ew = fmaf(ef[jj * kMaxEdgeFeat + e], we[e], ew);
-        v = silu_f(src + dst + ew + bias1);
-        a.abuf[(edge0 + j) * H + c] = v;
-      }
-      As[jj * H + c] = v;
+    // 1. silu(pre), also written out for the W2 gradient.
+    build_edge_tile<HP, true>(a, As, blockIdx.y, mrows, a.abuf + edge(j0) * H);
+    __syncthreads();
+
+    // 2. Second layer: mm = silu(pre) W2^T + b2.
+    {
+      float acc[2][8][4];
+      tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
+      store_acc<HP, false>(As, acc, a.b2, H);
     }
     __syncthreads();
 
-    // 3. Second layer: acc[jj] = mm_jj[c].
-    float acc[kColTile];
-#pragma unroll
-    for (int jj = 0; jj < kColTile; ++jj) acc[jj] = 0.f;
-    row_tile_product<kColTile, false>(As, Ws, a.w2, H, c, acc);
-#pragma unroll
-    for (int jj = 0; jj < kColTile; ++jj) acc[jj] += bias2;
+    // 3. Per-edge scalars: the gate's or the coordinate scale's backward.
+    if (COORD || a.attention) edge_scalars_bwd<HP, COORD>(a, As, blockIdx.y, mrows);
 
-    // 4. Per-pair scalars: the gate / coordinate logit sum_c m[c] w_out[c]
-    //    and, for the gate, sum_c dagg[c] m[c], reduced across the CTA.
-    if (gated) {
+    // 4. d(mm) into As and dbuf; the window's db2, dw_out and db_out added
+    //    to the CTA's partials. kBatch edges at a time: loads, then
+    //    arithmetic, then stores.
+    if (tile_tid() < H) {
+      const int c = tile_tid();
+      const float *em = T::em(), *rs = T::rs(), *rs2 = T::rs2();
+      const float dg = COORD ? 0.f : a.dagg[row() * H + c] * (1.f / a.norm_div);
+      const float wo = (COORD || a.attention) ? a.w_out[c] : 0.f;
+      float* db = a.dbuf + edge(j0) * H + c;  // window edge 0, channel c
+      float db2 = 0.f, dwo = 0.f, dbo = 0.f;
+      for (int e0 = 0; e0 < mrows; e0 += kBatch) {
+        float mm[kBatch];
 #pragma unroll
-      for (int jj = 0; jj < kColTile; ++jj) {
-        const float m = silu_f(acc[jj]);
-        float p = m * wo, p2 = m * dagg;
+        for (int q = 0; q < kBatch; ++q) mm[q] = As[(e0 + q) * ld + c];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          p += __shfl_xor_sync(0xffffffffu, p, o);
-          p2 += __shfl_xor_sync(0xffffffffu, p2, o);
-        }
-        if (lane == 0) {
-          red[warp * kColTile + jj] = p;
-          red2[warp * kColTile + jj] = p2;
-        }
-      }
-      __syncthreads();
-      if (c < kColTile) {
-        float s = 0.f, s2 = 0.f;
-        for (int w = 0; w < nwarp; ++w) {
-          s += red[w * kColTile + c];
-          s2 += red2[w * kColTile + c];
-        }
-        if (COORD) {
-          // s_ij = tanh(l) * range; ds_ij = em (daggx . cd); dcd = daggx s em.
-          const float th = tanhf(s);
-          const float scale = a.use_tanh ? th * a.coords_range : s;
-          const float dotc = daggx[0] * cd[c * 3] + daggx[1] * cd[c * 3 + 1] +
-                             daggx[2] * cd[c * 3 + 2];
-          const float ds = em[c] * dotc;
-          if (j0 + c < N) {
-#pragma unroll
-            for (int q = 0; q < 3; ++q)
-              a.dcd[(edge0 + j0 + c) * 3 + q] = daggx[q] * scale * em[c];
+        for (int q = 0; q < kBatch; ++q) {
+          const int e = e0 + q;
+          const float sg = tile_sigmoid(mm[q]);
+          const float m = mm[q] * sg;
+          float dm;
+          if (COORD) {
+            dm = rs2[e] * wo;
+            dwo = fmaf(rs2[e], m, dwo);
+          } else if (a.attention) {
+            dm = dg * em[e] * rs[e] + rs2[e] * wo;
+            dwo = fmaf(rs2[e], m, dwo);
+            dbo += rs2[e];
+          } else {
+            dm = dg * em[e];
           }
-          rs2[c] = a.use_tanh ? ds * a.coords_range * (1.f - th * th) : ds;
-        } else {
-          // gate g = sigmoid(l + ba); q = g (1 - g) em (dagg . m).
-          const float g = sigmoid_f(s + a.b_out[0]);
-          rs[c] = g;
-          rs2[c] = g * (1.f - g) * em[c] * s2;
+          mm[q] = e < mrows ? dm * (sg * (1.f + mm[q] * (1.f - sg))) : 0.f;  // dm silu'(mm)
+          db2 += mm[q];
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int e = e0 + q;
+          if (e < mrows) {
+            As[e * ld + c] = mm[q];
+            db[e * H] = mm[q];
+          }
         }
       }
-      __syncthreads();
-    }
-
-    // 5. d(mm)[c] into As (silu(pre) is no longer read) and out.
-#pragma unroll
-    for (int jj = 0; jj < kColTile; ++jj) {
-      const float mm = acc[jj];
-      const float m = silu_f(mm);
-      float dm;
-      if (COORD) {
-        dm = rs2[jj] * wo;
-        dwo = fmaf(rs2[jj], m, dwo);
-      } else if (a.attention) {
-        dm = dagg * em[jj] * rs[jj] + rs2[jj] * wo;
-        dwo = fmaf(rs2[jj], m, dwo);
-        dbo += rs2[jj];
-      } else {
-        dm = dagg * em[jj];
-      }
-      const float dmm = dm * dsilu_f(mm);
-      db2 += dmm;
-      As[jj * H + c] = dmm;
-      if (j0 + jj < N) a.dbuf[(edge0 + j0 + jj) * H + c] = dmm;
+      float* part = a.part + row() * ps + c;
+      part[0] += db2;
+      part[H] += dwo;
+      if (c == 0) part[2 * H] += dbo;
     }
     __syncthreads();
 
-    // 6. d(silu(pre))[c] = sum_k d(mm)[k] W2[k][c].
-#pragma unroll
-    for (int jj = 0; jj < kColTile; ++jj) acc[jj] = 0.f;
-    row_tile_product<kColTile, true>(As, Ws, a.w2, H, c, acc);
-
-    // 7. d(pre)[c]: into As, pbuf and the row sum.
-    for (int jj = 0; jj < kColTile; ++jj) {
-      const int j = j0 + jj;
-      float dp = 0.f;
-      if (j < N) {
-        const float dst = a.dst[((size_t)b * N + j) * a.ld_dst + c];
-        float ew = 0.f;
-#pragma unroll
-        for (int e = 0; e < kMaxEdgeFeat; ++e) ew = fmaf(ef[jj * kMaxEdgeFeat + e], we[e], ew);
-        dp = acc[jj] * dsilu_f(src + dst + ew + bias1);
-        a.pbuf[(edge0 + j) * H + c] = dp;
-      }
-      As[jj * H + c] = dp;
-      rsum += dp;
+    // 5. d(silu(pre)) = d(mm) W2.
+    {
+      float acc[2][8][4];
+      tile_product<HP, true>(As, Wb, a.w2, H, mrows, acc);
+      store_acc<HP, false>(As, acc, nullptr, H);
     }
     __syncthreads();
 
-    // 8. Edge-feature columns of W1: dWe[e][c] += sum_jj ef[jj][e] d(pre)[c].
-    for (int e = 0; e < E; ++e) {
-      float s = 0.f;
-      for (int jj = 0; jj < kColTile; ++jj) s = fmaf(ef[jj * kMaxEdgeFeat + e], As[jj * H + c], s);
-      part[(3 + e) * H + c] += s;
+    // 6. d(pre) = d(silu(pre)) silu'(pre) into As and colpart; the window's
+    //    row sum and edge-feature partials dWe[f][c] = sum_e ef[e][f]
+    //    d(pre)[e][c] added to the CTA's.
+    if (tile_tid() < H) {
+      const int c = tile_tid();
+      float we[kMaxEdgeFeat];
+      edge_feat_weights(a, c, we);
+      const float bias1 = a.b1[c];
+      float* cp = a.colpart + edge(j0) * H + c;
+      float rsum = 0.f;
+      for (int e0 = 0; e0 < mrows; e0 += kBatch) {
+        float pre[kBatch], da[kBatch];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) da[q] = As[(e0 + q) * ld + c];
+        edge_pre_batch<HP, true>(a, we, bias1, blockIdx.y, e0, c, pre);
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) da[q] *= tile_dsilu(pre[q]);
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int e = e0 + q;
+          if (e < mrows) {
+            As[e * ld + c] = da[q];
+            cp[e * H] = da[q];
+            rsum += da[q];
+          }
+        }
+      }
+      a.rowsum[row() * H + c] += rsum;
+      float* part = a.part + row() * ps + c;
+      const float* ef = T::ef();
+      for (int f = 0; f < E; ++f) {
+        float s = 0.f;
+#pragma unroll 8
+        for (int e = 0; e < mrows; ++e) s = fmaf(ef[e * kMaxEdgeFeat + f], As[e * ld + c], s);
+        part[(3 + f) * H] += s;
+      }
+      Wb[c] = we[0];
+      Wb[HP + c] = we[1];
     }
 
-    // 9. Squared-distance features (not sin, whose features carry no
-    //    gradient): dr_ij = sum_c d(pre)[c] We[c][0], dr0 with We[c][1].
+    // 7. Squared-distance features (not sin; dr, dr0 were cleared).
     if (!a.sin_emb) {
-#pragma unroll
-      for (int jj = 0; jj < kColTile; ++jj) {
-        const float dp = As[jj * H + c];
-        float p = dp * we[0], p0 = dp * we[1];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          p += __shfl_xor_sync(0xffffffffu, p, o);
-          p0 += __shfl_xor_sync(0xffffffffu, p0, o);
-        }
-        if (lane == 0) {
-          red[warp * kColTile + jj] = p;
-          red2[warp * kColTile + jj] = p0;
-        }
-      }
       __syncthreads();
-      if (c < kColTile && j0 + c < N) {
-        float s = 0.f, s0 = 0.f;
-        for (int w = 0; w < nwarp; ++w) {
-          s += red[w * kColTile + c];
-          s0 += red2[w * kColTile + c];
-        }
-        a.dr[edge0 + j0 + c] = s;
-        a.dr0[edge0 + j0 + c] = s0;
-      }
+      edge_dist_grads<HP>(a, As, Wb, blockIdx.y, mrows);
     }
-    __syncthreads();  // the next tile overwrites ef, em, cd, As, red and rs
+    __syncthreads();  // the next window overwrites the tile
   }
-
-  part[c] = db2;
-  part[H + c] = dwo;
-  part[2 * H + c] = c == 0 ? dbo : 0.f;
-  a.rowsum[row_i * H + c] = rsum;
 }
 
+// The stage backward's edge grid over a's row window: S x B CTAs of HP
+// threads.
 template <bool COORD>
-int launch_rows_bwd(const EdgeBwdArgs& a, int B, cudaStream_t s) {
-  const size_t smem = edge_bwd_smem_bytes(kColTile, a.H);
-  cudaError_t e = cudaFuncSetAttribute(rows_bwd_kernel<COORD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  rows_bwd_kernel<COORD><<<dim3(a.S, B), a.H, smem, s>>>(a);
-  return (int)cudaGetLastError();
+int launch_rows_bwd(const TileArgs& a, int B, cudaStream_t s) {
+  const dim3 grid(a.S, B);
+  if (a.H <= 64) return launch_tile<64>(rows_bwd_tile_kernel<64, COORD>, grid, a, s);
+  if (a.H <= 128) return launch_tile<128>(rows_bwd_tile_kernel<128, COORD>, grid, a, s);
+  if (a.H <= 256) return launch_tile<256>(rows_bwd_tile_kernel<256, COORD>, grid, a, s);
+  return launch_tile<512>(rows_bwd_tile_kernel<512, COORD>, grid, a, s);
 }
 
 // Scratch of one group of G molecules, in floats: node-sized pieces for M =
-// G*N rows (the src projection, the aggregate and the row sums use the first
-// G*S of them), edge-sized ones for Me = G*S*N pairs.
+// G*N rows (the src projection, the node chain, the row sums and the
+// per-CTA partials use the first G*S of them), edge-sized ones for Me =
+// G*S*N pairs, and the split-K partials of the W2 gradient and of the node
+// GEMM.
 struct RowsScratch : EdgeGradBufs {
   float *proj, *agg, *z, *u, *dtmp, *dagg, *dr, *dr0, *dcd;
 };
 
 size_t rows_scratch_layout(int G, int S, int N, int H, int E, float* base, RowsScratch* s) {
   const size_t M = (size_t)G * N, Me = (size_t)G * S * N;
+  int kchunk;
+  const size_t wsplits = (size_t)wgrad_splits((int)Me, H, &kchunk);
   const size_t sizes[] = {M * 2 * H, M * H, M * H, M * H, M * H, M * H, M * H, M * H,
-                          M * (3 + E) * H, Me * H, Me * H, Me * H, Me, Me, Me * 3,
-                          (size_t)kMaxSplits * H * H};
+                          (size_t)G * S * (3 + E) * H, Me * H, Me * H, Me * H, Me, Me, Me * 3,
+                          wsplits * H * H, (size_t)kMaxSplits * H * H};
   float** ptrs[] = {&s->proj, &s->agg, &s->z, &s->u, &s->dtmp, &s->dagg, &s->rowsum,
-                    &s->colsum, &s->part, &s->abuf, &s->dbuf, &s->pbuf, &s->dr, &s->dr0,
-                    &s->dcd, &s->split.buf};
+                    &s->colsum, &s->part, &s->abuf, &s->dbuf, &s->colpart, &s->dr, &s->dr0,
+                    &s->dcd, &s->wsplit, &s->split.buf};
   s->split.cap = sizes[sizeof(sizes) / sizeof(sizes[0]) - 1];
   size_t off = 0;
   for (int k = 0; k < (int)(sizeof(sizes) / sizeof(sizes[0])); ++k) {
@@ -309,22 +223,6 @@ size_t rows_scratch_layout(int G, int S, int N, int H, int E, float* base, RowsS
     off += (sizes[k] + 63) / 64 * 64;  // 256-byte aligned pieces
   }
   return off;
-}
-
-EdgeBwdArgs bwd_args(const RowsScratch& sc, const Slab& r, const float* x, const float* x0,
-                     const float* mask, const float* const* w, int N, int H, int E, int sin_emb,
-                     float norm_div, float norm_constant) {
-  EdgeBwdArgs eb = {};
-  eb.proj = sc.proj; eb.x = x; eb.x0 = x0; eb.mask = mask;
-  eb.xr = r.x; eb.x0r = r.x0; eb.maskr = r.mask;
-  eb.src = sc.proj; eb.ld_src = 2 * H; eb.dst = sc.proj + H; eb.ld_dst = 2 * H;
-  eb.row0 = r.row0; eb.S = r.S;
-  eb.w1 = w[0]; eb.ld1 = 2 * H + E; eb.b1 = w[1]; eb.w2 = w[2]; eb.b2 = w[3];
-  eb.abuf = sc.abuf; eb.dbuf = sc.dbuf; eb.pbuf = sc.pbuf; eb.rowsum = sc.rowsum;
-  eb.part = sc.part; eb.dr = sc.dr; eb.dr0 = sc.dr0; eb.dcd = sc.dcd;
-  eb.N = N; eb.H = H; eb.E = E; eb.sin_emb = sin_emb;
-  eb.norm_constant = norm_constant; eb.norm_div = norm_div;
-  return eb;
 }
 
 // Zeroes the pair gradients a stage's edge grid leaves unwritten: those of
@@ -449,18 +347,22 @@ struct StageGrads {
 // (kernel #5; out's two views alias and get the sum, coordinates through
 // coord_grad_kernel), else an SP slab (#7; the split coordinate passes). w / g:
 // the stage's weight / gradient pointers (10 of a GCL, 5 of the coordinate
-// update); every gradient is overwritten. The molecules run in groups of G
-// whose scratch is rows_scratch_layout(G, S, ...), each group's weight
-// gradients added to the previous groups' in group order.
+// update); every gradient is overwritten. chain: a GCL's node chain over the
+// slab, [3, B*S, H] (the aggregate, z and silu(z), as gcl_rows_host keeps
+// them), or null to run it here with the same code (gcl_chain); both give
+// the same bits. The molecules run in groups of G whose scratch is
+// rows_scratch_layout(G, S, ...), each group's weight gradients added to the
+// previous groups' in group order.
 template <int kOwner, bool COORD>
 int rows_backward(bool whole, const float* h, const float* x, const float* x0,
-                  const float* mask, const Slab& r, const float* gout, const StageGrads& out,
-                  const float* const* w, float* const* g, float* scratch, int B, int G, int N,
-                  int H, int E, int attention, int sin_emb, int use_tanh, float coords_range,
-                  float norm_div, float norm_constant, cudaStream_t s) {
+                  const float* mask, const Slab& r, const float* gout, const float* chain,
+                  const StageGrads& out, const float* const* w, float* const* g, float* scratch,
+                  int B, int G, int N, int H, int E, int attention, int sin_emb, int use_tanh,
+                  float coords_range, float norm_div, float norm_constant, cudaStream_t s) {
   const int S = r.S;
   RowsScratch sc;
   rows_scratch_layout(G, S, N, H, E, scratch, &sc);
+  const size_t plane = (size_t)B * S * H;  // one tensor of the chain
   int rc;
   cudaError_t ce;
   for (int b0 = 0; b0 < B; b0 += G) {
@@ -480,42 +382,40 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
       return (int)ce;
     if ((rc = launch_projection_window<kOwner>(rg.h, Mr, hg, Mc, w[0], 2 * H + E, sc.proj, H, s)))
       return rc;
+    TileArgs ea = stage_args(rg, xg, x0g, mg, sc.proj, w, N, H, E, sin_emb, norm_div,
+                             norm_constant);
     if (!COORD) {
-      // 1. Forward recompute of the aggregate and the node MLP, then its backward.
-      TileArgs ea = stage_args(rg, xg, x0g, mg, sc.proj, w, N, H, E, sin_emb, norm_div,
-                               norm_constant);
+      // 1. The node chain (handed over, or run here), then the node MLP's
+      //    backward, which gives the gradient of the aggregate.
       ea.attention = attention;
-      ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = sc.agg;
-      if ((rc = launch_rows<false>(ea, Bg, s))) return rc;
-      GemmArgs n1 = {};
-      n1.a1 = rg.h; n1.lda1 = H; n1.k1 = H; n1.a2 = sc.agg; n1.lda2 = H;
-      n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
-      n1.c = sc.z; n1.ldc = H; n1.M = Mr; n1.Nout = H; n1.K = 2 * H;
-      n1.epilogue = kEpiNone;
-      if ((rc = launch_gemm<kOwner>(n1, s))) return rc;
-      silu_kernel<<<(Mr * H + 255) / 256, 256, 0, s>>>(sc.z, sc.u, Mr * H);
-      if ((rc = (int)cudaGetLastError())) return rc;
-      if ((rc = node_mlp_backward(gout + offr * H, rg.mask, rg.h, sc.agg, sc.z, sc.u, w, g,
-                                  sc.dtmp, sc.dagg, dhrg, Mr, H, acc, sc.split, s)))
+      ea.w_out = w[4]; ea.b_out = w[5];
+      const float *agg = sc.agg, *z = sc.z, *u = sc.u;
+      if (chain) {
+        agg = chain + offr * H;
+        z = agg + plane;
+        u = z + plane;
+      } else if ((rc = gcl_chain<kOwner>(ea, rg.h, w, Bg, sc.agg, sc.z, sc.u, s))) {
         return rc;
+      }
+      if ((rc = node_mlp_backward(gout + offr * H, rg.mask, rg.h, agg, z, u, w, g, sc.dtmp,
+                                  sc.dagg, dhrg, Mr, H, acc, sc.split, s)))
+        return rc;
+      ea.dagg = sc.dagg;
+    } else {
+      ea.use_tanh = use_tanh; ea.coords_range = coords_range;
+      ea.w_out = w[4]; ea.gx = gout + offr * 3;
     }
     // 2. The edge grid, then 3. the weight gradients, dh and the coordinates.
-    EdgeBwdArgs eb = bwd_args(sc, rg, xg, x0g, mg, w, N, H, E, sin_emb, norm_div, norm_constant);
-    const float* gxg = COORD ? gout + offr * 3 : nullptr;
-    if (COORD) {
-      eb.use_tanh = use_tanh; eb.coords_range = coords_range;
-      eb.w_out = w[4]; eb.gx = gxg;
-    } else {
-      eb.attention = attention;
-      eb.w_out = w[4]; eb.b_out = w[5]; eb.dagg = sc.dagg;
-    }
-    if ((rc = launch_rows_bwd<COORD>(eb, Bg, s))) return rc;
-    const Dims d = {Bg, N, H, E, 2 * H + E, norm_div, S};
+    ea.abuf = sc.abuf; ea.dbuf = sc.dbuf; ea.colpart = sc.colpart; ea.rowsum = sc.rowsum;
+    ea.part = sc.part; ea.dr = sc.dr; ea.dr0 = sc.dr0; ea.dcd = sc.dcd;
+    if ((rc = launch_rows_bwd<COORD>(ea, Bg, s))) return rc;
+    const Dims d = {Bg, N, H, E, 2 * H + E, S, S};
     float* gwo = COORD || attention ? g[4] : nullptr;
     float* gbo = !COORD && attention ? g[5] : nullptr;
-    if ((rc = stage_grads_window(d, rg.h, hg, w[0], g[0], g[1], g[2], g[3], gwo, gbo, sc, dhrg,
-                                 dhg, acc, s)))
+    if ((rc = stage_grads(d, rg.h, hg, w[0], g[0], g[1], g[2], g[3], gwo, gbo, sc, dhrg, dhg,
+                          acc, s)))
       return rc;
+    const float* gxg = COORD ? gout + offr * 3 : nullptr;
     if (whole) {
       coord_grad_kernel<COORD><<<(Mr + 127) / 128, 128, 0, s>>>(
           xg, x0g, mg, gxg, COORD ? sc.dcd : nullptr, sc.dr, sc.dr0, out.dx + offc * 3,

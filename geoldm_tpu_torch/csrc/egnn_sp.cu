@@ -16,9 +16,9 @@
 //
 // Design. The same kernels as the single-device row-tiled stages (#3, #4,
 // #5), run over a row window (egnn_rows.cuh, egnn_rows_bwd.cuh): one CTA per
-// (molecule, slab row), the columns walked in 64-column tensor-core windows
-// (forward) or in tiles of 32 with one thread per hidden channel (backward),
-// no atomics. What differs:
+// (molecule, slab row), the columns walked in 64-column windows of the
+// tensor-core tile of egnn_tile.cuh, forward and backward, no atomics. What
+// differs:
 //   - the slab's h, x, x0 and mask are their own [B*S, *] tensors and the
 //     CTA's global row is row0 + blockIdx.x, which the diagonal mask uses;
 //   - a GCL's first layer splits: the src half h_r W1s over the B*S slab
@@ -33,11 +33,15 @@
 //   - the CUDA kernels mask their ragged tails, so the TPU's 8-row slab
 //     alignment (sp_stage_tiles) does not carry over: any S from 1 to N.
 // The edge scratch of the backward is [G, S, N, H] x 3 for a group of G
-// molecules: 1.66 GB at G = 32, S = 92, N = 184, H = 256.
+// molecules: 1.66 GB at G = 32, S = 92, N = 184, H = 256. Where the caller
+// kept the slab's node chain when it re-ran the GCL forward (egnn_sp_gcl_rows
+// with z; parallel/sp.py's SPEquivariantBlockFunction does), the backward
+// takes it instead of running the GCL's edge grid again.
 //
 // What bounds it on an H100: as #3-#5, the edge products over the slab's
-// S*N pairs, bound by operations: the forward's W2 product in split TF32 on
-// the tensor cores, the backward's in f32 FMA.
+// S*N pairs, bound by operations: the forward's W2 product and the
+// backward's three (the second layer, the transposed product, the W2
+// gradient) in split TF32 on the tensor cores.
 
 #include "egnn_rows_bwd.cuh"
 
@@ -58,17 +62,19 @@ const char* egnn_sp_error_string(int code) {
 // Kernel #6, GCL: the full view h [B*N, H], x, x0 [B*N, 3], mask [B*N]; the
 // slab hr [B*S, H], xr, x0r [B*S, 3], mr [B*S] at global rows row0..row0+S.
 // w: the GCL's 10 weight pointers in egnn_gcl_rows' order. Scratch: proj
-// [B*N, 2H], agg and hidden [B*S, H]. h_out [B*S, H] must not alias hr.
-// 'Mean' divides by mean_div. Returns a cudaError_t value (0 on success).
+// [B*N, 2H], agg and hidden [B*S, H], and z [B*S, H] or null (with z, the
+// slab's node chain for egnn_sp_gcl_rows_backward, as egnn_gcl_rows keeps
+// it). h_out [B*S, H] must not alias hr. 'Mean' divides by mean_div.
+// Returns a cudaError_t value (0 on success).
 int egnn_sp_gcl_rows(const float* h, const float* x, const float* x0, const float* mask,
                      const float* hr, const float* xr, const float* x0r, const float* mr,
-                     float* h_out, float* proj, float* agg, float* hidden,
+                     float* h_out, float* proj, float* agg, float* hidden, float* z,
                      const void* const* w_table, int B, int N, int S, int row0, int H, int E,
                      int attention, int sin_emb, int mean_agg, int mean_div,
                      float norm_constant, float normalization_factor, void* stream) {
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div)) return (int)cudaErrorInvalidValue;
-  return gcl_rows_host<6>(h, x, x0, mask, r, h_out, proj, agg, hidden,
+  return gcl_rows_host<6>(h, x, x0, mask, r, h_out, proj, agg, hidden, z,
                           reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
                           sin_emb, mean_agg ? (float)mean_div : normalization_factor,
                           norm_constant, (cudaStream_t)stream);
@@ -99,25 +105,28 @@ size_t egnn_sp_backward_scratch_floats(int G, int S, int N, int H, int E) {
 }
 
 // Kernel #7, GCL: views as egnn_sp_gcl_rows; gh [B*S, H] the cotangent of the
-// slab's output. Writes the full-view gradients dh [B*N, H], dx, dx0 [B*N, 3]
-// and the slab's dhr [B*S, H], dxr, dx0r [B*S, 3]; w / g: the GCL's 10 weight
-// / gradient pointers (att_mlp null without attention), every gradient
+// slab's output; chain: the slab's node chain [3, B*S, H] that
+// egnn_sp_gcl_rows kept for these inputs, or null to run it here (the same
+// bits). Writes the full-view gradients dh [B*N, H], dx, dx0 [B*N, 3] and the
+// slab's dhr [B*S, H], dxr, dx0r [B*S, 3]; w / g: the GCL's 10 weight /
+// gradient pointers (att_mlp null without attention), every gradient
 // overwritten with the slab's share summed over the batch. scratch: a device
 // buffer of egnn_sp_backward_scratch_floats(G, ...) floats; the molecules run
 // in groups of G. Returns a cudaError_t value.
 int egnn_sp_gcl_rows_backward(const float* h, const float* x, const float* x0,
                               const float* mask, const float* hr, const float* xr,
-                              const float* x0r, const float* mr, const float* gh, float* dh,
-                              float* dx, float* dx0, float* dhr, float* dxr, float* dx0r,
-                              const void* const* w_table, void* const* g_table, float* scratch,
-                              int B, int G, int N, int S, int row0, int H, int E, int attention,
-                              int sin_emb, int mean_agg, int mean_div, float norm_constant,
-                              float normalization_factor, void* stream) {
+                              const float* x0r, const float* mr, const float* gh,
+                              const float* chain, float* dh, float* dx, float* dx0, float* dhr,
+                              float* dxr, float* dx0r, const void* const* w_table,
+                              void* const* g_table, float* scratch, int B, int G, int N, int S,
+                              int row0, int H, int E, int attention, int sin_emb, int mean_agg,
+                              int mean_div, float norm_constant, float normalization_factor,
+                              void* stream) {
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
   return rows_backward<7, false>(
-      false, h, x, x0, mask, r, gh, out, reinterpret_cast<const float* const*>(w_table),
+      false, h, x, x0, mask, r, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
       0.f, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
       (cudaStream_t)stream);
@@ -139,7 +148,7 @@ int egnn_sp_coord_rows_backward(const float* h, const float* x, const float* x0,
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
   return rows_backward<7, true>(
-      false, h, x, x0, mask, r, gx, out, reinterpret_cast<const float* const*>(w_table),
+      false, h, x, x0, mask, r, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
       (cudaStream_t)stream);

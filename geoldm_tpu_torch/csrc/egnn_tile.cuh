@@ -1,6 +1,6 @@
 // The 64-edge-row tile of the EquivariantBlock edge stages on Hopper, shared
 // by the whole-molecule kernels (egnn_block_tile.cuh: #1, #2) and the
-// row-tiled forward grid (egnn_rows.cuh: #3, #4, #6 and #5/#7's recompute):
+// row-tiled grids (egnn_rows.cuh: #3, #4, #6; egnn_rows_bwd.cuh: #5, #7):
 // the tile's shared-memory layout, its split-TF32 tensor-core product with
 // W2 streamed through cp.async stages, the edge geometry and first layer of
 // a tile, and the per-edge gate / scale and the row sums in a fixed order.
@@ -253,17 +253,20 @@ struct TileArgs {
   const float* b_out;  // GCL: att_mlp.0.bias [1]
   float* agg;          // forward GCL output [B*S, H]
   float* x_out;        // forward coordinate output [B*S, 3]
-  // Backward (egnn_block_bwd.cu); the edge index of (b, i, j) is (b*N + i)*N + j.
-  const float* dagg;   // GCL: [B*N, H] gradient of the aggregate
-  const float* gx;     // coord: [B*N, 3] gradient of x_out
-  float* abuf;         // [B*N*N, H] silu(pre)
-  float* dbuf;         // [B*N*N, H] gradient of the second layer's pre-activation
-  float* rowsum;       // [B*N, H] sum_j d(pre)
+  // Backward (#2: egnn_block_bwd.cu; #5/#7: egnn_rows_bwd.cuh) over the
+  // rows' view: the edge index of (b, row i, column j) is (b*S + i)*N + j,
+  // and T is the tiles (#2) or CTAs (the row grid, one row each) of a
+  // molecule.
+  const float* dagg;   // GCL: [B*S, H] gradient of the aggregate
+  const float* gx;     // coord: [B*S, 3] gradient of x_out
+  float* abuf;         // [B*S*N, H] silu(pre)
+  float* dbuf;         // [B*S*N, H] gradient of the second layer's pre-activation
+  float* rowsum;       // [B*S, H] sum_j d(pre)
   float* colpart;      // [B, T, N, H] sum over a tile's rows of d(pre)
   float* part;         // [B*T, (3 + E) * H] per-tile partials: db2 | dw_out | db_out | dWe
-  float* dr;           // [B*N*N] += gradient of the squared distance (not sin)
-  float* dr0;          // [B*N*N] += gradient of the initial squared distance (not sin)
-  float* dcd;          // [B*N*N, 3] coord stage: gradient of coord_diff
+  float* dr;           // [B*S*N] gradient of the squared distance (not sin)
+  float* dr0;          // [B*S*N] gradient of the initial squared distance (not sin)
+  float* dcd;          // [B*S*N, 3] coord stage: gradient of coord_diff
   int N, H, E, R, T;   // R, T: #1/#2's rows a tile and tiles a molecule
   int sin_emb, attention, use_tanh;
   float coords_range, norm_constant, norm_div;
@@ -374,16 +377,17 @@ __device__ __forceinline__ void edge_pre_batch(const TileArgs& a, const float* w
 }
 
 // As[e][c] = silu(pre) for the tile's edges (thread c), zero elsewhere; the
-// backward also writes it to abuf. SLAB as edge_pre_batch.
+// backward also writes it to ab, the tile's edge 0 in abuf ([edge][H], the
+// tile's edges consecutive). SLAB as edge_pre_batch.
 template <int HP, bool SLAB = false>
-__device__ __forceinline__ void build_edge_tile(const TileArgs& a, float* As, int b, int i0,
-                                                int mrows, float* abuf) {
+__device__ __forceinline__ void build_edge_tile(const TileArgs& a, float* As, int b, int mrows,
+                                                float* ab) {
   using C = TileCfg<HP>;
-  const int c = tile_tid(), H = a.H, N = a.N;
+  const int c = tile_tid(), H = a.H;
   float we[kMaxEdgeFeat];
   edge_feat_weights(a, c, we);
   const float bias1 = c < H ? a.b1[c] : 0.f;
-  float* ab = abuf ? abuf + ((size_t)b * N + i0) * N * H + c : nullptr;  // tile edge 0, channel c
+  if (ab) ab += c;  // channel c
   for (int e0 = 0; e0 < kTileRows; e0 += kBatch) {
     float pre[kBatch];
     if (c < H) edge_pre_batch<HP, SLAB>(a, we, bias1, b, e0, c, pre);
@@ -463,6 +467,121 @@ __device__ __forceinline__ float fold_coords(int e0, int n, int d, float aggx) {
     aggx += cd[e * 3 + d] * rs[e] * em[e];
   }
   return aggx;
+}
+
+// ---------------------------------------------------------------------------
+// Per-edge passes of the edge-stage backward (#2's tile grid and the row
+// grid of #5/#7); tile edge e is edge (b*S + ei[e])*N + ej[e].
+// ---------------------------------------------------------------------------
+
+// The gate's or the coordinate scale's backward over the tile's mrows edges,
+// the second layer's mm in As: one warp per edge (two at a time) sums the
+// logit sum_c silu(mm)[c] w_out[c] and, for the gate, sum_c dagg_i[c]
+// silu(mm)[c] / div over the edge's row i; then one thread per edge turns
+// them into rs (the gate) and rs2 (the logit's gradient) and, for the
+// coordinate stage, writes the edge's gradient of coord_diff. Ends with a
+// barrier.
+template <int HP, bool COORD>
+__device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float* As, int b,
+                                                 int mrows) {
+  using C = TileCfg<HP>;
+  using T = TileEdges<HP>;
+  float *rs = T::rs(), *rs2 = T::rs2();
+  const int *ei = T::ei(), *ej = T::ej();
+  const int H = a.H, lane = tile_tid() & 31, warp = tile_tid() >> 5;
+  const float inv_div = 1.f / a.norm_div;
+  const float* dagg_b = COORD ? nullptr : a.dagg + (size_t)b * a.S * H;  // molecule b's rows
+  for (int e = warp; e < mrows; e += 2 * C::kWarps) {
+    const int e2 = e + C::kWarps < mrows ? e + C::kWarps : e;
+    float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll 4
+    for (int k = lane; k < H; k += 32) {
+      const float w = __ldg(a.w_out + k);
+      const float m = tile_silu(As[e * C::kLdA + k]), m2 = tile_silu(As[e2 * C::kLdA + k]);
+      s[0] = fmaf(m, w, s[0]);
+      s[1] = fmaf(m2, w, s[1]);
+      if (!COORD) {
+        s2[0] = fmaf(m, __ldg(dagg_b + ei[e] * H + k) * inv_div, s2[0]);
+        s2[1] = fmaf(m2, __ldg(dagg_b + ei[e2] * H + k) * inv_div, s2[1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      s[u] = warp_sum(s[u]);
+      if (!COORD) s2[u] = warp_sum(s2[u]);
+    }
+    if (lane < 2 && (lane == 0 || e2 != e)) {  // lane u keeps edge u's sums
+      rs[lane ? e2 : e] = lane ? s[1] : s[0];
+      rs2[lane ? e2 : e] = lane ? s2[1] : s2[0];
+    }
+  }
+  __syncthreads();
+  const float *em = T::em(), *cd = T::cd();
+  for (int e = tile_tid(); e < mrows; e += C::kThreads) {
+    if (COORD) {
+      // s_ij = tanh(l) * range; ds_ij = em (daggx . cd); dcd = daggx s em.
+      const size_t rr = (size_t)b * a.S + ei[e];
+      const float mi = a.maskr[rr];
+      float daggx[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) daggx[q] = a.gx[rr * 3 + q] * mi / a.norm_div;
+      const float l = rs[e];
+      const float th = tanhf(l);
+      const float scale = a.use_tanh ? th * a.coords_range : l;
+      const float dotc = daggx[0] * cd[e * 3] + daggx[1] * cd[e * 3 + 1] +
+                         daggx[2] * cd[e * 3 + 2];
+      const float ds = em[e] * dotc;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        a.dcd[(rr * a.N + ej[e]) * 3 + q] = daggx[q] * scale * em[e];
+      rs2[e] = a.use_tanh ? ds * a.coords_range * (1.f - th * th) : ds;
+    } else {
+      // gate g = sigmoid(l + ba); q = g (1 - g) em (dagg . m).
+      const float g = sigmoid_f(rs[e] + a.b_out[0]);
+      rs[e] = g;
+      rs2[e] = g * (1.f - g) * em[e] * rs2[e];
+    }
+  }
+  __syncthreads();
+}
+
+// Squared-distance features (not sin, whose features carry no gradient):
+// dr_e += sum_c d(pre)[e][c] We[c][0] and dr0_e with We[c][1], d(pre) in As
+// and We's two columns in Wb[0:HP], Wb[HP:2HP]; one warp per edge, two at a
+// time.
+template <int HP>
+__device__ __forceinline__ void edge_dist_grads(const TileArgs& a, const float* As,
+                                                const float* Wb, int b, int mrows) {
+  using C = TileCfg<HP>;
+  const int *ei = TileEdges<HP>::ei(), *ej = TileEdges<HP>::ej();
+  const int lane = tile_tid() & 31, warp = tile_tid() >> 5;
+  for (int e = warp; e < mrows; e += 2 * C::kWarps) {
+    const int e2 = e + C::kWarps < mrows ? e + C::kWarps : e;
+    float s[2] = {0.f, 0.f}, s0[2] = {0.f, 0.f};
+#pragma unroll 4
+    for (int k = lane; k < a.H; k += 32) {
+      const float dp = As[e * C::kLdA + k], dp2 = As[e2 * C::kLdA + k];
+      s[0] = fmaf(dp, Wb[k], s[0]);
+      s0[0] = fmaf(dp, Wb[HP + k], s0[0]);
+      s[1] = fmaf(dp2, Wb[k], s[1]);
+      s0[1] = fmaf(dp2, Wb[HP + k], s0[1]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      s[u] = warp_sum(s[u]);
+      s0[u] = warp_sum(s0[u]);
+    }
+    if (lane == 0) {
+      const size_t k1 = ((size_t)b * a.S + ei[e]) * a.N + ej[e];
+      a.dr[k1] += s[0];
+      a.dr0[k1] += s0[0];
+      if (e2 != e) {
+        const size_t k2 = ((size_t)b * a.S + ei[e2]) * a.N + ej[e2];
+        a.dr[k2] += s[1];
+        a.dr0[k2] += s0[1];
+      }
+    }
+  }
 }
 
 template <int HP>

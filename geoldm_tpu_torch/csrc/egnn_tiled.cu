@@ -60,8 +60,9 @@
 //     hand-written 64x64-tile f32 GEMM of egnn_common.cuh with its fused
 //     bias / silu / residual*mask epilogues.
 // The stages take a row window (egnn_rows.cuh); here the window is every row.
-// One call of egnn_gcl_rows enqueues 5 grids, one of egnn_coord_rows 3, on
-// the caller's stream; neither synchronises.
+// One call of egnn_gcl_rows enqueues 5 grids (6 when it keeps the node chain
+// for the backward), one of egnn_coord_rows 3, on the caller's stream;
+// neither synchronises.
 
 #include "egnn_rows.cuh"
 
@@ -75,16 +76,18 @@ const char* egnn_tiled_error_string(int code) {
 // pointers, edge_mlp.0.{weight,bias}, edge_mlp.2.{weight,bias},
 // att_mlp.0.{weight,bias} (null without attention), node_mlp.0.{weight,bias},
 // node_mlp.2.{weight,bias}. Scratch: proj [B*N, 2H], agg [B*N, H], hidden
-// [B*N, H]. h_out must not alias h. Returns a cudaError_t value (0 on
-// success).
+// [B*N, H], and z [B*N, H] or null: with z, agg, z and hidden = silu(z) are
+// the GCL's node chain, which the stage backward (egnn_gcl_rows_backward)
+// takes as [3, B*N, H] when the three are consecutive. h_out must not alias
+// h. Returns a cudaError_t value (0 on success).
 int egnn_gcl_rows(const float* h, const float* x, const float* x0, const float* mask,
-                  float* h_out, float* proj, float* agg, float* hidden,
+                  float* h_out, float* proj, float* agg, float* hidden, float* z,
                   const void* const* w_table, int B, int N, int H, int E, int attention,
                   int sin_emb, int mean_agg, float norm_constant, float normalization_factor,
                   void* stream) {
   if (bad_dims(B, N, H, E, sin_emb)) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
-  return gcl_rows_host<3>(h, x, x0, mask, all, h_out, proj, agg, hidden,
+  return gcl_rows_host<3>(h, x, x0, mask, all, h_out, proj, agg, hidden, z,
                           reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
                           sin_emb, mean_agg ? (float)N : normalization_factor, norm_constant,
                           (cudaStream_t)stream);

@@ -15,49 +15,65 @@
 //
 // Design. The Pallas kernel recomputes a [T, N] row slab in VMEM, runs an
 // in-kernel jax.vjp and accumulates weight gradients across its sequential
-// grid. Here the stage runs as deterministic passes without atomics (a
-// seeded run replays bit for bit), those of kernel #2 around a new edge
-// grid:
-//   1. the src/dst projection GEMM; for a GCL also the forward recompute of
-//      its aggregate (the row-tiled forward edge kernel of egnn_rows.cuh)
-//      and node MLP, and the node-MLP backward, which gives the gradient of
-//      the aggregate;
-//   2. rows_bwd_kernel, one CTA per (molecule b, row i) and one thread per
-//      hidden channel, which walks the columns in masked tiles of kColTile =
-//      32 through shared memory as the forward does. Per tile it rebuilds
-//      the pair features and silu(pre), recomputes the second layer,
-//      back-propagates through the attention gate or the tanh scale, runs
-//      the transposed W2 product, and folds the tile into the row's sums
-//      (db2, the gate or scale weight, db1 and the src projection's
-//      gradient in registers; the edge-feature columns of W1 in the CTA's
-//      own partial row). It writes silu(pre), d(mm) and d(pre) of its row to
-//      device memory for the passes that cross rows, and the squared-
-//      distance gradients of its pairs (not sin). A tile whose edge mask is
-//      all zero adds nothing: it writes zeros and is skipped;
-//   3. the passes of egnn_bwd_common.cuh: the column sum of d(pre) for the
-//      dst projection, split-K GEMMs for the weight gradients, the
-//      deterministic row reductions, and the coordinate pass dx_i = sum_j
-//      (G_ij - G_ji), dx0 likewise.
+// grid. A CUDA grid runs in parallel, so here the stage runs as
+// deterministic passes without atomics (a seeded run replays bit for bit):
+//   1. the src/dst projection GEMM; for a GCL its node chain (the aggregate,
+//      the node MLP's pre-activation z and silu(z)): handed over by the
+//      caller, which kept it when it re-ran the GCL forward (egnn_gcl_rows
+//      with z; ops/egnn_tiled.py's TiledEquivariantBlockFunction does), or
+//      else run here by the forward's own code (gcl_chain, egnn_rows.cuh),
+//      so both routes give the same bits; then the node MLP's backward,
+//      which gives the gradient of the aggregate;
+//   2. the edge grid rows_bwd_tile_kernel (egnn_rows_bwd.cuh) on the 64-edge
+//      tile of egnn_tile.cuh, as the forward grid: a CTA owns one row of one
+//      molecule and walks its columns in 64-column windows. Per window it
+//      rebuilds silu(pre), runs the second layer and the transposed product
+//      d(mm) W2 on the tensor cores (mma.sync in split TF32: x = hi + lo,
+//      hi*hi + hi*lo + lo*hi in f32, about f32's accuracy; W2 streamed
+//      through cp.async stages, so each W2 element serves 64 edges), forms
+//      the gate or scale and their gradients one warp per edge, and adds the
+//      window's row sum of d(pre) (src projection, b1) and partials (db2, the
+//      gate or scale weight and bias, the edge-feature columns of W1) to the
+//      CTA's own rows. It writes silu(pre), d(mm) and d(pre) of its edges
+//      for the passes that cross rows, and the squared-distance gradients of
+//      its pairs (not sin). Up to H=256 two CTAs share an SM at <= 128
+//      registers; a window whose edge mask is all zero adds nothing: it
+//      writes zeros and is skipped;
+//   3. the passes of egnn_bwd_common.cuh (stage_grads), those of kernel #2:
+//      the W2 gradient sum_e d(mm)^T silu(pre) as a split-K GEMM on the
+//      tensor cores (wgrad_tc), the column sums of d(pre) from the CTAs'
+//      column partials (column_sum_kernel) for the dst projection, the
+//      node-side products (dW1's src/dst columns, dh, the node MLP's six) on
+//      the 3xTF32 node GEMM (egnn_tc_gemm.cuh, split-K partials summed in
+//      order), the deterministic row reductions, and the coordinate pass
+//      dx_i = sum_j (G_ij - G_ji), dx0 likewise.
 // 'Mean' divides by the caller's N; the diagonal is masked at the global row.
 // The edge grid, the passes and the host loop live in egnn_rows_bwd.cuh,
 // which the sequence-parallel slab backward (egnn_sp.cu, #7) shares: here the
 // row window is every row and the two views' gradients are summed.
 //
-// Memory. The three edge-sized buffers of step 2 (silu(pre), d(mm), d(pre))
-// take 3 * G*N*N*H*4 bytes for a group of G molecules, 3 x 1.11 GB at G=32,
-// N=184, H=256; with the node-sized pieces, the pair gradients and the
-// split-K buffer, egnn_rows_backward_scratch_floats gives the whole. The
-// caller picks G so that the scratch stays under its cap and this function
-// runs the molecules in groups of G, adding each group's weight gradients to
-// the previous groups' in group order; one molecule over the cap is the
+// Memory. The grid writes three edge-sized buffers, silu(pre) and d(mm) (the
+// W2 gradient's operands) and d(pre) as the CTAs' column partials: with one
+// row per CTA a CTA's column partials are its d(pre) row, so summing them
+// in a second pass moves the same bytes as reading d(pre) back. Each is
+// G*N*N*H*4 bytes for a group of G molecules, 1.11 GB at G=32, N=184,
+// H=256; with the node-sized pieces, the pair gradients and the split-K
+// partials, egnn_rows_backward_scratch_floats gives the whole. The caller
+// picks G so that the scratch stays under its cap and this function runs
+// the molecules in groups of G, adding each group's weight gradients to the
+// previous groups' in group order; one molecule over the cap is the
 // caller's to refuse.
 //
-// What bounds it on an H100: about 6*N^2*H^2 FLOP per molecule and stage
-// (the recomputed second layer, the transposed product, the W2 gradient),
-// f32 FMA outside the tensor cores, against ~7 bytes of edge traffic per
-// 100 FLOP: it is bound by operations. One call enqueues about 25 grids
-// (GCL) or 15 (coordinate update) per group on the caller's stream and does
-// not synchronise.
+// What bounds it on an H100: three edge products of 2*H^2 FLOP per real
+// pair and stage (the second layer rebuilt, the transposed product, the W2
+// gradient), about 13 GFLOP per molecule at N=184, H=256, run as three
+// TF32 products each against 495 TFLOP/s of dense TF32, and the first layer,
+// the activations and the reductions at f32's 67 TFLOP/s; it is bound by
+// operations (chip_smoke.py phase 12 prints both bounds). The edge buffers
+// (written once, read once: 6.7 GB at G=32, N=184) take about 2 ms at 3.35
+// TB/s, overlapped with the grid's products and the GEMMs' own. One call
+// enqueues about 30 grids (GCL) or 20 (coordinate update) per group on the
+// caller's stream and does not synchronise.
 
 #include "egnn_rows_bwd.cuh"
 
@@ -73,23 +89,29 @@ size_t egnn_rows_backward_scratch_floats(int G, int N, int H, int E) {
   return rows_scratch_layout(G, N, N, H, E, nullptr, &s);
 }
 
+// Splits of the W2-gradient GEMM (egnn_tc_gemm.cuh) over Me edge rows at
+// hidden width H; *kchunk receives the edge rows a split sums.
+int egnn_wgrad_splits(int Me, int H, int* kchunk) { return wgrad_splits(Me, H, kchunk); }
+
 // Kernel #5, GCL stage. h: the GCL's input; gh: the cotangent of its output
-// [B*N, H]. w / g: host arrays of the GCL's 10 weight / gradient device
+// [B*N, H]; chain: the GCL's node chain [3, B*N, H] (aggregate, z, silu(z))
+// that egnn_gcl_rows kept for this h, or null to run it here (the same
+// bits). w / g: host arrays of the GCL's 10 weight / gradient device
 // pointers in egnn_gcl_rows' order (att_mlp entries null without
 // attention); every gradient is overwritten. scratch: a device buffer of
 // egnn_rows_backward_scratch_floats(G, ...) floats; the molecules run in
 // groups of G. Returns a cudaError_t value (0 on success).
 int egnn_gcl_rows_backward(const float* h, const float* x, const float* x0, const float* mask,
-                           const float* gh, float* dh, float* dx, float* dx0,
-                           const void* const* w_table, void* const* g_table, float* scratch,
-                           int B, int G, int N, int H, int E, int attention, int sin_emb,
-                           int mean_agg, float norm_constant, float normalization_factor,
-                           void* stream) {
+                           const float* gh, const float* chain, float* dh, float* dx,
+                           float* dx0, const void* const* w_table, void* const* g_table,
+                           float* scratch, int B, int G, int N, int H, int E, int attention,
+                           int sin_emb, int mean_agg, float norm_constant,
+                           float normalization_factor, void* stream) {
   if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
   return rows_backward<5, false>(
-      true, h, x, x0, mask, all, gh, out, reinterpret_cast<const float* const*>(w_table),
+      true, h, x, x0, mask, all, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
       0.f, mean_agg ? (float)N : normalization_factor, norm_constant, (cudaStream_t)stream);
 }
@@ -109,7 +131,7 @@ int egnn_coord_rows_backward(const float* h, const float* x, const float* x0, co
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
   return rows_backward<5, true>(
-      true, h, x, x0, mask, all, gx, out, reinterpret_cast<const float* const*>(w_table),
+      true, h, x, x0, mask, all, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)N : normalization_factor, norm_constant,
       (cudaStream_t)stream);

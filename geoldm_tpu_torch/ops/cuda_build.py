@@ -26,7 +26,8 @@ SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_
            "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu",
            "egnn_sp": CSRC / "egnn_sp.cu"}
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_tile.cuh",
-           CSRC / "egnn_block_tile.cuh", CSRC / "egnn_rows.cuh", CSRC / "egnn_rows_bwd.cuh")
+           CSRC / "egnn_tc_gemm.cuh", CSRC / "egnn_block_tile.cuh", CSRC / "egnn_rows.cuh",
+           CSRC / "egnn_rows_bwd.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,20 +46,21 @@ _SIGNATURES = {
         "egnn_block_bwd_error_string": ([_I], _STR),
     },
     "egnn_tiled": {
-        "egnn_gcl_rows": ([_P] * 9 + [_I] * 7 + [_F] * 2 + [_P], _I),
+        "egnn_gcl_rows": ([_P] * 10 + [_I] * 7 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_P], _I),
         "egnn_tiled_error_string": ([_I], _STR),
     },
     "egnn_tiled_bwd": {
-        "egnn_gcl_rows_backward": ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
+        "egnn_gcl_rows_backward": ([_P] * 12 + [_I] * 8 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows_backward": ([_P] * 11 + [_I] * 8 + [_F] * 3 + [_P], _I),
         "egnn_rows_backward_scratch_floats": ([_I] * 4, _Z),
+        "egnn_wgrad_splits": ([_I, _I, ctypes.POINTER(_I)], _I),
         "egnn_tiled_bwd_error_string": ([_I], _STR),
     },
     "egnn_sp": {
-        "egnn_sp_gcl_rows": ([_P] * 13 + [_I] * 10 + [_F] * 2 + [_P], _I),
+        "egnn_sp_gcl_rows": ([_P] * 14 + [_I] * 10 + [_F] * 2 + [_P], _I),
         "egnn_sp_coord_rows": ([_P] * 11 + [_I] * 10 + [_F] * 3 + [_P], _I),
-        "egnn_sp_gcl_rows_backward": ([_P] * 18 + [_I] * 11 + [_F] * 2 + [_P], _I),
+        "egnn_sp_gcl_rows_backward": ([_P] * 19 + [_I] * 11 + [_F] * 2 + [_P], _I),
         "egnn_sp_coord_rows_backward": ([_P] * 18 + [_I] * 11 + [_F] * 3 + [_P], _I),
         "egnn_sp_backward_scratch_floats": ([_I] * 5, _Z),
         "egnn_sp_error_string": ([_I], _STR),

@@ -246,6 +246,18 @@ def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
+def wgrad_splits(edges: int, hidden: int) -> tuple:
+    """(splits, edge rows per split) of the W2-gradient GEMM over ``edges``
+    edge rows at width ``hidden`` (``csrc/egnn_tc_gemm.cuh:wgrad_splits``):
+    about two CTAs an SM over the [H, H] output tiles, at most 64 splits,
+    but never more than 2048 edge rows in a split; the split a multiple of
+    16 rows. Plain emulation for the CPU tests."""
+    tiles = (-(-hidden // 128)) ** 2
+    splits = max(min(256 // tiles, 64), 1, -(-edges // 2048))
+    chunk = -(-(-(-edges // splits)) // 16) * 16
+    return -(-edges // chunk), chunk
+
+
 def block_forward_plain(block, h, x, x0, node_mask, weights=None):
     """Plain PyTorch version of the forward kernel: the module's own forward
     with the edge mask and initial distance features derived as the kernel

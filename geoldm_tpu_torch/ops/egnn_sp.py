@@ -41,8 +41,12 @@ from geoldm_tpu_torch.ops.egnn_tiled import (
     _raise_on,
     _validate,
     bwd_scratch,
+    check_chain,
     coord_rows_window,
+    gcl_aggregate_window,
+    gcl_backward_from_chain,
     gcl_rows_window,
+    node_chain_buffers,
     stage_weight_names,
 )
 
@@ -57,9 +61,11 @@ sp_coord_rows_bwd_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def sp_gcl_rows_plain(gcl, full, rows, row0: int, mean_div: int):
-    """Plain PyTorch version of kernel #6 on a GCL -> the slab's h [B,S,H]."""
-    return gcl_rows_window(gcl, full, rows, row0, _divisor(gcl.cfg, mean_div))
+def sp_gcl_rows_plain(gcl, full, rows, row0: int, mean_div: int, keep_chain: bool = False):
+    """Plain PyTorch version of kernel #6 on a GCL -> the slab's h [B,S,H]
+    (and its node chain [3,B,S,H] with ``keep_chain``)."""
+    return gcl_rows_window(gcl, full, rows, row0, _divisor(gcl.cfg, mean_div),
+                           keep_chain=keep_chain)
 
 
 def sp_coord_rows_plain(equiv, full, rows, row0: int, mean_div: int):
@@ -83,14 +89,31 @@ def _sp_backward_plain(module, names, stage_fn, full, rows, row0, mean_div, g_ou
     return (*grads[:6], grads[6:])
 
 
-def sp_gcl_rows_backward_plain(gcl, full, rows, row0, mean_div, g_out, weights=None):
+def sp_gcl_rows_backward_plain(gcl, full, rows, row0, mean_div, g_out, weights=None,
+                               chain=None):
     """Plain PyTorch version of kernel #7 on a GCL: ``torch.autograd.grad`` of
     ``sp_gcl_rows_plain`` (as the Pallas kernel ``jax.vjp``s the slab math).
     g_out [B,S,H] -> (dh, dx, dx0 of the full view, dh, dx, dx0 of the rows,
     [weight gradients in ``stage_weight_names`` order]). ``weights`` replace
-    the module's parameters when given."""
-    return _sp_backward_plain(gcl, stage_weight_names(gcl), sp_gcl_rows_plain, full, rows, row0,
-                              mean_div, g_out, weights)
+    the module's parameters when given. chain: the slab's node chain
+    ``sp_gcl_rows_plain(..., keep_chain=True)`` kept (the CPU route of
+    ``SPEquivariantBlockFunction``), whose aggregate the node MLP's vjp then
+    takes (``egnn_tiled.gcl_backward_from_chain``), or None."""
+    if chain is None:
+        return _sp_backward_plain(gcl, stage_weight_names(gcl), sp_gcl_rows_plain, full, rows,
+                                  row0, mean_div, g_out, weights)
+    if weights is None:
+        params = dict(gcl.named_parameters())
+        weights = [params[n] for n in stage_weight_names(gcl)]
+    leaves = [t.detach().requires_grad_() for t in (*full[:3], *rows[:3])]
+    ws = [w.detach().requires_grad_() for w in weights]
+    div = _divisor(gcl.cfg, mean_div)
+
+    def agg_fn(m, h, x, x0, hr, xr, x0r):
+        return gcl_aggregate_window(m, (h, x, x0, full[3]), (hr, xr, x0r, rows[3]), row0, div)
+
+    grads = gcl_backward_from_chain(gcl, ws, leaves, leaves[3], rows[3], agg_fn, g_out, chain)
+    return (*grads[:6], grads[6:])
 
 
 def sp_coord_rows_backward_plain(equiv, full, rows, row0, mean_div, g_out, weights=None):
@@ -123,8 +146,9 @@ def _validate_sp(module, names, full, rows, row0: int, mean_div: int) -> dict:
     return weights
 
 
-def sp_gcl_rows_cuda(gcl, full, rows, row0: int, mean_div: int):
-    """Kernel #6 on a GCL on the card -> the slab's h [B,S,H]."""
+def sp_gcl_rows_cuda(gcl, full, rows, row0: int, mean_div: int, keep_chain: bool = False):
+    """Kernel #6 on a GCL on the card -> the slab's h [B,S,H], and with
+    ``keep_chain`` its node chain [3,B,S,H] for ``sp_gcl_rows_backward_cuda``."""
     global sp_gcl_rows_launches
     names = _gcl_slots(gcl)
     weights = _validate_sp(gcl, [n for n in names if n], full, rows, row0, mean_div)
@@ -135,19 +159,19 @@ def sp_gcl_rows_cuda(gcl, full, rows, row0: int, mean_div: int):
     lib = cuda_build.library("egnn_sp")
     h_out = torch.empty_like(rows[0])
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
-    agg = torch.empty((b * s, hidden), device=dev, dtype=torch.float32)
-    tmp = torch.empty((b * s, hidden), device=dev, dtype=torch.float32)
+    chain, agg, z, tmp = node_chain_buffers((b, s, hidden), dev, keep_chain)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.egnn_sp_gcl_rows(
             *[t.data_ptr() for t in (*full, *rows)], h_out.data_ptr(), proj.data_ptr(),
-            agg.data_ptr(), tmp.data_ptr(), _pointer_table(names, weights), b, n, s, row0,
+            agg.data_ptr(), tmp.data_ptr(), z.data_ptr() if keep_chain else None,
+            _pointer_table(names, weights), b, n, s, row0,
             hidden, cfg.edge_feat_nf, int(cfg.attention), int(cfg.sin_embedding),
             int(cfg.aggregation_method == "mean"), mean_div, float(cfg.norm_constant),
             float(cfg.normalization_factor), stream)
     _raise_on(rc, lib.egnn_sp_error_string, "egnn_sp gcl_rows")
     sp_gcl_rows_launches += 1
-    return h_out
+    return (h_out, chain) if keep_chain else h_out
 
 
 def sp_coord_rows_cuda(equiv, full, rows, row0: int, mean_div: int):
@@ -188,9 +212,11 @@ def _backward_buffers(lib, cfg, full, rows, g_out, out_feat):
     return group, scratch, grads
 
 
-def sp_gcl_rows_backward_cuda(gcl, full, rows, row0: int, mean_div: int, g_out):
+def sp_gcl_rows_backward_cuda(gcl, full, rows, row0: int, mean_div: int, g_out, chain=None):
     """Kernel #7 on a GCL on the card: g_out [B,S,H], the cotangent of the
-    slab's output -> (dh, dx, dx0 [B,N,*], dh, dx, dx0 of the rows [B,S,*],
+    slab's output; chain: the slab's node chain ``sp_gcl_rows_cuda(...,
+    keep_chain=True)`` kept for these inputs, or None (the kernel runs it:
+    the same bits) -> (dh, dx, dx0 [B,N,*], dh, dx, dx0 of the rows [B,S,*],
     [weight gradients in ``sp_gcl_rows_backward_plain``'s order])."""
     global sp_gcl_rows_bwd_launches
     names = _gcl_slots(gcl)
@@ -203,10 +229,12 @@ def sp_gcl_rows_backward_cuda(gcl, full, rows, row0: int, mean_div: int, g_out):
     group, scratch, grads = _backward_buffers(lib, cfg, full, rows, g_out, hidden)
     wgrads = {name: torch.empty_like(w) for name, w in weights.items()}
     dev = full[0].device
+    check_chain(chain, (b, s, hidden), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.egnn_sp_gcl_rows_backward(
-            *[t.data_ptr() for t in (*full, *rows, g_out, *grads)],
+            *[t.data_ptr() for t in (*full, *rows, g_out)],
+            None if chain is None else chain.data_ptr(), *[t.data_ptr() for t in grads],
             _pointer_table(names, weights), _pointer_table(names, wgrads), scratch.data_ptr(),
             b, group, n, s, row0, hidden, cfg.edge_feat_nf, int(cfg.attention),
             int(cfg.sin_embedding), int(cfg.aggregation_method == "mean"), mean_div,

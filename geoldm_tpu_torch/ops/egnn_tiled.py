@@ -18,15 +18,17 @@ versions and the block forward that chains them. Counterpart of
   :267``).
 - ``TiledEquivariantBlockFunction``: ``tiled_block_forward`` as forward,
   saving only the block inputs and the weights; its backward re-runs the
-  GCL chain with #3 and runs #5 over the stages in reverse
+  GCL chain with #3, keeping each GCL's node chain, and runs #5 over the
+  stages in reverse, handing each GCL stage its chain
   (``_tiled_block_bwd_impl :465``).
 
 The forward kernels (``csrc/egnn_tiled.cu``) walk each row's columns in
 64-column windows, each a tile whose W2 product runs on the tensor cores in
 split TF32 (f32 accuracy), and keep each row's sums on chip; the edge grid
-of the backward (``csrc/egnn_tiled_bwd.cu``) streams the columns in tiles of
-32 through shared memory, writes three edge-sized buffers for the passes
-that cross rows and runs the molecules in groups whose scratch stays under
+of the backward (``csrc/egnn_tiled_bwd.cu``) walks the same windows with its
+edge products in split TF32 too, writes three edge-sized buffers for the
+passes that cross rows (whose products also run on the tensor cores) and
+runs the molecules in groups whose scratch stays under
 ``MAX_BWD_SCRATCH_BYTES``. The plain
 versions work on one [B, T, N, H] row slab at a time (T = ``PLAIN_TILE``
 rows of every molecule), so the forward never holds a [B, N, N, H] edge
@@ -120,24 +122,45 @@ def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int):
     return F.silu(pre), coord_diff, emask
 
 
-def gcl_rows_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
+def _gcl_aggregate(gcl, full, rows, row0: int, r0: int, r1: int, div: float):
+    """The GCL's aggregate of the global rows r0..r1 of every molecule
+    against all columns, divided by ``div`` -> [B,r1-r0,H]."""
+    cfg = gcl.cfg
+    act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, r0, r1)
+    m = F.silu(gcl.edge_mlp[2](act))
+    if cfg.attention:
+        m = m * gcl.att_mlp(m)
+    return (m * emask).sum(dim=2) / div
+
+
+def gcl_aggregate_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
+    """The GCL's aggregate over the slab ``rows`` (as ``gcl_rows_window``) ->
+    [B,S,H]."""
+    s = rows[0].shape[1]
+    return torch.cat([_gcl_aggregate(gcl, full, rows, row0, row0 + a, row0 + min(a + tile, s),
+                                     div) for a in range(0, s, tile)], dim=1)
+
+
+def gcl_rows_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE,
+                    keep_chain: bool = False):
     """Plain PyTorch version of kernels #3 and #6: one GCL for the slab
     ``rows`` (h, x, x0, node_mask at [B,S,*], first global row ``row0``)
     against the columns ``full`` ([B,N,*]); aggregates divided by ``div`` ->
-    the slab's h [B,S,H]."""
-    cfg = gcl.cfg
+    the slab's h [B,S,H], and with ``keep_chain`` also its node chain [3,
+    B,S,H]: the aggregate, the node MLP's pre-activation z and silu(z), which
+    the stage backward takes in place of running them again."""
     hr, mr = rows[0], rows[3]
-    out = []
+    out, chain = [], []
     for a in range(0, hr.shape[1], tile):
         b = min(a + tile, hr.shape[1])
-        act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, row0 + a, row0 + b)
-        m = F.silu(gcl.edge_mlp[2](act))
-        if cfg.attention:
-            m = m * gcl.att_mlp(m)
-        agg = (m * emask).sum(dim=2) / div
+        agg = _gcl_aggregate(gcl, full, rows, row0, row0 + a, row0 + b, div)
         hi = hr[:, a:b]
-        out.append((hi + gcl.node_mlp(torch.cat([hi, agg], dim=-1))) * mr[:, a:b])
-    return torch.cat(out, dim=1)
+        z = gcl.node_mlp[0](torch.cat([hi, agg], dim=-1))
+        u = gcl.node_mlp[1](z)
+        out.append((hi + gcl.node_mlp[2](u)) * mr[:, a:b])
+        chain.append(torch.stack([agg, z, u]))
+    h = torch.cat(out, dim=1)
+    return (h, torch.cat(chain, dim=2)) if keep_chain else h
 
 
 def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
@@ -158,11 +181,12 @@ def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAI
     return torch.cat(out, dim=1)
 
 
-def gcl_rows_plain(gcl, h, x, x0, node_mask, tile: int = PLAIN_TILE):
+def gcl_rows_plain(gcl, h, x, x0, node_mask, tile: int = PLAIN_TILE, keep_chain: bool = False):
     """Plain PyTorch version of kernel #3 (``_gcl_rows_math``): ``gcl`` an
-    ``nn.egnn.GCL``; h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] -> h [B,N,H]."""
+    ``nn.egnn.GCL``; h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] -> h [B,N,H]
+    (and its node chain [3,B,N,H] with ``keep_chain``)."""
     full = (h, x, x0, node_mask)
-    return gcl_rows_window(gcl, full, full, 0, _divisor(gcl.cfg, h.shape[1]), tile)
+    return gcl_rows_window(gcl, full, full, 0, _divisor(gcl.cfg, h.shape[1]), tile, keep_chain)
 
 
 def coord_rows_plain(equiv, h, x, x0, node_mask, tile: int = PLAIN_TILE):
@@ -217,18 +241,55 @@ def _stage_backward_plain(module, names, stage_fn, h, x, x0, node_mask, g_out, w
     return grads[0], grads[1], grads[2], grads[3:]
 
 
-def gcl_rows_backward_plain(gcl, h, x, x0, node_mask, g_out, weights=None):
+def gcl_backward_from_chain(gcl, weights, leaves, hr, mr, agg_fn, g_out, chain):
+    """The plain backward of a GCL stage from a kept node chain, split at the
+    aggregate as the kernels split it: the node MLP's vjp at the kept
+    aggregate ``chain[0]``, then the vjp of ``agg_fn(gcl, *leaves)`` with the
+    aggregate's gradient. leaves: the input leaves (hr, the slab's h, is one
+    of them), weights: leaves in ``stage_weight_names`` order -> the
+    gradients of leaves + weights."""
+    names = stage_weight_names(gcl)
+    with torch.enable_grad():
+        agg = _call_with(gcl, names, weights, agg_fn, *leaves)
+        agg_in = chain[0].detach().requires_grad_()
+        out = _call_with(gcl, names, weights, lambda m, h_, a_: (
+            h_ + m.node_mlp(torch.cat([h_, a_], dim=-1))) * mr, hr, agg_in)
+        node = torch.autograd.grad(out, [hr, agg_in, *weights], g_out, allow_unused=True)
+        edge = torch.autograd.grad(agg, [*leaves, *weights], node[1], allow_unused=True)
+    grads = [ge if t is not hr else (node[0] if ge is None else ge + node[0])
+             for t, ge in zip(leaves, edge[:len(leaves)])]
+    grads += [gn if ge is None else (ge if gn is None else ge + gn)
+              for gn, ge in zip(node[2:], edge[len(leaves):])]
+    return [torch.zeros_like(t) if g is None else g for t, g in zip([*leaves, *weights], grads)]
+
+
+def gcl_rows_backward_plain(gcl, h, x, x0, node_mask, g_out, weights=None, chain=None):
     """Plain PyTorch version of kernel #5 on a GCL stage:
     ``torch.autograd.grad`` of ``gcl_rows_plain`` (as the Pallas kernel
     ``jax.vjp``s ``_gcl_rows_math``). g_out [B,N,H], the cotangent of the
     stage's output -> (dh, dx, dx0, [weight gradients in pointer order
     without the empty attention slots]). ``weights`` replace the module's
-    parameters when given."""
+    parameters when given. chain: the node chain ``gcl_rows_plain(...,
+    keep_chain=True)`` kept for this h (the CPU route of
+    ``TiledEquivariantBlockFunction``), whose aggregate the node MLP's vjp
+    then takes (``gcl_backward_from_chain``), or None."""
     names = stage_weight_names(gcl)
     if weights is None:
         params = dict(gcl.named_parameters())
         weights = [params[n] for n in names]
-    return _stage_backward_plain(gcl, names, gcl_rows_plain, h, x, x0, node_mask, g_out, weights)
+    if chain is None:
+        return _stage_backward_plain(gcl, names, gcl_rows_plain, h, x, x0, node_mask, g_out,
+                                     weights)
+    leaves = [t.detach().requires_grad_() for t in (h, x, x0)]
+    ws = [w.detach().requires_grad_() for w in weights]
+    div = _divisor(gcl.cfg, h.shape[1])
+
+    def agg_fn(m, h_, x_, x0_):
+        full = (h_, x_, x0_, node_mask)
+        return gcl_aggregate_window(m, full, full, 0, div)
+
+    grads = gcl_backward_from_chain(gcl, ws, leaves, leaves[0], node_mask, agg_fn, g_out, chain)
+    return grads[0], grads[1], grads[2], grads[3:]
 
 
 def coord_rows_backward_plain(equiv, h, x, x0, node_mask, g_out, weights=None):
@@ -284,9 +345,28 @@ def _raise_on(rc: int, error_string, what: str) -> None:
                            f"(cudaError {rc})")
 
 
-def gcl_rows_cuda(gcl, h, x, x0, node_mask):
+def node_chain_buffers(shape, dev, keep: bool):
+    """(chain or None, agg, z or None, hidden) of a GCL kernel over ``shape``
+    = (B, S, H) rows: with ``keep`` the three are the planes of one [3,B,S,H]
+    chain (the aggregate, z and silu(z)) for the stage backward, else the
+    aggregate and silu(z) are scratch and z is not stored."""
+    if keep:
+        chain = torch.empty((3, *shape), device=dev, dtype=torch.float32)
+        return chain, chain[0], chain[1], chain[2]
+    agg, hidden = (torch.empty(shape, device=dev, dtype=torch.float32) for _ in range(2))
+    return None, agg, None, hidden
+
+
+def check_chain(chain, shape, dev):
+    """A chain handed to a GCL backward: None, or [3, *shape] f32 on dev."""
+    if chain is not None:
+        _check("chain", chain, (3, *shape), dev)
+
+
+def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False):
     """Kernel #3 on the card: h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] ->
-    the GCL's h [B,N,H]."""
+    the GCL's h [B,N,H], and with ``keep_chain`` also its node chain
+    [3,B,N,H] (the aggregate, z and silu(z)) for ``gcl_rows_backward_cuda``."""
     global gcl_rows_launches
     names = _gcl_slots(gcl)
     weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
@@ -296,19 +376,18 @@ def gcl_rows_cuda(gcl, h, x, x0, node_mask):
     lib = cuda_build.library("egnn_tiled")
     h_out = torch.empty_like(h)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
-    agg = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
-    tmp = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
+    chain, agg, z, tmp = node_chain_buffers((b, n, hidden), dev, keep_chain)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.egnn_gcl_rows(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), h_out.data_ptr(),
-            proj.data_ptr(), agg.data_ptr(), tmp.data_ptr(), _pointer_table(names, weights),
-            b, n, hidden, cfg.edge_feat_nf, int(cfg.attention), int(cfg.sin_embedding),
-            int(cfg.aggregation_method == "mean"), float(cfg.norm_constant),
-            float(cfg.normalization_factor), stream)
+            proj.data_ptr(), agg.data_ptr(), tmp.data_ptr(), z.data_ptr() if keep_chain else None,
+            _pointer_table(names, weights), b, n, hidden, cfg.edge_feat_nf, int(cfg.attention),
+            int(cfg.sin_embedding), int(cfg.aggregation_method == "mean"),
+            float(cfg.norm_constant), float(cfg.normalization_factor), stream)
     _raise_on(rc, lib.egnn_tiled_error_string, "egnn_tiled gcl_rows")
     gcl_rows_launches += 1
-    return h_out
+    return (h_out, chain) if keep_chain else h_out
 
 
 def coord_rows_cuda(equiv, h, x, x0, node_mask):
@@ -355,16 +434,20 @@ def _stage_scratch(lib, b: int, n: int, hidden: int, e: int, dev):
                        f"egnn_tiled backward at N={n}, hidden_nf={hidden}")
 
 
-def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out):
+def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out, chain=None):
     """Kernel #5 on a GCL stage on the card: the stage's input h [B,N,H],
     x/x0 [B,N,3], node_mask [B,N,1] and the cotangent g_out [B,N,H] of its
     output -> (dh, dx, dx0, [weight gradients summed over the batch, in
-    ``gcl_rows_backward_plain``'s order])."""
+    ``gcl_rows_backward_plain``'s order]). chain: the node chain
+    ``gcl_rows_cuda(..., keep_chain=True)`` kept for this h, which the
+    kernel takes instead of running the GCL's edge grid again, or None (it
+    runs it: the same bits)."""
     global gcl_rows_bwd_launches
     names = _gcl_slots(gcl)
     g_out = g_out.contiguous()
     weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
     _check("g_out", g_out, h.shape, h.device)
+    check_chain(chain, h.shape, h.device)
     cfg = gcl.cfg
     b, n, hidden = h.shape
     lib = cuda_build.library("egnn_tiled_bwd")
@@ -375,7 +458,8 @@ def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.egnn_gcl_rows_backward(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), g_out.data_ptr(),
-            dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(), _pointer_table(names, weights),
+            None if chain is None else chain.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+            dx0.data_ptr(), _pointer_table(names, weights),
             _pointer_table(names, grads), scratch.data_ptr(), b, group, n, hidden,
             cfg.edge_feat_nf, int(cfg.attention), int(cfg.sin_embedding),
             int(cfg.aggregation_method == "mean"), float(cfg.norm_constant),
@@ -441,10 +525,13 @@ class TiledEquivariantBlockFunction(torch.autograd.Function):
     """One block through the row-tiled stages, forward and backward:
     ``apply(block, h, x, x0, node_mask, *block_params(block))``. The forward
     is ``tiled_block_forward``; only the block inputs and the weights are
-    saved. The backward re-runs the GCL chain (#3), runs the coordinate
-    stage's backward, then each GCL stage's in reverse, summing dx and dx0
-    (#5). On CPU tensors it runs the plain versions with the given weights
-    (for tests, and to keep the CPU's memory to one stage's)."""
+    saved. The backward re-runs the GCL chain (#3) for each GCL's input and
+    keeps each GCL's node chain (the aggregate, z and silu(z)), runs the
+    coordinate stage's backward, then each GCL stage's in reverse (#5),
+    handing it its node chain, so that #5 runs no GCL edge grid of its own,
+    and sums dx and dx0. On CPU tensors it runs the plain versions with the
+    given weights (for tests, and to keep the CPU's memory to one stage's),
+    the chain handed over likewise."""
 
     @staticmethod
     def forward(ctx, block, h, x, x0, node_mask, *weights):
@@ -466,32 +553,34 @@ class TiledEquivariantBlockFunction(torch.autograd.Function):
         gcl_ws, coord_ws = _stage_weights(block, weights)
         if h.is_cuda:
             def gcl_fwd(j, *a):
-                return gcl_rows_cuda(gcls[j], *a)
+                return gcl_rows_cuda(gcls[j], *a, keep_chain=True)
 
-            def gcl_bwd(j, *a):
-                return gcl_rows_backward_cuda(gcls[j], *a)
+            def gcl_bwd(j, *a, chain):
+                return gcl_rows_backward_cuda(gcls[j], *a, chain=chain)
 
             def coord_bwd(*a):
                 return coord_rows_backward_cuda(block.gcl_equiv, *a)
         else:
             def gcl_fwd(j, *a):
                 return _call_with(gcls[j], stage_weight_names(gcls[j]), gcl_ws[j],
-                                  gcl_rows_plain, *a)
+                                  lambda m, *b: gcl_rows_plain(m, *b, keep_chain=True), *a)
 
-            def gcl_bwd(j, *a):
-                return gcl_rows_backward_plain(gcls[j], *a, weights=gcl_ws[j])
+            def gcl_bwd(j, *a, chain):
+                return gcl_rows_backward_plain(gcls[j], *a, weights=gcl_ws[j], chain=chain)
 
             def coord_bwd(*a):
                 return coord_rows_backward_plain(block.gcl_equiv, *a, weights=coord_ws)
 
-        hs = [h]
+        hs, chains = [h], []
         for j in range(len(gcls)):
-            hs.append(gcl_fwd(j, hs[-1], x, x0, node_mask))
+            h_j, chain_j = gcl_fwd(j, hs[-1], x, x0, node_mask)
+            hs.append(h_j)
+            chains.append(chain_j)
         dh_c, dx, dx0, d_coord = coord_bwd(hs[-1], x, x0, node_mask, dx_out)
         g = dh_out + dh_c
         d_gcls = [None] * len(gcls)
         for j in range(len(gcls) - 1, -1, -1):
-            g, dx_j, dx0_j, d_gcls[j] = gcl_bwd(j, hs[j], x, x0, node_mask, g)
+            g, dx_j, dx0_j, d_gcls[j] = gcl_bwd(j, hs[j], x, x0, node_mask, g, chain=chains[j])
             dx = dx + dx_j
             dx0 = dx0 + dx0_j
         return (None, g, dx, dx0, None, *[w for ws in d_gcls + [d_coord] for w in ws])

@@ -268,7 +268,8 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
     ``apply(block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full,
     *block_params(block))``. The forward is ``sp_block_forward``; only the
     block inputs and the weights are saved. The backward re-runs the gathers
-    and the GCL chain (#6), runs #7 over the stages in reverse, and
+    and the GCL chain (#6), keeping each GCL's node chain over the slab, runs
+    #7 over the stages in reverse, handing each GCL stage its chain, and
     reduce-scatters each stage's full-view dh and the block's summed
     full-view dx; the full-view dx0 is x0_full's gradient. Every rank runs
     the same collectives in the same order. On CPU tensors it runs the plain
@@ -299,19 +300,22 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
         def fwd(stage, ws, *a):
             fn, _ = egnn_sp.stage_fns(stage, on_card)
             if on_card:
-                return fn(stage, *a)
-            return egnn_tiled._call_with(stage, egnn_tiled.stage_weight_names(stage), ws, fn, *a)
+                return fn(stage, *a, keep_chain=True)
+            return egnn_tiled._call_with(stage, egnn_tiled.stage_weight_names(stage), ws,
+                                         lambda m, *b: fn(m, *b, keep_chain=True), *a)
 
-        def bwd(stage, ws, *a):
+        def bwd(stage, ws, *a, **kw):
             _, fn = egnn_sp.stage_fns(stage, on_card)
-            return fn(stage, *a) if on_card else fn(stage, *a, weights=ws)
+            return fn(stage, *a, **kw) if on_card else fn(stage, *a, weights=ws, **kw)
 
         x_full = all_gather_rows(x, grp)
-        hs, h_fulls = [h], []
+        hs, h_fulls, chains = [h], [], []
         for j, gcl in enumerate(gcls):
             h_fulls.append(all_gather_rows(hs[-1], grp))
             full = (h_fulls[-1], x_full, x0_full, mask_full)
-            hs.append(fwd(gcl, gcl_ws[j], full, (hs[-1], x, x0, node_mask), row0, mean_div))
+            h_j, chain_j = fwd(gcl, gcl_ws[j], full, (hs[-1], x, x0, node_mask), row0, mean_div)
+            hs.append(h_j)
+            chains.append(chain_j)
         full = (all_gather_rows(hs[-1], grp), x_full, x0_full, mask_full)
         dh_f, dx_f, dx0_f, dh_r, dx, dx0, d_coord = bwd(
             block.gcl_equiv, coord_ws, full, (hs[-1], x, x0, node_mask), row0, mean_div, dx_out)
@@ -320,7 +324,8 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
         for j in range(len(gcls) - 1, -1, -1):
             full = (h_fulls[j], x_full, x0_full, mask_full)
             dh_fj, dx_fj, dx0_fj, dh_r, dx_j, dx0_j, d_gcls[j] = bwd(
-                gcls[j], gcl_ws[j], full, (hs[j], x, x0, node_mask), row0, mean_div, g)
+                gcls[j], gcl_ws[j], full, (hs[j], x, x0, node_mask), row0, mean_div, g,
+                chain=chains[j])
             g = dh_r + reduce_scatter_rows(dh_fj, grp)
             dx_f, dx0_f = dx_f + dx_fj, dx0_f + dx0_fj
             dx, dx0 = dx + dx_j, dx0 + dx0_j

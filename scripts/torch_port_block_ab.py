@@ -1,7 +1,7 @@
 """Time the EquivariantBlock kernels of this checkout against another
 checkout's, on one NVIDIA card.
 
-    python3 scripts/torch_port_block_ab.py --other <checkout> [--suite block|rows]
+    python3 scripts/torch_port_block_ab.py --other <checkout> [--suite block|rows|bwd]
 
 Each tree runs in its own interpreter, with its own package and kernel
 build, in turns: other, this, this, other. Kernels are timed with CUDA
@@ -22,6 +22,14 @@ update) at B=16, N=96, 136, 184 (GEOM's serving pads past 64, n-16..n
 atoms); #6 on both slabs of N=184 over 2 ranks (S=92, B=16); a GEOM
 sampler step (T=1000 recipe, B=16, N=184); and a GEOM recipe train step at
 pad 184 (B=32, 129-181 atoms), with its peak device memory.
+
+``--suite bwd``, the row-tiled stage backward: #5 (GCL and coordinate stage,
+the direct call, which runs the GCL's node chain itself) at B=32, N=104, 184
+(GEOM's training pads past 64, n-16..n atoms), and from the node chain its
+forward kept where the tree takes one (the training route); #7 on both
+slabs of N=184 over 2 ranks (S=92, B=32); and a GEOM recipe train step at
+pad 184 (B=32, 129-181 atoms), with its peak device memory. Kernels are
+timed over 10 calls after 2 warm-ups.
 
 Prints one JSON line with both trees' numbers per turn, the card's name and
 its power limit.
@@ -238,6 +246,72 @@ def _dump_rows() -> dict:
     return out
 
 
+def _dump_bwd() -> dict:
+    """Times of the row-tiled stage backward (#5, #7) and a GEOM train step
+    at pad 184."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from geoldm_tpu_torch.config import EGNNConfig
+    from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+    from geoldm_tpu_torch.ops import egnn_sp, egnn_tiled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"stages": [], "slabs": []}
+    takes_chain = "chain" in inspect.signature(egnn_tiled.gcl_rows_backward_cuda).parameters
+    cfg = EGNNConfig(in_node_nf=3, out_node_nf=3, hidden_nf=256, n_layers=4, attention=True,
+                     normalization_factor=1.0)
+    block = EquivariantBlock(cfg)
+    init_parameters(block, torch.Generator().manual_seed(5))
+    block = block.to(dev)
+
+    def ragged(n, seed):
+        rng = np.random.default_rng(seed)
+        n_real = rng.integers(n - 16, n + 1, size=32)
+        mask = (np.arange(n)[None, :] < n_real[:, None]).astype(np.float32)[..., None]
+        arrs = [rng.standard_normal((32, n, f)).astype(np.float32) * mask for f in (256, 3, 3)]
+        cots = [rng.standard_normal((32, n, f)).astype(np.float32) for f in (256, 3)]
+        return [torch.from_numpy(a).to(dev) for a in (*arrs, mask, *cots)]
+
+    for n in (104, 184):
+        inputs = [ragged(n, 100 * n + rep) for rep in range(2)]
+        row = {"N": n, "B": 32}
+        row["gcl_rows_ms"] = _time_ms(lambda h, x, x0, m, gh, gx: egnn_tiled.gcl_rows_backward_cuda(
+            block.gcl_0, h, x, x0, m, gh), inputs, warmup=2, reps=10)
+        row["coord_rows_ms"] = _time_ms(
+            lambda h, x, x0, m, gh, gx: egnn_tiled.coord_rows_backward_cuda(
+                block.gcl_equiv, h, x, x0, m, gx), inputs, warmup=2, reps=10)
+        if takes_chain:
+            chained = [(*a, egnn_tiled.gcl_rows_cuda(block.gcl_0, *a[:4], keep_chain=True)[1])
+                       for a in inputs]
+            row["gcl_rows_chain_ms"] = _time_ms(
+                lambda h, x, x0, m, gh, gx, c: egnn_tiled.gcl_rows_backward_cuda(
+                    block.gcl_0, h, x, x0, m, gh, chain=c), chained, warmup=2, reps=10)
+            del chained
+        out["stages"].append(row)
+        del inputs
+        torch.cuda.empty_cache()
+    n, s = 184, 92
+    inputs = [ragged(n, 9000 + rep) for rep in range(2)]
+    for row0 in (0, s):
+        row = {"N": n, "S": s, "row0": row0, "B": 32}
+        for stage, mod, k in (("gcl_rows", block.gcl_0, 4), ("coord_rows", block.gcl_equiv, 5)):
+            _, bwd = egnn_sp.stage_fns(mod, True)
+            args = [(a[:4], [t[:, row0:row0 + s].contiguous() for t in a[:4]], row0, n,
+                     a[k][:, row0:row0 + s].contiguous()) for a in inputs]
+            row[f"{stage}_ms"] = _time_ms(lambda *a, m=mod, f=bwd: f(m, *a), args, warmup=2,
+                                          reps=10)
+        out["slabs"].append(row)
+    del block, inputs, args
+    torch.cuda.empty_cache()
+    out["geom184_step_ms"], out["geom184_peak_mib"] = _geom_step_ms(184)
+    out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
 def _dump(root: str, suite: str) -> dict:
     """Times of ``root``'s kernels and steps of ``suite``."""
     sys.path.insert(0, root)
@@ -249,6 +323,8 @@ def _dump(root: str, suite: str) -> dict:
     assert egnn_block.__file__.startswith(os.path.abspath(root)), egnn_block.__file__
     if suite == "rows":
         return _dump_rows()
+    if suite == "bwd":
+        return _dump_bwd()
 
     from geoldm_tpu_torch.config import EGNNConfig
     from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
@@ -300,8 +376,9 @@ def _dump(root: str, suite: str) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--other", required=True, help="root of the other checkout")
-    p.add_argument("--suite", choices=("block", "rows"), default="block",
-                   help="the whole-molecule kernels #1/#2 or the row-tiled forward grid")
+    p.add_argument("--suite", choices=("block", "rows", "bwd"), default="block",
+                   help="the whole-molecule kernels #1/#2, the row-tiled forward grid or the "
+                        "row-tiled stage backward")
     p.add_argument("--dump", help=argparse.SUPPRESS)  # internal: one tree's times
     args = p.parse_args(argv)
     if args.dump:

@@ -1,24 +1,26 @@
-"""Hold the whole-molecule EquivariantBlock kernels (#1 forward, #2 backward)
-of this checkout bit for bit against another checkout's, on one NVIDIA card.
+"""Hold the EquivariantBlock kernels whose arithmetic a change must leave as
+it was -- the whole-molecule kernels (#1 forward, #2 backward) and the
+row-tiled forward stages (#3 GCL, #4 coordinate update, #6 on an SP slab) --
+bit for bit against another checkout's, on one NVIDIA card.
 
     python3 scripts/torch_port_row_window_identity.py --other <checkout>
 
 Each tree runs in its own interpreter, with its own package and kernel
-build, on the same seeded inputs: QM9's and GEOM's pads up to 64 with ragged
-masks, 'sum', 'mean' and sin features, two GCLs a block, and every padded
-hidden width of the tile (64, 128, 256, 512); the forward, the backward that
-recomputes the forward, and the training route (the forward saving its
-activations, the backward from them). Every output's sha256 is compared;
-the script prints one JSON line and exits non-zero on any difference.
+build, on the same seeded inputs. #1/#2: QM9's and GEOM's pads up to 64 with
+ragged masks, 'sum', 'mean' and sin features, two GCLs a block, and every
+padded hidden width of the tile (64, 128, 256, 512); the forward, the
+backward that recomputes the forward, and the training route (the forward
+saving its activations, the backward from them). #3/#4/#6: GEOM's pads past
+64 (N=96, 184 at H=256, 'sum' and 'mean'; N=130 at H=64 with sin features),
+every row and the second half of the rows as an SP slab. Every output's
+sha256 is compared; the script prints one JSON line and exits non-zero on
+any difference.
 
-#1 and #2 share their tile machinery (``csrc/egnn_tile.cuh``) with the
-row-tiled forward grid of #3/#4/#6, so a change there must leave their
-arithmetic as it was. The row-tiled kernels (#3-#5) left this script when
-their forward grid moved to split-TF32 column windows: their outputs now
-differ from an older checkout's in the last bits, and they are held against
-their plain versions instead (``tests/test_torch_port_cuda.py``,
-``chip_smoke.py`` phases 9, 12 and 15); that #6 over every row equals #3 bit
-for bit is a card test.
+#1/#2 and #3/#4/#6 share the tile machinery (``csrc/egnn_tile.cuh``) and
+the GEMMs (``egnn_tc_gemm.cuh``, ``egnn_common.cuh``) with the row-tiled
+stage backward (#5/#7), so a change there must leave them as they were.
+#5/#7 are held against their plain versions (``tests/test_torch_port_cuda.py``,
+``chip_smoke.py`` phases 12 and 15).
 """
 
 from __future__ import annotations
@@ -36,10 +38,14 @@ CASES = [("sum", 16, 8, 256, {}), ("sum", 29, 8, 256, {}), ("sum", 32, 8, 256, {
          ("sin", 24, 8, 256, {"sin_embedding": True}), ("sum", 48, 8, 256, {}),
          ("sum", 64, 8, 256, {}), ("gcl2", 17, 4, 64, {"inv_sublayers": 2}),
          ("no_att", 33, 4, 128, {"attention": False}), ("sum", 29, 4, 512, {})]
+# The row-tiled forward stages: (case, N, hidden_nf, config overrides), B=4.
+ROW_CASES = [("sum", 96, 256, {}), ("mean", 184, 256, {"aggregation_method": "mean"}),
+             ("sin", 130, 64, {"sin_embedding": True})]
 
 
 def _dump(root: str) -> dict:
-    """sha256 of every output of #1 and #2 with ``root``'s package."""
+    """sha256 of every output of #1, #2, #3, #4 and #6 with ``root``'s
+    package."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -86,6 +92,29 @@ def _dump(root: str) -> dict:
             for name, t in zip(["dh", "dx", "dx0"] + [f"w{k}" for k in range(len(dws))],
                                [dh, dx, dx0, *dws]):
                 digest(f"{key}/{route}/{name}", t)
+    from geoldm_tpu_torch.ops import egnn_sp, egnn_tiled
+
+    with torch.no_grad():
+        for case, n, hidden, extra in ROW_CASES:
+            cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=hidden, n_layers=1,
+                             normalization_factor=1.0, **{"attention": True, **extra})
+            block = EquivariantBlock(cfg)
+            init_parameters(block, torch.Generator().manual_seed(n + hidden))
+            block = block.to(dev)
+            rng = np.random.default_rng(n)
+            n_real = rng.integers(n - 16, n + 1, size=4)
+            mask = (np.arange(n)[None] < n_real[:, None]).astype(np.float32)[..., None]
+            full = [torch.from_numpy(a).to(dev) for a in (
+                *(rng.standard_normal((4, n, f)).astype(np.float32) * mask for f in (hidden, 3, 3)),
+                mask)]
+            key = f"rows_{case}{n}h{hidden}"
+            digest(f"{key}/gcl", egnn_tiled.gcl_rows_cuda(block.gcl_0, *full))
+            digest(f"{key}/coord", egnn_tiled.coord_rows_cuda(block.gcl_equiv, *full))
+            row0 = n // 2
+            rows = [t[:, row0:].contiguous() for t in full]
+            for stage, mod in (("gcl", block.gcl_0), ("coord", block.gcl_equiv)):
+                fwd, _ = egnn_sp.stage_fns(mod, True)
+                digest(f"{key}/sp_{stage}", fwd(mod, full, rows, row0, n))
     torch.cuda.synchronize()
     return out
 

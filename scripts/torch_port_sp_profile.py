@@ -24,7 +24,6 @@ import argparse
 import contextlib
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -43,25 +42,18 @@ from geoldm_tpu_torch.parallel import sp  # noqa: E402
 from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step  # noqa: E402
 from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_port_train_profile import _row_grid_name  # noqa: E402
+
 # Grids of the kernels (csrc/*.cu), by kernel-name substring, the SP
-# coordinate passes before the names they contain.
-KERNELS = ("slab_coord_rows_kernel", "slab_coord_cols_kernel", "rows_bwd_kernel",
-           "edge_tile_bwd_kernel", "gcl_rows_tile", "coord_rows_tile", "edge_tile_kernel",
-           "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel", "reduce_rows_kernel",
-           "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel", "silu_kernel",
-           "dsilu_mul_kernel")
+# coordinate passes before the names they contain; the row grids named by
+# stage (torch_port_train_profile._row_grid_name).
+KERNELS = ("slab_coord_rows_kernel", "slab_coord_cols_kernel", "gcl_rows_bwd_tile",
+           "coord_rows_bwd_tile", "edge_tile_bwd_kernel", "gcl_rows_tile", "coord_rows_tile",
+           "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel", "gemm_nt_kernel",
+           "splitk_reduce_kernel", "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel",
+           "rows_mask_kernel", "silu_kernel", "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 5, 2, 2
-
-
-def _row_grid_name(name: str) -> str:
-    """The forward row grid of #3 (GCL) and #4 (coordinate update) is one
-    template, rows_tile_kernel<HP, COORD> (csrc/egnn_rows.cuh): name it by
-    its stage, demangled or mangled."""
-    if re.search(r"rows_tile_kernel(<\d+, false>|ILi\d+ELb0E)", name):
-        return "gcl_rows_tile"
-    if re.search(r"rows_tile_kernel(<\d+, true>|ILi\d+ELb1E)", name):
-        return "coord_rows_tile"
-    return name
 PADS = ((184, 129), (48, 33))  # (pad, smallest size drawn)
 
 

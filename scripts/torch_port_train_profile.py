@@ -11,9 +11,11 @@ does the same for the block backward kernel alone at B=64, N=29, H=256.
 
 GEOM (``--dataset geom``): the same for the GEOM recipe (nf=256, 4 layers,
 latent_nf=2, no charges, T=1000, trainable_ae, EMA 0.9999) on B=32
-synthetic molecules at the training pads 184 (129-181 atoms, the row-tiled
-kernels #3-#5) and 48 (33-48 atoms, kernels #1-#2), then the row-tiled
-stage backwards (#5) alone at B=32, N=184, H=256.
+synthetic molecules at the training pads 184 (129-181 atoms) and 104 (81-104
+atoms), both on the row-tiled kernels #3-#5, and 48 (33-48 atoms, kernels
+#1-#2), then the row-tiled stage backwards (#5) alone at B=32, N=184,
+H=256: the GCL stage as a direct call and from the node chain its forward
+kept (the training route), and the coordinate stage.
 
 Prints one JSON line.
 
@@ -47,22 +49,24 @@ from geoldm_tpu_torch.train.train_step import create_train_state, make_train_ste
 from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 
 # Grids of the block kernels (csrc/*.cu), by kernel-name substring.
-KERNELS = ("rows_bwd_kernel", "edge_tile_bwd_kernel", "gcl_rows_tile", "coord_rows_tile",
-           "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel", "tile_column_sum_kernel",
-           "gemm_nt_kernel", "gemm_kernel", "splitk_reduce_kernel",
-           "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel",
-           "silu_kernel", "dsilu_mul_kernel")
+KERNELS = ("gcl_rows_bwd_tile", "coord_rows_bwd_tile", "edge_tile_bwd_kernel", "gcl_rows_tile",
+           "coord_rows_tile", "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel",
+           "gemm_nt_kernel", "splitk_reduce_kernel", "reduce_rows_kernel", "column_sum_kernel",
+           "coord_grad_kernel", "rows_mask_kernel", "silu_kernel", "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 10, 3, 3
 
 
 def _row_grid_name(name: str) -> str:
     """The forward row grid of #3 (GCL) and #4 (coordinate update) is one
-    template, rows_tile_kernel<HP, COORD> (csrc/egnn_rows.cuh): name it by
-    its stage, demangled or mangled."""
-    if re.search(r"rows_tile_kernel(<\d+, false>|ILi\d+ELb0E)", name):
-        return "gcl_rows_tile"
-    if re.search(r"rows_tile_kernel(<\d+, true>|ILi\d+ELb1E)", name):
-        return "coord_rows_tile"
+    template, rows_tile_kernel<HP, COORD> (csrc/egnn_rows.cuh), and so is
+    the backward row grid of #5/#7, rows_bwd_tile_kernel<HP, COORD>
+    (csrc/egnn_rows_bwd.cuh): name each by its stage, demangled or mangled."""
+    for grid, short in (("rows_bwd_tile_kernel", "rows_bwd_tile"),
+                        ("rows_tile_kernel", "rows_tile")):
+        if re.search(grid + r"(<\d+, false>|ILi\d+ELb0E)", name):
+            return "gcl_" + short
+        if re.search(grid + r"(<\d+, true>|ILi\d+ELb1E)", name):
+            return "coord_" + short
     return name
 
 
@@ -160,7 +164,7 @@ def _geom(card):
     hist = sorted(dict(info.n_nodes_histogram))
     rng = np.random.default_rng(0)
     train = {}
-    for pad, lo in ((184, 129), (48, 33)):
+    for pad, lo in ((184, 129), (104, 81), (48, 33)):
         sizes = rng.choice([k for k in hist if lo <= k <= pad], size=32)
         raw = synthetic_batch(info, 32, pad, rng, include_charges=False, n_atoms=sizes)
         train[str(pad)] = _time_train(cfg, raw, info, card, "GEOM")
@@ -169,8 +173,11 @@ def _geom(card):
     block = block.cuda()
     h, x, x0, mask, gh, gx = _block_inputs(np.random.default_rng(2), 32, 184, 256, 168)
     stages = {}
+    chain = egnn_tiled.gcl_rows_cuda(block.gcl_0, h, x, x0, mask, keep_chain=True)[1]
     for name, fn in (("gcl_rows", lambda: egnn_tiled.gcl_rows_backward_cuda(
                          block.gcl_0, h, x, x0, mask, gh)),
+                     ("gcl_rows_from_chain", lambda: egnn_tiled.gcl_rows_backward_cuda(
+                         block.gcl_0, h, x, x0, mask, gh, chain=chain)),
                      ("coord_rows", lambda: egnn_tiled.coord_rows_backward_cuda(
                          block.gcl_equiv, h, x, x0, mask, gx))):
         for _ in range(2):

@@ -20,7 +20,18 @@ a row crosses a window, ragged molecules, 'sum' and 'mean') the stage
 emulated in the grid's order -- the W2 product in split TF32 and each row's
 sums added window by window in column order -- stays within the gate of the
 JAX row-tiled Pallas kernel run in interpret mode, while one TF32 product
-fails the gate on the stage's W2 product there."""
+fails the gate on the stage's W2 product there.
+
+The row-tiled stage backward (#5, and #7 on a slab) runs its second layer,
+its transposed product d(mm) W2 and its node products in split TF32 over
+the same windows, and the W2 gradient as a split-K product over the edges
+(``csrc/egnn_rows_bwd.cuh``, ``egnn_tc_gemm.cuh``). Emulated in that order,
+with the row sums and the partials added window by window, every output of
+the stage backward stays within the gate of the JAX kernel #5 (interpret
+mode) at the same GEOM shape; one TF32 transposed product puts an output
+outside it, and one TF32 product per split of the W2 gradient is more than
+50 times less accurate (still inside the gate at this shape's 9800
+edges)."""
 
 import functools
 
@@ -36,6 +47,7 @@ from geoldm_tpu_torch.config import EGNNConfig
 from geoldm_tpu_torch.nn.egnn import EGNN, EquivariantBlock, init_parameters
 from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
 from tests.test_torch_port_tiled import _jax_stage
+from tests.test_torch_port_tiled_grad import _jax_stage_bwd
 from tests.torch_port_utils import load_egnn_from_jax, masked_inputs, t
 
 GATE = 1e-4  # chip_smoke.py's _KERNEL_RTOL: kernel vs plain, per output tensor
@@ -244,3 +256,211 @@ def test_row_grid_w2_product_in_one_tf32_fails_the_gate(stage):
         err1, _ = _err(_one_tf32(a, w2t), a, w2t)
     assert err3 <= GATE * max(1.0, ref), f"{stage}: split TF32 max|d|={err3:.3e}"
     assert err1 > GATE * max(1.0, ref), f"{stage}: one TF32 max|d|={err1:.3e}, max|ref|={ref:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# The row-tiled stage backward (#5, and #7 on a slab) at a GEOM shape.
+# ---------------------------------------------------------------------------
+
+def _split_k(d, a, product):
+    """d^T a over the edge rows as wgrad_tc sums it: the rows in the
+    consecutive chunks ``egnn_block.wgrad_splits`` gives (the library's
+    split count, which the card tests hold it to), each chunk's product
+    through ``product``, the partials added in chunk order."""
+    _, chunk = egnn_block.wgrad_splits(d.shape[0], d.shape[1])
+    total = torch.zeros(d.shape[1], a.shape[1])
+    for e0 in range(0, d.shape[0], chunk):
+        total = total + product(d[e0:e0 + chunk].T, a[e0:e0 + chunk])
+    return total
+
+
+@pytest.mark.parametrize("edges,hidden,splits", [
+    (9800, 256, 62), (64 * 29 * 29, 256, 64), (32 * 64 * 64, 256, 64),
+    (32 * 104 * 104, 256, 169), (32 * 184 * 184, 256, 529), (2 * 184 * 184, 512, 34)])
+def test_wgrad_splits_cap_each_split_at_2048_edges(edges, hidden, splits):
+    """The W2-gradient GEMM's splits: 64 at H=256 for #2's shapes (QM9 pad
+    29, GEOM pad 64), so #2's sums keep their order, and as many as keep a
+    split to 2048 edge rows past that (GEOM pads 104, 184 at B=32), each a
+    multiple of 16 rows, together covering every edge row once."""
+    got, chunk = egnn_block.wgrad_splits(edges, hidden)
+    assert got == splits
+    assert got >= -(-edges // 2048) and chunk <= 2048 and chunk % 16 == 0
+    assert (got - 1) * chunk < edges <= got * chunk
+
+
+def _by_window(terms, dim):
+    """Sum over the column axis ``dim`` window by window (64 columns), each
+    window's terms in column order, the windows in order."""
+    total = torch.zeros_like(terms.select(dim, 0))
+    n = terms.shape[dim]
+    for j0 in range(0, n, WINDOW):
+        part = torch.zeros_like(total)
+        for j in range(j0, min(j0 + WINDOW, n)):
+            part = part + terms.select(dim, j)
+        total = total + part
+    return total
+
+
+def _row_grid_stage_bwd(module, stage, full, g_out, transposed=egnn_block.split_tf32_matmul,
+                        wgrad=egnn_block.split_tf32_matmul):
+    """One stage backward as the new #5 computes it, explicitly: the second
+    layer, the transposed product d(mm) W2 (``transposed``) and the node
+    products in split TF32, the W2 gradient split over the edges
+    (``wgrad`` per chunk, chunks summed in order), the row sums of d(pre) and
+    the CTA partials window by window -> (dh, dx, dx0, [weight gradients in
+    ``stage_weight_names`` order])."""
+    mm_ = egnn_block.split_tf32_matmul
+    cfg = module.cfg
+    h, x, x0, mask = full
+    b, n, hid = h.shape
+    lin0, lin2 = ((module.edge_mlp[0], module.edge_mlp[2]) if stage == "gcl"
+                  else (module.coord_mlp[0], module.coord_mlp[2]))
+    w1, w2 = lin0.weight, lin2.weight
+    w1s, w1d, w1e = w1[:, :hid], w1[:, hid:2 * hid], w1[:, 2 * hid:]
+    div = egnn_tiled._divisor(cfg, n)
+    act, cd, emask = egnn_tiled._row_slab(cfg, lin0, full, full, 0, 0, n)
+    diff = x[:, :, None] - x[:, None]
+    diff0 = x0[:, :, None] - x0[:, None]
+    r = (diff * diff).sum(-1, keepdim=True)
+    r0 = (diff0 * diff0).sum(-1, keepdim=True)
+    feats = torch.cat([r, r0], dim=-1)
+    del act
+    pre = ((mm_(h.reshape(-1, hid), w1s.T).reshape(b, n, 1, hid)
+            + mm_(h.reshape(-1, hid), w1d.T).reshape(b, 1, n, hid)) + feats @ w1e.T + lin0.bias)
+    a = F.silu(pre)
+    mmv = mm_(a.reshape(-1, hid), w2.T).reshape(a.shape) + lin2.bias
+    m = F.silu(mmv)
+    sig = torch.sigmoid(mmv)
+    dsilu_mm = sig * (1 + mmv * (1 - sig))
+    sp = torch.sigmoid(pre)
+    dsilu_pre = sp * (1 + pre * (1 - sp))
+    grads = {}
+    if stage == "gcl":
+        wa = module.att_mlp[0].weight[0] if cfg.attention else None
+        gate = torch.sigmoid(m @ wa + module.att_mlp[0].bias) if cfg.attention else None
+        terms = (m * gate[..., None] if cfg.attention else m) * emask
+        agg = _by_window(terms, 2) / div
+        nl0, nl2 = module.node_mlp[0], module.node_mlp[2]
+        hag = torch.cat([h, agg], dim=-1).reshape(-1, 2 * hid)
+        z = mm_(hag, nl0.weight.T) + nl0.bias
+        u = F.silu(z)
+        dupd = (g_out * mask).reshape(-1, hid)
+        grads["node_mlp.2.bias"] = dupd.sum(0)
+        grads["node_mlp.2.weight"] = mm_(dupd.T, u)
+        su = torch.sigmoid(z)
+        dz = mm_(dupd, nl2.weight) * (su * (1 + z * (1 - su)))
+        grads["node_mlp.0.bias"] = dz.sum(0)
+        grads["node_mlp.0.weight"] = mm_(dz.T, hag)
+        dh = dupd + mm_(dz, nl0.weight[:, :hid])
+        dg = (mm_(dz, nl0.weight[:, hid:]) / div).reshape(b, n, 1, hid)
+        if cfg.attention:
+            s2 = (m * dg).sum(-1)
+            rs2 = gate * (1 - gate) * emask[..., 0] * s2
+            dm = dg * emask * gate[..., None] + rs2[..., None] * wa
+            grads["att_mlp.0.weight"] = (rs2[..., None] * m).reshape(-1, hid).sum(0)[None]
+            grads["att_mlp.0.bias"] = rs2.sum().reshape(1)
+        else:
+            dm = dg * emask
+        dx = torch.zeros_like(x)
+    else:
+        w3 = module.coord_mlp[4].weight[0]
+        logit = m @ w3
+        th = torch.tanh(logit)
+        scale = th * cfg.coords_range_layer if cfg.tanh else logit
+        daggx = (g_out * mask / div)[:, :, None]  # [B, N, 1, 3]
+        ds = emask[..., 0] * (daggx * cd).sum(-1)
+        rs2 = ds * cfg.coords_range_layer * (1 - th * th) if cfg.tanh else ds
+        dm = rs2[..., None] * w3
+        grads["coord_mlp.4.weight"] = (rs2[..., None] * m).reshape(-1, hid).sum(0)[None]
+        dcd = daggx * (scale * emask[..., 0])[..., None]
+        dh = torch.zeros(b * n, hid)
+        dx = g_out * mask
+    dmm = dm * dsilu_mm
+    prefix = "edge_mlp" if stage == "gcl" else "coord_mlp"
+    grads[f"{prefix}.2.bias"] = _by_window(dmm, 2).sum((0, 1))
+    grads[f"{prefix}.2.weight"] = _split_k(dmm.reshape(-1, hid), a.reshape(-1, hid), wgrad)
+    dpre = transposed(dmm.reshape(-1, hid), w2).reshape(dmm.shape) * dsilu_pre
+    rowsum = _by_window(dpre, 2)  # [B, N(i), H]
+    colsum = dpre.sum(1)  # [B, N(j), H], rows in order
+    grads[f"{prefix}.0.bias"] = rowsum.sum((0, 1))
+    we = torch.cat([_by_window(dpre * feats[..., k:k + 1], 2).sum((0, 1))[:, None]
+                    for k in range(feats.shape[-1])], dim=1)
+    grads[f"{prefix}.0.weight"] = torch.cat(
+        [mm_(rowsum.reshape(-1, hid).T, h.reshape(-1, hid)),
+         mm_(colsum.reshape(-1, hid).T, h.reshape(-1, hid)), we], dim=1)
+    dh = (dh + mm_(rowsum.reshape(-1, hid), w1s) + mm_(colsum.reshape(-1, hid), w1d)).reshape(
+        b, n, hid)
+    dr = (dpre * w1e[:, 0]).sum(-1, keepdim=True)
+    dr0 = (dpre * w1e[:, 1]).sum(-1, keepdim=True)
+    if stage == "gcl":
+        g_pair = 2 * diff * dr
+    else:
+        norm = torch.sqrt(r + 1e-8)
+        cc = norm + cfg.norm_constant
+        dlr = dr - (dcd * diff).sum(-1, keepdim=True) / (cc * cc) / (2 * norm)
+        g_pair = dcd / cc + 2 * diff * dlr
+    g0 = 2 * diff0 * dr0
+    dx = dx + g_pair.sum(2) - g_pair.sum(1)
+    dx0 = g0.sum(2) - g0.sum(1)
+    return dh, dx, dx0, [grads[name] for name in egnn_tiled.stage_weight_names(module)]
+
+
+def _geom_cotangents(stage):
+    rng = np.random.default_rng(11 if stage == "gcl" else 12)
+    return rng.standard_normal((2, GEOM_N, GEOM_H if stage == "gcl" else 3)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _pallas_stage_bwd(aggregation, stage):
+    _, jcfg, block_params, arrays = _geom_stages(aggregation)
+    return _jax_stage_bwd(jcfg, block_params, stage, GEOM_N, arrays, _geom_cotangents(stage))
+
+
+def _bwd_errors(stage, aggregation, **products):
+    """{output: (max|d|, max(1, max|ref|))} of the emulated backward against
+    the JAX kernel #5 (interpret mode)."""
+    egnn, _, _, arrays = _geom_stages(aggregation)
+    want_in, want_w = _pallas_stage_bwd(aggregation, stage)
+    module = _stage_module(egnn, stage)
+    with torch.no_grad():
+        dh, dx, dx0, dws = _row_grid_stage_bwd(module, stage, tuple(t(a) for a in arrays),
+                                               t(_geom_cotangents(stage)), **products)
+    names = ["dh", "dx", "dx0"] + egnn_tiled.stage_weight_names(module)
+    out = {}
+    for name, g, w in zip(names, [dh, dx, dx0, *dws], [*want_in, *want_w]):
+        g = g.numpy().reshape(w.shape)
+        assert np.isfinite(g).all(), name
+        out[name] = (float(np.abs(g - w).max()), max(1.0, float(np.abs(w).max())))
+    return out
+
+
+@pytest.mark.parametrize("aggregation", ["sum", "mean"])
+@pytest.mark.parametrize("stage", ["gcl", "coord"])
+def test_row_grid_stage_backward_in_split_tf32_matches_the_pallas_kernel(stage, aggregation):
+    """Every output of the stage backward emulated in the new grid's order
+    (split-TF32 edge and node products, window-by-window sums, the split-K
+    W2 gradient summed in order) within 1e-4 * max(1, max|ref|) of the JAX
+    kernel #5."""
+    for name, (err, scale) in _bwd_errors(stage, aggregation).items():
+        assert err <= GATE * scale, f"{stage} {aggregation} {name}: max|d|={err:.3e}"
+
+
+@pytest.mark.parametrize("stage", ["gcl", "coord"])
+def test_row_grid_stage_backward_with_one_tf32_transposed_product_fails_the_gate(stage):
+    """One TF32 product in place of the split one for the transposed product
+    d(mm) W2 puts some output of the stage backward outside the gate."""
+    errs = _bwd_errors(stage, "sum", transposed=_one_tf32)
+    worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+    err, scale = errs[worst]
+    assert err > GATE * scale, f"{stage}: worst {worst} max|d|={err:.3e} <= {GATE}*{scale:.3g}"
+
+
+@pytest.mark.parametrize("stage", ["gcl", "coord"])
+def test_row_grid_w2_gradient_in_one_tf32_is_far_less_accurate(stage):
+    """The W2 gradient with one TF32 product per split: at this shape (9800
+    edges) it stays inside the gate, but its error against the JAX kernel is
+    more than 50 times the split scheme's."""
+    name = ("edge_mlp" if stage == "gcl" else "coord_mlp") + ".2.weight"
+    err3, scale = _bwd_errors(stage, "sum")[name]
+    err1, _ = _bwd_errors(stage, "sum", wgrad=_one_tf32)[name]
+    assert err3 <= GATE * scale and err1 > 50 * err3, f"{stage}: {err1:.3e} vs {err3:.3e}"

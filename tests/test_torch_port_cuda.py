@@ -9,6 +9,8 @@ with a card and no JAX:
 
 Skips where torch.cuda is unavailable (the kernels have no CPU mode)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -422,12 +424,66 @@ def test_tiled_backward_in_groups_replays_and_counts(card, monkeypatch):
                                                                                       coord + 1)
 
 
+@pytest.mark.parametrize("n,n_real", [(80, (80, 64, 71)), (184, (184, 168, 177)),
+                                      (184, tuple(168 + k % 17 for k in range(32)))])
+def test_tiled_backward_tile_grid_at_geom_width(card, n, n_real):
+    """The backward edge grid at the GEOM recipe's width (H=256, attention,
+    tanh) and training pads 80 and 184 (64-column windows, the last one
+    ragged, padding rows and columns), and at GEOM's largest training batch
+    (B=32, N=184: 1.08 M edge rows, 529 splits of the W2-gradient GEMM): both
+    stages, weight gradients included, within tolerance of the plain
+    versions."""
+    block = _block(card, hidden=256)
+    _assert_block_stages_backward_close(block, _inputs(card, len(n_real), n, 256, n_real))
+
+
+def test_wgrad_splits_match_the_library(card):
+    """The CPU emulation's split count of the W2-gradient GEMM
+    (``egnn_block.wgrad_splits``) is the library's."""
+    lib = egnn_tiled.cuda_build.library("egnn_tiled_bwd")
+    for edges in (1, 15, 9800, 64 * 29 * 29, 131072, 131073, 32 * 104 * 104, 32 * 184 * 184):
+        for hidden in (32, 256, 512):
+            chunk = ctypes.c_int()
+            splits = lib.egnn_wgrad_splits(edges, hidden, ctypes.byref(chunk))
+            assert (splits, chunk.value) == egnn_block.wgrad_splits(edges, hidden), (edges, hidden)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("hidden,n,n_real", [(32, 65, (65, 49)), (256, 184, (184, 150)),
+                                             (96, 129, (100, 129))])
+def test_tiled_gcl_backward_from_the_forward_chain_is_bit_identical(card, monkeypatch, grouped,
+                                                                     hidden, n, n_real):
+    """#5 on a GCL from the node chain its forward (#3) kept (the training
+    route) gives the same bits as #5 running the chain itself, also when the
+    batch runs in groups; #3's output is the same whether it keeps the chain
+    or not."""
+    block = _block(card, hidden=hidden)
+    args = _inputs(card, 2, n, hidden, n_real)
+    gh, _ = _cotangents(card, 2, n, hidden)
+    if grouped:
+        lib = egnn_tiled.cuda_build.library("egnn_tiled_bwd")
+        one = 4 * lib.egnn_rows_backward_scratch_floats(1, n, hidden, block.cfg.edge_feat_nf)
+        monkeypatch.setattr(egnn_tiled, "MAX_BWD_SCRATCH_BYTES", one)
+    with torch.no_grad():
+        h_out, chain = egnn_tiled.gcl_rows_cuda(block.gcl_0, *args, keep_chain=True)
+        assert chain.shape == (3, 2, n, hidden)
+        assert torch.equal(h_out, egnn_tiled.gcl_rows_cuda(block.gcl_0, *args))
+    own = egnn_tiled.gcl_rows_backward_cuda(block.gcl_0, *args, gh)
+    handed = egnn_tiled.gcl_rows_backward_cuda(block.gcl_0, *args, gh, chain=chain)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip([*own[:3], *own[3]], [*handed[:3], *handed[3]])):
+        assert torch.equal(a, b), k
+
+
 def test_tiled_backward_refuses_what_it_cannot_hold(card, monkeypatch):
     block = _block(card)
     h, x, x0, mask = _inputs(card, 1, 80, 32, (80,))
     gh, gx = _cotangents(card, 1, 80, 32)
     with pytest.raises(ValueError, match="g_out has shape"):
         egnn_tiled.gcl_rows_backward_cuda(block.gcl_0, h, x, x0, mask, gx)
+    with pytest.raises(ValueError, match="chain has shape"):
+        egnn_tiled.gcl_rows_backward_cuda(block.gcl_0, h, x, x0, mask, gh,
+                                          chain=torch.zeros(2, 1, 80, 32, device=card))
     with pytest.raises(TypeError, match="float32"):
         egnn_tiled.coord_rows_backward_cuda(block.gcl_equiv, h, x, x0, mask, gx.double())
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -585,6 +641,27 @@ def test_sp_kernels_over_every_row_are_the_tiled_kernels(card, variant):
             assert torch.equal(a, b), f"{tiled} weight {k}"
         for k, name in enumerate(("dh", "dx", "dx0")):
             _assert_within(got[k] + got[3 + k], want[k], BWD_RTOL, f"{tiled} {name}")
+
+
+@pytest.mark.parametrize("n,s,row0", SP_SLABS)
+def test_sp_gcl_backward_from_the_forward_chain_is_bit_identical(card, n, s, row0):
+    """#7 on a GCL from the slab's node chain #6 kept (the SP training route)
+    gives the same bits as #7 running the chain itself; #6's output is the
+    same whether it keeps the chain or not."""
+    block = _block(card)
+    full, rows = _sp_views(card, n, s, row0, (n, n - 7))
+    fwd, bwd = egnn_sp.stage_fns(block.gcl_0, True)
+    with torch.no_grad():
+        h, chain = fwd(block.gcl_0, full, rows, row0, n, keep_chain=True)
+        assert chain.shape == (3, 2, s, 32)
+        assert torch.equal(h, fwd(block.gcl_0, full, rows, row0, n))
+    g = torch.from_numpy(np.random.default_rng(n + row0).standard_normal(
+        tuple(h.shape)).astype(np.float32)).to(card)
+    own = bwd(block.gcl_0, full, rows, row0, n, g)
+    handed = bwd(block.gcl_0, full, rows, row0, n, g, chain=chain)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip([*own[:6], *own[6]], [*handed[:6], *handed[6]])):
+        assert torch.equal(a, b), k
 
 
 def test_sp_kernels_count_launches_and_refuse_what_they_cannot_hold(card):

@@ -21,7 +21,7 @@ from geoldm_tpu.ops import pallas_egnn_tiled as jtiled
 from geoldm_tpu_torch.config import EGNNConfig
 from geoldm_tpu_torch.nn.egnn import EGNN
 from geoldm_tpu_torch.ops import egnn_sp
-from tests.torch_port_utils import load_egnn_from_jax, masked_inputs, t
+from tests.torch_port_utils import assert_routes_agree, load_egnn_from_jax, masked_inputs, t
 
 torch.set_num_threads(1)
 
@@ -121,3 +121,23 @@ def test_plain_sp_stage_backward_matches_jax(variant, r0):
             w = np.asarray(dws[key])
             w = w.T if w.ndim == 2 else w  # JAX weights are [in, out]
             _assert_close(a.numpy().reshape(w.shape), w, f"{kind} r0={r0} d{key}")
+
+
+@pytest.mark.parametrize("r0", [0, 16])
+@pytest.mark.parametrize("variant", ["sum", "mean"])
+def test_plain_sp_gcl_backward_from_the_forward_chain_matches_its_recompute(variant, r0):
+    """The plain #7 on a GCL given the slab's node chain #6 kept (the SP
+    Function's CPU route) agrees with the whole-stage autograd within f32
+    sum order."""
+    block, _, _, full, mean_div = _stage_case(variant, 3)
+    full_t, rows_t = tuple(map(t, full)), tuple(map(t, _slab(full, r0)))
+    with torch.no_grad():
+        h, chain = egnn_sp.sp_gcl_rows_plain(block.gcl_0, full_t, rows_t, r0, mean_div,
+                                             keep_chain=True)
+        assert torch.equal(h, egnn_sp.sp_gcl_rows_plain(block.gcl_0, full_t, rows_t, r0,
+                                                        mean_div))
+    g = t(np.random.default_rng(r0 + 5).standard_normal((2, SLAB, 32)).astype(np.float32))
+    own = egnn_sp.sp_gcl_rows_backward_plain(block.gcl_0, full_t, rows_t, r0, mean_div, g)
+    handed = egnn_sp.sp_gcl_rows_backward_plain(block.gcl_0, full_t, rows_t, r0, mean_div, g,
+                                                chain=chain)
+    assert_routes_agree([*own[:6], *own[6]], [*handed[:6], *handed[6]])

@@ -21,7 +21,8 @@ from geoldm_tpu.utils.torch_convert import egnn_state_dict_from_params
 from geoldm_tpu_torch.config import EGNNConfig
 from geoldm_tpu_torch.nn.egnn import EGNN, EquivariantBlock, init_parameters
 from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
-from tests.torch_port_utils import block_grads_by_name, load_egnn_from_jax, masked_inputs, t
+from tests.torch_port_utils import (assert_routes_agree, block_grads_by_name, load_egnn_from_jax,
+                                    masked_inputs, t)
 
 torch.set_num_threads(1)
 
@@ -199,3 +200,61 @@ def test_tiled_block_function_gradcheck(variant):
             return egnn_tiled.TiledEquivariantBlockFunction.apply(block, h_, x_, x0_, mask, *w)
         inputs = (h, x.requires_grad_(), x0.requires_grad_(), *ws)
     assert torch.autograd.gradcheck(f, inputs, eps=1e-6, atol=1e-5, fast_mode=True)
+
+
+@pytest.mark.parametrize("variant", ["sum", "no_attention", "mean"])
+def test_gcl_stage_backward_from_the_forward_chain_matches_its_recompute(variant):
+    """The plain GCL stage backward (kernel #5's contract) given the node
+    chain its forward kept (the aggregate, z and silu(z)) agrees with the
+    whole-stage autograd within f32 sum order, and both match the JAX
+    kernel #5; the chain is the forward's own node MLP input and
+    activations."""
+    egnn, jcfg, params = _pair(variant)
+    bp = jax.tree.map(lambda a: a[0], params["blocks"])
+    n = 72
+    arrays, (gh, _) = _stage_arrays(n, seed=7)
+    gcl = egnn.e_block_0.gcl_0
+    h, x, x0, mask = map(t, arrays)
+    with torch.no_grad():
+        h_out, chain = egnn_tiled.gcl_rows_plain(gcl, h, x, x0, mask, keep_chain=True)
+        assert torch.equal(h_out, egnn_tiled.gcl_rows_plain(gcl, h, x, x0, mask))
+        agg, z, u = chain
+        assert torch.equal(z, gcl.node_mlp[0](torch.cat([h, agg], dim=-1)))
+        assert torch.equal(u, torch.nn.functional.silu(z))
+    own = egnn_tiled.gcl_rows_backward_plain(gcl, h, x, x0, mask, t(gh))
+    handed = egnn_tiled.gcl_rows_backward_plain(gcl, h, x, x0, mask, t(gh), chain=chain)
+    assert_routes_agree([*own[:3], *own[3]], [*handed[:3], *handed[3]])
+    want_in, want_w = _jax_stage_bwd(jcfg, bp, "gcl", n, arrays, gh)
+    for name, g, w in zip(("dh", "dx", "dx0"), handed[:3], want_in):
+        _assert_close(g.numpy(), w, name)
+    for k, (g, w) in enumerate(zip(handed[3], want_w)):
+        _assert_close(g.numpy().reshape(w.shape), w, f"weight {k}")
+
+
+@pytest.mark.parametrize("variant", ["sum", "no_attention"])
+def test_tiled_block_function_hands_each_gcl_its_chain(variant, monkeypatch):
+    """The Function's backward hands each GCL stage the node chain its re-run
+    of the GCL kept: every gradient agrees within f32 sum order with the
+    chain withheld (each stage backward then runs the whole-stage
+    autograd)."""
+    cfg = EGNNConfig(**{**BASE, **VARIANTS[variant], "inv_sublayers": 2})
+    block = EquivariantBlock(cfg)
+    init_parameters(block, torch.Generator().manual_seed(3))
+    arrays, (gh, gx) = _stage_arrays(72, seed=8)
+    plain = egnn_tiled.gcl_rows_backward_plain
+    handed = []
+
+    def grads(withhold):
+        def stage_bwd(*a, chain=None, **kw):
+            handed.append(chain)
+            return plain(*a, chain=None if withhold else chain, **kw)
+
+        monkeypatch.setattr(egnn_tiled, "gcl_rows_backward_plain", stage_bwd)
+        inputs = [t(a).requires_grad_() for a in arrays[:3]]
+        ws = [w.detach().clone().requires_grad_() for w in egnn_block.block_params(block)]
+        outs = egnn_tiled.TiledEquivariantBlockFunction.apply(block, *inputs, t(arrays[3]), *ws)
+        return torch.autograd.grad(outs, inputs + ws, (t(gh), t(gx)))
+
+    withheld, given = grads(True), grads(False)
+    assert len(handed) == 4 and all(c is not None and c.shape == (3, 2, 72, 32) for c in handed)
+    assert_routes_agree(withheld, given)

@@ -33,6 +33,22 @@ def load_egnn_from_jax(module, jax_egnn_params, attention, prefix=""):
     return module
 
 
+# The plain stage backward from a kept node chain against the whole-stage
+# autograd: the same f32 math summed in another order (the node MLP's vjp
+# over all rows at once instead of tile by tile).
+ROUTE_RTOL = 1e-5
+
+
+def assert_routes_agree(want, got, rtol=ROUTE_RTOL):
+    """Each tensor of ``got`` within rtol * max(1, max|want|) of ``want``'s."""
+    assert len(want) == len(got)
+    for k, (w, g) in enumerate(zip(want, got)):
+        assert g.shape == w.shape, (k, g.shape, w.shape)
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        assert err <= rtol * scale, f"tensor {k}: max|d|={err:.3e} > {rtol}*{scale:.3g}"
+
+
 def t(a):
     return torch.from_numpy(np.asarray(a, dtype=np.float32))
 
