@@ -94,7 +94,26 @@ Phases (each prints a line; any failure exits non-zero before the result):
  17. one SP-2 train step on the card (4+4 blocks, B=2, pad 184, 181 and 151
      atoms) against the same step on one rank without SP: loss within 1e-5
      relative, every gradient within 1e-3*max|ref|; the same ranks then time
-     SP train steps at the recipe's B=32, pads 184 and 48.
+     SP train steps at the recipe's B=32, pads 184 and 48;
+ 18. resume and first stage: phase 7's run resumed at epoch 1 through
+     cli.main_qm9 --resume --data_augmentation True --prefetch 2 (the state
+     it loaded must equal latest/ tensor for tensor: model, EMA, AdamW, the
+     clip's ring buffer and the step; exact #1/#2 launches; metrics.jsonl
+     holds epoch 1's keys); a full-width first-stage VAE trained for 5 steps,
+     then a latent diffusion started from it with --ae_path and the first
+     stage frozen, whose vae must equal the VAE's EMA weights bit for bit;
+     and phase 13's GEOM run resumed for one augmented batch at pad 184
+     (exact #3-#5 launches);
+ 19. cli.eval_analyze on phase 18's QM9 checkpoint and phase 7's splits: 36
+     molecules at T=1000, stability on the native C++ batch (its counts equal
+     the Python path's), the validity/uniqueness/novelty triple in [0, 1],
+     the packed NLL on valid and 5 test passes (exact #1 launches),
+     eval_log.txt; and the packed NLL of 8 test molecules on the card against
+     the CPU with the same draws, within 2e-4 * max(1, |ref|);
+ 20. cli.eval_analyze --dataset geom on phase 13's checkpoint with a
+     conformer file whose valid and test molecules reach 181 atoms: the
+     packed NLL at pad 184 (exact #3/#4 launches), 2 generated molecules (at
+     most two buckets).
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -556,7 +575,7 @@ def phase_train(card_name, tmpdir):
             "--latent_nf", "1", "--diffusion_steps", str(T),
             "--diffusion_noise_schedule", "polynomial_2", "--batch_size", str(B),
             "--ema_decay", str(decay), "--n_epochs", "1", "--test_epochs", "1",
-            "--n_stability_samples", "8", "--seed", str(seed)]
+            "--n_stability_samples", "8", "--seed", str(seed), "--no_wandb"]
     print(f"phase 7: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
     _zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1159,7 +1178,7 @@ def phase_geom_train(card_name, tmpdir):
             "--latent_nf", "2", "--include_charges", "False", "--diffusion_steps", str(T),
             "--batch_size", str(B), "--lr", "5e-5", "--ema_decay", str(decay),
             "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab),
-            "--seed", str(seed)]
+            "--seed", str(seed), "--no_wandb"]
     print(f"phase 13: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
           flush=True)
     _zero_launch_counts()
@@ -1407,7 +1426,7 @@ def phase_sp_train(card_name, tmpdir):
             "--latent_nf", "2", "--include_charges", "False", "--diffusion_steps", str(T),
             "--batch_size", str(B), "--lr", "5e-5", "--ema_decay", str(decay),
             "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab),
-            "--seed", str(seed)]
+            "--seed", str(seed), "--no_wandb"]
     rule = sp.placement(ranks, "cuda")[2]
     print(f"phase 16: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
           flush=True)
@@ -1606,6 +1625,336 @@ def phase_sp_grad(card_name):
             "seconds": wall}
 
 
+def _equal_files(snapshot, path, phase):
+    """The train state a resumed run loaded (its CPU copy) against the files
+    of the checkpoint directory it resumed from, tensor for tensor."""
+    import torch
+
+    load = lambda name: torch.load(os.path.join(path, name), weights_only=True)  # noqa: E731
+    n = 0
+    for key, name in (("model", "generative_model.npy"), ("ema", "generative_model_ema.npy")):
+        want = load(name)
+        _check(set(snapshot[key]) == set(want) and
+               all(torch.equal(snapshot[key][k], want[k]) for k in want),
+               f"phase {phase}: the resumed {key} differs from {name}")
+        n += len(want)
+    want = load("optim.npy")
+    got = snapshot["optim"]["state"]
+    _check(got.keys() == want["state"].keys() and all(
+        torch.equal(torch.as_tensor(got[i][k]).cpu(), torch.as_tensor(v).cpu())
+        for i, entry in want["state"].items() for k, v in entry.items()),
+        f"phase {phase}: the resumed AdamW state differs from optim.npy")
+    n += sum(len(entry) for entry in want["state"].values())
+    extra = load("train_state.npy")
+    _check(snapshot["step"] == extra["step"] and
+           torch.equal(snapshot["clip"]["norms"], extra["clip"]["norms"]) and
+           (snapshot["clip"]["count"], snapshot["clip"]["head"]) ==
+           (extra["clip"]["count"], extra["clip"]["head"]),
+           f"phase {phase}: the resumed clip ring buffer or step differs from train_state.npy")
+    return n + 2
+
+
+def phase_resume(card_name, qm9_dir, geom_dir):
+    """Phase 18: resume phase 7's QM9 run (augmented, with prefetch), train a
+    first-stage VAE and start a latent diffusion from it (--ae_path), and
+    resume phase 13's GEOM run for one batch at pad 184."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_geom_drugs, main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    info = get_dataset_info("qm9")
+    B, steps, T, L, decay = 64, 5, 1000, 9, 0.9999
+    width = ["--nf", "256", "--n_layers", str(L), "--latent_nf", "1", "--batch_size", str(B),
+             "--ema_decay", str(decay), "--seed", "0", "--no_wandb"]
+    out = os.path.join(qm9_dir, "out")
+    run_dir = os.path.join(out, "smoke")
+    stats = {}
+
+    # 18a: phase 7's run resumed at epoch 1 into a run directory of its own.
+    argv = ["--datadir", qm9_dir, "--outdir", out, "--exp_name", "resumed", "--resume", run_dir,
+            "--start_epoch", "1", "--n_epochs", "2", "--test_epochs", "1",
+            "--data_augmentation", "True", "--prefetch", "2", "--train_diffusion",
+            "--trainable_ae", "--diffusion_steps", str(T), "--n_stability_samples", "4", *width]
+    print(f"phase 18: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    n_equal = _equal_files(summary["resumed"], os.path.join(run_dir, "latest"), 18)
+    _check(summary["resumed"]["step"] == steps and summary["state"].step == 2 * steps,
+           f"resumed at step {summary['resumed']['step']}, ended at {summary['state'].step}")
+    losses = summary["losses"][0]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))), f"losses {losses}")
+    buckets = covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"])
+    chunks = n_chunks(summary["sample_sizes"][0], 4, buckets)
+    per_step, per_eval = 1 + 2 * L, 1 + 3 * L
+    expected = {**_no_launches(),
+                "egnn_block": steps * per_step + 2 * per_eval + ((T + 1) * L + L) * chunks,
+                "egnn_block_bwd": steps * 2 * L}
+    _check(launches == expected, f"resumed QM9 launches {launches} != {expected}")
+    records = [json.loads(ln) for ln in open(os.path.join(out, "resumed", "metrics.jsonl"))]
+    keys = [sorted(set(r) - {"_time", "_step"}) for r in records if r.get("_step") == 1]
+    want_keys = [["train_loss_epoch"], ["atm_stable", "mol_stable"], ["nll_val"],
+                 ["best_nll_val", "nll_test"]]
+    _check(keys == want_keys, f"metrics.jsonl epoch 1 keys {keys} != {want_keys}")
+    _check(any(set(r) == {"_time", "batch_loss", "grad_norm"} for r in records),
+           "metrics.jsonl holds no batch_loss/grad_norm record")
+    print(f"phase 18: resumed QM9 at step {summary['resumed']['step']}: {n_equal} tensors and "
+          f"counters equal latest/ (model, EMA, AdamW, clip ring buffer, step); {steps} "
+          f"augmented steps, losses {[round(v, 4) for v in losses]}, stability "
+          f"{summary['stability'][0]}, triple {summary['rdkit'][0]}; launches fwd "
+          f"{launches['egnn_block']} = {steps}*{per_step} + 2*{per_eval} + "
+          f"(({T}+1)*{L}+{L})*{chunks} chunks, bwd {launches['egnn_block_bwd']}; metrics.jsonl "
+          f"epoch 1 keys {keys}; main() {wall:.1f} s on {card_name}", flush=True)
+    stats["qm9_resume"] = {"launches": launches, "chunks": chunks, "tensors_equal": n_equal,
+                           "main_seconds": wall, "losses": losses}
+    del summary
+
+    # 18b: a full-width first-stage VAE, then a latent diffusion on it.
+    argv = ["--datadir", qm9_dir, "--outdir", out, "--exp_name", "vae", "--n_epochs", "1",
+            "--test_epochs", "1", *width]
+    print(f"phase 18: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    vae = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    vae_wall = time.time() - t0
+    vae_launches = _launch_counts()
+    # A VAE step runs the encoder (1 block) and the decoder (L) forward and
+    # backward; a valid or test batch runs them forward.
+    expected = {**_no_launches(), "egnn_block": steps * (1 + L) + 2 * (1 + L),
+                "egnn_block_bwd": steps * (1 + L)}
+    _check(len(vae["losses"][0]) == steps and bool(np.all(np.isfinite(vae["losses"][0]))),
+           f"VAE losses {vae['losses']}")
+    _check(vae_launches == expected, f"VAE launches {vae_launches} != {expected}")
+    del vae
+    argv = ["--datadir", qm9_dir, "--outdir", out, "--exp_name", "ldm_on_vae",
+            "--train_diffusion", "--ae_path", os.path.join(out, "vae"),
+            "--diffusion_steps", str(T), "--break_train_epoch", "True", "--start_epoch", "1",
+            "--n_epochs", "2", "--test_epochs", "2", *width]
+    print(f"phase 18: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    ldm = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    ldm_wall = time.time() - t0
+    ldm_launches = _launch_counts()
+    want = torch.load(os.path.join(out, "vae", "best", "generative_model_ema.npy"),
+                      weights_only=True)
+    got = {k: v.cpu() for k, v in ldm["state"].model.vae.state_dict().items()}
+    _check(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want),
+           "the latent diffusion's vae is not the first stage's EMA weights")
+    # One step with the first stage frozen: the encoder forward, and the
+    # denoiser forward and backward (a frozen first stage adds no
+    # reconstruction term, so the decoder does not run).
+    expected = {**_no_launches(), "egnn_block": 1 + L, "egnn_block_bwd": L}
+    _check(ldm_launches == expected, f"--ae_path step launches {ldm_launches} != {expected}")
+    print(f"phase 18: VAE nf=256 {L} layers, {steps} steps, launches {vae_launches['egnn_block']}"
+          f"/{vae_launches['egnn_block_bwd']} ({vae_wall:.1f} s); LDM on --ae_path: its vae "
+          f"equals the first stage's EMA weights ({len(want)} tensors, bit for bit) after "
+          f"{len(ldm['losses'][0])} step with it frozen, launches {ldm_launches['egnn_block']}/"
+          f"{ldm_launches['egnn_block_bwd']} ({ldm_wall:.1f} s)", flush=True)
+    stats["ae_path"] = {"vae_launches": vae_launches, "ldm_launches": ldm_launches,
+                        "vae_seconds": vae_wall, "ldm_seconds": ldm_wall}
+    del ldm
+
+    # 18c: phase 13's GEOM run resumed for one train batch at pad 184 (the
+    # molecules of a new conformer file, 129..181 atoms; its 4 + 4 valid and
+    # test molecules are not evaluated: epoch 1 is no test epoch).
+    ginfo = get_dataset_info("geom")
+    hist = sorted(dict(ginfo.n_nodes_histogram))
+    sizes = [int(v) for v in np.random.default_rng(22).choice(
+        [k for k in hist if 129 <= k <= 181], size=32)]
+    data = os.path.join(geom_dir, "resume_data")
+    write_geom_conformers(data, ginfo, 40, seed=5, sizes=sizes)
+    gout = os.path.join(geom_dir, "out")
+    argv = ["--datadir", data, "--outdir", gout, "--exp_name", "resumed", "--resume",
+            os.path.join(gout, "smoke"), "--start_epoch", "1", "--n_epochs", "2",
+            "--test_epochs", "2", "--data_augmentation", "True", "--train_diffusion",
+            "--trainable_ae", "--nf", "256", "--n_layers", "4", "--latent_nf", "2",
+            "--include_charges", "False", "--batch_size", "32", "--lr", "5e-5",
+            "--ema_decay", str(decay), "--no_wandb"]
+    print(f"phase 18: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+          flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    geom = main_geom_drugs.main(argv)
+    torch.cuda.synchronize()
+    geom_wall = time.time() - t0
+    geom_launches = _launch_counts()
+    n_geom = _equal_files(geom["resumed"], os.path.join(gout, "smoke", "latest"), 18)
+    gl = 4
+    expected = {**_no_launches(), "gcl_rows": (1 + 2 * gl) + 2 * gl, "coord_rows": 1 + 2 * gl,
+                "gcl_rows_bwd": 2 * gl, "coord_rows_bwd": 2 * gl}
+    _check(len(geom["losses"][0]) == 1 and np.isfinite(geom["losses"][0][0]),
+           f"GEOM resumed losses {geom['losses']}")
+    _check(geom_launches == expected, f"GEOM resumed launches {geom_launches} != {expected}")
+    print(f"phase 18: resumed GEOM at step {geom['resumed']['step']}: {n_geom} tensors and "
+          f"counters equal latest/; one augmented step at pad 184, loss "
+          f"{geom['losses'][0][0]:.4f}; launches {json.dumps(geom_launches)}; main() "
+          f"{geom_wall:.1f} s on {card_name}", flush=True)
+    stats["geom_resume"] = {"launches": geom_launches, "tensors_equal": n_geom,
+                            "main_seconds": geom_wall}
+    return stats
+
+
+def phase_eval(card_name, qm9_dir):
+    """Phase 19: cli.eval_analyze on phase 18's resumed QM9 checkpoint."""
+    import torch
+
+    from geoldm_tpu_torch.cli import eval_analyze
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.qm9 import load_qm9
+    from geoldm_tpu_torch.evalsuite.analyze import stability_counts
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.train.trainer import evaluate_nll_packed
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    info = get_dataset_info("qm9")
+    T, L, n_samples, passes = 1000, 9, 36, 5
+    model_path = os.path.join(qm9_dir, "out", "resumed")
+    argv = ["--model_path", model_path, "--datadir", qm9_dir, "--n_samples", str(n_samples),
+            "--n_test_passes", str(passes)]
+    print(f"phase 19: python -m geoldm_tpu_torch.cli.eval_analyze {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = eval_analyze.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    report = summary["report"]
+    _check(report["stability_path"] == "native",
+           f"stability ran on the {report['stability_path']} path, not the native batch")
+    _check(all(0.0 <= v <= 1.0 for v in summary["rdkit"]), f"triple {summary['rdkit']}")
+    mols = summary["molecules"]
+    args = (mols["x"], mols["one_hot"], mols["node_mask"], info)
+    t1 = time.perf_counter()
+    native = stability_counts(*args, use_native=True)
+    native_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    python = stability_counts(*args, use_native=False)
+    python_s = time.perf_counter() - t1
+    _check(native[:3] == python[:3], f"native stability counts {native} != the Python path's "
+                                     f"{python}")
+    _check(summary["stability"]["mol_stable"] == native[0] / n_samples,
+           f"eval_analyze's stability {summary['stability']} is not the native counts {native}")
+    _check(np.isfinite(summary["nll_val"]) and len(summary["nll_tests"]) == passes and
+           bool(np.all(np.isfinite(summary["nll_tests"]))),
+           f"NLL valid {summary['nll_val']}, test passes {summary['nll_tests']}")
+    splits, _ = load_qm9(qm9_dir)
+    batches = -(-len(splits["valid"]["num_atoms"]) // 64) + passes * -(-len(
+        splits["test"]["num_atoms"]) // 64)
+    chunks = n_chunks(mols["n_atoms"], min(100, n_samples),
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, 29))
+    expected = {**_no_launches(), "egnn_block": ((T + 1) * L + L) * chunks + (1 + 3 * L) * batches}
+    _check(launches == expected, f"eval_analyze launches {launches} != {expected}")
+    log = open(os.path.join(model_path, "eval_log.txt")).read().split()
+    _check(log[0::2][:4] == ["n_samples", "secs/sample", "mol_stable", "atm_stable"] and
+           "nll_test" in log, f"eval_log.txt: {log}")
+
+    # The packed NLL on the card against the CPU: one batch of 8 test
+    # molecules, the same weights and the same draws.
+    split = {k: v[:8] for k, v in splits["test"].items()}
+    nll = {}
+    for dev in ("cuda", "cpu"):
+        model, cfg, _ = load_reference_checkpoint(os.path.join(model_path, "best"), dev)
+        nll[dev] = evaluate_nll_packed(model, cfg, split, DistributionNodes(info.n_nodes),
+                                       [_Replay(19)], batch_size=8, pad_nodes=29,
+                                       partition="card-vs-cpu")[0]
+    err = abs(nll["cuda"] - nll["cpu"])
+    _check(err <= _DENOISER_RTOL * max(1.0, abs(nll["cpu"])),
+           f"packed NLL card {nll['cuda']} vs CPU {nll['cpu']}: |d| {err:.3e}")
+    mol_s = n_samples / report["generation_seconds"]
+    print(f"phase 19: generated {n_samples} molecules at T={T} in "
+          f"{report['generation_seconds']:.2f} s ({mol_s:.2f} mol/s), stability "
+          f"{summary['stability']} on the native path ({native_s * 1e3:.2f} ms; Python path "
+          f"{python_s * 1e3:.2f} ms, equal counts {native[:3]}), triple {summary['rdkit']} "
+          f"({report['triple_seconds']:.2f} s, {report['triple_backend']}); packed NLL valid "
+          f"{summary['nll_val']:.4f} and {passes} test passes {summary['nll_tests']} in "
+          f"{summary['nll_seconds']:.2f} s; launches {launches['egnn_block']} = "
+          f"(({T}+1)*{L}+{L})*{chunks} chunks + {1 + 3 * L}*{batches} batch-passes; card vs "
+          f"CPU packed NLL {nll['cuda']:.6f} / {nll['cpu']:.6f} (|d| {err:.2e}); eval_log.txt "
+          f"written; main() {wall:.1f} s on {card_name}", flush=True)
+    return {"launches": launches, "chunks": chunks, "batch_passes": batches,
+            "generation_seconds": report["generation_seconds"], "mol_per_s": mol_s,
+            "stability": summary["stability"], "triple": summary["rdkit"],
+            "triple_seconds": report["triple_seconds"], "native_ms": native_s * 1e3,
+            "python_ms": python_s * 1e3, "nll_val": summary["nll_val"],
+            "nll_tests": summary["nll_tests"], "nll_seconds": summary["nll_seconds"],
+            "card_vs_cpu_nll": [nll["cuda"], nll["cpu"]], "main_seconds": wall}
+
+
+def phase_geom_eval(card_name, geom_dir):
+    """Phase 20: cli.eval_analyze --dataset geom on phase 13's checkpoint,
+    the packed NLL at pad 184 on a conformer file whose valid and test
+    molecules reach 181 atoms."""
+    import torch
+
+    from geoldm_tpu_torch.cli import eval_analyze
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers
+    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
+    from geoldm_tpu_torch.train.sampling import chunk_pads, default_buckets
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    info = get_dataset_info("geom")
+    T, L, passes = 1000, 4, 5
+    data = os.path.join(geom_dir, "eval_data")
+    # 20 molecules; the permutation reversed puts the 4 given sizes (from
+    # the size histogram) first: valid [181, ~168], test [~120, ~150], and
+    # 16 train molecules (unused).
+    hist = dict(info.n_nodes_histogram)
+    sizes = [max(k for k in hist if k <= n) for n in (150, 120, 168, 181)]
+    _check(sizes[-1] == 181, f"181 atoms is not in the GEOM size histogram ({sizes})")
+    write_geom_conformers(data, info, 20, seed=6, sizes=sizes)
+    np.save(os.path.join(data, "geom_permutation.npy"), np.arange(20)[::-1].copy())
+    model_path = os.path.join(geom_dir, "out", "smoke")
+    argv = ["--model_path", model_path, "--dataset", "geom", "--datadir", data,
+            "--conformation_file", "geom_drugs_30.npy", "--n_samples", "2",
+            "--batch_size_nll", "8", "--n_test_passes", str(passes)]
+    print(f"phase 20: python -m geoldm_tpu_torch.cli.eval_analyze {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = eval_analyze.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    _check(summary["report"]["stability_path"] == "native",
+           f"stability ran on the {summary['report']['stability_path']} path")
+    _check(np.isfinite(summary["nll_val"]) and bool(np.all(np.isfinite(summary["nll_tests"]))),
+           f"GEOM NLL valid {summary['nll_val']}, test {summary['nll_tests']}")
+    buckets = covering_buckets(default_buckets(info), info["max_n_nodes"])
+    pads = chunk_pads(summary["molecules"]["n_atoms"], 2, buckets)
+    _check(len(pads) <= 2, f"generation ran {len(pads)} chunks")
+    per_chunk, per_eval, batches = (T + 1) * L + L, 1 + 3 * L, 1 + passes
+    small = sum(1 for p in pads if p <= MAX_NODES)
+    large = len(pads) - small
+    expected = {**_no_launches(), "egnn_block": per_chunk * small,
+                "gcl_rows": per_chunk * large + per_eval * batches,
+                "coord_rows": per_chunk * large + per_eval * batches}
+    _check(launches == expected, f"GEOM eval launches {launches} != {expected} (chunk pads "
+                                 f"{pads})")
+    print(f"phase 20: valid sizes {sizes[:1:-1]}, test {sizes[1::-1]}; GEOM generation of 2 "
+          f"molecules (chunk pads {pads}) in "
+          f"{summary['generation_seconds']:.2f} s, stability {summary['stability']} (native), "
+          f"triple {summary['rdkit']}; packed NLL at pad 184 valid {summary['nll_val']:.4f}, "
+          f"{passes} test passes {summary['nll_tests']} in {summary['nll_seconds']:.2f} s; "
+          f"launches {json.dumps(launches)} = #1 {per_chunk}*{small} chunks, #3/#4 "
+          f"{per_chunk}*{large} chunks + {per_eval}*{batches} batch-passes; main() {wall:.1f} s "
+          f"on {card_name}", flush=True)
+    return {"launches": launches, "chunk_pads": pads, "nll_val": summary["nll_val"],
+            "nll_tests": summary["nll_tests"], "nll_seconds": summary["nll_seconds"],
+            "generation_seconds": summary["generation_seconds"], "main_seconds": wall}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -1666,8 +2015,10 @@ def main(argv=None) -> int:
     lap("3-5")
     bwd_rows = phase_backward(card_name)
     lap("6")
-    with tempfile.TemporaryDirectory() as tmpdir:
-        train = phase_train(card_name, tmpdir)
+    # Phases 7 and 13 keep their runs for phases 18-20 to resume and score.
+    qm9_run = tempfile.TemporaryDirectory()
+    geom_run = tempfile.TemporaryDirectory()
+    train = phase_train(card_name, qm9_run.name)
     lap("7")
     grad = phase_grad(card_name)
     lap("8")
@@ -1680,8 +2031,7 @@ def main(argv=None) -> int:
     lap("10-11")
     tiled_bwd_rows = phase_tiled_backward(card_name)
     lap("12")
-    with tempfile.TemporaryDirectory() as tmpdir:
-        geom_train = phase_geom_train(card_name, tmpdir)
+    geom_train = phase_geom_train(card_name, geom_run.name)
     lap("13")
     geom_grad = phase_grad(card_name, geom=True)
     lap("14")
@@ -1692,7 +2042,16 @@ def main(argv=None) -> int:
     lap("16")
     sp_grad = phase_sp_grad(card_name)
     lap("17")
-    print(f"phase seconds: {json.dumps(phase_seconds)}", flush=True)
+    # The new phases print their times beside the card's name and power limit.
+    resume = phase_resume(card, qm9_run.name, geom_run.name)
+    lap("18")
+    evaluation = phase_eval(card, qm9_run.name)
+    lap("19")
+    geom_eval = phase_geom_eval(card, geom_run.name)
+    lap("20")
+    qm9_run.cleanup()
+    geom_run.cleanup()
+    print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
 
     main_row = next(r for r in rows if r["case"] == "sum" and r["N"] == 32)
     bwd_row = next(r for r in bwd_rows if r["case"] == "sum" and r["N"] == 29)
@@ -1701,13 +2060,22 @@ def main(argv=None) -> int:
         "training": train, "grad": grad, "tiled": tiled_rows, "geom_serving": geom_stats,
         "geom_denoiser_max_abs_err": geom_err, "tiled_backward": tiled_bwd_rows,
         "geom_training": geom_train, "geom_grad": geom_grad, "sp_kernels": sp_rows,
-        "sp_training": sp_train, "sp_grad": sp_grad, "phase_seconds": phase_seconds,
+        "sp_training": sp_train, "sp_grad": sp_grad, "resume": resume,
+        "evaluation": evaluation, "geom_evaluation": geom_eval, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
 
-    # Launches on the main paths: each path's own counts, read just after it.
+    # Launches on the main paths: each path's own counts, read just after it
+    # (phases 4, 7, 10, 13 and 16, and the resumed, first-stage and
+    # evaluation runs of phases 18-20).
     geom_train_launches = geom_train["launches"]
+    later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
+             resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
+             evaluation["launches"], geom_eval["launches"]]
+
+    def later_launches(kernel):
+        return sum(counts[kernel] for counts in later)
 
     def tiled_entry(rows_, stage, name, source, line, launches_):
         main = next(r for r in rows_ if r["stage"] == stage and r["case"] == "sum"
@@ -1743,7 +2111,7 @@ def main(argv=None) -> int:
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
         "replaces": "geoldm_tpu/ops/pallas_egnn.py:232",
         "launches": (launches + train["fwd_launches"] + geom_launches["egnn_block"]
-                     + geom_train_launches["egnn_block"]),
+                     + geom_train_launches["egnn_block"] + later_launches("egnn_block")),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1752,16 +2120,17 @@ def main(argv=None) -> int:
         "name": "egnn_block_bwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block_bwd.cu",
         "replaces": "geoldm_tpu/ops/pallas_egnn.py:255",
-        "launches": train["bwd_launches"] + geom_train_launches["egnn_block_bwd"],
+        "launches": (train["bwd_launches"] + geom_train_launches["egnn_block_bwd"]
+                     + later_launches("egnn_block_bwd")),
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
         "bound_tc_ms": bwd_row["bound_tc_ms"], "library_ms": None,
     }] + [tiled_entry(tiled_rows, stage, f"egnn_{stage}", "egnn_tiled.cu", line,
-                      geom_launches[stage] + geom_train_launches[stage])
+                      geom_launches[stage] + geom_train_launches[stage] + later_launches(stage))
            for stage, line in (("gcl_rows", 152), ("coord_rows", 166))]
         + [tiled_entry(tiled_bwd_rows, stage, f"egnn_{stage}_bwd", "egnn_tiled_bwd.cu", 201,
-                       geom_train_launches[f"{stage}_bwd"])
+                       geom_train_launches[f"{stage}_bwd"] + later_launches(f"{stage}_bwd"))
            for stage in ("gcl_rows", "coord_rows")]
         + [sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]}
     print(json.dumps(report), flush=True)

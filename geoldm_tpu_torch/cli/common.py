@@ -5,13 +5,17 @@ and the training run, serial or sequence-parallel.
 The port trains unconditional models in float32 on one device, or with
 ``--sp S`` over S ranks that split every EGNN's atom rows (``parallel.sp``):
 one command spawns the ranks, every rank draws the same batches and noise,
-only rank 0 prints and writes checkpoints. Flags that select anything else
-exit with a two-line "not ported yet" message.
+only rank 0 prints and writes checkpoints and ``metrics.jsonl``. A run
+resumes from its ``latest/`` checkpoint (``--resume``, with the
+checkpoint's model config) and a latent-diffusion run can start from a
+trained first stage (``--ae_path``). Flags that select anything else exit
+with a two-line "not ported yet" message.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 
 import numpy as np
@@ -80,6 +84,8 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--start_epoch", type=int, default=0)
     p.add_argument("--data_augmentation", type=eval, default=False)
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches prepared ahead on a host thread (0: serial)")
     p.add_argument("--conditioning", nargs="+", default=[])
     p.add_argument("--outdir", type=str, default="outputs")
     p.add_argument("--device", type=str, default="cuda",
@@ -116,18 +122,12 @@ def check_ported(args) -> None:
         _not_ported(f"--tp {args.tp}")
     if args.conditioning:
         _not_ported("--conditioning")
-    if args.resume:
-        _not_ported("--resume")
-    if args.ae_path:
-        _not_ported("--ae_path")
     if args.visualize:
         _not_ported("--visualize")
     if args.eval_n_steps is not None:
         _not_ported("--eval_n_steps")
     if args.model != "egnn_dynamics":
         _not_ported(f"--model {args.model}")
-    if args.data_augmentation:
-        _not_ported("--data_augmentation")
 
 
 def build_model_config(args, dataset_info):
@@ -174,21 +174,43 @@ def launch(args, train_fn):
     return train_fn(args, None)
 
 
+def _snapshot(state) -> dict:
+    """A CPU copy of a train state: model, EMA, AdamW, clip and step."""
+    import copy
+
+    cpu = lambda m: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}  # noqa: E731
+    return {"model": cpu(state.model), "ema": cpu(state.ema_model),
+            "optim": copy.deepcopy(state.optimizer.state_dict()),
+            "clip": state.clip.state_dict() if state.clip is not None else None,
+            "step": state.step}
+
+
 def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dict:
     """Train, evaluate and checkpoint (common.py:159-434). ``loaders``
     replaces the QM9Loaders built from ``splits`` (the GEOM entry point
     passes GeomLoaders); each must agree with the model on the charge
     channel. Returns a summary: per-epoch losses and seconds, valid/test
-    NLLs, stability and the sizes sampled for it, the checkpoint directories
-    written, and the final train state.
+    NLLs, stability, the validity triples and the sizes sampled for it, the
+    checkpoint directories written, the final train state and, on
+    ``--resume``, ``resumed``: a CPU copy of the state as loaded (model, EMA,
+    AdamW, clip, step).
+
+    With ``--resume`` the model config comes from the checkpoint's
+    ``args.pickle`` and wins over the flags (JAX's rule), and the state from
+    ``<resume>/latest``; per-epoch device noise comes from (seed, epoch), so
+    ``--start_epoch k`` draws what an uninterrupted run draws in epoch k.
+    With ``--ae_path`` (latent diffusion) the first stage's ``best/`` weights
+    (EMA when training with EMA) replace the model's and the EMA model's
+    ``vae`` before the first step; a resume then overrides them.
 
     With ``sp_group`` this is one rank of a sequence-parallel run: the model's
     EGNNs run over the group (train steps and valid/test NLL), the stability
     samples run on the single-device route on every rank with the same seed
-    (as the JAX CLI samples without SP), and only rank 0 writes checkpoints.
-    The summary then holds, in place of the train state, ``replicas``: per
-    rank its train-state digest, kernel launch counts, stability and sampled
-    sizes."""
+    (as the JAX CLI samples without SP), and only rank 0 writes checkpoints
+    and metrics. Every rank loads the same checkpoints. The summary then
+    holds, in place of the train state, ``replicas``: per rank its
+    train-state digest (and the one it resumed from), kernel launch counts,
+    stability and sampled sizes."""
     import torch
 
     from geoldm_tpu_torch.data.qm9 import QM9Loader
@@ -202,10 +224,25 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
         make_eval_nll,
         make_train_step,
     )
-    from geoldm_tpu_torch.utils.checkpoint import save_checkpoint
+    from geoldm_tpu_torch.utils import checkpoint as ckpt
+    from geoldm_tpu_torch.utils.convert import MODEL_ARGS
+    from geoldm_tpu_torch.utils.logging_utils import MetricLogger
 
     check_ported(args)
     model_cfg = build_model_config(args, dataset_info)
+    if args.resume:
+        resume_dir = ckpt.checkpoint_dir(args.resume, "latest")
+        resumed_cfg = ckpt.load_model_config(resume_dir)
+        if resumed_cfg != model_cfg:
+            print("resume: using the checkpoint's model config (overrides CLI)", flush=True)
+            model_cfg = resumed_cfg
+            # The checkpoints this run writes pickle ``args``: give them the
+            # resumed model's fields, so that they load as the model they hold.
+            args = copy.copy(args)
+            saved = ckpt.load_args(resume_dir)
+            for name in MODEL_ARGS:
+                if hasattr(saved, name):
+                    setattr(args, name, getattr(saved, name))
     device = sp_group.device if sp_group is not None else args.device
     model = factory.build_model(model_cfg, device, torch.Generator().manual_seed(args.seed),
                                 sp_group=sp_group)
@@ -213,6 +250,20 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
     is_main = sp_group is None or sp_group.rank == 0
     state = create_train_state(model, model_cfg, args.lr, clip_grad=args.clip_grad,
                                ema_decay=args.ema_decay)
+    if args.ae_path and model_cfg.kind == "latent_diffusion":
+        vae_sd = ckpt.load_first_stage(args.ae_path, use_ema=args.ema_decay > 0)
+        for m in {id(state.model): state.model, id(state.ema_model): state.ema_model}.values():
+            m.vae.load_state_dict(vae_sd, strict=True)
+        print(f"first stage loaded from {args.ae_path}", flush=True)
+    summary = {"losses": [], "epoch_seconds": [], "nll_val": [], "nll_test": [],
+               "stability": [], "rdkit": [], "sample_sizes": [], "checkpoints": [],
+               "state": state}
+    if args.resume:
+        ckpt.load_train_state(resume_dir, state)
+        summary["resumed"] = _snapshot(state)
+        if sp_group is not None:
+            summary["resumed_digest"] = sp.state_digest(state)
+        print(f"resumed from {args.resume} at step {state.step}", flush=True)
     train_step = make_train_step(model_cfg, args.ema_decay)
     eval_nll = make_eval_nll(model_cfg)
     include_charges = model_cfg.vae.include_charges
@@ -228,54 +279,74 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                              f"--include_charges {include_charges}")
     nodes_dist = DistributionNodes(dataset_info.n_nodes)
     outdir = os.path.join(args.outdir, args.exp_name)
-    summary = {"losses": [], "epoch_seconds": [], "nll_val": [], "nll_test": [],
-               "stability": [], "sample_sizes": [], "checkpoints": [], "state": state}
+    logger = MetricLogger(outdir=outdir if is_main else None,
+                          use_wandb=is_main and not args.no_wandb, exp_name=args.exp_name,
+                          online=args.online)
     best_nll_val = float("inf")
     rng = np.random.default_rng(args.seed)
-    for epoch in range(args.start_epoch, args.n_epochs):
-        losses, seconds = trainer_mod.train_epoch(
-            state, train_step, loaders["train"], nodes_dist,
-            _generator(device, args.seed, 0, epoch), epoch, augment_noise=args.augment_noise,
-            break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps, rng=rng)
-        summary["losses"].append(losses)
-        summary["epoch_seconds"].append(seconds)
-        if epoch % args.test_epochs:
-            continue
-        eval_model = state.ema_model
-        if model_cfg.kind != "vae":
-            with sp.detached(eval_model):  # SP or not, the samples run on one device
-                validity, molecules = trainer_mod.analyze_and_save(
-                    eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
-                    n_samples=args.n_stability_samples, rng=rng)
-            print(f"epoch {epoch} stability: {validity}", flush=True)
-            summary["stability"].append(validity)
-            summary["sample_sizes"].append(molecules["n_atoms"])
-        nll_val = trainer_mod.evaluate_nll(
-            eval_model, eval_nll, loaders["valid"], nodes_dist,
-            _generator(device, args.seed, 1, epoch), partition="valid",
-            augment_noise=args.augment_noise, rng=rng)
-        summary["nll_val"].append(nll_val)
-        if args.save_model and is_main:
-            args.current_epoch = epoch + 1
-            summary["checkpoints"].append(
-                save_checkpoint(os.path.join(outdir, "latest"), state, args, args.ema_decay))
-        if nll_val < best_nll_val and args.save_model:
-            best_nll_val = nll_val
-            if is_main:
+    try:
+        for epoch in range(args.start_epoch, args.n_epochs):
+            losses, seconds = trainer_mod.train_epoch(
+                state, train_step, loaders["train"], nodes_dist,
+                _generator(device, args.seed, 0, epoch), epoch, augment_noise=args.augment_noise,
+                data_augmentation=args.data_augmentation,
+                break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps,
+                rng=rng, logger=logger, prefetch=args.prefetch)
+            summary["losses"].append(losses)
+            summary["epoch_seconds"].append(seconds)
+            logger.log({"train_loss_epoch": float(np.mean(losses))}, step=epoch)
+            if epoch % args.test_epochs:
+                continue
+            eval_model = state.ema_model
+            if model_cfg.kind != "vae":
+                with sp.detached(eval_model):  # SP or not, the samples run on one device
+                    validity, rdkit_tuple, molecules = trainer_mod.analyze_and_save(
+                        eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
+                        n_samples=args.n_stability_samples, rng=rng,
+                        datadir=args.datadir)
+                print(f"epoch {epoch} stability: {validity}", flush=True)
+                if rdkit_tuple is not None:
+                    v, u, n = rdkit_tuple[0]
+                    print(f"epoch {epoch} validity {v:.4f} uniqueness {u:.4f} novelty {n:.4f}",
+                          flush=True)
+                logger.log(validity, step=epoch)
+                summary["stability"].append(validity)
+                summary["rdkit"].append(None if rdkit_tuple is None else rdkit_tuple[0])
+                summary["sample_sizes"].append(molecules["n_atoms"])
+            nll_val = trainer_mod.evaluate_nll(
+                eval_model, eval_nll, loaders["valid"], nodes_dist,
+                _generator(device, args.seed, 1, epoch), partition="valid",
+                augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch)
+            logger.log({"nll_val": nll_val}, step=epoch)
+            summary["nll_val"].append(nll_val)
+            if args.save_model and is_main:
+                args.current_epoch = epoch + 1
                 summary["checkpoints"].append(
-                    save_checkpoint(os.path.join(outdir, "best"), state, args, args.ema_decay))
-            nll_test = trainer_mod.evaluate_nll(
-                eval_model, eval_nll, loaders["test"], nodes_dist,
-                _generator(device, args.seed, 2, epoch), partition="test",
-                augment_noise=args.augment_noise, rng=rng)
-            summary["nll_test"].append(nll_test)
-            print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)
+                    ckpt.save_checkpoint(os.path.join(outdir, "latest"), state, args,
+                                         args.ema_decay))
+            if nll_val < best_nll_val and args.save_model:
+                best_nll_val = nll_val
+                if is_main:
+                    summary["checkpoints"].append(
+                        ckpt.save_checkpoint(os.path.join(outdir, "best"), state, args,
+                                             args.ema_decay))
+                nll_test = trainer_mod.evaluate_nll(
+                    eval_model, eval_nll, loaders["test"], nodes_dist,
+                    _generator(device, args.seed, 2, epoch), partition="test",
+                    augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch)
+                logger.log({"nll_test": nll_test, "best_nll_val": best_nll_val}, step=epoch)
+                summary["nll_test"].append(nll_test)
+                print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)
+    finally:
+        logger.close()
     if sp_group is not None:
         import torch.distributed as dist
 
         replica = {"rank": sp_group.rank, "digest": sp.state_digest(state),
                    "launches": kernel_launches(), "stability": summary["stability"],
                    "sample_sizes": [np.asarray(s).tolist() for s in summary["sample_sizes"]]}
+        if "resumed_digest" in summary:
+            replica["resumed_digest"] = summary["resumed_digest"]
         replicas = [None] * sp_group.size
         dist.all_gather_object(replicas, replica)
         summary["replicas"] = replicas

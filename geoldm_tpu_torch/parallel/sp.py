@@ -416,8 +416,8 @@ def all_reduce_grads(params, grp: SPGroup) -> None:
 
 def state_digest(state) -> str:
     """sha256 of a train state's bytes: the model's and the EMA model's
-    parameters, the optimizer state and the clip's ring buffer. Replicas in
-    step have equal digests."""
+    parameters, the optimizer state, the clip's ring buffer and the step.
+    Replicas in step have equal digests."""
     h = hashlib.sha256()
 
     def add(t):
@@ -431,4 +431,5 @@ def state_digest(state) -> str:
     if state.clip is not None:
         add(state.clip.norms)
         h.update(f"{state.clip.count},{state.clip.head}".encode())
+    h.update(f"step {state.step}".encode())
     return h.hexdigest()

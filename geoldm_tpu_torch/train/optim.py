@@ -7,7 +7,8 @@ The reference trains with ``AdamW(amsgrad=True, weight_decay=1e-12)``
 (``scale_by_amsgrad_torch`` + ``add_decayed_weights`` + ``scale(-lr)``), so
 the port uses ``torch.optim.AdamW`` itself; ``tests/test_torch_port_train.py``
 holds it to the JAX chain. The clip keeps its ring buffer on the device and
-never synchronises with the host.
+never synchronises with the host; checkpoints save it (``state_dict``), so a
+resumed run clips against the same history.
 """
 
 from __future__ import annotations
@@ -43,6 +44,19 @@ class AdaptiveGradClip:
         self.count = min(self.count + 1, self.norms.shape[0])
         self.head += 1
         return grad_norm
+
+    def state_dict(self) -> dict:
+        """The ring buffer and its counters (JAX's ``AdaptiveClipState``)."""
+        return {"norms": self.norms.detach().cpu().clone(), "count": self.count,
+                "head": self.head}
+
+    def load_state_dict(self, state: dict) -> None:
+        norms = torch.as_tensor(state["norms"], dtype=torch.float32)
+        if norms.shape != self.norms.shape:
+            raise ValueError(f"clip ring buffer of {tuple(norms.shape)}, this clip keeps "
+                             f"{tuple(self.norms.shape)}")
+        self.norms.copy_(norms)
+        self.count, self.head = int(state["count"]), int(state["head"])
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

@@ -36,6 +36,7 @@ class TrainState:
     params: List[nn.Parameter]  # the trainable ones
     sp_group: Optional[sp_mod.SPGroup] = None
     sp_params: List[nn.Parameter] = field(default_factory=list)  # summed over the SP ranks
+    step: int = 0  # train steps taken (JAX's TrainState.step)
 
 
 def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
@@ -75,6 +76,7 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float):
         state.optimizer.step()
         if ema_decay > 0:
             optim_mod.ema_update(state.ema_model, state.model, ema_decay)
+        state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return train_step

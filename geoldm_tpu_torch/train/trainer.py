@@ -1,37 +1,46 @@
 """Epoch-level training and evaluation (port of
-``geoldm_tpu/train/trainer.py:34-231, :363-412``).
+``geoldm_tpu/train/trainer.py:34-412``).
 
 - ``train_epoch``: host loader -> batch on the device -> one train step per
-  batch; the loop is serial (the JAX package's prefetch thread waits for a
-  later slice) and synchronises only to print a loss every ``log_every``.
+  batch; the host prep of batch k+1 (augment noise, rotation, log p(N), the
+  copy to the device) runs on the ``prefetch_map`` thread while the device
+  runs step k, and the loop synchronises only to log a loss every
+  ``log_every``.
 - ``evaluate_nll``: eval NLL (t0_always estimator) over a loader.
-- ``analyze_and_save``: bucketed generation, then the stability check.
+- ``evaluate_nll_packed``: the same NLL over a whole split staged on the
+  device in segments, for one or more passes (the paper's 5 test passes).
+- ``analyze_and_save``: bucketed generation, then stability and the
+  validity/uniqueness/novelty triple.
 
 Noise: each epoch's train and eval draws come from a ``torch.Generator`` on
 the device seeded from (seed, purpose, epoch) by the caller, so a seeded run
-replays.
+replays; host draws (augment noise, rotations, sampled sizes) come from the
+caller's numpy generator, in the serial loop's order at any prefetch depth.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from geoldm_tpu_torch.evalsuite.analyze import check_stability
+from geoldm_tpu_torch.evalsuite.analyze import analyze_stability_for_molecules
 from geoldm_tpu_torch.models.distributions import DistributionNodes
 from geoldm_tpu_torch.ops import com
 from geoldm_tpu_torch.train import sampling as sampling_mod
+from geoldm_tpu_torch.train.augment import random_rotation
+from geoldm_tpu_torch.train.prefetch import prefetch_map
 from geoldm_tpu_torch.utils.buckets import covering_buckets
 
 
 def prepare_batch(raw: Dict[str, np.ndarray], nodes_dist: DistributionNodes, device,
-                  augment_noise: float = 0.0,
-                  rng: Optional[np.random.Generator] = None) -> Dict[str, torch.Tensor]:
-    """Host-side batch prep: log p(N) and the optional CoM-free coordinate
-    noise (reference train_test.py:22-44), then the copy to ``device``."""
+                  augment_noise: float = 0.0, rng: Optional[np.random.Generator] = None,
+                  data_augmentation: bool = False) -> Dict[str, torch.Tensor]:
+    """Host-side batch prep: log p(N), the optional CoM-free coordinate
+    noise, then the optional random rotation, masked (reference
+    train_test.py:22-44), then the copy to ``device``."""
     rng = rng or np.random.default_rng()
     x = raw["x"]
     if augment_noise > 0:
@@ -39,6 +48,8 @@ def prepare_batch(raw: Dict[str, np.ndarray], nodes_dist: DistributionNodes, dev
         eps -= eps.sum(axis=1, keepdims=True) / np.maximum(
             raw["node_mask"].sum(axis=1, keepdims=True), 1) * raw["node_mask"]
         x = x + eps * augment_noise
+    if data_augmentation:
+        x = random_rotation(x, rng) * raw["node_mask"]
     batch = {
         "x": x.astype(np.float32),
         "h_cat": raw["h_cat"],
@@ -50,20 +61,32 @@ def prepare_batch(raw: Dict[str, np.ndarray], nodes_dist: DistributionNodes, dev
 
 
 def train_epoch(state, train_step, loader, nodes_dist: DistributionNodes, noise: com.Noise,
-                epoch: int, *, augment_noise: float = 0.0, break_train_epoch: bool = False,
-                log_every: int = 50, rng: Optional[np.random.Generator] = None):
-    """One pass over the loader -> (per-step losses as floats, seconds)."""
+                epoch: int, *, augment_noise: float = 0.0, data_augmentation: bool = False,
+                break_train_epoch: bool = False, log_every: int = 50,
+                rng: Optional[np.random.Generator] = None, logger=None, prefetch: int = 2):
+    """One pass over the loader -> (per-step losses as floats, seconds).
+    ``logger`` (a ``utils.logging_utils.MetricLogger``) gets the batch loss
+    and gradient norm every ``log_every`` steps."""
     rng = rng or np.random.default_rng(epoch)
     device = next(state.model.parameters()).device
     losses = []
     t0 = time.time()
-    for i, raw in enumerate(loader):
-        batch = prepare_batch(raw, nodes_dist, device, augment_noise, rng)
+
+    def prep(raw):
+        return prepare_batch(raw, nodes_dist, device, augment_noise, rng, data_augmentation)
+
+    # break_train_epoch runs serially: a lookahead would advance the shared
+    # rng past where the serial loop stops, changing later draws.
+    depth = 0 if break_train_epoch else prefetch
+    for i, batch in enumerate(prefetch_map(prep, loader, depth=depth)):
         metrics = train_step(state, batch, noise)
         losses.append(metrics["loss"])
         if i % log_every == 0:
-            print(f"Epoch {epoch}, iter {i}/{len(loader)}: loss {float(metrics['loss']):.3f}, "
-                  f"grad norm {float(metrics['grad_norm']):.2f}", flush=True)
+            loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            print(f"Epoch {epoch}, iter {i}/{len(loader)}: loss {loss:.3f}, "
+                  f"grad norm {grad_norm:.2f}", flush=True)
+            if logger is not None:
+                logger.log({"batch_loss": loss, "grad_norm": grad_norm})
         if break_train_epoch:
             break
     if not losses:
@@ -78,15 +101,18 @@ def train_epoch(state, train_step, loader, nodes_dist: DistributionNodes, noise:
 
 def evaluate_nll(model, eval_nll_fn, loader, nodes_dist: DistributionNodes, noise: com.Noise,
                  *, partition: str = "valid", augment_noise: float = 0.0,
-                 rng: Optional[np.random.Generator] = None) -> float:
+                 rng: Optional[np.random.Generator] = None, prefetch: int = 2) -> float:
     """Mean NLL over a split with the t0_always estimator; like the
     reference, ``augment_noise`` applies here too (train_test.py:119-124).
     The weighted sum stays on the device and is fetched once."""
     rng = rng or np.random.default_rng(0)
     device = next(model.parameters()).device
     total, count = torch.zeros((), dtype=torch.float32, device=device), 0
-    for raw in loader:
-        batch = prepare_batch(raw, nodes_dist, device, augment_noise, rng)
+
+    def prep(raw):
+        return prepare_batch(raw, nodes_dist, device, augment_noise, rng)
+
+    for batch in prefetch_map(prep, loader, depth=prefetch):
         b = batch["x"].shape[0]
         total = total + eval_nll_fn(model, batch, noise) * b
         count += b
@@ -95,12 +121,88 @@ def evaluate_nll(model, eval_nll_fn, loader, nodes_dist: DistributionNodes, nois
     return mean
 
 
+@torch.no_grad()
+def evaluate_nll_packed(model, model_cfg, split: Dict[str, np.ndarray],
+                        nodes_dist: DistributionNodes, noises: Sequence[com.Noise], *,
+                        batch_size: int = 64, pad_nodes: int = 0, partition: str = "test",
+                        augment_noise: float = 0.0, stage_bytes: int = 2 << 30):
+    """Per-pass mean NLLs (t0_always) over a whole split, one pass per noise
+    source in ``noises`` (``geoldm_tpu/train/trainer.py:234-360``).
+
+    The split is packed on the host into [steps, batch_size, ...] arrays
+    (``data.collate.prepare_split_arrays``, padded to ``pad_nodes``) and
+    copied to the device in segments of at most ``stage_bytes``; each
+    segment is copied once and serves every pass (segments outer, passes
+    inner), and each pass keeps its weighted sum on the device and fetches
+    it once per segment. The molecule count is padded to a batch multiple by
+    repeating the leading molecules with weight 0 (an all-zero mask would
+    send NaN through the latent model's per-graph reductions). Each batch
+    draws from its pass's noise source: with ``augment_noise`` > 0 first the
+    CoM-free coordinate noise (reference eval-time augment,
+    train_test.py:119-124), then the NLL's own draws. An empty split gives
+    ``[0.0] * len(noises)``."""
+    from geoldm_tpu_torch.data.collate import prepare_split_arrays
+    from geoldm_tpu_torch.models import factory
+
+    m = len(split["num_atoms"])
+    if m == 0:
+        return [0.0] * len(noises)
+    device = next(model.parameters()).device
+    n = pad_nodes or split["positions"].shape[1]
+    n_atoms = np.asarray(split["num_atoms"])
+    arrs = prepare_split_arrays(n_atoms, split["positions"], split["one_hot"], split["charges"],
+                                n, model_cfg.vae.include_charges)
+    log_pN = nodes_dist.log_prob(n_atoms).astype(np.float32)
+    steps = -(-m // batch_size)
+    mp = steps * batch_size
+    weight = np.concatenate([np.ones(m, np.float32), np.zeros(mp - m, np.float32)])
+
+    def pack(a):
+        if len(a) < mp:
+            a = np.resize(a, (mp,) + a.shape[1:])  # cycles whole rows, even past m
+        return a.reshape((steps, batch_size) + a.shape[1:])
+
+    data = [pack(a.astype(np.float32)) for a in (arrs["x"], arrs["h_cat"], arrs["h_int"],
+                                                 arrs["node_mask"], log_pN, weight)]
+    bytes_per_step = sum(a.itemsize * int(np.prod(a.shape[1:])) for a in data)
+    seg_steps = max(1, int(stage_bytes // max(bytes_per_step, 1)))
+    n_segs = -(-steps // seg_steps)
+    if n_segs > 1:
+        print(f"{partition}: staging {steps} batches in {n_segs} segments of <= {seg_steps} "
+              f"({bytes_per_step * seg_steps / 2**30:.2f} GiB on the device at a time)",
+              flush=True)
+    nll_fn = factory.model_nll_fn(model_cfg, training=False)
+    totals = [0.0] * len(noises)
+    for s0 in range(0, steps, seg_steps):
+        seg = [torch.from_numpy(np.ascontiguousarray(a[s0:s0 + seg_steps])).to(device)
+               for a in data]
+        for i, noise in enumerate(noises):
+            total = torch.zeros((), dtype=torch.float32, device=device)
+            for x, h_cat, h_int, node_mask, lpn, w in zip(*seg):
+                if augment_noise > 0:
+                    eps = com.randn(noise, x.shape, x) * node_mask
+                    x = x + com.remove_mean_with_mask(eps, node_mask) * augment_noise
+                nll = nll_fn(model, noise, x, h_cat, h_int, node_mask) - lpn
+                total = total + (nll * w).sum()
+            totals[i] += float(total)
+    means = [t / m for t in totals]
+    for i, val in enumerate(means):
+        print(f"{partition}[{i}] NLL: {val:.4f}", flush=True)
+    return means
+
+
 def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNodes, *,
                      n_samples: int = 500, batch_size: int = 100,
-                     rng: Optional[np.random.Generator] = None):
+                     rng: Optional[np.random.Generator] = None, datadir: str = "data",
+                     external_smiles=None):
     """Generate ``n_samples`` molecules (sizes from the dataset histogram,
-    size-bucketed) and score their stability -> (validity dict, molecules)
-    (reference train_test.py:176-197). RDKit metrics are not ported."""
+    size-bucketed) and score them -> (stability dict, validity triple, molecules)
+    (reference train_test.py:176-197, eval_analyze.py:35-67). The triple is
+    ([validity, uniqueness, novelty], unique SMILES) from the best backend
+    available (``evalsuite.analyze.analyze_stability_for_molecules``);
+    ``external_smiles`` replaces the training set of ``datadir`` as the
+    novelty base. ``molecules["report"]`` names the stability path that ran
+    and holds the host seconds of each part."""
     rng = rng or np.random.default_rng(0)
     nodesxsample = nodes_dist.sample(n_samples, rng)
     buckets = covering_buckets(sampling_mod.default_buckets(dataset_info),
@@ -109,18 +211,14 @@ def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNod
     one_hot, _, x, node_mask = sampling_mod.sample_bucketed(
         model, seed, dataset_info, nodesxsample, batch_size=min(batch_size, n_samples),
         buckets=buckets)
-    t_gen = time.time() - t0
-    mol_stable = atm_stable = n_atoms = 0
-    for i in range(len(x)):
-        n_i = int(node_mask[i, :, 0].sum())
-        stable, n_stable, n_all = check_stability(x[i, :n_i], np.argmax(one_hot[i, :n_i], axis=1),
-                                                  dataset_info)
-        mol_stable += int(stable)
-        atm_stable += n_stable
-        n_atoms += n_all
-    validity = {"mol_stable": mol_stable / max(len(x), 1),
-                "atm_stable": atm_stable / max(n_atoms, 1)}
-    print(f"  [analyze_and_save] generation {t_gen:.1f}s for {n_samples} molecules", flush=True)
+    report = {"generation_seconds": time.time() - t0}
     molecules = {"one_hot": one_hot, "x": x, "node_mask": node_mask[..., 0],
-                 "n_atoms": nodesxsample}
-    return validity, molecules
+                 "n_atoms": nodesxsample, "report": report}
+    t0 = time.time()
+    validity, rdkit_tuple = analyze_stability_for_molecules(
+        molecules, dataset_info, datadir=datadir, external_smiles=external_smiles,
+        report=report)
+    print(f"  [analyze_and_save] generation {report['generation_seconds']:.1f}s, analysis "
+          f"{time.time() - t0:.1f}s for {n_samples} molecules (stability on the "
+          f"{report['stability_path']} path)", flush=True)
+    return validity, rdkit_tuple, molecules

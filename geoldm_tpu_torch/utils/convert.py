@@ -78,6 +78,15 @@ def state_dict_from_jax_params(params_np: Dict[str, Any], model_cfg: ModelConfig
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+# The fields of an upstream ``args`` namespace that define the model (what
+# ``model_config_from_reference_args`` reads).
+MODEL_ARGS = ("include_charges", "context_node_nf", "nf", "n_layers", "latent_nf", "kl_weight",
+              "attention", "tanh", "norm_constant", "inv_sublayers", "sin_embedding",
+              "normalization_factor", "aggregation_method", "train_diffusion", "condition_time",
+              "trainable_ae", "diffusion_steps", "diffusion_noise_schedule",
+              "diffusion_noise_precision", "diffusion_loss_type", "normalize_factors", "model")
+
+
 def model_config_from_reference_args(args: Any, dataset_info) -> ModelConfig:
     """Pickled upstream argparse namespace -> ModelConfig, with the
     back-compat defaults of qm9/models.py:112-116."""

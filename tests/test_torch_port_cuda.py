@@ -716,3 +716,90 @@ def test_sp_egnn_on_one_card_matches_one_rank(card, n, sizes):
         ref = torch.from_numpy(g)
         err = float((torch.from_numpy(got["grads"][name]) - ref).abs().max())
         assert err <= BWD_RTOL * max(1e-6, float(ref.abs().max())), (name, err)
+
+
+# ---------------------------------------------------------------------------
+# Evaluation and resume on the card
+# ---------------------------------------------------------------------------
+
+
+class _Replay:
+    """A noise source replaying one numpy stream, so the card and the CPU
+    draw the same numbers in the same order."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, shape):
+        return self.rng.standard_normal(shape).astype(np.float32)
+
+    def randint(self, low, high, shape):
+        return self.rng.integers(low, high, shape)
+
+
+def _qm9_tiny(seed=1):
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+
+    info = get_dataset_info("qm9")
+    cfg = factory.make_latent_diffusion_config(info, nf=32, n_layers=2, latent_nf=2,
+                                               diffusion_steps=20, trainable_ae=True)
+    return info, cfg, factory.build_model(cfg, "cpu", torch.Generator().manual_seed(seed))
+
+
+def test_packed_nll_on_the_card_matches_the_cpu(card, tmp_path):
+    """Two passes (augment noise on) over a 7-molecule split in batches of
+    3 through kernel #1 against the same passes on the CPU with the same
+    draws: per-pass means within the denoiser gate 2e-4 * max(1, |ref|)."""
+    import copy
+
+    from geoldm_tpu_torch.data.qm9 import load_qm9
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.trainer import evaluate_nll_packed
+
+    info, cfg, model = _qm9_tiny()
+    write_qm9_splits(str(tmp_path), info, {"train": 4, "valid": 7, "test": 4}, seed=5)
+    split = load_qm9(str(tmp_path))[0]["valid"]
+    means = {}
+    for dev in ("cpu", card):
+        launches = egnn_block.launches
+        means[str(dev)] = evaluate_nll_packed(
+            copy.deepcopy(model).to(dev), cfg, split, DistributionNodes(info.n_nodes),
+            [_Replay(10), _Replay(11)], batch_size=3, pad_nodes=info.max_n_nodes,
+            augment_noise=0.2)
+        if dev is card:
+            # 3 batches x 2 passes x (encoder 1 + decoder 2 + 2 denoiser passes x 2) blocks.
+            assert egnn_block.launches - launches == 3 * 2 * 7
+    for want, got in zip(means["cpu"], means["cuda"]):
+        assert abs(got - want) <= 2e-4 * max(1.0, abs(want)), (got, want)
+
+
+def test_resume_on_the_card_reproduces_the_saved_state(card, tmp_path):
+    """Two train steps on the card, a checkpoint, then a state built from
+    other weights loads it: the same digest (model, EMA, AdamW, clip, step);
+    one more step on the same batch and noise keeps both bit-identical."""
+    from geoldm_tpu_torch.cli.main_qm9 import parse_args
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+    from geoldm_tpu_torch.utils import checkpoint as ckpt
+
+    info, cfg, _ = _qm9_tiny()
+    nodes = DistributionNodes(info.n_nodes)
+    batches = [prepare_batch(synthetic_batch(info, 4, 29, np.random.default_rng(s)), nodes, card)
+               for s in range(3)]
+    states = [create_train_state(factory.build_model(cfg, card, torch.Generator().manual_seed(s)),
+                                 cfg, 1e-3, ema_decay=0.99) for s in (1, 2)]
+    step = make_train_step(cfg, 0.99)
+    for batch in batches[:2]:
+        step(states[0], batch, torch.Generator(device=card).manual_seed(3))
+    ckpt.save_checkpoint(str(tmp_path), states[0],
+                         parse_args(["--train_diffusion", "--trainable_ae"]), 0.99)
+    ckpt.load_train_state(str(tmp_path), states[1])
+    assert sp.state_digest(states[1]) == sp.state_digest(states[0])
+    for s in states:
+        step(s, batches[2], torch.Generator(device=card).manual_seed(4))
+    assert states[1].step == 3 and sp.state_digest(states[1]) == sp.state_digest(states[0])

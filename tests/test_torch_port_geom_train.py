@@ -256,5 +256,6 @@ def test_main_geom_drugs_defaults_are_the_geom_recipe(tmp_path):
     with pytest.raises(FileNotFoundError, match="geom_drugs_30.npy"):
         main_geom_drugs.main(["--datadir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit) as e:
-        main_geom_drugs.main(["--datadir", str(tmp_path), "--resume", "x", "--device", "cpu"])
+        main_geom_drugs.main(["--datadir", str(tmp_path), "--visualize", "True",
+                              "--device", "cpu"])
     assert "not ported yet" in str(e.value.code)

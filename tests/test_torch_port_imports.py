@@ -47,7 +47,9 @@ def test_every_module_is_a_port_module():
     for name in ("ops.egnn_block", "ops.egnn_tiled", "ops.egnn_sp", "ops.cuda_build",
                  "parallel.sp", "cli.serve", "cli.main_qm9", "cli.main_geom_drugs",
                  "train.train_step", "train.trainer", "data.qm9", "data.geom",
-                 "utils.checkpoint"):
+                 "utils.checkpoint", "train.augment", "train.prefetch",
+                 "utils.logging_utils", "evalsuite.smiles", "evalsuite.rdkit_metrics",
+                 "evalsuite.native", "evalsuite.analyze", "cli.eval_analyze", "cli.check_data"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 
