@@ -113,7 +113,23 @@ Phases (each prints a line; any failure exits non-zero before the result):
  20. cli.eval_analyze --dataset geom on phase 13's checkpoint with a
      conformer file whose valid and test molecules reach 181 atoms: the
      packed NLL at pad 184 (exact #3/#4 launches), 2 generated molecules (at
-     most two buckets).
+     most two buckets);
+ 21. the bf16 variants of #1 (QM9's pads 16/24/32 at B=64, GEOM's 48/64 at
+     B=32) and of #3/#4 (N=96/136/184, B=16) against their plain bf16
+     versions on the card at H=256, within 5e-3 * max(1, max|ref|) and on
+     the mean at least 10x closer to them than to the plain f32 versions,
+     with times,
+     bounds (every product on bf16 operands at the dense bf16 rate) and the
+     f32 kernel's time at the same shape;
+ 22. cli.serve at the QM9 recipe with its default compute dtype
+     (bfloat16_mixed): a DDIM request (50 steps, eta 0), a DPM-Solver++(2M)
+     request (20 steps), a clip_z request and a dense request, each with
+     its mol/s and its launches of the bf16 and the f32 kernel, which must
+     equal K - round(0.1 K) steps (plus the decoder) in bf16 and the rest
+     plus the final step in f32, block for block; the GEOM recipe served at
+     pad 96 in bf16 (#3/#4's variants); cli.eval_analyze --n_steps 50 on
+     phase 18's checkpoint (exact launches). Phases 4 and 10 serve in
+     float32: the dense f32 path.
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -292,9 +308,10 @@ def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
 _TILE_KERNELS = ("edge_tile_bwd_kernel", "edge_tile_kernel", "node_gemm_tc_kernel",
                  "wgrad_tc_kernel", "column_sum_kernel", "rows_tile_kernel",
                  "rows_bwd_tile_kernel")
-# Library -> the instantiations (HP x COORD) of the forward and the backward
-# row grid it must hold.
-_ROW_GRIDS = {"egnn_tiled": (8, 0), "egnn_tiled_bwd": (4, 8), "egnn_sp": (8, 8)}
+# Library -> the instantiations (HP x COORD, and x BF16 for the forward grid
+# of #3/#4, whose library also builds the bf16 variants) of the forward and
+# the backward row grid it must hold.
+_ROW_GRIDS = {"egnn_tiled": (16, 0), "egnn_tiled_bwd": (4, 8), "egnn_sp": (8, 8)}
 
 
 def _ptxas_kernels(log):
@@ -308,9 +325,9 @@ def _ptxas_kernels(log):
         if m:
             mangled = m.group(1)
             name = next((k for k in _TILE_KERNELS if k in mangled), None)
-            t = re.search(r"ILi(\d+)ELb([01])E", mangled)
+            t = re.search(r"ILi(\d+)ELb([01])E(?:Lb([01])E)?", mangled)
             if name and t:
-                name += f"<HP={t.group(1)}, COORD={t.group(2)}>"
+                name += f"<HP={t.group(1)}, COORD={t.group(2)}, BF16={t.group(3) or 0}>"
             out.append({"name": name})
             continue
         if not out:
@@ -777,8 +794,9 @@ def phase_serve(card_name, tmpdir):
           f"(seed 0) written in upstream layout in {time.time() - t0:.1f} s", flush=True)
 
     batch_max = 64
-    server, service = serve.main(["--model_path", tmpdir, "--port", "0",
-                                  "--batch_max", str(batch_max)], serve_forever=False)
+    # The dense f32 path (the server's default is bfloat16_mixed: phase 22).
+    server, service = serve.main(["--model_path", tmpdir, "--port", "0", "--compute_dtype",
+                                  "float32", "--batch_max", str(batch_max)], serve_forever=False)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -827,7 +845,7 @@ def phase_serve(card_name, tmpdir):
         print(f"phase 4: seeded replay identical; kernel launches {launches} = "
               f"(({T}+1)*{layers} + {dec_layers}) * {chunks} chunks", flush=True)
 
-        for bad in ({"sizes": [0]}, {"sizes": [12], "n_steps": 50}):
+        for bad in ({"sizes": [0]}, {"sizes": [12], "n_steps": 5000}):
             code, body = _request(base, "/sample", bad)
             _check(code == 400, f"invalid request {bad} -> {code}, expected 400")
             print(f"phase 4: invalid request {bad} -> 400 ({body['error']})", flush=True)
@@ -979,7 +997,8 @@ def phase_geom_serve(card_name, tmpdir):
 
     batch_max = 16
     server, service = serve.main(["--model_path", tmpdir, "--dataset", "geom", "--port", "0",
-                                  "--batch_max", str(batch_max)], serve_forever=False)
+                                  "--compute_dtype", "float32", "--batch_max", str(batch_max)],
+                                 serve_forever=False)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1219,13 +1238,13 @@ def phase_geom_train(card_name, tmpdir):
     small = {k: sum(1 for p in v if p <= MAX_NODES) for k, v in pads.items()}
     large = {k: len(v) - small[k] for k, v in pads.items()}
     expected = {
+        **_no_launches(),
         "egnn_block": sum(per[k] * small[k] for k in per),
         "egnn_block_bwd": 2 * L * small["train"],
         "gcl_rows": inv * (sum(per[k] * large[k] for k in per) + 2 * L * large["train"]),
         "coord_rows": sum(per[k] * large[k] for k in per),
         "gcl_rows_bwd": 2 * L * inv * large["train"],
         "coord_rows_bwd": 2 * L * large["train"],
-        **dict.fromkeys(_SP_COUNTERS, 0),
     }
     _check(launches == expected,
            f"launches {launches} != {expected} (pads {pads}; per train step / eval batch / "
@@ -1955,6 +1974,235 @@ def phase_geom_eval(card_name, geom_dir):
             "generation_seconds": summary["generation_seconds"], "main_seconds": wall}
 
 
+# bf16 variants (#1, #3, #4 with bf16 operands and f32 accumulation) vs their
+# plain versions (operands rounded to bf16, f32 products): an operand at a
+# rounding tie flips by one bf16 ulp (2^-8) under another summation order, so
+# the gate is wider than the f32 kernels' 1e-4. The gate is loose against
+# the rounding itself, so each case must also tell the precisions apart: the
+# kernel's mean distance to the plain f32 version at least _BF16_SEPARATION
+# times its mean error against the plain bf16 one (the mean, since the
+# largest error is that of one such flip).
+_BF16_RTOL = 5e-3
+_BF16_SEPARATION = 10.0
+# Dense bf16 on the H100's tensor cores (data sheet).
+_BF16_PEAK = 989.0e12
+
+
+def _bf16_bounds(flops, nbytes):
+    """(bound ms, what bounds it) of a bf16 variant. Every FLOP that
+    ``_block_work`` and ``_stage_work`` count is a matrix product, and under
+    a bf16 compute dtype each takes bf16 operands (JAX's ``_matmul``): the
+    first layer's edge-feature term, W2, the gate or coordinate scale and
+    the node-side products. So all of them go at the dense bf16 rate,
+    against the bytes at the memory rate. The elementwise work (silu,
+    sigmoid, tanh, the sums) is in no bound of this script, f32 or bf16."""
+    t_ops = flops / _BF16_PEAK * 1e3
+    t_bytes = nbytes / _BW_PEAK * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_bf16_kernels(card):
+    """Phase 21: the bf16 variants of #1 (QM9 pads 16/24/32 at B=64, GEOM
+    48/64 at B=32) and #3/#4 (N=96/136/184, B=16) against their plain bf16
+    versions on the card, with card ms, bound, plain ms and the f32
+    kernel's ms at the same shape."""
+    import torch
+
+    from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+
+    bf16 = torch.bfloat16
+    dev = torch.device("cuda")
+    H, rows = 256, []
+
+    def record(kernel, case, n, B, got, want, want_f32, ms, plain_ms, f32_ms, work):
+        _check(all(bool(torch.isfinite(g).all()) for g in got), f"{kernel} bf16 N={n} not finite")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        to_f32 = max(float((g - w).abs().max()) for g, w in zip(got, want_f32))
+        mean_err = sum(float((g - w).abs().double().mean()) for g, w in zip(got, want))
+        mean_f32 = sum(float((g - w).abs().double().mean()) for g, w in zip(got, want_f32))
+        scale = max([1.0] + [float(w.abs().max()) for w in want])
+        _check(err <= _BF16_RTOL * scale, f"{kernel} bf16 disagrees with plain at N={n}: "
+                                          f"max|d|={err:.3e} > {_BF16_RTOL}*{scale:.3g}")
+        _check(_BF16_SEPARATION * mean_err <= mean_f32,
+               f"{kernel} bf16 N={n}: its mean distance to the plain f32 version {mean_f32:.3e} "
+               f"is not {_BF16_SEPARATION:g}x its mean error {mean_err:.3e} against the plain "
+               "bf16 one")
+        bound, bound_by = _bf16_bounds(*work)
+        rows.append({"kernel": kernel, "case": case, "N": n, "B": B, "H": H, "max_abs_err": err,
+                     "max_to_f32_plain": to_f32, "mean_abs_err": mean_err,
+                     "mean_to_f32_plain": mean_f32, "tol": _BF16_RTOL * scale, "ms": ms,
+                     "plain_ms": plain_ms, "f32_ms": f32_ms, "bound_ms": bound,
+                     "bound_by": bound_by})
+        print(f"phase 21: {kernel} bf16 N={n} B={B} H={H} to plain bf16 max|d| {err:.3e} (tol "
+              f"{_BF16_RTOL * scale:.2e}), mean {mean_err:.3e}; to plain f32 max {to_f32:.3e}, "
+              f"mean {mean_f32:.3e}; kernel {ms:.4f} ms, f32 kernel {f32_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; every product at 989 "
+              f"TFLOP/s) on {card}", flush=True)
+
+    for n, B, spread in ((16, 64, 8), (24, 64, 8), (32, 64, 8), (48, 32, 16), (64, 32, 16)):
+        block = _geom_block({}, 600 + n)
+        n_weights = sum(p.numel() for p in block.parameters())
+        inputs = [_ragged_inputs(6000 * n + rep, B, n, H, dev, spread) for rep in range(4)]
+        with torch.no_grad():
+            got = egnn_block.block_forward_cuda(block, *inputs[0], compute_dtype=bf16)
+            want = egnn_block.block_forward_plain(block, *inputs[0], compute_dtype=bf16)
+            want_f32 = egnn_block.block_forward_plain(block, *inputs[0])
+            torch.cuda.synchronize()
+            ms = _time_ms(lambda *a: egnn_block.block_forward_cuda(block, *a, compute_dtype=bf16),
+                          inputs)
+            plain_ms = _time_ms(lambda *a: egnn_block.block_forward_plain(
+                block, *a, compute_dtype=bf16), inputs)
+            f32_ms = _time_ms(lambda *a: egnn_block.block_forward_cuda(block, *a), inputs)
+        n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        record("egnn_block", "sum", n, B, got, want, want_f32, ms, plain_ms, f32_ms,
+               _block_work(block.cfg, n_real, n, n_weights)[:2])
+
+    B = 16
+    for n in (96, 136, 184):
+        block = _geom_block({}, 700 + n)
+        inputs = [_ragged_inputs(7000 * n + rep, B, n, H, dev, 16) for rep in range(4)]
+        n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        with torch.no_grad():
+            stage_inputs = [(egnn_tiled.gcl_rows_plain(block.gcl_0, *a, compute_dtype=bf16),
+                             *a[1:]) for a in inputs]
+        for stage, mod, cuda_fn, plain_fn, ins in (
+                ("gcl_rows", block.gcl_0, egnn_tiled.gcl_rows_cuda, egnn_tiled.gcl_rows_plain,
+                 inputs),
+                ("coord_rows", block.gcl_equiv, egnn_tiled.coord_rows_cuda,
+                 egnn_tiled.coord_rows_plain, stage_inputs)):
+            with torch.no_grad():
+                got = cuda_fn(mod, *ins[0], compute_dtype=bf16)
+                want = plain_fn(mod, *ins[0], compute_dtype=bf16)
+                want_f32 = plain_fn(mod, *ins[0])
+                torch.cuda.synchronize()
+                ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a, compute_dtype=bf16), ins)
+                plain_ms = _time_ms(lambda *a, m=mod, f=plain_fn: f(m, *a, compute_dtype=bf16),
+                                    ins)
+                f32_ms = _time_ms(lambda *a, m=mod, f=cuda_fn: f(m, *a), ins)
+            n_weights = sum(p.numel() for p in mod.parameters())
+            record(stage, "sum", n, B, [got], [want], [want_f32], ms, plain_ms, f32_ms,
+                   _stage_work(block.cfg, n_real, n, n_weights, stage == "coord_rows")[:2])
+    return rows
+
+
+def phase_bf16_serve(card, qm9_dir):
+    """Phase 22: cli.serve at the QM9 recipe with its default compute dtype,
+    bfloat16_mixed: DDIM (50 steps, eta 0), DPM-Solver++(2M) (20 steps),
+    a clip_z request and a dense request, with per-request mol/s and the
+    launches of the bf16 and the f32 kernel counted exactly (the last
+    round(0.1 K) steps and the final step in f32, the decoder in bf16); GEOM
+    serving at pad 96 in bf16; cli.eval_analyze --n_steps 50 on phase 18's
+    QM9 checkpoint (f32)."""
+    import torch
+
+    from geoldm_tpu_torch.cli import eval_analyze, serve
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.diffusion.vdm import mixed_tail_steps
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, chunk_pads, n_chunks
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+    from geoldm_tpu_torch.utils.convert import save_reference_checkpoint
+
+    out = {}
+    launches_all = _no_launches()
+    T, batch_max = 1000, 64
+    for dataset, kw in (("qm9", dict(nf=256, n_layers=9, latent_nf=1)),
+                        ("geom", dict(nf=256, n_layers=4, latent_nf=2, include_charges=False,
+                                      normalization_factor=1.0))):
+        info = get_dataset_info(dataset)
+        cfg = factory.make_latent_diffusion_config(info, diffusion_steps=T, **kw)
+        L, dec, inv = cfg.dynamics.egnn.n_layers, cfg.vae.decoder_egnn.n_layers, \
+            cfg.dynamics.egnn.inv_sublayers
+        tmp = tempfile.TemporaryDirectory()
+        model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
+        save_reference_checkpoint(model, tmp.name, dataset=dataset)
+        del model
+        server, service = serve.main(["--model_path", tmp.name, "--dataset", dataset, "--port",
+                                      "0", "--batch_max", str(batch_max)], serve_forever=False)
+        _check(service.args.compute_dtype == "bfloat16_mixed",
+               f"the server's default compute dtype is {service.args.compute_dtype}")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        if dataset == "qm9":
+            few = [19, 23, 27, 29, 14, 17]  # pads 16, 24, 32: three chunks
+            requests = [("ddim50", {"n_steps": 50, "eta": 0.0}, 50, few),
+                        ("dpm2m20", {"n_steps": 20, "sampler": "dpm2m"}, 20, few),
+                        ("clip_z", {"n_steps": 50, "clip_z": 2.0}, 50, few),
+                        ("dense", {}, T, [19, 23, 21, 24])]  # one chunk of 1001 steps
+        else:
+            requests = [("ddim20_pad96", {"n_steps": 20, "eta": 0.0}, 20, [90, 75])]
+        try:
+            for name, settings, K, sizes in requests:
+                body = {"sizes": sizes, "seed": 21, **settings}
+                _zero_launch_counts()
+                t0 = time.time()
+                code, resp = _request(base, "/sample", body)
+                dt = time.time() - t0
+                launches = _launch_counts()
+                _check(code == 200, f"phase 22 {dataset} {name} -> {code} {resp}")
+                _check_molecules(resp, sizes, info["atom_decoder"])
+                ran = resp["sampler"]
+                _check(ran["compute_dtype"] == "bfloat16_mixed" and
+                       ran["n_steps"] == settings.get("n_steps") and
+                       ran["method"] == settings.get("sampler", "ddim") and
+                       ran["clip_z"] == settings.get("clip_z", 0.0),
+                       f"{name}: the server reports {ran}")
+                tail = mixed_tail_steps("bfloat16_mixed", K)
+                pads = chunk_pads(sizes, batch_max, service.buckets)
+                small = sum(1 for p in pads if p <= 64)
+                large = len(pads) - small
+                head = (K - tail) * L + dec   # bf16: the head's steps and the decoder
+                f32 = (tail + 1) * L          # f32: the tail and the final step
+                expected = {**_no_launches(),
+                            "egnn_block_bf16": head * small, "egnn_block": f32 * small,
+                            "gcl_rows_bf16": head * inv * large, "coord_rows_bf16": head * large,
+                            "gcl_rows": f32 * inv * large, "coord_rows": f32 * large}
+                _check(launches == expected,
+                       f"{dataset} {name}: launches {launches} != {expected} (K={K}, tail "
+                       f"{tail}, chunk pads {pads})")
+                for k, v in launches.items():
+                    launches_all[k] += v
+                row = {"request": name, "dataset": dataset, "K": K, "tail": tail,
+                       "chunk_pads": pads, "molecules": len(sizes), "seconds": dt,
+                       "mol_per_s": len(sizes) / dt, "stable": sum(resp["stable"]),
+                       "launches": {k: v for k, v in launches.items() if v}}
+                out[f"{dataset}_{name}"] = row
+                print(f"phase 22: {dataset} /sample {name} ({json.dumps(ran)}): {len(sizes)} "
+                      f"molecules in {dt:.2f} s ({row['mol_per_s']:.3f} mol/s, {row['stable']} "
+                      f"stable); launches {json.dumps(row['launches'])} = per chunk bf16 "
+                      f"({K}-{tail})*{L}+{dec}, f32 ({tail}+1)*{L}, chunk pads {pads} on {card}",
+                      flush=True)
+        finally:
+            server.shutdown()
+            server.server_close()
+            tmp.cleanup()
+
+    info = get_dataset_info("qm9")
+    n_samples, K, L = 36, 50, 9
+    argv = ["--model_path", os.path.join(qm9_dir, "out", "resumed"), "--datadir", qm9_dir,
+            "--n_samples", str(n_samples), "--n_steps", str(K), "--skip_nll"]
+    print(f"phase 22: python -m geoldm_tpu_torch.cli.eval_analyze {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    summary = eval_analyze.main(argv)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    chunks = n_chunks(summary["molecules"]["n_atoms"], min(100, n_samples),
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, 29))
+    expected = {**_no_launches(), "egnn_block": ((K + 1) * L + L) * chunks}
+    _check(launches == expected, f"eval_analyze --n_steps {K}: launches {launches} != {expected}")
+    for k, v in launches.items():
+        launches_all[k] += v
+    _check(all(0.0 <= v <= 1.0 for v in summary["rdkit"]), f"triple {summary['rdkit']}")
+    gen = summary["report"]["generation_seconds"]
+    out["eval_analyze_n_steps_50"] = {"molecules": n_samples, "chunks": chunks,
+                                      "generation_seconds": gen, "mol_per_s": n_samples / gen,
+                                      "stability": summary["stability"]}
+    print(f"phase 22: eval_analyze --n_steps {K}: {n_samples} molecules in {gen:.2f} s "
+          f"({n_samples / gen:.2f} mol/s), stability {summary['stability']}; launches "
+          f"{launches['egnn_block']} = (({K}+1)*{L}+{L})*{chunks} chunks on {card}", flush=True)
+    return out, launches_all
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2049,6 +2297,10 @@ def main(argv=None) -> int:
     lap("19")
     geom_eval = phase_geom_eval(card, geom_run.name)
     lap("20")
+    bf16_rows = phase_bf16_kernels(card)
+    lap("21")
+    bf16_serving, bf16_launches = phase_bf16_serve(card, qm9_run.name)
+    lap("22")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -2061,7 +2313,8 @@ def main(argv=None) -> int:
         "geom_denoiser_max_abs_err": geom_err, "tiled_backward": tiled_bwd_rows,
         "geom_training": geom_train, "geom_grad": geom_grad, "sp_kernels": sp_rows,
         "sp_training": sp_train, "sp_grad": sp_grad, "resume": resume,
-        "evaluation": evaluation, "geom_evaluation": geom_eval, "phase_seconds": phase_seconds,
+        "evaluation": evaluation, "geom_evaluation": geom_eval, "bf16_kernels": bf16_rows,
+        "bf16_serving": bf16_serving, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
@@ -2072,7 +2325,7 @@ def main(argv=None) -> int:
     geom_train_launches = geom_train["launches"]
     later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
              resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
-             evaluation["launches"], geom_eval["launches"]]
+             evaluation["launches"], geom_eval["launches"], bf16_launches]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)
@@ -2106,6 +2359,20 @@ def main(argv=None) -> int:
                              else "bytes"), "library_ms": None,
                 "bound_tc_ms": sum(r["bound_tc_ms"] for r in main)}
 
+    def bf16_entry(kernel, name, source, replaces):
+        # The bf16 variants at the main paths' widest shapes (QM9 N=32, B=64;
+        # N=184, B=16); launches from phase 22, the serving path at its
+        # default bfloat16_mixed.
+        mine = [r for r in bf16_rows if r["kernel"] == kernel]
+        main = next(r for r in mine if r["N"] == (32 if kernel == "egnn_block" else 184))
+        n_launched = bf16_launches[f"{kernel}_bf16"]
+        _check(n_launched > 0, f"{name} was not launched on phase 22's path")
+        return {"name": name, "route": "cuda", "source": f"geoldm_tpu_torch/csrc/{source}",
+                "replaces": f"geoldm_tpu/ops/{replaces}", "launches": n_launched,
+                "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None, "f32_ms": main["f32_ms"]}
+
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
@@ -2132,7 +2399,13 @@ def main(argv=None) -> int:
         + [tiled_entry(tiled_bwd_rows, stage, f"egnn_{stage}_bwd", "egnn_tiled_bwd.cu", 201,
                        geom_train_launches[f"{stage}_bwd"] + later_launches(f"{stage}_bwd"))
            for stage in ("gcl_rows", "coord_rows")]
-        + [sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]}
+        + [sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]
+        + [bf16_entry(kernel, name, source, replaces)
+           for kernel, name, source, replaces in (
+               ("egnn_block", "egnn_block_fwd_bf16", "egnn_block.cu", "pallas_egnn.py:232"),
+               ("gcl_rows", "egnn_gcl_rows_bf16", "egnn_tiled.cu", "pallas_egnn_tiled.py:152"),
+               ("coord_rows", "egnn_coord_rows_bf16", "egnn_tiled.cu",
+                "pallas_egnn_tiled.py:166"))]}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -8,7 +8,8 @@ one command spawns the ranks, every rank draws the same batches and noise,
 only rank 0 prints and writes checkpoints and ``metrics.jsonl``. A run
 resumes from its ``latest/`` checkpoint (``--resume``, with the
 checkpoint's model config) and a latent-diffusion run can start from a
-trained first stage (``--ae_path``). Flags that select anything else exit
+trained first stage (``--ae_path``). ``--eval_n_steps`` K runs the periodic
+stability samples as K-step DDIM jumps. Flags that select anything else exit
 with a two-line "not ported yet" message.
 """
 
@@ -73,7 +74,8 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--ema_decay", type=float, default=0.9999)
     p.add_argument("--augment_noise", type=float, default=0.0)
     p.add_argument("--n_stability_samples", type=int, default=500)
-    p.add_argument("--eval_n_steps", type=int, default=None)
+    p.add_argument("--eval_n_steps", type=int, default=None,
+                   help="few-step DDIM sampling for the periodic stability analysis only")
     p.add_argument("--normalize_factors", type=eval, default=[1, 4, 10])
     # True for QM9 (main_qm9.py:125), False for GEOM (main_geom_drugs.py:121).
     p.add_argument("--include_charges", type=eval, default=qm9_defaults)
@@ -113,7 +115,9 @@ def resolve_dp(args) -> int:
 def check_ported(args) -> None:
     """Exit with a two-line message for any flag outside the ported slice."""
     if args.compute_dtype != "float32":
-        _not_ported(f"--compute_dtype {args.compute_dtype}")
+        raise SystemExit(f"--compute_dtype {args.compute_dtype} in training is not ported yet.\n"
+                         "bf16 training needs bf16 variants of the backward kernels #2, #5 and "
+                         "#7; geoldm_tpu_torch trains in float32 (it samples in bf16).")
     if args.sp > 1 and args.tp > 1:
         raise SystemExit("--sp and --tp cannot be combined")
     if resolve_dp(args) > 1:
@@ -124,8 +128,6 @@ def check_ported(args) -> None:
         _not_ported("--conditioning")
     if args.visualize:
         _not_ported("--visualize")
-    if args.eval_n_steps is not None:
-        _not_ported("--eval_n_steps")
     if args.model != "egnn_dynamics":
         _not_ported(f"--model {args.model}")
 
@@ -303,7 +305,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                     validity, rdkit_tuple, molecules = trainer_mod.analyze_and_save(
                         eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
                         n_samples=args.n_stability_samples, rng=rng,
-                        datadir=args.datadir)
+                        datadir=args.datadir, n_steps=args.eval_n_steps)
                 print(f"epoch {epoch} stability: {validity}", flush=True)
                 if rdkit_tuple is not None:
                     v, u, n = rdkit_tuple[0]

@@ -1,6 +1,7 @@
 """Score a trained checkpoint with the paper's metrics on the card (port of
 ``geoldm_tpu/cli/eval_analyze.py``): generate ``--n_samples`` molecules
-(size-bucketed, the model's full T), then atom and molecule stability, the
+(size-bucketed; the model's full T, or ``--n_steps`` few-step jumps), then
+atom and molecule stability, the
 validity/uniqueness/novelty triple, and the valid and test NLL (the test
 split in ``--n_test_passes`` passes, 5 as in the reference
 eval_analyze.py:172-188), and write ``eval_log.txt`` and
@@ -17,9 +18,10 @@ run directory whose ``best/`` is one. The NLL runs on the device-resident
 packed path (``train.trainer.evaluate_nll_packed``); QM9 pads to its 29
 atoms, GEOM to 184. Stability runs on the native C++ batch when ``g++``
 builds it (``evalsuite.native``), else on the numpy path. ``--device cpu``
-runs the plain PyTorch path on the CPU. ``--n_steps``, ``--sampler``,
-``--eta`` (few-step sampling), ``--dp`` > 1 and a ``--compute_dtype`` other
-than float32 are not ported yet.
+runs the plain PyTorch path on the CPU. ``--n_steps`` K, ``--sampler``
+(ddim, dpm2m) and ``--eta`` select the few-step sampler, ``--compute_dtype``
+(``nn.core.COMPUTE_DTYPES``) the precision of the generation and of the NLL,
+as JAX's CLI uses it. ``--dp`` > 1 is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,17 +67,11 @@ def check_ported(args) -> None:
     """Exit with the training CLIs' two-line message for a flag outside the
     ported slice."""
     from geoldm_tpu_torch.cli.common import _not_ported
+    from geoldm_tpu_torch.nn.core import resolve_compute
 
-    if args.n_steps is not None:
-        _not_ported("--n_steps")
-    if args.sampler != "ddim":
-        _not_ported(f"--sampler {args.sampler}")
-    if args.eta != 1.0:
-        _not_ported("--eta")
     if args.dp > 1:
         _not_ported(f"--dp {args.dp}")
-    if args.compute_dtype != "float32":
-        _not_ported(f"--compute_dtype {args.compute_dtype}")
+    resolve_compute(args.compute_dtype)  # raises on an unknown name
 
 
 def load_eval_splits(args, dataset_info) -> dict:
@@ -128,7 +124,8 @@ def main(argv=None) -> dict:
     validity, rdkit_tuple, molecules = trainer_mod.analyze_and_save(
         model, args.seed, dataset_info, nodes_dist, n_samples=args.n_samples,
         batch_size=args.batch_size_gen, rng=rng, datadir=args.datadir,
-        external_smiles=external_smiles)
+        external_smiles=external_smiles, n_steps=args.n_steps, eta=args.eta,
+        method=args.sampler, compute_dtype=args.compute_dtype)
     elapsed = time.time() - t0
     n_done = len(molecules["x"])
     print(f"generated {n_done} molecules in {elapsed:.1f}s "
@@ -151,12 +148,12 @@ def main(argv=None) -> dict:
         nll_val = trainer_mod.evaluate_nll_packed(
             model, model_cfg, splits["valid"], nodes_dist, [_generator(device, args.seed, 1, 0)],
             batch_size=args.batch_size_nll, pad_nodes=pad_nll, partition="valid",
-            augment_noise=args.augment_noise)[0]
+            augment_noise=args.augment_noise, compute_dtype=args.compute_dtype)[0]
         tests = trainer_mod.evaluate_nll_packed(
             model, model_cfg, splits["test"], nodes_dist,
             [_generator(device, args.seed, 2, i) for i in range(args.n_test_passes)],
             batch_size=args.batch_size_nll, pad_nodes=pad_nll, partition="test",
-            augment_noise=args.augment_noise)
+            augment_noise=args.augment_noise, compute_dtype=args.compute_dtype)
         nll_seconds = time.time() - t_nll
         nll_test = float(np.mean(tests))
         print(f"final test NLL: {nll_test:.4f} (+/- {np.std(tests):.4f}); "

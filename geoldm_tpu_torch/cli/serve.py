@@ -12,17 +12,25 @@ Endpoints:
   GET  /health   -> {"status": "ok", "model": ..., "buckets": [...], "device": ...}
   GET  /metrics  -> request/molecule counters + latency quantiles (JSON)
   POST /sample   -> {"n_samples": int} or {"sizes": [int, ...]}, optional
-                    {"seed": int, "format": "xyz"|"json"}. Returns molecules
-                    ("json": per-molecule [[element, x, y, z], ...]; "xyz":
-                    xyz text blocks) with a stability verdict each.
+                    {"seed": int, "n_steps": int, "eta": float,
+                     "sampler": "ddim"|"dpm2m", "clip_z": float,
+                     "format": "xyz"|"json"}. Returns molecules ("json":
+                    per-molecule [[element, x, y, z], ...]; "xyz": xyz text
+                    blocks) with a stability verdict each, and the sampler
+                    settings the request ran.
 
-Only the dense T-step sampler in float32 is ported. Requests that ask for
-few-step sampling (n_steps, eta, sampler), guidance, clip_z or properties
-get a 400 that says so. Device calls are serialised with a lock; request
+``--compute_dtype`` (default ``bfloat16_mixed``, as JAX's server) sets the
+precision: the bf16 names run the bf16 kernel variants, ``bfloat16_mixed``
+the last 10 % of the steps and the final step in f32. ``n_steps`` selects
+the few-step sampler (null or 0: the dense T steps); a request's value is
+snapped to a fixed ladder (``_NSTEPS_LADDER``, T always a rung; ties snap
+down) unless it is the server's own ``--n_steps``. ``clip_z`` is quantised
+to 0.25. Guidance (``cfg_scale`` other than 1) and ``properties`` are not
+ported yet and get a 400. Device calls are serialised with a lock; request
 handling is threaded so /health and /metrics answer during generation.
 
 Usage: python -m geoldm_tpu_torch.cli.serve --model_path <checkpoint dir>
-           [--dataset qm9|geom] [--port 8000] [--device cuda]
+           [--dataset qm9|geom] [--port 8000] [--device cuda] [--n_steps 50]
 """
 
 from __future__ import annotations
@@ -36,10 +44,17 @@ import time
 import numpy as np
 import torch
 
-# Request fields whose non-default values select samplers or conditioning
-# that this slice does not have yet.
-_NOT_PORTED = {"n_steps": (None, 0), "eta": (1, 1.0), "sampler": ("ddim",),
-               "cfg_scale": (1, 1.0), "clip_z": (0, 0.0)}
+# Allowed per-request few-step settings (geoldm_tpu/cli/serve.py:43-50): a
+# request's n_steps snaps to the nearest rung, which bounds the settings a
+# client can ask for.
+_NSTEPS_LADDER = (1, 2, 3, 5, 8, 10, 15, 20, 25, 35, 50, 75, 100,
+                  150, 250, 375, 500, 750, 1000, 1500, 2000, 3000, 4000)
+
+
+def snap_n_steps(n_steps: int, timesteps: int) -> int:
+    """The ladder rung (or T) nearest ``n_steps``, ties to the lower."""
+    return min((k for k in (*_NSTEPS_LADDER, timesteps) if k <= timesteps),
+               key=lambda k: (abs(k - n_steps), k))
 
 
 def parse_args(argv=None):
@@ -52,8 +67,16 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--batch_max", type=int, default=250,
                    help="max molecules per device dispatch; larger requests are chunked")
-    p.add_argument("--compute_dtype", type=str, default="float32",
-                   help="float32 only in this version")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16_mixed",
+                   help="float32, pallas, xla, bfloat16, bfloat16_pallas, bfloat16_full or "
+                        "bfloat16_mixed")
+    p.add_argument("--n_steps", type=int, default=None,
+                   help="default few-step setting for requests that name none "
+                        "(None: the dense T-step sampler)")
+    p.add_argument("--eta", type=float, default=1.0)
+    p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "dpm2m"])
+    p.add_argument("--clip_z", type=float, default=0.0,
+                   help="default per-step dynamic-range guard")
     p.add_argument("--use_ema", type=eval, default=True)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--seed", type=int, default=0)
@@ -67,13 +90,12 @@ class SamplerService:
     def __init__(self, args):
         from geoldm_tpu_torch.data.datasets_config import get_dataset_info
         from geoldm_tpu_torch.models.distributions import DistributionNodes
+        from geoldm_tpu_torch.nn.core import resolve_compute
         from geoldm_tpu_torch.train import sampling as sampling_mod
         from geoldm_tpu_torch.utils.buckets import covering_buckets
         from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
 
-        if args.compute_dtype != "float32":
-            raise ValueError(f"--compute_dtype {args.compute_dtype!r} is not ported yet: "
-                             "this version serves in float32 only")
+        resolve_compute(args.compute_dtype)  # raises on an unknown name
         self._sampling = sampling_mod
         self.args = args
         self.model, self.model_cfg, _ = load_reference_checkpoint(
@@ -85,6 +107,7 @@ class SamplerService:
             raise SystemExit("conditional checkpoints are not ported yet: this server "
                              "serves unconditional latent-diffusion models")
         self.device = next(self.model.parameters()).device
+        self.timesteps = self.model_cfg.diffusion.timesteps
         self.dataset_info = get_dataset_info(args.dataset, args.remove_h)
         self.nodes_dist = DistributionNodes(self.dataset_info.n_nodes)
         self.buckets = covering_buckets(sampling_mod.default_buckets(self.dataset_info),
@@ -100,11 +123,48 @@ class SamplerService:
         self.latencies = []
         self.started = time.time()
 
-    def _generate(self, sizes, seed):
+    def _generate(self, sizes, seed, n_steps, eta, method, clip_z):
         with self.device_lock:
             return self._sampling.sample_bucketed(
                 self.model, seed, self.dataset_info, np.asarray(sizes, dtype=np.int64),
-                batch_size=self.args.batch_max, buckets=self.buckets)
+                batch_size=self.args.batch_max, buckets=self.buckets, n_steps=n_steps, eta=eta,
+                method=method, clip_z=clip_z, compute_dtype=self.args.compute_dtype)
+
+    def sampler_settings(self, body: dict) -> tuple:
+        """(n_steps, eta, method, clip_z) of a request, validated and
+        quantised as JAX's server does (geoldm_tpu/cli/serve.py:342-373)."""
+        def num(name, default, lo, hi):
+            try:
+                v = float(body.get(name, default))
+            except (TypeError, ValueError):
+                raise ValueError(f"{name} must be a number") from None
+            if not lo <= v <= hi:
+                raise ValueError(f"{name} must be in [{lo}, {hi}]")
+            return v
+
+        n_steps = body.get("n_steps", self.args.n_steps)
+        if n_steps in (None, 0):
+            n_steps = None
+        else:
+            try:
+                n_steps = int(n_steps)
+            except (TypeError, ValueError):
+                raise ValueError("n_steps must be an integer") from None
+            T = self.timesteps
+            if not 1 <= n_steps <= T:
+                raise ValueError(f"n_steps must be in [1, {T}] (this checkpoint's timestep "
+                                 "count; null/0 selects the dense sampler)")
+            if n_steps != self.args.n_steps:
+                n_steps = snap_n_steps(n_steps, T)
+        eta = num("eta", self.args.eta, 0.0, 1.0)
+        method = str(body.get("sampler", self.args.sampler))
+        if method not in ("ddim", "dpm2m"):
+            raise ValueError("sampler must be 'ddim' or 'dpm2m'")
+        clip_z = round(num("clip_z", self.args.clip_z, 0.0, 1000.0) * 4) / 4
+        if num("cfg_scale", 1.0, 0.0, 10.0) != 1.0:
+            raise ValueError("cfg_scale (classifier-free guidance) is not ported yet: this "
+                             "server samples unconditional models")
+        return n_steps, eta, method, clip_z
 
     def sample(self, body: dict) -> dict:
         """Handle one /sample request body; returns the response dict."""
@@ -123,10 +183,7 @@ class SamplerService:
                 self._auto_seed += 1
                 seed = self._auto_seed_base + self._auto_seed
 
-        for name, defaults in _NOT_PORTED.items():
-            if body.get(name, defaults[0]) not in defaults:
-                raise ValueError(f"{name}={body[name]!r} is not ported yet: this server runs "
-                                 "the dense T-step sampler only")
+        n_steps, eta, method, clip_z = self.sampler_settings(body)
         if "properties" in body:
             raise ValueError("this checkpoint is unconditional — 'properties' is not accepted")
 
@@ -149,7 +206,7 @@ class SamplerService:
                 raise ValueError("n_samples must be in [1, 100000]")
             sizes = self.nodes_dist.sample(n, np.random.default_rng(seed))
 
-        one_hot, _, x, node_mask = self._generate(sizes, seed)
+        one_hot, _, x, node_mask = self._generate(sizes, seed, n_steps, eta, method, clip_z)
         with self.metrics_lock:
             self.dispatches += 1
 
@@ -179,7 +236,9 @@ class SamplerService:
             "format": fmt,
             "stable": stable,
             "n": len(mols),
-            "sampler": {"n_steps": None, "eta": 1.0, "method": "ddim", "protocol": "dense-T"},
+            "sampler": {"n_steps": n_steps, "eta": eta, "method": method, "clip_z": clip_z,
+                        "compute_dtype": self.args.compute_dtype,
+                        "protocol": "dense-T" if n_steps is None else f"fewstep-{n_steps}"},
             "seed": seed,
             "seconds": round(elapsed, 4),
         }

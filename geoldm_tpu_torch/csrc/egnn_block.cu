@@ -1,4 +1,5 @@
-// One EGNN EquivariantBlock forward in f32 on Hopper (sm_90a).
+// One EGNN EquivariantBlock forward in f32, and its bf16 variant, on Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel geoldm_tpu/ops/pallas_egnn.py:_make_kernel over
 // _block_math (pallas_call at :447, via fused_block_apply :392); this is a
@@ -53,6 +54,15 @@
 // Ragged tiles (N not a multiple of R) are masked: their empty m16 tiles
 // are skipped and their rows never written. No tile spills
 // (chip_smoke.py phase 1 prints ptxas' lines and fails on a spill).
+// The bf16 variant (egnn_block_forward_bf16; JAX's bfloat16 and
+// bfloat16_pallas compute dtypes, _matmul in _block_math) is the same chain
+// with every product on bf16 operands and f32 accumulation: the edge
+// products as mma.sync.m16n8k16 bf16 (one mma a k16 step where split TF32
+// takes three a k8 step, W2 converted to bf16 once a call and streamed
+// through the same stages, 32 deep), the node GEMMs likewise, the first
+// layer's edge-feature term and the gate / coordinate-scale sums as f32 FMAs
+// of rounded operands; activations, biases and sums stay f32. Its bound is
+// the same FLOP with the products at the 989 TFLOP/s of dense bf16.
 // With grad, the autograd Function asks this forward to save each GCL's
 // h, aggregate, z and silu(z) ([B*N, H] each) for the backward, which then
 // skips its forward recompute; under no_grad nothing extra is written.
@@ -88,6 +98,26 @@ int egnn_block_forward(const float* h, const float* x, const float* x0,
                         norm_constant, mean_agg ? (float)N : normalization_factor};
   return block_forward_chain(d, h, x, x0, mask, h_out, x_out, proj, agg, hidden, save, gcl_w,
                              coord_w, true, (cudaStream_t)stream);
+}
+
+// The bf16 variant: egnn_block_forward's arguments with w2bf, scratch for
+// (n_gcl + 1) [H, H] bf16 W2 copies (16-byte aligned), in save's place
+// (nothing is saved: the variant serves sampling only).
+int egnn_block_forward_bf16(const float* h, const float* x, const float* x0,
+                            const float* mask, float* h_out, float* x_out, float* proj,
+                            float* agg, float* hidden, void* w2bf, const void* const* gcl_w,
+                            const void* const* coord_w, int B, int N, int H, int E,
+                            int n_gcl, int attention, int sin_emb, int use_tanh,
+                            int mean_agg, float coords_range, float norm_constant,
+                            float normalization_factor, void* stream) {
+  if (B < 1 || N < 1 || N > kMaxNodes || H < 32 || H > kMaxHidden || H % 32 ||
+      E < 0 || E > kMaxEdgeFeat || n_gcl < 1 || !w2bf)
+    return (int)cudaErrorInvalidValue;
+  const BlockShape d = {B, N, H, E, n_gcl, attention, sin_emb, use_tanh, coords_range,
+                        norm_constant, mean_agg ? (float)N : normalization_factor};
+  return block_forward_chain<true>(d, h, x, x0, mask, h_out, x_out, proj, agg, hidden, nullptr,
+                                   gcl_w, coord_w, true, (cudaStream_t)stream,
+                                   static_cast<uint32_t*>(w2bf));
 }
 
 }  // extern "C"

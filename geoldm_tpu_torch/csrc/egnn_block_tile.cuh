@@ -3,8 +3,9 @@
 // (on egnn_tile.cuh's tile machinery), the forward edge stages and the
 // forward chain both libraries run on the tensor-core node GEMM of
 // egnn_tc_gemm.cuh (the backward recomputes with it, so a recomputed
-// activation equals the forward's saved one bit for bit). See egnn_block.cu
-// for the design and what bounds it on an H100.
+// activation equals the forward's saved one bit for bit), and the forward's
+// bf16 variant (BF16: every product on bf16 operands). See egnn_block.cu for
+// the design and what bounds it on an H100.
 
 #pragma once
 
@@ -18,8 +19,9 @@ int tile_rows(int N) { return N >= kTileRows ? 1 : kTileRows / N; }
 int tiles_per_molecule(int N) { const int r = tile_rows(N); return (N + r - 1) / r; }
 
 // One forward edge stage over a tile: the GCL's aggregate of rows i0 ...
-// (COORD false) or their coordinate update.
-template <int HP, bool COORD>
+// (COORD false) or their coordinate update; BF16: on bf16 operands, W2 from
+// its bf16 copy a.w2bf.
+template <int HP, bool COORD, bool BF16 = false>
 __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(TileArgs a) {
   using C = TileCfg<HP>;
   float* As = tile_smem;
@@ -31,16 +33,17 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(
 
   tile_geometry<HP>(a, b, i0, 0, N, mrows);
   __syncthreads();
-  build_edge_tile<HP>(a, As, b, mrows, nullptr);
+  build_edge_tile<HP, false, BF16>(a, As, b, mrows, nullptr);
   __syncthreads();
   // m = silu(silu(pre) W2^T + b2).
   {
     float acc[2][8][4];
-    tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
+    if constexpr (BF16) tile_product_bf16<HP>(As, Wb, a.w2bf, H, mrows, acc);
+    else tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
     store_acc<HP, true>(As, acc, a.b2, H);
   }
   __syncthreads();
-  if (COORD || a.attention) edge_scalars<HP, COORD>(a, As, mrows);
+  if (COORD || a.attention) edge_scalars<HP, COORD, BF16>(a, As, mrows);
   if (!COORD) {
     if (c < H) {
       for (int r = 0; r < nrows; ++r)
@@ -57,13 +60,13 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(
   }
 }
 
-template <bool COORD>
+template <bool COORD, bool BF16 = false>
 int launch_edge_tile(const TileArgs& a, int B, cudaStream_t s) {
   const dim3 grid(a.T, B);
-  if (a.H <= 64) return launch_tile<64>(edge_tile_kernel<64, COORD>, grid, a, s);
-  if (a.H <= 128) return launch_tile<128>(edge_tile_kernel<128, COORD>, grid, a, s);
-  if (a.H <= 256) return launch_tile<256>(edge_tile_kernel<256, COORD>, grid, a, s);
-  return launch_tile<512>(edge_tile_kernel<512, COORD>, grid, a, s);
+  if (a.H <= 64) return launch_tile<64>(edge_tile_kernel<64, COORD, BF16>, grid, a, s);
+  if (a.H <= 128) return launch_tile<128>(edge_tile_kernel<128, COORD, BF16>, grid, a, s);
+  if (a.H <= 256) return launch_tile<256>(edge_tile_kernel<256, COORD, BF16>, grid, a, s);
+  return launch_tile<512>(edge_tile_kernel<512, COORD, BF16>, grid, a, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -71,7 +74,8 @@ int launch_edge_tile(const TileArgs& a, int B, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 
 // The node GEMM with launch_gemm's arguments (egnn_common.cuh): A [M][K]
-// split at k1, W [Nout][K], a fused epilogue.
+// split at k1, W [Nout][K], a fused epilogue; BF16 on bf16 operands.
+template <bool BF16 = false>
 int node_gemm_nt(const GemmArgs& a, cudaStream_t s) {
   NodeGemm g = {};
   g.a1 = a.a1; g.lda1 = a.lda1; g.k1 = a.k1; g.a2 = a.a2; g.lda2 = a.lda2;
@@ -79,11 +83,12 @@ int node_gemm_nt(const GemmArgs& a, cudaStream_t s) {
   g.bias = a.bias; g.resid = a.resid; g.ldr = a.ldr; g.row_mask = a.row_mask;
   g.c = a.c; g.ldc = a.ldc; g.M = a.M; g.N = a.Nout; g.K = a.K;
   g.epilogue = a.epilogue; g.kchunk = a.K;
-  return launch_node_gemm(g, 1, s);
+  return launch_node_gemm<BF16>(g, 1, s);
 }
 
 // proj[:, :H] = h W1[:, :H]^T and proj[:, H:2H] = h W1[:, H:2H]^T (row
 // stride 2H), no bias: b1 is added per edge in the tile.
+template <bool BF16 = false>
 int node_projection(const float* h, const float* w1, int ld1, float* proj, int M, int H,
                     cudaStream_t s) {
   for (int half = 0; half < 2; ++half) {
@@ -93,7 +98,7 @@ int node_projection(const float* h, const float* w1, int ld1, float* proj, int M
     g.c = proj + half * H; g.ldc = 2 * H;
     g.M = M; g.Nout = H; g.K = H;
     g.epilogue = kEpiNone;
-    const int rc = node_gemm_nt(g, s);
+    const int rc = node_gemm_nt<BF16>(g, s);
     if (rc) return rc;
   }
   return 0;
@@ -126,13 +131,18 @@ TileArgs tile_args(const BlockShape& d, const float* x, const float* x0, const f
 // the backward reads; h_out is then a copy of the last GCL's output. With
 // save null, agg and hidden ([B*N, H] scratch) hold the aggregate and silu(z)
 // and h_out is written in place from the second GCL on. coord false skips
-// the coordinate stage (x_out unread). proj: [B*N, 2H] scratch.
+// the coordinate stage (x_out unread). proj: [B*N, 2H] scratch. BF16: every
+// product on bf16 operands (the bf16 forward variant, save null); w2bf holds
+// (n_gcl + 1) [H, H] bf16 copies of the W2s, converted here, once a call.
+template <bool BF16 = false>
 int block_forward_chain(const BlockShape& d, const float* h, const float* x, const float* x0,
                         const float* mask, float* h_out, float* x_out, float* proj, float* agg,
                         float* hidden, float* save, const void* const* gcl_w,
-                        const void* const* coord_w, bool coord, cudaStream_t s) {
+                        const void* const* coord_w, bool coord, cudaStream_t s,
+                        uint32_t* w2bf = nullptr) {
   const int M = d.B * d.N, H = d.H, ld1 = 2 * H + d.E;
   const size_t MH = (size_t)M * H, plane = (size_t)d.n_gcl * MH;
+  const size_t w2words = (size_t)H * H / 2;
   TileArgs ea = tile_args(d, x, x0, mask, proj);
   const float* hc = h;
   int rc;
@@ -142,10 +152,14 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
     float* ag = save ? save + plane + gi * MH : agg;
     float* z = save ? save + 2 * plane + gi * MH : nullptr;
     float* u = save ? save + 3 * plane + gi * MH : hidden;
-    if ((rc = node_projection(hc, w[0], ld1, proj, M, H, s))) return rc;
+    if ((rc = node_projection<BF16>(hc, w[0], ld1, proj, M, H, s))) return rc;
     ea.w1 = w[0]; ea.b1 = w[1]; ea.w2 = w[2]; ea.b2 = w[3];
     ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = ag; ea.x_out = nullptr;
-    if ((rc = launch_edge_tile<false>(ea, d.B, s))) return rc;
+    if constexpr (BF16) {
+      ea.w2bf = w2bf + gi * w2words;
+      if ((rc = to_bf16(w[2], w2bf + gi * w2words, H * H, s))) return rc;
+    }
+    if ((rc = launch_edge_tile<false, BF16>(ea, d.B, s))) return rc;
 
     // u = silu([h, agg] Wn1^T + bn1): fused, or through z when saved (the
     // same bits: silu of the stored f32 z).
@@ -154,7 +168,7 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
     n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
     n1.c = save ? z : u; n1.ldc = H; n1.M = M; n1.Nout = H; n1.K = 2 * H;
     n1.epilogue = save ? kEpiNone : kEpiSilu;
-    if ((rc = node_gemm_nt(n1, s))) return rc;
+    if ((rc = node_gemm_nt<BF16>(n1, s))) return rc;
     if (save) {
       silu_kernel<<<(int)((MH + 255) / 256), 256, 0, s>>>(z, u, (int)MH);
       if ((rc = (int)cudaGetLastError())) return rc;
@@ -167,7 +181,7 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
     n2.resid = hc; n2.ldr = H; n2.row_mask = mask;
     n2.c = hn; n2.ldc = H; n2.M = M; n2.Nout = H; n2.K = H;
     n2.epilogue = kEpiResidMask;
-    if ((rc = node_gemm_nt(n2, s))) return rc;
+    if ((rc = node_gemm_nt<BF16>(n2, s))) return rc;
     hc = hn;
   }
   if (save && h_out) {
@@ -176,10 +190,14 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
   }
   if (!coord) return 0;
   const float* const* cw = reinterpret_cast<const float* const*>(coord_w);
-  if ((rc = node_projection(hc, cw[0], ld1, proj, M, H, s))) return rc;
+  if ((rc = node_projection<BF16>(hc, cw[0], ld1, proj, M, H, s))) return rc;
   ea.w1 = cw[0]; ea.b1 = cw[1]; ea.w2 = cw[2]; ea.b2 = cw[3];
   ea.w_out = cw[4]; ea.b_out = nullptr; ea.agg = nullptr; ea.x_out = x_out;
-  return launch_edge_tile<true>(ea, d.B, s);
+  if constexpr (BF16) {
+    ea.w2bf = w2bf + d.n_gcl * w2words;
+    if ((rc = to_bf16(cw[2], w2bf + d.n_gcl * w2words, H * H, s))) return rc;
+  }
+  return launch_edge_tile<true, BF16>(ea, d.B, s);
 }
 
 }  // namespace

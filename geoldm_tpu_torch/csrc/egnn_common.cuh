@@ -1,15 +1,18 @@
 // Device code shared by the EquivariantBlock forward (egnn_block.cu), its
 // backward (egnn_block_bwd.cu) and the row-tiled stages (egnn_tiled.cu,
 // egnn_tiled_bwd.cu, and their sequence-parallel slabs in egnn_sp.cu):
-// constants, activations, the f32 node GEMM with its fused epilogues and the
-// src/dst projection. The edge tile of the forward grids is in
+// constants, activations, the bf16 operand rounding of the bf16 forward
+// variants, the f32 node GEMM with its fused epilogues and the src/dst
+// projection. The edge tile of the forward grids is in
 // egnn_tile.cuh. See egnn_block.cu and egnn_tiled.cu for the designs and
 // what bounds them on an H100.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -37,6 +40,43 @@ __global__ void silu_kernel(const float* in, float* out, int n) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 operands (the bf16 forward variants of #1, #3, #4): every matrix
+// product takes its operands rounded to bf16 (to nearest, ties to even) and
+// sums in f32, as JAX's _matmul does under a bf16 compute dtype. A product
+// of two bf16 values is exact in f32, so an f32 FMA of rounded operands is
+// a bf16 product with f32 accumulation.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x rounded to a BF16 operand, x itself in the f32 kernels.
+template <bool BF16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (BF16) return bf16_round(x);
+  else return x;
+}
+
+// Two bf16 values in one register, lo in the low half (the element with the
+// lower k of an mma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void to_bf16_kernel(const float* in, __nv_bfloat16* out, int n) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < n) out[idx] = __float2bfloat16_rn(in[idx]);
+}
+
+// out [n] = bf16(in): a W2 converted once per launch for the bf16 edge tile.
+int to_bf16(const float* in, void* out, int n, cudaStream_t s) {
+  to_bf16_kernel<<<(n + 255) / 256, 256, 0, s>>>(in, static_cast<__nv_bfloat16*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Node GEMM: C[m, n] = epilogue(sum_k A[m, k] * W[n, k]); W in nn.Linear
 // layout [out, in]. A may be split by columns: A[:, :k1] from a1 and
 // A[:, k1:] from a2 (the node MLP's [h, agg] input without a concat).
@@ -61,7 +101,9 @@ constexpr int kTM = 64, kTN = 64, kTK = 16;
 // kOwner only names the grid in a profile: 1 for the whole-block kernels
 // (#1, #2), 3 and 4 for the row-tiled GCL and coordinate stages, 5 for their
 // backward, 6 and 7 for the sequence-parallel slab stages and their backward.
-template <int kOwner>
+// BF16: the operands are rounded to bf16 as they enter shared memory (the
+// bf16 variants of #3/#4).
+template <int kOwner, bool BF16 = false>
 __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
   __shared__ float As[kTK][kTM + 4];
   __shared__ float Ws[kTK][kTN + 4];
@@ -86,8 +128,8 @@ __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
         av = k < g.k1 ? g.a1[(size_t)m * g.lda1 + k]
                       : g.a2[(size_t)m * g.lda2 + (k - g.k1)];
       if (n < g.Nout && k < g.K) wv = g.w[(size_t)n * g.ldw + k];
-      As[kk][r] = av;
-      Ws[kk][r] = wv;
+      As[kk][r] = operand<BF16>(av);
+      Ws[kk][r] = operand<BF16>(wv);
     }
     __syncthreads();
 #pragma unroll
@@ -123,10 +165,10 @@ __global__ void __launch_bounds__(256) gemm_nt_kernel(GemmArgs g) {
   }
 }
 
-template <int kOwner = 1>
+template <int kOwner = 1, bool BF16 = false>
 int launch_gemm(const GemmArgs& g, cudaStream_t s) {
   dim3 grid((g.Nout + kTN - 1) / kTN, (g.M + kTM - 1) / kTM);
-  gemm_nt_kernel<kOwner><<<grid, 256, 0, s>>>(g);
+  gemm_nt_kernel<kOwner, BF16><<<grid, 256, 0, s>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -134,7 +176,7 @@ int launch_gemm(const GemmArgs& g, cudaStream_t s) {
 // computes) and proj[:Mc, H:2H] = hc W1[:, H:2H]^T (the dst half, over the
 // columns); no bias: b1 is added once per edge in the edge kernel, as the TPU
 // kernel does. The row stride of proj is 2H.
-template <int kOwner = 1>
+template <int kOwner = 1, bool BF16 = false>
 int launch_projection_window(const float* hr, int Mr, const float* hc, int Mc,
                              const float* w1, int ld1, float* proj, int H, cudaStream_t s) {
   for (int half = 0; half < 2; ++half) {
@@ -144,7 +186,7 @@ int launch_projection_window(const float* hr, int Mr, const float* hc, int Mc,
     g.c = proj + half * H; g.ldc = 2 * H;
     g.M = half ? Mc : Mr; g.Nout = H; g.K = H;
     g.epilogue = kEpiNone;
-    const int rc = launch_gemm<kOwner>(g, s);
+    const int rc = launch_gemm<kOwner, BF16>(g, s);
     if (rc) return rc;
   }
   return 0;

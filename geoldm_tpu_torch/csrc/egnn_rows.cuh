@@ -30,8 +30,9 @@ constexpr int kMaxTiledNodes = 1024;
 // channel c's aggregate (thread c, #3) or coordinate c's update (thread c <
 // 3, #4), each added in column order. A window whose edge mask is all zero
 // adds exactly zero and is skipped (padding columns, every window of a
-// padding row). Each CTA writes only its own row.
-template <int HP, bool COORD>
+// padding row). Each CTA writes only its own row. BF16: on bf16 operands,
+// W2 from its bf16 copy a.w2bf (the bf16 variants of #3/#4).
+template <int HP, bool COORD, bool BF16 = false>
 __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_tile_kernel(TileArgs a) {
   using C = TileCfg<HP>;
   float* As = tile_smem;
@@ -44,16 +45,17 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_tile_kernel(
     tile_geometry<HP>(a, b, s, j0, kTileRows, mrows);
     // The geometry's barrier (thread e wrote edge e, HP >= kTileRows).
     if (!__syncthreads_or(c < kTileRows && TileEdges<HP>::em()[c] != 0.f)) continue;
-    build_edge_tile<HP, true>(a, As, b, mrows, nullptr);
+    build_edge_tile<HP, true, BF16>(a, As, b, mrows, nullptr);
     __syncthreads();
     // m = silu(silu(pre) W2^T + b2).
     {
       float acc[2][8][4];
-      tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
+      if constexpr (BF16) tile_product_bf16<HP>(As, Wb, a.w2bf, H, mrows, acc);
+      else tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
       store_acc<HP, true>(As, acc, a.b2, H);
     }
     __syncthreads();
-    if (COORD || a.attention) edge_scalars<HP, COORD>(a, As, mrows);
+    if (COORD || a.attention) edge_scalars<HP, COORD, BF16>(a, As, mrows);
     if (!COORD) {
       if (c < H) sum = fold_messages<HP>(a, As, 0, mrows, c, sum);
     } else if (c < 3) {
@@ -70,13 +72,13 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_tile_kernel(
 }
 
 // The forward edge grid over a's row window: S x B CTAs of HP threads.
-template <bool COORD>
+template <bool COORD, bool BF16 = false>
 int launch_rows(const TileArgs& a, int B, cudaStream_t s) {
   const dim3 grid(a.S, B);
-  if (a.H <= 64) return launch_tile<64>(rows_tile_kernel<64, COORD>, grid, a, s);
-  if (a.H <= 128) return launch_tile<128>(rows_tile_kernel<128, COORD>, grid, a, s);
-  if (a.H <= 256) return launch_tile<256>(rows_tile_kernel<256, COORD>, grid, a, s);
-  return launch_tile<512>(rows_tile_kernel<512, COORD>, grid, a, s);
+  if (a.H <= 64) return launch_tile<64>(rows_tile_kernel<64, COORD, BF16>, grid, a, s);
+  if (a.H <= 128) return launch_tile<128>(rows_tile_kernel<128, COORD, BF16>, grid, a, s);
+  if (a.H <= 256) return launch_tile<256>(rows_tile_kernel<256, COORD, BF16>, grid, a, s);
+  return launch_tile<512>(rows_tile_kernel<512, COORD, BF16>, grid, a, s);
 }
 
 bool bad_dims(int B, int N, int H, int E, int sin_emb) {
@@ -119,21 +121,22 @@ TileArgs stage_args(const Slab& r, const float* x, const float* x0, const float*
 // stored f32 z).
 // The forward (gcl_rows_host) and the stage backward (egnn_rows_bwd.cuh) run
 // this same code, so a chain the forward hands to the backward equals the
-// backward's own recompute bit for bit.
-template <int kOwner>
+// backward's own recompute bit for bit. BF16: the bf16 variant (ea.w2bf
+// set, z null).
+template <int kOwner, bool BF16 = false>
 int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B, float* agg,
               float* z, float* u, cudaStream_t s) {
   const int Mr = B * ea.S, H = ea.H;
   TileArgs a = ea;
   a.agg = agg;
   int rc;
-  if ((rc = launch_rows<false>(a, B, s))) return rc;
+  if ((rc = launch_rows<false, BF16>(a, B, s))) return rc;
   GemmArgs n1 = {};
   n1.a1 = hr; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
   n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
   n1.c = z ? z : u; n1.ldc = H; n1.M = Mr; n1.Nout = H; n1.K = 2 * H;
   n1.epilogue = z ? kEpiNone : kEpiSilu;
-  if ((rc = launch_gemm<kOwner>(n1, s))) return rc;
+  if ((rc = launch_gemm<kOwner, BF16>(n1, s))) return rc;
   if (!z) return 0;
   silu_kernel<<<(Mr * H + 255) / 256, 256, 0, s>>>(z, u, Mr * H);
   return (int)cudaGetLastError();
@@ -144,20 +147,27 @@ int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B,
 // 10 weight pointers (egnn_gcl_rows' order). Scratch: proj [B*N, 2H], agg and
 // hidden [B*S, H], and z [B*S, H] or null: with z, the node chain (agg, z,
 // hidden = silu(z)) is kept for the stage backward. Enqueues 5 grids (6 with
-// z).
-template <int kOwner>
+// z). BF16: the bf16 variant, W2 converted into w2bf ([H, H] bf16) first, z
+// null; 6 grids.
+template <int kOwner, bool BF16 = false>
 int gcl_rows_host(const float* h, const float* x, const float* x0, const float* mask,
                   const Slab& r, float* h_out, float* proj, float* agg, float* hidden, float* z,
                   const float* const* w, int B, int N, int H, int E, int attention,
-                  int sin_emb, float norm_div, float norm_constant, cudaStream_t s) {
+                  int sin_emb, float norm_div, float norm_constant, cudaStream_t s,
+                  uint32_t* w2bf = nullptr) {
   const int Mr = B * r.S;
   int rc;
-  if ((rc = launch_projection_window<kOwner>(r.h, Mr, h, B * N, w[0], 2 * H + E, proj, H, s)))
+  if ((rc = launch_projection_window<kOwner, BF16>(r.h, Mr, h, B * N, w[0], 2 * H + E, proj, H,
+                                                   s)))
     return rc;
   TileArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
   ea.attention = attention;
   ea.w_out = w[4]; ea.b_out = w[5];
-  if ((rc = gcl_chain<kOwner>(ea, r.h, w, B, agg, z, hidden, s))) return rc;
+  if constexpr (BF16) {
+    if ((rc = to_bf16(w[2], w2bf, H * H, s))) return rc;
+    ea.w2bf = w2bf;
+  }
+  if ((rc = gcl_chain<kOwner, BF16>(ea, r.h, w, B, agg, z, hidden, s))) return rc;
 
   GemmArgs n2 = {};
   n2.a1 = hidden; n2.lda1 = H; n2.k1 = H;
@@ -165,24 +175,30 @@ int gcl_rows_host(const float* h, const float* x, const float* x0, const float* 
   n2.resid = r.h; n2.ldr = H; n2.row_mask = r.mask;
   n2.c = h_out; n2.ldc = H; n2.M = Mr; n2.Nout = H; n2.K = H;
   n2.epilogue = kEpiResidMask;
-  return launch_gemm<kOwner>(n2, s);
+  return launch_gemm<kOwner, BF16>(n2, s);
 }
 
 // The coordinate update over slab r (#4 / #6): x_out [B*S, 3]. w: 5 weight
-// pointers (egnn_coord_rows' order). Scratch: proj [B*N, 2H]. Enqueues 3 grids.
-template <int kOwner>
+// pointers (egnn_coord_rows' order). Scratch: proj [B*N, 2H]. Enqueues 3 grids
+// (4 for BF16, the bf16 variant, whose W2 is converted into w2bf first).
+template <int kOwner, bool BF16 = false>
 int coord_rows_host(const float* h, const float* x, const float* x0, const float* mask,
                     const Slab& r, float* x_out, float* proj, const float* const* w, int B,
                     int N, int H, int E, int sin_emb, int use_tanh, float coords_range,
-                    float norm_div, float norm_constant, cudaStream_t s) {
+                    float norm_div, float norm_constant, cudaStream_t s,
+                    uint32_t* w2bf = nullptr) {
   int rc;
-  if ((rc = launch_projection_window<kOwner>(r.h, B * r.S, h, B * N, w[0], 2 * H + E, proj, H,
-                                             s)))
+  if ((rc = launch_projection_window<kOwner, BF16>(r.h, B * r.S, h, B * N, w[0], 2 * H + E,
+                                                   proj, H, s)))
     return rc;
   TileArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
   ea.use_tanh = use_tanh; ea.coords_range = coords_range;
   ea.w_out = w[4]; ea.x_out = x_out;
-  return launch_rows<true>(ea, B, s);
+  if constexpr (BF16) {
+    if ((rc = to_bf16(w[2], w2bf, H * H, s))) return rc;
+    ea.w2bf = w2bf;
+  }
+  return launch_rows<true, BF16>(ea, B, s);
 }
 
 }  // namespace

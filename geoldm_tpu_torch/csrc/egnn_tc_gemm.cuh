@@ -65,6 +65,10 @@ constexpr int kNgA = kNgTM * kNgLdR > kNgKC * kNgLdAT ? kNgTM * kNgLdR : kNgKC *
 constexpr int kNgB = kNgTN * kNgLdR > kNgKC * kNgLdBT ? kNgTN * kNgLdR : kNgKC * kNgLdBT;
 constexpr int kNgAPer = kNgTM * kNgKC / 128, kNgBPer = kNgTN * kNgKC / 128;
 
+// BF16 (the bf16 forward variant of #1, A [M][K] and B [N][K] only): the
+// operands rounded to bf16 as they enter the fragments, one m16n8k16 bf16
+// mma a k16 step instead of three TF32 ones a k8 step.
+template <bool BF16 = false>
 __global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
   __shared__ __align__(16) float As[kNgA];
   __shared__ __align__(16) float Bs[kNgB];
@@ -120,6 +124,29 @@ __global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
     }
     __syncthreads();
     if (k0 + kNgKC < kend) fetch(k0 + kNgKC);
+    if constexpr (BF16) {
+#pragma unroll
+      for (int kk = 0; kk < kNgKC; kk += 16) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* ar = As + (mi * 16 + gq) * kNgLdR + kk + 2 * t;
+          af[mi][0] = pack_bf16(ar[0], ar[1]);
+          af[mi][1] = pack_bf16(ar[8 * kNgLdR], ar[8 * kNgLdR + 1]);
+          af[mi][2] = pack_bf16(ar[8], ar[9]);
+          af[mi][3] = pack_bf16(ar[8 * kNgLdR + 8], ar[8 * kNgLdR + 9]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          const float* br = Bs + (wn * 16 + ni * 8 + gq) * kNgLdR + kk + 2 * t;
+          const uint32_t b0 = pack_bf16(br[0], br[1]), b1 = pack_bf16(br[8], br[9]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
+        }
+      }
+      __syncthreads();
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < kNgKC; kk += 8) {
       uint32_t ahi[2][4], alo[2][4];
@@ -170,9 +197,10 @@ __global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
       }
 }
 
+template <bool BF16 = false>
 int launch_node_gemm(const NodeGemm& g, int splits, cudaStream_t s) {
   dim3 grid((g.N + kNgTN - 1) / kNgTN, (g.M + kNgTM - 1) / kNgTM, splits);
-  node_gemm_tc_kernel<<<grid, 128, 0, s>>>(g);
+  node_gemm_tc_kernel<BF16><<<grid, 128, 0, s>>>(g);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 // by the whole-molecule kernels (egnn_block_tile.cuh: #1, #2) and the
 // row-tiled grids (egnn_rows.cuh: #3, #4, #6; egnn_rows_bwd.cuh: #5, #7):
 // the tile's shared-memory layout, its split-TF32 tensor-core product with
-// W2 streamed through cp.async stages, the edge geometry and first layer of
+// W2 streamed through cp.async stages (and the bf16 product of the bf16
+// forward variants of #1, #3 and #4), the edge geometry and first layer of
 // a tile, and the per-edge gate / scale and the row sums in a fixed order.
 // A tile's edges are (row, column) pairs of one molecule: whole rows for #1
 // and #2, a window of one row's columns for the row grid. See egnn_block.cu
@@ -200,6 +201,100 @@ __device__ __forceinline__ void tile_product(const float* As, float* Wb, const f
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (the bf16 forward variants): operands rounded to
+// bf16, each product exact, f32 accumulation, as JAX's _matmul with a bf16
+// compute dtype. mma.sync's f32 accumulation rounds toward zero: at the
+// forward's K = H <= 512 that drift stays near 2^-24 K of the sum, far
+// inside the bf16 operands' own 2^-9.
+// ---------------------------------------------------------------------------
+
+// c += a b over one m16n8k16 tile: a row-major 16x16 (a[i] holds row g or
+// g+8, k pairs 2t / 2t+8), b col-major 16x8 (b0: k = 2t, 2t+1; b1: k = 2t+8,
+// 2t+9; column g); c as mma.m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// W2 depth of one bf16 shared stage: 32 k of each row n in the bytes of an
+// f32 stage's 16, the same XOR-swizzled [n][16 words] layout (w_index over
+// words: word kw holds k = 2 kw and 2 kw + 1).
+constexpr int kKCBf16 = 32;
+
+// One K chunk of the bf16 W2 (w: [H][H/2] words, converted once per launch)
+// into a shared stage, zero past H.
+template <int HP>
+__device__ __forceinline__ void load_w_chunk_bf16(float* Ws, const uint32_t* w, int H, int k0) {
+  using C = TileCfg<HP>;
+  for (int idx = tile_tid(); idx < HP * 4; idx += C::kThreads) {
+    const int n = idx >> 2, q = idx & 3;
+    const bool ok = n < H;
+    cp_async16(Ws + w_index<HP, false>(4 * q, n), ok ? w + (size_t)n * (H / 2) + k0 / 2 + 4 * q : w,
+               ok);
+  }
+  cp_async_commit();
+}
+
+// tile_product<HP, false> in bf16: acc = bf16(As[0:64, 0:H]) bf16(W2)^T,
+// W2 from its bf16 copy w through two shared stages of kKCBf16, the A
+// fragments rounded from the f32 tile as they are read (As stays f32 for
+// the epilogue). m16 tiles at or past mrows are skipped. Ends with a
+// barrier.
+template <int HP>
+__device__ __forceinline__ void tile_product_bf16(const float* As, float* Wb, const uint32_t* w,
+                                                  int H, int mrows, float (&acc)[2][8][4]) {
+  using C = TileCfg<HP>;
+  const int lane = tile_tid() & 31, warp = tile_tid() >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+  const bool live0 = wm * 32 < mrows, live1 = wm * 32 + 16 < mrows;
+  const int nchunks = H / kKCBf16;
+  load_w_chunk_bf16<HP>(Wb, w, H, 0);
+  for (int ck = 0; ck < nchunks; ++ck) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ck landed for all; all are done with chunk ck - 1
+    if (ck + 1 < nchunks)
+      load_w_chunk_bf16<HP>(Wb + ((ck + 1) & 1) * C::kWStage, w, H, (ck + 1) * kKCBf16);
+    const uint32_t* Ws = reinterpret_cast<const uint32_t*>(Wb + (ck & 1) * C::kWStage);
+    if (live0) {
+#pragma unroll 1
+      for (int ks = 0; ks < kKCBf16 / 16; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* ar = As + (wm * 32 + mi * 16 + g) * C::kLdA + ck * kKCBf16 + ks * 16 + 2 * t;
+          const float2 r0 = *reinterpret_cast<const float2*>(ar);
+          const float2 r1 = *reinterpret_cast<const float2*>(ar + 8 * C::kLdA);
+          const float2 r2 = *reinterpret_cast<const float2*>(ar + 8);
+          const float2 r3 = *reinterpret_cast<const float2*>(ar + 8 * C::kLdA + 8);
+          a[mi][0] = pack_bf16(r0.x, r0.y);
+          a[mi][1] = pack_bf16(r1.x, r1.y);
+          a[mi][2] = pack_bf16(r2.x, r2.y);
+          a[mi][3] = pack_bf16(r3.x, r3.y);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          const int n = wn * 64 + ni * 8 + g;
+          const uint32_t b0 = Ws[w_index<HP, false>(ks * 8 + t, n)];
+          const uint32_t b1 = Ws[w_index<HP, false>(ks * 8 + t + 4, n)];
+          mma_bf16(acc[0][ni], a[0], b0, b1);
+          if (live1) mma_bf16(acc[1][ni], a[1], b0, b1);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // As[row][col] = acc + bias[col] (0 past H), through silu when SILU; the
 // fragment layout of mma.m16n8k8's C.
 template <int HP, bool SILU>
@@ -249,6 +344,7 @@ struct TileArgs {
   const float* w1; int ld1;  // [H, 2H+E]; edge-feature columns start at 2H
   const float* b1;
   const float* w2; const float* b2;  // [H, H], [H]
+  const uint32_t* w2bf;  // bf16 variants: W2 in bf16, [H][H/2] words
   const float* w_out;  // GCL: att_mlp.0.weight [1, H]; coord: coord_mlp.4.weight [1, H]
   const float* b_out;  // GCL: att_mlp.0.bias [1]
   float* agg;          // forward GCL output [B*S, H]
@@ -335,11 +431,13 @@ __device__ __forceinline__ void tile_geometry(const TileArgs& a, int b, int i0, 
   }
 }
 
-// The first layer's edge-feature weights of channel c (zero past E or H).
+// The first layer's edge-feature weights of channel c (zero past E or H),
+// rounded to bf16 operands when BF16.
+template <bool BF16 = false>
 __device__ __forceinline__ void edge_feat_weights(const TileArgs& a, int c, float* we) {
 #pragma unroll
   for (int k = 0; k < kMaxEdgeFeat; ++k)
-    we[k] = (c < a.H && k < a.E) ? a.w1[(size_t)c * a.ld1 + 2 * a.H + k] : 0.f;
+    we[k] = (c < a.H && k < a.E) ? operand<BF16>(a.w1[(size_t)c * a.ld1 + 2 * a.H + k]) : 0.f;
 }
 
 // Tile edges are taken kBatch at a time: their projections are loaded
@@ -349,8 +447,9 @@ constexpr int kBatch = 8;
 // pre[q] = src_i[c] + dst_j[c] + e_ij . We[c] + b1[c] for tile edges e0 + q
 // (0 past mrows), channel c < H. SLAB: the tile's rows are a slab's, whose
 // src projections sit at [B*S] rows of proj (the row grid); else they are
-// the molecule's own rows (#1/#2).
-template <int HP, bool SLAB = false>
+// the molecule's own rows (#1/#2). BF16: e_ij rounded to bf16 operands (we
+// comes rounded from edge_feat_weights<true>).
+template <int HP, bool SLAB = false, bool BF16 = false>
 __device__ __forceinline__ void edge_pre_batch(const TileArgs& a, const float* we, float bias1,
                                                int b, int e0, int c, float* pre) {
   using T = TileEdges<HP>;
@@ -367,10 +466,10 @@ __device__ __forceinline__ void edge_pre_batch(const TileArgs& a, const float* w
 #pragma unroll
   for (int q = 0; q < kBatch; ++q) {
     const float* f = T::ef() + (e0 + q) * kMaxEdgeFeat;
-    float ew = fmaf(f[1], we[1], f[0] * we[0]);
+    float ew = fmaf(operand<BF16>(f[1]), we[1], operand<BF16>(f[0]) * we[0]);
     if (a.sin_emb) {
 #pragma unroll
-      for (int k = 2; k < kMaxEdgeFeat; ++k) ew = fmaf(f[k], we[k], ew);
+      for (int k = 2; k < kMaxEdgeFeat; ++k) ew = fmaf(operand<BF16>(f[k]), we[k], ew);
     }
     pre[q] = src[q] + dst[q] + ew + bias1;
   }
@@ -378,19 +477,19 @@ __device__ __forceinline__ void edge_pre_batch(const TileArgs& a, const float* w
 
 // As[e][c] = silu(pre) for the tile's edges (thread c), zero elsewhere; the
 // backward also writes it to ab, the tile's edge 0 in abuf ([edge][H], the
-// tile's edges consecutive). SLAB as edge_pre_batch.
-template <int HP, bool SLAB = false>
+// tile's edges consecutive). SLAB, BF16 as edge_pre_batch.
+template <int HP, bool SLAB = false, bool BF16 = false>
 __device__ __forceinline__ void build_edge_tile(const TileArgs& a, float* As, int b, int mrows,
                                                 float* ab) {
   using C = TileCfg<HP>;
   const int c = tile_tid(), H = a.H;
   float we[kMaxEdgeFeat];
-  edge_feat_weights(a, c, we);
+  edge_feat_weights<BF16>(a, c, we);
   const float bias1 = c < H ? a.b1[c] : 0.f;
   if (ab) ab += c;  // channel c
   for (int e0 = 0; e0 < kTileRows; e0 += kBatch) {
     float pre[kBatch];
-    if (c < H) edge_pre_batch<HP, SLAB>(a, we, bias1, b, e0, c, pre);
+    if (c < H) edge_pre_batch<HP, SLAB, BF16>(a, we, bias1, b, e0, c, pre);
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
       const int e = e0 + q;
@@ -412,9 +511,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // rs_e = sum_c m_e[c] w_out[c] of the tile's mrows edges, m in As: the
 // attention gate sigmoid(. + b_out) or the coordinate scale (through tanh
-// when use_tanh), one warp per edge (two at a time) in a fixed order. Ends
-// with a barrier.
-template <int HP, bool COORD>
+// when use_tanh), one warp per edge (two at a time) in a fixed order; BF16:
+// m and w_out rounded to bf16 operands. Ends with a barrier.
+template <int HP, bool COORD, bool BF16 = false>
 __device__ __forceinline__ void edge_scalars(const TileArgs& a, const float* As, int mrows) {
   using C = TileCfg<HP>;
   float* rs = TileEdges<HP>::rs();
@@ -424,9 +523,9 @@ __device__ __forceinline__ void edge_scalars(const TileArgs& a, const float* As,
     float s = 0.f, s2 = 0.f;
 #pragma unroll 4
     for (int k = lane; k < H; k += 32) {
-      const float w = __ldg(a.w_out + k);
-      s = fmaf(As[e * C::kLdA + k], w, s);
-      s2 = fmaf(As[e2 * C::kLdA + k], w, s2);
+      const float w = operand<BF16>(__ldg(a.w_out + k));
+      s = fmaf(operand<BF16>(As[e * C::kLdA + k]), w, s);
+      s2 = fmaf(operand<BF16>(As[e2 * C::kLdA + k]), w, s2);
     }
     s = warp_sum(s);
     s2 = warp_sum(s2);

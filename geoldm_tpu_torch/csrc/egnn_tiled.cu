@@ -1,7 +1,7 @@
-// Row-tiled EquivariantBlock stages in f32 on Hopper (sm_90a), for molecules
-// too large for the whole-row kernel of egnn_block.cu (GEOM-Drugs pads to
-// 96/136/184 atoms): one GCL update (egnn_gcl_rows) and the coordinate
-// update (egnn_coord_rows).
+// Row-tiled EquivariantBlock stages in f32, and their bf16 variants, on Hopper
+// (sm_90a), for molecules too large for the whole-row kernel of
+// egnn_block.cu (GEOM-Drugs pads to 96/136/184 atoms): one GCL update
+// (egnn_gcl_rows) and the coordinate update (egnn_coord_rows).
 //
 // Replaces the TPU kernels
 //   #3 geoldm_tpu/ops/pallas_egnn_tiled.py:152 _make_gcl_rows_kernel over
@@ -59,6 +59,14 @@
 //   - the node-side products (src/dst projections, node MLP) run in the
 //     hand-written 64x64-tile f32 GEMM of egnn_common.cuh with its fused
 //     bias / silu / residual*mask epilogues.
+// The bf16 variants (egnn_gcl_rows_bf16, egnn_coord_rows_bf16; JAX's
+// bfloat16 compute dtypes, _matmul in _edge_pre_rows, _gcl_rows_math,
+// _coord_rows_math) walk the same windows with every product on bf16
+// operands and f32 accumulation: the W2 product as mma.sync.m16n8k16 bf16
+// (egnn_tile.cuh: tile_product_bf16, W2 converted to bf16 once a call), the
+// node GEMMs on operands rounded as they enter shared memory, the first
+// layer's edge-feature term and the gate / scale sums as f32 FMAs of
+// rounded operands. They serve sampling only (no node chain is kept).
 // The stages take a row window (egnn_rows.cuh); here the window is every row.
 // One call of egnn_gcl_rows enqueues 5 grids (6 when it keeps the node chain
 // for the backward), one of egnn_coord_rows 3, on the caller's stream;
@@ -106,6 +114,37 @@ int egnn_coord_rows(const float* h, const float* x, const float* x0, const float
                             reinterpret_cast<const float* const*>(w_table), B, N, H, E, sin_emb,
                             use_tanh, coords_range, mean_agg ? (float)N : normalization_factor,
                             norm_constant, (cudaStream_t)stream);
+}
+
+// The bf16 variant of kernel #3: egnn_gcl_rows' arguments with w2bf, [H, H]
+// bf16 scratch (16-byte aligned), in z's place.
+int egnn_gcl_rows_bf16(const float* h, const float* x, const float* x0, const float* mask,
+                       float* h_out, float* proj, float* agg, float* hidden, void* w2bf,
+                       const void* const* w_table, int B, int N, int H, int E, int attention,
+                       int sin_emb, int mean_agg, float norm_constant,
+                       float normalization_factor, void* stream) {
+  if (bad_dims(B, N, H, E, sin_emb) || !w2bf) return (int)cudaErrorInvalidValue;
+  const Slab all = {h, x, x0, mask, 0, N};
+  return gcl_rows_host<3, true>(h, x, x0, mask, all, h_out, proj, agg, hidden, nullptr,
+                                reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                                attention, sin_emb, mean_agg ? (float)N : normalization_factor,
+                                norm_constant, (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
+}
+
+// The bf16 variant of kernel #4: egnn_coord_rows' arguments and w2bf, [H, H]
+// bf16 scratch (16-byte aligned), after proj.
+int egnn_coord_rows_bf16(const float* h, const float* x, const float* x0, const float* mask,
+                         float* x_out, float* proj, void* w2bf, const void* const* w_table,
+                         int B, int N, int H, int E, int sin_emb, int use_tanh, int mean_agg,
+                         float coords_range, float norm_constant, float normalization_factor,
+                         void* stream) {
+  if (bad_dims(B, N, H, E, sin_emb) || !w2bf) return (int)cudaErrorInvalidValue;
+  const Slab all = {h, x, x0, mask, 0, N};
+  return coord_rows_host<4, true>(h, x, x0, mask, all, x_out, proj,
+                                  reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                                  sin_emb, use_tanh, coords_range,
+                                  mean_agg ? (float)N : normalization_factor, norm_constant,
+                                  (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ the NLL estimator that trains it and the sampler.
   diffusion's sigma_0 and detaches it: the encoder never receives a
   gradient (reference en_diffusion.py:1142-1155). With ``trainable_ae`` the
   decoder also learns through a reconstruction term on that latent.
-- ``ldm_sample`` diffuses in latent space, then decodes with the VAE.
+- ``ldm_sample`` diffuses in latent space, then decodes with the VAE;
+  ``ldm_sample_chain`` keeps and decodes the dense sampler's chain.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from geoldm_tpu_torch.config import ModelConfig
 from geoldm_tpu_torch.diffusion import schedules as S
 from geoldm_tpu_torch.diffusion import vae as vae_mod
 from geoldm_tpu_torch.diffusion import vdm
+from geoldm_tpu_torch.nn.core import resolve_compute
 from geoldm_tpu_torch.nn.dynamics import EGNNDynamics
 from geoldm_tpu_torch.ops import com
 
@@ -63,14 +65,19 @@ def log_constants_p_h_given_z0(cfg, gamma_fn, node_mask) -> torch.Tensor:
 
 
 def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_mask,
-            context: Optional[torch.Tensor] = None, training: bool = False) -> torch.Tensor:
+            context: Optional[torch.Tensor] = None, training: bool = False,
+            compute_dtype=None) -> torch.Tensor:
     """-log p(x, h) estimator [B] (latent.py:64-130). Draws from ``noise``,
     in order: the encoder's eps (x block, then h block), then those of
-    ``vdm.compute_loss``."""
+    ``vdm.compute_loss``. The encoder, decoder and denoiser run in
+    ``compute_dtype`` (a name resolved here; a bf16 one under
+    ``torch.no_grad`` only)."""
     cfg, vae_cfg = model.cfg.diffusion, model.cfg.vae
+    compute_dtype = resolve_compute(compute_dtype).dtype
     gamma_fn = vdm.make_gamma_fn(cfg, x.device)
     with torch.no_grad():  # the latent is detached: the encoder runs forward only
-        z_x_mu, _, z_h_mu, _ = vae_mod.encode(model.vae, x, h_cat, h_int, node_mask, context)
+        z_x_mu, _, z_h_mu, _ = vae_mod.encode(model.vae, x, h_cat, h_int, node_mask, context,
+                                              compute_dtype)
         b = x.shape[0]
         sigma_0 = S.sigma(gamma_fn(torch.zeros((b, 1), dtype=torch.float32, device=x.device)),
                           x.dim())
@@ -79,7 +86,7 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
 
     if model.cfg.trainable_ae:
         xh = torch.cat([x, h_cat, h_int], dim=2)
-        x_recon, h_recon = model.vae.decoder(z_xh, node_mask, context)
+        x_recon, h_recon = model.vae.decoder(z_xh, node_mask, context, compute_dtype)
         loss_recon = vae_mod.compute_reconstruction_error(
             vae_cfg, torch.cat([x_recon, h_recon], dim=2), xh, training)
     else:
@@ -89,7 +96,8 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
     z_x, z_h = z_xh[:, :, :cfg.n_dims], z_xh[:, :, cfg.n_dims:]
     loss_ld, _ = vdm.compute_loss(model.dynamics, cfg, noise, z_x, z_h[:, :, :0], z_h,
                                   node_mask, context, t0_always=not training,
-                                  training=training, latent_space=True)
+                                  training=training, latent_space=True,
+                                  compute_dtype=compute_dtype)
     neg_log_constants = -log_constants_p_h_given_z0(cfg, gamma_fn, node_mask)
     if training and cfg.loss_type == "l2":
         neg_log_constants = torch.zeros_like(neg_log_constants)
@@ -98,10 +106,28 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
 
 @torch.no_grad()
 def ldm_sample(model: EnLatentDiffusion, noise: com.Noise, node_mask,
-               fix_noise: bool = False):
-    """Diffuse in latent space, then decode (en_diffusion.py:1194-1204).
-    -> (x [B,N,3], h_cat one-hot [B,N,C], h_int charges [B,N,inc])."""
+               fix_noise: bool = False, compute_dtype=None, n_steps: Optional[int] = None,
+               eta: float = 1.0, method: str = "ddim", clip_z: float = 0.0):
+    """Diffuse in latent space, then decode (en_diffusion.py:1194-1204;
+    latent.py:133-164). ``compute_dtype``, ``n_steps``, ``eta``, ``method``
+    and ``clip_z`` as ``vdm.vdm_sample``; the decoder runs in
+    ``compute_dtype`` as JAX's does. -> (x [B,N,3], h_cat one-hot [B,N,C],
+    h_int charges [B,N,inc])."""
     z_x, z_cat, z_int = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask,
-                                       fix_noise)
+                                       fix_noise, compute_dtype, n_steps=n_steps, eta=eta,
+                                       method=method, clip_z=clip_z)
     z_xh = torch.cat([z_x, z_cat, z_int], dim=2)
-    return vae_mod.decode(model.vae, z_xh, node_mask)
+    return vae_mod.decode(model.vae, z_xh, node_mask, None, resolve_compute(compute_dtype).dtype)
+
+
+@torch.no_grad()
+def ldm_sample_chain(model: EnLatentDiffusion, noise: com.Noise, node_mask,
+                     keep_frames: int = 100, compute_dtype=None) -> torch.Tensor:
+    """The dense sampler's latent chain, each frame decoded
+    (en_diffusion.py:1207-1232; latent.py:167-196) -> [keep_frames, B, N,
+    3 + C + inc], frame 0 the final sample."""
+    _, chain = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask, False,
+                              compute_dtype, keep_frames=keep_frames)
+    dtype = resolve_compute(compute_dtype).dtype
+    return torch.stack([torch.cat(vae_mod.decode(model.vae, z_xh, node_mask, None, dtype), dim=2)
+                        for z_xh in chain])

@@ -36,11 +36,13 @@ def sample_combined_noise(noise: com.Noise, node_mask, n_dims: int, latent_nf: i
 
 
 def encode(vae: EnHierarchicalVAE, x, h_cat, h_int, node_mask,
-           context: Optional[torch.Tensor] = None):
+           context: Optional[torch.Tensor] = None, compute_dtype=None):
     """q(z | x, h) -> (z_x_mu [B,N,3], sigma_0_x [B,1,1], z_h_mu [B,N,L],
-    sigma_0_h [B,1,L]) with the fixed posterior std (vae.py:47-70)."""
+    sigma_0_h [B,1,L]) with the fixed posterior std (vae.py:47-70); the
+    encoder in ``compute_dtype``."""
     cfg = vae.cfg
-    z_x_mu, _, z_h_mu, _ = vae.encoder(torch.cat([x, h_cat, h_int], dim=2), node_mask, context)
+    z_x_mu, _, z_h_mu, _ = vae.encoder(torch.cat([x, h_cat, h_int], dim=2), node_mask, context,
+                                       compute_dtype)
     b = z_x_mu.shape[0]
     sigma_0_x = torch.full((b, 1, 1), cfg.encoder_sigma, dtype=z_x_mu.dtype,
                            device=z_x_mu.device)
@@ -49,11 +51,12 @@ def encode(vae: EnHierarchicalVAE, x, h_cat, h_int, node_mask,
     return z_x_mu, sigma_0_x, z_h_mu, sigma_0_h
 
 
-def decode(vae: EnHierarchicalVAE, z_xh, node_mask, context: Optional[torch.Tensor] = None):
-    """p(x, h | z): decoder EGNN, then argmax one-hot atom types and rounded
-    charges (vae.py:73-96)."""
+def decode(vae: EnHierarchicalVAE, z_xh, node_mask, context: Optional[torch.Tensor] = None,
+           compute_dtype=None):
+    """p(x, h | z): decoder EGNN (in ``compute_dtype``), then argmax one-hot
+    atom types and rounded charges (vae.py:73-96)."""
     cfg = vae.cfg
-    x_recon, h_recon = vae.decoder(z_xh, node_mask, context)
+    x_recon, h_recon = vae.decoder(z_xh, node_mask, context, compute_dtype)
     xh = torch.cat([x_recon, h_recon], dim=2)
     x = xh[:, :, :cfg.n_dims]
     inc = int(cfg.include_charges)

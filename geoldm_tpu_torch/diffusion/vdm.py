@@ -1,14 +1,20 @@
 """E(n) variational diffusion (port of ``geoldm_tpu/diffusion/vdm.py:56-813``
-for fixed schedules): the training loss in latent space and the dense
-ancestral sampler.
+for fixed schedules): the training loss in latent space and the sampler.
 
-The reverse loop is a plain Python loop over s = T-1 ... 0, as upstream
-runs it (en_diffusion.py:776-782), and the final step stays in latent space
-(the EnLatentDiffusion variant). Noise comes from a ``noise`` source
-(``ops.com.Noise``: a ``torch.Generator`` or a callable), so tests can feed
-the same numbers to both frameworks. DDIM/DPM-Solver, guidance, ``clip_z``,
-the chain and the plain (non-latent) diffusion model, whose t=0 term is
-``log_pxh_given_z0_without_constants``, wait for later slices.
+The sampler (``vdm_sample``) runs the dense ancestral loop over s = T-1 ...
+0, as upstream runs it (en_diffusion.py:776-782), or, with ``n_steps``, an
+``eta`` other than 1 or ``method='dpm2m'``, K jumps over an integer sub-grid
+of the T timesteps: the DDIM family (``sample_p_zs_given_zt_ddim``) or
+DPM-Solver++(2M). ``clip_z`` guards each step's state; a ``full``
+low-precision compute dtype with a ``mixed_tail`` runs the last steps and
+the final p(x | z0) step in f32; ``keep_frames`` returns the dense
+sampler's chain. The final step stays in latent space (the EnLatentDiffusion
+variant). The loops are plain Python loops. Noise comes from a ``noise``
+source (``ops.com.Noise``: a ``torch.Generator`` or a callable), drawn in
+JAX's key order (z_T, each step's, the final step's), so tests can feed the
+same numbers to both frameworks. Guidance and the plain (non-latent)
+diffusion model, whose t=0 term is ``log_pxh_given_z0_without_constants``,
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from geoldm_tpu_torch.config import DiffusionConfig
 from geoldm_tpu_torch.diffusion import schedules as S
+from geoldm_tpu_torch.nn.core import resolve_compute
 from geoldm_tpu_torch.ops import com
 
 
@@ -84,7 +91,7 @@ class VDMLossInfo(NamedTuple):
 
 def compute_loss(dynamics, cfg: DiffusionConfig, noise: com.Noise, x, h_cat, h_int, node_mask,
                  context: Optional[torch.Tensor], t0_always: bool, training: bool,
-                 latent_space: bool = True):
+                 latent_space: bool = True, compute_dtype=None):
     """Estimator of -log p(x, h) up to the constants the caller adds
     (vdm.py:260-370), on normalised inputs. ``latent_space=True`` (the
     EnLatentDiffusion path) makes the t=0 term the plain eps error.
@@ -105,7 +112,7 @@ def compute_loss(dynamics, cfg: DiffusionConfig, noise: com.Noise, x, h_cat, h_i
     eps = sample_combined_position_feature_noise(noise, node_mask, cfg.n_dims, cfg.in_node_nf)
     xh = torch.cat([x, h_cat, h_int], dim=2)
     z_t = S.alpha(gamma_t, x.dim()) * xh + S.sigma(gamma_t, x.dim()) * eps
-    net_out = dynamics(t, z_t, node_mask, context)
+    net_out = dynamics(t, z_t, node_mask, context, compute_dtype)
     error = compute_error(cfg, net_out, eps, training)
 
     l2_training = training and cfg.loss_type == "l2"
@@ -127,7 +134,7 @@ def compute_loss(dynamics, cfg: DiffusionConfig, noise: com.Noise, x, h_cat, h_i
         eps_0 = sample_combined_position_feature_noise(noise, node_mask, cfg.n_dims,
                                                        cfg.in_node_nf)
         z_0 = S.alpha(gamma_0, x.dim()) * xh + S.sigma(gamma_0, x.dim()) * eps_0
-        net_out0 = dynamics(t_zeros, z_0, node_mask, context)
+        net_out0 = dynamics(t_zeros, z_0, node_mask, context, compute_dtype)
         loss_term_0 = 0.5 * compute_error(cfg, net_out0, eps_0, training)
         loss = kl_prior_ + cfg.timesteps * loss_t_larger_than_zero + neg_log_constants \
             + loss_term_0
@@ -157,10 +164,11 @@ def sample_normal(noise: com.Noise, mu, sigma, node_mask, n_dims: int, feat_nf: 
     return mu + sigma * eps
 
 
-def guided_eps(dynamics, t, z, node_mask):
-    """Denoiser eps-hat of the unconditional model (context=None);
-    classifier-free guidance joins with the conditional slice."""
-    return dynamics(t, z, node_mask)
+def guided_eps(dynamics, t, z, node_mask, compute_dtype=None):
+    """Denoiser eps-hat of the unconditional model (context=None) in
+    ``compute_dtype``; classifier-free guidance joins with the conditional
+    slice."""
+    return dynamics(t, z, node_mask, None, compute_dtype)
 
 
 def compute_x_pred(net_out, zt, gamma_t) -> torch.Tensor:
@@ -176,7 +184,7 @@ def _project_x(z, node_mask, n_dims):
 
 
 def sample_p_zs_given_zt(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, zt,
-                         node_mask, fix_noise: bool = False) -> torch.Tensor:
+                         node_mask, fix_noise: bool = False, compute_dtype=None) -> torch.Tensor:
     """One ancestral step zs ~ p(z_s | z_t) (en_diffusion.py:716-747)."""
     gamma_s = gamma_fn(s)
     gamma_t = gamma_fn(t)
@@ -185,7 +193,7 @@ def sample_p_zs_given_zt(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, 
     sigma_s = S.sigma(gamma_s, zt.dim())
     sigma_t = S.sigma(gamma_t, zt.dim())
 
-    eps_t = guided_eps(dynamics, t, zt, node_mask)
+    eps_t = guided_eps(dynamics, t, zt, node_mask, compute_dtype)
     mu = zt / alpha_t_given_s - (sigma2_t_given_s / alpha_t_given_s / sigma_t) * eps_t
     sigma = sigma_t_given_s * sigma_s / sigma_t
     zs = sample_normal(noise, mu, sigma, node_mask, cfg.n_dims, cfg.in_node_nf, fix_noise)
@@ -193,8 +201,35 @@ def sample_p_zs_given_zt(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, 
     return _project_x(zs, node_mask, cfg.n_dims)
 
 
+def sample_p_zs_given_zt_ddim(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, zt,
+                              node_mask, eta: float = 0.0, fix_noise: bool = False,
+                              compute_dtype=None) -> torch.Tensor:
+    """The reverse jump z_t -> z_s for any s < t, DDIM family (vdm.py:494-537;
+    Song et al. 2021, eq. 12): predict x from eps, then re-noise to level s
+    with stochasticity ``eta``. eta=1 is the ancestral posterior step
+    (algebraically ``sample_p_zs_given_zt``), eta=0 the deterministic
+    probability-flow jump. The noise is drawn whatever eta, as JAX draws
+    it."""
+    gamma_s = gamma_fn(s)
+    gamma_t = gamma_fn(t)
+    _, sigma_t_given_s, _ = S.sigma_and_alpha_t_given_s(gamma_t, gamma_s, zt.dim())
+    alpha_s = S.alpha(gamma_s, zt.dim())
+    sigma_s = S.sigma(gamma_s, zt.dim())
+    sigma_t = S.sigma(gamma_t, zt.dim())
+
+    eps_t = guided_eps(dynamics, t, zt, node_mask, compute_dtype)
+    x_pred = compute_x_pred(eps_t, zt, gamma_t)
+    # eta scales the ancestral posterior std; the remaining variance rides
+    # the predicted eps direction so Var(z_s) stays sigma_s^2.
+    sigma_tilde = eta * (sigma_t_given_s * sigma_s / sigma_t)
+    dir_coef = torch.sqrt(torch.clamp(sigma_s ** 2 - sigma_tilde ** 2, min=0.0))
+    mu = alpha_s * x_pred + dir_coef * eps_t
+    zs = sample_normal(noise, mu, sigma_tilde, node_mask, cfg.n_dims, cfg.in_node_nf, fix_noise)
+    return _project_x(zs, node_mask, cfg.n_dims)
+
+
 def sample_p_xh_given_z0(dynamics, cfg: DiffusionConfig, gamma_fn, noise, z0, node_mask,
-                         fix_noise: bool = False):
+                         fix_noise: bool = False, compute_dtype=None):
     """Final step p(x, h | z_0), staying in the latent representation
     (``latent_space=True``; EnLatentDiffusion, en_diffusion.py:1099-1122).
     -> (x [B,N,3], empty h_cat [B,N,0], latent h [B,N,F])."""
@@ -202,32 +237,141 @@ def sample_p_xh_given_z0(dynamics, cfg: DiffusionConfig, gamma_fn, noise, z0, no
     zeros = torch.zeros((b, 1), dtype=torch.float32, device=z0.device)
     gamma_0 = gamma_fn(zeros)
     sigma_x = S.snr(-0.5 * gamma_0).reshape(b, 1, 1)
-    net_out = guided_eps(dynamics, zeros, z0, node_mask)
+    net_out = guided_eps(dynamics, zeros, z0, node_mask, compute_dtype)
     mu_x = compute_x_pred(net_out, z0, gamma_0)
     xh = sample_normal(noise, mu_x, sigma_x, node_mask, cfg.n_dims, cfg.in_node_nf, fix_noise)
     x = xh[:, :, :cfg.n_dims]
     return x, xh[:, :, :0], xh[:, :, cfg.n_dims:]
 
 
+def strided_grid(timesteps: int, n_steps: int) -> list:
+    """The few-step sampler's integer sub-grid tau_0 = T > ... > tau_K = 0
+    (vdm.py:684-688): strictly decreasing for K <= T, since consecutive gaps
+    are at least floor(T/K) >= 1."""
+    return [((n_steps - k) * timesteps) // n_steps for k in range(n_steps + 1)]
+
+
+def mixed_tail_steps(compute_dtype, n_steps: int) -> int:
+    """How many final sampler steps run in f32: round(mixed_tail * K) under a
+    ``full`` compute dtype (``bfloat16_mixed``: 10 %), else 0."""
+    spec = resolve_compute(compute_dtype)
+    return int(round(spec.mixed_tail * n_steps)) if spec.full else 0
+
+
+def chain_slots(timesteps: int, keep_frames: int) -> list:
+    """The step s whose state chain slot k keeps (vdm.py:801-811): upstream
+    writes slot floor(s * keep / T) at every step, so the surviving frame of
+    slot k is the smallest s in it, ceil(k * T / keep). With keep > T a slot
+    can fall past the last step (s = T); JAX's gather index T - 1 - s is
+    then -1 and wraps to the state after step 0, and so does this one."""
+    T = timesteps
+    return [T - 1 - (T - 1 + (k * T) // -keep_frames) % T for k in range(keep_frames)]
+
+
 def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
-               fix_noise: bool = False):
-    """Dense ancestral sampling over all T steps, then the final latent-space
-    step and a CoM re-projection (vdm.py:579-813 with n_steps=None, eta=1,
-    method='ddim', guidance_scale=1, clip_z=0, latent_space=True)."""
+               fix_noise: bool = False, compute_dtype=None, keep_frames: Optional[int] = None,
+               n_steps: Optional[int] = None, eta: float = 1.0, method: str = "ddim",
+               clip_z: float = 0.0):
+    """Reverse diffusion, then the final latent-space step and a CoM
+    re-projection (vdm.py:579-813 with guidance_scale=1, latent_space=True).
+
+    - Dense (the defaults): the T ancestral steps.
+    - ``n_steps`` K (even K = T), ``eta`` other than 1 or ``method='dpm2m'``:
+      K jumps over ``strided_grid(T, K)``, ``method='ddim'`` with
+      stochasticity ``eta`` or ``'dpm2m'``, DPM-Solver++(2M) (Lu et al.
+      2022; deterministic, ``eta`` ignored). K = T with eta 1 is the dense
+      sampler up to rounding.
+    - ``clip_z`` > 0 clamps each step's state to [-clip_z, clip_z] and
+      re-projects the coordinates to zero CoM; 0 leaves it untouched.
+    - ``compute_dtype`` (a name or ``ComputeSpec``, resolved here once by
+      ``nn.core.resolve_compute``): the denoiser's operand dtype; under a
+      ``full`` spec the last ``mixed_tail_steps`` steps and the final step
+      run in f32.
+    - ``keep_frames`` F (dense sampler only): also return the chain
+      [F, B, N, D], slot k the state after step ``chain_slots(T, F)[k]`` and
+      slot 0 the final (x, h_cat, h_int).
+
+    Noise draws, in order: z_T (x, then h), one per step (none for dpm2m),
+    the final step's."""
+    if method not in ("ddim", "dpm2m"):
+        raise ValueError(f"unknown sampling method {method!r}")
     gamma_fn = make_gamma_fn(cfg, node_mask.device)
     b = node_mask.shape[0]
+    dev = node_mask.device
+
+    def guard(z):
+        if clip_z <= 0:
+            return z
+        zx = com.remove_mean_with_mask(
+            torch.clamp(z[:, :, :cfg.n_dims], -clip_z, clip_z) * node_mask, node_mask)
+        zh = torch.clamp(z[:, :, cfg.n_dims:], -clip_z, clip_z)
+        return torch.cat([zx, zh], dim=2) * node_mask
+
     if fix_noise:
         z = sample_normal(noise, 0.0, 1.0, node_mask, cfg.n_dims, cfg.in_node_nf, True)
     else:
         z = sample_combined_position_feature_noise(noise, node_mask, cfg.n_dims, cfg.in_node_nf)
     T = cfg.timesteps
-    for s_idx in range(T - 1, -1, -1):
-        s_arr = torch.full((b, 1), s_idx, dtype=torch.float32, device=z.device) / T
-        t_arr = torch.full((b, 1), s_idx + 1, dtype=torch.float32, device=z.device) / T
-        z = sample_p_zs_given_zt(dynamics, cfg, gamma_fn, noise, s_arr, t_arr, z,
-                                 node_mask, fix_noise)
+    K = T if n_steps is None else int(n_steps)
+    if not 1 <= K <= T:
+        raise ValueError(f"n_steps must be in [1, {T}], got {K}")
+    strided = n_steps is not None or eta != 1.0 or method != "ddim"
+    want_chain = keep_frames is not None
+    if strided and want_chain:
+        raise ValueError("chain visualization requires the dense sampler (n_steps=None, eta=1.0)")
+    spec = resolve_compute(compute_dtype)
+    tail = mixed_tail_steps(spec, K) if not want_chain else 0
+    step_dtype = [spec.dtype if k < K - tail else None for k in range(K)]
+
+    def full(v):
+        return torch.full((b, 1), v, dtype=torch.float32, device=dev)
+
+    if strided:
+        tau = strided_grid(T, K)
+        grid = torch.tensor(tau, dtype=torch.float32) / T
+        if method == "dpm2m":
+            # Each jump t -> s evaluates x_pred once at level t and
+            # extrapolates x(lambda) through the previous evaluation, lambda =
+            # -gamma/2: h = lambda_s - lambda_t, c = h / (2 h_prev),
+            #   D = (1 + c) x_t - c x_prev     (first jump: D = x_t)
+            #   z_s = (sigma_s / sigma_t) z - alpha_s expm1(-h) D.
+            x_prev = torch.zeros_like(z)
+            h_prev = torch.ones((b, 1, 1), device=dev)
+            not_first = torch.zeros((), device=dev)
+            for k in range(K):
+                s_arr, t_arr = full(float(grid[k + 1])), full(float(grid[k]))
+                gamma_s, gamma_t = gamma_fn(s_arr), gamma_fn(t_arr)
+                h = S.inflate(-0.5 * gamma_s, z.dim()) - S.inflate(-0.5 * gamma_t, z.dim())
+                eps_t = guided_eps(dynamics, t_arr, z, node_mask, step_dtype[k])
+                x_t = compute_x_pred(eps_t, z, gamma_t)
+                c = not_first * (h / (2.0 * h_prev))
+                d = (1.0 + c) * x_t - c * x_prev
+                z_s = (S.sigma(gamma_s, z.dim()) / S.sigma(gamma_t, z.dim())) * z \
+                    - S.alpha(gamma_s, z.dim()) * torch.expm1(-h) * d
+                z = guard(_project_x(z_s, node_mask, cfg.n_dims) * node_mask)
+                x_prev, h_prev, not_first = x_t, h, torch.ones((), device=dev)
+        else:
+            for k in range(K):
+                z = guard(sample_p_zs_given_zt_ddim(
+                    dynamics, cfg, gamma_fn, noise, full(float(grid[k + 1])),
+                    full(float(grid[k])), z, node_mask, eta, fix_noise, step_dtype[k]))
+    else:
+        keep = {}
+        slots = chain_slots(T, keep_frames) if want_chain else []
+        for k, s_idx in enumerate(range(T - 1, -1, -1)):
+            s_arr = torch.full((b, 1), s_idx, dtype=torch.float32, device=dev) / T
+            t_arr = torch.full((b, 1), s_idx + 1, dtype=torch.float32, device=dev) / T
+            z = guard(sample_p_zs_given_zt(dynamics, cfg, gamma_fn, noise, s_arr, t_arr, z,
+                                           node_mask, fix_noise, step_dtype[k]))
+            if s_idx in slots:
+                keep[s_idx] = z
+        frames = [keep[s] for s in slots]
+    final_dtype = None if tail > 0 else spec.dtype
     x, h_cat, h_int = sample_p_xh_given_z0(dynamics, cfg, gamma_fn, noise, z, node_mask,
-                                           fix_noise)
+                                           fix_noise, final_dtype)
     # Final CoM-drift guard (reference: en_diffusion.py:789-793).
     x = com.remove_mean_with_mask(x * node_mask, node_mask)
+    if want_chain:
+        frames[0] = torch.cat([x, h_cat, h_int], dim=2)
+        return (x, h_cat, h_int), torch.stack(frames)
     return x, h_cat, h_int

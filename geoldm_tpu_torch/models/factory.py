@@ -130,15 +130,17 @@ def build_model(cfg: ModelConfig, device="cuda",
     return model.to(dev).eval()
 
 
-def model_nll_fn(model_cfg: ModelConfig, training: bool):
+def model_nll_fn(model_cfg: ModelConfig, training: bool, compute_dtype=None):
     """nll(model, noise, x, h_cat, h_int, node_mask, context=None) -> [B] for
-    the configured model kind (factory.py:289-320)."""
+    the configured model kind (factory.py:289-320); a latent diffusion's in
+    ``compute_dtype``."""
     if model_cfg.kind == "vae":
         def nll(model, noise, x, h_cat, h_int, node_mask, context=None):
             return vae_mod.vae_nll(model, noise, x, h_cat, h_int, node_mask, context, training)
         return nll
     if model_cfg.kind == "latent_diffusion":
         def nll(model, noise, x, h_cat, h_int, node_mask, context=None):
-            return ldm.ldm_nll(model, noise, x, h_cat, h_int, node_mask, context, training)
+            return ldm.ldm_nll(model, noise, x, h_cat, h_int, node_mask, context, training,
+                               compute_dtype)
         return nll
     raise NotImplementedError(f"model kind {model_cfg.kind!r} is not ported yet")

@@ -1,0 +1,93 @@
+"""How the EGNN computes (port of ``geoldm_tpu/nn/core.py:24-94``): the
+``ComputeSpec`` a compute-dtype name resolves to, and the linear layer that
+honours it.
+
+The port serves seven names:
+
+- ``float32``, ``pallas``, ``xla``: the f32 kernels (JAX's two backends are
+  one route here: the hand-written kernels on the card, their plain
+  versions on the CPU).
+- ``bfloat16``, ``bfloat16_pallas``: every matrix product of the EGNN takes
+  bf16 operands and accumulates in f32; activations, sums, biases and the
+  schedule algebra stay f32 (JAX's ``_matmul`` / ``linear`` with
+  ``GEOLDM_PALLAS_EDGE_LOWP`` off, its default, ``pallas_egnn.py:49-55``).
+  On the card they run the bf16 variants of kernels #1, #3 and #4.
+- ``bfloat16_full``: the same kernels. JAX's ``full`` also casts the
+  activations and parameters to bf16 (``geoldm_tpu/nn/dynamics.py:39-49``);
+  the port keeps them in f32, so it is at least as accurate.
+- ``bfloat16_mixed``: ``bfloat16_full`` with the last ``round(0.1 * K)``
+  sampler steps and the final p(x | z0) step in f32 (``mixed_tail``,
+  ``diffusion/vdm.py``).
+
+JAX's sequence-parallel spec (``sp_mesh``) and Pallas interpret mode are
+TPU-side options and have no counterpart.
+
+A name is resolved once, where it enters: the sampler (``vdm.vdm_sample``,
+``latent.ldm_sample``) and the NLL (``latent.ldm_nll``). Below them the
+denoiser, the encoder and decoder, the EGNN and the kernel wrappers take
+the products' operand dtype alone: None (f32) or ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+class ComputeSpec(NamedTuple):
+    """``dtype``: None (f32) or ``torch.bfloat16`` (bf16 matrix-product
+    operands, f32 accumulation). ``full``: the sampler-level low-precision
+    mode. ``mixed_tail``: the fraction of final sampler steps forced to f32
+    under ``full``. (JAX's ``backend`` has no field: its 'xla' and 'pallas'
+    run the same kernels here.)"""
+
+    dtype: Optional[torch.dtype] = None
+    full: bool = False
+    mixed_tail: float = 0.0
+
+
+COMPUTE_DTYPES = ("float32", "pallas", "xla", "bfloat16", "bfloat16_pallas", "bfloat16_full",
+                  "bfloat16_mixed")
+
+
+def resolve_compute(compute_dtype) -> ComputeSpec:
+    """None, a ``ComputeSpec``, one of ``COMPUTE_DTYPES`` or a torch dtype
+    (float32, bfloat16) -> ComputeSpec (``nn/core.py:resolve_compute``)."""
+    if compute_dtype is None:
+        return ComputeSpec()
+    if isinstance(compute_dtype, ComputeSpec):
+        return compute_dtype
+    if isinstance(compute_dtype, str):
+        if compute_dtype in ("float32", "pallas", "xla"):
+            return ComputeSpec()
+        if compute_dtype in ("bfloat16", "bfloat16_pallas"):
+            return ComputeSpec(torch.bfloat16)
+        if compute_dtype == "bfloat16_full":
+            return ComputeSpec(torch.bfloat16, True)
+        if compute_dtype == "bfloat16_mixed":
+            return ComputeSpec(torch.bfloat16, True, 0.1)
+        raise ValueError(f"unknown compute dtype {compute_dtype!r}; the port serves "
+                         f"{', '.join(COMPUTE_DTYPES)}")
+    if compute_dtype == torch.float32:
+        return ComputeSpec()
+    if compute_dtype == torch.bfloat16:
+        return ComputeSpec(torch.bfloat16)
+    raise ValueError(f"unsupported compute dtype {compute_dtype!r}")
+
+
+def round_operand(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` (to nearest, ties to even) and back to f32;
+    unchanged for None. A product of two bf16 values is exact in f32, so an
+    f32 product of rounded operands is a bf16 product with f32
+    accumulation."""
+    return t if dtype is None else t.to(dtype).float()
+
+
+def linear(lin: torch.nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
+    """``lin(x)`` with the operands rounded to ``dtype`` and the bias added in
+    f32 (``nn/core.py:linear``)."""
+    if dtype is None:
+        return lin(x)
+    return F.linear(round_operand(x, dtype), round_operand(lin.weight, dtype), lin.bias)

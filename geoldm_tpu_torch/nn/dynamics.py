@@ -17,9 +17,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from geoldm_tpu_torch.config import DynamicsConfig, EGNNConfig
+from geoldm_tpu_torch.nn.core import linear
 from geoldm_tpu_torch.nn.egnn import EGNN
 from geoldm_tpu_torch.ops.com import remove_mean_with_mask
 
@@ -40,8 +42,9 @@ class EGNNDynamics(nn.Module):
         self.egnn = EGNN(cfg.egnn)
 
     def forward(self, t: torch.Tensor, xh: torch.Tensor, node_mask: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """t [B, 1] (or a scalar), xh [B, N, 3 + F] -> [B, N, 3 + F]."""
+                context: Optional[torch.Tensor] = None, compute_dtype=None) -> torch.Tensor:
+        """t [B, 1] (or a scalar), xh [B, N, 3 + F] -> [B, N, 3 + F].
+        ``compute_dtype``: the EGNN's (``nn.egnn``); the rest stays f32."""
         cfg = self.cfg
         b, n, dims = xh.shape
         h_dims = dims - cfg.n_dims
@@ -55,7 +58,7 @@ class EGNNDynamics(nn.Module):
         if context is not None:
             h = torch.cat([h, context], dim=-1)
 
-        h_final, x_final = self.egnn(h, x.contiguous(), node_mask)
+        h_final, x_final = self.egnn(h, x.contiguous(), node_mask, compute_dtype)
         vel = (x_final - x) * node_mask
 
         if context is not None:
@@ -79,10 +82,11 @@ class EGNNEncoder(nn.Module):
                                        nn.Linear(cfg.hidden_nf, 2 * latent_nf + 1))
 
     def forward(self, xh: torch.Tensor, node_mask: torch.Tensor,
-                context: Optional[torch.Tensor] = None):
+                context: Optional[torch.Tensor] = None, compute_dtype=None):
         """xh [B,N,3+F] -> (vel_mean [B,N,3], vel_std [B,1,1], h_mean [B,N,L],
         h_std [B,N,L]). vel_std is per molecule: its logit is summed over
-        the nodes (reference egnn/models.py:240-245)."""
+        the nodes (reference egnn/models.py:240-245). ``compute_dtype``: the
+        EGNN's and the final MLP's (``nn.egnn``)."""
         b, n, dims = xh.shape
         xh = xh * node_mask
         x = xh[..., :self.n_dims]
@@ -90,9 +94,10 @@ class EGNNEncoder(nn.Module):
             (b, n, 1), dtype=xh.dtype, device=xh.device)
         if context is not None:
             h = torch.cat([h, context], dim=-1)
-        h_final, x_final = self.egnn(h, x.contiguous(), node_mask)
+        h_final, x_final = self.egnn(h, x.contiguous(), node_mask, compute_dtype)
         vel = remove_mean_with_mask(_nan_reset(x_final * node_mask), node_mask)
-        h_final = self.final_mlp(h_final) * node_mask
+        mlp, dt = self.final_mlp, compute_dtype
+        h_final = linear(mlp[2], F.silu(linear(mlp[0], h_final, dt)), dt) * node_mask
         vel_std = torch.exp(0.5 * h_final[..., :1].sum(dim=1, keepdim=True))  # [B,1,1]
         h_mean = h_final[..., 1:1 + self.latent_nf]
         h_std = torch.exp(0.5 * h_final[..., 1 + self.latent_nf:])
@@ -109,7 +114,7 @@ class EGNNDecoder(nn.Module):
         self.egnn = EGNN(cfg)
 
     def forward(self, z_xh: torch.Tensor, node_mask: torch.Tensor,
-                context: Optional[torch.Tensor] = None):
+                context: Optional[torch.Tensor] = None, compute_dtype=None):
         b, n, dims = z_xh.shape
         z_xh = z_xh * node_mask
         x = z_xh[..., :self.n_dims]
@@ -117,6 +122,6 @@ class EGNNDecoder(nn.Module):
             (b, n, 1), dtype=z_xh.dtype, device=z_xh.device)
         if context is not None:
             h = torch.cat([h, context], dim=-1)
-        h_final, x_final = self.egnn(h, x.contiguous(), node_mask)
+        h_final, x_final = self.egnn(h, x.contiguous(), node_mask, compute_dtype)
         vel = remove_mean_with_mask(_nan_reset(x_final * node_mask), node_mask)
         return vel, h_final * node_mask

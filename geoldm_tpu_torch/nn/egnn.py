@@ -18,6 +18,13 @@ autograd Function, whose backward is a kernel too (#2, #5). An EGNN attached
 to a sequence-parallel group (``parallel.sp.attach``) runs its blocks over
 its rank's slab of rows instead (``parallel.sp.egnn_forward_sp``: kernels #6
 and #7).
+
+``compute_dtype`` ``torch.bfloat16`` (a name resolved by the sampler or the
+NLL, ``nn.core``) selects the bf16 variants: every linear layer's operands
+rounded to bf16, f32 accumulation (JAX's ``linear`` / ``_matmul`` under a bf16 compute dtype);
+each block runs the bf16 variants of kernels #1, #3 and #4 on the card, the
+modules' forwards with ``compute_dtype=torch.bfloat16`` on the CPU. They
+serve sampling only (no autograd, no sequence parallelism).
 """
 
 from __future__ import annotations
@@ -30,17 +37,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from geoldm_tpu_torch.config import EGNNConfig
+from geoldm_tpu_torch.nn.core import linear, round_operand
 from geoldm_tpu_torch.ops import egnn_block
 from geoldm_tpu_torch.ops.distance import coord2diff, sin_embedding
 
 
-def _pair_first_layer(lin: nn.Linear, h: torch.Tensor, edge_attr: Optional[torch.Tensor]):
-    """lin([h_i, h_j, e_ij]) for all pairs without building the concat."""
+def _pair_first_layer(lin: nn.Linear, h: torch.Tensor, edge_attr: Optional[torch.Tensor],
+                      dtype: Optional[torch.dtype] = None):
+    """lin([h_i, h_j, e_ij]) for all pairs without building the concat; each
+    product's operands rounded to ``dtype`` (None: f32)."""
     f = h.shape[-1]
-    w = lin.weight  # [out, 2f + E]
+    w = round_operand(lin.weight, dtype)  # [out, 2f + E]
+    h = round_operand(h, dtype)
     pre = (h @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
     if edge_attr is not None and w.shape[1] > 2 * f:
-        pre = pre + edge_attr @ w[:, 2 * f:].T
+        pre = pre + round_operand(edge_attr, dtype) @ w[:, 2 * f:].T
     return pre + lin.bias
 
 
@@ -70,13 +81,15 @@ class GCL(nn.Module):
         if cfg.attention:
             self.att_mlp = nn.Sequential(nn.Linear(nf, 1), nn.Sigmoid())
 
-    def forward(self, h, edge_attr, node_mask, edge_mask):
-        pre = _pair_first_layer(self.edge_mlp[0], h, edge_attr)
-        mij = F.silu(self.edge_mlp[2](F.silu(pre)))
+    def forward(self, h, edge_attr, node_mask, edge_mask, compute_dtype=None):
+        dt = compute_dtype
+        pre = _pair_first_layer(self.edge_mlp[0], h, edge_attr, dt)
+        mij = F.silu(linear(self.edge_mlp[2], F.silu(pre), dt))
         if self.cfg.attention:
-            mij = mij * self.att_mlp(mij)
+            mij = mij * torch.sigmoid(linear(self.att_mlp[0], mij, dt))
         agg = _aggregate(mij, edge_mask, self.cfg)
-        out = h + self.node_mlp(torch.cat([h, agg], dim=-1))
+        node = self.node_mlp
+        out = h + linear(node[2], F.silu(linear(node[0], torch.cat([h, agg], dim=-1), dt)), dt)
         return out * node_mask
 
 
@@ -92,10 +105,11 @@ class EquivariantUpdate(nn.Module):
                                        nn.Linear(nf, nf), nn.SiLU(),
                                        nn.Linear(nf, 1, bias=False))
 
-    def forward(self, h, x, coord_diff, edge_attr, node_mask, edge_mask):
-        pre = _pair_first_layer(self.coord_mlp[0], h, edge_attr)
-        mid = F.silu(self.coord_mlp[2](F.silu(pre)))
-        s = self.coord_mlp[4](mid)  # [B, N, N, 1]
+    def forward(self, h, x, coord_diff, edge_attr, node_mask, edge_mask, compute_dtype=None):
+        dt = compute_dtype
+        pre = _pair_first_layer(self.coord_mlp[0], h, edge_attr, dt)
+        mid = F.silu(linear(self.coord_mlp[2], F.silu(pre), dt))
+        s = linear(self.coord_mlp[4], mid, dt)  # [B, N, N, 1]
         if self.cfg.tanh:
             s = torch.tanh(s) * self.cfg.coords_range_layer
         x = x + _aggregate(coord_diff * s, edge_mask, self.cfg)
@@ -114,13 +128,15 @@ class EquivariantBlock(nn.Module):
             self.add_module(f"gcl_{j}", GCL(cfg))
         self.gcl_equiv = EquivariantUpdate(cfg)
 
-    def forward(self, h, x, edge_attr0, node_mask, edge_mask):
+    def forward(self, h, x, edge_attr0, node_mask, edge_mask, compute_dtype=None):
+        """``compute_dtype``: None or ``torch.bfloat16``, the linear layers'
+        operand dtype."""
         radial, coord_diff = coord2diff(x, self.cfg.norm_constant)
         dist = sin_embedding(radial) if self.cfg.sin_embedding else radial
         edge_attr = torch.cat([dist, edge_attr0], dim=-1)
         for j in range(self.cfg.inv_sublayers):
-            h = getattr(self, f"gcl_{j}")(h, edge_attr, node_mask, edge_mask)
-        x = self.gcl_equiv(h, x, coord_diff, edge_attr, node_mask, edge_mask)
+            h = getattr(self, f"gcl_{j}")(h, edge_attr, node_mask, edge_mask, compute_dtype)
+        x = self.gcl_equiv(h, x, coord_diff, edge_attr, node_mask, edge_mask, compute_dtype)
         return h * node_mask, x
 
 
@@ -138,16 +154,22 @@ class EGNN(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"e_block_{i}", EquivariantBlock(cfg))
 
-    def forward(self, h, x, node_mask):
+    def forward(self, h, x, node_mask, compute_dtype=None):
+        """``compute_dtype``: None or ``torch.bfloat16``, the linear layers'
+        operand dtype."""
         if self.sp is not None:
+            if compute_dtype is not None:
+                raise NotImplementedError("a bf16 compute dtype under sequence parallelism "
+                                          "is not ported yet")
             from geoldm_tpu_torch.parallel.sp import egnn_forward_sp
 
             return egnn_forward_sp(self, h, x, node_mask, self.sp)
         x0 = x
-        h = self.embedding(h)
+        h = linear(self.embedding, h, compute_dtype)
         for i in range(self.cfg.n_layers):
-            h, x = egnn_block.block_forward(getattr(self, f"e_block_{i}"), h, x, x0, node_mask)
-        return self.embedding_out(h) * node_mask, x
+            h, x = egnn_block.block_forward(getattr(self, f"e_block_{i}"), h, x, x0, node_mask,
+                                            compute_dtype)
+        return linear(self.embedding_out, h, compute_dtype) * node_mask, x
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

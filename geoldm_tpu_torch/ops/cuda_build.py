@@ -38,6 +38,7 @@ _STR = ctypes.c_char_p
 _SIGNATURES = {
     "egnn_block": {
         "egnn_block_forward": ([_P] * 12 + [_I] * 9 + [_F] * 3 + [_P], _I),
+        "egnn_block_forward_bf16": ([_P] * 12 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_error_string": ([_I], _STR),
     },
     "egnn_block_bwd": {
@@ -48,6 +49,8 @@ _SIGNATURES = {
     "egnn_tiled": {
         "egnn_gcl_rows": ([_P] * 10 + [_I] * 7 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_P], _I),
+        "egnn_gcl_rows_bf16": ([_P] * 10 + [_I] * 7 + [_F] * 2 + [_P], _I),
+        "egnn_coord_rows_bf16": ([_P] * 8 + [_I] * 7 + [_F] * 3 + [_P], _I),
         "egnn_tiled_error_string": ([_I], _STR),
     },
     "egnn_tiled_bwd": {

@@ -10,6 +10,16 @@ them.
 - Both run their edge MLPs on multi-row tiles (``csrc/egnn_block_tile.cuh``)
   with the products on the tensor cores in split TF32 (3xTF32, f32
   accuracy); ``split_tf32_matmul`` emulates that rounding on the CPU.
+- The forward's bf16 variant (``compute_dtype=torch.bfloat16``: JAX's
+  ``bfloat16`` / ``bfloat16_pallas``, ``_matmul`` in ``_block_math``) runs
+  every product on bf16 operands with f32 accumulation
+  (``egnn_block_forward_bf16``); its plain version is the module's forward
+  with each matrix product's operands rounded to bf16
+  (``nn.core.round_operand``: the product of two bf16 values is exact in
+  f32). It serves sampling only: under autograd its wrapper raises (bf16
+  training needs bf16 backward kernels, not ported yet). The ops take the
+  operand dtype alone (None or ``torch.bfloat16``); a compute-dtype name is
+  resolved above them (``nn.core``).
 - ``EquivariantBlockFunction`` runs the forward kernel, which on the card
   also saves each GCL's h, aggregate, node-MLP pre-activation and its silu
   ([B*N, H] each), and the backward kernel from those (as ``_fwd``/``_bwd``
@@ -37,8 +47,8 @@ budgets of the TPU and is not this rule.) A wrapper given a CUDA tensor
 launches its kernel or raises; only CPU tensors take a plain version. The
 kernels are built by ``ops.cuda_build``.
 
-``launches`` / ``bwd_launches`` count kernel calls: one per block forward /
-backward on the card.
+``launches`` / ``bwd_launches`` / ``bf16_launches`` count kernel calls: one
+per block forward / backward / bf16 forward on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embed
 
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
 
 MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes: one row's edges fit one 64-row tile
 MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, the widest tile (512 threads)
@@ -143,11 +154,28 @@ def _cfg_args(cfg):
             float(cfg.norm_constant), float(cfg.normalization_factor))
 
 
-def _forward_launch(block, h, x, x0, node_mask, save: bool):
+def bf16_variant(compute_dtype, what: str) -> bool:
+    """Whether ``compute_dtype`` (None or ``torch.bfloat16``) selects a
+    wrapper's bf16 variant, which serves sampling: under autograd it
+    raises."""
+    if compute_dtype is None:
+        return False
+    if compute_dtype != torch.bfloat16:
+        raise TypeError(f"{what}: compute dtype {compute_dtype!r}; the kernels take None or "
+                        "torch.bfloat16 (resolve a name with nn.core.resolve_compute)")
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{what} in bf16 under autograd is not ported yet: bf16 training needs bf16 "
+            "variants of the backward kernels #2, #5 and #7; run it under torch.no_grad()")
+    return True
+
+
+def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
     """The forward kernel -> (h_out, x_out, saved): saved is the
     [4, inv_sublayers, B*N, H] stack of each GCL's output h, aggregate,
-    node-MLP pre-activation and its silu for the backward, or None."""
-    global launches
+    node-MLP pre-activation and its silu for the backward, or None. bf16:
+    the bf16 variant, which saves nothing."""
+    global launches, bf16_launches
     weights = _validate(block, h, x, x0, node_mask)
     b, n, hidden = h.shape
     dev = h.device
@@ -164,24 +192,34 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool):
         agg = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
         tmp = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
     gcl_names, coord_names = _block_weight_names(block)
+    if bf16:  # (inv_sublayers + 1) W2s in bf16, converted by the kernel's call
+        w2bf = torch.empty((block.cfg.inv_sublayers + 1, hidden, hidden), device=dev,
+                           dtype=torch.bfloat16)
+    fn = lib.egnn_block_forward_bf16 if bf16 else lib.egnn_block_forward
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.egnn_block_forward(
+        rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(),
-            h_out.data_ptr(), x_out.data_ptr(), proj.data_ptr(), _ptr(agg), _ptr(tmp), _ptr(saved),
+            h_out.data_ptr(), x_out.data_ptr(), proj.data_ptr(), _ptr(agg), _ptr(tmp),
+            w2bf.data_ptr() if bf16 else _ptr(saved),
             _pointer_table(sum(gcl_names, []), weights), _pointer_table(coord_names, weights),
             b, n, hidden, block.cfg.edge_feat_nf, *_cfg_args(block.cfg), stream)
     if rc != 0:
-        raise RuntimeError(f"egnn_block kernel launch failed: "
+        raise RuntimeError(f"egnn_block{' bf16' if bf16 else ''} kernel launch failed: "
                            f"{lib.egnn_block_error_string(rc).decode()} (cudaError {rc})")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return h_out, x_out, saved
 
 
-def block_forward_cuda(block, h, x, x0, node_mask):
-    """The forward kernel. h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one
-    card -> (h_out [B,N,H], x_out [B,N,3])."""
-    h_out, x_out, _ = _forward_launch(block, h, x, x0, node_mask, save=False)
+def block_forward_cuda(block, h, x, x0, node_mask, compute_dtype=None):
+    """The forward kernel, or its bf16 variant for a bf16 ``compute_dtype``
+    (under ``torch.no_grad`` only). h [B,N,H], x/x0 [B,N,3], node_mask
+    [B,N,1] on one card -> (h_out [B,N,H], x_out [B,N,3])."""
+    bf16 = bf16_variant(compute_dtype, "egnn_block")
+    h_out, x_out, _ = _forward_launch(block, h, x, x0, node_mask, save=False, bf16=bf16)
     return h_out, x_out
 
 
@@ -258,17 +296,21 @@ def wgrad_splits(edges: int, hidden: int) -> tuple:
     return -(-edges // chunk), chunk
 
 
-def block_forward_plain(block, h, x, x0, node_mask, weights=None):
+def block_forward_plain(block, h, x, x0, node_mask, weights=None, compute_dtype=None):
     """Plain PyTorch version of the forward kernel: the module's own forward
     with the edge mask and initial distance features derived as the kernel
     derives them (``pallas_egnn.py:_reference_block``). ``weights`` (in
-    ``block_params`` order) replace the module's parameters when given."""
+    ``block_params`` order) replace the module's parameters when given. A
+    bf16 ``compute_dtype``: the bf16 variant's (each product's operands
+    rounded to bf16)."""
     radial0, _ = coord2diff(x0)
     e0 = sin_embedding(radial0) if block.cfg.sin_embedding else radial0
     args = (h, x, e0, node_mask, build_edge_mask(node_mask))
+    kwargs = {"compute_dtype": compute_dtype}
     if weights is None:
-        return block(*args)
-    return torch.func.functional_call(block, dict(zip(block_param_names(block), weights)), args)
+        return block(*args, **kwargs)
+    return torch.func.functional_call(block, dict(zip(block_param_names(block), weights)), args,
+                                      kwargs)
 
 
 def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=None):
@@ -317,21 +359,24 @@ class EquivariantBlockFunction(torch.autograd.Function):
         return (None, dh, dx, dx0, None, *dws)
 
 
-def block_forward(block, h, x, x0, node_mask):
+def block_forward(block, h, x, x0, node_mask, compute_dtype=None):
     """The kernels for tensors on the card (through the autograd Function
     while grad is enabled), the plain version for tensors on the CPU;
-    N > ``MAX_NODES`` goes to the row-tiled kernels (module docstring)."""
+    N > ``MAX_NODES`` goes to the row-tiled kernels (module docstring).
+    ``compute_dtype`` torch.bfloat16 selects the bf16 variants, forward
+    only: under autograd their wrappers raise."""
+    train = torch.is_grad_enabled() and compute_dtype is None
     if h.shape[1] > MAX_NODES:
         from geoldm_tpu_torch.ops import egnn_tiled
 
-        if torch.is_grad_enabled():
+        if train:
             return egnn_tiled.TiledEquivariantBlockFunction.apply(
                 block, h, x, x0, node_mask, *block_params(block))
-        return egnn_tiled.tiled_block_forward(block, h, x, x0, node_mask)
+        return egnn_tiled.tiled_block_forward(block, h, x, x0, node_mask, compute_dtype)
     if h.is_cuda:
-        if torch.is_grad_enabled():
+        if train:
             return EquivariantBlockFunction.apply(block, h, x, x0, node_mask, *block_params(block))
-        return block_forward_cuda(block, h, x, x0, node_mask)
+        return block_forward_cuda(block, h, x, x0, node_mask, compute_dtype)
     if h.device.type == "cpu":
-        return block_forward_plain(block, h, x, x0, node_mask)
+        return block_forward_plain(block, h, x, x0, node_mask, compute_dtype=compute_dtype)
     raise ValueError(f"egnn_block: unsupported device {h.device}")

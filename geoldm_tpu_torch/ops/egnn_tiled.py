@@ -40,9 +40,18 @@ against all columns and also serve the sequence-parallel slabs
 (``ops.egnn_sp``). A wrapper given a CUDA tensor launches its kernel or
 raises; only CPU tensors take a plain version.
 
+The forward kernels' bf16 variants (``compute_dtype=torch.bfloat16``: JAX's
+``bfloat16`` compute dtypes, ``_matmul`` in ``_edge_pre_rows``,
+``_gcl_rows_math``, ``_coord_rows_math``) run every product on bf16 operands
+with f32 accumulation; their plain versions round each product's operands
+to bf16 (``nn.core.round_operand``). They serve sampling only: under
+autograd their wrappers raise.
+
 ``gcl_rows_launches`` / ``coord_rows_launches`` count forward kernel calls,
-one per GCL / coordinate stage on the card; ``gcl_rows_bwd_launches`` /
-``coord_rows_bwd_launches`` count kernel #5's, one per stage backward.
+one per GCL / coordinate stage on the card, ``gcl_rows_bf16_launches`` /
+``coord_rows_bf16_launches`` those of the bf16 variants;
+``gcl_rows_bwd_launches`` / ``coord_rows_bwd_launches`` count kernel #5's,
+one per stage backward.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from geoldm_tpu_torch.nn.core import linear, round_operand
 from geoldm_tpu_torch.ops import cuda_build
 from geoldm_tpu_torch.ops.distance import sin_embedding
 from geoldm_tpu_torch.ops.egnn_block import (
@@ -58,6 +68,7 @@ from geoldm_tpu_torch.ops.egnn_block import (
     _block_weight_names,
     _check,
     _pointer_table,
+    bf16_variant,
     block_param_names,
 )
 
@@ -70,6 +81,8 @@ MAX_BWD_SCRATCH_BYTES = 4 << 30
 
 gcl_rows_launches = 0
 coord_rows_launches = 0
+gcl_rows_bf16_launches = 0
+coord_rows_bf16_launches = 0
 gcl_rows_bwd_launches = 0
 coord_rows_bwd_launches = 0
 
@@ -93,14 +106,15 @@ def _divisor(cfg, n: int) -> float:
     raise ValueError(cfg.aggregation_method)
 
 
-def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int):
+def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int, dtype=None):
     """Global rows r0..r1 of every molecule against all N columns -> (silu(pre)
     [B,T,N,H], coord_diff [B,T,N,3], edge mask [B,T,N,1]): the pair features
     (``_pair_features``), the split first layer (``_edge_pre_rows``) and the
     edge mask with the diagonal at the global row (``_row_edge_mask``).
     ``full`` = (h, x, x0, node_mask) [B,N,*] gives the columns, ``rows`` the
     same tensors for the slab whose first row is the global row ``row0``
-    (the full view itself on one device)."""
+    (the full view itself on one device). ``dtype``: the first layer's
+    operand dtype (None: f32)."""
     h, x, x0, node_mask = full
     hr, xr, x0r, mr = rows
     n, f = h.shape[1], h.shape[2]
@@ -113,7 +127,8 @@ def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int):
     if cfg.sin_embedding:
         radial, radial0 = sin_embedding(radial), sin_embedding(radial0)
     eattr = torch.cat([radial, radial0], dim=-1)
-    w = lin.weight  # [H, 2H + E]
+    w = round_operand(lin.weight, dtype)  # [H, 2H + E]
+    hr, h, eattr = (round_operand(t, dtype) for t in (hr, h, eattr))
     pre = ((hr[:, a:b] @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
            + eattr @ w[:, 2 * f:].T + lin.bias)
     row = torch.arange(r0, r1, device=h.device)[:, None]
@@ -122,14 +137,15 @@ def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int):
     return F.silu(pre), coord_diff, emask
 
 
-def _gcl_aggregate(gcl, full, rows, row0: int, r0: int, r1: int, div: float):
+def _gcl_aggregate(gcl, full, rows, row0: int, r0: int, r1: int, div: float, dtype=None):
     """The GCL's aggregate of the global rows r0..r1 of every molecule
-    against all columns, divided by ``div`` -> [B,r1-r0,H]."""
+    against all columns, divided by ``div`` -> [B,r1-r0,H]; ``dtype`` the
+    products' operand dtype."""
     cfg = gcl.cfg
-    act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, r0, r1)
-    m = F.silu(gcl.edge_mlp[2](act))
+    act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, r0, r1, dtype)
+    m = F.silu(linear(gcl.edge_mlp[2], act, dtype))
     if cfg.attention:
-        m = m * gcl.att_mlp(m)
+        m = m * torch.sigmoid(linear(gcl.att_mlp[0], m, dtype))
     return (m * emask).sum(dim=2) / div
 
 
@@ -142,38 +158,42 @@ def gcl_aggregate_window(gcl, full, rows, row0: int, div: float, tile: int = PLA
 
 
 def gcl_rows_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE,
-                    keep_chain: bool = False):
+                    keep_chain: bool = False, compute_dtype=None):
     """Plain PyTorch version of kernels #3 and #6: one GCL for the slab
     ``rows`` (h, x, x0, node_mask at [B,S,*], first global row ``row0``)
     against the columns ``full`` ([B,N,*]); aggregates divided by ``div`` ->
     the slab's h [B,S,H], and with ``keep_chain`` also its node chain [3,
     B,S,H]: the aggregate, the node MLP's pre-activation z and silu(z), which
-    the stage backward takes in place of running them again."""
+    the stage backward takes in place of running them again. A bf16
+    ``compute_dtype`` (torch.bfloat16): #3's bf16 variant."""
     hr, mr = rows[0], rows[3]
     out, chain = [], []
     for a in range(0, hr.shape[1], tile):
         b = min(a + tile, hr.shape[1])
-        agg = _gcl_aggregate(gcl, full, rows, row0, row0 + a, row0 + b, div)
+        agg = _gcl_aggregate(gcl, full, rows, row0, row0 + a, row0 + b, div, compute_dtype)
         hi = hr[:, a:b]
-        z = gcl.node_mlp[0](torch.cat([hi, agg], dim=-1))
+        z = linear(gcl.node_mlp[0], torch.cat([hi, agg], dim=-1), compute_dtype)
         u = gcl.node_mlp[1](z)
-        out.append((hi + gcl.node_mlp[2](u)) * mr[:, a:b])
+        out.append((hi + linear(gcl.node_mlp[2], u, compute_dtype)) * mr[:, a:b])
         chain.append(torch.stack([agg, z, u]))
     h = torch.cat(out, dim=1)
     return (h, torch.cat(chain, dim=2)) if keep_chain else h
 
 
-def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
+def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAIN_TILE,
+                      compute_dtype=None):
     """Plain PyTorch version of kernels #4 and #6: the coordinate update of
-    the slab ``rows`` against the columns ``full`` -> the slab's x [B,S,3]."""
+    the slab ``rows`` against the columns ``full`` -> the slab's x [B,S,3].
+    A bf16 ``compute_dtype`` (torch.bfloat16): #4's bf16 variant."""
     cfg = equiv.cfg
     xr, mr = rows[1], rows[3]
     mlp = equiv.coord_mlp
     out = []
     for a in range(0, xr.shape[1], tile):
         b = min(a + tile, xr.shape[1])
-        act, coord_diff, emask = _row_slab(cfg, mlp[0], full, rows, row0, row0 + a, row0 + b)
-        s = mlp[4](F.silu(mlp[2](act)))
+        act, coord_diff, emask = _row_slab(cfg, mlp[0], full, rows, row0, row0 + a, row0 + b,
+                                           compute_dtype)
+        s = linear(mlp[4], F.silu(linear(mlp[2], act, compute_dtype)), compute_dtype)
         if cfg.tanh:
             s = torch.tanh(s) * cfg.coords_range_layer
         aggx = (coord_diff * s * emask).sum(dim=2) / div
@@ -181,19 +201,24 @@ def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAI
     return torch.cat(out, dim=1)
 
 
-def gcl_rows_plain(gcl, h, x, x0, node_mask, tile: int = PLAIN_TILE, keep_chain: bool = False):
+def gcl_rows_plain(gcl, h, x, x0, node_mask, tile: int = PLAIN_TILE, keep_chain: bool = False,
+                   compute_dtype=None):
     """Plain PyTorch version of kernel #3 (``_gcl_rows_math``): ``gcl`` an
     ``nn.egnn.GCL``; h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] -> h [B,N,H]
-    (and its node chain [3,B,N,H] with ``keep_chain``)."""
+    (and its node chain [3,B,N,H] with ``keep_chain``). A bf16
+    ``compute_dtype``: its bf16 variant's."""
     full = (h, x, x0, node_mask)
-    return gcl_rows_window(gcl, full, full, 0, _divisor(gcl.cfg, h.shape[1]), tile, keep_chain)
+    return gcl_rows_window(gcl, full, full, 0, _divisor(gcl.cfg, h.shape[1]), tile, keep_chain,
+                           compute_dtype)
 
 
-def coord_rows_plain(equiv, h, x, x0, node_mask, tile: int = PLAIN_TILE):
+def coord_rows_plain(equiv, h, x, x0, node_mask, tile: int = PLAIN_TILE, compute_dtype=None):
     """Plain PyTorch version of kernel #4 (``_coord_rows_math``): ``equiv``
-    an ``nn.egnn.EquivariantUpdate`` -> x [B,N,3]."""
+    an ``nn.egnn.EquivariantUpdate`` -> x [B,N,3]. A bf16 ``compute_dtype``:
+    its bf16 variant's."""
     full = (h, x, x0, node_mask)
-    return coord_rows_window(equiv, full, full, 0, _divisor(equiv.cfg, h.shape[1]), tile)
+    return coord_rows_window(equiv, full, full, 0, _divisor(equiv.cfg, h.shape[1]), tile,
+                             compute_dtype)
 
 
 class _Bound(torch.nn.Module):
@@ -363,11 +388,15 @@ def check_chain(chain, shape, dev):
         _check("chain", chain, (3, *shape), dev)
 
 
-def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False):
+def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False, compute_dtype=None):
     """Kernel #3 on the card: h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] ->
     the GCL's h [B,N,H], and with ``keep_chain`` also its node chain
-    [3,B,N,H] (the aggregate, z and silu(z)) for ``gcl_rows_backward_cuda``."""
-    global gcl_rows_launches
+    [3,B,N,H] (the aggregate, z and silu(z)) for ``gcl_rows_backward_cuda``.
+    A bf16 ``compute_dtype``: its bf16 variant (no chain, no autograd)."""
+    global gcl_rows_launches, gcl_rows_bf16_launches
+    bf16 = bf16_variant(compute_dtype, "egnn_tiled gcl_rows")
+    if bf16 and keep_chain:
+        raise ValueError("egnn_tiled gcl_rows: the bf16 variant keeps no node chain")
     names = _gcl_slots(gcl)
     weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
     cfg = gcl.cfg
@@ -377,22 +406,30 @@ def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False):
     h_out = torch.empty_like(h)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
     chain, agg, z, tmp = node_chain_buffers((b, n, hidden), dev, keep_chain)
+    if bf16:  # the bf16 W2, converted by the kernel's call, in z's slot
+        z = torch.empty((hidden, hidden), device=dev, dtype=torch.bfloat16)
+    fn = lib.egnn_gcl_rows_bf16 if bf16 else lib.egnn_gcl_rows
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.egnn_gcl_rows(
+        rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), h_out.data_ptr(),
-            proj.data_ptr(), agg.data_ptr(), tmp.data_ptr(), z.data_ptr() if keep_chain else None,
+            proj.data_ptr(), agg.data_ptr(), tmp.data_ptr(), None if z is None else z.data_ptr(),
             _pointer_table(names, weights), b, n, hidden, cfg.edge_feat_nf, int(cfg.attention),
             int(cfg.sin_embedding), int(cfg.aggregation_method == "mean"),
             float(cfg.norm_constant), float(cfg.normalization_factor), stream)
-    _raise_on(rc, lib.egnn_tiled_error_string, "egnn_tiled gcl_rows")
-    gcl_rows_launches += 1
+    _raise_on(rc, lib.egnn_tiled_error_string, f"egnn_tiled gcl_rows{' bf16' if bf16 else ''}")
+    if bf16:
+        gcl_rows_bf16_launches += 1
+    else:
+        gcl_rows_launches += 1
     return (h_out, chain) if keep_chain else h_out
 
 
-def coord_rows_cuda(equiv, h, x, x0, node_mask):
-    """Kernel #4 on the card: -> the updated coordinates x [B,N,3]."""
-    global coord_rows_launches
+def coord_rows_cuda(equiv, h, x, x0, node_mask, compute_dtype=None):
+    """Kernel #4 on the card, or its bf16 variant for a bf16
+    ``compute_dtype`` (no autograd): -> the updated coordinates x [B,N,3]."""
+    global coord_rows_launches, coord_rows_bf16_launches
+    bf16 = bf16_variant(compute_dtype, "egnn_tiled coord_rows")
     weights = _validate(equiv, _COORD_NAMES, h, x, x0, node_mask)
     cfg = equiv.cfg
     b, n, hidden = h.shape
@@ -400,16 +437,24 @@ def coord_rows_cuda(equiv, h, x, x0, node_mask):
     lib = cuda_build.library("egnn_tiled")
     x_out = torch.empty_like(x)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
+    table = _pointer_table(_COORD_NAMES, weights)
+    args = (b, n, hidden, cfg.edge_feat_nf, int(cfg.sin_embedding), int(cfg.tanh),
+            int(cfg.aggregation_method == "mean"), float(cfg.coords_range_layer),
+            float(cfg.norm_constant), float(cfg.normalization_factor))
+    ptrs = (h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), x_out.data_ptr(),
+            proj.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.egnn_coord_rows(
-            h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), x_out.data_ptr(),
-            proj.data_ptr(), _pointer_table(_COORD_NAMES, weights), b, n, hidden,
-            cfg.edge_feat_nf, int(cfg.sin_embedding), int(cfg.tanh),
-            int(cfg.aggregation_method == "mean"), float(cfg.coords_range_layer),
-            float(cfg.norm_constant), float(cfg.normalization_factor), stream)
-    _raise_on(rc, lib.egnn_tiled_error_string, "egnn_tiled coord_rows")
-    coord_rows_launches += 1
+        if bf16:
+            w2bf = torch.empty((hidden, hidden), device=dev, dtype=torch.bfloat16)
+            rc = lib.egnn_coord_rows_bf16(*ptrs, w2bf.data_ptr(), table, *args, stream)
+        else:
+            rc = lib.egnn_coord_rows(*ptrs, table, *args, stream)
+    _raise_on(rc, lib.egnn_tiled_error_string, f"egnn_tiled coord_rows{' bf16' if bf16 else ''}")
+    if bf16:
+        coord_rows_bf16_launches += 1
+    else:
+        coord_rows_launches += 1
     return x_out
 
 
@@ -497,10 +542,11 @@ def coord_rows_backward_cuda(equiv, h, x, x0, node_mask, g_out):
     return dh, dx, dx0, [grads[name] for name in _COORD_NAMES]
 
 
-def tiled_block_forward(block, h, x, x0, node_mask):
+def tiled_block_forward(block, h, x, x0, node_mask, compute_dtype=None):
     """One ``nn.egnn.EquivariantBlock`` through the row-tiled stages:
     ``inv_sublayers`` x #3, then #4 -> (h [B,N,H], x [B,N,3]). The kernels
-    for tensors on the card, their plain versions on the CPU."""
+    for tensors on the card, their plain versions on the CPU; a bf16
+    ``compute_dtype`` selects their bf16 variants."""
     if h.is_cuda:
         gcl_rows, coord_rows = gcl_rows_cuda, coord_rows_cuda
     elif h.device.type == "cpu":
@@ -508,8 +554,9 @@ def tiled_block_forward(block, h, x, x0, node_mask):
     else:
         raise ValueError(f"egnn_tiled: unsupported device {h.device}")
     for j in range(block.cfg.inv_sublayers):
-        h = gcl_rows(getattr(block, f"gcl_{j}"), h, x, x0, node_mask)
-    return h, coord_rows(block.gcl_equiv, h, x, x0, node_mask)
+        h = gcl_rows(getattr(block, f"gcl_{j}"), h, x, x0, node_mask,
+                     compute_dtype=compute_dtype)
+    return h, coord_rows(block.gcl_equiv, h, x, x0, node_mask, compute_dtype=compute_dtype)
 
 
 def _stage_weights(block, weights) -> tuple:

@@ -1,9 +1,12 @@
-"""Sampling orchestration (port of ``geoldm_tpu/train/sampling.py:75-293``):
+"""Sampling orchestration (port of ``geoldm_tpu/train/sampling.py:27-361``):
 build masks on the host, run the sampler on the model's device, post-process.
 
 Noise: ``sample`` takes a noise source; ``sample_bucketed`` gives every
 chunk its own ``torch.Generator`` seeded from (request seed, chunk index),
-so a seeded request replays exactly.
+so a seeded request replays exactly. Both take the sampler settings of
+``diffusion.vdm.vdm_sample``: ``n_steps``, ``eta``, ``method``, ``clip_z``
+and ``compute_dtype``. ``sample_chain`` samples the visualization chain,
+``rotate_chain`` appends rotated copies of a frame.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from geoldm_tpu_torch.data.collate import build_masks
 from geoldm_tpu_torch.diffusion import latent as ldm_mod
+from geoldm_tpu_torch.evalsuite.analyze import check_stability
 from geoldm_tpu_torch.ops import com
 
 DEFAULT_SAMPLE_BUCKETS = (16, 24, 32)  # QM9
@@ -39,8 +43,28 @@ def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def rotate_chain(z: np.ndarray, n_steps: int = 30) -> np.ndarray:
+    """Append ``n_steps`` rotated copies of a single frame's coordinates
+    (visualization; sampling.py:27-45, reference qm9/sampling.py:9-47)."""
+    assert z.shape[0] == 1
+    theta = 0.6 * np.pi / n_steps
+    c, s = np.cos(theta), np.sin(theta)
+    qz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    qx = np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+    qy = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    q = qz @ qx @ qy
+    z_h = z[:, :, 3:]
+    frames = [z]
+    for _ in range(n_steps):
+        x = frames[-1][:, :, :3]
+        frames.append(np.concatenate([x @ q.T, z_h], axis=2))
+    return np.concatenate(frames, axis=0)
+
+
 def sample(model, noise: com.Noise, dataset_info, nodesxsample: np.ndarray,
-           fix_noise: bool = False, pad_nodes: Optional[int] = None):
+           fix_noise: bool = False, pad_nodes: Optional[int] = None,
+           n_steps: Optional[int] = None, eta: float = 1.0, method: str = "ddim",
+           clip_z: float = 0.0, compute_dtype=None):
     """Generate molecules with the requested atom counts (unconditional).
     Returns (one_hot, charges, x, node_mask): the first three are tensors on
     the model's device (still computing there), node_mask a numpy array."""
@@ -50,13 +74,15 @@ def sample(model, noise: com.Noise, dataset_info, nodesxsample: np.ndarray,
         raise ValueError(f"molecule of {int(nodesxsample.max())} atoms exceeds pad {max_n_nodes}")
     node_mask_np, _ = build_masks(nodesxsample, max_n_nodes)
     node_mask = torch.from_numpy(node_mask_np).to(_model_device(model))
-    x, h_cat, h_int = ldm_mod.ldm_sample(model, noise, node_mask, fix_noise)
+    x, h_cat, h_int = ldm_mod.ldm_sample(model, noise, node_mask, fix_noise, compute_dtype,
+                                         n_steps, eta, method, clip_z)
     return h_cat, h_int, x, node_mask_np
 
 
 def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
                     batch_size: int = 128, buckets=DEFAULT_SAMPLE_BUCKETS,
-                    fix_noise: bool = False):
+                    fix_noise: bool = False, n_steps: Optional[int] = None, eta: float = 1.0,
+                    method: str = "ddim", clip_z: float = 0.0, compute_dtype=None):
     """Size-bucketed generation: molecules are grouped by atom count and
     each group is padded only to its bucket, in chunks of ``batch_size``.
     The last chunk of a bucket is padded (by repeating its last size) to the
@@ -64,7 +90,8 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     JAX server pads every chunk to ``batch_size`` so one compiled shape
     serves each bucket; the port compiles nothing, so it keeps the smaller
     padding.) Returns arrays padded to the largest bucket, in the original
-    molecule order. ``n_chunks`` counts the chunks it dispatches."""
+    molecule order. ``n_chunks`` counts the chunks it dispatches. The
+    sampler settings go to every chunk (``sample``)."""
     nodesxsample = np.asarray(nodesxsample)
     buckets = _aligned(buckets, nodesxsample)
     max_pad = buckets[-1]
@@ -74,7 +101,9 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     for chunk_index, (chunk, pad, sizes) in enumerate(
             _chunks(nodesxsample, batch_size, buckets)):
         gen = chunk_generator(seed, chunk_index, device)
-        res = sample(model, gen, dataset_info, sizes, fix_noise=fix_noise, pad_nodes=pad)
+        res = sample(model, gen, dataset_info, sizes, fix_noise=fix_noise, pad_nodes=pad,
+                     n_steps=n_steps, eta=eta, method=method, clip_z=clip_z,
+                     compute_dtype=compute_dtype)
         pending.append((chunk, pad, res))
     # Every chunk is queued on the card before the first copy to the host.
     s = len(dataset_info["atom_decoder"])
@@ -90,6 +119,35 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
             src = src.cpu().numpy() if isinstance(src, torch.Tensor) else src
             dst[chunk, :pad] = src[:n_real]
     return out
+
+
+def sample_chain(model, seed: int, dataset_info, n_tries: int = 1, keep_frames: int = 100,
+                 compute_dtype=None):
+    """A visualization chain of one molecule (19 atoms for QM9, 44 for
+    GEOM), retried until its final molecule is stable, at most ``n_tries``
+    times (sampling.py:296-361, reference qm9/sampling.py:54-107). Try i
+    draws from ``chunk_generator(seed, i)``. Returns numpy (one_hot [F, N, S],
+    charges [F, N, 1], x [F, N, 3]), noise first, the final frame repeated
+    10 times at the end (F = keep_frames + 10)."""
+    n_nodes = 19 if "qm9" in dataset_info["name"] else 44
+    num_classes = len(dataset_info["atom_decoder"])
+    node_mask_np, _ = build_masks(np.array([n_nodes]), n_nodes)
+    device = _model_device(model)
+    node_mask = torch.from_numpy(node_mask_np).to(device)
+    for i in range(n_tries):
+        chain = ldm_mod.ldm_sample_chain(model, chunk_generator(seed, i, device), node_mask,
+                                         keep_frames, compute_dtype)
+        chain = chain.cpu().numpy()[::-1, 0]  # noise -> sample; drop the batch
+        chain = np.concatenate([chain, np.repeat(chain[-1:], 10, axis=0)], axis=0)
+        final = chain[-1]
+        atom_types = np.argmax(final[:, 3:3 + num_classes], axis=1)
+        if check_stability(final[:, :3], atom_types, dataset_info)[0]:
+            break
+    x = chain[:, :, :3]
+    one_hot = np.eye(num_classes, dtype=np.float32)[np.argmax(chain[:, :, 3:3 + num_classes],
+                                                              axis=2)]
+    charges = np.round(chain[:, :, -1:])
+    return one_hot, charges, x
 
 
 def _aligned(buckets, nodesxsample) -> tuple:

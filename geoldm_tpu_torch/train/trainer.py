@@ -125,7 +125,8 @@ def evaluate_nll(model, eval_nll_fn, loader, nodes_dist: DistributionNodes, nois
 def evaluate_nll_packed(model, model_cfg, split: Dict[str, np.ndarray],
                         nodes_dist: DistributionNodes, noises: Sequence[com.Noise], *,
                         batch_size: int = 64, pad_nodes: int = 0, partition: str = "test",
-                        augment_noise: float = 0.0, stage_bytes: int = 2 << 30):
+                        augment_noise: float = 0.0, stage_bytes: int = 2 << 30,
+                        compute_dtype=None):
     """Per-pass mean NLLs (t0_always) over a whole split, one pass per noise
     source in ``noises`` (``geoldm_tpu/train/trainer.py:234-360``).
 
@@ -140,7 +141,7 @@ def evaluate_nll_packed(model, model_cfg, split: Dict[str, np.ndarray],
     draws from its pass's noise source: with ``augment_noise`` > 0 first the
     CoM-free coordinate noise (reference eval-time augment,
     train_test.py:119-124), then the NLL's own draws. An empty split gives
-    ``[0.0] * len(noises)``."""
+    ``[0.0] * len(noises)``. The model runs in ``compute_dtype``."""
     from geoldm_tpu_torch.data.collate import prepare_split_arrays
     from geoldm_tpu_torch.models import factory
 
@@ -171,7 +172,7 @@ def evaluate_nll_packed(model, model_cfg, split: Dict[str, np.ndarray],
         print(f"{partition}: staging {steps} batches in {n_segs} segments of <= {seg_steps} "
               f"({bytes_per_step * seg_steps / 2**30:.2f} GiB on the device at a time)",
               flush=True)
-    nll_fn = factory.model_nll_fn(model_cfg, training=False)
+    nll_fn = factory.model_nll_fn(model_cfg, training=False, compute_dtype=compute_dtype)
     totals = [0.0] * len(noises)
     for s0 in range(0, steps, seg_steps):
         seg = [torch.from_numpy(np.ascontiguousarray(a[s0:s0 + seg_steps])).to(device)
@@ -194,10 +195,12 @@ def evaluate_nll_packed(model, model_cfg, split: Dict[str, np.ndarray],
 def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNodes, *,
                      n_samples: int = 500, batch_size: int = 100,
                      rng: Optional[np.random.Generator] = None, datadir: str = "data",
-                     external_smiles=None):
+                     external_smiles=None, n_steps: Optional[int] = None, eta: float = 1.0,
+                     method: str = "ddim", compute_dtype=None):
     """Generate ``n_samples`` molecules (sizes from the dataset histogram,
-    size-bucketed) and score them -> (stability dict, validity triple, molecules)
-    (reference train_test.py:176-197, eval_analyze.py:35-67). The triple is
+    size-bucketed, with the sampler settings of ``vdm.vdm_sample``) and score
+    them -> (stability dict, validity triple, molecules) (reference
+    train_test.py:176-197, eval_analyze.py:35-67). The triple is
     ([validity, uniqueness, novelty], unique SMILES) from the best backend
     available (``evalsuite.analyze.analyze_stability_for_molecules``);
     ``external_smiles`` replaces the training set of ``datadir`` as the
@@ -210,7 +213,7 @@ def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNod
     t0 = time.time()
     one_hot, _, x, node_mask = sampling_mod.sample_bucketed(
         model, seed, dataset_info, nodesxsample, batch_size=min(batch_size, n_samples),
-        buckets=buckets)
+        buckets=buckets, n_steps=n_steps, eta=eta, method=method, compute_dtype=compute_dtype)
     report = {"generation_seconds": time.time() - t0}
     molecules = {"one_hot": one_hot, "x": x, "node_mask": node_mask[..., 0],
                  "n_atoms": nodesxsample, "report": report}

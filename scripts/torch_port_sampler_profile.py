@@ -8,13 +8,16 @@ For a few (batch, pad) shapes of each it times ancestral steps
 traces a window of steps with torch.profiler and splits device time by grid:
 the block kernel's edge and node-GEMM grids (#1, pads <= 64), the row-tiled
 GCL kernel's (#3) and coordinate kernel's (#4) edge and node-GEMM grids
-(pads > 64), and everything else. Prints one JSON line.
+(pads > 64), and everything else. Prints one JSON line. ``--compute_dtype``
+runs the steps in another compute dtype (``bfloat16``: the bf16 variants of
+#1, #3 and #4, whose grids fall in the same groups).
 
-    python3 scripts/torch_port_sampler_profile.py
+    python3 scripts/torch_port_sampler_profile.py [--compute_dtype bfloat16]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -30,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from geoldm_tpu_torch.data.datasets_config import get_dataset_info  # noqa: E402
 from geoldm_tpu_torch.diffusion import vdm  # noqa: E402
 from geoldm_tpu_torch.models import factory  # noqa: E402
+from geoldm_tpu_torch.nn.core import resolve_compute  # noqa: E402
 from geoldm_tpu_torch.ops.com import remove_mean_with_mask  # noqa: E402
 
 # (dataset, recipe, (B, N) shapes, ragged spread n-spread..n atoms)
@@ -47,21 +51,22 @@ STEPS, WARMUP, TRACED = 50, 10, 10
 GROUPS = (
     ("k1_edge", r"edge_tile_kernel"),
     ("k1_gemm", r"node_gemm_tc_kernel"),
-    ("k3_edge", r"rows_tile_kernel(<\d+, false>|ILi\d+ELb0E)"),
-    ("k3_gemm", r"gemm_nt_kernel(<3>|ILi3E)"),
-    ("k4_edge", r"rows_tile_kernel(<\d+, true>|ILi\d+ELb1E)"),
-    ("k4_gemm", r"gemm_nt_kernel(<4>|ILi4E)"),
+    ("k3_edge", r"rows_tile_kernel(<\d+, false[,>]|ILi\d+ELb0E)"),
+    ("k3_gemm", r"gemm_nt_kernel(<3[,>]|ILi3E)"),
+    ("k4_edge", r"rows_tile_kernel(<\d+, true[,>]|ILi\d+ELb1E)"),
+    ("k4_gemm", r"gemm_nt_kernel(<4[,>]|ILi4E)"),
 )
 
 
-def _steps(model, gamma_fn, gen, z, mask, s_from, n):
+def _steps(model, gamma_fn, gen, z, mask, s_from, n, compute_dtype):
     cfg = model.cfg.diffusion
     b = z.shape[0]
     for k in range(n):
         s = s_from - k
         s_arr = torch.full((b, 1), s / cfg.timesteps, device=z.device)
         t_arr = torch.full((b, 1), (s + 1) / cfg.timesteps, device=z.device)
-        z = vdm.sample_p_zs_given_zt(model.dynamics, cfg, gamma_fn, gen, s_arr, t_arr, z, mask)
+        z = vdm.sample_p_zs_given_zt(model.dynamics, cfg, gamma_fn, gen, s_arr, t_arr, z, mask,
+                                     compute_dtype=resolve_compute(compute_dtype).dtype)
     return z
 
 
@@ -81,6 +86,9 @@ def _device_split(prof):
 
 
 def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--compute_dtype", default="float32")
+    compute_dtype = p.parse_args().compute_dtype
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -103,21 +111,23 @@ def main() -> int:
             z[:, :, :3] = remove_mean_with_mask(z[:, :, :3], mask)
             gen = torch.Generator(device="cuda").manual_seed(0)
             with torch.no_grad():
-                z = _steps(model, gamma_fn, gen, z, mask, 999, WARMUP)
+                z = _steps(model, gamma_fn, gen, z, mask, 999, WARMUP, compute_dtype)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                z = _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP, STEPS)
+                z = _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP, STEPS, compute_dtype)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
                 acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
                 with torch.profiler.profile(activities=acts) as prof:
                     t1 = time.perf_counter()
-                    _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP - STEPS, TRACED)
+                    _steps(model, gamma_fn, gen, z, mask, 999 - WARMUP - STEPS, TRACED,
+                           compute_dtype)
                     torch.cuda.synchronize()
                     traced_ms = (time.perf_counter() - t1) * 1e3 / TRACED
             split = {k: v / 1e3 / TRACED for k, v in _device_split(prof).items()}
             device_ms = sum(split.values())
-            row = {"dataset": dataset, "layers": recipe["n_layers"], "B": b, "N": n,
+            row = {"dataset": dataset, "compute_dtype": compute_dtype,
+                   "layers": recipe["n_layers"], "B": b, "N": n,
                    "step_ms": wall_ms, "traced_step_ms": traced_ms,
                    "device_ms_per_step": device_ms or None,
                    "split_ms_per_step": split if device_ms else None,
@@ -125,7 +135,8 @@ def main() -> int:
                    "device_share_of_untraced_step": device_ms / wall_ms if device_ms else None,
                    "mol_per_s_at_T1000": b / (wall_ms * 1e-3 * 1001)}
             rows.append(row)
-            print(f"{dataset} B={b} N={n}: {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step "
+            print(f"{dataset} {compute_dtype} B={b} N={n}: {wall_ms:.3f} ms/step, "
+                  f"device {device_ms:.3f} ms/step "
                   f"{json.dumps({k: round(v, 4) for k, v in split.items()})} on {card}",
                   flush=True)
         del model

@@ -9,6 +9,7 @@ with a card and no JAX:
 
 Skips where torch.cuda is unavailable (the kernels have no CPU mode)."""
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -20,6 +21,7 @@ from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
 from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
 from geoldm_tpu_torch.parallel import sp
 import torch_port_sp_ranks
+from torch_port_bf16_sites import SITES, assert_separated, unrounded
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -226,9 +228,9 @@ def test_block_function_saves_activations_only_under_grad(card, monkeypatch):
     seen = []
     launch = egnn_block._forward_launch
 
-    def spy(*a, save):
+    def spy(*a, save, **kw):
         seen.append(save)
-        return launch(*a, save=save)
+        return launch(*a, save=save, **kw)
 
     monkeypatch.setattr(egnn_block, "_forward_launch", spy)
     h, x, x0, mask = args
@@ -803,3 +805,149 @@ def test_resume_on_the_card_reproduces_the_saved_state(card, tmp_path):
     for s in states:
         step(s, batches[2], torch.Generator(device=card).manual_seed(4))
     assert states[1].step == 3 and sp.state_digest(states[1]) == sp.state_digest(states[0])
+
+
+# ---------------------------------------------------------------------------
+# The bf16 variants of #1, #3 and #4 (bf16 operands, f32 accumulation)
+# against their plain versions (each product's operands rounded to bf16 on
+# the card, f32 products). A rounding that sits at a tie flips by one bf16
+# ulp (2^-8 relative) under another summation order, so the gate is
+# BF16_RTOL * max(1, max|ref|), not the f32 kernels' 1e-4. That gate is
+# loose against the rounding itself, so each case also holds the variant
+# SEPARATION times closer, on the mean, to its plain bf16 version than to
+# the plain f32 one (tests/torch_port_bf16_sites.py), and
+# test_bf16_kernels_round_every_site than to a plain version that leaves
+# one rounding site in f32.
+# ---------------------------------------------------------------------------
+
+BF16_RTOL = 5e-3
+BF16 = torch.bfloat16
+
+
+def _assert_bf16_close(got, want, what, want_f32=None):
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= BF16_RTOL * scale, f"{what}: max|d|={err:.3e} > {BF16_RTOL}*{scale:.3g}"
+    if want_f32 is not None:
+        assert_separated(got, want, want_f32, f"{what} vs the plain f32 version")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n,n_real,hidden", [(9, (5, 9), 32), (24, (24, 17), 64),
+                                             (40, (33, 40), 256), (64, (64, 50), 512)])
+def test_bf16_block_kernel_matches_plain(card, variant, n, n_real, hidden):
+    block = _block(card, hidden=hidden, **variant)
+    args = _inputs(card, 2, n, hidden, n_real)
+    before = (egnn_block.launches, egnn_block.bf16_launches)
+    with torch.no_grad():
+        h_k, x_k = egnn_block.block_forward_cuda(block, *args, compute_dtype=BF16)
+        h_p, x_p = egnn_block.block_forward_plain(block, *args, compute_dtype=BF16)
+        h_f, _ = egnn_block.block_forward_plain(block, *args)
+    torch.cuda.synchronize()
+    assert (egnn_block.launches, egnn_block.bf16_launches) == (before[0], before[1] + 1)
+    _assert_bf16_close(h_k, h_p, "h", h_f)
+    _assert_bf16_close(x_k, x_p, "x")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n,n_real,hidden", [(9, (5, 9), 32), (65, (65, 49), 64),
+                                             (100, (100, 83), 256), (184, (184, 150), 256),
+                                             (130, (130, 70), 512)])
+def test_bf16_tiled_kernels_match_plain(card, variant, n, n_real, hidden):
+    block = _block(card, hidden=hidden, **variant)
+    h, x, x0, mask = _inputs(card, 2, n, hidden, n_real)
+    counts = (egnn_tiled.gcl_rows_launches, egnn_tiled.gcl_rows_bf16_launches,
+              egnn_tiled.coord_rows_launches, egnn_tiled.coord_rows_bf16_launches)
+    with torch.no_grad():
+        got = egnn_tiled.gcl_rows_cuda(block.gcl_0, h, x, x0, mask, compute_dtype=BF16)
+        want = egnn_tiled.gcl_rows_plain(block.gcl_0, h, x, x0, mask, compute_dtype=BF16)
+        _assert_bf16_close(got, want, "gcl",
+                           egnn_tiled.gcl_rows_plain(block.gcl_0, h, x, x0, mask))
+        got = egnn_tiled.coord_rows_cuda(block.gcl_equiv, want, x, x0, mask, compute_dtype=BF16)
+        want_f32 = egnn_tiled.coord_rows_plain(block.gcl_equiv, want, x, x0, mask)
+        want = egnn_tiled.coord_rows_plain(block.gcl_equiv, want, x, x0, mask,
+                                           compute_dtype=BF16)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, want, "coord", want_f32)
+    assert (egnn_tiled.gcl_rows_launches, egnn_tiled.gcl_rows_bf16_launches,
+            egnn_tiled.coord_rows_launches, egnn_tiled.coord_rows_bf16_launches) == (
+        counts[0], counts[1] + 1, counts[2], counts[3] + 1)
+
+
+@pytest.mark.parametrize("site", SITES)
+@pytest.mark.parametrize("n,hidden", [(32, 256), (184, 256)])
+def test_bf16_kernels_round_every_site(card, site, n, hidden):
+    """Each variant rounds the edge features and the one-output products (the
+    gate, the coordinate scale) as its plain version does: it is SEPARATION
+    times closer to that than to a plain version that leaves the site in
+    f32. normalization_factor 1 (the GEOM recipe's) keeps the coordinate
+    updates large against x's own rounding; coordinates spread as a
+    molecule's in Angstrom (std 3) give the edge features their weight.
+    #1's x is held for the coordinate scale w3, which only x shows; its
+    edge features come from the tile builder the GCLs share
+    (csrc/egnn_block_tile.cuh), which h holds, while x also carries the
+    coordinate path's own accumulation noise."""
+    block = EquivariantBlock(EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=hidden,
+                                        n_layers=1, normalization_factor=1.0))
+    init_parameters(block, torch.Generator().manual_seed(0))
+    block = block.to(card)
+    E = block.cfg.edge_feat_nf
+    h, x, x0, mask = _inputs(card, 4, n, hidden, (n, n - 3, n - 9, n - 16), seed=5)
+    x, x0 = 3.0 * x, 3.0 * x0
+    with torch.no_grad():
+        if n <= egnn_block.MAX_NODES:
+            got = egnn_block.block_forward_cuda(block, h, x, x0, mask, compute_dtype=BF16)
+            want = egnn_block.block_forward_plain(block, h, x, x0, mask, compute_dtype=BF16)
+            with unrounded(site, E):
+                other = egnn_block.block_forward_plain(block, h, x, x0, mask, compute_dtype=BF16)
+            cases = list(zip(("h", "x"), got, want, other))[:2 if site == "gate" else 1]
+        else:
+            got_h = egnn_tiled.gcl_rows_cuda(block.gcl_0, h, x, x0, mask, compute_dtype=BF16)
+            got_x = egnn_tiled.coord_rows_cuda(block.gcl_equiv, h, x, x0, mask, compute_dtype=BF16)
+            want, other = [], []
+            for ctx, out in ((contextlib.nullcontext(), want), (unrounded(site, E), other)):
+                with ctx:
+                    out.append(egnn_tiled.gcl_rows_plain(block.gcl_0, h, x, x0, mask,
+                                                         compute_dtype=BF16))
+                    out.append(egnn_tiled.coord_rows_plain(block.gcl_equiv, h, x, x0, mask,
+                                                           compute_dtype=BF16))
+            cases = zip(("gcl", "coord"), (got_h, got_x), want, other)
+    for what, g, w, o in cases:
+        _assert_bf16_close(g, w, what)
+        assert_separated(g, w, o, f"{what} vs the plain version with {site} in f32")
+
+
+def test_bf16_variants_replay_and_refuse_autograd(card):
+    block = _block(card, hidden=64)
+    for n in (29, 96):
+        args = _inputs(card, 3, n, 64, (n, n - 7, 3))
+        with torch.no_grad():
+            first = egnn_block.block_forward(block, *args, compute_dtype=BF16)
+            second = egnn_block.block_forward(block, *args, compute_dtype=BF16)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            egnn_block.block_forward(block, *args, compute_dtype=BF16)
+
+
+def test_bf16_egnn_runs_the_bf16_kernels_only(card):
+    from geoldm_tpu_torch.nn.egnn import EGNN
+    from geoldm_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    cfg = EGNNConfig(in_node_nf=3, out_node_nf=3, hidden_nf=64, n_layers=3,
+                     normalization_factor=1.0)
+    egnn = EGNN(cfg)
+    init_parameters(egnn, torch.Generator().manual_seed(2))
+    egnn = egnn.to(card)
+    for n in (24, 80):
+        h, x, _, mask = _inputs(card, 2, n, 3, (n, n - 5))
+        reset_kernel_launches()
+        with torch.no_grad():
+            h_k, x_k = egnn(h, x, mask, BF16)
+            egnn_cpu = egnn.to("cpu")
+            h_p, x_p = egnn_cpu(h.cpu(), x.cpu(), mask.cpu(), BF16)
+            egnn = egnn_cpu.to(card)
+        counts = {k: v for k, v in kernel_launches().items() if v}
+        want = {"egnn_block_bf16": 3} if n <= 64 else {"gcl_rows_bf16": 3, "coord_rows_bf16": 3}
+        assert counts == want, counts
+        _assert_bf16_close(h_k.cpu(), h_p, "h")
+        _assert_bf16_close(x_k.cpu(), x_p, "x")

@@ -112,7 +112,8 @@ def test_main_qm9_trains_the_vae_by_default(datadir, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--compute_dtype", "bfloat16"], ["--dp", "2"], ["--conditioning", "alpha"],
     ["--tp", "2"], ["--compute_dtype", "bfloat16_full"], ["--visualize", "True"],
-    ["--eval_n_steps", "50"], ["--model", "gnn_dynamics"], ["--conditioning", "alpha", "homo"],
+    ["--compute_dtype", "bfloat16_mixed"], ["--model", "gnn_dynamics"],
+    ["--conditioning", "alpha", "homo"],
 ])
 def test_flags_outside_the_slice_are_refused(flags, tmp_path):
     with pytest.raises(SystemExit) as e:

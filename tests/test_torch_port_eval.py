@@ -352,9 +352,8 @@ def test_eval_analyze_prints_and_writes_jax_lines(monkeypatch, tmp_path, capsys)
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--n_steps", "50"], "--n_steps"), (["--sampler", "dpm2m"], "--sampler dpm2m"),
-    (["--eta", "0.0"], "--eta"), (["--dp", "2"], "--dp 2"),
-    (["--compute_dtype", "bfloat16_full"], "--compute_dtype bfloat16_full"),
+    (["--dp", "2"], "--dp 2"), (["--dp", "4", "--n_steps", "50"], "--dp 4"),
+    (["--dp", "2", "--compute_dtype", "bfloat16_full"], "--dp 2"),
 ])
 def test_eval_analyze_refuses_what_is_not_ported(flags, name):
     with pytest.raises(SystemExit) as e:

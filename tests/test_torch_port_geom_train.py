@@ -188,7 +188,7 @@ def test_geom_stability_sampling_uses_the_geom_buckets_as_jax(monkeypatch):
     port_pads, jax_pads, seen = [], [], {}
 
     def fake_port_sample(model, noise, dataset_info, nodesxsample, fix_noise=False,
-                         pad_nodes=None):
+                         pad_nodes=None, **sampler_settings):
         port_pads.append(pad_nodes)
         b = len(nodesxsample)
         mask = (np.arange(pad_nodes)[None] < np.asarray(nodesxsample)[:, None])

@@ -49,7 +49,8 @@ def test_every_module_is_a_port_module():
                  "train.train_step", "train.trainer", "data.qm9", "data.geom",
                  "utils.checkpoint", "train.augment", "train.prefetch",
                  "utils.logging_utils", "evalsuite.smiles", "evalsuite.rdkit_metrics",
-                 "evalsuite.native", "evalsuite.analyze", "cli.eval_analyze", "cli.check_data"):
+                 "evalsuite.native", "evalsuite.analyze", "cli.eval_analyze", "cli.check_data",
+                 "nn.core", "cli.eval_sample"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 
@@ -68,6 +69,10 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     save_reference_checkpoint(factory.build_model(cfg, "cpu"), str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.SamplerService(serve.parse_args(["--model_path", str(tmp_path)]))
+    from geoldm_tpu_torch.cli import eval_sample
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_sample.main(["--model_path", str(tmp_path), "--outdir", str(tmp_path / "out")])
     from geoldm_tpu_torch.cli import main_geom_drugs
     from geoldm_tpu_torch.data.synthetic import write_geom_conformers
 

@@ -98,9 +98,9 @@ def test_unseeded_and_xyz_requests(server):
     ({"sizes": "abc"}, "list of ints"),
     ({"n_samples": 0}, "n_samples must be in"),
     ({"seed": "x"}, "seed must be an integer"),
-    ({"sizes": [5], "n_steps": 10}, "not ported yet"),
-    ({"sizes": [5], "sampler": "dpm2m"}, "not ported yet"),
-    ({"sizes": [5], "eta": 0.0}, "not ported yet"),
+    ({"sizes": [5], "n_steps": 10}, "n_steps must be in [1, 4]"),
+    ({"sizes": [5], "sampler": "dpm3"}, "sampler must be"),
+    ({"sizes": [5], "cfg_scale": 2.0}, "not ported yet"),
     ({"sizes": [5], "properties": {"alpha": 1.0}}, "unconditional"),
 ])
 def test_invalid_requests_get_400(server, body, fragment):
@@ -112,8 +112,11 @@ def test_invalid_requests_get_400(server, body, fragment):
 
 
 def test_non_float32_compute_dtype_raises(model_dir):
+    """The bf16 names are served (bfloat16_mixed is the default); a name
+    outside them raises."""
     from geoldm_tpu_torch.cli import serve
 
-    with pytest.raises(ValueError, match="float32"):
+    assert serve.parse_args(["--model_path", model_dir]).compute_dtype == "bfloat16_mixed"
+    with pytest.raises(ValueError, match="unknown compute dtype 'float16'"):
         serve.SamplerService(serve.parse_args(["--model_path", model_dir, "--device", "cpu",
-                                               "--compute_dtype", "bfloat16_mixed"]))
+                                               "--compute_dtype", "float16"]))

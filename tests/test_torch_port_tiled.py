@@ -247,7 +247,8 @@ def test_n_chunks_counts_the_chunks_sample_bucketed_dispatches(batch_size, monke
     sizes = np.concatenate([np.random.default_rng(0).integers(3, 182, 40), [181, 32, 33, 64, 65]])
     dispatched = []
 
-    def fake_sample(model, noise, dataset_info, nodesxsample, fix_noise=False, pad_nodes=None):
+    def fake_sample(model, noise, dataset_info, nodesxsample, fix_noise=False, pad_nodes=None,
+                    **sampler_settings):
         b = len(nodesxsample)
         dispatched.append((pad_nodes, b, int(np.max(nodesxsample))))
         mask = (np.arange(pad_nodes)[None] < np.asarray(nodesxsample)[:, None])

@@ -142,17 +142,40 @@ def test_ldm_nll_matches_jax(training):
 
 
 class _Tiny(torch.nn.Module):
-    def __init__(self):
+    """Every parameter drawn from ``gen``: never from torch's global
+    generator, whose state under ``-n 6 --dist loadfile`` depends on which
+    files the worker ran first."""
+
+    def __init__(self, gen: torch.Generator):
         super().__init__()
         self.a = torch.nn.Linear(4, 3)
         self.vae = torch.nn.Linear(3, 2)  # frozen when the VAE is not trainable
+        with torch.no_grad():
+            torch.nn.init.normal_(self.a.weight, generator=gen)
+            for p in (self.a.bias, self.vae.weight, self.vae.bias):
+                p.uniform_(-0.5, 0.5, generator=gen)
 
 
-def test_optimizer_and_ema_match_jax():
+# AMSGrad's second bias correction at the counts of the test's 6 steps: JAX
+# computes 1 - 0.999**c in float32 (geoldm_tpu/train/optim.py:113-114),
+# torch.optim.AdamW in float64. Their worst relative difference (~2e-5)
+# scales the step 1/sqrt(v / bc2) by up to that much (half of it, in fact).
+_BC2_COUNTS = np.arange(1, 7)
+BC2_REL = float(np.max(np.abs(
+    (1 - np.float32(0.999) ** _BC2_COUNTS.astype(np.float32)).astype(np.float64)
+    - (1 - 0.999 ** _BC2_COUNTS)) / (1 - 0.999 ** _BC2_COUNTS)))
+
+
+def _optimizer_and_ema_against_jax(init_seed: int):
     """Clip + AMSGrad + weight decay + EMA over 6 steps of shared gradients,
-    one a spike that trips the clip, with the 'vae' subtree frozen."""
-    model = _Tiny()
-    torch.nn.init.normal_(model.a.weight, generator=torch.Generator().manual_seed(0))
+    one a spike that trips the clip, with the 'vae' subtree frozen.
+
+    Tolerance: each parameter (and its EMA) may differ from JAX's by
+    lr * sum_k BC2_REL * max|u_k| over the steps so far, u_k JAX's step-k
+    update in units of lr: the drift JAX's float32 bias correction causes
+    (above), not the port's, which computes it as upstream PyTorch does.
+    rtol 1e-5 covers the float32 rounding of the values themselves."""
+    model = _Tiny(torch.Generator().manual_seed(init_seed))
     params = {k: jnp.asarray(v.detach().numpy()) for k, v in model.named_parameters()}
     mask = poptim.trainable_mask(model, "latent_diffusion", trainable_ae=False)
     assert mask == {"a.weight": True, "a.bias": True, "vae.weight": False, "vae.bias": False}
@@ -162,16 +185,19 @@ def test_optimizer_and_ema_match_jax():
     ema = dict(params)
     opt = poptim.make_optimizer(model, mask, lr=lr, weight_decay=1e-12)
     clip = poptim.AdaptiveGradClip("cpu")
-    ema_model = _Tiny().requires_grad_(False)
+    ema_model = _Tiny(torch.Generator().manual_seed(init_seed)).requires_grad_(False)
     ema_model.load_state_dict(model.state_dict())
     vae0 = model.vae.weight.detach().clone()
     rng = np.random.default_rng(1)
+    atol = 0.0
+    assert 1e-5 < BC2_REL < 2e-5
     for step in range(6):
         scale = 1e5 if step == 3 else 1.0
         grads = {k: (rng.standard_normal(v.shape) * scale).astype(np.float32)
                  for k, v in params.items()}
         updates, opt_state = tx.update({k: jnp.asarray(g) for k, g in grads.items()},
                                        opt_state, params)
+        atol += lr * BC2_REL * max(float(np.abs(u).max()) / lr for u in updates.values())
         params = optax.apply_updates(params, updates)
         ema = joptim.ema_update(ema, params, decay)
         for name, p in model.named_parameters():
@@ -183,11 +209,25 @@ def test_optimizer_and_ema_match_jax():
         poptim.ema_update(ema_model, model, decay)
         for name, p in model.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[name]),
-                                       rtol=1e-5, atol=1e-7, err_msg=f"{name} step {step}")
+                                       rtol=1e-5, atol=atol, err_msg=f"{name} step {step}")
         for name, p in ema_model.named_parameters():
-            np.testing.assert_allclose(p.numpy(), np.asarray(ema[name]), rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(p.numpy(), np.asarray(ema[name]), rtol=1e-5, atol=atol)
     assert clip.count == 7 and float(clip.norms[4]) < 1e4  # the spike was recorded clipped
     assert torch.equal(model.vae.weight, vae0)
+
+
+def test_optimizer_and_ema_match_jax():
+    """The model's values come from its own generator, whatever torch's
+    global generator holds (which files a worker ran first used to decide
+    a.bias, and 6 of 60 global seeds moved it past an atol of 1e-7)."""
+    _optimizer_and_ema_against_jax(0)
+
+
+@pytest.mark.parametrize("init_seed", range(1, 21))
+def test_optimizer_bound_holds_for_any_init(init_seed):
+    """The derived bound holds over 20 seeds of the init generator, so it
+    hides no seed."""
+    _optimizer_and_ema_against_jax(init_seed)
 
 
 @pytest.mark.parametrize("compute_dtype", [None, "pallas"])
