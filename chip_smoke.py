@@ -129,7 +129,25 @@ Phases (each prints a line; any failure exits non-zero before the result):
      plus the final step in f32, block for block; the GEOM recipe served at
      pad 96 in bf16 (#3/#4's variants); cli.eval_analyze --n_steps 50 on
      phase 18's checkpoint (exact launches). Phases 4 and 10 serve in
-     float32: the dense f32 path.
+     float32: the dense f32 path;
+ 23. the bf16 backward kernels against their plain bf16 backwards (autograd
+     of the plain bf16 forward) on the card at H=256: #2 at QM9's pads
+     16/24/29/32 (B=64) and GEOM's 48/64 (B=32), #5's GCL and coordinate
+     stages at N=96/136/184 (B=32), #6 (B=16) and #7 (B=32) on both slabs of
+     N=184 over 2 ranks and of N=48/64; every output within 5e-3 *
+     max(1, max|ref|) (a weight gradient's one-step bf16 rounding flips
+     counted apart), on the mean 10x closer to the plain bf16 version than to
+     the plain f32 one and to one that rounds each product's cotangent; the
+     training routes and a replay bit-identical; with times, the f32
+     kernel's and plain times and bounds (every product at the bf16 rate);
+ 24. bf16 training through the CLIs at the recipes: 5 QM9 steps
+     (cli.main_qm9 --compute_dtype bfloat16_pallas) and one GEOM step at pad
+     184 (cli.main_geom_drugs --compute_dtype bfloat16), each with its test
+     epoch in bf16; launches exact, every one a bf16 kernel; finite; the EMA
+     moved; then the bf16 train-step gradient on the card against the plain
+     bf16 step on the CPU (QM9 and GEOM, as phases 8 and 14);
+ 25. an SP-2 bf16 train step (two ranks sharing the card: #6/#7 bf16 on
+     both slabs, launches exact per rank) against the one-rank bf16 step.
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -308,10 +326,10 @@ def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
 _TILE_KERNELS = ("edge_tile_bwd_kernel", "edge_tile_kernel", "node_gemm_tc_kernel",
                  "wgrad_tc_kernel", "column_sum_kernel", "rows_tile_kernel",
                  "rows_bwd_tile_kernel")
-# Library -> the instantiations (HP x COORD, and x BF16 for the forward grid
-# of #3/#4, whose library also builds the bf16 variants) of the forward and
-# the backward row grid it must hold.
-_ROW_GRIDS = {"egnn_tiled": (16, 0), "egnn_tiled_bwd": (4, 8), "egnn_sp": (8, 8)}
+# Library -> the instantiations (HP x COORD x BF16: every library builds the
+# bf16 variants of its grids) of the forward and the backward row grid it
+# must hold.
+_ROW_GRIDS = {"egnn_tiled": (16, 0), "egnn_tiled_bwd": (8, 16), "egnn_sp": (16, 16)}
 
 
 def _ptxas_kernels(log):
@@ -664,10 +682,14 @@ class _Replay:
         return self.rng.integers(low, high, shape)
 
 
-def phase_grad(card_name, geom=False):
+def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
     """Phase 8 (QM9: 9+9 blocks, B=8, N=29, kernel #2) or phase 14 (GEOM:
     4+4 blocks, B=2, pad 184, kernel #5): one train-step gradient on the card
-    against the plain path on the CPU, same weights, batch and noise."""
+    against the plain path on the CPU, same weights, batch and noise. With a
+    ``compute_dtype`` name (phase 24: "bfloat16_pallas"), the step in it on
+    both sides, the card's on the bf16 kernels, held to the bf16 gate
+    (_bf16_grads_check: within _BF16_RTOL, on the mean _BF16_SEPARATION
+    times closer to the CPU's bf16 step than to its f32 one)."""
     import torch
 
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
@@ -691,6 +713,9 @@ def phase_grad(card_name, geom=False):
         label = "GEOM nf=256 4+4 blocks B=2 pad 184 (181 and 151 atoms)"
 
         def bwd_launches():
+            if compute_dtype:
+                return (egnn_tiled.gcl_rows_bwd_bf16_launches
+                        + egnn_tiled.coord_rows_bwd_bf16_launches)
             return egnn_tiled.gcl_rows_bwd_launches + egnn_tiled.coord_rows_bwd_launches
         expected = 8 * (cfg.dynamics.egnn.inv_sublayers + 1)
     else:
@@ -701,15 +726,20 @@ def phase_grad(card_name, geom=False):
         label = "nf=256 9+9 blocks B=8 N=29"
 
         def bwd_launches():
-            return egnn_block.bwd_launches
+            return egnn_block.bwd_bf16_launches if compute_dtype else egnn_block.bwd_launches
         expected = 18
-    nll_fn = factory.model_nll_fn(cfg, training=True)
+    phase = phase_id or phase
+    nll_fn = factory.model_nll_fn(cfg, training=True, compute_dtype=compute_dtype)
     nodes = DistributionNodes(info.n_nodes)
     grads, losses, seconds = {}, {}, {}
-    for device in ("cuda", "cpu"):
+    runs = ("cuda", "cpu", "cpu_f32") if compute_dtype else ("cuda", "cpu")
+    for device in runs:
+        if device == "cpu_f32":
+            nll_fn = factory.model_nll_fn(cfg, training=True)
         t0 = time.time()
-        model = factory.build_model(cfg, device, torch.Generator().manual_seed(5))
-        batch = prepare_batch(raw, nodes, device)
+        dev = device.split("_")[0]  # cpu_f32: the CPU's f32 step
+        model = factory.build_model(cfg, dev, torch.Generator().manual_seed(5))
+        batch = prepare_batch(raw, nodes, dev)
         bwd = bwd_launches()
         nll = nll_fn(model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"],
                      batch["node_mask"])
@@ -725,8 +755,33 @@ def phase_grad(card_name, geom=False):
                          if p.grad is not None}
     _check(set(grads["cuda"]) == set(grads["cpu"]) and len(grads["cpu"]) > 0,
            "card and CPU gave gradients to different parameters")
-    _check(abs(losses["cuda"] - losses["cpu"]) <= _LOSS_RTOL * abs(losses["cpu"]),
-           f"loss card {losses['cuda']} vs CPU {losses['cpu']}")
+    if compute_dtype:
+        # bf16: within _BF16_LOSS_RTOL, or _BF16_STEP_SEPARATION times closer
+        # to the CPU's bf16 loss than that is to its f32 loss.
+        loss_tol = max(_BF16_LOSS_RTOL * abs(losses["cpu"]),
+                       abs(losses["cpu"] - losses["cpu_f32"]) / _BF16_STEP_SEPARATION)
+    else:
+        loss_tol = _LOSS_RTOL * abs(losses["cpu"])
+    _check(abs(losses["cuda"] - losses["cpu"]) <= loss_tol,
+           f"loss card {losses['cuda']} vs CPU {losses['cpu']}"
+           + (f" (CPU f32 {losses['cpu_f32']})" if compute_dtype else ""))
+    if compute_dtype:
+        names = sorted(grads["cpu"])
+        err, worst_name, e, f, _, flips, _ = _bf16_grads_check(
+            f"phase {phase}", names, [grads["cuda"][k] for k in names],
+            [grads["cpu"][k] for k in names], [grads["cpu_f32"][k] for k in names], None,
+            step=True)
+        print(f"phase {phase}: {compute_dtype} train-step gradient {label}: loss card "
+              f"{losses['cuda']:.6f} CPU {losses['cpu']:.6f} (CPU f32 {losses['cpu_f32']:.6f}); "
+              f"{len(names)} parameter tensors, worst max|d|/max(1,|ref|) {err:.2e} "
+              f"({worst_name}; tol {_BF16_RTOL}; {flips} weight-gradient elements one bf16 "
+              f"step off); mean |d|/max(1,|ref|) {e:.3e} to the CPU's bf16 step, {f:.3e} to its "
+              f"f32 step; {expected} bf16 backward launches on {card_name} ("
+              f"{seconds['cuda']:.1f} s card, {seconds['cpu']:.1f} s CPU)", flush=True)
+        return {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+                "loss_cpu_f32": losses["cpu_f32"], "worst_rel": err, "worst": worst_name,
+                "mean_err": e, "mean_to_f32": f, "flips": flips,
+                "cpu_seconds": seconds["cpu"]}
     worst, worst_name = 0.0, ""
     for k, ref in grads["cpu"].items():
         g = grads["cuda"][k]
@@ -1535,10 +1590,11 @@ def _phase17_batches():
     return raw, timed
 
 
-def _train_step_grads(device, raw, sp_group=None):
+def _train_step_grads(device, raw, sp_group=None, compute_dtype=None):
     """One recipe train step's loss and gradients from seed-5 weights and the
-    replayed noise stream 12 (the blocks' gradients summed over the ranks);
-    returns (model, loss, {name: gradient on the host}, launches)."""
+    replayed noise stream 12 (the blocks' gradients summed over the ranks),
+    in ``compute_dtype``; returns (model, loss, {name: gradient on the host},
+    launches)."""
     import torch
 
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
@@ -1553,7 +1609,7 @@ def _train_step_grads(device, raw, sp_group=None):
     model = factory.build_model(cfg, device, torch.Generator().manual_seed(5), sp_group=sp_group)
     batch = prepare_batch(raw, DistributionNodes(get_dataset_info("geom").n_nodes), device)
     before = _launch_counts()
-    nll = factory.model_nll_fn(cfg, training=True)(
+    nll = factory.model_nll_fn(cfg, training=True, compute_dtype=compute_dtype)(
         model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"], batch["node_mask"])
     loss = (nll - batch["log_pN"]).mean()
     loss.backward()
@@ -1984,6 +2040,16 @@ def phase_geom_eval(card_name, geom_dir):
 # largest error is that of one such flip).
 _BF16_RTOL = 5e-3
 _BF16_SEPARATION = 10.0
+# A whole bf16 train step, card vs CPU (phase 24): 19 forward and 18 backward
+# bf16 kernels in a row, each rounding ties the other way than the plain
+# version at ~1/20 of bf16's own effect (phase 23), and those flips
+# compound through the chain (9.1x on the mean at QM9 on an H100 80GB HBM3
+# at 700 W, PERF.md; half of a deep block's weight-gradient elements one bf16
+# step apart).
+_BF16_STEP_SEPARATION = 5.0
+# A bf16 train step's loss, card vs CPU: a mean over the batch of sums whose
+# bf16 operands may round the other way at a tie under another sum order.
+_BF16_LOSS_RTOL = 1e-4
 # Dense bf16 on the H100's tensor cores (data sheet).
 _BF16_PEAK = 989.0e12
 
@@ -2203,6 +2269,466 @@ def phase_bf16_serve(card, qm9_dir):
     return out, launches_all
 
 
+def _bf16_sites():
+    """tests/torch_port_bf16_sites.py, from the checkout: ``unrounded`` (the
+    plain bf16 versions with one site rounded otherwise) and the bf16
+    gradient report."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_port_bf16_sites
+
+    return torch_port_bf16_sites
+
+
+def _bf16_grads_check(what, names, got, want, want_f32, want_cot, step=False):
+    """tests/torch_port_bf16_sites.py's bf16_grads_report at _BF16_RTOL
+    (every tensor within the gate, weight gradients but for their one-step
+    rounding flips; on the mean over every element, each in units of its
+    tensor's max(1, max|ref|), _BF16_SEPARATION times closer to the plain
+    bf16 version than to the plain f32 one and to want_cot; ``step``: a whole
+    train step, _BF16_STEP_SEPARATION and no cap on the flips) or SmokeFailure
+    -> (max|d| / max(1, max|ref|), worst tensor, the three means, flips,
+    max|d|)."""
+    sites = _bf16_sites()
+    _check(sites.SEPARATION == _BF16_SEPARATION, "the separation of the sites helper changed")
+    r = sites.bf16_grads_report(names, got, want, want_f32, want_cot, _BF16_RTOL,
+                                *((1.0, _BF16_STEP_SEPARATION) if step else ()))
+    _check(not r["problems"], f"{what}: {'; '.join(r['problems'])}")
+    return (r["max_rel"], r["worst"], r["mean_err"], r["mean_to_f32"], r["mean_to_cotangent"],
+            r["flips"], r["max_abs"])
+
+
+def phase_bf16_backward(card):
+    """Phase 23: the bf16 backward kernels against their plain bf16
+    backwards (autograd of the plain bf16 forward) on the card: #2 at QM9's
+    pads 16/24/29/32 (B=64) and GEOM's 48/64 (B=32); #5's GCL and
+    coordinate stages at N=96/136/184 (B=32); #6 (forward, B=16 at N=184)
+    and #7 (B=32) on both slabs of N=184 over 2 ranks and of N=48/64. Every
+    output within _BF16_RTOL * max(1, max|ref|), weight gradients included;
+    on the mean _BF16_SEPARATION times closer to the plain bf16 version than
+    to the plain f32 one and to one that rounds each product's cotangent
+    (``cotangent``, tests/torch_port_bf16_sites.py); the training routes
+    (the forward's saved chain for #2, the kept node chain for #5/#7) and a
+    replay bit-identical to the recompute. With card ms, the f32 kernel's ms,
+    plain ms and the bf16 bound (every product at the dense bf16 rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    unrounded = _bf16_sites().unrounded
+    bf16, dev, H, rows = torch.bfloat16, torch.device("cuda"), 256, []
+
+    def cots(seed, shapes):
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                for s in shapes]
+
+    def flat(r, k=3):
+        return [*r[:k], *r[k]]
+
+    def record(row, what):
+        rows.append(row)
+        print(f"phase 23: {what} max|d|/max(1,|ref|) {row['max_rel_err']:.2e} ({row['worst']}; "
+              f"tol {_BF16_RTOL}; {row['flips']} weight-gradient elements one bf16 step off); "
+              f"mean |d|/max(1,|ref|) over every element {row['mean_err']:.3e} to plain "
+              f"bf16, {row['mean_to_f32']:.3e} to plain f32, {row['mean_to_cotangent']:.3e} to "
+              f"rounded cotangents; kernel {row['ms']:.4f} ms, f32 kernel {row['f32_ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; every product at 989 TFLOP/s) on {card}", flush=True)
+
+    # #2 at QM9's and GEOM's small pads.
+    for n, B, spread in ((16, 64, 8), (24, 64, 8), (29, 64, 8), (32, 64, 8), (48, 32, 16),
+                         (64, 32, 16)):
+        block = _geom_block({}, 2300 + n)
+        E, n_weights = block.cfg.edge_feat_nf, sum(p.numel() for p in block.parameters())
+        inputs = [_ragged_inputs(23000 * n + rep, B, n, H, dev, spread)
+                  + tuple(cots(23100 * n + rep, ((B, n, H), (B, n, 3)))) for rep in range(3)]
+        got = egnn_block.block_backward_cuda(block, *inputs[0], compute_dtype=bf16)
+        with torch.no_grad():
+            h_s, x_s, saved = egnn_block._forward_launch(block, *inputs[0][:4], save=True,
+                                                         bf16=True)
+            h_n, x_n = egnn_block.block_forward_cuda(block, *inputs[0][:4], compute_dtype=bf16)
+        via_saved = egnn_block._backward_launch(block, *inputs[0], saved, True)
+        again = egnn_block.block_backward_cuda(block, *inputs[0], compute_dtype=bf16)
+        torch.cuda.synchronize()
+        names = ["dh", "dx", "dx0"] + egnn_block.block_param_names(block)
+        _check(torch.equal(h_s, h_n) and torch.equal(x_s, x_n),
+               f"#1 bf16 with its chain saved differs from without at N={n}")
+        for name, a, b_, c_ in zip(names, flat(got), flat(via_saved), flat(again)):
+            _check(torch.equal(a, b_), f"#2 bf16 from the saved chain differs from the "
+                                       f"recompute on {name} at N={n}")
+            _check(torch.equal(a, c_), f"#2 bf16 does not replay on {name} at N={n}")
+        del via_saved, again, saved
+        want = flat(egnn_block.block_backward_plain(block, *inputs[0], compute_dtype=bf16))
+        want_f32 = flat(egnn_block.block_backward_plain(block, *inputs[0]))
+        with unrounded("cotangent", E):
+            want_cot = flat(egnn_block.block_backward_plain(block, *inputs[0], compute_dtype=bf16))
+        err, worst, e, f, c, flips, abs_err = _bf16_grads_check(f"#2 bf16 N={n}", names, flat(got),
+                                                       want, want_f32, want_cot)
+        del got, want, want_f32, want_cot
+        ms = _time_ms(lambda *a: egnn_block.block_backward_cuda(block, *a, compute_dtype=bf16),
+                      inputs)
+        f32_ms = _time_ms(lambda *a: egnn_block.block_backward_cuda(block, *a), inputs)
+        plain_ms = _time_ms(lambda *a: egnn_block.block_backward_plain(
+            block, *a, compute_dtype=bf16), inputs, warmup=1, reps=3)
+        n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        bound, bound_by = _bf16_bounds(*_bwd_work(block.cfg, n_real, n, n_weights)[:2])
+        record({"kernel": "egnn_block_bwd", "N": n, "B": B, "H": H, "max_rel_err": err,
+                "worst": worst, "mean_err": e, "mean_to_f32": f, "mean_to_cotangent": c,
+                "flips": flips, "max_abs_err": abs_err,
+                "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by}, f"egnn_block_bwd bf16 N={n} B={B} H={H}: {len(names)} "
+                                       f"tensors; the saved route and a replay bit-identical;")
+        del inputs
+        torch.cuda.empty_cache()
+
+    # #5 at GEOM's pads past 64.
+    B = 32
+    for n in (96, 136, 184):
+        block = _geom_block({}, 2400 + n)
+        E = block.cfg.edge_feat_nf
+        inputs = [_ragged_inputs(24000 * n + rep, B, n, H, dev, 16) for rep in range(3)]
+        n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        for stage, mod, shape in (("gcl_rows", block.gcl_0, (B, n, H)),
+                                  ("coord_rows", block.gcl_equiv, (B, n, 3))):
+            cuda_fn = getattr(egnn_tiled, f"{stage}_backward_cuda")
+            plain_fn = getattr(egnn_tiled, f"{stage}_backward_plain")
+            args = [(*a, *cots(24100 * n + rep, (shape,))) for rep, a in enumerate(inputs)]
+            got = flat(cuda_fn(mod, *args[0], compute_dtype=bf16))
+            again = flat(cuda_fn(mod, *args[0], compute_dtype=bf16))
+            _check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                   f"#5 bf16 {stage} does not replay at N={n}")
+            chain_txt = ""
+            if stage == "gcl_rows":
+                with torch.no_grad():
+                    chain = egnn_tiled.gcl_rows_cuda(mod, *args[0][:4], keep_chain=True,
+                                                     compute_dtype=bf16)[1]
+                handed = flat(cuda_fn(mod, *args[0], chain=chain, compute_dtype=bf16))
+                _check(all(torch.equal(a, b_) for a, b_ in zip(got, handed)),
+                       f"#5 bf16 GCL backward from #3 bf16's node chain differs from its own "
+                       f"recompute at N={n}")
+                chain_txt = " from #3 bf16's kept node chain bit-identical;"
+                del chain, handed
+            del again
+            names = ["dh", "dx", "dx0"] + egnn_tiled.stage_weight_names(mod)
+            want = flat(plain_fn(mod, *args[0], compute_dtype=bf16))
+            want_f32 = flat(plain_fn(mod, *args[0]))
+            with unrounded("cotangent", E):
+                want_cot = flat(plain_fn(mod, *args[0], compute_dtype=bf16))
+            err, worst, e, f, c, flips, abs_err = _bf16_grads_check(f"#5 bf16 {stage} N={n}", names, got,
+                                                           want, want_f32, want_cot)
+            del got, want, want_f32, want_cot
+            ms = _time_ms(lambda *a, m=mod, fn=cuda_fn: fn(m, *a, compute_dtype=bf16), args,
+                          warmup=2, reps=10)
+            f32_ms = _time_ms(lambda *a, m=mod, fn=cuda_fn: fn(m, *a), args, warmup=2, reps=10)
+            plain_ms = _time_ms(lambda *a, m=mod, fn=plain_fn: fn(m, *a, compute_dtype=bf16),
+                                args, warmup=1, reps=3)
+            n_weights = sum(p.numel() for p in mod.parameters())
+            bound, bound_by = _bf16_bounds(*_stage_bwd_work(block.cfg, n_real, n, n_weights,
+                                                            stage == "coord_rows")[:2])
+            record({"kernel": f"{stage}_bwd", "N": n, "B": B, "H": H, "max_rel_err": err,
+                    "worst": worst, "mean_err": e, "mean_to_f32": f, "mean_to_cotangent": c,
+                    "flips": flips, "max_abs_err": abs_err,
+                    "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by},
+                   f"{stage} backward (#5) bf16 N={n} B={B} H={H}: a replay{chain_txt}")
+        del inputs
+        torch.cuda.empty_cache()
+
+    # #6 and #7 on the slabs of N=184 (2 ranks) and of GEOM's pads 48 and 64.
+    for n, ranks, b_fwd in ((184, 2, 16), (48, 2, 32), (64, 2, 32)):
+        block = _geom_block({}, 2500 + n)
+        E = block.cfg.edge_feat_nf
+        s = n // ranks
+        for direction, B in (("fwd", b_fwd), ("bwd", 32)):
+            inputs = [[t_.contiguous() for t_ in _ragged_inputs(25000 * n + 100 * rep + B, B, n,
+                                                                H, dev, 16)] for rep in range(3)]
+            n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+            for slab in range(ranks):
+                row0 = slab * s
+                for stage, mod in (("gcl_rows", block.gcl_0), ("coord_rows", block.gcl_equiv)):
+                    (fwd, bwd), (fwd_p, bwd_p) = (egnn_sp.stage_fns(mod, True),
+                                                  egnn_sp.stage_fns(mod, False))
+                    out = 3 if stage == "coord_rows" else H
+                    args = []
+                    for rep, full in enumerate(inputs):
+                        a = [full, [t_[:, row0:row0 + s].contiguous() for t_ in full], row0, n]
+                        if direction == "bwd":
+                            a += cots(25100 * n + rep + 31 * row0, ((B, s, out),))
+                        args.append(a)
+                    kernel, plain = (fwd, fwd_p) if direction == "fwd" else (bwd, bwd_p)
+                    with torch.no_grad():
+                        got = kernel(mod, *args[0], compute_dtype=bf16)
+                        again = kernel(mod, *args[0], compute_dtype=bf16)
+                    if direction == "fwd":
+                        names, got, again = ["out"], [got], [again]
+                    else:
+                        names = (["dh", "dx", "dx0", "dh_rows", "dx_rows", "dx0_rows"]
+                                 + egnn_sp.stage_weight_names(mod))
+                        got, again = flat(got, 6), flat(again, 6)
+                    _check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                           f"SP {stage} {direction} bf16 does not replay (N={n}, row0 {row0})")
+                    if direction == "bwd" and stage == "gcl_rows":
+                        with torch.no_grad():
+                            chain = fwd(mod, *args[0][:4], keep_chain=True,
+                                        compute_dtype=bf16)[1]
+                        handed = flat(kernel(mod, *args[0], chain=chain, compute_dtype=bf16), 6)
+                        _check(all(torch.equal(a, b_) for a, b_ in zip(got, handed)),
+                               f"#7 bf16 from #6 bf16's node chain differs from its own "
+                               f"recompute (N={n}, row0 {row0})")
+                        del chain, handed
+                    with torch.no_grad():
+                        want = plain(mod, *args[0], compute_dtype=bf16)
+                        want_f32 = plain(mod, *args[0])
+                    want_cot = None
+                    if direction == "fwd":
+                        want, want_f32 = [want], [want_f32]
+                    else:
+                        want, want_f32 = flat(want, 6), flat(want_f32, 6)
+                        with unrounded("cotangent", E):
+                            want_cot = flat(plain(mod, *args[0], compute_dtype=bf16), 6)
+                    kname = "egnn_sp_fwd" if direction == "fwd" else "egnn_sp_bwd"
+                    err, worst, e, f, c, flips, abs_err = _bf16_grads_check(
+                        f"{kname} bf16 {stage} N={n} row0 {row0}", names, got, want, want_f32,
+                        want_cot)
+                    del got, again, want, want_f32, want_cot
+                    with torch.no_grad():
+                        ms = _time_ms(lambda *a, m=mod, fn=kernel: fn(m, *a, compute_dtype=bf16),
+                                      args)
+                        f32_ms = _time_ms(lambda *a, m=mod, fn=kernel: fn(m, *a), args)
+                        plain_ms = _time_ms(lambda *a, m=mod, fn=plain: fn(
+                            m, *a, compute_dtype=bf16), args, warmup=1, reps=3)
+                    n_weights = sum(p.numel() for p in mod.parameters())
+                    bound, bound_by = _bf16_bounds(*_sp_stage_work(
+                        block.cfg, n_real, n, row0, s, n_weights, stage == "coord_rows",
+                        direction == "bwd")[:2])
+                    record({"kernel": kname, "stage": stage, "N": n, "S": s, "row0": row0,
+                            "B": B, "H": H, "max_rel_err": err, "worst": worst,
+                            "mean_err": e, "mean_to_f32": f, "mean_to_cotangent": c,
+                            "flips": flips, "max_abs_err": abs_err, "ms": ms,
+                            "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": bound_by},
+                           f"{kname} bf16 {stage} N={n} S={s} row0={row0} B={B} H={H}: a "
+                           f"replay{' and the kept node chain' if direction == 'bwd' else ''} "
+                           f"bit-identical;")
+            del inputs
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bf16_train(card, tmpdir):
+    """Phase 24: bf16 training through the CLIs at the recipes on fabricated
+    data: 5 QM9 steps (cli.main_qm9 --compute_dtype bfloat16_pallas), then
+    one GEOM step at pad 184 (cli.main_geom_drugs --compute_dtype bfloat16),
+    each with its test epoch (valid and test NLL, stability samples) in
+    bf16: finite, the EMA moved, and the launches exact, every one a bf16
+    kernel. Then the bf16 train-step gradient on the card against the plain
+    bf16 step on the CPU (phase_grad), QM9 and GEOM."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_geom_drugs, main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers, write_qm9_splits
+    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
+    from geoldm_tpu_torch.train.sampling import (DEFAULT_SAMPLE_BUCKETS, chunk_pads,
+                                                 default_buckets, n_chunks)
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    out, T, decay, seed = {}, 1000, 0.9999, 0
+    # QM9: per train step the encoder forward (no grad) and the 9 decoder and
+    # 9 denoiser blocks forward (#1 bf16, saving the chain) and backward (#2
+    # bf16); per eval batch encoder + decoder + 2 denoiser passes; per sampled
+    # chunk (T+1) denoiser calls and a decode, all in bf16.
+    info = get_dataset_info("qm9")
+    B, steps, L, n_stab = 64, 5, 9, 8
+    qm9_dir = os.path.join(tmpdir, "qm9")
+    write_qm9_splits(qm9_dir, info, {"train": B * steps, "valid": B, "test": B}, seed=1)
+    argv = ["--datadir", qm9_dir, "--outdir", os.path.join(qm9_dir, "out"), "--exp_name", "bf16",
+            "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", str(L),
+            "--latent_nf", "1", "--diffusion_steps", str(T), "--batch_size", str(B),
+            "--ema_decay", str(decay), "--n_epochs", "1", "--test_epochs", "1",
+            "--n_stability_samples", str(n_stab), "--seed", str(seed), "--no_wandb",
+            "--compute_dtype", "bfloat16_pallas"]
+    print(f"phase 24: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    losses = summary["losses"][0]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))), f"QM9 bf16 losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"QM9 bf16 NLLs {summary['nll_val']} {summary['nll_test']}")
+    chunks = n_chunks(summary["sample_sizes"][0], n_stab,
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"]))
+    expected = {**_no_launches(),
+                "egnn_block_bf16": steps * (1 + 2 * L) + 2 * (1 + 3 * L)
+                + ((T + 1) * L + L) * chunks,
+                "egnn_block_bwd_bf16": steps * 2 * L}
+    _check(launches == expected, f"QM9 bf16 launches {launches} != {expected} ({chunks} chunks)")
+    _check_trained(summary["state"], seed, decay, steps, os.path.join(qm9_dir, "out", "bf16"), 24)
+    shown = {k: v for k, v in launches.items() if v}
+    print(f"phase 24: QM9 bf16 {steps} steps, losses {[round(v, 4) for v in losses]}, valid NLL "
+          f"{summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}, stability "
+          f"{summary['stability'][0]}; launches {json.dumps(shown)} = what the code implies "
+          f"({chunks} sampled chunks; no f32 kernel); main() {wall:.1f} s on {card}", flush=True)
+    out["qm9"] = {"launches": launches, "losses": losses, "main_seconds": wall,
+                  "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0]}
+    del summary
+
+    # GEOM: one train batch at pad 184, a few eval molecules; past pad 64 a
+    # block runs #3 bf16 and #4 bf16 forward, its backward re-runs the GCL (#3
+    # bf16, keeping the chain) and runs #5 bf16 per stage.
+    info = get_dataset_info("geom")
+    B, L, inv, n_stab = 32, 4, 1, 2
+    hist = sorted(dict(info.n_nodes_histogram))
+    rng = np.random.default_rng(24)
+    sizes = [int(v) for v in rng.choice([k for k in hist if 129 <= k <= 181], size=B)]
+    geom_dir = os.path.join(tmpdir, "geom")
+    path = write_geom_conformers(geom_dir, info, 40, seed=2, sizes=sizes)
+    argv = ["--datadir", geom_dir, "--outdir", os.path.join(geom_dir, "out"), "--exp_name",
+            "bf16", "--train_diffusion", "--trainable_ae", "--diffusion_steps", str(T),
+            "--batch_size", str(B), "--ema_decay", str(decay), "--n_epochs", "1",
+            "--test_epochs", "1", "--n_stability_samples", str(n_stab), "--seed", str(seed),
+            "--no_wandb", "--compute_dtype", "bfloat16"]
+    print(f"phase 24: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+          flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_geom_drugs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    train, val, test = load_split_data(path)
+
+    def batch_pads(splits, shuffle):
+        return [int(b["node_mask"].shape[1]) for data in splits
+                for b in GeomLoader(data, info, B, shuffle=shuffle, include_charges=False)]
+
+    pads = {"train": batch_pads([train], True), "eval": batch_pads([val, test], False)}
+    _check(pads["train"] == [184], f"GEOM bf16 train batch pads {pads['train']}")
+    pads["chunks"] = chunk_pads(summary["sample_sizes"][0], n_stab,
+                                covering_buckets(default_buckets(info), info["max_n_nodes"]))
+    per = {"train": 1 + 2 * L, "eval": 1 + 3 * L, "chunks": (T + 1) * L + L}
+    small = {k: sum(1 for p in v if p <= MAX_NODES) for k, v in pads.items()}
+    large = {k: len(v) - small[k] for k, v in pads.items()}
+    expected = {**_no_launches(),
+                "egnn_block_bf16": sum(per[k] * small[k] for k in per),
+                "egnn_block_bwd_bf16": 2 * L * small["train"],
+                "gcl_rows_bf16": inv * (sum(per[k] * large[k] for k in per)
+                                        + 2 * L * large["train"]),
+                "coord_rows_bf16": sum(per[k] * large[k] for k in per),
+                "gcl_rows_bwd_bf16": 2 * L * inv * large["train"],
+                "coord_rows_bwd_bf16": 2 * L * large["train"]}
+    losses = summary["losses"][0]
+    _check(len(losses) == 1 and bool(np.all(np.isfinite(losses))), f"GEOM bf16 losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"GEOM bf16 NLLs {summary['nll_val']} {summary['nll_test']}")
+    _check(launches == expected, f"GEOM bf16 launches {launches} != {expected} (pads {pads})")
+    _check_trained(summary["state"], seed, decay, 1, os.path.join(geom_dir, "out", "bf16"), 24)
+    shown = {k: v for k, v in launches.items() if v}
+    print(f"phase 24: GEOM bf16 1 step at pad 184, loss {losses[0]:.4f}, valid NLL "
+          f"{summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}; launches "
+          f"{json.dumps(shown)} = what the code implies for eval pads {pads['eval']}, sampled "
+          f"chunk pads {pads['chunks']} (no f32 kernel); main() {wall:.1f} s on {card}",
+          flush=True)
+    out["geom"] = {"launches": launches, "pads": pads, "losses": losses, "main_seconds": wall,
+                   "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0]}
+    del summary
+    out["grad_qm9"] = phase_grad(card, False, "bfloat16_pallas", phase_id=24)
+    out["grad_geom"] = phase_grad(card, True, "bfloat16_pallas", phase_id=24)
+    return out
+
+
+def _sp_step_rank_bf16(raw, grp):
+    """One rank of phase 25: the bf16 gradient step (phase 17's)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    _, loss, grads, launches = _train_step_grads(grp.device, raw, grp, "bfloat16")
+    h = hashlib.sha256()
+    for g in grads.values():
+        h.update(g.numpy().tobytes())
+    ranks = [None] * grp.size
+    dist.all_gather_object(ranks, {"rank": grp.rank, "grads_sha256": h.hexdigest(),
+                                   "launches": launches})
+    return {"loss": loss, "grads": {k: g.numpy() for k, g in grads.items()}, "ranks": ranks}
+
+
+# SP-2 vs one rank in bf16 (phase 25, tests/test_torch_port_bf16_train.py):
+# each rank rounds its slab's share of the dst projection's and the weights'
+# gradients (as JAX's sp_stage_apply), so the steps differ at bf16's own
+# rounding level: per tensor within _SP_BF16_RTOL * max|ref| (a factor of S or
+# a stage run twice differs by order 1), and on the mean at least
+# _SP_BF16_SEPARATION times closer to the one-rank bf16 step than to its f32
+# step.
+_SP_BF16_RTOL, _SP_BF16_SEPARATION = 0.1, 4.0
+
+
+def phase_bf16_sp(card):
+    """Phase 25: an SP-2 bf16 train step (two ranks sharing the card over
+    gloo: #6 and #7 bf16 on both slabs) against the same step on one rank in
+    bf16 (phase 17's batch: GEOM recipe, B=2, pad 184), and against the
+    one-rank f32 step."""
+    from geoldm_tpu_torch.parallel import sp
+
+    raw, _ = _phase17_batches()
+    t0 = time.time()
+    _, loss_ref, grads_ref, launches_ref = _train_step_grads("cuda", raw, None, "bfloat16")
+    _check(not any(v for k, v in launches_ref.items() if k.startswith("sp_")),
+           "the one-rank bf16 step ran SP kernels")
+    _, loss_f32, grads_f32, _ = _train_step_grads("cuda", raw)
+    got = sp.spawn_ranks(2, _sp_step_rank_bf16, (raw,), device="cuda")
+    wall = time.time() - t0
+    L, inv = 4, 1
+    per_rank = {**_no_launches(), "sp_gcl_rows_bf16": inv * (1 + 4 * L),
+                "sp_coord_rows_bf16": 1 + 2 * L, "sp_gcl_rows_bwd_bf16": inv * 2 * L,
+                "sp_coord_rows_bwd_bf16": 2 * L}
+    for r in got["ranks"]:
+        _check(r["launches"] == per_rank, f"rank {r['rank']} bf16 launches {r['launches']} != "
+                                          f"{per_rank}")
+    _check(len({r["grads_sha256"] for r in got["ranks"]}) == 1,
+           "the ranks' bf16 gradients differ after the all-reduce")
+    _check(abs(got["loss"] - loss_ref) <= _LOSS_RTOL * abs(loss_ref),
+           f"bf16 loss SP {got['loss']} vs one rank {loss_ref}")
+    _check(set(got["grads"]) == set(grads_ref), "SP and one rank gave gradients to different "
+                                                "parameters")
+    worst, worst_name, err, dist = 0.0, "", 0.0, 0.0
+    for k, ref in grads_ref.items():
+        g = got["grads"][k]
+        ref, f32 = ref.numpy(), grads_f32[k].numpy()
+        _check(bool(np.isfinite(g).all()), f"SP bf16 gradient of {k} not finite")
+        scale = float(np.abs(ref).max())
+        d = float(np.abs(g - ref).max())
+        _check(d <= _SP_BF16_RTOL * scale, f"bf16 gradient of {k}: SP vs one rank max|d|="
+                                           f"{d:.3e} > {_SP_BF16_RTOL}*{scale:.3e}")
+        err += float(np.abs(g - ref).mean()) / scale
+        dist += float(np.abs(g - f32).mean()) / scale
+        if d / scale >= worst:
+            worst, worst_name = d / scale, k
+    _check(_SP_BF16_SEPARATION * err <= dist,
+           f"SP bf16 step: mean distance {dist:.3e} to the one-rank f32 step is not "
+           f"{_SP_BF16_SEPARATION:g}x its mean distance {err:.3e} to the one-rank bf16 step")
+    shown = {k: v for k, v in got["ranks"][0]["launches"].items() if v}
+    print(f"phase 25: SP-2 bf16 train-step gradient GEOM nf=256 4+4 blocks B=2 pad 184: loss SP "
+          f"{got['loss']:.6f} one rank {loss_ref:.6f} (f32 {loss_f32:.6f}); {len(grads_ref)} "
+          f"parameter tensors, worst max|d|/max|ref| {worst:.2e} ({worst_name}; tol "
+          f"{_SP_BF16_RTOL}); mean {err:.3e} to the one-rank bf16 step, {dist:.3e} to its f32 "
+          f"step ({dist / max(err, 1e-30):.1f}x); launches per rank {json.dumps(shown)}; both "
+          f"ranks' gradients bit-identical; {wall:.1f} s on {card}", flush=True)
+    return {"loss_sp": got["loss"], "loss_one_rank": loss_ref, "worst_rel": worst,
+            "worst": worst_name, "mean_err": err, "mean_to_f32": dist,
+            "launches": {k: sum(r["launches"][k] for r in got["ranks"]) for k in per_rank},
+            "seconds": wall}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2301,6 +2827,13 @@ def main(argv=None) -> int:
     lap("21")
     bf16_serving, bf16_launches = phase_bf16_serve(card, qm9_run.name)
     lap("22")
+    bf16_bwd_rows = phase_bf16_backward(card)
+    lap("23")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        bf16_train = phase_bf16_train(card, tmpdir)
+    lap("24")
+    bf16_sp = phase_bf16_sp(card)
+    lap("25")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -2314,7 +2847,8 @@ def main(argv=None) -> int:
         "geom_training": geom_train, "geom_grad": geom_grad, "sp_kernels": sp_rows,
         "sp_training": sp_train, "sp_grad": sp_grad, "resume": resume,
         "evaluation": evaluation, "geom_evaluation": geom_eval, "bf16_kernels": bf16_rows,
-        "bf16_serving": bf16_serving, "phase_seconds": phase_seconds,
+        "bf16_serving": bf16_serving, "bf16_backward": bf16_bwd_rows,
+        "bf16_training": bf16_train, "bf16_sp": bf16_sp, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
@@ -2359,20 +2893,58 @@ def main(argv=None) -> int:
                              else "bytes"), "library_ms": None,
                 "bound_tc_ms": sum(r["bound_tc_ms"] for r in main)}
 
+    # The bf16 main paths: serving at bfloat16_mixed (phase 22) and bf16
+    # training (phase 24: QM9 and GEOM through the CLIs); SP bf16 training
+    # (phase 25's ranks).
+    bf16_paths = [bf16_launches, bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"]]
+
     def bf16_entry(kernel, name, source, replaces):
-        # The bf16 variants at the main paths' widest shapes (QM9 N=32, B=64;
-        # N=184, B=16); launches from phase 22, the serving path at its
-        # default bfloat16_mixed.
+        # The bf16 forward variants at the main paths' widest shapes (QM9
+        # N=32, B=64; N=184, B=16).
         mine = [r for r in bf16_rows if r["kernel"] == kernel]
         main = next(r for r in mine if r["N"] == (32 if kernel == "egnn_block" else 184))
-        n_launched = bf16_launches[f"{kernel}_bf16"]
-        _check(n_launched > 0, f"{name} was not launched on phase 22's path")
+        n_launched = sum(counts[f"{kernel}_bf16"] for counts in bf16_paths)
+        _check(n_launched > 0, f"{name} was not launched on phases 22 and 24's paths")
         return {"name": name, "route": "cuda", "source": f"geoldm_tpu_torch/csrc/{source}",
                 "replaces": f"geoldm_tpu/ops/{replaces}", "launches": n_launched,
                 "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": None, "f32_ms": main["f32_ms"]}
 
+    def bf16_bwd_entry(kernel, name, source, replaces, launches_, n):
+        # The bf16 backward variants at the training recipes' shapes (#2 at QM9
+        # N=29, B=64; #5 at N=184, B=32), launched on phase 24's main paths.
+        mine = [r for r in bf16_bwd_rows if r["kernel"] == kernel]
+        main = next(r for r in mine if r["N"] == n)
+        _check(launches_ > 0, f"{name} was not launched on phase 24's paths")
+        return {"name": name, "route": "cuda", "source": f"geoldm_tpu_torch/csrc/{source}",
+                "replaces": f"geoldm_tpu/ops/{replaces}", "launches": launches_,
+                "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None, "f32_ms": main["f32_ms"]}
+
+    def bf16_sp_entry(direction, line):
+        # As sp_entry: a block's two stages on the second slab of N=184 over 2
+        # ranks; launches summed over phase 25's ranks.
+        kname = f"egnn_sp_{direction}"
+        main = [r for r in bf16_bwd_rows if r["kernel"] == kname and r["N"] == 184
+                and r["row0"] == r["S"]]
+        suffix = "_bf16" if direction == "fwd" else "_bwd_bf16"
+        n_launched = sum(bf16_sp["launches"][f"sp_{stage}{suffix}"]
+                         for stage in ("gcl_rows", "coord_rows"))
+        _check(n_launched > 0, f"{kname}_bf16 was not launched on phase 25's ranks")
+        return {"name": f"{kname}_bf16", "route": "cuda",
+                "source": "geoldm_tpu_torch/csrc/egnn_sp.cu",
+                "replaces": f"geoldm_tpu/ops/pallas_egnn_sp.py:{line}", "launches": n_launched,
+                "max_abs_err": max(r["max_abs_err"] for r in bf16_bwd_rows
+                                   if r["kernel"] == kname),
+                "ms": sum(r["ms"] for r in main), "plain_ms": sum(r["plain_ms"] for r in main),
+                "bound_ms": sum(r["bound_ms"] for r in main),
+                "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in main)
+                             else "bytes"), "library_ms": None,
+                "f32_ms": sum(r["f32_ms"] for r in main)}
+
+    train_paths = [bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"]]
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
@@ -2405,7 +2977,17 @@ def main(argv=None) -> int:
                ("egnn_block", "egnn_block_fwd_bf16", "egnn_block.cu", "pallas_egnn.py:232"),
                ("gcl_rows", "egnn_gcl_rows_bf16", "egnn_tiled.cu", "pallas_egnn_tiled.py:152"),
                ("coord_rows", "egnn_coord_rows_bf16", "egnn_tiled.cu",
-                "pallas_egnn_tiled.py:166"))]}
+                "pallas_egnn_tiled.py:166"))]
+        + [bf16_bwd_entry(kernel, name, source, replaces,
+                          sum(counts[counter] for counts in train_paths), n)
+           for kernel, name, source, replaces, counter, n in (
+               ("egnn_block_bwd", "egnn_block_bwd_bf16", "egnn_block_bwd.cu",
+                "pallas_egnn.py:255", "egnn_block_bwd_bf16", 29),
+               ("gcl_rows_bwd", "egnn_gcl_rows_bwd_bf16", "egnn_tiled_bwd.cu",
+                "pallas_egnn_tiled.py:201", "gcl_rows_bwd_bf16", 184),
+               ("coord_rows_bwd", "egnn_coord_rows_bwd_bf16", "egnn_tiled_bwd.cu",
+                "pallas_egnn_tiled.py:201", "coord_rows_bwd_bf16", 184))]
+        + [bf16_sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

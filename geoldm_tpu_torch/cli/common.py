@@ -2,15 +2,18 @@
 reference flag surface (QM9 and GEOM-Drugs defaults), flags -> ModelConfig,
 and the training run, serial or sequence-parallel.
 
-The port trains unconditional models in float32 on one device, or with
+The port trains unconditional models on one device, or with
 ``--sp S`` over S ranks that split every EGNN's atom rows (``parallel.sp``):
 one command spawns the ranks, every rank draws the same batches and noise,
 only rank 0 prints and writes checkpoints and ``metrics.jsonl``. A run
 resumes from its ``latest/`` checkpoint (``--resume``, with the
 checkpoint's model config) and a latent-diffusion run can start from a
 trained first stage (``--ae_path``). ``--eval_n_steps`` K runs the periodic
-stability samples as K-step DDIM jumps. Flags that select anything else exit
-with a two-line "not ported yet" message.
+stability samples as K-step DDIM jumps. ``--compute_dtype`` takes JAX's
+four training choices: ``float32`` / ``pallas`` (f32 kernels) and
+``bfloat16`` / ``bfloat16_pallas`` (the bf16 forward and backward kernels;
+the eval NLL and stability samples run in it too, as JAX's do). Flags that
+select anything else exit with a two-line "not ported yet" message.
 """
 
 from __future__ import annotations
@@ -82,7 +85,8 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--visualize", type=eval, default=False)
     p.add_argument("--normalization_factor", type=float, default=1.0)
     p.add_argument("--aggregation_method", type=str, default="sum")
-    p.add_argument("--compute_dtype", type=str, default="float32")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16", "pallas", "bfloat16_pallas"])
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--start_epoch", type=int, default=0)
     p.add_argument("--data_augmentation", type=eval, default=False)
@@ -96,8 +100,8 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
 
 def _not_ported(what: str) -> None:
     raise SystemExit(f"{what} is not ported yet.\n"
-                     "geoldm_tpu_torch trains unconditional models in float32 on one device "
-                     "or sequence-parallel (--sp).")
+                     "geoldm_tpu_torch trains unconditional models on one device or "
+                     "sequence-parallel (--sp).")
 
 
 def resolve_dp(args) -> int:
@@ -114,10 +118,6 @@ def resolve_dp(args) -> int:
 
 def check_ported(args) -> None:
     """Exit with a two-line message for any flag outside the ported slice."""
-    if args.compute_dtype != "float32":
-        raise SystemExit(f"--compute_dtype {args.compute_dtype} in training is not ported yet.\n"
-                         "bf16 training needs bf16 variants of the backward kernels #2, #5 and "
-                         "#7; geoldm_tpu_torch trains in float32 (it samples in bf16).")
     if args.sp > 1 and args.tp > 1:
         raise SystemExit("--sp and --tp cannot be combined")
     if resolve_dp(args) > 1:
@@ -266,8 +266,11 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
         if sp_group is not None:
             summary["resumed_digest"] = sp.state_digest(state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
-    train_step = make_train_step(model_cfg, args.ema_decay)
-    eval_nll = make_eval_nll(model_cfg)
+    # JAX's rule (geoldm_tpu/cli/common.py:209-212, :326-330, :373): the
+    # flag's name goes to the train step, the eval NLL and the stability
+    # samples, each resolving it (nn.core.resolve_compute).
+    train_step = make_train_step(model_cfg, args.ema_decay, args.compute_dtype)
+    eval_nll = make_eval_nll(model_cfg, args.compute_dtype)
     include_charges = model_cfg.vae.include_charges
     if loaders is None:
         loaders = {split: QM9Loader(data, batch_size=args.batch_size,
@@ -305,7 +308,8 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                     validity, rdkit_tuple, molecules = trainer_mod.analyze_and_save(
                         eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
                         n_samples=args.n_stability_samples, rng=rng,
-                        datadir=args.datadir, n_steps=args.eval_n_steps)
+                        datadir=args.datadir, n_steps=args.eval_n_steps,
+                        compute_dtype=args.compute_dtype)
                 print(f"epoch {epoch} stability: {validity}", flush=True)
                 if rdkit_tuple is not None:
                     v, u, n = rdkit_tuple[0]

@@ -63,7 +63,7 @@
 // layer's edge-feature term and the gate / coordinate-scale sums as f32 FMAs
 // of rounded operands; activations, biases and sums stay f32. Its bound is
 // the same FLOP with the products at the 989 TFLOP/s of dense bf16.
-// With grad, the autograd Function asks this forward to save each GCL's
+// With grad, the autograd Function asks this forward (either entry) to save each GCL's
 // h, aggregate, z and silu(z) ([B*N, H] each) for the backward, which then
 // skips its forward recompute; under no_grad nothing extra is written.
 // One call of egnn_block_forward enqueues 2 + 5 * inv_sublayers launches
@@ -101,13 +101,14 @@ int egnn_block_forward(const float* h, const float* x, const float* x0,
 }
 
 // The bf16 variant: egnn_block_forward's arguments with w2bf, scratch for
-// (n_gcl + 1) [H, H] bf16 W2 copies (16-byte aligned), in save's place
-// (nothing is saved: the variant serves sampling only).
+// (n_gcl + 1) [H, H] bf16 W2 copies (16-byte aligned), after save, which
+// (non-null: the autograd Function under grad) receives the same stack as
+// the f32 entry's for the bf16 backward (egnn_block_backward_bf16).
 int egnn_block_forward_bf16(const float* h, const float* x, const float* x0,
                             const float* mask, float* h_out, float* x_out, float* proj,
-                            float* agg, float* hidden, void* w2bf, const void* const* gcl_w,
-                            const void* const* coord_w, int B, int N, int H, int E,
-                            int n_gcl, int attention, int sin_emb, int use_tanh,
+                            float* agg, float* hidden, float* save, void* w2bf,
+                            const void* const* gcl_w, const void* const* coord_w, int B, int N,
+                            int H, int E, int n_gcl, int attention, int sin_emb, int use_tanh,
                             int mean_agg, float coords_range, float norm_constant,
                             float normalization_factor, void* stream) {
   if (B < 1 || N < 1 || N > kMaxNodes || H < 32 || H > kMaxHidden || H % 32 ||
@@ -115,7 +116,7 @@ int egnn_block_forward_bf16(const float* h, const float* x, const float* x0,
     return (int)cudaErrorInvalidValue;
   const BlockShape d = {B, N, H, E, n_gcl, attention, sin_emb, use_tanh, coords_range,
                         norm_constant, mean_agg ? (float)N : normalization_factor};
-  return block_forward_chain<true>(d, h, x, x0, mask, h_out, x_out, proj, agg, hidden, nullptr,
+  return block_forward_chain<true>(d, h, x, x0, mask, h_out, x_out, proj, agg, hidden, save,
                                    gcl_w, coord_w, true, (cudaStream_t)stream,
                                    static_cast<uint32_t*>(w2bf));
 }

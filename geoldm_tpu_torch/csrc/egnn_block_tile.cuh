@@ -3,9 +3,9 @@
 // (on egnn_tile.cuh's tile machinery), the forward edge stages and the
 // forward chain both libraries run on the tensor-core node GEMM of
 // egnn_tc_gemm.cuh (the backward recomputes with it, so a recomputed
-// activation equals the forward's saved one bit for bit), and the forward's
-// bf16 variant (BF16: every product on bf16 operands). See egnn_block.cu for
-// the design and what bounds it on an H100.
+// activation equals the forward's saved one bit for bit), and the bf16
+// variant of both (BF16: every forward product on bf16 operands). See
+// egnn_block.cu for the design and what bounds it on an H100.
 
 #pragma once
 
@@ -132,8 +132,9 @@ TileArgs tile_args(const BlockShape& d, const float* x, const float* x0, const f
 // save null, agg and hidden ([B*N, H] scratch) hold the aggregate and silu(z)
 // and h_out is written in place from the second GCL on. coord false skips
 // the coordinate stage (x_out unread). proj: [B*N, 2H] scratch. BF16: every
-// product on bf16 operands (the bf16 forward variant, save null); w2bf holds
-// (n_gcl + 1) [H, H] bf16 copies of the W2s, converted here, once a call.
+// product on bf16 operands (the bf16 variant; with save, the chain its
+// backward reads); w2bf holds (n_gcl + 1) [H, H] bf16 copies of the W2s,
+// converted here, once a call.
 template <bool BF16 = false>
 int block_forward_chain(const BlockShape& d, const float* h, const float* x, const float* x0,
                         const float* mask, float* h_out, float* x_out, float* proj, float* agg,

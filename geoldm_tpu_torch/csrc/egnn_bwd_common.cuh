@@ -5,8 +5,13 @@
 // stage's weights and input after its edge-backward grid ran, every product
 // on the tensor-core GEMMs of egnn_tc_gemm.cuh. None of it depends on a
 // bound on N; all of it reduces in a fixed order without atomics, so a seeded
-// run replays bit for bit. See egnn_block_bwd.cu and egnn_tiled_bwd.cu for
-// the designs.
+// run replays bit for bit. BF16 selects the bf16 backward, the vjp of the
+// bf16 forward (every product on bf16 operands): each product's cotangent
+// stays f32, the gradient of each bf16 operand is rounded to bf16 where the
+// product returns it (operand gradients in the GEMM's epilogue, weight
+// gradients once after their f32 sum, round_weight_grads), and the
+// elementwise passes stay f32. See egnn_block_bwd.cu and egnn_tiled_bwd.cu
+// for the designs.
 
 #pragma once
 
@@ -164,6 +169,7 @@ struct Dims {
 // edge grid read; hc: its columns [B*N, H], the dst projection's input.
 // dhr += the gradient through the src half of W1, dhc += that through the
 // dst half (the same buffer when hr is hc).
+template <bool BF16 = false>
 int stage_grads(const Dims& d, const float* hr, const float* hc, const float* w1, float* gw1,
                 float* gb1, float* gw2, float* gb2, float* gwo, float* gbo,
                 const EdgeGradBufs& sc, float* dhr, float* dhc, int acc, cudaStream_t s) {
@@ -171,7 +177,7 @@ int stage_grads(const Dims& d, const float* hr, const float* hc, const float* w1
   const int ps = (3 + d.E) * H;
   int rc;
   // W2 (torch [out][in]): dW2[c][k] = sum_e dmm[e][c] silu(pre)[e][k].
-  if ((rc = wgrad_tc(sc.dbuf, sc.abuf, Me, H, gw2, sc.wsplit, acc, s))) return rc;
+  if ((rc = wgrad_tc<BF16>(sc.dbuf, sc.abuf, Me, H, gw2, sc.wsplit, acc, s))) return rc;
   if ((rc = reduce_rows(sc.part, P, ps, H, gb2, 1, acc, s))) return rc;
   if (gwo && (rc = reduce_rows(sc.part + H, P, ps, H, gwo, 1, acc, s))) return rc;
   if (gbo && (rc = reduce_rows(sc.part + 2 * H, P, ps, 1, gbo, 1, acc, s))) return rc;
@@ -179,18 +185,22 @@ int stage_grads(const Dims& d, const float* hr, const float* hc, const float* w1
   // edge-feature columns from the per-tile partials; b1 from the row sums.
   column_sum_kernel<<<Mc, 256, 0, s>>>(sc.colpart, sc.colsum, d.T, d.N, H);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = node_gemm(sc.rowsum, H, 1, hr, H, 0, gw1, d.ld1, H, H, Mr, acc, sc.split, s)))
+  if ((rc = node_gemm<BF16>(sc.rowsum, H, 1, hr, H, 0, gw1, d.ld1, H, H, Mr, acc, sc.split, s)))
     return rc;
-  if ((rc = node_gemm(sc.colsum, H, 1, hc, H, 0, gw1 + H, d.ld1, H, H, Mc, acc, sc.split, s)))
+  if ((rc = node_gemm<BF16>(sc.colsum, H, 1, hc, H, 0, gw1 + H, d.ld1, H, H, Mc, acc, sc.split,
+                            s)))
     return rc;
   for (int e = 0; e < d.E; ++e)
     if ((rc = reduce_rows(sc.part + (3 + e) * H, P, ps, H, gw1 + 2 * H + e, d.ld1, acc, s)))
       return rc;
   if ((rc = reduce_rows(sc.rowsum, Mr, H, H, gb1, 1, acc, s))) return rc;
-  // dhr += rowsum W1[:, :H]; dhc += colsum W1[:, H:2H].
-  if ((rc = node_gemm(sc.rowsum, H, 0, w1, d.ld1, 0, dhr, H, Mr, H, H, 1, sc.split, s)))
+  // dhr += rowsum W1[:, :H]; dhc += colsum W1[:, H:2H] (BF16: each rounded,
+  // the gradient of its product's bf16 h).
+  if ((rc = node_gemm<BF16>(sc.rowsum, H, 0, w1, d.ld1, 0, dhr, H, Mr, H, H, 1, sc.split, s,
+                            BF16)))
     return rc;
-  return node_gemm(sc.colsum, H, 0, w1 + H, d.ld1, 0, dhc, H, Mc, H, H, 1, sc.split, s);
+  return node_gemm<BF16>(sc.colsum, H, 0, w1 + H, d.ld1, 0, dhc, H, Mc, H, H, 1, sc.split, s,
+                         BF16);
 }
 
 // Node MLP backward of one GCL, out = (hin + silu([hin, agg] Wn1^T + bn1)
@@ -199,7 +209,10 @@ int stage_grads(const Dims& d, const float* hr, const float* hc, const float* w1
 // gradient pointers (egnn_block_forward's order); the node-MLP gradients
 // g[6..9] are written, or added to when acc. Writes dh = dout * mask + the
 // gradient through Wn1's hin columns, and dagg = the gradient of agg; dtmp
-// is [M, H] scratch.
+// is [M, H] scratch. BF16: d(u), dh's node-MLP share and dagg rounded
+// (gradients of bf16 operands), the weight gradients left in f32 for
+// round_weight_grads.
+template <bool BF16 = false>
 int node_mlp_backward(const float* dout, const float* mask, const float* hin, const float* agg,
                       const float* z, const float* u, const float* const* w, float* const* g,
                       float* dtmp, float* dagg, float* dh, int M, int H, int acc,
@@ -209,18 +222,36 @@ int node_mlp_backward(const float* dout, const float* mask, const float* hin, co
   rows_mask_kernel<<<nblk, 256, 0, s>>>(dout, mask, dtmp, M, H);  // d(upd)
   if ((rc = (int)cudaGetLastError())) return rc;
   if ((rc = reduce_rows(dtmp, M, H, H, g[9], 1, acc, s))) return rc;
-  if ((rc = node_gemm(dtmp, H, 1, u, H, 0, g[8], H, H, H, M, acc, sb, s))) return rc;
-  if ((rc = node_gemm(dtmp, H, 0, w[8], H, 0, dagg, H, M, H, H, 0, sb, s)))
+  if ((rc = node_gemm<BF16>(dtmp, H, 1, u, H, 0, g[8], H, H, H, M, acc, sb, s))) return rc;
+  if ((rc = node_gemm<BF16>(dtmp, H, 0, w[8], H, 0, dagg, H, M, H, H, 0, sb, s, BF16)))
     return rc;  // d(u), in dagg for now
   dsilu_mul_kernel<<<nblk, 256, 0, s>>>(dagg, z, dtmp, M * H);  // d(z)
   if ((rc = (int)cudaGetLastError())) return rc;
   if ((rc = reduce_rows(dtmp, M, H, H, g[7], 1, acc, s))) return rc;
-  if ((rc = node_gemm(dtmp, H, 1, hin, H, 0, g[6], 2 * H, H, H, M, acc, sb, s))) return rc;
-  if ((rc = node_gemm(dtmp, H, 1, agg, H, 0, g[6] + H, 2 * H, H, H, M, acc, sb, s))) return rc;
+  if ((rc = node_gemm<BF16>(dtmp, H, 1, hin, H, 0, g[6], 2 * H, H, H, M, acc, sb, s))) return rc;
+  if ((rc = node_gemm<BF16>(dtmp, H, 1, agg, H, 0, g[6] + H, 2 * H, H, H, M, acc, sb, s)))
+    return rc;
   rows_mask_kernel<<<nblk, 256, 0, s>>>(dout, mask, dh, M, H);  // residual path
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = node_gemm(dtmp, H, 0, w[6], 2 * H, 0, dh, H, M, H, H, 1, sb, s))) return rc;
-  return node_gemm(dtmp, H, 0, w[6] + H, 2 * H, 0, dagg, H, M, H, H, 0, sb, s);
+  if ((rc = node_gemm<BF16>(dtmp, H, 0, w[6], 2 * H, 0, dh, H, M, H, H, 1, sb, s, BF16)))
+    return rc;
+  return node_gemm<BF16>(dtmp, H, 0, w[6] + H, 2 * H, 0, dagg, H, M, H, H, 0, sb, s, BF16);
+}
+
+// The bf16 backward's weight gradients of one stage, rounded to bf16 once
+// after their f32 sums over every edge, molecule and group: g holds the
+// stage's gradient pointers in the weights' order (10 of a GCL, 5 of the
+// coordinate update); the products' weights (W1, W2, the gate's or scale's
+// weight, Wn1, Wn2) are rounded, the biases stay f32 (added, not multiplied).
+int round_weight_grads(float* const* g, bool coord, int H, int E, cudaStream_t s) {
+  const int ld1 = 2 * H + E;
+  int rc;
+  if ((rc = round_bf16(g[0], H * ld1, s))) return rc;
+  if ((rc = round_bf16(g[2], H * H, s))) return rc;
+  if ((rc = round_bf16(g[4], H, s))) return rc;  // null: a GCL without attention
+  if (coord) return 0;
+  if ((rc = round_bf16(g[6], 2 * H * H, s))) return rc;
+  return round_bf16(g[8], H * H, s);
 }
 
 }  // namespace

@@ -76,6 +76,20 @@ int to_bf16(const float* in, void* out, int n, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+__global__ void round_bf16_kernel(float* p, int n) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < n) p[idx] = bf16_round(p[idx]);
+}
+
+// p [n] = bf16(p), in place: a bf16 backward's weight gradient, rounded once
+// after its f32 sum over every edge and molecule (the bf16 operand's
+// gradient, as the transpose of a bf16 product returns it).
+int round_bf16(float* p, int n, cudaStream_t s) {
+  if (!p) return 0;
+  round_bf16_kernel<<<(n + 255) / 256, 256, 0, s>>>(p, n);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Node GEMM: C[m, n] = epilogue(sum_k A[m, k] * W[n, k]); W in nn.Linear
 // layout [out, in]. A may be split by columns: A[:, :k1] from a1 and

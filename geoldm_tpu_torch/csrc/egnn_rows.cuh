@@ -122,7 +122,7 @@ TileArgs stage_args(const Slab& r, const float* x, const float* x0, const float*
 // The forward (gcl_rows_host) and the stage backward (egnn_rows_bwd.cuh) run
 // this same code, so a chain the forward hands to the backward equals the
 // backward's own recompute bit for bit. BF16: the bf16 variant (ea.w2bf
-// set, z null).
+// set).
 template <int kOwner, bool BF16 = false>
 int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B, float* agg,
               float* z, float* u, cudaStream_t s) {
@@ -147,8 +147,8 @@ int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B,
 // 10 weight pointers (egnn_gcl_rows' order). Scratch: proj [B*N, 2H], agg and
 // hidden [B*S, H], and z [B*S, H] or null: with z, the node chain (agg, z,
 // hidden = silu(z)) is kept for the stage backward. Enqueues 5 grids (6 with
-// z). BF16: the bf16 variant, W2 converted into w2bf ([H, H] bf16) first, z
-// null; 6 grids.
+// z). BF16: the bf16 variant, W2 converted into w2bf ([H, H] bf16) first:
+// one grid more.
 template <int kOwner, bool BF16 = false>
 int gcl_rows_host(const float* h, const float* x, const float* x0, const float* mask,
                   const Slab& r, float* h_out, float* proj, float* agg, float* hidden, float* z,

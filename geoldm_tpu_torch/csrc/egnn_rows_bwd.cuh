@@ -30,8 +30,13 @@ namespace {
 // counters lives across the products. A window whose edge mask is all zero
 // adds exactly zero: it writes zeros where the passes after the grid read
 // (abuf, dbuf, colpart; dr, dr0 and dcd are cleared before the grid) and is
-// skipped. Each CTA writes only its own row's entries: no atomics.
-template <int HP, bool COORD>
+// skipped. Each CTA writes only its own row's entries: no atomics. BF16:
+// the bf16 variant, with the rounding sites of #2's (egnn_block_bwd.cu):
+// the second layer on bf16 operands (W2 from a.w2bf), the transposed
+// product on the f32 d(mm) against bf16 W2 and rounded, the gate's or
+// scale's product and the edge features on bf16 operands, and the
+// gradients those products return to bf16 operands rounded.
+template <int HP, bool COORD, bool BF16 = false>
 __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_kernel(TileArgs a) {
   using C = TileCfg<HP>;
   using T = TileEdges<HP>;
@@ -66,19 +71,20 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
     }
 
     // 1. silu(pre), also written out for the W2 gradient.
-    build_edge_tile<HP, true>(a, As, blockIdx.y, mrows, a.abuf + edge(j0) * H);
+    build_edge_tile<HP, true, BF16>(a, As, blockIdx.y, mrows, a.abuf + edge(j0) * H);
     __syncthreads();
 
     // 2. Second layer: mm = silu(pre) W2^T + b2.
     {
       float acc[2][8][4];
-      tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
+      if constexpr (BF16) tile_product_bf16<HP>(As, Wb, a.w2bf, H, mrows, acc);
+      else tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
       store_acc<HP, false>(As, acc, a.b2, H);
     }
     __syncthreads();
 
     // 3. Per-edge scalars: the gate's or the coordinate scale's backward.
-    if (COORD || a.attention) edge_scalars_bwd<HP, COORD>(a, As, blockIdx.y, mrows);
+    if (COORD || a.attention) edge_scalars_bwd<HP, COORD, BF16>(a, As, blockIdx.y, mrows);
 
     // 4. d(mm) into As and dbuf; the window's db2, dw_out and db_out added
     //    to the CTA's partials. kBatch edges at a time: loads, then
@@ -87,7 +93,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
       const int c = tile_tid();
       const float *em = T::em(), *rs = T::rs(), *rs2 = T::rs2();
       const float dg = COORD ? 0.f : a.dagg[row() * H + c] * (1.f / a.norm_div);
-      const float wo = (COORD || a.attention) ? a.w_out[c] : 0.f;
+      const float wo = (COORD || a.attention) ? operand<BF16>(a.w_out[c]) : 0.f;
       float* db = a.dbuf + edge(j0) * H + c;  // window edge 0, channel c
       float db2 = 0.f, dwo = 0.f, dbo = 0.f;
       for (int e0 = 0; e0 < mrows; e0 += kBatch) {
@@ -100,12 +106,13 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
           const float sg = tile_sigmoid(mm[q]);
           const float m = mm[q] * sg;
           float dm;
+          // BF16: the product's operand m rounded, the gradient it returns to m too.
           if (COORD) {
-            dm = rs2[e] * wo;
-            dwo = fmaf(rs2[e], m, dwo);
+            dm = operand<BF16>(rs2[e] * wo);
+            dwo = fmaf(rs2[e], operand<BF16>(m), dwo);
           } else if (a.attention) {
-            dm = dg * em[e] * rs[e] + rs2[e] * wo;
-            dwo = fmaf(rs2[e], m, dwo);
+            dm = dg * em[e] * rs[e] + operand<BF16>(rs2[e] * wo);
+            dwo = fmaf(rs2[e], operand<BF16>(m), dwo);
             dbo += rs2[e];
           } else {
             dm = dg * em[e];
@@ -129,11 +136,11 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
     }
     __syncthreads();
 
-    // 5. d(silu(pre)) = d(mm) W2.
+    // 5. d(silu(pre)) = d(mm) W2 (BF16: d(mm) f32 against bf16 W2, rounded).
     {
       float acc[2][8][4];
-      tile_product<HP, true>(As, Wb, a.w2, H, mrows, acc);
-      store_acc<HP, false>(As, acc, nullptr, H);
+      tile_product<HP, true, BF16>(As, Wb, a.w2, H, mrows, acc);
+      store_acc<HP, false, BF16>(As, acc, nullptr, H);
     }
     __syncthreads();
 
@@ -143,7 +150,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
     if (tile_tid() < H) {
       const int c = tile_tid();
       float we[kMaxEdgeFeat];
-      edge_feat_weights(a, c, we);
+      edge_feat_weights<BF16>(a, c, we);
       const float bias1 = a.b1[c];
       float* cp = a.colpart + edge(j0) * H + c;
       float rsum = 0.f;
@@ -151,7 +158,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
         float pre[kBatch], da[kBatch];
 #pragma unroll
         for (int q = 0; q < kBatch; ++q) da[q] = As[(e0 + q) * ld + c];
-        edge_pre_batch<HP, true>(a, we, bias1, blockIdx.y, e0, c, pre);
+        edge_pre_batch<HP, true, BF16>(a, we, bias1, blockIdx.y, e0, c, pre);
 #pragma unroll
         for (int q = 0; q < kBatch; ++q) da[q] *= tile_dsilu(pre[q]);
 #pragma unroll
@@ -170,7 +177,8 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
       for (int f = 0; f < E; ++f) {
         float s = 0.f;
 #pragma unroll 8
-        for (int e = 0; e < mrows; ++e) s = fmaf(ef[e * kMaxEdgeFeat + f], As[e * ld + c], s);
+        for (int e = 0; e < mrows; ++e)
+          s = fmaf(operand<BF16>(ef[e * kMaxEdgeFeat + f]), As[e * ld + c], s);
         part[(3 + f) * H] += s;
       }
       Wb[c] = we[0];
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
     // 7. Squared-distance features (not sin; dr, dr0 were cleared).
     if (!a.sin_emb) {
       __syncthreads();
-      edge_dist_grads<HP>(a, As, Wb, blockIdx.y, mrows);
+      edge_dist_grads<HP, BF16>(a, As, Wb, blockIdx.y, mrows);
     }
     __syncthreads();  // the next window overwrites the tile
   }
@@ -188,34 +196,36 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) rows_bwd_tile_ker
 
 // The stage backward's edge grid over a's row window: S x B CTAs of HP
 // threads.
-template <bool COORD>
+template <bool COORD, bool BF16 = false>
 int launch_rows_bwd(const TileArgs& a, int B, cudaStream_t s) {
   const dim3 grid(a.S, B);
-  if (a.H <= 64) return launch_tile<64>(rows_bwd_tile_kernel<64, COORD>, grid, a, s);
-  if (a.H <= 128) return launch_tile<128>(rows_bwd_tile_kernel<128, COORD>, grid, a, s);
-  if (a.H <= 256) return launch_tile<256>(rows_bwd_tile_kernel<256, COORD>, grid, a, s);
-  return launch_tile<512>(rows_bwd_tile_kernel<512, COORD>, grid, a, s);
+  if (a.H <= 64) return launch_tile<64>(rows_bwd_tile_kernel<64, COORD, BF16>, grid, a, s);
+  if (a.H <= 128) return launch_tile<128>(rows_bwd_tile_kernel<128, COORD, BF16>, grid, a, s);
+  if (a.H <= 256) return launch_tile<256>(rows_bwd_tile_kernel<256, COORD, BF16>, grid, a, s);
+  return launch_tile<512>(rows_bwd_tile_kernel<512, COORD, BF16>, grid, a, s);
 }
 
 // Scratch of one group of G molecules, in floats: node-sized pieces for M =
 // G*N rows (the src projection, the node chain, the row sums and the
 // per-CTA partials use the first G*S of them), edge-sized ones for Me =
-// G*S*N pairs, and the split-K partials of the W2 gradient and of the node
-// GEMM.
+// G*S*N pairs, the split-K partials of the W2 gradient and of the node GEMM,
+// and (bf16) the bf16 copy of W2.
 struct RowsScratch : EdgeGradBufs {
-  float *proj, *agg, *z, *u, *dtmp, *dagg, *dr, *dr0, *dcd;
+  float *proj, *agg, *z, *u, *dtmp, *dagg, *dr, *dr0, *dcd, *w2bf;
 };
 
-size_t rows_scratch_layout(int G, int S, int N, int H, int E, float* base, RowsScratch* s) {
+size_t rows_scratch_layout(int G, int S, int N, int H, int E, int bf16, float* base,
+                           RowsScratch* s) {
   const size_t M = (size_t)G * N, Me = (size_t)G * S * N;
   int kchunk;
   const size_t wsplits = (size_t)wgrad_splits((int)Me, H, &kchunk);
   const size_t sizes[] = {M * 2 * H, M * H, M * H, M * H, M * H, M * H, M * H, M * H,
                           (size_t)G * S * (3 + E) * H, Me * H, Me * H, Me * H, Me, Me, Me * 3,
-                          wsplits * H * H, (size_t)kMaxSplits * H * H};
+                          wsplits * H * H, bf16 ? (size_t)H * H / 2 : 0,
+                          (size_t)kMaxSplits * H * H};
   float** ptrs[] = {&s->proj, &s->agg, &s->z, &s->u, &s->dtmp, &s->dagg, &s->rowsum,
                     &s->colsum, &s->part, &s->abuf, &s->dbuf, &s->colpart, &s->dr, &s->dr0,
-                    &s->dcd, &s->wsplit, &s->split.buf};
+                    &s->dcd, &s->wsplit, &s->w2bf, &s->split.buf};
   s->split.cap = sizes[sizeof(sizes) / sizeof(sizes[0]) - 1];
   size_t off = 0;
   for (int k = 0; k < (int)(sizeof(sizes) / sizeof(sizes[0])); ++k) {
@@ -352,8 +362,11 @@ struct StageGrads {
 // them), or null to run it here with the same code (gcl_chain); both give
 // the same bits. The molecules run in groups of G whose scratch is
 // rows_scratch_layout(G, S, ...), each group's weight gradients added to the
-// previous groups' in group order.
-template <int kOwner, bool COORD>
+// previous groups' in group order. BF16: the bf16 variant (the vjp of the
+// bf16 forward, whose node chain it takes; egnn_block_bwd.cu gives its
+// rounding sites), its weight gradients rounded to bf16 once, after the
+// last group.
+template <int kOwner, bool COORD, bool BF16 = false>
 int rows_backward(bool whole, const float* h, const float* x, const float* x0,
                   const float* mask, const Slab& r, const float* gout, const float* chain,
                   const StageGrads& out, const float* const* w, float* const* g, float* scratch,
@@ -361,10 +374,13 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
                   float coords_range, float norm_div, float norm_constant, cudaStream_t s) {
   const int S = r.S;
   RowsScratch sc;
-  rows_scratch_layout(G, S, N, H, E, scratch, &sc);
+  rows_scratch_layout(G, S, N, H, E, BF16, scratch, &sc);
   const size_t plane = (size_t)B * S * H;  // one tensor of the chain
   int rc;
   cudaError_t ce;
+  if constexpr (BF16) {
+    if ((rc = to_bf16(w[2], sc.w2bf, H * H, s))) return rc;
+  }
   for (int b0 = 0; b0 < B; b0 += G) {
     const int Bg = min(G, B - b0);
     const int acc = b0 > 0;  // later groups add to the weight gradients
@@ -380,10 +396,12 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
       return (int)ce;
     if (!whole && (ce = cudaMemsetAsync(dhg, 0, (size_t)Mc * H * sizeof(float), s)))
       return (int)ce;
-    if ((rc = launch_projection_window<kOwner>(rg.h, Mr, hg, Mc, w[0], 2 * H + E, sc.proj, H, s)))
+    if ((rc = launch_projection_window<kOwner, BF16>(rg.h, Mr, hg, Mc, w[0], 2 * H + E, sc.proj,
+                                                     H, s)))
       return rc;
     TileArgs ea = stage_args(rg, xg, x0g, mg, sc.proj, w, N, H, E, sin_emb, norm_div,
                              norm_constant);
+    if constexpr (BF16) ea.w2bf = reinterpret_cast<const uint32_t*>(sc.w2bf);
     if (!COORD) {
       // 1. The node chain (handed over, or run here), then the node MLP's
       //    backward, which gives the gradient of the aggregate.
@@ -394,11 +412,11 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
         agg = chain + offr * H;
         z = agg + plane;
         u = z + plane;
-      } else if ((rc = gcl_chain<kOwner>(ea, rg.h, w, Bg, sc.agg, sc.z, sc.u, s))) {
+      } else if ((rc = gcl_chain<kOwner, BF16>(ea, rg.h, w, Bg, sc.agg, sc.z, sc.u, s))) {
         return rc;
       }
-      if ((rc = node_mlp_backward(gout + offr * H, rg.mask, rg.h, agg, z, u, w, g, sc.dtmp,
-                                  sc.dagg, dhrg, Mr, H, acc, sc.split, s)))
+      if ((rc = node_mlp_backward<BF16>(gout + offr * H, rg.mask, rg.h, agg, z, u, w, g,
+                                        sc.dtmp, sc.dagg, dhrg, Mr, H, acc, sc.split, s)))
         return rc;
       ea.dagg = sc.dagg;
     } else {
@@ -408,12 +426,12 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
     // 2. The edge grid, then 3. the weight gradients, dh and the coordinates.
     ea.abuf = sc.abuf; ea.dbuf = sc.dbuf; ea.colpart = sc.colpart; ea.rowsum = sc.rowsum;
     ea.part = sc.part; ea.dr = sc.dr; ea.dr0 = sc.dr0; ea.dcd = sc.dcd;
-    if ((rc = launch_rows_bwd<COORD>(ea, Bg, s))) return rc;
+    if ((rc = launch_rows_bwd<COORD, BF16>(ea, Bg, s))) return rc;
     const Dims d = {Bg, N, H, E, 2 * H + E, S, S};
     float* gwo = COORD || attention ? g[4] : nullptr;
     float* gbo = !COORD && attention ? g[5] : nullptr;
-    if ((rc = stage_grads(d, rg.h, hg, w[0], g[0], g[1], g[2], g[3], gwo, gbo, sc, dhrg, dhg,
-                          acc, s)))
+    if ((rc = stage_grads<BF16>(d, rg.h, hg, w[0], g[0], g[1], g[2], g[3], gwo, gbo, sc, dhrg,
+                                dhg, acc, s)))
       return rc;
     const float* gxg = COORD ? gout + offr * 3 : nullptr;
     if (whole) {
@@ -431,6 +449,7 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
     }
     if ((rc = (int)cudaGetLastError())) return rc;
   }
+  if constexpr (BF16) return round_weight_grads(g, COORD, H, E, s);
   return 0;
 }
 

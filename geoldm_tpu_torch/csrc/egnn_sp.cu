@@ -38,6 +38,12 @@
 // with z; parallel/sp.py's SPEquivariantBlockFunction does), the backward
 // takes it instead of running the GCL's edge grid again.
 //
+// The bf16 variants (the *_bf16 entries; JAX's bfloat16 compute dtypes in
+// sp_stage_apply) run the bf16 grids of #3/#4 (egnn_tiled.cu) and #5
+// (egnn_tiled_bwd.cu) over the slab, forward (keeping the slab's node chain
+// under grad) and backward, with their rounding sites; a rank's weight
+// gradients are its slab's share, rounded to bf16 once on the rank.
+//
 // What bounds it on an H100: as #3-#5, the edge products over the slab's
 // S*N pairs, bound by operations: the forward's W2 product and the
 // backward's three (the second layer, the transposed product, the W2
@@ -98,10 +104,10 @@ int egnn_sp_coord_rows(const float* h, const float* x, const float* x0, const fl
 }
 
 // Floats of device scratch either SP backward needs for a group of G
-// molecules.
-size_t egnn_sp_backward_scratch_floats(int G, int S, int N, int H, int E) {
+// molecules (bf16 1: either bf16 variant).
+size_t egnn_sp_backward_scratch_floats(int G, int S, int N, int H, int E, int bf16) {
   RowsScratch s;
-  return rows_scratch_layout(G, S, N, H, E, nullptr, &s);
+  return rows_scratch_layout(G, S, N, H, E, bf16, nullptr, &s);
 }
 
 // Kernel #7, GCL: views as egnn_sp_gcl_rows; gh [B*S, H] the cotangent of the
@@ -148,6 +154,86 @@ int egnn_sp_coord_rows_backward(const float* h, const float* x, const float* x0,
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
   return rows_backward<7, true>(
+      false, h, x, x0, mask, r, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
+      reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
+      coords_range, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
+      (cudaStream_t)stream);
+}
+
+// The bf16 variant of kernel #6, GCL: egnn_sp_gcl_rows' arguments with w2bf,
+// [H, H] bf16 scratch (16-byte aligned), after z.
+int egnn_sp_gcl_rows_bf16(const float* h, const float* x, const float* x0, const float* mask,
+                          const float* hr, const float* xr, const float* x0r, const float* mr,
+                          float* h_out, float* proj, float* agg, float* hidden, float* z,
+                          void* w2bf, const void* const* w_table, int B, int N, int S, int row0,
+                          int H, int E, int attention, int sin_emb, int mean_agg, int mean_div,
+                          float norm_constant, float normalization_factor, void* stream) {
+  const Slab r = {hr, xr, x0r, mr, row0, S};
+  if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || !w2bf) return (int)cudaErrorInvalidValue;
+  return gcl_rows_host<6, true>(h, x, x0, mask, r, h_out, proj, agg, hidden, z,
+                                reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                                attention, sin_emb,
+                                mean_agg ? (float)mean_div : normalization_factor, norm_constant,
+                                (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
+}
+
+// The bf16 variant of kernel #6, coordinate update: egnn_sp_coord_rows'
+// arguments with w2bf, [H, H] bf16 scratch, after proj.
+int egnn_sp_coord_rows_bf16(const float* h, const float* x, const float* x0, const float* mask,
+                            const float* hr, const float* xr, const float* x0r, const float* mr,
+                            float* x_out, float* proj, void* w2bf, const void* const* w_table,
+                            int B, int N, int S, int row0, int H, int E, int sin_emb,
+                            int use_tanh, int mean_agg, int mean_div, float coords_range,
+                            float norm_constant, float normalization_factor, void* stream) {
+  const Slab r = {hr, xr, x0r, mr, row0, S};
+  if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || !w2bf) return (int)cudaErrorInvalidValue;
+  return coord_rows_host<6, true>(h, x, x0, mask, r, x_out, proj,
+                                  reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                                  sin_emb, use_tanh, coords_range,
+                                  mean_agg ? (float)mean_div : normalization_factor,
+                                  norm_constant, (cudaStream_t)stream,
+                                  static_cast<uint32_t*>(w2bf));
+}
+
+// The bf16 variant of kernel #7, GCL: egnn_sp_gcl_rows_backward's arguments;
+// chain from egnn_sp_gcl_rows_bf16 (or null), scratch of
+// egnn_sp_backward_scratch_floats(G, ..., 1) floats.
+int egnn_sp_gcl_rows_backward_bf16(const float* h, const float* x, const float* x0,
+                                   const float* mask, const float* hr, const float* xr,
+                                   const float* x0r, const float* mr, const float* gh,
+                                   const float* chain, float* dh, float* dx, float* dx0,
+                                   float* dhr, float* dxr, float* dx0r, const void* const* w_table,
+                                   void* const* g_table, float* scratch, int B, int G, int N,
+                                   int S, int row0, int H, int E, int attention, int sin_emb,
+                                   int mean_agg, int mean_div, float norm_constant,
+                                   float normalization_factor, void* stream) {
+  const Slab r = {hr, xr, x0r, mr, row0, S};
+  if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
+  const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
+  return rows_backward<7, false, true>(
+      false, h, x, x0, mask, r, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
+      reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
+      0.f, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
+      (cudaStream_t)stream);
+}
+
+// The bf16 variant of kernel #7, coordinate update:
+// egnn_sp_coord_rows_backward's arguments, scratch as
+// egnn_sp_gcl_rows_backward_bf16.
+int egnn_sp_coord_rows_backward_bf16(const float* h, const float* x, const float* x0,
+                                     const float* mask, const float* hr, const float* xr,
+                                     const float* x0r, const float* mr, const float* gx,
+                                     float* dh, float* dx, float* dx0, float* dhr, float* dxr,
+                                     float* dx0r, const void* const* w_table,
+                                     void* const* g_table, float* scratch, int B, int G, int N,
+                                     int S, int row0, int H, int E, int sin_emb, int use_tanh,
+                                     int mean_agg, int mean_div, float coords_range,
+                                     float norm_constant, float normalization_factor,
+                                     void* stream) {
+  const Slab r = {hr, xr, x0r, mr, row0, S};
+  if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
+  const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
+  return rows_backward<7, true, true>(
       false, h, x, x0, mask, r, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)mean_div : normalization_factor, norm_constant,

@@ -5,7 +5,10 @@
 // gradient over every edge. Both run split TF32 on mma.sync (egnn_tile.cuh:
 // hi*hi + hi*lo + lo*hi, f32 accumulation, about f32's accuracy); split-K
 // partials are summed in split order by splitk_reduce_kernel, without
-// atomics, so a seeded run replays bit for bit.
+// atomics, so a seeded run replays bit for bit. In the bf16 backward
+// (GRAD16) every backward product has an f32 cotangent as A and a bf16
+// operand as B (an activation or a weight, rounded as read): A stays split
+// TF32 and B, exact in TF32, takes no lo term, two mma a k8 step.
 
 #pragma once
 
@@ -56,6 +59,7 @@ struct NodeGemm {
   int M, N, K;
   int epilogue, accumulate;
   int kchunk; size_t split_stride;
+  int round_out;  // GRAD16: the result rounded to bf16 before it is stored or added
 };
 
 constexpr int kNgTM = 32, kNgTN = 64, kNgKC = 32;
@@ -67,8 +71,10 @@ constexpr int kNgAPer = kNgTM * kNgKC / 128, kNgBPer = kNgTN * kNgKC / 128;
 
 // BF16 (the bf16 forward variant of #1, A [M][K] and B [N][K] only): the
 // operands rounded to bf16 as they enter the fragments, one m16n8k16 bf16
-// mma a k16 step instead of three TF32 ones a k8 step.
-template <bool BF16 = false>
+// mma a k16 step instead of three TF32 ones a k8 step. GRAD16 (the bf16
+// backward): A, the cotangent, in split TF32 and B rounded to bf16, two
+// mma a k8 step; g.round_out rounds the result (an operand's gradient).
+template <bool BF16 = false, bool GRAD16 = false>
 __global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
   __shared__ __align__(16) float As[kNgA];
   __shared__ __align__(16) float Bs[kNgB];
@@ -169,11 +175,18 @@ __global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
         const int n = wn * 16 + ni * 8 + gq;
         const float b0 = g.tb ? Bs[n * kNgLdR + kk + t] : Bs[(kk + t) * kNgLdBT + n];
         const float b1 = g.tb ? Bs[n * kNgLdR + kk + t + 4] : Bs[(kk + t + 4) * kNgLdBT + n];
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(b0, bh0, bl0);
-        split_tf32(b1, bh1, bl1);
+        if constexpr (GRAD16) {
+          const uint32_t br0 = bf16_tf32(b0), br1 = bf16_tf32(b1);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_3xtf32(acc[mi][ni], ahi[mi], alo[mi], bh0, bh1, bl0, bl1);
+          for (int mi = 0; mi < 2; ++mi) mma_2xtf32(acc[mi][ni], ahi[mi], alo[mi], br0, br1);
+        } else {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b0, bh0, bl0);
+          split_tf32(b1, bh1, bl1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_3xtf32(acc[mi][ni], ahi[mi], alo[mi], bh0, bh1, bl0, bl1);
+        }
       }
     }
     __syncthreads();
@@ -192,15 +205,18 @@ __global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
         if (g.bias) v += g.bias[n];
         if (g.epilogue == kEpiSilu) v = silu_f(v);
         if (g.epilogue == kEpiResidMask) v = (g.resid[(size_t)m * g.ldr + n] + v) * g.row_mask[m];
+        if constexpr (GRAD16) {
+          if (g.round_out) v = bf16_round(v);
+        }
         float* dst = c + (size_t)m * g.ldc + n;
         *dst = g.accumulate ? *dst + v : v;
       }
 }
 
-template <bool BF16 = false>
+template <bool BF16 = false, bool GRAD16 = false>
 int launch_node_gemm(const NodeGemm& g, int splits, cudaStream_t s) {
   dim3 grid((g.N + kNgTN - 1) / kNgTN, (g.M + kNgTM - 1) / kNgTM, splits);
-  node_gemm_tc_kernel<BF16><<<grid, 128, 0, s>>>(g);
+  node_gemm_tc_kernel<BF16, GRAD16><<<grid, 128, 0, s>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -208,12 +224,16 @@ int launch_node_gemm(const NodeGemm& g, int splits, cudaStream_t s) {
 // m]), else [M][K]; tb, B stored [N][K] (B(k, n) = b[n * ldb + k]), else
 // [K][N]. K is split when the output has few tiles and K is long (the
 // weight gradients, K = the node rows), so that the grid fills the card;
-// the splits are summed in order.
+// the splits are summed in order. GRAD16: A is an f32 cotangent and B is
+// rounded to bf16 (the bf16 backward), and round_out rounds the product
+// (then never split) before it is stored or added to c.
+template <bool GRAD16 = false>
 int node_gemm(const float* a, int lda, int ta, const float* b, int ldb, int tb, float* c, int ldc,
-              int M, int N, int K, int accumulate, const SplitBuf& sb, cudaStream_t s) {
+              int M, int N, int K, int accumulate, const SplitBuf& sb, cudaStream_t s,
+              int round_out = 0) {
   const int tiles = ((M + kNgTM - 1) / kNgTM) * ((N + kNgTN - 1) / kNgTN);
   int splits = 1;
-  if (tiles < 200 && K >= 256) {
+  if (tiles < 200 && K >= 256 && !round_out) {
     splits = (K + 127) / 128;
     if (splits > kMaxSplits) splits = kMaxSplits;
     if ((size_t)splits * M * N > sb.cap) splits = 1;
@@ -226,11 +246,11 @@ int node_gemm(const float* a, int lda, int ta, const float* b, int ldb, int tb, 
   g.b = b; g.ldb = ldb; g.tb = tb;
   g.M = M; g.N = N; g.K = K; g.kchunk = kchunk; g.epilogue = kEpiNone;
   if (splits == 1) {
-    g.c = c; g.ldc = ldc; g.accumulate = accumulate;
-    return launch_node_gemm(g, 1, s);
+    g.c = c; g.ldc = ldc; g.accumulate = accumulate; g.round_out = round_out;
+    return launch_node_gemm<false, GRAD16>(g, 1, s);
   }
   g.c = sb.buf; g.ldc = N; g.split_stride = (size_t)M * N;
-  int rc = launch_node_gemm(g, splits, s);
+  int rc = launch_node_gemm<false, GRAD16>(g, splits, s);
   if (rc) return rc;
   splitk_reduce_kernel<<<(M * N + 255) / 256, 256, 0, s>>>(sb.buf, splits, M, N, c, ldc,
                                                            accumulate);
@@ -243,7 +263,9 @@ int node_gemm(const float* a, int lda, int ta, const float* b, int ldb, int tb, 
 // so each is K-outer: a 16-edge chunk of each streams into shared memory
 // with cp.async (two stages, one barrier a chunk), 8 warps in a 2 x 4 grid of 64x32 register
 // tiles, 3xTF32 as in the edge tiles. The splits are summed in order by
-// splitk_reduce_kernel.
+// splitk_reduce_kernel. GRAD16 (the bf16 backward): a, silu(pre), rounded to
+// bf16 as read, d in split TF32, two mma a k8 step; the caller rounds the
+// summed gradient once.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgTile = 128, kWgKC = 16, kWgLd = kWgTile + 8, kWgMaxSplits = 64;
@@ -251,8 +273,16 @@ constexpr int kWgTile = 128, kWgKC = 16, kWgLd = kWgTile + 8, kWgMaxSplits = 64;
 // so one accumulator fed ~17K edges (1.08 M edges in 64 splits) drifts to
 // ~1e-4 of the gradient; 2048 edges keep the drift near 1e-5, and the split
 // partials are summed in f32 in order.
-constexpr int kWgMaxChunk = 2048;
+// The bf16 backward keeps the cap but not the drift: its gradient is rounded
+// to bf16 after the splits are summed, and a split's drift (up to ~1e-5 of
+// it: ~half an f32 ulp lost at each of 2048 / 8 * 2 mma) moves enough sums
+// across a bf16 rounding tie to flip ~10% of the elements against a plain
+// f32 sum. GRAD16 therefore folds every kWgFold chunks' mma sum into the
+// split's total with a rounded f32 add, so the truncation runs over 64 edges
+// (16 mma) at a time.
+constexpr int kWgMaxChunk = 2048, kWgFold = 4;
 
+template <bool GRAD16 = false>
 __global__ void __launch_bounds__(256) wgrad_tc_kernel(const float* d, const float* a, int Me,
                                                        int H, int kchunk, float* out) {
   __shared__ __align__(16) float Ds[2][kWgKC * kWgLd];
@@ -261,13 +291,13 @@ __global__ void __launch_bounds__(256) wgrad_tc_kernel(const float* d, const flo
   const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * kWgTile, n0 = blockIdx.x * kWgTile;
   const int e_beg = blockIdx.z * kchunk, e_end = min(Me, e_beg + kchunk);
-  float acc[4][4][4];
+  float acc[4][4][4], part[4][4][4];  // GRAD16: part, the current fold's mma sum
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = part[mi][ni][q] = 0.f;
 
   auto load = [&](int st, int k0) {
     for (int idx = tid; idx < kWgKC * (kWgTile / 4); idx += 256) {
@@ -300,11 +330,31 @@ __global__ void __launch_bounds__(256) wgrad_tc_kernel(const float* d, const flo
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const float* br = &Bs[st][(kk + t) * kWgLd + wn * 32 + ni * 8 + g];
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(br[0], bh0, bl0);
-        split_tf32(br[4 * kWgLd], bh1, bl1);
+        if constexpr (GRAD16) {
+          const uint32_t b0 = bf16_tf32(br[0]), b1 = bf16_tf32(br[4 * kWgLd]);
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_3xtf32(acc[mi][ni], ahi[mi], alo[mi], bh0, bh1, bl0, bl1);
+          for (int mi = 0; mi < 4; ++mi) mma_2xtf32(part[mi][ni], ahi[mi], alo[mi], b0, b1);
+        } else {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(br[0], bh0, bl0);
+          split_tf32(br[4 * kWgLd], bh1, bl1);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi)
+            mma_3xtf32(acc[mi][ni], ahi[mi], alo[mi], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    if constexpr (GRAD16) {
+      if ((ck + 1) % kWgFold == 0 || ck + 1 == nch) {
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[mi][ni][q] += part[mi][ni][q];
+              part[mi][ni][q] = 0.f;
+            }
       }
     }
   }
@@ -336,13 +386,16 @@ int wgrad_splits(int Me, int H, int* kchunk) {
 }
 
 // gw2[m][n] (+)= sum_e dbuf[e][m] abuf[e][n]; wsplit holds the split
-// partials (wgrad_splits(Me, H) x H x H floats).
+// partials (wgrad_splits(Me, H) x H x H floats). GRAD16: abuf rounded to
+// bf16 (wgrad_tc_kernel).
+template <bool GRAD16 = false>
 int wgrad_tc(const float* dbuf, const float* abuf, int Me, int H, float* gw2, float* wsplit,
              int accumulate, cudaStream_t s) {
   int kchunk;
   const int splits = wgrad_splits(Me, H, &kchunk);
   const int nt = (H + kWgTile - 1) / kWgTile;
-  wgrad_tc_kernel<<<dim3(nt, nt, splits), 256, 0, s>>>(dbuf, abuf, Me, H, kchunk, wsplit);
+  wgrad_tc_kernel<GRAD16><<<dim3(nt, nt, splits), 256, 0, s>>>(dbuf, abuf, Me, H, kchunk,
+                                                               wsplit);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   splitk_reduce_kernel<<<(H * H + 255) / 256, 256, 0, s>>>(wsplit, splits, H, H, gw2, H,

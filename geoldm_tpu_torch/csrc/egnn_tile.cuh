@@ -2,9 +2,11 @@
 // by the whole-molecule kernels (egnn_block_tile.cuh: #1, #2) and the
 // row-tiled grids (egnn_rows.cuh: #3, #4, #6; egnn_rows_bwd.cuh: #5, #7):
 // the tile's shared-memory layout, its split-TF32 tensor-core product with
-// W2 streamed through cp.async stages (and the bf16 product of the bf16
-// forward variants of #1, #3 and #4), the edge geometry and first layer of
-// a tile, and the per-edge gate / scale and the row sums in a fixed order.
+// W2 streamed through cp.async stages (and the bf16 products of the bf16
+// variants: both operands in bf16 for the forward products, an f32
+// cotangent against a bf16 W2 for the backward's transposed product), the
+// edge geometry and first layer of a tile, and the per-edge gate / scale
+// and the row sums in a fixed order.
 // A tile's edges are (row, column) pairs of one molecule: whole rows for #1
 // and #2, a window of one row's columns for the row grid. See egnn_block.cu
 // and egnn_tiled.cu for the designs and what bounds them on an H100.
@@ -110,6 +112,19 @@ __device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const 
   mma_tf32(c, ahi, bh0, bh1);
 }
 
+// A split f32 a against a b that is exact in TF32 (a bf16 value: its 8
+// mantissa bits fit TF32's 10), small term first: two products where split
+// TF32 takes three, a kept to about 2^-22 (the bf16 backward's cotangent
+// side of a product, whose other operand is rounded to bf16).
+__device__ __forceinline__ void mma_2xtf32(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                           uint32_t b0, uint32_t b1) {
+  mma_tf32(c, alo, b0, b1);
+  mma_tf32(c, ahi, b0, b1);
+}
+
+// x rounded to bf16, as a TF32 operand (exact).
+__device__ __forceinline__ uint32_t bf16_tf32(float x) { return __float_as_uint(bf16_round(x)); }
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
@@ -148,8 +163,10 @@ __device__ __forceinline__ void load_w_chunk(float* Ws, const float* w, int H, i
 // streamed through two shared stages with cp.async, one barrier a chunk:
 // chunk ck+1 loads while ck is multiplied. m16 tiles at or past mrows are
 // skipped (warp-uniform). Ends with a barrier: As and the stages may be
-// overwritten right after.
-template <int HP, bool TRANS>
+// overwritten right after. RB (the bf16 backward's transposed product): B
+// rounded to bf16 as it is read, As kept in f32 by split TF32, two mma a
+// k8 step (mma_2xtf32).
+template <int HP, bool TRANS, bool RB = false>
 __device__ __forceinline__ void tile_product(const float* As, float* Wb, const float* w, int H,
                                              int mrows, float (&acc)[2][8][4]) {
   using C = TileCfg<HP>;
@@ -189,11 +206,18 @@ __device__ __forceinline__ void tile_product(const float* As, float* Wb, const f
 #pragma unroll
         for (int ni = 0; ni < 8; ++ni) {
           const int n = wn * 64 + ni * 8 + g;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(Ws[w_index<HP, TRANS>(kk + t, n)], bh0, bl0);
-          split_tf32(Ws[w_index<HP, TRANS>(kk + t + 4, n)], bh1, bl1);
-          mma_3xtf32(acc[0][ni], ahi[0], alo[0], bh0, bh1, bl0, bl1);
-          if (live1) mma_3xtf32(acc[1][ni], ahi[1], alo[1], bh0, bh1, bl0, bl1);
+          if constexpr (RB) {
+            const uint32_t b0 = bf16_tf32(Ws[w_index<HP, TRANS>(kk + t, n)]);
+            const uint32_t b1 = bf16_tf32(Ws[w_index<HP, TRANS>(kk + t + 4, n)]);
+            mma_2xtf32(acc[0][ni], ahi[0], alo[0], b0, b1);
+            if (live1) mma_2xtf32(acc[1][ni], ahi[1], alo[1], b0, b1);
+          } else {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(Ws[w_index<HP, TRANS>(kk + t, n)], bh0, bl0);
+            split_tf32(Ws[w_index<HP, TRANS>(kk + t + 4, n)], bh1, bl1);
+            mma_3xtf32(acc[0][ni], ahi[0], alo[0], bh0, bh1, bl0, bl1);
+            if (live1) mma_3xtf32(acc[1][ni], ahi[1], alo[1], bh0, bh1, bl0, bl1);
+          }
         }
       }
     }
@@ -295,9 +319,11 @@ __device__ __forceinline__ void tile_product_bf16(const float* As, float* Wb, co
   __syncthreads();
 }
 
-// As[row][col] = acc + bias[col] (0 past H), through silu when SILU; the
-// fragment layout of mma.m16n8k8's C.
-template <int HP, bool SILU>
+// As[row][col] = acc + bias[col] (0 past H), through silu when SILU, or
+// rounded to bf16 when ROUND (the bf16 backward's transposed product, whose
+// result is the gradient of a bf16 operand); the fragment layout of
+// mma.m16n8k8's C.
+template <int HP, bool SILU, bool ROUND = false>
 __device__ __forceinline__ void store_acc(float* As, const float (&acc)[2][8][4],
                                           const float* bias, int H) {
   using C = TileCfg<HP>;
@@ -317,6 +343,10 @@ __device__ __forceinline__ void store_acc(float* As, const float (&acc)[2][8][4]
       if (SILU) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q] = tile_silu(v[q]);
+      }
+      if constexpr (ROUND) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = bf16_round(v[q]);
       }
       *reinterpret_cast<float2*>(As + row * C::kLdA + col) = make_float2(v[0], v[1]);
       *reinterpret_cast<float2*>(As + (row + 8) * C::kLdA + col) = make_float2(v[2], v[3]);
@@ -579,8 +609,9 @@ __device__ __forceinline__ float fold_coords(int e0, int n, int d, float aggx) {
 // silu(mm)[c] / div over the edge's row i; then one thread per edge turns
 // them into rs (the gate) and rs2 (the logit's gradient) and, for the
 // coordinate stage, writes the edge's gradient of coord_diff. Ends with a
-// barrier.
-template <int HP, bool COORD>
+// barrier. BF16: the logit's product on bf16 operands, as the bf16
+// forward's (the gate's own sum stays f32: an elementwise product).
+template <int HP, bool COORD, bool BF16 = false>
 __device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float* As, int b,
                                                  int mrows) {
   using C = TileCfg<HP>;
@@ -597,8 +628,14 @@ __device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float*
     for (int k = lane; k < H; k += 32) {
       const float w = __ldg(a.w_out + k);
       const float m = tile_silu(As[e * C::kLdA + k]), m2 = tile_silu(As[e2 * C::kLdA + k]);
-      s[0] = fmaf(m, w, s[0]);
-      s[1] = fmaf(m2, w, s[1]);
+      if constexpr (BF16) {
+        const float wr = bf16_round(w);
+        s[0] = fmaf(bf16_round(m), wr, s[0]);
+        s[1] = fmaf(bf16_round(m2), wr, s[1]);
+      } else {
+        s[0] = fmaf(m, w, s[0]);
+        s[1] = fmaf(m2, w, s[1]);
+      }
       if (!COORD) {
         s2[0] = fmaf(m, __ldg(dagg_b + ei[e] * H + k) * inv_div, s2[0]);
         s2[1] = fmaf(m2, __ldg(dagg_b + ei[e2] * H + k) * inv_div, s2[1]);
@@ -647,8 +684,9 @@ __device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float*
 // Squared-distance features (not sin, whose features carry no gradient):
 // dr_e += sum_c d(pre)[e][c] We[c][0] and dr0_e with We[c][1], d(pre) in As
 // and We's two columns in Wb[0:HP], Wb[HP:2HP]; one warp per edge, two at a
-// time.
-template <int HP>
+// time. BF16: each sum rounded to bf16 (the gradient of the bf16 edge
+// features of this stage's product) before it is added.
+template <int HP, bool BF16 = false>
 __device__ __forceinline__ void edge_dist_grads(const TileArgs& a, const float* As,
                                                 const float* Wb, int b, int mrows) {
   using C = TileCfg<HP>;
@@ -669,6 +707,10 @@ __device__ __forceinline__ void edge_dist_grads(const TileArgs& a, const float* 
     for (int u = 0; u < 2; ++u) {
       s[u] = warp_sum(s[u]);
       s0[u] = warp_sum(s0[u]);
+      if constexpr (BF16) {
+        s[u] = bf16_round(s[u]);
+        s0[u] = bf16_round(s0[u]);
+      }
     }
     if (lane == 0) {
       const size_t k1 = ((size_t)b * a.S + ei[e]) * a.N + ej[e];

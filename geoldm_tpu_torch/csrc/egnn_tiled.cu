@@ -66,7 +66,8 @@
 // (egnn_tile.cuh: tile_product_bf16, W2 converted to bf16 once a call), the
 // node GEMMs on operands rounded as they enter shared memory, the first
 // layer's edge-feature term and the gate / scale sums as f32 FMAs of
-// rounded operands. They serve sampling only (no node chain is kept).
+// rounded operands. Under grad the GCL's keeps its node chain (z) for the
+// bf16 stage backward (egnn_tiled_bwd.cu), as the f32 one does.
 // The stages take a row window (egnn_rows.cuh); here the window is every row.
 // One call of egnn_gcl_rows enqueues 5 grids (6 when it keeps the node chain
 // for the backward), one of egnn_coord_rows 3, on the caller's stream;
@@ -116,16 +117,17 @@ int egnn_coord_rows(const float* h, const float* x, const float* x0, const float
                             norm_constant, (cudaStream_t)stream);
 }
 
-// The bf16 variant of kernel #3: egnn_gcl_rows' arguments with w2bf, [H, H]
-// bf16 scratch (16-byte aligned), in z's place.
+// The bf16 variant of kernel #3: egnn_gcl_rows' arguments (z null, or the
+// node chain's z for egnn_gcl_rows_backward_bf16) with w2bf, [H, H] bf16
+// scratch (16-byte aligned), after z.
 int egnn_gcl_rows_bf16(const float* h, const float* x, const float* x0, const float* mask,
-                       float* h_out, float* proj, float* agg, float* hidden, void* w2bf,
-                       const void* const* w_table, int B, int N, int H, int E, int attention,
-                       int sin_emb, int mean_agg, float norm_constant,
+                       float* h_out, float* proj, float* agg, float* hidden, float* z,
+                       void* w2bf, const void* const* w_table, int B, int N, int H, int E,
+                       int attention, int sin_emb, int mean_agg, float norm_constant,
                        float normalization_factor, void* stream) {
   if (bad_dims(B, N, H, E, sin_emb) || !w2bf) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
-  return gcl_rows_host<3, true>(h, x, x0, mask, all, h_out, proj, agg, hidden, nullptr,
+  return gcl_rows_host<3, true>(h, x, x0, mask, all, h_out, proj, agg, hidden, z,
                                 reinterpret_cast<const float* const*>(w_table), B, N, H, E,
                                 attention, sin_emb, mean_agg ? (float)N : normalization_factor,
                                 norm_constant, (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));

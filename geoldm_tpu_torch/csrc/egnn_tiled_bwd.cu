@@ -74,6 +74,16 @@
 // TB/s, overlapped with the grid's products and the GEMMs' own. One call
 // enqueues about 30 grids (GCL) or 20 (coordinate update) per group on the
 // caller's stream and does not synchronise.
+//
+// The bf16 variants (egnn_gcl_rows_backward_bf16, egnn_coord_rows_backward_
+// bf16; JAX's bfloat16 compute dtypes, the jax.vjp of _gcl_rows_math /
+// _coord_rows_math with _matmul's bf16 operands) are the vjp of the bf16
+// forward (egnn_gcl_rows_bf16, egnn_coord_rows_bf16), with #2's bf16
+// rounding sites (egnn_block_bwd.cu): the recomputed projections, second
+// layer and node chain on bf16 operands as the forward's, the cotangent of
+// every backward product in f32 against its bf16 operand, each gradient of
+// a bf16 operand rounded to bf16, the weight gradients once after the last
+// group. A GCL's chain comes from egnn_gcl_rows_bf16 with z.
 
 #include "egnn_rows_bwd.cuh"
 
@@ -83,10 +93,11 @@ const char* egnn_tiled_bwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Floats of device scratch either backward needs for a group of G molecules.
-size_t egnn_rows_backward_scratch_floats(int G, int N, int H, int E) {
+// Floats of device scratch either backward needs for a group of G molecules
+// (bf16 1: either bf16 variant).
+size_t egnn_rows_backward_scratch_floats(int G, int N, int H, int E, int bf16) {
   RowsScratch s;
-  return rows_scratch_layout(G, N, N, H, E, nullptr, &s);
+  return rows_scratch_layout(G, N, N, H, E, bf16, nullptr, &s);
 }
 
 // Splits of the W2-gradient GEMM (egnn_tc_gemm.cuh) over Me edge rows at
@@ -131,6 +142,43 @@ int egnn_coord_rows_backward(const float* h, const float* x, const float* x0, co
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
   return rows_backward<5, true>(
+      true, h, x, x0, mask, all, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
+      reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
+      coords_range, mean_agg ? (float)N : normalization_factor, norm_constant,
+      (cudaStream_t)stream);
+}
+
+// The bf16 variant of kernel #5, GCL stage: egnn_gcl_rows_backward's
+// arguments; chain from egnn_gcl_rows_bf16 (or null: run here in bf16),
+// scratch of egnn_rows_backward_scratch_floats(G, ..., 1) floats.
+int egnn_gcl_rows_backward_bf16(const float* h, const float* x, const float* x0,
+                                const float* mask, const float* gh, const float* chain,
+                                float* dh, float* dx, float* dx0, const void* const* w_table,
+                                void* const* g_table, float* scratch, int B, int G, int N, int H,
+                                int E, int attention, int sin_emb, int mean_agg,
+                                float norm_constant, float normalization_factor, void* stream) {
+  if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
+  const Slab all = {h, x, x0, mask, 0, N};
+  const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
+  return rows_backward<5, false, true>(
+      true, h, x, x0, mask, all, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
+      reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
+      0.f, mean_agg ? (float)N : normalization_factor, norm_constant, (cudaStream_t)stream);
+}
+
+// The bf16 variant of kernel #5, coordinate stage: egnn_coord_rows_backward's
+// arguments, scratch as egnn_gcl_rows_backward_bf16.
+int egnn_coord_rows_backward_bf16(const float* h, const float* x, const float* x0,
+                                  const float* mask, const float* gx, float* dh, float* dx,
+                                  float* dx0, const void* const* w_table, void* const* g_table,
+                                  float* scratch, int B, int G, int N, int H, int E, int sin_emb,
+                                  int use_tanh, int mean_agg, float coords_range,
+                                  float norm_constant, float normalization_factor,
+                                  void* stream) {
+  if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
+  const Slab all = {h, x, x0, mask, 0, N};
+  const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
+  return rows_backward<5, true, true>(
       true, h, x, x0, mask, all, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)N : normalization_factor, norm_constant,

@@ -70,8 +70,8 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
     """-log p(x, h) estimator [B] (latent.py:64-130). Draws from ``noise``,
     in order: the encoder's eps (x block, then h block), then those of
     ``vdm.compute_loss``. The encoder, decoder and denoiser run in
-    ``compute_dtype`` (a name resolved here; a bf16 one under
-    ``torch.no_grad`` only)."""
+    ``compute_dtype`` (a name resolved here), under grad too: the train
+    step's bf16 gradient runs the bf16 backward kernels."""
     cfg, vae_cfg = model.cfg.diffusion, model.cfg.vae
     compute_dtype = resolve_compute(compute_dtype).dtype
     gamma_fn = vdm.make_gamma_fn(cfg, x.device)

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from geoldm_tpu_torch.config import VAEConfig
+from geoldm_tpu_torch.nn.core import resolve_compute
 from geoldm_tpu_torch.nn.dynamics import EGNNDecoder, EGNNEncoder
 from geoldm_tpu_torch.ops import com
 
@@ -83,12 +84,14 @@ def compute_reconstruction_error(cfg: VAEConfig, xh_rec, xh, training: bool) -> 
 
 
 def compute_loss(vae: EnHierarchicalVAE, noise: com.Noise, x, h_cat, h_int, node_mask,
-                 context: Optional[torch.Tensor], training: bool):
+                 context: Optional[torch.Tensor], training: bool, compute_dtype=None):
     """ELBO estimator recon + kl_weight * KL -> (loss [B], (recon [B], kl [B]))
-    (vae.py:135-187)."""
+    (vae.py:135-187); the encoder and decoder in ``compute_dtype`` (None or
+    torch.bfloat16)."""
     cfg = vae.cfg
     xh = torch.cat([x, h_cat, h_int], dim=2)
-    z_x_mu, z_x_sigma, z_h_mu, z_h_sigma = encode(vae, x, h_cat, h_int, node_mask, context)
+    z_x_mu, z_x_sigma, z_h_mu, z_h_sigma = encode(vae, x, h_cat, h_int, node_mask, context,
+                                                  compute_dtype)
     # KL of the invariant block against N(0, 1) with unit posterior std (the
     # reference passes ones for q_sigma, en_diffusion.py:945-946).
     ones_h = torch.ones_like(z_h_mu)
@@ -103,13 +106,16 @@ def compute_loss(vae: EnHierarchicalVAE, noise: com.Noise, x, h_cat, h_int, node
     z_xh_sigma = torch.cat([z_x_sigma.expand_as(z_x_mu), z_h_sigma.expand_as(z_h_mu)], dim=2)
     z_xh = z_xh_mean + z_xh_sigma * sample_combined_noise(noise, node_mask, cfg.n_dims,
                                                           cfg.latent_nf)
-    x_recon, h_recon = vae.decoder(z_xh, node_mask, context)
+    x_recon, h_recon = vae.decoder(z_xh, node_mask, context, compute_dtype)
     loss_recon = compute_reconstruction_error(cfg, torch.cat([x_recon, h_recon], dim=2), xh,
                                               training)
     return loss_recon + cfg.kl_weight * loss_kl, (loss_recon, loss_kl)
 
 
 def vae_nll(vae: EnHierarchicalVAE, noise: com.Noise, x, h_cat, h_int, node_mask,
-            context: Optional[torch.Tensor] = None, training: bool = False) -> torch.Tensor:
-    """ELBO-based NLL estimate [B] (vae.py:190-208)."""
-    return compute_loss(vae, noise, x, h_cat, h_int, node_mask, context, training)[0]
+            context: Optional[torch.Tensor] = None, training: bool = False,
+            compute_dtype=None) -> torch.Tensor:
+    """ELBO-based NLL estimate [B] (vae.py:190-208); ``compute_dtype`` a
+    compute-dtype name or spec, resolved here."""
+    dtype = resolve_compute(compute_dtype).dtype
+    return compute_loss(vae, noise, x, h_cat, h_int, node_mask, context, training, dtype)[0]

@@ -132,11 +132,13 @@ def build_model(cfg: ModelConfig, device="cuda",
 
 def model_nll_fn(model_cfg: ModelConfig, training: bool, compute_dtype=None):
     """nll(model, noise, x, h_cat, h_int, node_mask, context=None) -> [B] for
-    the configured model kind (factory.py:289-320); a latent diffusion's in
-    ``compute_dtype``."""
+    the configured model kind (factory.py:289-320), in ``compute_dtype``
+    (a name or spec of ``nn.core``), with grad too (``training``: the train
+    step's)."""
     if model_cfg.kind == "vae":
         def nll(model, noise, x, h_cat, h_int, node_mask, context=None):
-            return vae_mod.vae_nll(model, noise, x, h_cat, h_int, node_mask, context, training)
+            return vae_mod.vae_nll(model, noise, x, h_cat, h_int, node_mask, context, training,
+                                   compute_dtype)
         return nll
     if model_cfg.kind == "latent_diffusion":
         def nll(model, noise, x, h_cat, h_int, node_mask, context=None):

@@ -11,10 +11,13 @@ The port serves seven names:
   bf16 operands and accumulates in f32; activations, sums, biases and the
   schedule algebra stay f32 (JAX's ``_matmul`` / ``linear`` with
   ``GEOLDM_PALLAS_EDGE_LOWP`` off, its default, ``pallas_egnn.py:49-55``).
-  On the card they run the bf16 variants of kernels #1, #3 and #4.
-- ``bfloat16_full``: the same kernels. JAX's ``full`` also casts the
-  activations and parameters to bf16 (``geoldm_tpu/nn/dynamics.py:39-49``);
-  the port keeps them in f32, so it is at least as accurate.
+  On the card they run the bf16 variants of kernels #1, #3, #4 and #6, and
+  under grad those of the backward kernels #2, #5 and #7. With ``float32``
+  and ``pallas`` they are the training CLIs' choices, as JAX's.
+- ``bfloat16_full`` (sampling only, as in JAX): the same kernels. JAX's
+  ``full`` also casts the activations and parameters to bf16
+  (``geoldm_tpu/nn/dynamics.py:39-49``); the port keeps them in f32, so it
+  is at least as accurate.
 - ``bfloat16_mixed``: ``bfloat16_full`` with the last ``round(0.1 * K)``
   sampler steps and the final p(x | z0) step in f32 (``mixed_tail``,
   ``diffusion/vdm.py``).
@@ -23,7 +26,8 @@ JAX's sequence-parallel spec (``sp_mesh``) and Pallas interpret mode are
 TPU-side options and have no counterpart.
 
 A name is resolved once, where it enters: the sampler (``vdm.vdm_sample``,
-``latent.ldm_sample``) and the NLL (``latent.ldm_nll``). Below them the
+``latent.ldm_sample``) and the NLL (``latent.ldm_nll``, ``vae.vae_nll``),
+which the train step and the eval NLL call. Below them the
 denoiser, the encoder and decoder, the EGNN and the kernel wrappers take
 the products' operand dtype alone: None (f32) or ``torch.bfloat16``.
 """

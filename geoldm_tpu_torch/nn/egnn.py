@@ -19,12 +19,15 @@ to a sequence-parallel group (``parallel.sp.attach``) runs its blocks over
 its rank's slab of rows instead (``parallel.sp.egnn_forward_sp``: kernels #6
 and #7).
 
-``compute_dtype`` ``torch.bfloat16`` (a name resolved by the sampler or the
-NLL, ``nn.core``) selects the bf16 variants: every linear layer's operands
-rounded to bf16, f32 accumulation (JAX's ``linear`` / ``_matmul`` under a bf16 compute dtype);
-each block runs the bf16 variants of kernels #1, #3 and #4 on the card, the
-modules' forwards with ``compute_dtype=torch.bfloat16`` on the CPU. They
-serve sampling only (no autograd, no sequence parallelism).
+``compute_dtype`` ``torch.bfloat16`` (a name resolved by the sampler, the
+NLL or the train step, ``nn.core``) selects the bf16 variants: every linear
+layer's operands rounded to bf16, f32 accumulation (JAX's ``linear`` /
+``_matmul`` under a bf16 compute dtype); each block runs the bf16 variants
+of kernels #1, #3 and #4 (#6 under sequence parallelism) on the card, and
+under grad their bf16 backwards #2, #5 (#7), the modules' forwards with
+``compute_dtype=torch.bfloat16`` and autograd on the CPU. Each product
+rounds its own operands, as JAX's ``_matmul`` does, so the gradient it
+returns to each is rounded on its own.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ def _pair_first_layer(lin: nn.Linear, h: torch.Tensor, edge_attr: Optional[torch
     product's operands rounded to ``dtype`` (None: f32)."""
     f = h.shape[-1]
     w = round_operand(lin.weight, dtype)  # [out, 2f + E]
-    h = round_operand(h, dtype)
-    pre = (h @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
+    src = round_operand(h, dtype) @ w[:, :f].T
+    dst = round_operand(h, dtype) @ w[:, f:2 * f].T
+    pre = src[:, :, None, :] + dst[:, None, :, :]
     if edge_attr is not None and w.shape[1] > 2 * f:
         pre = pre + round_operand(edge_attr, dtype) @ w[:, 2 * f:].T
     return pre + lin.bias
@@ -158,12 +162,9 @@ class EGNN(nn.Module):
         """``compute_dtype``: None or ``torch.bfloat16``, the linear layers'
         operand dtype."""
         if self.sp is not None:
-            if compute_dtype is not None:
-                raise NotImplementedError("a bf16 compute dtype under sequence parallelism "
-                                          "is not ported yet")
             from geoldm_tpu_torch.parallel.sp import egnn_forward_sp
 
-            return egnn_forward_sp(self, h, x, node_mask, self.sp)
+            return egnn_forward_sp(self, h, x, node_mask, self.sp, compute_dtype)
         x0 = x
         h = linear(self.embedding, h, compute_dtype)
         for i in range(self.cfg.n_layers):

@@ -10,16 +10,23 @@ LAUNCH_COUNTERS = {
     "egnn_block": ("egnn_block", "launches"),
     "egnn_block_bwd": ("egnn_block", "bwd_launches"),
     "egnn_block_bf16": ("egnn_block", "bf16_launches"),
+    "egnn_block_bwd_bf16": ("egnn_block", "bwd_bf16_launches"),
     "gcl_rows": ("egnn_tiled", "gcl_rows_launches"),
     "coord_rows": ("egnn_tiled", "coord_rows_launches"),
     "gcl_rows_bf16": ("egnn_tiled", "gcl_rows_bf16_launches"),
     "coord_rows_bf16": ("egnn_tiled", "coord_rows_bf16_launches"),
     "gcl_rows_bwd": ("egnn_tiled", "gcl_rows_bwd_launches"),
     "coord_rows_bwd": ("egnn_tiled", "coord_rows_bwd_launches"),
+    "gcl_rows_bwd_bf16": ("egnn_tiled", "gcl_rows_bwd_bf16_launches"),
+    "coord_rows_bwd_bf16": ("egnn_tiled", "coord_rows_bwd_bf16_launches"),
     "sp_gcl_rows": ("egnn_sp", "sp_gcl_rows_launches"),
     "sp_coord_rows": ("egnn_sp", "sp_coord_rows_launches"),
     "sp_gcl_rows_bwd": ("egnn_sp", "sp_gcl_rows_bwd_launches"),
     "sp_coord_rows_bwd": ("egnn_sp", "sp_coord_rows_bwd_launches"),
+    "sp_gcl_rows_bf16": ("egnn_sp", "sp_gcl_rows_bf16_launches"),
+    "sp_coord_rows_bf16": ("egnn_sp", "sp_coord_rows_bf16_launches"),
+    "sp_gcl_rows_bwd_bf16": ("egnn_sp", "sp_gcl_rows_bwd_bf16_launches"),
+    "sp_coord_rows_bwd_bf16": ("egnn_sp", "sp_coord_rows_bwd_bf16_launches"),
 }
 
 

@@ -38,25 +38,28 @@ _STR = ctypes.c_char_p
 _SIGNATURES = {
     "egnn_block": {
         "egnn_block_forward": ([_P] * 12 + [_I] * 9 + [_F] * 3 + [_P], _I),
-        "egnn_block_forward_bf16": ([_P] * 12 + [_I] * 9 + [_F] * 3 + [_P], _I),
+        "egnn_block_forward_bf16": ([_P] * 13 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_error_string": ([_I], _STR),
     },
     "egnn_block_bwd": {
         "egnn_block_backward": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
-        "egnn_block_backward_scratch_floats": ([_I] * 6, _Z),
+        "egnn_block_backward_bf16": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
+        "egnn_block_backward_scratch_floats": ([_I] * 7, _Z),
         "egnn_block_bwd_error_string": ([_I], _STR),
     },
     "egnn_tiled": {
         "egnn_gcl_rows": ([_P] * 10 + [_I] * 7 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_P], _I),
-        "egnn_gcl_rows_bf16": ([_P] * 10 + [_I] * 7 + [_F] * 2 + [_P], _I),
+        "egnn_gcl_rows_bf16": ([_P] * 11 + [_I] * 7 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows_bf16": ([_P] * 8 + [_I] * 7 + [_F] * 3 + [_P], _I),
         "egnn_tiled_error_string": ([_I], _STR),
     },
     "egnn_tiled_bwd": {
         "egnn_gcl_rows_backward": ([_P] * 12 + [_I] * 8 + [_F] * 2 + [_P], _I),
         "egnn_coord_rows_backward": ([_P] * 11 + [_I] * 8 + [_F] * 3 + [_P], _I),
-        "egnn_rows_backward_scratch_floats": ([_I] * 4, _Z),
+        "egnn_gcl_rows_backward_bf16": ([_P] * 12 + [_I] * 8 + [_F] * 2 + [_P], _I),
+        "egnn_coord_rows_backward_bf16": ([_P] * 11 + [_I] * 8 + [_F] * 3 + [_P], _I),
+        "egnn_rows_backward_scratch_floats": ([_I] * 5, _Z),
         "egnn_wgrad_splits": ([_I, _I, ctypes.POINTER(_I)], _I),
         "egnn_tiled_bwd_error_string": ([_I], _STR),
     },
@@ -65,7 +68,11 @@ _SIGNATURES = {
         "egnn_sp_coord_rows": ([_P] * 11 + [_I] * 10 + [_F] * 3 + [_P], _I),
         "egnn_sp_gcl_rows_backward": ([_P] * 19 + [_I] * 11 + [_F] * 2 + [_P], _I),
         "egnn_sp_coord_rows_backward": ([_P] * 18 + [_I] * 11 + [_F] * 3 + [_P], _I),
-        "egnn_sp_backward_scratch_floats": ([_I] * 5, _Z),
+        "egnn_sp_gcl_rows_bf16": ([_P] * 15 + [_I] * 10 + [_F] * 2 + [_P], _I),
+        "egnn_sp_coord_rows_bf16": ([_P] * 12 + [_I] * 10 + [_F] * 3 + [_P], _I),
+        "egnn_sp_gcl_rows_backward_bf16": ([_P] * 19 + [_I] * 11 + [_F] * 2 + [_P], _I),
+        "egnn_sp_coord_rows_backward_bf16": ([_P] * 18 + [_I] * 11 + [_F] * 3 + [_P], _I),
+        "egnn_sp_backward_scratch_floats": ([_I] * 6, _Z),
         "egnn_sp_error_string": ([_I], _STR),
     },
 }

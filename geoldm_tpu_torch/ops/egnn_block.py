@@ -10,14 +10,17 @@ them.
 - Both run their edge MLPs on multi-row tiles (``csrc/egnn_block_tile.cuh``)
   with the products on the tensor cores in split TF32 (3xTF32, f32
   accuracy); ``split_tf32_matmul`` emulates that rounding on the CPU.
-- The forward's bf16 variant (``compute_dtype=torch.bfloat16``: JAX's
-  ``bfloat16`` / ``bfloat16_pallas``, ``_matmul`` in ``_block_math``) runs
+- The bf16 variants (``compute_dtype=torch.bfloat16``: JAX's ``bfloat16``
+  / ``bfloat16_pallas``, ``_matmul`` in ``_block_math``): the forward runs
   every product on bf16 operands with f32 accumulation
   (``egnn_block_forward_bf16``); its plain version is the module's forward
   with each matrix product's operands rounded to bf16
   (``nn.core.round_operand``: the product of two bf16 values is exact in
-  f32). It serves sampling only: under autograd its wrapper raises (bf16
-  training needs bf16 backward kernels, not ported yet). The ops take the
+  f32). The backward (``egnn_block_backward_bf16``) is that forward's vjp:
+  each product's cotangent stays f32 and the gradient it returns to a bf16
+  operand is rounded to bf16, as ``jax.vjp`` of ``_block_math`` and
+  autograd through ``round_operand`` both round it; its plain version is
+  ``torch.autograd.grad`` of the plain bf16 forward. The ops take the
   operand dtype alone (None or ``torch.bfloat16``); a compute-dtype name is
   resolved above them (``nn.core``).
 - ``EquivariantBlockFunction`` runs the forward kernel, which on the card
@@ -47,8 +50,9 @@ budgets of the TPU and is not this rule.) A wrapper given a CUDA tensor
 launches its kernel or raises; only CPU tensors take a plain version. The
 kernels are built by ``ops.cuda_build``.
 
-``launches`` / ``bwd_launches`` / ``bf16_launches`` count kernel calls: one
-per block forward / backward / bf16 forward on the card.
+``launches`` / ``bwd_launches`` / ``bf16_launches`` / ``bwd_bf16_launches``
+count kernel calls: one per block forward / backward / bf16 forward / bf16
+backward on the card.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embed
 launches = 0
 bwd_launches = 0
 bf16_launches = 0
+bwd_bf16_launches = 0
 
 MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes: one row's edges fit one 64-row tile
 MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, the widest tile (512 threads)
@@ -156,17 +161,13 @@ def _cfg_args(cfg):
 
 def bf16_variant(compute_dtype, what: str) -> bool:
     """Whether ``compute_dtype`` (None or ``torch.bfloat16``) selects a
-    wrapper's bf16 variant, which serves sampling: under autograd it
-    raises."""
+    wrapper's bf16 variant; anything else (a compute-dtype name among them)
+    raises TypeError."""
     if compute_dtype is None:
         return False
     if compute_dtype != torch.bfloat16:
         raise TypeError(f"{what}: compute dtype {compute_dtype!r}; the kernels take None or "
                         "torch.bfloat16 (resolve a name with nn.core.resolve_compute)")
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{what} in bf16 under autograd is not ported yet: bf16 training needs bf16 "
-            "variants of the backward kernels #2, #5 and #7; run it under torch.no_grad()")
     return True
 
 
@@ -174,7 +175,7 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
     """The forward kernel -> (h_out, x_out, saved): saved is the
     [4, inv_sublayers, B*N, H] stack of each GCL's output h, aggregate,
     node-MLP pre-activation and its silu for the backward, or None. bf16:
-    the bf16 variant, which saves nothing."""
+    the bf16 variant (its saved stack is the bf16 backward's)."""
     global launches, bf16_launches
     weights = _validate(block, h, x, x0, node_mask)
     b, n, hidden = h.shape
@@ -192,16 +193,16 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
         agg = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
         tmp = torch.empty((b * n, hidden), device=dev, dtype=torch.float32)
     gcl_names, coord_names = _block_weight_names(block)
-    if bf16:  # (inv_sublayers + 1) W2s in bf16, converted by the kernel's call
-        w2bf = torch.empty((block.cfg.inv_sublayers + 1, hidden, hidden), device=dev,
-                           dtype=torch.bfloat16)
+    # bf16: (inv_sublayers + 1) W2s in bf16, converted by the kernel's call.
+    w2bf = (torch.empty((block.cfg.inv_sublayers + 1, hidden, hidden), device=dev,
+                        dtype=torch.bfloat16),) if bf16 else ()
     fn = lib.egnn_block_forward_bf16 if bf16 else lib.egnn_block_forward
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(),
             h_out.data_ptr(), x_out.data_ptr(), proj.data_ptr(), _ptr(agg), _ptr(tmp),
-            w2bf.data_ptr() if bf16 else _ptr(saved),
+            _ptr(saved), *[t.data_ptr() for t in w2bf],
             _pointer_table(sum(gcl_names, []), weights), _pointer_table(coord_names, weights),
             b, n, hidden, block.cfg.edge_feat_nf, *_cfg_args(block.cfg), stream)
     if rc != 0:
@@ -215,18 +216,20 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
 
 
 def block_forward_cuda(block, h, x, x0, node_mask, compute_dtype=None):
-    """The forward kernel, or its bf16 variant for a bf16 ``compute_dtype``
-    (under ``torch.no_grad`` only). h [B,N,H], x/x0 [B,N,3], node_mask
-    [B,N,1] on one card -> (h_out [B,N,H], x_out [B,N,3])."""
+    """The forward kernel, or its bf16 variant for a bf16 ``compute_dtype``.
+    h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one card -> (h_out
+    [B,N,H], x_out [B,N,3]); no ``grad_fn`` (``EquivariantBlockFunction``
+    gives one)."""
     bf16 = bf16_variant(compute_dtype, "egnn_block")
     h_out, x_out, _ = _forward_launch(block, h, x, x0, node_mask, save=False, bf16=bf16)
     return h_out, x_out
 
 
-def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved):
+def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved, bf16: bool = False):
     """The backward kernel, from the forward's ``saved`` activations or,
-    with None, recomputing them."""
-    global bwd_launches
+    with None, recomputing them. bf16: the bf16 variant, from the bf16
+    forward's saved stack."""
+    global bwd_launches, bwd_bf16_launches
     dh_out, dx_out = dh_out.contiguous(), dx_out.contiguous()
     weights = _validate(block, h, x, x0, node_mask, dh_out=dh_out, dx_out=dx_out)
     b, n, hidden = h.shape
@@ -239,13 +242,14 @@ def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved):
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
     scratch = torch.empty(
         lib.egnn_block_backward_scratch_floats(b, n, hidden, cfg.edge_feat_nf, cfg.inv_sublayers,
-                                               int(saved is None)),
+                                               int(saved is None), int(bf16)),
         device=dev, dtype=torch.float32)
     gcl_names, coord_names = _block_weight_names(block)
     flat_gcl = sum(gcl_names, [])
+    fn = lib.egnn_block_backward_bf16 if bf16 else lib.egnn_block_backward
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.egnn_block_backward(
+        rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(),
             dh_out.data_ptr(), dx_out.data_ptr(), dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(),
             _pointer_table(flat_gcl, weights), _pointer_table(coord_names, weights),
@@ -253,18 +257,23 @@ def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved):
             _ptr(saved), scratch.data_ptr(), b, n, hidden,
             cfg.edge_feat_nf, *_cfg_args(cfg), stream)
     if rc != 0:
-        raise RuntimeError(f"egnn_block backward kernel launch failed: "
+        raise RuntimeError(f"egnn_block{' bf16' if bf16 else ''} backward kernel launch failed: "
                            f"{lib.egnn_block_bwd_error_string(rc).decode()} (cudaError {rc})")
-    bwd_launches += 1
+    if bf16:
+        bwd_bf16_launches += 1
+    else:
+        bwd_launches += 1
     return dh, dx, dx0, [grads[name] for name in block_param_names(block)]
 
 
-def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out):
-    """The backward kernel: cotangents dh_out [B,N,H], dx_out [B,N,3] of the
+def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out, compute_dtype=None):
+    """The backward kernel, or its bf16 variant for a bf16
+    ``compute_dtype``: cotangents dh_out [B,N,H], dx_out [B,N,3] of the
     block outputs -> (dh, dx, dx0, [weight gradients in ``block_params``
     order]), the weight gradients summed over the batch. Recomputes the
     forward's activations (the Function passes the saved ones instead)."""
-    return _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, None)
+    bf16 = bf16_variant(compute_dtype, "egnn_block backward")
+    return _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, None, bf16)
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -313,18 +322,34 @@ def block_forward_plain(block, h, x, x0, node_mask, weights=None, compute_dtype=
                                       kwargs)
 
 
-def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=None):
+def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=None,
+                         compute_dtype=None):
     """Plain PyTorch version of the backward kernel: ``torch.autograd.grad``
     of the recomputed ``block_forward_plain``, as the Pallas kernel
-    ``jax.vjp``s ``_block_math``. -> (dh, dx, dx0, [weight gradients])."""
+    ``jax.vjp``s ``_block_math``. -> (dh, dx, dx0, [weight gradients]). A
+    bf16 ``compute_dtype``: the bf16 variant's, autograd through the plain
+    bf16 forward (each product's operand gradients rounded to bf16 where
+    ``round_operand`` rounded the operands)."""
     weights = block_params(block) if weights is None else weights
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (h, x, x0)]
         ws = [w.detach().requires_grad_() for w in weights]
-        outs = block_forward_plain(block, *inputs, node_mask, ws)
+        outs = block_forward_plain(block, *inputs, node_mask, ws, compute_dtype)
         grads = torch.autograd.grad(outs, inputs + ws, (dh_out, dx_out), allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs + ws, grads)]
     return grads[0], grads[1], grads[2], grads[3:]
+
+
+def _function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weights):
+    bf16 = bf16_variant(compute_dtype, "egnn_block")
+    if h.is_cuda:
+        h_out, x_out, saved = _forward_launch(block, h, x, x0, node_mask, save=True, bf16=bf16)
+    else:
+        h_out, x_out = block_forward_plain(block, h, x, x0, node_mask, weights, compute_dtype)
+        saved = None
+    ctx.block, ctx.compute_dtype = block, compute_dtype
+    ctx.save_for_backward(h, x, x0, node_mask, saved, *weights)
+    return h_out, x_out
 
 
 class EquivariantBlockFunction(torch.autograd.Function):
@@ -333,49 +358,57 @@ class EquivariantBlockFunction(torch.autograd.Function):
     block inputs, the weights and, on the card, the forward kernel's
     activations (4 * inv_sublayers * B*N*H floats), so the backward kernel
     does not recompute the forward. On CPU tensors it runs the plain
-    versions (for tests), which save no activations."""
+    versions (for tests), which save no activations. Its bf16 twin
+    ``EquivariantBlockFunctionBF16`` runs the bf16 variants."""
 
     @staticmethod
     def forward(ctx, block, h, x, x0, node_mask, *weights):
-        if h.is_cuda:
-            h_out, x_out, saved = _forward_launch(block, h, x, x0, node_mask, save=True)
-        else:
-            h_out, x_out = block_forward_plain(block, h, x, x0, node_mask, weights)
-            saved = None
-        ctx.block = block
-        ctx.save_for_backward(h, x, x0, node_mask, saved, *weights)
-        return h_out, x_out
+        return _function_forward(ctx, None, block, h, x, x0, node_mask, weights)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh_out, dx_out):
         h, x, x0, node_mask, saved, *weights = ctx.saved_tensors
+        dtype = ctx.compute_dtype
         if h.is_cuda:
             dh, dx, dx0, dws = _backward_launch(ctx.block, h, x, x0, node_mask, dh_out, dx_out,
-                                                saved)
+                                                saved, dtype is not None)
         else:
             dh, dx, dx0, dws = block_backward_plain(ctx.block, h, x, x0, node_mask, dh_out,
-                                                    dx_out, weights)
+                                                    dx_out, weights, dtype)
         return (None, dh, dx, dx0, None, *dws)
+
+
+class EquivariantBlockFunctionBF16(EquivariantBlockFunction):
+    """``EquivariantBlockFunction`` with the bf16 variants: the bf16 forward
+    kernel saving its chain, then the bf16 backward kernel (on the CPU the
+    plain bf16 versions)."""
+
+    @staticmethod
+    def forward(ctx, block, h, x, x0, node_mask, *weights):
+        return _function_forward(ctx, torch.bfloat16, block, h, x, x0, node_mask, weights)
 
 
 def block_forward(block, h, x, x0, node_mask, compute_dtype=None):
     """The kernels for tensors on the card (through the autograd Function
     while grad is enabled), the plain version for tensors on the CPU;
     N > ``MAX_NODES`` goes to the row-tiled kernels (module docstring).
-    ``compute_dtype`` torch.bfloat16 selects the bf16 variants, forward
-    only: under autograd their wrappers raise."""
-    train = torch.is_grad_enabled() and compute_dtype is None
+    ``compute_dtype`` torch.bfloat16 selects the bf16 variants, forward and
+    backward."""
+    train = torch.is_grad_enabled()
+    bf16 = bf16_variant(compute_dtype, "egnn_block")
     if h.shape[1] > MAX_NODES:
         from geoldm_tpu_torch.ops import egnn_tiled
 
         if train:
-            return egnn_tiled.TiledEquivariantBlockFunction.apply(
-                block, h, x, x0, node_mask, *block_params(block))
+            fn = (egnn_tiled.TiledEquivariantBlockFunctionBF16 if bf16
+                  else egnn_tiled.TiledEquivariantBlockFunction)
+            return fn.apply(block, h, x, x0, node_mask, *block_params(block))
         return egnn_tiled.tiled_block_forward(block, h, x, x0, node_mask, compute_dtype)
     if h.is_cuda:
         if train:
-            return EquivariantBlockFunction.apply(block, h, x, x0, node_mask, *block_params(block))
+            fn = EquivariantBlockFunctionBF16 if bf16 else EquivariantBlockFunction
+            return fn.apply(block, h, x, x0, node_mask, *block_params(block))
         return block_forward_cuda(block, h, x, x0, node_mask, compute_dtype)
     if h.device.type == "cpu":
         return block_forward_plain(block, h, x, x0, node_mask, compute_dtype=compute_dtype)

@@ -40,18 +40,22 @@ against all columns and also serve the sequence-parallel slabs
 (``ops.egnn_sp``). A wrapper given a CUDA tensor launches its kernel or
 raises; only CPU tensors take a plain version.
 
-The forward kernels' bf16 variants (``compute_dtype=torch.bfloat16``: JAX's
+The kernels' bf16 variants (``compute_dtype=torch.bfloat16``: JAX's
 ``bfloat16`` compute dtypes, ``_matmul`` in ``_edge_pre_rows``,
-``_gcl_rows_math``, ``_coord_rows_math``) run every product on bf16 operands
-with f32 accumulation; their plain versions round each product's operands
-to bf16 (``nn.core.round_operand``). They serve sampling only: under
-autograd their wrappers raise.
+``_gcl_rows_math``, ``_coord_rows_math``) run every forward product on bf16
+operands with f32 accumulation, and their backward is that forward's vjp
+(each product's cotangent f32, each gradient of a bf16 operand rounded to
+bf16). Their plain versions round each product's operands to bf16
+(``nn.core.round_operand``) and differentiate that with autograd; a stage
+rounds each weight once, whatever its slabs, so a weight's gradient is
+rounded once after its sum over every row, as the kernels round it.
 
 ``gcl_rows_launches`` / ``coord_rows_launches`` count forward kernel calls,
 one per GCL / coordinate stage on the card, ``gcl_rows_bf16_launches`` /
 ``coord_rows_bf16_launches`` those of the bf16 variants;
 ``gcl_rows_bwd_launches`` / ``coord_rows_bwd_launches`` count kernel #5's,
-one per stage backward.
+one per stage backward, ``gcl_rows_bwd_bf16_launches`` /
+``coord_rows_bwd_bf16_launches`` its bf16 variant's.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from geoldm_tpu_torch.nn.core import linear, round_operand
+from geoldm_tpu_torch.nn.core import round_operand
 from geoldm_tpu_torch.ops import cuda_build
 from geoldm_tpu_torch.ops.distance import sin_embedding
 from geoldm_tpu_torch.ops.egnn_block import (
@@ -85,6 +89,8 @@ gcl_rows_bf16_launches = 0
 coord_rows_bf16_launches = 0
 gcl_rows_bwd_launches = 0
 coord_rows_bwd_launches = 0
+gcl_rows_bwd_bf16_launches = 0
+coord_rows_bwd_bf16_launches = 0
 
 _GCL_NAMES = ("edge_mlp.0.weight", "edge_mlp.0.bias", "edge_mlp.2.weight", "edge_mlp.2.bias",
               "att_mlp.0.weight", "att_mlp.0.bias", "node_mlp.0.weight", "node_mlp.0.bias",
@@ -106,7 +112,28 @@ def _divisor(cfg, n: int) -> float:
     raise ValueError(cfg.aggregation_method)
 
 
-def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int, dtype=None):
+def _rounded(lin, dtype):
+    """(weight, bias, dtype) of a linear layer, the weight rounded to
+    ``dtype`` (None: as it is) once for a whole stage."""
+    return round_operand(lin.weight, dtype), lin.bias, dtype
+
+
+def _apply(wb, x):
+    """The linear layer ``wb`` = ``_rounded(...)`` on x rounded to its dtype
+    (``nn.core.linear``)."""
+    w, b, dtype = wb
+    return F.linear(round_operand(x, dtype), w, b)
+
+
+def _first_layer(lin, h, dtype):
+    """(W1 rounded to ``dtype``, its dst projection of all columns h [B,N,H]
+    -> [B,N,H]), once per stage."""
+    w = round_operand(lin.weight, dtype)  # [H, 2H + E]
+    f = h.shape[2]
+    return w, round_operand(h, dtype) @ w[:, f:2 * f].T
+
+
+def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int, dtype=None, first=None):
     """Global rows r0..r1 of every molecule against all N columns -> (silu(pre)
     [B,T,N,H], coord_diff [B,T,N,3], edge mask [B,T,N,1]): the pair features
     (``_pair_features``), the split first layer (``_edge_pre_rows``) and the
@@ -114,10 +141,12 @@ def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int, dtype=None):
     ``full`` = (h, x, x0, node_mask) [B,N,*] gives the columns, ``rows`` the
     same tensors for the slab whose first row is the global row ``row0``
     (the full view itself on one device). ``dtype``: the first layer's
-    operand dtype (None: f32)."""
+    operand dtype (None: f32); ``first``: ``_first_layer(lin, full[0],
+    dtype)``, which a stage computes once for all its slabs (else here)."""
     h, x, x0, node_mask = full
     hr, xr, x0r, mr = rows
     n, f = h.shape[1], h.shape[2]
+    w, dst = _first_layer(lin, h, dtype) if first is None else first
     a, b = r0 - row0, r1 - row0
     diff = xr[:, a:b, None, :] - x[:, None, :, :]
     radial = (diff * diff).sum(dim=-1, keepdim=True)
@@ -126,35 +155,56 @@ def _row_slab(cfg, lin, full, rows, row0: int, r0: int, r1: int, dtype=None):
     radial0 = (diff0 * diff0).sum(dim=-1, keepdim=True)
     if cfg.sin_embedding:
         radial, radial0 = sin_embedding(radial), sin_embedding(radial0)
-    eattr = torch.cat([radial, radial0], dim=-1)
-    w = round_operand(lin.weight, dtype)  # [H, 2H + E]
-    hr, h, eattr = (round_operand(t, dtype) for t in (hr, h, eattr))
-    pre = ((hr[:, a:b] @ w[:, :f].T)[:, :, None, :] + (h @ w[:, f:2 * f].T)[:, None, :, :]
-           + eattr @ w[:, 2 * f:].T + lin.bias)
+    eattr = round_operand(torch.cat([radial, radial0], dim=-1), dtype)
+    src = round_operand(hr[:, a:b], dtype) @ w[:, :f].T
+    pre = src[:, :, None, :] + dst[:, None, :, :] + eattr @ w[:, 2 * f:].T + lin.bias
     row = torch.arange(r0, r1, device=h.device)[:, None]
     off_diag = (row != torch.arange(n, device=h.device)[None, :]).to(h.dtype)
     emask = (mr[:, a:b, None, :] * node_mask[:, None, :, :] * off_diag[None, :, :, None])
     return F.silu(pre), coord_diff, emask
 
 
-def _gcl_aggregate(gcl, full, rows, row0: int, r0: int, r1: int, div: float, dtype=None):
+def _gcl_aggregate(gcl, ws, full, rows, row0: int, r0: int, r1: int, div: float, dtype=None):
     """The GCL's aggregate of the global rows r0..r1 of every molecule
     against all columns, divided by ``div`` -> [B,r1-r0,H]; ``dtype`` the
-    products' operand dtype."""
+    products' operand dtype, ``ws`` = ``_edge_weights(gcl, full[0],
+    dtype)``."""
     cfg = gcl.cfg
-    act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, r0, r1, dtype)
-    m = F.silu(linear(gcl.edge_mlp[2], act, dtype))
+    act, _, emask = _row_slab(cfg, gcl.edge_mlp[0], full, rows, row0, r0, r1, dtype, ws[0])
+    m = F.silu(_apply(ws[1], act))
     if cfg.attention:
-        m = m * torch.sigmoid(linear(gcl.att_mlp[0], m, dtype))
+        m = m * torch.sigmoid(_apply(ws[2], m))
     return (m * emask).sum(dim=2) / div
 
 
-def gcl_aggregate_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE):
+def _edge_weights(gcl, h, dtype):
+    """A GCL's edge-MLP weights rounded once for the stage: (the first layer
+    with its dst projection of h, the second layer, the gate or None)."""
+    att = _rounded(gcl.att_mlp[0], dtype) if gcl.cfg.attention else None
+    return _first_layer(gcl.edge_mlp[0], h, dtype), _rounded(gcl.edge_mlp[2], dtype), att
+
+
+def gcl_aggregate_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE,
+                         compute_dtype=None):
     """The GCL's aggregate over the slab ``rows`` (as ``gcl_rows_window``) ->
     [B,S,H]."""
     s = rows[0].shape[1]
-    return torch.cat([_gcl_aggregate(gcl, full, rows, row0, row0 + a, row0 + min(a + tile, s),
-                                     div) for a in range(0, s, tile)], dim=1)
+    ws = _edge_weights(gcl, full[0], compute_dtype)
+    return torch.cat([_gcl_aggregate(gcl, ws, full, rows, row0, row0 + a,
+                                     row0 + min(a + tile, s), div, compute_dtype)
+                      for a in range(0, s, tile)], dim=1)
+
+
+def _node_mlp(gcl, dtype):
+    """out(h, agg, mask) of a GCL's node MLP and residual, its weights
+    rounded once, and its pre-activation z."""
+    w1, w2 = _rounded(gcl.node_mlp[0], dtype), _rounded(gcl.node_mlp[2], dtype)
+
+    def out(h, agg, mask):
+        z = _apply(w1, torch.cat([h, agg], dim=-1))
+        u = gcl.node_mlp[1](z)
+        return (h + _apply(w2, u)) * mask, z, u
+    return out
 
 
 def gcl_rows_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TILE,
@@ -167,14 +217,14 @@ def gcl_rows_window(gcl, full, rows, row0: int, div: float, tile: int = PLAIN_TI
     the stage backward takes in place of running them again. A bf16
     ``compute_dtype`` (torch.bfloat16): #3's bf16 variant."""
     hr, mr = rows[0], rows[3]
+    ws = _edge_weights(gcl, full[0], compute_dtype)
+    node = _node_mlp(gcl, compute_dtype)
     out, chain = [], []
     for a in range(0, hr.shape[1], tile):
         b = min(a + tile, hr.shape[1])
-        agg = _gcl_aggregate(gcl, full, rows, row0, row0 + a, row0 + b, div, compute_dtype)
-        hi = hr[:, a:b]
-        z = linear(gcl.node_mlp[0], torch.cat([hi, agg], dim=-1), compute_dtype)
-        u = gcl.node_mlp[1](z)
-        out.append((hi + linear(gcl.node_mlp[2], u, compute_dtype)) * mr[:, a:b])
+        agg = _gcl_aggregate(gcl, ws, full, rows, row0, row0 + a, row0 + b, div, compute_dtype)
+        h, z, u = node(hr[:, a:b], agg, mr[:, a:b])
+        out.append(h)
         chain.append(torch.stack([agg, z, u]))
     h = torch.cat(out, dim=1)
     return (h, torch.cat(chain, dim=2)) if keep_chain else h
@@ -188,12 +238,14 @@ def coord_rows_window(equiv, full, rows, row0: int, div: float, tile: int = PLAI
     cfg = equiv.cfg
     xr, mr = rows[1], rows[3]
     mlp = equiv.coord_mlp
+    first = _first_layer(mlp[0], full[0], compute_dtype)
+    w2, w3 = _rounded(mlp[2], compute_dtype), _rounded(mlp[4], compute_dtype)
     out = []
     for a in range(0, xr.shape[1], tile):
         b = min(a + tile, xr.shape[1])
         act, coord_diff, emask = _row_slab(cfg, mlp[0], full, rows, row0, row0 + a, row0 + b,
-                                           compute_dtype)
-        s = linear(mlp[4], F.silu(linear(mlp[2], act, compute_dtype)), compute_dtype)
+                                           compute_dtype, first)
+        s = _apply(w3, F.silu(_apply(w2, act)))
         if cfg.tanh:
             s = torch.tanh(s) * cfg.coords_range_layer
         aggx = (coord_diff * s * emask).sum(dim=2) / div
@@ -256,29 +308,33 @@ def stage_weight_names(module) -> list:
     return [n for n in _gcl_slots(module) if n]
 
 
-def _stage_backward_plain(module, names, stage_fn, h, x, x0, node_mask, g_out, weights):
+def _stage_backward_plain(module, names, stage_fn, h, x, x0, node_mask, g_out, weights,
+                          compute_dtype=None):
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (h, x, x0)]
         ws = [w.detach().requires_grad_() for w in weights]
-        out = _call_with(module, names, ws, stage_fn, *inputs, node_mask)
+        out = _call_with(module, names, ws, lambda m, *a: stage_fn(
+            m, *a, compute_dtype=compute_dtype), *inputs, node_mask)
         grads = torch.autograd.grad(out, inputs + ws, g_out, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs + ws, grads)]
     return grads[0], grads[1], grads[2], grads[3:]
 
 
-def gcl_backward_from_chain(gcl, weights, leaves, hr, mr, agg_fn, g_out, chain):
+def gcl_backward_from_chain(gcl, weights, leaves, hr, mr, agg_fn, g_out, chain,
+                            compute_dtype=None):
     """The plain backward of a GCL stage from a kept node chain, split at the
     aggregate as the kernels split it: the node MLP's vjp at the kept
     aggregate ``chain[0]``, then the vjp of ``agg_fn(gcl, *leaves)`` with the
     aggregate's gradient. leaves: the input leaves (hr, the slab's h, is one
     of them), weights: leaves in ``stage_weight_names`` order -> the
-    gradients of leaves + weights."""
+    gradients of leaves + weights. A bf16 ``compute_dtype``: the node MLP's
+    products on bf16 operands (``agg_fn`` runs its own)."""
     names = stage_weight_names(gcl)
     with torch.enable_grad():
         agg = _call_with(gcl, names, weights, agg_fn, *leaves)
         agg_in = chain[0].detach().requires_grad_()
-        out = _call_with(gcl, names, weights, lambda m, h_, a_: (
-            h_ + m.node_mlp(torch.cat([h_, a_], dim=-1))) * mr, hr, agg_in)
+        out = _call_with(gcl, names, weights, lambda m, h_, a_: _node_mlp(m, compute_dtype)(
+            h_, a_, mr)[0], hr, agg_in)
         node = torch.autograd.grad(out, [hr, agg_in, *weights], g_out, allow_unused=True)
         edge = torch.autograd.grad(agg, [*leaves, *weights], node[1], allow_unused=True)
     grads = [ge if t is not hr else (node[0] if ge is None else ge + node[0])
@@ -288,7 +344,8 @@ def gcl_backward_from_chain(gcl, weights, leaves, hr, mr, agg_fn, g_out, chain):
     return [torch.zeros_like(t) if g is None else g for t, g in zip([*leaves, *weights], grads)]
 
 
-def gcl_rows_backward_plain(gcl, h, x, x0, node_mask, g_out, weights=None, chain=None):
+def gcl_rows_backward_plain(gcl, h, x, x0, node_mask, g_out, weights=None, chain=None,
+                            compute_dtype=None):
     """Plain PyTorch version of kernel #5 on a GCL stage:
     ``torch.autograd.grad`` of ``gcl_rows_plain`` (as the Pallas kernel
     ``jax.vjp``s ``_gcl_rows_math``). g_out [B,N,H], the cotangent of the
@@ -297,35 +354,40 @@ def gcl_rows_backward_plain(gcl, h, x, x0, node_mask, g_out, weights=None, chain
     parameters when given. chain: the node chain ``gcl_rows_plain(...,
     keep_chain=True)`` kept for this h (the CPU route of
     ``TiledEquivariantBlockFunction``), whose aggregate the node MLP's vjp
-    then takes (``gcl_backward_from_chain``), or None."""
+    then takes (``gcl_backward_from_chain``), or None. A bf16
+    ``compute_dtype``: the bf16 variant's (autograd through the plain bf16
+    stage)."""
     names = stage_weight_names(gcl)
     if weights is None:
         params = dict(gcl.named_parameters())
         weights = [params[n] for n in names]
     if chain is None:
         return _stage_backward_plain(gcl, names, gcl_rows_plain, h, x, x0, node_mask, g_out,
-                                     weights)
+                                     weights, compute_dtype)
     leaves = [t.detach().requires_grad_() for t in (h, x, x0)]
     ws = [w.detach().requires_grad_() for w in weights]
     div = _divisor(gcl.cfg, h.shape[1])
 
     def agg_fn(m, h_, x_, x0_):
         full = (h_, x_, x0_, node_mask)
-        return gcl_aggregate_window(m, full, full, 0, div)
+        return gcl_aggregate_window(m, full, full, 0, div, compute_dtype=compute_dtype)
 
-    grads = gcl_backward_from_chain(gcl, ws, leaves, leaves[0], node_mask, agg_fn, g_out, chain)
+    grads = gcl_backward_from_chain(gcl, ws, leaves, leaves[0], node_mask, agg_fn, g_out, chain,
+                                    compute_dtype)
     return grads[0], grads[1], grads[2], grads[3:]
 
 
-def coord_rows_backward_plain(equiv, h, x, x0, node_mask, g_out, weights=None):
+def coord_rows_backward_plain(equiv, h, x, x0, node_mask, g_out, weights=None,
+                              compute_dtype=None):
     """Plain PyTorch version of kernel #5 on the coordinate stage
     (``_coord_rows_math``): g_out [B,N,3] -> (dh, dx, dx0, [weight
-    gradients of coord_mlp.{0,2,4}])."""
+    gradients of coord_mlp.{0,2,4}]). A bf16 ``compute_dtype``: the bf16
+    variant's."""
     if weights is None:
         params = dict(equiv.named_parameters())
         weights = [params[n] for n in _COORD_NAMES]
     return _stage_backward_plain(equiv, _COORD_NAMES, coord_rows_plain, h, x, x0, node_mask,
-                                 g_out, weights)
+                                 g_out, weights, compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -392,11 +454,10 @@ def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False, compute_dt
     """Kernel #3 on the card: h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] ->
     the GCL's h [B,N,H], and with ``keep_chain`` also its node chain
     [3,B,N,H] (the aggregate, z and silu(z)) for ``gcl_rows_backward_cuda``.
-    A bf16 ``compute_dtype``: its bf16 variant (no chain, no autograd)."""
+    A bf16 ``compute_dtype``: its bf16 variant (whose chain is the bf16
+    backward's)."""
     global gcl_rows_launches, gcl_rows_bf16_launches
     bf16 = bf16_variant(compute_dtype, "egnn_tiled gcl_rows")
-    if bf16 and keep_chain:
-        raise ValueError("egnn_tiled gcl_rows: the bf16 variant keeps no node chain")
     names = _gcl_slots(gcl)
     weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
     cfg = gcl.cfg
@@ -406,14 +467,15 @@ def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False, compute_dt
     h_out = torch.empty_like(h)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
     chain, agg, z, tmp = node_chain_buffers((b, n, hidden), dev, keep_chain)
-    if bf16:  # the bf16 W2, converted by the kernel's call, in z's slot
-        z = torch.empty((hidden, hidden), device=dev, dtype=torch.bfloat16)
+    # bf16: the bf16 W2, converted by the kernel's call, after z.
+    w2bf = (torch.empty((hidden, hidden), device=dev, dtype=torch.bfloat16),) if bf16 else ()
     fn = lib.egnn_gcl_rows_bf16 if bf16 else lib.egnn_gcl_rows
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), h_out.data_ptr(),
             proj.data_ptr(), agg.data_ptr(), tmp.data_ptr(), None if z is None else z.data_ptr(),
+            *[t.data_ptr() for t in w2bf],
             _pointer_table(names, weights), b, n, hidden, cfg.edge_feat_nf, int(cfg.attention),
             int(cfg.sin_embedding), int(cfg.aggregation_method == "mean"),
             float(cfg.norm_constant), float(cfg.normalization_factor), stream)
@@ -427,7 +489,7 @@ def gcl_rows_cuda(gcl, h, x, x0, node_mask, keep_chain: bool = False, compute_dt
 
 def coord_rows_cuda(equiv, h, x, x0, node_mask, compute_dtype=None):
     """Kernel #4 on the card, or its bf16 variant for a bf16
-    ``compute_dtype`` (no autograd): -> the updated coordinates x [B,N,3]."""
+    ``compute_dtype``: -> the updated coordinates x [B,N,3]."""
     global coord_rows_launches, coord_rows_bf16_launches
     bf16 = bf16_variant(compute_dtype, "egnn_tiled coord_rows")
     weights = _validate(equiv, _COORD_NAMES, h, x, x0, node_mask)
@@ -474,20 +536,22 @@ def bwd_scratch(floats, b: int, dev, what: str):
     return group, torch.empty(floats(group), device=dev, dtype=torch.float32)
 
 
-def _stage_scratch(lib, b: int, n: int, hidden: int, e: int, dev):
-    return bwd_scratch(lambda g: lib.egnn_rows_backward_scratch_floats(g, n, hidden, e), b, dev,
-                       f"egnn_tiled backward at N={n}, hidden_nf={hidden}")
+def _stage_scratch(lib, b: int, n: int, hidden: int, e: int, dev, bf16: bool = False):
+    return bwd_scratch(lambda g: lib.egnn_rows_backward_scratch_floats(g, n, hidden, e, int(bf16)),
+                       b, dev, f"egnn_tiled backward at N={n}, hidden_nf={hidden}")
 
 
-def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out, chain=None):
+def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out, chain=None, compute_dtype=None):
     """Kernel #5 on a GCL stage on the card: the stage's input h [B,N,H],
     x/x0 [B,N,3], node_mask [B,N,1] and the cotangent g_out [B,N,H] of its
     output -> (dh, dx, dx0, [weight gradients summed over the batch, in
     ``gcl_rows_backward_plain``'s order]). chain: the node chain
     ``gcl_rows_cuda(..., keep_chain=True)`` kept for this h, which the
     kernel takes instead of running the GCL's edge grid again, or None (it
-    runs it: the same bits)."""
-    global gcl_rows_bwd_launches
+    runs it: the same bits). A bf16 ``compute_dtype``: the bf16 variant
+    (chain from the bf16 ``gcl_rows_cuda``)."""
+    global gcl_rows_bwd_launches, gcl_rows_bwd_bf16_launches
+    bf16 = bf16_variant(compute_dtype, "egnn_tiled gcl_rows backward")
     names = _gcl_slots(gcl)
     g_out = g_out.contiguous()
     weights = _validate(gcl, [n for n in names if n], h, x, x0, node_mask)
@@ -496,12 +560,13 @@ def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out, chain=None):
     cfg = gcl.cfg
     b, n, hidden = h.shape
     lib = cuda_build.library("egnn_tiled_bwd")
-    group, scratch = _stage_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
+    group, scratch = _stage_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device, bf16)
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
+    fn = lib.egnn_gcl_rows_backward_bf16 if bf16 else lib.egnn_gcl_rows_backward
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = lib.egnn_gcl_rows_backward(
+        rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), g_out.data_ptr(),
             None if chain is None else chain.data_ptr(), dh.data_ptr(), dx.data_ptr(),
             dx0.data_ptr(), _pointer_table(names, weights),
@@ -509,36 +574,46 @@ def gcl_rows_backward_cuda(gcl, h, x, x0, node_mask, g_out, chain=None):
             cfg.edge_feat_nf, int(cfg.attention), int(cfg.sin_embedding),
             int(cfg.aggregation_method == "mean"), float(cfg.norm_constant),
             float(cfg.normalization_factor), stream)
-    _raise_on(rc, lib.egnn_tiled_bwd_error_string, "egnn_tiled gcl_rows backward")
-    gcl_rows_bwd_launches += 1
+    _raise_on(rc, lib.egnn_tiled_bwd_error_string,
+              f"egnn_tiled gcl_rows{' bf16' if bf16 else ''} backward")
+    if bf16:
+        gcl_rows_bwd_bf16_launches += 1
+    else:
+        gcl_rows_bwd_launches += 1
     return dh, dx, dx0, [grads[name] for name in names if name]
 
 
-def coord_rows_backward_cuda(equiv, h, x, x0, node_mask, g_out):
+def coord_rows_backward_cuda(equiv, h, x, x0, node_mask, g_out, compute_dtype=None):
     """Kernel #5 on the coordinate stage on the card: g_out [B,N,3], the
     cotangent of the updated x -> (dh, dx, dx0, [weight gradients of
-    coord_mlp.{0,2,4}])."""
-    global coord_rows_bwd_launches
+    coord_mlp.{0,2,4}]). A bf16 ``compute_dtype``: the bf16 variant."""
+    global coord_rows_bwd_launches, coord_rows_bwd_bf16_launches
+    bf16 = bf16_variant(compute_dtype, "egnn_tiled coord_rows backward")
     g_out = g_out.contiguous()
     weights = _validate(equiv, _COORD_NAMES, h, x, x0, node_mask)
     _check("g_out", g_out, x.shape, h.device)
     cfg = equiv.cfg
     b, n, hidden = h.shape
     lib = cuda_build.library("egnn_tiled_bwd")
-    group, scratch = _stage_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device)
+    group, scratch = _stage_scratch(lib, b, n, hidden, cfg.edge_feat_nf, h.device, bf16)
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
+    fn = lib.egnn_coord_rows_backward_bf16 if bf16 else lib.egnn_coord_rows_backward
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        rc = lib.egnn_coord_rows_backward(
+        rc = fn(
             h.data_ptr(), x.data_ptr(), x0.data_ptr(), node_mask.data_ptr(), g_out.data_ptr(),
             dh.data_ptr(), dx.data_ptr(), dx0.data_ptr(), _pointer_table(_COORD_NAMES, weights),
             _pointer_table(_COORD_NAMES, grads), scratch.data_ptr(), b, group, n, hidden,
             cfg.edge_feat_nf, int(cfg.sin_embedding), int(cfg.tanh),
             int(cfg.aggregation_method == "mean"), float(cfg.coords_range_layer),
             float(cfg.norm_constant), float(cfg.normalization_factor), stream)
-    _raise_on(rc, lib.egnn_tiled_bwd_error_string, "egnn_tiled coord_rows backward")
-    coord_rows_bwd_launches += 1
+    _raise_on(rc, lib.egnn_tiled_bwd_error_string,
+              f"egnn_tiled coord_rows{' bf16' if bf16 else ''} backward")
+    if bf16:
+        coord_rows_bwd_bf16_launches += 1
+    else:
+        coord_rows_bwd_launches += 1
     return dh, dx, dx0, [grads[name] for name in _COORD_NAMES]
 
 
@@ -568,6 +643,17 @@ def _stage_weights(block, weights) -> tuple:
     return stages[:-1], stages[-1]
 
 
+def _tiled_function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weights):
+    if h.is_cuda:
+        h_out, x_out = tiled_block_forward(block, h, x, x0, node_mask, compute_dtype)
+    else:
+        h_out, x_out = _call_with(block, block_param_names(block), weights,
+                                  tiled_block_forward, h, x, x0, node_mask, compute_dtype)
+    ctx.block, ctx.compute_dtype = block, compute_dtype
+    ctx.save_for_backward(h, x, x0, node_mask, *weights)
+    return h_out, x_out
+
+
 class TiledEquivariantBlockFunction(torch.autograd.Function):
     """One block through the row-tiled stages, forward and backward:
     ``apply(block, h, x, x0, node_mask, *block_params(block))``. The forward
@@ -578,45 +664,42 @@ class TiledEquivariantBlockFunction(torch.autograd.Function):
     handing it its node chain, so that #5 runs no GCL edge grid of its own,
     and sums dx and dx0. On CPU tensors it runs the plain versions with the
     given weights (for tests, and to keep the CPU's memory to one stage's),
-    the chain handed over likewise."""
+    the chain handed over likewise. Its bf16 twin
+    ``TiledEquivariantBlockFunctionBF16`` runs the bf16 variants."""
 
     @staticmethod
     def forward(ctx, block, h, x, x0, node_mask, *weights):
-        if h.is_cuda:
-            h_out, x_out = tiled_block_forward(block, h, x, x0, node_mask)
-        else:
-            h_out, x_out = _call_with(block, block_param_names(block), weights,
-                                      tiled_block_forward, h, x, x0, node_mask)
-        ctx.block = block
-        ctx.save_for_backward(h, x, x0, node_mask, *weights)
-        return h_out, x_out
+        return _tiled_function_forward(ctx, None, block, h, x, x0, node_mask, weights)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh_out, dx_out):
         h, x, x0, node_mask, *weights = ctx.saved_tensors
-        block = ctx.block
+        block, dt = ctx.block, ctx.compute_dtype
         gcls = [getattr(block, f"gcl_{j}") for j in range(block.cfg.inv_sublayers)]
         gcl_ws, coord_ws = _stage_weights(block, weights)
         if h.is_cuda:
             def gcl_fwd(j, *a):
-                return gcl_rows_cuda(gcls[j], *a, keep_chain=True)
+                return gcl_rows_cuda(gcls[j], *a, keep_chain=True, compute_dtype=dt)
 
             def gcl_bwd(j, *a, chain):
-                return gcl_rows_backward_cuda(gcls[j], *a, chain=chain)
+                return gcl_rows_backward_cuda(gcls[j], *a, chain=chain, compute_dtype=dt)
 
             def coord_bwd(*a):
-                return coord_rows_backward_cuda(block.gcl_equiv, *a)
+                return coord_rows_backward_cuda(block.gcl_equiv, *a, compute_dtype=dt)
         else:
             def gcl_fwd(j, *a):
                 return _call_with(gcls[j], stage_weight_names(gcls[j]), gcl_ws[j],
-                                  lambda m, *b: gcl_rows_plain(m, *b, keep_chain=True), *a)
+                                  lambda m, *b: gcl_rows_plain(m, *b, keep_chain=True,
+                                                               compute_dtype=dt), *a)
 
             def gcl_bwd(j, *a, chain):
-                return gcl_rows_backward_plain(gcls[j], *a, weights=gcl_ws[j], chain=chain)
+                return gcl_rows_backward_plain(gcls[j], *a, weights=gcl_ws[j], chain=chain,
+                                               compute_dtype=dt)
 
             def coord_bwd(*a):
-                return coord_rows_backward_plain(block.gcl_equiv, *a, weights=coord_ws)
+                return coord_rows_backward_plain(block.gcl_equiv, *a, weights=coord_ws,
+                                                 compute_dtype=dt)
 
         hs, chains = [h], []
         for j in range(len(gcls)):
@@ -631,3 +714,13 @@ class TiledEquivariantBlockFunction(torch.autograd.Function):
             dx = dx + dx_j
             dx0 = dx0 + dx0_j
         return (None, g, dx, dx0, None, *[w for ws in d_gcls + [d_coord] for w in ws])
+
+
+class TiledEquivariantBlockFunctionBF16(TiledEquivariantBlockFunction):
+    """``TiledEquivariantBlockFunction`` with the bf16 variants of #3/#4
+    (keeping each GCL's chain in the backward's re-run) and #5."""
+
+    @staticmethod
+    def forward(ctx, block, h, x, x0, node_mask, *weights):
+        return _tiled_function_forward(ctx, torch.bfloat16, block, h, x, x0, node_mask,
+                                       weights)

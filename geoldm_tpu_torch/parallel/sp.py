@@ -65,6 +65,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from geoldm_tpu_torch.nn.core import linear
 from geoldm_tpu_torch.nn.egnn import EGNN
 from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
 from geoldm_tpu_torch.utils.device import resolve_device
@@ -243,24 +244,40 @@ class _Leave(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def sp_block_forward(block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full):
+def sp_block_forward(block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full,
+                     compute_dtype=None):
     """One ``nn.egnn.EquivariantBlock`` on this rank's slab (h [B,S_r,H], x,
     x0 [B,S_r,3], node_mask [B,S_r,1]; x0_full, mask_full the block-invariant
     columns [B,N,*]): one x gather, then per GCL one h gather and #6, then
     one h gather and #6 on the coordinate update -> the slab's (h, x). The
-    kernels on the card, the plain versions on the CPU."""
+    kernels on the card, the plain versions on the CPU; a bf16
+    ``compute_dtype``, their bf16 variants."""
     row0 = grp.rank * h.shape[1]
     x_full = all_gather_rows(x, grp)
     stages = [getattr(block, f"gcl_{j}") for j in range(block.cfg.inv_sublayers)]
     for stage in stages + [block.gcl_equiv]:
         fwd, _ = egnn_sp.stage_fns(stage, h.is_cuda)
         full = (all_gather_rows(h, grp), x_full, x0_full, mask_full)
-        out = fwd(stage, full, (h, x, x0, node_mask), row0, mean_div)
+        out = fwd(stage, full, (h, x, x0, node_mask), row0, mean_div,
+                  compute_dtype=compute_dtype)
         if stage is block.gcl_equiv:
             x = out
         else:
             h = out
     return h, x
+
+
+def _sp_function_forward(ctx, compute_dtype, block, grp, mean_div, h, x, x0, node_mask,
+                         x0_full, mask_full, weights):
+    args = (grp, mean_div, h, x, x0, node_mask, x0_full, mask_full, compute_dtype)
+    if h.is_cuda:
+        h_out, x_out = sp_block_forward(block, *args)
+    else:
+        h_out, x_out = egnn_tiled._call_with(block, egnn_block.block_param_names(block),
+                                             weights, sp_block_forward, *args)
+    ctx.block, ctx.grp, ctx.mean_div, ctx.compute_dtype = block, grp, mean_div, compute_dtype
+    ctx.save_for_backward(h, x, x0, node_mask, x0_full, mask_full, *weights)
+    return h_out, x_out
 
 
 class SPEquivariantBlockFunction(torch.autograd.Function):
@@ -273,25 +290,19 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
     reduce-scatters each stage's full-view dh and the block's summed
     full-view dx; the full-view dx0 is x0_full's gradient. Every rank runs
     the same collectives in the same order. On CPU tensors it runs the plain
-    versions with the given weights."""
+    versions with the given weights. Its bf16 twin
+    ``SPEquivariantBlockFunctionBF16`` runs the bf16 variants."""
 
     @staticmethod
     def forward(ctx, block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full, *weights):
-        args = (grp, mean_div, h, x, x0, node_mask, x0_full, mask_full)
-        if h.is_cuda:
-            h_out, x_out = sp_block_forward(block, *args)
-        else:
-            h_out, x_out = egnn_tiled._call_with(block, egnn_block.block_param_names(block),
-                                                 weights, sp_block_forward, *args)
-        ctx.block, ctx.grp, ctx.mean_div = block, grp, mean_div
-        ctx.save_for_backward(h, x, x0, node_mask, x0_full, mask_full, *weights)
-        return h_out, x_out
+        return _sp_function_forward(ctx, None, block, grp, mean_div, h, x, x0, node_mask,
+                                    x0_full, mask_full, weights)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh_out, dx_out):
         h, x, x0, node_mask, x0_full, mask_full, *weights = ctx.saved_tensors
-        block, grp, mean_div = ctx.block, ctx.grp, ctx.mean_div
+        block, grp, mean_div, dt = ctx.block, ctx.grp, ctx.mean_div, ctx.compute_dtype
         row0 = grp.rank * h.shape[1]
         gcls = [getattr(block, f"gcl_{j}") for j in range(block.cfg.inv_sublayers)]
         gcl_ws, coord_ws = egnn_tiled._stage_weights(block, weights)
@@ -300,12 +311,14 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
         def fwd(stage, ws, *a):
             fn, _ = egnn_sp.stage_fns(stage, on_card)
             if on_card:
-                return fn(stage, *a, keep_chain=True)
+                return fn(stage, *a, keep_chain=True, compute_dtype=dt)
             return egnn_tiled._call_with(stage, egnn_tiled.stage_weight_names(stage), ws,
-                                         lambda m, *b: fn(m, *b, keep_chain=True), *a)
+                                         lambda m, *b: fn(m, *b, keep_chain=True,
+                                                          compute_dtype=dt), *a)
 
         def bwd(stage, ws, *a, **kw):
             _, fn = egnn_sp.stage_fns(stage, on_card)
+            kw["compute_dtype"] = dt
             return fn(stage, *a, **kw) if on_card else fn(stage, *a, weights=ws, **kw)
 
         x_full = all_gather_rows(x, grp)
@@ -334,32 +347,44 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
                 *[w for ws in d_gcls + [d_coord] for w in ws])
 
 
-def egnn_forward_sp(egnn, h, x, node_mask, grp: SPGroup):
+class SPEquivariantBlockFunctionBF16(SPEquivariantBlockFunction):
+    """``SPEquivariantBlockFunction`` with the bf16 variants of #6 and #7."""
+
+    @staticmethod
+    def forward(ctx, block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full, *weights):
+        return _sp_function_forward(ctx, torch.bfloat16, block, grp, mean_div, h, x, x0,
+                                    node_mask, x0_full, mask_full, weights)
+
+
+def egnn_forward_sp(egnn, h, x, node_mask, grp: SPGroup, compute_dtype=None):
     """``nn.egnn.EGNN.forward`` with the blocks over this rank's slab: same
     contract (h [B,N,in], x [B,N,3], node_mask [B,N,1] -> (h [B,N,out], x
     [B,N,3])), replicated inputs and outputs. N is padded to a multiple of
-    the group size inside; 'mean' divides by the given N."""
+    the group size inside; 'mean' divides by the given N. ``compute_dtype``
+    (None or torch.bfloat16): the linear layers' operand dtype, as the
+    dense EGNN's (JAX's ``egnn_apply_sp``)."""
     b, n, _ = h.shape
     pad = -n % grp.size
     if pad:
         h, x, node_mask = (F.pad(t, (0, 0, 0, pad)) for t in (h, x, node_mask))
     node_mask = node_mask.contiguous()
-    h = egnn.embedding(h)
+    h = linear(egnn.embedding, h, compute_dtype)
     h = _EnterRows.apply(h, grp)
     x, x_full = _Enter.apply(x.contiguous(), grp)
     x0, x0_full = x, x_full  # x0 is the EGNN's input x, in both views
     s = h.shape[1]
     mask = node_mask[:, grp.rank * s:(grp.rank + 1) * s].contiguous()
+    fn = SPEquivariantBlockFunction if compute_dtype is None else SPEquivariantBlockFunctionBF16
     for i in range(egnn.cfg.n_layers):
         block = getattr(egnn, f"e_block_{i}")
         args = (grp, n, h, x, x0, mask, x0_full, node_mask)
         if torch.is_grad_enabled():
-            h, x = SPEquivariantBlockFunction.apply(block, *args, *egnn_block.block_params(block))
+            h, x = fn.apply(block, *args, *egnn_block.block_params(block))
         else:
-            h, x = sp_block_forward(block, *args)
+            h, x = sp_block_forward(block, *args, compute_dtype)
     h = _Leave.apply(h, grp)
     x = _Leave.apply(x, grp)
-    h = egnn.embedding_out(h) * node_mask
+    h = linear(egnn.embedding_out, h, compute_dtype) * node_mask
     return h[:, :n], x[:, :n]
 
 

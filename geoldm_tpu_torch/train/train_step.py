@@ -55,10 +55,12 @@ def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
                       sp_params)
 
 
-def make_train_step(model_cfg: ModelConfig, ema_decay: float):
+def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None):
     """train_step(state, batch, noise) -> {"loss", "grad_norm"} (tensors on
-    the device, not synchronised)."""
-    nll_fn = factory.model_nll_fn(model_cfg, training=True)
+    the device, not synchronised). ``compute_dtype`` (a name or spec of
+    ``nn.core``, as JAX's ``make_train_step``): the loss and its gradient in
+    it; bf16 runs the bf16 forward and backward kernels."""
+    nll_fn = factory.model_nll_fn(model_cfg, training=True, compute_dtype=compute_dtype)
 
     def train_step(state: TrainState, batch: dict, noise: com.Noise) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
@@ -82,10 +84,10 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float):
     return train_step
 
 
-def make_eval_nll(model_cfg: ModelConfig):
+def make_eval_nll(model_cfg: ModelConfig, compute_dtype=None):
     """eval_nll(model, batch, noise) -> mean NLL minus log p(N) (the
-    t0_always two-pass estimator), under no_grad."""
-    nll_fn = factory.model_nll_fn(model_cfg, training=False)
+    t0_always two-pass estimator), under no_grad, in ``compute_dtype``."""
+    nll_fn = factory.model_nll_fn(model_cfg, training=False, compute_dtype=compute_dtype)
 
     @torch.no_grad()
     def eval_nll(model: nn.Module, batch: dict, noise: com.Noise) -> torch.Tensor:

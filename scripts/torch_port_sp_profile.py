@@ -12,10 +12,12 @@ synchronised work, and the time spent inside the collectives (host clock,
 synchronised before and after each one, so a rank's wait for the other
 counts there), their number and bytes. Rank 0 also traces steps with
 torch.profiler: its own device time per step by kernel name.
+``--compute_dtype`` (the training CLIs' choices) runs every step in it:
+``bfloat16`` on the bf16 kernels (#6/#7 on the ranks, #1-#5 on one rank).
 
 Prints one JSON line.
 
-    python3 scripts/torch_port_sp_profile.py [--ranks 2]
+    python3 scripts/torch_port_sp_profile.py [--ranks 2] [--compute_dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -65,14 +67,14 @@ def _batches():
         [k for k in hist if lo <= k <= pad], size=32)) for pad, lo in PADS}
 
 
-def _setup(device, sp_group=None):
+def _setup(device, compute_dtype, sp_group=None):
     info = get_dataset_info("geom")
     cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
                                                include_charges=False, diffusion_steps=1000,
                                                trainable_ae=True)
     model = factory.build_model(cfg, device, torch.Generator().manual_seed(0), sp_group=sp_group)
     state = create_train_state(model, cfg, 5e-5, ema_decay=0.9999)
-    step = make_train_step(cfg, 0.9999)
+    step = make_train_step(cfg, 0.9999, compute_dtype)
     gen = torch.Generator(device=device).manual_seed(1)
     return state, (lambda batch: step(state, batch, gen)), DistributionNodes(info.n_nodes)
 
@@ -98,10 +100,10 @@ def _device_split(prof, n):
     return {k: v for k, v in split.items() if v}
 
 
-def _rank(batches, grp):
+def _rank(batches, compute_dtype, grp):
     """One SP rank: per pad, timed steps, collective time, and (rank 0) the
     device split."""
-    state, run, nodes = _setup(grp.device, grp)
+    state, run, nodes = _setup(grp.device, compute_dtype, grp)
     stats = {}
 
     def timed(name, fn):
@@ -149,6 +151,8 @@ def _rank(batches, grp):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ranks", type=int, default=2)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16", "pallas", "bfloat16_pallas"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_sp_profile: needs an NVIDIA card", file=sys.stderr)
@@ -158,7 +162,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[0]
     batches = _batches()
-    state, run, nodes = _setup("cuda")
+    state, run, nodes = _setup("cuda", args.compute_dtype)
     one_rank = {}
     for pad, raw in batches.items():
         batch = prepare_batch(raw, nodes, "cuda")
@@ -166,9 +170,10 @@ def main(argv=None) -> int:
         one_rank[pad] = _time(lambda: run(batch), STEPS)
     del state, run
     torch.cuda.empty_cache()
-    ranks = sp.spawn_ranks(args.ranks, _rank, (batches,), device="cuda")
+    ranks = sp.spawn_ranks(args.ranks, _rank, (batches, args.compute_dtype), device="cuda")
     print(json.dumps({"card": card, "rule": sp.placement(args.ranks, "cuda")[2],
-                      "one_rank_step_ms": one_rank, "sp_ranks": ranks}))
+                      "compute_dtype": args.compute_dtype, "one_rank_step_ms": one_rank,
+                      "sp_ranks": ranks}))
     return 0
 
 

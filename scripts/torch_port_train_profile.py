@@ -17,9 +17,13 @@ atoms), both on the row-tiled kernels #3-#5, and 48 (33-48 atoms, kernels
 H=256: the GCL stage as a direct call and from the node chain its forward
 kept (the training route), and the coordinate stage.
 
+``--compute_dtype`` (the training CLIs' choices) runs the train steps and the
+backward kernels in it: ``bfloat16`` / ``bfloat16_pallas`` on the bf16
+kernels (#1/#2, #3-#5 bf16).
+
 Prints one JSON line.
 
-    python3 scripts/torch_port_train_profile.py [--dataset geom]
+    python3 scripts/torch_port_train_profile.py [--dataset geom] [--compute_dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from geoldm_tpu_torch.data.datasets_config import get_dataset_info  # noqa: E402
 from geoldm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from geoldm_tpu_torch.models import factory  # noqa: E402
 from geoldm_tpu_torch.models.distributions import DistributionNodes  # noqa: E402
+from geoldm_tpu_torch.nn.core import resolve_compute  # noqa: E402
 from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters  # noqa: E402
 from geoldm_tpu_torch.ops import egnn_block, egnn_tiled  # noqa: E402
 from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step  # noqa: E402
@@ -60,12 +65,13 @@ def _row_grid_name(name: str) -> str:
     """The forward row grid of #3 (GCL) and #4 (coordinate update) is one
     template, rows_tile_kernel<HP, COORD> (csrc/egnn_rows.cuh), and so is
     the backward row grid of #5/#7, rows_bwd_tile_kernel<HP, COORD>
-    (csrc/egnn_rows_bwd.cuh): name each by its stage, demangled or mangled."""
+    (csrc/egnn_rows_bwd.cuh), each with a BF16 flag: name each by its
+    stage, demangled or mangled."""
     for grid, short in (("rows_bwd_tile_kernel", "rows_bwd_tile"),
                         ("rows_tile_kernel", "rows_tile")):
-        if re.search(grid + r"(<\d+, false>|ILi\d+ELb0E)", name):
+        if re.search(grid + r"(<\d+, false[,>]|ILi\d+ELb0E)", name):
             return "gcl_" + short
-        if re.search(grid + r"(<\d+, true>|ILi\d+ELb1E)", name):
+        if re.search(grid + r"(<\d+, true[,>]|ILi\d+ELb1E)", name):
             return "coord_" + short
     return name
 
@@ -95,12 +101,12 @@ def _trace(fn, n):
     return wall, split
 
 
-def _time_train(cfg, raw, info, card, label):
+def _time_train(cfg, raw, info, card, label, compute_dtype):
     """Host-clock ms per step and a traced window's device split for train
     steps on one batch."""
     model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0))
     state = create_train_state(model, cfg, 1e-4, ema_decay=0.9999)
-    step = make_train_step(cfg, 0.9999)
+    step = make_train_step(cfg, 0.9999, compute_dtype)
     batch = prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(WARMUP):
@@ -117,8 +123,8 @@ def _time_train(cfg, raw, info, card, label):
     out = {"B": int(b), "N": int(n), "step_ms": step_ms, "traced_step_ms": traced_ms,
            "device_ms_per_step": device_ms, "split_ms_per_step": split,
            "device_busy_share": device_ms / traced_ms}
-    print(f"{label} train step B={b} N={n}: {step_ms:.2f} ms, device {device_ms:.2f} ms/step "
-          f"{json.dumps(split)} on {card}", flush=True)
+    print(f"{label} {compute_dtype} train step B={b} N={n}: {step_ms:.2f} ms, device "
+          f"{device_ms:.2f} ms/step {json.dumps(split)} on {card}", flush=True)
     del model, state
     torch.cuda.empty_cache()
     return out
@@ -135,28 +141,30 @@ def _block_inputs(rng, b, n, hidden, n_min):
         rng.standard_normal((b, n, 3)).astype(np.float32))]
 
 
-def _qm9(card):
+def _qm9(card, compute_dtype):
     info = get_dataset_info("qm9")
     cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
                                                diffusion_steps=1000, trainable_ae=True)
     train = _time_train(cfg, synthetic_batch(info, 64, 29, np.random.default_rng(0)), info, card,
-                        "QM9")
+                        "QM9", compute_dtype)
+    dt = resolve_compute(compute_dtype).dtype
     bcfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=256, n_layers=9)
     block = EquivariantBlock(bcfg)
     init_parameters(block, torch.Generator().manual_seed(1))
     block = block.cuda()
     args = _block_inputs(np.random.default_rng(2), 64, 29, 256, 21)
     for _ in range(3):
-        egnn_block.block_backward_cuda(block, *args)
-    bwd_ms, bwd_split = _trace(lambda: egnn_block.block_backward_cuda(block, *args), 10)
+        egnn_block.block_backward_cuda(block, *args, compute_dtype=dt)
+    bwd_ms, bwd_split = _trace(lambda: egnn_block.block_backward_cuda(block, *args,
+                                                                      compute_dtype=dt), 10)
     bwd = {"B": 64, "N": 29, "H": 256, "traced_ms": bwd_ms, "split_ms": bwd_split,
            "device_ms": sum(bwd_split.values())}
     print(f"block backward B=64 N=29 H=256: device {bwd['device_ms']:.3f} ms "
           f"{json.dumps(bwd_split)} on {card}", flush=True)
-    return {"card": card, "train": train, "block_backward": bwd}
+    return {"card": card, "compute_dtype": compute_dtype, "train": train, "block_backward": bwd}
 
 
-def _geom(card):
+def _geom(card, compute_dtype):
     info = get_dataset_info("geom")
     cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
                                                include_charges=False, diffusion_steps=1000,
@@ -167,19 +175,21 @@ def _geom(card):
     for pad, lo in ((184, 129), (104, 81), (48, 33)):
         sizes = rng.choice([k for k in hist if lo <= k <= pad], size=32)
         raw = synthetic_batch(info, 32, pad, rng, include_charges=False, n_atoms=sizes)
-        train[str(pad)] = _time_train(cfg, raw, info, card, "GEOM")
+        train[str(pad)] = _time_train(cfg, raw, info, card, "GEOM", compute_dtype)
+    dt = resolve_compute(compute_dtype).dtype
     block = EquivariantBlock(cfg.dynamics.egnn)
     init_parameters(block, torch.Generator().manual_seed(1))
     block = block.cuda()
     h, x, x0, mask, gh, gx = _block_inputs(np.random.default_rng(2), 32, 184, 256, 168)
     stages = {}
-    chain = egnn_tiled.gcl_rows_cuda(block.gcl_0, h, x, x0, mask, keep_chain=True)[1]
+    chain = egnn_tiled.gcl_rows_cuda(block.gcl_0, h, x, x0, mask, keep_chain=True,
+                                     compute_dtype=dt)[1]
     for name, fn in (("gcl_rows", lambda: egnn_tiled.gcl_rows_backward_cuda(
-                         block.gcl_0, h, x, x0, mask, gh)),
+                         block.gcl_0, h, x, x0, mask, gh, compute_dtype=dt)),
                      ("gcl_rows_from_chain", lambda: egnn_tiled.gcl_rows_backward_cuda(
-                         block.gcl_0, h, x, x0, mask, gh, chain=chain)),
+                         block.gcl_0, h, x, x0, mask, gh, chain=chain, compute_dtype=dt)),
                      ("coord_rows", lambda: egnn_tiled.coord_rows_backward_cuda(
-                         block.gcl_equiv, h, x, x0, mask, gx))):
+                         block.gcl_equiv, h, x, x0, mask, gx, compute_dtype=dt))):
         for _ in range(2):
             fn()
         ms, split = _trace(fn, 5)
@@ -187,12 +197,15 @@ def _geom(card):
                         "device_ms": sum(split.values())}
         print(f"{name} backward (#5) B=32 N=184 H=256: device "
               f"{stages[name]['device_ms']:.3f} ms {json.dumps(split)} on {card}", flush=True)
-    return {"card": card, "train": train, "stage_backward": stages}
+    return {"card": card, "compute_dtype": compute_dtype, "train": train,
+            "stage_backward": stages}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dataset", choices=["qm9", "geom"], default="qm9")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16", "pallas", "bfloat16_pallas"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
@@ -201,7 +214,8 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    print(json.dumps(_qm9(card) if args.dataset == "qm9" else _geom(card)))
+    run = _qm9 if args.dataset == "qm9" else _geom
+    print(json.dumps(run(card, args.compute_dtype)))
     return 0
 
 

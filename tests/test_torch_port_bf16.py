@@ -246,22 +246,46 @@ def test_bf16_egnn_matches_jax_bfloat16_full(n, n_real):
     _close(x_p, x_j, FULL_RTOL, "x")
 
 
-def test_bf16_refuses_autograd_and_sequence_parallelism():
-    """The kernel wrappers refuse bf16 under autograd and take no compute
-    name (the sampler and the NLL resolve names); the SP EGNN has no bf16."""
+def test_bf16_refuses_autograd_and_sequence_parallelism(monkeypatch):
+    """(Named for the refusals it held before bf16 training.) bf16 now runs
+    under autograd and under sequence parallelism: the blocks' bf16
+    Functions give the plain bf16 backward's gradients (the whole-molecule
+    one exactly, the row-tiled one within BLOCK_RTOL, its sums in another
+    order), and the SP EGNN hands its dtype to the slab path. The kernel
+    wrappers, forward and backward, still take no compute name (the
+    sampler, the NLL and the train step resolve names): TypeError."""
+    from geoldm_tpu_torch.parallel import sp as sp_mod
+
     egnn, _, _ = _pair("sum")
     h, x, x0, mask = map(t, _hidden_inputs(5, 9, (5, 9)))
     block = egnn.e_block_0
-    for fn, mod in ((egnn_block.block_forward_cuda, block),
-                    (egnn_tiled.gcl_rows_cuda, block.gcl_0),
-                    (egnn_tiled.coord_rows_cuda, block.gcl_equiv)):
-        with pytest.raises(NotImplementedError, match="backward kernels"):
-            fn(mod, h, x, x0, mask, compute_dtype=BF16)
-        with torch.no_grad(), pytest.raises(TypeError, match="resolve_compute"):
-            fn(mod, h, x, x0, mask, compute_dtype="bfloat16")
-    egnn.sp = object()
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="sequence parallelism"):
-        egnn(t(np.zeros((1, 9, 6), np.float32)), x[:1], mask[:1], BF16)
+    cots = (t(np.random.default_rng(3).standard_normal(h.shape).astype(np.float32)),
+            t(np.random.default_rng(4).standard_normal(x.shape).astype(np.float32)))
+    for fn, mod, extra in ((egnn_block.block_forward_cuda, block, ()),
+                           (egnn_tiled.gcl_rows_cuda, block.gcl_0, ()),
+                           (egnn_tiled.coord_rows_cuda, block.gcl_equiv, ()),
+                           (egnn_block.block_backward_cuda, block, cots),
+                           (egnn_tiled.gcl_rows_backward_cuda, block.gcl_0, cots[:1]),
+                           (egnn_tiled.coord_rows_backward_cuda, block.gcl_equiv, cots[1:])):
+        with pytest.raises(TypeError, match="resolve_compute"):
+            fn(mod, h, x, x0, mask, *extra, compute_dtype="bfloat16")
+    want = egnn_block.block_backward_plain(block, h, x, x0, mask, *cots, compute_dtype=BF16)
+    want = [*want[:3], *want[3]]
+    for fn, rtol in ((egnn_block.EquivariantBlockFunctionBF16, 0.0),
+                     (egnn_tiled.TiledEquivariantBlockFunctionBF16, BLOCK_RTOL)):
+        inputs = [a.clone().requires_grad_() for a in (h, x, x0)]
+        ws = egnn_block.block_params(block)
+        outs = fn.apply(block, *inputs[:3], mask, *ws)
+        got = torch.autograd.grad(outs, inputs + ws, cots)
+        for name, g, w in zip(["dh", "dx", "dx0"] + egnn_block.block_param_names(block), got,
+                              want):
+            _close(g, w.numpy(), rtol, f"{fn.__name__} {name}")
+    seen = []
+    monkeypatch.setattr(sp_mod, "egnn_forward_sp",
+                        lambda e, h_, x_, m_, grp, dtype: seen.append((grp, dtype)) or (h_, x_))
+    egnn.sp = "group"
+    egnn(t(np.zeros((1, 9, 6), np.float32)), x[:1], mask[:1], BF16)
+    assert seen == [("group", BF16)]
 
 
 def test_bf16_packed_nll_matches_jax(datadir, pair):  # noqa: F811

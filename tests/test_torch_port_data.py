@@ -115,7 +115,23 @@ def test_main_qm9_trains_the_vae_by_default(datadir, tmp_path):
     ["--compute_dtype", "bfloat16_mixed"], ["--model", "gnn_dynamics"],
     ["--conditioning", "alpha", "homo"],
 ])
-def test_flags_outside_the_slice_are_refused(flags, tmp_path):
+def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path):
+    """Each flag outside the slice exits with the two-line message. The
+    compute dtypes are JAX's training choices: ``bfloat16`` trains (a bf16
+    run starts and its losses are finite), ``bfloat16_full`` and
+    ``bfloat16_mixed`` are sampling modes that argparse refuses (exit 2), as
+    JAX's ``choices`` do."""
+    if flags[0] == "--compute_dtype":
+        argv = ["--datadir", datadir, "--outdir", str(tmp_path), "--device", "cpu",
+                "--n_epochs", "1", "--batch_size", "12", "--nf", "16", "--n_layers", "1", *flags]
+        if flags[1] == "bfloat16":
+            summary = main_qm9.main(argv)
+            assert summary["losses"] and np.all(np.isfinite(summary["losses"][0]))
+            return
+        with pytest.raises(SystemExit) as e:
+            main_qm9.main(argv)
+        assert e.value.code == 2
+        return
     with pytest.raises(SystemExit) as e:
         main_qm9.main(["--datadir", str(tmp_path), "--device", "cpu", *flags])
     lines = str(e.value.code).splitlines()

@@ -9,7 +9,10 @@ difference is not set by the rare flips: a bf16 variant must be at least
 ``SEPARATION`` times closer, on the mean, to its plain bf16 version than to
 the plain f32 version, and than to a plain version that leaves one rounding
 site in f32 (``unrounded``). A variant that ran f32 products, or skipped a
-site, fails that."""
+site, fails that. A bf16 backward is held the same way, and also against a
+plain backward that rounds one site too many: the cotangent operand of the
+transposed products and weight gradients, which the vjp of a bf16 product
+keeps in f32 (site ``cotangent``)."""
 
 from __future__ import annotations
 
@@ -27,14 +30,31 @@ SEPARATION = 10.0
 # 'gate': the products with one output (the attention gate, the coordinate
 # scale w3), both operands.
 SITES = ("edge_feat", "gate")
+# The backward's sites: the forward's, and 'cotangent': each linear layer's
+# cotangent rounded to bf16 before its transposed product and weight
+# gradient (the wrong rounding a bf16 mma on the cotangent would make).
+BWD_SITES = SITES + ("cotangent",)
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent to bf16."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float()
 
 
 @contextlib.contextmanager
 def unrounded(site: str, edge_feat_nf: int):
     """Within the block, the plain bf16 versions (``nn.egnn``'s modules and
     ``ops.egnn_tiled``'s stages) leave ``site``'s operands in f32 and round
-    every other product's operands as before."""
-    if site not in SITES:
+    every other product's operands as before; for ``cotangent``, they also
+    round each linear layer's cotangent (its output's gradient) to bf16."""
+    if site not in BWD_SITES:
         raise ValueError(site)
 
     def round_operand(t, dtype):
@@ -42,18 +62,29 @@ def unrounded(site: str, edge_feat_nf: int):
             return t
         return core.round_operand(t, dtype)
 
-    def linear(lin, x, dtype=None):
-        return core.linear(lin, x, None if site == "gate" and lin.out_features == 1 else dtype)
+    def trap(out, dtype):
+        return _RoundCotangent.apply(out) if site == "cotangent" and dtype is not None else out
 
-    modules = (nn_egnn, egnn_tiled)
-    saved = [(m, m.round_operand, m.linear) for m in modules]
-    for m in modules:
-        m.round_operand, m.linear = round_operand, linear
+    def linear(lin, x, dtype=None):
+        dtype = None if site == "gate" and lin.out_features == 1 else dtype
+        return trap(core.linear(lin, x, dtype), dtype)
+
+    def rounded(lin, dtype):
+        return tiled_rounded(lin, None if site == "gate" and lin.out_features == 1 else dtype)
+
+    def apply(wb, x):
+        return trap(tiled_apply(wb, x), wb[2])
+
+    tiled_rounded, tiled_apply = egnn_tiled._rounded, egnn_tiled._apply
+    saved = (nn_egnn.round_operand, nn_egnn.linear, egnn_tiled.round_operand)
+    nn_egnn.round_operand, nn_egnn.linear, egnn_tiled.round_operand = round_operand, linear, \
+        round_operand
+    egnn_tiled._rounded, egnn_tiled._apply = rounded, apply
     try:
         yield
     finally:
-        for m, r, lin in saved:
-            m.round_operand, m.linear = r, lin
+        nn_egnn.round_operand, nn_egnn.linear, egnn_tiled.round_operand = saved
+        egnn_tiled._rounded, egnn_tiled._apply = tiled_rounded, tiled_apply
 
 
 def mean_abs(a, b) -> float:
@@ -68,3 +99,82 @@ def assert_separated(got, want, other, what: str) -> None:
     assert SEPARATION * err <= dist, (
         f"{what}: mean|d| {err:.3e} to the bf16 reference, {dist:.3e} to the other: not "
         f"{SEPARATION:g}x apart")
+
+
+# A bf16 backward's weight gradients are rounded to bf16 (kernel and plain
+# version alike): where the two f32 sums straddle a rounding tie they end one
+# bf16 step apart, up to 2^-7 of the element. Ties decided otherwise further
+# up (an operand gradient rounded to bf16 on the other side of its tie) shift
+# those sums by ~1e-4 relative, so such flips are common (up to ~15% of a
+# tensor on the card); the mean separation, not their count, tells a wrong
+# rounding site. At most FLIP_SHARE of a tensor's elements may flip.
+FLIP_SHARE = 0.5
+
+
+def bf16_flips(g, w):
+    """Elements where two bf16-valued tensors are neighbouring bf16 values:
+    their bit patterns differ by one, with the same sign."""
+    gb, wb = (t.to(torch.bfloat16).view(torch.int16).int() for t in (g, w))
+    return ((gb - wb).abs() == 1) & ((gb < 0) == (wb < 0))
+
+
+def bf16_grads_report(names, got, want, want_f32, want_cot=None, rtol=5e-3,
+                      flip_share=FLIP_SHARE, separation=SEPARATION):
+    """A bf16 backward's outputs against its plain bf16 version -> a dict:
+    ``problems`` (empty when it passes), ``max_rel`` / ``worst`` (the largest
+    max|d| / max(1, max|ref|) and its tensor), ``max_abs`` (the largest
+    max|d|), both without the flips, ``mean_err``, ``mean_to_f32``,
+    ``mean_to_cotangent`` (the mean over every output element of |d| in
+    units of its tensor's max(1, max|ref|)) and ``flips``. Every tensor is
+    finite and within rtol * max(1, max|ref|) of the reference, a weight
+    gradient's one-step flips excepted (at most FLIP_SHARE of it), and a
+    one-element output within the larger of that and its own distance
+    between the plain bf16 and f32 versions (the attention bias's gradient
+    sums the gate's over every edge with cancellation, and bf16 moves that
+    sum by up to a few percent of itself); on that
+    mean the result is SEPARATION times closer to the plain bf16 version
+    than to the plain f32 one and than to ``want_cot`` (the plain version
+    rounding the cotangents), when given. (Each element counts once, so a
+    one-element bias, whose sum over every edge carries the f32 order's
+    noise, does not outweigh a weight matrix.) ``flip_share`` and
+    ``separation`` replace FLIP_SHARE and SEPARATION (a whole train step,
+    whose kernels' tie flips compound through every block)."""
+    out = {"problems": [], "max_rel": 0.0, "worst": "", "max_abs": 0.0, "mean_err": 0.0,
+           "mean_to_f32": 0.0, "mean_to_cotangent": 0.0, "flips": 0}
+    count = 0
+    for i, (name, g, w, w32) in enumerate(zip(names, got, want, want_f32)):
+        g, w, w32 = (t.detach().double() for t in (g, w, w32))
+        if not bool(torch.isfinite(g).all()):
+            out["problems"].append(f"{name} not finite")
+        scale = max(1.0, float(w.abs().max()))
+        diff = (g - w).abs()
+        if name.endswith("weight"):
+            flip = bf16_flips(g, w)
+            n_flip = int(flip.sum())
+            if n_flip > flip_share * g.numel():
+                out["problems"].append(f"{name}: {n_flip} of {g.numel()} one bf16 step off")
+            out["flips"] += n_flip
+            diff = diff.masked_fill(flip, 0.0)
+        out["max_abs"] = max(out["max_abs"], float(diff.max()))
+        d = float(diff.max()) / scale
+        if g.numel() == 1:
+            d = min(d, rtol * float(diff.max()) / max(float((w - w32).abs().max()), 1e-30))
+        if d > rtol:
+            out["problems"].append(f"{name}: max|d| {d:.3e} of max(1, max|ref|) > {rtol}")
+        if d >= out["max_rel"]:
+            out["max_rel"], out["worst"] = d, name
+        out["mean_err"] += float((g - w).abs().sum()) / scale
+        out["mean_to_f32"] += float((g - w32).abs().sum()) / scale
+        if want_cot is not None:
+            out["mean_to_cotangent"] += float((g - want_cot[i].detach().double()).abs().sum()
+                                              ) / scale
+        count += g.numel()
+    for key in ("mean_err", "mean_to_f32", "mean_to_cotangent"):
+        out[key] /= max(count, 1)
+    for key, label in (("mean_to_f32", "the plain f32 version"),
+                       ("mean_to_cotangent", "the version rounding the cotangents")):
+        if (key == "mean_to_f32" or want_cot is not None) and \
+                separation * out["mean_err"] > out[key]:
+            out["problems"].append(f"mean distance {out[key]:.3e} to {label} is not "
+                                   f"{separation:g}x the mean error {out['mean_err']:.3e}")
+    return out

@@ -58,16 +58,17 @@ def egnn_cases(cases, device, grp=None):
     return results
 
 
-def geom_train_step(kw, batch, seed, device, grp=None):
+def geom_train_step(kw, batch, seed, device, grp=None, compute_dtype=None):
     """One latent-diffusion train step of a GEOM-config model drawn from
     ``seed`` (``factory.make_latent_diffusion_config(geom, **kw)``) on
-    ``batch`` with noise from a generator seeded ``seed + 1`` -> the loss,
-    every parameter's gradient after the step's clip (before the update), the
-    replicas' train-state digests and kernel launch counts."""
+    ``batch`` with noise from a generator seeded ``seed + 1``, in
+    ``compute_dtype`` -> the loss, every parameter's gradient after the
+    step's clip (before the update), the replicas' train-state digests and
+    kernel launch counts."""
     cfg = factory.make_latent_diffusion_config(get_dataset_info("geom"), **kw)
     model = factory.build_model(cfg, device, torch.Generator().manual_seed(seed), sp_group=grp)
     state = create_train_state(model, cfg, 5e-5, ema_decay=0.999)
-    step = make_train_step(cfg, 0.999)
+    step = make_train_step(cfg, 0.999, compute_dtype)
     noise = torch.Generator(device=device).manual_seed(seed + 1)
     metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}, noise)
     return {"loss": float(metrics["loss"]),
@@ -75,3 +76,8 @@ def geom_train_step(kw, batch, seed, device, grp=None):
                       if p.grad is not None},
             "digests": _gather(sp.state_digest(state), grp),
             "launches": _gather(kernel_launches(), grp)}
+
+
+def geom_train_step_bf16(kw, batch, seed, device, grp=None):
+    """``geom_train_step`` in the bfloat16 compute dtype."""
+    return geom_train_step(kw, batch, seed, device, grp, "bfloat16")
