@@ -146,8 +146,14 @@ Phases (each prints a line; any failure exits non-zero before the result):
      epoch in bf16; launches exact, every one a bf16 kernel; finite; the EMA
      moved; then the bf16 train-step gradient on the card against the plain
      bf16 step on the CPU (QM9 and GEOM, as phases 8 and 14);
- 25. an SP-2 bf16 train step (two ranks sharing the card: #6/#7 bf16 on
-     both slabs, launches exact per rank) against the one-rank bf16 step.
+ 25. bf16 training under --sp 2 on one card: cli.main_geom_drugs --sp 2
+     --compute_dtype bfloat16 at phase 16's recipe (two ranks sharing the
+     card over gloo; launches exact per rank, every one a bf16 kernel), then
+     an SP-2 bf16 train step (#6/#7 bf16 on both slabs) against the one-rank
+     bf16 step.
+
+A stall is not silent: past _STALL_SECONDS every thread's stack is written
+to standard error (the run goes on).
 
 The line before the last is one JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
@@ -157,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import faulthandler
 import json
 import os
 import subprocess
@@ -756,8 +763,7 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
     _check(set(grads["cuda"]) == set(grads["cpu"]) and len(grads["cpu"]) > 0,
            "card and CPU gave gradients to different parameters")
     if compute_dtype:
-        # bf16: within _BF16_LOSS_RTOL, or _BF16_STEP_SEPARATION times closer
-        # to the CPU's bf16 loss than that is to its f32 loss.
+        # bf16: the two clauses of _BF16_LOSS_RTOL's comment.
         loss_tol = max(_BF16_LOSS_RTOL * abs(losses["cpu"]),
                        abs(losses["cpu"] - losses["cpu_f32"]) / _BF16_STEP_SEPARATION)
     else:
@@ -767,20 +773,23 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
            + (f" (CPU f32 {losses['cpu_f32']})" if compute_dtype else ""))
     if compute_dtype:
         names = sorted(grads["cpu"])
-        err, worst_name, e, f, _, flips, _ = _bf16_grads_check(
-            f"phase {phase}", names, [grads["cuda"][k] for k in names],
-            [grads["cpu"][k] for k in names], [grads["cpu_f32"][k] for k in names], None,
-            step=True)
+        rep = _bf16_grads_check(f"phase {phase}", names, [grads["cuda"][k] for k in names],
+                                [grads["cpu"][k] for k in names],
+                                [grads["cpu_f32"][k] for k in names], None, step=True)
+        err, worst_name, e, f, flips = (rep[k] for k in ("max_rel", "worst", "mean_err",
+                                                          "mean_to_f32", "flips"))
         print(f"phase {phase}: {compute_dtype} train-step gradient {label}: loss card "
               f"{losses['cuda']:.6f} CPU {losses['cpu']:.6f} (CPU f32 {losses['cpu_f32']:.6f}); "
               f"{len(names)} parameter tensors, worst max|d|/max(1,|ref|) {err:.2e} "
               f"({worst_name}; tol {_BF16_RTOL}; {flips} weight-gradient elements one bf16 "
-              f"step off); mean |d|/max(1,|ref|) {e:.3e} to the CPU's bf16 step, {f:.3e} to its "
+              f"step off, at most {rep['max_flip_share']:.2%} of a tensor ({rep['worst_flip']})); "
+              f"mean |d|/max(1,|ref|) {e:.3e} to the CPU's bf16 step, {f:.3e} to its "
               f"f32 step; {expected} bf16 backward launches on {card_name} ("
               f"{seconds['cuda']:.1f} s card, {seconds['cpu']:.1f} s CPU)", flush=True)
         return {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
                 "loss_cpu_f32": losses["cpu_f32"], "worst_rel": err, "worst": worst_name,
                 "mean_err": e, "mean_to_f32": f, "flips": flips,
+                "max_flip_share": rep["max_flip_share"], "worst_flip": rep["worst_flip"],
                 "cpu_seconds": seconds["cpu"]}
     worst, worst_name = 0.0, ""
     for k, ref in grads["cpu"].items():
@@ -1473,8 +1482,10 @@ def _geom_recipe_cfg():
                                                 diffusion_steps=1000, trainable_ae=True)
 
 
-def phase_sp_train(card_name, tmpdir):
-    """Phase 16: ``cli.main_geom_drugs --sp 2`` at the recipe."""
+def phase_sp_train(card_name, tmpdir, compute_dtype=None, phase=16):
+    """Phase 16: ``cli.main_geom_drugs --sp 2`` at the recipe. Phase 25 runs
+    it with ``--compute_dtype bfloat16``: every launch in the ranks is then
+    a bf16 kernel (the counts with ``_bf16``, no f32 kernel)."""
     import torch
 
     from geoldm_tpu_torch.cli import main_geom_drugs
@@ -1501,12 +1512,19 @@ def phase_sp_train(card_name, tmpdir):
             "--batch_size", str(B), "--lr", "5e-5", "--ema_decay", str(decay),
             "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab),
             "--seed", str(seed), "--no_wandb"]
+    argv += ["--compute_dtype", compute_dtype] if compute_dtype else []
+    suffix = "_bf16" if compute_dtype else ""
     rule = sp.placement(ranks, "cuda")[2]
-    print(f"phase 16: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+    print(f"phase {phase}: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
           flush=True)
+    # Each rank is a process of its own and counts its launches from 0; the
+    # counts of this process are zeroed too, and stay so.
+    _zero_launch_counts()
     t0 = time.time()
     summary = main_geom_drugs.main(argv)
     wall = time.time() - t0
+    _check(not any(_launch_counts().values()), f"the launching process ran kernels: "
+                                               f"{_launch_counts()}")
 
     losses = summary["losses"][0]
     _check(len(losses) == 2, f"{len(losses)} train steps, expected 2")
@@ -1544,12 +1562,12 @@ def phase_sp_train(card_name, tmpdir):
     small = sum(1 for p in pads["chunks"] if p <= MAX_NODES)
     large = len(pads["chunks"]) - small
     expected = _no_launches()
-    expected.update({
+    expected.update({k + suffix: v for k, v in {
         "egnn_block": per_chunk * small, "gcl_rows": inv * per_chunk * large,
         "coord_rows": per_chunk * large,
         "sp_gcl_rows": inv * (n_train * (1 + 4 * L) + n_eval * (1 + 3 * L)),
         "sp_coord_rows": n_train * (1 + 2 * L) + n_eval * (1 + 3 * L),
-        "sp_gcl_rows_bwd": inv * 2 * L * n_train, "sp_coord_rows_bwd": 2 * L * n_train})
+        "sp_gcl_rows_bwd": inv * 2 * L * n_train, "sp_coord_rows_bwd": 2 * L * n_train}.items()})
     for r in replicas:
         _check(r["launches"] == expected,
                f"rank {r['rank']} launches {r['launches']} != {expected} (pads {pads})")
@@ -1557,7 +1575,7 @@ def phase_sp_train(card_name, tmpdir):
         model, _, _ = load_reference_checkpoint(os.path.join(outdir, "sp", name), "cuda", True)
         _check(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
                f"checkpoint {name} not finite")
-    print(f"phase 16: {rule}; {n_train} steps (pads {pads['train']}), losses "
+    print(f"phase {phase}: {rule}; {n_train} steps (pads {pads['train']}), losses "
           f"{[round(v, 4) for v in losses]}, valid NLL {summary['nll_val'][0]:.4f}, test NLL "
           f"{summary['nll_test'][0]:.4f}, stability {summary['stability'][0]} on every rank; "
           f"launches per rank {json.dumps(replicas[0]['launches'])} = what the code implies "
@@ -2044,12 +2062,18 @@ _BF16_SEPARATION = 10.0
 # bf16 kernels in a row, each rounding ties the other way than the plain
 # version at ~1/20 of bf16's own effect (phase 23), and those flips
 # compound through the chain (9.1x on the mean at QM9 on an H100 80GB HBM3
-# at 700 W, PERF.md; half of a deep block's weight-gradient elements one bf16
-# step apart).
+# at 700 W, PERF.md; up to 52% of a weight gradient's elements one bf16 step
+# apart, tests/torch_port_bf16_sites.py:STEP_FLIP_SHARE).
 _BF16_STEP_SEPARATION = 5.0
 # A bf16 train step's loss, card vs CPU: a mean over the batch of sums whose
 # bf16 operands may round the other way at a tie under another sum order.
+# Within _BF16_LOSS_RTOL of it, or _BF16_STEP_SEPARATION times closer to the
+# CPU's bf16 loss than that is to its f32 loss (the GEOM pad-184 step: 1.1e-4
+# of the loss apart, 7x closer, PERF.md §2).
 _BF16_LOSS_RTOL = 1e-4
+# A whole run takes ~410 s on an H100 (PERF.md); past this, every thread's
+# stack goes to standard error, once.
+_STALL_SECONDS = 900
 # Dense bf16 on the H100's tensor cores (data sheet).
 _BF16_PEAK = 989.0e12
 
@@ -2284,19 +2308,27 @@ def _bf16_sites():
 def _bf16_grads_check(what, names, got, want, want_f32, want_cot, step=False):
     """tests/torch_port_bf16_sites.py's bf16_grads_report at _BF16_RTOL
     (every tensor within the gate, weight gradients but for their one-step
-    rounding flips; on the mean over every element, each in units of its
-    tensor's max(1, max|ref|), _BF16_SEPARATION times closer to the plain
-    bf16 version than to the plain f32 one and to want_cot; ``step``: a whole
-    train step, _BF16_STEP_SEPARATION and no cap on the flips) or SmokeFailure
-    -> (max|d| / max(1, max|ref|), worst tensor, the three means, flips,
-    max|d|)."""
+    rounding flips, at most FLIP_SHARE of a tensor; on the mean over every
+    element, each in units of its tensor's max(1, max|ref|), _BF16_SEPARATION
+    times closer to the plain bf16 version than to the plain f32 one and to
+    want_cot; ``step``: a whole train step, STEP_FLIP_SHARE and
+    _BF16_STEP_SEPARATION) or SmokeFailure -> the report (max_rel, worst,
+    the three means, flips, max_flip_share, worst_flip, max_abs)."""
     sites = _bf16_sites()
     _check(sites.SEPARATION == _BF16_SEPARATION, "the separation of the sites helper changed")
     r = sites.bf16_grads_report(names, got, want, want_f32, want_cot, _BF16_RTOL,
-                                *((1.0, _BF16_STEP_SEPARATION) if step else ()))
+                                *((sites.STEP_FLIP_SHARE, _BF16_STEP_SEPARATION) if step
+                                  else ()))
     _check(not r["problems"], f"{what}: {'; '.join(r['problems'])}")
-    return (r["max_rel"], r["worst"], r["mean_err"], r["mean_to_f32"], r["mean_to_cotangent"],
-            r["flips"], r["max_abs"])
+    return r
+
+
+def _bf16_fields(rep):
+    """A phase-23 row's fields from _bf16_grads_check's report."""
+    return {"max_rel_err": rep["max_rel"], "worst": rep["worst"], "mean_err": rep["mean_err"],
+            "mean_to_f32": rep["mean_to_f32"], "mean_to_cotangent": rep["mean_to_cotangent"],
+            "flips": rep["flips"], "max_flip_share": rep["max_flip_share"],
+            "worst_flip": rep["worst_flip"], "max_abs_err": rep["max_abs"]}
 
 
 def phase_bf16_backward(card):
@@ -2333,7 +2365,8 @@ def phase_bf16_backward(card):
     def record(row, what):
         rows.append(row)
         print(f"phase 23: {what} max|d|/max(1,|ref|) {row['max_rel_err']:.2e} ({row['worst']}; "
-              f"tol {_BF16_RTOL}; {row['flips']} weight-gradient elements one bf16 step off); "
+              f"tol {_BF16_RTOL}; {row['flips']} weight-gradient elements one bf16 step off, at "
+              f"most {row['max_flip_share']:.2%} of a tensor ({row['worst_flip']})); "
               f"mean |d|/max(1,|ref|) over every element {row['mean_err']:.3e} to plain "
               f"bf16, {row['mean_to_f32']:.3e} to plain f32, {row['mean_to_cotangent']:.3e} to "
               f"rounded cotangents; kernel {row['ms']:.4f} ms, f32 kernel {row['f32_ms']:.4f} "
@@ -2367,8 +2400,7 @@ def phase_bf16_backward(card):
         want_f32 = flat(egnn_block.block_backward_plain(block, *inputs[0]))
         with unrounded("cotangent", E):
             want_cot = flat(egnn_block.block_backward_plain(block, *inputs[0], compute_dtype=bf16))
-        err, worst, e, f, c, flips, abs_err = _bf16_grads_check(f"#2 bf16 N={n}", names, flat(got),
-                                                       want, want_f32, want_cot)
+        rep = _bf16_grads_check(f"#2 bf16 N={n}", names, flat(got), want, want_f32, want_cot)
         del got, want, want_f32, want_cot
         ms = _time_ms(lambda *a: egnn_block.block_backward_cuda(block, *a, compute_dtype=bf16),
                       inputs)
@@ -2377,9 +2409,7 @@ def phase_bf16_backward(card):
             block, *a, compute_dtype=bf16), inputs, warmup=1, reps=3)
         n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
         bound, bound_by = _bf16_bounds(*_bwd_work(block.cfg, n_real, n, n_weights)[:2])
-        record({"kernel": "egnn_block_bwd", "N": n, "B": B, "H": H, "max_rel_err": err,
-                "worst": worst, "mean_err": e, "mean_to_f32": f, "mean_to_cotangent": c,
-                "flips": flips, "max_abs_err": abs_err,
+        record({"kernel": "egnn_block_bwd", "N": n, "B": B, "H": H, **_bf16_fields(rep),
                 "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by}, f"egnn_block_bwd bf16 N={n} B={B} H={H}: {len(names)} "
                                        f"tensors; the saved route and a replay bit-identical;")
@@ -2419,8 +2449,8 @@ def phase_bf16_backward(card):
             want_f32 = flat(plain_fn(mod, *args[0]))
             with unrounded("cotangent", E):
                 want_cot = flat(plain_fn(mod, *args[0], compute_dtype=bf16))
-            err, worst, e, f, c, flips, abs_err = _bf16_grads_check(f"#5 bf16 {stage} N={n}", names, got,
-                                                           want, want_f32, want_cot)
+            rep = _bf16_grads_check(f"#5 bf16 {stage} N={n}", names, got, want, want_f32,
+                                    want_cot)
             del got, want, want_f32, want_cot
             ms = _time_ms(lambda *a, m=mod, fn=cuda_fn: fn(m, *a, compute_dtype=bf16), args,
                           warmup=2, reps=10)
@@ -2430,9 +2460,7 @@ def phase_bf16_backward(card):
             n_weights = sum(p.numel() for p in mod.parameters())
             bound, bound_by = _bf16_bounds(*_stage_bwd_work(block.cfg, n_real, n, n_weights,
                                                             stage == "coord_rows")[:2])
-            record({"kernel": f"{stage}_bwd", "N": n, "B": B, "H": H, "max_rel_err": err,
-                    "worst": worst, "mean_err": e, "mean_to_f32": f, "mean_to_cotangent": c,
-                    "flips": flips, "max_abs_err": abs_err,
+            record({"kernel": f"{stage}_bwd", "N": n, "B": B, "H": H, **_bf16_fields(rep),
                     "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": bound_by},
                    f"{stage} backward (#5) bf16 N={n} B={B} H={H}: a replay{chain_txt}")
@@ -2492,9 +2520,8 @@ def phase_bf16_backward(card):
                         with unrounded("cotangent", E):
                             want_cot = flat(plain(mod, *args[0], compute_dtype=bf16), 6)
                     kname = "egnn_sp_fwd" if direction == "fwd" else "egnn_sp_bwd"
-                    err, worst, e, f, c, flips, abs_err = _bf16_grads_check(
-                        f"{kname} bf16 {stage} N={n} row0 {row0}", names, got, want, want_f32,
-                        want_cot)
+                    rep = _bf16_grads_check(f"{kname} bf16 {stage} N={n} row0 {row0}", names,
+                                            got, want, want_f32, want_cot)
                     del got, again, want, want_f32, want_cot
                     with torch.no_grad():
                         ms = _time_ms(lambda *a, m=mod, fn=kernel: fn(m, *a, compute_dtype=bf16),
@@ -2507,9 +2534,7 @@ def phase_bf16_backward(card):
                         block.cfg, n_real, n, row0, s, n_weights, stage == "coord_rows",
                         direction == "bwd")[:2])
                     record({"kernel": kname, "stage": stage, "N": n, "S": s, "row0": row0,
-                            "B": B, "H": H, "max_rel_err": err, "worst": worst,
-                            "mean_err": e, "mean_to_f32": f, "mean_to_cotangent": c,
-                            "flips": flips, "max_abs_err": abs_err, "ms": ms,
+                            "B": B, "H": H, **_bf16_fields(rep), "ms": ms,
                             "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": bound,
                             "bound_by": bound_by},
                            f"{kname} bf16 {stage} N={n} S={s} row0={row0} B={B} H={H}: a "
@@ -2662,23 +2687,18 @@ def _sp_step_rank_bf16(raw, grp):
     return {"loss": loss, "grads": {k: g.numpy() for k, g in grads.items()}, "ranks": ranks}
 
 
-# SP-2 vs one rank in bf16 (phase 25, tests/test_torch_port_bf16_train.py):
-# each rank rounds its slab's share of the dst projection's and the weights'
-# gradients (as JAX's sp_stage_apply), so the steps differ at bf16's own
-# rounding level: per tensor within _SP_BF16_RTOL * max|ref| (a factor of S or
-# a stage run twice differs by order 1), and on the mean at least
-# _SP_BF16_SEPARATION times closer to the one-rank bf16 step than to its f32
-# step.
-_SP_BF16_RTOL, _SP_BF16_SEPARATION = 0.1, 4.0
-
-
-def phase_bf16_sp(card):
-    """Phase 25: an SP-2 bf16 train step (two ranks sharing the card over
-    gloo: #6 and #7 bf16 on both slabs) against the same step on one rank in
-    bf16 (phase 17's batch: GEOM recipe, B=2, pad 184), and against the
-    one-rank f32 step."""
+def phase_bf16_sp(card, tmpdir):
+    """Phase 25: bf16 training under ``--sp 2`` on one card. First
+    ``cli.main_geom_drugs --sp 2 --compute_dtype bfloat16`` at phase 16's
+    recipe (two ranks sharing the card over gloo): exact per-rank launches,
+    every one a bf16 kernel (#6/#7 bf16 over the slabs, the stability
+    samples on #1/#3/#4 bf16). Then an SP-2 bf16 train step against the same
+    step on one rank in bf16 and in f32 (phase 17's batch: GEOM recipe, B=2,
+    pad 184), held to tests/torch_port_bf16_sites.py's sp_grads_report."""
     from geoldm_tpu_torch.parallel import sp
 
+    cli = phase_sp_train(card, tmpdir, "bfloat16", 25)
+    sites = _bf16_sites()
     raw, _ = _phase17_batches()
     t0 = time.time()
     _, loss_ref, grads_ref, launches_ref = _train_step_grads("cuda", raw, None, "bfloat16")
@@ -2698,35 +2718,23 @@ def phase_bf16_sp(card):
            "the ranks' bf16 gradients differ after the all-reduce")
     _check(abs(got["loss"] - loss_ref) <= _LOSS_RTOL * abs(loss_ref),
            f"bf16 loss SP {got['loss']} vs one rank {loss_ref}")
-    _check(set(got["grads"]) == set(grads_ref), "SP and one rank gave gradients to different "
-                                                "parameters")
-    worst, worst_name, err, dist = 0.0, "", 0.0, 0.0
-    for k, ref in grads_ref.items():
-        g = got["grads"][k]
-        ref, f32 = ref.numpy(), grads_f32[k].numpy()
-        _check(bool(np.isfinite(g).all()), f"SP bf16 gradient of {k} not finite")
-        scale = float(np.abs(ref).max())
-        d = float(np.abs(g - ref).max())
-        _check(d <= _SP_BF16_RTOL * scale, f"bf16 gradient of {k}: SP vs one rank max|d|="
-                                           f"{d:.3e} > {_SP_BF16_RTOL}*{scale:.3e}")
-        err += float(np.abs(g - ref).mean()) / scale
-        dist += float(np.abs(g - f32).mean()) / scale
-        if d / scale >= worst:
-            worst, worst_name = d / scale, k
-    _check(_SP_BF16_SEPARATION * err <= dist,
-           f"SP bf16 step: mean distance {dist:.3e} to the one-rank f32 step is not "
-           f"{_SP_BF16_SEPARATION:g}x its mean distance {err:.3e} to the one-rank bf16 step")
+    rep = sites.sp_grads_report(got["grads"], {k: g.numpy() for k, g in grads_ref.items()},
+                                {k: g.numpy() for k, g in grads_f32.items()})
+    _check(not rep["problems"], f"SP bf16 step vs one rank: {'; '.join(rep['problems'])}")
+    err, dist = rep["mean_err"], rep["mean_to_f32"]
     shown = {k: v for k, v in got["ranks"][0]["launches"].items() if v}
     print(f"phase 25: SP-2 bf16 train-step gradient GEOM nf=256 4+4 blocks B=2 pad 184: loss SP "
           f"{got['loss']:.6f} one rank {loss_ref:.6f} (f32 {loss_f32:.6f}); {len(grads_ref)} "
-          f"parameter tensors, worst max|d|/max|ref| {worst:.2e} ({worst_name}; tol "
-          f"{_SP_BF16_RTOL}); mean {err:.3e} to the one-rank bf16 step, {dist:.3e} to its f32 "
-          f"step ({dist / max(err, 1e-30):.1f}x); launches per rank {json.dumps(shown)}; both "
-          f"ranks' gradients bit-identical; {wall:.1f} s on {card}", flush=True)
-    return {"loss_sp": got["loss"], "loss_one_rank": loss_ref, "worst_rel": worst,
-            "worst": worst_name, "mean_err": err, "mean_to_f32": dist,
-            "launches": {k: sum(r["launches"][k] for r in got["ranks"]) for k in per_rank},
-            "seconds": wall}
+          f"parameter tensors, worst max|d|/max|ref| {rep['worst_rel']:.2e} ({rep['worst']}; "
+          f"tol {sites.SP_RTOL}), one-element tensors {rep['one_element']:.2e} (tol the larger "
+          f"of that and their bf16-vs-f32 distance); mean {err:.3e} to the one-rank bf16 step, "
+          f"{dist:.3e} to its f32 step ({dist / max(err, 1e-30):.1f}x, at least "
+          f"{sites.SP_SEPARATION:g}x); launches per rank {json.dumps(shown)}; both ranks' "
+          f"gradients bit-identical; {wall:.1f} s on {card}", flush=True)
+    return {"cli": cli, "loss_sp": got["loss"], "loss_one_rank": loss_ref,
+            "worst_rel": rep["worst_rel"], "worst": rep["worst"],
+            "one_element": rep["one_element"], "mean_err": err, "mean_to_f32": dist,
+            "launches_per_rank": [r["launches"] for r in got["ranks"]], "seconds": wall}
 
 
 def main(argv=None) -> int:
@@ -2741,6 +2749,7 @@ def main(argv=None) -> int:
     from geoldm_tpu_torch.ops import cuda_build
 
     t_start = time.time()
+    faulthandler.dump_traceback_later(_STALL_SECONDS, exit=False)
     card = _card_line()
     card_name = torch.cuda.get_device_name(0)
     _check(_H100_SXM in card, f"bound_ms uses the H100 SXM's data-sheet peaks; "
@@ -2832,7 +2841,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         bf16_train = phase_bf16_train(card, tmpdir)
     lap("24")
-    bf16_sp = phase_bf16_sp(card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        bf16_sp = phase_bf16_sp(card, tmpdir)
     lap("25")
     qm9_run.cleanup()
     geom_run.cleanup()
@@ -2896,7 +2906,8 @@ def main(argv=None) -> int:
     # The bf16 main paths: serving at bfloat16_mixed (phase 22) and bf16
     # training (phase 24: QM9 and GEOM through the CLIs); SP bf16 training
     # (phase 25's ranks).
-    bf16_paths = [bf16_launches, bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"]]
+    bf16_paths = [bf16_launches, bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"],
+                  bf16_sp["cli"]["launches"]]
 
     def bf16_entry(kernel, name, source, replaces):
         # The bf16 forward variants at the main paths' widest shapes (QM9
@@ -2925,14 +2936,14 @@ def main(argv=None) -> int:
 
     def bf16_sp_entry(direction, line):
         # As sp_entry: a block's two stages on the second slab of N=184 over 2
-        # ranks; launches summed over phase 25's ranks.
+        # ranks; launches summed over the ranks of phase 25's CLI run.
         kname = f"egnn_sp_{direction}"
         main = [r for r in bf16_bwd_rows if r["kernel"] == kname and r["N"] == 184
                 and r["row0"] == r["S"]]
         suffix = "_bf16" if direction == "fwd" else "_bwd_bf16"
-        n_launched = sum(bf16_sp["launches"][f"sp_{stage}{suffix}"]
+        n_launched = sum(bf16_sp["cli"]["launches"][f"sp_{stage}{suffix}"]
                          for stage in ("gcl_rows", "coord_rows"))
-        _check(n_launched > 0, f"{kname}_bf16 was not launched on phase 25's ranks")
+        _check(n_launched > 0, f"{kname}_bf16 was not launched in phase 25's CLI run")
         return {"name": f"{kname}_bf16", "route": "cuda",
                 "source": "geoldm_tpu_torch/csrc/egnn_sp.cu",
                 "replaces": f"geoldm_tpu/ops/pallas_egnn_sp.py:{line}", "launches": n_launched,

@@ -354,16 +354,18 @@ def _function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weights):
 
 class EquivariantBlockFunction(torch.autograd.Function):
     """One block with the kernels as forward and backward:
-    ``apply(block, h, x, x0, node_mask, *block_params(block))``. Saves the
-    block inputs, the weights and, on the card, the forward kernel's
-    activations (4 * inv_sublayers * B*N*H floats), so the backward kernel
-    does not recompute the forward. On CPU tensors it runs the plain
-    versions (for tests), which save no activations. Its bf16 twin
-    ``EquivariantBlockFunctionBF16`` runs the bf16 variants."""
+    ``apply(block, compute_dtype, h, x, x0, node_mask, *block_params(block))``.
+    Saves the block inputs, the weights and, on the card, the forward
+    kernel's activations (4 * inv_sublayers * B*N*H floats), so the backward
+    kernel does not recompute the forward. On CPU tensors it runs the plain
+    versions (for tests), which save no activations. ``compute_dtype``
+    torch.bfloat16 runs the bf16 variants: the bf16 forward kernel saving
+    its chain, then the bf16 backward kernel (on the CPU the plain bf16
+    versions)."""
 
     @staticmethod
-    def forward(ctx, block, h, x, x0, node_mask, *weights):
-        return _function_forward(ctx, None, block, h, x, x0, node_mask, weights)
+    def forward(ctx, block, compute_dtype, h, x, x0, node_mask, *weights):
+        return _function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weights)
 
     @staticmethod
     @once_differentiable
@@ -376,17 +378,7 @@ class EquivariantBlockFunction(torch.autograd.Function):
         else:
             dh, dx, dx0, dws = block_backward_plain(ctx.block, h, x, x0, node_mask, dh_out,
                                                     dx_out, weights, dtype)
-        return (None, dh, dx, dx0, None, *dws)
-
-
-class EquivariantBlockFunctionBF16(EquivariantBlockFunction):
-    """``EquivariantBlockFunction`` with the bf16 variants: the bf16 forward
-    kernel saving its chain, then the bf16 backward kernel (on the CPU the
-    plain bf16 versions)."""
-
-    @staticmethod
-    def forward(ctx, block, h, x, x0, node_mask, *weights):
-        return _function_forward(ctx, torch.bfloat16, block, h, x, x0, node_mask, weights)
+        return (None, None, dh, dx, dx0, None, *dws)
 
 
 def block_forward(block, h, x, x0, node_mask, compute_dtype=None):
@@ -396,19 +388,18 @@ def block_forward(block, h, x, x0, node_mask, compute_dtype=None):
     ``compute_dtype`` torch.bfloat16 selects the bf16 variants, forward and
     backward."""
     train = torch.is_grad_enabled()
-    bf16 = bf16_variant(compute_dtype, "egnn_block")
+    bf16_variant(compute_dtype, "egnn_block")  # a compute name raises here
     if h.shape[1] > MAX_NODES:
         from geoldm_tpu_torch.ops import egnn_tiled
 
         if train:
-            fn = (egnn_tiled.TiledEquivariantBlockFunctionBF16 if bf16
-                  else egnn_tiled.TiledEquivariantBlockFunction)
-            return fn.apply(block, h, x, x0, node_mask, *block_params(block))
+            return egnn_tiled.TiledEquivariantBlockFunction.apply(
+                block, compute_dtype, h, x, x0, node_mask, *block_params(block))
         return egnn_tiled.tiled_block_forward(block, h, x, x0, node_mask, compute_dtype)
     if h.is_cuda:
         if train:
-            fn = EquivariantBlockFunctionBF16 if bf16 else EquivariantBlockFunction
-            return fn.apply(block, h, x, x0, node_mask, *block_params(block))
+            return EquivariantBlockFunction.apply(block, compute_dtype, h, x, x0, node_mask,
+                                                  *block_params(block))
         return block_forward_cuda(block, h, x, x0, node_mask, compute_dtype)
     if h.device.type == "cpu":
         return block_forward_plain(block, h, x, x0, node_mask, compute_dtype=compute_dtype)

@@ -656,7 +656,9 @@ def _tiled_function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weig
 
 class TiledEquivariantBlockFunction(torch.autograd.Function):
     """One block through the row-tiled stages, forward and backward:
-    ``apply(block, h, x, x0, node_mask, *block_params(block))``. The forward
+    ``apply(block, compute_dtype, h, x, x0, node_mask, *block_params(block))``
+    (``compute_dtype`` None or torch.bfloat16, the bf16 variants of #3/#4,
+    keeping each GCL's chain in the backward's re-run, and #5). The forward
     is ``tiled_block_forward``; only the block inputs and the weights are
     saved. The backward re-runs the GCL chain (#3) for each GCL's input and
     keeps each GCL's node chain (the aggregate, z and silu(z)), runs the
@@ -664,12 +666,11 @@ class TiledEquivariantBlockFunction(torch.autograd.Function):
     handing it its node chain, so that #5 runs no GCL edge grid of its own,
     and sums dx and dx0. On CPU tensors it runs the plain versions with the
     given weights (for tests, and to keep the CPU's memory to one stage's),
-    the chain handed over likewise. Its bf16 twin
-    ``TiledEquivariantBlockFunctionBF16`` runs the bf16 variants."""
+    the chain handed over likewise."""
 
     @staticmethod
-    def forward(ctx, block, h, x, x0, node_mask, *weights):
-        return _tiled_function_forward(ctx, None, block, h, x, x0, node_mask, weights)
+    def forward(ctx, block, compute_dtype, h, x, x0, node_mask, *weights):
+        return _tiled_function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weights)
 
     @staticmethod
     @once_differentiable
@@ -713,14 +714,4 @@ class TiledEquivariantBlockFunction(torch.autograd.Function):
             g, dx_j, dx0_j, d_gcls[j] = gcl_bwd(j, hs[j], x, x0, node_mask, g, chain=chains[j])
             dx = dx + dx_j
             dx0 = dx0 + dx0_j
-        return (None, g, dx, dx0, None, *[w for ws in d_gcls + [d_coord] for w in ws])
-
-
-class TiledEquivariantBlockFunctionBF16(TiledEquivariantBlockFunction):
-    """``TiledEquivariantBlockFunction`` with the bf16 variants of #3/#4
-    (keeping each GCL's chain in the backward's re-run) and #5."""
-
-    @staticmethod
-    def forward(ctx, block, h, x, x0, node_mask, *weights):
-        return _tiled_function_forward(ctx, torch.bfloat16, block, h, x, x0, node_mask,
-                                       weights)
+        return (None, None, g, dx, dx0, None, *[w for ws in d_gcls + [d_coord] for w in ws])

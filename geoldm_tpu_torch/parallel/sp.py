@@ -282,21 +282,22 @@ def _sp_function_forward(ctx, compute_dtype, block, grp, mean_div, h, x, x0, nod
 
 class SPEquivariantBlockFunction(torch.autograd.Function):
     """One block over this rank's slab, forward and backward:
-    ``apply(block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full,
-    *block_params(block))``. The forward is ``sp_block_forward``; only the
+    ``apply(block, compute_dtype, grp, mean_div, h, x, x0, node_mask,
+    x0_full, mask_full, *block_params(block))`` (``compute_dtype`` None or
+    torch.bfloat16, the bf16 variants of #6 and #7). The forward is ``sp_block_forward``; only the
     block inputs and the weights are saved. The backward re-runs the gathers
     and the GCL chain (#6), keeping each GCL's node chain over the slab, runs
     #7 over the stages in reverse, handing each GCL stage its chain, and
     reduce-scatters each stage's full-view dh and the block's summed
     full-view dx; the full-view dx0 is x0_full's gradient. Every rank runs
     the same collectives in the same order. On CPU tensors it runs the plain
-    versions with the given weights. Its bf16 twin
-    ``SPEquivariantBlockFunctionBF16`` runs the bf16 variants."""
+    versions with the given weights."""
 
     @staticmethod
-    def forward(ctx, block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full, *weights):
-        return _sp_function_forward(ctx, None, block, grp, mean_div, h, x, x0, node_mask,
-                                    x0_full, mask_full, weights)
+    def forward(ctx, block, compute_dtype, grp, mean_div, h, x, x0, node_mask, x0_full,
+                mask_full, *weights):
+        return _sp_function_forward(ctx, compute_dtype, block, grp, mean_div, h, x, x0,
+                                    node_mask, x0_full, mask_full, weights)
 
     @staticmethod
     @once_differentiable
@@ -343,17 +344,8 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
             dx_f, dx0_f = dx_f + dx_fj, dx0_f + dx0_fj
             dx, dx0 = dx + dx_j, dx0 + dx0_j
         dx = dx + reduce_scatter_rows(dx_f, grp)
-        return (None, None, None, g, dx, dx0, None, dx0_f, None,
+        return (None, None, None, None, g, dx, dx0, None, dx0_f, None,
                 *[w for ws in d_gcls + [d_coord] for w in ws])
-
-
-class SPEquivariantBlockFunctionBF16(SPEquivariantBlockFunction):
-    """``SPEquivariantBlockFunction`` with the bf16 variants of #6 and #7."""
-
-    @staticmethod
-    def forward(ctx, block, grp, mean_div, h, x, x0, node_mask, x0_full, mask_full, *weights):
-        return _sp_function_forward(ctx, torch.bfloat16, block, grp, mean_div, h, x, x0,
-                                    node_mask, x0_full, mask_full, weights)
 
 
 def egnn_forward_sp(egnn, h, x, node_mask, grp: SPGroup, compute_dtype=None):
@@ -374,12 +366,12 @@ def egnn_forward_sp(egnn, h, x, node_mask, grp: SPGroup, compute_dtype=None):
     x0, x0_full = x, x_full  # x0 is the EGNN's input x, in both views
     s = h.shape[1]
     mask = node_mask[:, grp.rank * s:(grp.rank + 1) * s].contiguous()
-    fn = SPEquivariantBlockFunction if compute_dtype is None else SPEquivariantBlockFunctionBF16
     for i in range(egnn.cfg.n_layers):
         block = getattr(egnn, f"e_block_{i}")
         args = (grp, n, h, x, x0, mask, x0_full, node_mask)
         if torch.is_grad_enabled():
-            h, x = fn.apply(block, *args, *egnn_block.block_params(block))
+            h, x = SPEquivariantBlockFunction.apply(block, compute_dtype, *args,
+                                                    *egnn_block.block_params(block))
         else:
             h, x = sp_block_forward(block, *args, compute_dtype)
     h = _Leave.apply(h, grp)

@@ -248,8 +248,8 @@ def test_bf16_egnn_matches_jax_bfloat16_full(n, n_real):
 
 def test_bf16_refuses_autograd_and_sequence_parallelism(monkeypatch):
     """(Named for the refusals it held before bf16 training.) bf16 now runs
-    under autograd and under sequence parallelism: the blocks' bf16
-    Functions give the plain bf16 backward's gradients (the whole-molecule
+    under autograd and under sequence parallelism: the blocks' Functions in
+    bf16 give the plain bf16 backward's gradients (the whole-molecule
     one exactly, the row-tiled one within BLOCK_RTOL, its sums in another
     order), and the SP EGNN hands its dtype to the slab path. The kernel
     wrappers, forward and backward, still take no compute name (the
@@ -271,11 +271,11 @@ def test_bf16_refuses_autograd_and_sequence_parallelism(monkeypatch):
             fn(mod, h, x, x0, mask, *extra, compute_dtype="bfloat16")
     want = egnn_block.block_backward_plain(block, h, x, x0, mask, *cots, compute_dtype=BF16)
     want = [*want[:3], *want[3]]
-    for fn, rtol in ((egnn_block.EquivariantBlockFunctionBF16, 0.0),
-                     (egnn_tiled.TiledEquivariantBlockFunctionBF16, BLOCK_RTOL)):
+    for fn, rtol in ((egnn_block.EquivariantBlockFunction, 0.0),
+                     (egnn_tiled.TiledEquivariantBlockFunction, BLOCK_RTOL)):
         inputs = [a.clone().requires_grad_() for a in (h, x, x0)]
         ws = egnn_block.block_params(block)
-        outs = fn.apply(block, *inputs[:3], mask, *ws)
+        outs = fn.apply(block, BF16, *inputs[:3], mask, *ws)
         got = torch.autograd.grad(outs, inputs + ws, cots)
         for name, g, w in zip(["dh", "dx", "dx0"] + egnn_block.block_param_names(block), got,
                               want):

@@ -100,11 +100,11 @@ def test_block_function_gradcheck(variant):
     h.requires_grad_()
     if cfg.sin_embedding:
         def f(h_, *w):
-            return egnn_block.EquivariantBlockFunction.apply(block, h_, x, x0, mask, *w)
+            return egnn_block.EquivariantBlockFunction.apply(block, None, h_, x, x0, mask, *w)
         inputs = (h, *ws)
     else:
         def f(h_, x_, x0_, *w):
-            return egnn_block.EquivariantBlockFunction.apply(block, h_, x_, x0_, mask, *w)
+            return egnn_block.EquivariantBlockFunction.apply(block, None, h_, x_, x0_, mask, *w)
         inputs = (h, x.requires_grad_(), x0.requires_grad_(), *ws)
     assert torch.autograd.gradcheck(f, inputs, eps=1e-6, atol=1e-5)
 

@@ -123,7 +123,8 @@ def test_tiled_block_function_matches_jax_vjp(variant):
 
     inputs = [t(a).requires_grad_() for a in arrays[:3]]
     ws = [w.detach().clone().requires_grad_() for w in egnn_block.block_params(block)]
-    outs = egnn_tiled.TiledEquivariantBlockFunction.apply(block, *inputs, t(arrays[3]), *ws)
+    outs = egnn_tiled.TiledEquivariantBlockFunction.apply(block, None, *inputs, t(arrays[3]),
+                                                          *ws)
     grads = torch.autograd.grad(outs, inputs + ws, (t(gh), t(gx)))
     for name, g, w in zip(("dh", "dx", "dx0"), grads[:3], (dh_j, dx_j, dx0_j)):
         _assert_close(g.numpy(), w, name)
@@ -193,11 +194,12 @@ def test_tiled_block_function_gradcheck(variant):
     h.requires_grad_()
     if cfg.sin_embedding:
         def f(h_, *w):
-            return egnn_tiled.TiledEquivariantBlockFunction.apply(block, h_, x, x0, mask, *w)
+            return egnn_tiled.TiledEquivariantBlockFunction.apply(block, None, h_, x, x0, mask, *w)
         inputs = (h, *ws)
     else:
         def f(h_, x_, x0_, *w):
-            return egnn_tiled.TiledEquivariantBlockFunction.apply(block, h_, x_, x0_, mask, *w)
+            return egnn_tiled.TiledEquivariantBlockFunction.apply(block, None, h_, x_, x0_, mask,
+                                                                 *w)
         inputs = (h, x.requires_grad_(), x0.requires_grad_(), *ws)
     assert torch.autograd.gradcheck(f, inputs, eps=1e-6, atol=1e-5, fast_mode=True)
 
@@ -252,7 +254,8 @@ def test_tiled_block_function_hands_each_gcl_its_chain(variant, monkeypatch):
         monkeypatch.setattr(egnn_tiled, "gcl_rows_backward_plain", stage_bwd)
         inputs = [t(a).requires_grad_() for a in arrays[:3]]
         ws = [w.detach().clone().requires_grad_() for w in egnn_block.block_params(block)]
-        outs = egnn_tiled.TiledEquivariantBlockFunction.apply(block, *inputs, t(arrays[3]), *ws)
+        outs = egnn_tiled.TiledEquivariantBlockFunction.apply(block, None, *inputs,
+                                                              t(arrays[3]), *ws)
         return torch.autograd.grad(outs, inputs + ws, (t(gh), t(gx)))
 
     withheld, given = grads(True), grads(False)
