@@ -2727,7 +2727,7 @@ def phase_bf16_sp(card, tmpdir):
           f"{got['loss']:.6f} one rank {loss_ref:.6f} (f32 {loss_f32:.6f}); {len(grads_ref)} "
           f"parameter tensors, worst max|d|/max|ref| {rep['worst_rel']:.2e} ({rep['worst']}; "
           f"tol {sites.SP_RTOL}), one-element tensors {rep['one_element']:.2e} (tol the larger "
-          f"of that and their bf16-vs-f32 distance); mean {err:.3e} to the one-rank bf16 step, "
+          f"of that and 1/{sites.SP_SEPARATION:g} of their bf16-vs-f32 distance); mean {err:.3e} to the one-rank bf16 step, "
           f"{dist:.3e} to its f32 step ({dist / max(err, 1e-30):.1f}x, at least "
           f"{sites.SP_SEPARATION:g}x); launches per rank {json.dumps(shown)}; both ranks' "
           f"gradients bit-identical; {wall:.1f} s on {card}", flush=True)

@@ -21,8 +21,8 @@ from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
 from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
 from geoldm_tpu_torch.parallel import sp
 import torch_port_sp_ranks
-from torch_port_bf16_sites import (BWD_SITES, SITES, STEP_FLIP_SHARE, assert_separated,
-                                   bf16_flips, bf16_grads_report, flips_allowed, unrounded)
+from torch_port_bf16_sites import (BWD_SITES, FLIP_SHARE, SITES, assert_separated, bf16_flips,
+                                   bf16_grads_report, flips_allowed, unrounded)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -1126,8 +1126,8 @@ def test_bf16_egnn_under_grad_runs_the_bf16_kernels_only(card):
     or #3 bf16 twice (the backward's re-run keeps the chain), #4 bf16 once
     and #5 bf16 once per stage; its gradients match the CPU's plain bf16
     path within the bf16 gate (weight gradients but for their one-step
-    rounding flips, at most ``flips_allowed`` at STEP_FLIP_SHARE: three
-    blocks of kernels in a row, as in a train step)."""
+    rounding flips, at most ``flips_allowed`` at FLIP_SHARE: 27.6 % of a
+    192-element weight read on an H100 80GB HBM3 at 700 W)."""
     from geoldm_tpu_torch.nn.egnn import EGNN
     from geoldm_tpu_torch.ops import kernel_launches, reset_kernel_launches
 
@@ -1154,5 +1154,5 @@ def test_bf16_egnn_under_grad_runs_the_bf16_kernels_only(card):
         for k, g in grads["cpu"].items():
             got = grads["cuda"][k]
             flips = bf16_flips(got, g) if k.endswith("weight") else torch.zeros_like(g, dtype=bool)
-            assert int(flips.sum()) <= flips_allowed(g.numel(), STEP_FLIP_SHARE), k
+            assert int(flips.sum()) <= flips_allowed(g.numel(), FLIP_SHARE), k
             _assert_bf16_close(got.masked_fill(flips, 0.0), g.masked_fill(flips, 0.0), k)
