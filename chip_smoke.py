@@ -2071,7 +2071,7 @@ _BF16_STEP_SEPARATION = 5.0
 # CPU's bf16 loss than that is to its f32 loss (the GEOM pad-184 step: 1.1e-4
 # of the loss apart, 7x closer, PERF.md §2).
 _BF16_LOSS_RTOL = 1e-4
-# A whole run takes ~410 s on an H100 (PERF.md); past this, every thread's
+# A whole run takes ~370 s on an H100 (PERF.md); past this, every thread's
 # stack goes to standard error, once.
 _STALL_SECONDS = 900
 # Dense bf16 on the H100's tensor cores (data sheet).
