@@ -150,7 +150,24 @@ Phases (each prints a line; any failure exits non-zero before the result):
      --compute_dtype bfloat16 at phase 16's recipe (two ranks sharing the
      card over gloo; launches exact per rank, every one a bf16 kernel), then
      an SP-2 bf16 train step (#6/#7 bf16 on both slabs) against the one-rank
-     bf16 step.
+     bf16 step;
+ 26. conditional QM9 at the README's conditional recipe (nf=192, 9 layers,
+     latent_nf=1, normalize_factors [1, 8, 1], T=1000, alpha, --context_dropout
+     0.1, qm9_second_half) on fabricated splits: (a) #1 and #2, f32 and bf16,
+     at H=192 (64 masked channels in the tile) against their plain versions,
+     B=64, N in {16, 29}, with times and bounds; (b) 5 steps through
+     cli.main_qm9 --conditioning alpha with 50-jump stability samples, valid
+     and test NLL and the checkpoints (launches exact; args.pickle holds
+     conditioning ['alpha'] and context_indicator True; the checkpoints load
+     back); (c) the conditional train-step gradient (B=8, N=29, a fixed keep
+     mask) card vs CPU within 1e-3*max|ref|; (d) the property classifier
+     (nf=128, 7 layers) for one epoch through cli.main_qm9_prop; (e)
+     cli.eval_conditional_qm9 --task edm --cfg_scale 2 --clip_z 15 on (b)'s
+     and (d)'s checkpoints, (T+1)*2*9 + 9 launches of #1; (f) cli.serve on
+     (b)'s checkpoint with --datadir and --conditioning alpha: a seeded
+     properties request and its replay, a cfg_scale 2 request, a dense
+     request without properties and a misnamed property (400), launches
+     exact per request.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -689,10 +706,13 @@ class _Replay:
         return self.rng.integers(low, high, shape)
 
 
-def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
+def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None, cond=False):
     """Phase 8 (QM9: 9+9 blocks, B=8, N=29, kernel #2) or phase 14 (GEOM:
     4+4 blocks, B=2, pad 184, kernel #5): one train-step gradient on the card
-    against the plain path on the CPU, same weights, batch and noise. With a
+    against the plain path on the CPU, same weights, batch and noise. With
+    ``cond`` (phase 26) the QM9 step of the conditional recipe (nf=192,
+    normalize_factors [1, 8, 1], alpha and the guidance indicator as
+    context, a fixed keep mask nulling two molecules' context). With a
     ``compute_dtype`` name (phase 24: "bfloat16_pallas"), the step in it on
     both sides, the card's on the bf16 kernels, held to the bf16 gate
     (_bf16_grads_check: within _BF16_RTOL, on the mean _BF16_SEPARATION
@@ -704,10 +724,12 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
     from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.models.distributions import DistributionNodes
     from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
+    from geoldm_tpu_torch.train.conditioning import prepare_context
     from geoldm_tpu_torch.train.trainer import prepare_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    keep = np.array([1, 0, 1, 1, 1, 0, 1, 1], np.float32)[:, None, None]  # cond: the CFG null
     if geom:
         phase, info = 14, get_dataset_info("geom")
         cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
@@ -726,16 +748,27 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
             return egnn_tiled.gcl_rows_bwd_launches + egnn_tiled.coord_rows_bwd_launches
         expected = 8 * (cfg.dynamics.egnn.inv_sublayers + 1)
     else:
-        phase, info = 8, get_dataset_info("qm9")
-        cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
-                                                   diffusion_steps=1000, trainable_ae=True)
+        phase, info = (26, get_dataset_info("qm9_second_half")) if cond else (
+            8, get_dataset_info("qm9"))
+        extra = dict(nf=192, context_node_nf=1, context_indicator=True,
+                     normalize_factors=(1.0, 8.0, 1.0)) if cond else dict(nf=256)
+        cfg = factory.make_latent_diffusion_config(info, n_layers=9, latent_nf=1,
+                                                   diffusion_steps=1000, trainable_ae=True,
+                                                   **extra)
         raw = synthetic_batch(info, 8, 29, np.random.default_rng(11))
-        label = "nf=256 9+9 blocks B=8 N=29"
+        label = (f"conditional nf={extra['nf']} 9+9 blocks B=8 N=29 (alpha + indicator, "
+                 f"keep mask {keep.ravel().astype(int).tolist()})" if cond
+                 else "nf=256 9+9 blocks B=8 N=29")
 
         def bwd_launches():
             return egnn_block.bwd_bf16_launches if compute_dtype else egnn_block.bwd_launches
         expected = 18
     phase = phase_id or phase
+    context = None
+    if cond:
+        raw["alpha"] = np.random.default_rng(12).normal(75.0, 8.0, size=8).astype(np.float32)
+        context = prepare_context(["alpha"], raw, {"alpha": {"mean": 75.0, "mad": 6.5}},
+                                  indicator=True) * keep
     nll_fn = factory.model_nll_fn(cfg, training=True, compute_dtype=compute_dtype)
     nodes = DistributionNodes(info.n_nodes)
     grads, losses, seconds = {}, {}, {}
@@ -749,7 +782,8 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None):
         batch = prepare_batch(raw, nodes, dev)
         bwd = bwd_launches()
         nll = nll_fn(model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"],
-                     batch["node_mask"])
+                     batch["node_mask"],
+                     None if context is None else torch.from_numpy(context).to(dev))
         loss = (nll - batch["log_pN"]).mean()
         loss.backward()
         if device == "cuda":
@@ -2737,6 +2771,324 @@ def phase_bf16_sp(card, tmpdir):
             "launches_per_rank": [r["launches"] for r in got["ranks"]], "seconds": wall}
 
 
+def _qm9_block(hidden, seed):
+    import torch
+
+    from geoldm_tpu_torch.config import EGNNConfig
+    from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
+
+    # A QM9 recipe's denoiser block: attention, tanh, 'sum' over factor 1.
+    cfg = EGNNConfig(in_node_nf=2, out_node_nf=2, hidden_nf=hidden, n_layers=9, attention=True,
+                     normalization_factor=1.0)
+    block = EquivariantBlock(cfg)
+    init_parameters(block, torch.Generator().manual_seed(seed))
+    return block.to("cuda").eval()
+
+
+def phase_cond_kernels(card):
+    """Phase 26 (a): #1 and #2, f32 and bf16, at the conditional recipe's
+    width H=192 (padded to 256 in the tile, 64 channels masked) against
+    their plain versions: B=64, N in {16, 29}, n-8..n atoms. f32 within
+    _KERNEL_RTOL * max(1, max|ref|) per output, weight gradients included,
+    the backward from the forward's saved activations bit-identical to the
+    recompute; bf16 under phase 21's and 23's gates. With card ms, plain
+    ms and bounds."""
+    import torch
+
+    from geoldm_tpu_torch.ops import egnn_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    unrounded = _bf16_sites().unrounded
+    bf16, dev, H, B, rows = torch.bfloat16, torch.device("cuda"), 192, 64, []
+
+    def flat(r):
+        return [*r[:3], *r[3]]
+
+    def record(row, what):
+        rows.append(row)
+        print(f"phase 26: {row['kernel']} N={row['N']} B={B} H={H}: {what}; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}", flush=True)
+
+    for n in (16, 29):
+        block = _qm9_block(H, 2600 + n)
+        E, n_weights = block.cfg.edge_feat_nf, sum(p.numel() for p in block.parameters())
+        inputs = [_ragged_inputs(26000 * n + rep, B, n, H, dev, 8) for rep in range(4)]
+        n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        fwd_work, bwd_work = (_block_work(block.cfg, n_real, n, n_weights),
+                              _bwd_work(block.cfg, n_real, n, n_weights))
+        with torch.no_grad():
+            for dt in (None, bf16):
+                got = egnn_block.block_forward_cuda(block, *inputs[0], compute_dtype=dt)
+                want = egnn_block.block_forward_plain(block, *inputs[0], compute_dtype=dt)
+                want_f32 = egnn_block.block_forward_plain(block, *inputs[0])
+                torch.cuda.synchronize()
+                _check(all(bool(torch.isfinite(g).all()) for g in got),
+                       f"#1 H=192 N={n} {dt} not finite")
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                scale = max([1.0] + [float(w.abs().max()) for w in want])
+                tol = (_BF16_RTOL if dt else _KERNEL_RTOL) * scale
+                _check(err <= tol, f"#1 H=192 N={n} {dt}: max|d|={err:.3e} > {tol:.3e}")
+                extra = {}
+                if dt:
+                    mean_err = sum(float((g - w).abs().double().mean())
+                                   for g, w in zip(got, want))
+                    mean_f32 = sum(float((g - w).abs().double().mean())
+                                   for g, w in zip(got, want_f32))
+                    _check(_BF16_SEPARATION * mean_err <= mean_f32,
+                           f"#1 bf16 H=192 N={n}: mean distance to plain f32 {mean_f32:.3e} "
+                           f"is not {_BF16_SEPARATION:g}x the error {mean_err:.3e}")
+                    extra = {"mean_abs_err": mean_err, "mean_to_f32_plain": mean_f32}
+                ms = _time_ms(lambda *a: egnn_block.block_forward_cuda(block, *a,
+                                                                       compute_dtype=dt), inputs)
+                plain_ms = _time_ms(lambda *a: egnn_block.block_forward_plain(
+                    block, *a, compute_dtype=dt), inputs)
+                bound, bound_by = (_bf16_bounds(*fwd_work[:2]) if dt
+                                   else _bounds(*fwd_work)[:2])
+                record({"kernel": "egnn_block_bf16" if dt else "egnn_block", "N": n, "B": B,
+                        "H": H, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": bound_by, **extra},
+                       f"max|d| {err:.3e} (tol {tol:.2e})")
+        cots = []
+        for rep in range(3):
+            rng = np.random.default_rng(26100 * n + rep)
+            cots.append(tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                              .to(dev) for shape in ((B, n, H), (B, n, 3))))
+        args = [inputs[rep] + cots[rep] for rep in range(3)]
+        names = ["dh", "dx", "dx0"] + egnn_block.block_param_names(block)
+        for dt in (None, bf16):
+            got = flat(egnn_block.block_backward_cuda(block, *args[0], compute_dtype=dt))
+            with torch.no_grad():
+                _, _, saved = egnn_block._forward_launch(block, *inputs[0], save=True,
+                                                         bf16=dt is not None)
+            via_saved = flat(egnn_block._backward_launch(block, *args[0], saved,
+                                                         dt is not None))
+            torch.cuda.synchronize()
+            for name, a, b_ in zip(names, got, via_saved):
+                _check(torch.equal(a, b_), f"#2 H=192 N={n} {dt}: the saved route differs on "
+                                           f"{name}")
+            del saved, via_saved
+            want = flat(egnn_block.block_backward_plain(block, *args[0], compute_dtype=dt))
+            if dt:
+                want_f32 = flat(egnn_block.block_backward_plain(block, *args[0]))
+                with unrounded("cotangent", E):
+                    want_cot = flat(egnn_block.block_backward_plain(block, *args[0],
+                                                                    compute_dtype=dt))
+                rep = _bf16_grads_check(f"#2 bf16 H=192 N={n}", names, got, want, want_f32,
+                                        want_cot)
+                fields, what = _bf16_fields(rep), (
+                    f"max|d|/max(1,|ref|) {rep['max_rel']:.2e} ({rep['worst']}; tol "
+                    f"{_BF16_RTOL}; {rep['flips']} one-step flips), mean to plain bf16 "
+                    f"{rep['mean_err']:.3e}, to f32 {rep['mean_to_f32']:.3e}")
+            else:
+                err, worst = 0.0, ""
+                for name, g, w in zip(names, got, want):
+                    _check(bool(torch.isfinite(g).all()), f"#2 H=192 {name} not finite")
+                    scale = max(1.0, float(w.abs().max()))
+                    d = float((g - w).abs().max())
+                    _check(d <= _KERNEL_RTOL * scale,
+                           f"#2 H=192 N={n} disagrees with plain on {name}: max|d|={d:.3e} > "
+                           f"{_KERNEL_RTOL}*{scale:.3g}")
+                    if d > err:
+                        err, worst = d, name
+                fields, what = {"max_abs_err": err, "worst": worst}, (
+                    f"max|d| {err:.3e} ({worst}; {len(names)} tensors each within "
+                    f"{_KERNEL_RTOL}*max(1,max|ref|))")
+            del got, want
+            ms = _time_ms(lambda *a: egnn_block.block_backward_cuda(block, *a, compute_dtype=dt),
+                          args)
+            plain_ms = _time_ms(lambda *a: egnn_block.block_backward_plain(
+                block, *a, compute_dtype=dt), args, warmup=1, reps=3)
+            bound, bound_by = (_bf16_bounds(*bwd_work[:2]) if dt else _bounds(*bwd_work)[:2])
+            record({"kernel": "egnn_block_bwd_bf16" if dt else "egnn_block_bwd", "N": n, "B": B,
+                    "H": H, **fields, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by}, what + "; the saved route bit-identical")
+        del inputs, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_conditional(card, tmpdir):
+    """Phase 26 (b, d-f): conditional QM9 at the README's conditional recipe
+    (nf=192, 9 layers, latent_nf=1, normalize_factors [1, 8, 1], T=1000,
+    conditioned on alpha, --context_dropout 0.1) on fabricated QM9-format
+    splits of qm9_second_half. (b) 5 train steps through cli.main_qm9 with
+    stability samples (50 DDIM jumps), valid and test NLL and the
+    checkpoints: launches exact, args.pickle holds conditioning ['alpha'] and
+    context_indicator True, the checkpoints load back. (d) the property
+    classifier (nf=128, 7 layers) for one epoch through cli.main_qm9_prop.
+    (e) cli.eval_conditional_qm9 --task edm --cfg_scale 2 --clip_z 15 on (b)'s
+    and (d)'s checkpoints: 16 molecules at T=1000, (T+1)*2*9 + 9 launches of
+    #1. (f) cli.serve on (b)'s checkpoint with --datadir and --conditioning:
+    a seeded properties request and its replay, a cfg_scale 2 request, one
+    without properties (dense), one with a misnamed property (refused);
+    launches exact per request. Everything in f32."""
+    import pickle
+
+    import torch
+
+    from geoldm_tpu_torch.cli import eval_conditional_qm9, main_qm9, main_qm9_prop, serve
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    info = get_dataset_info("qm9_second_half")
+    B, steps, T, K, L, decay, seed, n_stab = 64, 5, 1000, 50, 9, 0.9999, 0, 8
+    out = {}
+    # qm9_second_half trains on half of the train split: 5 batches.
+    write_qm9_splits(tmpdir, get_dataset_info("qm9"), {"train": 2 * B * steps, "valid": B,
+                                                       "test": B}, seed=26)
+    outdir = os.path.join(tmpdir, "out")
+    argv = ["--datadir", tmpdir, "--outdir", outdir, "--exp_name", "cond", "--dataset",
+            "qm9_second_half", "--train_diffusion", "--trainable_ae", "--conditioning", "alpha",
+            "--nf", "192", "--n_layers", str(L), "--latent_nf", "1", "--normalize_factors",
+            "[1,8,1]", "--context_dropout", "0.1", "--batch_size", str(B), "--diffusion_steps",
+            str(T), "--ema_decay", str(decay), "--n_epochs", "1", "--test_epochs", "1",
+            "--n_stability_samples", str(n_stab), "--eval_n_steps", str(K), "--seed", str(seed),
+            "--no_wandb"]
+    print(f"phase 26: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    losses = summary["losses"][0]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))),
+           f"conditional losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"conditional NLLs {summary['nll_val']} {summary['nll_test']}")
+    # Per train step the encoder forward and the 9 decoder and 9 denoiser
+    # blocks forward and backward; per eval batch encoder + decoder + 2
+    # denoiser passes; per sampled chunk K+1 denoiser calls (unguided) and a
+    # decode.
+    chunks = n_chunks(summary["sample_sizes"][0], n_stab,
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"]))
+    expected = {**_no_launches(),
+                "egnn_block": steps * (1 + 2 * L) + 2 * (1 + 3 * L) + ((K + 1) * L + L) * chunks,
+                "egnn_block_bwd": steps * 2 * L}
+    _check(launches == expected, f"conditional training launches {launches} != {expected} "
+                                 f"({chunks} chunks)")
+    run = os.path.join(outdir, "cond")
+    with open(os.path.join(run, "latest", "args.pickle"), "rb") as f:
+        saved = pickle.load(f)
+    _check(saved.conditioning == ["alpha"] and saved.context_indicator is True
+           and saved.context_node_nf == 1,
+           f"args.pickle: conditioning {saved.conditioning}, context_indicator "
+           f"{getattr(saved, 'context_indicator', None)}, context_node_nf {saved.context_node_nf}")
+    cfg = summary["state"].model.cfg
+    _check(load_reference_checkpoint(os.path.join(run, "best"), "cpu")[1] == cfg
+           and cfg.dynamics.context_node_nf == 2, "the checkpoint's config is not the run's")
+    _check_trained(summary["state"], seed, decay, steps, run, 26)
+    print(f"phase 26: conditional training {steps} steps, losses "
+          f"{[round(v, 4) for v in losses]}, valid NLL {summary['nll_val'][0]:.4f}, test NLL "
+          f"{summary['nll_test'][0]:.4f}, stability {summary['stability'][0]}; launches "
+          f"fwd {launches['egnn_block']} bwd {launches['egnn_block_bwd']} = what the code "
+          f"implies ({chunks} chunks of {K}-jump samples); args.pickle conditioning "
+          f"{saved.conditioning}, context_indicator {saved.context_indicator}; main() "
+          f"{wall:.1f} s on {card}", flush=True)
+    out["train"] = {"launches": launches, "losses": losses, "main_seconds": wall,
+                    "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0]}
+    del summary
+
+    cls_argv = ["--datadir", tmpdir, "--outf", outdir, "--exp_name", "cls_alpha", "--property",
+                "alpha", "--epochs", "1", "--nf", "128", "--n_layers", "7"]
+    t0 = time.time()
+    res = main_qm9_prop.main(cls_argv)
+    torch.cuda.synchronize()
+    cls_dir = os.path.join(outdir, "cls_alpha")
+    _check(np.isfinite(res["best_val"]) and np.isfinite(res["best_test"])
+           and os.path.exists(os.path.join(cls_dir, "best", "classifier.npy"))
+           and os.path.exists(os.path.join(cls_dir, "losess.json")),
+           f"classifier run: {res['best_val']} {res['best_test']}")
+    out["classifier"] = {"best_val": res["best_val"], "best_test": res["best_test"],
+                         "seconds": time.time() - t0}
+    print(f"phase 26: python -m geoldm_tpu_torch.cli.main_qm9_prop {' '.join(cls_argv)}: valid "
+          f"MAE {res['best_val']:.4f}, test MAE {res['best_test']:.4f} in "
+          f"{out['classifier']['seconds']:.1f} s on {card}", flush=True)
+
+    n_eval = 16
+    ev_argv = ["--generators_path", run, "--classifiers_path", cls_dir, "--datadir", tmpdir,
+               "--property", "alpha", "--iterations", "1", "--batch_size", str(n_eval),
+               "--cfg_scale", "2", "--clip_z", "15"]
+    _zero_launch_counts()
+    t0 = time.time()
+    mae = eval_conditional_qm9.main(ev_argv + ["--task", "edm"])
+    torch.cuda.synchronize()
+    ev_seconds = time.time() - t0
+    ev_launches = _launch_counts()
+    want = {**_no_launches(), "egnn_block": (T + 1) * 2 * L + L}
+    _check(ev_launches == want, f"guided eval launches {ev_launches} != (T+1)*2*9 + 9")
+    _check(np.isfinite(mae), f"edm MAE {mae}")
+    mae_qm9 = eval_conditional_qm9.main(ev_argv + ["--task", "qm9"])
+    print(f"phase 26: eval_conditional_qm9 --task edm --cfg_scale 2 --clip_z 15: {n_eval} "
+          f"molecules at T={T}, MAE {mae:.4f} (the classifier on real molecules: {mae_qm9:.4f}); "
+          f"#1 launches {ev_launches['egnn_block']} = ({T}+1)*2*{L} + {L}; {ev_seconds:.1f} s "
+          f"on {card}", flush=True)
+    out["eval"] = {"launches": ev_launches, "mae": mae, "mae_qm9": mae_qm9,
+                   "seconds": ev_seconds}
+
+    batch_max = 64
+    server, service = serve.main(["--model_path", os.path.join(run, "best"), "--port", "0",
+                                  "--compute_dtype", "float32", "--batch_max", str(batch_max),
+                                  "--datadir", tmpdir, "--conditioning", "alpha"],
+                                 serve_forever=False)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    serve_launches, stats, bodies = _no_launches(), [], {}
+    try:
+        requests = [
+            ("properties", {"sizes": [12, 14, 16], "seed": 7, "properties": {"alpha": 80.0},
+                            "n_steps": K}, K, 1),
+            ("replay", {"sizes": [12, 14, 16], "seed": 7, "properties": {"alpha": 80.0},
+                        "n_steps": K}, K, 1),
+            ("cfg_scale 2", {"sizes": [10, 12, 15], "seed": 8, "properties": {"alpha": 70.0},
+                             "cfg_scale": 2.0, "n_steps": K}, K, 2),
+            ("no properties, dense", {"n_samples": 4, "seed": 9}, T, 1),
+        ]
+        for name, req, k_steps, calls in requests:
+            _zero_launch_counts()
+            t1 = time.time()
+            code, body = _request(base, "/sample", req)
+            dt = time.time() - t1
+            _check(code == 200, f"/sample {name} -> {code} {body}")
+            sizes = req.get("sizes") or [len(m) for m in body["molecules"]]
+            _check_molecules(body, sizes, info["atom_decoder"])
+            chunks = n_chunks(sizes, batch_max, service.buckets)
+            got = _launch_counts()
+            want = {**_no_launches(), "egnn_block": ((k_steps + 1) * calls * L + L) * chunks}
+            _check(got == want, f"/sample {name}: launches {got} != (({k_steps}+1)*{calls}*{L} "
+                                f"+ {L})*{chunks}")
+            for k, v in got.items():
+                serve_launches[k] += v
+            bodies[name] = body
+            stats.append({"request": name, "molecules": body["n"], "seconds": dt,
+                          "properties": body["properties"], "cfg_scale": body["cfg_scale"],
+                          "launches": got["egnn_block"]})
+            print(f"phase 26: /sample {name}: {body['n']} molecules in {dt:.2f} s, properties "
+                  f"{body['properties']}, cfg_scale {body['cfg_scale']}, #1 launches "
+                  f"{got['egnn_block']} = (({k_steps}+1)*{calls}*{L} + {L})*{chunks} on {card}",
+                  flush=True)
+        _check(bodies["replay"]["molecules"] == bodies["properties"]["molecules"],
+               "the seeded properties request did not replay")
+        _check(bodies["no properties, dense"]["properties"] == "sampled-from-data-distribution",
+               "a request without properties did not draw them")
+        code, body = _request(base, "/sample", {"sizes": [5], "properties": {"alpah": 80.0}})
+        _check(code == 400 and "properties is missing 'alpha'" in body.get("error", ""),
+               f"a misnamed property -> {code} {body}")
+        print(f"phase 26: seeded replay identical; misnamed property -> 400 ({body['error']})",
+              flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+    out["serve"] = {"launches": serve_launches, "requests": stats}
+    return out
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -2844,6 +3196,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         bf16_sp = phase_bf16_sp(card, tmpdir)
     lap("25")
+    cond_rows = phase_cond_kernels(card)
+    cond_grad = phase_grad(card, cond=True)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        conditional = phase_conditional(card, tmpdir)
+    lap("26")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -2858,18 +3215,23 @@ def main(argv=None) -> int:
         "sp_training": sp_train, "sp_grad": sp_grad, "resume": resume,
         "evaluation": evaluation, "geom_evaluation": geom_eval, "bf16_kernels": bf16_rows,
         "bf16_serving": bf16_serving, "bf16_backward": bf16_bwd_rows,
-        "bf16_training": bf16_train, "bf16_sp": bf16_sp, "phase_seconds": phase_seconds,
+        "bf16_training": bf16_train, "bf16_sp": bf16_sp, "conditional_kernels": cond_rows,
+        "conditional_grad": cond_grad, "conditional": conditional,
+        "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
 
     # Launches on the main paths: each path's own counts, read just after it
-    # (phases 4, 7, 10, 13 and 16, and the resumed, first-stage and
-    # evaluation runs of phases 18-20).
+    # (phases 4, 7, 10, 13 and 16, the resumed, first-stage and evaluation
+    # runs of phases 18-20, and phase 26's conditional training, guided
+    # scoring and serving).
     geom_train_launches = geom_train["launches"]
     later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
              resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
-             evaluation["launches"], geom_eval["launches"], bf16_launches]
+             evaluation["launches"], geom_eval["launches"], bf16_launches,
+             conditional["train"]["launches"], conditional["eval"]["launches"],
+             conditional["serve"]["launches"]]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)
@@ -2999,6 +3361,17 @@ def main(argv=None) -> int:
                ("coord_rows_bwd", "egnn_coord_rows_bwd_bf16", "egnn_tiled_bwd.cu",
                 "pallas_egnn_tiled.py:201", "coord_rows_bwd_bf16", 184))]
         + [bf16_sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]}
+    # #1/#2 and their bf16 variants at the conditional recipe's H=192 (phase
+    # 26 (a)): their errors count in max_abs_err, and N=29's times ride along.
+    h192 = {"egnn_block_fwd": "egnn_block", "egnn_block_bwd": "egnn_block_bwd",
+            "egnn_block_fwd_bf16": "egnn_block_bf16", "egnn_block_bwd_bf16": "egnn_block_bwd_bf16"}
+    for entry in report["kernels"]:
+        mine = [r for r in cond_rows if r["kernel"] == h192.get(entry["name"])]
+        if mine:
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in mine])
+            at29 = next(r for r in mine if r["N"] == 29)
+            entry["h192"] = {k: at29[k] for k in ("N", "B", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by")}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -2,10 +2,13 @@
 reference flag surface (QM9 and GEOM-Drugs defaults), flags -> ModelConfig,
 and the training run, serial or sequence-parallel.
 
-The port trains unconditional models on one device, or with
-``--sp S`` over S ranks that split every EGNN's atom rows (``parallel.sp``):
-one command spawns the ranks, every rank draws the same batches and noise,
-only rank 0 prints and writes checkpoints and ``metrics.jsonl``. A run
+The port trains on one device, or with ``--sp S`` over S ranks that split
+every EGNN's atom rows (``parallel.sp``): one command spawns the ranks,
+every rank draws the same batches and noise, only rank 0 prints and writes
+checkpoints and ``metrics.jsonl``. ``--conditioning`` trains a QM9 model
+conditioned on properties (one device), and ``--context_dropout`` p nulls a
+molecule's context with probability p per step, for classifier-free
+guidance at sampling time (``vdm.guided_eps``). A run
 resumes from its ``latest/`` checkpoint (``--resume``, with the
 checkpoint's model config) and a latent-diffusion run can start from a
 trained first stage (``--ae_path``). ``--eval_n_steps`` K runs the periodic
@@ -76,6 +79,10 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--num_workers", type=int, default=0)
     p.add_argument("--ema_decay", type=float, default=0.9999)
     p.add_argument("--augment_noise", type=float, default=0.0)
+    p.add_argument("--context_dropout", type=float, default=0.0,
+                   help="classifier-free guidance training: probability of nulling a "
+                        "molecule's conditioning context per step (enables --cfg_scale at "
+                        "sampling time)")
     p.add_argument("--n_stability_samples", type=int, default=500)
     p.add_argument("--eval_n_steps", type=int, default=None,
                    help="few-step DDIM sampling for the periodic stability analysis only")
@@ -92,7 +99,8 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--data_augmentation", type=eval, default=False)
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches prepared ahead on a host thread (0: serial)")
-    p.add_argument("--conditioning", nargs="+", default=[])
+    p.add_argument("--conditioning", nargs="+", default=[],
+                   help="properties to condition on: alpha gap homo lumo mu Cv")
     p.add_argument("--outdir", type=str, default="outputs")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu, which runs the plain PyTorch path")
@@ -100,8 +108,8 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
 
 def _not_ported(what: str) -> None:
     raise SystemExit(f"{what} is not ported yet.\n"
-                     "geoldm_tpu_torch trains unconditional models on one device or "
-                     "sequence-parallel (--sp).")
+                     "geoldm_tpu_torch trains on one device, sequence-parallel (--sp) "
+                     "models unconditionally.")
 
 
 def resolve_dp(args) -> int:
@@ -124,8 +132,8 @@ def check_ported(args) -> None:
         _not_ported(f"--dp {resolve_dp(args)}")
     if args.tp > 1:
         _not_ported(f"--tp {args.tp}")
-    if args.conditioning:
-        _not_ported("--conditioning")
+    if args.conditioning and args.sp > 1:
+        _not_ported("--conditioning with --sp")
     if args.visualize:
         _not_ported("--visualize")
     if args.model != "egnn_dynamics":
@@ -136,7 +144,11 @@ def build_model_config(args, dataset_info):
     from geoldm_tpu_torch.models import factory
 
     common = dict(
-        include_charges=args.include_charges, nf=args.nf, n_layers=args.n_layers,
+        include_charges=args.include_charges, context_node_nf=len(args.conditioning),
+        # CFG training tells its null from a mean property by a trailing
+        # is-conditioned channel (config.ModelConfig).
+        context_indicator=bool(args.conditioning and args.context_dropout > 0),
+        nf=args.nf, n_layers=args.n_layers,
         attention=args.attention, tanh=args.tanh, norm_constant=args.norm_constant,
         inv_sublayers=args.inv_sublayers, sin_embedding=args.sin_embedding,
         normalization_factor=args.normalization_factor,
@@ -197,6 +209,12 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
     ``--resume``, ``resumed``: a CPU copy of the state as loaded (model, EMA,
     AdamW, clip, step).
 
+    With ``--conditioning`` (QM9 splits only) each batch carries the
+    normalized properties as context (norms from the split
+    ``conditioning.compute_mean_mad`` names), and the stability samples draw
+    them from the train split's ``DistributionProperty``; ``args.pickle``
+    records ``context_node_nf`` and ``context_indicator``.
+
     With ``--resume`` the model config comes from the checkpoint's
     ``args.pickle`` and wins over the flags (JAX's rule), and the state from
     ``<resume>/latest``; per-epoch device noise comes from (seed, epoch), so
@@ -217,9 +235,10 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
 
     from geoldm_tpu_torch.data.qm9 import QM9Loader
     from geoldm_tpu_torch.models import factory
-    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.models.distributions import DistributionNodes, DistributionProperty
     from geoldm_tpu_torch.ops import kernel_launches
     from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.train import conditioning as cond
     from geoldm_tpu_torch.train import trainer as trainer_mod
     from geoldm_tpu_torch.train.train_step import (
         create_train_state,
@@ -245,6 +264,17 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
             for name in MODEL_ARGS:
                 if hasattr(saved, name):
                     setattr(args, name, getattr(saved, name))
+    conditioning = list(args.conditioning)
+    n_props = cond.property_channels(model_cfg)
+    if n_props != len(conditioning):
+        raise SystemExit(f"the model has {n_props} property channel(s) but --conditioning names "
+                         f"{len(conditioning)}: {conditioning}")
+    if conditioning and splits is None:
+        raise SystemExit("--conditioning needs the QM9 splits' property arrays")
+    # The checkpoints' args.pickle: the context width as upstream writes it,
+    # and the indicator channel upstream lacks (utils.convert).
+    args.context_node_nf = n_props
+    args.context_indicator = model_cfg.context_indicator
     device = sp_group.device if sp_group is not None else args.device
     model = factory.build_model(model_cfg, device, torch.Generator().manual_seed(args.seed),
                                 sp_group=sp_group)
@@ -269,13 +299,15 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
     # JAX's rule (geoldm_tpu/cli/common.py:209-212, :326-330, :373): the
     # flag's name goes to the train step, the eval NLL and the stability
     # samples, each resolving it (nn.core.resolve_compute).
-    train_step = make_train_step(model_cfg, args.ema_decay, args.compute_dtype)
+    train_step = make_train_step(model_cfg, args.ema_decay, args.compute_dtype,
+                                 args.context_dropout if conditioning else 0.0)
     eval_nll = make_eval_nll(model_cfg, args.compute_dtype)
     include_charges = model_cfg.vae.include_charges
     if loaders is None:
         loaders = {split: QM9Loader(data, batch_size=args.batch_size,
                                     pad_nodes=dataset_info.max_n_nodes, shuffle=split == "train",
-                                    include_charges=include_charges, seed=args.seed)
+                                    include_charges=include_charges,
+                                    properties=tuple(conditioning), seed=args.seed)
                    for split, data in splits.items()}
     for split, loader in loaders.items():
         if loader.include_charges != include_charges:
@@ -283,6 +315,14 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                              f"model expects {include_charges}; rebuild the loaders with "
                              f"--include_charges {include_charges}")
     nodes_dist = DistributionNodes(dataset_info.n_nodes)
+    prop_dist = property_norms = None
+    if conditioning:
+        property_norms = cond.compute_mean_mad(splits, conditioning, args.dataset)
+        prop_dist = DistributionProperty(splits["train"]["num_atoms"],
+                                         {k: splits["train"][k] for k in conditioning})
+        prop_dist.set_normalizer(property_norms)
+    cond_kw = dict(conditioning=conditioning, property_norms=property_norms,
+                   context_indicator=model_cfg.context_indicator)
     outdir = os.path.join(args.outdir, args.exp_name)
     logger = MetricLogger(outdir=outdir if is_main else None,
                           use_wandb=is_main and not args.no_wandb, exp_name=args.exp_name,
@@ -296,7 +336,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                 _generator(device, args.seed, 0, epoch), epoch, augment_noise=args.augment_noise,
                 data_augmentation=args.data_augmentation,
                 break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps,
-                rng=rng, logger=logger, prefetch=args.prefetch)
+                rng=rng, logger=logger, prefetch=args.prefetch, **cond_kw)
             summary["losses"].append(losses)
             summary["epoch_seconds"].append(seconds)
             logger.log({"train_loss_epoch": float(np.mean(losses))}, step=epoch)
@@ -309,7 +349,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                         eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
                         n_samples=args.n_stability_samples, rng=rng,
                         datadir=args.datadir, n_steps=args.eval_n_steps,
-                        compute_dtype=args.compute_dtype)
+                        compute_dtype=args.compute_dtype, prop_dist=prop_dist)
                 print(f"epoch {epoch} stability: {validity}", flush=True)
                 if rdkit_tuple is not None:
                     v, u, n = rdkit_tuple[0]
@@ -322,7 +362,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
             nll_val = trainer_mod.evaluate_nll(
                 eval_model, eval_nll, loaders["valid"], nodes_dist,
                 _generator(device, args.seed, 1, epoch), partition="valid",
-                augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch)
+                augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch, **cond_kw)
             logger.log({"nll_val": nll_val}, step=epoch)
             summary["nll_val"].append(nll_val)
             if args.save_model and is_main:
@@ -339,7 +379,8 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                 nll_test = trainer_mod.evaluate_nll(
                     eval_model, eval_nll, loaders["test"], nodes_dist,
                     _generator(device, args.seed, 2, epoch), partition="test",
-                    augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch)
+                    augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch,
+                    **cond_kw)
                 logger.log({"nll_test": nll_test, "best_nll_val": best_nll_val}, step=epoch)
                 summary["nll_test"].append(nll_test)
                 print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)

@@ -1,5 +1,5 @@
 """Molecule generation server on the card (port of
-``geoldm_tpu/cli/serve.py:169-580`` for unconditional checkpoints).
+``geoldm_tpu/cli/serve.py:169-580``).
 
 Loads an upstream-layout checkpoint directory (``args.pickle`` +
 ``generative_model[_ema].npy``) and serves JSON over stdlib http.server.
@@ -14,10 +14,19 @@ Endpoints:
   POST /sample   -> {"n_samples": int} or {"sizes": [int, ...]}, optional
                     {"seed": int, "n_steps": int, "eta": float,
                      "sampler": "ddim"|"dpm2m", "clip_z": float,
-                     "format": "xyz"|"json"}. Returns molecules ("json":
-                    per-molecule [[element, x, y, z], ...]; "xyz": xyz text
-                    blocks) with a stability verdict each, and the sampler
-                    settings the request ran.
+                     "format": "xyz"|"json"}, and for a conditional
+                    checkpoint {"properties": {name: value}, "cfg_scale": w}.
+                    Returns molecules ("json": per-molecule [[element, x,
+                    y, z], ...]; "xyz": xyz text blocks) with a stability
+                    verdict each, and the sampler settings the request ran.
+
+Conditional checkpoints (started with ``--datadir`` and ``--conditioning``):
+``properties`` come in raw units and are normalized with the train split's
+mean/MAD (second-half protocol, ``train.conditioning``); a request without
+them draws them from the split's property-given-size distribution, and its
+sizes from the split's histogram, up to the split's largest molecule.
+``cfg_scale`` (classifier-free guidance, default ``--cfg_scale``) is
+quantised to 0.25 and is 1 for an unconditional checkpoint.
 
 ``--compute_dtype`` (default ``bfloat16_mixed``, as JAX's server) sets the
 precision: the bf16 names run the bf16 kernel variants, ``bfloat16_mixed``
@@ -25,9 +34,10 @@ the last 10 % of the steps and the final step in f32. ``n_steps`` selects
 the few-step sampler (null or 0: the dense T steps); a request's value is
 snapped to a fixed ladder (``_NSTEPS_LADDER``, T always a rung; ties snap
 down) unless it is the server's own ``--n_steps``. ``clip_z`` is quantised
-to 0.25. Guidance (``cfg_scale`` other than 1) and ``properties`` are not
-ported yet and get a 400. Device calls are serialised with a lock; request
-handling is threaded so /health and /metrics answer during generation.
+to 0.25. Device calls are serialised with a lock; request handling is
+threaded so /health and /metrics answer during generation. (JAX's
+coalescing of concurrent unseeded requests and its warm-up pass are not
+ported: every request is its own dispatch.)
 
 Usage: python -m geoldm_tpu_torch.cli.serve --model_path <checkpoint dir>
            [--dataset qm9|geom] [--port 8000] [--device cuda] [--n_steps 50]
@@ -77,6 +87,14 @@ def parse_args(argv=None):
     p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "dpm2m"])
     p.add_argument("--clip_z", type=float, default=0.0,
                    help="default per-step dynamic-range guard")
+    p.add_argument("--datadir", type=str, default=None,
+                   help="dataset dir (required for conditional checkpoints: the property "
+                        "normalizers and the property-given-size distribution come from the "
+                        "training split)")
+    p.add_argument("--conditioning", nargs="+", default=[],
+                   help="property names the checkpoint was conditioned on")
+    p.add_argument("--cfg_scale", type=float, default=1.0,
+                   help="default classifier-free guidance scale for conditional requests")
     p.add_argument("--use_ema", type=eval, default=True)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--seed", type=int, default=0)
@@ -92,6 +110,10 @@ class SamplerService:
         from geoldm_tpu_torch.models.distributions import DistributionNodes
         from geoldm_tpu_torch.nn.core import resolve_compute
         from geoldm_tpu_torch.train import sampling as sampling_mod
+        from geoldm_tpu_torch.train.conditioning import (
+            load_conditional_protocol,
+            property_channels,
+        )
         from geoldm_tpu_torch.utils.buckets import covering_buckets
         from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
 
@@ -103,9 +125,6 @@ class SamplerService:
         if self.model_cfg.kind != "latent_diffusion":
             raise SystemExit(f"{args.model_path} holds a {self.model_cfg.kind!r} model: this "
                              "server samples latent-diffusion checkpoints")
-        if self.model_cfg.dynamics.context_node_nf > 0:
-            raise SystemExit("conditional checkpoints are not ported yet: this server "
-                             "serves unconditional latent-diffusion models")
         self.device = next(self.model.parameters()).device
         self.timesteps = self.model_cfg.diffusion.timesteps
         self.dataset_info = get_dataset_info(args.dataset, args.remove_h)
@@ -113,6 +132,21 @@ class SamplerService:
         self.buckets = covering_buckets(sampling_mod.default_buckets(self.dataset_info),
                                         self.dataset_info["max_n_nodes"])
         self.max_request_size = self.dataset_info["max_n_nodes"]
+        # A conditional checkpoint: the normalizers, the property-given-size
+        # distribution and the size histogram of its training split.
+        n_props = property_channels(self.model_cfg)
+        self.conditioning = list(args.conditioning)
+        self.prop_norms = self.prop_dist = None
+        if n_props > 0:
+            if not (args.datadir and len(self.conditioning) == n_props):
+                raise SystemExit(f"conditional checkpoint ({n_props} property channel(s)): pass "
+                                 f"--datadir and --conditioning with exactly {n_props} "
+                                 "property name(s)")
+            if "qm9" not in args.dataset:
+                raise SystemExit("conditional serving implements the QM9 second-half protocol "
+                                 "only (--dataset qm9)")
+            _, self.prop_norms, self.prop_dist, self.nodes_dist, self.max_request_size = (
+                load_conditional_protocol(args.datadir, self.conditioning))
         self.device_lock = threading.Lock()
         self.metrics_lock = threading.Lock()
         self.requests = self.molecules = self.errors = self.dispatches = 0
@@ -123,16 +157,19 @@ class SamplerService:
         self.latencies = []
         self.started = time.time()
 
-    def _generate(self, sizes, seed, n_steps, eta, method, clip_z):
+    def _generate(self, sizes, seed, n_steps, eta, method, clip_z, context=None, cfg_scale=1.0):
         with self.device_lock:
             return self._sampling.sample_bucketed(
                 self.model, seed, self.dataset_info, np.asarray(sizes, dtype=np.int64),
                 batch_size=self.args.batch_max, buckets=self.buckets, n_steps=n_steps, eta=eta,
-                method=method, clip_z=clip_z, compute_dtype=self.args.compute_dtype)
+                method=method, clip_z=clip_z, compute_dtype=self.args.compute_dtype,
+                context=context, guidance_scale=cfg_scale)
 
     def sampler_settings(self, body: dict) -> tuple:
-        """(n_steps, eta, method, clip_z) of a request, validated and
-        quantised as JAX's server does (geoldm_tpu/cli/serve.py:342-373)."""
+        """(n_steps, eta, method, clip_z, cfg_scale) of a request, validated
+        and quantised as JAX's server does (geoldm_tpu/cli/serve.py:342-383):
+        cfg_scale to 0.25, and 1 without a context (guidance is then a
+        no-op)."""
         def num(name, default, lo, hi):
             try:
                 v = float(body.get(name, default))
@@ -160,11 +197,41 @@ class SamplerService:
         method = str(body.get("sampler", self.args.sampler))
         if method not in ("ddim", "dpm2m"):
             raise ValueError("sampler must be 'ddim' or 'dpm2m'")
+        cfg_scale = round(num("cfg_scale", self.args.cfg_scale, 0.0, 10.0) * 4) / 4
         clip_z = round(num("clip_z", self.args.clip_z, 0.0, 1000.0) * 4) / 4
-        if num("cfg_scale", 1.0, 0.0, 10.0) != 1.0:
-            raise ValueError("cfg_scale (classifier-free guidance) is not ported yet: this "
-                             "server samples unconditional models")
-        return n_steps, eta, method, clip_z
+        if self.prop_dist is None:
+            cfg_scale = 1.0
+        return n_steps, eta, method, clip_z, cfg_scale
+
+    def request_context(self, body: dict, sizes, seed: int):
+        """(context rows [M, P] normalized, the properties to echo) of a
+        request to a conditional checkpoint; (None, None) otherwise. Raw
+        ``properties`` are normalized with the train split's mean/MAD; without
+        them the rows are drawn from the split's distribution
+        (geoldm_tpu/cli/serve.py:386-415)."""
+        if self.prop_dist is None:
+            if "properties" in body:
+                raise ValueError("this checkpoint is unconditional — 'properties' is not "
+                                 "accepted")
+            return None, None
+        if "properties" not in body:
+            return (self.prop_dist.sample_batch(sizes, np.random.default_rng(seed)),
+                    "sampled-from-data-distribution")
+        props = body["properties"]
+        if not isinstance(props, dict):
+            raise ValueError(f"properties must be an object of "
+                             f"{{{', '.join(self.conditioning)}}} -> value")
+        cols = []
+        for name in self.conditioning:
+            if name not in props:
+                raise ValueError(f"properties is missing {name!r}")
+            try:
+                v = float(props[name])
+            except (TypeError, ValueError):
+                raise ValueError(f"properties[{name!r}] must be a number") from None
+            cols.append((v - self.prop_norms[name]["mean"]) / self.prop_norms[name]["mad"])
+        return (np.tile(np.asarray(cols, dtype=np.float32), (len(sizes), 1)),
+                {k: float(props[k]) for k in self.conditioning})
 
     def sample(self, body: dict) -> dict:
         """Handle one /sample request body; returns the response dict."""
@@ -183,10 +250,7 @@ class SamplerService:
                 self._auto_seed += 1
                 seed = self._auto_seed_base + self._auto_seed
 
-        n_steps, eta, method, clip_z = self.sampler_settings(body)
-        if "properties" in body:
-            raise ValueError("this checkpoint is unconditional — 'properties' is not accepted")
-
+        n_steps, eta, method, clip_z, cfg_scale = self.sampler_settings(body)
         if "sizes" in body:
             try:
                 sizes = np.asarray(body["sizes"], dtype=np.int64)
@@ -206,7 +270,9 @@ class SamplerService:
                 raise ValueError("n_samples must be in [1, 100000]")
             sizes = self.nodes_dist.sample(n, np.random.default_rng(seed))
 
-        one_hot, _, x, node_mask = self._generate(sizes, seed, n_steps, eta, method, clip_z)
+        context, props_used = self.request_context(body, sizes, seed)
+        one_hot, _, x, node_mask = self._generate(sizes, seed, n_steps, eta, method, clip_z,
+                                                  context, cfg_scale)
         with self.metrics_lock:
             self.dispatches += 1
 
@@ -241,6 +307,8 @@ class SamplerService:
                         "protocol": "dense-T" if n_steps is None else f"fewstep-{n_steps}"},
             "seed": seed,
             "seconds": round(elapsed, 4),
+            **({"properties": props_used, "cfg_scale": cfg_scale}
+               if self.prop_dist is not None else {}),
         }
 
     def health(self) -> dict:

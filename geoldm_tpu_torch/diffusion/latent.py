@@ -5,7 +5,8 @@ the NLL estimator that trains it and the sampler.
   diffusion's sigma_0 and detaches it: the encoder never receives a
   gradient (reference en_diffusion.py:1142-1155). With ``trainable_ae`` the
   decoder also learns through a reconstruction term on that latent.
-- ``ldm_sample`` diffuses in latent space, then decodes with the VAE;
+- ``ldm_sample`` diffuses in latent space (with a conditional model's
+  context, guided or not), then decodes with the VAE;
   ``ldm_sample_chain`` keeps and decodes the dense sampler's chain.
 """
 
@@ -107,27 +108,33 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
 @torch.no_grad()
 def ldm_sample(model: EnLatentDiffusion, noise: com.Noise, node_mask,
                fix_noise: bool = False, compute_dtype=None, n_steps: Optional[int] = None,
-               eta: float = 1.0, method: str = "ddim", clip_z: float = 0.0):
+               eta: float = 1.0, method: str = "ddim", clip_z: float = 0.0,
+               context: Optional[torch.Tensor] = None, guidance_scale: float = 1.0):
     """Diffuse in latent space, then decode (en_diffusion.py:1194-1204;
-    latent.py:133-164). ``compute_dtype``, ``n_steps``, ``eta``, ``method``
-    and ``clip_z`` as ``vdm.vdm_sample``; the decoder runs in
-    ``compute_dtype`` as JAX's does. -> (x [B,N,3], h_cat one-hot [B,N,C],
-    h_int charges [B,N,inc])."""
+    latent.py:133-164). ``compute_dtype``, ``n_steps``, ``eta``, ``method``,
+    ``clip_z``, ``context`` and ``guidance_scale`` as ``vdm.vdm_sample``;
+    the decoder runs in ``compute_dtype`` as JAX's does, on the same
+    (unguided) context. -> (x [B,N,3], h_cat one-hot [B,N,C], h_int charges
+    [B,N,inc])."""
     z_x, z_cat, z_int = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask,
                                        fix_noise, compute_dtype, n_steps=n_steps, eta=eta,
-                                       method=method, clip_z=clip_z)
+                                       method=method, clip_z=clip_z, context=context,
+                                       guidance_scale=guidance_scale)
     z_xh = torch.cat([z_x, z_cat, z_int], dim=2)
-    return vae_mod.decode(model.vae, z_xh, node_mask, None, resolve_compute(compute_dtype).dtype)
+    return vae_mod.decode(model.vae, z_xh, node_mask, context,
+                          resolve_compute(compute_dtype).dtype)
 
 
 @torch.no_grad()
 def ldm_sample_chain(model: EnLatentDiffusion, noise: com.Noise, node_mask,
-                     keep_frames: int = 100, compute_dtype=None) -> torch.Tensor:
+                     keep_frames: int = 100, compute_dtype=None,
+                     context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The dense sampler's latent chain, each frame decoded
     (en_diffusion.py:1207-1232; latent.py:167-196) -> [keep_frames, B, N,
-    3 + C + inc], frame 0 the final sample."""
+    3 + C + inc], frame 0 the final sample. ``context``: a conditional
+    model's, for the denoiser and the decoder."""
     _, chain = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask, False,
-                              compute_dtype, keep_frames=keep_frames)
+                              compute_dtype, keep_frames=keep_frames, context=context)
     dtype = resolve_compute(compute_dtype).dtype
-    return torch.stack([torch.cat(vae_mod.decode(model.vae, z_xh, node_mask, None, dtype), dim=2)
-                        for z_xh in chain])
+    return torch.stack([torch.cat(vae_mod.decode(model.vae, z_xh, node_mask, context, dtype),
+                                  dim=2) for z_xh in chain])

@@ -12,9 +12,11 @@ sampler's chain. The final step stays in latent space (the EnLatentDiffusion
 variant). The loops are plain Python loops. Noise comes from a ``noise``
 source (``ops.com.Noise``: a ``torch.Generator`` or a callable), drawn in
 JAX's key order (z_T, each step's, the final step's), so tests can feed the
-same numbers to both frameworks. Guidance and the plain (non-latent)
-diffusion model, whose t=0 term is ``log_pxh_given_z0_without_constants``,
-wait for later slices.
+same numbers to both frameworks. A conditional model's ``context`` reaches
+every denoiser call, and ``guidance_scale`` w blends the conditional and the
+null-context eps (classifier-free guidance, ``guided_eps``). The plain
+(non-latent) diffusion model, whose t=0 term is
+``log_pxh_given_z0_without_constants``, waits for a later slice.
 """
 
 from __future__ import annotations
@@ -164,11 +166,21 @@ def sample_normal(noise: com.Noise, mu, sigma, node_mask, n_dims: int, feat_nf: 
     return mu + sigma * eps
 
 
-def guided_eps(dynamics, t, z, node_mask, compute_dtype=None):
-    """Denoiser eps-hat of the unconditional model (context=None) in
-    ``compute_dtype``; classifier-free guidance joins with the conditional
-    slice."""
-    return dynamics(t, z, node_mask, None, compute_dtype)
+def guided_eps(dynamics, t, z, node_mask, context=None, compute_dtype=None,
+               guidance_scale: float = 1.0):
+    """Denoiser eps-hat in ``compute_dtype`` with classifier-free guidance
+    (Ho & Salimans 2022; vdm.py:425-455): eps_u + w (eps_c - eps_u), eps_u
+    the all-zero null context ``--context_dropout`` trains. No context, or
+    w = 0: one call (with the null context at w = 0); w = 1: one call with
+    the context; any other w: two calls."""
+    if context is None or guidance_scale == 0.0:
+        context = None if context is None else torch.zeros_like(context)
+        return dynamics(t, z, node_mask, context, compute_dtype)
+    eps = dynamics(t, z, node_mask, context, compute_dtype)
+    if guidance_scale == 1.0:
+        return eps
+    eps_u = dynamics(t, z, node_mask, torch.zeros_like(context), compute_dtype)
+    return eps_u + guidance_scale * (eps - eps_u)
 
 
 def compute_x_pred(net_out, zt, gamma_t) -> torch.Tensor:
@@ -184,7 +196,8 @@ def _project_x(z, node_mask, n_dims):
 
 
 def sample_p_zs_given_zt(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, zt,
-                         node_mask, fix_noise: bool = False, compute_dtype=None) -> torch.Tensor:
+                         node_mask, fix_noise: bool = False, compute_dtype=None, context=None,
+                         guidance_scale: float = 1.0) -> torch.Tensor:
     """One ancestral step zs ~ p(z_s | z_t) (en_diffusion.py:716-747)."""
     gamma_s = gamma_fn(s)
     gamma_t = gamma_fn(t)
@@ -193,7 +206,7 @@ def sample_p_zs_given_zt(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, 
     sigma_s = S.sigma(gamma_s, zt.dim())
     sigma_t = S.sigma(gamma_t, zt.dim())
 
-    eps_t = guided_eps(dynamics, t, zt, node_mask, compute_dtype)
+    eps_t = guided_eps(dynamics, t, zt, node_mask, context, compute_dtype, guidance_scale)
     mu = zt / alpha_t_given_s - (sigma2_t_given_s / alpha_t_given_s / sigma_t) * eps_t
     sigma = sigma_t_given_s * sigma_s / sigma_t
     zs = sample_normal(noise, mu, sigma, node_mask, cfg.n_dims, cfg.in_node_nf, fix_noise)
@@ -203,7 +216,8 @@ def sample_p_zs_given_zt(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, 
 
 def sample_p_zs_given_zt_ddim(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s, t, zt,
                               node_mask, eta: float = 0.0, fix_noise: bool = False,
-                              compute_dtype=None) -> torch.Tensor:
+                              compute_dtype=None, context=None,
+                              guidance_scale: float = 1.0) -> torch.Tensor:
     """The reverse jump z_t -> z_s for any s < t, DDIM family (vdm.py:494-537;
     Song et al. 2021, eq. 12): predict x from eps, then re-noise to level s
     with stochasticity ``eta``. eta=1 is the ancestral posterior step
@@ -217,7 +231,7 @@ def sample_p_zs_given_zt_ddim(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s
     sigma_s = S.sigma(gamma_s, zt.dim())
     sigma_t = S.sigma(gamma_t, zt.dim())
 
-    eps_t = guided_eps(dynamics, t, zt, node_mask, compute_dtype)
+    eps_t = guided_eps(dynamics, t, zt, node_mask, context, compute_dtype, guidance_scale)
     x_pred = compute_x_pred(eps_t, zt, gamma_t)
     # eta scales the ancestral posterior std; the remaining variance rides
     # the predicted eps direction so Var(z_s) stays sigma_s^2.
@@ -229,7 +243,8 @@ def sample_p_zs_given_zt_ddim(dynamics, cfg: DiffusionConfig, gamma_fn, noise, s
 
 
 def sample_p_xh_given_z0(dynamics, cfg: DiffusionConfig, gamma_fn, noise, z0, node_mask,
-                         fix_noise: bool = False, compute_dtype=None):
+                         fix_noise: bool = False, compute_dtype=None, context=None,
+                         guidance_scale: float = 1.0):
     """Final step p(x, h | z_0), staying in the latent representation
     (``latent_space=True``; EnLatentDiffusion, en_diffusion.py:1099-1122).
     -> (x [B,N,3], empty h_cat [B,N,0], latent h [B,N,F])."""
@@ -237,7 +252,8 @@ def sample_p_xh_given_z0(dynamics, cfg: DiffusionConfig, gamma_fn, noise, z0, no
     zeros = torch.zeros((b, 1), dtype=torch.float32, device=z0.device)
     gamma_0 = gamma_fn(zeros)
     sigma_x = S.snr(-0.5 * gamma_0).reshape(b, 1, 1)
-    net_out = guided_eps(dynamics, zeros, z0, node_mask, compute_dtype)
+    net_out = guided_eps(dynamics, zeros, z0, node_mask, context, compute_dtype,
+                         guidance_scale)
     mu_x = compute_x_pred(net_out, z0, gamma_0)
     xh = sample_normal(noise, mu_x, sigma_x, node_mask, cfg.n_dims, cfg.in_node_nf, fix_noise)
     x = xh[:, :, :cfg.n_dims]
@@ -271,9 +287,10 @@ def chain_slots(timesteps: int, keep_frames: int) -> list:
 def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
                fix_noise: bool = False, compute_dtype=None, keep_frames: Optional[int] = None,
                n_steps: Optional[int] = None, eta: float = 1.0, method: str = "ddim",
-               clip_z: float = 0.0):
+               clip_z: float = 0.0, context: Optional[torch.Tensor] = None,
+               guidance_scale: float = 1.0):
     """Reverse diffusion, then the final latent-space step and a CoM
-    re-projection (vdm.py:579-813 with guidance_scale=1, latent_space=True).
+    re-projection (vdm.py:579-813 with latent_space=True).
 
     - Dense (the defaults): the T ancestral steps.
     - ``n_steps`` K (even K = T), ``eta`` other than 1 or ``method='dpm2m'``:
@@ -283,6 +300,8 @@ def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
       sampler up to rounding.
     - ``clip_z`` > 0 clamps each step's state to [-clip_z, clip_z] and
       re-projects the coordinates to zero CoM; 0 leaves it untouched.
+    - ``context`` [B, N, ctx] (a conditional model) goes to every denoiser
+      call, each of which ``guided_eps`` guides with ``guidance_scale``.
     - ``compute_dtype`` (a name or ``ComputeSpec``, resolved here once by
       ``nn.core.resolve_compute``): the denoiser's operand dtype; under a
       ``full`` spec the last ``mixed_tail_steps`` steps and the final step
@@ -342,7 +361,8 @@ def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
                 s_arr, t_arr = full(float(grid[k + 1])), full(float(grid[k]))
                 gamma_s, gamma_t = gamma_fn(s_arr), gamma_fn(t_arr)
                 h = S.inflate(-0.5 * gamma_s, z.dim()) - S.inflate(-0.5 * gamma_t, z.dim())
-                eps_t = guided_eps(dynamics, t_arr, z, node_mask, step_dtype[k])
+                eps_t = guided_eps(dynamics, t_arr, z, node_mask, context, step_dtype[k],
+                                   guidance_scale)
                 x_t = compute_x_pred(eps_t, z, gamma_t)
                 c = not_first * (h / (2.0 * h_prev))
                 d = (1.0 + c) * x_t - c * x_prev
@@ -354,7 +374,8 @@ def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
             for k in range(K):
                 z = guard(sample_p_zs_given_zt_ddim(
                     dynamics, cfg, gamma_fn, noise, full(float(grid[k + 1])),
-                    full(float(grid[k])), z, node_mask, eta, fix_noise, step_dtype[k]))
+                    full(float(grid[k])), z, node_mask, eta, fix_noise, step_dtype[k],
+                    context, guidance_scale))
     else:
         keep = {}
         slots = chain_slots(T, keep_frames) if want_chain else []
@@ -362,13 +383,14 @@ def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
             s_arr = torch.full((b, 1), s_idx, dtype=torch.float32, device=dev) / T
             t_arr = torch.full((b, 1), s_idx + 1, dtype=torch.float32, device=dev) / T
             z = guard(sample_p_zs_given_zt(dynamics, cfg, gamma_fn, noise, s_arr, t_arr, z,
-                                           node_mask, fix_noise, step_dtype[k]))
+                                           node_mask, fix_noise, step_dtype[k], context,
+                                           guidance_scale))
             if s_idx in slots:
                 keep[s_idx] = z
         frames = [keep[s] for s in slots]
     final_dtype = None if tail > 0 else spec.dtype
     x, h_cat, h_int = sample_p_xh_given_z0(dynamics, cfg, gamma_fn, noise, z, node_mask,
-                                           fix_noise, final_dtype)
+                                           fix_noise, final_dtype, context, guidance_scale)
     # Final CoM-drift guard (reference: en_diffusion.py:789-793).
     x = com.remove_mean_with_mask(x * node_mask, node_mask)
     if want_chain:

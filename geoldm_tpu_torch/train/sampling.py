@@ -4,9 +4,12 @@ build masks on the host, run the sampler on the model's device, post-process.
 Noise: ``sample`` takes a noise source; ``sample_bucketed`` gives every
 chunk its own ``torch.Generator`` seeded from (request seed, chunk index),
 so a seeded request replays exactly. Both take the sampler settings of
-``diffusion.vdm.vdm_sample``: ``n_steps``, ``eta``, ``method``, ``clip_z``
-and ``compute_dtype``. ``sample_chain`` samples the visualization chain,
-``rotate_chain`` appends rotated copies of a frame.
+``diffusion.vdm.vdm_sample``: ``n_steps``, ``eta``, ``method``, ``clip_z``,
+``guidance_scale`` and ``compute_dtype``; a conditional model takes
+property rows ``context`` [B, P] (normalized) or draws them from
+``prop_dist`` with the caller's numpy generator. ``sample_chain`` samples
+the visualization chain, ``rotate_chain`` appends rotated copies of a frame,
+``sample_sweep_conditional`` sweeps each property over its range.
 """
 
 from __future__ import annotations
@@ -61,28 +64,60 @@ def rotate_chain(z: np.ndarray, n_steps: int = 30) -> np.ndarray:
     return np.concatenate(frames, axis=0)
 
 
+def append_indicator_if_needed(model_cfg, context: np.ndarray) -> np.ndarray:
+    """Property-only context -> the model's: a model built with
+    ``context_indicator`` takes a trailing all-ones channel, appended when
+    the context is one channel short of the model's width
+    (sampling.py:60-72)."""
+    want = (model_cfg.dynamics.context_node_nf if model_cfg.dynamics is not None
+            else model_cfg.vae.context_node_nf)
+    if model_cfg.context_indicator and context.shape[-1] == want - 1:
+        context = np.concatenate([context, np.ones_like(context[..., :1])], axis=-1)
+    return context
+
+
 def sample(model, noise: com.Noise, dataset_info, nodesxsample: np.ndarray,
            fix_noise: bool = False, pad_nodes: Optional[int] = None,
            n_steps: Optional[int] = None, eta: float = 1.0, method: str = "ddim",
-           clip_z: float = 0.0, compute_dtype=None):
-    """Generate molecules with the requested atom counts (unconditional).
-    Returns (one_hot, charges, x, node_mask): the first three are tensors on
-    the model's device (still computing there), node_mask a numpy array."""
+           clip_z: float = 0.0, compute_dtype=None, context: Optional[np.ndarray] = None,
+           prop_dist=None, rng: Optional[np.random.Generator] = None,
+           guidance_scale: float = 1.0):
+    """Generate molecules with the requested atom counts (sampling.py:75-140).
+    A conditional model takes ``context``: [B, P] property rows, broadcast
+    over the nodes, or [B, N, P]; without it the rows are drawn from
+    ``prop_dist`` with ``rng``. The indicator channel is appended when the
+    model has one, and the context is masked. Returns (one_hot, charges, x,
+    node_mask): the first three are tensors on the model's device (still
+    computing there), node_mask a numpy array."""
     max_n_nodes = pad_nodes or dataset_info["max_n_nodes"]
     nodesxsample = np.asarray(nodesxsample)
     if int(nodesxsample.max()) > max_n_nodes:
         raise ValueError(f"molecule of {int(nodesxsample.max())} atoms exceeds pad {max_n_nodes}")
     node_mask_np, _ = build_masks(nodesxsample, max_n_nodes)
-    node_mask = torch.from_numpy(node_mask_np).to(_model_device(model))
+    device = _model_device(model)
+    node_mask = torch.from_numpy(node_mask_np).to(device)
+    context_dev = None
+    if context is not None or prop_dist is not None:
+        if context is None:
+            context = prop_dist.sample_batch(nodesxsample, rng)
+        context = np.asarray(context, dtype=np.float32)
+        if context.ndim == 2:  # [B, P] rows -> per node
+            context = np.broadcast_to(context[:, None, :],
+                                      (len(nodesxsample), max_n_nodes, context.shape[-1]))
+        context = append_indicator_if_needed(model.cfg, context)
+        context_dev = torch.from_numpy(np.ascontiguousarray(context * node_mask_np)).to(device)
     x, h_cat, h_int = ldm_mod.ldm_sample(model, noise, node_mask, fix_noise, compute_dtype,
-                                         n_steps, eta, method, clip_z)
+                                         n_steps, eta, method, clip_z, context_dev,
+                                         guidance_scale)
     return h_cat, h_int, x, node_mask_np
 
 
 def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
                     batch_size: int = 128, buckets=DEFAULT_SAMPLE_BUCKETS,
                     fix_noise: bool = False, n_steps: Optional[int] = None, eta: float = 1.0,
-                    method: str = "ddim", clip_z: float = 0.0, compute_dtype=None):
+                    method: str = "ddim", clip_z: float = 0.0, compute_dtype=None,
+                    context: Optional[np.ndarray] = None, prop_dist=None,
+                    rng: Optional[np.random.Generator] = None, guidance_scale: float = 1.0):
     """Size-bucketed generation: molecules are grouped by atom count and
     each group is padded only to its bucket, in chunks of ``batch_size``.
     The last chunk of a bucket is padded (by repeating its last size) to the
@@ -91,8 +126,17 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     serves each bucket; the port compiles nothing, so it keeps the smaller
     padding.) Returns arrays padded to the largest bucket, in the original
     molecule order. ``n_chunks`` counts the chunks it dispatches. The
-    sampler settings go to every chunk (``sample``)."""
+    sampler settings go to every chunk (``sample``). A conditional model's
+    per-molecule rows ``context`` [M, P] are split and padded with the
+    sizes, a chunk's padding repeating its last row (sampling.py:116-119);
+    without them each chunk draws its rows from ``prop_dist`` with ``rng``,
+    padded sizes included, in dispatch order (JAX's)."""
     nodesxsample = np.asarray(nodesxsample)
+    if context is not None:
+        context = np.asarray(context, dtype=np.float32)
+        if context.ndim != 2 or len(context) != len(nodesxsample):
+            raise ValueError(f"context must be [{len(nodesxsample)}, P] property rows, got "
+                             f"{context.shape}")
     buckets = _aligned(buckets, nodesxsample)
     max_pad = buckets[-1]
     device = _model_device(model)
@@ -101,9 +145,15 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     for chunk_index, (chunk, pad, sizes) in enumerate(
             _chunks(nodesxsample, batch_size, buckets)):
         gen = chunk_generator(seed, chunk_index, device)
+        ctx_chunk = None
+        if context is not None:
+            ctx_chunk = context[chunk]
+            ctx_chunk = np.concatenate(
+                [ctx_chunk, np.repeat(ctx_chunk[-1:], len(sizes) - len(chunk), axis=0)])
         res = sample(model, gen, dataset_info, sizes, fix_noise=fix_noise, pad_nodes=pad,
                      n_steps=n_steps, eta=eta, method=method, clip_z=clip_z,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, context=ctx_chunk, prop_dist=prop_dist,
+                     rng=rng, guidance_scale=guidance_scale)
         pending.append((chunk, pad, res))
     # Every chunk is queued on the card before the first copy to the host.
     s = len(dataset_info["atom_decoder"])
@@ -148,6 +198,24 @@ def sample_chain(model, seed: int, dataset_info, n_tries: int = 1, keep_frames: 
                                                               axis=2)]
     charges = np.round(chain[:, :, -1:])
     return one_hot, charges, x
+
+
+def sample_sweep_conditional(model, seed: int, dataset_info, prop_dist, n_nodes: int = 19,
+                             n_frames: int = 100, compute_dtype=None):
+    """Each conditioning property swept linearly over its observed range at
+    ``n_nodes`` atoms, one frame per value, all with the same noise
+    (``fix_noise``; sampling.py:362-385, reference qm9/sampling.py:157-171).
+    Noise from ``chunk_generator(seed, 0)``. Returns ``sample``'s tuple."""
+    nodesxsample = np.full((n_frames,), n_nodes)
+    rows = []
+    for key_name in prop_dist.distributions:
+        lo, hi = prop_dist.distributions[key_name][n_nodes]["params"]
+        mean = prop_dist.normalizer[key_name]["mean"]
+        mad = prop_dist.normalizer[key_name]["mad"]
+        rows.append(np.linspace((lo - mean) / mad, (hi - mean) / mad, n_frames)[:, None])
+    context = np.concatenate(rows, axis=1).astype(np.float32)
+    return sample(model, chunk_generator(seed, 0, _model_device(model)), dataset_info,
+                  nodesxsample, fix_noise=True, context=context, compute_dtype=compute_dtype)
 
 
 def _aligned(buckets, nodesxsample) -> tuple:

@@ -8,7 +8,8 @@ rank holds its slab's share, are summed over the ranks, so every replica
 takes the same update. Every random draw (the
 encoder's eps, t, the diffusion eps) comes from the noise source the caller
 passes. Batches are dicts of tensors on the model's device: x [B,N,3],
-h_cat [B,N,C], h_int [B,N,0/1], node_mask [B,N,1], log_pN [B].
+h_cat [B,N,C], h_int [B,N,0/1], node_mask [B,N,1], log_pN [B] and, for a
+conditional model, context [B,N,ctx].
 """
 
 from __future__ import annotations
@@ -55,17 +56,41 @@ def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
                       sp_params)
 
 
-def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None):
-    """train_step(state, batch, noise) -> {"loss", "grad_norm"} (tensors on
-    the device, not synchronised). ``compute_dtype`` (a name or spec of
-    ``nn.core``, as JAX's ``make_train_step``): the loss and its gradient in
-    it; bf16 runs the bf16 forward and backward kernels."""
+def context_keep(noise: com.Noise, context: torch.Tensor, context_dropout: float
+                 ) -> torch.Tensor:
+    """[B, 1, 1] keep mask of classifier-free guidance training: 0 (the
+    all-zero null context) with probability ``context_dropout`` per
+    molecule, drawn from the step's generator before the loss's draws, as
+    JAX draws it (``geoldm_tpu/train/train_step.py:67-80``; the streams
+    differ). A noise source that is no ``torch.Generator`` needs the mask
+    passed in."""
+    if not isinstance(noise, torch.Generator):
+        raise ValueError("context_dropout draws its keep mask from a torch.Generator; pass "
+                         "keep= with another noise source")
+    u = torch.rand((context.shape[0], 1, 1), generator=noise, device=context.device)
+    return (u < 1.0 - context_dropout).to(context.dtype)
+
+
+def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None,
+                    context_dropout: float = 0.0):
+    """train_step(state, batch, noise, keep=None) -> {"loss", "grad_norm"}
+    (tensors on the device, not synchronised). ``compute_dtype`` (a name or
+    spec of ``nn.core``, as JAX's ``make_train_step``): the loss and its
+    gradient in it; bf16 runs the bf16 forward and backward kernels. With
+    ``context_dropout`` > 0 a batch's context is multiplied by a per-molecule
+    keep mask, ``keep`` [B,1,1] or else ``context_keep``'s draw."""
     nll_fn = factory.model_nll_fn(model_cfg, training=True, compute_dtype=compute_dtype)
 
-    def train_step(state: TrainState, batch: dict, noise: com.Noise) -> dict:
+    def train_step(state: TrainState, batch: dict, noise: com.Noise,
+                   keep: Optional[torch.Tensor] = None) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
+        context = batch.get("context")
+        if context is not None and context_dropout > 0:
+            if keep is None:
+                keep = context_keep(noise, context, context_dropout)
+            context = context * keep
         nll = nll_fn(state.model, noise, batch["x"], batch["h_cat"], batch["h_int"],
-                     batch["node_mask"], batch.get("context"))
+                     batch["node_mask"], context)
         loss = (nll - batch["log_pN"]).mean()
         loss.backward()
         if state.sp_params:

@@ -31,16 +31,19 @@ from geoldm_tpu_torch.models.distributions import DistributionNodes
 from geoldm_tpu_torch.ops import com
 from geoldm_tpu_torch.train import sampling as sampling_mod
 from geoldm_tpu_torch.train.augment import random_rotation
+from geoldm_tpu_torch.train.conditioning import prepare_context
 from geoldm_tpu_torch.train.prefetch import prefetch_map
 from geoldm_tpu_torch.utils.buckets import covering_buckets
 
 
 def prepare_batch(raw: Dict[str, np.ndarray], nodes_dist: DistributionNodes, device,
                   augment_noise: float = 0.0, rng: Optional[np.random.Generator] = None,
-                  data_augmentation: bool = False) -> Dict[str, torch.Tensor]:
+                  data_augmentation: bool = False, conditioning=(), property_norms=None,
+                  context_indicator: bool = False) -> Dict[str, torch.Tensor]:
     """Host-side batch prep: log p(N), the optional CoM-free coordinate
     noise, then the optional random rotation, masked (reference
-    train_test.py:22-44), then the copy to ``device``."""
+    train_test.py:22-44), and with ``conditioning`` the per-node context
+    (``conditioning.prepare_context``); then the copy to ``device``."""
     rng = rng or np.random.default_rng()
     x = raw["x"]
     if augment_noise > 0:
@@ -57,23 +60,29 @@ def prepare_batch(raw: Dict[str, np.ndarray], nodes_dist: DistributionNodes, dev
         "node_mask": raw["node_mask"],
         "log_pN": nodes_dist.log_prob(raw["n_atoms"]).astype(np.float32),
     }
+    if conditioning:
+        batch["context"] = prepare_context(conditioning, raw, property_norms,
+                                           indicator=context_indicator)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
 def train_epoch(state, train_step, loader, nodes_dist: DistributionNodes, noise: com.Noise,
                 epoch: int, *, augment_noise: float = 0.0, data_augmentation: bool = False,
                 break_train_epoch: bool = False, log_every: int = 50,
-                rng: Optional[np.random.Generator] = None, logger=None, prefetch: int = 2):
+                rng: Optional[np.random.Generator] = None, logger=None, prefetch: int = 2,
+                conditioning=(), property_norms=None, context_indicator: bool = False):
     """One pass over the loader -> (per-step losses as floats, seconds).
     ``logger`` (a ``utils.logging_utils.MetricLogger``) gets the batch loss
-    and gradient norm every ``log_every`` steps."""
+    and gradient norm every ``log_every`` steps. ``conditioning`` puts each
+    batch's context under ``batch["context"]`` (``prepare_batch``)."""
     rng = rng or np.random.default_rng(epoch)
     device = next(state.model.parameters()).device
     losses = []
     t0 = time.time()
 
     def prep(raw):
-        return prepare_batch(raw, nodes_dist, device, augment_noise, rng, data_augmentation)
+        return prepare_batch(raw, nodes_dist, device, augment_noise, rng, data_augmentation,
+                             conditioning, property_norms, context_indicator)
 
     # break_train_epoch runs serially: a lookahead would advance the shared
     # rng past where the serial loop stops, changing later draws.
@@ -101,16 +110,21 @@ def train_epoch(state, train_step, loader, nodes_dist: DistributionNodes, noise:
 
 def evaluate_nll(model, eval_nll_fn, loader, nodes_dist: DistributionNodes, noise: com.Noise,
                  *, partition: str = "valid", augment_noise: float = 0.0,
-                 rng: Optional[np.random.Generator] = None, prefetch: int = 2) -> float:
+                 rng: Optional[np.random.Generator] = None, prefetch: int = 2,
+                 conditioning=(), property_norms=None, context_indicator: bool = False
+                 ) -> float:
     """Mean NLL over a split with the t0_always estimator; like the
     reference, ``augment_noise`` applies here too (train_test.py:119-124).
-    The weighted sum stays on the device and is fetched once."""
+    The weighted sum stays on the device and is fetched once. A conditional
+    model gets each batch's context (``prepare_batch``)."""
     rng = rng or np.random.default_rng(0)
     device = next(model.parameters()).device
     total, count = torch.zeros((), dtype=torch.float32, device=device), 0
 
     def prep(raw):
-        return prepare_batch(raw, nodes_dist, device, augment_noise, rng)
+        return prepare_batch(raw, nodes_dist, device, augment_noise, rng,
+                             conditioning=conditioning, property_norms=property_norms,
+                             context_indicator=context_indicator)
 
     for batch in prefetch_map(prep, loader, depth=prefetch):
         b = batch["x"].shape[0]
@@ -196,7 +210,7 @@ def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNod
                      n_samples: int = 500, batch_size: int = 100,
                      rng: Optional[np.random.Generator] = None, datadir: str = "data",
                      external_smiles=None, n_steps: Optional[int] = None, eta: float = 1.0,
-                     method: str = "ddim", compute_dtype=None):
+                     method: str = "ddim", compute_dtype=None, prop_dist=None):
     """Generate ``n_samples`` molecules (sizes from the dataset histogram,
     size-bucketed, with the sampler settings of ``vdm.vdm_sample``) and score
     them -> (stability dict, validity triple, molecules) (reference
@@ -205,7 +219,8 @@ def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNod
     available (``evalsuite.analyze.analyze_stability_for_molecules``);
     ``external_smiles`` replaces the training set of ``datadir`` as the
     novelty base. ``molecules["report"]`` names the stability path that ran
-    and holds the host seconds of each part."""
+    and holds the host seconds of each part. A conditional model draws each
+    chunk's properties from ``prop_dist`` with ``rng`` (JAX's order)."""
     rng = rng or np.random.default_rng(0)
     nodesxsample = nodes_dist.sample(n_samples, rng)
     buckets = covering_buckets(sampling_mod.default_buckets(dataset_info),
@@ -213,7 +228,8 @@ def analyze_and_save(model, seed: int, dataset_info, nodes_dist: DistributionNod
     t0 = time.time()
     one_hot, _, x, node_mask = sampling_mod.sample_bucketed(
         model, seed, dataset_info, nodesxsample, batch_size=min(batch_size, n_samples),
-        buckets=buckets, n_steps=n_steps, eta=eta, method=method, compute_dtype=compute_dtype)
+        buckets=buckets, n_steps=n_steps, eta=eta, method=method, compute_dtype=compute_dtype,
+        prop_dist=prop_dist, rng=rng)
     report = {"generation_seconds": time.time() - t0}
     molecules = {"one_hot": one_hot, "x": x, "node_mask": node_mask[..., 0],
                  "n_atoms": nodesxsample, "report": report}

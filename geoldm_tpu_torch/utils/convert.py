@@ -2,9 +2,15 @@
 the port (port of ``geoldm_tpu/utils/torch_convert.py:172-376``).
 
 - ``state_dict_from_jax_params``: a JAX param pytree, as numpy arrays with
-  scan-stacked blocks, -> the port's upstream-layout state dict.
+  scan-stacked blocks, -> the port's upstream-layout state dict
+  (conditional models too: their embeddings are wider by the context).
+- ``classifier_state_dict_from_jax_params``: the JAX property classifier's
+  params -> ``models.classifier.PropertyClassifier``'s state dict.
 - ``model_config_from_reference_args`` / ``reference_args_from_model_config``:
-  the pickled upstream ``args`` namespace <-> ``ModelConfig``.
+  the pickled upstream ``args`` namespace <-> ``ModelConfig``. Upstream
+  has no field for the classifier-free guidance indicator channel, so the
+  port writes ``context_indicator`` beside ``context_node_nf`` (the
+  property count) and reads it with default False.
 - ``load_reference_checkpoint`` / ``save_reference_checkpoint``: the upstream
   checkpoint directory (``args.pickle`` + ``generative_model[_ema].npy``,
   a ``torch.save``d state dict), as ``geoldm_tpu.cli.export_torch_checkpoint``
@@ -78,22 +84,56 @@ def state_dict_from_jax_params(params_np: Dict[str, Any], model_cfg: ModelConfig
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+def classifier_state_dict_from_jax_params(params_np: Dict[str, Any], model_name: str = "egnn"
+                                          ) -> Dict[str, torch.Tensor]:
+    """JAX property-classifier params (``geoldm_tpu/models/classifier.py``,
+    numpy leaves, scan-stacked layers) -> the state dict of
+    ``models.classifier.PropertyClassifier`` (``egnn``) or of its baselines
+    (``naive``, ``numnodes``)."""
+    out: Dict[str, np.ndarray] = {}
+    if model_name == "naive":
+        _lin_out(out, "linear", params_np["linear"])
+    elif model_name == "numnodes":
+        _lin_out(out, "linear1", params_np["l1"])
+        _lin_out(out, "linear2", params_np["l2"])
+    else:
+        _lin_out(out, "embedding", params_np["embedding"])
+        gcls = params_np["gcls"]
+        n_layers = np.asarray(gcls["edge_mlp"][0]["w"]).shape[0]
+        at = lambda p, i: {k: np.asarray(v)[i] for k, v in p.items()}  # noqa: E731
+        for i in range(n_layers):
+            for name in ("edge_mlp", "node_mlp"):
+                _lin_out(out, f"gcl_{i}.{name}.0", at(gcls[name][0], i))
+                _lin_out(out, f"gcl_{i}.{name}.2", at(gcls[name][1], i))
+            if "att_mlp" in gcls:
+                _lin_out(out, f"gcl_{i}.att_mlp.0", at(gcls["att_mlp"], i))
+        for name in ("node_dec", "graph_dec"):
+            _lin_out(out, f"{name}.0", params_np[name][0])
+            _lin_out(out, f"{name}.2", params_np[name][1])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
 # The fields of an upstream ``args`` namespace that define the model (what
-# ``model_config_from_reference_args`` reads).
-MODEL_ARGS = ("include_charges", "context_node_nf", "nf", "n_layers", "latent_nf", "kl_weight",
-              "attention", "tanh", "norm_constant", "inv_sublayers", "sin_embedding",
-              "normalization_factor", "aggregation_method", "train_diffusion", "condition_time",
-              "trainable_ae", "diffusion_steps", "diffusion_noise_schedule",
-              "diffusion_noise_precision", "diffusion_loss_type", "normalize_factors", "model")
+# ``model_config_from_reference_args`` reads), with ``conditioning``: the
+# property names behind ``context_node_nf``.
+MODEL_ARGS = ("include_charges", "context_node_nf", "context_indicator", "conditioning", "nf",
+              "n_layers", "latent_nf", "kl_weight", "attention", "tanh", "norm_constant",
+              "inv_sublayers", "sin_embedding", "normalization_factor", "aggregation_method",
+              "train_diffusion", "condition_time", "trainable_ae", "diffusion_steps",
+              "diffusion_noise_schedule", "diffusion_noise_precision", "diffusion_loss_type",
+              "normalize_factors", "model")
 
 
 def model_config_from_reference_args(args: Any, dataset_info) -> ModelConfig:
     """Pickled upstream argparse namespace -> ModelConfig, with the
-    back-compat defaults of qm9/models.py:112-116."""
+    back-compat defaults of qm9/models.py:112-116. ``context_node_nf`` is
+    the property count; ``context_indicator`` (the port's field, default
+    False) adds the indicator channel."""
     g = lambda name, default: getattr(args, name, default)  # noqa: E731
     common = dict(
         include_charges=g("include_charges", True),
         context_node_nf=g("context_node_nf", 0),
+        context_indicator=bool(g("context_indicator", False)),
         nf=g("nf", 256), n_layers=g("n_layers", 9), latent_nf=g("latent_nf", 1),
         kl_weight=g("kl_weight", 0.01), attention=g("attention", True),
         tanh=g("tanh", True), norm_constant=g("norm_constant", 1.0),
@@ -115,15 +155,24 @@ def model_config_from_reference_args(args: Any, dataset_info) -> ModelConfig:
 
 
 def reference_args_from_model_config(model_cfg: ModelConfig, dataset: str = "qm9",
-                                     remove_h: bool = False,
-                                     ema_decay: float = 0.9999) -> argparse.Namespace:
-    """ModelConfig -> the upstream ``args.pickle`` namespace of an
-    unconditional latent-diffusion model (torch_convert.py:251-335)."""
+                                     remove_h: bool = False, ema_decay: float = 0.9999,
+                                     conditioning=()) -> argparse.Namespace:
+    """ModelConfig -> the upstream ``args.pickle`` namespace of a
+    latent-diffusion model (torch_convert.py:251-335): ``conditioning`` names
+    its properties, one per property channel, and ``context_indicator``
+    records the guidance indicator channel."""
+    from geoldm_tpu_torch.train.conditioning import property_channels
+
     e, vae, d = model_cfg.dynamics.egnn, model_cfg.vae, model_cfg.diffusion
+    n_props = property_channels(model_cfg)
+    if len(conditioning) != n_props:
+        raise ValueError(f"the model has {n_props} property channel(s); conditioning names "
+                         f"{len(conditioning)}: {list(conditioning)}")
     return argparse.Namespace(
-        dataset=dataset, remove_h=remove_h, conditioning=[], ae_path=None, cuda=False,
-        ema_decay=float(ema_decay), include_charges=vae.include_charges,
-        context_node_nf=model_cfg.dynamics.context_node_nf, nf=e.hidden_nf,
+        dataset=dataset, remove_h=remove_h, conditioning=list(conditioning), ae_path=None,
+        cuda=False, ema_decay=float(ema_decay), include_charges=vae.include_charges,
+        context_node_nf=n_props, context_indicator=model_cfg.context_indicator,
+        nf=e.hidden_nf,
         n_layers=e.n_layers, latent_nf=vae.latent_nf, kl_weight=vae.kl_weight,
         attention=e.attention, tanh=e.tanh, norm_constant=e.norm_constant,
         inv_sublayers=e.inv_sublayers, sin_embedding=e.sin_embedding,
@@ -138,12 +187,14 @@ def reference_args_from_model_config(model_cfg: ModelConfig, dataset: str = "qm9
 
 
 def save_reference_checkpoint(model, path: str, dataset: str = "qm9",
-                              remove_h: bool = False) -> None:
+                              remove_h: bool = False, conditioning=()) -> None:
     """Write ``args.pickle`` + ``generative_model[_ema].npy`` (the same
-    weights in both, as an export of EMA-free weights would be)."""
+    weights in both, as an export of EMA-free weights would be);
+    ``conditioning`` names a conditional model's properties."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "args.pickle"), "wb") as f:
-        pickle.dump(reference_args_from_model_config(model.cfg, dataset, remove_h), f)
+        pickle.dump(reference_args_from_model_config(model.cfg, dataset, remove_h,
+                                                     conditioning=conditioning), f)
     sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     for name in ("generative_model.npy", "generative_model_ema.npy"):
         torch.save(sd, os.path.join(path, name))

@@ -171,11 +171,13 @@ def test_backward_refuses_what_it_cannot_hold(card):
 # rows a tile, the last tile of a molecule ragged when R does not divide N
 # (17: 3 rows, last 2; 29: 2, last 1; 33, 48, 64: one row of 33/48/64 edge
 # rows), B*N never a multiple of 64 here; hidden widths padded to 64, 128,
-# 256, 512 (32 and 96 masked).
+# 256, 512 (32, 96 and 192 masked).
 TILE_CASES = [
     (17, (17, 12, 3), 32, {}), (29, (29, 21, 29), 128, {}), (33, (33, 30, 17), 32, {}),
     (48, (48, 33, 40), 96, {"inv_sublayers": 2}), (64, (64, 49, 57), 32, {"attention": False}),
     (29, (29, 24), 512, {}), (17, (17, 9), 128, {"sin_embedding": True}),
+    # The conditional QM9 recipe's width: 192 padded to 256, 64 channels masked.
+    (29, (29, 21, 26), 192, {}), (16, (16, 9, 12), 192, {}),
 ]
 
 
@@ -835,7 +837,8 @@ def _assert_bf16_close(got, want, what, want_f32=None):
 
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("n,n_real,hidden", [(9, (5, 9), 32), (24, (24, 17), 64),
-                                             (40, (33, 40), 256), (64, (64, 50), 512)])
+                                             (40, (33, 40), 256), (64, (64, 50), 512),
+                                             (29, (29, 22), 192)])
 def test_bf16_block_kernel_matches_plain(card, variant, n, n_real, hidden):
     block = _block(card, hidden=hidden, **variant)
     args = _inputs(card, 2, n, hidden, n_real)
@@ -991,7 +994,8 @@ def _flat_grads(r, k=3):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("n,n_real,hidden,b", [(9, (5, 9), 64, 4), (29, (29, 17, 24, 12), 256, 4)])
+@pytest.mark.parametrize("n,n_real,hidden,b", [(9, (5, 9), 64, 4), (29, (29, 17, 24, 12), 256, 4),
+                                               (29, (29, 20, 25, 16), 192, 4)])
 def test_bf16_block_backward_kernel_matches_plain(card, variant, n, n_real, hidden, b):
     block = _block(card, hidden=hidden, **variant)
     args = _inputs(card, b, n, hidden, (n_real * b)[:b])
@@ -1156,3 +1160,49 @@ def test_bf16_egnn_under_grad_runs_the_bf16_kernels_only(card):
             flips = bf16_flips(got, g) if k.endswith("weight") else torch.zeros_like(g, dtype=bool)
             assert int(flips.sum()) <= flips_allowed(g.numel(), FLIP_SHARE), k
             _assert_bf16_close(got.masked_fill(flips, 0.0), g.masked_fill(flips, 0.0), k)
+
+
+# ---------------------------------------------------------------------------
+# The conditional model: context channels through the denoiser's blocks
+# ---------------------------------------------------------------------------
+
+
+def test_conditional_denoiser_on_the_card_matches_the_cpu(card):
+    """A conditional denoiser at the conditional recipe's width (nf=192, two
+    layers, alpha and the guidance indicator as context) through #1 on the
+    card against the plain path on the CPU, within the denoiser gate 2e-4 *
+    max(1, max|ref|); guided at w=2 it calls the denoiser twice (2 * 2
+    launches of #1), at w=1 once, and the guided eps agrees too."""
+    import copy
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.diffusion import vdm
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.ops.com import remove_mean_with_mask
+
+    cfg = factory.make_latent_diffusion_config(
+        get_dataset_info("qm9"), nf=192, n_layers=2, latent_nf=1, diffusion_steps=20,
+        context_node_nf=1, context_indicator=True)
+    model = factory.build_model(cfg, "cpu", torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    b, n = 6, 29
+    mask = (np.arange(n)[None, :] < rng.integers(18, n + 1, size=b)[:, None]).astype(
+        np.float32)[..., None]
+    z = torch.from_numpy(rng.standard_normal((b, n, 4)).astype(np.float32) * mask)
+    mask_t = torch.from_numpy(mask)
+    z[:, :, :3] = remove_mean_with_mask(z[:, :, :3], mask_t)
+    ctx = np.concatenate([np.broadcast_to(rng.standard_normal((b, 1, 1)), (b, n, 1)),
+                          np.ones((b, n, 1))], axis=2).astype(np.float32) * mask
+    t = torch.from_numpy(rng.uniform(0, 1, (b, 1)).astype(np.float32))
+    ctx_t = torch.from_numpy(ctx)
+    on_card = copy.deepcopy(model).to(card)
+    args_card = (t.to(card), z.to(card), mask_t.to(card))
+    with torch.no_grad():
+        for w, calls in ((1.0, 1), (2.0, 2)):
+            before = egnn_block.launches
+            got = vdm.guided_eps(on_card.dynamics, *args_card, ctx_t.to(card), None, w)
+            torch.cuda.synchronize()
+            assert egnn_block.launches - before == calls * 2
+            want = vdm.guided_eps(model.dynamics, t, z, mask_t, ctx_t, None, w)
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got.cpu() - want).abs().max()) <= 2e-4 * scale, w

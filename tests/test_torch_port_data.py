@@ -110,10 +110,10 @@ def test_main_qm9_trains_the_vae_by_default(datadir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--compute_dtype", "bfloat16"], ["--dp", "2"], ["--conditioning", "alpha"],
+    ["--compute_dtype", "bfloat16"], ["--dp", "2"], ["--conditioning", "alpha", "--sp", "2"],
     ["--tp", "2"], ["--compute_dtype", "bfloat16_full"], ["--visualize", "True"],
     ["--compute_dtype", "bfloat16_mixed"], ["--model", "gnn_dynamics"],
-    ["--conditioning", "alpha", "homo"],
+    ["--conditioning", "alpha", "homo", "--sp", "4"],
 ])
 def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path):
     """Each flag outside the slice exits with the two-line message. The

@@ -50,7 +50,8 @@ def test_every_module_is_a_port_module():
                  "utils.checkpoint", "train.augment", "train.prefetch",
                  "utils.logging_utils", "evalsuite.smiles", "evalsuite.rdkit_metrics",
                  "evalsuite.native", "evalsuite.analyze", "cli.eval_analyze", "cli.check_data",
-                 "nn.core", "cli.eval_sample"):
+                 "nn.core", "cli.eval_sample", "train.conditioning", "models.classifier",
+                 "train.classifier_train", "cli.main_qm9_prop", "cli.eval_conditional_qm9"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 

@@ -301,7 +301,7 @@ def test_few_step_requests_report_what_they_ran(few_step_server, body, sampler):
 @pytest.mark.parametrize("body,fragment", [
     ({"n_steps": 21}, "n_steps must be in [1, 20]"), ({"n_steps": "x"}, "must be an integer"),
     ({"eta": 1.5}, "eta must be in"), ({"sampler": "euler"}, "sampler must be"),
-    ({"clip_z": -1}, "clip_z must be in"), ({"cfg_scale": 2.0}, "not ported yet"),
+    ({"clip_z": -1}, "clip_z must be in"), ({"cfg_scale": 10.5}, "cfg_scale must be in"),
 ])
 def test_few_step_requests_are_validated(few_step_server, body, fragment):
     base, _ = few_step_server

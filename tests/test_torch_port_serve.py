@@ -100,7 +100,7 @@ def test_unseeded_and_xyz_requests(server):
     ({"seed": "x"}, "seed must be an integer"),
     ({"sizes": [5], "n_steps": 10}, "n_steps must be in [1, 4]"),
     ({"sizes": [5], "sampler": "dpm3"}, "sampler must be"),
-    ({"sizes": [5], "cfg_scale": 2.0}, "not ported yet"),
+    ({"sizes": [5], "cfg_scale": 11.0}, "cfg_scale must be in [0.0, 10.0]"),
     ({"sizes": [5], "properties": {"alpha": 1.0}}, "unconditional"),
 ])
 def test_invalid_requests_get_400(server, body, fragment):
