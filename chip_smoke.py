@@ -167,7 +167,28 @@ Phases (each prints a line; any failure exits non-zero before the result):
      (b)'s checkpoint with --datadir and --conditioning alpha: a seeded
      properties request and its replay, a cfg_scale 2 request, a dense
      request without properties and a misnamed property (400), launches
-     exact per request.
+     exact per request;
+ 27. data parallelism: cli.main_qm9 --dp 2 at the QM9 recipe (nf=256, 9
+     layers, T=1000, B=64 global, 32 a rank), 3 steps, two ranks sharing
+     the card over gloo: the replicas' train states bit-identical, each
+     rank's #1/#2 launches exact (one rank's per step; chunk i of the
+     stability samples on rank i % 2); then phase 8's gradient over DP-2
+     against one rank on the card within 1e-3*max|ref|, and timed DP-2
+     recipe steps and the data ranks' gradient mean alone;
+ 28. DP x SP: cli.main_geom_drugs --dp 2 --sp 2 at the GEOM recipe, four
+     ranks on the card (data index r // 2, seq index r % 2), one step of 32
+     molecules at pad 184: replicas bit-identical, #6/#7 launches per rank
+     phase 16's per step; phase 17's gradient over the 2x2 grid against one
+     rank within 1e-3*max|ref|; timed steps, the SP sum and the DP mean;
+ 29. conditioning under SP: (a) #6/#7 at the conditional recipe's H=192,
+     N=29 padded to 30 over S=2, B=64, against their plain versions within
+     1e-4*max(1, max|ref|), weight gradients included, with times and
+     bounds; (b) cli.main_qm9 at the conditional recipe with --sp 2, 2 steps
+     (launches exact, replicas bit-identical); (c) phase 26's conditional
+     gradient over SP-2 against one rank within 1e-3*max|ref|;
+ 30. cli.eval_analyze --dp 2 on phase 18's checkpoint against --dp 1: 12
+     molecules with 20 DDIM jumps bit-identical, the packed NLLs (valid and 2
+     test passes) within 1e-5 relative, each rank's #1 launches exact.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -719,26 +740,18 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None, cond=Fa
     times closer to the CPU's bf16 step than to its f32 one)."""
     import torch
 
-    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
-    from geoldm_tpu_torch.data.synthetic import synthetic_batch
     from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.models.distributions import DistributionNodes
     from geoldm_tpu_torch.ops import egnn_block, egnn_tiled
-    from geoldm_tpu_torch.train.conditioning import prepare_context
     from geoldm_tpu_torch.train.trainer import prepare_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    keep = np.array([1, 0, 1, 1, 1, 0, 1, 1], np.float32)[:, None, None]  # cond: the CFG null
+    kind = "geom" if geom else "cond" if cond else "qm9"
+    cfg, info, context = _recipe(kind)
     if geom:
-        phase, info = 14, get_dataset_info("geom")
-        cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=4, latent_nf=2,
-                                                   include_charges=False, diffusion_steps=1000,
-                                                   trainable_ae=True)
-        # 150 atoms is not in the GEOM size histogram (log p(N) is undefined
-        # there); 151 is.
-        raw = synthetic_batch(info, 2, 184, np.random.default_rng(13), include_charges=False,
-                              n_atoms=[181, 151])
+        phase = 14
+        raw = _phase17_batches()[0]
         label = "GEOM nf=256 4+4 blocks B=2 pad 184 (181 and 151 atoms)"
 
         def bwd_launches():
@@ -748,27 +761,16 @@ def phase_grad(card_name, geom=False, compute_dtype=None, phase_id=None, cond=Fa
             return egnn_tiled.gcl_rows_bwd_launches + egnn_tiled.coord_rows_bwd_launches
         expected = 8 * (cfg.dynamics.egnn.inv_sublayers + 1)
     else:
-        phase, info = (26, get_dataset_info("qm9_second_half")) if cond else (
-            8, get_dataset_info("qm9"))
-        extra = dict(nf=192, context_node_nf=1, context_indicator=True,
-                     normalize_factors=(1.0, 8.0, 1.0)) if cond else dict(nf=256)
-        cfg = factory.make_latent_diffusion_config(info, n_layers=9, latent_nf=1,
-                                                   diffusion_steps=1000, trainable_ae=True,
-                                                   **extra)
-        raw = synthetic_batch(info, 8, 29, np.random.default_rng(11))
-        label = (f"conditional nf={extra['nf']} 9+9 blocks B=8 N=29 (alpha + indicator, "
-                 f"keep mask {keep.ravel().astype(int).tolist()})" if cond
+        phase = 26 if cond else 8
+        raw = _qm9_grad_batch(cond)
+        label = (f"conditional nf=192 9+9 blocks B=8 N=29 (alpha + indicator, keep mask "
+                 f"{_COND_KEEP.ravel().astype(int).tolist()})" if cond
                  else "nf=256 9+9 blocks B=8 N=29")
 
         def bwd_launches():
             return egnn_block.bwd_bf16_launches if compute_dtype else egnn_block.bwd_launches
         expected = 18
     phase = phase_id or phase
-    context = None
-    if cond:
-        raw["alpha"] = np.random.default_rng(12).normal(75.0, 8.0, size=8).astype(np.float32)
-        context = prepare_context(["alpha"], raw, {"alpha": {"mean": 75.0, "mad": 6.5}},
-                                  indicator=True) * keep
     nll_fn = factory.model_nll_fn(cfg, training=True, compute_dtype=compute_dtype)
     nodes = DistributionNodes(info.n_nodes)
     grads, losses, seconds = {}, {}, {}
@@ -1402,8 +1404,10 @@ def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
     return flops, nbytes, pairs * 6 * H * H + node_bwd
 
 
-def phase_sp_kernels(card_name):
-    """Phase 15: #6 and #7 against their plain versions on SP slabs."""
+def phase_sp_kernels(card_name, H=256, cases=None, b_bwd=32, spread=16, phase=15):
+    """Phase 15: #6 and #7 against their plain versions on SP slabs of GEOM
+    recipe blocks. Phase 29 (a) passes the conditional QM9 recipe's H=192
+    and its cases: a QM9 denoiser block then."""
     import torch
     import torch.nn.functional as F
 
@@ -1412,23 +1416,24 @@ def phase_sp_kernels(card_name):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    H = 256
     # (case, EGNN N = 'mean' divisor, ranks, slabs checked, forward B); N is
     # padded to a multiple of the ranks as egnn_forward_sp pads it. The
-    # backward runs at B=32. Pads 48 and 64 at B=32 are the SP epoch's pad-48
-    # train and pad-48/64 eval batches, most of a GEOM epoch.
-    cases = [("sum", 184, 2, None, 16), ("mean", 181, 4, None, 16), ("sin", 184, 2, [1], 16),
-             ("sum", 48, 2, None, 32), ("sum", 64, 2, None, 32)]
+    # backward runs at B=b_bwd. Pads 48 and 64 at B=32 are the SP epoch's
+    # pad-48 train and pad-48/64 eval batches, most of a GEOM epoch.
+    cases = cases or [("sum", 184, 2, None, 16), ("mean", 181, 4, None, 16),
+                      ("sin", 184, 2, [1], 16), ("sum", 48, 2, None, 32),
+                      ("sum", 64, 2, None, 32)]
     rows = []
     for case, n_egnn, ranks, slabs, b_fwd in cases:
         extra = {"mean": {"aggregation_method": "mean"}, "sin": {"sin_embedding": True}}
-        block = _geom_block(extra.get(case, {}), 900 + n_egnn + ranks)
+        block = (_geom_block(extra.get(case, {}), 900 + n_egnn + ranks) if H == 256
+                 else _qm9_block(H, 2900 + n_egnn + ranks))
         n = -(-n_egnn // ranks) * ranks
         s = n // ranks
-        for direction, B in (("fwd", b_fwd), ("bwd", 32)):
+        for direction, B in (("fwd", b_fwd), ("bwd", b_bwd)):
             inputs = [[F.pad(t, (0, 0, 0, n - n_egnn)) for t in
                        _ragged_inputs(10000 * ranks + 100 * rep + B, B, n_egnn, H, dev,
-                                      spread=16)] for rep in range(3)]
+                                      spread=spread)] for rep in range(3)]
             n_real0 = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
             for slab in (slabs or range(ranks)):
                 row0 = slab * s
@@ -1497,7 +1502,7 @@ def phase_sp_kernels(card_name):
                     tc_txt = (f" {bound_tc:.4f} ms (split-TF32 W2)" if direction == "fwd" else
                               f" {bound_tc:.4f} ms (split-TF32 edge and node products)")
                     rows.append(row)
-                    print(f"phase 15: SP {stage} {direction} {case} N={n} S={s} row0={row0} "
+                    print(f"phase {phase}: SP {stage} {direction} {case} N={n} S={s} row0={row0} "
                           f"B={B} H={H} max|d|={err:.3e} ({worst}; {len(names)} tensors each "
                           f"within {_KERNEL_RTOL}*max(1,max|ref|)) kernel {ms:.4f} ms plain "
                           f"{plain_ms:.4f} ms bound {bound:.4f} ms ({bound_by}, f32){tc_txt} "
@@ -1527,7 +1532,7 @@ def phase_sp_train(card_name, tmpdir, compute_dtype=None, phase=16):
     from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
     from geoldm_tpu_torch.data.synthetic import write_geom_conformers
     from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
-    from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.parallel import sharding
     from geoldm_tpu_torch.train.sampling import chunk_pads, default_buckets
     from geoldm_tpu_torch.utils.buckets import covering_buckets
     from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
@@ -1548,7 +1553,7 @@ def phase_sp_train(card_name, tmpdir, compute_dtype=None, phase=16):
             "--seed", str(seed), "--no_wandb"]
     argv += ["--compute_dtype", compute_dtype] if compute_dtype else []
     suffix = "_bf16" if compute_dtype else ""
-    rule = sp.placement(ranks, "cuda")[2]
+    rule = sharding.placement(ranks, "cuda")[2]
     print(f"phase {phase}: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
           flush=True)
     # Each rank is a process of its own and counts its launches from 0; the
@@ -1642,38 +1647,87 @@ def _phase17_batches():
     return raw, timed
 
 
-def _train_step_grads(device, raw, sp_group=None, compute_dtype=None):
+def _train_step_grads(device, raw, sp_group=None, compute_dtype=None, kind="geom", data=None):
     """One recipe train step's loss and gradients from seed-5 weights and the
-    replayed noise stream 12 (the blocks' gradients summed over the ranks),
-    in ``compute_dtype``; returns (model, loss, {name: gradient on the host},
+    replayed noise stream 12 on the global batch ``raw``, in
+    ``compute_dtype``: ``kind`` 'geom' (phase 14's recipe), 'qm9' (phase 8's)
+    or 'cond' (phase 26's conditional recipe with its context and keep
+    mask). The blocks' gradients are summed over the SP group; with ``data``
+    (a data group) the rank takes its rows of the batch and of the draws and
+    the gradients and loss are averaged over the data ranks, as the train
+    step does. Returns (model, loss, {name: gradient on the host},
     launches)."""
     import torch
 
-    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.models.distributions import DistributionNodes
-    from geoldm_tpu_torch.parallel import sp
-    from geoldm_tpu_torch.train.trainer import prepare_batch
+    from geoldm_tpu_torch.parallel import sharding, sp
+    from geoldm_tpu_torch.train.trainer import prepare_host, to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _geom_recipe_cfg()
+    cfg, info, context = _recipe(kind)
     model = factory.build_model(cfg, device, torch.Generator().manual_seed(5), sp_group=sp_group)
-    batch = prepare_batch(raw, DistributionNodes(get_dataset_info("geom").n_nodes), device)
+    host = prepare_host(raw, DistributionNodes(info.n_nodes))
+    if context is not None:
+        host["context"] = context
+    batch = to_device(sharding.shard_rows(host, data), device)
     before = _launch_counts()
     nll = factory.model_nll_fn(cfg, training=True, compute_dtype=compute_dtype)(
-        model, _Replay(12), batch["x"], batch["h_cat"], batch["h_int"], batch["node_mask"])
+        model, sharding.wrap_noise(_Replay(12), data), batch["x"], batch["h_cat"],
+        batch["h_int"], batch["node_mask"], batch.get("context"))
     loss = (nll - batch["log_pN"]).mean()
     loss.backward()
     if sp_group is not None:
-        sp.all_reduce_grads(sp.block_parameters(model), sp_group)
+        sharding.reduce_grads(sp.block_parameters(model), sp_group)
+    if data is not None:
+        (loss,) = sharding.reduce_grads(list(model.parameters()), data, loss, mean=True)
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _launch_counts().items()}
     grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None}
     return model, float(loss.detach()), grads, launches
 
 
-def _sp_step_rank(raw, timed, grp):
+def _recipe(kind):
+    """(model config, dataset info, context or None) of a gradient check:
+    'geom', 'qm9' or 'cond' (``_train_step_grads``)."""
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+
+    if kind == "geom":
+        return _geom_recipe_cfg(), get_dataset_info("geom"), None
+    info = get_dataset_info("qm9_second_half" if kind == "cond" else "qm9")
+    extra = dict(nf=192, context_node_nf=1, context_indicator=True,
+                 normalize_factors=(1.0, 8.0, 1.0)) if kind == "cond" else dict(nf=256)
+    cfg = factory.make_latent_diffusion_config(info, n_layers=9, latent_nf=1,
+                                               diffusion_steps=1000, trainable_ae=True, **extra)
+    return cfg, info, _cond_context() if kind == "cond" else None
+
+
+_COND_KEEP = np.array([1, 0, 1, 1, 1, 0, 1, 1], np.float32)[:, None, None]  # the CFG null
+
+
+def _cond_context():
+    """Phase 26's conditional gradient batch's context: alpha (B=8, N=29, the
+    batch of ``_qm9_grad_batch``) and the indicator, times the keep mask."""
+    from geoldm_tpu_torch.train.conditioning import prepare_context
+
+    raw = _qm9_grad_batch(cond=True)
+    raw["alpha"] = np.random.default_rng(12).normal(75.0, 8.0, size=8).astype(np.float32)
+    return prepare_context(["alpha"], raw, {"alpha": {"mean": 75.0, "mad": 6.5}},
+                           indicator=True) * _COND_KEEP
+
+
+def _qm9_grad_batch(cond=False):
+    """Phase 8's (26's with ``cond``) gradient batch: B=8, N=29."""
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+
+    info = get_dataset_info("qm9_second_half" if cond else "qm9")
+    return synthetic_batch(info, 8, 29, np.random.default_rng(11))
+
+
+def _sp_step_rank(raw, timed, grid):
     """One rank of phase 17: the gradient step, then the timed recipe steps."""
     import hashlib
 
@@ -1684,6 +1738,7 @@ def _sp_step_rank(raw, timed, grp):
     from geoldm_tpu_torch.train.train_step import create_train_state
     from geoldm_tpu_torch.train.trainer import prepare_batch
 
+    grp = grid.seq
     model, loss, grads, launches = _train_step_grads(grp.device, raw, grp)
     h = hashlib.sha256()
     for g in grads.values():
@@ -1703,13 +1758,13 @@ def phase_sp_grad(card_name):
     """Phase 17: an SP-2 train step against the same step on one rank."""
     import torch
 
-    from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.parallel import sharding
 
     raw, timed = _phase17_batches()
     t0 = time.time()
     _, loss_ref, grads_ref, launches_ref = _train_step_grads("cuda", raw)
     _check(not any(launches_ref[k] for k in _SP_COUNTERS), "the one-rank step ran SP kernels")
-    got = sp.spawn_ranks(2, _sp_step_rank, (raw, timed), device="cuda")
+    got = sharding.spawn(1, 2, _sp_step_rank, (raw, timed), device="cuda")
     wall = time.time() - t0
     L, inv = 4, 1
     per_rank = _no_launches()
@@ -2705,12 +2760,13 @@ def phase_bf16_train(card, tmpdir):
     return out
 
 
-def _sp_step_rank_bf16(raw, grp):
+def _sp_step_rank_bf16(raw, grid):
     """One rank of phase 25: the bf16 gradient step (phase 17's)."""
     import hashlib
 
     import torch.distributed as dist
 
+    grp = grid.seq
     _, loss, grads, launches = _train_step_grads(grp.device, raw, grp, "bfloat16")
     h = hashlib.sha256()
     for g in grads.values():
@@ -2729,7 +2785,7 @@ def phase_bf16_sp(card, tmpdir):
     samples on #1/#3/#4 bf16). Then an SP-2 bf16 train step against the same
     step on one rank in bf16 and in f32 (phase 17's batch: GEOM recipe, B=2,
     pad 184), held to tests/torch_port_bf16_sites.py's sp_grads_report."""
-    from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.parallel import sharding
 
     cli = phase_sp_train(card, tmpdir, "bfloat16", 25)
     sites = _bf16_sites()
@@ -2739,7 +2795,7 @@ def phase_bf16_sp(card, tmpdir):
     _check(not any(v for k, v in launches_ref.items() if k.startswith("sp_")),
            "the one-rank bf16 step ran SP kernels")
     _, loss_f32, grads_f32, _ = _train_step_grads("cuda", raw)
-    got = sp.spawn_ranks(2, _sp_step_rank_bf16, (raw,), device="cuda")
+    got = sharding.spawn(1, 2, _sp_step_rank_bf16, (raw,), device="cuda")
     wall = time.time() - t0
     L, inv = 4, 1
     per_rank = {**_no_launches(), "sp_gcl_rows_bf16": inv * (1 + 4 * L),
@@ -2807,9 +2863,11 @@ def phase_cond_kernels(card):
 
     def record(row, what):
         rows.append(row)
+        tc = (f", {row['bound_tc_ms']:.4f} ms with the products at the split-TF32 rate"
+              if "bound_tc_ms" in row else "")
         print(f"phase 26: {row['kernel']} N={row['N']} B={B} H={H}: {what}; kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}", flush=True)
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}{tc}) on {card}", flush=True)
 
     for n in (16, 29):
         block = _qm9_block(H, 2600 + n)
@@ -2846,6 +2904,8 @@ def phase_cond_kernels(card):
                     block, *a, compute_dtype=dt), inputs)
                 bound, bound_by = (_bf16_bounds(*fwd_work[:2]) if dt
                                    else _bounds(*fwd_work)[:2])
+                if not dt:  # the f32 kernel's products run in split TF32
+                    extra = {**extra, "bound_tc_ms": _bounds(*fwd_work)[2]}
                 record({"kernel": "egnn_block_bf16" if dt else "egnn_block", "N": n, "B": B,
                         "H": H, "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": bound_by, **extra},
@@ -2901,6 +2961,8 @@ def phase_cond_kernels(card):
             plain_ms = _time_ms(lambda *a: egnn_block.block_backward_plain(
                 block, *a, compute_dtype=dt), args, warmup=1, reps=3)
             bound, bound_by = (_bf16_bounds(*bwd_work[:2]) if dt else _bounds(*bwd_work)[:2])
+            if not dt:
+                fields = {**fields, "bound_tc_ms": _bounds(*bwd_work)[2]}
             record({"kernel": "egnn_block_bwd_bf16" if dt else "egnn_block_bwd", "N": n, "B": B,
                     "H": H, **fields, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": bound_by}, what + "; the saved route bit-identical")
@@ -3089,6 +3151,433 @@ def phase_conditional(card, tmpdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: data parallelism, DP x SP, conditioning under SP, eval --dp
+# ---------------------------------------------------------------------------
+
+
+def _grad_gate(phase, what, got, want, loss, loss_ref):
+    """Loss within _LOSS_RTOL relative and every gradient within _GRAD_RTOL *
+    max|ref| of the one-rank step's -> (worst ratio, its tensor)."""
+    import torch
+
+    _check(abs(loss - loss_ref) <= _LOSS_RTOL * abs(loss_ref),
+           f"phase {phase}: loss {what} {loss} vs one rank {loss_ref}")
+    _check(set(got) == set(want) and len(want) > 0,
+           f"phase {phase}: {what} and one rank gave gradients to different parameters")
+    worst, worst_name = 0.0, ""
+    for k, ref in want.items():
+        g = torch.as_tensor(got[k])
+        _check(bool(torch.isfinite(g).all()), f"phase {phase}: {what} gradient of {k} not finite")
+        d = float((g - ref).abs().max())
+        scale = float(ref.abs().max())
+        _check(d <= _GRAD_RTOL * scale, f"phase {phase}: gradient of {k}: {what} vs one rank "
+                                        f"max|d|={d:.3e} > {_GRAD_RTOL}*{scale:.3e}")
+        if scale and d / scale >= worst:
+            worst, worst_name = d / scale, k
+    return worst, worst_name
+
+
+def _grid_rank(kind, raw, timed, grid):
+    """One rank of phases 27-29: the recipe's gradient step on the global
+    batch ``raw`` over the grid (``_train_step_grads``), then, with a global
+    ``timed`` batch, 3 synchronised recipe train steps on this rank's rows and
+    the step's collectives alone (the SP sum of the block weights' gradients
+    and the data ranks' mean of every gradient) -> rank 0: the loss, the
+    gradients and every rank's gradient digest, launches and times."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_host, to_device
+
+    model, loss, grads, launches = _train_step_grads(grid.device, raw, grid.seq, kind=kind,
+                                                     data=grid.data)
+    h = hashlib.sha256()
+    for g in grads.values():
+        h.update(g.numpy().tobytes())
+    mine = {"rank": grid.rank, "grads_sha256": h.hexdigest(), "launches": launches}
+    if timed is not None:
+        cfg, info, _ = _recipe(kind)
+        state = create_train_state(model, cfg, 1e-4, ema_decay=0.9999, dp_group=grid.data)
+        step = make_train_step(cfg, 0.9999)
+        batch = to_device(sharding.shard_rows(prepare_host(timed, DistributionNodes(
+            info.n_nodes)), grid.data), grid.device)
+        noise = sharding.wrap_noise(torch.Generator(device=grid.device).manual_seed(7),
+                                    grid.data)
+
+        def timed_ms(fn):
+            out = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        mine["step_ms"] = timed_ms(lambda: step(state, batch, noise))
+        if grid.seq is not None:
+            mine["sp_sum_ms"] = timed_ms(lambda: sharding.reduce_grads(state.sp_params, grid.seq))
+        if grid.data is not None:
+            mine["dp_mean_ms"] = timed_ms(lambda: sharding.reduce_grads(state.params, grid.data,
+                                                                        mean=True))
+        mine["local_batch"] = int(batch["x"].shape[0])
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {"loss": loss, "grads": {k: g.numpy() for k, g in grads.items()}, "ranks": ranks}
+
+
+def _grid_grad(card, phase, kind, raw, timed, dp, sp_size, per_rank):
+    """The recipe step over a dp x sp grid of ranks sharing the card against
+    one rank's step on the card: the gate of ``_grad_gate``, the ranks'
+    gradients bit-identical, each rank's launches ``per_rank``; prints the
+    timed steps and collectives."""
+    from geoldm_tpu_torch.parallel import sharding
+
+    t0 = time.time()
+    _, loss_ref, grads_ref, _ = _train_step_grads("cuda", raw, kind=kind)
+    got = sharding.spawn(dp, sp_size, _grid_rank, (kind, raw, timed), device="cuda")
+    wall = time.time() - t0
+    what = f"DP-{dp}" + (f" x SP-{sp_size}" if sp_size > 1 else "") if dp > 1 else f"SP-{sp_size}"
+    worst, worst_name = _grad_gate(phase, what, got["grads"], grads_ref, got["loss"], loss_ref)
+    _check(len({r["grads_sha256"] for r in got["ranks"]}) == 1,
+           f"phase {phase}: the ranks' gradients differ after the collectives")
+    for r in got["ranks"]:
+        _check(r["launches"] == per_rank, f"phase {phase}: rank {r['rank']} launches "
+                                          f"{r['launches']} != {per_rank}")
+    print(f"phase {phase}: {what} train-step gradient ({kind} recipe, B={len(raw['x'])} "
+          f"global): loss {got['loss']:.6f} one rank {loss_ref:.6f}; {len(grads_ref)} "
+          f"parameter tensors, worst max|d|/max|ref| {worst:.2e} ({worst_name}; tol "
+          f"{_GRAD_RTOL}); every rank's gradient bit-identical; launches per rank "
+          f"{json.dumps({k: v for k, v in per_rank.items() if v})}; {wall:.1f} s", flush=True)
+    out = {"loss": got["loss"], "loss_one_rank": loss_ref, "worst_rel": worst,
+           "worst": worst_name, "seconds": wall}
+    if timed is not None:
+        for key in ("step_ms", "sp_sum_ms", "dp_mean_ms"):
+            if key in got["ranks"][0]:
+                out[key] = [r[key] for r in got["ranks"]]
+        for r in got["ranks"]:
+            coll = "; ".join(f"{name} {', '.join(f'{v:.2f}' for v in r[key])} ms"
+                             for key, name in (("sp_sum_ms", "SP sum"),
+                                               ("dp_mean_ms", "DP mean")) if key in r)
+            print(f"phase {phase}: {what} train step, {len(timed['x'])} molecules global, "
+                  f"{r['local_batch']} on rank {r['rank']}: "
+                  f"{', '.join(f'{v:.1f}' for v in r['step_ms'])} ms; collectives alone: "
+                  f"{coll} (host clock around synchronised calls; {dp * sp_size} ranks sharing "
+                  f"one card over gloo: correctness and overhead, not scaling) on {card}",
+                  flush=True)
+    return out
+
+
+def _rank_expected(per_step, per_eval, n_train, n_eval, chunk_pads, K, L, inv, sp_route):
+    """Launches per rank of a training CLI run: ``n_train`` steps and
+    ``n_eval`` eval batches (over the SP kernels with ``sp_route``, else the
+    whole-block ones; ``per_step`` / ``per_eval`` forward blocks each),
+    plus this rank's stability chunks at ``chunk_pads`` on the single-device
+    route, (K+1)*L + L blocks each: #1 up to pad 64, #3/#4 past it."""
+    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
+
+    per_chunk = (K + 1) * L + L
+    small = sum(1 for p in chunk_pads if p <= MAX_NODES)
+    large = len(chunk_pads) - small
+    e = _no_launches()
+    e["egnn_block"] = per_chunk * small
+    e["gcl_rows"], e["coord_rows"] = inv * per_chunk * large, per_chunk * large
+    if sp_route:
+        e["sp_gcl_rows"] = inv * (n_train * (1 + 4 * L) + n_eval * (1 + 3 * L))
+        e["sp_coord_rows"] = n_train * (1 + 2 * L) + n_eval * (1 + 3 * L)
+        e["sp_gcl_rows_bwd"], e["sp_coord_rows_bwd"] = inv * 2 * L * n_train, 2 * L * n_train
+    else:
+        e["egnn_block"] += n_train * per_step + n_eval * per_eval
+        e["egnn_block_bwd"] = n_train * 2 * L
+    return e
+
+
+def _check_replicas(phase, summary, n_ranks):
+    replicas = summary["replicas"]
+    _check([r["rank"] for r in replicas] == list(range(n_ranks)),
+           f"phase {phase}: replicas {[r['rank'] for r in replicas]}")
+    _check(len({r["digest"] for r in replicas}) == 1,
+           f"phase {phase}: the ranks' train states differ: "
+           f"{[r['digest'][:12] for r in replicas]}")
+    _check(all(r["stability"] == summary["stability"] for r in replicas),
+           f"phase {phase}: the ranks scored different stability samples")
+    return replicas
+
+
+def phase_dp_train(card, tmpdir):
+    """Phase 27: ``cli.main_qm9 --dp 2`` at the QM9 recipe (nf=256, 9
+    layers, latent_nf=1, T=1000, B=64 global: 32 molecules per rank), 3
+    steps, two ranks sharing the card over gloo; then the DP-2 gradient
+    against one rank and timed DP-2 steps."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.qm9 import QM9Loader, load_qm9
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, chunk_pads
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    info = get_dataset_info("qm9")
+    B, steps, T, K, L, n_stab, dp = 64, 3, 1000, 50, 9, 4, 2
+    write_qm9_splits(tmpdir, info, {"train": B * steps, "valid": B, "test": B}, seed=27)
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name", "dp",
+            "--dp", str(dp), "--train_diffusion", "--trainable_ae", "--nf", "256",
+            "--n_layers", str(L), "--latent_nf", "1", "--diffusion_steps", str(T),
+            "--batch_size", str(B), "--ema_decay", "0.9999", "--n_epochs", "1",
+            "--test_epochs", "1", "--n_stability_samples", str(n_stab), "--eval_n_steps",
+            str(K), "--seed", "0", "--no_wandb"]
+    rule = sharding.placement(dp, "cuda")[2]
+    print(f"phase 27: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    wall = time.time() - t0
+    _check(not any(_launch_counts().values()), f"phase 27: the launching process ran kernels: "
+                                               f"{_launch_counts()}")
+    losses = summary["losses"][0]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))), f"losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"phase 27: NLLs {summary['nll_val']} {summary['nll_test']}")
+    replicas = _check_replicas(27, summary, dp)
+    # Per rank: each step runs one rank's blocks on 32 molecules (encoder,
+    # 9 decoder and 9 denoiser blocks forward, 18 backward), each eval batch
+    # 1 + 3*9 on its half, and chunk i of the stability samples runs on rank
+    # i % 2.
+    pads = chunk_pads(summary["sample_sizes"][0], n_stab,
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"]))
+    for r in replicas:
+        mine = [p for i, p in enumerate(pads) if i % dp == r["rank"]]
+        want = _rank_expected(1 + 2 * L, 1 + 3 * L, steps, 2, mine, K, L, 1, False)
+        _check(r["launches"] == want, f"phase 27: rank {r['rank']} launches {r['launches']} "
+                                      f"!= {want} (chunk pads {pads})")
+    print(f"phase 27: {rule}; {steps} steps of {B} molecules ({B // dp} per rank), losses "
+          f"{[round(v, 4) for v in losses]}, valid NLL {summary['nll_val'][0]:.4f}, test NLL "
+          f"{summary['nll_test'][0]:.4f}, stability {summary['stability'][0]} on every rank "
+          f"(chunk pads {pads}, chunk i on rank i % {dp}); launches per rank "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in replicas]} = what the "
+          f"code implies; train states bit-identical (sha256 {replicas[0]['digest'][:16]}); "
+          f"main() {wall:.1f} s, epoch {summary['epoch_seconds'][0]:.1f} s on {card}",
+          flush=True)
+    splits, _ = load_qm9(tmpdir)
+    timed = next(iter(QM9Loader(splits["train"], B, info["max_n_nodes"])))
+    per_rank = {**_no_launches(), "egnn_block": 1 + 2 * L, "egnn_block_bwd": 2 * L}
+    grad = _grid_grad(card, 27, "qm9", _qm9_grad_batch(), timed, dp, 1, per_rank)
+    torch.cuda.empty_cache()
+    return {"launches": {k: sum(r["launches"][k] for r in replicas) for k in _no_launches()},
+            "launches_per_rank": [r["launches"] for r in replicas], "rule": rule,
+            "losses": losses, "nll_val": summary["nll_val"][0],
+            "nll_test": summary["nll_test"][0], "stability": summary["stability"][0],
+            "main_seconds": wall, "epoch_seconds": summary["epoch_seconds"][0], "grad": grad}
+
+
+def phase_grid_train(card, tmpdir):
+    """Phase 28: ``cli.main_geom_drugs --dp 2 --sp 2`` at the GEOM recipe:
+    four ranks share the card (data index r // 2, seq index r % 2), one
+    step of 32 molecules at pad 184 (16 per data row, their atom rows split
+    over its two ranks); then the DP-2 x SP-2 gradient against one rank and
+    timed steps."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_geom_drugs
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.sampling import chunk_pads, default_buckets
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    info = get_dataset_info("geom")
+    B, T, K, L, inv, n_stab, dp, sp_size = 32, 1000, 50, 4, 1, 2, 2, 2
+    hist = sorted(dict(info.n_nodes_histogram))
+    rng = np.random.default_rng(28)
+    sizes = [int(v) for v in rng.choice([k for k in hist if 129 <= k <= 181], size=B)]
+    path = write_geom_conformers(tmpdir, info, len(sizes) * 5 // 4, seed=28, sizes=sizes)
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name", "grid",
+            "--dp", str(dp), "--sp", str(sp_size), "--train_diffusion", "--trainable_ae",
+            "--nf", "256", "--n_layers", str(L), "--latent_nf", "2", "--include_charges",
+            "False", "--diffusion_steps", str(T), "--batch_size", str(B), "--lr", "5e-5",
+            "--ema_decay", "0.9999", "--n_epochs", "1", "--test_epochs", "1",
+            "--n_stability_samples", str(n_stab), "--eval_n_steps", str(K), "--seed", "0",
+            "--no_wandb"]
+    rule = sharding.placement(dp * sp_size, "cuda")[2]
+    print(f"phase 28: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+          flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_geom_drugs.main(argv)
+    wall = time.time() - t0
+    _check(not any(_launch_counts().values()), "phase 28: the launching process ran kernels")
+    losses = summary["losses"][0]
+    _check(len(losses) == 1 and bool(np.all(np.isfinite(losses))), f"losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"phase 28: NLLs {summary['nll_val']} {summary['nll_test']}")
+    replicas = _check_replicas(28, summary, dp * sp_size)
+    train, val, test = load_split_data(path)
+    train_pads = [int(b["node_mask"].shape[1]) for b in GeomLoader(train, info, B)]
+    _check(train_pads == [184], f"phase 28: train batch pads {train_pads}")
+    n_eval = sum(1 for data in (val, test) for _ in GeomLoader(data, info, B, shuffle=False,
+                                                               include_charges=False))
+    pads = chunk_pads(summary["sample_sizes"][0], n_stab,
+                      covering_buckets(default_buckets(info), info["max_n_nodes"]))
+    # Per rank, phase 16's counts for one step (each SP slab stage once per
+    # call, whatever the rows) and n_eval eval batches; chunk i of the
+    # stability samples runs on data row i % 2 (both of its ranks).
+    for r in replicas:
+        mine = [p for i, p in enumerate(pads) if i % dp == r["rank"] // sp_size]
+        want = _rank_expected(0, 0, 1, n_eval, mine, K, L, inv, True)
+        _check(r["launches"] == want, f"phase 28: rank {r['rank']} launches {r['launches']} "
+                                      f"!= {want} (chunk pads {pads}, {n_eval} eval batches)")
+    print(f"phase 28: {rule}, data index r // {sp_size}, seq index r % {sp_size}; 1 step of "
+          f"{B} molecules at pad 184 ({B // dp} per data row), loss {losses[0]:.4f}, valid NLL "
+          f"{summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f} ({n_eval} eval "
+          f"batches), stability {summary['stability'][0]} (chunk pads {pads}); launches per "
+          f"rank {[{k: v for k, v in r['launches'].items() if v} for r in replicas]} = what "
+          f"the code implies; the 4 train states bit-identical (sha256 "
+          f"{replicas[0]['digest'][:16]}); main() {wall:.1f} s, epoch "
+          f"{summary['epoch_seconds'][0]:.1f} s on {card}", flush=True)
+    raw, timed = _phase17_batches()
+    per_rank = {**_no_launches(), "sp_gcl_rows": inv * (1 + 4 * L), "sp_coord_rows": 1 + 2 * L,
+                "sp_gcl_rows_bwd": inv * 2 * L, "sp_coord_rows_bwd": 2 * L}
+    grad = _grid_grad(card, 28, "geom", raw, timed[184], dp, sp_size, per_rank)
+    torch.cuda.empty_cache()
+    return {"launches": {k: sum(r["launches"][k] for r in replicas) for k in _no_launches()},
+            "launches_per_rank": [r["launches"] for r in replicas], "rule": rule,
+            "losses": losses, "nll_val": summary["nll_val"][0],
+            "nll_test": summary["nll_test"][0], "stability": summary["stability"][0],
+            "main_seconds": wall, "epoch_seconds": summary["epoch_seconds"][0], "grad": grad}
+
+
+def phase_cond_sp(card, tmpdir):
+    """Phase 29: conditioning under SP. (a) #6/#7 at the conditional
+    recipe's H=192 on QM9's N=29 padded to 30 over S=2 (both slabs, B=64)
+    against their plain versions, weight gradients included; (b)
+    ``cli.main_qm9`` at the conditional recipe with ``--sp 2``, 2 steps; (c)
+    the SP-2 conditional gradient (phase 26's batch and keep mask) against
+    one rank."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, chunk_pads
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    rows = phase_sp_kernels(card, H=192, cases=[("sum", 29, 2, None, 64)], b_bwd=64,
+                            spread=8, phase=29)
+    info = get_dataset_info("qm9_second_half")
+    B, steps, T, K, L, n_stab, sp_size = 64, 2, 1000, 50, 9, 4, 2
+    write_qm9_splits(tmpdir, get_dataset_info("qm9"), {"train": 2 * B * steps, "valid": B,
+                                                       "test": B}, seed=29)
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name",
+            "cond_sp", "--sp", str(sp_size), "--dataset", "qm9_second_half",
+            "--train_diffusion", "--trainable_ae", "--conditioning", "alpha", "--nf", "192",
+            "--n_layers", str(L), "--latent_nf", "1", "--normalize_factors", "[1,8,1]",
+            "--context_dropout", "0.1", "--batch_size", str(B), "--diffusion_steps", str(T),
+            "--ema_decay", "0.9999", "--n_epochs", "1", "--test_epochs", "1",
+            "--n_stability_samples", str(n_stab), "--eval_n_steps", str(K), "--seed", "0",
+            "--no_wandb"]
+    rule = sharding.placement(sp_size, "cuda")[2]
+    print(f"phase 29: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    wall = time.time() - t0
+    _check(not any(_launch_counts().values()), "phase 29: the launching process ran kernels")
+    losses = summary["losses"][0]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))), f"losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"phase 29: NLLs {summary['nll_val']} {summary['nll_test']}")
+    replicas = _check_replicas(29, summary, sp_size)
+    # Every EGNN call runs over the slabs (N=29 padded to 30, 15 rows a
+    # rank); the stability samples run on the single-device route on both
+    # ranks (#1 at pads <= 32).
+    pads = chunk_pads(summary["sample_sizes"][0], n_stab,
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"]))
+    want = _rank_expected(0, 0, steps, 2, pads, K, L, 1, True)
+    for r in replicas:
+        _check(r["launches"] == want, f"phase 29: rank {r['rank']} launches {r['launches']} != "
+                                      f"{want} (chunk pads {pads})")
+    print(f"phase 29: {rule}; conditional recipe (nf=192, alpha, --context_dropout 0.1) "
+          f"{steps} steps, losses {[round(v, 4) for v in losses]}, valid NLL "
+          f"{summary['nll_val'][0]:.4f}, test NLL {summary['nll_test'][0]:.4f}, stability "
+          f"{summary['stability'][0]}; launches per rank "
+          f"{json.dumps({k: v for k, v in want.items() if v})} = what the code implies; train "
+          f"states bit-identical; main() {wall:.1f} s on {card}", flush=True)
+    per_rank = {**_no_launches(), "sp_gcl_rows": 1 + 4 * L, "sp_coord_rows": 1 + 2 * L,
+                "sp_gcl_rows_bwd": 2 * L, "sp_coord_rows_bwd": 2 * L}
+    grad = _grid_grad(card, 29, "cond", _qm9_grad_batch(cond=True), None, 1, sp_size,
+                      per_rank)
+    torch.cuda.empty_cache()
+    return {"kernel_rows": rows, "launches": {k: sum(r["launches"][k] for r in replicas)
+                                              for k in _no_launches()},
+            "rule": rule, "losses": losses, "nll_val": summary["nll_val"][0],
+            "nll_test": summary["nll_test"][0], "main_seconds": wall, "grad": grad}
+
+
+def phase_dp_eval(card, qm9_dir):
+    """Phase 30: ``cli.eval_analyze --dp 2`` on phase 18's QM9 checkpoint
+    against ``--dp 1``: 12 molecules with 20 DDIM jumps (chunks of 4, chunk
+    i on rank i % 2) and the packed NLL (valid, 2 test passes, 32 of each
+    batch's 64 rows a rank): the molecules bit-identical, the NLLs within
+    1e-5 relative."""
+    import torch
+
+    from geoldm_tpu_torch.cli import eval_analyze
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, chunk_pads
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    n_samples, K, L, passes, dp = 12, 20, 9, 2, 2
+    argv = ["--model_path", os.path.join(qm9_dir, "out", "resumed"), "--datadir", qm9_dir,
+            "--n_samples", str(n_samples), "--batch_size_gen", "4", "--n_steps", str(K),
+            "--batch_size_nll", "64", "--n_test_passes", str(passes)]
+    print(f"phase 30: python -m geoldm_tpu_torch.cli.eval_analyze {' '.join(argv)} [--dp 2]",
+          flush=True)
+    t0 = time.time()
+    one = eval_analyze.main(argv)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    _zero_launch_counts()
+    two = eval_analyze.main(argv + ["--dp", str(dp)])
+    t2 = time.time()
+    _check(not any(_launch_counts().values()), "phase 30: the launching process ran kernels")
+    for k in ("one_hot", "x", "node_mask", "n_atoms"):
+        _check(np.array_equal(two["molecules"][k], one["molecules"][k]),
+               f"phase 30: --dp 2 generated other molecules than --dp 1 ({k})")
+    _check(two["stability"] == one["stability"] and two["rdkit"] == one["rdkit"],
+           f"phase 30: scores {two['stability']} {two['rdkit']} vs {one['stability']} "
+           f"{one['rdkit']}")
+    nlls = list(zip([two["nll_val"], *two["nll_tests"]], [one["nll_val"], *one["nll_tests"]]))
+    worst = max(abs(a - b) / abs(b) for a, b in nlls)
+    _check(worst <= 1e-5, f"phase 30: NLLs --dp 2 vs --dp 1 {nlls}")
+    pads = chunk_pads(one["molecules"]["n_atoms"], 4, covering_buckets(DEFAULT_SAMPLE_BUCKETS,
+                                                                        29))
+    for r, counts in enumerate(two["launches_per_rank"]):
+        chunks = sum(1 for i in range(len(pads)) if i % dp == r)
+        want = {**_no_launches(), "egnn_block": ((K + 1) * L + L) * chunks
+                + (1 + 3 * L) * (1 + passes)}
+        _check(counts == want, f"phase 30: rank {r} launches {counts} != {want}")
+    print(f"phase 30: eval_analyze --dp {dp}: {n_samples} molecules ({len(pads)} chunks, chunk i "
+          f"on rank i % {dp}) bit-identical to --dp 1, stability {two['stability']}; NLLs "
+          f"{[round(a, 6) for a, _ in nlls]}, worst relative difference {worst:.2e} (tol 1e-5); "
+          f"launches per rank {[c['egnn_block'] for c in two['launches_per_rank']]} of #1 = "
+          f"what the code implies; --dp 1 {t1 - t0:.1f} s, --dp 2 {t2 - t1:.1f} s (main()) on "
+          f"{card}", flush=True)
+    return {"launches": {k: sum(c[k] for c in two["launches_per_rank"])
+                         for k in _no_launches()},
+            "nll_worst_rel": worst, "seconds_dp1": t1 - t0, "seconds_dp2": t2 - t1,
+            "stability": two["stability"]}
+
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -3201,6 +3690,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         conditional = phase_conditional(card, tmpdir)
     lap("26")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dp_train = phase_dp_train(card, tmpdir)
+    lap("27")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        grid_train = phase_grid_train(card, tmpdir)
+    lap("28")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cond_sp = phase_cond_sp(card, tmpdir)
+    lap("29")
+    dp_eval = phase_dp_eval(card, qm9_run.name)
+    lap("30")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -3216,7 +3716,8 @@ def main(argv=None) -> int:
         "evaluation": evaluation, "geom_evaluation": geom_eval, "bf16_kernels": bf16_rows,
         "bf16_serving": bf16_serving, "bf16_backward": bf16_bwd_rows,
         "bf16_training": bf16_train, "bf16_sp": bf16_sp, "conditional_kernels": cond_rows,
-        "conditional_grad": cond_grad, "conditional": conditional,
+        "conditional_grad": cond_grad, "conditional": conditional, "dp_training": dp_train,
+        "grid_training": grid_train, "conditional_sp": cond_sp, "dp_eval": dp_eval,
         "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
@@ -3224,14 +3725,15 @@ def main(argv=None) -> int:
 
     # Launches on the main paths: each path's own counts, read just after it
     # (phases 4, 7, 10, 13 and 16, the resumed, first-stage and evaluation
-    # runs of phases 18-20, and phase 26's conditional training, guided
-    # scoring and serving).
+    # runs of phases 18-20, phase 26's conditional training, guided scoring
+    # and serving, and the ranks of phases 27-30's CLI runs).
     geom_train_launches = geom_train["launches"]
     later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
              resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
              evaluation["launches"], geom_eval["launches"], bf16_launches,
              conditional["train"]["launches"], conditional["eval"]["launches"],
-             conditional["serve"]["launches"]]
+             conditional["serve"]["launches"], dp_train["launches"], grid_train["launches"],
+             cond_sp["launches"], dp_eval["launches"]]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)
@@ -3253,12 +3755,21 @@ def main(argv=None) -> int:
         main = [r for r in sp_rows if r["dir"] == direction and r["case"] == "sum"
                 and r["N"] == 184 and r["row0"] == r["S"]]
         suffix = "" if direction == "fwd" else "_bwd"
+        # The conditional recipe's H=192 (phase 29 (a)): a block's two stages
+        # on the second slab of N=30 over 2 ranks, as above.
+        h192_all = [r for r in cond_sp["kernel_rows"] if r["dir"] == direction]
+        h192 = [r for r in h192_all if r["row0"] == r["S"]]
         return {"name": f"egnn_sp_{direction}", "route": "cuda",
                 "source": "geoldm_tpu_torch/csrc/egnn_sp.cu",
                 "replaces": f"geoldm_tpu/ops/pallas_egnn_sp.py:{line}",
                 "launches": sum(sp_train["launches"][f"sp_{stage}{suffix}"]
+                                + later_launches(f"sp_{stage}{suffix}")
                                 for stage in ("gcl_rows", "coord_rows")),
-                "max_abs_err": max(r["max_abs_err"] for r in sp_rows if r["dir"] == direction),
+                "max_abs_err": max(r["max_abs_err"] for r in sp_rows + h192_all
+                                   if r["dir"] == direction),
+                "h192": {"N": 30, "S": 15, "B": h192[0]["B"],
+                         **{k: sum(r[k] for r in h192)
+                            for k in ("ms", "plain_ms", "bound_ms", "bound_tc_ms")}},
                 "ms": sum(r["ms"] for r in main), "plain_ms": sum(r["plain_ms"] for r in main),
                 "bound_ms": sum(r["bound_ms"] for r in main),
                 "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in main)
@@ -3371,7 +3882,7 @@ def main(argv=None) -> int:
             entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in mine])
             at29 = next(r for r in mine if r["N"] == 29)
             entry["h192"] = {k: at29[k] for k in ("N", "B", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by")}
+                                                   "bound_by", "bound_tc_ms") if k in at29}
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -1,14 +1,21 @@
 """Training CLI plumbing (port of ``geoldm_tpu/cli/common.py:17-434``): the
 reference flag surface (QM9 and GEOM-Drugs defaults), flags -> ModelConfig,
-and the training run, serial or sequence-parallel.
+and the training run: on one device, data-parallel, sequence-parallel, or
+both.
 
-The port trains on one device, or with ``--sp S`` over S ranks that split
-every EGNN's atom rows (``parallel.sp``): one command spawns the ranks,
-every rank draws the same batches and noise, only rank 0 prints and writes
-checkpoints and ``metrics.jsonl``. ``--conditioning`` trains a QM9 model
-conditioned on properties (one device), and ``--context_dropout`` p nulls a
-molecule's context with probability p per step, for classifier-free
-guidance at sampling time (``vdm.guided_eps``). A run
+``--dp D`` splits the global ``--batch_size`` over D data ranks and averages
+their gradients (``parallel.sharding``); ``--sp S`` splits every EGNN's atom
+rows over S ranks (``parallel.sp``); both together run D x S ranks. ``--dp
+0`` (the default) means every card, divided by ``--sp``, as JAX's
+``make_mesh(dp=0)``; 1 with ``--device cpu``. One command spawns the ranks,
+with the placement rule of ``parallel.sharding``; every rank prepares the
+same global batches, keeps its rows and draws its rows of the global noise,
+so the replicas stay bit-identical; only global rank 0 prints and writes
+checkpoints, ``args.pickle`` and ``metrics.jsonl``. ``--conditioning``
+trains a QM9 model conditioned on properties (also under ``--sp``), and
+``--context_dropout`` p nulls a molecule's context with probability p per
+step, for classifier-free guidance at sampling time (``vdm.guided_eps``). A
+run
 resumes from its ``latest/`` checkpoint (``--resume``, with the
 checkpoint's model config) and a latent-diffusion run can start from a
 trained first stage (``--ae_path``). ``--eval_n_steps`` K runs the periodic
@@ -45,7 +52,9 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--batch_size", type=int, default=d["batch_size"])
     p.add_argument("--lr", type=float, default=d["lr"])
     p.add_argument("--break_train_epoch", type=eval, default=False)
-    p.add_argument("--dp", type=int, default=0, help="data-parallel devices (not ported yet)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks, each taking batch_size / dp molecules of every "
+                        "batch (0: every card, divided by --sp)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported yet)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks: split the EGNN's O(N^2) pair grid over atom "
@@ -108,19 +117,19 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
 
 def _not_ported(what: str) -> None:
     raise SystemExit(f"{what} is not ported yet.\n"
-                     "geoldm_tpu_torch trains on one device, sequence-parallel (--sp) "
-                     "models unconditionally.")
+                     "geoldm_tpu_torch trains on one device or over data-parallel (--dp) and "
+                     "sequence-parallel (--sp) ranks, conditioned or not; no --tp.")
 
 
 def resolve_dp(args) -> int:
-    """The data-parallel width the flags ask for: ``--dp``, or with ``--sp``
-    and ``--dp 0`` the cards left over per SP group, as the JAX CLI's
-    ``max(1, n_dev // sp)`` (1 on one card)."""
-    if args.sp > 1 and args.dp <= 0:
+    """The data-parallel width the flags ask for: ``--dp``, or with ``--dp
+    0`` every card divided by ``--sp``, as JAX's ``make_mesh(dp=0)`` and
+    ``max(1, n_dev // sp)`` (1 on the CPU and on one card)."""
+    if args.dp <= 0:
         import torch
 
         n_dev = torch.cuda.device_count() if args.device != "cpu" else 1
-        return max(1, n_dev // args.sp)
+        return max(1, n_dev // max(args.sp, 1))
     return args.dp
 
 
@@ -128,12 +137,14 @@ def check_ported(args) -> None:
     """Exit with a two-line message for any flag outside the ported slice."""
     if args.sp > 1 and args.tp > 1:
         raise SystemExit("--sp and --tp cannot be combined")
-    if resolve_dp(args) > 1:
-        _not_ported(f"--dp {resolve_dp(args)}")
     if args.tp > 1:
         _not_ported(f"--tp {args.tp}")
-    if args.conditioning and args.sp > 1:
-        _not_ported("--conditioning with --sp")
+    dp = resolve_dp(args)
+    if dp > args.batch_size:
+        # JAX's train_epoch raises on an epoch of batches the data axis
+        # cannot split; nothing falls back to fewer ranks.
+        raise SystemExit(f"--dp {dp} splits every batch over {dp} data ranks, but "
+                         f"--batch_size is {args.batch_size}")
     if args.visualize:
         _not_ported("--visualize")
     if args.model != "egnn_dynamics":
@@ -178,13 +189,15 @@ def _generator(device, seed: int, *stream) -> "torch.Generator":
 
 
 def launch(args, train_fn):
-    """``train_fn(args, None)``, or with ``--sp S`` ``train_fn(args, group)``
-    in S spawned ranks (``parallel.sp.spawn_ranks``), returning rank 0's
-    summary. ``train_fn`` is a module-level function (the ranks import it)."""
-    if args.sp > 1:
-        from geoldm_tpu_torch.parallel import sp
+    """``train_fn(args, None)``, or with D = ``resolve_dp(args)`` and S =
+    ``--sp`` over D*S > 1 ranks ``train_fn(args, grid)`` in each spawned rank
+    (``parallel.sharding.spawn``), returning rank 0's summary. ``train_fn``
+    is a module-level function (the ranks import it)."""
+    dp = resolve_dp(args)
+    if dp * args.sp > 1:
+        from geoldm_tpu_torch.parallel import sharding
 
-        return sp.spawn_ranks(args.sp, train_fn, (args,), device=args.device)
+        return sharding.spawn(dp, args.sp, train_fn, (args,), device=args.device)
     return train_fn(args, None)
 
 
@@ -199,7 +212,7 @@ def _snapshot(state) -> dict:
             "step": state.step}
 
 
-def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dict:
+def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     """Train, evaluate and checkpoint (common.py:159-434). ``loaders``
     replaces the QM9Loaders built from ``splits`` (the GEOM entry point
     passes GeomLoaders); each must agree with the model on the charge
@@ -223,14 +236,16 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
     (EMA when training with EMA) replace the model's and the EMA model's
     ``vae`` before the first step; a resume then overrides them.
 
-    With ``sp_group`` this is one rank of a sequence-parallel run: the model's
-    EGNNs run over the group (train steps and valid/test NLL), the stability
-    samples run on the single-device route on every rank with the same seed
-    (as the JAX CLI samples without SP), and only rank 0 writes checkpoints
-    and metrics. Every rank loads the same checkpoints. The summary then
-    holds, in place of the train state, ``replicas``: per rank its
-    train-state digest (and the one it resumed from), kernel launch counts,
-    stability and sampled sizes."""
+    With ``grid`` (a ``parallel.sharding.Grid``) this is one rank of a
+    data- and/or sequence-parallel run: the model's EGNNs run over the grid's
+    SP group (train steps and valid/test NLL), each data rank takes its rows
+    of every batch and of the noise, and the stability samples run on the
+    single-device route, their chunks fanned out over the data ranks (as the
+    JAX CLI samples without SP and over its data axis); only global rank 0
+    writes checkpoints and metrics. Every rank loads the same checkpoints.
+    The summary then holds, in place of the train state, ``replicas``: per
+    rank (all D*S of them) its train-state digest (and the one it resumed
+    from), kernel launch counts, stability and sampled sizes."""
     import torch
 
     from geoldm_tpu_torch.data.qm9 import QM9Loader
@@ -275,13 +290,15 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
     # and the indicator channel upstream lacks (utils.convert).
     args.context_node_nf = n_props
     args.context_indicator = model_cfg.context_indicator
-    device = sp_group.device if sp_group is not None else args.device
+    sp_group = grid.seq if grid is not None else None
+    data = grid.data if grid is not None else None
+    device = grid.device if grid is not None else args.device
     model = factory.build_model(model_cfg, device, torch.Generator().manual_seed(args.seed),
                                 sp_group=sp_group)
     device = next(model.parameters()).device
-    is_main = sp_group is None or sp_group.rank == 0
+    is_main = grid is None or grid.is_main
     state = create_train_state(model, model_cfg, args.lr, clip_grad=args.clip_grad,
-                               ema_decay=args.ema_decay)
+                               ema_decay=args.ema_decay, dp_group=data)
     if args.ae_path and model_cfg.kind == "latent_diffusion":
         vae_sd = ckpt.load_first_stage(args.ae_path, use_ema=args.ema_decay > 0)
         for m in {id(state.model): state.model, id(state.ema_model): state.ema_model}.values():
@@ -293,7 +310,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
     if args.resume:
         ckpt.load_train_state(resume_dir, state)
         summary["resumed"] = _snapshot(state)
-        if sp_group is not None:
+        if grid is not None:
             summary["resumed_digest"] = sp.state_digest(state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
     # JAX's rule (geoldm_tpu/cli/common.py:209-212, :326-330, :373): the
@@ -336,7 +353,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                 _generator(device, args.seed, 0, epoch), epoch, augment_noise=args.augment_noise,
                 data_augmentation=args.data_augmentation,
                 break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps,
-                rng=rng, logger=logger, prefetch=args.prefetch, **cond_kw)
+                rng=rng, logger=logger, prefetch=args.prefetch, data=data, **cond_kw)
             summary["losses"].append(losses)
             summary["epoch_seconds"].append(seconds)
             logger.log({"train_loss_epoch": float(np.mean(losses))}, step=epoch)
@@ -349,7 +366,7 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                         eval_model, args.seed * 1000 + epoch, dataset_info, nodes_dist,
                         n_samples=args.n_stability_samples, rng=rng,
                         datadir=args.datadir, n_steps=args.eval_n_steps,
-                        compute_dtype=args.compute_dtype, prop_dist=prop_dist)
+                        compute_dtype=args.compute_dtype, prop_dist=prop_dist, data=data)
                 print(f"epoch {epoch} stability: {validity}", flush=True)
                 if rdkit_tuple is not None:
                     v, u, n = rdkit_tuple[0]
@@ -362,7 +379,8 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
             nll_val = trainer_mod.evaluate_nll(
                 eval_model, eval_nll, loaders["valid"], nodes_dist,
                 _generator(device, args.seed, 1, epoch), partition="valid",
-                augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch, **cond_kw)
+                augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch, data=data,
+                **cond_kw)
             logger.log({"nll_val": nll_val}, step=epoch)
             summary["nll_val"].append(nll_val)
             if args.save_model and is_main:
@@ -380,21 +398,21 @@ def run_training(args, dataset_info, splits, loaders=None, sp_group=None) -> dic
                     eval_model, eval_nll, loaders["test"], nodes_dist,
                     _generator(device, args.seed, 2, epoch), partition="test",
                     augment_noise=args.augment_noise, rng=rng, prefetch=args.prefetch,
-                    **cond_kw)
+                    data=data, **cond_kw)
                 logger.log({"nll_test": nll_test, "best_nll_val": best_nll_val}, step=epoch)
                 summary["nll_test"].append(nll_test)
                 print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)
     finally:
         logger.close()
-    if sp_group is not None:
+    if grid is not None:
         import torch.distributed as dist
 
-        replica = {"rank": sp_group.rank, "digest": sp.state_digest(state),
+        replica = {"rank": grid.rank, "digest": sp.state_digest(state),
                    "launches": kernel_launches(), "stability": summary["stability"],
                    "sample_sizes": [np.asarray(s).tolist() for s in summary["sample_sizes"]]}
         if "resumed_digest" in summary:
             replica["resumed_digest"] = summary["resumed_digest"]
-        replicas = [None] * sp_group.size
+        replicas = [None] * dist.get_world_size()
         dist.all_gather_object(replicas, replica)
         summary["replicas"] = replicas
         del summary["state"]

@@ -21,7 +21,12 @@ builds it (``evalsuite.native``), else on the numpy path. ``--device cpu``
 runs the plain PyTorch path on the CPU. ``--n_steps`` K, ``--sampler``
 (ddim, dpm2m) and ``--eta`` select the few-step sampler, ``--compute_dtype``
 (``nn.core.COMPUTE_DTYPES``) the precision of the generation and of the NLL,
-as JAX's CLI uses it. ``--dp`` > 1 is not ported yet.
+as JAX's CLI uses it. ``--dp D`` > 1 spawns D ranks (``parallel.sharding``):
+the generation chunks fan out over them and the packed NLL splits every
+batch's rows over them, with each rank's rows of the global draws, so the
+molecules are one rank's, bit for bit, and the NLL one rank's up to the sum
+order (with a ``--batch_size_nll`` D divides); rank 0 alone prints and
+writes ``eval_log.txt`` and ``generated_smiles.txt``.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--augment_noise", type=float, default=0.0,
                    help="eval-time coordinate noise (the reference applies the training "
                         "augment_noise during NLL eval too, train_test.py:119-124)")
-    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks for the generation and the NLL")
     p.add_argument("--n_steps", type=int, default=None)
     p.add_argument("--eta", type=float, default=1.0)
     p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "dpm2m"])
@@ -64,13 +70,9 @@ def parse_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Exit with the training CLIs' two-line message for a flag outside the
-    ported slice."""
-    from geoldm_tpu_torch.cli.common import _not_ported
+    """Raise on an unknown compute dtype, before any rank starts."""
     from geoldm_tpu_torch.nn.core import resolve_compute
 
-    if args.dp > 1:
-        _not_ported(f"--dp {args.dp}")
     resolve_compute(args.compute_dtype)  # raises on an unknown name
 
 
@@ -92,9 +94,19 @@ def load_eval_splits(args, dataset_info) -> dict:
 def main(argv=None) -> dict:
     """Evaluate; returns a summary: stability, the triple, the NLLs, the
     generated molecules and their count, the seconds of each part, and which
-    stability path ran."""
+    stability path ran (rank 0's with ``--dp``, with every rank's kernel
+    launch counts, ``launches_per_rank``)."""
     args = parse_args(argv)
     check_ported(args)
+    if args.dp > 1:
+        from geoldm_tpu_torch.parallel import sharding
+
+        return sharding.spawn(args.dp, 1, evaluate, (args,), device=args.device)
+    return evaluate(args, None)
+
+
+def evaluate(args, grid=None) -> dict:
+    """``main``'s work on one rank (of a ``--dp`` run with ``grid``)."""
     import numpy as np
 
     from geoldm_tpu_torch.cli.common import _generator
@@ -104,8 +116,10 @@ def main(argv=None) -> dict:
     from geoldm_tpu_torch.utils.checkpoint import checkpoint_dir
     from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
 
+    data = grid.data if grid is not None else None
+    device = grid.device if grid is not None else args.device
     model, model_cfg, _ = load_reference_checkpoint(checkpoint_dir(args.model_path, "best"),
-                                                    args.device, use_ema=args.use_ema)
+                                                    device, use_ema=args.use_ema)
     if model_cfg.kind != "latent_diffusion":
         raise SystemExit(f"{args.model_path} holds a {model_cfg.kind!r} model; eval_analyze "
                          "scores latent diffusion checkpoints")
@@ -125,7 +139,7 @@ def main(argv=None) -> dict:
         model, args.seed, dataset_info, nodes_dist, n_samples=args.n_samples,
         batch_size=args.batch_size_gen, rng=rng, datadir=args.datadir,
         external_smiles=external_smiles, n_steps=args.n_steps, eta=args.eta,
-        method=args.sampler, compute_dtype=args.compute_dtype)
+        method=args.sampler, compute_dtype=args.compute_dtype, data=data)
     elapsed = time.time() - t0
     n_done = len(molecules["x"])
     print(f"generated {n_done} molecules in {elapsed:.1f}s "
@@ -148,17 +162,30 @@ def main(argv=None) -> dict:
         nll_val = trainer_mod.evaluate_nll_packed(
             model, model_cfg, splits["valid"], nodes_dist, [_generator(device, args.seed, 1, 0)],
             batch_size=args.batch_size_nll, pad_nodes=pad_nll, partition="valid",
-            augment_noise=args.augment_noise, compute_dtype=args.compute_dtype)[0]
+            augment_noise=args.augment_noise, compute_dtype=args.compute_dtype, data=data)[0]
         tests = trainer_mod.evaluate_nll_packed(
             model, model_cfg, splits["test"], nodes_dist,
             [_generator(device, args.seed, 2, i) for i in range(args.n_test_passes)],
             batch_size=args.batch_size_nll, pad_nodes=pad_nll, partition="test",
-            augment_noise=args.augment_noise, compute_dtype=args.compute_dtype)
+            augment_noise=args.augment_noise, compute_dtype=args.compute_dtype, data=data)
         nll_seconds = time.time() - t_nll
         nll_test = float(np.mean(tests))
         print(f"final test NLL: {nll_test:.4f} (+/- {np.std(tests):.4f}); "
               f"NLL phase {nll_seconds:.1f}s")
 
+    summary = {"n_samples": n_done, "generation_seconds": elapsed, "stability": validity,
+               "rdkit": None if rdkit_tuple is None else rdkit_tuple[0],
+               "unique_smiles": None if rdkit_tuple is None else rdkit_tuple[1],
+               "nll_val": nll_val, "nll_tests": tests, "nll_test": nll_test,
+               "nll_seconds": nll_seconds, "report": molecules["report"],
+               "molecules": molecules}
+    if grid is not None:
+        from geoldm_tpu_torch.ops import kernel_launches
+        from geoldm_tpu_torch.parallel import sharding
+
+        summary["launches_per_rank"] = sharding.all_gather_objects(kernel_launches(), data)
+        if not grid.is_main:
+            return summary
     with open(os.path.join(args.model_path, "eval_log.txt"), "w") as f:
         f.write(f"n_samples {n_done}\n")
         f.write(f"secs/sample {elapsed / max(n_done, 1):.4f}\n")
@@ -177,11 +204,7 @@ def main(argv=None) -> dict:
         with open(smiles_path, "w") as f:
             f.write("\n".join(sorted(rdkit_tuple[1])) + "\n")
         print(f"wrote {len(rdkit_tuple[1])} unique SMILES to {smiles_path}")
-    return {"n_samples": n_done, "generation_seconds": elapsed, "stability": validity,
-            "rdkit": None if rdkit_tuple is None else rdkit_tuple[0],
-            "unique_smiles": None if rdkit_tuple is None else rdkit_tuple[1],
-            "nll_val": nll_val, "nll_tests": tests, "nll_test": nll_test,
-            "nll_seconds": nll_seconds, "report": molecules["report"], "molecules": molecules}
+    return summary
 
 
 if __name__ == "__main__":

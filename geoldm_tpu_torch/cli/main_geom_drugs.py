@@ -11,10 +11,12 @@ latent diffusion with ``--train_diffusion``.
 mol_id, atomic number, x, y, z) and ``geom_permutation.npy`` (no extraction
 here; ``data.synthetic.write_geom_conformers`` fabricates a file). Batches
 are padded to the size buckets of ``data.geom.DEFAULT_BUCKETS``; blocks
-padded past 64 atoms run the row-tiled kernels. ``--sp S`` splits every
-EGNN's atom rows over S spawned ranks (kernels #6 and #7; ``parallel.sp``
-prints where the ranks run). ``--device cpu`` runs the plain PyTorch path on
-the CPU (with ``--sp``, gloo ranks on the CPU). Checkpoints go to
+padded past 64 atoms run the row-tiled kernels. ``--dp D`` splits every
+batch over D spawned data ranks (``parallel.sharding``; the default 0 takes
+every card), ``--sp S`` every EGNN's atom rows over S ranks (kernels #6 and
+#7; ``parallel.sp``), both together a D x S grid; the command prints where
+the ranks run. ``--device cpu`` runs the plain PyTorch path on the CPU (with
+``--dp`` or ``--sp``, gloo ranks on the CPU). Checkpoints go to
 ``<outdir>/<exp_name>/{latest,best}/`` in the upstream layout with
 ``dataset='geom'``, which ``cli.serve --dataset geom`` loads.
 """
@@ -43,7 +45,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Train; returns ``cli.common.run_training``'s summary (rank 0's with
-    ``--sp``)."""
+    ``--dp`` or ``--sp``)."""
     args = parse_args(argv)
 
     from geoldm_tpu_torch.cli.common import check_ported, launch
@@ -52,8 +54,9 @@ def main(argv=None) -> dict:
     return launch(args, train)
 
 
-def train(args, sp_group=None) -> dict:
-    """Load the splits and train (one rank of an SP run with ``sp_group``)."""
+def train(args, grid=None) -> dict:
+    """Load the splits and train (one rank of a DP and/or SP run with
+    ``grid``)."""
     from geoldm_tpu_torch.cli.common import run_training
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
@@ -67,7 +70,7 @@ def train(args, sp_group=None) -> dict:
                                  shuffle=split == "train", include_charges=args.include_charges,
                                  seed=args.seed)
                for split, data in (("train", train), ("valid", val), ("test", test))}
-    return run_training(args, dataset_info, None, loaders=loaders, sp_group=sp_group)
+    return run_training(args, dataset_info, None, loaders=loaders, grid=grid)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ the first-stage VAE by default, latent diffusion with ``--train_diffusion``.
       --batch_size 64 --ema_decay 0.9999
 
 ``--datadir`` holds ``qm9/{train,valid,test}.npz`` (processed splits; no
-download). ``--sp S`` splits every EGNN's atom rows over S spawned ranks
-(``parallel.sp``). ``--device cpu`` runs the plain PyTorch path on the CPU.
+download). ``--dp D`` splits every batch over D spawned data ranks
+(``parallel.sharding``; the default 0 takes every card), ``--sp S`` every
+EGNN's atom rows over S ranks (``parallel.sp``), both together a D x S grid.
+``--device cpu`` runs the plain PyTorch path on the CPU.
 Checkpoints go to ``<outdir>/<exp_name>/{latest,best}/`` in the upstream
 layout, which ``geoldm_tpu_torch.cli.serve --model_path`` loads.
 """
@@ -34,7 +36,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Train; returns ``cli.common.run_training``'s summary (rank 0's with
-    ``--sp``)."""
+    ``--dp`` or ``--sp``)."""
     args = parse_args(argv)
 
     from geoldm_tpu_torch.cli.common import check_ported, launch
@@ -43,8 +45,9 @@ def main(argv=None) -> dict:
     return launch(args, train)
 
 
-def train(args, sp_group=None) -> dict:
-    """Load the splits and train (one rank of an SP run with ``sp_group``)."""
+def train(args, grid=None) -> dict:
+    """Load the splits and train (one rank of a DP and/or SP run with
+    ``grid``)."""
     from geoldm_tpu_torch.cli.common import run_training
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
     from geoldm_tpu_torch.data.qm9 import filter_atoms, load_qm9
@@ -54,7 +57,7 @@ def train(args, sp_group=None) -> dict:
     splits, _ = load_qm9(args.datadir, dataset=args.dataset, remove_h=args.remove_h)
     if args.filter_n_atoms is not None:
         splits = filter_atoms(splits, args.filter_n_atoms)
-    return run_training(args, dataset_info, splits, sp_group=sp_group)
+    return run_training(args, dataset_info, splits, grid=grid)
 
 
 if __name__ == "__main__":

@@ -110,7 +110,7 @@ def build_model(cfg: ModelConfig, device="cuda",
     CPU), in eval mode: an ``EnLatentDiffusion``, or an ``EnHierarchicalVAE``
     for the 'vae' kind. With ``generator`` every weight is drawn from it
     (reference init); otherwise the caller loads a state dict. With
-    ``sp_group`` (a ``parallel.sp.SPGroup``) every EGNN of the model runs
+    ``sp_group`` (a ``parallel.sharding.RankGroup``) every EGNN of the model runs
     sequence-parallel over it; a deep copy of the model (the EMA model)
     keeps the group."""
     dev = resolve_device(device)

@@ -152,7 +152,7 @@ class EGNN(nn.Module):
     def __init__(self, cfg: EGNNConfig):
         super().__init__()
         self.cfg = cfg
-        self.sp = None  # a parallel.sp.SPGroup: run the blocks over slabs of rows
+        self.sp = None  # a parallel.sharding.RankGroup: run the blocks over slabs of rows
         self.embedding = nn.Linear(cfg.in_node_nf, cfg.hidden_nf)
         self.embedding_out = nn.Linear(cfg.hidden_nf, cfg.out_node_nf)
         for i in range(cfg.n_layers):

@@ -135,6 +135,13 @@ def _build_all() -> dict:
     return paths
 
 
+def build() -> None:
+    """Build (if needed) and load every kernel library of ``SOURCES``: a
+    parent calls it once before it spawns ranks, so that they do not each
+    run nvcc."""
+    library(next(iter(SOURCES)))
+
+
 def library(name: str) -> ctypes.CDLL:
     """Build (if needed) every kernel library and return ``name``'s."""
     with _lib_lock:

@@ -7,15 +7,10 @@ own rows' edges with the slab kernels of ``ops.egnn_sp`` (#6 forward, #7
 backward), so no rank holds more than its [B, S_r, N, H] share of the pair
 grid. SP is meant for the pair grid of large molecules (GEOM-Drugs).
 
-Ranks are processes joined by ``torch.distributed``. ``spawn_ranks`` starts
-them and prints the placement rule (rank -> device -> backend):
-
-- ``--device cpu``: every rank on the CPU, gloo;
-- at least S cards: rank r on ``cuda:r``, NCCL;
-- one card: every rank on ``cuda:0``, gloo (NCCL refuses two ranks on one
-  GPU). Gloo's collectives here take CPU tensors, so every collective on a
-  CUDA tensor is staged through host memory (``SPGroup.host_staged``);
-- anything else raises.
+Ranks are processes joined by ``torch.distributed``; ``sharding.spawn``
+starts them. An SP group (``sharding.Grid.seq``, a ``sharding.RankGroup``) is
+one data row of the grid: every collective here runs on the group's own
+process group (``RankGroup.pg``), so the data replicas never mix.
 
 Every rank holds the model's replicated state (weights, batch, noise) and
 runs the same code; only the EGNN blocks work on slabs. The boundaries
@@ -40,7 +35,7 @@ whole gradient on every rank. The embedded h enters the blocks as rows only
 and a gather makes the whole. Reduce-scatter is an all-reduce and a slice
 (gloo has no reduce-scatter for every tensor). The weights of the blocks
 get only their slab's share of the gradient on each rank: the train step
-all-reduces them (``all_reduce_grads``); every other weight's gradient is
+sums them over the group (``sharding.reduce_grads``); every other weight's gradient is
 already whole and identical on every rank.
 
 'mean' aggregation divides by the EGNN's N before the SP pad, as the dense
@@ -51,13 +46,7 @@ so the TPU kernels' 8-row slab alignment does not carry over).
 from __future__ import annotations
 
 import contextlib
-import datetime
 import hashlib
-import os
-import pickle
-import sys
-import tempfile
-from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -68,92 +57,7 @@ from torch.autograd.function import once_differentiable
 from geoldm_tpu_torch.nn.core import linear
 from geoldm_tpu_torch.nn.egnn import EGNN
 from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
-from geoldm_tpu_torch.utils.device import resolve_device
-
-# Longest wait of one collective before the ranks give up.
-COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
-
-
-@dataclass
-class SPGroup:
-    """This rank's place in the SP group."""
-
-    rank: int
-    size: int
-    backend: str
-    device: torch.device
-
-    @property
-    def host_staged(self) -> bool:
-        """Gloo on a card: collectives go through host memory."""
-        return self.backend == "gloo" and self.device.type == "cuda"
-
-    def __deepcopy__(self, memo):
-        # A model's copy (the EMA model) stays in the same group.
-        return self
-
-
-# ---------------------------------------------------------------------------
-# Ranks
-# ---------------------------------------------------------------------------
-
-
-def placement(size: int, device="cuda"):
-    """(the device of each rank, backend, the rule as one line) for ``size``
-    ranks on ``device``'s type (module docstring)."""
-    if size < 2:
-        raise ValueError(f"SP needs at least 2 ranks, got {size}")
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        return [dev] * size, "gloo", f"{size} ranks on the CPU, backend gloo"
-    n = torch.cuda.device_count()
-    if n >= size:
-        return ([torch.device("cuda", r) for r in range(size)], "nccl",
-                f"{size} ranks on cuda:0..cuda:{size - 1}, one card each, backend nccl")
-    if n == 1:
-        return ([torch.device("cuda", 0)] * size, "gloo",
-                f"{size} ranks sharing cuda:0, backend gloo, collectives staged through "
-                "host memory")
-    raise ValueError(f"--sp {size} needs one card per rank or one card shared by every rank; "
-                     f"this host has {n} cards")
-
-
-def _rank_main(rank, size, fn, args, device, store, threads):
-    devices, backend, _ = placement(size, device)
-    dev = devices[rank]
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    else:
-        torch.set_num_threads(threads)
-    dist.init_process_group(backend, init_method=f"file://{os.path.join(store, 'rendezvous')}",
-                            rank=rank, world_size=size, timeout=COLLECTIVE_TIMEOUT)
-    try:
-        with open(os.devnull, "w") as quiet, \
-                contextlib.redirect_stdout(quiet if rank else sys.stdout):  # rank 0 prints
-            out = fn(*args, SPGroup(rank, size, backend, dev))
-        if rank == 0:
-            with open(os.path.join(store, "result.pkl"), "wb") as f:
-                pickle.dump(out, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def spawn_ranks(size: int, fn, args=(), device="cuda"):
-    """Run ``fn(*args, group)`` in ``size`` spawned ranks (``group`` the
-    rank's ``SPGroup``) and return rank 0's result, which must pickle.
-    Rendezvous through a file in a fresh temporary directory."""
-    devices, _, rule = placement(size, device)
-    print(f"sp: {rule}", flush=True)
-    if devices[0].type == "cuda":
-        from geoldm_tpu_torch.ops import cuda_build
-
-        cuda_build.library("egnn_sp")  # build once, before the ranks load it
-    threads = max(1, torch.get_num_threads() // size)
-    with tempfile.TemporaryDirectory() as store:
-        torch.multiprocessing.spawn(_rank_main, args=(size, fn, args, device, store, threads),
-                                    nprocs=size, join=True)
-        with open(os.path.join(store, "result.pkl"), "rb") as f:
-            return pickle.load(f)
+from geoldm_tpu_torch.parallel.sharding import RankGroup, all_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -161,24 +65,15 @@ def spawn_ranks(size: int, fn, args=(), device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def all_gather_rows(t: torch.Tensor, grp: SPGroup) -> torch.Tensor:
+def all_gather_rows(t: torch.Tensor, grp: RankGroup) -> torch.Tensor:
     """[B, S_r, F] slabs of every rank -> [B, S * S_r, F], in rank order."""
-    src = t.detach().contiguous()
-    if grp.host_staged:
-        src = src.cpu()
+    src = t.detach().to(grp.wire).contiguous()
     parts = [torch.empty_like(src) for _ in range(grp.size)]
-    dist.all_gather(parts, src)
+    dist.all_gather(parts, src, group=grp.pg)
     return torch.cat(parts, dim=1).to(t.device)
 
 
-def all_reduce(t: torch.Tensor, grp: SPGroup) -> torch.Tensor:
-    """The sum of ``t`` over the ranks, in a new tensor."""
-    buf = t.detach().cpu().clone() if grp.host_staged else t.detach().clone()
-    dist.all_reduce(buf)
-    return buf.to(t.device)
-
-
-def reduce_scatter_rows(t: torch.Tensor, grp: SPGroup) -> torch.Tensor:
+def reduce_scatter_rows(t: torch.Tensor, grp: RankGroup) -> torch.Tensor:
     """The sum over the ranks of [B, N, F] gradients -> this rank's slab."""
     s = t.shape[1] // grp.size
     return all_reduce(t, grp)[:, grp.rank * s:(grp.rank + 1) * s].contiguous()
@@ -348,7 +243,7 @@ class SPEquivariantBlockFunction(torch.autograd.Function):
                 *[w for ws in d_gcls + [d_coord] for w in ws])
 
 
-def egnn_forward_sp(egnn, h, x, node_mask, grp: SPGroup, compute_dtype=None):
+def egnn_forward_sp(egnn, h, x, node_mask, grp: RankGroup, compute_dtype=None):
     """``nn.egnn.EGNN.forward`` with the blocks over this rank's slab: same
     contract (h [B,N,in], x [B,N,3], node_mask [B,N,1] -> (h [B,N,out], x
     [B,N,3])), replicated inputs and outputs. N is padded to a multiple of
@@ -389,7 +284,7 @@ def _egnns(model):
     return [m for m in model.modules() if isinstance(m, EGNN)]
 
 
-def attach(model, grp: Optional[SPGroup]):
+def attach(model, grp: Optional[RankGroup]):
     """Run every EGNN of ``model`` (encoder, decoder, denoiser) over slabs of
     ``grp`` (None: on one device)."""
     for m in _egnns(model):
@@ -397,7 +292,7 @@ def attach(model, grp: Optional[SPGroup]):
     return model
 
 
-def model_group(model) -> Optional[SPGroup]:
+def model_group(model) -> Optional[RankGroup]:
     """The group ``attach`` gave the model's EGNNs, or None."""
     return next((m.sp for m in _egnns(model) if m.sp is not None), None)
 
@@ -419,16 +314,6 @@ def block_parameters(model) -> list:
     whose gradient each rank holds only its slab's share of."""
     return [p for m in _egnns(model) if m.sp is not None
             for i in range(m.cfg.n_layers) for p in getattr(m, f"e_block_{i}").parameters()]
-
-
-def all_reduce_grads(params, grp: SPGroup) -> None:
-    """Sum the gradients of ``params`` over the ranks, in one collective."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), grp)
-    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(v.view_as(g))
 
 
 def state_digest(state) -> str:

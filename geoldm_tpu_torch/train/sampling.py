@@ -23,6 +23,7 @@ from geoldm_tpu_torch.data.collate import build_masks
 from geoldm_tpu_torch.diffusion import latent as ldm_mod
 from geoldm_tpu_torch.evalsuite.analyze import check_stability
 from geoldm_tpu_torch.ops import com
+from geoldm_tpu_torch.parallel import sharding
 
 DEFAULT_SAMPLE_BUCKETS = (16, 24, 32)  # QM9
 # GEOM-Drugs (sizes up to 181 atoms, mean 46.6): buckets matched to the size
@@ -117,7 +118,8 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
                     fix_noise: bool = False, n_steps: Optional[int] = None, eta: float = 1.0,
                     method: str = "ddim", clip_z: float = 0.0, compute_dtype=None,
                     context: Optional[np.ndarray] = None, prop_dist=None,
-                    rng: Optional[np.random.Generator] = None, guidance_scale: float = 1.0):
+                    rng: Optional[np.random.Generator] = None, guidance_scale: float = 1.0,
+                    data: Optional[sharding.RankGroup] = None):
     """Size-bucketed generation: molecules are grouped by atom count and
     each group is padded only to its bucket, in chunks of ``batch_size``.
     The last chunk of a bucket is padded (by repeating its last size) to the
@@ -130,7 +132,13 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     per-molecule rows ``context`` [M, P] are split and padded with the
     sizes, a chunk's padding repeating its last row (sampling.py:116-119);
     without them each chunk draws its rows from ``prop_dist`` with ``rng``,
-    padded sizes included, in dispatch order (JAX's)."""
+    padded sizes included, in dispatch order (JAX's).
+
+    With ``data`` (this rank's data group) chunk i runs on data rank i % D
+    with its own ``chunk_generator(seed, i)``; every rank draws every chunk's
+    properties with ``rng``, so the draws stay in dispatch order, and the
+    chunks are gathered to every rank in order: the molecules of one rank's
+    run, molecule for molecule."""
     nodesxsample = np.asarray(nodesxsample)
     if context is not None:
         context = np.asarray(context, dtype=np.float32)
@@ -144,21 +152,28 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     pending = []
     for chunk_index, (chunk, pad, sizes) in enumerate(
             _chunks(nodesxsample, batch_size, buckets)):
-        gen = chunk_generator(seed, chunk_index, device)
         ctx_chunk = None
         if context is not None:
             ctx_chunk = context[chunk]
             ctx_chunk = np.concatenate(
                 [ctx_chunk, np.repeat(ctx_chunk[-1:], len(sizes) - len(chunk), axis=0)])
+        elif prop_dist is not None:
+            ctx_chunk = prop_dist.sample_batch(sizes, rng)  # what ``sample`` would draw
+        if data is not None and chunk_index % data.size != data.rank:
+            continue
+        gen = chunk_generator(seed, chunk_index, device)
         res = sample(model, gen, dataset_info, sizes, fix_noise=fix_noise, pad_nodes=pad,
                      n_steps=n_steps, eta=eta, method=method, clip_z=clip_z,
-                     compute_dtype=compute_dtype, context=ctx_chunk, prop_dist=prop_dist,
-                     rng=rng, guidance_scale=guidance_scale)
+                     compute_dtype=compute_dtype, context=ctx_chunk,
+                     guidance_scale=guidance_scale)
         pending.append((chunk, pad, res))
     # Every chunk is queued on the card before the first copy to the host.
+    done = [(chunk, pad, [src.cpu().numpy() if isinstance(src, torch.Tensor) else src
+                          for src in res]) for chunk, pad, res in pending]
+    done = [c for part in sharding.all_gather_objects(done, data) for c in part]
     s = len(dataset_info["atom_decoder"])
     out = None
-    for chunk, pad, (one_hot, charges, x, node_mask) in pending:
+    for chunk, pad, (one_hot, charges, x, node_mask) in done:
         if out is None:
             out = (np.zeros((m, max_pad, s), dtype=np.float32),
                    np.zeros((m, max_pad, charges.shape[-1]), dtype=np.float32),
@@ -166,7 +181,6 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
                    np.zeros((m, max_pad, 1), dtype=np.float32))
         n_real = len(chunk)
         for dst, src in zip(out, (one_hot, charges, x, node_mask)):
-            src = src.cpu().numpy() if isinstance(src, torch.Tensor) else src
             dst[chunk, :pad] = src[:n_real]
     return out
 

@@ -6,7 +6,7 @@ latent_nf=2, no charges, T=1000, trainable_ae, EMA 0.9999) with random
 weights (seeded torch.Generator) and B=32 synthetic molecules at the
 training pads 184 (129-181 atoms) and 48 (33-48 atoms). For each pad it
 times train steps on one rank without SP (this process), then spawns the SP
-ranks (``parallel.sp.spawn_ranks``; with one card they share it over gloo)
+ranks (``parallel.sharding.spawn``; with one card they share it over gloo)
 and on every rank times the same steps on the host clock around
 synchronised work, and the time spent inside the collectives (host clock,
 synchronised before and after each one, so a rank's wait for the other
@@ -40,7 +40,7 @@ from geoldm_tpu_torch.data.datasets_config import get_dataset_info  # noqa: E402
 from geoldm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from geoldm_tpu_torch.models import factory  # noqa: E402
 from geoldm_tpu_torch.models.distributions import DistributionNodes  # noqa: E402
-from geoldm_tpu_torch.parallel import sp  # noqa: E402
+from geoldm_tpu_torch.parallel import sharding, sp  # noqa: E402
 from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step  # noqa: E402
 from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 
@@ -100,9 +100,10 @@ def _device_split(prof, n):
     return {k: v for k, v in split.items() if v}
 
 
-def _rank(batches, compute_dtype, grp):
+def _rank(batches, compute_dtype, grid):
     """One SP rank: per pad, timed steps, collective time, and (rank 0) the
     device split."""
+    grp = grid.seq
     state, run, nodes = _setup(grp.device, compute_dtype, grp)
     stats = {}
 
@@ -120,17 +121,19 @@ def _rank(batches, compute_dtype, grp):
         return wrapper
 
     out = {}
-    gather, reduce = sp.all_gather_rows, sp.all_reduce
+    gather, reduce = sp.all_gather_rows, sharding.all_reduce
     for pad, raw in batches.items():
         batch = prepare_batch(raw, nodes, grp.device)
         _time(lambda: run(batch), WARMUP)
         step_ms = _time(lambda: run(batch), STEPS)
         stats.clear()
-        sp.all_gather_rows, sp.all_reduce = timed("all_gather", gather), timed("all_reduce", reduce)
+        # The slab boundaries call sp's names, the gradient sum sharding's.
+        sp.all_gather_rows = timed("all_gather", gather)
+        sp.all_reduce = sharding.all_reduce = timed("all_reduce", reduce)
         try:
             with_timers_ms = _time(lambda: run(batch), STEPS)
         finally:
-            sp.all_gather_rows, sp.all_reduce = gather, reduce
+            sp.all_gather_rows, sp.all_reduce, sharding.all_reduce = gather, reduce, reduce
         coll = {k: {"per_step": v["n"] / STEPS, "ms_per_step": v["ms"] / STEPS,
                     "mb_per_step": v["bytes"] / STEPS / 1e6} for k, v in stats.items()}
         rec = {"step_ms": step_ms, "step_ms_with_timers": with_timers_ms, "collectives": coll}
@@ -170,8 +173,8 @@ def main(argv=None) -> int:
         one_rank[pad] = _time(lambda: run(batch), STEPS)
     del state, run
     torch.cuda.empty_cache()
-    ranks = sp.spawn_ranks(args.ranks, _rank, (batches, args.compute_dtype), device="cuda")
-    print(json.dumps({"card": card, "rule": sp.placement(args.ranks, "cuda")[2],
+    ranks = sharding.spawn(1, args.ranks, _rank, (batches, args.compute_dtype), device="cuda")
+    print(json.dumps({"card": card, "rule": sharding.placement(args.ranks, "cuda")[2],
                       "compute_dtype": args.compute_dtype, "one_rank_step_ms": one_rank,
                       "sp_ranks": ranks}))
     return 0

@@ -53,7 +53,7 @@ from geoldm_tpu_torch.data.synthetic import write_geom_conformers, write_qm9_spl
 from geoldm_tpu_torch.models import factory as pfactory
 from geoldm_tpu_torch.nn.egnn import EGNN
 from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
-from geoldm_tpu_torch.parallel import sp
+from geoldm_tpu_torch.parallel import sharding
 from geoldm_tpu_torch.train import train_step as pts
 from geoldm_tpu_torch.utils.convert import state_dict_from_jax_params
 from tests.torch_port_bf16_sites import (JAX_FLIP_SHARE, JAX_STEP_FLIP_SHARE, SEPARATION,
@@ -391,8 +391,8 @@ def test_bf16_sp_train_step_matches_one_rank():
     batch = _geom_batch(7, 19, (19, 14))
     want = torch_port_sp_ranks.geom_train_step_bf16(SP_KW, batch, 3, "cpu")
     want_f32 = torch_port_sp_ranks.geom_train_step(SP_KW, batch, 3, "cpu")
-    got = sp.spawn_ranks(2, torch_port_sp_ranks.geom_train_step_bf16, (SP_KW, batch, 3, "cpu"),
-                         device="cpu")
+    got = sharding.spawn(1, 2, torch_port_sp_ranks.geom_train_step_bf16,
+                         (SP_KW, batch, 3, "cpu"), device="cpu")
     assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
     r = sp_grads_report(got["grads"], want["grads"], want_f32["grads"])
     assert not r["problems"], r["problems"]

@@ -88,8 +88,15 @@ def test_conditional_training_and_resume_keep_the_context_width(splits_dir, tmp_
 
 
 def test_conditioning_is_refused_where_not_ported(splits_dir, tmp_path):
-    with pytest.raises(SystemExit, match="--conditioning with --sp is not ported yet"):
-        common.check_ported(main_qm9.parse_args(["--conditioning", "alpha", "--sp", "2"]))
+    """--conditioning runs under --sp now (two CPU ranks with context
+    dropout, the replicas bit-identical); it is still refused where no
+    property arrays come with the splits (GEOM)."""
+    common.check_ported(main_qm9.parse_args(["--conditioning", "alpha", "--sp", "2"]))
+    summary = main_qm9.main(_train_argv(splits_dir, str(tmp_path)) + [
+        "--n_epochs", "1", "--conditioning", "alpha", "--context_dropout", "0.1", "--sp", "2",
+        "--break_train_epoch", "True"])
+    assert len(summary["losses"][0]) == 1 and np.all(np.isfinite(summary["losses"][0]))
+    assert len({r["digest"] for r in summary["replicas"]}) == 1
     args = main_qm9.parse_args(_train_argv(splits_dir, str(tmp_path)) + ["--conditioning",
                                                                         "alpha"])
     with pytest.raises(SystemExit, match="QM9 splits' property arrays"):  # GEOM passes none

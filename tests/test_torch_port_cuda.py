@@ -2,8 +2,8 @@
 GCL and coordinate kernels and their backward, and the sequence-parallel
 slab kernels (#6, #7) against their plain PyTorch versions on the card, at
 small shapes and every block variant, the autograd Functions that join them,
-and the SP EGNN over two ranks sharing the card. Imports no jax, so it runs on a machine
-with a card and no JAX:
+the SP EGNN over two ranks sharing the card, and NCCL collectives on host
+tensors. Imports no jax, so it runs on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda
 
@@ -19,7 +19,7 @@ import torch
 from geoldm_tpu_torch.config import EGNNConfig
 from geoldm_tpu_torch.nn.egnn import EquivariantBlock, init_parameters
 from geoldm_tpu_torch.ops import egnn_block, egnn_sp, egnn_tiled
-from geoldm_tpu_torch.parallel import sp
+from geoldm_tpu_torch.parallel import sharding, sp
 import torch_port_sp_ranks
 from torch_port_bf16_sites import (BWD_SITES, FLIP_SHARE, SITES, assert_separated, bf16_flips,
                                    bf16_grads_report, flips_allowed, unrounded)
@@ -624,6 +624,34 @@ def test_sp_kernels_match_plain(card, variant, n, s, row0):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("row0", [0, 15])
+def test_sp_kernels_match_plain_at_the_conditional_width(card, variant, row0):
+    """#6 and #7 at the conditional QM9 recipe's H=192 (64 of the tile's
+    256 channels masked) on N=29 padded to 30 over 2 ranks, the slab at
+    row0 (--conditioning under --sp), against their plain versions,
+    'mean' over the unpadded 29, weight gradients included."""
+    block = _block(card, hidden=192, **variant)
+    full = _inputs(card, 3, 30, 192, (29, 22, 25))
+    rows = [t[:, row0:row0 + 15].contiguous() for t in full]
+    rng = np.random.default_rng(row0 + 192)
+    for stage in (block.gcl_0, block.gcl_equiv):
+        (fwd, bwd), (fwd_p, bwd_p) = egnn_sp.stage_fns(stage, True), egnn_sp.stage_fns(stage, False)
+        with torch.no_grad():
+            got = fwd(stage, full, rows, row0, 29)
+            want = fwd_p(stage, full, rows, row0, 29)
+        torch.cuda.synchronize()
+        _assert_within(got, want, TILED_RTOL, f"{type(stage).__name__} forward")
+        g = torch.from_numpy(rng.standard_normal(tuple(got.shape)).astype(np.float32)).to(card)
+        got = bwd(stage, full, rows, row0, 29, g)
+        want = bwd_p(stage, full, rows, row0, 29, g)
+        torch.cuda.synchronize()
+        names = ["dh", "dx", "dx0", "dh_rows", "dx_rows", "dx0_rows"] + \
+            [f"w{k}" for k in range(len(want[6]))]
+        for name, a, b in zip(names, [*got[:6], *got[6]], [*want[:6], *want[6]]):
+            _assert_within(a, b, BWD_RTOL, f"{type(stage).__name__} {name}")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_sp_kernels_over_every_row_are_the_tiled_kernels(card, variant):
     """With the slab = every row (row0 0, S = N, its own copies of the
     tensors), #6 runs #3's and #4's arithmetic: bit-identical outputs; #7's
@@ -712,7 +740,8 @@ def test_sp_egnn_on_one_card_matches_one_rank(card, n, sizes):
             "gh": rng.standard_normal((2, n, 6)).astype(np.float32),
             "gx": rng.standard_normal((2, n, 3)).astype(np.float32)}
     (want,) = torch_port_sp_ranks.egnn_cases([case], "cuda")
-    (got,) = sp.spawn_ranks(2, torch_port_sp_ranks.egnn_cases, ([case], "cuda"), device="cuda")
+    (got,) = sharding.spawn(1, 2, torch_port_sp_ranks.egnn_cases, ([case], "cuda"),
+                            device="cuda")
     assert got["ranks_agree"]
     assert got["launches"]["sp_gcl_rows_bwd"] == got["launches"]["sp_coord_rows_bwd"] == 2
     for name in ("h", "x"):
@@ -721,6 +750,26 @@ def test_sp_egnn_on_one_card_matches_one_rank(card, n, sizes):
         ref = torch.from_numpy(g)
         err = float((torch.from_numpy(got["grads"][name]) - ref).abs().max())
         assert err <= BWD_RTOL * max(1e-6, float(ref.abs().max())), (name, err)
+
+
+def test_nccl_collectives_take_host_tensors(card, tmp_path):
+    """An NCCL group of one rank on the card (the backend of one card per
+    rank): a host tensor, as the packed NLL's totals are, is summed on the
+    card and comes back to the host; slab rows are gathered alike."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        grp = sharding.RankGroup(0, 1, "nccl", torch.device("cuda", torch.cuda.current_device()))
+        totals = torch.tensor([1.5, -2.25], dtype=torch.float64)
+        out = sharding.all_reduce(totals, grp)
+        assert out.device.type == "cpu" and torch.equal(out, totals)
+        rows = torch.arange(6.0).reshape(1, 3, 2)
+        out = sp.all_gather_rows(rows, grp)
+        assert out.device.type == "cpu" and torch.equal(out, rows)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -110,10 +110,11 @@ def test_main_qm9_trains_the_vae_by_default(datadir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--compute_dtype", "bfloat16"], ["--dp", "2"], ["--conditioning", "alpha", "--sp", "2"],
+    ["--compute_dtype", "bfloat16"], ["--dp", "3", "--batch_size", "2"],
+    ["--conditioning", "alpha", "--sp", "2", "--tp", "2"],
     ["--tp", "2"], ["--compute_dtype", "bfloat16_full"], ["--visualize", "True"],
     ["--compute_dtype", "bfloat16_mixed"], ["--model", "gnn_dynamics"],
-    ["--conditioning", "alpha", "homo", "--sp", "4"],
+    ["--conditioning", "alpha", "homo", "--dp", "4", "--batch_size", "3"],
 ])
 def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path):
     """Each flag outside the slice exits with the two-line message. The
@@ -134,5 +135,12 @@ def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path):
         return
     with pytest.raises(SystemExit) as e:
         main_qm9.main(["--datadir", str(tmp_path), "--device", "cpu", *flags])
+    if "--dp" in flags:  # --dp runs; a global batch smaller than D is refused, as JAX does
+        assert str(e.value.code).startswith(f"--dp {flags[flags.index('--dp') + 1]} splits "
+                                            "every batch")
+        return
+    if "--sp" in flags:  # --conditioning runs under --sp; --sp with --tp is refused
+        assert str(e.value.code) == "--sp and --tp cannot be combined"
+        return
     lines = str(e.value.code).splitlines()
     assert len(lines) == 2 and "not ported yet" in lines[0]

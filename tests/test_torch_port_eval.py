@@ -352,14 +352,16 @@ def test_eval_analyze_prints_and_writes_jax_lines(monkeypatch, tmp_path, capsys)
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--dp", "2"], "--dp 2"), (["--dp", "4", "--n_steps", "50"], "--dp 4"),
-    (["--dp", "2", "--compute_dtype", "bfloat16_full"], "--dp 2"),
+    (["--dp", "2", "--compute_dtype", "bfloat16_nope"], "'bfloat16_nope'"),
+    (["--dp", "4", "--n_steps", "50", "--compute_dtype", "float16"], "'float16'"),
+    (["--dp", "2", "--compute_dtype", "tf32"], "'tf32'"),
 ])
 def test_eval_analyze_refuses_what_is_not_ported(flags, name):
-    with pytest.raises(SystemExit) as e:
+    """``--dp`` runs (tests/test_torch_port_dp_cli.py); a compute dtype
+    outside the port is refused before any rank starts."""
+    with pytest.raises(ValueError) as e:
         eval_analyze.main(["--model_path", "unused", "--device", "cpu", *flags])
-    lines = str(e.value.code).splitlines()
-    assert len(lines) == 2 and lines[0] == f"{name} is not ported yet."
+    assert str(e.value).startswith(f"unknown compute dtype {name}")
 
 
 def test_check_data_prints_jax_lines(datadir, capsys):

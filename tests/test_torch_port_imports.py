@@ -86,10 +86,10 @@ def test_sp_refuses_the_card_without_one():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     from geoldm_tpu_torch.cli import main_geom_drugs
-    from geoldm_tpu_torch.parallel import sp
+    from geoldm_tpu_torch.parallel import sharding
 
     with pytest.raises(RuntimeError, match="cuda"):
-        sp.placement(2)  # the card is the default
+        sharding.placement(2)  # the card is the default
     with pytest.raises(RuntimeError, match="cuda"):
         main_geom_drugs.main(["--sp", "2", "--datadir", "unused"])
 

@@ -22,7 +22,7 @@ from geoldm_tpu.nn.egnn import egnn_apply, egnn_init
 from geoldm_tpu.ops.distance import build_edge_mask
 from geoldm_tpu.parallel.sp import egnn_apply_sp, make_sp_mesh
 from geoldm_tpu.utils.torch_convert import egnn_state_dict_from_params
-from geoldm_tpu_torch.parallel import sp
+from geoldm_tpu_torch.parallel import sharding
 from tests.torch_port_utils import masked_inputs
 
 torch.set_num_threads(1)
@@ -96,8 +96,8 @@ def sp_run(request):
     """The port's SP EGNN over ``request.param`` gloo ranks on every case (one
     spawn, running while the JAX references are computed)."""
     got = []
-    ranks = threading.Thread(target=lambda: got.extend(sp.spawn_ranks(
-        request.param, torch_port_sp_ranks.egnn_cases,
+    ranks = threading.Thread(target=lambda: got.extend(sharding.spawn(
+        1, request.param, torch_port_sp_ranks.egnn_cases,
         ([_egnn_case(name)[2] for name in EGNN_CASES], "cpu"), device="cpu")))
     ranks.start()
     refs = {name: (*_jax_sp_forward(name, request.param), _dense_grads(name))

@@ -3,7 +3,8 @@ step over gloo ranks against the port's single-rank step on the same weights,
 batch and noise (the only check that catches a factor of S in a gradient),
 the replicas bit-identical afterwards; one ``cli.main_geom_drugs --sp 2
 --device cpu`` epoch; the flag rules (``--sp`` with ``--tp`` refused as JAX
-refuses it, ``--dp`` resolving to 1) and the rank placement rule."""
+refuses it, a ``--dp`` wider than the batch refused, ``--dp 0`` resolving to
+every card over ``--sp``) and the rank placement rule."""
 
 import copy
 import os
@@ -16,7 +17,7 @@ from geoldm_tpu_torch.cli import main_geom_drugs, main_qm9
 from geoldm_tpu_torch.data.datasets_config import get_dataset_info
 from geoldm_tpu_torch.data.synthetic import write_geom_conformers
 from geoldm_tpu_torch.models import factory
-from geoldm_tpu_torch.parallel import sp
+from geoldm_tpu_torch.parallel import sharding, sp
 import torch_port_sp_ranks
 
 torch.set_num_threads(1)
@@ -48,7 +49,7 @@ def test_sp_train_step_matches_one_rank(size, n, sizes):
     24) runs masked slab rows; every replica ends bit-identical."""
     batch = _geom_batch(7, n, sizes)
     want = torch_port_sp_ranks.geom_train_step(KW, batch, 3, "cpu")
-    got = sp.spawn_ranks(size, torch_port_sp_ranks.geom_train_step, (KW, batch, 3, "cpu"),
+    got = sharding.spawn(1, size, torch_port_sp_ranks.geom_train_step, (KW, batch, 3, "cpu"),
                          device="cpu")
     assert abs(got["loss"] - want["loss"]) <= LOSS_RTOL * abs(want["loss"])
     assert set(got["grads"]) == set(want["grads"])
@@ -89,7 +90,7 @@ def test_main_geom_drugs_sp_on_cpu_keeps_the_replicas_in_step(geom_dir, tmp_path
 @pytest.mark.parametrize("main", [main_geom_drugs.main, main_qm9.main])
 @pytest.mark.parametrize("flags,message", [
     (["--sp", "2", "--tp", "2"], "--sp and --tp cannot be combined"),
-    (["--sp", "2", "--dp", "2"], "--dp 2 is not ported yet"),
+    (["--sp", "2", "--dp", "4", "--batch_size", "2"], "--dp 4 splits every batch"),
     (["--tp", "2"], "--tp 2 is not ported yet"),
 ])
 def test_sp_flag_rules(main, flags, message, tmp_path):
@@ -99,13 +100,18 @@ def test_sp_flag_rules(main, flags, message, tmp_path):
 
 
 def test_dp_resolves_to_one_beside_sp_on_one_card(monkeypatch):
+    """``--dp 0`` (the default) is every card divided by ``--sp``, as JAX's
+    ``make_mesh(dp=0)`` and ``max(1, n_dev // sp)``; 1 on the CPU."""
     from geoldm_tpu_torch.cli.common import resolve_dp
 
     args = main_geom_drugs.parse_args(["--sp", "2"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert resolve_dp(args) == 1
+    assert resolve_dp(main_geom_drugs.parse_args([])) == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert resolve_dp(args) == 2  # then refused: DP is not ported
+    assert resolve_dp(args) == 2  # a 2 x 2 grid, one card per rank
+    assert resolve_dp(main_geom_drugs.parse_args([])) == 4
+    assert resolve_dp(main_geom_drugs.parse_args(["--device", "cpu"])) == 1
     assert resolve_dp(main_geom_drugs.parse_args(["--sp", "2", "--dp", "1"])) == 1
 
 
@@ -121,17 +127,17 @@ def test_rank_placement_rule(monkeypatch, cards, size, want):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     if want is None:
         with pytest.raises(ValueError, match="one card per rank"):
-            sp.placement(size, "cuda")
+            sharding.placement(size, "cuda")
         return
-    devices, backend, rule = sp.placement(size, "cuda")
+    devices, backend, rule = sharding.placement(size, "cuda")
     assert (backend, [str(d) for d in devices]) == want and backend in rule
-    devices, backend, _ = sp.placement(size, "cpu")
+    devices, backend, _ = sharding.placement(size, "cpu")
     assert backend == "gloo" and {str(d) for d in devices} == {"cpu"}
 
 
 def test_groups_attach_to_every_egnn_and_survive_the_ema_copy():
     cfg = factory.make_latent_diffusion_config(GEOM, **{**KW, "n_layers": 1})
-    grp = sp.SPGroup(rank=1, size=2, backend="gloo", device=torch.device("cpu"))
+    grp = sharding.RankGroup(rank=1, size=2, backend="gloo", device=torch.device("cpu"))
     model = factory.build_model(cfg, "cpu", torch.Generator().manual_seed(0), sp_group=grp)
     assert sp.model_group(model) is grp
     assert sp.model_group(copy.deepcopy(model)) is grp  # the EMA model
