@@ -188,7 +188,28 @@ Phases (each prints a line; any failure exits non-zero before the result):
      gradient over SP-2 against one rank within 1e-3*max|ref|;
  30. cli.eval_analyze --dp 2 on phase 18's checkpoint against --dp 1: 12
      molecules with 20 DDIM jumps bit-identical, the packed NLLs (valid and 2
-     test passes) within 1e-5 relative, each rank's #1 launches exact.
+     test passes) within 1e-5 relative, each rank's #1 launches exact;
+ 31. the plain E(n) diffusion model (kind 'diffusion', EDM) at
+     make_diffusion_model_config's defaults, EDM's QM9 command (nf 256, 9
+     layers, T 1000, polynomial_2, l2, normalize [1, 4, 10]), random
+     weights: (a) 3 train steps (AMSGrad, clip, EMA) at B=64, N=29 with 9 #1
+     and 9 #2 launches a step, and the train-step gradient card vs CPU
+     within 1e-3*max|ref|; (b) the t0_always NLL card vs CPU; (c) one dense
+     T=1000 chunk of 16 molecules, one-hot types, integer charges, exactly
+     (T+1)*9 #1 launches; (d) a seeded cli.serve request on the saved
+     checkpoint and its replay, bit for bit, launches exact;
+ 32. the learned noise schedule: cli.main_qm9 --train_diffusion
+     --trainable_ae --diffusion_noise_schedule learned --diffusion_loss_type
+     vlb at the reference width (3 steps, a test epoch, 50-jump stability
+     samples; launches exact); the saved model's gamma(0) = gamma_0, gamma(1)
+     = gamma_1, gamma increasing; --resume for one more epoch; cli.serve
+     answering a K=50 DDIM and a dense request (launches exact); the
+     train-step gradient card vs CPU (gamma_0 and gamma_1 within the gate,
+     the gamma network's f32-noise-dominated layers finite);
+ 33. --model gnn_dynamics through cli.main_qm9 at the reference width (3
+     steps, a test epoch): #1/#2 launched by the VAE alone, exactly; the
+     train-step gradient card vs CPU; one dense T=1000 chunk whose 9 #1
+     launches are the decoder's.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -3578,6 +3599,407 @@ def phase_dp_eval(card, qm9_dir):
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 31-33: the model variants (the plain E(n) diffusion model, the
+# learned noise schedule, the GNN ablation) at full width.
+# ---------------------------------------------------------------------------
+
+
+def _variant_grad(card, phase, cfg, fwd, bwd, eval_fwd):
+    """One train-step gradient of ``cfg`` (phase 8's batch: B=8, N=29; seed-5
+    weights, noise stream 12) on the card against the plain path on the CPU,
+    with #1/#2 launched exactly ``fwd``/``bwd`` times, and the same batch's
+    t0_always NLL (``eval_fwd`` #1 launches) card vs CPU within
+    _DENOISER_RTOL * max(1, |ref|) per molecule. Every gradient within
+    _GRAD_RTOL * max|ref|, but the learned gamma network's layers': its
+    normalisation makes gamma nearly invariant to them, so their gradient
+    sums the vlb loss's ~1e3-sized dL/dgamma terms against small, cancelling
+    sensitivities, and f32 leaves it rounding (at this width it comes out in
+    steps of 2^-12 .. 2^-2, l1.weight's exactly 0, on the CPU;
+    tests/test_torch_port_variants.py:_gamma_layer_ok); they must be finite,
+    while gamma_0's and gamma_1's gradients, which carry every vlb weight of
+    the loss, are held to the gate."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = get_dataset_info("qm9")
+    raw = _qm9_grad_batch()
+    grads, losses, nll, seconds = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        model = factory.build_model(cfg, dev, torch.Generator().manual_seed(5))
+        batch = prepare_batch(raw, DistributionNodes(info.n_nodes), dev)
+        args = (batch["x"], batch["h_cat"], batch["h_int"], batch["node_mask"])
+        _zero_launch_counts()
+        loss = (factory.model_nll_fn(cfg, training=True)(model, _Replay(12), *args)
+                - batch["log_pN"]).mean()
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            want = {**_no_launches(), "egnn_block": fwd, "egnn_block_bwd": bwd}
+            _check(launches == want, f"phase {phase}: train-step launches {launches} != {want}")
+        with torch.no_grad():
+            _zero_launch_counts()
+            nll[dev] = factory.model_nll_fn(cfg, training=False)(model, _Replay(13), *args
+                                                                 ).cpu().numpy()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            want = {**_no_launches(), "egnn_block": eval_fwd}
+            _check(launches == want, f"phase {phase}: t0_always NLL launches {launches} != {want}")
+        seconds[dev] = time.time() - t0
+        losses[dev] = float(loss.detach())
+        grads[dev] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                      if p.grad is not None}
+    # An l2 loss is a mean of squared errors over all channels, held to
+    # _LOSS_RTOL; a vlb loss weights each molecule's error by (T + 1)(SNR
+    # ratio - 1) (up to ~1e3 here) and is held to the denoiser's own gate,
+    # _DENOISER_RTOL, which the error it squares carries.
+    loss_rtol = _LOSS_RTOL if cfg.diffusion.loss_type == "l2" else _DENOISER_RTOL
+    _check(abs(losses["cuda"] - losses["cpu"]) <= loss_rtol * abs(losses["cpu"]),
+           f"phase {phase}: loss card {losses['cuda']} vs CPU {losses['cpu']} (tol {loss_rtol})")
+    _check(set(grads["cuda"]) == set(grads["cpu"]) and grads["cpu"],
+           f"phase {phase}: card and CPU gave gradients to different parameters")
+    _check(bool(np.all(np.isfinite(nll["cuda"]))), f"phase {phase}: NLL not finite")
+    nll_err = float(np.max(np.abs(nll["cuda"] - nll["cpu"]) / np.maximum(1.0, np.abs(nll["cpu"]))))
+    _check(nll_err <= _DENOISER_RTOL, f"phase {phase}: t0_always NLL card {nll['cuda']} vs CPU "
+                                      f"{nll['cpu']}")
+    worst, worst_name, layers = 0.0, "", []
+    for k, ref in grads["cpu"].items():
+        g = grads["cuda"][k]
+        _check(bool(torch.isfinite(g).all()), f"phase {phase}: gradient of {k} not finite")
+        d, scale = float((g - ref).abs().max()), float(ref.abs().max())
+        if k.startswith("gamma.l"):  # finite (checked above); its size is rounding
+            layers.append(f"{k} {d:.2e} of {scale:.2e}")
+            continue
+        _check(d <= _GRAD_RTOL * scale, f"phase {phase}: gradient of {k}: card vs CPU "
+                                        f"max|d|={d:.3e} > {_GRAD_RTOL}*{scale:.3e}")
+        if scale and d / scale >= worst:
+            worst, worst_name = d / scale, k
+    print(f"phase {phase}: train-step gradient (B=8, N=29): loss card {losses['cuda']:.6f} CPU "
+          f"{losses['cpu']:.6f}; {len(grads['cpu'])} tensors, worst max|d|/max|ref| "
+          f"{worst:.2e} ({worst_name}; tol {_GRAD_RTOL})"
+          + (f"; gamma layers (finite; card-CPU max|d| of max|ref|): {', '.join(layers)}"
+             if layers else "")
+          + f"; launches #1 {fwd} #2 {bwd}; t0_always NLL max|d|/max(1,|ref|) {nll_err:.2e} "
+          f"({eval_fwd} #1 launches) on {card} ({seconds['cuda']:.1f} s card, "
+          f"{seconds['cpu']:.1f} s CPU)", flush=True)
+    return {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"], "worst_rel": worst,
+            "worst": worst_name, "gamma_layers": layers, "nll_rel": nll_err}
+
+
+def _serve_requests(card, phase, path, requests, L, dec):
+    """cli.serve (its default compute dtype, bfloat16_mixed) on the
+    checkpoint at ``path``: each (name, body, K) request's molecules and
+    launches of the bf16 and the f32 kernel, exactly (K - round(0.1 K)) * L +
+    dec (``dec`` decoder blocks) in bf16 and (round(0.1 K) + 1) * L in f32 per
+    chunk. -> ({name: (body, seconds)}, summed launches)."""
+    from geoldm_tpu_torch.cli import serve
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.diffusion.vdm import mixed_tail_steps
+    from geoldm_tpu_torch.train.sampling import chunk_pads
+
+    server, service = serve.main(["--model_path", path, "--port", "0", "--batch_max", "64"],
+                                 serve_forever=False)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    out, total = {}, _no_launches()
+    try:
+        for name, body, K in requests:
+            _zero_launch_counts()
+            t0 = time.time()
+            code, resp = _request(base, "/sample", body)
+            dt = time.time() - t0
+            launches = _launch_counts()
+            _check(code == 200, f"phase {phase} {name} -> {code} {resp}")
+            _check_molecules(resp, body["sizes"], get_dataset_info("qm9")["atom_decoder"])
+            tail = mixed_tail_steps("bfloat16_mixed", K)
+            chunks = len(chunk_pads(body["sizes"], 64, service.buckets))
+            want = {**_no_launches(), "egnn_block_bf16": ((K - tail) * L + dec) * chunks,
+                    "egnn_block": (tail + 1) * L * chunks}
+            _check(launches == want, f"phase {phase} {name}: launches {launches} != {want}")
+            for k, v in launches.items():
+                total[k] += v
+            out[name] = (resp, dt)
+            print(f"phase {phase}: cli.serve {name} ({json.dumps(resp['sampler'])}): "
+                  f"{resp['n']} molecules in {dt:.2f} s, {sum(resp['stable'])} stable; launches "
+                  f"bf16 ({K}-{tail})*{L}+{dec}, f32 ({tail}+1)*{L} per chunk x {chunks} on "
+                  f"{card}", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return out, total
+
+
+def phase_edm(card, tmpdir):
+    """Phase 31: the plain E(n) diffusion model (kind 'diffusion', EDM) at
+    the defaults of factory.make_diffusion_model_config, EDM's QM9 command
+    (nf 256, 9 layers, T 1000, polynomial_2, precision 1e-5, l2, normalize
+    [1, 4, 10]), random weights: (a) three train steps (AMSGrad, clip, EMA)
+    at B=64, N=29, 9 #1 and 9 #2 launches a step, and the gradient card vs
+    CPU; (b) the t0_always NLL card vs CPU; (c) one dense T=1000 chunk of 16
+    molecules, one-hot types and integer charges, (T+1)*9 #1 launches; (d) a
+    seeded cli.serve request on the saved checkpoint and its replay, bit for
+    bit."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train import sampling
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+    from geoldm_tpu_torch.utils.convert import save_reference_checkpoint
+
+    info = get_dataset_info("qm9")
+    cfg = factory.make_diffusion_model_config(info)
+    e, d = cfg.dynamics.egnn, cfg.diffusion
+    _check((e.hidden_nf, e.n_layers, d.timesteps, d.noise_schedule, d.noise_precision,
+            d.loss_type, d.norm_values) == (256, 9, 1000, "polynomial_2", 1e-5, "l2",
+                                            (1.0, 4.0, 10.0)), f"EDM defaults {cfg}")
+    L, T, B, decay = e.n_layers, d.timesteps, 64, 0.9999
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(31))
+    state = create_train_state(model, cfg, 1e-4, ema_decay=decay)
+    step = make_train_step(cfg, decay)
+    nodes = DistributionNodes(info.n_nodes)
+    batch = prepare_batch(synthetic_batch(info, B, 29, np.random.default_rng(31)), nodes, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    losses, times = [], []
+    _zero_launch_counts()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch, gen)["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    train_launches = _launch_counts()
+    want = {**_no_launches(), "egnn_block": 3 * L, "egnn_block_bwd": 3 * L}
+    _check(train_launches == want, f"phase 31 (a): launches {train_launches} != {want}")
+    _check(bool(np.all(np.isfinite(losses))), f"phase 31 (a): losses {losses}")
+    moved = max(float((v - start[k]).abs().max()) for k, v in model.state_dict().items())
+    ema_moved = max(float((v - start[k]).abs().max())
+                    for k, v in state.ema_model.state_dict().items())
+    _check(moved > 0 and 0 < ema_moved < moved, f"phase 31 (a): weights moved {moved}, EMA "
+                                                f"{ema_moved}")
+    print(f"phase 31 (a): EDM nf=256 9 layers T=1000 (make_diffusion_model_config defaults), "
+          f"3 train steps B={B} N=29: losses {[round(v, 4) for v in losses]}, "
+          f"{', '.join(f'{v:.1f}' for v in times)} ms (host clock around synchronised steps); "
+          f"launches #1 {3 * L} #2 {3 * L}; weights moved {moved:.2e}, EMA {ema_moved:.2e} "
+          f"on {card}", flush=True)
+    grad = _variant_grad(card, "31 (a, b)", cfg, L, L, 2 * L)
+
+    sizes = nodes.sample(16, np.random.default_rng(31))
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one_hot, charges, x, mask = sampling.sample(state.ema_model, torch.Generator(
+        device="cuda").manual_seed(32), info, sizes, pad_nodes=32)
+    one_hot, charges, x = (a.cpu().numpy() for a in (one_hot, charges, x))
+    chunk_s = time.time() - t0
+    chunk_launches = _launch_counts()
+    want = {**_no_launches(), "egnn_block": (T + 1) * L}
+    _check(chunk_launches == want, f"phase 31 (c): launches {chunk_launches} != {want}")
+    _check(np.all(one_hot.sum(-1) == mask[..., 0]) and set(np.unique(one_hot)) <= {0.0, 1.0},
+           "phase 31 (c): the types are not one-hot on the real atoms")
+    _check(np.all(charges == np.round(charges)) and np.all(np.isfinite(x)),
+           "phase 31 (c): charges not integers or coordinates not finite")
+    print(f"phase 31 (c): one dense T={T} chunk of 16 molecules (pad 32): {chunk_s:.2f} s, "
+          f"one-hot types, integer charges; launches #1 {(T + 1) * L} = ({T}+1)*{L} on {card}",
+          flush=True)
+
+    path = os.path.join(tmpdir, "edm")
+    save_reference_checkpoint(state.ema_model, path)
+    body = {"sizes": [19, 23, 27, 29, 14, 17], "seed": 31, "n_steps": 50, "eta": 0.0}
+    served, serve_launches = _serve_requests(card, 31, path, [("seeded", body, 50),
+                                                                ("replay", body, 50)], L, 0)
+    _check(served["seeded"][0]["molecules"] == served["replay"][0]["molecules"],
+           "phase 31 (d): the seeded request did not replay")
+    print(f"phase 31 (d): the seeded request replayed bit for bit on {card}", flush=True)
+    launches = {k: train_launches[k] + chunk_launches[k] + serve_launches[k]
+                for k in train_launches}
+    return {"losses": losses, "step_ms": times, "grad": grad, "chunk_seconds": chunk_s,
+            "serve_seconds": [v[1] for v in served.values()], "launches": launches}
+
+
+def _timed_recipe_steps(card, phase, state):
+    """Host-clock ms of 3 more synchronised train steps of a CLI run's state
+    on one QM9 batch (B=64, N=29), as phase 7 times the recipe."""
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    info = get_dataset_info("qm9")
+    batch = prepare_batch(synthetic_batch(info, 64, 29, np.random.default_rng(phase)),
+                          DistributionNodes(info.n_nodes), "cuda")
+    times = _time_steps(state, 0.9999, batch)
+    print(f"phase {phase}: train step B=64 N=29: {', '.join(f'{v:.1f}' for v in times)} ms "
+          f"(host clock around synchronised steps) on {card}", flush=True)
+    return times
+
+
+def _train_cli(card, phase, tmpdir, extra, steps, per_step, per_eval, per_chunk, K, L):
+    """cli.main_qm9 at the QM9 recipe (nf 256, 9 layers, latent_nf 1, T 1000,
+    B 64, trainable_ae) with ``extra`` flags on fabricated splits: ``steps``
+    steps, valid and test NLL and 8 stability samples as K-step DDIM jumps,
+    launches exact: per step ``per_step`` #1 and 9 #2 per grad-carrying
+    decoder/denoiser (``L`` a block list), ``per_eval`` #1 per eval batch,
+    ``per_chunk`` per sampled chunk. -> (summary, launches, seconds)."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_qm9
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--train_diffusion",
+            "--trainable_ae", "--nf", "256", "--n_layers", "9", "--latent_nf", "1",
+            "--diffusion_steps", "1000", "--batch_size", "64", "--test_epochs", "1",
+            "--n_stability_samples", "8", "--eval_n_steps", str(K), "--no_wandb", *extra]
+    print(f"phase {phase}: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}",
+          flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    losses = summary["losses"][-1]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))),
+           f"phase {phase}: losses {losses}")
+    _check(np.isfinite(summary["nll_val"][-1]) and np.isfinite(summary["nll_test"][-1]),
+           f"phase {phase}: NLL {summary['nll_val']} {summary['nll_test']}")
+    chunks = n_chunks(summary["sample_sizes"][-1], 8, covering_buckets(DEFAULT_SAMPLE_BUCKETS,
+                                                                       29))
+    want = {**_no_launches(), "egnn_block": steps * per_step[0] + 2 * per_eval
+            + per_chunk * chunks, "egnn_block_bwd": steps * per_step[1]}
+    _check(launches == want, f"phase {phase}: launches {launches} != {want} ({steps} steps, 2 "
+                             f"eval batches, {chunks} chunks)")
+    print(f"phase {phase}: {steps} steps, losses {[round(v, 4) for v in losses]}, valid NLL "
+          f"{summary['nll_val'][-1]:.4f}, test NLL {summary['nll_test'][-1]:.4f}, stability "
+          f"{summary['stability'][-1]}; launches #1 {want['egnn_block']} = {steps}*"
+          f"{per_step[0]} + 2*{per_eval} + {per_chunk}*{chunks} chunks, #2 "
+          f"{want['egnn_block_bwd']} = {steps}*{per_step[1]}; main() {wall:.1f} s on {card}",
+          flush=True)
+    return summary, launches, wall
+
+
+def phase_learned(card, tmpdir):
+    """Phase 32: the learned noise schedule at the reference width:
+    cli.main_qm9 --train_diffusion --trainable_ae --diffusion_noise_schedule
+    learned --diffusion_loss_type vlb (nf 256, 9 layers, latent_nf 1, T 1000,
+    B 64) for 3 steps and one test epoch, launches exact; the saved model's
+    gamma(0) and gamma(1) are gamma_0 and gamma_1 and gamma increases on a
+    grid of t; --resume runs one more epoch; cli.serve answers a K=50 DDIM
+    request and a dense one; the train-step gradient card vs CPU, gamma
+    parameters included."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.diffusion.schedules import GammaNetwork
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    info = get_dataset_info("qm9")
+    B, steps, K, L = 64, 3, 50, 9
+    write_qm9_splits(tmpdir, info, {"train": B * steps, "valid": B, "test": B}, seed=32)
+    learned = ["--diffusion_noise_schedule", "learned", "--diffusion_loss_type", "vlb",
+               "--exp_name", "learned"]
+    per_step, per_eval, per_chunk = (1 + 2 * L, 2 * L), 1 + 3 * L, (K + 1) * L + L
+    first, launches, _ = _train_cli(card, 32, tmpdir, learned + ["--n_epochs", "1"], steps,
+                                    per_step, per_eval, per_chunk, K, L)
+    step_ms = _timed_recipe_steps(card, 32, first["state"])
+    run = os.path.join(tmpdir, "out", "learned")
+    model, cfg, _ = load_reference_checkpoint(os.path.join(run, "latest"), "cuda",
+                                              use_ema=False)
+    _check(isinstance(model.gamma, GammaNetwork) and cfg.diffusion.loss_type == "vlb",
+           "phase 32: the checkpoint is not a learned-schedule model")
+    with torch.no_grad():
+        g = model.gamma(torch.linspace(0, 1, 101, device="cuda")[:, None])[:, 0].cpu()
+        g0, g1 = float(model.gamma.gamma_0), float(model.gamma.gamma_1)
+    _check(abs(float(g[0]) - g0) <= 1e-5 and abs(float(g[-1]) - g1) <= 1e-4 * abs(g1),
+           f"phase 32: gamma(0) {float(g[0])} gamma(1) {float(g[-1])} vs {g0}, {g1}")
+    _check(bool(torch.all(g[1:] > g[:-1])), "phase 32: gamma is not increasing")
+    init = factory.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    moved = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(model.gamma.parameters(), init.gamma.parameters()))
+    _check(moved > 0, "phase 32: the gamma network did not train")
+    print(f"phase 32: the saved model's gamma(0) {float(g[0]):.6f} = gamma_0 {g0:.6f}, "
+          f"gamma(1) {float(g[-1]):.6f} = gamma_1 {g1:.6f}, increasing on 101 points of t; its "
+          f"parameters moved up to {moved:.2e}", flush=True)
+    del model
+    resumed, resume_launches, _ = _train_cli(
+        card, 32, tmpdir, learned + ["--n_epochs", "2", "--start_epoch", "1", "--resume", run],
+        steps, per_step, per_eval, per_chunk, K, L)
+    _check(resumed["resumed"]["step"] == steps, f"phase 32: resumed at step "
+                                                f"{resumed['resumed']['step']}")
+    served, serve_launches = _serve_requests(
+        card, 32, os.path.join(run, "best"),
+        [("ddim50", {"sizes": [19, 23, 27, 29, 14, 17], "seed": 32, "n_steps": 50,
+                     "eta": 0.0}, 50),
+         ("dense", {"sizes": [19, 23, 21, 24], "seed": 33}, 1000)], L, L)
+    grad = _variant_grad(card, 32, factory.make_latent_diffusion_config(
+        info, nf=256, n_layers=9, latent_nf=1, diffusion_steps=1000, trainable_ae=True,
+        noise_schedule="learned", loss_type="vlb"), 1 + 2 * L, 2 * L, 1 + 3 * L)
+    total = {k: launches[k] + resume_launches[k] + serve_launches[k] for k in launches}
+    return {"losses": first["losses"][0] + resumed["losses"][0], "grad": grad, "step_ms": step_ms,
+            "serve_seconds": {k: v[1] for k, v in served.items()}, "launches": total}
+
+
+def phase_gnn(card, tmpdir):
+    """Phase 33: --model gnn_dynamics at the reference width through
+    cli.main_qm9 (3 steps, a test epoch): the GNN denoiser launches no
+    kernel, so #1/#2 come from the VAE alone (encoder + decoder a step and an
+    eval batch, the decoder a sampled chunk), exactly; the train-step
+    gradient card vs CPU; one dense T=1000 chunk of 16 molecules, whose 9 #1
+    launches are the decoder's."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train import sampling
+
+    info = get_dataset_info("qm9")
+    B, steps, K, L = 64, 3, 50, 9
+    write_qm9_splits(tmpdir, info, {"train": B * steps, "valid": B, "test": B}, seed=33)
+    summary, launches, _ = _train_cli(card, 33, tmpdir, ["--model", "gnn_dynamics",
+                                                         "--exp_name", "gnn", "--n_epochs", "1"],
+                                      steps, (1 + L, L), 1 + L, L, K, L)
+    step_ms = _timed_recipe_steps(card, 33, summary["state"])
+    model = summary["state"].ema_model
+    sizes = DistributionNodes(info.n_nodes).sample(16, np.random.default_rng(33))
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one_hot, charges, x, mask = sampling.sample(model, torch.Generator(
+        device="cuda").manual_seed(33), info, sizes, pad_nodes=32)
+    x = x.cpu().numpy()
+    chunk_s = time.time() - t0
+    chunk_launches = _launch_counts()
+    want = {**_no_launches(), "egnn_block": L}
+    _check(chunk_launches == want, f"phase 33: chunk launches {chunk_launches} != {want}")
+    _check(bool(np.all(np.isfinite(x))), "phase 33: non-finite coordinates")
+    print(f"phase 33: one dense T=1000 chunk of 16 molecules (pad 32) with the GNN denoiser: "
+          f"{chunk_s:.2f} s; #1 launches {L}, the decoder's alone, on {card}", flush=True)
+    grad = _variant_grad(card, 33, factory.make_latent_diffusion_config(
+        info, nf=256, n_layers=9, latent_nf=1, diffusion_steps=1000, trainable_ae=True,
+        model="gnn_dynamics"), 1 + L, L, 1 + L)
+    total = {k: launches[k] + chunk_launches[k] for k in launches}
+    return {"losses": summary["losses"][0], "grad": grad, "chunk_seconds": chunk_s,
+            "step_ms": step_ms, "launches": total}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -3701,6 +4123,15 @@ def main(argv=None) -> int:
     lap("29")
     dp_eval = phase_dp_eval(card, qm9_run.name)
     lap("30")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        edm = phase_edm(card, tmpdir)
+    lap("31")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        learned = phase_learned(card, tmpdir)
+    lap("32")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        gnn = phase_gnn(card, tmpdir)
+    lap("33")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -3718,6 +4149,7 @@ def main(argv=None) -> int:
         "bf16_training": bf16_train, "bf16_sp": bf16_sp, "conditional_kernels": cond_rows,
         "conditional_grad": cond_grad, "conditional": conditional, "dp_training": dp_train,
         "grid_training": grid_train, "conditional_sp": cond_sp, "dp_eval": dp_eval,
+        "edm": edm, "learned": learned, "gnn": gnn,
         "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
@@ -3733,7 +4165,8 @@ def main(argv=None) -> int:
              evaluation["launches"], geom_eval["launches"], bf16_launches,
              conditional["train"]["launches"], conditional["eval"]["launches"],
              conditional["serve"]["launches"], dp_train["launches"], grid_train["launches"],
-             cond_sp["launches"], dp_eval["launches"]]
+             cond_sp["launches"], dp_eval["launches"], edm["launches"], learned["launches"],
+             gnn["launches"]]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)
@@ -3780,7 +4213,7 @@ def main(argv=None) -> int:
     # training (phase 24: QM9 and GEOM through the CLIs); SP bf16 training
     # (phase 25's ranks).
     bf16_paths = [bf16_launches, bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"],
-                  bf16_sp["cli"]["launches"]]
+                  bf16_sp["cli"]["launches"], edm["launches"], learned["launches"]]
 
     def bf16_entry(kernel, name, source, replaces):
         # The bf16 forward variants at the main paths' widest shapes (QM9

@@ -22,8 +22,14 @@ trained first stage (``--ae_path``). ``--eval_n_steps`` K runs the periodic
 stability samples as K-step DDIM jumps. ``--compute_dtype`` takes JAX's
 four training choices: ``float32`` / ``pallas`` (f32 kernels) and
 ``bfloat16`` / ``bfloat16_pallas`` (the bf16 forward and backward kernels;
-the eval NLL and stability samples run in it too, as JAX's do). Flags that
-select anything else exit with a two-line "not ported yet" message.
+the eval NLL and stability samples run in it too, as JAX's do). Every model
+variant trains: ``--diffusion_noise_schedule learned`` (with
+``--diffusion_loss_type vlb``, as JAX's ``vdm_init`` requires; its log-SNR
+range is printed and logged each epoch), ``--model gnn_dynamics``, and,
+through ``--resume`` of its checkpoint, the plain E(n) diffusion model (JAX's
+CLI builds only the VAE and the latent model from flags, and lets a
+checkpoint's config win). Flags that select anything else exit with a
+two-line "not ported yet" message.
 """
 
 from __future__ import annotations
@@ -147,8 +153,10 @@ def check_ported(args) -> None:
                          f"--batch_size is {args.batch_size}")
     if args.visualize:
         _not_ported("--visualize")
-    if args.model != "egnn_dynamics":
-        _not_ported(f"--model {args.model}")
+    if (args.train_diffusion and args.diffusion_noise_schedule == "learned"
+            and args.diffusion_loss_type != "vlb"):
+        # JAX's vdm_init asserts it (geoldm_tpu/diffusion/vdm.py:45-46).
+        raise SystemExit("learned schedule requires vlb loss")
 
 
 def build_model_config(args, dataset_info):
@@ -279,6 +287,8 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
             for name in MODEL_ARGS:
                 if hasattr(saved, name):
                     setattr(args, name, getattr(saved, name))
+            if model_cfg.kind == "diffusion":
+                del args.train_diffusion  # EDM's args shape (utils.convert.checkpoint_kind)
     conditioning = list(args.conditioning)
     n_props = cond.property_channels(model_cfg)
     if n_props != len(conditioning):
@@ -319,7 +329,12 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     train_step = make_train_step(model_cfg, args.ema_decay, args.compute_dtype,
                                  args.context_dropout if conditioning else 0.0)
     eval_nll = make_eval_nll(model_cfg, args.compute_dtype)
-    include_charges = model_cfg.vae.include_charges
+    learned = model_cfg.kind != "vae" and model_cfg.diffusion.noise_schedule == "learned"
+    if model_cfg.kind != "vae":
+        from geoldm_tpu_torch.diffusion.vdm import log_info
+
+        print(f"schedule: {log_info(state.model.gamma)}", flush=True)
+    include_charges = model_cfg.include_charges
     if loaders is None:
         loaders = {split: QM9Loader(data, batch_size=args.batch_size,
                                     pad_nodes=dataset_info.max_n_nodes, shuffle=split == "train",
@@ -356,7 +371,10 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
                 rng=rng, logger=logger, prefetch=args.prefetch, data=data, **cond_kw)
             summary["losses"].append(losses)
             summary["epoch_seconds"].append(seconds)
-            logger.log({"train_loss_epoch": float(np.mean(losses))}, step=epoch)
+            record = {"train_loss_epoch": float(np.mean(losses))}
+            if learned:  # the learned schedule's log-SNR range as it trains
+                record.update(log_info(state.model.gamma))
+            logger.log(record, step=epoch)
             if epoch % args.test_epochs:
                 continue
             eval_model = state.ema_model

@@ -1,5 +1,7 @@
-"""Score a trained checkpoint with the paper's metrics on the card (port of
-``geoldm_tpu/cli/eval_analyze.py``): generate ``--n_samples`` molecules
+"""Score a trained generative checkpoint (latent diffusion, or the plain
+E(n) diffusion model, either noise schedule and dynamics) with the paper's
+metrics on the card (port of ``geoldm_tpu/cli/eval_analyze.py``): generate
+``--n_samples`` molecules
 (size-bucketed; the model's full T, or ``--n_steps`` few-step jumps), then
 atom and molecule stability, the
 validity/uniqueness/novelty triple, and the valid and test NLL (the test
@@ -120,9 +122,9 @@ def evaluate(args, grid=None) -> dict:
     device = grid.device if grid is not None else args.device
     model, model_cfg, _ = load_reference_checkpoint(checkpoint_dir(args.model_path, "best"),
                                                     device, use_ema=args.use_ema)
-    if model_cfg.kind != "latent_diffusion":
-        raise SystemExit(f"{args.model_path} holds a {model_cfg.kind!r} model; eval_analyze "
-                         "scores latent diffusion checkpoints")
+    if model_cfg.kind == "vae":
+        raise SystemExit(f"{args.model_path} holds a 'vae' model; eval_analyze scores "
+                         "generative checkpoints (latent or plain diffusion)")
     device = next(model.parameters()).device
     dataset_info = get_dataset_info(args.dataset, args.remove_h)
     nodes_dist = DistributionNodes(dataset_info.n_nodes)

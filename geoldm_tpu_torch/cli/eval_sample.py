@@ -1,5 +1,5 @@
-"""Sample molecules for inspection on the card (port of
-``geoldm_tpu/cli/eval_sample.py``): (a) ``--n_samples`` molecules, (b) up to
+"""Sample molecules of a generative checkpoint (latent or plain diffusion)
+for inspection on the card (port of ``geoldm_tpu/cli/eval_sample.py``): (a) ``--n_samples`` molecules, (b) up to
 ``--n_stable`` stable ones (2x oversampling), (c) ``--n_chains`` chains of
 the dense reverse diffusion, retried up to ``--n_tries`` times for a stable
 final molecule. Each is written as xyz-style text files
@@ -99,9 +99,9 @@ def main(argv=None) -> dict:
 
     model, model_cfg, _ = load_reference_checkpoint(checkpoint_dir(args.model_path, "best"),
                                                     args.device, use_ema=args.use_ema)
-    if model_cfg.kind != "latent_diffusion":
-        raise SystemExit(f"{args.model_path} holds a {model_cfg.kind!r} model; eval_sample "
-                         "samples latent diffusion checkpoints")
+    if model_cfg.kind == "vae":
+        raise SystemExit(f"{args.model_path} holds a 'vae' model; eval_sample samples "
+                         "generative checkpoints (latent or plain diffusion)")
     dataset_info = get_dataset_info(args.dataset, args.remove_h)
     nodes_dist = DistributionNodes(dataset_info.n_nodes)
     outdir = args.outdir or os.path.join(args.model_path, "eval")

@@ -2,7 +2,9 @@
 ``geoldm_tpu/cli/serve.py:169-580``).
 
 Loads an upstream-layout checkpoint directory (``args.pickle`` +
-``generative_model[_ema].npy``) and serves JSON over stdlib http.server.
+``generative_model[_ema].npy``) of a generative model (latent diffusion or
+the plain E(n) diffusion model, either noise schedule and dynamics; a VAE
+is refused) and serves JSON over stdlib http.server.
 ``--dataset`` picks the size buckets and the largest request size: QM9
 (16, 24, 32), GEOM-Drugs (32, 48, 64, 96, 136, 184) up to 181 atoms, or
 (32, 48, 64, 96) up to 91 with ``--remove_h``. Chunks padded past 64 atoms
@@ -122,9 +124,9 @@ class SamplerService:
         self.args = args
         self.model, self.model_cfg, _ = load_reference_checkpoint(
             args.model_path, args.device, args.use_ema)
-        if self.model_cfg.kind != "latent_diffusion":
-            raise SystemExit(f"{args.model_path} holds a {self.model_cfg.kind!r} model: this "
-                             "server samples latent-diffusion checkpoints")
+        if self.model_cfg.kind == "vae":
+            raise SystemExit(f"{args.model_path} holds a 'vae' model: this server samples "
+                             "generative checkpoints (latent or plain diffusion)")
         self.device = next(self.model.parameters()).device
         self.timesteps = self.model_cfg.diffusion.timesteps
         self.dataset_info = get_dataset_info(args.dataset, args.remove_h)

@@ -113,6 +113,12 @@ class ModelConfig:
     trainable_ae: bool = False
     context_indicator: bool = False
 
+    @property
+    def include_charges(self) -> bool:
+        """Whether the data carries the charge channel: the VAE's flag, or
+        the plain diffusion model's."""
+        return (self.vae if self.vae is not None else self.diffusion).include_charges
+
 
 _CONFIG_TYPES = {
     cls.__name__: cls

@@ -16,42 +16,25 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from geoldm_tpu_torch.config import ModelConfig
 from geoldm_tpu_torch.diffusion import schedules as S
 from geoldm_tpu_torch.diffusion import vae as vae_mod
 from geoldm_tpu_torch.diffusion import vdm
 from geoldm_tpu_torch.nn.core import resolve_compute
-from geoldm_tpu_torch.nn.dynamics import EGNNDynamics
 from geoldm_tpu_torch.ops import com
 
 
-class PredefinedNoiseSchedule(nn.Module):
-    """Holds the fixed gamma table under the state-dict key ``gamma`` (a
-    frozen parameter upstream, en_diffusion.py:172-207), for strict
-    checkpoint loading. It is a buffer here, so neither the optimizer nor
-    the EMA ever touches it (the JAX package keeps no such parameter)."""
-
-    def __init__(self, noise_schedule: str, timesteps: int, precision: float):
-        super().__init__()
-        table = S.gamma_table(noise_schedule, timesteps, precision)
-        self.register_buffer("gamma", torch.from_numpy(table).float())
-
-
-class EnLatentDiffusion(nn.Module):
+class EnLatentDiffusion(vdm.EnVariationalDiffusion):
     """Upstream module layout: ``buffer``, ``gamma``, ``dynamics``, ``vae``
-    (reference en_diffusion.py:254-296, :1057-1080)."""
+    (reference en_diffusion.py:254-296, :1057-1080). ``gamma`` is either
+    schedule's module and ``dynamics`` either mode's network."""
 
     def __init__(self, model_cfg: ModelConfig):
-        super().__init__()
         if model_cfg.kind != "latent_diffusion":
-            raise NotImplementedError(f"model kind {model_cfg.kind!r} is not ported yet")
-        d = model_cfg.diffusion
-        self.cfg = model_cfg
-        self.register_buffer("buffer", torch.zeros(1))
-        self.gamma = PredefinedNoiseSchedule(d.noise_schedule, d.timesteps, d.noise_precision)
-        self.dynamics = EGNNDynamics(model_cfg.dynamics)
+            raise ValueError(f"EnLatentDiffusion takes a latent_diffusion config, "
+                             f"not {model_cfg.kind!r}")
+        super().__init__(model_cfg)
         self.vae = vae_mod.EnHierarchicalVAE(model_cfg.vae)
 
 
@@ -75,7 +58,7 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
     step's bf16 gradient runs the bf16 backward kernels."""
     cfg, vae_cfg = model.cfg.diffusion, model.cfg.vae
     compute_dtype = resolve_compute(compute_dtype).dtype
-    gamma_fn = vdm.make_gamma_fn(cfg, x.device)
+    gamma_fn = model.gamma
     with torch.no_grad():  # the latent is detached: the encoder runs forward only
         z_x_mu, _, z_h_mu, _ = vae_mod.encode(model.vae, x, h_cat, h_int, node_mask, context,
                                               compute_dtype)
@@ -98,7 +81,7 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
     loss_ld, _ = vdm.compute_loss(model.dynamics, cfg, noise, z_x, z_h[:, :, :0], z_h,
                                   node_mask, context, t0_always=not training,
                                   training=training, latent_space=True,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype, gamma=model.gamma)
     neg_log_constants = -log_constants_p_h_given_z0(cfg, gamma_fn, node_mask)
     if training and cfg.loss_type == "l2":
         neg_log_constants = torch.zeros_like(neg_log_constants)
@@ -119,7 +102,7 @@ def ldm_sample(model: EnLatentDiffusion, noise: com.Noise, node_mask,
     z_x, z_cat, z_int = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask,
                                        fix_noise, compute_dtype, n_steps=n_steps, eta=eta,
                                        method=method, clip_z=clip_z, context=context,
-                                       guidance_scale=guidance_scale)
+                                       guidance_scale=guidance_scale, gamma=model.gamma)
     z_xh = torch.cat([z_x, z_cat, z_int], dim=2)
     return vae_mod.decode(model.vae, z_xh, node_mask, context,
                           resolve_compute(compute_dtype).dtype)
@@ -134,7 +117,8 @@ def ldm_sample_chain(model: EnLatentDiffusion, noise: com.Noise, node_mask,
     3 + C + inc], frame 0 the final sample. ``context``: a conditional
     model's, for the denoiser and the decoder."""
     _, chain = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask, False,
-                              compute_dtype, keep_frames=keep_frames, context=context)
+                              compute_dtype, keep_frames=keep_frames, context=context,
+                              gamma=model.gamma)
     dtype = resolve_compute(compute_dtype).dtype
     return torch.stack([torch.cat(vae_mod.decode(model.vae, z_xh, node_mask, context, dtype),
                                   dim=2) for z_xh in chain])

@@ -1,10 +1,12 @@
 """Noise schedules and the gamma parametrisation (port of
-``geoldm_tpu/diffusion/schedules.py:29-197``, fixed schedules only).
+``geoldm_tpu/diffusion/schedules.py:29-197``).
 
 gamma(t) = -log(alpha_t^2 / sigma_t^2), alpha_t^2 = sigmoid(-gamma),
 sigma_t^2 = sigmoid(gamma). Predefined schedules are (T+1)-entry tables
-built with numpy, bit for bit as the JAX package builds them; the algebra
-on them runs in float32.
+built with numpy, bit for bit as the JAX package builds them
+(``PredefinedNoiseSchedule``); the learned schedule is a monotone network
+of positive-weight linear layers (``GammaNetwork``). Both are the model's
+``gamma`` module, called on t in [0, 1]; all gamma algebra runs in float32.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def clip_noise_schedule(alphas2: np.ndarray, clip_value: float = 0.001) -> np.ndarray:
@@ -71,6 +74,87 @@ def gamma_lookup(table: torch.Tensor, t: torch.Tensor, timesteps: int) -> torch.
     ``table`` is float32 (reference: en_diffusion.py:205-207)."""
     t_int = torch.round(t.float() * timesteps).long()
     return table[t_int]
+
+
+class PredefinedNoiseSchedule(nn.Module):
+    """Holds the fixed gamma table under the state-dict key ``gamma`` (a
+    frozen parameter upstream, en_diffusion.py:172-207), for strict
+    checkpoint loading. It is a buffer here, so neither the optimizer nor
+    the EMA ever touches it (the JAX package keeps no such parameter).
+    Called on t it looks gamma(t) up (``gamma_lookup``)."""
+
+    def __init__(self, noise_schedule: str, timesteps: int, precision: float):
+        super().__init__()
+        self.timesteps = timesteps
+        table = gamma_table(noise_schedule, timesteps, precision)
+        self.register_buffer("gamma", torch.from_numpy(table).float())
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return gamma_lookup(self.gamma, t, self.timesteps)
+
+
+class PositiveLinear(nn.Module):
+    """x @ softplus(W)^T + b, W initialised with torch's default Linear
+    init shifted by ``weight_init_offset`` (reference en_diffusion.py:122-148;
+    ``_positive_linear``, schedules.py:130-131)."""
+
+    def __init__(self, in_features: int, out_features: int, weight_init_offset: float = -2.0):
+        super().__init__()
+        self.weight_init_offset = weight_init_offset
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features).uniform_(-bound, bound)
+                                   + weight_init_offset)
+        self.bias = nn.Parameter(torch.empty(out_features).uniform_(-bound, bound))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, F.softplus(self.weight), self.bias)
+
+
+class GammaNetwork(nn.Module):
+    """The learned monotone gamma(t), normalised to [gamma_0, gamma_1] over
+    t in [0, 1]: layers 1->1, 1->1024, 1024->1 with softplus-positive
+    weights (reference en_diffusion.py:210-247; ``gamma_network_init`` /
+    ``gamma_network_apply``, schedules.py:114-150). gamma_0 and gamma_1 are
+    parameters, trained like the rest; l3's bias cancels out of gamma, so it
+    gets no gradient (JAX's is f32 rounding noise). Its input is cast to its
+    parameters' dtype (float32: the compute dtype rounds only the EGNNs'
+    products); the output keeps t's shape ([B] or [B, 1])."""
+
+    def __init__(self):
+        super().__init__()
+        self.l1 = PositiveLinear(1, 1)
+        self.l2 = PositiveLinear(1, 1024)
+        self.l3 = PositiveLinear(1024, 1)
+        self.gamma_0 = nn.Parameter(torch.tensor([-5.0]))
+        self.gamma_1 = nn.Parameter(torch.tensor([10.0]))
+
+    def _tilde_minus_tilde0(self, t: torch.Tensor, l1_0: torch.Tensor,
+                            s_0: torch.Tensor) -> torch.Tensor:
+        """gamma_tilde(t) - gamma_tilde(0), gamma_tilde(t) = l1(t) +
+        l3(sigmoid(l2(l1(t)))), as the sum of its layers' differences: l3's
+        bias cancels, and no ~1e2-sized gamma_tilde is formed only to be
+        subtracted (at the reference init gamma_tilde(0) is ~64 and
+        gamma_tilde(1) - gamma_tilde(0) ~0.7, so JAX's f32 difference carries
+        ~2e-4 of rounding; the algebra is the same)."""
+        l1_t = self.l1(t)
+        s_t = torch.sigmoid(self.l2(l1_t))
+        return (l1_t - l1_0) + F.linear(s_t - s_0, F.softplus(self.l3.weight))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        t2 = t.to(self.gamma_0.dtype).reshape(-1, 1)
+        l1_0 = self.l1(torch.zeros_like(t2[:1]))
+        s_0 = torch.sigmoid(self.l2(l1_0))
+        normalized = (self._tilde_minus_tilde0(t2, l1_0, s_0)
+                      / self._tilde_minus_tilde0(torch.ones_like(t2[:1]), l1_0, s_0))
+        return (self.gamma_0 + (self.gamma_1 - self.gamma_0) * normalized).reshape(t.shape)
+
+
+def make_gamma_module(noise_schedule: str, timesteps: int, precision: float) -> nn.Module:
+    """The model's ``gamma`` module: a ``GammaNetwork`` for 'learned', else
+    the table of a predefined schedule."""
+    if noise_schedule == "learned":
+        return GammaNetwork()
+    return PredefinedNoiseSchedule(noise_schedule, timesteps, precision)
 
 
 def inflate(array: torch.Tensor, ndim: int) -> torch.Tensor:

@@ -1,6 +1,8 @@
-"""Model factories (port of ``geoldm_tpu/models/factory.py:29-320``): build
-the frozen config tree, then the ``nn.Module`` on a device, and the NLL
-function that trains it.
+"""Model factories (port of ``geoldm_tpu/models/factory.py:29-354``): build
+the frozen config tree of each model kind (the plain E(n) diffusion model,
+the first-stage VAE, the latent diffusion model), then the ``nn.Module`` on a
+device, the NLL function that trains it and the sampler of a generative
+kind.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from geoldm_tpu_torch.config import (
 from geoldm_tpu_torch.diffusion import latent as ldm
 from geoldm_tpu_torch.diffusion import schedules as S
 from geoldm_tpu_torch.diffusion import vae as vae_mod
+from geoldm_tpu_torch.diffusion import vdm
 from geoldm_tpu_torch.diffusion.latent import EnLatentDiffusion
 from geoldm_tpu_torch.nn.egnn import init_parameters
 from geoldm_tpu_torch.utils.device import resolve_device
@@ -36,6 +39,42 @@ def _egnn_cfg(in_node_nf: int, out_node_nf: int, nf: int, n_layers: int, *,
         normalization_factor=normalization_factor, aggregation_method=aggregation_method,
         remat=remat,
     )
+
+
+def make_diffusion_model_config(
+    dataset_info, *, include_charges: bool = True, condition_time: bool = True,
+    context_node_nf: int = 0, context_indicator: bool = False, nf: int = 256,
+    n_layers: int = 9, attention: bool = True, tanh: bool = True,
+    norm_constant: float = 1.0, inv_sublayers: int = 1, sin_embedding: bool = False,
+    normalization_factor: float = 1.0, aggregation_method: str = "sum",
+    remat: bool = False, diffusion_steps: int = 1000, noise_schedule: str = "polynomial_2",
+    noise_precision: float = 1e-5, loss_type: str = "l2",
+    normalize_factors: Tuple[float, float, float] = (1.0, 4.0, 10.0),
+    model: str = "egnn_dynamics",
+) -> ModelConfig:
+    """The plain E(n) diffusion model over (x, h), kind 'diffusion'
+    (reference qm9/models.py:12-51; factory.py:61-126). The defaults are
+    EDM's QM9 recipe. ``gnn_dynamics`` takes [x, h] and returns [vel, h]:
+    3 more input and output channels."""
+    if context_indicator:
+        context_node_nf += 1
+    in_node_nf = len(dataset_info["atom_decoder"]) + int(include_charges)
+    dyn_in = in_node_nf + int(condition_time)
+    extra = 3 if model == "gnn_dynamics" else 0
+    egnn = _egnn_cfg(
+        dyn_in + context_node_nf + extra, dyn_in + context_node_nf + extra, nf, n_layers,
+        attention=attention, tanh=tanh, norm_constant=norm_constant,
+        inv_sublayers=inv_sublayers, sin_embedding=sin_embedding,
+        normalization_factor=normalization_factor, aggregation_method=aggregation_method,
+        remat=remat)
+    dynamics = DynamicsConfig(in_node_nf=in_node_nf, context_node_nf=context_node_nf, n_dims=3,
+                              condition_time=condition_time, mode=model, egnn=egnn)
+    diffusion = DiffusionConfig(
+        in_node_nf=in_node_nf, n_dims=3, timesteps=diffusion_steps,
+        noise_schedule=noise_schedule, noise_precision=noise_precision, loss_type=loss_type,
+        norm_values=tuple(normalize_factors), include_charges=include_charges)
+    return ModelConfig(kind="diffusion", diffusion=diffusion, dynamics=dynamics,
+                       context_indicator=context_indicator)
 
 
 def make_vae_config(dataset_info, *, include_charges: bool = True, context_node_nf: int = 0,
@@ -104,23 +143,38 @@ def make_latent_diffusion_config(
                        context_indicator=context_indicator)
 
 
+def check_diffusion_config(d: DiffusionConfig) -> None:
+    """JAX's ``vdm_init`` checks (geoldm_tpu/diffusion/vdm.py:41-53): the
+    learned schedule requires the vlb loss; a predefined one must leave
+    sigma_0 small against the normalisation."""
+    if d.noise_schedule == "learned":
+        if d.loss_type != "vlb":
+            raise ValueError("learned schedule requires vlb loss")
+    else:
+        S.check_issues_norm_values(
+            S.gamma_table(d.noise_schedule, d.timesteps, d.noise_precision), d.norm_values)
+
+
 def build_model(cfg: ModelConfig, device="cuda",
                 generator: Optional[torch.Generator] = None, sp_group=None):
     """The model on ``device`` (the card unless the caller asks for the
-    CPU), in eval mode: an ``EnLatentDiffusion``, or an ``EnHierarchicalVAE``
-    for the 'vae' kind. With ``generator`` every weight is drawn from it
+    CPU), in eval mode: an ``EnLatentDiffusion``, an ``EnHierarchicalVAE``
+    for the 'vae' kind, or an ``EnVariationalDiffusion`` for the plain
+    'diffusion' kind. With ``generator`` every weight is drawn from it
     (reference init); otherwise the caller loads a state dict. With
-    ``sp_group`` (a ``parallel.sharding.RankGroup``) every EGNN of the model runs
-    sequence-parallel over it; a deep copy of the model (the EMA model)
-    keeps the group."""
+    ``sp_group`` (a ``parallel.sharding.RankGroup``) every EGNN of the model
+    runs sequence-parallel over it (a GNN denoiser and the learned gamma
+    network stay replicated); a deep copy of the model (the EMA model) keeps
+    the group."""
     dev = resolve_device(device)
     if cfg.kind == "vae":
         model = vae_mod.EnHierarchicalVAE(cfg.vae)
+    elif cfg.kind in ("diffusion", "latent_diffusion"):
+        check_diffusion_config(cfg.diffusion)
+        model = (EnLatentDiffusion(cfg) if cfg.kind == "latent_diffusion"
+                 else vdm.EnVariationalDiffusion(cfg))
     else:
-        d = cfg.diffusion
-        S.check_issues_norm_values(
-            S.gamma_table(d.noise_schedule, d.timesteps, d.noise_precision), d.norm_values)
-        model = EnLatentDiffusion(cfg)
+        raise ValueError(f"unknown model kind {cfg.kind!r}")
     if generator is not None:
         init_parameters(model, generator)
     if sp_group is not None:
@@ -132,7 +186,7 @@ def build_model(cfg: ModelConfig, device="cuda",
 
 def model_nll_fn(model_cfg: ModelConfig, training: bool, compute_dtype=None):
     """nll(model, noise, x, h_cat, h_int, node_mask, context=None) -> [B] for
-    the configured model kind (factory.py:289-320), in ``compute_dtype``
+    the configured model kind (factory.py:278-320), in ``compute_dtype``
     (a name or spec of ``nn.core``), with grad too (``training``: the train
     step's)."""
     if model_cfg.kind == "vae":
@@ -145,4 +199,33 @@ def model_nll_fn(model_cfg: ModelConfig, training: bool, compute_dtype=None):
             return ldm.ldm_nll(model, noise, x, h_cat, h_int, node_mask, context, training,
                                compute_dtype)
         return nll
-    raise NotImplementedError(f"model kind {model_cfg.kind!r} is not ported yet")
+    if model_cfg.kind == "diffusion":
+        def nll(model, noise, x, h_cat, h_int, node_mask, context=None):
+            return vdm.vdm_nll(model, noise, x, h_cat, h_int, node_mask, context, training,
+                               compute_dtype)
+        return nll
+    raise ValueError(f"unknown model kind {model_cfg.kind!r}")
+
+
+def model_sample_fn(model_cfg: ModelConfig, compute_dtype=None, n_steps=None,
+                    eta: float = 1.0, method: str = "ddim", guidance_scale: float = 1.0,
+                    clip_z: float = 0.0):
+    """sample(model, noise, node_mask, context=None, fix_noise=False) -> (x,
+    h_cat one-hot, h_int charges) for a generative kind (factory.py:323-354),
+    with the sampler settings of ``vdm.vdm_sample``; the latent model
+    decodes with its VAE. A VAE is not a generative sampler."""
+    settings = dict(n_steps=n_steps, eta=eta, method=method, clip_z=clip_z,
+                    guidance_scale=guidance_scale)
+    if model_cfg.kind == "latent_diffusion":
+        def sample(model, noise, node_mask, context=None, fix_noise=False):
+            return ldm.ldm_sample(model, noise, node_mask, fix_noise, compute_dtype,
+                                  context=context, **settings)
+        return sample
+    if model_cfg.kind == "diffusion":
+        @torch.no_grad()
+        def sample(model, noise, node_mask, context=None, fix_noise=False):
+            return vdm.vdm_sample(model.dynamics, model_cfg.diffusion, noise, node_mask,
+                                  fix_noise, compute_dtype, context=context,
+                                  latent_space=False, gamma=model.gamma, **settings)
+        return sample
+    raise ValueError(f"{model_cfg.kind} is not a generative sampler")

@@ -2,8 +2,9 @@
 ``geoldm_tpu/nn/dynamics.py``), named as upstream egnn/models.py.
 
 - ``EGNNDynamics``: the denoiser. Appends the time channel to h, runs the
-  EGNN, returns [vel, h] with the velocity projected to the zero-CoM
-  subspace (reference EGNN_dynamics_QM9, egnn/models.py:8-113).
+  EGNN (or, in the ``gnn_dynamics`` ablation, the GNN on [x, h]), returns
+  [vel, h] with the velocity projected to the zero-CoM subspace (reference
+  EGNN_dynamics_QM9, egnn/models.py:8-113).
 - ``EGNNEncoder``: x, h -> the latent posterior's means and stds
   (reference EGNN_encoder_QM9, egnn/models.py:137-263).
 - ``EGNNDecoder``: latent -> (x, h) (reference egnn/models.py:287-402).
@@ -22,7 +23,7 @@ from torch import nn
 
 from geoldm_tpu_torch.config import DynamicsConfig, EGNNConfig
 from geoldm_tpu_torch.nn.core import linear
-from geoldm_tpu_torch.nn.egnn import EGNN
+from geoldm_tpu_torch.nn.egnn import EGNN, GNN
 from geoldm_tpu_torch.ops.com import remove_mean_with_mask
 
 
@@ -32,14 +33,20 @@ def _nan_reset(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
 
 
 class EGNNDynamics(nn.Module):
-    """eps-prediction network (dynamics_apply, dynamics.py:87-143)."""
+    """eps-prediction network (dynamics_apply, dynamics.py:87-143). Mode
+    ``egnn_dynamics`` runs the EGNN (``egnn``) on (h, x); ``gnn_dynamics``
+    (the ablation) runs the GNN (``gnn``) on [x, h] and reads the velocity
+    from its first 3 output channels (dynamics.py:118-131)."""
 
     def __init__(self, cfg: DynamicsConfig):
         super().__init__()
-        if cfg.mode != "egnn_dynamics":
-            raise NotImplementedError(f"dynamics mode {cfg.mode!r} is not ported yet")
         self.cfg = cfg
-        self.egnn = EGNN(cfg.egnn)
+        if cfg.mode == "egnn_dynamics":
+            self.egnn = EGNN(cfg.egnn)
+        elif cfg.mode == "gnn_dynamics":
+            self.gnn = GNN(cfg.egnn)
+        else:
+            raise ValueError(f"unknown dynamics mode {cfg.mode!r}")
 
     def forward(self, t: torch.Tensor, xh: torch.Tensor, node_mask: torch.Tensor,
                 context: Optional[torch.Tensor] = None, compute_dtype=None) -> torch.Tensor:
@@ -58,8 +65,13 @@ class EGNNDynamics(nn.Module):
         if context is not None:
             h = torch.cat([h, context], dim=-1)
 
-        h_final, x_final = self.egnn(h, x.contiguous(), node_mask, compute_dtype)
-        vel = (x_final - x) * node_mask
+        if cfg.mode == "egnn_dynamics":
+            h_final, x_final = self.egnn(h, x.contiguous(), node_mask, compute_dtype)
+            vel = (x_final - x) * node_mask
+        else:
+            out = self.gnn(torch.cat([x, h], dim=-1), node_mask, compute_dtype)
+            vel = out[..., :cfg.n_dims] * node_mask
+            h_final = out[..., cfg.n_dims:]
 
         if context is not None:
             h_final = h_final[..., :h_final.shape[-1] - cfg.context_node_nf]

@@ -1,5 +1,7 @@
 """Dense-masked E(n)-equivariant GNN as ``nn.Module``s (port of
-``geoldm_tpu/nn/egnn.py:109-262``).
+``geoldm_tpu/nn/egnn.py:109-302``), and the non-equivariant ``GNN`` of the
+``gnn_dynamics`` ablation (its GCLs without edge features, plain PyTorch
+ops: JAX runs it outside any Pallas kernel).
 
 Modules and parameters carry the upstream GeoLDM names
 (egnn/egnn_new.py: ``e_block_{i}.gcl_{j}.edge_mlp.{0,2}``, ``att_mlp.0``,
@@ -42,7 +44,7 @@ from torch import nn
 from geoldm_tpu_torch.config import EGNNConfig
 from geoldm_tpu_torch.nn.core import linear, round_operand
 from geoldm_tpu_torch.ops import egnn_block
-from geoldm_tpu_torch.ops.distance import coord2diff, sin_embedding
+from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embedding
 
 
 def _pair_first_layer(lin: nn.Linear, h: torch.Tensor, edge_attr: Optional[torch.Tensor],
@@ -72,11 +74,14 @@ def _aggregate(m: torch.Tensor, edge_mask: torch.Tensor, cfg: EGNNConfig) -> tor
 
 
 class GCL(nn.Module):
-    """Graph convolution layer (reference egnn_new.py:5-65)."""
+    """Graph convolution layer (reference egnn_new.py:5-65). ``edges_in_d``:
+    the edge features' width (default: the EGNN's distance features; 0 in
+    the GNN)."""
 
-    def __init__(self, cfg: EGNNConfig):
+    def __init__(self, cfg: EGNNConfig, edges_in_d: Optional[int] = None):
         super().__init__()
-        nf, e = cfg.hidden_nf, cfg.edge_feat_nf
+        nf = cfg.hidden_nf
+        e = cfg.edge_feat_nf if edges_in_d is None else edges_in_d
         self.cfg = cfg
         self.edge_mlp = nn.Sequential(nn.Linear(2 * nf + e, nf), nn.SiLU(),
                                       nn.Linear(nf, nf), nn.SiLU())
@@ -173,22 +178,52 @@ class EGNN(nn.Module):
         return linear(self.embedding_out, h, compute_dtype) * node_mask, x
 
 
+class GNN(nn.Module):
+    """The non-equivariant GNN of the ablation (reference egnn_new.py:200-232;
+    ``gnn_init`` / ``gnn_apply``, geoldm_tpu/nn/egnn.py:266-302): embedding,
+    ``n_layers`` GCLs without edge features over the fully connected graph
+    (the edge mask: the node mask's outer product minus the diagonal),
+    ``embedding_out``. h [B,N,in_node_nf], node_mask [B,N,1] ->
+    [B,N,out_node_nf]. JAX runs it on XLA, outside any Pallas kernel, so
+    its products are PyTorch ops on the card too; ``compute_dtype`` rounds
+    each product's operands as the EGNN's do."""
+
+    def __init__(self, cfg: EGNNConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = nn.Linear(cfg.in_node_nf, cfg.hidden_nf)
+        self.embedding_out = nn.Linear(cfg.hidden_nf, cfg.out_node_nf)
+        for i in range(cfg.n_layers):
+            self.add_module(f"gcl_{i}", GCL(cfg, edges_in_d=0))
+
+    def forward(self, h, node_mask, compute_dtype=None):
+        edge_mask = build_edge_mask(node_mask)
+        h = linear(self.embedding, h, compute_dtype)
+        for i in range(self.cfg.n_layers):
+            h = getattr(self, f"gcl_{i}")(h, None, node_mask, edge_mask, compute_dtype)
+        return linear(self.embedding_out, h, compute_dtype) * node_mask
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every weight from ``generator`` with the reference's init:
     torch-default U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases,
-    and xavier-uniform with gain 0.001 for each coordinate MLP's last layer
-    (egnn_new.py:75-76)."""
+    xavier-uniform with gain 0.001 for each coordinate MLP's last layer
+    (egnn_new.py:75-76; the legacy EGNN's ``coord_mlp.2``, egnn.py:40-41),
+    and the torch default shifted by ``weight_init_offset`` for the learned
+    gamma network's positive layers (en_diffusion.py:140-148)."""
     with torch.no_grad():
         for name, mod in module.named_modules():
-            if not isinstance(mod, nn.Linear):
+            offset = getattr(mod, "weight_init_offset", None)
+            if not isinstance(mod, nn.Linear) and offset is None:
                 continue
             fan_out, fan_in = mod.weight.shape
-            if name.endswith("coord_mlp.4"):
+            legacy_coord = name.endswith("coord_mlp.2") and mod.bias is None
+            if name.endswith("coord_mlp.4") or legacy_coord:
                 bound = 0.001 * math.sqrt(6.0 / (fan_in + fan_out))
             else:
                 bound = 1.0 / math.sqrt(fan_in)
             mod.weight.copy_(torch.empty_like(mod.weight, device="cpu")
-                             .uniform_(-bound, bound, generator=generator))
+                             .uniform_(-bound, bound, generator=generator) + (offset or 0.0))
             if mod.bias is not None:
                 b = 1.0 / math.sqrt(fan_in)
                 mod.bias.copy_(torch.empty_like(mod.bias, device="cpu")

@@ -21,7 +21,9 @@ import torch
 
 from geoldm_tpu_torch.data.collate import build_masks
 from geoldm_tpu_torch.diffusion import latent as ldm_mod
+from geoldm_tpu_torch.diffusion import vdm as vdm_mod
 from geoldm_tpu_torch.evalsuite.analyze import check_stability
+from geoldm_tpu_torch.models import factory
 from geoldm_tpu_torch.ops import com
 from geoldm_tpu_torch.parallel import sharding
 
@@ -107,9 +109,9 @@ def sample(model, noise: com.Noise, dataset_info, nodesxsample: np.ndarray,
                                       (len(nodesxsample), max_n_nodes, context.shape[-1]))
         context = append_indicator_if_needed(model.cfg, context)
         context_dev = torch.from_numpy(np.ascontiguousarray(context * node_mask_np)).to(device)
-    x, h_cat, h_int = ldm_mod.ldm_sample(model, noise, node_mask, fix_noise, compute_dtype,
-                                         n_steps, eta, method, clip_z, context_dev,
-                                         guidance_scale)
+    sample_fn = factory.model_sample_fn(model.cfg, compute_dtype, n_steps, eta, method,
+                                        guidance_scale, clip_z)
+    x, h_cat, h_int = sample_fn(model, noise, node_mask, context_dev, fix_noise)
     return h_cat, h_int, x, node_mask_np
 
 
@@ -199,8 +201,15 @@ def sample_chain(model, seed: int, dataset_info, n_tries: int = 1, keep_frames: 
     device = _model_device(model)
     node_mask = torch.from_numpy(node_mask_np).to(device)
     for i in range(n_tries):
-        chain = ldm_mod.ldm_sample_chain(model, chunk_generator(seed, i, device), node_mask,
-                                         keep_frames, compute_dtype)
+        noise = chunk_generator(seed, i, device)
+        if model.cfg.kind == "latent_diffusion":
+            chain = ldm_mod.ldm_sample_chain(model, noise, node_mask, keep_frames, compute_dtype)
+        else:  # the plain kind's frames are unnormalised (sampling.py:331-339)
+            with torch.no_grad():
+                _, chain = vdm_mod.vdm_sample(model.dynamics, model.cfg.diffusion, noise,
+                                              node_mask, compute_dtype=compute_dtype,
+                                              keep_frames=keep_frames, latent_space=False,
+                                              gamma=model.gamma)
         chain = chain.cpu().numpy()[::-1, 0]  # noise -> sample; drop the batch
         chain = np.concatenate([chain, np.repeat(chain[-1:], 10, axis=0)], axis=0)
         final = chain[-1]

@@ -242,7 +242,7 @@ def evaluate_nll_packed(model, model_cfg, split: Dict[str, np.ndarray],
     n = pad_nodes or split["positions"].shape[1]
     n_atoms = np.asarray(split["num_atoms"])
     arrs = prepare_split_arrays(n_atoms, split["positions"], split["one_hot"], split["charges"],
-                                n, model_cfg.vae.include_charges)
+                                n, model_cfg.include_charges)
     log_pN = nodes_dist.log_prob(n_atoms).astype(np.float32)
     if data is not None and batch_size % data.size:
         batch_size = -(-batch_size // data.size) * data.size

@@ -118,9 +118,12 @@ def load_first_stage(ae_path: str, use_ema: bool) -> dict:
     ``vae`` (reference qm9/models.py:103-128): the EMA weights when
     ``use_ema`` (the run trains with EMA, JAX's rule), which must then be
     there; never the non-EMA weights in their place."""
+    from geoldm_tpu_torch.utils.convert import checkpoint_kind
+
     path = checkpoint_dir(ae_path, "best")
-    if getattr(load_args(path), "train_diffusion", False):
-        raise ValueError(f"{path} holds a latent diffusion model, not a first-stage VAE")
+    kind = checkpoint_kind(load_args(path))
+    if kind != "vae":
+        raise ValueError(f"{path} holds a {kind.replace('_', ' ')} model, not a first-stage VAE")
     name = "generative_model_ema.npy" if use_ema else "generative_model.npy"
     if not os.path.exists(os.path.join(path, name)):
         why = " (the run trains with EMA, so the first stage's EMA weights are required)"

@@ -121,7 +121,16 @@ def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path):
     compute dtypes are JAX's training choices: ``bfloat16`` trains (a bf16
     run starts and its losses are finite), ``bfloat16_full`` and
     ``bfloat16_mixed`` are sampling modes that argparse refuses (exit 2), as
-    JAX's ``choices`` do."""
+    JAX's ``choices`` do. ``--model gnn_dynamics`` is in the slice since the
+    model variants were ported: it trains (tests/test_torch_port_variants_cli.py
+    holds it further)."""
+    if flags[:2] == ["--model", "gnn_dynamics"]:
+        summary = main_qm9.main(["--datadir", datadir, "--outdir", str(tmp_path), "--device",
+                                 "cpu", "--n_epochs", "1", "--batch_size", "12", "--nf", "16",
+                                 "--n_layers", "1", "--train_diffusion", "--diffusion_steps",
+                                 "4", "--n_stability_samples", "2", *flags])
+        assert summary["losses"] and np.all(np.isfinite(summary["losses"][0]))
+        return
     if flags[0] == "--compute_dtype":
         argv = ["--datadir", datadir, "--outdir", str(tmp_path), "--device", "cpu",
                 "--n_epochs", "1", "--batch_size", "12", "--nf", "16", "--n_layers", "1", *flags]

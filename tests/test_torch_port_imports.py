@@ -51,7 +51,8 @@ def test_every_module_is_a_port_module():
                  "utils.logging_utils", "evalsuite.smiles", "evalsuite.rdkit_metrics",
                  "evalsuite.native", "evalsuite.analyze", "cli.eval_analyze", "cli.check_data",
                  "nn.core", "cli.eval_sample", "train.conditioning", "models.classifier",
-                 "train.classifier_train", "cli.main_qm9_prop", "cli.eval_conditional_qm9"):
+                 "train.classifier_train", "cli.main_qm9_prop", "cli.eval_conditional_qm9",
+                 "nn.egnn_legacy", "diffusion.priors"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 
