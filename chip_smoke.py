@@ -209,7 +209,33 @@ Phases (each prints a line; any failure exits non-zero before the result):
  33. --model gnn_dynamics through cli.main_qm9 at the reference width (3
      steps, a test epoch): #1/#2 launched by the VAE alone, exactly; the
      train-step gradient card vs CPU; one dense T=1000 chunk whose 9 #1
-     launches are the decoder's.
+     launches are the decoder's;
+ 34. cli.serve at the QM9 recipe with its default bfloat16_mixed and its
+     warm-up (one 6-step dispatch of --batch_max molecules per bucket, its
+     last step and final step f32: #1 at pads 16/24/32 in bf16 and f32,
+     launches exact, no counter moved; its seconds printed); a first and a second request of 4 molecules at K=50
+     DDIM; 8 unseeded requests of 4 served one after another and at once
+     (mol/s of each), and with the first dispatch held until the rest queue:
+     2 dispatches, 7 responses "coalesced" with no seed, each its own
+     molecules; launches exact per dispatch; then a GEOM recipe server whose
+     warm-up runs #1 at pads up to 64 and #3/#4 past them;
+ 35. cli.bench_train at its defaults in float32 and bfloat16: its JSON line,
+     #1/#2 (or their bf16 variants) launched exactly 19/18 times a step, and
+     MFU from utils.flops against the card's name;
+ 36. rendering: whether matplotlib and imageio import is printed first.
+     With them cli.main_qm9 --visualize True, cli.eval_sample --render True
+     and cli.eval_conditional_qm9 --task qualitative; without them each
+     exits naming the missing packages (checked) and the same xyz files are
+     written on the card through the functions the flags call
+     (common.visualize_epoch(render=False), eval_sample without --render,
+     eval_conditional_qm9.write_sweep): a QM9-recipe chain and 9 molecules,
+     eval_sample and the property sweep at nf=192 (#1 at H=192), launches
+     exact;
+ 37. GEOM data: a crude msgpack dump written by the port's own encoder,
+     extracted by cli.build_geom_dataset with the native C++ extractor
+     (asserted; the Python extractor's rows equal where msgpack imports),
+     loaded by data.geom, and one GEOM recipe train step (B=32, pad 64) on it
+     with exact launches.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -917,7 +943,8 @@ def phase_serve(card_name, tmpdir):
     batch_max = 64
     # The dense f32 path (the server's default is bfloat16_mixed: phase 22).
     server, service = serve.main(["--model_path", tmpdir, "--port", "0", "--compute_dtype",
-                                  "float32", "--batch_max", str(batch_max)], serve_forever=False)
+                                  "float32", "--batch_max", str(batch_max), "--no_warmup"],
+                                 serve_forever=False)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1118,8 +1145,8 @@ def phase_geom_serve(card_name, tmpdir):
 
     batch_max = 16
     server, service = serve.main(["--model_path", tmpdir, "--dataset", "geom", "--port", "0",
-                                  "--compute_dtype", "float32", "--batch_max", str(batch_max)],
-                                 serve_forever=False)
+                                  "--compute_dtype", "float32", "--batch_max", str(batch_max),
+                                  "--no_warmup"], serve_forever=False)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -2318,7 +2345,8 @@ def phase_bf16_serve(card, qm9_dir):
         save_reference_checkpoint(model, tmp.name, dataset=dataset)
         del model
         server, service = serve.main(["--model_path", tmp.name, "--dataset", dataset, "--port",
-                                      "0", "--batch_max", str(batch_max)], serve_forever=False)
+                                      "0", "--batch_max", str(batch_max), "--no_warmup"],
+                                     serve_forever=False)
         _check(service.args.compute_dtype == "bfloat16_mixed",
                f"the server's default compute dtype is {service.args.compute_dtype}")
         threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -3117,7 +3145,8 @@ def phase_conditional(card, tmpdir):
     batch_max = 64
     server, service = serve.main(["--model_path", os.path.join(run, "best"), "--port", "0",
                                   "--compute_dtype", "float32", "--batch_max", str(batch_max),
-                                  "--datadir", tmpdir, "--conditioning", "alpha"],
+                                  "--datadir", tmpdir, "--conditioning", "alpha",
+                                  "--no_warmup"],
                                  serve_forever=False)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -3706,8 +3735,8 @@ def _serve_requests(card, phase, path, requests, L, dec):
     from geoldm_tpu_torch.diffusion.vdm import mixed_tail_steps
     from geoldm_tpu_torch.train.sampling import chunk_pads
 
-    server, service = serve.main(["--model_path", path, "--port", "0", "--batch_max", "64"],
-                                 serve_forever=False)
+    server, service = serve.main(["--model_path", path, "--port", "0", "--batch_max", "64",
+                                  "--no_warmup"], serve_forever=False)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     out, total = {}, _no_launches()
@@ -4000,6 +4029,568 @@ def phase_gnn(card, tmpdir):
             "step_ms": step_ms, "launches": total}
 
 
+def _mixed_launches(pads, K, L, dec, inv=1):
+    """Launches of a bfloat16_mixed sampler run of K steps over chunks at
+    ``pads``: per chunk (K - tail) * L + dec blocks in bf16 (the head's steps
+    and the decoder) and (tail + 1) * L in f32 (the tail and the final
+    step), on #1 at pads up to 64 and on #3/#4 past them."""
+    from geoldm_tpu_torch.diffusion.vdm import mixed_tail_steps
+
+    tail = mixed_tail_steps("bfloat16_mixed", K)
+    small = sum(1 for p in pads if p <= 64)
+    large = len(pads) - small
+    head, f32 = (K - tail) * L + dec, (tail + 1) * L
+    return {**_no_launches(), "egnn_block_bf16": head * small, "egnn_block": f32 * small,
+            "gcl_rows_bf16": head * inv * large, "coord_rows_bf16": head * large,
+            "gcl_rows": f32 * inv * large, "coord_rows": f32 * large}
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] += v
+
+
+class _HeldDispatch:
+    """Wraps a server's ``_generate``: records each dispatch's sizes and holds
+    the first one until ``release`` (JAX's coalescing test's gate)."""
+
+    def __init__(self, service):
+        self.service, self.real = service, service._generate
+        self.calls, self.gate = [], threading.Event()
+
+    def __enter__(self):
+        def held(sizes, *a, **kw):
+            first = not self.calls
+            self.calls.append(np.asarray(sizes).copy())
+            if first:
+                _check(self.gate.wait(timeout=300), "the held dispatch was never released")
+            return self.real(sizes, *a, **kw)
+
+        self.service._generate = held
+        return self
+
+    def __exit__(self, *exc):
+        self.gate.set()
+        self.service._generate = self.real
+
+
+def _wait_until(pred, what, timeout=300.0):
+    t_end = time.time() + timeout
+    while not pred():
+        _check(time.time() < t_end, f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def phase_serve_warmup(card, tmpdir):
+    """Phase 34: cli.serve at the QM9 recipe (nf=256, 9 layers, T=1000,
+    random weights) with its default bfloat16_mixed and its warm-up: the
+    warm-up's seconds and launches (one 6-step dispatch of 64 molecules in
+    each of the buckets 16, 24, 32, each on #1 in bf16 and in f32, exact); a
+    first and a second request of 4 molecules at K=50 DDIM; 8 unseeded
+    requests of 4 at K=50 served one after another and then concurrently
+    (coalesced), with mol/s; 8 concurrent ones with the first dispatch held
+    until the other 7 queue: 2 dispatches, the 7 merged responses carry
+    "coalesced": 7 and no seed, every response its own molecules, launches
+    exact per dispatch. Then a GEOM recipe server (--batch_max 4) whose
+    warm-up launches #1 at pads 32-64 and #3/#4 at 96, 136, 184, exact."""
+    import torch
+
+    from geoldm_tpu_torch.cli import serve
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.ops import egnn_block
+    from geoldm_tpu_torch.train.sampling import chunk_pads
+    from geoldm_tpu_torch.utils.convert import save_reference_checkpoint
+
+    out, total = {}, _no_launches()
+    T, batch_max, K, n_req = 1000, 64, 50, 8
+    info = get_dataset_info("qm9")
+    cfg = factory.make_latent_diffusion_config(info, nf=256, n_layers=9, latent_nf=1,
+                                               diffusion_steps=T)
+    L, dec = cfg.dynamics.egnn.n_layers, cfg.vae.decoder_egnn.n_layers
+    path = os.path.join(tmpdir, "qm9")
+    save_reference_checkpoint(factory.build_model(cfg, "cuda", torch.Generator().manual_seed(0)),
+                              path)
+    seen = []
+    real_launch = egnn_block._forward_launch
+
+    def spy(block, h, x, x0, node_mask, save, bf16=False):
+        seen.append((int(x.shape[1]), bool(bf16)))
+        return real_launch(block, h, x, x0, node_mask, save, bf16=bf16)
+
+    _zero_launch_counts()
+    egnn_block._forward_launch = spy
+    t0 = time.time()
+    try:
+        server, service = serve.main(["--model_path", path, "--port", "0", "--batch_max",
+                                      str(batch_max)], serve_forever=False)
+    finally:
+        egnn_block._forward_launch = real_launch
+    start_s = time.time() - t0
+    warm = _launch_counts()
+    _add_launches(total, warm)
+    n_warm = service.warmup_steps()
+    want = _mixed_launches(list(service.buckets), n_warm, L, dec)
+    _check(n_warm == 6 and warm == want, f"phase 34: warm-up launches {warm} != {want} "
+                                         f"({n_warm} steps)")
+    covered = {(n, b) for n, b in seen}
+    _check(covered == {(b, bf) for b in (16, 24, 32) for bf in (False, True)},
+           f"phase 34: the warm-up's #1 launches covered (pad, bf16) {sorted(covered)}")
+    metrics = service.metrics()
+    _check(metrics == {"requests": 0, "molecules": 0, "errors": 0, "dispatches": 0}
+           and service._auto_seed == 0, f"phase 34: the warm-up moved a counter: {metrics}")
+    out["qm9_warmup"] = {"seconds": service.warmup_seconds, "start_seconds": start_s,
+                         "launches": {k: v for k, v in warm.items() if v}}
+    print(f"phase 34: cli.serve QM9 recipe warm-up {service.warmup_seconds:.2f} s (start "
+          f"{start_s:.2f} s): one {n_warm}-step dispatch of {batch_max} molecules in each of "
+          f"buckets {list(service.buckets)}; launches {json.dumps(out['qm9_warmup']['launches'])}, "
+          f"#1 at (pad, bf16) {sorted(covered)} on {card}", flush=True)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    decoder = info["atom_decoder"]
+
+    def post(body, replies, key):
+        replies[key] = _request(base, "/sample", body)
+
+    def check_reply(name, code, resp, n):
+        _check(code == 200, f"phase 34 {name} -> {code} {resp}")
+        _check(resp["n"] == n and len(resp["stable"]) == n, f"phase 34 {name}: {resp['n']}")
+        for mol in resp["molecules"]:
+            _check(0 < len(mol) <= 29, f"phase 34 {name}: a molecule of {len(mol)} atoms")
+            for el, *xyz in mol:
+                _check(el in decoder and bool(np.all(np.isfinite(xyz))),
+                       f"phase 34 {name}: atom {el} {xyz}")
+
+    try:
+        body = {"n_samples": 4, "n_steps": K, "eta": 0.0}
+        for name in ("first", "second"):
+            _zero_launch_counts()
+            t0 = time.time()
+            code, resp = _request(base, "/sample", {**body, "seed": 34})
+            dt = time.time() - t0
+            check_reply(name, code, resp, 4)
+            sizes = [len(m) for m in resp["molecules"]]
+            got = _launch_counts()
+            want = _mixed_launches(chunk_pads(sizes, batch_max, service.buckets), K, L, dec)
+            _check(got == want, f"phase 34 {name}: launches {got} != {want}")
+            _add_launches(total, got)
+            out[f"{name}_request"] = {"seconds": dt, "sizes": sizes}
+            print(f"phase 34: {name} request, 4 molecules (sizes {sizes}) at K={K} DDIM: "
+                  f"{dt * 1e3:.1f} ms, launches exact on {card}", flush=True)
+
+        # 8 unseeded requests of 4, one after another, then all at once; the
+        # dispatches' sizes are recorded (nothing held) for their launches.
+        for mode in ("serial", "concurrent"):
+            replies, before = {}, service.metrics()
+            _zero_launch_counts()
+            with _HeldDispatch(service) as seen_calls:
+                seen_calls.gate.set()
+                t0 = time.time()
+                if mode == "serial":
+                    for i in range(n_req):
+                        post(body, replies, i)
+                else:
+                    threads = [threading.Thread(target=post, args=(body, replies, i))
+                               for i in range(n_req)]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(timeout=600)
+                dt = time.time() - t0
+            got = _launch_counts()
+            want = _no_launches()
+            for sizes in seen_calls.calls:
+                _add_launches(want, _mixed_launches(chunk_pads(sizes, batch_max, service.buckets),
+                                                    K, L, dec))
+            _check(got == want, f"phase 34 {mode}: launches {got} != {want}")
+            _add_launches(total, got)
+            for i in range(n_req):
+                check_reply(f"{mode} {i}", *replies[i], 4)
+            after = service.metrics()
+            dispatches = after["dispatches"] - before["dispatches"]
+            merged = [r for _, r in replies.values() if "coalesced" in r]
+            out[mode] = {"seconds": dt, "mol_per_s": 4 * n_req / dt, "dispatches": dispatches,
+                         "merged": len(merged)}
+            print(f"phase 34: {n_req} unseeded requests of 4 at K={K}, {mode}: "
+                  f"{4 * n_req / dt:.2f} mol/s ({dt:.2f} s), {dispatches} dispatches, "
+                  f"{len(merged)} responses coalesced, launches exact on {card}", flush=True)
+        _check(out["serial"]["dispatches"] == n_req and out["serial"]["merged"] == 0,
+               f"phase 34: serial requests {out['serial']}")
+        _check(out["concurrent"]["dispatches"] < n_req,
+               f"phase 34: concurrent requests were not coalesced: {out['concurrent']}")
+
+        # JAX's test's scenario: hold the first dispatch until the rest queue.
+        replies, before = {}, service.metrics()
+        _zero_launch_counts()
+        with _HeldDispatch(service) as held:
+            threads = [threading.Thread(target=post, args=(body, replies, i))
+                       for i in range(n_req)]
+            threads[0].start()
+            _wait_until(lambda: len(held.calls) == 1, "the first dispatch")
+            for t in threads[1:]:
+                t.start()
+            _wait_until(lambda: len(service._coalescer._pending) == n_req - 1,
+                        "the other requests to queue")
+            held.gate.set()
+            for t in threads:
+                t.join(timeout=600)
+        got = _launch_counts()
+        _add_launches(total, got)
+        want = _no_launches()
+        for sizes in held.calls:
+            _add_launches(want, _mixed_launches(chunk_pads(sizes, batch_max, service.buckets),
+                                                K, L, dec))
+        _check(got == want, f"phase 34 held: launches {got} != {want}")
+        _check([len(c) for c in held.calls] == [4, 4 * (n_req - 1)],
+               f"phase 34 held: dispatch sizes {[len(c) for c in held.calls]}")
+        solo = replies[0][1]
+        _check(isinstance(solo["seed"], int) and "coalesced" not in solo,
+               f"phase 34 held: the first response {solo.get('seed')}")
+        for i in range(1, n_req):
+            code, resp = replies[i]
+            check_reply(f"held {i}", code, resp, 4)
+            _check(resp["seed"] is None and resp["coalesced"] == n_req - 1,
+                   f"phase 34 held {i}: seed {resp['seed']}, coalesced {resp.get('coalesced')}")
+        # The merged responses hold the merged dispatch's molecules between
+        # them, each its own 4 (the queue's order is the threads').
+        rows = [m for i in range(1, n_req) for m in replies[i][1]["molecules"]]
+        _check(sorted(len(m) for m in rows) == sorted(held.calls[1].tolist()),
+               "phase 34 held: the merged responses' sizes are not the dispatch's")
+        after = service.metrics()
+        _check(after["dispatches"] - before["dispatches"] == 2
+               and after["requests"] - before["requests"] == n_req,
+               f"phase 34 held: /metrics {before} -> {after}")
+        out["held"] = {"dispatch_sizes": [len(c) for c in held.calls], "launches": got}
+        print(f"phase 34: {n_req} requests with the first dispatch held: dispatches of "
+              f"{[len(c) for c in held.calls]} molecules, {n_req - 1} responses coalesced "
+              f"(seed null), launches exact on {card}", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    geom = get_dataset_info("geom")
+    gcfg = _geom_recipe_cfg()
+    gpath = os.path.join(tmpdir, "geom")
+    save_reference_checkpoint(factory.build_model(gcfg, "cuda", torch.Generator().manual_seed(0)),
+                              gpath, dataset="geom")
+    _zero_launch_counts()
+    server, service = serve.main(["--model_path", gpath, "--dataset", "geom", "--port", "0",
+                                  "--batch_max", "4"], serve_forever=False)
+    server.server_close()
+    got = _launch_counts()
+    _add_launches(total, got)
+    sizes = [min(b, geom["max_n_nodes"]) for b in service.buckets]
+    want = _mixed_launches(chunk_pads(np.repeat(sizes, 4), 4, service.buckets),
+                           service.warmup_steps(), gcfg.dynamics.egnn.n_layers,
+                           gcfg.vae.decoder_egnn.n_layers, gcfg.dynamics.egnn.inv_sublayers)
+    _check(got == want and got["gcl_rows_bf16"] > 0 and got["coord_rows"] > 0,
+           f"phase 34 GEOM warm-up: launches {got} != {want}")
+    out["geom_warmup"] = {"seconds": service.warmup_seconds,
+                          "launches": {k: v for k, v in got.items() if v}}
+    print(f"phase 34: cli.serve GEOM recipe (--batch_max 4) warm-up "
+          f"{service.warmup_seconds:.2f} s over buckets {list(service.buckets)}: launches "
+          f"{json.dumps(out['geom_warmup']['launches'])} on {card}", flush=True)
+    out["launches"] = total
+    return out
+
+
+def phase_bench_train(card):
+    """Phase 35: cli.bench_train at its defaults (the QM9 recipe, B=64, pad
+    32, 20 timed steps after one) in float32 and in bfloat16: its JSON line,
+    the launches of #1 and #2 (19 and 18 a step; in bfloat16 their bf16
+    variants) exact, and MFU from utils.flops against the card's name."""
+    import contextlib
+    import io
+
+    from geoldm_tpu_torch.cli import bench_train
+    from geoldm_tpu_torch.utils import flops
+
+    out, total = {}, _no_launches()
+    for dtype in ("float32", "bfloat16"):
+        _zero_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = bench_train.main(["--compute_dtype", dtype])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        got = _launch_counts()
+        _add_launches(total, got)
+        cfg = res["model_cfg"]
+        L, dec = cfg.dynamics.egnn.n_layers, cfg.vae.decoder_egnn.n_layers
+        enc = cfg.vae.encoder_egnn.n_layers
+        steps = res["reps"] + 1
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        want = {**_no_launches(), f"egnn_block{suffix}": (enc + dec + L) * steps,
+                f"egnn_block_bwd{suffix}": (dec + L) * steps}
+        _check(got == want, f"phase 35 {dtype}: launches {got} != {want}")
+        _check(sorted(line) == ["metric", "molecules_per_sec", "unit", "value"]
+               and line["value"] > 0, f"phase 35 {dtype}: {line}")
+        step_flops = 64 * flops.train_step_flops(cfg, 32)
+        mfu = flops.mfu(step_flops * res["reps"], res["seconds"], res["device"])
+        _check(mfu is not None and 0 < mfu < 1, f"phase 35: MFU {mfu} on {res['device']}")
+        out[dtype] = {"line": line, "mfu": mfu, "ms_per_step": res["seconds"] / res["reps"] * 1e3,
+                      "model_tflop_per_step": step_flops / 1e12}
+        print(f"phase 35: cli.bench_train --compute_dtype {dtype}: {json.dumps(line)}; "
+              f"{out[dtype]['ms_per_step']:.2f} ms a step, {step_flops / 1e12:.3f} model "
+              f"TFLOP a step (utils.flops), MFU {mfu:.4f} of the bf16 peak; launches exact "
+              f"({enc}+{dec}+{L} forward, {dec}+{L} backward a step, {steps} steps) on {card}",
+              flush=True)
+    out["launches"] = total
+    return out
+
+
+def phase_render(card, tmpdir):
+    """Phase 36: rendering. Whether matplotlib and imageio import is decided
+    first and printed. With them: cli.main_qm9 --visualize True at the QM9
+    recipe for one short epoch on fabricated splits (one step), then
+    cli.eval_sample --render True and cli.eval_conditional_qm9 --task
+    qualitative. Without them each of the three exits at argument checking
+    naming the missing packages (checked), and the smoke writes the same xyz
+    files on the card through the functions the flags call:
+    common.visualize_epoch(render=False) on the trained run's EMA model,
+    cli.eval_sample without --render, eval_conditional_qm9.write_sweep. The
+    generative part runs on the card either way, with exact launches: the
+    chain (dense T=1000, 100 frames decoded) and 9 molecules; eval_sample on
+    an unconditional checkpoint and the property sweep on a conditional one,
+    both at the conditional recipe's nf=192 (#1 at H=192)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from geoldm_tpu_torch.cli import common, eval_conditional_qm9, eval_sample, main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import write_qm9_splits
+    from geoldm_tpu_torch.evalsuite import visualizer as viz
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train import classifier_train
+    from geoldm_tpu_torch.train.conditioning import load_conditional_protocol
+    from geoldm_tpu_torch.utils.convert import load_reference_checkpoint, save_reference_checkpoint
+
+    missing = viz.missing_renderer_packages()
+    render = not missing
+    why = ("matplotlib and imageio import" if render else
+           f"this Python lacks {' and '.join(missing)}; the flags must refuse, and the xyz "
+           "files are written on the card all the same")
+    print(f"phase 36: rendering {'on' if render else 'off'}: {why}", flush=True)
+    out, total = {"render": render, "missing": missing}, _no_launches()
+    info = get_dataset_info("qm9")
+    T, L, B = 1000, 9, 64
+    # Two train steps; the second half of the train split (the conditional
+    # protocol's, for the sweep) then holds molecules of the sweep's 19 atoms.
+    write_qm9_splits(tmpdir, info, {"train": 2 * B, "valid": 8, "test": 8}, seed=36)
+
+    def refused(fn, argv, flag):
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                fn(argv)
+            except SystemExit as e:
+                msg = str(e.code)
+                _check(msg.startswith(f"{flag} renders with matplotlib and imageio; this Python "
+                                      f"lacks {' and '.join(missing)}"),
+                       f"phase 36: {flag} exited with {msg!r}")
+                print(f"phase 36: {flag} refused at argument checking: {msg}", flush=True)
+                return
+        raise SmokeFailure(f"phase 36: {flag} ran without {missing}")
+
+    outdir = os.path.join(tmpdir, "out")
+    argv = ["--datadir", tmpdir, "--outdir", outdir, "--exp_name", "vis", "--train_diffusion",
+            "--trainable_ae", "--nf", "256", "--n_layers", str(L), "--latent_nf", "1",
+            "--diffusion_steps", str(T), "--batch_size", str(B), "--n_epochs", "1",
+            "--test_epochs", "1", "--n_stability_samples", "4", "--eval_n_steps", "50",
+            "--save_model", "False", "--no_wandb"]
+    if not render:
+        refused(main_qm9.main, argv + ["--visualize", "True"], "--visualize")
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv + (["--visualize", "True"] if render else []))
+    _add_launches(total, _launch_counts())
+    epoch_dir = os.path.join(outdir, "vis", "epoch_0")
+    nodes = DistributionNodes(info.n_nodes)
+    _zero_launch_counts()
+    if render:
+        (vis,) = summary["visualized"]
+    else:
+        vis = common.visualize_epoch(summary["state"].ema_model, epoch_dir, 500, info, nodes,
+                                     np.random.default_rng([0, 0]), render=False)
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        _add_launches(total, got)
+        # The chain: the dense sampler at 19 atoms, (T+1) denoiser calls, then
+        # each of the kept frames decoded; the 9 molecules: (T+1) denoiser
+        # calls and a decode, one chunk at pad 29. All f32.
+        frames = vis["chain_frames"] - 10
+        want = {**_no_launches(), "egnn_block": 2 * (T + 1) * L + frames * L + L}
+        _check(got == want, f"phase 36 visualize_epoch: launches {got} != {want}")
+    seconds = time.time() - t0
+    chain = sorted(f for f in os.listdir(os.path.join(epoch_dir, "chain")) if f.endswith(".txt"))
+    _check(len(chain) == vis["chain_frames"] == 110 and len(vis["molecules"]) == 9,
+           f"phase 36: {len(chain)} chain files, {len(vis['molecules'])} molecules")
+    for f in [os.path.join(epoch_dir, "chain", chain[-1])] + vis["molecules"]:
+        pos, one_hot = viz.load_molecule_xyz(f, info)
+        _check(bool(np.isfinite(pos).all()) and bool((one_hot.sum(1) == 1).all()),
+               f"phase 36: {f} holds a non-finite or untyped atom")
+    _check((vis["gif"] is not None and len(vis["pngs"]) == 9) == render,
+           f"phase 36: gif {vis['gif']}, {len(vis['pngs'])} pictures with render={render}")
+    out["visualize"] = {"seconds": seconds, "chain_frames": vis["chain_frames"],
+                        "molecules": len(vis["molecules"]), "gif": vis["gif"]}
+    how = ("cli.main_qm9 --visualize True" if render
+           else "cli.main_qm9 + common.visualize_epoch(render=False)")
+    print(f"phase 36: {how} at the QM9 recipe: {vis['chain_frames']} chain frames and 9 molecules written "
+          f"under {epoch_dir} ({'rendered' if render else 'not rendered'}) in {seconds:.1f} s"
+          f"{'' if render else ', launches exact'} on {card}", flush=True)
+    del summary
+
+    # eval_sample on an unconditional checkpoint at nf=192 (it takes no
+    # context, as JAX's), the sweep on a conditional one.
+    K, keep = 50, 20
+    plain_dir = os.path.join(tmpdir, "plain192")
+    pcfg = factory.make_latent_diffusion_config(info, nf=192, n_layers=L, latent_nf=1,
+                                                diffusion_steps=T)
+    save_reference_checkpoint(factory.build_model(pcfg, "cuda", torch.Generator().manual_seed(2)),
+                              os.path.join(plain_dir, "best"))
+    es_argv = ["--model_path", plain_dir, "--outdir", os.path.join(tmpdir, "eval"),
+               "--n_samples", "8", "--n_stable", "2", "--n_chains", "1", "--keep_frames",
+               str(keep), "--n_tries", "1", "--n_steps", str(K)]
+    if not render:
+        refused(eval_sample.main, es_argv + ["--render", "True"], "--render")
+    _zero_launch_counts()
+    t0 = time.time()
+    res = eval_sample.main(es_argv + ["--render", str(render)])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = _launch_counts()
+    _add_launches(total, got)
+    want = {**_no_launches(), "egnn_block": ((K + 1) * L + L) * res["sample_calls"]
+            + (T + 1) * L + keep * L}
+    _check(got == want, f"phase 36 eval_sample: launches {got} != {want}")
+    _check(res["chains"] == [keep + 10] and (len(res["rendered"]["gifs"]) == 1) == render,
+           f"phase 36 eval_sample: {res}")
+    out["eval_sample"] = {"seconds": seconds, "sample_calls": res["sample_calls"],
+                          "stable": res["stable"], "rendered": res["rendered"]}
+    print(f"phase 36: cli.eval_sample {' '.join(es_argv)} --render {render}: 8 molecules "
+          f"x {res['sample_calls']} calls at K={K}, a dense chain of {keep + 10} frames, "
+          f"{res['stable']} stable, {res['rendered']['pngs']} pictures; #1 at H=192 "
+          f"launches exact, {seconds:.1f} s on {card}", flush=True)
+
+    cond_info = get_dataset_info("qm9_second_half")
+    ccfg = factory.make_latent_diffusion_config(cond_info, nf=192, n_layers=L, latent_nf=1,
+                                                diffusion_steps=T, context_node_nf=1,
+                                                context_indicator=True,
+                                                normalize_factors=(1.0, 8.0, 1.0))
+    gen_dir = os.path.join(tmpdir, "cond192")
+    save_reference_checkpoint(factory.build_model(ccfg, "cuda", torch.Generator().manual_seed(3)),
+                              os.path.join(gen_dir, "best"), conditioning=["alpha"])
+    cls_dir = os.path.join(tmpdir, "cls")
+    from geoldm_tpu_torch.models import classifier as clf
+
+    classifier_train.save_classifier(os.path.join(cls_dir, "best"), clf.build_classifier(
+        "egnn", 5, 128, 7, True, False, "cpu").state_dict())
+    q_argv = ["--task", "qualitative", "--property", "alpha", "--datadir", tmpdir,
+              "--generators_path", gen_dir, "--classifiers_path", cls_dir]
+    sweep_dir = os.path.join(gen_dir, "sweep_alpha")
+    _zero_launch_counts()
+    t0 = time.time()
+    if render:
+        gif = eval_conditional_qm9.main(q_argv)
+    else:
+        refused(eval_conditional_qm9.main, q_argv, "--task qualitative")
+        model, _, _ = load_reference_checkpoint(os.path.join(gen_dir, "best"), "cuda")
+        _, _, prop_dist, _, _ = load_conditional_protocol(tmpdir, ["alpha"])
+        eval_conditional_qm9.write_sweep(model, 0, info, prop_dist, sweep_dir)
+        gif = None
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = _launch_counts()
+    _add_launches(total, got)
+    want = {**_no_launches(), "egnn_block": (T + 1) * L + L}  # one chunk of 100 frames
+    _check(got == want, f"phase 36 sweep: launches {got} != {want}")
+    frames = sorted(f for f in os.listdir(sweep_dir) if f.endswith(".txt"))
+    _check(len(frames) == 100 and (gif is not None) == render, f"phase 36 sweep: {len(frames)}")
+    pos, one_hot = viz.load_molecule_xyz(os.path.join(sweep_dir, frames[-1]), info)
+    _check(pos.shape == (19, 3) and bool(np.isfinite(pos).all()), "phase 36 sweep frame")
+    out["sweep"] = {"seconds": seconds, "frames": len(frames), "gif": gif}
+    print(f"phase 36: eval_conditional_qm9 --task qualitative "
+          f"{'(rendered)' if render else '(write_sweep, not rendered)'}: 100 frames of 19 "
+          f"atoms, alpha swept, (T+1)*{L}+{L} #1 launches at H=192, {seconds:.1f} s on {card}",
+          flush=True)
+    out["launches"] = total
+    return out
+
+
+def phase_geom_data(card, tmpdir):
+    """Phase 37: GEOM data. A crude msgpack dump written with the port's own
+    encoder (data.synthetic.packb: 20 molecules of 49-64 atoms from the GEOM
+    size histogram, 4 conformers each), extracted by cli.build_geom_dataset
+    with the native C++ extractor (asserted), K=2; the Python extractor's
+    output equal where msgpack imports; data.geom loads the 40 conformers
+    (train 32, valid 4, test 4) and one GEOM recipe train step (B=32, pad 64)
+    runs on them on the card: 1 + 2*4 #1 and 2*4 #2 launches."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    import torch
+
+    from geoldm_tpu_torch.cli import build_geom_dataset
+    from geoldm_tpu_torch.data import native_geom
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.geom import GeomLoader, extract_conformers, load_split_data
+    from geoldm_tpu_torch.data.synthetic import write_geom_msgpack
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    info = get_dataset_info("geom")
+    hist = [n for n, _ in info.n_nodes_histogram if 49 <= n <= 64]
+    sizes = np.random.default_rng(37).choice(hist, size=20)
+    t0 = time.time()
+    write_geom_msgpack(tmpdir, info, 20, conformers=4, seed=37, sizes=sizes, chunk=8)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        path = build_geom_dataset.main(["--data_dir", tmpdir, "--conformations", "2"])
+    text = buf.getvalue()
+    _check("native extractor: 40 conformers" in text and native_geom.build_info.get("path"),
+           f"phase 37: the native extractor did not run: {text!r}")
+    rows = np.load(path)
+    extract_s = time.time() - t0
+    py_equal = None
+    if importlib.util.find_spec("msgpack") is not None:
+        os.makedirs(os.path.join(tmpdir, "py"))
+        shutil.copy(os.path.join(tmpdir, "drugs_crude.msgpack"),
+                    os.path.join(tmpdir, "py", "drugs_crude.msgpack"))
+        py_equal = bool(np.array_equal(np.load(extract_conformers(
+            os.path.join(tmpdir, "py"), conformations=2)), rows))
+        _check(py_equal, "phase 37: the Python extractor's rows differ from the native one's")
+    train, val, test = load_split_data(path)
+    _check((len(train), len(val), len(test)) == (32, 4, 4),
+           f"phase 37: splits {len(train)}/{len(val)}/{len(test)}")
+    (raw,) = list(GeomLoader(train, info, 32, shuffle=True, include_charges=False))
+    _check(raw["node_mask"].shape[1] == 64, f"phase 37: pad {raw['node_mask'].shape[1]}")
+    cfg = _geom_recipe_cfg()
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(37))
+    state = create_train_state(model, cfg, lr=5e-5, ema_decay=0.9999)
+    step = make_train_step(cfg, 0.9999)
+    batch = prepare_batch(raw, DistributionNodes(info.n_nodes), "cuda")
+    _zero_launch_counts()
+    t1 = time.time()
+    loss = float(step(state, batch, torch.Generator(device="cuda").manual_seed(1))["loss"])
+    step_s = time.time() - t1
+    got = _launch_counts()
+    L = cfg.dynamics.egnn.n_layers
+    want = {**_no_launches(), "egnn_block": 1 + 2 * L, "egnn_block_bwd": 2 * L}
+    _check(got == want and np.isfinite(loss), f"phase 37: loss {loss}, launches {got} != {want}")
+    print(f"phase 37: cli.build_geom_dataset (native extractor, dump written by "
+          f"data.synthetic.packb): {len(rows)} atom rows of 40 conformers in {extract_s:.2f} s; "
+          f"Python extractor equal: {py_equal}; data.geom splits 32/4/4, one GEOM recipe train "
+          f"step at B=32, pad 64: loss {loss:.4f}, {step_s * 1e3:.1f} ms (first step), launches "
+          f"exact on {card}", flush=True)
+    return {"rows": int(len(rows)), "python_equal": py_equal, "loss": loss,
+            "extract_seconds": extract_s, "step_seconds": step_s, "launches": got}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -4132,6 +4723,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         gnn = phase_gnn(card, tmpdir)
     lap("33")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        serving = phase_serve_warmup(card, tmpdir)
+    lap("34")
+    bench = phase_bench_train(card)
+    lap("35")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        rendering = phase_render(card, tmpdir)
+    lap("36")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        geom_data = phase_geom_data(card, tmpdir)
+    lap("37")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -4149,7 +4751,8 @@ def main(argv=None) -> int:
         "bf16_training": bf16_train, "bf16_sp": bf16_sp, "conditional_kernels": cond_rows,
         "conditional_grad": cond_grad, "conditional": conditional, "dp_training": dp_train,
         "grid_training": grid_train, "conditional_sp": cond_sp, "dp_eval": dp_eval,
-        "edm": edm, "learned": learned, "gnn": gnn,
+        "edm": edm, "learned": learned, "gnn": gnn, "serve_warmup": serving,
+        "bench_train": bench, "rendering": rendering, "geom_data": geom_data,
         "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
@@ -4158,7 +4761,9 @@ def main(argv=None) -> int:
     # Launches on the main paths: each path's own counts, read just after it
     # (phases 4, 7, 10, 13 and 16, the resumed, first-stage and evaluation
     # runs of phases 18-20, phase 26's conditional training, guided scoring
-    # and serving, and the ranks of phases 27-30's CLI runs).
+    # and serving, the ranks of phases 27-30's CLI runs, phases 31-33's
+    # variants, and phases 34-37: the servers' warm-ups and requests,
+    # bench_train, the rendering paths and the GEOM data step).
     geom_train_launches = geom_train["launches"]
     later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
              resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
@@ -4166,7 +4771,8 @@ def main(argv=None) -> int:
              conditional["train"]["launches"], conditional["eval"]["launches"],
              conditional["serve"]["launches"], dp_train["launches"], grid_train["launches"],
              cond_sp["launches"], dp_eval["launches"], edm["launches"], learned["launches"],
-             gnn["launches"]]
+             gnn["launches"], serving["launches"], bench["launches"], rendering["launches"],
+             geom_data["launches"]]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)
@@ -4213,7 +4819,8 @@ def main(argv=None) -> int:
     # training (phase 24: QM9 and GEOM through the CLIs); SP bf16 training
     # (phase 25's ranks).
     bf16_paths = [bf16_launches, bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"],
-                  bf16_sp["cli"]["launches"], edm["launches"], learned["launches"]]
+                  bf16_sp["cli"]["launches"], edm["launches"], learned["launches"],
+                  serving["launches"], bench["launches"]]
 
     def bf16_entry(kernel, name, source, replaces):
         # The bf16 forward variants at the main paths' widest shapes (QM9
@@ -4261,7 +4868,8 @@ def main(argv=None) -> int:
                              else "bytes"), "library_ms": None,
                 "f32_ms": sum(r["f32_ms"] for r in main)}
 
-    train_paths = [bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"]]
+    train_paths = [bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"],
+                   bench["launches"]]
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",

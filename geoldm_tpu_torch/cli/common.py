@@ -28,8 +28,11 @@ variant trains: ``--diffusion_noise_schedule learned`` (with
 range is printed and logged each epoch), ``--model gnn_dynamics``, and,
 through ``--resume`` of its checkpoint, the plain E(n) diffusion model (JAX's
 CLI builds only the VAE and the latent model from flags, and lets a
-checkpoint's config win). Flags that select anything else exit with a
-two-line "not ported yet" message.
+checkpoint's config win). ``--visualize True`` writes, at each stability
+evaluation, a chain and 9 molecules sampled on the device as xyz files under
+``<outdir>/<exp_name>/epoch_<e>/`` and renders them (``visualize_epoch``);
+it needs matplotlib and imageio, and exits naming the one missing at
+argument checking. ``--tp`` exits with a two-line "not ported yet" message.
 """
 
 from __future__ import annotations
@@ -104,7 +107,9 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--normalize_factors", type=eval, default=[1, 4, 10])
     # True for QM9 (main_qm9.py:125), False for GEOM (main_geom_drugs.py:121).
     p.add_argument("--include_charges", type=eval, default=qm9_defaults)
-    p.add_argument("--visualize", type=eval, default=False)
+    p.add_argument("--visualize", type=eval, default=False,
+                   help="write and render a chain and 9 molecules at each stability evaluation "
+                        "(needs matplotlib and imageio)")
     p.add_argument("--normalization_factor", type=float, default=1.0)
     p.add_argument("--aggregation_method", type=str, default="sum")
     p.add_argument("--compute_dtype", type=str, default="float32",
@@ -152,7 +157,9 @@ def check_ported(args) -> None:
         raise SystemExit(f"--dp {dp} splits every batch over {dp} data ranks, but "
                          f"--batch_size is {args.batch_size}")
     if args.visualize:
-        _not_ported("--visualize")
+        from geoldm_tpu_torch.evalsuite.visualizer import require_renderer
+
+        require_renderer("--visualize")
     if (args.train_diffusion and args.diffusion_noise_schedule == "learned"
             and args.diffusion_loss_type != "vlb"):
         # JAX's vdm_init asserts it (geoldm_tpu/diffusion/vdm.py:45-46).
@@ -194,6 +201,37 @@ def _generator(device, seed: int, *stream) -> "torch.Generator":
     state = np.random.SeedSequence([int(seed) % 2**64, *stream]).generate_state(
         1, dtype=np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def visualize_epoch(model, epoch_dir: str, seed: int, dataset_info, nodes_dist,
+                    rng: np.random.Generator, compute_dtype=None, prop_dist=None,
+                    render: bool = True) -> dict:
+    """Training's ``--visualize`` (``geoldm_tpu/cli/common.py:378-406``,
+    reference train_test.py:152-174): a chain (``sampling.sample_chain``,
+    noise from ``seed``) and 9 molecules with sizes from ``nodes_dist`` (noise
+    from ``seed`` + 1), sampled on the model's device, written as xyz files
+    to ``<epoch_dir>/chain`` and ``<epoch_dir>/molecules``, then rendered to
+    the chain's GIF and a PNG per molecule unless ``render`` is False ->
+    {"chain_frames", "molecules" (xyz paths), "gif", "pngs"}."""
+    from geoldm_tpu_torch.evalsuite import visualizer as viz
+    from geoldm_tpu_torch.train import sampling as sampling_mod
+
+    chain_dir, mol_dir = os.path.join(epoch_dir, "chain"), os.path.join(epoch_dir, "molecules")
+    ch_oh, ch_ch, ch_x = sampling_mod.sample_chain(model, seed, dataset_info, n_tries=1,
+                                                   compute_dtype=compute_dtype,
+                                                   prop_dist=prop_dist, rng=rng)
+    viz.save_chain(chain_dir, ch_oh, ch_ch, ch_x, dataset_info)
+    device = next(model.parameters()).device
+    oh, ch, xs, nm = sampling_mod.sample(
+        model, sampling_mod.chunk_generator(seed + 1, 0, device), dataset_info,
+        nodes_dist.sample(9, rng), prop_dist=prop_dist, rng=rng, compute_dtype=compute_dtype)
+    files = viz.save_xyz_file(mol_dir, oh.cpu().numpy(), ch.cpu().numpy(), xs.cpu().numpy(),
+                              dataset_info, node_mask=nm)
+    out = {"chain_frames": len(ch_x), "molecules": files, "gif": None, "pngs": []}
+    if render:
+        out["gif"] = viz.visualize_chain(chain_dir, dataset_info)
+        out["pngs"] = viz.visualize(mol_dir, dataset_info)
+    return out
 
 
 def launch(args, train_fn):
@@ -316,7 +354,7 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
         print(f"first stage loaded from {args.ae_path}", flush=True)
     summary = {"losses": [], "epoch_seconds": [], "nll_val": [], "nll_test": [],
                "stability": [], "rdkit": [], "sample_sizes": [], "checkpoints": [],
-               "state": state}
+               "visualized": [], "state": state}
     if args.resume:
         ckpt.load_train_state(resume_dir, state)
         summary["resumed"] = _snapshot(state)
@@ -392,6 +430,15 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
                           flush=True)
                 logger.log(validity, step=epoch)
                 summary["stability"].append(validity)
+                if args.visualize and is_main:
+                    # Rank 0 alone samples and writes, from its own numpy
+                    # generator: the shared ``rng`` stays in step on every rank.
+                    with sp.detached(eval_model):
+                        summary["visualized"].append(visualize_epoch(
+                            eval_model, os.path.join(outdir, f"epoch_{epoch}"),
+                            args.seed * 1000 + epoch + 500, dataset_info, nodes_dist,
+                            np.random.default_rng([args.seed, epoch]), args.compute_dtype,
+                            prop_dist))
                 summary["rdkit"].append(None if rdkit_tuple is None else rdkit_tuple[0])
                 summary["sample_sizes"].append(molecules["n_atoms"])
             nll_val = trainer_mod.evaluate_nll(

@@ -7,7 +7,13 @@ reference eval_conditional_qm9.py).
   the classifier against those targets (with ``--cfg_scale`` guidance,
   ``--clip_z`` and ``--nodes_from_data`` sizes);
 - ``qm9``: the classifier on the train split's real molecules;
-- ``naive``: the same with the labels shuffled.
+- ``naive``: the same with the labels shuffled;
+- ``qualitative``: the property swept over its range at 19 atoms with the
+  noise held fixed (``train.sampling.sample_sweep_conditional``), sampled on
+  the device, written as a chain of xyz frames to
+  ``<generators_path>/sweep_<property>`` and rendered to a GIF there; it
+  needs matplotlib and imageio, and exits naming the one missing at
+  argument checking.
 
 The normalizers and distributions follow the second-half protocol
 (``train.conditioning.load_conditional_protocol``). The generator loads
@@ -51,13 +57,31 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def write_sweep(model, seed: int, dataset_info, prop_dist, sweep_dir: str, **kw) -> str:
+    """The qualitative task's frames (``sample_sweep_conditional``, noise
+    from ``seed``; ``kw`` goes to it) written as xyz files ``chain_<i>.txt``
+    to ``sweep_dir`` -> ``sweep_dir``. Each frame holds the sweep's real
+    atoms only, as the reference writes them with the node mask (JAX's CLI
+    writes the padding too: ROADMAP §3)."""
+    from geoldm_tpu_torch.evalsuite import visualizer as viz
+    from geoldm_tpu_torch.train import sampling as sampling_mod
+
+    one_hot, charges, x, node_mask = sampling_mod.sample_sweep_conditional(
+        model, seed, dataset_info, prop_dist, **kw)
+    n = int(node_mask[0].sum())  # every frame has the sweep's n_nodes atoms, padded after them
+    viz.save_chain(sweep_dir, one_hot[:, :n].cpu().numpy(), charges[:, :n].cpu().numpy(),
+                   x[:, :n].cpu().numpy(), dataset_info)
+    return sweep_dir
+
+
 def main(argv=None):
-    """The mean MAE over the scored batches (float)."""
+    """The mean MAE over the scored batches (float); for ``qualitative`` the
+    sweep GIF's path."""
     args = parse_args(argv)
+    from geoldm_tpu_torch.evalsuite import visualizer as viz
+
     if args.task == "qualitative":
-        raise SystemExit("--task qualitative is not ported yet.\n"
-                         "It renders a property sweep, and geoldm_tpu_torch has no renderer; "
-                         "train.sampling.sample_sweep_conditional samples the sweep.")
+        viz.require_renderer("--task qualitative")
     import numpy as np
     import torch
 
@@ -112,6 +136,14 @@ def main(argv=None):
                   flush=True)
             if args.debug_break:
                 break
+    elif args.task == "qualitative":
+        model, _, _ = load_reference_checkpoint(checkpoint_dir(args.generators_path, "best"),
+                                                device)
+        sweep_dir = write_sweep(model, args.seed, info, prop_dist,
+                                f"{args.generators_path}/sweep_{prop}")
+        gif = viz.visualize_chain(sweep_dir, info)
+        print(f"sweep gif: {gif}", flush=True)
+        return gif
     else:
         loader = QM9Loader(splits["train"], args.batch_size, info.max_n_nodes, shuffle=True,
                            properties=(prop,), seed=args.seed)

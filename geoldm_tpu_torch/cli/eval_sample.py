@@ -16,9 +16,11 @@ directory whose ``best/`` is one; ``--outdir`` defaults to
 sampled in float32, as the JAX CLI samples them; the molecule set and the
 stable set take the few-step settings, chains always run the dense sampler.
 Try k of a chain and call k of the sets draw from generators seeded from
-(``--seed``, k). Rendering the files
-(``--render``: the JAX CLI's matplotlib/imageio pictures and chain GIFs,
-``evalsuite/visualizer.py``) is not ported yet. ``--device cpu`` runs the
+(``--seed``, k). ``--render True`` draws the files as the JAX CLI does
+(``evalsuite.visualizer``): a PNG beside each molecule's file and a GIF per
+chain, its frames three consecutive states overlaid (``--chain_uncertainty``,
+the default) or one state each; it needs matplotlib and imageio and exits
+naming the one missing at argument checking. ``--device cpu`` runs the
 plain PyTorch path on the CPU.
 """
 
@@ -47,47 +49,26 @@ def parse_args(argv=None):
     p.add_argument("--eta", type=float, default=1.0)
     p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "dpm2m"])
     p.add_argument("--render", type=eval, default=False,
-                   help="render pictures and chain GIFs (not ported yet)")
+                   help="render a PNG per molecule and a GIF per chain (needs matplotlib and "
+                        "imageio)")
+    p.add_argument("--chain_uncertainty", type=eval, default=True,
+                   help="render chain GIFs as 3-frame alpha overlays like the reference's "
+                        "eval_sample (False: plain frames)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu, which runs the plain PyTorch path")
     return p.parse_args(argv)
 
 
-def save_xyz_file(path: str, one_hot, charges, positions, dataset_info, id_from: int = 0,
-                  name: str = "molecule", node_mask=None) -> list:
-    """One xyz-style .txt per molecule, 'N\\n\\n' then 'El x y z' lines
-    (``evalsuite/visualizer.py:save_xyz_file``, reference
-    qm9/visualizer.py:18-38) -> the file names."""
-    import numpy as np
-
-    os.makedirs(path, exist_ok=True)
-    one_hot, positions = np.asarray(one_hot), np.asarray(positions)
-    atomsxmol = (np.asarray(node_mask).reshape(len(one_hot), -1).sum(axis=1)
-                 if node_mask is not None else [one_hot.shape[1]] * len(one_hot))
-    decoder = dataset_info["atom_decoder"]
-    files = []
-    for i in range(len(one_hot)):
-        fname = os.path.join(path, f"{name}_{i + id_from:03d}.txt")
-        n = int(atomsxmol[i])
-        types = np.argmax(one_hot[i], axis=1)
-        with open(fname, "w") as f:
-            f.write(f"{n}\n\n")
-            for a in range(n):
-                x, y, z = positions[i, a]
-                f.write(f"{decoder[int(types[a])]} {x:.9f} {y:.9f} {z:.9f}\n")
-        files.append(fname)
-    return files
-
-
 def main(argv=None) -> dict:
     """Sample and write; returns {"molecules": n, "stable": found, "chains":
-    [frames per chain], "outdir": ...}."""
+    [frames per chain], "outdir": ..., "sample_calls": sampler calls of the
+    two sets, "rendered": {"pngs": n, "gifs": [...]}}."""
     args = parse_args(argv)
-    if args.render:
-        from geoldm_tpu_torch.cli.common import _not_ported
+    from geoldm_tpu_torch.evalsuite import visualizer as viz
 
-        _not_ported("--render")
+    if args.render:
+        viz.require_renderer("--render")
     import numpy as np
 
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info
@@ -119,7 +100,7 @@ def main(argv=None) -> dict:
     # (a) the molecule set.
     one_hot, charges, x, node_mask = generate(args.n_samples)
     grid_dir = os.path.join(outdir, "molecules")
-    save_xyz_file(grid_dir, one_hot, charges, x, dataset_info, node_mask=node_mask)
+    viz.save_xyz_file(grid_dir, one_hot, charges, x, dataset_info, node_mask=node_mask)
     np.savez(os.path.join(grid_dir, "molecules.npz"), one_hot=one_hot, charges=charges, x=x,
              node_mask=node_mask)
     print(f"saved {args.n_samples} molecules to {grid_dir}")
@@ -134,8 +115,8 @@ def main(argv=None) -> dict:
         for i in range(len(x)):
             n = int(node_mask[i, :, 0].sum())
             if check_stability(x[i, :n], np.argmax(one_hot[i, :n], axis=1), dataset_info)[0]:
-                save_xyz_file(stable_dir, one_hot[i:i + 1], charges[i:i + 1], x[i:i + 1],
-                              dataset_info, id_from=found, node_mask=node_mask[i:i + 1])
+                viz.save_xyz_file(stable_dir, one_hot[i:i + 1], charges[i:i + 1], x[i:i + 1],
+                                  dataset_info, id_from=found, node_mask=node_mask[i:i + 1])
                 kept.append((one_hot[i], charges[i], x[i], node_mask[i]))
                 found += 1
                 if found >= args.n_stable:
@@ -153,14 +134,29 @@ def main(argv=None) -> dict:
             model, args.seed * 1000 + c, dataset_info, n_tries=args.n_tries,
             keep_frames=args.keep_frames)
         chain_dir = os.path.join(outdir, f"chain_{c}")
-        for i in range(len(chain_x)):
-            save_xyz_file(chain_dir, chain_oh[i:i + 1], chain_ch[i:i + 1], chain_x[i:i + 1],
-                          dataset_info, id_from=i, name="chain")
+        viz.save_chain(chain_dir, chain_oh, chain_ch, chain_x, dataset_info)
         np.savez(os.path.join(chain_dir, "chain.npz"), one_hot=chain_oh, charges=chain_ch,
                  x=chain_x)
         chains.append(len(chain_x))
         print(f"saved a chain of {len(chain_x)} frames to {chain_dir}")
-    return {"molecules": args.n_samples, "stable": found, "chains": chains, "outdir": outdir}
+    rendered = {"pngs": 0, "gifs": []}
+    if args.render:  # on the host, from the files written above
+        rendered["pngs"] += len(viz.visualize(grid_dir, dataset_info, max_num=args.n_samples))
+        if found:
+            rendered["pngs"] += len(viz.visualize(stable_dir, dataset_info,
+                                                  max_num=args.n_stable))
+        for c in range(args.n_chains):
+            chain_dir = os.path.join(outdir, f"chain_{c}")
+            # The reference's eval_sample draws chains as 3-frame alpha
+            # overlays: sampling uncertainty shows as ghosting.
+            render_chain = (viz.visualize_chain_uncertainty if args.chain_uncertainty
+                            else viz.visualize_chain)
+            rendered["gifs"].append(render_chain(chain_dir, dataset_info))
+            print(f"chain gif: {rendered['gifs'][-1]}")
+        print(f"rendered {rendered['pngs']} molecule pictures and {len(rendered['gifs'])} "
+              "chain GIFs")
+    return {"molecules": args.n_samples, "stable": found, "chains": chains, "outdir": outdir,
+            "sample_calls": next(calls), "rendered": rendered}
 
 
 if __name__ == "__main__":

@@ -36,18 +36,32 @@ the last 10 % of the steps and the final step in f32. ``n_steps`` selects
 the few-step sampler (null or 0: the dense T steps); a request's value is
 snapped to a fixed ladder (``_NSTEPS_LADDER``, T always a rung; ties snap
 down) unless it is the server's own ``--n_steps``. ``clip_z`` is quantised
-to 0.25. Device calls are serialised with a lock; request handling is
-threaded so /health and /metrics answer during generation. (JAX's
-coalescing of concurrent unseeded requests and its warm-up pass are not
-ported: every request is its own dispatch.)
+to 0.25. Device calls are serialised with a lock, each under the server's
+device (``--device cuda:1`` works from any thread); request handling is
+threaded so /health and /metrics answer during generation.
+
+Before it listens the server warms up (``warmup``; ``--no_warmup`` skips
+it): it builds and loads the kernel libraries, then makes one few-step
+dispatch of ``--batch_max`` molecules in every bucket (1 step; 6 under
+``bfloat16_mixed``, so its f32 tail runs too), which launches each kernel
+route a request can reach and sizes the caching allocator for the largest
+chunk, so the first request pays neither. Concurrent unseeded
+requests are coalesced (``_Coalescer``, as JAX's server): while a dispatch
+runs, new ones queue, and the worker merges every queued request with the
+same sampler settings into one dispatch. A request served alone echoes its
+seed, which replays it; a merged one answers ``"seed": null`` and
+``"coalesced": k``. Seeded requests always run alone. ``dispatches`` in
+/metrics counts device dispatches.
 
 Usage: python -m geoldm_tpu_torch.cli.serve --model_path <checkpoint dir>
            [--dataset qm9|geom] [--port 8000] [--device cuda] [--n_steps 50]
+           [--no_warmup]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import threading
@@ -98,9 +112,81 @@ def parse_args(argv=None):
     p.add_argument("--cfg_scale", type=float, default=1.0,
                    help="default classifier-free guidance scale for conditional requests")
     p.add_argument("--use_ema", type=eval, default=True)
+    p.add_argument("--no_warmup", action="store_true",
+                   help="skip the start-up warm-up (the first request then builds the kernel "
+                        "libraries)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
+
+
+class _Coalescer:
+    """Request batching for unseeded requests (``geoldm_tpu/cli/serve.py:86-166``).
+
+    While the device runs one dispatch, arriving requests queue; the worker
+    then merges every queued request whose sampler settings equal the first
+    one's into one ``sample_bucketed`` dispatch and slices the outputs back
+    per request, in order. No wait is added: an idle server dispatches at
+    once, and a group of one runs exactly as the unbatched path (its seed
+    replays it). A failed dispatch raises in every request of its group."""
+
+    def __init__(self, service):
+        self._service = service
+        self._cond = threading.Condition()
+        self._pending = []
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="geoldm-serve-batcher")
+        self._thread.start()
+
+    def submit(self, sizes, ctx, seed, settings):
+        """Block until the dispatch holding this request is done -> ((one_hot,
+        charges, x, node_mask) of its molecules, the dispatch's seed, the
+        group's size). Raises the dispatch's exception if it failed."""
+        item = {"sizes": sizes, "ctx": ctx, "seed": seed, "settings": settings,
+                "event": threading.Event(), "result": None, "error": None,
+                "dispatch_seed": None, "group": 0}
+        with self._cond:
+            self._pending.append(item)
+            self._cond.notify()
+        item["event"].wait()
+        if item["error"] is not None:
+            raise item["error"]
+        return item["result"], item["dispatch_seed"], item["group"]
+
+    def _run(self):
+        while True:
+            with self._cond:
+                while not self._pending:
+                    self._cond.wait()
+                settings = self._pending[0]["settings"]
+                group = [it for it in self._pending if it["settings"] == settings]
+                self._pending = [it for it in self._pending if it["settings"] != settings]
+            # The whole group body is guarded: an exception escaping this
+            # worker would kill the only batcher thread and hang every
+            # unseeded request; errors reach each request of the group.
+            try:
+                seed = group[0]["seed"]  # a group of one: the unbatched path
+                sizes = np.concatenate([it["sizes"] for it in group])
+                ctx = (np.concatenate([it["ctx"] for it in group])
+                       if group[0]["ctx"] is not None else None)
+                n_steps, eta, method, clip_z, cfg_scale = settings
+                out = self._service._generate(sizes, seed, n_steps, eta, method, clip_z, ctx,
+                                              cfg_scale)
+                with self._service.metrics_lock:
+                    self._service.dispatches += 1
+                lo = 0
+                for it in group:
+                    hi = lo + len(it["sizes"])
+                    it["result"] = tuple(a[lo:hi] for a in out)
+                    it["dispatch_seed"] = seed
+                    it["group"] = len(group)
+                    lo = hi
+            except Exception as e:  # noqa: BLE001 — delivered to each request
+                for it in group:
+                    it["error"] = e
+            finally:
+                for it in group:
+                    it["event"].set()
 
 
 class SamplerService:
@@ -158,9 +244,53 @@ class SamplerService:
         self._auto_seed_base = args.seed + int.from_bytes(os.urandom(6), "little")
         self.latencies = []
         self.started = time.time()
+        self.warmup_seconds = None
+        self._coalescer = _Coalescer(self)
+
+    def warmup_steps(self) -> int:
+        """The warm-up's jump count: 1, or under a compute dtype with an f32
+        tail (``bfloat16_mixed``) the fewest steps whose tail is not empty (6:
+        round(0.1 * 6) = 1), so that the bf16 and the f32 variants both
+        launch; at most the checkpoint's T."""
+        from geoldm_tpu_torch.diffusion.vdm import mixed_tail_steps
+        from geoldm_tpu_torch.nn.core import resolve_compute
+
+        if not resolve_compute(self.args.compute_dtype).mixed_tail:
+            return 1
+        return next((k for k in range(1, self.timesteps + 1)
+                     if mixed_tail_steps(self.args.compute_dtype, k) > 0), self.timesteps)
+
+    def warmup(self) -> float:
+        """Build and load the kernel libraries, then make one dispatch of
+        ``--batch_max`` molecules in every bucket at seed 0 -> its seconds.
+        This launches every kernel route a request can reach (#1 at pads up
+        to 64, #3/#4 past them, each in the variants the compute dtype runs:
+        ``warmup_steps`` jumps) and sizes the caching allocator for the
+        largest chunk. JAX's server warms at its own ``n_steps``, because
+        each setting compiles a program there; the port compiles nothing per
+        setting, so a few steps do. No counter moves."""
+        t0 = time.time()
+        if self.device.type == "cuda":
+            from geoldm_tpu_torch.ops import cuda_build
+
+            cuda_build.build()
+        sizes = np.concatenate([np.full(self.args.batch_max, min(b, self.max_request_size))
+                                for b in self.buckets])
+        ctx = (self.prop_dist.sample_batch(sizes, np.random.default_rng(0))
+               if self.prop_dist is not None else None)
+        self._generate(sizes, 0, self.warmup_steps(), self.args.eta, self.args.sampler,
+                       self.args.clip_z, ctx, self.args.cfg_scale)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.warmup_seconds = time.time() - t0
+        return self.warmup_seconds
 
     def _generate(self, sizes, seed, n_steps, eta, method, clip_z, context=None, cfg_scale=1.0):
-        with self.device_lock:
+        # A request's thread (or the coalescer's) starts on device 0: run on
+        # the server's own.
+        on_device = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                     else contextlib.nullcontext())
+        with self.device_lock, on_device:
             return self._sampling.sample_bucketed(
                 self.model, seed, self.dataset_info, np.asarray(sizes, dtype=np.int64),
                 batch_size=self.args.batch_max, buckets=self.buckets, n_steps=n_steps, eta=eta,
@@ -273,10 +403,16 @@ class SamplerService:
             sizes = self.nodes_dist.sample(n, np.random.default_rng(seed))
 
         context, props_used = self.request_context(body, sizes, seed)
-        one_hot, _, x, node_mask = self._generate(sizes, seed, n_steps, eta, method, clip_z,
-                                                  context, cfg_scale)
-        with self.metrics_lock:
-            self.dispatches += 1
+        group = 1
+        if "seed" in body:
+            # An explicit seed is the exact-replay contract: it runs alone.
+            one_hot, _, x, node_mask = self._generate(sizes, seed, n_steps, eta, method, clip_z,
+                                                      context, cfg_scale)
+            with self.metrics_lock:
+                self.dispatches += 1
+        else:
+            (one_hot, _, x, node_mask), seed, group = self._coalescer.submit(
+                sizes, context, seed, (n_steps, eta, method, clip_z, cfg_scale))
 
         decoder = self.dataset_info["atom_decoder"]
         fmt = body.get("format", "json")
@@ -307,8 +443,12 @@ class SamplerService:
             "sampler": {"n_steps": n_steps, "eta": eta, "method": method, "clip_z": clip_z,
                         "compute_dtype": self.args.compute_dtype,
                         "protocol": "dense-T" if n_steps is None else f"fewstep-{n_steps}"},
-            "seed": seed,
+            # A merged group's seed reproduces no single member's molecules
+            # (the batch differs on replay): only a request served alone
+            # echoes a replayable seed.
+            "seed": seed if group == 1 else None,
             "seconds": round(elapsed, 4),
+            **({"coalesced": group} if group > 1 else {}),
             **({"properties": props_used, "cfg_scale": cfg_scale}
                if self.prop_dist is not None else {}),
         }
@@ -390,6 +530,9 @@ def main(argv=None, *, serve_forever: bool = True):
 
     args = parse_args(argv)
     service = SamplerService(args)
+    if not args.no_warmup:
+        dt = service.warmup()
+        print(f"warmed up {len(service.buckets)} buckets in {dt:.1f}s", flush=True)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
     print(f"serving {args.model_path} on http://{args.host}:{server.server_address[1]} "
           f"(buckets {service.buckets}, device {service.health()['device']})")

@@ -1,6 +1,11 @@
-"""GEOM-Drugs conformers: fixed splits and size-bucketed static-shape
-batches (port of ``geoldm_tpu/data/geom.py:82-260``).
+"""GEOM-Drugs conformers: extraction, fixed splits and size-bucketed
+static-shape batches (port of ``geoldm_tpu/data/geom.py``).
 
+- ``extract_conformers``: unpack the crude msgpack dump, keep each
+  molecule's K lowest-energy conformers, optionally drop hydrogens, and
+  save one [total_atoms, 5] array of (mol_id, atomic number, x, y, z) rows
+  with the SMILES and the atom counts (reference build_geom_dataset.py:10-65);
+  ``data.native_geom`` does the same in C++ without holding the dump.
 - ``load_split_data``: split the ``geom_drugs_{tag}.npy`` rows (mol_id,
   atomic number, x, y, z) at mol_id boundaries, optionally drop molecules
   above a size, apply the fixed permutation ``geom_permutation.npy``, then
@@ -11,10 +16,9 @@ batches (port of ``geoldm_tpu/data/geom.py:82-260``).
   order.
 - ``split_dict``: a split stacked into the QM9 split-dict layout.
 
-There is no extraction here: ``geom_drugs_{tag}.npy`` must be on disk
-(the JAX package's ``extract_conformers`` writes it from the crude msgpack;
+``cli.build_geom_dataset`` writes ``geom_drugs_{tag}.npy`` from the dump;
 ``data.synthetic.write_geom_conformers`` fabricates one for tests and smoke
-runs). GEOM molecules carry no charge column: h_int is zeros.
+runs. GEOM molecules carry no charge column: h_int is zeros.
 """
 
 from __future__ import annotations
@@ -28,6 +32,48 @@ from geoldm_tpu_torch.data.collate import build_masks
 from geoldm_tpu_torch.utils.buckets import covering_buckets
 
 DEFAULT_BUCKETS = (32, 48, 64, 80, 104, 128, 184)
+
+
+def conformer_files(data_dir: str, conformations: int, remove_h: bool) -> Tuple[str, str, str]:
+    """(rows .npy, atom counts .npy, SMILES .txt) an extraction writes."""
+    tag = f"{'no_h_' if remove_h else ''}{conformations}"
+    return (os.path.join(data_dir, f"geom_drugs_{tag}.npy"),
+            os.path.join(data_dir, f"geom_drugs_n_{tag}.npy"),
+            os.path.join(data_dir, "geom_drugs_smiles.txt"))
+
+
+def extract_conformers(data_dir: str, data_file: str = "drugs_crude.msgpack",
+                       conformations: int = 30, remove_h: bool = False) -> str:
+    """msgpack -> geom_drugs_[no_h_]{K}.npy (+ SMILES, atom counts); returns
+    the .npy path."""
+    import msgpack
+
+    save_file, counts_file, smiles_file = conformer_files(data_dir, conformations, remove_h)
+    all_smiles: List[str] = []
+    all_counts: List[int] = []
+    rows: List[np.ndarray] = []
+    mol_id = 0
+    with open(os.path.join(data_dir, data_file), "rb") as f:
+        for drugs_1k in msgpack.Unpacker(f):
+            for smiles, info in drugs_1k.items():
+                all_smiles.append(smiles)
+                conformers = info["conformers"]
+                energies = np.array([c["totalenergy"] for c in conformers])
+                # A stable sort: ties keep their order, as the C++ extractor's
+                # std::stable_sort does, so both write the same bytes.
+                for idx in np.argsort(energies, kind="stable")[:conformations]:
+                    coords = np.array(conformers[idx]["xyz"], dtype=float)  # n x 4
+                    if remove_h:
+                        coords = coords[coords[:, 0] != 1.0]
+                    n = coords.shape[0]
+                    all_counts.append(n)
+                    rows.append(np.hstack([np.full((n, 1), mol_id, dtype=float), coords]))
+                    mol_id += 1
+    np.save(save_file, np.vstack(rows))
+    with open(smiles_file, "w") as f:
+        f.write("\n".join(all_smiles) + "\n")
+    np.save(counts_file, np.array(all_counts))
+    return save_file
 
 
 def load_split_data(conformation_file: str, val_proportion: float = 0.1,

@@ -126,3 +126,103 @@ def write_geom_conformers(datadir: str, info, n_molecules: int, seed: int = 0,
     np.save(path, np.vstack(rows))
     np.save(os.path.join(datadir, "geom_permutation.npy"), np.arange(n_molecules))
     return path
+
+
+def packb(obj) -> bytes:
+    """``obj`` in msgpack, byte for byte what ``msgpack.packb`` (use_bin_type,
+    float64) writes, for the types a GEOM crude dump holds: dict, list /
+    tuple, str, bytes, int, float, bool and None. Lets a host without the
+    msgpack package write a dump for ``cli.build_geom_dataset``."""
+    import struct
+
+    out = bytearray()
+
+    def length(n, fix_base, fix_max, codes):
+        if n <= fix_max:
+            out.append(fix_base | n)
+            return
+        for code, fmt, top in codes:
+            if n <= top:
+                out.append(code)
+                out.extend(struct.pack(fmt, n))
+                return
+        raise ValueError(f"length {n} is too long for msgpack")
+
+    def enc(o):
+        if o is None:
+            out.append(0xC0)
+        elif isinstance(o, bool):
+            out.append(0xC3 if o else 0xC2)
+        elif isinstance(o, int):
+            if 0 <= o < 0x80 or -32 <= o < 0:
+                out.extend(struct.pack(">b" if o < 0 else ">B", o))
+                return
+            table = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+                     (0xCF, ">Q", 0, 2**64 - 1)) if o > 0 else (
+                (0xD0, ">b", -2**7, 0), (0xD1, ">h", -2**15, 0), (0xD2, ">i", -2**31, 0),
+                (0xD3, ">q", -2**63, 0))
+            for code, fmt, lo, hi in table:
+                if lo <= o <= hi:
+                    out.append(code)
+                    out.extend(struct.pack(fmt, o))
+                    return
+            raise ValueError(f"integer {o} does not fit msgpack's 64 bits")
+        elif isinstance(o, float):
+            out.append(0xCB)
+            out.extend(struct.pack(">d", o))
+        elif isinstance(o, str):
+            b = o.encode("utf-8")
+            length(len(b), 0xA0, 31, ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF),
+                                      (0xDB, ">I", 0xFFFFFFFF)))
+            out.extend(b)
+        elif isinstance(o, (bytes, bytearray)):
+            length(len(o), 0xC4, -1, ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                                      (0xC6, ">I", 0xFFFFFFFF)))
+            out.extend(o)
+        elif isinstance(o, (list, tuple)):
+            length(len(o), 0x90, 15, ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF)))
+            for v in o:
+                enc(v)
+        elif isinstance(o, dict):
+            length(len(o), 0x80, 15, ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF)))
+            for k, v in o.items():
+                enc(k)
+                enc(v)
+        else:
+            raise TypeError(f"cannot pack {type(o).__name__}")
+
+    enc(obj)
+    return bytes(out)
+
+
+def write_geom_msgpack(datadir: str, info, n_smiles: int, conformers: int = 4, seed: int = 0,
+                       sizes=(), chunk: int = 1000, data_file: str = "drugs_crude.msgpack"
+                       ) -> str:
+    """Write a crude GEOM-Drugs dump in the format ``cli.build_geom_dataset``
+    reads: chunks of up to ``chunk`` molecules, ``{smiles: {"conformers":
+    [{"totalenergy": e, "xyz": [[Z, x, y, z], ...]}, ...]}}`` -> its path.
+    Molecule i has ``conformers`` conformers of ``sizes[i]`` atoms (default:
+    drawn from the dataset's size histogram), atom types from its type
+    marginals (hydrogens included), coordinates Gaussians at bond-length
+    scale and random energies."""
+    rng = np.random.default_rng(seed)
+    if len(sizes) == 0:
+        hist = np.array(info.n_nodes_histogram, dtype=np.float64)
+        sizes = rng.choice(hist[:, 0].astype(int), size=n_smiles, p=hist[:, 1] / hist[:, 1].sum())
+    type_counts = np.asarray(info.atom_type_counts, dtype=np.float64)
+    z = atomic_numbers(info)
+    os.makedirs(datadir, exist_ok=True)
+    path = os.path.join(datadir, data_file)
+    with open(path, "wb") as f:
+        for start in range(0, n_smiles, chunk):
+            block = {}
+            for i in range(start, min(start + chunk, n_smiles)):
+                n = int(sizes[i])
+                types = rng.choice(len(type_counts), size=n, p=type_counts / type_counts.sum())
+                block[f"C{i}N"] = {"conformers": [
+                    {"totalenergy": float(rng.standard_normal()),
+                     "xyz": [[int(z[t])] + [float(v) for v in rng.standard_normal(3) * 1.7]
+                             for t in types]}
+                    for _ in range(conformers)]}
+            f.write(packb(block))
+    return path

@@ -188,28 +188,37 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
 
 
 def sample_chain(model, seed: int, dataset_info, n_tries: int = 1, keep_frames: int = 100,
-                 compute_dtype=None):
+                 compute_dtype=None, prop_dist=None, rng: Optional[np.random.Generator] = None):
     """A visualization chain of one molecule (19 atoms for QM9, 44 for
     GEOM), retried until its final molecule is stable, at most ``n_tries``
     times (sampling.py:296-361, reference qm9/sampling.py:54-107). Try i
-    draws from ``chunk_generator(seed, i)``. Returns numpy (one_hot [F, N, S],
-    charges [F, N, 1], x [F, N, 3]), noise first, the final frame repeated
-    10 times at the end (F = keep_frames + 10)."""
+    draws from ``chunk_generator(seed, i)``. A conditional model's context is
+    one row drawn from ``prop_dist`` with ``rng`` for the chain's size, as
+    JAX draws it. Returns numpy (one_hot [F, N, S], charges [F, N, 1], x
+    [F, N, 3]), noise first, the final frame repeated 10 times at the end (F
+    = keep_frames + 10)."""
     n_nodes = 19 if "qm9" in dataset_info["name"] else 44
     num_classes = len(dataset_info["atom_decoder"])
     node_mask_np, _ = build_masks(np.array([n_nodes]), n_nodes)
     device = _model_device(model)
     node_mask = torch.from_numpy(node_mask_np).to(device)
+    context = None
+    if prop_dist is not None:
+        row = prop_dist.sample(n_nodes, rng)  # [P]
+        ctx = append_indicator_if_needed(
+            model.cfg, np.broadcast_to(row[None, None, :], (1, n_nodes, len(row))).copy())
+        context = torch.from_numpy(np.ascontiguousarray(ctx, dtype=np.float32)).to(device)
     for i in range(n_tries):
         noise = chunk_generator(seed, i, device)
         if model.cfg.kind == "latent_diffusion":
-            chain = ldm_mod.ldm_sample_chain(model, noise, node_mask, keep_frames, compute_dtype)
+            chain = ldm_mod.ldm_sample_chain(model, noise, node_mask, keep_frames, compute_dtype,
+                                             context=context)
         else:  # the plain kind's frames are unnormalised (sampling.py:331-339)
             with torch.no_grad():
                 _, chain = vdm_mod.vdm_sample(model.dynamics, model.cfg.diffusion, noise,
                                               node_mask, compute_dtype=compute_dtype,
-                                              keep_frames=keep_frames, latent_space=False,
-                                              gamma=model.gamma)
+                                              keep_frames=keep_frames, context=context,
+                                              latent_space=False, gamma=model.gamma)
         chain = chain.cpu().numpy()[::-1, 0]  # noise -> sample; drop the batch
         chain = np.concatenate([chain, np.repeat(chain[-1:], 10, axis=0)], axis=0)
         final = chain[-1]

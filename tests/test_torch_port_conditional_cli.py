@@ -300,6 +300,40 @@ def test_eval_conditional_qm9_matches_jax(splits_dir, eval_checkpoints, task, rt
     np.testing.assert_allclose(got, want, rtol=rtol)
 
 
-def test_qualitative_task_is_not_ported():
-    with pytest.raises(SystemExit, match="--task qualitative is not ported yet"):
+def test_qualitative_task_is_not_ported(monkeypatch):
+    """--task qualitative is ported (``test_qualitative_sweep_is_written_and_rendered``);
+    where matplotlib is missing it exits at argument checking, naming it."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(SystemExit, match="--task qualitative renders with matplotlib and "
+                                         "imageio; this Python lacks matplotlib"):
         eval_conditional_qm9.main(["--task", "qualitative"])
+
+
+def test_qualitative_sweep_is_written_and_rendered(splits_dir, eval_checkpoints, monkeypatch):
+    """The property sweep at 19 atoms (noise fixed), written as one xyz
+    frame per value under <generators_path>/sweep_alpha and rendered to a GIF
+    (5 frames instead of 100 keep the CPU render short)."""
+    import functools
+
+    import imageio
+
+    from geoldm_tpu_torch.evalsuite.visualizer import load_molecule_xyz
+
+    root = eval_checkpoints
+    monkeypatch.setattr(psampling, "sample_sweep_conditional",
+                        functools.partial(psampling.sample_sweep_conditional, n_frames=5))
+    gif = eval_conditional_qm9.main(["--task", "qualitative", "--property", "alpha",
+                                     "--datadir", splits_dir, "--generators_path",
+                                     str(root / "pgen"), "--classifiers_path",
+                                     str(root / "pcls"), "--classifier_nf", "16",
+                                     "--classifier_layers", "2", "--device", "cpu"])
+    sweep = root / "pgen" / "sweep_alpha"
+    assert gif == str(sweep / "output.gif")
+    frames = sorted(f for f in os.listdir(sweep) if f.endswith(".txt"))
+    assert frames == [f"chain_{i:03d}.txt" for i in range(5)]
+    for f in frames:
+        pos, one_hot = load_molecule_xyz(str(sweep / f), INFO)
+        assert pos.shape == (19, 3) and np.isfinite(pos).all() and (one_hot.sum(1) == 1).all()
+    assert 1 <= len(imageio.mimread(gif)) <= 5

@@ -116,14 +116,26 @@ def test_main_qm9_trains_the_vae_by_default(datadir, tmp_path):
     ["--compute_dtype", "bfloat16_mixed"], ["--model", "gnn_dynamics"],
     ["--conditioning", "alpha", "homo", "--dp", "4", "--batch_size", "3"],
 ])
-def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path):
+def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path, monkeypatch):
     """Each flag outside the slice exits with the two-line message. The
     compute dtypes are JAX's training choices: ``bfloat16`` trains (a bf16
     run starts and its losses are finite), ``bfloat16_full`` and
     ``bfloat16_mixed`` are sampling modes that argparse refuses (exit 2), as
     JAX's ``choices`` do. ``--model gnn_dynamics`` is in the slice since the
     model variants were ported: it trains (tests/test_torch_port_variants_cli.py
-    holds it further)."""
+    holds it further). ``--visualize True`` is in the slice since the
+    renderer was ported: it is refused only where matplotlib or imageio is
+    missing, at argument checking, naming the package
+    (tests/test_torch_port_render.py runs it)."""
+    if flags == ["--visualize", "True"]:
+        import sys
+
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(SystemExit) as e:
+            main_qm9.main(["--datadir", str(tmp_path), "--device", "cpu", *flags])
+        assert str(e.value.code) == ("--visualize renders with matplotlib and imageio; this "
+                                     "Python lacks matplotlib")
+        return
     if flags[:2] == ["--model", "gnn_dynamics"]:
         summary = main_qm9.main(["--datadir", datadir, "--outdir", str(tmp_path), "--device",
                                  "cpu", "--n_epochs", "1", "--batch_size", "12", "--nf", "16",

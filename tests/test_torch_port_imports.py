@@ -52,7 +52,8 @@ def test_every_module_is_a_port_module():
                  "evalsuite.native", "evalsuite.analyze", "cli.eval_analyze", "cli.check_data",
                  "nn.core", "cli.eval_sample", "train.conditioning", "models.classifier",
                  "train.classifier_train", "cli.main_qm9_prop", "cli.eval_conditional_qm9",
-                 "nn.egnn_legacy", "diffusion.priors"):
+                 "nn.egnn_legacy", "diffusion.priors", "evalsuite.visualizer", "data.md17",
+                 "data.native_geom", "cli.build_geom_dataset", "utils.flops", "cli.bench_train"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 

@@ -368,8 +368,15 @@ def test_eval_sample_writes_sets_and_chains(run_dir, tmp_path):
     assert chain["x"].shape == (16, 19, 3) and summary["chains"] == [16]
     assert len([f for f in os.listdir(os.path.join(out, "chain_0")) if f.endswith(".txt")]) == 16
     assert 0 <= summary["stable"] <= 2
-    with pytest.raises(SystemExit, match="--render is not ported yet"):
-        eval_sample.main(["--model_path", run_dir, "--render", "True", "--device", "cpu"])
+    # --render is ported (tests/test_torch_port_render.py); without imageio
+    # it exits at argument checking, naming it.
+    import sys
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "imageio", None)
+        with pytest.raises(SystemExit, match="--render renders with matplotlib and imageio; "
+                                             "this Python lacks imageio"):
+            eval_sample.main(["--model_path", run_dir, "--render", "True", "--device", "cpu"])
 
 
 def test_training_eval_n_steps_samples_few_step(tmp_path, monkeypatch):
