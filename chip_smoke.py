@@ -235,7 +235,21 @@ Phases (each prints a line; any failure exits non-zero before the result):
      extracted by cli.build_geom_dataset with the native C++ extractor
      (asserted; the Python extractor's rows equal where msgpack imports),
      loaded by data.geom, and one GEOM recipe train step (B=32, pad 64) on it
-     with exact launches.
+     with exact launches;
+ 38. the low-precision edge chain (GEOLDM_PALLAS_EDGE_LOWP=1 under
+     bfloat16_pallas): (a) the low-precision #1/#2 against their plain
+     versions at QM9's pads 16/24/29/32 (B=64, H=256) and H=192 N=29, the
+     saving forward and #2 from its saved chain, its recompute and a replay
+     bit-identical; (b) their CUDA-event times and the bf16 #1/#2's in turns;
+     (c) cli.main_qm9 at the QM9 recipe under bfloat16_pallas with the
+     variable: only the low-precision kernels, 19 and 18 a step, and the
+     step time with and without the variable in turns; (d) the same run
+     under bfloat16 with the variable: only the bf16 kernels;
+ 39. QM9 preparation on the card: raw GDB9 files fabricated (nothing
+     fetched), cli.main_qm9 --force_download --trace DIR
+     --visualize_every_batch 100 for one epoch: the splits rebuilt, and the
+     epoch's torch.profiler trace holding #1/#2's edge tile as GPU kernel
+     events.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -247,6 +261,7 @@ line is {"ok": true, "device": {...}}. Needs torch with CUDA and nvcc.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import faulthandler
 import json
@@ -435,9 +450,10 @@ def _ptxas_kernels(log):
         if m:
             mangled = m.group(1)
             name = next((k for k in _TILE_KERNELS if k in mangled), None)
-            t = re.search(r"ILi(\d+)ELb([01])E(?:Lb([01])E)?", mangled)
+            t = re.search(r"ILi(\d+)ELb([01])E(?:Lb([01])E)?(?:Lb([01])E)?", mangled)
             if name and t:
-                name += f"<HP={t.group(1)}, COORD={t.group(2)}, BF16={t.group(3) or 0}>"
+                name += (f"<HP={t.group(1)}, COORD={t.group(2)}, BF16={t.group(3) or 0}"
+                         f"{', LOWP=1' if t.group(4) == '1' else ''}>")
             out.append({"name": name})
             continue
         if not out:
@@ -2443,20 +2459,25 @@ def _bf16_sites():
     return torch_port_bf16_sites
 
 
-def _bf16_grads_check(what, names, got, want, want_f32, want_cot, step=False):
+def _bf16_grads_check(what, names, got, want, want_f32, want_cot, step=False, separation=None,
+                      lowp=False):
     """tests/torch_port_bf16_sites.py's bf16_grads_report at _BF16_RTOL
     (every tensor within the gate, weight gradients but for their one-step
     rounding flips, at most FLIP_SHARE of a tensor; on the mean over every
     element, each in units of its tensor's max(1, max|ref|), _BF16_SEPARATION
     times closer to the plain bf16 version than to the plain f32 one and to
     want_cot; ``step``: a whole train step, STEP_FLIP_SHARE and
-    _BF16_STEP_SEPARATION) or SmokeFailure -> the report (max_rel, worst,
-    the three means, flips, max_flip_share, worst_flip, max_abs)."""
+    _BF16_STEP_SEPARATION; ``separation`` another factor at FLIP_SHARE;
+    ``lowp``: the low-precision chain's rounded biases, LOWP_ROUNDED, counted
+    with the weights) or SmokeFailure -> the report (max_rel, worst, the
+    three means, flips, max_flip_share, worst_flip, max_abs)."""
     sites = _bf16_sites()
     _check(sites.SEPARATION == _BF16_SEPARATION, "the separation of the sites helper changed")
     r = sites.bf16_grads_report(names, got, want, want_f32, want_cot, _BF16_RTOL,
                                 *((sites.STEP_FLIP_SHARE, _BF16_STEP_SEPARATION) if step
-                                  else ()))
+                                  else (sites.FLIP_SHARE, separation) if separation
+                                  else ()),
+                                **({"rounded": sites.LOWP_ROUNDED} if lowp else {}))
     _check(not r["problems"], f"{what}: {'; '.join(r['problems'])}")
     return r
 
@@ -4114,9 +4135,9 @@ def phase_serve_warmup(card, tmpdir):
     seen = []
     real_launch = egnn_block._forward_launch
 
-    def spy(block, h, x, x0, node_mask, save, bf16=False):
+    def spy(block, h, x, x0, node_mask, save, bf16=False, lowp=False):
         seen.append((int(x.shape[1]), bool(bf16)))
-        return real_launch(block, h, x, x0, node_mask, save, bf16=bf16)
+        return real_launch(block, h, x, x0, node_mask, save, bf16=bf16, lowp=lowp)
 
     _zero_launch_counts()
     egnn_block._forward_launch = spy
@@ -4591,6 +4612,313 @@ def phase_geom_data(card, tmpdir):
             "extract_seconds": extract_s, "step_seconds": step_s, "launches": got}
 
 
+# Phase 38: the low-precision edge chain (GEOLDM_PALLAS_EDGE_LOWP=1 under
+# bfloat16_pallas). Its kernels are held to their plain versions at the bf16
+# gates (_BF16_RTOL; weight gradients but for their one-step flips), and on
+# the mean _BF16_SEPARATION (#1) or _LOWP_BWD_SEPARATION (#2) times closer to
+# them than to the plain bf16 versions without the chain. The chain adds
+# rounding sites but not distance: the bf16 backward's flips (one bf16 step
+# of a weight gradient, 20-25 % of a tensor, and of the biases the chain
+# rounds) count in the mean as before, while the plain versions with and
+# without the chain lie about as far apart as bf16 from f32. Readings on an
+# H100 at these shapes: #1 23-42x, #2 8.5-11x.
+_LOWP_ENV = "GEOLDM_PALLAS_EDGE_LOWP"
+_LOWP_BWD_SEPARATION = 5.0
+
+
+@contextlib.contextmanager
+def _lowp_env(on: bool):
+    """The switch set (or cleared) within the block, as it was after it."""
+    old = os.environ.get(_LOWP_ENV)
+    if on:
+        os.environ[_LOWP_ENV] = "1"
+    else:
+        os.environ.pop(_LOWP_ENV, None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(_LOWP_ENV, None)
+        else:
+            os.environ[_LOWP_ENV] = old
+
+
+def _in_turns(fns, inputs, **kw):
+    """CUDA-event ms of each of two functions, timed in turns a, b, b, a
+    (_time_ms each) -> (ms of a, ms of b), each the mean of its two turns."""
+    a, b = fns
+    ta = _time_ms(a, inputs, **kw)
+    tb = _time_ms(b, inputs, **kw)
+    tb2 = _time_ms(b, inputs, **kw)
+    ta2 = _time_ms(a, inputs, **kw)
+    return (ta + ta2) / 2, (tb + tb2) / 2
+
+
+def phase_lowp_kernels(card):
+    """Phase 38 (a), (b): the low-precision variants of #1 and #2 against
+    their plain versions (the modules' forward with the chain in bf16, and
+    autograd through it) at QM9's pads 16/24/29/32, B=64, H=256, and at H=192
+    N=29: every output within _BF16_RTOL * max(1, max|ref|) (the backward's
+    weight gradients but for their one-step flips), on the mean
+    _BF16_SEPARATION times closer to the plain low-precision version than
+    to the plain bf16 one; the forward saving its chain gives its outputs,
+    and #2 from that saved chain, its recompute and a replay give the same
+    bits. Then CUDA-event times of the low-precision and the bf16 #1/#2 in
+    turns (20 launches after 3 warm-ups, inputs cycled), with the plain
+    low-precision version's and the bf16 bound (the chain changes no FLOP or
+    byte of the bound)."""
+    import torch
+
+    from geoldm_tpu_torch.nn.core import BF16_EDGE_LOWP as LOWP
+    from geoldm_tpu_torch.ops import egnn_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, dev, B, rows = torch.bfloat16, torch.device("cuda"), 64, []
+
+    def flat(r):
+        return [*r[:3], *r[3]]
+
+    for n, H in ((16, 256), (24, 256), (29, 256), (32, 256), (29, 192)):
+        _check(egnn_block.whole_molecule(n, H), f"N={n} H={H} would not take the chain")
+        block = _qm9_block(H, 3800 + n + H)
+        n_weights = sum(p.numel() for p in block.parameters())
+        rng = np.random.default_rng(38000 + n + H)
+        inputs = [_ragged_inputs(38100 * n + H + rep, B, n, H, dev, 8)
+                  + tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                          for s in ((B, n, H), (B, n, 3))) for rep in range(3)]
+        fwd_in = [a[:4] for a in inputs]
+        n_real = inputs[0][3][:, :, 0].sum(dim=1).cpu().numpy()
+        # Forward.
+        with torch.no_grad():
+            got = egnn_block.block_forward_cuda(block, *fwd_in[0], compute_dtype=LOWP)
+            h_s, x_s, saved = egnn_block._forward_launch(block, *fwd_in[0], save=True,
+                                                         bf16=True, lowp=True)
+            want = egnn_block.block_forward_plain(block, *fwd_in[0], compute_dtype=LOWP)
+            want_bf16 = egnn_block.block_forward_plain(block, *fwd_in[0], compute_dtype=bf16)
+        torch.cuda.synchronize()
+        _check(all(bool(torch.isfinite(g).all()) for g in got), f"#1 lowp N={n} not finite")
+        _check(torch.equal(h_s, got[0]) and torch.equal(x_s, got[1]),
+               f"#1 lowp with its chain saved differs from without at N={n} H={H}")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max([1.0] + [float(w.abs().max()) for w in want])
+        mean_err = sum(float((g - w).abs().double().mean()) for g, w in zip(got, want))
+        mean_bf16 = sum(float((g - w).abs().double().mean()) for g, w in zip(got, want_bf16))
+        _check(err <= _BF16_RTOL * scale, f"#1 lowp disagrees with plain at N={n} H={H}: "
+                                          f"max|d|={err:.3e} > {_BF16_RTOL}*{scale:.3g}")
+        _check(_BF16_SEPARATION * mean_err <= mean_bf16,
+               f"#1 lowp N={n} H={H}: mean distance {mean_bf16:.3e} to the plain bf16 version is "
+               f"not {_BF16_SEPARATION:g}x its mean error {mean_err:.3e}")
+        # Backward: the recompute, the saved chain, a replay.
+        got_b = egnn_block.block_backward_cuda(block, *inputs[0], compute_dtype=LOWP)
+        via_saved = egnn_block._backward_launch(block, *inputs[0], saved, True, True)
+        again = egnn_block.block_backward_cuda(block, *inputs[0], compute_dtype=LOWP)
+        torch.cuda.synchronize()
+        names = ["dh", "dx", "dx0"] + egnn_block.block_param_names(block)
+        for name, a, b_, c_ in zip(names, flat(got_b), flat(via_saved), flat(again)):
+            _check(torch.equal(a, b_), f"#2 lowp from the saved chain differs from the "
+                                       f"recompute on {name} at N={n} H={H}")
+            _check(torch.equal(a, c_), f"#2 lowp does not replay on {name} at N={n} H={H}")
+        del via_saved, again, saved
+        want_b = flat(egnn_block.block_backward_plain(block, *inputs[0], compute_dtype=LOWP))
+        want_b16 = flat(egnn_block.block_backward_plain(block, *inputs[0], compute_dtype=bf16))
+        rep = _bf16_grads_check(f"#2 lowp N={n} H={H}", names, flat(got_b), want_b, want_b16,
+                                None, separation=_LOWP_BWD_SEPARATION, lowp=True)
+        del got_b, want_b, want_b16
+        # (b) Times in turns: bf16 then low-precision, the low-precision twice, bf16 again.
+        with torch.no_grad():
+            ms_bf16, ms = _in_turns(
+                (lambda *a: egnn_block.block_forward_cuda(block, *a, compute_dtype=bf16),
+                 lambda *a: egnn_block.block_forward_cuda(block, *a, compute_dtype=LOWP)),
+                fwd_in)
+            plain_ms = _time_ms(lambda *a: egnn_block.block_forward_plain(
+                block, *a, compute_dtype=LOWP), fwd_in)
+        bwd_bf16_ms, bwd_ms = _in_turns(
+            (lambda *a: egnn_block.block_backward_cuda(block, *a, compute_dtype=bf16),
+             lambda *a: egnn_block.block_backward_cuda(block, *a, compute_dtype=LOWP)), inputs)
+        bwd_plain_ms = _time_ms(lambda *a: egnn_block.block_backward_plain(
+            block, *a, compute_dtype=LOWP), inputs, warmup=1, reps=3)
+        bound, bound_by = _bf16_bounds(*_block_work(block.cfg, n_real, n, n_weights)[:2])
+        bwd_bound, bwd_bound_by = _bf16_bounds(*_bwd_work(block.cfg, n_real, n, n_weights)[:2])
+        rows.append({"kernel": "egnn_block_lowp", "N": n, "B": B, "H": H, "max_abs_err": err,
+                     "tol": _BF16_RTOL * scale, "mean_abs_err": mean_err,
+                     "mean_to_bf16_plain": mean_bf16, "ms": ms, "bf16_ms": ms_bf16,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
+        rows.append({"kernel": "egnn_block_bwd_lowp", "N": n, "B": B, "H": H,
+                     **_bf16_fields(rep), "mean_to_bf16_plain": rep["mean_to_f32"],
+                     "ms": bwd_ms, "bf16_ms": bwd_bf16_ms, "plain_ms": bwd_plain_ms,
+                     "bound_ms": bwd_bound, "bound_by": bwd_bound_by})
+        print(f"phase 38: #1 lowp N={n} B={B} H={H} to plain lowp max|d| {err:.3e} (tol "
+              f"{_BF16_RTOL * scale:.2e}), mean {mean_err:.3e}, to plain bf16 mean "
+              f"{mean_bf16:.3e}; the saving forward bit-identical; kernel {ms:.4f} ms, bf16 "
+              f"kernel {ms_bf16:.4f} ms (in turns), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}) on {card}", flush=True)
+        print(f"phase 38: #2 lowp N={n} B={B} H={H}: {len(names)} tensors max|d|/max(1,|ref|) "
+              f"{rep['max_rel']:.2e} ({rep['worst']}; tol {_BF16_RTOL}; {rep['flips']} "
+              f"weight-gradient elements one bf16 step off, at most {rep['max_flip_share']:.2%} "
+              f"of a tensor); mean |d|/max(1,|ref|) {rep['mean_err']:.3e} to plain lowp, "
+              f"{rep['mean_to_f32']:.3e} to plain bf16; the saved route and a replay "
+              f"bit-identical; kernel {bwd_ms:.4f} ms, bf16 kernel {bwd_bf16_ms:.4f} ms (in "
+              f"turns), plain {bwd_plain_ms:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_bound_by}) "
+              f"on {card}", flush=True)
+        del inputs, fwd_in
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lowp_train(card, tmpdir):
+    """Phase 38 (c), (d): cli.main_qm9 at the QM9 recipe (nf 256, 9 layers,
+    B=64, 3 steps, valid and test NLL, 8 stability samples as 10-step DDIM
+    jumps) with GEOLDM_PALLAS_EDGE_LOWP=1, under --compute_dtype
+    bfloat16_pallas and under bfloat16: the first launches only the
+    low-precision #1/#2 (19 and 18 a step, 1 + 3*9 an eval batch, (10 + 1)*9
+    + 9 a sampled chunk), the second only the bf16 ones, the same counts.
+    Then the first run's state takes 3 more synchronised steps on one batch
+    (B=64, N=29) with and without the variable, in turns (without, with,
+    with, without), host clock."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch, write_qm9_splits
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.train.sampling import DEFAULT_SAMPLE_BUCKETS, n_chunks
+    from geoldm_tpu_torch.train.train_step import make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    info = get_dataset_info("qm9")
+    B, steps, K, L, n_stab = 64, 3, 10, 9, 8
+    write_qm9_splits(tmpdir, info, {"train": B * steps, "valid": B, "test": B}, seed=38)
+    out = {}
+    for dtype, suffix in (("bfloat16_pallas", "_lowp"), ("bfloat16", "_bf16")):
+        argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name",
+                dtype, "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers",
+                str(L), "--latent_nf", "1", "--diffusion_steps", "1000", "--batch_size", str(B),
+                "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab),
+                "--eval_n_steps", str(K), "--no_wandb", "--compute_dtype", dtype]
+        print(f"phase 38: {_LOWP_ENV}=1 python -m geoldm_tpu_torch.cli.main_qm9 "
+              f"{' '.join(argv)}", flush=True)
+        with _lowp_env(True):
+            _zero_launch_counts()
+            t0 = time.time()
+            summary = main_qm9.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = _launch_counts()
+        losses = summary["losses"][0]
+        _check(len(losses) == steps and bool(np.all(np.isfinite(losses)))
+               and np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+               f"phase 38 {dtype}: losses {losses}, NLL {summary['nll_val']} "
+               f"{summary['nll_test']}")
+        chunks = n_chunks(summary["sample_sizes"][0], n_stab,
+                          covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"]))
+        want = {**_no_launches(),
+                f"egnn_block{suffix}": steps * (1 + 2 * L) + 2 * (1 + 3 * L)
+                + chunks * ((K + 1) * L + L),
+                f"egnn_block_bwd{suffix}": steps * 2 * L}
+        _check(launches == want, f"phase 38 {dtype} with {_LOWP_ENV}=1: launches "
+                                 f"{launches} != {want} ({chunks} chunks)")
+        print(f"phase 38: {dtype} with {_LOWP_ENV}=1: {steps} steps, losses "
+              f"{[round(v, 4) for v in losses]}, valid NLL {summary['nll_val'][0]:.4f}, test "
+              f"NLL {summary['nll_test'][0]:.4f}, stability {summary['stability'][0]}; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})} = 3*19 + 2*28 + "
+              f"{chunks}*108 and 3*18; main() {wall:.1f} s on {card}", flush=True)
+        out[dtype] = {"launches": launches, "losses": losses, "main_seconds": wall,
+                      "nll_val": summary["nll_val"][0], "nll_test": summary["nll_test"][0]}
+        if dtype == "bfloat16_pallas":
+            state = summary["state"]
+        del summary
+    batch = prepare_batch(synthetic_batch(info, B, 29, np.random.default_rng(38)),
+                          DistributionNodes(info.n_nodes), "cuda")
+    step = make_train_step(state.model.cfg, 0.9999, "bfloat16_pallas")
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        with _lowp_env(on):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(state, batch, gen)
+                torch.cuda.synchronize()
+                times[on].append((time.perf_counter() - t1) * 1e3)
+    out["step_ms"] = {"bf16": times[False], "lowp": times[True]}
+    print(f"phase 38: bfloat16_pallas train step B=64 N=29 in turns, with {_LOWP_ENV}=1 "
+          f"{', '.join(f'{v:.1f}' for v in times[True])} ms, without "
+          f"{', '.join(f'{v:.1f}' for v in times[False])} ms (host clock around synchronised "
+          f"steps) on {card}", flush=True)
+    return out
+
+
+def phase_qm9_prepare(card, tmpdir):
+    """Phase 39: QM9 preparation and the new flags on the card. Raw GDB9
+    files fabricated in a temporary datadir (data.synthetic.write_gdb9_raw:
+    64 molecules, the excluded list, atomref.txt; nothing fetched, the
+    machine has no network), stale splits beside them; cli.main_qm9
+    --force_download --trace DIR --visualize_every_batch 100 at the QM9
+    recipe's width (B=16, 3 steps, a test epoch, 2 stability samples as
+    10-step jumps): the splits rebuilt (50 / 7 / 5 molecules, thermo
+    targets), one epoch, and the epoch's trace holding kernels #1/#2's edge
+    tile (edge_tile_kernel) as GPU kernel events."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_qm9
+    from geoldm_tpu_torch.data import qm9 as pqm9
+    from geoldm_tpu_torch.data.synthetic import write_gdb9_raw
+
+    def refuse(url, filename=None, *a, **k):
+        raise OSError(f"phase 39 fetches nothing: {url}")
+
+    write_gdb9_raw(tmpdir, 64, seed=39)
+    for split in ("train", "valid", "test"):
+        np.savez_compressed(os.path.join(tmpdir, "qm9", f"{split}.npz"), num_atoms=np.zeros(1))
+    trace = os.path.join(tmpdir, "trace")
+    argv = ["--datadir", tmpdir, "--outdir", os.path.join(tmpdir, "out"), "--exp_name", "prep",
+            "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", "9",
+            "--latent_nf", "1", "--diffusion_steps", "1000", "--batch_size", "16",
+            "--n_epochs", "1", "--test_epochs", "1", "--n_stability_samples", "2",
+            "--eval_n_steps", "10", "--no_wandb", "--force_download", "--trace", trace,
+            "--visualize_every_batch", "100"]
+    print(f"phase 39: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    fetch = pqm9.urllib.request.urlretrieve
+    pqm9.urllib.request.urlretrieve = refuse
+    try:
+        _zero_launch_counts()
+        t0 = time.time()
+        summary = main_qm9.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launch_counts()
+    finally:
+        pqm9.urllib.request.urlretrieve = fetch
+    sizes = {}
+    for split in ("train", "valid", "test"):
+        with np.load(os.path.join(tmpdir, "qm9", f"{split}.npz")) as f:
+            sizes[split] = len(f["num_atoms"])
+            _check("U0_thermo" in f.files and f["positions"].ndim == 3,
+                   f"phase 39: {split}.npz holds {f.files}")
+    _check(sizes == {"train": 50, "valid": 7, "test": 5}, f"phase 39: split sizes {sizes}")
+    losses = summary["losses"][0]
+    _check(len(losses) == 3 and bool(np.all(np.isfinite(losses))), f"phase 39: losses {losses}")
+    files = sorted(os.listdir(trace))
+    _check(files == ["trace_epoch0_rank0.json"], f"phase 39: trace files {files}")
+    with open(os.path.join(trace, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    tiles = [e for e in kernels if "edge_tile_kernel" in e.get("name", "")]
+    _check(len(tiles) > 0, f"phase 39: the trace holds {len(kernels)} GPU kernel events, none "
+                           f"of kernels #1/#2's edge tile")
+    print(f"phase 39: --force_download rebuilt the splits from the fabricated raw files "
+          f"({sizes}, nothing fetched); one epoch, losses {[round(v, 4) for v in losses]}; "
+          f"--trace wrote {files[0]}: {len(events)} events, {len(kernels)} GPU kernel events, "
+          f"{len(tiles)} of them edge_tile_kernel (#1/#2); --visualize_every_batch accepted; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}; main() "
+          f"{wall:.1f} s on {card}", flush=True)
+    return {"splits": sizes, "losses": losses, "trace_events": len(events),
+            "gpu_kernel_events": len(kernels), "edge_tile_events": len(tiles),
+            "launches": launches, "main_seconds": wall}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -4619,7 +4947,8 @@ def main(argv=None) -> int:
     # libraries of #3/#4, #5 and #6, #5/#7's backward row grid in those of #5
     # and #7) and the tensor-core GEMMs: registers and spills per
     # instantiation; none may spill, and each row library holds its row grids.
-    for name in ("egnn_block", "egnn_block_bwd", *_ROW_GRIDS):
+    for name in ("egnn_block", "egnn_block_bwd", "egnn_block_lowp", "egnn_block_bwd_lowp",
+                 *_ROW_GRIDS):
         row_grids = [0, 0]
         for k in _ptxas_kernels(info["libs"][name]["log"]):
             if not k["name"]:
@@ -4734,6 +5063,13 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         geom_data = phase_geom_data(card, tmpdir)
     lap("37")
+    lowp_rows = phase_lowp_kernels(card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        lowp_train = phase_lowp_train(card, tmpdir)
+    lap("38")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        qm9_prep = phase_qm9_prepare(card, tmpdir)
+    lap("39")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -4753,6 +5089,7 @@ def main(argv=None) -> int:
         "grid_training": grid_train, "conditional_sp": cond_sp, "dp_eval": dp_eval,
         "edm": edm, "learned": learned, "gnn": gnn, "serve_warmup": serving,
         "bench_train": bench, "rendering": rendering, "geom_data": geom_data,
+        "lowp_kernels": lowp_rows, "lowp_training": lowp_train, "qm9_prepare": qm9_prep,
         "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
@@ -4762,8 +5099,9 @@ def main(argv=None) -> int:
     # (phases 4, 7, 10, 13 and 16, the resumed, first-stage and evaluation
     # runs of phases 18-20, phase 26's conditional training, guided scoring
     # and serving, the ranks of phases 27-30's CLI runs, phases 31-33's
-    # variants, and phases 34-37: the servers' warm-ups and requests,
-    # bench_train, the rendering paths and the GEOM data step).
+    # variants, phases 34-37: the servers' warm-ups and requests,
+    # bench_train, the rendering paths and the GEOM data step, and phase 39's
+    # QM9 run on prepared splits).
     geom_train_launches = geom_train["launches"]
     later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
              resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
@@ -4772,7 +5110,7 @@ def main(argv=None) -> int:
              conditional["serve"]["launches"], dp_train["launches"], grid_train["launches"],
              cond_sp["launches"], dp_eval["launches"], edm["launches"], learned["launches"],
              gnn["launches"], serving["launches"], bench["launches"], rendering["launches"],
-             geom_data["launches"]]
+             geom_data["launches"], qm9_prep["launches"]]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)
@@ -4820,7 +5158,7 @@ def main(argv=None) -> int:
     # (phase 25's ranks).
     bf16_paths = [bf16_launches, bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"],
                   bf16_sp["cli"]["launches"], edm["launches"], learned["launches"],
-                  serving["launches"], bench["launches"]]
+                  serving["launches"], bench["launches"], lowp_train["bfloat16"]["launches"]]
 
     def bf16_entry(kernel, name, source, replaces):
         # The bf16 forward variants at the main paths' widest shapes (QM9
@@ -4869,7 +5207,24 @@ def main(argv=None) -> int:
                 "f32_ms": sum(r["f32_ms"] for r in main)}
 
     train_paths = [bf16_train["qm9"]["launches"], bf16_train["geom"]["launches"],
-                   bench["launches"]]
+                   bench["launches"], lowp_train["bfloat16"]["launches"]]
+
+    def lowp_entry(kernel, name, source, line, n):
+        # The low-precision variants of #1/#2 at QM9's pads (#1 at N=32, #2 at
+        # N=29, B=64, H=256, the bf16 variants' shapes), launched on phase 38
+        # (c)'s bfloat16_pallas run; H=192 at N=29 rides along.
+        mine = [r for r in lowp_rows if r["kernel"] == kernel]
+        main = next(r for r in mine if r["N"] == n and r["H"] == 256)
+        at192 = next(r for r in mine if r["H"] == 192)
+        n_launched = lowp_train["bfloat16_pallas"]["launches"][kernel]
+        _check(n_launched > 0, f"{name} was not launched on phase 38 (c)'s path")
+        return {"name": name, "route": "cuda", "source": f"geoldm_tpu_torch/csrc/{source}",
+                "replaces": f"geoldm_tpu/ops/pallas_egnn.py:{line}", "launches": n_launched,
+                "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None, "bf16_ms": main["bf16_ms"],
+                "h192": {k: at192[k] for k in ("N", "B", "ms", "bf16_ms", "plain_ms",
+                                               "bound_ms", "bound_by")}}
     report = {"kernels": [{
         "name": "egnn_block_fwd", "route": "cuda",
         "source": "geoldm_tpu_torch/csrc/egnn_block.cu",
@@ -4912,7 +5267,10 @@ def main(argv=None) -> int:
                 "pallas_egnn_tiled.py:201", "gcl_rows_bwd_bf16", 184),
                ("coord_rows_bwd", "egnn_coord_rows_bwd_bf16", "egnn_tiled_bwd.cu",
                 "pallas_egnn_tiled.py:201", "coord_rows_bwd_bf16", 184))]
-        + [bf16_sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]}
+        + [bf16_sp_entry(direction, line) for direction, line in (("fwd", 144), ("bwd", 158))]
+        + [lowp_entry("egnn_block_lowp", "egnn_block_fwd_lowp", "egnn_block_lowp.cu", 232, 32),
+           lowp_entry("egnn_block_bwd_lowp", "egnn_block_bwd_lowp", "egnn_block_bwd_lowp.cu", 255,
+                      29)]}
     # #1/#2 and their bf16 variants at the conditional recipe's H=192 (phase
     # 26 (a)): their errors count in max_abs_err, and N=29's times ride along.
     h192 = {"egnn_block_fwd": "egnn_block", "egnn_block_bwd": "egnn_block_bwd",

@@ -32,12 +32,20 @@ checkpoint's config win). ``--visualize True`` writes, at each stability
 evaluation, a chain and 9 molecules sampled on the device as xyz files under
 ``<outdir>/<exp_name>/epoch_<e>/`` and renders them (``visualize_epoch``);
 it needs matplotlib and imageio, and exits naming the one missing at
-argument checking. ``--tp`` exits with a two-line "not ported yet" message.
+argument checking. ``--trace DIR`` profiles each epoch's train loop with
+``torch.profiler`` (the card's kernels and the host) and writes one Chrome
+trace a rank and epoch, ``DIR/trace_epoch<e>_rank<r>.json`` (JAX's
+``jax.profiler`` trace per epoch); ``--visualize_every_batch`` is accepted
+and unused, as in JAX. ``GEOLDM_PALLAS_EDGE_LOWP=1`` in the environment
+runs ``--compute_dtype bfloat16_pallas`` with the whole-molecule blocks'
+edge chain in bf16 (``nn.core``). Of JAX's flags only ``--tp`` is not
+ported: it exits with a two-line "not ported yet" message.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
 
@@ -70,6 +78,9 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
                         "rows (pays off at GEOM-scale molecules)")
     p.add_argument("--condition_time", type=eval, default=True)
     p.add_argument("--clip_grad", type=eval, default=True)
+    p.add_argument("--trace", type=str, default=None,
+                   help="torch.profiler trace directory: one Chrome trace a rank and epoch of "
+                        "the train loop")
     p.add_argument("--n_layers", type=int, default=d["n_layers"])
     p.add_argument("--inv_sublayers", type=int, default=1)
     p.add_argument("--nf", type=int, default=256)
@@ -107,6 +118,7 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--normalize_factors", type=eval, default=[1, 4, 10])
     # True for QM9 (main_qm9.py:125), False for GEOM (main_geom_drugs.py:121).
     p.add_argument("--include_charges", type=eval, default=qm9_defaults)
+    p.add_argument("--visualize_every_batch", type=int, default=int(1e8))
     p.add_argument("--visualize", type=eval, default=False,
                    help="write and render a chain and 9 molecules at each stability evaluation "
                         "(needs matplotlib and imageio)")
@@ -142,6 +154,29 @@ def resolve_dp(args) -> int:
         n_dev = torch.cuda.device_count() if args.device != "cpu" else 1
         return max(1, n_dev // max(args.sp, 1))
     return args.dp
+
+
+@contextlib.contextmanager
+def epoch_trace(trace_dir, epoch: int, rank: int, device):
+    """``--trace``: the block under ``torch.profiler`` (the host's activity,
+    and the card's when ``device`` is CUDA), written as a Chrome trace to
+    ``trace_dir/trace_epoch<epoch>_rank<rank>.json``; nothing without a
+    directory."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(trace_dir, f"trace_epoch{epoch}_rank{rank}.json"))
 
 
 def check_ported(args) -> None:
@@ -401,12 +436,13 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     rng = np.random.default_rng(args.seed)
     try:
         for epoch in range(args.start_epoch, args.n_epochs):
-            losses, seconds = trainer_mod.train_epoch(
-                state, train_step, loaders["train"], nodes_dist,
-                _generator(device, args.seed, 0, epoch), epoch, augment_noise=args.augment_noise,
-                data_augmentation=args.data_augmentation,
-                break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps,
-                rng=rng, logger=logger, prefetch=args.prefetch, data=data, **cond_kw)
+            with epoch_trace(args.trace, epoch, grid.rank if grid is not None else 0, device):
+                losses, seconds = trainer_mod.train_epoch(
+                    state, train_step, loaders["train"], nodes_dist,
+                    _generator(device, args.seed, 0, epoch), epoch,
+                    augment_noise=args.augment_noise, data_augmentation=args.data_augmentation,
+                    break_train_epoch=args.break_train_epoch, log_every=args.n_report_steps,
+                    rng=rng, logger=logger, prefetch=args.prefetch, data=data, **cond_kw)
             summary["losses"].append(losses)
             summary["epoch_seconds"].append(seconds)
             record = {"train_loss_epoch": float(np.mean(losses))}

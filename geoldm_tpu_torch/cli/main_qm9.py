@@ -7,8 +7,10 @@ the first-stage VAE by default, latent diffusion with ``--train_diffusion``.
       --diffusion_steps 1000 --diffusion_noise_schedule polynomial_2 \\
       --batch_size 64 --ema_decay 0.9999
 
-``--datadir`` holds ``qm9/{train,valid,test}.npz`` (processed splits; no
-download). ``--dp D`` splits every batch over D spawned data ranks
+``--datadir`` holds ``qm9/{train,valid,test}.npz``; missing ones are
+prepared from the raw GDB9 files there, fetched if absent
+(``data.qm9.prepare_qm9``), and ``--force_download`` rebuilds them.
+``--dp D`` splits every batch over D spawned data ranks
 (``parallel.sharding``; the default 0 takes every card), ``--sp S`` every
 EGNN's atom rows over S ranks (``parallel.sp``), both together a D x S grid.
 ``--device cpu`` runs the plain PyTorch path on the CPU.
@@ -31,6 +33,7 @@ def parse_args(argv=None):
     p.add_argument("--datadir", type=str, default="data")
     p.add_argument("--filter_n_atoms", type=int, default=None)
     p.add_argument("--remove_h", action="store_true")
+    p.add_argument("--force_download", action="store_true")
     return p.parse_args(argv)
 
 
@@ -54,7 +57,8 @@ def train(args, grid=None) -> dict:
 
     dataset_info = get_dataset_info("qm9" if "half" not in args.dataset else args.dataset,
                                     args.remove_h)
-    splits, _ = load_qm9(args.datadir, dataset=args.dataset, remove_h=args.remove_h)
+    splits, _ = load_qm9(args.datadir, dataset=args.dataset, remove_h=args.remove_h,
+                         force_download=args.force_download)
     if args.filter_n_atoms is not None:
         splits = filter_atoms(splits, args.filter_n_atoms)
     return run_training(args, dataset_info, splits, grid=grid)

@@ -3,9 +3,11 @@
 // (on egnn_tile.cuh's tile machinery), the forward edge stages and the
 // forward chain both libraries run on the tensor-core node GEMM of
 // egnn_tc_gemm.cuh (the backward recomputes with it, so a recomputed
-// activation equals the forward's saved one bit for bit), and the bf16
-// variant of both (BF16: every forward product on bf16 operands). See
-// egnn_block.cu for the design and what bounds it on an H100.
+// activation equals the forward's saved one bit for bit), the bf16
+// variant of both (BF16: every forward product on bf16 operands) and the
+// low-precision one (LOWP, with BF16: the edge chain in bf16 too,
+// egnn_block_lowp.cu). See egnn_block.cu for the design and what bounds it
+// on an H100.
 
 #pragma once
 
@@ -20,8 +22,8 @@ int tiles_per_molecule(int N) { const int r = tile_rows(N); return (N + r - 1) /
 
 // One forward edge stage over a tile: the GCL's aggregate of rows i0 ...
 // (COORD false) or their coordinate update; BF16: on bf16 operands, W2 from
-// its bf16 copy a.w2bf.
-template <int HP, bool COORD, bool BF16 = false>
+// its bf16 copy a.w2bf; LOWP (with BF16): the edge chain in bf16.
+template <int HP, bool COORD, bool BF16 = false, bool LOWP = false>
 __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(TileArgs a) {
   using C = TileCfg<HP>;
   float* As = tile_smem;
@@ -33,22 +35,22 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(
 
   tile_geometry<HP>(a, b, i0, 0, N, mrows);
   __syncthreads();
-  build_edge_tile<HP, false, BF16>(a, As, b, mrows, nullptr);
+  build_edge_tile<HP, false, BF16, LOWP>(a, As, b, mrows, nullptr);
   __syncthreads();
   // m = silu(silu(pre) W2^T + b2).
   {
     float acc[2][8][4];
     if constexpr (BF16) tile_product_bf16<HP>(As, Wb, a.w2bf, H, mrows, acc);
     else tile_product<HP, false>(As, Wb, a.w2, H, mrows, acc);
-    store_acc<HP, true>(As, acc, a.b2, H);
+    store_acc<HP, true, false, LOWP>(As, acc, a.b2, H);
   }
   __syncthreads();
-  if (COORD || a.attention) edge_scalars<HP, COORD, BF16>(a, As, mrows);
+  if (COORD || a.attention) edge_scalars<HP, COORD, BF16, LOWP>(a, As, mrows);
   if (!COORD) {
     if (c < H) {
       for (int r = 0; r < nrows; ++r)
         a.agg[((size_t)b * N + i0 + r) * H + c] =
-            fold_messages<HP>(a, As, r * N, N, c, 0.f) / a.norm_div;
+            fold_messages<HP, LOWP>(a, As, r * N, N, c, 0.f) / a.norm_div;
     }
   } else {
     for (int q = c; q < nrows * 3; q += C::kThreads) {
@@ -60,13 +62,13 @@ __global__ void __launch_bounds__(HP, TileCfg<HP>::kMinBlocks) edge_tile_kernel(
   }
 }
 
-template <bool COORD, bool BF16 = false>
+template <bool COORD, bool BF16 = false, bool LOWP = false>
 int launch_edge_tile(const TileArgs& a, int B, cudaStream_t s) {
   const dim3 grid(a.T, B);
-  if (a.H <= 64) return launch_tile<64>(edge_tile_kernel<64, COORD, BF16>, grid, a, s);
-  if (a.H <= 128) return launch_tile<128>(edge_tile_kernel<128, COORD, BF16>, grid, a, s);
-  if (a.H <= 256) return launch_tile<256>(edge_tile_kernel<256, COORD, BF16>, grid, a, s);
-  return launch_tile<512>(edge_tile_kernel<512, COORD, BF16>, grid, a, s);
+  if (a.H <= 64) return launch_tile<64>(edge_tile_kernel<64, COORD, BF16, LOWP>, grid, a, s);
+  if (a.H <= 128) return launch_tile<128>(edge_tile_kernel<128, COORD, BF16, LOWP>, grid, a, s);
+  if (a.H <= 256) return launch_tile<256>(edge_tile_kernel<256, COORD, BF16, LOWP>, grid, a, s);
+  return launch_tile<512>(edge_tile_kernel<512, COORD, BF16, LOWP>, grid, a, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -134,8 +136,9 @@ TileArgs tile_args(const BlockShape& d, const float* x, const float* x0, const f
 // the coordinate stage (x_out unread). proj: [B*N, 2H] scratch. BF16: every
 // product on bf16 operands (the bf16 variant; with save, the chain its
 // backward reads); w2bf holds (n_gcl + 1) [H, H] bf16 copies of the W2s,
-// converted here, once a call.
-template <bool BF16 = false>
+// converted here, once a call. LOWP (with BF16): the edge stages' chain in
+// bf16 (the low-precision variant; the node chain is the bf16 one's).
+template <bool BF16 = false, bool LOWP = false>
 int block_forward_chain(const BlockShape& d, const float* h, const float* x, const float* x0,
                         const float* mask, float* h_out, float* x_out, float* proj, float* agg,
                         float* hidden, float* save, const void* const* gcl_w,
@@ -160,7 +163,7 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
       ea.w2bf = w2bf + gi * w2words;
       if ((rc = to_bf16(w[2], w2bf + gi * w2words, H * H, s))) return rc;
     }
-    if ((rc = launch_edge_tile<false, BF16>(ea, d.B, s))) return rc;
+    if ((rc = launch_edge_tile<false, BF16, LOWP>(ea, d.B, s))) return rc;
 
     // u = silu([h, agg] Wn1^T + bn1): fused, or through z when saved (the
     // same bits: silu of the stored f32 z).
@@ -198,7 +201,7 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
     ea.w2bf = w2bf + d.n_gcl * w2words;
     if ((rc = to_bf16(cw[2], w2bf + d.n_gcl * w2words, H * H, s))) return rc;
   }
-  return launch_edge_tile<true, BF16>(ea, d.B, s);
+  return launch_edge_tile<true, BF16, LOWP>(ea, d.B, s);
 }
 
 }  // namespace

@@ -242,13 +242,18 @@ int node_mlp_backward(const float* dout, const float* mask, const float* hin, co
 // after their f32 sums over every edge, molecule and group: g holds the
 // stage's gradient pointers in the weights' order (10 of a GCL, 5 of the
 // coordinate update); the products' weights (W1, W2, the gate's or scale's
-// weight, Wn1, Wn2) are rounded, the biases stay f32 (added, not multiplied).
-int round_weight_grads(float* const* g, bool coord, int H, int E, cudaStream_t s) {
+// weight, Wn1, Wn2) are rounded, the biases stay f32 (added, not multiplied)
+// but with lowp (the low-precision variant of #2): there b2 and the gate's
+// bias are cast to bf16 and added in bf16, so theirs are rounded too.
+int round_weight_grads(float* const* g, bool coord, int H, int E, cudaStream_t s,
+                       bool lowp = false) {
   const int ld1 = 2 * H + E;
   int rc;
   if ((rc = round_bf16(g[0], H * ld1, s))) return rc;
   if ((rc = round_bf16(g[2], H * H, s))) return rc;
   if ((rc = round_bf16(g[4], H, s))) return rc;  // null: a GCL without attention
+  if (lowp && (rc = round_bf16(g[3], H, s))) return rc;
+  if (lowp && !coord && (rc = round_bf16(g[5], 1, s))) return rc;  // null likewise
   if (coord) return 0;
   if ((rc = round_bf16(g[6], 2 * H * H, s))) return rc;
   return round_bf16(g[8], H * H, s);

@@ -46,6 +46,54 @@ __device__ __forceinline__ float tile_dsilu(float v) {
   return s * (1.f + v * (1.f - s));
 }
 
+// ---------------------------------------------------------------------------
+// The low-precision edge chain (LOWP: kernels #1/#2's variants for JAX's
+// GEOLDM_PALLAS_EDGE_LOWP, _block_math with edge_dtype bf16): every value of
+// the chain is a bf16 (held exactly in f32 registers and shared memory);
+// each sigmoid is taken in f32 from its bf16 input and rounded to bf16
+// (JAX's _sigmoid), and each product or sum of two chain values is one bf16
+// operation (packed, two a register where the values come in pairs; a bf16
+// sum or product rounded once equals the f32 one rounded, since f32 holds
+// more than twice bf16's 8 bits). The backward rounds each cotangent of a
+// bf16 value to bf16, as autograd through the plain version and jax.vjp of
+// _block_math do. The chain's sigmoid is the tiles' fast one: with the
+// accurate one (sigmoid_f) #1/#2's mean distance to their plain versions was
+// the same to four digits.
+// ---------------------------------------------------------------------------
+
+// _silu of two bf16 values x: x * bf16(sigmoid(x)), the product in bf16.
+__device__ __forceinline__ __nv_bfloat162 lowp_silu2(__nv_bfloat162 x) {
+  const float2 f = __bfloat1622float2(x);
+  return __hmul2(x, __floats2bfloat162_rn(tile_sigmoid(f.x), tile_sigmoid(f.y)));
+}
+
+// _silu of one bf16 value (the same bits as lowp_silu2's).
+__device__ __forceinline__ float lowp_silu(float x) {
+  return bf16_round(x * bf16_round(tile_sigmoid(x)));
+}
+
+// The cotangent of bf16 x through _silu(x) from dy, that of its output:
+// dy * s and dy * x rounded to bf16 (the product's two operands, s =
+// bf16(sigmoid(x))), the latter through the f32 sigmoid's derivative and
+// rounded (the cotangent of the sigmoid's bf16 input), the two summed in
+// bf16. Written in the order torch's sigmoid backward takes, g (1 - y) y.
+__device__ __forceinline__ float lowp_dsilu(float x, float dy) {
+  const float y = tile_sigmoid(x);
+  const float dx = bf16_round(dy * bf16_round(y));
+  const float ds = bf16_round(dy * x);
+  return bf16_round(dx + bf16_round(ds * (1.f - y) * y));
+}
+
+// The attention gate of one edge from its logit sum s (f32, of bf16
+// operands): the product's output rounded, the bias rounded and added in
+// bf16, the sigmoid in f32 rounded. y: the f32 sigmoid (for the backward).
+__device__ __forceinline__ float lowp_gate(float s, float bias, float* y = nullptr) {
+  const float u = bf16_round(bf16_round(s) + bf16_round(bias));
+  const float yv = sigmoid_f(u);
+  if (y) *y = yv;
+  return bf16_round(yv);
+}
+
 // A tile kernel runs HP threads, HP = the hidden width rounded up to 64,
 // 128, 256 or 512 (channels past H are masked). Its warps form a 2 x HP/64
 // grid over the [64, HP] product; each warp owns 32 rows x 64 columns, two
@@ -322,8 +370,9 @@ __device__ __forceinline__ void tile_product_bf16(const float* As, float* Wb, co
 // As[row][col] = acc + bias[col] (0 past H), through silu when SILU, or
 // rounded to bf16 when ROUND (the bf16 backward's transposed product, whose
 // result is the gradient of a bf16 operand); the fragment layout of
-// mma.m16n8k8's C.
-template <int HP, bool SILU, bool ROUND = false>
+// mma.m16n8k8's C. LOWP: acc and the bias each rounded to bf16 and added in
+// bf16, the silu in bf16 (two adjacent columns a register).
+template <int HP, bool SILU, bool ROUND = false, bool LOWP = false>
 __device__ __forceinline__ void store_acc(float* As, const float (&acc)[2][8][4],
                                           const float* bias, int H) {
   using C = TileCfg<HP>;
@@ -340,7 +389,18 @@ __device__ __forceinline__ void store_acc(float* As, const float (&acc)[2][8][4]
       const int row = wm * 32 + mi * 16 + g;
       float v[4] = {acc[mi][ni][0] + b0, acc[mi][ni][1] + b1, acc[mi][ni][2] + b0,
                     acc[mi][ni][3] + b1};
-      if (SILU) {
+      if constexpr (LOWP) {
+        const __nv_bfloat162 bb = __floats2bfloat162_rn(b0, b1);
+#pragma unroll
+        for (int q = 0; q < 4; q += 2) {
+          __nv_bfloat162 u = __hadd2(
+              __floats2bfloat162_rn(acc[mi][ni][q], acc[mi][ni][q + 1]), bb);
+          if (SILU) u = lowp_silu2(u);
+          const float2 f = __bfloat1622float2(u);
+          v[q] = f.x;
+          v[q + 1] = f.y;
+        }
+      } else if (SILU) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) v[q] = tile_silu(v[q]);
       }
@@ -507,8 +567,9 @@ __device__ __forceinline__ void edge_pre_batch(const TileArgs& a, const float* w
 
 // As[e][c] = silu(pre) for the tile's edges (thread c), zero elsewhere; the
 // backward also writes it to ab, the tile's edge 0 in abuf ([edge][H], the
-// tile's edges consecutive). SLAB, BF16 as edge_pre_batch.
-template <int HP, bool SLAB = false, bool BF16 = false>
+// tile's edges consecutive). SLAB, BF16 as edge_pre_batch. LOWP (with BF16):
+// pre rounded to bf16 and the silu in bf16 (lowp_silu2, edges in pairs).
+template <int HP, bool SLAB = false, bool BF16 = false, bool LOWP = false>
 __device__ __forceinline__ void build_edge_tile(const TileArgs& a, float* As, int b, int mrows,
                                                 float* ab) {
   using C = TileCfg<HP>;
@@ -519,13 +580,26 @@ __device__ __forceinline__ void build_edge_tile(const TileArgs& a, float* As, in
   if (ab) ab += c;  // channel c
   for (int e0 = 0; e0 < kTileRows; e0 += kBatch) {
     float pre[kBatch];
-    if (c < H) edge_pre_batch<HP, SLAB, BF16>(a, we, bias1, b, e0, c, pre);
+    if (c < H) {
+      edge_pre_batch<HP, SLAB, BF16>(a, we, bias1, b, e0, c, pre);
+      if constexpr (LOWP) {
+#pragma unroll
+        for (int q = 0; q < kBatch; q += 2) {
+          const float2 v = __bfloat1622float2(lowp_silu2(__floats2bfloat162_rn(pre[q], pre[q + 1])));
+          pre[q] = v.x;
+          pre[q + 1] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) pre[q] = tile_silu(pre[q]);
+      }
+    }
 #pragma unroll
     for (int q = 0; q < kBatch; ++q) {
       const int e = e0 + q;
       float v = 0.f;
       if (e < mrows && c < H) {
-        v = tile_silu(pre[q]);
+        v = pre[q];
         if (ab) ab[e * H] = v;
       }
       As[e * C::kLdA + c] = v;
@@ -542,8 +616,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // rs_e = sum_c m_e[c] w_out[c] of the tile's mrows edges, m in As: the
 // attention gate sigmoid(. + b_out) or the coordinate scale (through tanh
 // when use_tanh), one warp per edge (two at a time) in a fixed order; BF16:
-// m and w_out rounded to bf16 operands. Ends with a barrier.
-template <int HP, bool COORD, bool BF16 = false>
+// m and w_out rounded to bf16 operands; LOWP: the gate as lowp_gate (the
+// coordinate scale stays f32, as JAX's w3 product). Ends with a barrier.
+template <int HP, bool COORD, bool BF16 = false, bool LOWP = false>
 __device__ __forceinline__ void edge_scalars(const TileArgs& a, const float* As, int mrows) {
   using C = TileCfg<HP>;
   float* rs = TileEdges<HP>::rs();
@@ -560,18 +635,22 @@ __device__ __forceinline__ void edge_scalars(const TileArgs& a, const float* As,
     s = warp_sum(s);
     s2 = warp_sum(s2);
     if (lane == 0) {
-      rs[e] = COORD ? (a.use_tanh ? tanhf(s) * a.coords_range : s) : sigmoid_f(s + a.b_out[0]);
-      if (e2 != e)
-        rs[e2] = COORD ? (a.use_tanh ? tanhf(s2) * a.coords_range : s2)
-                       : sigmoid_f(s2 + a.b_out[0]);
+      auto scalar = [&](float v) {
+        if (COORD) return a.use_tanh ? tanhf(v) * a.coords_range : v;
+        if constexpr (LOWP) return lowp_gate(v, a.b_out[0]);
+        return sigmoid_f(v + a.b_out[0]);
+      };
+      rs[e] = scalar(s);
+      if (e2 != e) rs[e2] = scalar(s2);
     }
   }
   __syncthreads();
 }
 
 // agg + the messages of channel c over tile edges e0 .. e0+n-1, in edge
-// order: m (times the gate with attention) times the edge mask.
-template <int HP>
+// order: m (times the gate with attention; LOWP: their bf16 product) times
+// the edge mask.
+template <int HP, bool LOWP = false>
 __device__ __forceinline__ float fold_messages(const TileArgs& a, const float* As, int e0, int n,
                                                int c, float agg) {
   using T = TileEdges<HP>;
@@ -580,7 +659,7 @@ __device__ __forceinline__ float fold_messages(const TileArgs& a, const float* A
   for (int j = 0; j < n; ++j) {
     const int e = e0 + j;
     const float m = As[e * TileCfg<HP>::kLdA + c];
-    agg += (a.attention ? m * rs[e] : m) * em[e];
+    agg += (a.attention ? (LOWP ? bf16_round(m * rs[e]) : m * rs[e]) : m) * em[e];
   }
   return agg;
 }
@@ -610,8 +689,12 @@ __device__ __forceinline__ float fold_coords(int e0, int n, int d, float aggx) {
 // them into rs (the gate) and rs2 (the logit's gradient) and, for the
 // coordinate stage, writes the edge's gradient of coord_diff. Ends with a
 // barrier. BF16: the logit's product on bf16 operands, as the bf16
-// forward's (the gate's own sum stays f32: an elementwise product).
-template <int HP, bool COORD, bool BF16 = false>
+// forward's (the gate's own sum stays f32: an elementwise product). LOWP:
+// As holds the bf16 t = mm + b2 and m = lowp_silu(t); the gate's sum is
+// over bf16(bf16(dagg / div) m) (the cotangent of the gated bf16 message
+// times m, rounded), rounded as the gate's cotangent, and rs2 is that of
+// the gate logit's bf16 output (lowp_gate's vjp).
+template <int HP, bool COORD, bool BF16 = false, bool LOWP = false>
 __device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float* As, int b,
                                                  int mrows) {
   using C = TileCfg<HP>;
@@ -627,6 +710,17 @@ __device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float*
 #pragma unroll 4
     for (int k = lane; k < H; k += 32) {
       const float w = __ldg(a.w_out + k);
+      if constexpr (LOWP) {
+        const float m = lowp_silu(As[e * C::kLdA + k]), m2 = lowp_silu(As[e2 * C::kLdA + k]);
+        const float wr = bf16_round(w);
+        s[0] = fmaf(m, wr, s[0]);
+        s[1] = fmaf(m2, wr, s[1]);
+        if (!COORD) {
+          s2[0] += bf16_round(bf16_round(__ldg(dagg_b + ei[e] * H + k) / a.norm_div) * m);
+          s2[1] += bf16_round(bf16_round(__ldg(dagg_b + ei[e2] * H + k) / a.norm_div) * m2);
+        }
+        continue;
+      }
       const float m = tile_silu(As[e * C::kLdA + k]), m2 = tile_silu(As[e2 * C::kLdA + k]);
       if constexpr (BF16) {
         const float wr = bf16_round(w);
@@ -671,6 +765,12 @@ __device__ __forceinline__ void edge_scalars_bwd(const TileArgs& a, const float*
       for (int q = 0; q < 3; ++q)
         a.dcd[(rr * a.N + ej[e]) * 3 + q] = daggx[q] * scale * em[e];
       rs2[e] = a.use_tanh ? ds * a.coords_range * (1.f - th * th) : ds;
+    } else if constexpr (LOWP) {
+      // g = lowp_gate(l, ba); the gate's cotangent bf16(em sum), through
+      // the f32 sigmoid's derivative, rounded: the logit output's.
+      float y;
+      rs[e] = lowp_gate(rs[e], a.b_out[0], &y);
+      rs2[e] = bf16_round(bf16_round(em[e] * rs2[e]) * (1.f - y) * y);
     } else {
       // gate g = sigmoid(l + ba); q = g (1 - g) em (dagg . m).
       const float g = sigmoid_f(rs[e] + a.b_out[0]);

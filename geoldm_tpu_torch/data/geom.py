@@ -86,9 +86,9 @@ def load_split_data(conformation_file: str, val_proportion: float = 0.1,
     absent one is saved there, as the reference does."""
     if not os.path.exists(conformation_file):
         raise FileNotFoundError(
-            f"GEOM conformer file not found: {conformation_file}. This package does not "
-            "extract GEOM; write one with geoldm_tpu_torch.data.synthetic."
-            "write_geom_conformers (fabricated) or copy an extracted one there")
+            f"GEOM conformer file not found: {conformation_file}. Extract one from the GEOM "
+            "msgpack dump with python -m geoldm_tpu_torch.cli.build_geom_dataset, or "
+            "fabricate one with geoldm_tpu_torch.data.synthetic.write_geom_conformers")
     base = os.path.dirname(os.path.abspath(conformation_file))
     all_data = np.load(conformation_file)
     mol_id = all_data[:, 0].astype(int)

@@ -1,14 +1,16 @@
 """Synthetic molecules (port of ``geoldm_tpu/data/synthetic.py``), for tests
 and smoke runs where the real data is not on disk: batches, QM9-format
-splits and GEOM-format conformer files. Sizes follow the dataset's size
-histogram, atom types its type marginals, coordinates are Gaussians at about
-bond-length scale, and QM9 charges are the atomic numbers (the QM9 'charges'
-column).
+splits, raw GDB9 files for QM9 preparation and GEOM-format conformer files.
+Sizes follow the dataset's size histogram, atom types its type marginals,
+coordinates are Gaussians at about bond-length scale, and QM9 charges are
+the atomic numbers (the QM9 'charges' column).
 """
 
 from __future__ import annotations
 
+import io
 import os
+import tarfile
 from typing import Dict, Optional
 
 import numpy as np
@@ -90,6 +92,46 @@ def write_qm9_splits(datadir: str, info, sizes: Dict[str, int], seed: int = 0) -
             positions=positions.astype(np.float32),
             alpha=rng.standard_normal(m) * 8 + 75, mu=np.abs(rng.standard_normal(m)),
             U0=rng.standard_normal(m), U0_thermo=rng.standard_normal(m))
+
+
+def write_gdb9_raw(datadir: str, n_molecules: int, seed: int = 0) -> None:
+    """The three raw files ``data.qm9.prepare_qm9`` reads, fabricated under
+    ``<datadir>/qm9/``: a ``dsgdb9nsd.xyz.tar.bz2`` of ``n_molecules`` GDB9
+    xyz records (3-9 atoms of H, C, N, O, F, sizes QM9 holds; the 15 scalar
+    properties; a coordinate in the files' ``*^`` notation; the frequencies
+    line and the two identifier lines), an ``uncharacterized.txt`` of the 3054 excluded ids
+    (every 40th molecule) and an ``atomref.txt``. With 64 molecules each
+    split receives some (50 / 7 / 5)."""
+    from geoldm_tpu_torch.data.qm9 import N_EXCLUDED
+
+    rng = np.random.default_rng(seed)
+    qm9dir = os.path.join(datadir, "qm9")
+    os.makedirs(qm9dir, exist_ok=True)
+    symbols = ("H", "C", "N", "O", "F")
+    with tarfile.open(os.path.join(qm9dir, "dsgdb9nsd.xyz.tar.bz2"), "w:bz2") as tar:
+        for i in range(n_molecules):
+            n = int(rng.integers(3, 10))
+            atoms = rng.choice(symbols, size=n)
+            props = rng.standard_normal(15) * 10
+            lines = [str(n), "gdb " + str(i + 1) + "\t" + "\t".join(f"{v:.6f}" for v in props)]
+            for a in atoms:
+                xyz = rng.standard_normal(3) * 1.5
+                coords = [f"{v:.10f}" if k else f"{v * 1e-5:.6e}".replace("e", "*^")
+                          for k, v in enumerate(xyz)]
+                lines.append(f"{a}\t" + "\t".join(coords) + f"\t{rng.standard_normal():.6f}")
+            lines.append("\t".join(f"{v:.4f}" for v in rng.uniform(100, 4000, size=3 * n)))
+            lines += ["SMILES\tSMILES", "InChI=1S/x\tInChI=1S/x"]
+            data = ("\n".join(lines) + "\n").encode()
+            info = tarfile.TarInfo(f"dsgdb9nsd_{i + 1:06d}.xyz")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    with open(os.path.join(qm9dir, "uncharacterized.txt"), "w") as f:
+        f.write("Excluded molecules: index and reason\n")
+        f.writelines(f"{i * 40 + 1} fabricated\n" for i in range(N_EXCLUDED))
+    with open(os.path.join(qm9dir, "atomref.txt"), "w") as f:
+        f.write("# atomic reference energies: zpve U0 U H G Cv\n")
+        for sym in symbols:
+            f.write(sym + " " + " ".join(f"{v:.6f}" for v in rng.standard_normal(6)) + "\n")
 
 
 def write_geom_conformers(datadir: str, info, n_molecules: int, seed: int = 0,

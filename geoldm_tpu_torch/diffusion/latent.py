@@ -57,7 +57,7 @@ def ldm_nll(model: EnLatentDiffusion, noise: com.Noise, x, h_cat, h_int, node_ma
     ``compute_dtype`` (a name resolved here), under grad too: the train
     step's bf16 gradient runs the bf16 backward kernels."""
     cfg, vae_cfg = model.cfg.diffusion, model.cfg.vae
-    compute_dtype = resolve_compute(compute_dtype).dtype
+    compute_dtype = resolve_compute(compute_dtype).operand
     gamma_fn = model.gamma
     with torch.no_grad():  # the latent is detached: the encoder runs forward only
         z_x_mu, _, z_h_mu, _ = vae_mod.encode(model.vae, x, h_cat, h_int, node_mask, context,
@@ -105,7 +105,7 @@ def ldm_sample(model: EnLatentDiffusion, noise: com.Noise, node_mask,
                                        guidance_scale=guidance_scale, gamma=model.gamma)
     z_xh = torch.cat([z_x, z_cat, z_int], dim=2)
     return vae_mod.decode(model.vae, z_xh, node_mask, context,
-                          resolve_compute(compute_dtype).dtype)
+                          resolve_compute(compute_dtype).operand)
 
 
 @torch.no_grad()
@@ -119,6 +119,6 @@ def ldm_sample_chain(model: EnLatentDiffusion, noise: com.Noise, node_mask,
     _, chain = vdm.vdm_sample(model.dynamics, model.cfg.diffusion, noise, node_mask, False,
                               compute_dtype, keep_frames=keep_frames, context=context,
                               gamma=model.gamma)
-    dtype = resolve_compute(compute_dtype).dtype
+    dtype = resolve_compute(compute_dtype).operand
     return torch.stack([torch.cat(vae_mod.decode(model.vae, z_xh, node_mask, context, dtype),
                                   dim=2) for z_xh in chain])

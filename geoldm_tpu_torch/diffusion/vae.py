@@ -117,5 +117,5 @@ def vae_nll(vae: EnHierarchicalVAE, noise: com.Noise, x, h_cat, h_int, node_mask
             compute_dtype=None) -> torch.Tensor:
     """ELBO-based NLL estimate [B] (vae.py:190-208); ``compute_dtype`` a
     compute-dtype name or spec, resolved here."""
-    dtype = resolve_compute(compute_dtype).dtype
+    dtype = resolve_compute(compute_dtype).operand
     return compute_loss(vae, noise, x, h_cat, h_int, node_mask, context, training, dtype)[0]

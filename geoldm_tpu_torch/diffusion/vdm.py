@@ -274,7 +274,7 @@ def vdm_nll(model: EnVariationalDiffusion, noise: com.Noise, x, h_cat, h_int, no
     scaling's log-det. Draws as ``compute_loss``; the denoiser runs in
     ``compute_dtype`` (a name resolved here)."""
     cfg = model.cfg.diffusion
-    compute_dtype = resolve_compute(compute_dtype).dtype
+    compute_dtype = resolve_compute(compute_dtype).operand
     x, h_cat, h_int, delta_log_px = normalize(cfg, x, h_cat, h_int, node_mask)
     if training and cfg.loss_type == "l2":
         delta_log_px = torch.zeros_like(delta_log_px)
@@ -486,7 +486,7 @@ def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
         raise ValueError("chain visualization requires the dense sampler (n_steps=None, eta=1.0)")
     spec = resolve_compute(compute_dtype)
     tail = mixed_tail_steps(spec, K) if not want_chain else 0
-    step_dtype = [spec.dtype if k < K - tail else None for k in range(K)]
+    step_dtype = [spec.operand if k < K - tail else None for k in range(K)]
 
     def full(v):
         return torch.full((b, 1), v, dtype=torch.float32, device=dev)
@@ -534,7 +534,7 @@ def vdm_sample(dynamics, cfg: DiffusionConfig, noise: com.Noise, node_mask,
             if s_idx in slots:
                 keep[s_idx] = z if latent_space else unnormalize_z(cfg, z, node_mask)
         frames = [keep[s] for s in slots]
-    final_dtype = None if tail > 0 else spec.dtype
+    final_dtype = None if tail > 0 else spec.operand
     x, h_cat, h_int = sample_p_xh_given_z0(dynamics, cfg, gamma_fn, noise, z, node_mask,
                                            fix_noise, final_dtype, context, guidance_scale,
                                            latent_space)

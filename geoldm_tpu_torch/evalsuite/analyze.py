@@ -155,6 +155,17 @@ def analyze_stability_for_molecules(
     return validity_dict, rdkit_tuple
 
 
+def analyze_node_distribution(mol_list) -> Tuple[Dict[int, int], Dict[int, int]]:
+    """Histograms of molecule sizes and atom types over a processed list of
+    (positions, atom_types) (reference: qm9/analyze.py:374-387)."""
+    hist_nodes = DiscreteHistogram("n_nodes")
+    hist_types = DiscreteHistogram("atom_types")
+    for positions, atom_types in mol_list:
+        hist_nodes.add([positions.shape[0]])
+        hist_types.add(list(np.asarray(atom_types).reshape(-1)))
+    return hist_nodes.bins, hist_types.bins
+
+
 # ---------------------------------------------------------------------------
 # Histograms and divergences (reference: qm9/analyze.py:24-153)
 # ---------------------------------------------------------------------------
@@ -208,6 +219,20 @@ def js_divergence(h1, h2) -> float:
     p2 = normalize_histogram(h2) + 1e-10
     m = (p1 + p2) / 2
     return (kl_divergence(p1, m) + kl_divergence(p2, m)) / 2
+
+
+def earth_mover_distance(h1, h2) -> float:
+    """The 1-D Wasserstein distance between the normalised histograms taken
+    as samples (``scipy.stats.wasserstein_distance(p1, p2)``, as the
+    reference calls it), in numpy: the integral of |CDF_1 - CDF_2| over the
+    merged sorted values."""
+    u, v = normalize_histogram(h1), normalize_histogram(h2)
+    all_values = np.concatenate((u, v))
+    all_values.sort(kind="mergesort")
+    deltas = np.diff(all_values)
+    u_cdf = np.sort(u).searchsorted(all_values[:-1], "right") / u.size
+    v_cdf = np.sort(v).searchsorted(all_values[:-1], "right") / v.size
+    return float(np.sum(np.multiply(np.abs(u_cdf - v_cdf), deltas)))
 
 
 def pairwise_distance_histogram(

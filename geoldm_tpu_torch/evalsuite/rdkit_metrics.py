@@ -218,6 +218,31 @@ class BasicMolecularMetrics(_MolecularMetricsBase):
 # ---------------------------------------------------------------------------
 
 
+def graph_canonical_key(symbols: Sequence[str], sym_orders: np.ndarray) -> str:
+    """Permutation-invariant identity string for a bond graph via iterated
+    Weisfeiler-Lehman relabeling (the same family of hash RDKit's Morgan
+    algorithm uses). symbols: per-atom element strings; sym_orders: [N, N]
+    symmetric integer bond orders."""
+    n = len(symbols)
+    sym_orders = np.asarray(sym_orders)
+    neigh = [np.nonzero(sym_orders[i])[0] for i in range(n)]
+    lab = [str(s) for s in symbols]
+    for _ in range(max(1, min(n, 8))):
+        lab = [
+            hashlib.sha1(
+                (
+                    lab[i]
+                    + "|"
+                    + ",".join(
+                        sorted(f"{int(sym_orders[i, j])}:{lab[j]}" for j in neigh[i])
+                    )
+                ).encode()
+            ).hexdigest()[:16]
+            for i in range(n)
+        ]
+    return hashlib.sha1(".".join(sorted(lab)).encode()).hexdigest()
+
+
 def _connected_components(adj: np.ndarray) -> List[np.ndarray]:
     """Connected components of a boolean adjacency matrix (BFS)."""
     n = len(adj)
@@ -257,6 +282,16 @@ def _largest_valid_fragment(positions, atom_types, dataset_info):
     largest = max(comps, key=len)
     syms = [decoder[int(t)] for t in x[largest]]
     return syms, sym[np.ix_(largest, largest)]
+
+
+def molecule_graph_key(positions, atom_types, dataset_info) -> Optional[str]:
+    """WL-hash identity of the largest valid fragment (legacy fallback key;
+    superseded by molecule_fallback_smiles but kept as the cheap
+    cross-check that the SMILES identity partitions molecules the same)."""
+    frag = _largest_valid_fragment(positions, atom_types, dataset_info)
+    if frag is None:
+        return None
+    return graph_canonical_key(*frag)
 
 
 def molecule_fallback_smiles(positions, atom_types, dataset_info) -> Optional[str]:

@@ -30,6 +30,15 @@ under grad their bf16 backwards #2, #5 (#7), the modules' forwards with
 ``compute_dtype=torch.bfloat16`` and autograd on the CPU. Each product
 rounds its own operands, as JAX's ``_matmul`` does, so the gradient it
 returns to each is rounded on its own.
+
+``BF16_EDGE_LOWP`` (``bfloat16_pallas`` under GEOLDM_PALLAS_EDGE_LOWP=1,
+``nn.core``) is ``torch.bfloat16`` everywhere but in a block that
+``ops.egnn_block`` keeps whole as JAX's Pallas path does: there the GCL's
+and the coordinate update's edge chain run in bf16 as ``_block_math``'s
+with ``edge_dtype`` bf16 (``pallas_egnn.py:160-228``; ``_lowp_*`` below, the
+plain version of kernels #1/#2's low-precision variants). The GNN, the
+sequence-parallel route and the row-tiled blocks take it as
+``torch.bfloat16``, as JAX never reads the switch there.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from geoldm_tpu_torch.config import EGNNConfig
-from geoldm_tpu_torch.nn.core import linear, round_operand
+from geoldm_tpu_torch.nn.core import BF16_EDGE_LOWP, linear, operand_dtype, round_operand
 from geoldm_tpu_torch.ops import egnn_block
 from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embedding
 
@@ -59,6 +68,31 @@ def _pair_first_layer(lin: nn.Linear, h: torch.Tensor, edge_attr: Optional[torch
     if edge_attr is not None and w.shape[1] > 2 * f:
         pre = pre + round_operand(edge_attr, dtype) @ w[:, 2 * f:].T
     return pre + lin.bias
+
+
+def _lowp_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_sigmoid`` of a bf16 ``x`` (``pallas_egnn.py:68-75``): in f32,
+    rounded to bf16."""
+    return torch.sigmoid(x.float()).to(torch.bfloat16)
+
+
+def _lowp_silu(x: torch.Tensor) -> torch.Tensor:
+    """``_silu`` of a bf16 ``x``: x * _sigmoid(x), the product in bf16."""
+    return x * _lowp_sigmoid(x)
+
+
+def _lowp_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``_matmul(x, w, bf16, out_dtype=bf16) + cast_b(b)`` on a bf16 ``x``:
+    the product of bf16 operands accumulated in f32 and rounded to bf16,
+    the bias rounded to bf16 and added in bf16."""
+    out = F.linear(x.float(), round_operand(lin.weight, torch.bfloat16)).to(torch.bfloat16)
+    return out + lin.bias.to(torch.bfloat16)
+
+
+def _lowp_messages(edge_mlp: nn.Sequential, pre: torch.Tensor) -> torch.Tensor:
+    """silu(silu(pre) W2 + b2) with the chain in bf16, from the f32
+    pre-activation (rounded to bf16 first, as ``edge_pre`` returns it)."""
+    return _lowp_silu(_lowp_linear(edge_mlp[2], _lowp_silu(pre.to(torch.bfloat16))))
 
 
 def _aggregate(m: torch.Tensor, edge_mask: torch.Tensor, cfg: EGNNConfig) -> torch.Tensor:
@@ -93,9 +127,15 @@ class GCL(nn.Module):
     def forward(self, h, edge_attr, node_mask, edge_mask, compute_dtype=None):
         dt = compute_dtype
         pre = _pair_first_layer(self.edge_mlp[0], h, edge_attr, dt)
-        mij = F.silu(linear(self.edge_mlp[2], F.silu(pre), dt))
-        if self.cfg.attention:
-            mij = mij * torch.sigmoid(linear(self.att_mlp[0], mij, dt))
+        if dt is BF16_EDGE_LOWP:
+            mij = _lowp_messages(self.edge_mlp, pre)
+            if self.cfg.attention:
+                mij = mij * _lowp_sigmoid(_lowp_linear(self.att_mlp[0], mij))
+            mij = mij.float()
+        else:
+            mij = F.silu(linear(self.edge_mlp[2], F.silu(pre), dt))
+            if self.cfg.attention:
+                mij = mij * torch.sigmoid(linear(self.att_mlp[0], mij, dt))
         agg = _aggregate(mij, edge_mask, self.cfg)
         node = self.node_mlp
         out = h + linear(node[2], F.silu(linear(node[0], torch.cat([h, agg], dim=-1), dt)), dt)
@@ -117,7 +157,10 @@ class EquivariantUpdate(nn.Module):
     def forward(self, h, x, coord_diff, edge_attr, node_mask, edge_mask, compute_dtype=None):
         dt = compute_dtype
         pre = _pair_first_layer(self.coord_mlp[0], h, edge_attr, dt)
-        mid = F.silu(linear(self.coord_mlp[2], F.silu(pre), dt))
+        if dt is BF16_EDGE_LOWP:
+            mid = _lowp_messages(self.coord_mlp, pre)  # the w3 product's output stays f32
+        else:
+            mid = F.silu(linear(self.coord_mlp[2], F.silu(pre), dt))
         s = linear(self.coord_mlp[4], mid, dt)  # [B, N, N, 1]
         if self.cfg.tanh:
             s = torch.tanh(s) * self.cfg.coords_range_layer
@@ -138,8 +181,8 @@ class EquivariantBlock(nn.Module):
         self.gcl_equiv = EquivariantUpdate(cfg)
 
     def forward(self, h, x, edge_attr0, node_mask, edge_mask, compute_dtype=None):
-        """``compute_dtype``: None or ``torch.bfloat16``, the linear layers'
-        operand dtype."""
+        """``compute_dtype``: None, ``torch.bfloat16`` (the linear layers'
+        operand dtype) or ``BF16_EDGE_LOWP`` (the edge chain in bf16 too)."""
         radial, coord_diff = coord2diff(x, self.cfg.norm_constant)
         dist = sin_embedding(radial) if self.cfg.sin_embedding else radial
         edge_attr = torch.cat([dist, edge_attr0], dim=-1)
@@ -164,12 +207,14 @@ class EGNN(nn.Module):
             self.add_module(f"e_block_{i}", EquivariantBlock(cfg))
 
     def forward(self, h, x, node_mask, compute_dtype=None):
-        """``compute_dtype``: None or ``torch.bfloat16``, the linear layers'
-        operand dtype."""
+        """``compute_dtype``: None, ``torch.bfloat16`` (the linear layers'
+        operand dtype) or ``BF16_EDGE_LOWP`` (``ops.egnn_block.block_forward``
+        decides per block where the edge chain runs in bf16; the
+        sequence-parallel route takes it as ``torch.bfloat16``)."""
         if self.sp is not None:
             from geoldm_tpu_torch.parallel.sp import egnn_forward_sp
 
-            return egnn_forward_sp(self, h, x, node_mask, self.sp, compute_dtype)
+            return egnn_forward_sp(self, h, x, node_mask, self.sp, operand_dtype(compute_dtype))
         x0 = x
         h = linear(self.embedding, h, compute_dtype)
         for i in range(self.cfg.n_layers):
@@ -197,6 +242,7 @@ class GNN(nn.Module):
             self.add_module(f"gcl_{i}", GCL(cfg, edges_in_d=0))
 
     def forward(self, h, node_mask, compute_dtype=None):
+        compute_dtype = operand_dtype(compute_dtype)  # JAX's GNN runs on XLA: no edge chain
         edge_mask = build_edge_mask(node_mask)
         h = linear(self.embedding, h, compute_dtype)
         for i in range(self.cfg.n_layers):

@@ -11,6 +11,8 @@ LAUNCH_COUNTERS = {
     "egnn_block_bwd": ("egnn_block", "bwd_launches"),
     "egnn_block_bf16": ("egnn_block", "bf16_launches"),
     "egnn_block_bwd_bf16": ("egnn_block", "bwd_bf16_launches"),
+    "egnn_block_lowp": ("egnn_block", "lowp_launches"),
+    "egnn_block_bwd_lowp": ("egnn_block", "bwd_lowp_launches"),
     "gcl_rows": ("egnn_tiled", "gcl_rows_launches"),
     "coord_rows": ("egnn_tiled", "coord_rows_launches"),
     "gcl_rows_bf16": ("egnn_tiled", "gcl_rows_bf16_launches"),

@@ -23,11 +23,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_block_bwd.cu",
+           "egnn_block_lowp": CSRC / "egnn_block_lowp.cu",
+           "egnn_block_bwd_lowp": CSRC / "egnn_block_bwd_lowp.cu",
            "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu",
            "egnn_sp": CSRC / "egnn_sp.cu"}
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_tile.cuh",
-           CSRC / "egnn_tc_gemm.cuh", CSRC / "egnn_block_tile.cuh", CSRC / "egnn_rows.cuh",
-           CSRC / "egnn_rows_bwd.cuh")
+           CSRC / "egnn_tc_gemm.cuh", CSRC / "egnn_block_tile.cuh", CSRC / "egnn_block_bwd.cuh",
+           CSRC / "egnn_rows.cuh", CSRC / "egnn_rows_bwd.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +47,14 @@ _SIGNATURES = {
         "egnn_block_backward": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_backward_bf16": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_backward_scratch_floats": ([_I] * 7, _Z),
+        "egnn_block_bwd_error_string": ([_I], _STR),
+    },
+    "egnn_block_lowp": {
+        "egnn_block_forward_lowp": ([_P] * 13 + [_I] * 9 + [_F] * 3 + [_P], _I),
+        "egnn_block_error_string": ([_I], _STR),
+    },
+    "egnn_block_bwd_lowp": {
+        "egnn_block_backward_lowp": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_bwd_error_string": ([_I], _STR),
     },
     "egnn_tiled": {

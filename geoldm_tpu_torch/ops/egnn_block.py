@@ -29,6 +29,18 @@ them.
   of ``fused_block_apply`` do with ``bwd_mode='pallas'``).
   ``block_backward_cuda`` alone recomputes them with the forward's own code,
   so both routes give the same bits.
+- The low-precision variants (``compute_dtype=nn.core.BF16_EDGE_LOWP``:
+  JAX's ``bfloat16_pallas`` under GEOLDM_PALLAS_EDGE_LOWP=1, ``edge_dtype``
+  bf16 in ``_block_math``, ``pallas_egnn.py:160-228``): the bf16 variants
+  with the edge chain in bf16 as well, rounded where JAX's rounds it (the
+  pre-activation, each sigmoid, each bf16 product and sum of the silu and
+  the gate, the W2 and gate products' outputs, b2 and the gate's bias).
+  Forward ``egnn_block_forward_lowp`` (``csrc/egnn_block_lowp.cu``),
+  backward ``egnn_block_backward_lowp`` (``csrc/egnn_block_bwd_lowp.cu``),
+  each the vjp site by site of the other, as autograd through the plain
+  version (the modules' forward with ``BF16_EDGE_LOWP``) returns it. They
+  run only where JAX would keep the molecule whole (``whole_molecule``);
+  elsewhere the operand is ``torch.bfloat16``.
 
 ``block_forward`` is what the EGNN calls. It routes by the padded node
 count N, from this card's limits:
@@ -46,13 +58,15 @@ count N, from this card's limits:
   ``no_grad`` it is the bare forward.
 
 (The TPU package's routing, ``pallas_egnn.dispatch_to_tiled``, follows VMEM
-budgets of the TPU and is not this rule.) A wrapper given a CUDA tensor
+budgets of the TPU and is not this rule; its copy here, ``dispatch_to_tiled``,
+decides only where the edge chain runs in bf16.) A wrapper given a CUDA tensor
 launches its kernel or raises; only CPU tensors take a plain version. The
 kernels are built by ``ops.cuda_build``.
 
 ``launches`` / ``bwd_launches`` / ``bf16_launches`` / ``bwd_bf16_launches``
-count kernel calls: one per block forward / backward / bf16 forward / bf16
-backward on the card.
+/ ``lowp_launches`` / ``bwd_lowp_launches`` count kernel calls: one per
+block forward / backward / bf16 forward / bf16 backward / low-precision
+forward / low-precision backward on the card.
 """
 
 from __future__ import annotations
@@ -62,6 +76,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from geoldm_tpu_torch.nn.core import BF16_EDGE_LOWP
 from geoldm_tpu_torch.ops import cuda_build
 from geoldm_tpu_torch.ops.distance import build_edge_mask, coord2diff, sin_embedding
 
@@ -69,6 +84,8 @@ launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bwd_bf16_launches = 0
+lowp_launches = 0
+bwd_lowp_launches = 0
 
 MAX_NODES = 64  # csrc/egnn_common.cuh:kMaxNodes: one row's edges fit one 64-row tile
 MAX_HIDDEN = 512  # csrc/egnn_common.cuh:kMaxHidden, the widest tile (512 threads)
@@ -160,27 +177,84 @@ def _cfg_args(cfg):
 
 
 def bf16_variant(compute_dtype, what: str) -> bool:
-    """Whether ``compute_dtype`` (None or ``torch.bfloat16``) selects a
-    wrapper's bf16 variant; anything else (a compute-dtype name among them)
-    raises TypeError."""
+    """Whether ``compute_dtype`` (None, ``torch.bfloat16`` or
+    ``BF16_EDGE_LOWP``) selects a wrapper's bf16 (or low-precision)
+    variant; anything else (a compute-dtype name among them) raises
+    TypeError."""
     if compute_dtype is None:
         return False
-    if compute_dtype != torch.bfloat16:
-        raise TypeError(f"{what}: compute dtype {compute_dtype!r}; the kernels take None or "
-                        "torch.bfloat16 (resolve a name with nn.core.resolve_compute)")
+    if compute_dtype is not BF16_EDGE_LOWP and compute_dtype != torch.bfloat16:
+        raise TypeError(f"{what}: compute dtype {compute_dtype!r}; the kernels take None, "
+                        "torch.bfloat16 or nn.core.BF16_EDGE_LOWP (resolve a name with "
+                        "nn.core.resolve_compute)")
     return True
 
 
-def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
+# JAX's routing of its Pallas EGNN (pallas_egnn.py:58-65, 344-352, 568-597)
+# at its default bwd_mode 'pallas', kept here only to decide where the edge
+# chain runs in bf16: its integer arithmetic, with the raised scoped-VMEM
+# limit of geoldm_tpu/utils/tpuflags.py:27.
+_RAISED_SCOPED_VMEM_KIB = 65536
+
+
+def _edge_itemsize(compute_dtype) -> int:
+    """Bytes of an edge activation in JAX's budget: 2 with the edge chain in
+    bf16, else 4."""
+    return 2 if compute_dtype is BF16_EDGE_LOWP else 4
+
+
+def _bwd_rows_budget(n: int, hidden: int) -> int:
+    """The pair rows JAX's fused whole-molecule backward may hold."""
+    max_rows = max(256, int(_RAISED_SCOPED_VMEM_KIB * 0.95) * 1024 // (17 * 1024))
+    if hidden > 256:
+        max_rows = max_rows * 256 // hidden
+    if n % 8 != 0:
+        max_rows //= 2
+    return max_rows
+
+
+def dispatch_to_tiled(n: int, hidden_nf: int, compute_dtype=None) -> bool:
+    """JAX's ``dispatch_to_tiled(n, hidden_nf, compute_dtype, 'pallas')``,
+    with ``BF16_EDGE_LOWP`` standing for a bf16 compute dtype under the
+    switch: True where JAX routes a molecule of n nodes to its row-tiled
+    kernels (#3-#5)."""
+    padded_n = -(-n // 8) * 8
+    fwd_rows = 4096 * 4 // _edge_itemsize(compute_dtype)
+    if n % 8 != 0:
+        fwd_rows //= 2
+    return (padded_n * padded_n > fwd_rows
+            or padded_n * padded_n > _bwd_rows_budget(n, hidden_nf))
+
+
+def whole_molecule(n: int, hidden_nf: int) -> bool:
+    """Whether a block of n (padded) nodes runs its edge chain in bf16 under
+    ``BF16_EDGE_LOWP``: the port's whole-molecule kernels take it (n <=
+    MAX_NODES) and JAX keeps it whole with the switch on (QM9's n <= 29;
+    of GEOM's pads 32 and 48, not 64)."""
+    return n <= MAX_NODES and not dispatch_to_tiled(n, hidden_nf, BF16_EDGE_LOWP)
+
+
+def block_operand(n: int, hidden_nf: int, compute_dtype):
+    """The operand a block of n nodes runs: ``BF16_EDGE_LOWP`` only where
+    ``whole_molecule``, else ``torch.bfloat16`` in its place."""
+    if compute_dtype is BF16_EDGE_LOWP and not whole_molecule(n, hidden_nf):
+        return torch.bfloat16
+    return compute_dtype
+
+
+def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False,
+                    lowp: bool = False):
     """The forward kernel -> (h_out, x_out, saved): saved is the
     [4, inv_sublayers, B*N, H] stack of each GCL's output h, aggregate,
     node-MLP pre-activation and its silu for the backward, or None. bf16:
-    the bf16 variant (its saved stack is the bf16 backward's)."""
-    global launches, bf16_launches
+    the bf16 variant (its saved stack is the bf16 backward's); lowp (with
+    bf16): the low-precision variant (its stack the low-precision
+    backward's)."""
+    global launches, bf16_launches, lowp_launches
     weights = _validate(block, h, x, x0, node_mask)
     b, n, hidden = h.shape
     dev = h.device
-    lib = cuda_build.library("egnn_block")
+    lib = cuda_build.library("egnn_block_lowp" if lowp else "egnn_block")
     h_out = torch.empty_like(h)
     x_out = torch.empty_like(x)
     proj = torch.empty((b * n, 2 * hidden), device=dev, dtype=torch.float32)
@@ -196,7 +270,9 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
     # bf16: (inv_sublayers + 1) W2s in bf16, converted by the kernel's call.
     w2bf = (torch.empty((block.cfg.inv_sublayers + 1, hidden, hidden), device=dev,
                         dtype=torch.bfloat16),) if bf16 else ()
-    fn = lib.egnn_block_forward_bf16 if bf16 else lib.egnn_block_forward
+    fn = (lib.egnn_block_forward_lowp if lowp else
+          lib.egnn_block_forward_bf16 if bf16 else lib.egnn_block_forward)
+    what = " low-precision" if lowp else " bf16" if bf16 else ""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
@@ -206,9 +282,11 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
             _pointer_table(sum(gcl_names, []), weights), _pointer_table(coord_names, weights),
             b, n, hidden, block.cfg.edge_feat_nf, *_cfg_args(block.cfg), stream)
     if rc != 0:
-        raise RuntimeError(f"egnn_block{' bf16' if bf16 else ''} kernel launch failed: "
+        raise RuntimeError(f"egnn_block{what} kernel launch failed: "
                            f"{lib.egnn_block_error_string(rc).decode()} (cudaError {rc})")
-    if bf16:
+    if lowp:
+        lowp_launches += 1
+    elif bf16:
         bf16_launches += 1
     else:
         launches += 1
@@ -216,20 +294,23 @@ def _forward_launch(block, h, x, x0, node_mask, save: bool, bf16: bool = False):
 
 
 def block_forward_cuda(block, h, x, x0, node_mask, compute_dtype=None):
-    """The forward kernel, or its bf16 variant for a bf16 ``compute_dtype``.
-    h [B,N,H], x/x0 [B,N,3], node_mask [B,N,1] on one card -> (h_out
-    [B,N,H], x_out [B,N,3]); no ``grad_fn`` (``EquivariantBlockFunction``
-    gives one)."""
+    """The forward kernel, or its bf16 variant for a bf16 ``compute_dtype``
+    (its low-precision one for ``BF16_EDGE_LOWP``). h [B,N,H], x/x0
+    [B,N,3], node_mask [B,N,1] on one card -> (h_out [B,N,H], x_out
+    [B,N,3]); no ``grad_fn`` (``EquivariantBlockFunction`` gives one)."""
     bf16 = bf16_variant(compute_dtype, "egnn_block")
-    h_out, x_out, _ = _forward_launch(block, h, x, x0, node_mask, save=False, bf16=bf16)
+    h_out, x_out, _ = _forward_launch(block, h, x, x0, node_mask, save=False, bf16=bf16,
+                                      lowp=compute_dtype is BF16_EDGE_LOWP)
     return h_out, x_out
 
 
-def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved, bf16: bool = False):
+def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved, bf16: bool = False,
+                     lowp: bool = False):
     """The backward kernel, from the forward's ``saved`` activations or,
     with None, recomputing them. bf16: the bf16 variant, from the bf16
-    forward's saved stack."""
-    global bwd_launches, bwd_bf16_launches
+    forward's saved stack; lowp (with bf16): the low-precision variant, from
+    the low-precision forward's."""
+    global bwd_launches, bwd_bf16_launches, bwd_lowp_launches
     dh_out, dx_out = dh_out.contiguous(), dx_out.contiguous()
     weights = _validate(block, h, x, x0, node_mask, dh_out=dh_out, dx_out=dx_out)
     b, n, hidden = h.shape
@@ -240,13 +321,17 @@ def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved, bf16: bo
     lib = cuda_build.library("egnn_block_bwd")
     grads = {name: torch.empty_like(w) for name, w in weights.items()}
     dh, dx, dx0 = torch.empty_like(h), torch.empty_like(x), torch.empty_like(x0)
-    scratch = torch.empty(
+    scratch = torch.empty(  # the low-precision variant's layout is the bf16 one's
         lib.egnn_block_backward_scratch_floats(b, n, hidden, cfg.edge_feat_nf, cfg.inv_sublayers,
                                                int(saved is None), int(bf16)),
         device=dev, dtype=torch.float32)
     gcl_names, coord_names = _block_weight_names(block)
     flat_gcl = sum(gcl_names, [])
-    fn = lib.egnn_block_backward_bf16 if bf16 else lib.egnn_block_backward
+    if lowp:
+        lib = cuda_build.library("egnn_block_bwd_lowp")
+    fn = (lib.egnn_block_backward_lowp if lowp else
+          lib.egnn_block_backward_bf16 if bf16 else lib.egnn_block_backward)
+    what = " low-precision" if lowp else " bf16" if bf16 else ""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
@@ -257,9 +342,11 @@ def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved, bf16: bo
             _ptr(saved), scratch.data_ptr(), b, n, hidden,
             cfg.edge_feat_nf, *_cfg_args(cfg), stream)
     if rc != 0:
-        raise RuntimeError(f"egnn_block{' bf16' if bf16 else ''} backward kernel launch failed: "
+        raise RuntimeError(f"egnn_block{what} backward kernel launch failed: "
                            f"{lib.egnn_block_bwd_error_string(rc).decode()} (cudaError {rc})")
-    if bf16:
+    if lowp:
+        bwd_lowp_launches += 1
+    elif bf16:
         bwd_bf16_launches += 1
     else:
         bwd_launches += 1
@@ -268,12 +355,14 @@ def _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, saved, bf16: bo
 
 def block_backward_cuda(block, h, x, x0, node_mask, dh_out, dx_out, compute_dtype=None):
     """The backward kernel, or its bf16 variant for a bf16
-    ``compute_dtype``: cotangents dh_out [B,N,H], dx_out [B,N,3] of the
-    block outputs -> (dh, dx, dx0, [weight gradients in ``block_params``
-    order]), the weight gradients summed over the batch. Recomputes the
-    forward's activations (the Function passes the saved ones instead)."""
+    ``compute_dtype`` (its low-precision one for ``BF16_EDGE_LOWP``):
+    cotangents dh_out [B,N,H], dx_out [B,N,3] of the block outputs -> (dh,
+    dx, dx0, [weight gradients in ``block_params`` order]), the weight
+    gradients summed over the batch. Recomputes the forward's activations
+    (the Function passes the saved ones instead)."""
     bf16 = bf16_variant(compute_dtype, "egnn_block backward")
-    return _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, None, bf16)
+    return _backward_launch(block, h, x, x0, node_mask, dh_out, dx_out, None, bf16,
+                            compute_dtype is BF16_EDGE_LOWP)
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -329,7 +418,10 @@ def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=Non
     ``jax.vjp``s ``_block_math``. -> (dh, dx, dx0, [weight gradients]). A
     bf16 ``compute_dtype``: the bf16 variant's, autograd through the plain
     bf16 forward (each product's operand gradients rounded to bf16 where
-    ``round_operand`` rounded the operands)."""
+    ``round_operand`` rounded the operands); ``BF16_EDGE_LOWP``: the
+    low-precision variant's, autograd through the bf16 edge chain (each bf16
+    value's cotangent rounded to bf16, as ``jax.vjp`` of ``_block_math``
+    returns it)."""
     weights = block_params(block) if weights is None else weights
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (h, x, x0)]
@@ -343,7 +435,8 @@ def block_backward_plain(block, h, x, x0, node_mask, dh_out, dx_out, weights=Non
 def _function_forward(ctx, compute_dtype, block, h, x, x0, node_mask, weights):
     bf16 = bf16_variant(compute_dtype, "egnn_block")
     if h.is_cuda:
-        h_out, x_out, saved = _forward_launch(block, h, x, x0, node_mask, save=True, bf16=bf16)
+        h_out, x_out, saved = _forward_launch(block, h, x, x0, node_mask, save=True, bf16=bf16,
+                                              lowp=compute_dtype is BF16_EDGE_LOWP)
     else:
         h_out, x_out = block_forward_plain(block, h, x, x0, node_mask, weights, compute_dtype)
         saved = None
@@ -361,7 +454,8 @@ class EquivariantBlockFunction(torch.autograd.Function):
     versions (for tests), which save no activations. ``compute_dtype``
     torch.bfloat16 runs the bf16 variants: the bf16 forward kernel saving
     its chain, then the bf16 backward kernel (on the CPU the plain bf16
-    versions)."""
+    versions). ``BF16_EDGE_LOWP`` runs the low-precision variants likewise.
+    """
 
     @staticmethod
     def forward(ctx, block, compute_dtype, h, x, x0, node_mask, *weights):
@@ -374,7 +468,8 @@ class EquivariantBlockFunction(torch.autograd.Function):
         dtype = ctx.compute_dtype
         if h.is_cuda:
             dh, dx, dx0, dws = _backward_launch(ctx.block, h, x, x0, node_mask, dh_out, dx_out,
-                                                saved, dtype is not None)
+                                                saved, dtype is not None,
+                                                dtype is BF16_EDGE_LOWP)
         else:
             dh, dx, dx0, dws = block_backward_plain(ctx.block, h, x, x0, node_mask, dh_out,
                                                     dx_out, weights, dtype)
@@ -386,9 +481,11 @@ def block_forward(block, h, x, x0, node_mask, compute_dtype=None):
     while grad is enabled), the plain version for tensors on the CPU;
     N > ``MAX_NODES`` goes to the row-tiled kernels (module docstring).
     ``compute_dtype`` torch.bfloat16 selects the bf16 variants, forward and
-    backward."""
+    backward; ``BF16_EDGE_LOWP`` the low-precision ones where
+    ``whole_molecule``, the bf16 ones elsewhere."""
     train = torch.is_grad_enabled()
     bf16_variant(compute_dtype, "egnn_block")  # a compute name raises here
+    compute_dtype = block_operand(h.shape[1], h.shape[2], compute_dtype)
     if h.shape[1] > MAX_NODES:
         from geoldm_tpu_torch.ops import egnn_tiled
 

@@ -66,8 +66,15 @@ def test_load_qm9_and_loader_match_jax(datadir):
         np.testing.assert_array_equal(filtered[split]["num_atoms"], d["num_atoms"])
 
 
-def test_load_qm9_names_missing_files(tmp_path):
-    with pytest.raises(FileNotFoundError, match="train.npz"):
+def test_load_qm9_names_missing_files(tmp_path, monkeypatch):
+    """With no splits and no raw files, ``load_qm9`` sets out to fetch the
+    GDB9 tarball, as JAX's does; without the network it names the file to
+    place (``urlretrieve`` refused here, so no test reaches the network)."""
+    def refuse(url, filename=None, *a, **k):
+        raise OSError(f"network refused in tests: {url}")
+
+    monkeypatch.setattr(pqm9.urllib.request, "urlretrieve", refuse)
+    with pytest.raises(RuntimeError, match="dsgdb9nsd.xyz.tar.bz2"):
         pqm9.load_qm9(str(tmp_path))
 
 

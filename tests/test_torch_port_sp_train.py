@@ -156,7 +156,7 @@ def test_launch_counters_read_and_reset_in_one_registry():
 
     saved = ops.kernel_launches()
     try:
-        assert set(saved) == set(ops.LAUNCH_COUNTERS) and len(saved) == 20  # 10 + 10 bf16
+        assert set(saved) == set(ops.LAUNCH_COUNTERS) and len(saved) == 22  # 10 + 10 bf16 + 2 lowp
         egnn_block.bwd_launches, egnn_tiled.coord_rows_launches = 2, 3
         egnn_sp.sp_gcl_rows_bwd_launches = 5
         got = ops.kernel_launches()

@@ -124,6 +124,12 @@ def assert_separated(got, want, other, what: str) -> None:
 #   by a few of them at once (worst 8 of 64 against JAX).
 FLIP_SHARE = 0.4
 STEP_FLIP_SHARE = 0.75
+# The gradients a bf16 backward rounds once after their f32 sum, by name
+# suffix: the weights', and with the low-precision edge chain also those of
+# the biases it casts to bf16 (b2 of the edge and coordinate MLPs, the gate's
+# bias); their one-step flips count apart as a weight gradient's.
+ROUNDED = ("weight",)
+LOWP_ROUNDED = ROUNDED + ("edge_mlp.2.bias", "att_mlp.0.bias", "coord_mlp.2.bias")
 JAX_FLIP_SHARE = 0.05
 JAX_STEP_FLIP_SHARE = 0.2
 FLIP_FLOOR = 16
@@ -142,7 +148,7 @@ def bf16_flips(g, w):
 
 
 def bf16_grads_report(names, got, want, want_f32, want_cot=None, rtol=5e-3,
-                      flip_share=FLIP_SHARE, separation=SEPARATION):
+                      flip_share=FLIP_SHARE, separation=SEPARATION, rounded=ROUNDED):
     """A bf16 backward's outputs against its plain bf16 version -> a dict:
     ``problems`` (empty when it passes), ``max_rel`` / ``worst`` (the largest
     max|d| / max(1, max|ref|) and its tensor), ``max_abs`` (the largest
@@ -164,7 +170,10 @@ def bf16_grads_report(names, got, want, want_f32, want_cot=None, rtol=5e-3,
     noise, does not outweigh a weight matrix.) ``flip_share`` and
     ``separation`` replace FLIP_SHARE and SEPARATION (JAX_FLIP_SHARE against
     JAX; STEP_FLIP_SHARE and a smaller separation for a whole train step on
-    the card, whose kernels' tie flips compound through every block)."""
+    the card, whose kernels' tie flips compound through every block).
+    ``rounded``: the name suffixes of the tensors rounded once to bf16 (the
+    weight gradients; LOWP_ROUNDED for the low-precision chain), whose
+    flips count apart."""
     out = {"problems": [], "max_rel": 0.0, "worst": "", "max_abs": 0.0, "mean_err": 0.0,
            "mean_to_f32": 0.0, "mean_to_cotangent": 0.0, "flips": 0, "max_flip_share": 0.0,
            "worst_flip": ""}
@@ -175,7 +184,7 @@ def bf16_grads_report(names, got, want, want_f32, want_cot=None, rtol=5e-3,
             out["problems"].append(f"{name} not finite")
         scale = max(1.0, float(w.abs().max()))
         diff = (g - w).abs()
-        if name.endswith("weight"):
+        if name.endswith(rounded):
             flip = bf16_flips(g, w)
             n_flip = int(flip.sum())
             if n_flip > flips_allowed(g.numel(), flip_share):
