@@ -249,7 +249,24 @@ Phases (each prints a line; any failure exits non-zero before the result):
      fetched), cli.main_qm9 --force_download --trace DIR
      --visualize_every_batch 100 for one epoch: the splits rebuilt, and the
      epoch's torch.profiler trace holding #1/#2's edge tile as GPU kernel
-     events.
+     events;
+ 40. tensor parallelism, two model ranks sharing the card over gloo: (a)
+     cli.main_qm9 --tp 2 at the QM9 recipe (nf=256, 9 layers, T=1000, B=64,
+     EMA 0.9999) resumed from phase 7's --tp 1 checkpoint (the loaded state
+     equal to its files tensor for tensor), 3 steps and one eval with
+     50-jump stability samples: launches per rank one rank's run (every
+     model rank runs every step, eval batch and chunk), the gathered train
+     states bit-identical, each rank's AMSGrad and EMA elements the
+     replicated count plus the sharded count over 2, latest/ one rank's five
+     files; (b) the QM9 recipe's train
+     step (B=8, N=29) over TP-2 and DP-2 x TP-2 against one rank on the
+     card, f32 (1e-3*max|ref|) and bf16 (1e-2*max|ref|): loss, gradient norm
+     (no factor of T), every gradient and the weights' moves, and timed TP
+     steps, the shards' gather alone and the one-rank step; (c) (a)'s
+     checkpoint resumed under --tp 1, the loaded state equal to its files;
+     (d)
+     cli.main_geom_drugs --tp 2 at the GEOM recipe, one step at pad 184
+     (#3/#4/#5 on each rank), launches exact.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -689,14 +706,21 @@ def _time_steps(state, decay, batch, n=3):
 
     step = make_train_step(state.model.cfg, decay)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    times = []
+    return _host_ms(lambda: step(state, batch, gen), n)
+
+
+def _host_ms(fn, n=3):
+    """Host-clock ms of ``n`` synchronised calls."""
+    import torch
+
+    out = []
     for _ in range(n):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        step(state, batch, gen)
+        fn()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-    return times
+        out.append((time.perf_counter() - t1) * 1e3)
+    return out
 
 
 def phase_train(card_name, tmpdir):
@@ -1333,6 +1357,25 @@ def phase_tiled_backward(card_name):
     return rows
 
 
+def _geom_expected(pads, L, inv, per_chunk):
+    """Launches of a GEOM run on one rank with train batches, eval batches
+    and sampled chunks at ``pads`` (phase 13's rule): pads up to 64 run #1
+    and #2, past it inv x #3 and one #4 per block forward, the GCLs again
+    (#3) and #5 per stage backward."""
+    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
+
+    per = {"train": 1 + 2 * L, "eval": 1 + 3 * L, "chunks": per_chunk}
+    small = {k: sum(1 for p in v if p <= MAX_NODES) for k, v in pads.items()}
+    large = {k: len(v) - small[k] for k, v in pads.items()}
+    return {**_no_launches(),
+            "egnn_block": sum(per[k] * small[k] for k in per),
+            "egnn_block_bwd": 2 * L * small["train"],
+            "gcl_rows": inv * (sum(per[k] * large[k] for k in per) + 2 * L * large["train"]),
+            "coord_rows": sum(per[k] * large[k] for k in per),
+            "gcl_rows_bwd": 2 * L * inv * large["train"],
+            "coord_rows_bwd": 2 * L * large["train"]}
+
+
 def phase_geom_train(card_name, tmpdir):
     import torch
 
@@ -1341,7 +1384,6 @@ def phase_geom_train(card_name, tmpdir):
     from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
     from geoldm_tpu_torch.data.synthetic import write_geom_conformers
     from geoldm_tpu_torch.models.distributions import DistributionNodes
-    from geoldm_tpu_torch.ops.egnn_block import MAX_NODES
     from geoldm_tpu_torch.train.sampling import chunk_pads, default_buckets
     from geoldm_tpu_torch.train.trainer import prepare_batch
     from geoldm_tpu_torch.utils.buckets import covering_buckets
@@ -1399,17 +1441,7 @@ def phase_geom_train(card_name, tmpdir):
     buckets = covering_buckets(default_buckets(info), info["max_n_nodes"])
     pads["chunks"] = chunk_pads(summary["sample_sizes"][0], min(100, n_stab), buckets)
     per = {"train": 1 + 2 * L, "eval": 1 + 3 * L, "chunks": (T + 1) * L + L}
-    small = {k: sum(1 for p in v if p <= MAX_NODES) for k, v in pads.items()}
-    large = {k: len(v) - small[k] for k, v in pads.items()}
-    expected = {
-        **_no_launches(),
-        "egnn_block": sum(per[k] * small[k] for k in per),
-        "egnn_block_bwd": 2 * L * small["train"],
-        "gcl_rows": inv * (sum(per[k] * large[k] for k in per) + 2 * L * large["train"]),
-        "coord_rows": sum(per[k] * large[k] for k in per),
-        "gcl_rows_bwd": 2 * L * inv * large["train"],
-        "coord_rows_bwd": 2 * L * large["train"],
-    }
+    expected = _geom_expected(pads, L, inv, per["chunks"])
     _check(launches == expected,
            f"launches {launches} != {expected} (pads {pads}; per train step / eval batch / "
            f"sampled chunk {per})")
@@ -3281,21 +3313,11 @@ def _grid_rank(kind, raw, timed, grid):
         noise = sharding.wrap_noise(torch.Generator(device=grid.device).manual_seed(7),
                                     grid.data)
 
-        def timed_ms(fn):
-            out = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                out.append((time.perf_counter() - t1) * 1e3)
-            return out
-
-        mine["step_ms"] = timed_ms(lambda: step(state, batch, noise))
+        mine["step_ms"] = _host_ms(lambda: step(state, batch, noise))
         if grid.seq is not None:
-            mine["sp_sum_ms"] = timed_ms(lambda: sharding.reduce_grads(state.sp_params, grid.seq))
+            mine["sp_sum_ms"] = _host_ms(lambda: sharding.reduce_grads(state.sp_params, grid.seq))
         if grid.data is not None:
-            mine["dp_mean_ms"] = timed_ms(lambda: sharding.reduce_grads(state.params, grid.data,
+            mine["dp_mean_ms"] = _host_ms(lambda: sharding.reduce_grads(state.params, grid.data,
                                                                         mean=True))
         mine["local_batch"] = int(batch["x"].shape[0])
     ranks = [None] * dist.get_world_size()
@@ -4919,6 +4941,414 @@ def phase_qm9_prepare(card, tmpdir):
             "launches": launches, "main_seconds": wall}
 
 
+_TP = 2  # model ranks of phase 40
+
+
+def _tp_rule_elements(cfg, tp):
+    """Elements of AMSGrad's moments and of the EMA one rank holds under
+    ``tp`` model ranks by JAX's rule at the recipe's nf: every parameter
+    whole, those of nf width 1/tp; the moments of the ones that get a
+    gradient (not the encoder, whose latent is detached)."""
+    import torch
+
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.parallel import sharding
+
+    nf = cfg.dynamics.egnn.hidden_nf
+    model = factory.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    per = [(p.numel() // tp if sharding.tp_sharded(p, nf, tp) else p.numel(),
+            not name.startswith("vae.encoder."))
+           for name, p in model.named_parameters()]
+    return {"optim": 3 * sum(n for n, g in per if g), "ema": sum(n for n, _ in per)}
+
+
+def _tp_step(raw, compute_dtype, grid=None):
+    """One QM9-recipe train step through the train state (AMSGrad, the
+    clip, the EMA) from seed-5 weights and the replayed noise stream 12 on
+    the global batch ``raw`` in ``compute_dtype``: on one rank on the card,
+    or over ``grid``'s data and model ranks -> (loss, gradient norm, {name:
+    the gradient AdamW applies, the shards gathered}, {name: the weights
+    after the step}, launches, state)."""
+    import torch
+
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_host, to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, info, _ = _recipe("qm9")
+    device = "cuda" if grid is None else grid.device
+    data, tp = (None, None) if grid is None else (grid.data, grid.model)
+    model = factory.build_model(cfg, device, torch.Generator().manual_seed(5))
+    state = create_train_state(model, cfg, 1e-4, ema_decay=0.9999, dp_group=data,
+                               model_group=tp, hidden_nf=cfg.dynamics.egnn.hidden_nf)
+    step = make_train_step(cfg, 0.9999, compute_dtype)
+    batch = to_device(sharding.shard_rows(prepare_host(raw, DistributionNodes(info.n_nodes)),
+                                          data), device)
+    grads, apply = {}, state.optimizer.step
+
+    def capture():
+        names = {id(p): n for n, p in model.named_parameters()}
+        grads.update({n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        mine = [(p, s) for p, s in state.shards if s.grad is not None]
+        full = sharding.gather_shards([s.grad for _, s in mine], tp) if mine else []
+        grads.update({names[id(p)]: g.cpu() for (p, _), g in zip(mine, full)})
+        apply()
+
+    state.optimizer.step = capture
+    before = _launch_counts()
+    out = step(state, batch, sharding.wrap_noise(_Replay(12), data))
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launch_counts().items()}
+    state.optimizer.step = apply
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return float(out["loss"]), float(out["grad_norm"]), grads, params, launches, state
+
+
+def _tp_rank(raw, timed, grid):
+    """One rank of phase 40 (b): the recipe step in f32 and in bf16
+    (``_tp_step``), every rank's digest of the gathered state after it; then
+    3 synchronised recipe train steps on this rank's rows of the global
+    ``timed`` batch and the gather of the updated shards alone -> rank 0's
+    losses, norms, gradients and weights, every rank's digests, launches and
+    times."""
+    import torch
+    import torch.distributed as dist
+
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.parallel import sharding, sp
+    from geoldm_tpu_torch.train.train_step import create_train_state, make_train_step
+    from geoldm_tpu_torch.train.trainer import prepare_host, to_device
+
+    out, mine = {}, {"rank": grid.rank}
+    for name, dt in (("float32", None), ("bfloat16", "bfloat16")):
+        loss, norm, grads, params, launches, state = _tp_step(raw, dt, grid)
+        out[name] = {"loss": loss, "grad_norm": norm, "grads": grads, "params": params}
+        mine[name] = {"launches": launches, "digest": sp.state_digest(state),
+                      "shard_digest": sp.shard_digest(state)}
+        del state, grads, params
+    cfg, info, _ = _recipe("qm9")
+    model = factory.build_model(cfg, grid.device, torch.Generator().manual_seed(5))
+    state = create_train_state(model, cfg, 1e-4, ema_decay=0.9999, dp_group=grid.data,
+                               model_group=grid.model, hidden_nf=cfg.dynamics.egnn.hidden_nf)
+    step = make_train_step(cfg, 0.9999)
+    batch = to_device(sharding.shard_rows(prepare_host(timed, DistributionNodes(info.n_nodes)),
+                                          grid.data), grid.device)
+    noise = sharding.wrap_noise(torch.Generator(device=grid.device).manual_seed(7), grid.data)
+    mine["step_ms"] = _host_ms(lambda: step(state, batch, noise))
+    shards = [s.detach() for _, s in state.shards]
+    fulls = [p.detach() for p, _ in state.shards]
+    mine["gather_ms"] = _host_ms(lambda: sharding.gather_shards(shards, grid.model, out=fulls))
+    mine["gather_mb"] = sum(s.numel() * s.element_size() for s in shards) / 1e6
+    mine["local_batch"] = int(batch["x"].shape[0])
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    out["ranks"] = ranks
+    return out
+
+
+def _tp_gate(what, got, ref, start, rtol, lr=1e-4):
+    """The loss within _LOSS_RTOL, the gradient norm within _LOSS_RTOL (f32)
+    or ``rtol`` (bf16) of one rank's, every gradient within ``rtol`` *
+    max|ref|, and every weight's move within 3e-2 * lr of one rank's where
+    the gradient gate resolves the gradient (|g_ref| > rtol * max|g_ref|):
+    AMSGrad's first step moves a weight by lr * g / (|g| + eps), so below
+    that the gate fixes neither the move's sign nor, near eps, its size ->
+    (worst gradient ratio, its tensor, elements left out of the move's
+    check)."""
+    import torch
+
+    _check(abs(got["loss"] - ref["loss"]) <= _LOSS_RTOL * abs(ref["loss"]),
+           f"phase 40: {what} loss {got['loss']} vs one rank {ref['loss']}")
+    n_rtol = _LOSS_RTOL if rtol <= _GRAD_RTOL else rtol
+    _check(abs(got["grad_norm"] - ref["grad_norm"]) <= n_rtol * ref["grad_norm"],
+           f"phase 40: {what} gradient norm {got['grad_norm']} vs one rank "
+           f"{ref['grad_norm']} (a factor of T would show here)")
+    _check(set(got["grads"]) == set(ref["grads"]) and ref["grads"],
+           f"phase 40: {what} and one rank gave gradients to different parameters")
+    worst, worst_name, unresolved = 0.0, "", 0
+    for k, g_ref in ref["grads"].items():
+        g = got["grads"][k]
+        _check(bool(torch.isfinite(g).all()), f"phase 40: {what} gradient of {k} not finite")
+        d, scale = float((g - g_ref).abs().max()), float(g_ref.abs().max())
+        _check(d <= rtol * scale, f"phase 40: {what} gradient of {k}: max|d|={d:.3e} > "
+                                  f"{rtol}*{scale:.3e}")
+        if scale and d / scale >= worst:
+            worst, worst_name = d / scale, k
+        resolved = g_ref.abs() > rtol * scale
+        unresolved += int((~resolved).sum())
+        moved = (got["params"][k] - start[k]) - (ref["params"][k] - start[k])
+        dm = float(moved[resolved].abs().max()) if bool(resolved.any()) else 0.0
+        _check(dm <= 3e-2 * lr, f"phase 40: {what} update of {k} differs by {dm:.3e} from one "
+                                f"rank's (> 3e-2 * lr)")
+    return worst, worst_name, unresolved
+
+
+def phase_tp_grad(card):
+    """Phase 40 (b): the QM9 recipe's train step (B=8, N=29) over TP-2 and
+    over DP-2 x TP-2 ranks sharing the card, in f32 and bf16, against one
+    rank's on the card: the gates of ``_tp_gate`` (f32 1e-3, bf16 1e-2 *
+    max|ref|), the gathered states bit-identical on every rank, each rank's
+    launches one rank's; then timed TP steps at B=64 (32 a data row on the
+    2 x 2 grid), the shards' gather alone and the one-rank step."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.synthetic import synthetic_batch
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.models.distributions import DistributionNodes
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.train_step import create_train_state
+    from geoldm_tpu_torch.train.trainer import prepare_batch
+
+    t0 = time.time()
+    raw, L = _qm9_grad_batch(), 9
+    info = get_dataset_info("qm9")
+    timed = synthetic_batch(info, 64, 29, np.random.default_rng(40))
+    cfg, _, _ = _recipe("qm9")
+    start = {n: p.detach() for n, p in factory.build_model(
+        cfg, "cpu", torch.Generator().manual_seed(5)).named_parameters()}
+    ref = {}
+    for name, dt in (("float32", None), ("bfloat16", "bfloat16")):
+        loss, norm, grads, params, _, _ = _tp_step(raw, dt)
+        ref[name] = {"loss": loss, "grad_norm": norm, "grads": grads, "params": params}
+    model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(5))
+    one_ms = _time_steps(create_train_state(model, cfg, 1e-4, ema_decay=0.9999), 0.9999,
+                         prepare_batch(timed, DistributionNodes(info.n_nodes), "cuda"))
+    del model
+    print(f"phase 40: one-rank QM9 recipe train step B=64 N=29: "
+          f"{', '.join(f'{v:.1f}' for v in one_ms)} ms (host clock around synchronised steps) "
+          f"on {card}", flush=True)
+    out = {"one_rank_step_ms": one_ms}
+    for dp in (1, 2):
+        what = f"DP-{dp} x TP-{_TP}" if dp > 1 else f"TP-{_TP}"
+        got = sharding.spawn(dp, 1, _tp_rank, (raw, timed), device="cuda", tp=_TP)
+        rows = {}
+        for name, rtol in (("float32", _GRAD_RTOL), ("bfloat16", 1e-2)):
+            worst, worst_name, unresolved = _tp_gate(f"{what} {name}", got[name], ref[name],
+                                                     start, rtol)
+            sfx = "" if name == "float32" else "_bf16"
+            per_rank = {**_no_launches(), f"egnn_block{sfx}": 1 + 2 * L,
+                        f"egnn_block_bwd{sfx}": 2 * L}
+            for r in got["ranks"]:
+                _check(r[name]["launches"] == per_rank,
+                       f"phase 40: {what} {name} rank {r['rank']} launches "
+                       f"{r[name]['launches']} != {per_rank}")
+            _check(len({r[name]["digest"] for r in got["ranks"]}) == 1,
+                   f"phase 40: {what} {name}: the gathered train states differ")
+            shard = [r[name]["shard_digest"] for r in got["ranks"]]
+            _check(all(shard[i] == shard[i % _TP] for i in range(len(shard)))
+                   and len(set(shard[:_TP])) == _TP,
+                   f"phase 40: {what} {name}: shard digests {[s[:8] for s in shard]}")
+            rows[name] = {"loss": got[name]["loss"], "loss_one_rank": ref[name]["loss"],
+                          "grad_norm": got[name]["grad_norm"],
+                          "grad_norm_one_rank": ref[name]["grad_norm"], "worst_rel": worst,
+                          "worst": worst_name, "moves_unresolved": unresolved}
+            print(f"phase 40: {what} {name} train-step gradient (QM9 recipe, B={len(raw['x'])} "
+                  f"global): loss {got[name]['loss']:.6f} one rank {ref[name]['loss']:.6f}; "
+                  f"grad norm {got[name]['grad_norm']:.6f} one rank "
+                  f"{ref[name]['grad_norm']:.6f}; worst max|d|/max|ref| {worst:.2e} "
+                  f"({worst_name}; tol {rtol}); weights' moves within 3e-2*lr where the "
+                  f"gate resolves the gradient ({unresolved} elements below it); gathered "
+                  f"states bit-identical on "
+                  f"{len(got['ranks'])} ranks; launches per rank "
+                  f"{json.dumps({k: v for k, v in per_rank.items() if v})} on {card}",
+                  flush=True)
+        for r in got["ranks"]:
+            print(f"phase 40: {what} train step, 64 molecules global, {r['local_batch']} on "
+                  f"rank {r['rank']}: {', '.join(f'{v:.1f}' for v in r['step_ms'])} ms; gather "
+                  f"of the shards alone {', '.join(f'{v:.2f}' for v in r['gather_ms'])} ms, "
+                  f"{r['gather_mb']:.1f} MB a rank a step (host clock around synchronised "
+                  f"calls; {dp * _TP} ranks sharing one card over gloo: correctness and "
+                  f"overhead, not scaling) on {card}", flush=True)
+        rows.update({k: [r[k] for r in got["ranks"]] for k in ("step_ms", "gather_ms")})
+        rows["gather_mb"] = got["ranks"][0]["gather_mb"]
+        out["tp2" if dp == 1 else "dp2_tp2"] = rows
+        del got
+    out["seconds"] = time.time() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(card, tmpdir, qm9_dir):
+    """Phase 40: tensor parallelism. (a) ``cli.main_qm9 --tp 2`` at the QM9
+    recipe (nf=256, 9 layers, latent_nf=1, T=1000, B=64, EMA 0.9999),
+    resumed from phase 7's checkpoint (a ``--tp 1`` run's: the loaded state
+    equal to its files tensor for tensor) for 3 steps and one eval with
+    50-jump stability samples, two ranks sharing the card over gloo:
+    launches exact per rank (one rank's run: each model rank runs every
+    step, eval batch and chunk), the gathered states bit-identical, the
+    shards not, each rank's optimizer and EMA elements the rule's; (b)
+    ``phase_tp_grad``; (c) (a)'s checkpoint resumed under ``--tp 1`` for one
+    step; (d) ``cli.main_geom_drugs --tp 2`` at the GEOM recipe, one step of
+    32 molecules at pad 184 (#3/#4/#5 on every rank)."""
+    import torch
+
+    from geoldm_tpu_torch.cli import main_geom_drugs, main_qm9
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.data.geom import GeomLoader, load_split_data
+    from geoldm_tpu_torch.data.synthetic import write_geom_conformers, write_qm9_splits
+    from geoldm_tpu_torch.parallel import sharding
+    from geoldm_tpu_torch.train.sampling import (
+        DEFAULT_SAMPLE_BUCKETS,
+        chunk_pads,
+        default_buckets,
+    )
+    from geoldm_tpu_torch.utils.buckets import covering_buckets
+
+    # (a)
+    info = get_dataset_info("qm9")
+    B, steps, T, K, L, n_stab = 64, 3, 1000, 50, 9, 4
+    qm9_tp = os.path.join(tmpdir, "qm9")
+    write_qm9_splits(qm9_tp, info, {"train": B * steps, "valid": B, "test": B}, seed=40)
+    out = os.path.join(tmpdir, "out")
+    width = ["--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", str(L),
+             "--latent_nf", "1", "--diffusion_steps", str(T), "--batch_size", str(B),
+             "--ema_decay", "0.9999", "--seed", "0", "--no_wandb"]
+    phase7 = os.path.join(qm9_dir, "out", "smoke")
+    argv = ["--datadir", qm9_tp, "--outdir", out, "--exp_name", "tp", "--tp", str(_TP),
+            "--resume", phase7, "--start_epoch", "1", "--n_epochs", "2", "--test_epochs", "1",
+            "--n_stability_samples", str(n_stab), "--eval_n_steps", str(K), *width]
+    rule = sharding.placement(_TP, "cuda")[2]
+    print(f"phase 40: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    wall = time.time() - t0
+    _check(not any(_launch_counts().values()), "phase 40: the launching process ran kernels")
+    losses = summary["losses"][0]
+    _check(len(losses) == steps and bool(np.all(np.isfinite(losses))), f"losses {losses}")
+    _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
+           f"phase 40: NLLs {summary['nll_val']} {summary['nll_test']}")
+    replicas = _check_replicas(40, summary, _TP)
+    _check(len({r["shard_digest"] for r in replicas}) == _TP,
+           "phase 40: the model ranks hold the same shards")
+    _check(len({r["resumed_digest"] for r in replicas}) == 1,
+           "phase 40: the ranks resumed different states")
+    n_equal = _equal_files(summary["resumed"], os.path.join(phase7, "latest"), 40)
+    pads = chunk_pads(summary["sample_sizes"][0], n_stab,
+                      covering_buckets(DEFAULT_SAMPLE_BUCKETS, info["max_n_nodes"]))
+    want = _rank_expected(1 + 2 * L, 1 + 3 * L, steps, 2, pads, K, L, 1, False)
+    for r in replicas:
+        _check(r["launches"] == want, f"phase 40: rank {r['rank']} launches {r['launches']} "
+                                      f"!= {want} (chunk pads {pads})")
+    cfg, _, _ = _recipe("qm9")
+    elements, one_rank = _tp_rule_elements(cfg, _TP), _tp_rule_elements(cfg, 1)
+    for r in replicas:
+        _check(r["state_elements"] == elements, f"phase 40: rank {r['rank']} holds "
+                                                f"{r['state_elements']} != {elements}")
+    ckpt = os.path.join(out, "tp", "latest")
+    files = sorted(os.listdir(ckpt))
+    _check(files == sorted(["args.pickle", "generative_model.npy", "generative_model_ema.npy",
+                            "optim.npy", "train_state.npy"]), f"phase 40: {ckpt} holds {files}")
+    optim = torch.load(os.path.join(ckpt, "optim.npy"), map_location="cpu", weights_only=True)
+    model_sd = torch.load(os.path.join(ckpt, "generative_model.npy"), weights_only=True)
+    shapes = [tuple(v.shape) for k, v in model_sd.items() if not k.endswith("buffer")
+              and k != "gamma.gamma" and not k.startswith("vae.encoder.")]
+    _check([tuple(e["exp_avg"].shape) for _, e in sorted(optim["state"].items())] == shapes,
+           "phase 40: optim.npy's moments are not the full model's, in its order")
+    mb = {k: 4 * v / 1e6 for k, v in elements.items()}
+    print(f"phase 40: {rule}; resumed phase 7's --tp 1 checkpoint at step "
+          f"{summary['resumed']['step']} ({n_equal} tensors and counters equal its files); "
+          f"{steps} steps of {B} molecules (all {B} on each model rank), "
+          f"losses {[round(v, 4) for v in losses]}, valid NLL {summary['nll_val'][0]:.4f}, "
+          f"test NLL {summary['nll_test'][0]:.4f}, stability {summary['stability'][0]} (chunk "
+          f"pads {pads}, every chunk on both ranks); launches per rank "
+          f"{json.dumps({k: v for k, v in want.items() if v})} = one rank's run; gathered "
+          f"states bit-identical (sha256 {replicas[0]['digest'][:16]}), shards differ; per "
+          f"rank {elements['optim']} AMSGrad + {elements['ema']} EMA elements "
+          f"({mb['optim'] + mb['ema']:.1f} MB f32; one rank {one_rank['optim']} + "
+          f"{one_rank['ema']}, {4 * (one_rank['optim'] + one_rank['ema']) / 1e6:.1f} MB) = the "
+          f"rule's; latest/ holds one rank's five files, optim.npy keyed by the full model; "
+          f"main() {wall:.1f} s, epoch {summary['epoch_seconds'][0]:.1f} s on {card}",
+          flush=True)
+    res = {"launches": {k: sum(r["launches"][k] for r in replicas) for k in _no_launches()},
+           "rule": rule, "losses": losses, "nll_val": summary["nll_val"][0],
+           "nll_test": summary["nll_test"][0], "stability": summary["stability"][0],
+           "state_elements": elements, "state_elements_one_rank": one_rank,
+           "resumed_tensors_equal": n_equal, "main_seconds": wall,
+           "epoch_seconds": summary["epoch_seconds"][0]}
+    del summary
+
+    # (b)
+    res["grad"] = phase_tp_grad(card)
+
+    # (c): (a)'s checkpoint under --tp 1, one step.
+    argv = ["--datadir", qm9_tp, "--outdir", out, "--exp_name", "tp_to_1", "--resume",
+            os.path.join(out, "tp"), "--break_train_epoch", "True", "--start_epoch", "1",
+            "--n_epochs", "2", "--test_epochs", "2", *width]
+    print(f"phase 40: python -m geoldm_tpu_torch.cli.main_qm9 {' '.join(argv)}", flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_qm9.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launch_counts()
+    n_equal = _equal_files(summary["resumed"], ckpt, 40)
+    losses = summary["losses"][0]
+    want = {**_no_launches(), "egnn_block": 1 + 2 * L, "egnn_block_bwd": 2 * L}
+    _check(len(losses) == 1 and bool(np.all(np.isfinite(losses))) and launches == want,
+           f"phase 40: --tp 1 resume: losses {losses}, launches {launches} != {want}")
+    print(f"phase 40: --tp 1 resumed the --tp {_TP} checkpoint at step "
+          f"{summary['resumed']['step']}: {n_equal} tensors and counters equal its files; one "
+          f"step, loss {losses[0]:.4f}, launches {json.dumps({k: v for k, v in want.items() if v})}"
+          f"; main() {wall:.1f} s on {card}", flush=True)
+    res["resume_to_tp1"] = {"tensors_equal": n_equal, "launches": launches,
+                            "main_seconds": wall}
+    del summary
+
+    # (d)
+    geom = get_dataset_info("geom")
+    B, L, inv, n_stab = 32, 4, 1, 2
+    hist = sorted(dict(geom.n_nodes_histogram))
+    rng = np.random.default_rng(40)
+    sizes = [int(v) for v in rng.choice([k for k in hist if 129 <= k <= 181], size=B)]
+    geom_dir = os.path.join(tmpdir, "geom")
+    path = write_geom_conformers(geom_dir, geom, len(sizes) * 5 // 4, seed=40, sizes=sizes)
+    argv = ["--datadir", geom_dir, "--outdir", out, "--exp_name", "geom_tp", "--tp", str(_TP),
+            "--train_diffusion", "--trainable_ae", "--nf", "256", "--n_layers", str(L),
+            "--latent_nf", "2", "--include_charges", "False", "--diffusion_steps", str(T),
+            "--batch_size", str(B), "--lr", "5e-5", "--ema_decay", "0.9999", "--n_epochs",
+            "1", "--test_epochs", "1", "--n_stability_samples", str(n_stab), "--eval_n_steps",
+            str(K), "--seed", "0", "--no_wandb"]
+    print(f"phase 40: python -m geoldm_tpu_torch.cli.main_geom_drugs {' '.join(argv)}",
+          flush=True)
+    _zero_launch_counts()
+    t0 = time.time()
+    summary = main_geom_drugs.main(argv)
+    wall = time.time() - t0
+    _check(not any(_launch_counts().values()), "phase 40: the launching process ran kernels")
+    losses = summary["losses"][0]
+    _check(len(losses) == 1 and bool(np.all(np.isfinite(losses))), f"losses {losses}")
+    replicas = _check_replicas(40, summary, _TP)
+    train, val, test = load_split_data(path)
+    gpads = {"train": [int(b["node_mask"].shape[1]) for b in GeomLoader(train, geom, B)],
+             "eval": [int(b["node_mask"].shape[1]) for data in (val, test)
+                      for b in GeomLoader(data, geom, B, shuffle=False, include_charges=False)],
+             "chunks": chunk_pads(summary["sample_sizes"][0], n_stab,
+                                  covering_buckets(default_buckets(geom), geom["max_n_nodes"]))}
+    _check(gpads["train"] == [184], f"phase 40: train batch pads {gpads['train']}")
+    want = _geom_expected(gpads, L, inv, (K + 1) * L + L)
+    for r in replicas:
+        _check(r["launches"] == want, f"phase 40: GEOM rank {r['rank']} launches "
+                                      f"{r['launches']} != {want} (pads {gpads})")
+    print(f"phase 40: GEOM --tp {_TP}: 1 step of {B} molecules at pad 184 on each model rank, "
+          f"loss {losses[0]:.4f}, valid NLL {summary['nll_val'][0]:.4f}, test NLL "
+          f"{summary['nll_test'][0]:.4f}, stability {summary['stability'][0]}; launches per "
+          f"rank {json.dumps({k: v for k, v in want.items() if v})} = what the code implies "
+          f"for pads {gpads}; gathered states bit-identical; main() {wall:.1f} s on {card}",
+          flush=True)
+    res["geom"] = {"launches": {k: sum(r["launches"][k] for r in replicas)
+                                for k in _no_launches()},
+                   "pads": gpads, "losses": losses, "main_seconds": wall}
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
 
@@ -5070,6 +5500,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         qm9_prep = phase_qm9_prepare(card, tmpdir)
     lap("39")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tp = phase_tp(card, tmpdir, qm9_run.name)
+    lap("40")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -5090,7 +5523,7 @@ def main(argv=None) -> int:
         "edm": edm, "learned": learned, "gnn": gnn, "serve_warmup": serving,
         "bench_train": bench, "rendering": rendering, "geom_data": geom_data,
         "lowp_kernels": lowp_rows, "lowp_training": lowp_train, "qm9_prepare": qm9_prep,
-        "phase_seconds": phase_seconds,
+        "tp": tp, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
@@ -5100,8 +5533,8 @@ def main(argv=None) -> int:
     # runs of phases 18-20, phase 26's conditional training, guided scoring
     # and serving, the ranks of phases 27-30's CLI runs, phases 31-33's
     # variants, phases 34-37: the servers' warm-ups and requests,
-    # bench_train, the rendering paths and the GEOM data step, and phase 39's
-    # QM9 run on prepared splits).
+    # bench_train, the rendering paths and the GEOM data step, phase 39's
+    # QM9 run on prepared splits, and the ranks of phase 40's --tp runs).
     geom_train_launches = geom_train["launches"]
     later = [resume["qm9_resume"]["launches"], resume["ae_path"]["vae_launches"],
              resume["ae_path"]["ldm_launches"], resume["geom_resume"]["launches"],
@@ -5110,7 +5543,8 @@ def main(argv=None) -> int:
              conditional["serve"]["launches"], dp_train["launches"], grid_train["launches"],
              cond_sp["launches"], dp_eval["launches"], edm["launches"], learned["launches"],
              gnn["launches"], serving["launches"], bench["launches"], rendering["launches"],
-             geom_data["launches"], qm9_prep["launches"]]
+             geom_data["launches"], qm9_prep["launches"], tp["launches"],
+             tp["resume_to_tp1"]["launches"], tp["geom"]["launches"]]
 
     def later_launches(kernel):
         return sum(counts[kernel] for counts in later)

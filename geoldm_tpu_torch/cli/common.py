@@ -1,13 +1,18 @@
 """Training CLI plumbing (port of ``geoldm_tpu/cli/common.py:17-434``): the
 reference flag surface (QM9 and GEOM-Drugs defaults), flags -> ModelConfig,
-and the training run: on one device, data-parallel, sequence-parallel, or
-both.
+and the training run: on one device, data-parallel, sequence-parallel,
+tensor-parallel, or data-parallel with either.
 
 ``--dp D`` splits the global ``--batch_size`` over D data ranks and averages
 their gradients (``parallel.sharding``); ``--sp S`` splits every EGNN's atom
-rows over S ranks (``parallel.sp``); both together run D x S ranks. ``--dp
-0`` (the default) means every card, divided by ``--sp``, as JAX's
-``make_mesh(dp=0)``; 1 with ``--device cpu``. One command spawns the ranks,
+rows over S ranks (``parallel.sp``); ``--tp T`` shards every parameter of
+``--nf`` width (JAX's ``param_shardings(hidden_nf=nf)`` rule), with its
+AMSGrad moments and EMA, over T model ranks, which gather the full weights
+after each update and run the same kernels on the same rows
+(``train.train_step``); D x S or D x T ranks together (``--sp`` and ``--tp``
+do not combine, as in JAX). ``--dp 0`` (the default) means every card,
+divided by ``--sp`` or ``--tp``, as JAX's ``make_mesh(dp=0)``; 1 with
+``--device cpu``. One command spawns the ranks,
 with the placement rule of ``parallel.sharding``; every rank prepares the
 same global batches, keeps its rows and draws its rows of the global noise,
 so the replicas stay bit-identical; only global rank 0 prints and writes
@@ -38,8 +43,8 @@ trace a rank and epoch, ``DIR/trace_epoch<e>_rank<r>.json`` (JAX's
 ``jax.profiler`` trace per epoch); ``--visualize_every_batch`` is accepted
 and unused, as in JAX. ``GEOLDM_PALLAS_EDGE_LOWP=1`` in the environment
 runs ``--compute_dtype bfloat16_pallas`` with the whole-molecule blocks'
-edge chain in bf16 (``nn.core``). Of JAX's flags only ``--tp`` is not
-ported: it exits with a two-line "not ported yet" message.
+edge chain in bf16 (``nn.core``). Every flag of JAX's training CLIs is
+ported.
 """
 
 from __future__ import annotations
@@ -72,7 +77,9 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel ranks, each taking batch_size / dp molecules of every "
                         "batch (0: every card, divided by --sp)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel devices (not ported yet)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: each owns 1/tp of every --nf-wide parameter "
+                        "with its optimizer state and EMA (--nf must divide by it)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks: split the EGNN's O(N^2) pair grid over atom "
                         "rows (pays off at GEOM-scale molecules)")
@@ -138,21 +145,16 @@ def add_model_args(p: argparse.ArgumentParser, qm9_defaults: bool = True) -> Non
                    help="cuda (default) or cpu, which runs the plain PyTorch path")
 
 
-def _not_ported(what: str) -> None:
-    raise SystemExit(f"{what} is not ported yet.\n"
-                     "geoldm_tpu_torch trains on one device or over data-parallel (--dp) and "
-                     "sequence-parallel (--sp) ranks, conditioned or not; no --tp.")
-
-
 def resolve_dp(args) -> int:
     """The data-parallel width the flags ask for: ``--dp``, or with ``--dp
-    0`` every card divided by ``--sp``, as JAX's ``make_mesh(dp=0)`` and
-    ``max(1, n_dev // sp)`` (1 on the CPU and on one card)."""
+    0`` every card divided by ``--sp`` or ``--tp``, as JAX's
+    ``make_mesh(dp=0)`` (``n_dev // tp``) and ``max(1, n_dev // sp)`` (1 on
+    the CPU and on one card)."""
     if args.dp <= 0:
         import torch
 
         n_dev = torch.cuda.device_count() if args.device != "cpu" else 1
-        return max(1, n_dev // max(args.sp, 1))
+        return max(1, n_dev // (max(args.sp, 1) * max(args.tp, 1)))
     return args.dp
 
 
@@ -179,12 +181,22 @@ def epoch_trace(trace_dir, epoch: int, rank: int, device):
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_epoch{epoch}_rank{rank}.json"))
 
 
+def _check_tp(args) -> None:
+    """``--nf`` must split evenly over ``--tp`` model ranks (JAX's
+    ``device_put`` fails later on an uneven shard)."""
+    if args.tp > 1 and args.nf % args.tp:
+        raise SystemExit(f"--tp {args.tp} shards every --nf-wide parameter over {args.tp} "
+                         f"model ranks, but --nf {args.nf} does not divide by {args.tp}")
+
+
 def check_ported(args) -> None:
-    """Exit with a two-line message for any flag outside the ported slice."""
+    """Exit with a message for any combination of flags the run refuses, at
+    argument checking."""
     if args.sp > 1 and args.tp > 1:
         raise SystemExit("--sp and --tp cannot be combined")
-    if args.tp > 1:
-        _not_ported(f"--tp {args.tp}")
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp}: the model ranks must be at least 1")
+    _check_tp(args)
     dp = resolve_dp(args)
     if dp > args.batch_size:
         # JAX's train_epoch raises on an epoch of batches the data axis
@@ -270,27 +282,17 @@ def visualize_epoch(model, epoch_dir: str, seed: int, dataset_info, nodes_dist,
 
 
 def launch(args, train_fn):
-    """``train_fn(args, None)``, or with D = ``resolve_dp(args)`` and S =
-    ``--sp`` over D*S > 1 ranks ``train_fn(args, grid)`` in each spawned rank
-    (``parallel.sharding.spawn``), returning rank 0's summary. ``train_fn``
-    is a module-level function (the ranks import it)."""
+    """``train_fn(args, None)``, or with D = ``resolve_dp(args)``, S =
+    ``--sp`` and T = ``--tp`` over D*S*T > 1 ranks ``train_fn(args, grid)``
+    in each spawned rank (``parallel.sharding.spawn``), returning rank 0's
+    summary. ``train_fn`` is a module-level function (the ranks import
+    it)."""
     dp = resolve_dp(args)
-    if dp * args.sp > 1:
+    if dp * args.sp * args.tp > 1:
         from geoldm_tpu_torch.parallel import sharding
 
-        return sharding.spawn(dp, args.sp, train_fn, (args,), device=args.device)
+        return sharding.spawn(dp, args.sp, train_fn, (args,), device=args.device, tp=args.tp)
     return train_fn(args, None)
-
-
-def _snapshot(state) -> dict:
-    """A CPU copy of a train state: model, EMA, AdamW, clip and step."""
-    import copy
-
-    cpu = lambda m: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}  # noqa: E731
-    return {"model": cpu(state.model), "ema": cpu(state.ema_model),
-            "optim": copy.deepcopy(state.optimizer.state_dict()),
-            "clip": state.clip.state_dict() if state.clip is not None else None,
-            "step": state.step}
 
 
 def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
@@ -318,15 +320,20 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     ``vae`` before the first step; a resume then overrides them.
 
     With ``grid`` (a ``parallel.sharding.Grid``) this is one rank of a
-    data- and/or sequence-parallel run: the model's EGNNs run over the grid's
-    SP group (train steps and valid/test NLL), each data rank takes its rows
-    of every batch and of the noise, and the stability samples run on the
-    single-device route, their chunks fanned out over the data ranks (as the
-    JAX CLI samples without SP and over its data axis); only global rank 0
-    writes checkpoints and metrics. Every rank loads the same checkpoints.
-    The summary then holds, in place of the train state, ``replicas``: per
-    rank (all D*S of them) its train-state digest (and the one it resumed
-    from), kernel launch counts, stability and sampled sizes."""
+    data-, sequence- or tensor-parallel run: the model's EGNNs run over the
+    grid's SP group (train steps and valid/test NLL), each data rank takes
+    its rows of every batch and of the noise, and the stability samples run
+    on the single-device route, their chunks fanned out over the data ranks
+    (as the JAX CLI samples without SP and over its data axis; the model
+    ranks of a data row repeat them, as JAX's batch is replicated over
+    ``model``); only global rank 0 writes checkpoints and metrics. Every
+    rank loads the same checkpoints (under TP, keeping its rows). Under TP
+    every rank gathers the EMA model before each evaluation and joins each
+    save's gathers. The summary then holds, in place of the train state,
+    ``replicas``: per rank (all D*S or D*T of them) its train-state digest
+    (of the gathered state, and the one it resumed from), kernel launch
+    counts, stability and sampled sizes, and under TP its shard digest and
+    its elements of optimizer and EMA state."""
     import torch
 
     from geoldm_tpu_torch.data.qm9 import QM9Loader
@@ -338,8 +345,10 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     from geoldm_tpu_torch.train import trainer as trainer_mod
     from geoldm_tpu_torch.train.train_step import (
         create_train_state,
+        ema_module,
         make_eval_nll,
         make_train_step,
+        state_elements,
     )
     from geoldm_tpu_torch.utils import checkpoint as ckpt
     from geoldm_tpu_torch.utils.convert import MODEL_ARGS
@@ -362,6 +371,7 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
                     setattr(args, name, getattr(saved, name))
             if model_cfg.kind == "diffusion":
                 del args.train_diffusion  # EDM's args shape (utils.convert.checkpoint_kind)
+            _check_tp(args)  # --tp is the run's; the width is the checkpoint's
     conditioning = list(args.conditioning)
     n_props = cond.property_channels(model_cfg)
     if n_props != len(conditioning):
@@ -375,24 +385,26 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     args.context_indicator = model_cfg.context_indicator
     sp_group = grid.seq if grid is not None else None
     data = grid.data if grid is not None else None
+    model_group = grid.model if grid is not None else None
     device = grid.device if grid is not None else args.device
     model = factory.build_model(model_cfg, device, torch.Generator().manual_seed(args.seed),
                                 sp_group=sp_group)
     device = next(model.parameters()).device
     is_main = grid is None or grid.is_main
-    state = create_train_state(model, model_cfg, args.lr, clip_grad=args.clip_grad,
-                               ema_decay=args.ema_decay, dp_group=data)
     if args.ae_path and model_cfg.kind == "latent_diffusion":
-        vae_sd = ckpt.load_first_stage(args.ae_path, use_ema=args.ema_decay > 0)
-        for m in {id(state.model): state.model, id(state.ema_model): state.ema_model}.values():
-            m.vae.load_state_dict(vae_sd, strict=True)
+        # Before the train state, whose EMA starts as a copy of the model.
+        model.vae.load_state_dict(ckpt.load_first_stage(args.ae_path,
+                                                        use_ema=args.ema_decay > 0), strict=True)
         print(f"first stage loaded from {args.ae_path}", flush=True)
+    state = create_train_state(model, model_cfg, args.lr, clip_grad=args.clip_grad,
+                               ema_decay=args.ema_decay, dp_group=data,
+                               model_group=model_group, hidden_nf=args.nf)
     summary = {"losses": [], "epoch_seconds": [], "nll_val": [], "nll_test": [],
                "stability": [], "rdkit": [], "sample_sizes": [], "checkpoints": [],
                "visualized": [], "state": state}
     if args.resume:
         ckpt.load_train_state(resume_dir, state)
-        summary["resumed"] = _snapshot(state)
+        summary["resumed"] = ckpt.full_state(state)
         if grid is not None:
             summary["resumed_digest"] = sp.state_digest(state)
         print(f"resumed from {args.resume} at step {state.step}", flush=True)
@@ -451,7 +463,8 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
             logger.log(record, step=epoch)
             if epoch % args.test_epochs:
                 continue
-            eval_model = state.ema_model
+            # Every rank: under --tp the EMA is gathered over the model ranks.
+            eval_model = ema_module(state)
             if model_cfg.kind != "vae":
                 with sp.detached(eval_model):  # SP or not, the samples run on one device
                     validity, rdkit_tuple, molecules = trainer_mod.analyze_and_save(
@@ -484,17 +497,17 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
                 **cond_kw)
             logger.log({"nll_val": nll_val}, step=epoch)
             summary["nll_val"].append(nll_val)
-            if args.save_model and is_main:
+            # Every rank saves (under --tp it joins the gathers); rank 0 writes.
+            if args.save_model:
                 args.current_epoch = epoch + 1
-                summary["checkpoints"].append(
-                    ckpt.save_checkpoint(os.path.join(outdir, "latest"), state, args,
-                                         args.ema_decay))
+                path = ckpt.save_checkpoint(os.path.join(outdir, "latest"), state, args,
+                                            args.ema_decay, write=is_main)
+                summary["checkpoints"] += [path] if is_main else []
             if nll_val < best_nll_val and args.save_model:
                 best_nll_val = nll_val
-                if is_main:
-                    summary["checkpoints"].append(
-                        ckpt.save_checkpoint(os.path.join(outdir, "best"), state, args,
-                                             args.ema_decay))
+                path = ckpt.save_checkpoint(os.path.join(outdir, "best"), state, args,
+                                            args.ema_decay, write=is_main)
+                summary["checkpoints"] += [path] if is_main else []
                 nll_test = trainer_mod.evaluate_nll(
                     eval_model, eval_nll, loaders["test"], nodes_dist,
                     _generator(device, args.seed, 2, epoch), partition="test",
@@ -503,6 +516,7 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
                 logger.log({"nll_test": nll_test, "best_nll_val": best_nll_val}, step=epoch)
                 summary["nll_test"].append(nll_test)
                 print(f"best valid NLL {best_nll_val:.4f}, test NLL {nll_test:.4f}", flush=True)
+            del eval_model
     finally:
         logger.close()
     if grid is not None:
@@ -511,6 +525,9 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
         replica = {"rank": grid.rank, "digest": sp.state_digest(state),
                    "launches": kernel_launches(), "stability": summary["stability"],
                    "sample_sizes": [np.asarray(s).tolist() for s in summary["sample_sizes"]]}
+        if state.model_group is not None:
+            replica["shard_digest"] = sp.shard_digest(state)
+            replica["state_elements"] = state_elements(state)
         if "resumed_digest" in summary:
             replica["resumed_digest"] = summary["resumed_digest"]
         replicas = [None] * dist.get_world_size()

@@ -14,9 +14,11 @@ are padded to the size buckets of ``data.geom.DEFAULT_BUCKETS``; blocks
 padded past 64 atoms run the row-tiled kernels. ``--dp D`` splits every
 batch over D spawned data ranks (``parallel.sharding``; the default 0 takes
 every card), ``--sp S`` every EGNN's atom rows over S ranks (kernels #6 and
-#7; ``parallel.sp``), both together a D x S grid; the command prints where
-the ranks run. ``--device cpu`` runs the plain PyTorch path on the CPU (with
-``--dp`` or ``--sp``, gloo ranks on the CPU). Checkpoints go to
+#7; ``parallel.sp``), both together a D x S grid; ``--tp T`` shards every
+``--nf``-wide parameter, with its optimizer state and EMA, over T model
+ranks (a D x T grid with ``--dp``); the command prints where the ranks run.
+``--device cpu`` runs the plain PyTorch path on the CPU (with ``--dp``,
+``--sp`` or ``--tp``, gloo ranks on the CPU). Checkpoints go to
 ``<outdir>/<exp_name>/{latest,best}/`` in the upstream layout with
 ``dataset='geom'``, which ``cli.serve --dataset geom`` loads.
 """
@@ -45,7 +47,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Train; returns ``cli.common.run_training``'s summary (rank 0's with
-    ``--dp`` or ``--sp``)."""
+    ``--dp``, ``--sp`` or ``--tp``)."""
     args = parse_args(argv)
 
     from geoldm_tpu_torch.cli.common import check_ported, launch
@@ -55,7 +57,7 @@ def main(argv=None) -> dict:
 
 
 def train(args, grid=None) -> dict:
-    """Load the splits and train (one rank of a DP and/or SP run with
+    """Load the splits and train (one rank of a DP, SP or TP run with
     ``grid``)."""
     from geoldm_tpu_torch.cli.common import run_training
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info

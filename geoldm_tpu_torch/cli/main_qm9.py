@@ -12,7 +12,9 @@ prepared from the raw GDB9 files there, fetched if absent
 (``data.qm9.prepare_qm9``), and ``--force_download`` rebuilds them.
 ``--dp D`` splits every batch over D spawned data ranks
 (``parallel.sharding``; the default 0 takes every card), ``--sp S`` every
-EGNN's atom rows over S ranks (``parallel.sp``), both together a D x S grid.
+EGNN's atom rows over S ranks (``parallel.sp``), both together a D x S grid;
+``--tp T`` shards every ``--nf``-wide parameter, with its optimizer state
+and EMA, over T model ranks (a D x T grid with ``--dp``).
 ``--device cpu`` runs the plain PyTorch path on the CPU.
 Checkpoints go to ``<outdir>/<exp_name>/{latest,best}/`` in the upstream
 layout, which ``geoldm_tpu_torch.cli.serve --model_path`` loads.
@@ -39,7 +41,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Train; returns ``cli.common.run_training``'s summary (rank 0's with
-    ``--dp`` or ``--sp``)."""
+    ``--dp``, ``--sp`` or ``--tp``)."""
     args = parse_args(argv)
 
     from geoldm_tpu_torch.cli.common import check_ported, launch
@@ -49,7 +51,7 @@ def main(argv=None) -> dict:
 
 
 def train(args, grid=None) -> dict:
-    """Load the splits and train (one rank of a DP and/or SP run with
+    """Load the splits and train (one rank of a DP, SP or TP run with
     ``grid``)."""
     from geoldm_tpu_torch.cli.common import run_training
     from geoldm_tpu_torch.data.datasets_config import get_dataset_info

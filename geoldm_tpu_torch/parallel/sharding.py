@@ -1,6 +1,7 @@
-"""Data parallelism (DP) and the grid of ranks (counterpart of
-``geoldm_tpu/parallel/sharding.py``, whose ``data`` mesh axis shards the
-batch while XLA inserts the gradient all-reduce).
+"""Data parallelism (DP), tensor parallelism (TP) and the grid of ranks
+(counterpart of ``geoldm_tpu/parallel/sharding.py``, whose ``data`` mesh
+axis shards the batch while XLA inserts the gradient all-reduce, and whose
+``model`` axis shards the hidden-width parameters).
 
 ``--batch_size`` is the global batch: each of D data ranks computes B/D of
 its molecules, and the gradient is the mean over the global batch, so a DP-D
@@ -11,8 +12,19 @@ r // S and seq index r % S, as on JAX's (data, seq) mesh
 atom rows of that row's molecules (``parallel.sp``); the D ranks of a seq
 column hold different molecules and average their gradients.
 
+With ``--tp T`` instead of ``--sp``, D x T ranks form the grid of JAX's
+``make_mesh(dp, tp)`` (``devices.reshape(dp, tp)``): rank r at data index
+r // T and model index r % T. JAX's ``param_shardings(hidden_nf=nf)``
+column-shards every parameter leaf whose last dimension is ``nf``
+(``tp_sharded``); the T ranks of a data row each own 1/T of those leaves
+(``own_shard``), with their optimizer state and EMA, and put the full
+weights back together after each update (``gather_shards``). The batch is
+split over ``data`` only, as JAX's ``batch_sharding``, so the ranks of a
+data row run the same whole-operand kernels on the same rows, as JAX's
+Pallas route does (a ``pallas_call`` is opaque to GSPMD).
+
 Ranks are processes joined by ``torch.distributed``; ``spawn`` starts them
-and prints the placement rule (``placement``), for all D*S ranks:
+and prints the placement rule (``placement``), for all D*S (or D*T) ranks:
 
 - ``--device cpu``: every rank on the CPU, gloo;
 - at least D*S cards: rank r on ``cuda:r``, NCCL;
@@ -74,15 +86,18 @@ class RankGroup:
 
 @dataclass
 class Grid:
-    """This rank's place in the D x S grid: its global ``rank``, ``data``
-    (the D ranks of its seq column, over which the batch is split; None when
-    D = 1) and ``seq`` (the S ranks of its data row, over which the atom
-    rows are split; None when S = 1)."""
+    """This rank's place in the D x S (or D x T) grid: its global ``rank``,
+    ``data`` (the D ranks of its seq or model column, over which the batch
+    is split; None when D = 1), ``seq`` (the S ranks of its data row, over
+    which the atom rows are split; None when S = 1) and ``model`` (the T
+    ranks of its data row, over which the hidden-width parameters are
+    sharded; None when T = 1)."""
 
     rank: int
     device: torch.device
     data: Optional[RankGroup] = None
     seq: Optional[RankGroup] = None
+    model: Optional[RankGroup] = None
 
     @property
     def is_main(self) -> bool:
@@ -109,35 +124,43 @@ def placement(size: int, device="cuda"):
                      f"this host has {n} cards")
 
 
-def _make_grid(rank: int, dp: int, sp: int, backend: str, dev) -> Grid:
+def _make_grid(rank: int, dp: int, sp: int, backend: str, dev, tp: int = 1) -> Grid:
     """Every rank creates every row's and every column's group, in the same
     order (``dist.new_group`` is collective); a grid of one row or one
-    column uses the world group."""
+    column uses the world group. A data row is S seq ranks or T model ranks
+    (never both)."""
     grid = Grid(rank, dev)
-    d, s = divmod(rank, sp)
-    if dp > 1 and sp > 1:
-        rows = [dist.new_group([i * sp + j for j in range(sp)]) for i in range(dp)]
-        cols = [dist.new_group([i * sp + j for i in range(dp)]) for j in range(sp)]
-        grid.data = RankGroup(d, dp, backend, dev, cols[s])
-        grid.seq = RankGroup(s, sp, backend, dev, rows[d])
+    inner = sp * tp
+    d, i = divmod(rank, inner)
+    row = None
+    if dp > 1 and inner > 1:
+        rows = [dist.new_group([k * inner + j for j in range(inner)]) for k in range(dp)]
+        cols = [dist.new_group([k * inner + j for k in range(dp)]) for j in range(inner)]
+        grid.data = RankGroup(d, dp, backend, dev, cols[i])
+        row = RankGroup(i, inner, backend, dev, rows[d])
     elif dp > 1:
         grid.data = RankGroup(d, dp, backend, dev)
     else:
-        grid.seq = RankGroup(s, sp, backend, dev)
+        row = RankGroup(i, inner, backend, dev)
+    if tp > 1:
+        grid.model = row
+    else:
+        grid.seq = row
     return grid
 
 
-def _rank_main(rank, dp, sp, fn, args, device, store, threads):
-    devices, backend, _ = placement(dp * sp, device)
+def _rank_main(rank, dp, sp, fn, args, device, store, threads, tp=1):
+    size = dp * sp * tp
+    devices, backend, _ = placement(size, device)
     dev = devices[rank]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
         torch.set_num_threads(threads)
     dist.init_process_group(backend, init_method=f"file://{os.path.join(store, 'rendezvous')}",
-                            rank=rank, world_size=dp * sp, timeout=COLLECTIVE_TIMEOUT)
+                            rank=rank, world_size=size, timeout=COLLECTIVE_TIMEOUT)
     try:
-        grid = _make_grid(rank, dp, sp, backend, dev)
+        grid = _make_grid(rank, dp, sp, backend, dev, tp)
         with open(os.devnull, "w") as quiet, \
                 contextlib.redirect_stdout(quiet if rank else sys.stdout):  # rank 0 prints
             out = fn(*args, grid)
@@ -148,25 +171,31 @@ def _rank_main(rank, dp, sp, fn, args, device, store, threads):
         dist.destroy_process_group()
 
 
-def spawn(dp: int, sp: int, fn, args=(), device="cuda"):
-    """Run ``fn(*args, grid)`` in D*S spawned ranks (``grid`` the rank's
-    ``Grid``) and return rank 0's result, which must pickle. Prints the placement rule; on the card
-    every kernel library is built once, before the ranks load them.
-    Rendezvous through a file in a fresh temporary directory. A rank that
-    raises fails the run."""
-    devices, _, rule = placement(dp * sp, device)
-    print(f"{'dp' if sp == 1 else 'sp' if dp == 1 else 'dp x sp'}: {rule}"
-          + (f" (data index r // {sp}, seq index r % {sp})" if dp > 1 and sp > 1 else ""),
-          flush=True)
+def spawn(dp: int, sp: int, fn, args=(), device="cuda", tp: int = 1):
+    """Run ``fn(*args, grid)`` in D*S*T spawned ranks (``grid`` the rank's
+    ``Grid``; S or T is 1) and return rank 0's result, which must pickle.
+    Prints the placement rule; on the card every kernel library is built
+    once, before the ranks load them. Rendezvous through a file in a fresh
+    temporary directory. A rank that raises fails the run."""
+    if sp > 1 and tp > 1:
+        raise ValueError("--sp and --tp cannot be combined")
+    size = dp * sp * tp
+    devices, _, rule = placement(size, device)
+    inner, name = (sp, "sp") if sp > 1 else (tp, "tp")
+    label = "dp" if inner == 1 else name if dp == 1 else f"dp x {name}"
+    axis = "seq" if sp > 1 else "model"
+    print(f"{label}: {rule}"
+          + (f" (data index r // {inner}, {axis} index r % {inner})" if dp > 1 and inner > 1
+             else ""), flush=True)
     if devices[0].type == "cuda":
         from geoldm_tpu_torch.ops import cuda_build
 
         cuda_build.build()
-    threads = max(1, torch.get_num_threads() // (dp * sp))
+    threads = max(1, torch.get_num_threads() // size)
     with tempfile.TemporaryDirectory() as store:
         torch.multiprocessing.spawn(
-            _rank_main, args=(dp, sp, fn, args, device, store, threads),
-            nprocs=dp * sp, join=True)
+            _rank_main, args=(dp, sp, fn, args, device, store, threads, tp),
+            nprocs=size, join=True)
         with open(os.path.join(store, "result.pkl"), "rb") as f:
             return pickle.load(f)
 
@@ -278,3 +307,60 @@ def all_gather_objects(obj, grp: Optional[RankGroup]) -> list:
     dist.all_gather_object(out, obj, group=grp.pg)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: JAX's rule, the shards and their gather
+# ---------------------------------------------------------------------------
+
+
+def jax_last_dim(p: torch.Tensor) -> int:
+    """The last dimension of the JAX leaf that ``p`` (a parameter of the
+    port's upstream layout) comes from. ``utils.convert._lin_out`` writes a
+    JAX linear layer's ``w`` (in, out) transposed, as the ``Linear`` weight
+    (out, in), and its ``b`` (out,) as it is; every other parameter leaf
+    (the learned schedule's ``gamma_0``, ``gamma_1``) is 1-D and written as
+    it is. So JAX's last dimension is dim 0 of every port parameter."""
+    return int(p.shape[0])
+
+
+def tp_sharded(p: torch.Tensor, hidden_nf: Optional[int], tp: int) -> bool:
+    """JAX's rule (``geoldm_tpu/parallel/sharding.py:52-68``), copied by
+    shape: a parameter is sharded over the T model ranks iff T > 1 and its
+    JAX leaf's last dimension equals ``hidden_nf``, biases included, and
+    whatever else has that width by coincidence (an ``embedding_out`` whose
+    output is ``nf`` wide, a gamma network layer of ``nf`` units)."""
+    return tp > 1 and bool(hidden_nf) and p.dim() >= 1 and jax_last_dim(p) == hidden_nf
+
+
+def own_shard(t: torch.Tensor, grp: RankGroup) -> torch.Tensor:
+    """This model rank's rows of dim 0 of a sharded tensor (JAX's last
+    dimension: the model index m holds columns m*nf/T..(m+1)*nf/T), a view
+    that shares ``t``'s storage: the inverse of ``gather_shards``."""
+    return t[own_rows(t.shape[0], grp)]
+
+
+@torch.no_grad()
+def gather_shards(shards, grp: RankGroup, out=None) -> list:
+    """Every model rank's rows of each tensor of ``shards`` (this rank's
+    rows, each [nf/T, ...]) put back together in rank order, in one flat
+    all_gather on ``grp.wire`` -> the full tensors ([nf, ...], new, on the
+    shards' device), or written into ``out`` (the full tensors) when
+    given."""
+    shards = list(shards)
+    if not shards:
+        return []
+    dev = shards[0].device
+    mine = torch.cat([s.reshape(-1) for s in shards]).to(grp.wire)
+    flat = torch.empty((grp.size, mine.numel()), dtype=mine.dtype, device=grp.wire)
+    dist.all_gather(list(flat.unbind(0)), mine, group=grp.pg)
+    flat = flat.to(dev)
+    if out is None:
+        out = [torch.empty((s.shape[0] * grp.size,) + tuple(s.shape[1:]), dtype=s.dtype,
+                           device=dev) for s in shards]
+    off = 0
+    for s, full in zip(shards, out):
+        n = s.numel()
+        full.view(grp.size, n).copy_(flat[:, off:off + n])
+        off += n
+    return out

@@ -316,22 +316,41 @@ def block_parameters(model) -> list:
             for i in range(m.cfg.n_layers) for p in getattr(m, f"e_block_{i}").parameters()]
 
 
+def _hash_tensors(h, tensors) -> None:
+    for t in tensors:
+        h.update(torch.as_tensor(t).detach().cpu().contiguous().numpy().tobytes())
+
+
 def state_digest(state) -> str:
-    """sha256 of a train state's bytes: the model's and the EMA model's
+    """sha256 of a train state's bytes as one rank holds it
+    (``utils.checkpoint.full_state``): the model's and the EMA model's
     parameters, the optimizer state, the clip's ring buffer and the step.
-    Replicas in step have equal digests."""
+    Replicas in step have equal digests. Under TP the EMA and the moments
+    are gathered first, so every rank must call it."""
+    from geoldm_tpu_torch.utils.checkpoint import full_state
+
+    full = full_state(state)
     h = hashlib.sha256()
+    names = [n for n, _ in state.model.named_parameters()]
+    _hash_tensors(h, [full["model"][n] for n in names])
+    _hash_tensors(h, [(full["ema"] or full["model"])[n] for n in names])
+    for _, entry in sorted(full["optim"]["state"].items()):
+        _hash_tensors(h, [entry[k] for k in sorted(entry)])
+    if full["clip"] is not None:
+        _hash_tensors(h, [full["clip"]["norms"]])
+        h.update(f"{full['clip']['count']},{full['clip']['head']}".encode())
+    h.update(f"step {full['step']}".encode())
+    return h.hexdigest()
 
-    def add(t):
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
 
-    for p in list(state.model.parameters()) + list(state.ema_model.parameters()):
-        add(p)
+def shard_digest(state) -> str:
+    """sha256 of what this rank itself holds under TP: its shards (and the
+    replicated parameters), their EMA and AdamW's state. The ranks of one
+    model index agree on it; the ranks of a data row hold other rows."""
+    from geoldm_tpu_torch.train import train_step as ts
+
+    h = hashlib.sha256()
+    _hash_tensors(h, ts.owned(state) + list(state.ema_params))
     for _, entry in sorted(state.optimizer.state_dict()["state"].items()):
-        for k in sorted(entry):
-            add(torch.as_tensor(entry[k]))
-    if state.clip is not None:
-        add(state.clip.norms)
-        h.update(f"{state.clip.count},{state.clip.head}".encode())
-    h.update(f"step {state.step}".encode())
+        _hash_tensors(h, [entry[k] for k in sorted(entry)])
     return h.hexdigest()

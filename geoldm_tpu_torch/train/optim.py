@@ -8,12 +8,16 @@ The reference trains with ``AdamW(amsgrad=True, weight_decay=1e-12)``
 the port uses ``torch.optim.AdamW`` itself; ``tests/test_torch_port_train.py``
 holds it to the JAX chain. The clip keeps its ring buffer on the device and
 never synchronises with the host; checkpoints save it (``state_dict``), so a
-resumed run clips against the same history.
+resumed run clips against the same history. Under tensor parallelism the
+global norm adds the squares of this rank's shards of the hidden-width
+gradients over the model ranks to those of the replicated gradients, each
+counted once, so the norm, the ring buffer and the clip's scale are one
+rank's on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -31,15 +35,18 @@ class AdaptiveGradClip:
         self.count = 1
         self.head = 1
 
-    def __call__(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """Scale ``grads`` in place; returns their global norm before the clip."""
-        grad_norm = global_norm(grads)
+    def __call__(self, grads: List[torch.Tensor], shards: Sequence[torch.Tensor] = (),
+                 grp=None) -> torch.Tensor:
+        """Scale ``grads`` in place; returns their global norm before the clip.
+        Under TP, ``grads`` are the replicated gradients and ``shards`` this
+        rank's shards of the sharded ones, over the model ranks ``grp``."""
+        grad_norm = global_norm(grads, shards, grp)
         valid = self.norms[:self.count]
         mean = valid.sum() / self.count
         std = torch.sqrt(torch.clamp(((valid - mean) ** 2).sum() / self.count, min=0.0))
         max_grad_norm = 1.5 * mean + 2.0 * std
         scale = torch.clamp(max_grad_norm / (grad_norm + 1e-12), max=1.0)
-        torch._foreach_mul_(grads, scale)
+        torch._foreach_mul_(list(grads) + list(shards), scale)
         self.norms[self.head % self.norms.shape[0]] = torch.minimum(grad_norm, max_grad_norm)
         self.count = min(self.count + 1, self.norms.shape[0])
         self.head += 1
@@ -59,9 +66,18 @@ class AdaptiveGradClip:
         self.count, self.head = int(state["count"]), int(state["head"])
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum((t * t).sum() for t in tensors))
+def global_norm(tensors: List[torch.Tensor], shards: Sequence[torch.Tensor] = (),
+                grp=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm) of
+    ``tensors`` and, under TP, of the whole tensors whose rows ``shards``
+    are on this model rank of ``grp``: their squares are summed over the
+    model ranks, the replicated ``tensors`` counted once."""
+    sq = sum((t * t).sum() for t in tensors)
+    if shards:
+        from geoldm_tpu_torch.parallel.sharding import all_reduce
+
+        sq = sq + all_reduce(sum((t * t).sum() for t in shards).reshape(1), grp).reshape(())
+    return torch.sqrt(sq)
 
 
 def trainable_mask(model: nn.Module, model_kind: str, trainable_ae: bool) -> Dict[str, bool]:
@@ -74,21 +90,28 @@ def trainable_mask(model: nn.Module, model_kind: str, trainable_ae: bool) -> Dic
 
 
 def make_optimizer(model: nn.Module, mask: Dict[str, bool], lr: float = 1e-4,
-                   weight_decay: float = 1e-12) -> torch.optim.Optimizer:
+                   weight_decay: float = 1e-12, params: Optional[list] = None
+                   ) -> torch.optim.Optimizer:
     """AMSGrad (torch semantics) with decoupled weight decay over the
-    trainable parameters; the frozen ones stop requiring gradients."""
-    params = []
+    trainable parameters, or over ``params`` (what this rank owns of them,
+    in the model's order) when given; the frozen ones stop requiring
+    gradients."""
+    trainable = []
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
         if mask[name]:
-            params.append(p)
-    return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay, amsgrad=True)
+            trainable.append(p)
+    return torch.optim.AdamW(trainable if params is None else params, lr=lr,
+                             weight_decay=weight_decay, amsgrad=True)
 
 
 @torch.no_grad()
-def ema_update(ema_model: nn.Module, model: nn.Module, decay: float) -> None:
+def ema_update(ema, model, decay: float) -> None:
     """Polyak averaging e = e * decay + p * (1 - decay) of every parameter
-    (reference equivariant_diffusion/utils.py:5-18)."""
-    ema = list(ema_model.parameters())
+    (reference equivariant_diffusion/utils.py:5-18). ``ema`` and ``model``
+    are modules, or lists of tensors in the same order (under TP, this
+    rank's shards and the replicated parameters)."""
+    ema = list(ema.parameters()) if isinstance(ema, nn.Module) else list(ema)
+    src = list(model.parameters()) if isinstance(model, nn.Module) else list(model)
     torch._foreach_mul_(ema, decay)
-    torch._foreach_add_(ema, list(model.parameters()), alpha=1.0 - decay)
+    torch._foreach_add_(ema, src, alpha=1.0 - decay)

@@ -10,6 +10,15 @@ B/D rows of the global batch and draws its rows of the global draws
 (``sharding.GlobalNoise``); after the SP sum every gradient and the loss are
 averaged over the data ranks, before the clip, so the clip, AMSGrad and the
 EMA see the global-batch gradient and every replica takes the same update.
+Under tensor parallelism (``--tp T``, ``parallel.sharding``) the T model
+ranks of a data row run the same forward and backward on the same rows with
+the full weights; each then cuts every hidden-width gradient to its own rows
+(the rows of a sharded parameter that this rank owns, with their AMSGrad
+moments and EMA), and only these shards and the replicated gradients are
+averaged over the data ranks, clipped with the norm over the model ranks
+(``optim.global_norm``) and stepped; the updated shards are then gathered
+into the full weights. Nothing is summed over the model ranks: each already
+holds the whole gradient, and a sum would scale it by T.
 Every random draw (the encoder's eps, t, the diffusion eps) comes from the
 noise source the caller passes. Batches are dicts of tensors on the model's device: x [B,N,3],
 h_cat [B,N,C], h_int [B,N,0/1], node_mask [B,N,1], log_pN [B] and, for a
@@ -36,33 +45,166 @@ from geoldm_tpu_torch.train import optim as optim_mod
 @dataclass
 class TrainState:
     model: nn.Module
-    ema_model: nn.Module  # the model itself when ema_decay == 0
+    ema_model: Optional[nn.Module]  # the model itself when ema_decay == 0; None under TP
     optimizer: torch.optim.Optimizer
     clip: Optional[optim_mod.AdaptiveGradClip]
-    params: List[nn.Parameter]  # the trainable ones
+    params: List[nn.Parameter]  # what AdamW steps: the trainable ones (their shards under TP)
     sp_group: Optional[sharding.RankGroup] = None
     sp_params: List[nn.Parameter] = field(default_factory=list)  # summed over the SP ranks
     step: int = 0  # train steps taken (JAX's TrainState.step)
     dp_group: Optional[sharding.RankGroup] = None  # gradients averaged over the data ranks
+    model_group: Optional[sharding.RankGroup] = None  # TP: hidden-width leaves sharded over it
+    # TP: per parameter of the model, whether it is sharded (``sharding.tp_sharded``)
+    sharded: List[bool] = field(default_factory=list)
+    # TP: (full parameter, the shard AdamW steps: its rows, sharing its storage)
+    shards: List[tuple] = field(default_factory=list)
+    # TP with EMA: per parameter of the model, the EMA this rank keeps (its
+    # rows of a sharded one)
+    ema_params: List[torch.Tensor] = field(default_factory=list)
 
 
 def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
                        weight_decay: float = 1e-12, clip_grad: bool = True,
                        ema_decay: float = 0.9999,
-                       dp_group: Optional[sharding.RankGroup] = None) -> TrainState:
+                       dp_group: Optional[sharding.RankGroup] = None,
+                       model_group: Optional[sharding.RankGroup] = None,
+                       hidden_nf: Optional[int] = None) -> TrainState:
     """The train state of ``model``; with ``dp_group`` (this rank's data
-    ranks) each step averages the gradients over them."""
+    ranks) each step averages the gradients over them; with ``model_group``
+    (this rank's model ranks, T > 1) every parameter JAX's rule shards at
+    ``hidden_nf`` is owned a 1/T row block a rank: AdamW steps the block,
+    the EMA keeps only it, and the full weights are gathered after each
+    step."""
     mask = optim_mod.trainable_mask(model, model_cfg.kind, model_cfg.trainable_ae)
-    optimizer = optim_mod.make_optimizer(model, mask, lr, weight_decay)
-    ema_model = model
-    if ema_decay > 0:
+    named = list(model.named_parameters())
+    tp = model_group.size if model_group is not None else 1
+    sharded = [sharding.tp_sharded(p, hidden_nf, tp) for _, p in named]
+    own = [sharding.own_shard(p.detach(), model_group) if sh else p
+           for (_, p), sh in zip(named, sharded)]
+    params, shards = [], []
+    for (name, p), sh, o in zip(named, sharded, own):
+        if mask[name]:
+            params.append(nn.Parameter(o) if sh else p)
+            if sh:
+                shards.append((p, params[-1]))
+    optimizer = optim_mod.make_optimizer(model, mask, lr, weight_decay, params=params)
+    ema_model, ema_params = model, []
+    if ema_decay > 0 and not any(sharded):
         ema_model = copy.deepcopy(model).requires_grad_(False)
+    elif ema_decay > 0:
+        ema_model, ema_params = None, [o.detach().clone() for o in own]
     device = next(model.parameters()).device
     clip = optim_mod.AdaptiveGradClip(device) if clip_grad else None
-    params = [p for name, p in model.named_parameters() if mask[name]]
     sp_params = [p for p in sp_mod.block_parameters(model) if p.requires_grad]
     return TrainState(model, ema_model, optimizer, clip, params, sp_mod.model_group(model),
-                      sp_params, dp_group=dp_group)
+                      sp_params, dp_group=dp_group,
+                      model_group=model_group if any(sharded) else None,
+                      sharded=sharded if any(sharded) else [], shards=shards,
+                      ema_params=ema_params)
+
+
+def owned(state: TrainState) -> List[torch.Tensor]:
+    """Under TP, per parameter of the model, what this rank owns of it: its
+    rows of a sharded one (a view), else the parameter."""
+    return [sharding.own_shard(p.detach(), state.model_group) if sh else p
+            for p, sh in zip(state.model.parameters(), state.sharded)]
+
+
+@torch.no_grad()
+def ema_module(state: TrainState) -> nn.Module:
+    """The EMA model to evaluate and sample with. Under TP a new module
+    holding the EMA gathered over the model ranks (a collective: every rank
+    calls it); otherwise ``state.ema_model``."""
+    if not state.ema_params:
+        return state.ema_model
+    ema = copy.deepcopy(state.model).requires_grad_(False)
+    for p, e in zip(ema.parameters(), _full_ema(state)):
+        p.copy_(e)
+    return ema
+
+
+def _full_ema(state: TrainState) -> List[torch.Tensor]:
+    """The EMA of every parameter, the sharded ones gathered (a collective)."""
+    mine = [e for e, sh in zip(state.ema_params, state.sharded) if sh]
+    full = iter(sharding.gather_shards(mine, state.model_group))
+    return [next(full) if sh else e for e, sh in zip(state.ema_params, state.sharded)]
+
+
+def ema_state_dict(state: TrainState) -> dict:
+    """A CPU copy of the EMA model's state dict (the model's buffers, the
+    EMA of every parameter; gathered under TP, a collective)."""
+    if not state.ema_params:
+        return {k: v.detach().cpu().clone() for k, v in state.ema_model.state_dict().items()}
+    out = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    for (name, _), e in zip(state.model.named_parameters(), _full_ema(state)):
+        out[name] = e.cpu().clone()
+    return out
+
+
+def _shard_index(state: TrainState) -> List[int]:
+    """The indices in AdamW's state of the parameters it steps as shards."""
+    ids = {id(s) for _, s in state.shards}
+    return [i for i, p in enumerate(state.params) if id(p) in ids]
+
+
+def optimizer_state_dict(state: TrainState) -> dict:
+    """AdamW's state dict as one rank holds it: under TP the moments of
+    every sharded parameter gathered over the model ranks (one collective),
+    keyed by the full model's parameter order as on one rank."""
+    sd = state.optimizer.state_dict()
+    if state.model_group is None:
+        return sd
+    sd = {"state": {i: dict(e) for i, e in sd["state"].items()},
+          "param_groups": sd["param_groups"]}
+    keys = [(i, k) for i in _shard_index(state) if i in sd["state"]
+            for k, v in sorted(sd["state"][i].items()) if torch.is_tensor(v) and v.dim() >= 1]
+    full = sharding.gather_shards([sd["state"][i][k] for i, k in keys], state.model_group)
+    for (i, k), t in zip(keys, full):
+        sd["state"][i][k] = t
+    return sd
+
+
+def load_optimizer_state(state: TrainState, sd: dict) -> None:
+    """Load a one-rank AdamW state dict (``optimizer_state_dict``'s shape);
+    under TP each rank keeps its rows of the sharded parameters' moments."""
+    if state.model_group is not None:
+        sd = {"state": {i: dict(e) for i, e in sd["state"].items()},
+              "param_groups": sd["param_groups"]}
+        for i in _shard_index(state):
+            for k, v in sd["state"].get(i, {}).items():
+                if torch.is_tensor(v) and v.dim() >= 1:
+                    sd["state"][i][k] = sharding.own_shard(v, state.model_group).clone()
+    state.optimizer.load_state_dict(sd)
+
+
+@torch.no_grad()
+def load_ema_state_dict(state: TrainState, sd: dict) -> None:
+    """Load a full EMA state dict; under TP each rank keeps its rows of the
+    sharded parameters."""
+    if not state.ema_params:
+        state.ema_model.load_state_dict(sd, strict=True)
+        return
+    names = [n for n, _ in state.model.named_parameters()]
+    missing = set(state.model.state_dict()) ^ set(sd)
+    if missing:
+        raise ValueError(f"EMA state dict keys differ from the model's: {sorted(missing)[:5]}")
+    for name, e, sh in zip(names, state.ema_params, state.sharded):
+        v = sd[name].to(e.device)
+        e.copy_(sharding.own_shard(v, state.model_group) if sh else v)
+
+
+def state_elements(state: TrainState) -> dict:
+    """Elements of optimizer state (AMSGrad's three moments) and of EMA
+    state this rank holds: under TP the replicated ones plus 1/T of the
+    sharded ones."""
+    optim = sum(v.numel() for e in state.optimizer.state.values() for v in e.values()
+                if torch.is_tensor(v) and v.dim() >= 1)
+    if state.ema_params:
+        ema = sum(e.numel() for e in state.ema_params)
+    else:
+        ema = 0 if state.ema_model is state.model else sum(
+            p.numel() for p in state.ema_model.parameters())
+    return {"optim": optim, "ema": ema}
 
 
 def context_keep(noise: com.Noise, context: torch.Tensor, context_dropout: float
@@ -100,6 +242,8 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None
     def train_step(state: TrainState, batch: dict, noise: com.Noise,
                    keep: Optional[torch.Tensor] = None) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
+        for p, _ in state.shards:
+            p.grad = None
         context = batch.get("context")
         if context is not None and context_dropout > 0:
             if keep is None:
@@ -111,16 +255,26 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None
         loss.backward()
         if state.sp_params:
             sharding.reduce_grads(state.sp_params, state.sp_group)
+        for p, shard in state.shards:  # TP: this rank's rows, a view
+            shard.grad = None if p.grad is None else sharding.own_shard(p.grad,
+                                                                        state.model_group)
         if state.dp_group is not None:
             (loss,) = sharding.reduce_grads(state.params, state.dp_group, loss, mean=True)
-        grads = [p.grad for p in state.params if p.grad is not None]
+        mine = {id(s) for _, s in state.shards}
+        grads = [p.grad for p in state.params if p.grad is not None and id(p) not in mine]
+        shard_grads = [s.grad for _, s in state.shards if s.grad is not None]
         if state.clip is not None:
-            grad_norm = state.clip(grads)
+            grad_norm = state.clip(grads, shard_grads, state.model_group)
         else:
-            grad_norm = optim_mod.global_norm(grads)
+            grad_norm = optim_mod.global_norm(grads, shard_grads, state.model_group)
         state.optimizer.step()
-        if ema_decay > 0:
+        if ema_decay > 0 and state.ema_params:
+            optim_mod.ema_update(state.ema_params, owned(state), ema_decay)
+        elif ema_decay > 0:
             optim_mod.ema_update(state.ema_model, state.model, ema_decay)
+        if state.shards:
+            sharding.gather_shards([s.detach() for _, s in state.shards], state.model_group,
+                                   out=[p.detach() for p, _ in state.shards])
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 

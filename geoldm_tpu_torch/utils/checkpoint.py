@@ -12,12 +12,19 @@ state dict, so released GeoLDM checkpoints and upstream tools still read the
 directory, and a directory without ``train_state.npy`` (written before the
 port saved it, or by upstream) resumes with a fresh clip.
 
+Under tensor parallelism (``--tp``) every rank joins the gathers of the EMA
+and of AdamW's moments (``full_state``) and one rank writes exactly the
+files a one-rank run writes; on load every rank reads the full files and
+keeps its rows of the sharded parameters, so a checkpoint resumes under any
+``--tp``.
+
 ``args.pickle`` is unpickled: load only checkpoints you trust, as with
 upstream GeoLDM itself.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import warnings
@@ -27,20 +34,46 @@ import torch
 TRAIN_STATE = "train_state.npy"
 
 
-def _cpu_state(module) -> dict:
-    return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+def _cpu(obj):
+    """A copy of a nested state dict with every tensor cloned to the CPU."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return copy.deepcopy(obj)
 
 
-def save_checkpoint(path: str, state, args, ema_decay: float) -> str:
-    """Write one checkpoint directory at ``path`` (replacing its files)."""
+def full_state(state) -> dict:
+    """A CPU copy of a train state as one rank holds it: the model's and
+    the EMA model's state dicts (None without EMA), AdamW's state dict, the
+    clip's ring buffer and the step. Under TP the EMA and the moments are
+    gathered over the model ranks: every rank must call it."""
+    from geoldm_tpu_torch.train import train_step as ts
+
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "ema": None if state.ema_model is state.model else ts.ema_state_dict(state),
+            "optim": _cpu(ts.optimizer_state_dict(state)),
+            "clip": state.clip.state_dict() if state.clip is not None else None,
+            "step": state.step}
+
+
+def save_checkpoint(path: str, state, args, ema_decay: float, write: bool = True) -> str:
+    """Write one checkpoint directory at ``path`` (replacing its files).
+    Under TP every rank calls it for the gathers and only the one with
+    ``write`` writes; without TP a rank without ``write`` does nothing."""
+    if not write and state.model_group is None:
+        return path
+    full = full_state(state)
+    if not write:
+        return path
     os.makedirs(path, exist_ok=True)
-    torch.save(_cpu_state(state.model), os.path.join(path, "generative_model.npy"))
+    torch.save(full["model"], os.path.join(path, "generative_model.npy"))
     if ema_decay > 0:
-        torch.save(_cpu_state(state.ema_model), os.path.join(path, "generative_model_ema.npy"))
-    torch.save(state.optimizer.state_dict(), os.path.join(path, "optim.npy"))
-    torch.save({"step": state.step,
-                "clip": state.clip.state_dict() if state.clip is not None else None},
-               os.path.join(path, TRAIN_STATE))
+        torch.save(full["ema"], os.path.join(path, "generative_model_ema.npy"))
+    torch.save(full["optim"], os.path.join(path, "optim.npy"))
+    torch.save({"step": full["step"], "clip": full["clip"]}, os.path.join(path, TRAIN_STATE))
     with open(os.path.join(path, "args.pickle"), "wb") as f:
         pickle.dump(args, f)
     return path
@@ -88,8 +121,12 @@ def load_train_state(path: str, state) -> None:
     """Restore a whole train state in place from the checkpoint directory
     ``path``: the model, the EMA model, AdamW's state, the clip's ring buffer
     and the step. The state must be built for the checkpoint's config (every
-    load is strict). Without ``train_state.npy`` the clip and the step start
-    fresh, with one warning."""
+    load is strict); under TP each rank keeps its rows of the sharded
+    parameters' EMA and moments (the model's own rows share its storage).
+    Without ``train_state.npy`` the clip and the step start fresh, with one
+    warning."""
+    from geoldm_tpu_torch.train import train_step as ts
+
     global _FRESH_CLIP_WARNED
     state.model.load_state_dict(_load(path, "generative_model.npy"), strict=True)
     if state.ema_model is not state.model:
@@ -97,8 +134,8 @@ def load_train_state(path: str, state) -> None:
         if not os.path.exists(ema):
             raise FileNotFoundError(f"{ema} is missing: the run trains with EMA, and the "
                                     "checkpoint was written without it (--ema_decay 0)")
-        state.ema_model.load_state_dict(_load(path, "generative_model_ema.npy"), strict=True)
-    state.optimizer.load_state_dict(_load(path, "optim.npy"))
+        ts.load_ema_state_dict(state, _load(path, "generative_model_ema.npy"))
+    ts.load_optimizer_state(state, _load(path, "optim.npy"))
     if not os.path.exists(os.path.join(path, TRAIN_STATE)):
         if not _FRESH_CLIP_WARNED:
             warnings.warn(f"{path} has no {TRAIN_STATE} (written before the clip state was "

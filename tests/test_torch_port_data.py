@@ -124,8 +124,11 @@ def test_main_qm9_trains_the_vae_by_default(datadir, tmp_path):
     ["--conditioning", "alpha", "homo", "--dp", "4", "--batch_size", "3"],
 ])
 def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path, monkeypatch):
-    """Each flag outside the slice exits with the two-line message. The
-    compute dtypes are JAX's training choices: ``bfloat16`` trains (a bf16
+    """Every flag of JAX's training CLIs is in the port: what is refused is
+    a combination JAX refuses too (``--sp`` with ``--tp``, a global batch
+    the data ranks cannot split). ``--tp 2`` trains over two model ranks
+    (tests/test_torch_port_tp_cli.py holds it further). The compute dtypes
+    are JAX's training choices: ``bfloat16`` trains (a bf16
     run starts and its losses are finite), ``bfloat16_full`` and
     ``bfloat16_mixed`` are sampling modes that argparse refuses (exit 2), as
     JAX's ``choices`` do. ``--model gnn_dynamics`` is in the slice since the
@@ -150,6 +153,13 @@ def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path, monkeypat
                                  "4", "--n_stability_samples", "2", *flags])
         assert summary["losses"] and np.all(np.isfinite(summary["losses"][0]))
         return
+    if flags == ["--tp", "2"]:
+        summary = main_qm9.main(["--datadir", datadir, "--outdir", str(tmp_path), "--device",
+                                 "cpu", "--n_epochs", "1", "--batch_size", "12", "--nf", "16",
+                                 "--n_layers", "1", *flags])
+        assert summary["losses"] and np.all(np.isfinite(summary["losses"][0]))
+        assert len({r["digest"] for r in summary["replicas"]}) == 1
+        return
     if flags[0] == "--compute_dtype":
         argv = ["--datadir", datadir, "--outdir", str(tmp_path), "--device", "cpu",
                 "--n_epochs", "1", "--batch_size", "12", "--nf", "16", "--n_layers", "1", *flags]
@@ -167,8 +177,5 @@ def test_flags_outside_the_slice_are_refused(flags, datadir, tmp_path, monkeypat
         assert str(e.value.code).startswith(f"--dp {flags[flags.index('--dp') + 1]} splits "
                                             "every batch")
         return
-    if "--sp" in flags:  # --conditioning runs under --sp; --sp with --tp is refused
-        assert str(e.value.code) == "--sp and --tp cannot be combined"
-        return
-    lines = str(e.value.code).splitlines()
-    assert len(lines) == 2 and "not ported yet" in lines[0]
+    # --conditioning runs under --sp; --sp with --tp is refused
+    assert "--sp" in flags and str(e.value.code) == "--sp and --tp cannot be combined"

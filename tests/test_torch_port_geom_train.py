@@ -255,11 +255,11 @@ def test_main_geom_drugs_defaults_are_the_geom_recipe(tmp_path):
     assert args.include_charges is False and args.dataset == "geom"
     with pytest.raises(FileNotFoundError, match="geom_drugs_30.npy"):
         main_geom_drugs.main(["--datadir", str(tmp_path), "--device", "cpu"])
-    # --visualize is ported: the run gets as far as the missing data; --tp
-    # is still refused.
+    # --visualize and --tp are ported: each run gets as far as the missing
+    # data (under --tp 2 in both spawned ranks, whose error the launch raises).
     with pytest.raises(FileNotFoundError, match="geom_drugs_30.npy"):
         main_geom_drugs.main(["--datadir", str(tmp_path), "--visualize", "True",
                               "--device", "cpu"])
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(torch.multiprocessing.ProcessRaisedException) as e:
         main_geom_drugs.main(["--datadir", str(tmp_path), "--tp", "2", "--device", "cpu"])
-    assert "not ported yet" in str(e.value.code)
+    assert "FileNotFoundError" in str(e.value) and "geom_drugs_30.npy" in str(e.value)

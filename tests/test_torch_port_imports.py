@@ -53,7 +53,8 @@ def test_every_module_is_a_port_module():
                  "nn.core", "cli.eval_sample", "train.conditioning", "models.classifier",
                  "train.classifier_train", "cli.main_qm9_prop", "cli.eval_conditional_qm9",
                  "nn.egnn_legacy", "diffusion.priors", "evalsuite.visualizer", "data.md17",
-                 "data.native_geom", "cli.build_geom_dataset", "utils.flops", "cli.bench_train"):
+                 "data.native_geom", "cli.build_geom_dataset", "utils.flops", "cli.bench_train",
+                 "parallel.sharding"):
         assert f"geoldm_tpu_torch.{name}" in names
 
 

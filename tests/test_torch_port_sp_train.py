@@ -91,7 +91,7 @@ def test_main_geom_drugs_sp_on_cpu_keeps_the_replicas_in_step(geom_dir, tmp_path
 @pytest.mark.parametrize("flags,message", [
     (["--sp", "2", "--tp", "2"], "--sp and --tp cannot be combined"),
     (["--sp", "2", "--dp", "4", "--batch_size", "2"], "--dp 4 splits every batch"),
-    (["--tp", "2"], "--tp 2 is not ported yet"),
+    (["--tp", "3"], "--tp 3 shards every --nf-wide parameter over 3 model ranks, but --nf 256"),
 ])
 def test_sp_flag_rules(main, flags, message, tmp_path):
     with pytest.raises(SystemExit) as e:

@@ -21,7 +21,9 @@ from geoldm_tpu_torch.train.train_step import (
     create_train_state,
     make_eval_nll,
     make_train_step,
+    state_elements,
 )
+from geoldm_tpu_torch.utils.checkpoint import full_state
 
 
 class Replay:
@@ -57,6 +59,10 @@ def _groups(grid):
     return (None, None) if grid is None else (grid.seq, grid.data)
 
 
+def _model_group(grid):
+    return None if grid is None else grid.model
+
+
 def _model(spec, device, seq):
     """(config, model) of ``spec``: ``dataset`` and ``kw`` for
     ``factory.make_latent_diffusion_config``, weights from ``state`` (numpy
@@ -76,17 +82,23 @@ def train_step(spec, batch, noise, opts=None, grid=None):
     or ("replay", draws), the global draws in the loss's order. ``opts``:
     ``keep`` (a global [B,1,1] keep mask), ``clip_grad``, ``compute_dtype``,
     ``context_dropout``. Each data rank takes its rows of the batch, the
-    keep mask and every draw. -> the loss, the gradient norm, every gradient
-    the optimizer applies (after the SP sum, the DP mean and the clip), the
-    weights after the update, every rank's train-state digest and launch
-    counts."""
+    keep mask and every draw; under TP (the grid's ``model`` group) every
+    parameter of ``kw['nf']`` width is sharded over the model ranks. -> the
+    loss, the gradient norm, every gradient the optimizer applies (after the
+    SP sum, the DP mean and the clip; under TP the shards gathered), the
+    weights after the update, the train state as one rank holds it after the
+    step (``utils.checkpoint.full_state``: AMSGrad's moments and the EMA
+    gathered), every rank's train-state digest, launch counts and elements
+    of optimizer and EMA state."""
     opts = opts or {}
     device = "cpu" if grid is None else grid.device
     seq, data = _groups(grid)
+    tp = _model_group(grid)
     cfg, model = _model(spec, device, seq)
     lr, ema_decay = 1e-3, 0.99
     state = create_train_state(model, cfg, lr, clip_grad=opts.get("clip_grad", True),
-                               ema_decay=ema_decay, dp_group=data)
+                               ema_decay=ema_decay, dp_group=data, model_group=tp,
+                               hidden_nf=spec["kw"]["nf"])
     step = make_train_step(cfg, ema_decay, opts.get("compute_dtype"),
                            opts.get("context_dropout", 0.0))
     keep = opts.get("keep")
@@ -100,6 +112,11 @@ def train_step(spec, batch, noise, opts=None, grid=None):
     def capture():
         grads.update({n: p.grad.detach().cpu().numpy().copy()
                       for n, p in model.named_parameters() if p.grad is not None})
+        if state.shards:  # the shards' gradients, gathered over the model ranks
+            names = {id(p): n for n, p in model.named_parameters()}
+            mine = [(p, s) for p, s in state.shards if s.grad is not None]
+            full = sharding.gather_shards([s.grad for _, s in mine], tp)
+            grads.update({names[id(p)]: g.cpu().numpy() for (p, _), g in zip(mine, full)})
         real_step()
 
     state.optimizer.step = capture
@@ -108,9 +125,15 @@ def train_step(spec, batch, noise, opts=None, grid=None):
     out = step(state, {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                        for k, v in local.items()},
                sharding.wrap_noise(source, data), keep=keep)
+    full = full_state(state)
     return {"loss": float(out["loss"]), "grad_norm": float(out["grad_norm"]), "grads": grads,
             "params": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
+            "ema": {n: full["ema"][n].numpy() for n, _ in model.named_parameters()},
+            "moments": [{k: v.cpu().numpy() for k, v in e.items() if v.dim() >= 1}
+                        for _, e in sorted(full["optim"]["state"].items())],
             "digests": _world(sp.state_digest(state), grid),
+            "shard_digests": _world(sp.shard_digest(state) if state.shards else None, grid),
+            "elements": _world(state_elements(state), grid),
             "launches": _world(kernel_launches(), grid)}
 
 
