@@ -161,19 +161,24 @@ def resolve_dp(args) -> int:
 @contextlib.contextmanager
 def epoch_trace(trace_dir, epoch: int, rank: int, device):
     """``--trace``: the block under ``torch.profiler`` (the host's activity,
-    and the card's when ``device`` is CUDA), written as a Chrome trace to
+    and the card's when ``device`` is CUDA, with the program's ``geoldm.*``
+    spans), written as a Chrome trace to
     ``trace_dir/trace_epoch<epoch>_rank<rank>.json``; nothing without a
-    directory."""
+    directory. The in-memory spans and counters (``utils.spans``) are
+    cleared as each epoch's trace opens, so they hold the last epoch's."""
     if not trace_dir:
         yield
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from geoldm_tpu_torch.utils import spans
+
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
+    spans.clear()
     with profile(activities=acts) as prof:
         yield
     if torch.device(device).type == "cuda":

@@ -14,6 +14,7 @@ the visualization chain, ``rotate_chain`` appends rotated copies of a frame,
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -26,11 +27,13 @@ from geoldm_tpu_torch.evalsuite.analyze import check_stability
 from geoldm_tpu_torch.models import factory
 from geoldm_tpu_torch.ops import com
 from geoldm_tpu_torch.parallel import sharding
+from geoldm_tpu_torch.utils import spans
 
 DEFAULT_SAMPLE_BUCKETS = (16, 24, 32)  # QM9
 # GEOM-Drugs (sizes up to 181 atoms, mean 46.6): buckets matched to the size
 # histogram (sampling.py:162-167).
 GEOM_SAMPLE_BUCKETS = (32, 48, 64, 96, 136, 184)
+_CALLS = itertools.count()  # sample_bucketed's calls in this process: its spans' ids
 
 
 def default_buckets(dataset_info) -> tuple:
@@ -140,50 +143,70 @@ def sample_bucketed(model, seed: int, dataset_info, nodesxsample: np.ndarray,
     with its own ``chunk_generator(seed, i)``; every rank draws every chunk's
     properties with ``rng``, so the draws stay in dispatch order, and the
     chunks are gathered to every rank in order: the molecules of one rank's
-    run, molecule for molecule."""
-    nodesxsample = np.asarray(nodesxsample)
-    if context is not None:
-        context = np.asarray(context, dtype=np.float32)
-        if context.ndim != 2 or len(context) != len(nodesxsample):
-            raise ValueError(f"context must be [{len(nodesxsample)}, P] property rows, got "
-                             f"{context.shape}")
-    buckets = _aligned(buckets, nodesxsample)
-    max_pad = buckets[-1]
-    device = _model_device(model)
-    m = len(nodesxsample)
-    pending = []
-    for chunk_index, (chunk, pad, sizes) in enumerate(
-            _chunks(nodesxsample, batch_size, buckets)):
-        ctx_chunk = None
-        if context is not None:
-            ctx_chunk = context[chunk]
-            ctx_chunk = np.concatenate(
-                [ctx_chunk, np.repeat(ctx_chunk[-1:], len(sizes) - len(chunk), axis=0)])
-        elif prop_dist is not None:
-            ctx_chunk = prop_dist.sample_batch(sizes, rng)  # what ``sample`` would draw
-        if data is not None and chunk_index % data.size != data.rank:
-            continue
-        gen = chunk_generator(seed, chunk_index, device)
-        res = sample(model, gen, dataset_info, sizes, fix_noise=fix_noise, pad_nodes=pad,
-                     n_steps=n_steps, eta=eta, method=method, clip_z=clip_z,
-                     compute_dtype=compute_dtype, context=ctx_chunk,
-                     guidance_scale=guidance_scale)
-        pending.append((chunk, pad, res))
-    # Every chunk is queued on the card before the first copy to the host.
-    done = [(chunk, pad, [src.cpu().numpy() if isinstance(src, torch.Tensor) else src
-                          for src in res]) for chunk, pad, res in pending]
-    done = [c for part in sharding.all_gather_objects(done, data) for c in part]
-    s = len(dataset_info["atom_decoder"])
-    out = None
-    for chunk, pad, (one_hot, charges, x, node_mask) in done:
-        if out is None:
-            out = (np.zeros((m, max_pad, s), dtype=np.float32),
-                   np.zeros((m, max_pad, charges.shape[-1]), dtype=np.float32),
-                   np.zeros((m, max_pad, 3), dtype=np.float32),
-                   np.zeros((m, max_pad, 1), dtype=np.float32))
-        n_real = len(chunk)
-        for dst, src in zip(out, (one_hot, charges, x, node_mask)):
-            dst[chunk, :pad] = src[:n_real]
+    run, molecule for molecule.
+
+    Under a profiler a call is a ``sample.call`` span (``utils.spans``, id:
+    the process's call number) holding ``sample.setup`` (the plan, and a
+    conditional model's property draws, before the first dispatch),
+    ``sample.chunk`` per dispatched chunk (id: (call, chunk index)),
+    ``sample.fetch`` (the copies to the host, and the gather over the data
+    ranks) and ``sample.assemble``; each dispatched chunk adds rows x pad^2 to
+    ``sample.pair_slots``, repeats included, and its real molecules' n^2 to
+    ``sample.pairs``."""
+    call = next(_CALLS)
+    with spans.span("sample.call", call):
+        with spans.span("sample.setup", call):
+            nodesxsample = np.asarray(nodesxsample)
+            if context is not None:
+                context = np.asarray(context, dtype=np.float32)
+                if context.ndim != 2 or len(context) != len(nodesxsample):
+                    raise ValueError(f"context must be [{len(nodesxsample)}, P] property rows, "
+                                     f"got {context.shape}")
+            buckets = _aligned(buckets, nodesxsample)
+            max_pad = buckets[-1]
+            device = _model_device(model)
+            m = len(nodesxsample)
+            plan = []
+            for chunk_index, (chunk, pad, sizes) in enumerate(
+                    _chunks(nodesxsample, batch_size, buckets)):
+                ctx_chunk = None
+                if context is not None:
+                    ctx_chunk = context[chunk]
+                    ctx_chunk = np.concatenate(
+                        [ctx_chunk, np.repeat(ctx_chunk[-1:], len(sizes) - len(chunk), axis=0)])
+                elif prop_dist is not None:
+                    ctx_chunk = prop_dist.sample_batch(sizes, rng)  # what ``sample`` would draw
+                if data is None or chunk_index % data.size == data.rank:
+                    plan.append((chunk_index, chunk, pad, sizes, ctx_chunk))
+        pending = []
+        for chunk_index, chunk, pad, sizes, ctx_chunk in plan:
+            with spans.span("sample.chunk", (call, chunk_index)):
+                real = nodesxsample[chunk].astype(np.int64)
+                spans.count("sample.pairs", int((real * real).sum()))
+                spans.count("sample.pair_slots", len(sizes) * pad * pad)
+                gen = chunk_generator(seed, chunk_index, device)
+                res = sample(model, gen, dataset_info, sizes, fix_noise=fix_noise, pad_nodes=pad,
+                             n_steps=n_steps, eta=eta, method=method, clip_z=clip_z,
+                             compute_dtype=compute_dtype, context=ctx_chunk,
+                             guidance_scale=guidance_scale)
+            pending.append((chunk, pad, res))
+        # Every chunk is queued on the card before the first copy to the host.
+        with spans.span("sample.fetch", call):
+            done = [(chunk, pad, [src.cpu().numpy() if isinstance(src, torch.Tensor) else src
+                                  for src in res]) for chunk, pad, res in pending]
+            done = [c for part in sharding.all_gather_objects(done, data) for c in part]
+        with spans.span("sample.assemble", call):
+            s = len(dataset_info["atom_decoder"])
+            out = None
+            for chunk, pad, (one_hot, charges, x, node_mask) in done:
+                if out is None:
+                    out = (np.zeros((m, max_pad, s), dtype=np.float32),
+                           np.zeros((m, max_pad, charges.shape[-1]), dtype=np.float32),
+                           np.zeros((m, max_pad, 3), dtype=np.float32),
+                           np.zeros((m, max_pad, 1), dtype=np.float32))
+                n_real = len(chunk)
+                for dst, src in zip(out, (one_hot, charges, x, node_mask)):
+                    dst[chunk, :pad] = src[:n_real]
     return out
 
 

@@ -40,6 +40,7 @@ from geoldm_tpu_torch.ops import com
 from geoldm_tpu_torch.parallel import sharding
 from geoldm_tpu_torch.parallel import sp as sp_mod
 from geoldm_tpu_torch.train import optim as optim_mod
+from geoldm_tpu_torch.utils import spans
 
 
 @dataclass
@@ -236,46 +237,62 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None
     keep mask, ``keep`` [B,1,1] or else ``context_keep``'s draw. With the
     state's ``dp_group`` the batch is this rank's rows of the global batch,
     ``noise`` its ``sharding.GlobalNoise``, and the returned loss the
-    global mean."""
+    global mean. Under a profiler a step is a ``train.step`` span
+    (``utils.spans``, id the step number) holding ``train.zero_grad``,
+    ``train.forward``, ``train.backward``, ``train.grad_reduce`` (each SP or
+    DP gradient sum), ``train.clip``, ``train.optimizer`` and ``train.ema``."""
     nll_fn = factory.model_nll_fn(model_cfg, training=True, compute_dtype=compute_dtype)
 
     def train_step(state: TrainState, batch: dict, noise: com.Noise,
                    keep: Optional[torch.Tensor] = None) -> dict:
-        state.optimizer.zero_grad(set_to_none=True)
-        for p, _ in state.shards:
-            p.grad = None
-        context = batch.get("context")
-        if context is not None and context_dropout > 0:
-            if keep is None:
-                keep = context_keep(noise, context, context_dropout)
-            context = context * keep
-        nll = nll_fn(state.model, noise, batch["x"], batch["h_cat"], batch["h_int"],
-                     batch["node_mask"], context)
-        loss = (nll - batch["log_pN"]).mean()
-        loss.backward()
-        if state.sp_params:
-            sharding.reduce_grads(state.sp_params, state.sp_group)
-        for p, shard in state.shards:  # TP: this rank's rows, a view
-            shard.grad = None if p.grad is None else sharding.own_shard(p.grad,
-                                                                        state.model_group)
-        if state.dp_group is not None:
-            (loss,) = sharding.reduce_grads(state.params, state.dp_group, loss, mean=True)
-        mine = {id(s) for _, s in state.shards}
-        grads = [p.grad for p in state.params if p.grad is not None and id(p) not in mine]
-        shard_grads = [s.grad for _, s in state.shards if s.grad is not None]
-        if state.clip is not None:
-            grad_norm = state.clip(grads, shard_grads, state.model_group)
-        else:
-            grad_norm = optim_mod.global_norm(grads, shard_grads, state.model_group)
-        state.optimizer.step()
-        if ema_decay > 0 and state.ema_params:
-            optim_mod.ema_update(state.ema_params, owned(state), ema_decay)
-        elif ema_decay > 0:
-            optim_mod.ema_update(state.ema_model, state.model, ema_decay)
-        if state.shards:
-            sharding.gather_shards([s.detach() for _, s in state.shards], state.model_group,
-                                   out=[p.detach() for p, _ in state.shards])
-        state.step += 1
+        k = state.step
+        with spans.span("train.step", k):
+            with spans.span("train.zero_grad", k):
+                state.optimizer.zero_grad(set_to_none=True)
+                for p, _ in state.shards:
+                    p.grad = None
+            with spans.span("train.forward", k):
+                context = batch.get("context")
+                if context is not None and context_dropout > 0:
+                    if keep is None:
+                        keep = context_keep(noise, context, context_dropout)
+                    context = context * keep
+                nll = nll_fn(state.model, noise, batch["x"], batch["h_cat"], batch["h_int"],
+                             batch["node_mask"], context)
+                loss = (nll - batch["log_pN"]).mean()
+            with spans.span("train.backward", k):
+                loss.backward()
+            if state.sp_params:
+                with spans.span("train.grad_reduce", k):
+                    sharding.reduce_grads(state.sp_params, state.sp_group)
+            for p, shard in state.shards:  # TP: this rank's rows, a view
+                shard.grad = None if p.grad is None else sharding.own_shard(p.grad,
+                                                                            state.model_group)
+            if state.dp_group is not None:
+                with spans.span("train.grad_reduce", k):
+                    (loss,) = sharding.reduce_grads(state.params, state.dp_group, loss,
+                                                    mean=True)
+            with spans.span("train.clip", k):
+                mine = {id(s) for _, s in state.shards}
+                grads = [p.grad for p in state.params
+                         if p.grad is not None and id(p) not in mine]
+                shard_grads = [s.grad for _, s in state.shards if s.grad is not None]
+                if state.clip is not None:
+                    grad_norm = state.clip(grads, shard_grads, state.model_group)
+                else:
+                    grad_norm = optim_mod.global_norm(grads, shard_grads, state.model_group)
+            with spans.span("train.optimizer", k):
+                state.optimizer.step()
+            with spans.span("train.ema", k):
+                if ema_decay > 0 and state.ema_params:
+                    optim_mod.ema_update(state.ema_params, owned(state), ema_decay)
+                elif ema_decay > 0:
+                    optim_mod.ema_update(state.ema_model, state.model, ema_decay)
+            if state.shards:
+                sharding.gather_shards([s.detach() for _, s in state.shards],
+                                       state.model_group,
+                                       out=[p.detach() for p, _ in state.shards])
+            state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return train_step

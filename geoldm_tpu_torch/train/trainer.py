@@ -5,7 +5,10 @@
   batch; the host prep of batch k+1 (augment noise, rotation, log p(N), the
   copy to the device) runs on the ``prefetch_map`` thread while the device
   runs step k, and the loop synchronises only to log a loss every
-  ``log_every``.
+  ``log_every``. Under a profiler the loop's wait for each batch is a
+  ``train.data_wait`` span (``utils.spans``) and each issued batch adds its
+  pair slots (rows x pad^2) to ``train.pair_slots`` and its molecules' n^2
+  to ``train.pairs``, from the host's mask.
 - ``evaluate_nll``: eval NLL (t0_always estimator) over a loader.
 - ``evaluate_nll_packed``: the same NLL over a whole split staged on the
   device in segments, for one or more passes (the paper's 5 test passes).
@@ -29,6 +32,7 @@ caller's numpy generator, in the serial loop's order at any prefetch depth.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Optional, Sequence
 
@@ -43,6 +47,7 @@ from geoldm_tpu_torch.train import sampling as sampling_mod
 from geoldm_tpu_torch.train.augment import random_rotation
 from geoldm_tpu_torch.train.conditioning import prepare_context
 from geoldm_tpu_torch.train.prefetch import prefetch_map
+from geoldm_tpu_torch.utils import spans
 from geoldm_tpu_torch.utils.buckets import covering_buckets
 
 
@@ -100,6 +105,21 @@ def pad_with_weight(batch: Dict[str, np.ndarray], target: int) -> Dict[str, np.n
     return out
 
 
+_END = object()
+
+
+def _waited(batches):
+    """``batches``, each wait for the next one a ``train.data_wait`` span
+    (id: the batch's index in the epoch; the last wait finds the end)."""
+    batches = iter(batches)
+    for i in itertools.count():
+        with spans.span("train.data_wait", i):
+            item = next(batches, _END)
+        if item is _END:
+            return
+        yield item
+
+
 def train_epoch(state, train_step, loader, nodes_dist: DistributionNodes, noise: com.Noise,
                 epoch: int, *, augment_noise: float = 0.0, data_augmentation: bool = False,
                 break_train_epoch: bool = False, log_every: int = 50,
@@ -131,14 +151,19 @@ def train_epoch(state, train_step, loader, nodes_dist: DistributionNodes, noise:
             if keep == 0:
                 return None
             batch = sharding.shard_rows({k: v[:keep] for k, v in batch.items()}, data)
-        return to_device(batch, device)
+        mask = batch["node_mask"]
+        n = mask.reshape(len(mask), -1).sum(axis=1, dtype=np.int64)
+        return int((n * n).sum()), mask.shape[0] * mask.shape[1] ** 2, to_device(batch, device)
 
     # break_train_epoch runs serially: a lookahead would advance the shared
     # rng past where the serial loop stops, changing later draws.
     depth = 0 if break_train_epoch else prefetch
-    for i, batch in enumerate(prefetch_map(prep, loader, depth=depth)):
-        if batch is None:
+    for i, prepped in enumerate(_waited(prefetch_map(prep, loader, depth=depth))):
+        if prepped is None:
             continue
+        pairs, slots, batch = prepped
+        spans.count("train.pairs", pairs)
+        spans.count("train.pair_slots", slots)
         metrics = train_step(state, batch, noise)
         losses.append(metrics["loss"])
         if i % log_every == 0:

@@ -80,8 +80,9 @@ def test_every_jax_flag_parses_in_the_port(cli, monkeypatch):
 
 def test_trace_writes_one_trace_a_rank_and_epoch(tmp_path):
     """Two data ranks on the CPU, one epoch: a Chrome trace of the train loop
-    from each rank, naming its epoch and rank, holding the training's ops;
-    ``--visualize_every_batch 3`` accepted."""
+    from each rank, naming its epoch and rank, holding the training's ops
+    and the program's train-step spans; ``--visualize_every_batch 3``
+    accepted."""
     data = str(tmp_path / "data")
     write_qm9_splits(data, get_dataset_info("qm9"), {"train": 16, "valid": 4, "test": 4}, seed=5)
     trace = tmp_path / "trace"
@@ -97,6 +98,8 @@ def test_trace_writes_one_trace_a_rank_and_epoch(tmp_path):
         events = json.load(open(trace / name))["traceEvents"]
         assert any("addmm" in e.get("name", "") or "linear" in e.get("name", "")
                    for e in events), name
+        names = {e.get("name") for e in events}
+        assert {"geoldm.train.step", "geoldm.train.grad_reduce"} <= names, name
 
 
 def test_force_download_prepares_qm9_from_the_raw_files(tmp_path, monkeypatch):
