@@ -267,6 +267,17 @@ Phases (each prints a line; any failure exits non-zero before the result):
      (d)
      cli.main_geom_drugs --tp 2 at the GEOM recipe, one step at pad 184
      (#3/#4/#5 on each rank), launches exact.
+ 41. The fused optimizer step (ops.fused_optim: the clip's norm and
+     threshold, AMSGrad and the EMA in three launches) against its plain
+     version at the QM9 recipe's 301 parameters (the encoder's 23 without a
+     gradient), timed in turns with CUDA events, its kernels' device time
+     against the bytes they move; every tensor within 1e-6 of the plain
+     version's; each step's norm, a step that trips the clip, the ring
+     buffer and its counters within 1e-6 of the clip's arithmetic in
+     float64.
+     The training paths of phases 7, 13, 16, 24, 25, 27-29, 32, 33, 35, 38
+     and 40 each check one launch of each of its kernels a train step (on
+     each rank); the kernels line counts them.
 
 A stall is not silent: past _STALL_SECONDS every thread's stack is written
 to standard error (the run goes on).
@@ -282,6 +293,7 @@ import contextlib
 import copy
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -647,9 +659,29 @@ def _launch_counts() -> dict:
 
 
 def _zero_launch_counts() -> None:
-    from geoldm_tpu_torch.ops import reset_kernel_launches
+    from geoldm_tpu_torch.ops import fused_optim, reset_kernel_launches
 
     reset_kernel_launches()
+    fused_optim.reset_launches()
+
+
+# (training path, the fused optimizer step's (norm, threshold, update)
+# launches counted on it, summed over its ranks), for the kernels line.
+_FUSED_PATHS: list = []
+
+
+def _check_fused(path, steps, ranks=None):
+    """The fused optimizer step on a training path: one launch of each of
+    its three kernels a train step, counted since ``_zero_launch_counts``
+    in this process, or on each of ``ranks`` (a CLI's replicas)."""
+    from geoldm_tpu_torch.ops import fused_optim
+
+    per_rank = ([list(fused_optim.launches())] if ranks is None
+                else [list(r["fused_launches"]) for r in ranks])
+    _check(all(c == [steps] * 3 for c in per_rank),
+           f"{path}: the fused optimizer step launched {per_rank} (norm, threshold, update; "
+           f"per rank) in {steps} train steps")
+    _FUSED_PATHS.append((path, [sum(c[i] for c in per_rank) for i in range(3)]))
 
 
 def _no_launches() -> dict:
@@ -752,6 +784,7 @@ def phase_train(card_name, tmpdir):
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     fwd, bwd = egnn_block.launches, egnn_block.bwd_launches
+    _check_fused("phase 7: cli.main_qm9 at the recipe", steps)
 
     losses = summary["losses"][0]
     _check(len(losses) == steps, f"{len(losses)} train steps, expected {steps}")
@@ -1414,6 +1447,7 @@ def phase_geom_train(card_name, tmpdir):
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     launches = _launch_counts()
+    _check_fused("phase 13: cli.main_geom_drugs at the recipe", 3)
 
     losses = summary["losses"][0]
     _check(len(losses) == 3, f"{len(losses)} train steps, expected 3")
@@ -1670,6 +1704,7 @@ def phase_sp_train(card_name, tmpdir, compute_dtype=None, phase=16):
            f"test NLL {summary['nll_test']}")
     replicas = summary["replicas"]
     _check([r["rank"] for r in replicas] == list(range(ranks)), f"replicas {replicas}")
+    _check_fused(f"phase {phase}: cli.main_geom_drugs --sp {ranks}", 2, replicas)
     _check(len({r["digest"] for r in replicas}) == 1,
            f"the ranks' train states differ: {[r['digest'][:12] for r in replicas]}")
     _check(all(r["stability"] == replicas[0]["stability"] and
@@ -2777,6 +2812,7 @@ def phase_bf16_train(card, tmpdir):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _launch_counts()
+    _check_fused("phase 24: cli.main_qm9 --compute_dtype bfloat16_pallas", steps)
     losses = summary["losses"][0]
     _check(len(losses) == steps and bool(np.all(np.isfinite(losses))), f"QM9 bf16 losses {losses}")
     _check(np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
@@ -2821,6 +2857,7 @@ def phase_bf16_train(card, tmpdir):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _launch_counts()
+    _check_fused("phase 24: cli.main_geom_drugs --compute_dtype bfloat16", 1)
     train, val, test = load_split_data(path)
 
     def batch_pads(splits, shuffle):
@@ -3400,6 +3437,7 @@ def _check_replicas(phase, summary, n_ranks):
            f"{[r['digest'][:12] for r in replicas]}")
     _check(all(r["stability"] == summary["stability"] for r in replicas),
            f"phase {phase}: the ranks scored different stability samples")
+    _check_fused(f"phase {phase}: {n_ranks} ranks", sum(map(len, summary["losses"])), replicas)
     return replicas
 
 
@@ -3944,6 +3982,8 @@ def _train_cli(card, phase, tmpdir, extra, steps, per_step, per_eval, per_chunk,
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _launch_counts()
+    _check_fused(f"phase {phase}: cli.main_qm9 {' '.join(extra)}",
+                 sum(map(len, summary["losses"])))
     losses = summary["losses"][-1]
     _check(len(losses) == steps and bool(np.all(np.isfinite(losses))),
            f"phase {phase}: losses {losses}")
@@ -4361,6 +4401,7 @@ def phase_bench_train(card):
         L, dec = cfg.dynamics.egnn.n_layers, cfg.vae.decoder_egnn.n_layers
         enc = cfg.vae.encoder_egnn.n_layers
         steps = res["reps"] + 1
+        _check_fused(f"phase 35: cli.bench_train --compute_dtype {dtype}", steps)
         suffix = "_bf16" if dtype == "bfloat16" else ""
         want = {**_no_launches(), f"egnn_block{suffix}": (enc + dec + L) * steps,
                 f"egnn_block_bwd{suffix}": (dec + L) * steps}
@@ -4828,6 +4869,7 @@ def phase_lowp_train(card, tmpdir):
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = _launch_counts()
+        _check_fused(f"phase 38: cli.main_qm9 --compute_dtype {dtype}", steps)
         losses = summary["losses"][0]
         _check(len(losses) == steps and bool(np.all(np.isfinite(losses)))
                and np.isfinite(summary["nll_val"][0]) and np.isfinite(summary["nll_test"][0]),
@@ -4987,23 +5029,18 @@ def _tp_step(raw, compute_dtype, grid=None):
     step = make_train_step(cfg, 0.9999, compute_dtype)
     batch = to_device(sharding.shard_rows(prepare_host(raw, DistributionNodes(info.n_nodes)),
                                           data), device)
-    grads, apply = {}, state.optimizer.step
-
-    def capture():
-        names = {id(p): n for n, p in model.named_parameters()}
-        grads.update({n: p.grad.detach().cpu() for n, p in model.named_parameters()
-                      if p.grad is not None})
-        mine = [(p, s) for p, s in state.shards if s.grad is not None]
-        full = sharding.gather_shards([s.grad for _, s in mine], tp) if mine else []
-        grads.update({names[id(p)]: g.cpu() for (p, _), g in zip(mine, full)})
-        apply()
-
-    state.optimizer.step = capture
     before = _launch_counts()
     out = step(state, batch, sharding.wrap_noise(_Replay(12), data))
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _launch_counts().items()}
-    state.optimizer.step = apply
+    # The gradients AdamW applied stay after the step, clipped in place (the
+    # fused step writes the clipped values back).
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    mine = [(p, s) for p, s in state.shards if s.grad is not None]
+    full = sharding.gather_shards([s.grad for _, s in mine], tp) if mine else []
+    grads.update({names[id(p)]: g.cpu() for (p, _), g in zip(mine, full)})
     params = {n: p.detach().cpu() for n, p in model.named_parameters()}
     return float(out["loss"]), float(out["grad_norm"]), grads, params, launches, state
 
@@ -5172,6 +5209,225 @@ def phase_tp_grad(card):
     out["seconds"] = time.time() - t0
     torch.cuda.empty_cache()
     return out
+
+
+def phase_fused_optim(card, steps=20):
+    """Phase 41: the fused optimizer step (ops.fused_optim, three launches)
+    against its plain version (the train step's on the CPU: the clip,
+    torch's foreach AdamW, the EMA's foreach ops) at the QM9 recipe's list:
+    the model's 301 parameters, the encoder's 23 without a gradient, AdamW
+    over the rest, the clip and the EMA at 0.9999. Timed in turns (plain,
+    fused, fused, plain), ``steps`` steps a turn after a warm-up, with CUDA
+    events around the whole step (the host's issue included); the fused
+    kernels' device time from the profiler (a warm-up session, then the
+    measured one: the mean over the launches it recorded); the bound: the
+    bytes the three kernels must move over 3.35 TB/s. Both versions step
+    the same gradients: every tensor (parameters, moments, EMA) within 1e-6
+    of its largest element. Then one step's gradients are 1e4 times larger,
+    so the clip trips, and two more steps follow. Each step's returned norm
+    is held within 1e-6 of the float64 norm of the gradients it took, and
+    the ring buffer, its counters and the spike's clipped gradients (the
+    scale) within 1e-6 of the clip's arithmetic in float64 over those
+    norms; after the spike the two versions' tensors are held within 1e-6
+    plus the plain version's own error in the scale (its f32 norm and
+    threshold)."""
+    import torch
+
+    from geoldm_tpu_torch.data.datasets_config import get_dataset_info
+    from geoldm_tpu_torch.models import factory
+    from geoldm_tpu_torch.ops import fused_optim
+    from geoldm_tpu_torch.train.optim import ema_update
+    from geoldm_tpu_torch.train.train_step import create_train_state
+
+    cfg = factory.make_latent_diffusion_config(get_dataset_info("qm9"), trainable_ae=True)
+    sides = {}
+
+    def sq64(name):  # the sum of the squares of a side's gradients, in float64
+        return sum(float((p.grad.double() ** 2).sum()) for _, p in sides[name]["named"]
+                   if p.grad is not None)
+
+    for name in ("plain", "fused"):
+        model = factory.build_model(cfg, "cuda", torch.Generator().manual_seed(7))
+        state = create_train_state(model, cfg, 1e-4, ema_decay=0.9999)
+        named = list(model.named_parameters())
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        for n, p in named:  # the encoder's latent is detached: no gradient
+            p.grad = None if n.startswith("vae.encoder.") else \
+                torch.empty_like(p).normal_(generator=gen) * 1e-3
+        ema, sources = list(state.ema_model.parameters()), list(model.parameters())
+        if name == "fused":
+            fused = fused_optim.FusedStep(state.optimizer, [False] * len(state.params), ema,
+                                          sources, 0.9999, state.clip)
+
+            def run(fused=fused):
+                norm = fused.clip_norm()
+                fused.update()
+                return norm
+        else:
+            def run(state=state, ema=ema, sources=sources):
+                norm = state.clip([p.grad for p in state.params if p.grad is not None])
+                state.optimizer.step()
+                ema_update(ema, sources, 0.9999)
+                return norm
+        sides[name] = {"run": run, "state": state, "named": named, "ms": [], "host_ms": []}
+        ref0 = math.sqrt(sq64(name))
+        # the first step allocates the moments and (fused) builds the tables
+        sides[name]["norms"] = [run()]
+    stepped = sum(p.numel() for _, p in sides["fused"]["named"] if p.grad is not None)
+    ema_only = sum(p.numel() for n, p in sides["fused"]["named"] if p.grad is None)
+
+    def steps_of(name, n):
+        side = sides[name]
+        for _ in range(n):
+            side["norms"].append(side["run"]())
+
+    torch.cuda.synchronize()
+    for name in ("plain", "fused", "fused", "plain"):
+        side = sides[name]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        steps_of(name, steps)
+        host = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        side["ms"].append(start.elapsed_time(end) / steps)
+        side["host_ms"].append(1e3 * host / steps)
+    kernels = ("norm_kernel", "threshold_kernel", "update_kernel")
+    sessions = []
+    for _ in ("warm-up", "measured"):
+        before = fused_optim.launches()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            steps_of("fused", steps)
+            torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(fused_optim.launches(), before)]
+        _check(launched == [steps] * 3, f"the fused step launched {launched} in {steps} steps")
+        dev_ns, seen, other = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0), []
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() != torch.autograd.DeviceType.CUDA or ev.is_user_annotation():
+                continue
+            k = next((k for k in kernels if k in ev.name()), None)
+            if k is None:
+                other.append(ev.name())
+                continue
+            dev_ns[k] += ev.duration_ns()
+            seen[k] += 1
+        sessions.append((dev_ns, seen, other))
+    # The launches ran (the counters, and the state below); the profiler
+    # recorded no other device op, and at least one of each kernel.
+    dev_ns, seen, other = sessions[-1]
+    _check(not other and all(seen.values()),
+           f"the fused step's device ops: {seen}, others {sorted(set(other))[:3]}")
+    steps_of("plain", 2 * steps)  # both sides have now taken 1 + 4 * steps
+    spike = 1 + 4 * steps
+    _check(math.sqrt(sq64("fused")) == math.sqrt(sq64("plain")) == ref0,
+           "the gradients changed in steps that do not clip")
+
+    def compare():
+        """The worst distance of the two sides' tensors: (name, share of
+        the tensor's largest element), and the largest absolute one."""
+        worst, worst_abs = ("", 0.0), 0.0
+        ema = {k: dict(v["state"].ema_model.named_parameters()) for k, v in sides.items()}
+        for (n, p), (_, q) in zip(sides["plain"]["named"], sides["fused"]["named"]):
+            pairs = [(p, q), (ema["plain"][n], ema["fused"][n])]
+            if n in sides["plain"].get("clipped", {}):
+                pairs.append((sides["plain"]["clipped"][n], sides["fused"]["clipped"][n]))
+            st_p = sides["plain"]["state"].optimizer.state.get(p, {})
+            st_f = sides["fused"]["state"].optimizer.state.get(q, {})
+            _check(set(st_p) == set(st_f), f"{n}: AdamW state {sorted(st_f)} != {sorted(st_p)}")
+            pairs += [(st_p[k], st_f[k]) for k in fused_optim.MOMENTS if k in st_p]
+            for a, b in pairs:
+                d = float((a.detach() - b.detach()).abs().max())
+                worst_abs = max(worst_abs, d)
+                worst = max(worst, (n, d / max(1e-30, float(a.detach().abs().max()))),
+                            key=lambda w: w[1])
+        return worst, worst_abs
+
+    before_spike, _ = compare()
+    _check(before_spike[1] <= 1e-6, f"fused step vs plain before the spike: {before_spike[0]} "
+                                    f"off by {before_spike[1]:.3e} of its max")
+    # One step whose gradients trip the clip, then two that do not.
+    refs = {k: [ref0] * spike for k in sides}
+    for name in ("plain", "fused"):
+        side = sides[name]
+        with torch.no_grad():
+            for _, p in side["named"]:
+                if p.grad is not None:
+                    p.grad.mul_(1e4)
+        side["spiked"] = {n: p.grad.detach().clone() for n, p in side["named"]
+                          if p.grad is not None}
+        for j in range(3):
+            refs[name].append(math.sqrt(sq64(name)))
+            steps_of(name, 1)
+            if j == 0:
+                side["clipped"] = {n: p.grad.detach().clone() for n, p in side["named"]
+                                   if p.grad is not None}
+    torch.cuda.synchronize()
+    # Each step's norm against the float64 norm of the gradients it took;
+    # the ring buffer, its counters and the clip's scale against the clip's
+    # arithmetic in float64 over those norms.
+    norms = {k: torch.stack(v["norms"]).double().cpu() for k, v in sides.items()}
+    rel = {k: float(((norms[k] - torch.tensor(refs[k], dtype=torch.float64)).abs()
+                     / torch.tensor(refs[k], dtype=torch.float64)).max()) for k in sides}
+    _check(len(norms["fused"]) == len(refs["fused"]) == spike + 3 and rel["fused"] <= 1e-6,
+           f"the fused step's norms are off by {rel['fused']:.3e} of the float64 norm")
+    ring, count, head, thr = [3000.0] + [0.0] * 49, 1, 1, []
+    for n in refs["fused"]:
+        valid = ring[:count]
+        mean = sum(valid) / count
+        thr.append(1.5 * mean + 2 * math.sqrt(sum((v - mean) ** 2 for v in valid) / count))
+        ring[head % 50] = min(n, thr[-1])
+        count, head = min(count + 1, 50), head + 1
+    clips = {k: v["state"].clip for k, v in sides.items()}
+    ring_rel = max(abs(float(f) - r) / r for f, r in zip(clips["fused"].norms.cpu(), ring))
+    _check(refs["fused"][spike] > 100 * thr[spike] and ring_rel <= 1e-6
+           and (clips["fused"].count, clips["fused"].head) == (clips["plain"].count,
+                                                               clips["plain"].head)
+           == (count, head),
+           f"the fused step's ring buffer off by {ring_rel:.3e} of float64's, counters "
+           f"{(clips['fused'].count, clips['fused'].head)}, plain "
+           f"{(clips['plain'].count, clips['plain'].head)}, float64 {(count, head)}; the "
+           f"spike's norm {refs['fused'][spike]:.4e} against the threshold {thr[spike]:.4e}")
+    scale = thr[spike] / (refs["fused"][spike] + 1e-12)
+    scale_rel = {k: max(float((sides[k]["clipped"][n].double() - g.double() * scale).abs().max())
+                        / float(g.double().abs().max() * scale)
+                        for n, g in sides[k]["spiked"].items()) for k in sides}
+    _check(scale_rel["fused"] <= 1e-6, f"the fused step's clipped gradients are off by "
+                                       f"{scale_rel['fused']:.3e} of float64's scale {scale:.6e}")
+    # After the spike the plain version's f32 norm and threshold move its
+    # scale by their own error (``scale_rel["plain"]``) too.
+    worst, worst_abs = compare()
+    _check(worst[1] <= 1e-6 + scale_rel["plain"],
+           f"fused step vs plain after the spike: {worst[0]} off by {worst[1]:.3e} of its max")
+    dev_ms = {k: dev_ns[k] / 1e6 / seen[k] for k in kernels}
+    bytes_ = {"norm_kernel": 4 * stepped, "threshold_kernel": 0,
+              "update_kernel": 4 * (12 * stepped + 3 * ema_only)}
+    bound = {k: b / _BW_PEAK * 1e3 for k, b in bytes_.items()}
+    row = {"stepped": stepped, "ema_only": ema_only, "steps": steps,
+           "plain_ms": sides["plain"]["ms"], "fused_ms": sides["fused"]["ms"],
+           "plain_host_ms": sides["plain"]["host_ms"], "fused_host_ms": sides["fused"]["host_ms"],
+           "kernel_ms": dev_ms, "kernel_events": seen,
+           "warmup_kernel_events": sessions[0][1], "bound_ms": bound,
+           "max_rel_err": max(worst[1], before_spike[1]), "max_abs_err": worst_abs,
+           "norm_rel_err": rel["fused"], "plain_norm_rel_err": rel["plain"],
+           "ring_rel_err": ring_rel, "scale_rel_err": scale_rel["fused"],
+           "plain_scale_rel_err": scale_rel["plain"]}
+    print(f"phase 41: fused optimizer step at the QM9 recipe ({stepped} stepped, {ema_only} "
+          f"EMA-only elements): step {' / '.join(f'{m:.4f}' for m in row['fused_ms'])} ms "
+          f"(host {' / '.join(f'{m:.4f}' for m in row['fused_host_ms'])}), plain "
+          f"{' / '.join(f'{m:.4f}' for m in row['plain_ms'])} ms (host "
+          f"{' / '.join(f'{m:.4f}' for m in row['plain_host_ms'])}); kernels "
+          + ", ".join(f"{k} {dev_ms[k]:.4f} ms (bound {bound[k]:.4f})" for k in kernels)
+          + f"; the profiler recorded {sessions[0][1]} of {steps} launches each in its warm-up "
+          f"session and {seen} in the measured one, no other device op; {spike + 3} steps, the "
+          f"clip tripped at step {spike} (norm {refs['fused'][spike]:.4e}, threshold "
+          f"{thr[spike]:.4e}): against float64, the norms within {rel['fused']:.2e} (plain "
+          f"{rel['plain']:.2e}), the ring buffer within {ring_rel:.2e} (counters equal), the "
+          f"clipped gradients within {scale_rel['fused']:.2e} (plain "
+          f"{scale_rel['plain']:.2e}); against the plain version, tensors "
+          f"within {before_spike[1]:.2e} of their max before the spike and {worst[1]:.2e} "
+          f"after it on {card}", flush=True)
+    return row
 
 
 def phase_tp(card, tmpdir, qm9_dir):
@@ -5378,7 +5634,7 @@ def main(argv=None) -> int:
     # and #7) and the tensor-core GEMMs: registers and spills per
     # instantiation; none may spill, and each row library holds its row grids.
     for name in ("egnn_block", "egnn_block_bwd", "egnn_block_lowp", "egnn_block_bwd_lowp",
-                 *_ROW_GRIDS):
+                 *_ROW_GRIDS, "fused_optim"):
         row_grids = [0, 0]
         for k in _ptxas_kernels(info["libs"][name]["log"]):
             if not k["name"]:
@@ -5503,6 +5759,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         tp = phase_tp(card, tmpdir, qm9_run.name)
     lap("40")
+    fused_optim_row = phase_fused_optim(card)
+    lap("41")
     qm9_run.cleanup()
     geom_run.cleanup()
     print(f"phase seconds: {json.dumps(phase_seconds)} on {card}", flush=True)
@@ -5523,7 +5781,7 @@ def main(argv=None) -> int:
         "edm": edm, "learned": learned, "gnn": gnn, "serve_warmup": serving,
         "bench_train": bench, "rendering": rendering, "geom_data": geom_data,
         "lowp_kernels": lowp_rows, "lowp_training": lowp_train, "qm9_prepare": qm9_prep,
-        "tp": tp, "phase_seconds": phase_seconds,
+        "tp": tp, "fused_optim": fused_optim_row, "phase_seconds": phase_seconds,
         "fwd_launches": {"serving": launches, "training": train["fwd_launches"],
                          "geom_serving": geom_launches},
         "seconds": time.time() - t_start}), flush=True)
@@ -5716,6 +5974,21 @@ def main(argv=None) -> int:
             at29 = next(r for r in mine if r["N"] == 29)
             entry["h192"] = {k: at29[k] for k in ("N", "B", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "bound_tc_ms") if k in at29}
+    # The fused optimizer step's kernels: launches on the training paths
+    # above (one of each a step, checked on each path), errors and times
+    # from phase 41 at the QM9 recipe's parameter list.
+    for i, (kernel, line) in enumerate((("norm_kernel", 28), ("threshold_kernel", 28),
+                                        ("update_kernel", 69))):
+        n_launched = sum(counts[i] for _, counts in _FUSED_PATHS)
+        _check(n_launched > 0, f"{kernel} was not launched on a training path")
+        report["kernels"].append({
+            "name": f"fused_optim_{kernel}", "route": "cuda",
+            "source": "geoldm_tpu_torch/csrc/fused_optim.cu",
+            "replaces": f"geoldm_tpu/train/optim.py:{line}", "launches": n_launched,
+            "paths": len(_FUSED_PATHS), "max_abs_err": fused_optim_row["max_abs_err"],
+            "ms": fused_optim_row["kernel_ms"][kernel], "plain_ms": None,
+            "bound_ms": fused_optim_row["bound_ms"][kernel], "bound_by": "bytes",
+            "library_ms": None})
     print(json.dumps(report), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -337,14 +337,15 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
     save's gathers. The summary then holds, in place of the train state,
     ``replicas``: per rank (all D*S or D*T of them) its train-state digest
     (of the gathered state, and the one it resumed from), kernel launch
-    counts, stability and sampled sizes, and under TP its shard digest and
-    its elements of optimizer and EMA state."""
+    counts (the fused optimizer step's apart), stability and sampled sizes,
+    and under TP its shard digest and its elements of optimizer and EMA
+    state."""
     import torch
 
     from geoldm_tpu_torch.data.qm9 import QM9Loader
     from geoldm_tpu_torch.models import factory
     from geoldm_tpu_torch.models.distributions import DistributionNodes, DistributionProperty
-    from geoldm_tpu_torch.ops import kernel_launches
+    from geoldm_tpu_torch.ops import fused_optim, kernel_launches
     from geoldm_tpu_torch.parallel import sp
     from geoldm_tpu_torch.train import conditioning as cond
     from geoldm_tpu_torch.train import trainer as trainer_mod
@@ -528,7 +529,8 @@ def run_training(args, dataset_info, splits, loaders=None, grid=None) -> dict:
         import torch.distributed as dist
 
         replica = {"rank": grid.rank, "digest": sp.state_digest(state),
-                   "launches": kernel_launches(), "stability": summary["stability"],
+                   "launches": kernel_launches(), "fused_launches": fused_optim.launches(),
+                   "stability": summary["stability"],
                    "sample_sizes": [np.asarray(s).tolist() for s in summary["sample_sizes"]]}
         if state.model_group is not None:
             replica["shard_digest"] = sp.shard_digest(state)

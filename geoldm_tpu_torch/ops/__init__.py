@@ -1,7 +1,9 @@
 """Kernel wrappers and their plain versions.
 
 Each wrapper adds one to its module's launch counter where it launches its
-kernel. ``LAUNCH_COUNTERS`` names every counter: kernel -> (module, attribute).
+kernel. ``LAUNCH_COUNTERS`` names every counter of the model's kernels:
+kernel -> (module, attribute). The fused optimizer step keeps its own
+(``fused_optim.norm_launches``, ``threshold_launches``, ``update_launches``).
 """
 
 import importlib

@@ -26,7 +26,7 @@ SOURCES = {"egnn_block": CSRC / "egnn_block.cu", "egnn_block_bwd": CSRC / "egnn_
            "egnn_block_lowp": CSRC / "egnn_block_lowp.cu",
            "egnn_block_bwd_lowp": CSRC / "egnn_block_bwd_lowp.cu",
            "egnn_tiled": CSRC / "egnn_tiled.cu", "egnn_tiled_bwd": CSRC / "egnn_tiled_bwd.cu",
-           "egnn_sp": CSRC / "egnn_sp.cu"}
+           "egnn_sp": CSRC / "egnn_sp.cu", "fused_optim": CSRC / "fused_optim.cu"}
 HEADERS = (CSRC / "egnn_common.cuh", CSRC / "egnn_bwd_common.cuh", CSRC / "egnn_tile.cuh",
            CSRC / "egnn_tc_gemm.cuh", CSRC / "egnn_block_tile.cuh", CSRC / "egnn_block_bwd.cuh",
            CSRC / "egnn_rows.cuh", CSRC / "egnn_rows_bwd.cuh")
@@ -84,6 +84,13 @@ _SIGNATURES = {
         "egnn_sp_coord_rows_backward_bf16": ([_P] * 18 + [_I] * 11 + [_F] * 3 + [_P], _I),
         "egnn_sp_backward_scratch_floats": ([_I] * 6, _Z),
         "egnn_sp_error_string": ([_I], _STR),
+    },
+    "fused_optim": {
+        "fused_optim_layout": ([ctypes.POINTER(_I)], _I),
+        "fused_optim_norm": ([_P] * 2 + [_I] * 3 + [_P, _I, _P, _I, _P, _I, _P, _P], _I),
+        "fused_optim_threshold": ([_P] * 3 + [_I] * 3 + [_P] * 3, _I),
+        "fused_optim_update": ([_P] * 2 + [_I] * 3 + [_P, _I, _P] + [_F] * 9 + [_I, _P], _I),
+        "fused_optim_error_string": ([_I], _STR),
     },
 }
 

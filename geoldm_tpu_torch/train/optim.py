@@ -6,8 +6,11 @@ The reference trains with ``AdamW(amsgrad=True, weight_decay=1e-12)``
 (qm9/models.py:169-175), which is the chain the JAX package rebuilt in optax
 (``scale_by_amsgrad_torch`` + ``add_decayed_weights`` + ``scale(-lr)``), so
 the port uses ``torch.optim.AdamW`` itself; ``tests/test_torch_port_train.py``
-holds it to the JAX chain. The clip keeps its ring buffer on the device and
-never synchronises with the host; checkpoints save it (``state_dict``), so a
+holds it to the JAX chain. On the card the train step runs the clip's norm
+and scale, AdamW's step and the EMA as one fused step of three launches
+(``ops.fused_optim``), over AdamW's own state; the functions here are its
+plain version, which the CPU runs. The clip keeps its ring buffer on the
+device and never synchronises with the host; checkpoints save it (``state_dict``), so a
 resumed run clips against the same history. Under tensor parallelism the
 global norm adds the squares of this rank's shards of the hidden-width
 gradients over the model ranks to those of the replicated gradients, each
@@ -48,9 +51,14 @@ class AdaptiveGradClip:
         scale = torch.clamp(max_grad_norm / (grad_norm + 1e-12), max=1.0)
         torch._foreach_mul_(list(grads) + list(shards), scale)
         self.norms[self.head % self.norms.shape[0]] = torch.minimum(grad_norm, max_grad_norm)
+        self.advance()
+        return grad_norm
+
+    def advance(self) -> None:
+        """Count the norm just written at ``head`` (by this clip or by the
+        fused optimizer step's threshold kernel, ``ops.fused_optim``)."""
         self.count = min(self.count + 1, self.norms.shape[0])
         self.head += 1
-        return grad_norm
 
     def state_dict(self) -> dict:
         """The ring buffer and its counters (JAX's ``AdaptiveClipState``)."""

@@ -1,15 +1,17 @@
 """Train step and eval NLL (port of ``geoldm_tpu/train/train_step.py:38-144``).
 
 A step: loss = mean(nll - log p(N)), backward (through the block kernels on
-the card), adaptive clip, AMSGrad update, EMA. With a sequence-parallel model
-(``parallel.sp``) every rank of an SP group runs the same step on the same
-batch and noise; after the backward the gradients of the EGNN blocks'
-weights, of which each rank holds its slab's share, are summed over the SP
-group. Under data parallelism (``parallel.sharding``) each data rank holds
-B/D rows of the global batch and draws its rows of the global draws
-(``sharding.GlobalNoise``); after the SP sum every gradient and the loss are
-averaged over the data ranks, before the clip, so the clip, AMSGrad and the
-EMA see the global-batch gradient and every replica takes the same update.
+the card), adaptive clip, AMSGrad update, EMA (the last three on the card
+in the three launches of ``ops.fused_optim``, on the CPU as plain PyTorch).
+With a sequence-parallel model (``parallel.sp``) every rank of an SP group
+runs the same step on the same batch and noise; after the backward the
+gradients of the EGNN blocks' weights, of which each rank holds its slab's
+share, are summed over the SP group. Under data parallelism
+(``parallel.sharding``) each data rank holds B/D rows of the global batch
+and draws its rows of the global draws (``sharding.GlobalNoise``); after
+the SP sum every gradient and the loss are averaged over the data ranks,
+before the clip, so the clip, AMSGrad and the EMA see the global-batch
+gradient and every replica takes the same update.
 Under tensor parallelism (``--tp T``, ``parallel.sharding``) the T model
 ranks of a data row run the same forward and backward on the same rows with
 the full weights; each then cuts every hidden-width gradient to its own rows
@@ -36,7 +38,7 @@ from torch import nn
 
 from geoldm_tpu_torch.config import ModelConfig
 from geoldm_tpu_torch.models import factory
-from geoldm_tpu_torch.ops import com
+from geoldm_tpu_torch.ops import com, fused_optim
 from geoldm_tpu_torch.parallel import sharding
 from geoldm_tpu_torch.parallel import sp as sp_mod
 from geoldm_tpu_torch.train import optim as optim_mod
@@ -62,6 +64,10 @@ class TrainState:
     # TP with EMA: per parameter of the model, the EMA this rank keeps (its
     # rows of a sharded one)
     ema_params: List[torch.Tensor] = field(default_factory=list)
+    # On the card: the fused optimizer step and its tables, built at the
+    # first step and again once AdamW's state is replaced (a load); the EMA
+    # and the parameters are loaded in place
+    fused: Optional[fused_optim.FusedStep] = None
 
 
 def create_train_state(model: nn.Module, model_cfg: ModelConfig, lr: float,
@@ -140,6 +146,33 @@ def ema_state_dict(state: TrainState) -> dict:
     for (name, _), e in zip(state.model.named_parameters(), _full_ema(state)):
         out[name] = e.cpu().clone()
     return out
+
+
+def _ema_pairs(state: TrainState, ema_decay: float) -> tuple:
+    """(EMA tensors, what each averages) per parameter of the model: under
+    TP this rank's EMA rows and owned rows; none without EMA."""
+    if ema_decay <= 0:
+        return [], []
+    if state.ema_params:
+        return state.ema_params, owned(state)
+    return list(state.ema_model.parameters()), list(state.model.parameters())
+
+
+def _fused_step(state: TrainState, ema_decay: float) -> fused_optim.FusedStep:
+    """The state's fused optimizer step, built on first use and again once
+    AdamW's state was replaced (``load_optimizer_state``) or the EMA's decay
+    differs."""
+    if state.ema_model is state.model:  # built without EMA: nothing to average
+        ema_decay = 0.0
+    if (state.fused is None or not state.fused.current(state.optimizer)
+            or state.fused.ema_decay != max(ema_decay, 0.0)):
+        mine = {id(s) for _, s in state.shards}
+        grp = state.model_group
+        state.fused = fused_optim.FusedStep(
+            state.optimizer, [id(p) in mine for p in state.params],
+            *_ema_pairs(state, ema_decay), ema_decay, state.clip,
+            reduce=(lambda t: sharding.all_reduce(t, grp)) if mine else None)
+    return state.fused
 
 
 def _shard_index(state: TrainState) -> List[int]:
@@ -237,10 +270,16 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None
     keep mask, ``keep`` [B,1,1] or else ``context_keep``'s draw. With the
     state's ``dp_group`` the batch is this rank's rows of the global batch,
     ``noise`` its ``sharding.GlobalNoise``, and the returned loss the
-    global mean. Under a profiler a step is a ``train.step`` span
-    (``utils.spans``, id the step number) holding ``train.zero_grad``,
+    global mean. After the gradient sums the optimizer tail (clip, AMSGrad,
+    EMA) runs on the card as ``ops.fused_optim``'s three launches, on the
+    CPU as its plain version. Under a profiler a step is a ``train.step``
+    span (``utils.spans``, id the step number) holding ``train.zero_grad``,
     ``train.forward``, ``train.backward``, ``train.grad_reduce`` (each SP or
-    DP gradient sum), ``train.clip``, ``train.optimizer`` and ``train.ema``."""
+    DP gradient sum), ``train.clip`` and ``train.optimizer``, and on the CPU
+    ``train.ema``; on the card ``train.clip`` holds the norm and threshold
+    launches, ``train.optimizer`` the update, which moves the EMA too (no
+    ``train.ema``), and the counter ``train.fused_optimizer`` adds 1 a
+    step."""
     nll_fn = factory.model_nll_fn(model_cfg, training=True, compute_dtype=compute_dtype)
 
     def train_step(state: TrainState, batch: dict, noise: com.Noise,
@@ -272,22 +311,31 @@ def make_train_step(model_cfg: ModelConfig, ema_decay: float, compute_dtype=None
                 with spans.span("train.grad_reduce", k):
                     (loss,) = sharding.reduce_grads(state.params, state.dp_group, loss,
                                                     mean=True)
-            with spans.span("train.clip", k):
-                mine = {id(s) for _, s in state.shards}
-                grads = [p.grad for p in state.params
-                         if p.grad is not None and id(p) not in mine]
-                shard_grads = [s.grad for _, s in state.shards if s.grad is not None]
-                if state.clip is not None:
-                    grad_norm = state.clip(grads, shard_grads, state.model_group)
-                else:
-                    grad_norm = optim_mod.global_norm(grads, shard_grads, state.model_group)
-            with spans.span("train.optimizer", k):
-                state.optimizer.step()
-            with spans.span("train.ema", k):
-                if ema_decay > 0 and state.ema_params:
-                    optim_mod.ema_update(state.ema_params, owned(state), ema_decay)
-                elif ema_decay > 0:
-                    optim_mod.ema_update(state.ema_model, state.model, ema_decay)
+            if state.params[0].is_cuda:
+                fused = _fused_step(state, ema_decay)
+                with spans.span("train.clip", k):
+                    grad_norm = fused.clip_norm()
+                with spans.span("train.optimizer", k):
+                    fused.update()
+                spans.count("train.fused_optimizer", 1)
+            else:
+                with spans.span("train.clip", k):
+                    mine = {id(s) for _, s in state.shards}
+                    grads = [p.grad for p in state.params
+                             if p.grad is not None and id(p) not in mine]
+                    shard_grads = [s.grad for _, s in state.shards if s.grad is not None]
+                    if state.clip is not None:
+                        grad_norm = state.clip(grads, shard_grads, state.model_group)
+                    else:
+                        grad_norm = optim_mod.global_norm(grads, shard_grads,
+                                                          state.model_group)
+                with spans.span("train.optimizer", k):
+                    state.optimizer.step()
+                with spans.span("train.ema", k):
+                    if ema_decay > 0 and state.ema_params:
+                        optim_mod.ema_update(state.ema_params, owned(state), ema_decay)
+                    elif ema_decay > 0:
+                        optim_mod.ema_update(state.ema_model, state.model, ema_decay)
             if state.shards:
                 sharding.gather_shards([s.detach() for _, s in state.shards],
                                        state.model_group,

@@ -14,7 +14,7 @@ import torch.distributed as dist
 from geoldm_tpu_torch.data.datasets_config import get_dataset_info
 from geoldm_tpu_torch.models import factory
 from geoldm_tpu_torch.models.distributions import DistributionNodes
-from geoldm_tpu_torch.ops import kernel_launches
+from geoldm_tpu_torch.ops import fused_optim, kernel_launches
 from geoldm_tpu_torch.parallel import sharding, sp
 from geoldm_tpu_torch.train import sampling, trainer
 from geoldm_tpu_torch.train.train_step import (
@@ -88,8 +88,9 @@ def train_step(spec, batch, noise, opts=None, grid=None):
     SP sum, the DP mean and the clip; under TP the shards gathered), the
     weights after the update, the train state as one rank holds it after the
     step (``utils.checkpoint.full_state``: AMSGrad's moments and the EMA
-    gathered), every rank's train-state digest, launch counts and elements
-    of optimizer and EMA state."""
+    gathered), every rank's train-state digest, launch counts (the fused
+    optimizer step's apart: norm, threshold, update) and elements of
+    optimizer and EMA state."""
     opts = opts or {}
     device = "cpu" if grid is None else grid.device
     seq, data = _groups(grid)
@@ -106,25 +107,21 @@ def train_step(spec, batch, noise, opts=None, grid=None):
     source = (torch.Generator(device=device).manual_seed(arg) if kind == "seed"
               else Replay(arg))
     local = sharding.shard_rows(batch, data)
-    grads = {}
-    real_step = state.optimizer.step
-
-    def capture():
-        grads.update({n: p.grad.detach().cpu().numpy().copy()
-                      for n, p in model.named_parameters() if p.grad is not None})
-        if state.shards:  # the shards' gradients, gathered over the model ranks
-            names = {id(p): n for n, p in model.named_parameters()}
-            mine = [(p, s) for p, s in state.shards if s.grad is not None]
-            full = sharding.gather_shards([s.grad for _, s in mine], tp)
-            grads.update({names[id(p)]: g.cpu().numpy() for (p, _), g in zip(mine, full)})
-        real_step()
-
-    state.optimizer.step = capture
     if keep is not None:
         keep = torch.from_numpy(sharding.shard_rows({"k": keep}, data)["k"]).to(device)
     out = step(state, {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                        for k, v in local.items()},
                sharding.wrap_noise(source, data), keep=keep)
+    # The gradients the optimizer applied: after the step they are still
+    # there, clipped in place (AdamW leaves them; the card's fused step
+    # writes the clipped values back).
+    grads = {n: p.grad.detach().cpu().numpy().copy()
+             for n, p in model.named_parameters() if p.grad is not None}
+    if state.shards:  # the shards' gradients, gathered over the model ranks
+        names = {id(p): n for n, p in model.named_parameters()}
+        mine = [(p, s) for p, s in state.shards if s.grad is not None]
+        full = sharding.gather_shards([s.grad for _, s in mine], tp)
+        grads.update({names[id(p)]: g.cpu().numpy() for (p, _), g in zip(mine, full)})
     full = full_state(state)
     return {"loss": float(out["loss"]), "grad_norm": float(out["grad_norm"]), "grads": grads,
             "params": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
@@ -134,7 +131,8 @@ def train_step(spec, batch, noise, opts=None, grid=None):
             "digests": _world(sp.state_digest(state), grid),
             "shard_digests": _world(sp.shard_digest(state) if state.shards else None, grid),
             "elements": _world(state_elements(state), grid),
-            "launches": _world(kernel_launches(), grid)}
+            "launches": _world(kernel_launches(), grid),
+            "fused_launches": _world(list(fused_optim.launches()), grid)}
 
 
 def eval_nll(spec, raws, seed, pad_to=0, grid=None):
