@@ -46,7 +46,9 @@
 //      2 x 1 KB per edge;
 //   4. the node-side products (dW1's src/dst columns, the node MLP, dh) on
 //      the 3xTF32 node GEMM of egnn_tc_gemm.cuh (node_gemm, split-K for the
-//      weight gradients, splits summed in order), and the shared passes of
+//      weight gradients, splits summed in order; paired products of one
+//      shape, such as dW1's src and dst columns, in one grouped launch),
+//      and the shared passes of
 //      egnn_bwd_common.cuh (stage_grads, node_mlp_backward, which the
 //      row-tiled backward runs too): row reductions, and a coordinate pass that
 //      turns the antisymmetric pair gradients into dx_i = sum_j (G_ij - G_ji)
@@ -124,6 +126,46 @@ int egnn_block_backward_bf16(const float* h, const float* x, const float* x0, co
                               coord_g, saved, scratch, B, N, H, E, n_gcl, attention, sin_emb,
                               use_tanh, mean_agg, coords_range, norm_constant,
                               normalization_factor, stream);
+}
+
+// The node GEMM alone (egnn_tc_gemm.cuh: run_node_gemm, the launcher every
+// caller takes), for the card tests: c (+)= epilogue(A B) as NodeGemm
+// describes it, and with a1b, bb, cb non-null a second product of the same
+// shape, cb (+)= A' B' (a1b [, a2] and bb; accumulate_b), in the same
+// grouped launch. variant 0: f32 in split TF32; 1: BF16 (bf16 operands, ta
+// 0 and tb 1 only); 2: GRAD16 (A in split TF32, B rounded to bf16, the
+// result rounded when round_out). split: split_cap floats for the K splits
+// (0: never split). Returns a cudaError_t value.
+int egnn_node_gemm(const float* a1, const float* a2, const float* b, float* c, const float* a1b,
+                   const float* bb, float* cb, const float* bias, const float* resid,
+                   const float* row_mask, float* split, int lda1, int k1, int lda2, int ta,
+                   int ldb, int tb, int ldc, int ldr, int M, int N, int K, int epilogue,
+                   int accumulate, int accumulate_b, int round_out, int variant,
+                   size_t split_cap, void* stream) {
+  NodeGemm g = {};
+  g.p[0] = {a1, a2, b, c, accumulate};
+  g.p[1] = {a1b, a2, bb, cb, accumulate_b};
+  g.problems = cb ? 2 : 1;
+  g.lda1 = lda1; g.k1 = k1; g.lda2 = lda2; g.ta = ta; g.ldb = ldb; g.tb = tb;
+  g.bias = bias; g.resid = resid; g.ldr = ldr; g.row_mask = row_mask; g.ldc = ldc;
+  g.M = M; g.N = N; g.K = K; g.epilogue = epilogue; g.round_out = round_out;
+  const SplitBuf sb = {split, split ? split_cap : 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (ta || !tb) return (int)cudaErrorInvalidValue;
+    return run_node_gemm<true>(g, sb, s);
+  }
+  if (variant == 2) return run_node_gemm<false, true>(g, sb, s);
+  return run_node_gemm<false>(g, sb, s);
+}
+
+// The node GEMM's plan (node_gemm_plan) for `problems` products of M x N
+// over K: out = {CTA tile rows, CTA tile columns, K splits, K rows a split}.
+int egnn_node_gemm_plan(int M, int N, int K, int problems, size_t cap, int may_split, int* out) {
+  out[0] = kNgTM;
+  out[1] = kNgTN;
+  out[2] = node_gemm_plan(M, N, K, problems, cap, may_split, &out[3]);
+  return 0;
 }
 
 }  // extern "C"

@@ -76,34 +76,34 @@ int launch_edge_tile(const TileArgs& a, int B, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 
 // The node GEMM with launch_gemm's arguments (egnn_common.cuh): A [M][K]
-// split at k1, W [Nout][K], a fused epilogue; BF16 on bf16 operands.
+// split at k1, W [Nout][K], a fused epilogue; BF16 on bf16 operands. Never
+// split: the forward's products fill the card with their output tiles.
 template <bool BF16 = false>
 int node_gemm_nt(const GemmArgs& a, cudaStream_t s) {
   NodeGemm g = {};
-  g.a1 = a.a1; g.lda1 = a.lda1; g.k1 = a.k1; g.a2 = a.a2; g.lda2 = a.lda2;
-  g.b = a.w; g.ldb = a.ldw; g.tb = 1;
+  g.p[0] = {a.a1, a.a2, a.w, a.c, 0};
+  g.problems = 1;
+  g.lda1 = a.lda1; g.k1 = a.k1; g.lda2 = a.lda2;
+  g.ldb = a.ldw; g.tb = 1;
   g.bias = a.bias; g.resid = a.resid; g.ldr = a.ldr; g.row_mask = a.row_mask;
-  g.c = a.c; g.ldc = a.ldc; g.M = a.M; g.N = a.Nout; g.K = a.K;
-  g.epilogue = a.epilogue; g.kchunk = a.K;
-  return launch_node_gemm<BF16>(g, 1, s);
+  g.ldc = a.ldc; g.M = a.M; g.N = a.Nout; g.K = a.K;
+  g.epilogue = a.epilogue;
+  return run_node_gemm<BF16>(g, SplitBuf{nullptr, 0}, s);
 }
 
 // proj[:, :H] = h W1[:, :H]^T and proj[:, H:2H] = h W1[:, H:2H]^T (row
-// stride 2H), no bias: b1 is added per edge in the tile.
+// stride 2H), no bias: b1 is added per edge in the tile. One grouped launch.
 template <bool BF16 = false>
 int node_projection(const float* h, const float* w1, int ld1, float* proj, int M, int H,
                     cudaStream_t s) {
-  for (int half = 0; half < 2; ++half) {
-    GemmArgs g = {};
-    g.a1 = h; g.lda1 = H; g.k1 = H;
-    g.w = w1 + half * H; g.ldw = ld1;
-    g.c = proj + half * H; g.ldc = 2 * H;
-    g.M = M; g.Nout = H; g.K = H;
-    g.epilogue = kEpiNone;
-    const int rc = node_gemm_nt<BF16>(g, s);
-    if (rc) return rc;
-  }
-  return 0;
+  NodeGemm g = {};
+  g.p[0] = {h, nullptr, w1, proj, 0};
+  g.p[1] = {h, nullptr, w1 + H, proj + H, 0};
+  g.problems = 2;
+  g.lda1 = H; g.k1 = H; g.ldb = ld1; g.tb = 1;
+  g.ldc = 2 * H; g.M = M; g.N = H; g.K = H;
+  g.epilogue = kEpiNone;
+  return run_node_gemm<BF16>(g, SplitBuf{nullptr, 0}, s);
 }
 
 // ---------------------------------------------------------------------------

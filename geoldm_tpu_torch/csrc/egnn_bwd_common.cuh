@@ -185,11 +185,17 @@ int stage_grads(const Dims& d, const float* hr, const float* hc, const float* w1
   // edge-feature columns from the per-tile partials; b1 from the row sums.
   column_sum_kernel<<<Mc, 256, 0, s>>>(sc.colpart, sc.colsum, d.T, d.N, H);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = node_gemm<BF16>(sc.rowsum, H, 1, hr, H, 0, gw1, d.ld1, H, H, Mr, acc, sc.split, s)))
-    return rc;
-  if ((rc = node_gemm<BF16>(sc.colsum, H, 1, hc, H, 0, gw1 + H, d.ld1, H, H, Mc, acc, sc.split,
-                            s)))
-    return rc;
+  if (Mr == Mc) {  // one grouped launch
+    if ((rc = node_gemm_pair<BF16>(sc.rowsum, sc.colsum, H, 1, hr, hc, H, 0, gw1, gw1 + H, d.ld1,
+                                   H, H, Mr, acc, acc, sc.split, s)))
+      return rc;
+  } else {
+    if ((rc = node_gemm<BF16>(sc.rowsum, H, 1, hr, H, 0, gw1, d.ld1, H, H, Mr, acc, sc.split, s)))
+      return rc;
+    if ((rc = node_gemm<BF16>(sc.colsum, H, 1, hc, H, 0, gw1 + H, d.ld1, H, H, Mc, acc, sc.split,
+                              s)))
+      return rc;
+  }
   for (int e = 0; e < d.E; ++e)
     if ((rc = reduce_rows(sc.part + (3 + e) * H, P, ps, H, gw1 + 2 * H + e, d.ld1, acc, s)))
       return rc;
@@ -228,14 +234,14 @@ int node_mlp_backward(const float* dout, const float* mask, const float* hin, co
   dsilu_mul_kernel<<<nblk, 256, 0, s>>>(dagg, z, dtmp, M * H);  // d(z)
   if ((rc = (int)cudaGetLastError())) return rc;
   if ((rc = reduce_rows(dtmp, M, H, H, g[7], 1, acc, s))) return rc;
-  if ((rc = node_gemm<BF16>(dtmp, H, 1, hin, H, 0, g[6], 2 * H, H, H, M, acc, sb, s))) return rc;
-  if ((rc = node_gemm<BF16>(dtmp, H, 1, agg, H, 0, g[6] + H, 2 * H, H, H, M, acc, sb, s)))
+  if ((rc = node_gemm_pair<BF16>(dtmp, dtmp, H, 1, hin, agg, H, 0, g[6], g[6] + H, 2 * H, H, H,
+                                 M, acc, acc, sb, s)))
     return rc;
   rows_mask_kernel<<<nblk, 256, 0, s>>>(dout, mask, dh, M, H);  // residual path
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = node_gemm<BF16>(dtmp, H, 0, w[6], 2 * H, 0, dh, H, M, H, H, 1, sb, s, BF16)))
-    return rc;
-  return node_gemm<BF16>(dtmp, H, 0, w[6] + H, 2 * H, 0, dagg, H, M, H, H, 0, sb, s, BF16);
+  // dh += dtmp Wn1[:, :H], dagg = dtmp Wn1[:, H:2H]: one grouped launch.
+  return node_gemm_pair<BF16>(dtmp, dtmp, H, 0, w[6], w[6] + H, 2 * H, 0, dh, dagg, H, M, H, H,
+                              1, 0, sb, s, BF16);
 }
 
 // The bf16 backward's weight gradients of one stage, rounded to bf16 once

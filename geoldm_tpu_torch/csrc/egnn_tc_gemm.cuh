@@ -14,19 +14,54 @@
 
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+
 #include "egnn_tile.cuh"
 
 namespace {
 
-// c[m, n] (+)= sum_z buf[z][m][n], summed in split order.
-__global__ void splitk_reduce_kernel(const float* buf, int splits, int M, int N, float* c,
-                                     int ldc, int accumulate) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * N) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += buf[(size_t)z * M * N + idx];
-  float* dst = c + (size_t)(idx / N) * ldc + idx % N;
-  *dst = accumulate ? *dst + s : s;
+// Sums of split-K partials: o.c[p][m, n] (+)= sum_z buf[p][z][m][n] for each
+// product p (blockIdx.y), summed in split order; four elements a thread,
+// read as float4 where N % 4 == 0.
+struct SplitSum {
+  float* c[2];
+  int accumulate[2];
+  int ldc;
+};
+
+__global__ void splitk_reduce_kernel(const float* buf, int splits, int M, int N, SplitSum o) {
+  const int p = blockIdx.y;
+  const size_t MN = (size_t)M * N;
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= MN) return;
+  const float* src = buf + (size_t)p * splits * MN + i;
+  const int n = MN - i < 4 ? (int)(MN - i) : 4;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (n == 4 && N % 4 == 0) {
+#pragma unroll 8
+    for (int z = 0; z < splits; ++z) {
+      const float4 v = *reinterpret_cast<const float4*>(src + (size_t)z * MN);
+      s[0] += v.x; s[1] += v.y; s[2] += v.z; s[3] += v.w;
+    }
+  } else {
+    for (int z = 0; z < splits; ++z)
+      for (int j = 0; j < n; ++j) s[j] += src[(size_t)z * MN + j];
+  }
+  float* c = o.c[p];
+  for (int j = 0; j < n; ++j) {
+    const size_t idx = i + j;
+    float* dst = c + (idx / N) * o.ldc + idx % N;
+    *dst = o.accumulate[p] ? *dst + s[j] : s[j];
+  }
+}
+
+int splitk_reduce(const float* buf, int splits, int M, int N, int problems, const SplitSum& o,
+                  cudaStream_t s) {
+  const size_t quads = ((size_t)M * N + 3) / 4;
+  splitk_reduce_kernel<<<dim3((unsigned)((quads + 255) / 256), problems), 256, 0, s>>>(
+      buf, splits, M, N, o);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kMaxSplits = 32;
@@ -37,224 +72,538 @@ struct SplitBuf {
 };
 
 // ---------------------------------------------------------------------------
-// Node GEMM on the tensor cores (3xTF32): C = epilogue(A B) with A(m, k)
-// from [M][K] (split by columns at k1 into a1 | a2, the node MLP's [h, agg]
-// input without a concat) or, with ta, from [K][M]; B(k, n) from an
-// nn.Linear weight [N][K] (tb) or from [K][N]. 32x64 tiles, 4 warps of
-// 32x16, K in chunks of 32 through shared memory while the next chunk's
-// loads wait in registers (plain loads: W1's row stride 2H+E is not 16-byte
-// aligned). blockIdx.z splits K; a split writes its partial tile to c + z *
-// split_stride.
+// Node GEMM on the tensor cores: c = epilogue(A B) for one product or two of
+// one shape in one launch (NodeGemm::p; blockIdx.z: the product, then its K
+// split). A(m, k) from [M][K] (split by columns at k1 into a1 | a2, the node
+// MLP's [h, agg] input without a concat) or, with ta, from [K][M]; B(k, n)
+// from an nn.Linear weight [N][K] (tb) or from [K][N].
+//
+// What bounds it on an H100: at the QM9 recipe (M = 1856 node rows, N = 256,
+// K = 256 or 512; the weight gradients 256 x 256 over K = 1856) a product is
+// 243 MFLOP, three TF32 products in split TF32 (~1.5 us at 495 TFLOP/s) and
+// ~4 MB of operands (~1.2 us at 3.35 TB/s): each launch is small, so the
+// card fills only if the grid does, and the time goes to latency: the
+// launch, the first chunk's copy and the epilogue's reads cost about as much
+// as the main loop (PERF.md, the node GEMM alone).
+//
+// Design. 64x64 CTA tiles of 8 warps, two CTAs an SM: four 32x32 warp tiles
+// (every B fragment's split feeding two m16 tiles, every A fragment's four
+// n8 tiles), each shared by kNgSlices warps that take their slice of each
+// chunk's K rows and meet in shared memory at the end, summed in slice
+// order. K in chunks of 64 through a double-buffered stage filled by
+// cp.async, 16-byte copies where the operand allows them (aligned base, row
+// stride a multiple of 4 floats; W1's row stride 2H + E is not, so W1 takes
+// 8- or 4-byte copies), zero-filled past M, N and K; one barrier a chunk.
+// Each stage keeps its operand as global memory holds it ([row][k] or
+// [k][row]), padded so that the fragment reads are free of bank conflicts;
+// within each mma's k range the fragment's k slots (t, t + 4) read k (2t,
+// 2t + 1) of both operands (k (4t ... 4t + 3) for the bf16 m16n8k16), so a
+// [row][k] stage is read as float2 (float4): the product is the same sum in
+// another order. Each split product runs over all eight of a warp's tiles
+// before the next. The weight gradients (few output tiles, K the node rows)
+// split K into splits of at most kNgMaxRows rows while the split buffer
+// holds them (node_gemm_plan), summed in order by splitk_reduce_kernel,
+// without atomics, so a seeded run replays bit for bit.
+// The epilogue reads what it adds (bias, residual, mask, c) before it
+// stores, and stores float2.
+//
+// Variants: f32 in split TF32 (egnn_tile.cuh: hi*hi + hi*lo + lo*hi, f32
+// accumulation, about f32's accuracy); BF16 (the bf16 forward variant of
+// #1, A [M][K] and B [N][K] only): the operands rounded to bf16 as they
+// enter the fragments, one m16n8k16 bf16 mma a k16 step; GRAD16 (the bf16
+// backward): A, the cotangent, in split TF32 and B rounded to bf16 (exact
+// in TF32, no lo term), two mma a k8 step; round_out rounds the result (an
+// operand's gradient) before it is stored or added.
 // ---------------------------------------------------------------------------
 
+struct NgProblem {
+  const float* a1;
+  const float* a2;  // A's columns k1 ... K (ta 0), or null
+  const float* b;
+  float* c;
+  int accumulate;
+};
+
 struct NodeGemm {
-  const float* a1; int lda1; int k1;
-  const float* a2; int lda2;
-  int ta;
-  const float* b; int ldb; int tb;
+  NgProblem p[2]; int problems;
+  int lda1, k1, lda2, ta;
+  int ldb, tb;
   const float* bias;      // [N] or null
   const float* resid; int ldr;
   const float* row_mask;  // [M], kEpiResidMask
-  float* c; int ldc;
+  int ldc;
   int M, N, K;
-  int epilogue, accumulate;
-  int kchunk; size_t split_stride;
+  int epilogue;
   int round_out;  // GRAD16: the result rounded to bf16 before it is stored or added
+  // Set by the launcher: the K rows a split sums, the splits, the stride of
+  // a split's partial tile, the floats of each operand's copies (4, 2, 1).
+  int kchunk, splits; size_t split_stride;
+  int copy_a, copy_b;
 };
 
-constexpr int kNgTM = 32, kNgTN = 64, kNgKC = 32;
-constexpr int kNgLdR = kNgKC + 4;  // [row][k] stages
-constexpr int kNgLdAT = kNgTM + 8, kNgLdBT = kNgTN + 8;  // [k][row] stages
-constexpr int kNgA = kNgTM * kNgLdR > kNgKC * kNgLdAT ? kNgTM * kNgLdR : kNgKC * kNgLdAT;
-constexpr int kNgB = kNgTN * kNgLdR > kNgKC * kNgLdBT ? kNgTN * kNgLdR : kNgKC * kNgLdBT;
-constexpr int kNgAPer = kNgTM * kNgKC / 128, kNgBPer = kNgTN * kNgKC / 128;
+// kNgSlices warps share each of the CTA's four 32x32 warp tiles, each over
+// its slice of every chunk's K rows; each then finishes kNgPairs of the
+// tile's output pairs (two columns of one row a lane).
+constexpr int kNgTM = 64, kNgTN = 64, kNgKC = 64, kNgStages = 2, kNgSlices = 2;
+constexpr int kNgThreads = 128 * kNgSlices, kNgPairs = 16 / kNgSlices;
+// The split plan: K rows a split sums at most, two chunks, so that each of
+// a warp tile's K slices sums 64 rows in one accumulator (the mma's f32
+// accumulation rounds toward zero, and its drift grows with the rows it
+// sums: as GRAD16's and wgrad_tc_kernel's folds every 64 rows); the H100's
+// SMs.
+constexpr int kNgMaxRows = 2 * kNgKC, kNgSMs = 132;
 
-// BF16 (the bf16 forward variant of #1, A [M][K] and B [N][K] only): the
-// operands rounded to bf16 as they enter the fragments, one m16n8k16 bf16
-// mma a k16 step instead of three TF32 ones a k8 step. GRAD16 (the bf16
-// backward): A, the cotangent, in split TF32 and B rounded to bf16, two
-// mma a k8 step; g.round_out rounds the result (an operand's gradient).
-template <bool BF16 = false, bool GRAD16 = false>
-__global__ void __launch_bounds__(128) node_gemm_tc_kernel(NodeGemm g) {
-  __shared__ __align__(16) float As[kNgA];
-  __shared__ __align__(16) float Bs[kNgB];
-  const int tid = threadIdx.x, lane = tid & 31, wn = tid >> 5;
-  const int gq = lane >> 2, t = lane & 3;
+// Stage geometry: [row][k] stages of kLdK floats a row (conflict-free float2
+// fragment reads; float4 for the bf16 variant), [k][row] stages of kLdM.
+template <bool BF16>
+struct NgLayout {
+  static constexpr int kLdK = kNgKC + (BF16 ? 16 : 8);
+  static constexpr int kLdM = kNgTM + 4;
+  static constexpr int kOperand = kNgTM * kLdK;
+  static constexpr int kStage = 2 * kOperand;
+  static constexpr int kSmemBytes = kNgStages * kStage * (int)sizeof(float);
+  static_assert(kNgTM == kNgTN && kNgKC * kLdM <= kOperand, "stage sizes");
+  static_assert(4 * kNgSlices * 32 * 32 <= kNgStages * kStage, "the slices' exchange");
+};
+
+// W floats (4, 8 or 16 bytes) into shared memory, of which the first
+// `bytes` are read and the rest zero-filled.
+template <int W>
+__device__ __forceinline__ void cp_async_w(void* smem, const void* gmem, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (W == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(s), "l"(gmem),
+                 "n"(4 * W), "r"(bytes)
+                 : "memory");
+}
+
+// A 64-row x kNgKC [row][k] stage from x1 (columns < k1) | x2 (from k1) of
+// row stride ld1 | ld2, W floats a copy: rows row0 ... of `rows`, k from k0,
+// zero past kend.
+template <int LD, int W>
+__device__ __forceinline__ void ng_load_rows(float* S, const float* x1, int ld1, const float* x2,
+                                             int ld2, int k1, int row0, int rows, int k0,
+                                             int kend) {
+#pragma unroll 4
+  for (int q = 0; q < kNgTM * kNgKC / W / kNgThreads; ++q) {
+    const int i = threadIdx.x + kNgThreads * q;
+    const int r = i / (kNgKC / W), kq = W * (i % (kNgKC / W));
+    const int row = row0 + r, k = k0 + kq;
+    int n = kend - k;
+    n = row < rows ? (n < 0 ? 0 : (n > W ? W : n)) : 0;
+    const float* src = x1;
+    if (n) src = k < k1 ? x1 + (size_t)row * ld1 + k : x2 + (size_t)row * ld2 + (k - k1);
+    cp_async_w<W>(S + r * LD + kq, src, 4 * n);
+  }
+}
+
+// A kNgKC x 64-column [k][col] stage from x [K][...] of row stride ld, W
+// floats a copy: columns col0 ... of `cols`, k from k0, zero past kend.
+template <int LD, int W>
+__device__ __forceinline__ void ng_load_cols(float* S, const float* x, int ld, int col0, int cols,
+                                             int k0, int kend) {
+#pragma unroll 4
+  for (int q = 0; q < kNgTM * kNgKC / W / kNgThreads; ++q) {
+    const int i = threadIdx.x + kNgThreads * q;
+    const int kr = i / (kNgTM / W), cq = W * (i % (kNgTM / W));
+    const int k = k0 + kr, col = col0 + cq;
+    int n = cols - col;
+    n = k < kend ? (n < 0 ? 0 : (n > W ? W : n)) : 0;
+    cp_async_w<W>(S + kr * LD + cq, n ? x + (size_t)k * ld + col : x, 4 * n);
+  }
+}
+
+// An operand's stage with the widest copies its alignment allows (w: 4, 2
+// or 1 floats; the same for every thread).
+template <bool KMAJOR, int LD>
+__device__ __forceinline__ void ng_load(int w, float* S, const float* x1, int ld1, const float* x2,
+                                        int ld2, int k1, int row0, int rows, int k0, int kend) {
+  if constexpr (KMAJOR) {
+    if (w == 4) ng_load_rows<LD, 4>(S, x1, ld1, x2, ld2, k1, row0, rows, k0, kend);
+    else if (w == 2) ng_load_rows<LD, 2>(S, x1, ld1, x2, ld2, k1, row0, rows, k0, kend);
+    else ng_load_rows<LD, 1>(S, x1, ld1, x2, ld2, k1, row0, rows, k0, kend);
+  } else {
+    if (w == 4) ng_load_cols<LD, 4>(S, x1, ld1, row0, rows, k0, kend);
+    else if (w == 2) ng_load_cols<LD, 2>(S, x1, ld1, row0, rows, k0, kend);
+    else ng_load_cols<LD, 1>(S, x1, ld1, row0, rows, k0, kend);
+  }
+}
+
+// One CTA's tile: TA / TB, the operand layouts (ta / tb) as compile-time
+// constants (one kernel name a variant: node_gemm_tc_kernel picks the body).
+template <bool BF16, bool GRAD16, bool TA, bool TB>
+__device__ __forceinline__ void node_gemm_tile(const NodeGemm& g) {
+  using L = NgLayout<BF16>;
+  float* smem = tile_smem;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // Warps 4 wk ... 4 wk + 3 take slice wk of each chunk's K rows for the
+  // same 2 x 2 grid of 32x32 warp tiles (wm, wn).
+  const int wk = warp >> 2, wm = warp & 1, wn = (warp >> 1) & 1, gq = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * kNgTM, n0 = blockIdx.x * kNgTN;
-  const int kbeg = blockIdx.z * g.kchunk, kend = min(g.K, kbeg + g.kchunk);
-  float acc[2][2][4];
+  const int prob = blockIdx.z / g.splits, split = blockIdx.z % g.splits;
+  const NgProblem p = prob ? g.p[1] : g.p[0];
+  const int kbeg = split * g.kchunk, kend = min(g.K, kbeg + g.kchunk);
+  const int nch = kend > kbeg ? (kend - kbeg + kNgKC - 1) / kNgKC : 0;
+
+  auto load = [&](int st, int k0) {
+    float* As = smem + st * L::kStage;
+    float* Bs = As + L::kOperand;
+    if constexpr (TA) ng_load<false, L::kLdM>(g.copy_a, As, p.a1, g.lda1, p.a1, 0, 0, m0, g.M, k0, kend);
+    else ng_load<true, L::kLdK>(g.copy_a, As, p.a1, g.lda1, p.a2, g.lda2, g.k1, m0, g.M, k0, kend);
+    if constexpr (TB) ng_load<true, L::kLdK>(g.copy_b, Bs, p.b, g.ldb, p.b, g.ldb, g.K, n0, g.N, k0, kend);
+    else ng_load<false, L::kLdM>(g.copy_b, Bs, p.b, g.ldb, p.b, 0, 0, n0, g.N, k0, kend);
+  };
+
+  // GRAD16 sums each chunk's mma (64 K rows) in part and folds it into acc
+  // with a rounded add, as wgrad_tc_kernel does (kWgFold): its weight
+  // gradients are rounded to bf16 after the splits are summed, and a long
+  // truncating run of the mma's accumulation moves sums across a tie.
+  float acc[2][4][4], part[2][4][4];
+  auto& sum = GRAD16 ? part : acc;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
+    for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-  // One chunk is 32x32 of A and 64x32 of B, neighbouring threads on
-  // neighbouring addresses.
-  float ra[kNgAPer], rb[kNgBPer];
-  auto fetch = [&](int k0) {
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = part[mi][ni][q] = 0.f;
+
 #pragma unroll
-    for (int q = 0; q < kNgAPer; ++q) {
-      const int idx = tid + 128 * q;
-      const int ar = g.ta ? idx % kNgTM : idx / kNgKC, ak = g.ta ? idx / kNgTM : idx % kNgKC;
-      const int m = m0 + ar, ka = k0 + ak;
-      float v = 0.f;
-      if (m < g.M && ka < kend)
-        v = g.ta ? g.a1[(size_t)ka * g.lda1 + m]
-                 : (ka < g.k1 ? g.a1[(size_t)m * g.lda1 + ka] : g.a2[(size_t)m * g.lda2 + ka - g.k1]);
-      ra[q] = v;
-    }
-#pragma unroll
-    for (int q = 0; q < kNgBPer; ++q) {
-      const int idx = tid + 128 * q;
-      const int bn = g.tb ? idx / kNgKC : idx % kNgTN, bk = g.tb ? idx % kNgKC : idx / kNgTN;
-      const int n = n0 + bn, kb = k0 + bk;
-      rb[q] = (n < g.N && kb < kend)
-                  ? (g.tb ? g.b[(size_t)n * g.ldb + kb] : g.b[(size_t)kb * g.ldb + n])
-                  : 0.f;
-    }
-  };
-  if (kbeg < kend) fetch(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += kNgKC) {
-#pragma unroll
-    for (int q = 0; q < kNgAPer; ++q) {
-      const int idx = tid + 128 * q;
-      if (g.ta) As[(idx / kNgTM) * kNgLdAT + idx % kNgTM] = ra[q];
-      else As[(idx / kNgKC) * kNgLdR + idx % kNgKC] = ra[q];
-    }
-#pragma unroll
-    for (int q = 0; q < kNgBPer; ++q) {
-      const int idx = tid + 128 * q;
-      if (g.tb) Bs[(idx / kNgKC) * kNgLdR + idx % kNgKC] = rb[q];
-      else Bs[(idx / kNgTN) * kNgLdBT + idx % kNgTN] = rb[q];
-    }
-    __syncthreads();
-    if (k0 + kNgKC < kend) fetch(k0 + kNgKC);
+  for (int st = 0; st < kNgStages - 1; ++st) {
+    if (st < nch) load(st, kbeg + st * kNgKC);
+    cp_async_commit();
+  }
+  for (int ck = 0; ck < nch; ++ck) {
+    cp_async_wait<kNgStages - 2>();
+    __syncthreads();  // chunk ck landed for all; all are done with chunk ck - 1's stage
+    if (ck + kNgStages - 1 < nch) load((ck + kNgStages - 1) % kNgStages, kbeg + (ck + kNgStages - 1) * kNgKC);
+    cp_async_commit();
+    const float* As = smem + (ck % kNgStages) * L::kStage;
+    const float* Bs = As + L::kOperand;
     if constexpr (BF16) {
 #pragma unroll
-      for (int kk = 0; kk < kNgKC; kk += 16) {
+      for (int kk = wk * (kNgKC / kNgSlices); kk < (wk + 1) * (kNgKC / kNgSlices); kk += 16) {
         uint32_t af[2][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          const float* ar = As + (mi * 16 + gq) * kNgLdR + kk + 2 * t;
-          af[mi][0] = pack_bf16(ar[0], ar[1]);
-          af[mi][1] = pack_bf16(ar[8 * kNgLdR], ar[8 * kNgLdR + 1]);
-          af[mi][2] = pack_bf16(ar[8], ar[9]);
-          af[mi][3] = pack_bf16(ar[8 * kNgLdR + 8], ar[8 * kNgLdR + 9]);
+          const float* ar = As + (wm * 32 + mi * 16 + gq) * L::kLdK + kk + 4 * t;
+          const float4 x0 = *reinterpret_cast<const float4*>(ar);
+          const float4 x1 = *reinterpret_cast<const float4*>(ar + 8 * L::kLdK);
+          af[mi][0] = pack_bf16(x0.x, x0.y);
+          af[mi][1] = pack_bf16(x1.x, x1.y);
+          af[mi][2] = pack_bf16(x0.z, x0.w);
+          af[mi][3] = pack_bf16(x1.z, x1.w);
         }
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          const float* br = Bs + (wn * 16 + ni * 8 + gq) * kNgLdR + kk + 2 * t;
-          const uint32_t b0 = pack_bf16(br[0], br[1]), b1 = pack_bf16(br[8], br[9]);
+        for (int ni = 0; ni < 4; ++ni) {
+          const float4 y = *reinterpret_cast<const float4*>(
+              Bs + (wn * 32 + ni * 8 + gq) * L::kLdK + kk + 4 * t);
+          const uint32_t b0 = pack_bf16(y.x, y.y), b1 = pack_bf16(y.z, y.w);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(sum[mi][ni], af[mi], b0, b1);
         }
       }
-      __syncthreads();
-      continue;
-    }
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kNgKC; kk += 8) {
-      uint32_t ahi[2][4], alo[2][4];
+      for (int kk = wk * (kNgKC / kNgSlices); kk < (wk + 1) * (kNgKC / kNgSlices); kk += 8) {
+        uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = mi * 16 + gq;
-        float v[4];
-        if (g.ta) {
-          v[0] = As[(kk + t) * kNgLdAT + r]; v[1] = As[(kk + t) * kNgLdAT + r + 8];
-          v[2] = As[(kk + t + 4) * kNgLdAT + r]; v[3] = As[(kk + t + 4) * kNgLdAT + r + 8];
-        } else {
-          v[0] = As[r * kNgLdR + kk + t]; v[1] = As[(r + 8) * kNgLdR + kk + t];
-          v[2] = As[r * kNgLdR + kk + t + 4]; v[3] = As[(r + 8) * kNgLdR + kk + t + 4];
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wm * 32 + mi * 16 + gq;
+          float v[4];
+          if constexpr (TA) {
+            const float* ac = As + (kk + 2 * t) * L::kLdM + r;
+            v[0] = ac[0]; v[1] = ac[8]; v[2] = ac[L::kLdM]; v[3] = ac[L::kLdM + 8];
+          } else {
+            const float2 x0 = *reinterpret_cast<const float2*>(As + r * L::kLdK + kk + 2 * t);
+            const float2 x1 = *reinterpret_cast<const float2*>(As + (r + 8) * L::kLdK + kk + 2 * t);
+            v[0] = x0.x; v[1] = x1.x; v[2] = x0.y; v[3] = x1.y;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[mi][q], alo[mi][q]);
         }
+        uint32_t bhi[4][2], blo[4][2];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[mi][q], alo[mi][q]);
-      }
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = wn * 32 + ni * 8 + gq;
+          float b0, b1;
+          if constexpr (TB) {
+            const float2 y = *reinterpret_cast<const float2*>(Bs + n * L::kLdK + kk + 2 * t);
+            b0 = y.x; b1 = y.y;
+          } else {
+            b0 = Bs[(kk + 2 * t) * L::kLdM + n];
+            b1 = Bs[(kk + 2 * t + 1) * L::kLdM + n];
+          }
+          if constexpr (GRAD16) {
+            bhi[ni][0] = bf16_tf32(b0);
+            bhi[ni][1] = bf16_tf32(b1);
+          } else {
+            split_tf32(b0, bhi[ni][0], blo[ni][0]);
+            split_tf32(b1, bhi[ni][1], blo[ni][1]);
+          }
+        }
+        // Each split product over all eight tiles before the next, small
+        // terms first (mma_3xtf32's order on each tile; GRAD16: B exact in
+        // TF32, no lo term, mma_2xtf32's): consecutive mma feed different
+        // accumulators.
 #pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const int n = wn * 16 + ni * 8 + gq;
-        const float b0 = g.tb ? Bs[n * kNgLdR + kk + t] : Bs[(kk + t) * kNgLdBT + n];
-        const float b1 = g.tb ? Bs[n * kNgLdR + kk + t + 4] : Bs[(kk + t + 4) * kNgLdBT + n];
-        if constexpr (GRAD16) {
-          const uint32_t br0 = bf16_tf32(b0), br1 = bf16_tf32(b1);
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_2xtf32(acc[mi][ni], ahi[mi], alo[mi], br0, br1);
-        } else {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(b0, bh0, bl0);
-          split_tf32(b1, bh1, bl1);
+          for (int ni = 0; ni < 4; ++ni) mma_tf32(sum[mi][ni], alo[mi], bhi[ni][0], bhi[ni][1]);
+        if constexpr (!GRAD16) {
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
-            mma_3xtf32(acc[mi][ni], ahi[mi], alo[mi], bh0, bh1, bl0, bl1);
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) mma_tf32(sum[mi][ni], ahi[mi], blo[ni][0], blo[ni][1]);
         }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_tf32(sum[mi][ni], ahi[mi], bhi[ni][0], bhi[ni][1]);
       }
     }
-    __syncthreads();
+    if constexpr (GRAD16) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[mi][ni][q] += part[mi][ni][q];
+            part[mi][ni][q] = 0.f;
+          }
+    }
   }
-  float* c = g.c + blockIdx.z * g.split_stride;
+  // The slices of each warp tile meet in shared memory ([slice][value][lane]
+  // per tile): the warp of slice wk sums output pairs wk * kNgPairs ... over
+  // the slices in slice order.
+  cp_async_wait<0>();
+  __syncthreads();  // every stage read and every copy landed: the stages are free
+  float* red = smem + (warp & 3) * (kNgSlices * 32 * 32);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
+    for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + mi * 16 + gq + (q >= 2 ? 8 : 0);
-        const int n = n0 + wn * 16 + ni * 8 + 2 * t + (q & 1);
-        if (m >= g.M || n >= g.N) continue;
-        float v = acc[mi][ni][q];
-        if (g.bias) v += g.bias[n];
-        if (g.epilogue == kEpiSilu) v = silu_f(v);
-        if (g.epilogue == kEpiResidMask) v = (g.resid[(size_t)m * g.ldr + n] + v) * g.row_mask[m];
-        if constexpr (GRAD16) {
-          if (g.round_out) v = bf16_round(v);
-        }
-        float* dst = c + (size_t)m * g.ldc + n;
-        *dst = g.accumulate ? *dst + v : v;
+      for (int q = 0; q < 4; ++q) red[(wk * 32 + (mi * 4 + ni) * 4 + q) * 32 + lane] = acc[mi][ni][q];
+  __syncthreads();
+  // Pair i: value index 2 P (+ 1) of acc[2][4][4], P = wk * kNgPairs + i,
+  // at rows gq (+ 8) of m16 tile P / 8 and columns 2t, 2t + 1 of n8 tile
+  // P / 2 % 4.
+  float v[kNgPairs][2];
+  int pm[kNgPairs], pn[kNgPairs];
+#pragma unroll
+  for (int i = 0; i < kNgPairs; ++i) {
+    const int P = wk * kNgPairs + i;
+    pm[i] = m0 + wm * 32 + (P >> 3) * 16 + gq + 8 * (P & 1);
+    pn[i] = n0 + wn * 32 + ((P >> 1) & 3) * 8 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float s = red[(2 * P + j) * 32 + lane];
+#pragma unroll
+      for (int sl = 1; sl < kNgSlices; ++sl) s += red[(sl * 32 + 2 * P + j) * 32 + lane];
+      v[i][j] = s;
+    }
+  }
+
+  // The epilogue's reads (bias, residual and mask, and c where the product
+  // is added) go out together before any result is stored, float2 where the
+  // rows allow (then a quad of lanes covers one 32-byte sector).
+  float* c = p.c + split * g.split_stride;
+  const bool resid = g.epilogue == kEpiResidMask;
+  auto pairs = [](const float* q, int ld) { return ld % 2 == 0 && ((uintptr_t)q & 7) == 0; };
+  const bool two = pairs(c, g.ldc) && (!resid || pairs(g.resid, g.ldr));
+  auto read2 = [&](const float* q, int n) {
+    if (two && n + 1 < g.N) return *reinterpret_cast<const float2*>(q);
+    return make_float2(q[0], n + 1 < g.N ? q[1] : 0.f);
+  };
+  // Four pairs at a time, to hold the registers down.
+  constexpr int kRun = kNgPairs < 4 ? kNgPairs : 4;
+#pragma unroll
+  for (int i0 = 0; i0 < kNgPairs; i0 += kRun) {
+    float2 rs[kRun], cs[kRun], bs[kRun];
+    float mask[kRun];
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      const int m = pm[i0 + i], n = pn[i0 + i];
+      rs[i] = cs[i] = bs[i] = make_float2(0.f, 0.f);
+      mask[i] = 0.f;
+      if (m >= g.M || n >= g.N) continue;
+      if (g.bias) bs[i] = make_float2(g.bias[n], n + 1 < g.N ? g.bias[n + 1] : 0.f);
+      if (resid) {
+        mask[i] = g.row_mask[m];
+        rs[i] = read2(g.resid + (size_t)m * g.ldr + n, n);
       }
+      if (p.accumulate) cs[i] = read2(c + (size_t)m * g.ldc + n, n);
+    }
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      const int m = pm[i0 + i], n = pn[i0 + i];
+      if (m >= g.M || n >= g.N) continue;
+      float o[2] = {v[i0 + i][0], v[i0 + i][1]};
+      const float rin[2] = {rs[i].x, rs[i].y}, cin[2] = {cs[i].x, cs[i].y};
+      const float bin[2] = {bs[i].x, bs[i].y};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (g.bias) o[j] += bin[j];
+        if (g.epilogue == kEpiSilu) o[j] = silu_f(o[j]);
+        if (resid) o[j] = (rin[j] + o[j]) * mask[i];
+        if constexpr (GRAD16) {
+          if (g.round_out) o[j] = bf16_round(o[j]);
+        }
+        if (p.accumulate) o[j] = cin[j] + o[j];
+      }
+      float* dst = c + (size_t)m * g.ldc + n;
+      if (two && n + 1 < g.N) {
+        *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+      } else {
+        dst[0] = o[0];
+        if (n + 1 < g.N) dst[1] = o[1];
+      }
+    }
+  }
 }
 
+// Two CTAs an SM (128 registers a thread), so that a grid of up to 264
+// tiles runs in one wave.
 template <bool BF16 = false, bool GRAD16 = false>
-int launch_node_gemm(const NodeGemm& g, int splits, cudaStream_t s) {
-  dim3 grid((g.N + kNgTN - 1) / kNgTN, (g.M + kNgTM - 1) / kNgTM, splits);
-  node_gemm_tc_kernel<BF16, GRAD16><<<grid, 128, 0, s>>>(g);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kNgThreads, 2) node_gemm_tc_kernel(NodeGemm g) {
+  if constexpr (BF16) {
+    node_gemm_tile<true, false, false, true>(g);
+  } else if (g.ta) {
+    if (g.tb) node_gemm_tile<false, GRAD16, true, true>(g);
+    else node_gemm_tile<false, GRAD16, true, false>(g);
+  } else {
+    if (g.tb) node_gemm_tile<false, GRAD16, false, true>(g);
+    else node_gemm_tile<false, GRAD16, false, false>(g);
+  }
 }
 
-// C (+)= A B on the node GEMM: ta, A stored [K][M] (A(m, k) = a[k * lda +
-// m]), else [M][K]; tb, B stored [N][K] (B(k, n) = b[n * ldb + k]), else
-// [K][N]. K is split when the output has few tiles and K is long (the
-// weight gradients, K = the node rows), so that the grid fills the card;
-// the splits are summed in order. GRAD16: A is an f32 cotangent and B is
-// rounded to bf16 (the bf16 backward), and round_out rounds the product
-// (then never split) before it is stored or added to c.
+// The plan of `problems` products of M x N over K: K splits into chunks of
+// *kchunk rows (a multiple of kNgKC; the last one may be short). K is split
+// only where may_split (no epilogue, bias or rounding of the output) and the
+// output tiles of every product fill at most half the card: then into
+// splits of kNgMaxRows rows, or fewer and longer ones where the buffer of
+// cap floats holds fewer. Mirrored by ops/egnn_block.py:node_gemm_plan.
+int node_gemm_plan(int M, int N, int K, int problems, size_t cap, int may_split, int* kchunk) {
+  auto cdiv = [](int a, int b) { return (a + b - 1) / b; };
+  const int tiles = cdiv(M, kNgTM) * cdiv(N, kNgTN) * problems;
+  int splits = 1;
+  if (may_split && 2 * tiles <= kNgSMs && K > kNgMaxRows) {
+    splits = cdiv(K, kNgMaxRows);
+    const size_t fit = cap / ((size_t)problems * M * N);
+    if ((size_t)splits > fit) splits = fit > 0 ? (int)fit : 1;
+  }
+  int kc = cdiv(cdiv(K, splits), kNgKC) * kNgKC;
+  if (kc < kNgKC) kc = kNgKC;
+  *kchunk = kc;
+  return cdiv(K, kc);
+}
+
+// The kernel's dynamic shared memory, allowed once per device.
+template <bool BF16, bool GRAD16>
+int node_gemm_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return 0;
+  e = cudaFuncSetAttribute((const void*)node_gemm_tc_kernel<BF16, GRAD16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           NgLayout<BF16>::kSmemBytes);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return (int)e;
+}
+
+// Runs g (its problems, operands, epilogue and outputs set) on the plan of
+// its shape: split over sb's buffer where the plan splits (sb.cap 0: never),
+// the partials then summed in order into each product's c. A pair whose
+// splits would sum more than kNgMaxRows rows (the buffer holds too few
+// splits for two products) runs one product at a time.
+template <bool BF16 = false, bool GRAD16 = false>
+int run_node_gemm(NodeGemm g, const SplitBuf& sb, cudaStream_t s) {
+  const int may_split = !BF16 && g.epilogue == kEpiNone && !g.bias && !g.round_out && sb.cap > 0;
+  g.splits = node_gemm_plan(g.M, g.N, g.K, g.problems, sb.cap, may_split, &g.kchunk);
+  if (g.problems == 2 && may_split && g.kchunk > kNgMaxRows) {
+    NodeGemm one = g;
+    one.problems = 1;
+    int rc = run_node_gemm<BF16, GRAD16>(one, sb, s);
+    if (rc) return rc;
+    one.p[0] = g.p[1];
+    return run_node_gemm<BF16, GRAD16>(one, sb, s);
+  }
+  // The widest copy (4, 2 or 1 floats) every row of an operand allows.
+  auto width = [](const void* q, int ld) {
+    for (int w = 4; w > 1; w /= 2)
+      if ((uintptr_t)q % (4 * w) == 0 && ld % w == 0) return w;
+    return 1;
+  };
+  g.copy_a = g.copy_b = 4;
+  for (int i = 0; i < g.problems; ++i) {
+    g.copy_a = std::min(g.copy_a, width(g.p[i].a1, g.lda1));
+    if (!g.ta && g.k1 < g.K)  // and no copy across k1
+      g.copy_a = std::min({g.copy_a, width(g.p[i].a2, g.lda2), g.k1 % 4 ? (g.k1 % 2 ? 1 : 2) : 4});
+    g.copy_b = std::min(g.copy_b, width(g.p[i].b, g.ldb));
+  }
+  int rc = node_gemm_smem<BF16, GRAD16>();
+  if (rc) return rc;
+  const dim3 grid((g.N + kNgTN - 1) / kNgTN, (g.M + kNgTM - 1) / kNgTM, g.problems * g.splits);
+  if (g.splits == 1) {
+    g.split_stride = 0;
+    node_gemm_tc_kernel<BF16, GRAD16><<<grid, kNgThreads, NgLayout<BF16>::kSmemBytes, s>>>(g);
+    return (int)cudaGetLastError();
+  }
+  const size_t MN = (size_t)g.M * g.N;
+  SplitSum o = {};
+  o.ldc = g.ldc;
+  for (int i = 0; i < g.problems; ++i) {
+    o.c[i] = g.p[i].c;
+    o.accumulate[i] = g.p[i].accumulate;
+    g.p[i].c = sb.buf + (size_t)i * g.splits * MN;
+    g.p[i].accumulate = 0;
+  }
+  g.ldc = g.N;
+  g.split_stride = MN;
+  node_gemm_tc_kernel<BF16, GRAD16><<<grid, kNgThreads, NgLayout<BF16>::kSmemBytes, s>>>(g);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  return splitk_reduce(sb.buf, g.splits, g.M, g.N, g.problems, o, s);
+}
+
+// c (+)= A B: ta, A stored [K][M] (A(m, k) = a[k * lda + m]), else [M][K];
+// tb, B stored [N][K] (B(k, n) = b[n * ldb + k]), else [K][N]. K is split
+// where the plan says (the weight gradients, K = the node rows). GRAD16: A
+// is an f32 cotangent and B is rounded to bf16 (the bf16 backward), and
+// round_out rounds the product (then never split) before it is stored or
+// added to c.
 template <bool GRAD16 = false>
 int node_gemm(const float* a, int lda, int ta, const float* b, int ldb, int tb, float* c, int ldc,
               int M, int N, int K, int accumulate, const SplitBuf& sb, cudaStream_t s,
               int round_out = 0) {
-  const int tiles = ((M + kNgTM - 1) / kNgTM) * ((N + kNgTN - 1) / kNgTN);
-  int splits = 1;
-  if (tiles < 200 && K >= 256 && !round_out) {
-    splits = (K + 127) / 128;
-    if (splits > kMaxSplits) splits = kMaxSplits;
-    if ((size_t)splits * M * N > sb.cap) splits = 1;
-  }
-  int kchunk = (K + splits - 1) / splits;
-  kchunk = (kchunk + kNgKC - 1) / kNgKC * kNgKC;
-  splits = (K + kchunk - 1) / kchunk;
   NodeGemm g = {};
-  g.a1 = a; g.lda1 = lda; g.k1 = K; g.ta = ta;
-  g.b = b; g.ldb = ldb; g.tb = tb;
-  g.M = M; g.N = N; g.K = K; g.kchunk = kchunk; g.epilogue = kEpiNone;
-  if (splits == 1) {
-    g.c = c; g.ldc = ldc; g.accumulate = accumulate; g.round_out = round_out;
-    return launch_node_gemm<false, GRAD16>(g, 1, s);
-  }
-  g.c = sb.buf; g.ldc = N; g.split_stride = (size_t)M * N;
-  int rc = launch_node_gemm<false, GRAD16>(g, splits, s);
-  if (rc) return rc;
-  splitk_reduce_kernel<<<(M * N + 255) / 256, 256, 0, s>>>(sb.buf, splits, M, N, c, ldc,
-                                                           accumulate);
-  return (int)cudaGetLastError();
+  g.p[0] = {a, nullptr, b, c, accumulate};
+  g.problems = 1;
+  g.lda1 = lda; g.k1 = K; g.ta = ta; g.ldb = ldb; g.tb = tb; g.ldc = ldc;
+  g.M = M; g.N = N; g.K = K; g.epilogue = kEpiNone; g.round_out = round_out;
+  return run_node_gemm<false, GRAD16>(g, sb, s);
+}
+
+// Two node_gemm products of one shape and layout in one grouped launch:
+// c0 (+)= A0 B0 (accumulate0), c1 (+)= A1 B1 (accumulate1).
+template <bool GRAD16 = false>
+int node_gemm_pair(const float* a0, const float* a1, int lda, int ta, const float* b0,
+                   const float* b1, int ldb, int tb, float* c0, float* c1, int ldc, int M, int N,
+                   int K, int accumulate0, int accumulate1, const SplitBuf& sb, cudaStream_t s,
+                   int round_out = 0) {
+  NodeGemm g = {};
+  g.p[0] = {a0, nullptr, b0, c0, accumulate0};
+  g.p[1] = {a1, nullptr, b1, c1, accumulate1};
+  g.problems = 2;
+  g.lda1 = lda; g.k1 = K; g.ta = ta; g.ldb = ldb; g.tb = tb; g.ldc = ldc;
+  g.M = M; g.N = N; g.K = K; g.epilogue = kEpiNone; g.round_out = round_out;
+  return run_node_gemm<false, GRAD16>(g, sb, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -398,9 +747,11 @@ int wgrad_tc(const float* dbuf, const float* abuf, int Me, int H, float* gw2, fl
                                                                wsplit);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  splitk_reduce_kernel<<<(H * H + 255) / 256, 256, 0, s>>>(wsplit, splits, H, H, gw2, H,
-                                                           accumulate);
-  return (int)cudaGetLastError();
+  SplitSum o = {};
+  o.c[0] = gw2;
+  o.accumulate[0] = accumulate;
+  o.ldc = H;
+  return splitk_reduce(wsplit, splits, H, H, 1, o, s);
 }
 
 }  // namespace

@@ -47,6 +47,8 @@ _SIGNATURES = {
         "egnn_block_backward": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_backward_bf16": ([_P] * 15 + [_I] * 9 + [_F] * 3 + [_P], _I),
         "egnn_block_backward_scratch_floats": ([_I] * 7, _Z),
+        "egnn_node_gemm": ([_P] * 11 + [_I] * 16 + [_Z, _P], _I),
+        "egnn_node_gemm_plan": ([_I] * 4 + [_Z, _I, ctypes.POINTER(_I)], _I),
         "egnn_block_bwd_error_string": ([_I], _STR),
     },
     "egnn_block_lowp": {

@@ -394,6 +394,32 @@ def wgrad_splits(edges: int, hidden: int) -> tuple:
     return -(-edges // chunk), chunk
 
 
+# The node GEMM's plan (csrc/egnn_tc_gemm.cuh): CTA tile, K chunk, the K
+# rows a split sums at most (two chunks), the H100's SMs.
+NODE_GEMM_TILE, NODE_GEMM_KC, NODE_GEMM_MAX_ROWS, NODE_GEMM_SMS = (64, 64), 64, 128, 132
+
+
+def node_gemm_plan(m: int, n: int, k: int, problems: int = 1, cap: int = 0,
+                   may_split: bool = True) -> tuple:
+    """(tile rows, tile columns, K splits, K rows a split sums) of the node
+    GEMM (``csrc/egnn_tc_gemm.cuh:node_gemm_plan``) for ``problems``
+    products of ``m`` x ``n`` over ``k`` with a split buffer of ``cap``
+    floats: K is split only where ``may_split`` and the output tiles fill at
+    most half the card, into splits of 128 rows, or fewer and longer ones
+    where the buffer holds fewer; a split a multiple of the 64-row chunk.
+    Plain emulation for the CPU tests."""
+    tm, tn = NODE_GEMM_TILE
+    tiles = -(-m // tm) * -(-n // tn) * problems
+    splits = 1
+    if may_split and 2 * tiles <= NODE_GEMM_SMS and k > NODE_GEMM_MAX_ROWS:
+        splits = -(-k // NODE_GEMM_MAX_ROWS)
+        fit = cap // (problems * m * n)
+        if splits > fit:
+            splits = max(fit, 1)
+    chunk = max(-(-(-(-k // splits)) // NODE_GEMM_KC) * NODE_GEMM_KC, NODE_GEMM_KC)
+    return tm, tn, -(-k // chunk), chunk
+
+
 def block_forward_plain(block, h, x, x0, node_mask, weights=None, compute_dtype=None):
     """Plain PyTorch version of the forward kernel: the module's own forward
     with the edge mask and initial distance features derived as the kernel

@@ -288,6 +288,56 @@ def test_wgrad_splits_cap_each_split_at_2048_edges(edges, hidden, splits):
     assert (got - 1) * chunk < edges <= got * chunk
 
 
+# The node GEMM's plan (egnn_block.node_gemm_plan, the library's; the card
+# tests hold the two equal). Its split buffer at H=256 holds kMaxSplits = 32
+# partial [H, H] tiles.
+NODE_GEMM_CAP = 32 * 256 * 256
+
+
+@pytest.mark.parametrize("m,n,k,problems,splits,chunk", [
+    (256, 256, 1856, 1, 15, 128),       # QM9 (B=64, pad 29): the Wn2 gradient
+    (256, 256, 1856, 2, 15, 128),       # W1's src / dst columns, Wn1's halves: one launch
+    (256, 256, 32 * 184, 1, 31, 192),   # #5 at pad 184, B=32: as many splits as the buffer holds
+    (256, 256, 32 * 184, 2, 16, 384),
+    (192, 192, 1856, 2, 15, 128),       # the conditional recipe's width
+    (256, 256, 2048 * 40, 1, 32, 2560),  # past what the buffer holds: 32 splits
+    (1856, 256, 256, 1, 1, 256),        # an input gradient: its tiles fill the card
+    (64, 96, 1000, 1, 8, 128),          # two chunks a split
+])
+def test_node_gemm_plan_splits(m, n, k, problems, splits, chunk):
+    """The weight gradients (few output tiles, K the node rows) split into
+    splits of two 64-row chunks while the buffer holds that many, else into
+    as many as it holds, each a multiple of the chunk, together covering K
+    once; the forward-sized products are not split."""
+    tm, tn, got, got_chunk = egnn_block.node_gemm_plan(m, n, k, problems, NODE_GEMM_CAP)
+    assert (tm, tn, got, got_chunk) == (64, 64, splits, chunk)
+    assert got_chunk % 64 == 0 and (got - 1) * got_chunk < k <= got * got_chunk
+    assert got == 1 or problems * got * m * n <= NODE_GEMM_CAP
+    tiles = -(-m // tm) * -(-n // tn) * problems
+    if 2 * tiles <= 132 and problems * -(-k // 128) * m * n <= NODE_GEMM_CAP:
+        assert got_chunk <= 128
+    else:
+        assert got == 1 or got_chunk > 128
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1, 1), (17, 70, 45), (1857, 130, 300), (256, 256, 1856),
+                                   (6400, 256, 512)])
+@pytest.mark.parametrize("problems", [1, 2])
+def test_node_gemm_plan_grid_covers_the_output_and_k_once(m, n, k, problems):
+    """The launch grid of the plan (ceil(N / tile) x ceil(M / tile) x
+    problems * splits) covers every output element of every product, and
+    the splits every K row, each once; without a split buffer, or where the
+    output is rounded or has an epilogue (may_split false), K is not
+    split."""
+    tm, tn, splits, chunk = egnn_block.node_gemm_plan(m, n, k, problems, NODE_GEMM_CAP)
+    rows = [r for y in range(-(-m // tm)) for r in range(y * tm, min(m, y * tm + tm))]
+    cols = [c for x in range(-(-n // tn)) for c in range(x * tn, min(n, x * tn + tn))]
+    ks = [q for z in range(splits) for q in range(z * chunk, min(k, z * chunk + chunk))]
+    assert rows == list(range(m)) and cols == list(range(n)) and ks == list(range(k))
+    for cap, may_split in ((0, True), (NODE_GEMM_CAP, False)):
+        assert egnn_block.node_gemm_plan(m, n, k, problems, cap, may_split)[2] == 1
+
+
 def _by_window(terms, dim):
     """Sum over the column axis ``dim`` window by window (64 columns), each
     window's terms in column order, the windows in order."""

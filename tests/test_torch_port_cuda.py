@@ -453,6 +453,189 @@ def test_wgrad_splits_match_the_library(card):
             assert (splits, chunk.value) == egnn_block.wgrad_splits(edges, hidden), (edges, hidden)
 
 
+# The node GEMM (csrc/egnn_tc_gemm.cuh) alone, through egnn_node_gemm: every
+# product within the split-TF32 gate of a float64 product (that of the
+# bf16-rounded operands where the variant rounds them).
+NODE_GEMM_GATE = 1e-4
+_EPI = {"none": 0, "silu": 1, "resid_mask": 2}
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _node_gemm(card, M, N, K, ta=0, tb=1, variant=0, epilogue="none", bias=False,
+               accumulate=0, round_out=0, split=True, k1=None, ldb=None, offset=0, pair=False,
+               seed=0):
+    """Runs the node GEMM on random operands -> (outputs, float64 references
+    before any output rounding): A(m, k) stored [K][M] (ta) or [M][K] (split
+    at k1 into two buffers), B(k, n) stored [N][K] (tb) or [K][N] with row
+    stride ldb, each operand ``offset`` floats into its buffer; with
+    ``pair`` a second product of the same shape in the same launch."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=card)
+
+    lib = egnn_block.cuda_build.library("egnn_block_bwd")
+    rows_b = N if tb else K
+    ldb = ldb or (K if tb else N)
+    k1 = K if k1 is None or ta else k1
+    operands, refs = [], []
+    for _ in range(2 if pair else 1):
+        if ta:
+            a1 = rnd(K * M + offset)
+            a = a1[offset:].view(K, M).T
+            a2, a_args = None, (a1[offset:], M, K, 0)
+        else:
+            a1, a2 = rnd(M * k1 + offset), rnd(M * (K - k1) + 1)
+            a = torch.cat([a1[offset:].view(M, k1), a2[:M * (K - k1)].view(M, K - k1)], 1)
+            a_args = (a1[offset:], k1, k1, K - k1)
+        b_buf = rnd(rows_b * ldb + offset) * 0.1
+        bmat = b_buf[offset:].view(rows_b, ldb)[:, :K if tb else N]
+        b = bmat.T if tb else bmat
+        c0 = rnd(M, N)
+        operands.append((a_args, a2, b_buf[offset:], c0.clone()))
+        a64, b64 = a.double(), b.double()
+        if variant == 1:
+            a64, b64 = _bf16(a.double()), _bf16(b.double())
+        if variant == 2:
+            b64 = _bf16(b).double()
+        refs.append((a64 @ b64, c0))
+    bias_t, resid, mask = rnd(N), rnd(M, N), (rnd(M) > 0).float()
+    split_buf = torch.empty(32 * max(M, 64) * max(N, 64), device=card) if split else None
+    (a_args, a2, b_ptr, c), = operands[:1]
+    second = operands[1] if pair else None
+    rc = lib.egnn_node_gemm(
+        a_args[0].data_ptr(), a2.data_ptr() if (a2 is not None and K > k1) else None,
+        b_ptr.data_ptr(), c.data_ptr(), second[0][0].data_ptr() if pair else None,
+        second[2].data_ptr() if pair else None, second[3].data_ptr() if pair else None,
+        bias_t.data_ptr() if bias else None, resid.data_ptr(), mask.data_ptr(),
+        split_buf.data_ptr() if split else None, a_args[1], k1, max(K - k1, 1), ta, ldb, tb, N,
+        N, M, N, K, _EPI[epilogue], accumulate, accumulate, round_out, variant,
+        split_buf.numel() if split else 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0, lib.egnn_block_bwd_error_string(rc).decode()
+    outs, wants = [c] + ([second[3]] if pair else []), []
+    for prod, c0 in refs:
+        v = prod + (bias_t.double() if bias else 0)
+        if epilogue == "silu":
+            v = v * torch.sigmoid(v)
+        if epilogue == "resid_mask":
+            v = (resid.double() + v) * mask.double()[:, None]
+        wants.append((v, c0))
+    return outs, wants
+
+
+def _assert_node_gemm_close(outs, wants, accumulate, round_out=0):
+    for out, (v, c0) in zip(outs, wants):
+        base = c0.double() if accumulate else 0
+        scale = float(v.abs().max())
+        if round_out:  # the product rounded to bf16 (half an ulp: 2^-8), then stored or added
+            err = (out.double() - base - v).abs()
+            assert bool((err <= 2.0 ** -8 * v.abs() + NODE_GEMM_GATE * scale).all())
+            assert accumulate or torch.equal(out, _bf16(out))
+            continue
+        err = float((out.double() - base - v).abs().max())
+        assert err <= NODE_GEMM_GATE * scale, err
+
+
+@pytest.mark.parametrize("accumulate", [0, 1])
+@pytest.mark.parametrize("M,N,K", [(1857, 70, 45), (64, 96, 1000), (17, 130, 300)])
+@pytest.mark.parametrize("ta,tb", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_node_gemm_layouts_splits_and_accumulate(card, ta, tb, M, N, K, accumulate):
+    """Every operand layout, ragged M, N and K (K not a multiple of the
+    64-row chunk), shapes the plan splits over K (64 x 96 over 1000 rows, 17
+    x 130 over 300) and one it does not, writing or adding to c."""
+    split = egnn_block.node_gemm_plan(M, N, K, 1, 32 * max(M, 64) * max(N, 64))[2]
+    assert split == {45: 1, 1000: 8, 300: 3}[K]
+    outs, wants = _node_gemm(card, M, N, K, ta, tb, accumulate=accumulate)
+    _assert_node_gemm_close(outs, wants, accumulate)
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("epilogue", ["none", "silu", "resid_mask"])
+@pytest.mark.parametrize("M", [1, 17, 1857])
+def test_node_gemm_epilogues_and_bf16(card, M, epilogue, variant):
+    """The forward's products (A [M][K] split at k1 into [h, agg], B an
+    nn.Linear weight [N][K], a bias) with each epilogue, in f32 and in the
+    bf16 variant (against the bf16-rounded operands)."""
+    outs, wants = _node_gemm(card, M, 256, 512, 0, 1, variant=variant, epilogue=epilogue,
+                             bias=True, k1=256)
+    _assert_node_gemm_close(outs, wants, 0)
+
+
+@pytest.mark.parametrize("accumulate", [0, 1])
+@pytest.mark.parametrize("round_out", [0, 1])
+@pytest.mark.parametrize("ta", [0, 1])
+def test_node_gemm_grad16(card, ta, round_out, accumulate):
+    """The bf16 backward's products: A (the cotangent) in split TF32, B
+    rounded to bf16, the input gradients through W1's rows (stride 2H + E,
+    not 16-byte aligned) rounded to bf16 before they are added."""
+    M, K = (256, 1856) if ta else (1856, 256)
+    outs, wants = _node_gemm(card, M, 256, K, ta, 0, variant=2, accumulate=accumulate,
+                             round_out=round_out, ldb=None if ta else 2 * 256 + 2)
+    _assert_node_gemm_close(outs, wants, accumulate, round_out)
+
+
+@pytest.mark.parametrize("ta,tb", [(0, 0), (0, 1), (1, 0)])
+def test_node_gemm_unaligned_operands(card, ta, tb):
+    """Operands one float off a 16-byte boundary and row strides of 2H + 1
+    (W1's at one edge feature): the 4-byte copies give the same product."""
+    M, N, K = (256, 256, 1856) if ta else (1856, 256, 256)
+    outs, wants = _node_gemm(card, M, N, K, ta, tb, ldb=(K if tb else N) + 1, offset=1)
+    _assert_node_gemm_close(outs, wants, 0)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("M,N,K,ta", [(1856, 256, 256, 0), (256, 256, 1856, 1)])
+def test_node_gemm_pair_is_two_products_and_replays(card, M, N, K, ta, split):
+    """A grouped pair gives each product's bits as its own launch does where
+    the two share a plan (else both within the gate), and a second run gives
+    the same bits (splits summed in order, no atomics)."""
+    first, wants = _node_gemm(card, M, N, K, ta, 0, split=split, pair=True, seed=3)
+    again, _ = _node_gemm(card, M, N, K, ta, 0, split=split, pair=True, seed=3)
+    alone, alone_wants = _node_gemm(card, M, N, K, ta, 0, split=split, seed=3)
+    _assert_node_gemm_close(first, wants, 0)
+    _assert_node_gemm_close(alone, alone_wants, 0)
+    cap = 32 * M * N if split else 0
+    if egnn_block.node_gemm_plan(M, N, K, 2, cap) == egnn_block.node_gemm_plan(M, N, K, 1, cap):
+        assert torch.equal(first[0], alone[0])
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_node_gemm_plan_matches_the_library(card):
+    """The CPU mirror of the node GEMM's plan (``egnn_block.node_gemm_plan``:
+    tile, splits, K rows a split) is the library's."""
+    lib = egnn_block.cuda_build.library("egnn_block_bwd")
+    out = (ctypes.c_int * 4)()
+    for m, n, k in [(1, 1, 1), (17, 70, 45), (64, 96, 1000), (1856, 256, 256),
+                    (256, 256, 1856), (256, 256, 32 * 184), (192, 192, 1856),
+                    (256, 256, 100000), (6400, 256, 512)]:
+        for problems in (1, 2):
+            for cap in (0, 32 * 256 * 256, 1000):
+                for may_split in (0, 1):
+                    lib.egnn_node_gemm_plan(m, n, k, problems, cap, may_split, out)
+                    assert tuple(out) == egnn_block.node_gemm_plan(
+                        m, n, k, problems, cap, bool(may_split)), (m, n, k, problems, cap)
+
+
+def test_block_backward_at_the_qm9_recipe_replays_and_saved_route_is_bit_identical(card):
+    """At the QM9 recipe's widths (B=64, N=29, H=256: 1856 node rows, the
+    weight gradients split over K) the backward replays bit for bit, and the
+    saved route equals the recompute route: the forward and #2's recompute
+    run the same node GEMM."""
+    n_real = tuple(29 - k % 11 for k in range(64))
+    block, args, cots = _tile_case(card, 29, n_real, 256, {})
+    first = egnn_block.block_backward_cuda(block, *args, *cots)
+    second = egnn_block.block_backward_cuda(block, *args, *cots)
+    _, _, saved = egnn_block._forward_launch(block, *args, save=True)
+    via_saved = egnn_block._backward_launch(block, *args, *cots, saved)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_flat(first), _flat(second), _flat(via_saved)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 @pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("hidden,n,n_real", [(32, 65, (65, 49)), (256, 184, (184, 150)),
                                              (96, 129, (100, 129))])
