@@ -430,16 +430,16 @@ def _stage_work(cfg, n_real, n_pad, n_weights, coord):
     real ordered pairs and the node-side products over real nodes (the two
     halves of ``_block_work``'s per-stage terms); h, x, x0 and the mask read
     once, the stage's output (h, or x for the coordinate stage) and its
-    weights once. The last is the edge W2 product's share, which #3/#4 run
-    on the tensor cores (their node products stay on f32 FMA)."""
+    weights once. The last is the share #3/#4 run on the tensor cores: the
+    edge W2 product and the node products (projections, node MLP)."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
-    flops = pairs * (2 * E * H + 2 * H * H + 2 * H)
-    flops += nodes * (2 * 2 * H * H) if coord else nodes * (2 * 2 * H * H + 2 * 2 * H * H + 2 * H * H)
+    node = nodes * (2 * 2 * H * H) if coord else nodes * (2 * 2 * H * H + 2 * 2 * H * H + 2 * H * H)
+    flops = pairs * (2 * E * H + 2 * H * H + 2 * H) + node
     b = len(n_real)
     nbytes = 4 * (b * n_pad * (H + 3 + 3 + 1 + (3 if coord else H)) + n_weights)
-    return flops, nbytes, pairs * 2 * H * H
+    return flops, nbytes, pairs * 2 * H * H + node
 
 
 def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
@@ -451,18 +451,18 @@ def _stage_bwd_work(cfg, n_real, n_pad, n_weights, coord):
     per-stage terms); h, x, x0, the mask, the cotangent and the weights read
     once, dh, dx, dx0 and the weight gradients written once. The last is the
     share #5 runs on the tensor cores: the three edge products per real pair
-    (the second layer rebuilt, d(mm) W2, the W2 gradient: 3 * 2H^2) and the
-    backward's node products (8H^2 or 20H^2 per real node); the recomputed
-    projections and node chain stay on f32 FMA."""
+    (the second layer rebuilt, d(mm) W2, the W2 gradient: 3 * 2H^2), the
+    backward's node products (8H^2 or 20H^2 per real node) and the
+    recomputed forward's (``_stage_work``'s)."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
-    fwd_flops, _, _ = _stage_work(cfg, n_real, n_pad, n_weights, coord)
+    fwd_flops, _, fwd_tc = _stage_work(cfg, n_real, n_pad, n_weights, coord)
     pairs = float(np.sum(n_real * (n_real - 1)))
     nodes = float(np.sum(n_real))
     node_bwd = nodes * (8 * H * H if coord else 20 * H * H)
     flops = fwd_flops + pairs * (4 * H * H + 4 * E * H + 4 * H) + node_bwd
     b = len(n_real)
     nbytes = 4 * (b * n_pad * (H + 3 + 3 + 1 + (3 if coord else H) + H + 3 + 3) + 2 * n_weights)
-    return flops, nbytes, pairs * 6 * H * H + node_bwd
+    return flops, nbytes, fwd_tc + pairs * 4 * H * H + node_bwd
 
 
 # The grids on egnn_tile.cuh's tensor-core tile and the tensor-core GEMMs,
@@ -479,11 +479,12 @@ _TILE_KERNELS = ("edge_tile_bwd_kernel", "edge_tile_kernel", "node_gemm_tc_kerne
 # must hold.
 _ROW_GRIDS = {"egnn_tiled": (16, 0), "egnn_tiled_bwd": (8, 16), "egnn_sp": (16, 16)}
 # Library -> the node GEMM's instantiations (BF16, GRAD16) it must hold: the
-# f32 forward (and #2's recompute) and backward <0, 0>, the bf16 forward
-# <1, 0>, the bf16 backward's products <0, 1>.
+# f32 forward (and the recomputes of #2/#5/#7) and backward <0, 0>, the bf16
+# forward (and its recomputes) <1, 0>, the bf16 backward's products <0, 1>.
 _NODE_GEMMS = {"egnn_block": {(0, 0), (1, 0)}, "egnn_block_bwd": {(0, 0), (1, 0), (0, 1)},
                "egnn_block_lowp": {(1, 0)}, "egnn_block_bwd_lowp": {(1, 0), (0, 1)},
-               "egnn_tiled_bwd": {(0, 0), (0, 1)}, "egnn_sp": {(0, 0), (0, 1)}}
+               "egnn_tiled": {(0, 0), (1, 0)}, "egnn_tiled_bwd": {(0, 0), (1, 0), (0, 1)},
+               "egnn_sp": {(0, 0), (1, 0), (0, 1)}}
 
 
 def _ptxas_kernels(log):
@@ -1192,7 +1193,7 @@ def phase_tiled(card_name):
             rows.append(row)
             print(f"phase 9: {stage} {case} N={n} B={B} H={H} max|d|={err:.3e} "
                   f"(tol {row['tol']:.2e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms (TF32 off) "
-                  f"bound {bound:.4f} ms ({bound_by}, f32) {bound_tc:.4f} ms (split-TF32 W2) "
+                  f"bound {bound:.4f} ms ({bound_by}, f32) {bound_tc:.4f} ms (split-TF32 products) "
                   f"{row['tflops_achieved']:.2f} TFLOP/s on {card_name}", flush=True)
 
     # GEOM's buckets 48 and 64 stay on the block kernel: it against its plain
@@ -1555,24 +1556,24 @@ def _sp_stage_work(cfg, n_real, n_pad, row0, s, n_weights, coord, backward):
     and its output read or written once, and for the backward the cotangent,
     both views' dh, dx, dx0 and the weight gradients. The last is the share
     the kernel runs on the tensor cores: the forward's edge W2 product over
-    the slab's real pairs (#6), or the backward's three edge products per
-    real pair and its node products (#7, as ``_stage_bwd_work``)."""
+    the slab's real pairs and its node products (#6), and for the backward
+    (#7, as ``_stage_bwd_work``) also its two more edge products per real
+    pair and its node products."""
     H, E = cfg.hidden_nf, cfg.edge_feat_nf
     rows = np.clip(n_real - row0, 0, s)
     pairs = float(np.sum(rows * (n_real - 1)))
     slab, nodes = float(np.sum(rows)), float(np.sum(n_real))
-    flops = pairs * (2 * E * H + 2 * H * H + 2 * H) + (slab + nodes) * 2 * H * H
-    if not coord:
-        flops += slab * (2 * 2 * H * H + 2 * H * H)
+    node = (slab + nodes) * 2 * H * H + (0 if coord else slab * (2 * 2 * H * H + 2 * H * H))
+    flops = pairs * (2 * E * H + 2 * H * H + 2 * H) + node
     out = 3 if coord else H
     b = len(n_real)
     nbytes = 4 * (b * (n_pad + s) * (H + 3 + 3 + 1) + b * s * out + n_weights)
     if not backward:
-        return flops, nbytes, pairs * 2 * H * H
+        return flops, nbytes, pairs * 2 * H * H + node
     node_bwd = (slab + nodes) * 4 * H * H + (0 if coord else slab * 12 * H * H)
     flops += pairs * (4 * H * H + 4 * E * H + 4 * H) + node_bwd
     nbytes += 4 * (b * s * out + b * (n_pad + s) * (H + 3 + 3) + n_weights)
-    return flops, nbytes, pairs * 6 * H * H + node_bwd
+    return flops, nbytes, pairs * 6 * H * H + node + node_bwd
 
 
 def phase_sp_kernels(card_name, H=256, cases=None, b_bwd=32, spread=16, phase=15):
@@ -1670,8 +1671,7 @@ def phase_sp_kernels(card_name, H=256, cases=None, b_bwd=32, spread=16, phase=15
                            "max_abs_err": err, "worst": worst, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound, "bound_by": bound_by, "bound_tc_ms": bound_tc,
                            "gflop": flops / 1e9, "tflops_achieved": flops / (ms * 1e-3) / 1e12}
-                    tc_txt = (f" {bound_tc:.4f} ms (split-TF32 W2)" if direction == "fwd" else
-                              f" {bound_tc:.4f} ms (split-TF32 edge and node products)")
+                    tc_txt = f" {bound_tc:.4f} ms (split-TF32 edge and node products)"
                     rows.append(row)
                     print(f"phase {phase}: SP {stage} {direction} {case} N={n} S={s} row0={row0} "
                           f"B={B} H={H} max|d|={err:.3e} ({worst}; {len(names)} tensors each "
@@ -5716,34 +5716,54 @@ def phase_node_gemm(card, reps=50):
         cases.append(dict(name=name, M=M, N=N, K=K, problems=problems, nbytes=nbytes,
                           bf16=bf16, run=run, outs=outs, refs=refs, prep=prep))
 
-    for label, M, bf16 in [("qm9", 1856, 0)] + [(f"geom N={n}", 100 * n, 1) for n in (32, 48, 64)]:
-        h, agg, u = rnd(M, H), rnd(M, H), rnd(M, H)
+    # The forward chains' products (rows Mr of the node MLP and the src
+    # projection, Mc of the dst one): #1's at the QM9 recipe and GEOM's bf16
+    # pads; #3/#4's (and #5's recompute) at GEOM's pads past 64, B=16, f32
+    # and bf16; #6's (and #7's recompute) on the SP slab window N=184, S=92,
+    # whose projections are two launches of their own M.
+    chains = [("qm9", 1856, 1856, 0)] + [(f"geom N={n}", 100 * n, 100 * n, 1)
+                                         for n in (32, 48, 64)]
+    chains += [(f"#3/#4 N={n}", 16 * n, 16 * n, bf16) for n in (96, 136, 184) for bf16 in (0, 1)]
+    chains += [("#6 N=184 S=92", 16 * 92, 16 * 184, bf16) for bf16 in (0, 1)]
+    for label, Mr, Mc, bf16 in chains:
+        label += " bf16" if bf16 and label[0] == "#" else ""
+        hc = rnd(Mc, H)
+        h = hc if Mr == Mc else rnd(Mr, H)
+        agg, u = rnd(Mr, H), rnd(Mr, H)
         w1, wn1, wn2 = rnd(H, ld1) * 0.06, rnd(H, 2 * H) * 0.04, rnd(H, H) * 0.06
-        b, mask = rnd(H), (torch.rand(M, generator=gen, device="cuda") > 0.3).float()
+        b, mask = rnd(H), (torch.rand(Mr, generator=gen, device="cuda") > 0.3).float()
         cast = bf if bf16 else (lambda t: t.double())
-        proj = torch.empty(M, 2 * H, device="cuda")
-        case(f"{label} projection pair", M, H, H, 2, 4 * (M * H + 2 * H * H + 2 * M * H), bf16,
-             gemm(h, w1, proj, M, H, H, H, ld1, 2 * H, tb=1, pair=(h, w1[:, H:], proj[:, H:]),
-                  bf16=bf16),
-             [proj], [torch.cat([cast(h) @ cast(w1[:, :H]).T, cast(h) @ cast(w1[:, H:2 * H]).T],
-                                1)])
-        z = torch.empty(M, H, device="cuda")
+        proj = torch.empty(Mc, 2 * H, device="cuda")
+        refs = [cast(h) @ cast(w1[:, :H]).T, cast(hc) @ cast(w1[:, H:2 * H]).T]
+        if Mr == Mc:
+            case(f"{label} projection pair", Mr, H, H, 2, 4 * (Mr * H + 2 * H * H + 2 * Mr * H),
+                 bf16, gemm(h, w1, proj, Mr, H, H, H, ld1, 2 * H, tb=1,
+                            pair=(h, w1[:, H:], proj[:, H:]), bf16=bf16),
+                 [proj], [torch.cat(refs, 1)])
+        else:
+            src = gemm(h, w1, proj, Mr, H, H, H, ld1, 2 * H, tb=1, bf16=bf16)
+            dst = gemm(hc, w1[:, H:], proj[:, H:], Mc, H, H, H, ld1, 2 * H, tb=1, bf16=bf16)
+            case(f"{label} projections (src M {Mr}, dst M {Mc})", Mr + Mc, H, H, 1,
+                 4 * (2 * (Mr + Mc) * H + 2 * H * H), bf16,
+                 lambda src=src, dst=dst: src() or dst(), [proj[:Mr, :H], proj[:, H:]], refs)
+        z = torch.empty(Mr, H, device="cuda")
         ref = torch.cat([cast(h), cast(agg)], 1) @ cast(wn1).T + b.double()
-        case(f"{label} [h, agg] Wn1 + silu", M, H, 2 * H, 1, 4 * (2 * M * H + 2 * H * H + M * H),
-             bf16, gemm(h, wn1, z, M, H, 2 * H, H, 2 * H, H, tb=1, a2=agg, lda2=H, k1=H, bias=b,
-                        epilogue=1, bf16=bf16), [z], [ref * torch.sigmoid(ref)])
-        out = torch.empty(M, H, device="cuda")
+        case(f"{label} [h, agg] Wn1 + silu", Mr, H, 2 * H, 1,
+             4 * (2 * Mr * H + 2 * H * H + Mr * H), bf16,
+             gemm(h, wn1, z, Mr, H, 2 * H, H, 2 * H, H, tb=1, a2=agg, lda2=H, k1=H, bias=b,
+                  epilogue=1, bf16=bf16), [z], [ref * torch.sigmoid(ref)])
+        out = torch.empty(Mr, H, device="cuda")
         ref = (h.double() + cast(u) @ cast(wn2).T + b.double()) * mask.double()[:, None]
-        case(f"{label} u Wn2 + residual, mask", M, H, H, 1, 4 * (3 * M * H + H * H), bf16,
-             gemm(u, wn2, out, M, H, H, H, H, H, tb=1, bias=b, resid=h, mask=mask, epilogue=2,
+        case(f"{label} u Wn2 + residual, mask", Mr, H, H, 1, 4 * (3 * Mr * H + H * H), bf16,
+             gemm(u, wn2, out, Mr, H, H, H, H, H, tb=1, bias=b, resid=h, mask=mask, epilogue=2,
                   bf16=bf16), [out], [ref])
-        if bf16:
+        if label != "qm9":
             continue
-        dh0 = rnd(M, H)
+        dh0 = rnd(Mr, H)
         dh = dh0.clone()
         ref = dh0.double() + h.double() @ w1[:, :H].double()
-        case(f"{label} dh += rowsum W1 (ld {ld1})", M, H, H, 1, 4 * (3 * M * H + H * H), 0,
-             gemm(h, w1, dh, M, H, H, H, ld1, H, accumulate=1), [dh], [ref],
+        case(f"{label} dh += rowsum W1 (ld {ld1})", Mr, H, H, 1, 4 * (3 * Mr * H + H * H), 0,
+             gemm(h, w1, dh, Mr, H, H, H, ld1, H, accumulate=1), [dh], [ref],
              prep=lambda dh=dh, dh0=dh0: dh.copy_(dh0))
     for label, rows in (("qm9", 1856), ("#5 pad 184", 32 * 184)):
         d, a, d2, a2 = rnd(rows, H), rnd(rows, H), rnd(rows, H), rnd(rows, H)

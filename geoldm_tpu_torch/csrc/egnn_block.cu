@@ -50,8 +50,7 @@
 //   - the node GEMMs (projection, node MLP) run on the same 3xTF32 mma in
 //     the node GEMM of egnn_tc_gemm.cuh (node_gemm_tc_kernel: 64x64 tiles,
 //     a cp.async ring, the projection's halves in one grouped launch),
-//     which #2 and the row-tiled backward (#5/#7) share; the row-tiled
-//     forward kernels keep the f32 FMA GEMM of egnn_common.cuh.
+//     which every other EquivariantBlock kernel (#2-#7) shares.
 // Ragged tiles (N not a multiple of R) are masked: their empty m16 tiles
 // are skipped and their rows never written. No tile spills
 // (chip_smoke.py phase 1 prints ptxas' lines and fails on a spill).

@@ -299,7 +299,7 @@ int block_backward(const float* h, const float* x, const float* x0, const float*
   // 2. Coordinate update: dL/dh_n = gh * mask + its edge stage's share.
   const float* const* cw = reinterpret_cast<const float* const*>(coord_w);
   float* const* cg = reinterpret_cast<float* const*>(coord_g);
-  if ((rc = node_projection<BF16>(hc, cw[0], eb.ld1, sc.proj, M, H, s))) return rc;
+  if ((rc = node_projection<BF16>(hc, M, hc, M, cw[0], eb.ld1, sc.proj, H, s))) return rc;
   eb.w1 = cw[0]; eb.b1 = cw[1]; eb.w2 = cw[2]; eb.b2 = cw[3]; eb.w_out = cw[4];
   eb.b_out = nullptr; eb.dagg = nullptr; eb.gx = gx;
   if constexpr (BF16) {
@@ -329,7 +329,7 @@ int block_backward(const float* h, const float* x, const float* x0, const float*
                                       0, sc.split, s)))
       return rc;
     // Edge stage.
-    if ((rc = node_projection<BF16>(hin, w[0], eb.ld1, sc.proj, M, H, s))) return rc;
+    if ((rc = node_projection<BF16>(hin, M, hin, M, w[0], eb.ld1, sc.proj, H, s))) return rc;
     eb.w1 = w[0]; eb.b1 = w[1]; eb.w2 = w[2]; eb.b2 = w[3]; eb.w_out = w[4];
     eb.b_out = w[5]; eb.dagg = sc.dagg; eb.gx = nullptr;
     if constexpr (BF16) {

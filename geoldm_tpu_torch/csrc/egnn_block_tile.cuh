@@ -72,41 +72,6 @@ int launch_edge_tile(const TileArgs& a, int B, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// Node-side products of the forward chain on the tensor-core node GEMM.
-// ---------------------------------------------------------------------------
-
-// The node GEMM with launch_gemm's arguments (egnn_common.cuh): A [M][K]
-// split at k1, W [Nout][K], a fused epilogue; BF16 on bf16 operands. Never
-// split: the forward's products fill the card with their output tiles.
-template <bool BF16 = false>
-int node_gemm_nt(const GemmArgs& a, cudaStream_t s) {
-  NodeGemm g = {};
-  g.p[0] = {a.a1, a.a2, a.w, a.c, 0};
-  g.problems = 1;
-  g.lda1 = a.lda1; g.k1 = a.k1; g.lda2 = a.lda2;
-  g.ldb = a.ldw; g.tb = 1;
-  g.bias = a.bias; g.resid = a.resid; g.ldr = a.ldr; g.row_mask = a.row_mask;
-  g.ldc = a.ldc; g.M = a.M; g.N = a.Nout; g.K = a.K;
-  g.epilogue = a.epilogue;
-  return run_node_gemm<BF16>(g, SplitBuf{nullptr, 0}, s);
-}
-
-// proj[:, :H] = h W1[:, :H]^T and proj[:, H:2H] = h W1[:, H:2H]^T (row
-// stride 2H), no bias: b1 is added per edge in the tile. One grouped launch.
-template <bool BF16 = false>
-int node_projection(const float* h, const float* w1, int ld1, float* proj, int M, int H,
-                    cudaStream_t s) {
-  NodeGemm g = {};
-  g.p[0] = {h, nullptr, w1, proj, 0};
-  g.p[1] = {h, nullptr, w1 + H, proj + H, 0};
-  g.problems = 2;
-  g.lda1 = H; g.k1 = H; g.ldb = ld1; g.tb = 1;
-  g.ldc = 2 * H; g.M = M; g.N = H; g.K = H;
-  g.epilogue = kEpiNone;
-  return run_node_gemm<BF16>(g, SplitBuf{nullptr, 0}, s);
-}
-
-// ---------------------------------------------------------------------------
 // The forward chain, shared by the forward and the backward's recompute.
 // ---------------------------------------------------------------------------
 
@@ -156,7 +121,7 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
     float* ag = save ? save + plane + gi * MH : agg;
     float* z = save ? save + 2 * plane + gi * MH : nullptr;
     float* u = save ? save + 3 * plane + gi * MH : hidden;
-    if ((rc = node_projection<BF16>(hc, w[0], ld1, proj, M, H, s))) return rc;
+    if ((rc = node_projection<BF16>(hc, M, hc, M, w[0], ld1, proj, H, s))) return rc;
     ea.w1 = w[0]; ea.b1 = w[1]; ea.w2 = w[2]; ea.b2 = w[3];
     ea.w_out = w[4]; ea.b_out = w[5]; ea.agg = ag; ea.x_out = nullptr;
     if constexpr (BF16) {
@@ -167,25 +132,18 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
 
     // u = silu([h, agg] Wn1^T + bn1): fused, or through z when saved (the
     // same bits: silu of the stored f32 z).
-    GemmArgs n1 = {};
-    n1.a1 = hc; n1.lda1 = H; n1.k1 = H; n1.a2 = ag; n1.lda2 = H;
-    n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
-    n1.c = save ? z : u; n1.ldc = H; n1.M = M; n1.Nout = H; n1.K = 2 * H;
-    n1.epilogue = save ? kEpiNone : kEpiSilu;
-    if ((rc = node_gemm_nt<BF16>(n1, s))) return rc;
+    if ((rc = node_linear<BF16>(hc, ag, w[6], 2 * H, w[7], save ? kEpiNone : kEpiSilu, nullptr,
+                                nullptr, save ? z : u, H, M, H, s)))
+      return rc;
     if (save) {
       silu_kernel<<<(int)((MH + 255) / 256), 256, 0, s>>>(z, u, (int)MH);
       if ((rc = (int)cudaGetLastError())) return rc;
     }
     // In place for gi > 0 without save: each output element reads only its
     // own residual.
-    GemmArgs n2 = {};
-    n2.a1 = u; n2.lda1 = H; n2.k1 = H;
-    n2.w = w[8]; n2.ldw = H; n2.bias = w[9];
-    n2.resid = hc; n2.ldr = H; n2.row_mask = mask;
-    n2.c = hn; n2.ldc = H; n2.M = M; n2.Nout = H; n2.K = H;
-    n2.epilogue = kEpiResidMask;
-    if ((rc = node_gemm_nt<BF16>(n2, s))) return rc;
+    if ((rc = node_linear<BF16>(u, nullptr, w[8], H, w[9], kEpiResidMask, hc, mask, hn, H, M, H,
+                                s)))
+      return rc;
     hc = hn;
   }
   if (save && h_out) {
@@ -194,7 +152,7 @@ int block_forward_chain(const BlockShape& d, const float* h, const float* x, con
   }
   if (!coord) return 0;
   const float* const* cw = reinterpret_cast<const float* const*>(coord_w);
-  if ((rc = node_projection<BF16>(hc, cw[0], ld1, proj, M, H, s))) return rc;
+  if ((rc = node_projection<BF16>(hc, M, hc, M, cw[0], ld1, proj, H, s))) return rc;
   ea.w1 = cw[0]; ea.b1 = cw[1]; ea.w2 = cw[2]; ea.b2 = cw[3];
   ea.w_out = cw[4]; ea.b_out = nullptr; ea.agg = nullptr; ea.x_out = x_out;
   if constexpr (BF16) {

@@ -1,7 +1,8 @@
 // The row-tiled EquivariantBlock stages' forward (egnn_tiled.cu, TPU kernels
 // #3 and #4): one CTA per (molecule, row), the columns walked in 64-column
 // windows, each a tile of egnn_tile.cuh (split-TF32 tensor-core product, W2
-// through cp.async stages). Shared by egnn_tiled.cu, whose header comment
+// through cp.async stages); the node-side products on the node GEMM of
+// egnn_tc_gemm.cuh, as #1's. Shared by egnn_tiled.cu, whose header comment
 // gives the design, by the stage backward (egnn_rows_bwd.cuh, TPU kernels #5
 // and #7), which runs a GCL's node chain with it when the caller hands over
 // none, and by the sequence-parallel slab stages (egnn_sp.cu, TPU kernel #6).
@@ -15,7 +16,7 @@
 
 #pragma once
 
-#include "egnn_tile.cuh"
+#include "egnn_tc_gemm.cuh"
 
 namespace {
 
@@ -123,7 +124,7 @@ TileArgs stage_args(const Slab& r, const float* x, const float* x0, const float*
 // this same code, so a chain the forward hands to the backward equals the
 // backward's own recompute bit for bit. BF16: the bf16 variant (ea.w2bf
 // set).
-template <int kOwner, bool BF16 = false>
+template <bool BF16 = false>
 int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B, float* agg,
               float* z, float* u, cudaStream_t s) {
   const int Mr = B * ea.S, H = ea.H;
@@ -131,12 +132,9 @@ int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B,
   a.agg = agg;
   int rc;
   if ((rc = launch_rows<false, BF16>(a, B, s))) return rc;
-  GemmArgs n1 = {};
-  n1.a1 = hr; n1.lda1 = H; n1.k1 = H; n1.a2 = agg; n1.lda2 = H;
-  n1.w = w[6]; n1.ldw = 2 * H; n1.bias = w[7];
-  n1.c = z ? z : u; n1.ldc = H; n1.M = Mr; n1.Nout = H; n1.K = 2 * H;
-  n1.epilogue = z ? kEpiNone : kEpiSilu;
-  if ((rc = launch_gemm<kOwner, BF16>(n1, s))) return rc;
+  if ((rc = node_linear<BF16>(hr, agg, w[6], 2 * H, w[7], z ? kEpiNone : kEpiSilu, nullptr,
+                              nullptr, z ? z : u, H, Mr, H, s)))
+    return rc;
   if (!z) return 0;
   silu_kernel<<<(Mr * H + 255) / 256, 256, 0, s>>>(z, u, Mr * H);
   return (int)cudaGetLastError();
@@ -146,10 +144,11 @@ int gcl_chain(const TileArgs& ea, const float* hr, const float* const* w, int B,
 // SP slab): h_out [B*S, H] = (h_r + node_mlp([h_r, agg])) * m_r. w: the GCL's
 // 10 weight pointers (egnn_gcl_rows' order). Scratch: proj [B*N, 2H], agg and
 // hidden [B*S, H], and z [B*S, H] or null: with z, the node chain (agg, z,
-// hidden = silu(z)) is kept for the stage backward. Enqueues 5 grids (6 with
-// z). BF16: the bf16 variant, W2 converted into w2bf ([H, H] bf16) first:
-// one grid more.
-template <int kOwner, bool BF16 = false>
+// hidden = silu(z)) is kept for the stage backward. Enqueues 4 grids over
+// the full view (5 with z), 5 over an SP slab, whose projections are two
+// (6 with z). BF16: the bf16 variant, W2 converted into w2bf ([H, H] bf16)
+// first: one grid more.
+template <bool BF16 = false>
 int gcl_rows_host(const float* h, const float* x, const float* x0, const float* mask,
                   const Slab& r, float* h_out, float* proj, float* agg, float* hidden, float* z,
                   const float* const* w, int B, int N, int H, int E, int attention,
@@ -157,9 +156,7 @@ int gcl_rows_host(const float* h, const float* x, const float* x0, const float* 
                   uint32_t* w2bf = nullptr) {
   const int Mr = B * r.S;
   int rc;
-  if ((rc = launch_projection_window<kOwner, BF16>(r.h, Mr, h, B * N, w[0], 2 * H + E, proj, H,
-                                                   s)))
-    return rc;
+  if ((rc = node_projection<BF16>(r.h, Mr, h, B * N, w[0], 2 * H + E, proj, H, s))) return rc;
   TileArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
   ea.attention = attention;
   ea.w_out = w[4]; ea.b_out = w[5];
@@ -167,29 +164,23 @@ int gcl_rows_host(const float* h, const float* x, const float* x0, const float* 
     if ((rc = to_bf16(w[2], w2bf, H * H, s))) return rc;
     ea.w2bf = w2bf;
   }
-  if ((rc = gcl_chain<kOwner, BF16>(ea, r.h, w, B, agg, z, hidden, s))) return rc;
-
-  GemmArgs n2 = {};
-  n2.a1 = hidden; n2.lda1 = H; n2.k1 = H;
-  n2.w = w[8]; n2.ldw = H; n2.bias = w[9];
-  n2.resid = r.h; n2.ldr = H; n2.row_mask = r.mask;
-  n2.c = h_out; n2.ldc = H; n2.M = Mr; n2.Nout = H; n2.K = H;
-  n2.epilogue = kEpiResidMask;
-  return launch_gemm<kOwner, BF16>(n2, s);
+  if ((rc = gcl_chain<BF16>(ea, r.h, w, B, agg, z, hidden, s))) return rc;
+  return node_linear<BF16>(hidden, nullptr, w[8], H, w[9], kEpiResidMask, r.h, r.mask, h_out, H,
+                           Mr, H, s);
 }
 
 // The coordinate update over slab r (#4 / #6): x_out [B*S, 3]. w: 5 weight
-// pointers (egnn_coord_rows' order). Scratch: proj [B*N, 2H]. Enqueues 3 grids
-// (4 for BF16, the bf16 variant, whose W2 is converted into w2bf first).
-template <int kOwner, bool BF16 = false>
+// pointers (egnn_coord_rows' order). Scratch: proj [B*N, 2H]. Enqueues 2
+// grids over the full view, 3 over an SP slab (one more for BF16, the bf16
+// variant, whose W2 is converted into w2bf first).
+template <bool BF16 = false>
 int coord_rows_host(const float* h, const float* x, const float* x0, const float* mask,
                     const Slab& r, float* x_out, float* proj, const float* const* w, int B,
                     int N, int H, int E, int sin_emb, int use_tanh, float coords_range,
                     float norm_div, float norm_constant, cudaStream_t s,
                     uint32_t* w2bf = nullptr) {
   int rc;
-  if ((rc = launch_projection_window<kOwner, BF16>(r.h, B * r.S, h, B * N, w[0], 2 * H + E,
-                                                   proj, H, s)))
+  if ((rc = node_projection<BF16>(r.h, B * r.S, h, B * N, w[0], 2 * H + E, proj, H, s)))
     return rc;
   TileArgs ea = stage_args(r, x, x0, mask, proj, w, N, H, E, sin_emb, norm_div, norm_constant);
   ea.use_tanh = use_tanh; ea.coords_range = coords_range;

@@ -366,7 +366,7 @@ struct StageGrads {
 // bf16 forward, whose node chain it takes; egnn_block_bwd.cu gives its
 // rounding sites), its weight gradients rounded to bf16 once, after the
 // last group.
-template <int kOwner, bool COORD, bool BF16 = false>
+template <bool COORD, bool BF16 = false>
 int rows_backward(bool whole, const float* h, const float* x, const float* x0,
                   const float* mask, const Slab& r, const float* gout, const float* chain,
                   const StageGrads& out, const float* const* w, float* const* g, float* scratch,
@@ -396,9 +396,7 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
       return (int)ce;
     if (!whole && (ce = cudaMemsetAsync(dhg, 0, (size_t)Mc * H * sizeof(float), s)))
       return (int)ce;
-    if ((rc = launch_projection_window<kOwner, BF16>(rg.h, Mr, hg, Mc, w[0], 2 * H + E, sc.proj,
-                                                     H, s)))
-      return rc;
+    if ((rc = node_projection<BF16>(rg.h, Mr, hg, Mc, w[0], 2 * H + E, sc.proj, H, s))) return rc;
     TileArgs ea = stage_args(rg, xg, x0g, mg, sc.proj, w, N, H, E, sin_emb, norm_div,
                              norm_constant);
     if constexpr (BF16) ea.w2bf = reinterpret_cast<const uint32_t*>(sc.w2bf);
@@ -412,7 +410,7 @@ int rows_backward(bool whole, const float* h, const float* x, const float* x0,
         agg = chain + offr * H;
         z = agg + plane;
         u = z + plane;
-      } else if ((rc = gcl_chain<kOwner, BF16>(ea, rg.h, w, Bg, sc.agg, sc.z, sc.u, s))) {
+      } else if ((rc = gcl_chain<BF16>(ea, rg.h, w, Bg, sc.agg, sc.z, sc.u, s))) {
         return rc;
       }
       if ((rc = node_mlp_backward<BF16>(gout + offr * H, rg.mask, rg.h, agg, z, u, w, g,

@@ -80,10 +80,10 @@ int egnn_sp_gcl_rows(const float* h, const float* x, const float* x0, const floa
                      float norm_constant, float normalization_factor, void* stream) {
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div)) return (int)cudaErrorInvalidValue;
-  return gcl_rows_host<6>(h, x, x0, mask, r, h_out, proj, agg, hidden, z,
-                          reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
-                          sin_emb, mean_agg ? (float)mean_div : normalization_factor,
-                          norm_constant, (cudaStream_t)stream);
+  return gcl_rows_host(h, x, x0, mask, r, h_out, proj, agg, hidden, z,
+                       reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
+                       sin_emb, mean_agg ? (float)mean_div : normalization_factor,
+                       norm_constant, (cudaStream_t)stream);
 }
 
 // Kernel #6, coordinate update: views as egnn_sp_gcl_rows; w: 5 weight
@@ -96,11 +96,11 @@ int egnn_sp_coord_rows(const float* h, const float* x, const float* x0, const fl
                        float normalization_factor, void* stream) {
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div)) return (int)cudaErrorInvalidValue;
-  return coord_rows_host<6>(h, x, x0, mask, r, x_out, proj,
-                            reinterpret_cast<const float* const*>(w_table), B, N, H, E, sin_emb,
-                            use_tanh, coords_range,
-                            mean_agg ? (float)mean_div : normalization_factor, norm_constant,
-                            (cudaStream_t)stream);
+  return coord_rows_host(h, x, x0, mask, r, x_out, proj,
+                         reinterpret_cast<const float* const*>(w_table), B, N, H, E, sin_emb,
+                         use_tanh, coords_range,
+                         mean_agg ? (float)mean_div : normalization_factor, norm_constant,
+                         (cudaStream_t)stream);
 }
 
 // Floats of device scratch either SP backward needs for a group of G
@@ -131,7 +131,7 @@ int egnn_sp_gcl_rows_backward(const float* h, const float* x, const float* x0,
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
-  return rows_backward<7, false>(
+  return rows_backward<false>(
       false, h, x, x0, mask, r, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
       0.f, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
@@ -153,7 +153,7 @@ int egnn_sp_coord_rows_backward(const float* h, const float* x, const float* x0,
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
-  return rows_backward<7, true>(
+  return rows_backward<true>(
       false, h, x, x0, mask, r, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
@@ -170,11 +170,11 @@ int egnn_sp_gcl_rows_bf16(const float* h, const float* x, const float* x0, const
                           float norm_constant, float normalization_factor, void* stream) {
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || !w2bf) return (int)cudaErrorInvalidValue;
-  return gcl_rows_host<6, true>(h, x, x0, mask, r, h_out, proj, agg, hidden, z,
-                                reinterpret_cast<const float* const*>(w_table), B, N, H, E,
-                                attention, sin_emb,
-                                mean_agg ? (float)mean_div : normalization_factor, norm_constant,
-                                (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
+  return gcl_rows_host<true>(h, x, x0, mask, r, h_out, proj, agg, hidden, z,
+                             reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                             attention, sin_emb,
+                             mean_agg ? (float)mean_div : normalization_factor, norm_constant,
+                             (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
 }
 
 // The bf16 variant of kernel #6, coordinate update: egnn_sp_coord_rows'
@@ -187,12 +187,12 @@ int egnn_sp_coord_rows_bf16(const float* h, const float* x, const float* x0, con
                             float norm_constant, float normalization_factor, void* stream) {
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || !w2bf) return (int)cudaErrorInvalidValue;
-  return coord_rows_host<6, true>(h, x, x0, mask, r, x_out, proj,
-                                  reinterpret_cast<const float* const*>(w_table), B, N, H, E,
-                                  sin_emb, use_tanh, coords_range,
-                                  mean_agg ? (float)mean_div : normalization_factor,
-                                  norm_constant, (cudaStream_t)stream,
-                                  static_cast<uint32_t*>(w2bf));
+  return coord_rows_host<true>(h, x, x0, mask, r, x_out, proj,
+                               reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                               sin_emb, use_tanh, coords_range,
+                               mean_agg ? (float)mean_div : normalization_factor,
+                               norm_constant, (cudaStream_t)stream,
+                               static_cast<uint32_t*>(w2bf));
 }
 
 // The bf16 variant of kernel #7, GCL: egnn_sp_gcl_rows_backward's arguments;
@@ -210,7 +210,7 @@ int egnn_sp_gcl_rows_backward_bf16(const float* h, const float* x, const float* 
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
-  return rows_backward<7, false, true>(
+  return rows_backward<false, true>(
       false, h, x, x0, mask, r, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
       0.f, mean_agg ? (float)mean_div : normalization_factor, norm_constant,
@@ -233,7 +233,7 @@ int egnn_sp_coord_rows_backward_bf16(const float* h, const float* x, const float
   const Slab r = {hr, xr, x0r, mr, row0, S};
   if (bad_sp(B, N, H, E, sin_emb, r, mean_div) || G < 1) return (int)cudaErrorInvalidValue;
   const StageGrads out = {dh, dx, dx0, dhr, dxr, dx0r};
-  return rows_backward<7, true, true>(
+  return rows_backward<true, true>(
       false, h, x, x0, mask, r, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)mean_div : normalization_factor, norm_constant,

@@ -1,11 +1,12 @@
-// The tensor-core GEMMs of the EquivariantBlock kernels, shared by the
-// whole-molecule kernels (#1/#2: egnn_block_tile.cuh, egnn_block_bwd.cu) and
-// the row-tiled stage backward (#5/#7: egnn_rows_bwd.cuh): the node GEMM
-// (node-side products, split K for the weight gradients) and the W2
-// gradient over every edge. Both run split TF32 on mma.sync (egnn_tile.cuh:
-// hi*hi + hi*lo + lo*hi, f32 accumulation, about f32's accuracy); split-K
-// partials are summed in split order by splitk_reduce_kernel, without
-// atomics, so a seeded run replays bit for bit. In the bf16 backward
+// The tensor-core GEMMs of the EquivariantBlock kernels: the node GEMM, which
+// runs every node-side product of #1-#7 (the projections and the node MLP of
+// the forward chains, egnn_block_tile.cuh and egnn_rows.cuh, which #2, #5
+// and #7 recompute with; the backward products of #2, #5 and #7, split K for
+// the weight gradients), and the W2 gradient over every edge (#2, #5, #7).
+// Both run split TF32 on mma.sync (egnn_tile.cuh: hi*hi + hi*lo + lo*hi,
+// f32 accumulation, about f32's accuracy); split-K partials are summed in
+// split order by splitk_reduce_kernel, without atomics, so a seeded run
+// replays bit for bit. In the bf16 backward
 // (GRAD16) every backward product has an f32 cotangent as A and a bf16
 // operand as B (an activation or a weight, rounded as read): A stays split
 // TF32 and B, exact in TF32, takes no lo term, two mma a k8 step.
@@ -99,22 +100,26 @@ struct SplitBuf {
 // within each mma's k range the fragment's k slots (t, t + 4) read k (2t,
 // 2t + 1) of both operands (k (4t ... 4t + 3) for the bf16 m16n8k16), so a
 // [row][k] stage is read as float2 (float4): the product is the same sum in
-// another order. Each split product runs over all eight of a warp's tiles
-// before the next. The weight gradients (few output tiles, K the node rows)
-// split K into splits of at most kNgMaxRows rows while the split buffer
-// holds them (node_gemm_plan), summed in order by splitk_reduce_kernel,
-// without atomics, so a seeded run replays bit for bit.
+// another order. Each k8 step's split products of a tile sum into a zeroed
+// fragment that is added to the tile's accumulator rounding to nearest (the
+// mma's own f32 accumulation rounds toward zero). The weight gradients (few
+// output tiles, K the node rows) split K into splits of at most kNgMaxRows
+// rows while the split buffer holds them (node_gemm_plan), summed in order
+// by splitk_reduce_kernel, without atomics, so a seeded run replays bit for
+// bit.
 // The epilogue reads what it adds (bias, residual, mask, c) before it
 // stores, and stores float2.
 //
 // Variants: f32 in split TF32 (egnn_tile.cuh: hi*hi + hi*lo + lo*hi, f32
-// accumulation, about f32's accuracy); BF16 (the bf16 forward variant of
-// #1, A [M][K] and B [N][K] only): the operands rounded to bf16 as they
-// enter the fragments, one m16n8k16 bf16 mma a k16 step; GRAD16 (the bf16
-// backward): A, the cotangent, in split TF32 and B rounded to bf16 (exact
-// in TF32, no lo term), two mma a k8 step; round_out rounds the result (an
-// operand's gradient) before it is stored or added.
+// accumulation, about f32's accuracy); BF16 (the bf16 forward variants of
+// #1, #3, #4 and #6, A [M][K] and B [N][K] only): the operands rounded to
+// bf16 as they enter the fragments, one m16n8k16 bf16 mma a k16 step;
+// GRAD16 (the bf16 backward): A, the cotangent, in split TF32 and B rounded
+// to bf16 (exact in TF32, no lo term), two mma a k8 step; round_out rounds
+// the result (an operand's gradient) before it is stored or added.
 // ---------------------------------------------------------------------------
+
+enum { kEpiNone = 0, kEpiSilu = 1, kEpiResidMask = 2 };
 
 struct NgProblem {
   const float* a1;
@@ -146,11 +151,9 @@ struct NodeGemm {
 // tile's output pairs (two columns of one row a lane).
 constexpr int kNgTM = 64, kNgTN = 64, kNgKC = 64, kNgStages = 2, kNgSlices = 2;
 constexpr int kNgThreads = 128 * kNgSlices, kNgPairs = 16 / kNgSlices;
-// The split plan: K rows a split sums at most, two chunks, so that each of
-// a warp tile's K slices sums 64 rows in one accumulator (the mma's f32
-// accumulation rounds toward zero, and its drift grows with the rows it
-// sums: as GRAD16's and wgrad_tc_kernel's folds every 64 rows); the H100's
-// SMs.
+// The split plan: K rows a split sums at most, two chunks (each of a warp
+// tile's K slices 64 rows), while the split buffer holds the splits; the
+// H100's SMs.
 constexpr int kNgMaxRows = 2 * kNgKC, kNgSMs = 132;
 
 // Stage geometry: [row][k] stages of kLdK floats a row (conflict-free float2
@@ -257,18 +260,13 @@ __device__ __forceinline__ void node_gemm_tile(const NodeGemm& g) {
     else ng_load<false, L::kLdM>(g.copy_b, Bs, p.b, g.ldb, p.b, 0, 0, n0, g.N, k0, kend);
   };
 
-  // GRAD16 sums each chunk's mma (64 K rows) in part and folds it into acc
-  // with a rounded add, as wgrad_tc_kernel does (kWgFold): its weight
-  // gradients are rounded to bf16 after the splits are summed, and a long
-  // truncating run of the mma's accumulation moves sums across a tie.
-  float acc[2][4][4], part[2][4][4];
-  auto& sum = GRAD16 ? part : acc;
+  float acc[2][4][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = part[mi][ni][q] = 0.f;
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
 
 #pragma unroll
   for (int st = 0; st < kNgStages - 1; ++st) {
@@ -302,11 +300,13 @@ __device__ __forceinline__ void node_gemm_tile(const NodeGemm& g) {
               Bs + (wn * 32 + ni * 8 + gq) * L::kLdK + kk + 4 * t);
           const uint32_t b0 = pack_bf16(y.x, y.y), b1 = pack_bf16(y.z, y.w);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(sum[mi][ni], af[mi], b0, b1);
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
         }
       }
     } else {
-#pragma unroll
+      // Not unrolled: unrolled, the k8 steps' fragments and the folds' live
+      // at once and spill past the 128 registers of two CTAs an SM.
+#pragma unroll 1
       for (int kk = wk * (kNgKC / kNgSlices); kk < (wk + 1) * (kNgKC / kNgSlices); kk += 8) {
         uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
@@ -324,7 +324,15 @@ __device__ __forceinline__ void node_gemm_tile(const NodeGemm& g) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[mi][q], alo[mi][q]);
         }
-        uint32_t bhi[4][2], blo[4][2];
+        // Per n8 column of tiles: B's split, then the split products of its
+        // two tiles, small terms first (mma_3xtf32's order; GRAD16: B exact
+        // in TF32, no lo term, mma_2xtf32's; consecutive mma feed different
+        // tiles), each tile's k8 step into a zeroed fragment that is then
+        // added to acc rounding to nearest. mma's f32 accumulation rounds
+        // toward zero: accumulated in place over a whole K, its drift put
+        // the forward products 1.1-1.8e-6 of max|ref| off float64, which
+        // #5's gate-bias gradient at pad 184 and the GEOM train step's loss
+        // carried past their gates (PERF.md §6).
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
           const int n = wn * 32 + ni * 8 + gq;
@@ -336,44 +344,29 @@ __device__ __forceinline__ void node_gemm_tile(const NodeGemm& g) {
             b0 = Bs[(kk + 2 * t) * L::kLdM + n];
             b1 = Bs[(kk + 2 * t + 1) * L::kLdM + n];
           }
+          uint32_t bh0, bh1, bl0 = 0, bl1 = 0;
           if constexpr (GRAD16) {
-            bhi[ni][0] = bf16_tf32(b0);
-            bhi[ni][1] = bf16_tf32(b1);
+            bh0 = bf16_tf32(b0);
+            bh1 = bf16_tf32(b1);
           } else {
-            split_tf32(b0, bhi[ni][0], blo[ni][0]);
-            split_tf32(b1, bhi[ni][1], blo[ni][1]);
+            split_tf32(b0, bh0, bl0);
+            split_tf32(b1, bh1, bl1);
           }
-        }
-        // Each split product over all eight tiles before the next, small
-        // terms first (mma_3xtf32's order on each tile; GRAD16: B exact in
-        // TF32, no lo term, mma_2xtf32's): consecutive mma feed different
-        // accumulators.
+          float f[2][4] = {};
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+          for (int mi = 0; mi < 2; ++mi) mma_tf32(f[mi], alo[mi], bh0, bh1);
+          if constexpr (!GRAD16) {
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_tf32(sum[mi][ni], alo[mi], bhi[ni][0], bhi[ni][1]);
-        if constexpr (!GRAD16) {
+            for (int mi = 0; mi < 2; ++mi) mma_tf32(f[mi], ahi[mi], bl0, bl1);
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_tf32(f[mi], ahi[mi], bh0, bh1);
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni) mma_tf32(sum[mi][ni], ahi[mi], blo[ni][0], blo[ni][1]);
+            for (int q = 0; q < 4; ++q) acc[mi][ni][q] += f[mi][q];
         }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_tf32(sum[mi][ni], ahi[mi], bhi[ni][0], bhi[ni][1]);
       }
-    }
-    if constexpr (GRAD16) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[mi][ni][q] += part[mi][ni][q];
-            part[mi][ni][q] = 0.f;
-          }
     }
   }
   // The slices of each warp tile meet in shared memory ([slice][value][lane]
@@ -604,6 +597,53 @@ int node_gemm_pair(const float* a0, const float* a1, int lda, int ta, const floa
   g.lda1 = lda; g.k1 = K; g.ta = ta; g.ldb = ldb; g.tb = tb; g.ldc = ldc;
   g.M = M; g.N = N; g.K = K; g.epilogue = kEpiNone; g.round_out = round_out;
   return run_node_gemm<false, GRAD16>(g, sb, s);
+}
+
+// The forward chains' node-side products (#1's, #3/#4/#6's, and the
+// recomputes of #2/#5/#7): out [M][H] (row stride ldc) = epilogue(A W^T +
+// bias), A = a [M][H], or [a | agg] [M][2H] when agg is given (the node
+// MLP's input without a concat), W an nn.Linear weight [H][K] of row stride
+// ldw; kEpiResidMask: out = (resid + .) * row_mask, resid [M][H]. BF16: on
+// bf16 operands. Never split K: a forward's products fill the card with
+// their output tiles, and a recompute is then the forward's code bit for
+// bit.
+template <bool BF16 = false>
+int node_linear(const float* a, const float* agg, const float* w, int ldw, const float* bias,
+                int epilogue, const float* resid, const float* row_mask, float* out, int ldc,
+                int M, int H, cudaStream_t s) {
+  NodeGemm g = {};
+  g.p[0] = {a, agg, w, out, 0};
+  g.problems = 1;
+  g.lda1 = H; g.k1 = H; g.lda2 = H; g.ldb = ldw; g.tb = 1;
+  g.bias = bias; g.resid = resid; g.ldr = H; g.row_mask = row_mask;
+  g.ldc = ldc; g.M = M; g.N = H; g.K = agg ? 2 * H : H;
+  g.epilogue = epilogue;
+  return run_node_gemm<BF16>(g, SplitBuf{nullptr, 0}, s);
+}
+
+// A stage's projections, no bias (b1 is added per edge in the tile):
+// proj[:Mr, :H] = hr W1[:, :H]^T over the rows it computes and proj[:Mc,
+// H:2H] = hc W1[:, H:2H]^T over the columns, row stride 2H. Over the whole
+// view (hr is hc) the halves run as one grouped launch, over an SP slab as
+// two launches of their own M; each output tile is the same sum either way.
+template <bool BF16 = false>
+int node_projection(const float* hr, int Mr, const float* hc, int Mc, const float* w1, int ld1,
+                    float* proj, int H, cudaStream_t s) {
+  if (hr != hc || Mr != Mc) {
+    const int rc = node_linear<BF16>(hr, nullptr, w1, ld1, nullptr, kEpiNone, nullptr, nullptr,
+                                     proj, 2 * H, Mr, H, s);
+    if (rc) return rc;
+    return node_linear<BF16>(hc, nullptr, w1 + H, ld1, nullptr, kEpiNone, nullptr, nullptr,
+                             proj + H, 2 * H, Mc, H, s);
+  }
+  NodeGemm g = {};
+  g.p[0] = {hr, nullptr, w1, proj, 0};
+  g.p[1] = {hr, nullptr, w1 + H, proj + H, 0};
+  g.problems = 2;
+  g.lda1 = H; g.k1 = H; g.ldb = ld1; g.tb = 1;
+  g.ldc = 2 * H; g.M = Mr; g.N = H; g.K = H;
+  g.epilogue = kEpiNone;
+  return run_node_gemm<BF16>(g, SplitBuf{nullptr, 0}, s);
 }
 
 // ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@
 //     f32 accuracy by split TF32 (x = hi + lo, hi*hi + hi*lo + lo*hi in f32;
 //     one TF32 product keeps 2^-11 and fails the 1e-4 gates), W2 streamed
 //     through two 16-deep XOR-swizzled shared stages with cp.async, so each
-//     W2 element serves 64 edges (32 in the first, f32-FMA version);
+//     W2 element serves 64 edges;
 //   - bias and silu fuse into the accumulator store; one warp per edge forms
 //     the gate sigmoid(m . wa + ba) or the scale tanh(m . w3) * range in a
 //     fixed order; the row's sums stay in registers across windows: agg_i
@@ -56,21 +56,22 @@
 //     skipped;
 //   - each CTA writes only its own row: no atomics, and a run replays bit
 //     for bit;
-//   - the node-side products (src/dst projections, node MLP) run in the
-//     hand-written 64x64-tile f32 GEMM of egnn_common.cuh with its fused
-//     bias / silu / residual*mask epilogues.
+//   - the node-side products (src/dst projections, node MLP) run on the
+//     split-TF32 node GEMM of egnn_tc_gemm.cuh, as #1's do
+//     (node_gemm_tc_kernel: 64x64 tiles, a cp.async ring, the projection's
+//     halves in one grouped launch, the bias / silu / residual*mask
+//     epilogues fused).
 // The bf16 variants (egnn_gcl_rows_bf16, egnn_coord_rows_bf16; JAX's
 // bfloat16 compute dtypes, _matmul in _edge_pre_rows, _gcl_rows_math,
 // _coord_rows_math) walk the same windows with every product on bf16
 // operands and f32 accumulation: the W2 product as mma.sync.m16n8k16 bf16
 // (egnn_tile.cuh: tile_product_bf16, W2 converted to bf16 once a call), the
-// node GEMMs on operands rounded as they enter shared memory, the first
-// layer's edge-feature term and the gate / scale sums as f32 FMAs of
-// rounded operands. Under grad the GCL's keeps its node chain (z) for the
+// node GEMM's products as m16n8k16 bf16 mma, the first layer's edge-feature
+// term and the gate / scale sums as f32 FMAs of rounded operands. Under grad the GCL's keeps its node chain (z) for the
 // bf16 stage backward (egnn_tiled_bwd.cu), as the f32 one does.
 // The stages take a row window (egnn_rows.cuh); here the window is every row.
-// One call of egnn_gcl_rows enqueues 5 grids (6 when it keeps the node chain
-// for the backward), one of egnn_coord_rows 3, on the caller's stream;
+// One call of egnn_gcl_rows enqueues 4 grids (5 when it keeps the node chain
+// for the backward), one of egnn_coord_rows 2, on the caller's stream;
 // neither synchronises.
 
 #include "egnn_rows.cuh"
@@ -96,10 +97,10 @@ int egnn_gcl_rows(const float* h, const float* x, const float* x0, const float* 
                   void* stream) {
   if (bad_dims(B, N, H, E, sin_emb)) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
-  return gcl_rows_host<3>(h, x, x0, mask, all, h_out, proj, agg, hidden, z,
-                          reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
-                          sin_emb, mean_agg ? (float)N : normalization_factor, norm_constant,
-                          (cudaStream_t)stream);
+  return gcl_rows_host(h, x, x0, mask, all, h_out, proj, agg, hidden, z,
+                       reinterpret_cast<const float* const*>(w_table), B, N, H, E, attention,
+                       sin_emb, mean_agg ? (float)N : normalization_factor, norm_constant,
+                       (cudaStream_t)stream);
 }
 
 // Kernel #4: the coordinate update over all rows. w: host array of 5 device
@@ -111,10 +112,10 @@ int egnn_coord_rows(const float* h, const float* x, const float* x0, const float
                     float norm_constant, float normalization_factor, void* stream) {
   if (bad_dims(B, N, H, E, sin_emb)) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
-  return coord_rows_host<4>(h, x, x0, mask, all, x_out, proj,
-                            reinterpret_cast<const float* const*>(w_table), B, N, H, E, sin_emb,
-                            use_tanh, coords_range, mean_agg ? (float)N : normalization_factor,
-                            norm_constant, (cudaStream_t)stream);
+  return coord_rows_host(h, x, x0, mask, all, x_out, proj,
+                         reinterpret_cast<const float* const*>(w_table), B, N, H, E, sin_emb,
+                         use_tanh, coords_range, mean_agg ? (float)N : normalization_factor,
+                         norm_constant, (cudaStream_t)stream);
 }
 
 // The bf16 variant of kernel #3: egnn_gcl_rows' arguments (z null, or the
@@ -127,10 +128,10 @@ int egnn_gcl_rows_bf16(const float* h, const float* x, const float* x0, const fl
                        float normalization_factor, void* stream) {
   if (bad_dims(B, N, H, E, sin_emb) || !w2bf) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
-  return gcl_rows_host<3, true>(h, x, x0, mask, all, h_out, proj, agg, hidden, z,
-                                reinterpret_cast<const float* const*>(w_table), B, N, H, E,
-                                attention, sin_emb, mean_agg ? (float)N : normalization_factor,
-                                norm_constant, (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
+  return gcl_rows_host<true>(h, x, x0, mask, all, h_out, proj, agg, hidden, z,
+                             reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                             attention, sin_emb, mean_agg ? (float)N : normalization_factor,
+                             norm_constant, (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
 }
 
 // The bf16 variant of kernel #4: egnn_coord_rows' arguments and w2bf, [H, H]
@@ -142,11 +143,11 @@ int egnn_coord_rows_bf16(const float* h, const float* x, const float* x0, const 
                          void* stream) {
   if (bad_dims(B, N, H, E, sin_emb) || !w2bf) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
-  return coord_rows_host<4, true>(h, x, x0, mask, all, x_out, proj,
-                                  reinterpret_cast<const float* const*>(w_table), B, N, H, E,
-                                  sin_emb, use_tanh, coords_range,
-                                  mean_agg ? (float)N : normalization_factor, norm_constant,
-                                  (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
+  return coord_rows_host<true>(h, x, x0, mask, all, x_out, proj,
+                               reinterpret_cast<const float* const*>(w_table), B, N, H, E,
+                               sin_emb, use_tanh, coords_range,
+                               mean_agg ? (float)N : normalization_factor, norm_constant,
+                               (cudaStream_t)stream, static_cast<uint32_t*>(w2bf));
 }
 
 }  // extern "C"

@@ -17,10 +17,11 @@
 // in-kernel jax.vjp and accumulates weight gradients across its sequential
 // grid. A CUDA grid runs in parallel, so here the stage runs as
 // deterministic passes without atomics (a seeded run replays bit for bit):
-//   1. the src/dst projection GEMM; for a GCL its node chain (the aggregate,
-//      the node MLP's pre-activation z and silu(z)): handed over by the
-//      caller, which kept it when it re-ran the GCL forward (egnn_gcl_rows
-//      with z; ops/egnn_tiled.py's TiledEquivariantBlockFunction does), or
+//   1. the src/dst projections on the node GEMM (egnn_tc_gemm.cuh, one
+//      grouped launch); for a GCL its node chain (the aggregate, the node
+//      MLP's pre-activation z and silu(z)): handed over by the caller,
+//      which kept it when it re-ran the GCL forward (egnn_gcl_rows with z;
+//      ops/egnn_tiled.py's TiledEquivariantBlockFunction does), or
 //      else run here by the forward's own code (gcl_chain, egnn_rows.cuh),
 //      so both routes give the same bits; then the node MLP's backward,
 //      which gives the gradient of the aggregate;
@@ -121,7 +122,7 @@ int egnn_gcl_rows_backward(const float* h, const float* x, const float* x0, cons
   if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
-  return rows_backward<5, false>(
+  return rows_backward<false>(
       true, h, x, x0, mask, all, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
       0.f, mean_agg ? (float)N : normalization_factor, norm_constant, (cudaStream_t)stream);
@@ -141,7 +142,7 @@ int egnn_coord_rows_backward(const float* h, const float* x, const float* x0, co
   if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
-  return rows_backward<5, true>(
+  return rows_backward<true>(
       true, h, x, x0, mask, all, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)N : normalization_factor, norm_constant,
@@ -160,7 +161,7 @@ int egnn_gcl_rows_backward_bf16(const float* h, const float* x, const float* x0,
   if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
-  return rows_backward<5, false, true>(
+  return rows_backward<false, true>(
       true, h, x, x0, mask, all, gh, chain, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, attention, sin_emb, 0,
       0.f, mean_agg ? (float)N : normalization_factor, norm_constant, (cudaStream_t)stream);
@@ -178,7 +179,7 @@ int egnn_coord_rows_backward_bf16(const float* h, const float* x, const float* x
   if (bad_dims(B, N, H, E, sin_emb) || G < 1) return (int)cudaErrorInvalidValue;
   const Slab all = {h, x, x0, mask, 0, N};
   const StageGrads out = {dh, dx, dx0, dh, dx, dx0};
-  return rows_backward<5, true, true>(
+  return rows_backward<true, true>(
       true, h, x, x0, mask, all, gx, nullptr, out, reinterpret_cast<const float* const*>(w_table),
       reinterpret_cast<float* const*>(g_table), scratch, B, G, N, H, E, 0, sin_emb, use_tanh,
       coords_range, mean_agg ? (float)N : normalization_factor, norm_constant,

@@ -17,10 +17,13 @@ sha256 is compared; the script prints one JSON line and exits non-zero on
 any difference.
 
 #1/#2 and #3/#4/#6 share the tile machinery (``csrc/egnn_tile.cuh``) and
-the GEMMs (``egnn_tc_gemm.cuh``, ``egnn_common.cuh``) with the row-tiled
-stage backward (#5/#7), so a change there must leave them as they were.
-#5/#7 are held against their plain versions (``tests/test_torch_port_cuda.py``,
-``chip_smoke.py`` phases 12 and 15).
+the one node GEMM (``egnn_tc_gemm.cuh``) with the row-tiled stage backward
+(#5/#7), so a change there must leave them as they were. All of them run
+their node-side products on that GEMM since #3/#4/#6 moved onto it, which
+changed their bits on purpose (split TF32 and bf16 ``mma`` in place of f32
+FMAs): the anchor for #3/#4/#6 is that change's commit, the same as #1/#2's
+from then on. #5/#7 are held against their plain versions
+(``tests/test_torch_port_cuda.py``, ``chip_smoke.py`` phases 12 and 15).
 """
 
 from __future__ import annotations

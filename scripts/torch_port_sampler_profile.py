@@ -44,17 +44,15 @@ MODELS = (
 )
 STEPS, WARMUP, TRACED = 50, 10, 10
 # Device-time groups by kernel-name pattern (demangled, or mangled as a
-# fallback); the row-tiled kernels' node GEMM is one template tagged by its
-# owner (csrc/egnn_common.cuh), their edge grid one template by <HP, COORD>
-# (csrc/egnn_rows.cuh); the whole-block kernel #1 has its own edge tile and
-# node GEMM (csrc/egnn_block_tile.cuh).
+# fallback); the whole-block kernel #1 has its own edge tile
+# (csrc/egnn_block_tile.cuh), the row-tiled kernels' edge grid is one
+# template by <HP, COORD> (csrc/egnn_rows.cuh), and all of them run their
+# node-side products on the one node GEMM (csrc/egnn_tc_gemm.cuh).
 GROUPS = (
     ("k1_edge", r"edge_tile_kernel"),
-    ("k1_gemm", r"node_gemm_tc_kernel"),
     ("k3_edge", r"rows_tile_kernel(<\d+, false[,>]|ILi\d+ELb0E)"),
-    ("k3_gemm", r"gemm_nt_kernel(<3[,>]|ILi3E)"),
     ("k4_edge", r"rows_tile_kernel(<\d+, true[,>]|ILi\d+ELb1E)"),
-    ("k4_gemm", r"gemm_nt_kernel(<4[,>]|ILi4E)"),
+    ("node_gemm", r"node_gemm_tc_kernel"),
 )
 
 

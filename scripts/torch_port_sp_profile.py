@@ -52,9 +52,9 @@ from torch_port_train_profile import _row_grid_name  # noqa: E402
 # stage (torch_port_train_profile._row_grid_name).
 KERNELS = ("slab_coord_rows_kernel", "slab_coord_cols_kernel", "gcl_rows_bwd_tile",
            "coord_rows_bwd_tile", "edge_tile_bwd_kernel", "gcl_rows_tile", "coord_rows_tile",
-           "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel", "gemm_nt_kernel",
-           "splitk_reduce_kernel", "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel",
-           "rows_mask_kernel", "silu_kernel", "dsilu_mul_kernel")
+           "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel", "splitk_reduce_kernel",
+           "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel", "rows_mask_kernel",
+           "silu_kernel", "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 5, 2, 2
 PADS = ((184, 129), (48, 33))  # (pad, smallest size drawn)
 

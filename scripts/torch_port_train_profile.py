@@ -56,8 +56,8 @@ from geoldm_tpu_torch.train.trainer import prepare_batch  # noqa: E402
 # Grids of the block kernels (csrc/*.cu), by kernel-name substring.
 KERNELS = ("gcl_rows_bwd_tile", "coord_rows_bwd_tile", "edge_tile_bwd_kernel", "gcl_rows_tile",
            "coord_rows_tile", "edge_tile_kernel", "node_gemm_tc_kernel", "wgrad_tc_kernel",
-           "gemm_nt_kernel", "splitk_reduce_kernel", "reduce_rows_kernel", "column_sum_kernel",
-           "coord_grad_kernel", "rows_mask_kernel", "silu_kernel", "dsilu_mul_kernel")
+           "splitk_reduce_kernel", "reduce_rows_kernel", "column_sum_kernel", "coord_grad_kernel",
+           "rows_mask_kernel", "silu_kernel", "dsilu_mul_kernel")
 STEPS, WARMUP, TRACED = 10, 3, 3
 
 

@@ -15,12 +15,14 @@ error is still more than 100 times the split scheme's.
 
 The row-tiled forward stages (#3 GCL, #4 coordinate update, and #6 on a
 slab) run the same split-TF32 W2 product over 64-column windows of a row
-(``csrc/egnn_rows.cuh``). At a GEOM shape (H=256, attention, tanh, N=70 so
-a row crosses a window, ragged molecules, 'sum' and 'mean') the stage
-emulated in the grid's order -- the W2 product in split TF32 and each row's
-sums added window by window in column order -- stays within the gate of the
-JAX row-tiled Pallas kernel run in interpret mode, while one TF32 product
-fails the gate on the stage's W2 product there.
+(``csrc/egnn_rows.cuh``), and their projections and node MLP on the split-TF32
+node GEMM (``csrc/egnn_tc_gemm.cuh``). At a GEOM shape (H=256, attention,
+tanh, N=70 so a row crosses a window, ragged molecules, 'sum' and 'mean')
+the stage emulated in the grid's order -- the W2 product, the projections
+and the node MLP in split TF32 and each row's sums added window by window in
+column order -- stays within the gate of the JAX row-tiled Pallas kernel run
+in interpret mode, while one TF32 product fails the gate on the stage's W2
+product there.
 
 The row-tiled stage backward (#5, and #7 on a slab) runs its second layer,
 its transposed product d(mm) W2 and its node products in split TF32 over
@@ -187,21 +189,40 @@ def _stage_module(egnn, stage):
     return block.gcl_0 if stage == "gcl" else block.gcl_equiv
 
 
-def _w2_operands(module, stage, full):
-    """(silu(pre) of every edge [B*N*N, H], W2^T, coord_diff, edge mask) of
-    one stage."""
+def _edge_pre(lin0, full, product):
+    """(pre [B,N,N,H], the distance features [r(x), r(x0)] [B,N,N,2], diff,
+    diff0 [B,N,N,3]) of every edge as the row grids build them: the src and
+    dst projections through ``product``, the edge-feature term in f32."""
+    h, x, x0, _ = full
+    b, n, hid = h.shape
+    w1 = lin0.weight
+    diff = x[:, :, None] - x[:, None]
+    diff0 = x0[:, :, None] - x0[:, None]
+    feats = torch.cat([(diff * diff).sum(-1, keepdim=True),
+                       (diff0 * diff0).sum(-1, keepdim=True)], dim=-1)
+    hh = h.reshape(-1, hid)
+    pre = ((product(hh, w1[:, :hid].T).reshape(b, n, 1, hid)
+            + product(hh, w1[:, hid:2 * hid].T).reshape(b, 1, n, hid))
+           + feats @ w1[:, 2 * hid:].T + lin0.bias)
+    return pre, feats, diff, diff0
+
+
+def _w2_operands(module, stage, full, product):
+    """(silu(pre) of every edge [B,N,N,H], its projections through
+    ``product``, W2^T, coord_diff, edge mask) of one stage."""
     lin0, lin2 = ((module.edge_mlp[0], module.edge_mlp[2]) if stage == "gcl"
                   else (module.coord_mlp[0], module.coord_mlp[2]))
     n = full[0].shape[1]
-    act, coord_diff, emask = egnn_tiled._row_slab(module.cfg, lin0, full, full, 0, 0, n)
-    return act, lin2.weight.T, coord_diff, emask
+    _, coord_diff, emask = egnn_tiled._row_slab(module.cfg, lin0, full, full, 0, 0, n)
+    return F.silu(_edge_pre(lin0, full, product)[0]), lin2.weight.T, coord_diff, emask
 
 
 def _row_grid_stage(module, stage, full, product):
-    """One stage's output as the row grid computes it: the W2 product through
-    ``product``, each row's sums added window by window, in column order."""
+    """One stage's output as the row grid computes it: the projections, the
+    W2 product and the node MLP through ``product``, each row's sums added
+    window by window, in column order."""
     cfg = module.cfg
-    act, w2t, coord_diff, emask = _w2_operands(module, stage, full)
+    act, w2t, coord_diff, emask = _w2_operands(module, stage, full, product)
     h, x, _, mask = full
     n, hidden = h.shape[1], act.shape[-1]
     bias = (module.edge_mlp if stage == "gcl" else module.coord_mlp)[2].bias
@@ -219,7 +240,10 @@ def _row_grid_stage(module, stage, full, product):
             total = total + terms[:, :, j]
     total = total / egnn_tiled._divisor(cfg, n)
     if stage == "gcl":
-        return (h + module.node_mlp(torch.cat([h, total], dim=-1))) * mask
+        nl0, nl2 = module.node_mlp[0], module.node_mlp[2]
+        hag = torch.cat([h, total], dim=-1).reshape(-1, 2 * hidden)
+        u = F.silu(product(hag, nl0.weight.T) + nl0.bias)
+        return (h + (product(u, nl2.weight.T) + nl2.bias).reshape(h.shape)) * mask
     return (x + total) * mask
 
 
@@ -250,7 +274,7 @@ def test_row_grid_w2_product_in_one_tf32_fails_the_gate(stage):
     egnn, _, _, arrays = _geom_stages("sum")
     with torch.no_grad():
         act, w2t, _, _ = _w2_operands(_stage_module(egnn, stage), stage,
-                                      tuple(t(a) for a in arrays))
+                                      tuple(t(a) for a in arrays), egnn_block.split_tf32_matmul)
         a = act.reshape(-1, GEOM_H)
         err3, ref = _err(egnn_block.split_tf32_matmul(a, w2t), a, w2t)
         err1, _ = _err(_one_tf32(a, w2t), a, w2t)
@@ -368,15 +392,9 @@ def _row_grid_stage_bwd(module, stage, full, g_out, transposed=egnn_block.split_
     w1, w2 = lin0.weight, lin2.weight
     w1s, w1d, w1e = w1[:, :hid], w1[:, hid:2 * hid], w1[:, 2 * hid:]
     div = egnn_tiled._divisor(cfg, n)
-    act, cd, emask = egnn_tiled._row_slab(cfg, lin0, full, full, 0, 0, n)
-    diff = x[:, :, None] - x[:, None]
-    diff0 = x0[:, :, None] - x0[:, None]
-    r = (diff * diff).sum(-1, keepdim=True)
-    r0 = (diff0 * diff0).sum(-1, keepdim=True)
-    feats = torch.cat([r, r0], dim=-1)
-    del act
-    pre = ((mm_(h.reshape(-1, hid), w1s.T).reshape(b, n, 1, hid)
-            + mm_(h.reshape(-1, hid), w1d.T).reshape(b, 1, n, hid)) + feats @ w1e.T + lin0.bias)
+    _, cd, emask = egnn_tiled._row_slab(cfg, lin0, full, full, 0, 0, n)
+    pre, feats, diff, diff0 = _edge_pre(lin0, full, mm_)
+    r = feats[..., :1]
     a = F.silu(pre)
     mmv = mm_(a.reshape(-1, hid), w2.T).reshape(a.shape) + lin2.bias
     m = F.silu(mmv)
